@@ -1,0 +1,116 @@
+"""tfhe_tpu_torch stands alone: it imports with JAX blocked, no source of
+the port (nor chip_smoke.py) imports jax or tfhe_tpu, and its entry points
+run on CUDA unless asked for the CPU, raising where there is no GPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tfhe_tpu_torch
+from tfhe_tpu_torch import shortint
+from tfhe_tpu_torch.ops import ntt, torus
+from tfhe_tpu_torch.utils.device import resolve_device
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted(
+    str(p.relative_to(REPO))
+    for p in (REPO / "tfhe_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+
+# an import statement naming jax/jaxlib or the JAX package (not the port)
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|tfhe_tpu(?!_torch))\b", re.M)
+_FORBIDDEN_DYNAMIC = re.compile(
+    r"import_module\(\s*['\"](?:jax|jaxlib|tfhe_tpu(?!_torch))\b")
+
+SCRIPT = r"""
+import importlib.abc
+import sys
+
+class _Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "tfhe_tpu"):
+            raise ImportError(f"{name} blocked: the port must not need it")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+for m in list(sys.modules):
+    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu"):
+        del sys.modules[m]
+
+import tfhe_tpu_torch
+from tfhe_tpu_torch import shortint
+from tfhe_tpu_torch.ops import kernels, server, ntt, torus, bsk_prep
+
+p = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
+ck = shortint.ClientKey(p, seed=3)
+assert ck.decrypt(ck.encrypt(2)) == 2
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
+               for m in sys.modules)
+print("PORT-ISOLATED OK")
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                         text=True, timeout=300, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PORT-ISOLATED OK" in out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_source_imports_neither_jax_nor_tfhe_tpu(path):
+    text = (REPO / path).read_text()
+    assert not _FORBIDDEN.findall(text), path
+    assert not _FORBIDDEN_DYNAMIC.findall(text), path
+
+
+def test_version_and_package_doc():
+    assert tfhe_tpu_torch.__version__
+    assert "tfhe_tpu" in tfhe_tpu_torch.__doc__
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    """Pretend the host has no CUDA device, whatever it has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def client_key():
+    return shortint.ClientKey(shortint.TEST_PARAM_MESSAGE_2_CARRY_2, seed=5)
+
+
+def test_server_key_default_device_raises(no_gpu, client_key):
+    with pytest.raises(RuntimeError, match="cuda"):
+        shortint.ServerKey(client_key, seed=6)
+
+
+def test_from_raw_keys_default_device_raises(no_gpu):
+    p = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
+    with pytest.raises(RuntimeError, match="cuda"):
+        shortint.ServerKey.from_raw_keys(p, None, None)
+
+
+def test_gen_keys_default_device_raises(no_gpu):
+    with pytest.raises(RuntimeError, match="cuda"):
+        shortint.gen_keys(shortint.TEST_PARAM_MESSAGE_2_CARRY_2, seed=1)
+
+
+def test_cpu_is_taken_only_when_asked(no_gpu, client_key):
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    sk = shortint.ServerKey(client_key, seed=6, device="cpu")
+    assert sk.device.type == "cpu" and sk.ksk.device.type == "cpu"
+    assert sk.bsk_ntt.device.type == "cpu" and not sk.trunc_acc
+
+
+def test_device_plan_lives_on_the_asked_device():
+    dp = ntt.device_plan(ntt.make_plan(64, 4), "cpu")
+    assert dp.psi.device.type == "cpu" and dp.kernel_consts.numel() == 44
+    assert torus.from_u64([1, 2], "cpu").dtype == torch.int64

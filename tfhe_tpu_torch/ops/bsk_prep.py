@@ -1,0 +1,52 @@
+"""Host-side preparation of the coefficient-domain bootstrapping key for the
+v7 blind rotation: mask flooring at key generation and centered rounding.
+
+Counterpart: tfhe_tpu/ops/mxu.py ``mask_floor_bsk`` and ``round_bsk``
+(:201-274).  Both packages must hold the same key bytes, so the flooring
+keeps tfhe_tpu's float64 matrix product, which is exact here
+(|sum| <= N * 2^rb < 2^53).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.entities import LweBootstrapKey
+
+
+def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int) -> LweBootstrapKey:
+    """Exact, phase-preserving move of each GLWE row's low mask bits into its
+    body: r_j = a_j mod 2^rb, a'_j = a_j - r_j, b' = b - sum_j r_j (*) s_j
+    (negacyclic, mod 2^64).  b' - <a', s> = b - <a, s>, so no noise is added
+    and a later ``round_bsk`` only perturbs the body.  Needs the GLWE secret
+    key, so it runs at key generation."""
+    data = np.asarray(bsk.data)
+    n = data.shape[-1]
+    k = data.shape[3] - 1
+    low = data[..., :k, :] & np.uint64((1 << round_bits) - 1)
+    out = data.copy()
+    out[..., :k, :] -= low
+    corr = np.zeros(data.shape[:3] + (n,), dtype=np.uint64)
+    idx = np.arange(n)
+    assert round_bits + 11 < 52
+    for j in range(k):
+        s = glwe_sk.data[j].astype(np.int64)
+        # negacyclic circulant: mat[i, o] = sign * s[o - i mod n]
+        mat = s[(idx[None, :] - idx[:, None]) % n].astype(np.float64)
+        mat = mat * np.where(idx[None, :] < idx[:, None], -1.0, 1.0)
+        r = low[..., j, :].reshape(-1, n).astype(np.float64)
+        prod = r @ mat
+        corr += prod.astype(np.int64).astype(np.uint64).reshape(corr.shape)
+    out[..., k, :] -= corr
+    return LweBootstrapKey(out, bsk.decomp)
+
+
+def round_bsk(bsk: LweBootstrapKey, round_bits: int) -> LweBootstrapKey:
+    """Centered-round every coefficient to a multiple of 2^round_bits (mod
+    2^64): the v7 key.  The exact external product on this key is what the
+    TPU's 3-prime rounded-key kernel computes."""
+    half = np.uint64(1 << (round_bits - 1))
+    mask = np.uint64((1 << round_bits) - 1)
+    with np.errstate(over="ignore"):
+        d = (bsk.data.astype(np.uint64) + half) & ~mask
+    return LweBootstrapKey(d, bsk.decomp)

@@ -1,0 +1,162 @@
+"""The hand-written CUDA kernels of the KS->PBS path: build, load, wrappers.
+
+K1 ``keyswitch`` (csrc/keyswitch.cu) and K2 ``blind_rotate``
+(csrc/blind_rotate.cu) are compiled with nvcc for sm_90a into shared
+libraries with a plain C interface at first use (utils/build.py, both
+compilers started together) and called through ctypes on PyTorch's current
+stream.
+
+Each wrapper runs its plain PyTorch version (ops/server.py) when given CPU
+tensors, and launches its kernel on CUDA tensors or raises: there is no
+fallback.  ``<wrapper>.launches`` counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.build import CSRC, build_shared_libraries
+from . import server
+from .ntt import KERNEL_CONSTS_LEN, KERNEL_PRIMES, DevicePlan
+
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
+_NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu"}
+
+
+class _Libs:
+    loaded = None      # {"keyswitch": CDLL, "blind_rotate": CDLL}
+
+
+def nvcc_command() -> list:
+    """The nvcc invocation the kernels are built with (PATH, then the
+    toolkit's default /usr/local/cuda/bin)."""
+    import os
+    import shutil
+
+    if shutil.which("nvcc"):
+        return _NVCC
+    cuda_nvcc = os.path.join("/usr/local/cuda/bin", "nvcc")
+    if os.path.exists(cuda_nvcc):
+        return [cuda_nvcc] + _NVCC[1:]
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def source_paths() -> list:
+    """The kernel sources, relative to the checkout."""
+    return [str((CSRC / src).relative_to(CSRC.parents[1]))
+            for src in _SOURCES.values()]
+
+
+def load() -> dict:
+    """Build (first use only) and load both kernel libraries."""
+    if _Libs.loaded is None:
+        cmd = nvcc_command()
+        paths = build_shared_libraries(
+            [(f"tfhe_torch_{name}", [CSRC / src], cmd)
+             for name, src in _SOURCES.items()])
+        libs = {name: ctypes.CDLL(str(p)) for name, p in zip(_SOURCES, paths)}
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn = libs["keyswitch"].tfhe_torch_keyswitch
+        fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate
+        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
+        fn.argtypes = [i] * 3
+        fn.restype = i
+        _Libs.loaded = libs
+    return _Libs.loaded
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _check_cuda(*tensors_and_dtypes) -> None:
+    dev = tensors_and_dtypes[0][0].device
+    for t, dtype in tensors_and_dtypes:
+        _require(t.device == dev, f"tensors on {t.device} and {dev}")
+        _require(t.dtype == dtype, f"expected {dtype}, got {t.dtype}")
+        _require(t.is_contiguous(), "kernel inputs must be contiguous")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def keyswitch(ct, ksk, base_log: int, levels: int):
+    """K1: batched LWE keyswitch (see ops/server.py keyswitch).
+
+    ct: (B, n_in+1) int64; ksk: (n_in, l, n_out+1) int64."""
+    if ct.device.type == "cpu":
+        return server.keyswitch(ct, ksk, base_log, levels)
+    _require(ct.device.type == "cuda", f"no keyswitch kernel for {ct.device}")
+    ct, ksk = ct.contiguous(), ksk.contiguous()
+    _check_cuda((ct, torch.int64), (ksk, torch.int64))
+    b, w = ct.shape
+    n_in, lev, m_out = ksk.shape
+    _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
+    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
+    err = load()["keyswitch"].tfhe_torch_keyswitch(
+        out.data_ptr(), ct.data_ptr(), ksk.data_ptr(), b, n_in, levels, m_out,
+        base_log, _stream(ct))
+    _raise_on(err, "keyswitch")
+    keyswitch.launches += 1
+    return out
+
+
+keyswitch.launches = 0
+
+
+def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
+                 base_log: int, levels: int, trunc_acc: bool = False):
+    """K2: batched classic blind rotation (see ops/server.py blind_rotate).
+
+    msed_mask: (B, n) in [0, 2N); msed_body: (B,); lut: (B, k+1, N) int64;
+    bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery NTT-domain key."""
+    if msed_mask.device.type == "cpu":
+        return server.blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp,
+                                   base_log, levels, trunc_acc)
+    _require(msed_mask.device.type == "cuda",
+             f"no blind-rotation kernel for {msed_mask.device}")
+    b, n_steps = msed_mask.shape
+    k1, n_poly = lut.shape[1], lut.shape[2]
+    nprimes = dp.num_primes
+    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, nprimes, n_poly),
+             f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
+    _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "the kernel takes a 4-prime plan and a power-of-two N")
+    _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
+    lib = load()["blind_rotate"]
+    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
+    _require(smem <= SMEM_LIMIT,
+             f"accumulator and residues need {smem} B of shared memory")
+    acc = server.initial_accumulator(lut, msed_body, trunc_acc).contiguous()
+    mask32 = msed_mask.to(torch.int32).contiguous()
+    bsk_ntt = bsk_ntt.contiguous()
+    _check_cuda((acc, torch.int64), (mask32, torch.int32),
+                (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
+                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
+    err = lib.tfhe_torch_blind_rotate(
+        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
+        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
+        dp.kernel_consts.data_ptr(), b, n_steps, k1,
+        n_poly.bit_length() - 1, levels, nprimes, base_log, int(trunc_acc),
+        _stream(acc))
+    _raise_on(err, "blind_rotate")
+    blind_rotate.launches += 1
+    return acc
+
+
+blind_rotate.launches = 0

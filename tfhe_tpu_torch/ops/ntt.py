@@ -1,0 +1,412 @@
+"""Exact negacyclic polynomial multiplication mod 2^64 via CRT-NTT.
+
+The port of tfhe_tpu/ops/ntt.py, with the same primes, twiddle order,
+Montgomery constants and Garner constants, so every NTT-domain value (the
+bootstrapping key above all) is the same u32 in both packages:
+
+  - Primes p < 2^30 with 2^14 | p-1, descending (Garner needs p_0 < 2 p_j).
+  - Montgomery arithmetic with R = 2^32: twiddles and constants are stored in
+    Montgomery form, data stays in the normal domain, every modmul is one
+    REDC.
+  - Forward: Cooley-Tukey DIT, natural -> bit-reversed, psi twist merged into
+    the twiddles; inverse: Gentleman-Sande, bit-reversed -> natural, times
+    N^-1.
+  - Garner reconstructs a SIGNED integer |X| < P/2 mod 2^64.
+
+Two halves: numpy on the host (key generation and encryption, uint64), and
+torch on int64 tensors (the plain versions the CUDA kernels are held
+against, and the CPU path).  All residues stay below 2^31 and a Montgomery
+product below 2^63, so int64 holds every intermediate without a sign
+problem; only Garner's final sum wraps, which is the mod-2^64 result.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .torus import s64
+
+PRIMES = (1073692673, 1073643521, 1073479681, 1073430529,
+          1073299457, 1073233921, 1073184769, 1073135617)
+
+_U64 = np.uint64
+_MASK32 = _U64(0xFFFFFFFF)
+_R_BITS = _U64(32)
+
+
+def _find_generator(p: int) -> int:
+    n = p - 1
+    factors = set()
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            factors.add(d)
+            n //= d
+        d += 1
+    if n > 1:
+        factors.add(n)
+    for g in range(2, 1000):
+        if all(pow(g, (p - 1) // f, p) != 1 for f in factors):
+            return g
+    raise RuntimeError("no generator found")
+
+
+def _bitrev_indices(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+@dataclass(frozen=True, eq=False)
+class NttPlan:
+    n: int
+    primes: tuple
+    ps: np.ndarray                # (P, 1) uint64
+    pinvs: np.ndarray             # (P, 1) -p^-1 mod 2^32
+    r2s: np.ndarray               # (P, 1) R^2 mod p
+    n_invs: np.ndarray            # (P, 1) N^-1 in Montgomery form
+    psi_br_stack: np.ndarray      # (P, N) psi^bitrev, Montgomery form
+    psi_inv_br_stack: np.ndarray  # (P, N)
+
+    @property
+    def num_primes(self) -> int:
+        return len(self.primes)
+
+
+@lru_cache(maxsize=None)
+def make_plan(n: int, num_primes: int = 4) -> NttPlan:
+    assert n & (n - 1) == 0, "N must be a power of two"
+    primes = PRIMES[:num_primes]
+    rev = _bitrev_indices(n)
+    cols = {k: [] for k in ("p", "pinv", "r2", "ninv", "psi", "psi_inv")}
+    for p in primes:
+        assert (p - 1) % (2 * n) == 0, f"prime {p} does not support size {n}"
+        g = _find_generator(p)
+        psi = pow(g, (p - 1) // (2 * n), p)
+        assert pow(psi, n, p) == p - 1
+        psi_inv = pow(psi, p - 2, p)
+        r = (1 << 32) % p
+        cols["p"].append(p)
+        cols["pinv"].append(((1 << 32) - pow(p, -1, 1 << 32)) % (1 << 32))
+        cols["r2"].append(r * r % p)
+        cols["ninv"].append(pow(n, p - 2, p) * r % p)
+        cols["psi"].append([pow(psi, int(e), p) * r % p for e in rev])
+        cols["psi_inv"].append([pow(psi_inv, int(e), p) * r % p for e in rev])
+    col = lambda k: np.array(cols[k], dtype=np.uint64).reshape(-1, 1)  # noqa: E731
+    return NttPlan(
+        n=n, primes=primes, ps=col("p"), pinvs=col("pinv"), r2s=col("r2"),
+        n_invs=col("ninv"),
+        psi_br_stack=np.array(cols["psi"], dtype=np.uint64),
+        psi_inv_br_stack=np.array(cols["psi_inv"], dtype=np.uint64),
+    )
+
+
+@lru_cache(maxsize=None)
+def garner_consts(primes: tuple) -> dict:
+    """Garner mixed-radix constants as Python ints (division-free
+    reconstruction): Montgomery inverses, partial products mod p_j, partial
+    products mod 2^64, P mod 2^64 and the mixed-radix digits of floor(P/2)
+    for the sign test."""
+    k = len(primes)
+    r = 1 << 32
+    c = {"inv_mont": {}, "pm_mont": {}}
+    for j in range(1, k):
+        pj = primes[j]
+        prod = 1
+        for i in range(j):
+            prod = prod * primes[i] % pj
+            c["pm_mont"][(i, j)] = prod * r % pj
+        c["inv_mont"][j] = pow(prod, -1, pj) * r % pj
+    c["prods64"] = []
+    acc = 1
+    for p in primes:
+        c["prods64"].append(acc & ((1 << 64) - 1))
+        acc *= p
+    c["P_mod64"] = acc & ((1 << 64) - 1)
+    half = acc // 2
+    c["half_digits"] = []
+    for p in primes:
+        c["half_digits"].append(half % p)
+        half //= p
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy uint64): key generation and encryption
+# ---------------------------------------------------------------------------
+
+
+def _mont_mul_np(a, b_mont, p, pinv):
+    t = a * b_mont
+    m = ((t & _MASK32) * pinv) & _MASK32
+    u = (t + m * p) >> _R_BITS
+    return np.where(u >= p, u - p, u)
+
+
+def _np_add(a, b, p):
+    s = a + b
+    return np.where(s >= p, s - p, s)
+
+
+def _np_sub(a, b, p):
+    d = a + p - b
+    return np.where(d >= p, d - p, d)
+
+
+def _forward_np(x, plan: NttPlan):
+    """(..., P, N) residues -> NTT domain (bit-reversed), all primes."""
+    n, np_ = plan.n, plan.num_primes
+    batch = x.shape[:-2]
+    ones = (1,) * len(batch)
+    p = plan.ps.reshape(ones + (np_, 1, 1))
+    pinv = plan.pinvs.reshape(ones + (np_, 1, 1))
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        xv = x.reshape(batch + (np_, m, 2, t))
+        u = xv[..., 0, :]
+        s = plan.psi_br_stack[:, m:2 * m].reshape(ones + (np_, m, 1))
+        v = _mont_mul_np(xv[..., 1, :], s, p, pinv)
+        x = np.stack([_np_add(u, v, p), _np_sub(u, v, p)], axis=-2
+                     ).reshape(batch + (np_, n))
+        m *= 2
+    return x
+
+
+def _inverse_np(x, plan: NttPlan):
+    n, np_ = plan.n, plan.num_primes
+    batch = x.shape[:-2]
+    ones = (1,) * len(batch)
+    p = plan.ps.reshape(ones + (np_, 1, 1))
+    pinv = plan.pinvs.reshape(ones + (np_, 1, 1))
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        xv = x.reshape(batch + (np_, h, 2, t))
+        u, v = xv[..., 0, :], xv[..., 1, :]
+        s = plan.psi_inv_br_stack[:, h:2 * h].reshape(ones + (np_, h, 1))
+        x = np.stack([_np_add(u, v, p),
+                      _mont_mul_np(_np_sub(u, v, p), s, p, pinv)], axis=-2
+                     ).reshape(batch + (np_, n))
+        t *= 2
+        m = h
+    return _mont_mul_np(x, plan.n_invs, plan.ps, plan.pinvs)
+
+
+def forward_all(x, plan: NttPlan):
+    """(..., N) uint64 -> (..., P, N) NTT-domain residues (normal form)."""
+    res = np.stack([x % _U64(p) for p in plan.primes], axis=-2)
+    return _forward_np(res, plan)
+
+
+def to_mont_all(x_ntt, plan: NttPlan):
+    """NTT-domain residues (..., P, N) -> Montgomery form."""
+    return _mont_mul_np(x_ntt, plan.r2s, plan.ps, plan.pinvs)
+
+
+def _garner_np(residues, plan: NttPlan):
+    c = garner_consts(plan.primes)
+    k = plan.num_primes
+    a = [residues[..., 0, :]]
+    for j in range(1, k):
+        pj = _U64(plan.primes[j])
+        pinv = plan.pinvs[j, 0]
+        v = np.where(a[0] >= pj, a[0] - pj, a[0])
+        for i in range(1, j):
+            v = v + _mont_mul_np(a[i], _U64(c["pm_mont"][(i - 1, j)]), pj, pinv)
+            v = np.where(v >= pj, v - pj, v)
+        r = residues[..., j, :]
+        d = np.where(r >= v, r - v, r + pj - v)
+        a.append(_mont_mul_np(d, _U64(c["inv_mont"][j]), pj, pinv))
+    out = a[0]
+    for i in range(1, k):
+        out = out + a[i] * _U64(c["prods64"][i])
+    h = c["half_digits"]
+    is_neg = a[0] > _U64(h[0])
+    for i in range(1, k):
+        is_neg = (a[i] > _U64(h[i])) | ((a[i] == _U64(h[i])) & is_neg)
+    return np.where(is_neg, out - _U64(c["P_mod64"]), out)
+
+
+def negacyclic_polymul_u64(a, b, plan: NttPlan):
+    """Exact negacyclic product mod 2^64 of uint64 polynomials, correct when
+    every exact output coefficient (unsigned representatives) has
+    |X| < P/2 — e.g. a binary secret key times a torus polynomial."""
+    with np.errstate(over="ignore"):
+        fa = forward_all(a, plan)
+        fb = to_mont_all(forward_all(b, plan), plan)
+        prod = _mont_mul_np(fa, fb, plan.ps, plan.pinvs)
+        return _garner_np(_inverse_np(prod, plan), plan)
+
+
+# ---------------------------------------------------------------------------
+# Device (torch int64): plain versions of the blind-rotation arithmetic
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True, eq=False)
+class DevicePlan:
+    """An NttPlan's tables on one device: int64 for the torch code, u32
+    twiddles and one packed int64 constant table for the CUDA kernel."""
+
+    plan: NttPlan
+    ps: torch.Tensor          # (P, 1) int64
+    pinvs: torch.Tensor
+    n_invs: torch.Tensor
+    psi: torch.Tensor         # (P, N) int64
+    psi_inv: torch.Tensor
+    psi32: torch.Tensor       # (P, N) int32 (values < 2^30)
+    psi_inv32: torch.Tensor
+    kernel_consts: torch.Tensor  # (KERNEL_CONSTS_LEN,) int64, see below
+
+    @property
+    def n(self) -> int:
+        return self.plan.n
+
+    @property
+    def num_primes(self) -> int:
+        return self.plan.num_primes
+
+
+# Packed constant table read by csrc/blind_rotate.cu (struct layout there):
+# [0:4] p, [4:8] -p^-1 mod 2^32, [8:12] N^-1 (Montgomery), [12:16] Garner
+# inverse for prime j (slot j), [16:32] partial product (i, j) at 16+4i+j,
+# [32:36] partial products mod 2^64, [36] P mod 2^64, [40:44] digits of P/2.
+KERNEL_PRIMES = 4
+KERNEL_CONSTS_LEN = 44
+
+
+def _kernel_consts(plan: NttPlan) -> np.ndarray:
+    assert plan.num_primes <= KERNEL_PRIMES
+    c = garner_consts(plan.primes)
+    out = np.zeros(KERNEL_CONSTS_LEN, dtype=np.int64)
+    for i, p in enumerate(plan.primes):
+        out[i] = p
+        out[4 + i] = int(plan.pinvs[i, 0])
+        out[8 + i] = int(plan.n_invs[i, 0])
+        out[32 + i] = s64(c["prods64"][i])
+        out[40 + i] = c["half_digits"][i]
+    for j, v in c["inv_mont"].items():
+        out[12 + j] = v
+    for (i, j), v in c["pm_mont"].items():
+        out[16 + 4 * i + j] = v
+    out[36] = s64(c["P_mod64"])
+    return out
+
+
+@lru_cache(maxsize=None)
+def device_plan(plan: NttPlan, device: str) -> DevicePlan:
+    """Upload an NttPlan's tables to ``device`` once (cached per device)."""
+    t = lambda a, dt=torch.int64: torch.from_numpy(  # noqa: E731
+        np.asarray(a).astype(np.int64)).to(device=device, dtype=dt)
+    return DevicePlan(
+        plan=plan, ps=t(plan.ps), pinvs=t(plan.pinvs), n_invs=t(plan.n_invs),
+        psi=t(plan.psi_br_stack), psi_inv=t(plan.psi_inv_br_stack),
+        psi32=t(plan.psi_br_stack, torch.int32),
+        psi_inv32=t(plan.psi_inv_br_stack, torch.int32),
+        kernel_consts=t(_kernel_consts(plan)),
+    )
+
+
+def mont_mul(a, b_mont, p, pinv):
+    """REDC32 on int64 tensors: a * b mod p for a, b < 2^31; result < p."""
+    t = a * b_mont
+    m = ((t & _M32) * pinv) & _M32
+    u = (t + m * p) >> 32
+    return torch.where(u >= p, u - p, u)
+
+
+def add_mod(a, b, p):
+    s = a + b
+    return torch.where(s >= p, s - p, s)
+
+
+def sub_mod(a, b, p):
+    d = a + p - b
+    return torch.where(d >= p, d - p, d)
+
+
+def _bcast(dp: DevicePlan, nb: int):
+    shape = (1,) * nb + (dp.num_primes, 1, 1)
+    return dp.ps.reshape(shape), dp.pinvs.reshape(shape)
+
+
+def ntt_forward(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., P, N) int64 residues, natural order -> NTT domain, bit-reversed."""
+    n, np_ = dp.n, dp.num_primes
+    batch = tuple(x.shape[:-2])
+    p, pinv = _bcast(dp, len(batch))
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        xv = x.reshape(batch + (np_, m, 2, t))
+        u = xv[..., 0, :]
+        s = dp.psi[:, m:2 * m].reshape((1,) * len(batch) + (np_, m, 1))
+        v = mont_mul(xv[..., 1, :], s, p, pinv)
+        x = torch.stack([add_mod(u, v, p), sub_mod(u, v, p)], dim=-2
+                        ).reshape(batch + (np_, n))
+        m *= 2
+    return x
+
+
+def ntt_inverse(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., P, N) NTT domain, bit-reversed -> natural order, times N^-1."""
+    n, np_ = dp.n, dp.num_primes
+    batch = tuple(x.shape[:-2])
+    p, pinv = _bcast(dp, len(batch))
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        xv = x.reshape(batch + (np_, h, 2, t))
+        u, v = xv[..., 0, :], xv[..., 1, :]
+        s = dp.psi_inv[:, h:2 * h].reshape((1,) * len(batch) + (np_, h, 1))
+        x = torch.stack([add_mod(u, v, p),
+                         mont_mul(sub_mod(u, v, p), s, p, pinv)], dim=-2
+                        ).reshape(batch + (np_, n))
+        t *= 2
+        m = h
+    return mont_mul(x, dp.n_invs, dp.ps, dp.pinvs)
+
+
+def pointwise_mul_mont(a_normal, b_mont, dp: DevicePlan):
+    """(..., P, N) x (..., P, N Montgomery) -> (..., P, N) normal domain."""
+    return mont_mul(a_normal, b_mont, dp.ps, dp.pinvs)
+
+
+def add_mod_stacked(a, b, dp: DevicePlan):
+    return add_mod(a, b, dp.ps)
+
+
+def garner_to_u64(residues: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., P, N) residues of a signed integer |X| < P/2 -> X mod 2^64 as
+    (..., N) int64 (tfhe_tpu/ops/ntt.py garner_to_u64)."""
+    primes = dp.plan.primes
+    c = garner_consts(primes)
+    pinvs = [int(v) for v in dp.plan.pinvs[:, 0]]
+    a = [residues[..., 0, :]]
+    for j in range(1, len(primes)):
+        pj = primes[j]
+        v = torch.where(a[0] >= pj, a[0] - pj, a[0])
+        for i in range(1, j):
+            v = v + mont_mul(a[i], c["pm_mont"][(i - 1, j)], pj, pinvs[j])
+            v = torch.where(v >= pj, v - pj, v)
+        r = residues[..., j, :]
+        d = torch.where(r >= v, r - v, r + pj - v)
+        a.append(mont_mul(d, c["inv_mont"][j], pj, pinvs[j]))
+    out = a[0]
+    for i in range(1, len(primes)):
+        out = out + a[i] * s64(c["prods64"][i])
+    h = c["half_digits"]
+    is_neg = a[0] > h[0]
+    for i in range(1, len(primes)):
+        is_neg = (a[i] > h[i]) | ((a[i] == h[i]) & is_neg)
+    return torch.where(is_neg, out - s64(c["P_mod64"]), out)

@@ -1,0 +1,266 @@
+"""Batched server-side compute path on int64 torus tensors.
+
+The port of tfhe_tpu/ops/server.py for the classic KS->PBS atomic pattern.
+Each function here is the plain PyTorch version of its tfhe_tpu namesake:
+the same exact integer arithmetic, so outputs are the same u64 words.
+``keyswitch`` and ``blind_rotate`` are also the plain versions of the two
+CUDA kernels (ops/kernels.py): ``ks_pbs_batch`` goes through the kernel
+wrappers, which run these plain versions for CPU tensors.
+
+Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
+u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
+is int64 ``>>``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import kernels, ntt
+from .torus import s64, shr
+
+_HI32 = s64(0xFFFFFFFF00000000)
+_HALF32 = 1 << 31
+
+
+# ---------------------------------------------------------------------------
+# Signed gadget decomposition (tfhe_tpu/ops/server.py:41-75)
+# ---------------------------------------------------------------------------
+
+
+def init_decomposer_state(x, base_log: int, levels: int):
+    """Closest-representable rounding with balanced tie-breaking
+    (decomposer.rs:156-185)."""
+    rep = base_log * levels
+    nonrep = 64 - rep
+    res = shr(x, nonrep - 1)
+    rounding_bit = res & 1
+    res = shr(res + 1, 1)
+    res = res & ((1 << rep) - 1)
+    nb = shr(((res - 1) | (rounding_bit << (rep - 1))) & res, rep - 1)
+    return res - (nb << rep)
+
+
+def signed_decompose(x, base_log: int, levels: int):
+    """(levels, ...) signed digits, lowest level first, |digit| <= B/2."""
+    state = init_decomposer_state(x, base_log, levels)
+    mask = (1 << base_log) - 1
+    digits = []
+    for _ in range(levels):
+        res = state & mask
+        state = state >> base_log           # arithmetic, as the reference
+        carry = shr(((res - 1) | state) & res, base_log - 1)
+        state = state + carry
+        digits.append(res - (carry << base_log))
+    return torch.stack(digits, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Keyswitch (plain version of K1)
+# ---------------------------------------------------------------------------
+
+
+def _matmul_wrapping(a, b, max_elems: int = 1 << 25):
+    """(B, K) x (K, M) int64 product mod 2^64, as a chunked multiply-reduce
+    (torch has no int64 matmul on CUDA)."""
+    bsz, kdim = a.shape
+    m = b.shape[1]
+    chunk = max(1, max_elems // max(1, bsz * m))
+    acc = torch.zeros((bsz, m), dtype=torch.int64, device=a.device)
+    for s in range(0, kdim, chunk):
+        acc += (a[:, s:s + chunk, None] * b[None, s:s + chunk, :]).sum(dim=1)
+    return acc
+
+
+def keyswitch(ct, ksk, base_log: int, levels: int):
+    """Batched LWE keyswitch (tfhe_tpu/ops/server.py:84).
+
+    ct: (B, n_in+1) int64; ksk: (n_in, l, n_out+1) int64.
+    out = (0, ..., 0, body) - sum_{i,lev} digit_{i,lev}(ct[b, i]) * ksk[i, lev]
+    """
+    digits = signed_decompose(ct[:, :-1], base_log, levels)   # (l, B, n_in)
+    b = ct.shape[0]
+    d = digits.permute(1, 2, 0).reshape(b, -1)                 # (B, n_in*l)
+    acc = _matmul_wrapping(d, ksk.reshape(-1, ksk.shape[-1]))
+    out = -acc
+    out[:, -1] += ct[:, -1]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Modulus switch
+# ---------------------------------------------------------------------------
+
+
+def modulus_switch(x, log_modulus: int):
+    """(x + half) >> (64 - log_modulus): values in [0, 2^log_modulus)."""
+    return shr(x + (1 << (63 - log_modulus)), 64 - log_modulus)
+
+
+def centered_binary_ms_correction(ct, log_modulus: int):
+    """Body correction of the centered-binary modulus switch
+    (tfhe_tpu/ops/server.py:257; modulus_switch.rs:57-120)."""
+    mask = ct[..., :-1]
+    shift = 64 - log_modulus
+    err = (modulus_switch(mask, log_modulus) << shift) - mask
+    half_err = torch.div(err, 2, rounding_mode="floor")
+    # i64 division truncates toward zero: floor + 1 for odd negatives
+    half_err = torch.where((err < 0) & (torch.remainder(err, 2) != 0),
+                           half_err + 1, half_err)
+    halving_err_doubled = err - 2 * half_err
+    correction = (half_err.sum(dim=-1)
+                  + torch.div(halving_err_doubled.sum(dim=-1), 2,
+                              rounding_mode="floor"))
+    return correction - (1 << (shift - 1))
+
+
+# ---------------------------------------------------------------------------
+# Negacyclic monomial rotations
+# ---------------------------------------------------------------------------
+
+
+def _roll_right(x, shift):
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    src = torch.remainder(idx - shift, n)
+    return torch.gather(x, -1, src.expand(x.shape))
+
+
+def monomial_mul(poly, degree):
+    """poly * X^degree (negacyclic), degree an int64 tensor in [0, 2N)
+    broadcastable to poly's leading dimensions."""
+    n = poly.shape[-1]
+    cycles, r = degree // n, degree % n
+    rotated = _roll_right(poly, r)
+    idx = torch.arange(n, device=poly.device)
+    out = torch.where(idx < r, -rotated, rotated)
+    return torch.where(cycles % 2 == 1, -out, out)
+
+
+def monomial_div(poly, degree):
+    """poly / X^degree (negacyclic): rotate left, negate the last r entries."""
+    n = poly.shape[-1]
+    cycles, r = degree // n, degree % n
+    rotated = _roll_right(poly, torch.remainder(n - r, n))
+    idx = torch.arange(n, device=poly.device)
+    flip = (idx >= torch.remainder(n - r, n)) & (r != 0)
+    out = torch.where(flip, -rotated, rotated)
+    return torch.where(cycles % 2 == 1, -out, out)
+
+
+# ---------------------------------------------------------------------------
+# External product & blind rotation (plain version of K2)
+# ---------------------------------------------------------------------------
+
+
+def _digits_to_residues(digits, dp: ntt.DevicePlan):
+    """Signed digits (|d| < p) -> (..., P, N) residues: d or p + d."""
+    neg = digits < 0
+    return torch.stack([torch.where(neg, p + digits, digits)
+                        for p in dp.plan.primes], dim=-2)
+
+
+def external_product(glwe, ggsw, dp: ntt.DevicePlan, base_log: int,
+                     levels: int):
+    """GGSW (x) GLWE, exact: glwe (B, k+1, N) int64; ggsw (l, k+1, k+1, P, N)
+    Montgomery NTT domain.  Returns the (B, k+1, N) product to add to the
+    accumulator (tfhe_tpu/ops/server.py:342)."""
+    digits = signed_decompose(glwe, base_log, levels)        # (l, B, k+1, N)
+    fwd = ntt.ntt_forward(_digits_to_residues(digits, dp), dp)
+    key = ggsw.to(torch.int64)
+    acc = None
+    for lev in range(levels):
+        for r in range(key.shape[1]):
+            prod = ntt.pointwise_mul_mont(fwd[lev][:, r, None], key[lev][r][None], dp)
+            acc = prod if acc is None else ntt.add_mod_stacked(acc, prod, dp)
+    return ntt.garner_to_u64(ntt.ntt_inverse(acc, dp), dp)
+
+
+def _round_to_hi32(x):
+    return (x + _HALF32) & _HI32
+
+
+def initial_accumulator(lut, msed_body, trunc_acc: bool):
+    """LUT / X^body, rounded to the 2^32 grid in v7 mode."""
+    acc = monomial_div(lut, msed_body[:, None, None])
+    return _round_to_hi32(acc) if trunc_acc else acc
+
+
+def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
+                 base_log: int, levels: int, trunc_acc: bool = False):
+    """Batched classic blind rotation.
+
+    msed_mask: (B, n) int64 in [0, 2N); msed_body: (B,); lut: (B, k+1, N);
+    bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery NTT-domain key.
+
+    trunc_acc=False is the exact rotation (tfhe_tpu/ops/server.py:367).
+    trunc_acc=True on a ``round_bsk``-rounded key is the v7 function
+    (tfhe_tpu/ops/mxu.py:910 blind_rotate_mxu_trunc): the initial
+    accumulator and each step's product rounded to the 2^32 grid.
+    """
+    acc = initial_accumulator(lut, msed_body, trunc_acc)
+    for i in range(msed_mask.shape[1]):
+        a_i = msed_mask[:, i, None, None]
+        ct1 = monomial_mul(acc, a_i) - acc
+        prod = external_product(ct1, bsk_ntt[i], dp, base_log, levels)
+        acc = acc + (_round_to_hi32(prod) if trunc_acc else prod)
+    return acc
+
+
+def sample_extract(glwe):
+    """Constant coefficient as an LWE: (B, k+1, N) -> (B, k*N + 1);
+    out[0] = m[0], out[j] = -m[N-j] (glwe_sample_extraction.rs)."""
+    b = glwe.shape[0]
+    mask = glwe[:, :-1, :]
+    rolled = torch.roll(-torch.flip(mask, dims=[-1]), 1, dims=-1)
+    rolled[:, :, 0] = mask[:, :, 0]
+    return torch.cat([rolled.reshape(b, -1), glwe[:, -1, :1]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The fused KS -> MS -> BR -> SE pipeline
+# ---------------------------------------------------------------------------
+
+
+def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
+                 ks_levels: int, pbs_base_log: int, pbs_levels: int,
+                 centered_ms: bool = False, trunc_acc: bool = False):
+    """One batched KS->PBS (tfhe_tpu/ops/server.py:609 ks_pbs_batch; with
+    trunc_acc and a rounded key, :920 ks_pbs_batch_mxu kernel="v7").
+
+    ct: (B, n_big+1); lut: (B, k+1, N); ksk: (n_big, l_ks, n_small+1);
+    bsk_ntt: (n_small, l_pbs, k+1, k+1, P, N).  Returns (B, n_big+1).
+    Keyswitch and blind rotation go through the kernel wrappers.
+    """
+    log_mod = lut.shape[-1].bit_length()
+    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
+    body = ks[:, -1]
+    if centered_ms:
+        body = body + centered_binary_ms_correction(ks, log_mod)
+    acc = kernels.blind_rotate(
+        modulus_switch(ks[:, :-1], log_mod), modulus_switch(body, log_mod),
+        lut, bsk_ntt, dp, pbs_base_log, pbs_levels, trunc_acc)
+    return sample_extract(acc)
+
+
+# ---------------------------------------------------------------------------
+# LUT generation (host)
+# ---------------------------------------------------------------------------
+
+
+def generate_lut(polynomial_size: int, glwe_size: int, message_modulus: int,
+                 delta: int, f) -> np.ndarray:
+    """Programmable-bootstrap LUT as a trivial GLWE (mod.rs:26-79):
+    (glwe_size, N) uint64, zero mask, redundant-box body."""
+    n = polynomial_size
+    box = n // message_modulus
+    acc = np.zeros(n, dtype=np.uint64)
+    for i in range(message_modulus):
+        acc[i * box:(i + 1) * box] = (int(f(i)) * delta) % (1 << 64)
+    half_box = box // 2
+    acc[:half_box] = (-acc[:half_box].astype(np.int64)).astype(np.uint64)
+    acc = np.roll(acc, -half_box)
+    out = np.zeros((glwe_size, n), dtype=np.uint64)
+    out[-1] = acc
+    return out

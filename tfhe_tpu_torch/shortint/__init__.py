@@ -1,0 +1,23 @@
+"""shortint on PyTorch: keygen and encryption on the host, the batched
+KS->PBS on the device (port of tfhe_tpu.shortint, classic KS->PBS sets)."""
+
+from .ciphertext import Ciphertext
+from .client_key import ClientKey
+from .params import (
+    DEFAULT_PARAMS,
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS,
+    TEST_PARAM_MESSAGE_2_CARRY_2,
+    V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_MESSAGE_4_CARRY_4_KS_PBS_TUNIFORM_2M128,
+    EncryptionKeyChoice,
+    MsNoiseReduction,
+    ShortintParams,
+)
+from .server_key import CarryFullError, LookupTable, ServerKey
+
+
+def gen_keys(params=DEFAULT_PARAMS, seed=None, device="cuda"):
+    ck = ClientKey(params, seed)
+    return ck, ServerKey(ck, seed, device=device)

@@ -1,0 +1,187 @@
+"""shortint parameter sets (the classic KS->PBS sets of
+tfhe_tpu/shortint/params.py; multi-bit, KS32, PBS->KS and PKE sets arrive
+with the slices that run them).
+
+Message space = MessageModulus x CarryModulus (+1 padding bit) in one LWE
+(SURVEY.md §2.3).  Numeric values mirror the reference's versioned parameter
+tables (tfhe/src/shortint/parameters/v1_4/classic/tuniform/p_fail_2_minus_128/
+ks_pbs.rs:29-47 for the canonical 2_2 set).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+from ..core.params import (
+    BootstrapParams,
+    CiphertextModulus,
+    DecompParams,
+    GlweParams,
+    LweParams,
+)
+from ..utils.csprng import TUniform
+
+
+class EncryptionKeyChoice(enum.Enum):
+    BIG = "big"
+    SMALL = "small"
+
+
+class MsNoiseReduction(enum.Enum):
+    NONE = "none"
+    CENTERED_MEAN = "centered_mean"
+    # drift technique (modulus_switch_noise_reduction.rs:202): the server
+    # adds the best of a public list of zero-encryptions before the MS
+    DRIFT = "drift"
+
+
+@dataclass(frozen=True)
+class ShortintParams:
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_noise: object
+    glwe_noise: object
+    pbs_base_log: int
+    pbs_level: int
+    ks_base_log: int
+    ks_level: int
+    message_modulus: int
+    carry_modulus: int
+    max_noise_level: int
+    log2_p_fail: float
+    encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.BIG
+    ms_noise_reduction: MsNoiseReduction = MsNoiseReduction.CENTERED_MEAN
+    bits: int = 64
+    # AtomicPatternKind: False = Standard KS->PBS (u64 keyswitch);
+    # True = KeySwitch32 (u32 KSK, half the keyswitch bytes —
+    # shortint/atomic_pattern/ks32.rs, the HPU-native pattern)
+    ks32: bool = False
+    # drift-technique MS parameters (ModulusSwitchNoiseReductionParams:
+    # v1_3 2_2 values: zeros_count=1449, bound=2^58, r_sigma=13.18)
+    drift_zeros_count: int = 64
+    drift_ms_bound: float = 288230376151711744.0
+    drift_r_sigma: float = 13.179852282053789
+    drift_input_variance: float = 2.63039184094559e-7
+
+    @property
+    def core(self) -> BootstrapParams:
+        return BootstrapParams(
+            lwe=LweParams(self.lwe_dimension, self.lwe_noise, CiphertextModulus(self.bits)),
+            glwe=GlweParams(self.glwe_dimension, self.polynomial_size, self.glwe_noise,
+                            CiphertextModulus(self.bits)),
+            pbs_decomp=DecompParams(self.pbs_base_log, self.pbs_level),
+            ks_decomp=DecompParams(self.ks_base_log, self.ks_level),
+        )
+
+    @property
+    def big_lwe_dimension(self) -> int:
+        return self.glwe_dimension * self.polynomial_size
+
+    @property
+    def total_modulus(self) -> int:
+        """Plaintext space without the padding bit (msg * carry)."""
+        return self.message_modulus * self.carry_modulus
+
+    @property
+    def delta(self) -> int:
+        """Scaling factor q / (2 * msg * carry) — one padding bit."""
+        return (1 << self.bits) // (2 * self.total_modulus)
+
+    @property
+    def msg_bits(self) -> int:
+        return (self.total_modulus - 1).bit_length()
+
+
+# Canonical production 2_2 parameters
+# (v1_4/classic/tuniform/p_fail_2_minus_128/ks_pbs.rs:29-47)
+V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = ShortintParams(
+    lwe_dimension=918,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_noise=TUniform(45),
+    glwe_noise=TUniform(17),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=4,
+    ks_level=4,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-129.58,
+)
+
+# 1_1 parameters (v1_4/classic/tuniform/p_fail_2_minus_128/ks_pbs.rs:8-26)
+V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 = ShortintParams(
+    lwe_dimension=879,
+    glwe_dimension=4,
+    polynomial_size=512,
+    lwe_noise=TUniform(46),
+    glwe_noise=TUniform(17),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=5,
+    ks_level=3,
+    message_modulus=2,
+    carry_modulus=2,
+    max_noise_level=3,
+    log2_p_fail=-144.322,
+)
+
+# 3_3 parameters (ks_pbs.rs:50-68)
+V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128 = ShortintParams(
+    lwe_dimension=1077,
+    glwe_dimension=1,
+    polynomial_size=8192,
+    lwe_noise=TUniform(41),
+    glwe_noise=TUniform(3),
+    pbs_base_log=15,
+    pbs_level=2,
+    ks_base_log=4,
+    ks_level=5,
+    message_modulus=8,
+    carry_modulus=8,
+    max_noise_level=9,
+    log2_p_fail=-128.992,
+)
+
+# 4_4 parameters (ks_pbs.rs:71-89)
+V1_4_PARAM_MESSAGE_4_CARRY_4_KS_PBS_TUNIFORM_2M128 = ShortintParams(
+    lwe_dimension=1117,
+    glwe_dimension=1,
+    polynomial_size=65536,
+    lwe_noise=TUniform(40),
+    glwe_noise=TUniform(3),
+    pbs_base_log=11,
+    pbs_level=3,
+    ks_base_log=3,
+    ks_level=7,
+    message_modulus=16,
+    carry_modulus=16,
+    max_noise_level=17,
+    log2_p_fail=-141.559,
+)
+
+# Insecure fast parameters for unit tests (small N and n; tiny noise so the
+# functional semantics — degree bookkeeping, LUT rounds — are exercised
+# quickly; NOT secure).  Analog of the reference's toy test configs.
+TEST_PARAM_MESSAGE_2_CARRY_2 = ShortintParams(
+    lwe_dimension=16,
+    glwe_dimension=1,
+    polynomial_size=512,
+    lwe_noise=TUniform(3),
+    glwe_noise=TUniform(3),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=4,
+    ks_level=4,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-40.0,
+    ms_noise_reduction=MsNoiseReduction.NONE,
+)
+
+PARAM_MESSAGE_2_CARRY_2_KS_PBS = V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+DEFAULT_PARAMS = V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128

@@ -1,0 +1,478 @@
+"""shortint server key: batched LUT application + the four-flavor op set.
+
+Port of tfhe_tpu/shortint/server_key.py for the classic KS->PBS atomic
+pattern.  Keys are generated on the host exactly as tfhe_tpu generates them
+(same seeds, same bytes, the same BSK mask flooring) and uploaded to the
+device once, in kernel layout.  ``apply_lookup_table_batch`` runs one
+batched KS -> MS -> blind rotation -> sample extract (ops/server.py
+ks_pbs_batch) through the two CUDA kernels on a CUDA device, or through
+their plain PyTorch versions on the CPU.
+
+Which blind rotation runs is fixed at construction, as tfhe_tpu's
+``use_mxu`` fixes it by backend: v7 mode (the TPU production kernel's
+function: key centered-rounded to 2^15, accumulator on the 2^32 grid) on a
+CUDA device for the MXU family (N = 2048, k = 1, l = 1) with a floored key;
+the exact rotation otherwise, which is what tfhe_tpu runs on the CPU.
+
+Op flavors follow the reference convention (server_key/add.rs:41-303):
+  unchecked_* (no checks) / checked_* (error on overflow risk) /
+  smart_* (bootstraps operands when needed) / default (clean carry in/out).
+"""
+
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import keygen as kg
+from ..core import security
+from ..core.entities import LweBootstrapKey
+from ..ops import ntt, torus
+from ..ops import server as srv
+from ..ops.bsk_prep import mask_floor_bsk, round_bsk
+from ..utils.csprng import DeterministicSeeder, EncryptionRandomGenerator
+from ..utils.device import resolve_device
+from .ciphertext import (NOMINAL_NOISE, Ciphertext, DeviceLweBatch,
+                         LazyLweData)
+from .client_key import ClientKey
+from .params import (EncryptionKeyChoice, MsNoiseReduction,
+                     ShortintParams)
+
+# BSK rounding of the v7 blind rotation: tfhe_tpu's default for its 3-prime
+# MXU stack (server_key.py:160-166), fixed here.
+ROUND_BITS = 15
+
+
+class CarryFullError(Exception):
+    """checked_* flavor failure (the reference's CheckError): the operation
+    would exceed the degree or noise budget."""
+
+
+_M64 = 1 << 64
+
+
+def _stack_lazy_batch(datas, width, device):
+    """Compile a round's input linear forms into ONE device gather+combine.
+
+    datas: list of LazyLweData / np.ndarray.  Returns a (B, width) int64
+    device tensor.  Rows referencing prior-round DeviceLweBatch parents
+    never touch the host; fresh host ciphertexts ride the const upload.
+    """
+    lazies = [d if isinstance(d, LazyLweData)
+              else LazyLweData((), np.asarray(d), width) for d in datas]
+    parents: dict = {}
+    for lz in lazies:
+        for _, h, _ in lz.terms:
+            parents.setdefault(id(h), h)
+    plist = list(parents.values())
+    offs, off = {}, 0
+    for h in plist:
+        offs[id(h)] = off
+        off += int(h.arr.shape[0])
+    t_max = max((len(lz.terms) for lz in lazies), default=0)
+    b = len(lazies)
+    consts = None
+    for i, lz in enumerate(lazies):
+        if lz.const is not None:
+            if consts is None:
+                consts = np.zeros((b, width), np.uint64)
+            consts[i] = lz.const
+    if not plist:
+        return torus.from_u64(consts if consts is not None
+                              else np.zeros((b, width), np.uint64), device)
+    t_pad = 1 << (t_max - 1).bit_length() if t_max > 1 else 1
+    idx = np.zeros((b, t_pad), np.int64)
+    coef = np.zeros((b, t_pad), np.uint64)
+    for i, lz in enumerate(lazies):
+        for j, (c, h, r) in enumerate(lz.terms):
+            idx[i, j] = offs[id(h)] + r
+            coef[i, j] = c % _M64
+    cat = (plist[0].arr if len(plist) == 1
+           else torch.cat([h.arr for h in plist]))
+    rows = cat[torch.from_numpy(idx).to(device)]             # (B, T, width)
+    batch = (torus.from_u64(coef, device)[:, :, None] * rows).sum(dim=1)
+    if consts is not None:
+        batch = batch + torus.from_u64(consts, device)
+    return batch
+
+
+@dataclass
+class LookupTable:
+    acc: np.ndarray  # (k+1, N) uint64 trivial GLWE accumulator
+    degree: int
+
+
+def _v7_family(p) -> bool:
+    """Parameter families the v7 blind rotation covers (tfhe_tpu's
+    ``_mxu_family``, server_key.py:148-157; static, so keys built for the
+    CPU and the GPU are identical)."""
+    return (p.polynomial_size == 2048 and p.glwe_dimension == 1
+            and p.pbs_level == 1 and p.pbs_base_log <= 23
+            and getattr(p, "grouping_factor", None) is None
+            and p.encryption_key_choice == EncryptionKeyChoice.BIG)
+
+
+def uses_v7(device: torch.device, p, bsk_floored: int) -> bool:
+    """Whether a server key runs the v7 blind rotation: on a CUDA device, for
+    the v7 family, with a BSK whose masks are floored to ROUND_BITS (as
+    tfhe_tpu's ``use_mxu`` with the device in place of the backend test).
+    Otherwise the exact rotation runs, as tfhe_tpu runs it on the CPU."""
+    return (device.type == "cuda" and _v7_family(p)
+            and bsk_floored >= ROUND_BITS)
+
+
+def _check_supported(p) -> None:
+    """The arms of tfhe_tpu's apply_lookup_table_batch that later slices
+    port (ROADMAP.md queue 1) raise instead of taking another path."""
+    if getattr(p, "grouping_factor", None) is not None:
+        raise NotImplementedError("multi-bit PBS: ROADMAP queue 1 item 10")
+    if p.ks32:
+        raise NotImplementedError("KS32 atomic pattern: ROADMAP queue 1 item 7")
+    if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
+        raise NotImplementedError(
+            "PBS->KS order (SMALL key): ROADMAP queue 1 item 7")
+    if p.ms_noise_reduction == MsNoiseReduction.DRIFT:
+        raise NotImplementedError(
+            "drift modulus-switch noise reduction: ROADMAP queue 1 item 7")
+    if p.bits != 64:
+        raise NotImplementedError("only the native 2^64 torus is ported")
+
+
+class ServerKey:
+    def __init__(self, client_key: ClientKey, seed: int | None = None,
+                 device="cuda"):
+        device = resolve_device(device)
+        p = client_key.params
+        _check_supported(p)
+        if seed is None:
+            seed = secrets.randbits(128)
+        gen = EncryptionRandomGenerator(seed, DeterministicSeeder(seed ^ 0xB5297A4D))
+        core = p.core
+        ksk = kg.generate_lwe_keyswitch_key(
+            client_key.big_lwe_secret_key, client_key.lwe_secret_key,
+            core.ks_decomp, p.lwe_noise, gen)
+        bsk = kg.generate_lwe_bootstrap_key(
+            client_key.lwe_secret_key, client_key.glwe_secret_key,
+            core.pbs_decomp, p.glwe_noise, gen)
+        floored = 0
+        if _v7_family(p):
+            # Keygen-side, phase-preserving mask alignment so the rounded
+            # key only perturbs bodies (ops/bsk_prep.mask_floor_bsk).  Only
+            # where the floored key still meets the estimator curves: the
+            # floored key is a GLWE instance over modulus 2^(64-rb) with the
+            # same absolute noise.  Flooring an insecure test set is harmless.
+            kn = p.glwe_dimension * p.polynomial_size
+            ok_floored, detail = security.check_lwe_noise_secure(
+                p.glwe_noise, kn, modulus_log2_shrink=ROUND_BITS)
+            ok_plain, _ = security.check_lwe_noise_secure(p.glwe_noise, kn)
+            if not (ok_floored or not ok_plain):
+                raise ValueError(
+                    f"BSK mask flooring at rb={ROUND_BITS} would degrade a "
+                    f"secure parameter set below the estimator curve: {detail}")
+            bsk = mask_floor_bsk(bsk, client_key.glwe_secret_key, ROUND_BITS)
+            floored = ROUND_BITS
+        self._init_from_raw(p, ksk.data, bsk, floored, device)
+
+    @classmethod
+    def from_raw_keys(cls, params: ShortintParams, ksk_data, bsk_data,
+                      bsk_floored: int = 0, device="cuda") -> "ServerKey":
+        """Build from standard-domain KSK (n_big, l, n_small+1) and BSK
+        (n_small, l, k+1, k+1, N) uint64 arrays.  bsk_floored: the rb the BSK
+        masks are floored to (0 for a key that was not floored, which never
+        takes the v7 rotation)."""
+        device = resolve_device(device)
+        _check_supported(params)
+        obj = cls.__new__(cls)
+        obj._init_from_raw(params, ksk_data, bsk_data, bsk_floored, device)
+        return obj
+
+    def _init_from_raw(self, p: ShortintParams, ksk_data, bsk_data,
+                       bsk_floored: int, device: torch.device) -> None:
+        bsk = (bsk_data if isinstance(bsk_data, LweBootstrapKey)
+               else LweBootstrapKey(np.asarray(bsk_data), p.core.pbs_decomp))
+        self.params = p
+        self.device = device
+        self._bsk_floored = bsk_floored
+        # coefficient-domain key, kept for building the other mode's key
+        self._bsk_coeff = bsk
+        self.trunc_acc = uses_v7(device, p, bsk_floored)
+        key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
+        bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
+        self.plan = plan
+        self.dp = ntt.device_plan(plan, str(device))
+        # uploaded once, in kernel layout: u64 KSK as int64, NTT-domain BSK
+        # residues (< 2^30) as int32
+        self.ksk = torus.from_u64(np.asarray(ksk_data), device)
+        self.bsk_ntt = torch.from_numpy(bsk_ntt.view(np.int32)).to(device)
+        self.max_degree = p.total_modulus - 1
+        self.max_noise_level = p.max_noise_level
+        self.pbs_count = 0  # pbs-stats analog (shortint/server_key/mod.rs:69)
+
+    # ------------------------------------------------------------------
+    # Lookup tables
+    # ------------------------------------------------------------------
+
+    def generate_lookup_table(self, f) -> LookupTable:
+        p = self.params
+        total = p.total_modulus
+        outputs = [int(f(x)) % total for x in range(total)]
+        acc = srv.generate_lut(p.polynomial_size, p.glwe_dimension + 1, total,
+                               p.delta, lambda x: outputs[x])
+        return LookupTable(acc, degree=max(outputs))
+
+    def generate_msg_lookup_table(self, f) -> LookupTable:
+        """LUT of f(x % msg) % msg (clears carries)."""
+        p = self.params
+        m = p.message_modulus
+        return self.generate_lookup_table(lambda x: int(f(x % m)) % m)
+
+    def generate_lookup_table_bivariate(self, f) -> LookupTable:
+        """Packed-operand LUT: input lhs*msg + rhs (bivariate_pbs.rs:110)."""
+        p = self.params
+        m = p.message_modulus
+
+        def packed(x):
+            return int(f((x // m) % m, x % m))
+
+        return self.generate_lookup_table(packed)
+
+    # ------------------------------------------------------------------
+    # Batched PBS primitive
+    # ------------------------------------------------------------------
+
+    def apply_lookup_table_batch(self, cts: list[Ciphertext],
+                                 luts) -> list[Ciphertext]:
+        """One batched KS->PBS for a list of ciphertexts.
+
+        luts: a single LookupTable (shared) or a list of per-element tables.
+        Outputs stay on the device as LazyLweData; linear ops on them stay
+        symbolic and the next round gathers them on the device.
+        """
+        p = self.params
+        if isinstance(luts, LookupTable):
+            luts = [luts] * len(cts)
+        if len(luts) != len(cts):
+            raise ValueError(f"{len(cts)} ciphertexts but {len(luts)} tables")
+        n_real = len(cts)
+        # bucket the batch size to powers of two, as tfhe_tpu does
+        n_pad = 1 << (n_real - 1).bit_length() if n_real > 1 else 1
+        datas = ([c.data for c in cts] + [cts[0].data] * (n_pad - n_real))
+        if any(isinstance(d, LazyLweData) for d in datas):
+            width = (datas[0].width if isinstance(datas[0], LazyLweData)
+                     else np.asarray(datas[0]).shape[-1])
+            batch = _stack_lazy_batch(datas, width, self.device)
+        else:
+            batch = torus.from_u64(np.stack([np.asarray(d) for d in datas]),
+                                   self.device)
+        # upload each DISTINCT table once and gather on the device
+        uniq: dict = {}
+        lut_idx = []
+        for t in luts:
+            key = id(t.acc)
+            if key not in uniq:
+                uniq[key] = (len(uniq), t.acc)
+            lut_idx.append(uniq[key][0])
+        lut_idx += [lut_idx[0]] * (n_pad - n_real)
+        uniq_t = torus.from_u64(np.stack([acc for _, acc in uniq.values()]),
+                                self.device)
+        if len(uniq) == 1:
+            lut_b = uniq_t[0].expand((n_pad,) + tuple(uniq_t.shape[1:]))
+        else:
+            lut_b = uniq_t[torch.tensor(lut_idx, device=self.device)]
+        out = srv.ks_pbs_batch(
+            batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
+            p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
+            centered_ms=p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN,
+            trunc_acc=self.trunc_acc)
+        self.pbs_count += n_real
+        handle = DeviceLweBatch(out)
+        w = int(out.shape[-1])
+        return [
+            c.with_data(LazyLweData(((1, handle, i),), None, w),
+                        degree=luts[i].degree, noise_level=NOMINAL_NOISE)
+            for i, c in enumerate(cts)
+        ]
+
+    def apply_lookup_table(self, ct: Ciphertext, lut: LookupTable) -> Ciphertext:
+        return self.apply_lookup_table_batch([ct], lut)[0]
+
+    # ------------------------------------------------------------------
+    # Linear (leveled) ops — no PBS
+    # ------------------------------------------------------------------
+
+    def unchecked_add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return a.with_data(a.data + b.data, degree=a.degree + b.degree,
+                           noise_level=a.noise_level + b.noise_level)
+
+    @staticmethod
+    def _add_to_body(data, scalar: np.uint64):
+        """Add a plaintext offset to the body element only (wrapping mod 2^64
+        is the torus semantics — numpy's scalar-overflow warning is silenced
+        deliberately so a real overflow bug elsewhere still warns).  Lazy
+        device-resident data stays lazy (the offset rides the const term)."""
+        if isinstance(data, LazyLweData):
+            vec = np.zeros(data.width, np.uint64)
+            with np.errstate(over="ignore"):
+                vec[-1] = scalar
+            return data + vec
+        out = np.array(data)
+        with np.errstate(over="ignore"):
+            out[..., -1] = out[..., -1] + scalar
+        return out
+
+    def unchecked_sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """a - b + z*msg*delta with z chosen so the result stays positive
+        (server_key/sub.rs correcting-term trick)."""
+        p = self.params
+        msg = p.message_modulus
+        z = (b.degree + msg) // msg * msg  # multiple of msg, > b.degree
+        corr = np.uint64((z * p.delta) % _M64)
+        data = self._add_to_body(a.data - b.data, corr)
+        return a.with_data(data, degree=a.degree + z,
+                           noise_level=a.noise_level + b.noise_level)
+
+    def unchecked_neg(self, a: Ciphertext) -> Ciphertext:
+        p = self.params
+        msg = p.message_modulus
+        z = (a.degree + msg) // msg * msg
+        corr = np.uint64((z * p.delta) % _M64)
+        if isinstance(a.data, LazyLweData):
+            neg = -a.data
+        else:
+            neg = np.zeros_like(np.asarray(a.data)) - np.asarray(a.data)
+        data = self._add_to_body(neg, corr)
+        return a.with_data(data, degree=z, noise_level=a.noise_level)
+
+    def unchecked_scalar_add(self, a: Ciphertext, scalar: int) -> Ciphertext:
+        p = self.params
+        shift = np.uint64((scalar * p.delta) % _M64)
+        data = self._add_to_body(a.data if isinstance(a.data, LazyLweData)
+                                 else np.asarray(a.data), shift)
+        return a.with_data(data, degree=a.degree + scalar)
+
+    def unchecked_scalar_mul(self, a: Ciphertext, scalar: int) -> Ciphertext:
+        return a.with_data(a.data * np.uint64(scalar),
+                           degree=a.degree * scalar,
+                           noise_level=a.noise_level * scalar)
+
+    def create_trivial(self, value: int) -> Ciphertext:
+        p = self.params
+        data = np.zeros(p.big_lwe_dimension + 1, dtype=np.uint64)
+        v = value % p.total_modulus
+        data[-1] = np.uint64((v * p.delta) % _M64)
+        return Ciphertext(data, degree=v, noise_level=0,
+                          message_modulus=p.message_modulus,
+                          carry_modulus=p.carry_modulus)
+
+    # ------------------------------------------------------------------
+    # PBS-backed ops
+    # ------------------------------------------------------------------
+
+    def message_extract(self, a: Ciphertext) -> Ciphertext:
+        return self.apply_lookup_table(a, self.generate_msg_lookup_table(lambda x: x))
+
+    def carry_extract(self, a: Ciphertext) -> Ciphertext:
+        p = self.params
+        return self.apply_lookup_table(
+            a, self.generate_lookup_table(lambda x: x // p.message_modulus))
+
+    def _fits(self, degree: int, noise: int) -> bool:
+        return degree <= self.max_degree and noise <= self.max_noise_level
+
+    # ------------------------------------------------------------------
+    # checked_* flavor (server_key/add.rs:131 CheckError convention): error
+    # out when the operation would overflow the degree/noise budget, never
+    # bootstrap implicitly.  Completes the four-flavor convention
+    # unchecked_/checked_/smart_/default.
+    # ------------------------------------------------------------------
+
+    def _check(self, degree: int, noise: int) -> None:
+        if not self._fits(degree, noise):
+            raise CarryFullError(
+                f"operation would exceed the budget: degree {degree} > "
+                f"{self.max_degree} or noise {noise} > {self.max_noise_level}")
+
+    def checked_add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        self._check(a.degree + b.degree, a.noise_level + b.noise_level)
+        return self.unchecked_add(a, b)
+
+    def checked_sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        p = self.params
+        z = (b.degree + p.message_modulus) // p.message_modulus * p.message_modulus
+        self._check(a.degree + z, a.noise_level + b.noise_level)
+        return self.unchecked_sub(a, b)
+
+    def checked_neg(self, a: Ciphertext) -> Ciphertext:
+        p = self.params
+        z = (a.degree + p.message_modulus) // p.message_modulus * p.message_modulus
+        self._check(z, a.noise_level)
+        return self.unchecked_neg(a)
+
+    def checked_scalar_add(self, a: Ciphertext, scalar: int) -> Ciphertext:
+        self._check(a.degree + scalar, a.noise_level)
+        return self.unchecked_scalar_add(a, scalar)
+
+    def checked_scalar_mul(self, a: Ciphertext, scalar: int) -> Ciphertext:
+        self._check(a.degree * scalar, a.noise_level * scalar)
+        return self.unchecked_scalar_mul(a, scalar)
+
+    def checked_apply_bivariate(self, a: Ciphertext, b: Ciphertext, f) -> Ciphertext:
+        p = self.params
+        msg = p.message_modulus
+        if b.degree >= msg:
+            raise CarryFullError(f"rhs degree {b.degree} >= {msg} cannot pack")
+        self._check(a.degree * msg + b.degree, a.noise_level * msg + b.noise_level)
+        return self.unchecked_apply_bivariate(a, b, f)
+
+    def checked_mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        p = self.params
+        return self.checked_apply_bivariate(
+            a, b, lambda x, y: (x * y) % p.message_modulus)
+
+    def smart_add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        if not self._fits(a.degree + b.degree, a.noise_level + b.noise_level):
+            a = self.message_extract(a)
+            b = self.message_extract(b)
+        return self.unchecked_add(a, b)
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """Default flavor: clean-carry output (message part only)."""
+        return self.message_extract(self.smart_add(a, b))
+
+    def unchecked_apply_bivariate(self, a: Ciphertext, b: Ciphertext, f) -> Ciphertext:
+        """packed = a*msg + b, then LUT(f) — requires b.degree < msg."""
+        p = self.params
+        packed = self.unchecked_add(self.unchecked_scalar_mul(a, p.message_modulus), b)
+        return self.apply_lookup_table(packed, self.generate_lookup_table_bivariate(f))
+
+    def smart_apply_bivariate(self, a: Ciphertext, b: Ciphertext, f) -> Ciphertext:
+        p = self.params
+        msg = p.message_modulus
+        deg = a.degree * msg + b.degree
+        noise = a.noise_level * msg + b.noise_level
+        if b.degree >= msg or not self._fits(deg, noise):
+            a = self.message_extract(a)
+            b = self.message_extract(b)
+        return self.unchecked_apply_bivariate(a, b, f)
+
+    def mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        p = self.params
+        return self.smart_apply_bivariate(a, b, lambda x, y: (x * y) % p.message_modulus)
+
+    def bitand(self, a, b):
+        return self.smart_apply_bivariate(a, b, lambda x, y: x & y)
+
+    def bitor(self, a, b):
+        return self.smart_apply_bivariate(a, b, lambda x, y: x | y)
+
+    def bitxor(self, a, b):
+        return self.smart_apply_bivariate(a, b, lambda x, y: x ^ y)
+
+    def eq(self, a, b):
+        return self.smart_apply_bivariate(a, b, lambda x, y: int(x == y))
+
+    def lt(self, a, b):
+        return self.smart_apply_bivariate(a, b, lambda x, y: int(x < y))

@@ -1,0 +1,277 @@
+"""AES-128-CTR CSPRNG with tree forking, bit-compatible with tfhe-csprng.
+
+Reference behavior (studied, not copied):
+  - tfhe-csprng/src/generators/aes_ctr/generic.rs: byte at flat position ``pos``
+    of the keystream is ``AES_ECB(key, LE128(pos // 16 + offset))[pos % 16]``.
+  - Key bytes: the u128 seed in little-endian byte order
+    (generic.rs:94 ``u128::from_le``, soft/block_cipher.rs:15 ``to_ne_bytes``).
+  - Fork (states.rs:156 ``check_fork``): child ``i`` of ``fork(n, nbytes)`` owns
+    the window ``[pos + i*nbytes, pos + (i+1)*nbytes)``; the parent advances to
+    ``pos + n*nbytes``.  Parallel and sequential generation therefore consume
+    identical streams.
+
+The sampling layer mirrors tfhe/src/core_crypto/commons/math/random/:
+  - uniform u64/u32: from_le_bytes (uniform.rs:17-23)
+  - uniform binary: one byte per bit, ``byte & 1`` (uniform_binary.rs:16)
+  - TUniform: ceil((b+2)/8) bytes, randomized rounding (t_uniform.rs:84-112)
+    (the Gaussian sampler of tfhe_tpu comes with the parameter sets that
+    use it)
+
+The keystream comes from the AES-NI CTR core in csrc/aes_ctr.cpp, built with
+g++ at first use (utils/build.py), or from the `cryptography` package where
+that imports; with neither, sampling raises.  Host-side (client/keygen)
+code: numpy only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+class _Backend:
+    """The AES-CTR keystream source, chosen once at first use."""
+
+    lib = None        # ctypes library of csrc/aes_ctr.cpp, or None
+    cipher = None     # cryptography's Cipher/algorithms/modes, or None
+    ready = False
+
+
+def _native_lib():
+    import ctypes
+
+    from .build import CSRC, build_shared_libraries
+
+    (so,) = build_shared_libraries([(
+        "tfhe_torch_aes", [CSRC / "aes_ctr.cpp"],
+        ["g++", "-O3", "-maes", "-msse4.1", "-shared", "-fPIC"])])
+    lib = ctypes.CDLL(str(so))
+    lib.tfhe_aes_ctr_blocks.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_void_p,
+    ]
+    lib.tfhe_aes_ctr_blocks.restype = None
+    return lib
+
+
+def _backend() -> _Backend:
+    if not _Backend.ready:
+        errors = []
+        try:
+            _Backend.lib = _native_lib()
+        except (OSError, RuntimeError) as e:   # no g++ / no AES-NI
+            errors.append(f"native AES: {e}")
+            try:
+                from cryptography.hazmat.primitives.ciphers import (
+                    Cipher, algorithms, modes)
+                _Backend.cipher = (Cipher, algorithms, modes)
+            except ImportError as e2:
+                errors.append(f"cryptography: {e2}")
+                raise RuntimeError("no AES-CTR backend for the CSPRNG: "
+                                   + "; ".join(errors)) from e2
+        _Backend.ready = True
+    return _Backend
+
+
+def _aes_ecb(key_bytes: bytes, blocks: np.ndarray) -> np.ndarray:
+    """Encrypt an array of 16-byte blocks (shape (n, 16) uint8) with AES-128-ECB."""
+    cipher, algorithms, modes = _backend().cipher
+    enc = cipher(algorithms.AES(key_bytes), modes.ECB()).encryptor()
+    out = enc.update(blocks.tobytes()) + enc.finalize()
+    return np.frombuffer(out, dtype=np.uint8).reshape(-1, 16)
+
+
+def _aes_ctr_blocks(key_bytes: bytes, start_ctr: int, count: int) -> np.ndarray:
+    """Keystream blocks for counters start_ctr..start_ctr+count-1 (LE128)."""
+    lib = _backend().lib
+    if lib is not None:
+        out = np.empty(count * 16, dtype=np.uint8)
+        lib.tfhe_aes_ctr_blocks(
+            key_bytes,
+            start_ctr & 0xFFFFFFFFFFFFFFFF,
+            (start_ctr >> 64) & 0xFFFFFFFFFFFFFFFF,
+            count,
+            out.ctypes.data,
+        )
+        return out.reshape(count, 16)
+    return _aes_ecb(key_bytes, _counter_blocks(start_ctr, count))
+
+
+def _counter_blocks(start_ctr: int, count: int) -> np.ndarray:
+    """LE128 counter blocks for counters start_ctr .. start_ctr+count-1 (mod 2^128)."""
+    ctrs = (start_ctr + np.arange(count, dtype=object)) % (1 << 128)
+    buf = np.empty((count, 16), dtype=np.uint8)
+    # little-endian: byte j = (ctr >> (8*j)) & 0xff
+    lo = np.array([int(c) & 0xFFFFFFFFFFFFFFFF for c in ctrs], dtype=np.uint64)
+    hi = np.array([(int(c) >> 64) & 0xFFFFFFFFFFFFFFFF for c in ctrs], dtype=np.uint64)
+    buf[:, :8] = lo[:, None].view(np.uint8).reshape(count, 8)
+    buf[:, 8:] = hi[:, None].view(np.uint8).reshape(count, 8)
+    return buf
+
+
+class ByteStream:
+    """A window [pos, end) into the AES-CTR keystream of (key, offset).
+
+    Matches tfhe-csprng AesCtrGenerator semantics at byte granularity.
+    Positions are flat byte indices: aes_index * 16 + byte_index.
+    """
+
+    __slots__ = ("key_bytes", "offset", "pos", "end", "_cache_start", "_cache")
+
+    def __init__(self, seed: int | bytes, offset: int = 0, pos: int = 0, end: int | None = None):
+        if isinstance(seed, bytes):
+            self.key_bytes = seed
+        else:
+            # Seed(u128) -> little-endian key bytes (tfhe-csprng generic.rs:94)
+            self.key_bytes = int(seed).to_bytes(16, "little")
+        self.offset = offset
+        self.pos = pos
+        # 2^132 = full table (aes_index in [0, 2^128), 16 bytes each)
+        self.end = (1 << 132) if end is None else end
+        self._cache_start = 0
+        self._cache = b""
+
+    # -- raw bytes ---------------------------------------------------------
+
+    def take(self, n: int) -> np.ndarray:
+        """Return the next n bytes as uint8 array and advance."""
+        if self.pos + n > self.end:
+            raise RuntimeError("ByteStream exhausted (fork window overrun)")
+        out = self._bytes_at(self.pos, n)
+        self.pos += n
+        return out
+
+    def _bytes_at(self, pos: int, n: int) -> np.ndarray:
+        if n == 0:
+            return np.empty(0, dtype=np.uint8)
+        first_block = pos // 16
+        last_block = (pos + n - 1) // 16
+        nblocks = last_block - first_block + 1
+        blocks = _aes_ctr_blocks(self.key_bytes,
+                                 (first_block + self.offset) % (1 << 128), nblocks)
+        flat = blocks.reshape(-1)
+        off = pos - first_block * 16
+        return flat[off : off + n].copy()
+
+    def skip(self, n: int) -> None:
+        self.pos += n
+
+    def remaining(self) -> int:
+        return self.end - self.pos
+
+    # -- forking -----------------------------------------------------------
+
+    def fork(self, n_children: int, bytes_per_child: int) -> list["ByteStream"]:
+        """Split into n children of fixed windows; parent advances past them."""
+        total = n_children * bytes_per_child
+        if self.pos + total > self.end:
+            raise RuntimeError("Fork too large for remaining stream window")
+        children = [
+            ByteStream(
+                self.key_bytes,
+                self.offset,
+                self.pos + i * bytes_per_child,
+                self.pos + (i + 1) * bytes_per_child,
+            )
+            for i in range(n_children)
+        ]
+        self.pos += total
+        return children
+
+    # -- typed sampling (tfhe/core_crypto/commons/math/random) -------------
+
+    def uniform_u64(self, count: int) -> np.ndarray:
+        raw = self.take(count * 8)
+        return raw.view("<u8").copy()
+
+    def uniform_u128(self) -> int:
+        raw = self.take(16)
+        return int.from_bytes(raw.tobytes(), "little")
+
+    def binary(self, count: int) -> np.ndarray:
+        """One byte per output element, value = byte & 1 (uniform_binary.rs:16)."""
+        raw = self.take(count)
+        return (raw & 1).astype(np.uint64)
+
+    def tuniform(self, count: int, bound_log2: int) -> np.ndarray:
+        """TUniform(bound_log2) torus samples (t_uniform.rs:84-112)."""
+        required_bits = bound_log2 + 2
+        required_bytes = (required_bits + 7) // 8
+        raw = self.take(count * required_bytes).reshape(count, required_bytes)
+        buf = np.zeros((count, 8), dtype=np.uint8)
+        buf[:, :required_bytes] = raw
+        vals = buf.view("<u8").reshape(count)
+        mask = np.uint64((1 << required_bits) - 1)
+        cand = vals & mask
+        bit = cand & np.uint64(1)
+        cand = cand >> np.uint64(1)
+        cand = cand + bit
+        return cand - np.uint64(1 << bound_log2)  # wrapping in uint64
+
+
+# -- distributions ---------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TUniform:
+    bound_log2: int
+
+    def sample_bytes(self) -> int:
+        return (self.bound_log2 + 2 + 7) // 8
+
+    def sample(self, stream: ByteStream, count: int) -> np.ndarray:
+        return stream.tuniform(count, self.bound_log2)
+
+
+# -- generators mirroring tfhe's generator types ---------------------------
+
+
+class SecretRandomGenerator:
+    def __init__(self, seed: int):
+        self.stream = ByteStream(seed)
+
+    def binary_key(self, count: int) -> np.ndarray:
+        return self.stream.binary(count)
+
+
+class DeterministicSeeder:
+    """commons/generators/seeder.rs:36 — seeds drawn as u128 LE from own stream."""
+
+    def __init__(self, seed: int):
+        self.stream = ByteStream(seed)
+
+    def seed(self) -> int:
+        return self.stream.uniform_u128()
+
+
+class EncryptionRandomGenerator:
+    """Mask generator (public, seeded) + noise generator (seeded from a Seeder).
+
+    commons/generators/encryption/mod.rs:91-99.
+    """
+
+    def __init__(self, seed: int, seeder: DeterministicSeeder):
+        self.mask = ByteStream(seed)
+        self.noise = ByteStream(seeder.seed())
+
+    @classmethod
+    def _from_streams(cls, mask: ByteStream, noise: ByteStream) -> "EncryptionRandomGenerator":
+        obj = cls.__new__(cls)
+        obj.mask = mask
+        obj.noise = noise
+        return obj
+
+    def fork(self, n_children: int, mask_elements: int, noise_elements: int,
+             noise_distribution) -> list["EncryptionRandomGenerator"]:
+        """Fork both sub-streams; byte budgets follow the reference fork configs
+        (mask: 8 bytes per u64 element; noise: distribution-dependent
+        per-sample budget)."""
+        mask_bytes = mask_elements * 8
+        noise_bytes = noise_elements * noise_distribution.sample_bytes()
+        mask_children = self.mask.fork(n_children, mask_bytes)
+        noise_children = self.noise.fork(n_children, noise_bytes)
+        return [
+            EncryptionRandomGenerator._from_streams(m, n)
+            for m, n in zip(mask_children, noise_children)
+        ]
