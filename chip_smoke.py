@@ -8,20 +8,33 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
 
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
-  2. build the hand-written kernels from tfhe_tpu_torch/csrc/ (nvcc, sm_90a);
+  2. build the hand-written kernels from tfhe_tpu_torch/csrc/ (nvcc, sm_90a,
+     one compiler per source, started together);
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
      BSK, so the server key runs the v7 blind rotation) and key upload;
   4. serve: three rounds of ServerKey.apply_lookup_table_batch at B = 512
      with LUT (3x+1) % 16, then one chained round on the device-resident
-     outputs; every output is decrypted and checked;
-  5. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
-     and K2 blind rotation (v7 mode) on the main path's own B = 512 inputs,
-     K2 at B = 4 over the full n = 918 in v7 and in exact mode, for the 2_2
-     shape (k + 1 = 2, l = 1: K2's specialised instance) and for k + 1 = 2,
-     l = 2 on a random key (its generic instance); times of the kernel, the
-     plain version and, for K1, the int8-limb torch._int_mm formulation the
-     TPU uses (a yardstick the port never calls);
-  6. the launch counts of phase 4 and one {"kernels": [...]} line.
+     outputs, profiled after a warm-up run of it; every output is
+     decrypted and checked;
+  5. keygen_multibit at
+     V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+     (multi-bit key floored at rb = 18, so the server key runs the v9
+     multi-bit blind rotation);
+  6. serve_multibit: the rounds of phase 4 on the multi-bit key, through K1
+     and K3 (K2 never);
+  7. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+     on both paths' own B = 512 inputs; K2 on the classic path's B = 512
+     inputs in v7 mode and in exact mode (unrounded key), and at B = 4 over
+     the full n = 918 in both modes, for the 2_2 shape (its specialised
+     instance) and for k + 1 = 2, l = 2 on a random key (its generic
+     instance); K3 on the multi-bit path's own B = 512 inputs in v9 mode
+     and in exact mode (unrounded key), at tfhe_tpu's GROUP_2 shape (g = 2,
+     n = 918) in both modes on a random key, and its generic instance at
+     the GROUP_3 shape (l = 2) in exact mode, where v9 mode must refuse the
+     shape; times of each kernel in both modes, its plain version and, for
+     K1, the int8-limb torch._int_mm formulation the TPU uses (a yardstick
+     the port never calls);
+  8. the launch counts of phases 4 and 6 and one {"kernels": [...]} line.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -47,7 +60,7 @@ INT32_MUL_PER_S = 64 * 132 * 1.98e9
 
 BATCH = 512
 ROUNDS = 3
-K2_CHECK_BATCH = 4
+CHECK_BATCH = 4           # the random-input checks at full n
 K2_GENERIC_LEVELS = 2     # l != 1 takes K2's generic (run-time shape) instance
 # CRT primes the blind rotation needs on this key: tfhe_tpu's v7 kernel runs
 # three on the 2^15-rounded key (tfhe_tpu/ops/mxu.py:253), the exact
@@ -55,6 +68,9 @@ K2_GENERIC_LEVELS = 2     # l != 1 takes K2's generic (run-time shape) instance
 # function needs.
 V7_PRIMES = 3
 EXACT_PRIMES = 4
+# tfhe_tpu's v9 kernel runs three primes on the rb-rounded multi-bit key
+# (tfhe_tpu/shortint/server_key.py:183-203)
+V9_PRIMES = 3
 # tfhe_tpu's MXU four-step split N = N1 * N2 (tfhe_tpu/ops/mxu.py:8)
 FOUR_STEP_N1 = 128
 
@@ -169,6 +185,57 @@ def k2_bound(mask, lut, levels: int, base_log: int, nprimes: int) -> dict:
             "bytes_ms": t_bytes * 1e3}
 
 
+def k3_bound(degrees, lut, levels: int, base_log: int, nprimes: int,
+             v9: bool) -> dict:
+    """Least time for the multi-bit blind rotation with nprimes CRT primes,
+    as k2_bound counts it.  v9 (monomials on the data side): per group and
+    ciphertext, 2^g decompositions transformed and multiplied with their
+    pattern keys, one inverse transform and Garner.  Exact (the key bundle):
+    one forward transform set, the bundle's (2^g - 1) l (k+1)^2 P N products,
+    the product with it, one inverse and Garner."""
+    b, n_groups, n_sub = degrees.shape
+    k1, n_poly = lut.shape[1], lut.shape[2]
+    log_n = n_poly.bit_length() - 1
+    butterflies = (n_poly // 2) * log_n
+    pointwise = levels * k1 * k1 * nprimes * n_poly
+    fwd = levels * k1 * nprimes * butterflies
+    tail = (k1 * nprimes * butterflies                     # inverse NTTs
+            + k1 * n_poly * nprimes * (nprimes - 1) // 2)  # Garner
+    if v9:
+        modmuls = n_sub * (fwd + pointwise) + tail
+    else:
+        modmuls = fwd + (n_sub - 1) * pointwise + pointwise + tail
+    t_ntt = b * n_groups * 3 * modmuls / INT32_MUL_PER_S
+    n1 = FOUR_STEP_N1
+    n2 = n_poly // n1
+    digit_bytes = -(-base_log // 8)
+    stage1 = levels * k1 * n2 * n1 * n1 * 4 * digit_bytes
+    middle = n1 * levels * k1 * n2 * k1 * n2 * 16
+    inverse = k1 * n2 * n1 * n1 * 16
+    copies = n_sub if v9 else 1
+    limb_macs = nprimes * (copies * (stage1 + middle) + inverse)
+    t_four_step = b * n_groups * 2 * limb_macs / INT8_TC_OPS_PER_S
+    if not v9:      # the bundle itself stays on the CUDA cores
+        t_four_step += b * n_groups * 3 * (n_sub - 1) * pointwise / INT32_MUL_PER_S
+    key_bytes = 4 * n_groups * n_sub * levels * k1 * k1 * nprimes * n_poly
+    t_bytes = (key_bytes + 4 * degrees.numel() + 8 * b
+               + 2 * 8 * lut.numel()) / HBM_BYTES_PER_S
+    t_ops = min(t_ntt, t_four_step)
+    return {"ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations",
+            "ntt_ms": t_ntt * 1e3, "four_step_ms": t_four_step * 1e3,
+            "bytes_ms": t_bytes * 1e3}
+
+
+def random_ntt_key(shape, dp, gen):
+    """A random NTT-domain key: residues below each prime, int32."""
+    import torch
+
+    return torch.stack(
+        [torch.randint(0, q, shape + (dp.n,), generator=gen, device=gen.device)
+         for q in dp.plan.primes], dim=-2).to(torch.int32)
+
+
 def kernel_ms_by_name(prof, names) -> dict:
     """Mean device milliseconds per launch of each named kernel in a
     torch.profiler trace (None where the trace shows no device time)."""
@@ -181,6 +248,107 @@ def kernel_ms_by_name(prof, names) -> dict:
                 if total:
                     out[n] = total / evt.count / 1e3
     return out
+
+
+def serve_rounds(ck, sk, seed: int, kernels) -> dict:
+    """ROUNDS batched rounds at B = BATCH with LUT (3x+1) % 16, then one
+    chained round on the device-resident outputs (plus 5, message
+    extracted) under the profiler, after one warm-up run of it: ROUNDS + 2
+    rounds.  Every kernel's launch count is set to 0 just before and read
+    just after; every output of the ROUNDS + 1 kept rounds is decrypted."""
+    import numpy as np
+    import torch
+
+    p = sk.params
+    rng = np.random.default_rng(seed)
+    msg = p.message_modulus
+    inputs = [rng.integers(0, msg, BATCH) for _ in range(ROUNDS)]
+    cts = [[ck.encrypt(int(v)) for v in vals] for vals in inputs]
+    lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % 16)
+    lut_msg = sk.generate_msg_lookup_table(lambda x: x)
+    wrappers = (kernels.keyswitch, kernels.blind_rotate, kernels.blind_rotate_multibit)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    round_s, outs = [], []
+    for r in range(ROUNDS):
+        t1 = time.perf_counter()
+        outs.append(sk.apply_lookup_table_batch(cts[r], lut))
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t1)
+    serve_s = time.perf_counter() - t0
+    # the chained round runs under the profiler, which splits it into kernel
+    # times (the timed rounds above run without it).  One warm-up step of the
+    # same round comes first: a trace's first step can miss kernels.  The
+    # recorded step's kernel times are read when the profiler hands it over.
+    shifted = [sk.unchecked_scalar_add(ct, 5) for ct in outs[-1]]
+    names = ("keyswitch_kernel", "blind_rotate_kernel", "blind_rotate_multibit_kernel")
+    per_launch = dict.fromkeys(names)
+    trace = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda prof: per_launch.update(kernel_ms_by_name(prof, names)))
+    with trace:
+        sk.apply_lookup_table_batch(shifted, lut_msg)
+        torch.cuda.synchronize()
+        trace.step()
+        t1 = time.perf_counter()
+        chained = sk.apply_lookup_table_batch(shifted, lut_msg)
+        torch.cuda.synchronize()
+        chained_s = time.perf_counter() - t1
+        trace.step()
+    launches = {w.__name__: w.launches for w in wrappers}
+    wrong = 0
+    for r in range(ROUNDS):
+        for ct, v in zip(outs[r], inputs[r]):
+            wrong += ck.decrypt_raw(ct) != (3 * int(v) + 1) % 16
+    for i, ct in enumerate(chained):
+        want = ((3 * int(inputs[-1][i]) + 1) % 16 + 5) % msg
+        wrong += ck.decrypt(ct) != want
+    return {"cts": cts, "lut": lut, "launches": launches, "line": {
+        "batch": BATCH, "rounds": ROUNDS, "round_seconds": round_s,
+        "pbs_per_s": ROUNDS * BATCH / serve_s,
+        "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
+        "chained_round_seconds_traced": chained_s,
+        "k1_ms_traced_round": per_launch["keyswitch_kernel"],
+        "k2_ms_traced_round": per_launch["blind_rotate_kernel"],
+        "k3_ms_traced_round": per_launch["blind_rotate_multibit_kernel"],
+        "launches": launches, "outputs_checked": (ROUNDS + 1) * BATCH,
+        "wrong": wrong}}
+
+
+def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
+    """K1 on a round's own input batch against its plain version and the
+    int8-limb yardstick; times and bound.  Returns the K1 figures and the
+    plain keyswitch output (the blind rotations' inputs)."""
+    import numpy as np
+    import torch
+
+    p = sk.params
+    ct0 = torus.from_u64(np.stack([np.asarray(c.data) for c in cts]), sk.device)
+    args = (ct0, sk.ksk, p.ks_base_log, p.ks_level)
+    got = kernels.keyswitch(*args)
+    want = server.keyswitch(*args)
+    lib = int_mm_keyswitch(*args)
+    torch.cuda.synchronize()
+    bound_ms, bound_by = k1_bound(ct0, sk.ksk, got)
+    return {"want": want, "fig": {
+        "max_abs_err": max_abs_err(got, want),
+        "int_mm_max_abs_err": max_abs_err(lib, want),
+        "ms": cuda_ms(lambda: kernels.keyswitch(*args), 10),
+        "plain_ms": cuda_ms(lambda: server.keyswitch(*args), 3),
+        "library_ms": cuda_ms(lambda: int_mm_keyswitch(*args), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": [ct0.shape[0], p.big_lwe_dimension, p.ks_level, p.lwe_dimension + 1]}}
+
+
+def switched_inputs(ks, p, server):
+    """Modulus-switched mask and centered-mean body of a keyswitch output."""
+    log_mod = p.polynomial_size.bit_length()
+    body = ks[:, -1] + server.centered_binary_ms_correction(ks, log_mod)
+    return ks[:, :-1], server.modulus_switch(body, log_mod), log_mod
 
 
 def main() -> None:
@@ -196,8 +364,12 @@ def main() -> None:
                  "script runs only on a CUDA card")
 
     from tfhe_tpu_torch.core import keygen as kg
-    from tfhe_tpu_torch.ops import kernels, server, torus
+    from tfhe_tpu_torch.core import multibit as mb
+    from tfhe_tpu_torch.ops import kernels, ntt, server, torus
     from tfhe_tpu_torch.shortint import (
+        V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as GROUP_3,
+        V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as MB_PARAMS,
+        TPU_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as TPU_GROUP_2,
         V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as PARAMS,
         ClientKey, ServerKey)
 
@@ -211,7 +383,7 @@ def main() -> None:
           "cuda": torch.version.cuda, "nvcc": nvcc_version(kernels),
           "python": sys.version.split()[0]})
 
-    # 2. build both kernels (one nvcc per source, started together)
+    # 2. build the kernels (one nvcc per source, started together)
     t0 = time.perf_counter()
     kernels.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -234,79 +406,54 @@ def main() -> None:
           "seconds": keygen_s,
           "device_key_bytes": sk.ksk.numel() * 8 + sk.bsk_ntt.numel() * 4})
 
-    # 4. serve: ROUNDS batched rounds, then one chained round
-    rng = np.random.default_rng(args.seed)
-    msg = p.message_modulus
-    inputs = [rng.integers(0, msg, BATCH) for _ in range(ROUNDS)]
-    cts = [[ck.encrypt(int(v)) for v in vals] for vals in inputs]
-    lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % 16)
-    lut_msg = sk.generate_msg_lookup_table(lambda x: x)
-    kernels.keyswitch.launches = 0
-    kernels.blind_rotate.launches = 0
-    torch.cuda.synchronize()
+    # 4. serve on the classic key
+    served = serve_rounds(ck, sk, args.seed, kernels)
+    emit({"phase": "serve", **served["line"]})
+    if served["line"]["wrong"]:
+        raise RuntimeError(f"{served['line']['wrong']} outputs decrypted wrong")
+    launches = served["launches"]
+    if not (launches["keyswitch"] and launches["blind_rotate"]):
+        raise RuntimeError(f"the classic path skipped a kernel: {launches}")
+
+    # 5. multi-bit keygen and key upload
+    mp = MB_PARAMS
     t0 = time.perf_counter()
-    round_s, outs = [], []
-    for r in range(ROUNDS):
-        t1 = time.perf_counter()
-        outs.append(sk.apply_lookup_table_batch(cts[r], lut))
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - t1)
-    serve_s = time.perf_counter() - t0
-    # chained round: the last round's outputs plus 5 (a linear op that stays
-    # lazy), message extracted; the batch is gathered on the device from the
-    # resident outputs.  It runs under the profiler, which splits it into
-    # kernel times (the timed rounds above run without it).
-    shifted = [sk.unchecked_scalar_add(ct, 5) for ct in outs[-1]]
-    trace = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA])
-    with trace:
-        t1 = time.perf_counter()
-        chained = sk.apply_lookup_table_batch(shifted, lut_msg)
-        torch.cuda.synchronize()
-        chained_s = time.perf_counter() - t1
-    launches = {"keyswitch": kernels.keyswitch.launches,
-                "blind_rotate": kernels.blind_rotate.launches}
-    wrong = 0
-    for r in range(ROUNDS):
-        for ct, v in zip(outs[r], inputs[r]):
-            wrong += ck.decrypt_raw(ct) != (3 * int(v) + 1) % 16
-    for i, ct in enumerate(chained):
-        want = ((3 * int(inputs[-1][i]) + 1) % 16 + 5) % msg
-        wrong += ck.decrypt(ct) != want
-    per_launch = kernel_ms_by_name(trace, ("keyswitch_kernel",
-                                           "blind_rotate_kernel"))
-    emit({"phase": "serve", "batch": BATCH, "rounds": ROUNDS,
-          "round_seconds": round_s, "pbs_per_s": ROUNDS * BATCH / serve_s,
-          "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
-          "chained_round_seconds_traced": chained_s,
-          "k1_ms_traced_round": per_launch["keyswitch_kernel"],
-          "k2_ms_traced_round": per_launch["blind_rotate_kernel"],
-          "outputs_checked": (ROUNDS + 1) * BATCH, "wrong": wrong})
-    if wrong:
-        raise RuntimeError(f"{wrong} outputs decrypted wrong")
-
-    # 5. kernels against their plain versions
-    # K1 on round 0's own input batch
-    ct0 = torus.from_u64(np.stack([np.asarray(c.data) for c in cts[0]]), dev)
-    ks_args = (ct0, sk.ksk, p.ks_base_log, p.ks_level)
-    k1_got = kernels.keyswitch(*ks_args)
-    k1_want = server.keyswitch(*ks_args)
-    k1_lib = int_mm_keyswitch(*ks_args)
+    mck = ClientKey(mp, seed=args.seed + 10)
+    msk = ServerKey(mck, seed=args.seed + 11, device="cuda")
     torch.cuda.synchronize()
-    k1_err = max_abs_err(k1_got, k1_want)
-    k1_lib_err = max_abs_err(k1_lib, k1_want)
-    k1_ms = cuda_ms(lambda: kernels.keyswitch(*ks_args), 10)
-    k1_plain_ms = cuda_ms(lambda: server.keyswitch(*ks_args), 3)
-    k1_lib_ms = cuda_ms(lambda: int_mm_keyswitch(*ks_args), 10)
-    k1_bound_ms, k1_bound_by = k1_bound(ct0, sk.ksk, k1_got)
+    mb_keygen_s = time.perf_counter() - t0
+    emit({"phase": "keygen_multibit",
+          "params": "V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+          "n": mp.lwe_dimension, "N": mp.polynomial_size, "k": mp.glwe_dimension,
+          "grouping": mp.grouping_factor, "pbs_level": mp.pbs_level,
+          "pbs_base_log": mp.pbs_base_log, "ks_level": mp.ks_level,
+          "ks_base_log": mp.ks_base_log, "mb_floored": msk._bsk_floored,
+          "v9_mode": msk.trunc_acc, "seconds": mb_keygen_s,
+          "device_key_bytes": msk.ksk.numel() * 8 + msk.bsk_ntt.numel() * 4})
+    if not msk.trunc_acc:
+        raise RuntimeError("the GROUP_4 multi-bit key did not select v9 mode")
 
-    # K2 (v7 mode) on round 0's own switched inputs
-    log_mod = p.polynomial_size.bit_length()
-    body = k1_want[:, -1] + server.centered_binary_ms_correction(k1_want, log_mod)
-    mask = server.modulus_switch(k1_want[:, :-1], log_mod)
-    body = server.modulus_switch(body, log_mod)
-    lut_b = torus.from_u64(lut.acc, dev).expand(BATCH, -1, -1)
+    # 6. serve on the multi-bit key
+    mb_served = serve_rounds(mck, msk, args.seed + 12, kernels)
+    emit({"phase": "serve_multibit", **mb_served["line"]})
+    if mb_served["line"]["wrong"]:
+        raise RuntimeError(f"{mb_served['line']['wrong']} outputs decrypted wrong")
+    mb_launches = mb_served["launches"]
+    if (mb_launches["blind_rotate_multibit"] != ROUNDS + 2
+            or mb_launches["blind_rotate"] or not mb_launches["keyswitch"]):
+        raise RuntimeError(f"the multi-bit path did not run K1 and K3 alone: {mb_launches}")
+
+    # 7. kernels against their plain versions
+    errs = {}
+    k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
+    k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
+    errs["k1"] = k1["fig"]["max_abs_err"] + k1["fig"]["int_mm_max_abs_err"]
+    errs["k1_multibit"] = k1_mb["fig"]["max_abs_err"] + k1_mb["fig"]["int_mm_max_abs_err"]
+
+    # K2 (v7 mode) on the classic path's round-0 switched inputs
+    ks_mask, body, log_mod = switched_inputs(k1["want"], p, server)
+    mask = server.modulus_switch(ks_mask, log_mod)
+    lut_b = torus.from_u64(served["lut"].acc, dev).expand(BATCH, -1, -1)
     br_args = (mask, body, lut_b, sk.bsk_ntt, sk.dp, p.pbs_base_log,
                p.pbs_level, True)
     k2_got = kernels.blind_rotate(*br_args)
@@ -314,31 +461,34 @@ def main() -> None:
     k2_want = server.blind_rotate(*br_args)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    k2_err = max_abs_err(k2_got, k2_want)
+    errs["k2_v7_b512"] = max_abs_err(k2_got, k2_want)
     k2_ms = cuda_ms(lambda: kernels.blind_rotate(*br_args), 3)
     k2_bound_v7 = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, V7_PRIMES)
-    k2_bound_exact = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log,
-                              EXACT_PRIMES)
+    k2_bound_exact = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, EXACT_PRIMES)
 
     # K2 at B = 4, full n, random inputs, in both modes
     bsk_exact = torch.from_numpy(
         kg.bootstrap_key_to_ntt(sk._bsk_coeff)[0].view(np.int32)).to(dev)
     n_poly = p.polynomial_size
     chk = np.random.default_rng(args.seed + 2)
-    m4 = torch.from_numpy(chk.integers(0, 2 * n_poly, (K2_CHECK_BATCH, p.lwe_dimension))).to(dev)
-    b4 = torch.from_numpy(chk.integers(0, 2 * n_poly, (K2_CHECK_BATCH,))).to(dev)
-    l4 = torus.from_u64(chk.integers(0, 1 << 64, (K2_CHECK_BATCH, p.glwe_dimension + 1, n_poly),
+    m4 = torch.from_numpy(chk.integers(0, 2 * n_poly, (CHECK_BATCH, p.lwe_dimension))).to(dev)
+    b4 = torch.from_numpy(chk.integers(0, 2 * n_poly, (CHECK_BATCH,))).to(dev)
+    l4 = torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, p.glwe_dimension + 1, n_poly),
                                      dtype=np.uint64), dev)
-    k2_exact_ms = cuda_ms(lambda: kernels.blind_rotate(
-        mask, body, lut_b, bsk_exact, sk.dp, p.pbs_base_log, p.pbs_level, False), 3)
-    # a random NTT-domain key (residues below each prime) at l = 2
+    # K2 in exact mode on the same B = 512 inputs and the unrounded key
+    k2_exact_args = br_args[:3] + (bsk_exact,) + br_args[4:7] + (False,)
+    k2_exact_got = kernels.blind_rotate(*k2_exact_args)
+    t0 = time.perf_counter()
+    k2_exact_want = server.blind_rotate(*k2_exact_args)
+    torch.cuda.synchronize()
+    k2_exact_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["k2_exact_b512"] = max_abs_err(k2_exact_got, k2_exact_want)
+    del k2_exact_want
+    k2_exact_ms = cuda_ms(lambda: kernels.blind_rotate(*k2_exact_args), 3)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    shape = (p.lwe_dimension, K2_GENERIC_LEVELS, p.glwe_dimension + 1,
-             p.glwe_dimension + 1)
-    bsk_generic = torch.stack(
-        [torch.randint(0, q, shape + (n_poly,), generator=gen, device=dev)
-         for q in sk.dp.plan.primes], dim=-2).to(torch.int32)
-    small_err = {}
+    bsk_generic = random_ntt_key(
+        (p.lwe_dimension, K2_GENERIC_LEVELS, p.glwe_dimension + 1, p.glwe_dimension + 1),
+        sk.dp, gen)
     for mode, key, levels, trunc in (
             ("v7", sk.bsk_ntt, p.pbs_level, True),
             ("exact", bsk_exact, p.pbs_level, False),
@@ -347,38 +497,102 @@ def main() -> None:
         a = (m4, b4, l4, key, sk.dp, p.pbs_base_log, levels, trunc)
         got, want = kernels.blind_rotate(*a), server.blind_rotate(*a)
         torch.cuda.synchronize()
-        small_err[mode] = max_abs_err(got, want)
-    del bsk_generic
+        errs[f"k2_{mode}_b4"] = max_abs_err(got, want)
+    del bsk_generic, bsk_exact
+
+    # K3 (v9 mode) on the multi-bit path's round-0 switched inputs
+    ks_mask, body, log_mod = switched_inputs(k1_mb["want"], mp, server)
+    degrees = server.multibit_switched_degrees(ks_mask, mp.grouping_factor, log_mod)
+    lut_mb = torus.from_u64(mb_served["lut"].acc, dev).expand(BATCH, -1, -1)
+    k3_args = (degrees, body, lut_mb, msk.bsk_ntt, msk.dp, mp.pbs_base_log, mp.pbs_level)
+    k3_got = kernels.blind_rotate_multibit(*k3_args, v9=True)
+    t0 = time.perf_counter()
+    k3_want = server.blind_rotate_multibit_v9(*k3_args)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["k3_v9_b512"] = max_abs_err(k3_got, k3_want)
+    del k3_want
+    k3_ms = cuda_ms(lambda: kernels.blind_rotate_multibit(*k3_args, v9=True), 3)
+    k3_bound_v9 = k3_bound(degrees, lut_mb, mp.pbs_level, mp.pbs_base_log, V9_PRIMES, True)
+
+    # K3 in exact mode on the same B = 512 inputs and the unrounded key
+    mb_exact = torch.from_numpy(mb.multibit_bsk_to_ntt(msk._bsk_coeff)[0].view(np.int32)).to(dev)
+    k3_exact_args = k3_args[:3] + (mb_exact,) + k3_args[4:]
+    k3_exact_got = kernels.blind_rotate_multibit(*k3_exact_args, v9=False)
+    t0 = time.perf_counter()
+    k3_exact_want = server.blind_rotate_multibit(*k3_exact_args)
+    torch.cuda.synchronize()
+    k3_exact_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["k3_exact_b512"] = max_abs_err(k3_exact_got, k3_exact_want)
+    del k3_exact_want
+    k3_exact_ms = cuda_ms(lambda: kernels.blind_rotate_multibit(*k3_exact_args, v9=False), 3)
+    k3_bound_exact = k3_bound(degrees, lut_mb, mp.pbs_level, mp.pbs_base_log,
+                              EXACT_PRIMES, False)
+    del mb_exact
+
+    # K3 at other shapes on random keys and inputs: tfhe_tpu's GROUP_2 set
+    # (g = 2, n = 918; the specialised instance) in both modes, and the
+    # GROUP_3 shape (l = 2: the generic instance) in exact mode, the only
+    # mode that set runs on the card; v9 mode must refuse its shape
+    k3_shapes = {}
+    for tag, q, base_log, modes in (("tpu_group_2", TPU_GROUP_2, TPU_GROUP_2.pbs_base_log,
+                                     (True, False)),
+                                    ("generic_group_3", GROUP_3, GROUP_3.pbs_base_log,
+                                     (False,))):
+        g, n_groups = q.grouping_factor, q.lwe_dimension // q.grouping_factor
+        key = random_ntt_key((n_groups, 1 << g, q.pbs_level, 2, 2), msk.dp, gen)
+        raw = torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, q.lwe_dimension),
+                                          dtype=np.uint64), dev)
+        deg_q = server.multibit_switched_degrees(raw, g, log_mod)
+        a = (deg_q, b4, l4, key, msk.dp, base_log, q.pbs_level)
+        for v9 in modes:
+            plain = server.blind_rotate_multibit_v9 if v9 else server.blind_rotate_multibit
+            got = kernels.blind_rotate_multibit(*a, v9=v9)
+            errs[f"k3_{tag}_{'v9' if v9 else 'exact'}_b4"] = max_abs_err(got, plain(*a))
+        if tag == "generic_group_3":
+            try:
+                kernels.blind_rotate_multibit(*a, v9=True)
+                raise RuntimeError("K3 took a v9 shape beyond its shared memory")
+            except ValueError as exc:
+                k3_shapes["group_3_v9_refused"] = str(exc)
+        del key
+    torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
-          "k1_max_abs_err": k1_err, "k1_int_mm_max_abs_err": k1_lib_err,
-          "k2_v7_b512_max_abs_err": k2_err,
-          **{f"k2_{mode}_b4_max_abs_err": err
-             for mode, err in small_err.items()},
-          "k2_generic_levels": K2_GENERIC_LEVELS})
-    if k1_err or k1_lib_err or k2_err or any(small_err.values()):
+          **{f"{name}_max_abs_err": err for name, err in errs.items()},
+          "k2_generic_levels": K2_GENERIC_LEVELS, **k3_shapes})
+    if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 6. launches of the main path (phase 4) and the kernel table
-    if not (launches["keyswitch"] and launches["blind_rotate"]):
-        raise RuntimeError(f"the main path skipped a kernel: {launches}")
-    emit({"phase": "launches", **launches, "rounds": ROUNDS + 1})
+    # 8. launches of the main paths (phases 4 and 6) and the kernel table
+    emit({"phase": "launches", "serve": launches, "serve_multibit": mb_launches,
+          "rounds": ROUNDS + 2})
     print(card, flush=True)
     emit({"kernels": [
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
-         "launches": launches["keyswitch"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-         "bound_by": k1_bound_by, "library_ms": k1_lib_ms,
+         "launches": launches["keyswitch"] + mb_launches["keyswitch"],
+         "launches_by_path": {"serve": launches["keyswitch"],
+                              "serve_multibit": mb_launches["keyswitch"]},
+         "max_abs_err": max(errs["k1"], errs["k1_multibit"]),
+         "ms": k1["fig"]["ms"], "plain_ms": k1["fig"]["plain_ms"],
+         "bound_ms": k1["fig"]["bound_ms"], "bound_by": k1["fig"]["bound_by"],
+         "library_ms": k1["fig"]["library_ms"],
          "library_call": "10 int8-limb torch._int_mm GEMMs (the TPU's formulation)",
-         "shape": [BATCH, p.big_lwe_dimension, p.ks_level, p.lwe_dimension + 1]},
+         "shape": k1["fig"]["shape"],
+         "multibit_shape": k1_mb["fig"]["shape"], "multibit_ms": k1_mb["fig"]["ms"],
+         "multibit_plain_ms": k1_mb["fig"]["plain_ms"],
+         "multibit_bound_ms": k1_mb["fig"]["bound_ms"],
+         "multibit_bound_by": k1_mb["fig"]["bound_by"],
+         "multibit_library_ms": k1_mb["fig"]["library_ms"]},
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
          "also_replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
          "launches": launches["blind_rotate"],
-         "max_abs_err": max(k2_err, *small_err.values()),
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")),
          "ms": k2_ms, "exact_mode_ms": k2_exact_ms, "plain_ms": k2_plain_ms,
+         "exact_mode_plain_ms": k2_exact_plain_ms,
          "bound_ms": k2_bound_v7["ms"], "bound_by": k2_bound_v7["by"],
          "library_ms": None,
          "bound_primes": V7_PRIMES,
@@ -387,8 +601,25 @@ def main() -> None:
          "bound_bytes_ms": k2_bound_v7["bytes_ms"],
          "exact_mode_bound_ms": k2_bound_exact["ms"],
          "exact_mode_bound_by": k2_bound_exact["by"],
-         "shape": [BATCH, p.lwe_dimension, p.glwe_dimension + 1,
-                   p.polynomial_size]},
+         "shape": [BATCH, p.lwe_dimension, p.glwe_dimension + 1, p.polynomial_size]},
+        {"name": "blind_rotate_multibit", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_multibit.cu",
+         "replaces": "tfhe_tpu/ops/pallas_mxu.py:2631",
+         "also_replaces": "tfhe_tpu/ops/pallas_mxu.py:2178",
+         "launches": mb_launches["blind_rotate_multibit"],
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k3")),
+         "ms": k3_ms, "exact_mode_ms": k3_exact_ms, "plain_ms": k3_plain_ms,
+         "exact_mode_plain_ms": k3_exact_plain_ms,
+         "bound_ms": k3_bound_v9["ms"], "bound_by": k3_bound_v9["by"],
+         "library_ms": None,
+         "bound_primes": V9_PRIMES,
+         "bound_ntt_int32_ms": k3_bound_v9["ntt_ms"],
+         "bound_four_step_int8_ms": k3_bound_v9["four_step_ms"],
+         "bound_bytes_ms": k3_bound_v9["bytes_ms"],
+         "exact_mode_bound_ms": k3_bound_exact["ms"],
+         "exact_mode_bound_by": k3_bound_exact["by"],
+         "shape": [BATCH, mp.lwe_dimension // mp.grouping_factor,
+                   1 << mp.grouping_factor, mp.glwe_dimension + 1, mp.polynomial_size]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -44,11 +44,18 @@ for m in list(sys.modules):
 
 import tfhe_tpu_torch
 from tfhe_tpu_torch import shortint
+from tfhe_tpu_torch.core import multibit
 from tfhe_tpu_torch.ops import kernels, server, ntt, torus, bsk_prep
 
 p = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
 ck = shortint.ClientKey(p, seed=3)
 assert ck.decrypt(ck.encrypt(2)) == 2
+# the multi-bit slice: keygen, one KS -> multi-bit PBS round, decrypt
+mp = shortint.TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2
+mck = shortint.ClientKey(mp, seed=3)
+msk = shortint.ServerKey(mck, seed=4, device="cpu")
+out = msk.apply_lookup_table(mck.encrypt(2), msk.generate_lookup_table(lambda x: x + 1))
+assert mck.decrypt(out) == 3
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")

@@ -5,7 +5,6 @@ lazy device-resident outputs, keys carried in through from_raw_keys, the
 v7 pipeline against the TPU kernel's XLA twin, and the op set."""
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -220,7 +219,8 @@ def test_v7_pipeline_matches_the_tpu_kernel_twin():
 
 
 # ---------------------------------------------------------------------------
-# Arms of tfhe_tpu's apply_lookup_table_batch that later slices bring
+# Arms of tfhe_tpu's apply_lookup_table_batch that later slices bring (KS32,
+# the SMALL key and the drift modulus switch, classic or multi-bit)
 # ---------------------------------------------------------------------------
 
 
@@ -242,6 +242,12 @@ def test_later_arms_raise(arm):
 
 
 def test_multi_bit_raises():
-    p = types.SimpleNamespace(grouping_factor=2)
-    with pytest.raises(NotImplementedError, match="multi-bit"):
-        shortint.ServerKey.from_raw_keys(p, None, None, device="cpu")
+    """Multi-bit runs (tests/test_torch_multibit.py), but not yet under the
+    KS32 atomic pattern or the drift modulus switch."""
+    for arm in ("ks32", "drift"):
+        p = dataclasses.replace(shortint.TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2,
+                                **UNSUPPORTED[arm])
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+            shortint.ServerKey(shortint.ClientKey(p, seed=1), seed=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+            shortint.ServerKey.from_raw_keys(p, None, None, device="cpu")

@@ -1,0 +1,115 @@
+"""Multi-bit bootstrapping key: generation, NTT-domain conversion and the
+NTT-domain monomial tables (port of tfhe_tpu/core/multibit.py).
+
+For a group of g secret bits the key stores one GGSW per INDICATOR pattern
+u: GGSW(prod_i (s_i if bit_i(u) else 1 - s_i)), exactly one of which
+encrypts 1 (lwe_multi_bit_bootstrap_key_generation.rs:504-530
+combine_key_bits).  Selection bits are big-endian: the group's first key
+bit is u's most significant bit.  At rotation time the effective GGSW is
+sum_u X^{d_u} E_u (ops/server.py blind_rotate_multibit), or each monomial
+moves onto the data side (blind_rotate_multibit_v9).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+
+from ..ops import ntt
+from ..utils.csprng import EncryptionRandomGenerator
+from .entities import GlweSecretKey, LweSecretKey
+from .keygen import _ggsw_factor
+from .params import DecompParams
+
+# GLWE rows whose mask-times-secret products run in one numpy batch (bounds
+# the host memory of keygen at N = 2048 to a few hundred MB)
+_ROWS_PER_BATCH = 512
+
+
+def generate_multibit_bootstrap_key(
+    input_sk: LweSecretKey,
+    glwe_sk: GlweSecretKey,
+    decomp: DecompParams,
+    grouping_factor: int,
+    noise_distribution,
+    gen: EncryptionRandomGenerator,
+) -> np.ndarray:
+    """Returns the (n/g, 2^g, l, k+1, k+1, N) uint64 standard-domain key.
+
+    The generator forks as tfhe_tpu's does: one child per (group, pattern)
+    in sequence, then one per level, then one per row.  Every row's mask and
+    noise are drawn first, in that order; the bodies (body_init + noise +
+    sum_i mask_i * s_i, wrapping) are then computed in batches, which gives
+    the same bytes as encrypting row by row."""
+    g = grouping_factor
+    n_in = input_sk.dimension
+    if n_in % g:
+        raise ValueError("lwe_dimension must be divisible by grouping_factor")
+    k = glwe_sk.glwe_dimension
+    n_poly = glwe_sk.polynomial_size
+    levels = decomp.level_count
+    k1 = k + 1
+    out = np.zeros((n_in // g, 1 << g, levels, k1, k1, n_poly), dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for j in range(n_in // g):
+            bits_g = [int(input_sk.data[g * j + i]) for i in range(g)]
+            for u in range(1 << g):
+                cleartext = 1
+                for i in range(g):
+                    sel = (u >> (g - 1 - i)) & 1
+                    cleartext *= bits_g[i] if sel else 1 - bits_g[i]
+                ggsw_gens = gen.fork(levels, k1 * k * n_poly, k1 * n_poly,
+                                     noise_distribution)
+                for lev in range(levels):
+                    factor = _ggsw_factor(cleartext, levels - lev, decomp.base_log)
+                    row_gens = ggsw_gens[lev].fork(k1, k * n_poly, n_poly,
+                                                   noise_distribution)
+                    rows = out[j, u, lev]
+                    for r, row_gen in enumerate(row_gens):
+                        rows[r, :k] = row_gen.mask.uniform_u64(k * n_poly).reshape(k, n_poly)
+                        rows[r, k] = noise_distribution.sample(row_gen.noise, n_poly)
+                        if r < k:
+                            rows[r, k] += glwe_sk.data[r].astype(np.uint64) * np.uint64(factor)
+                        else:
+                            rows[r, k, 0] += np.uint64((-factor) % (1 << 64))
+        flat = out.reshape(-1, k1, n_poly)
+        plan = ntt.make_plan(n_poly)
+        for s in range(0, flat.shape[0], _ROWS_PER_BATCH):
+            rows = flat[s:s + _ROWS_PER_BATCH]
+            for i in range(k):
+                rows[:, k] += ntt.negacyclic_polymul_u64(
+                    rows[:, i], glwe_sk.data[i].astype(np.uint64), plan)
+    return out
+
+
+def multibit_bsk_to_ntt(bsk: np.ndarray, num_primes: int = 4):
+    """(..., N) uint64 key -> ((..., P, N) uint32 Montgomery NTT domain,
+    plan), converted in slices of the leading axis to bound host memory."""
+    n_poly = bsk.shape[-1]
+    plan = ntt.make_plan(n_poly, num_primes)
+    out = np.empty(bsk.shape[:-1] + (num_primes, n_poly), dtype=np.uint32)
+    step = max(1, _ROWS_PER_BATCH * 4 * n_poly // max(1, bsk[0].size))
+    with np.errstate(over="ignore"):
+        for s in range(0, bsk.shape[0], step):
+            fwd = ntt.forward_all(bsk[s:s + step].astype(np.uint64), plan)
+            out[s:s + step] = ntt.to_mont_all(fwd, plan)
+    return out, plan
+
+
+@lru_cache(maxsize=None)
+def monomial_ntt_tables(n: int, num_primes: int = 4):
+    """(psi_pows_mont (P, 4N) uint64, bitrev (N,) int64): NTT(X^a)[t] =
+    psi^{(2 br(t) + 1) a mod 4N} in Montgomery form, for the plan's psi."""
+    plan = ntt.make_plan(n, num_primes)
+    tables = []
+    for p in plan.primes:
+        psi = pow(ntt._find_generator(p), (p - 1) // (2 * n), p)
+        r = (1 << 32) % p
+        pows = np.zeros(4 * n, dtype=np.uint64)
+        acc = 1
+        for e in range(4 * n):
+            pows[e] = acc * r % p
+            acc = acc * psi % p
+        tables.append(pows)
+    return np.stack(tables), ntt._bitrev_indices(n)

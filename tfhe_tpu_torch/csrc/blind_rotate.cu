@@ -36,200 +36,15 @@
 // L2.  Twiddles and constants come from the port's ops/ntt.py plan, uploaded
 // once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ntt_common.cuh"
+
+using namespace ntt_common;
 
 namespace {
 
-typedef unsigned long long u64;
-typedef unsigned int u32;
-
-constexpr int THREADS = 512;
-constexpr int NP = 4;           // primes of the CRT-NTT (ops/ntt.py plans)
-constexpr int PASS = 4;         // radix-2 stages per register pass
 constexpr int POINTWISE_TILE = 4;
 constexpr int MAXK1 = 5;        // k + 1 <= 5
 constexpr int MAX_LEVELS = 8;
-
-// layout of the packed table written by ops/ntt.py _kernel_consts
-struct Consts {
-  u32 p[NP];
-  u32 pinv[NP];
-  u32 ninv[NP];
-  u32 inv[NP];
-  u32 pm[NP][NP];
-  u64 prods[NP];
-  u64 pmod;
-  u32 half[NP];
-};
-
-__device__ __forceinline__ u32 mont_mul(u32 a, u32 b, u32 p, u32 pinv) {
-  const u64 t = (u64)a * b;
-  const u32 m = (u32)t * pinv;
-  const u32 u = (u32)((t + (u64)m * p) >> 32);
-  return u >= p ? u - p : u;
-}
-
-__device__ __forceinline__ u32 add_mod(u32 a, u32 b, u32 p) {
-  const u32 s = a + b;
-  return s >= p ? s - p : s;
-}
-
-__device__ __forceinline__ u32 sub_mod(u32 a, u32 b, u32 p) {
-  const u32 d = a + p - b;
-  return d >= p ? d - p : d;
-}
-
-// Closest-representable rounding with balanced tie-breaking
-// (ops/server.py init_decomposer_state).
-__device__ __forceinline__ u64 decomposer_state(u64 x, int base_log, int levels) {
-  const int rep = base_log * levels;      // < 64, checked by the launcher
-  u64 res = x >> (64 - rep - 1);
-  const u64 rounding_bit = res & 1ull;
-  res = (res + 1ull) >> 1;
-  res &= (1ull << rep) - 1ull;
-  const u64 nb = (((res - 1ull) | (rounding_bit << (rep - 1))) & res) >> (rep - 1);
-  return res - (nb << rep);
-}
-
-// The next signed digit, lowest level first, advancing the state
-// (ops/server.py signed_decompose; the shift of the state is arithmetic).
-__device__ __forceinline__ long long next_digit(u64& state, int base_log) {
-  const u64 r = state & ((1ull << base_log) - 1ull);
-  state = (u64)((long long)state >> base_log);
-  const u64 carry = (((r - 1ull) | state) & r) >> (base_log - 1);
-  state += carry;
-  return (long long)(r - (carry << base_log));
-}
-
-// Index of coefficient i in a padded shared-memory row (one word in 32).
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-__host__ __device__ __forceinline__ int padded_len(int n) { return n + (n >> 5); }
-
-// Forward (Cooley-Tukey, natural -> bit-reversed) stages k0 .. k0+S-1 of
-// every polynomial: a thread owns the 2^S coefficients i = hi|b|lo that
-// differ only in the S bits those stages pair (ops/ntt.py ntt_forward).
-template <int S>
-__device__ __forceinline__ void forward_pass(u32* res, int polys, int log_n, int row,
-                                             int k0, const u32* __restrict__ psi,
-                                             const Consts& c) {
-  const int lo_bits = log_n - k0 - S;
-  const int per_poly = 1 << (log_n - S);
-  for (int q = threadIdx.x; q < polys * per_poly; q += THREADS) {
-    const int poly = q >> (log_n - S);
-    const int rest = q & (per_poly - 1);
-    const int lo = rest & ((1 << lo_bits) - 1);
-    const int hi = rest >> lo_bits;
-    const int pi = poly & (NP - 1);
-    const u32 p = c.p[pi];
-    const u32 pinv = c.pinv[pi];
-    u32* x = res + poly * row;
-    const int base = (hi << (S + lo_bits)) | lo;
-    u32 v[1 << S];
-#pragma unroll
-    for (int b = 0; b < (1 << S); ++b) v[b] = x[pad(base | (b << lo_bits))];
-#pragma unroll
-    for (int d = 0; d < S; ++d) {
-      const int half = 1 << (S - 1 - d);
-#pragma unroll
-      for (int g = 0; g < (1 << d); ++g) {
-        // stage k0+d, block ii = (hi << d) | g: twiddle psi[2^(k0+d) + ii]
-        const u32 s = __ldg(psi + (pi << log_n) + (1 << (k0 + d)) + (hi << d) + g);
-#pragma unroll
-        for (int e = 0; e < half; ++e) {
-          const int i0 = (g << (S - d)) + e;
-          const u32 U = v[i0];
-          const u32 V = mont_mul(v[i0 + half], s, p, pinv);
-          v[i0] = add_mod(U, V, p);
-          v[i0 + half] = sub_mod(U, V, p);
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < (1 << S); ++b) x[pad(base | (b << lo_bits))] = v[b];
-  }
-}
-
-// Inverse (Gentleman-Sande, bit-reversed -> natural) stages k0 .. k0+S-1,
-// t = 2^k doubling (ops/ntt.py ntt_inverse without the N^-1 factor).
-template <int S>
-__device__ __forceinline__ void inverse_pass(u32* res, int polys, int log_n, int row,
-                                             int k0, const u32* __restrict__ psi_inv,
-                                             const Consts& c) {
-  const int lo_bits = k0;
-  const int per_poly = 1 << (log_n - S);
-  for (int q = threadIdx.x; q < polys * per_poly; q += THREADS) {
-    const int poly = q >> (log_n - S);
-    const int rest = q & (per_poly - 1);
-    const int lo = rest & ((1 << lo_bits) - 1);
-    const int hi = rest >> lo_bits;
-    const int pi = poly & (NP - 1);
-    const u32 p = c.p[pi];
-    const u32 pinv = c.pinv[pi];
-    u32* x = res + poly * row;
-    const int base = (hi << (S + lo_bits)) | lo;
-    u32 v[1 << S];
-#pragma unroll
-    for (int b = 0; b < (1 << S); ++b) v[b] = x[pad(base | (b << lo_bits))];
-#pragma unroll
-    for (int d = 0; d < S; ++d) {
-      const int dist = 1 << d;
-#pragma unroll
-      for (int g = 0; g < (1 << (S - 1 - d)); ++g) {
-        // stage k0+d, block ii = (hi << (S-1-d)) | g: psi_inv[N/2^(k0+d+1) + ii]
-        const u32 s = __ldg(psi_inv + (pi << log_n) + (1 << (log_n - k0 - d - 1)) +
-                            (hi << (S - 1 - d)) + g);
-#pragma unroll
-        for (int e = 0; e < dist; ++e) {
-          const int i0 = (g << (d + 1)) + e;
-          const u32 U = v[i0];
-          const u32 V = v[i0 + dist];
-          v[i0] = add_mod(U, V, p);
-          v[i0 + dist] = mont_mul(sub_mod(U, V, p), s, p, pinv);
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < (1 << S); ++b) x[pad(base | (b << lo_bits))] = v[b];
-  }
-}
-
-// All log_n stages in passes of PASS, the remainder last; a barrier after
-// each pass.
-__device__ __forceinline__ void forward_ntt(u32* res, int polys, int log_n, int row,
-                                            const u32* __restrict__ psi,
-                                            const Consts& c) {
-  int k0 = 0;
-  for (; k0 + PASS <= log_n; k0 += PASS) {
-    forward_pass<PASS>(res, polys, log_n, row, k0, psi, c);
-    __syncthreads();
-  }
-  if (k0 == log_n) return;
-  switch (log_n - k0) {
-    case 1: forward_pass<1>(res, polys, log_n, row, k0, psi, c); break;
-    case 2: forward_pass<2>(res, polys, log_n, row, k0, psi, c); break;
-    default: forward_pass<3>(res, polys, log_n, row, k0, psi, c); break;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void inverse_ntt(u32* res, int polys, int log_n, int row,
-                                            const u32* __restrict__ psi_inv,
-                                            const Consts& c) {
-  int k0 = 0;
-  for (; k0 + PASS <= log_n; k0 += PASS) {
-    inverse_pass<PASS>(res, polys, log_n, row, k0, psi_inv, c);
-    __syncthreads();
-  }
-  if (k0 == log_n) return;
-  switch (log_n - k0) {
-    case 1: inverse_pass<1>(res, polys, log_n, row, k0, psi_inv, c); break;
-    case 2: inverse_pass<2>(res, polys, log_n, row, k0, psi_inv, c); break;
-    default: inverse_pass<3>(res, polys, log_n, row, k0, psi_inv, c); break;
-  }
-  __syncthreads();
-}
 
 // K1T, LVT > 0 fix k + 1 and the level count at compile time (the 2_2 main
 // path), so the pointwise product unrolls and its key loads overlap; 0 takes
@@ -254,18 +69,7 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
   long long* acc_b = acc_g + (size_t)blockIdx.x * coeffs;
   const int* mask_b = mask_g + (size_t)blockIdx.x * n_steps;
 
-  if (tid == 0) {
-    for (int i = 0; i < NP; ++i) {
-      c.p[i] = (u32)consts_g[i];
-      c.pinv[i] = (u32)consts_g[4 + i];
-      c.ninv[i] = (u32)consts_g[8 + i];
-      c.inv[i] = (u32)consts_g[12 + i];
-      for (int j = 0; j < NP; ++j) c.pm[i][j] = (u32)consts_g[16 + 4 * i + j];
-      c.prods[i] = (u64)consts_g[32 + i];
-      c.half[i] = (u32)consts_g[40 + i];
-    }
-    c.pmod = (u64)consts_g[36];
-  }
+  if (tid == 0) load_consts(c, consts_g);
   for (int q = tid; q < coeffs; q += THREADS) acc[q] = (u64)acc_b[q];
   __syncthreads();
 
@@ -285,15 +89,8 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
       const int j = q & (n_poly - 1);
       u64 v = j < rot ? 0ull - acc[q - rot + n_poly] : acc[q - rot];
       if (odd) v = 0ull - v;
-      u64 state = decomposer_state(v - acc[q], base_log, levels);
-      u32* out = res + cpoly * NP * row + pad(j);
-      for (int lev = 0; lev < levels; ++lev, out += level_stride) {
-        const long long d = next_digit(state, base_log);
-#pragma unroll
-        for (int pi = 0; pi < NP; ++pi) {
-          out[pi * row] = d < 0 ? (u32)((long long)c.p[pi] + d) : (u32)d;
-        }
-      }
+      write_digit_residues(res + cpoly * NP * row + pad(j), v - acc[q], base_log,
+                           levels, level_stride, row, c);
     }
     __syncthreads();
 
@@ -352,36 +149,8 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
     // 5. scale by N^-1, Garner to u64, optional 2^32-grid rounding, accumulate
     for (int q = tid; q < coeffs; q += THREADS) {
       const int cpoly = q >> log_n;
-      const u32* col = res + cpoly * NP * row + pad(q & (n_poly - 1));
-      u32 dg[NP];
-#pragma unroll
-      for (int pi = 0; pi < NP; ++pi) {
-        dg[pi] = mont_mul(col[pi * row], c.ninv[pi], c.p[pi], c.pinv[pi]);
-      }
-#pragma unroll
-      for (int jp = 1; jp < NP; ++jp) {
-        const u32 pj = c.p[jp];
-        const u32 pinvj = c.pinv[jp];
-        u32 v = dg[0] >= pj ? dg[0] - pj : dg[0];
-#pragma unroll
-        for (int i = 1; i < jp; ++i) {
-          v += mont_mul(dg[i], c.pm[i - 1][jp], pj, pinvj);
-          v = v >= pj ? v - pj : v;
-        }
-        const u32 rr = dg[jp];
-        const u32 d = rr >= v ? rr - v : rr + pj - v;
-        dg[jp] = mont_mul(d, c.inv[jp], pj, pinvj);
-      }
-      u64 x = dg[0];
-      bool neg = dg[0] > c.half[0];
-#pragma unroll
-      for (int i = 1; i < NP; ++i) {
-        x += (u64)dg[i] * c.prods[i];
-        neg = (dg[i] > c.half[i]) || (dg[i] == c.half[i] && neg);
-      }
-      if (neg) x -= c.pmod;
-      if (trunc) x = (x + (1ull << 31)) & 0xFFFFFFFF00000000ull;
-      acc[q] += x;
+      const u64 x = garner_u64(res + cpoly * NP * row + pad(q & (n_poly - 1)), row, c);
+      acc[q] += trunc ? round_hi32(x) : x;
     }
     __syncthreads();
   }

@@ -1,17 +1,25 @@
 """Host-side preparation of the coefficient-domain bootstrapping key for the
-v7 blind rotation: mask flooring at key generation and centered rounding.
+v7 and v9 blind rotations: mask flooring at key generation, centered
+rounding, and the multi-bit rounding rule.
 
 Counterpart: tfhe_tpu/ops/mxu.py ``mask_floor_bsk`` and ``round_bsk``
 (:201-274).  Both packages must hold the same key bytes, so the flooring
 keeps tfhe_tpu's float64 matrix product, which is exact here
-(|sum| <= N * 2^rb < 2^53).
+(|sum| <= N * 2^rb < 2^53).  A multi-bit key is floored and rounded
+flattened to (n/g 2^g, l, k+1, k+1, N).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from ..core.entities import LweBootstrapKey
+
+# the first three of tfhe_tpu's 28-bit MXU primes (tfhe_tpu/ops/mxu.py:44):
+# the v9 rounding is sized for its 3-prime product
+MXU_PRIMES_3 = (268369921, 268361729, 268271617)
 
 
 def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int) -> LweBootstrapKey:
@@ -41,10 +49,26 @@ def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int) -> LweBootstr
     return LweBootstrapKey(out, bsk.decomp)
 
 
+def mb_round_bits(p) -> int:
+    """The multi-bit key rounding of the v9 blind rotation: the least rb in
+    [10, 25) at which the CRT product of tfhe_tpu's first three MXU primes
+    exceeds twice the summed-pattern bound 2^g l (k+1) N (B/2) 2^(63-rb)
+    (tfhe_tpu/shortint/server_key.py:183-203 with its defaults); 0 if none.
+    18 at GROUP_4 2_2, 16 at tfhe_tpu's GROUP_2 set."""
+    prod = math.prod(MXU_PRIMES_3)
+    for rb in range(10, 25):
+        bmax = ((1 << 63) >> rb) + 1
+        max_x = ((1 << p.grouping_factor) * p.pbs_level * (p.glwe_dimension + 1)
+                 * p.polynomial_size * (1 << (p.pbs_base_log - 1)) * bmax)
+        if prod > 2 * max_x:
+            return rb
+    return 0
+
+
 def round_bsk(bsk: LweBootstrapKey, round_bits: int) -> LweBootstrapKey:
     """Centered-round every coefficient to a multiple of 2^round_bits (mod
-    2^64): the v7 key.  The exact external product on this key is what the
-    TPU's 3-prime rounded-key kernel computes."""
+    2^64): the v7 and v9 keys.  The exact external product on this key is
+    what the TPU's 3-prime rounded-key kernels compute."""
     half = np.uint64(1 << (round_bits - 1))
     mask = np.uint64((1 << round_bits) - 1)
     with np.errstate(over="ignore"):

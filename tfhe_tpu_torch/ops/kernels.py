@@ -1,10 +1,11 @@
-"""The hand-written CUDA kernels of the KS->PBS path: build, load, wrappers.
+"""The hand-written CUDA kernels of the KS->PBS paths: build, load, wrappers.
 
-K1 ``keyswitch`` (csrc/keyswitch.cu) and K2 ``blind_rotate``
-(csrc/blind_rotate.cu) are compiled with nvcc for sm_90a into shared
-libraries with a plain C interface at first use (utils/build.py, both
-compilers started together) and called through ctypes on PyTorch's current
-stream.
+K1 ``keyswitch`` (csrc/keyswitch.cu), K2 ``blind_rotate``
+(csrc/blind_rotate.cu) and K3 ``blind_rotate_multibit``
+(csrc/blind_rotate_multibit.cu; K2 and K3 share csrc/ntt_common.cuh) are
+compiled with nvcc for sm_90a into shared libraries with a plain C
+interface at first use (utils/build.py, all compilers started together)
+and called through ctypes on PyTorch's current stream.
 
 Each wrapper runs its plain PyTorch version (ops/server.py) when given CPU
 tensors, and launches its kernel on CUDA tensors or raises: there is no
@@ -24,11 +25,12 @@ from .ntt import KERNEL_CONSTS_LEN, KERNEL_PRIMES, DevicePlan
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu"}
+_SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
+            "blind_rotate_multibit": "blind_rotate_multibit.cu"}
 
 
 class _Libs:
-    loaded = None      # {"keyswitch": CDLL, "blind_rotate": CDLL}
+    loaded = None      # {name in _SOURCES: CDLL}
 
 
 def nvcc_command() -> list:
@@ -52,7 +54,7 @@ def source_paths() -> list:
 
 
 def load() -> dict:
-    """Build (first use only) and load both kernel libraries."""
+    """Build (first use only) and load the kernel libraries."""
     if _Libs.loaded is None:
         cmd = nvcc_command()
         paths = build_shared_libraries(
@@ -68,6 +70,12 @@ def load() -> dict:
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
         fn.argtypes = [i] * 3
+        fn.restype = i
+        fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit
+        fn.argtypes = [vp] * 7 + [i] * 9 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
+        fn.argtypes = [i] * 4
         fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
@@ -160,3 +168,58 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
 
 
 blind_rotate.launches = 0
+
+
+def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
+                          base_log: int, levels: int, v9: bool = False):
+    """K3: batched multi-bit blind rotation, in v9 mode (monomials on the
+    data side, 2^32-grid accumulator, rounded key: ops/server.py
+    blind_rotate_multibit_v9) or in exact mode (the key-bundle form:
+    blind_rotate_multibit).
+
+    degrees: (B, n/g, 2^g) in [0, 2N); msed_body: (B,); lut: (B, k+1, N)
+    int64; mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N) int32 Montgomery NTT
+    domain."""
+    if degrees.device.type == "cpu":
+        plain = (server.blind_rotate_multibit_v9 if v9
+                 else server.blind_rotate_multibit)
+        return plain(degrees, msed_body, lut, mb_key_ntt, dp, base_log, levels)
+    _require(degrees.device.type == "cuda",
+             f"no multi-bit blind-rotation kernel for {degrees.device}")
+    b, n_groups, n_sub = degrees.shape
+    k1, n_poly = lut.shape[1], lut.shape[2]
+    nprimes = dp.num_primes
+    grouping = n_sub.bit_length() - 1
+    _require(n_sub == 1 << grouping and 1 <= grouping <= 4,
+             f"{n_sub} patterns a group: the kernel takes grouping 1 to 4")
+    _require(mb_key_ntt.shape == (n_groups, n_sub, levels, k1, k1, nprimes, n_poly),
+             f"key shape {tuple(mb_key_ntt.shape)} does not fit the batch")
+    _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "the kernel takes a 4-prime plan and a power-of-two N")
+    _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
+    lib = load()["blind_rotate_multibit"]
+    smem = lib.tfhe_torch_blind_rotate_multibit_smem_bytes(k1, n_poly, levels, int(v9))
+    _require(smem <= SMEM_LIMIT,
+             f"multi-bit blind rotation with k+1 = {k1}, N = {n_poly}, "
+             f"l = {levels} needs {smem} B of shared memory, above the "
+             f"{SMEM_LIMIT} B a block may use (ROADMAP.md queue 3)")
+    acc = server.initial_accumulator(lut, msed_body, v9).contiguous()
+    deg32 = degrees.to(torch.int32).contiguous()
+    mb_key_ntt = mb_key_ntt.contiguous()
+    mono = server.monomial_table(dp)[0]
+    _check_cuda((acc, torch.int64), (deg32, torch.int32),
+                (mb_key_ntt, torch.int32), (dp.psi32, torch.int32),
+                (dp.psi_inv32, torch.int32), (mono, torch.int32),
+                (dp.kernel_consts, torch.int64))
+    err = lib.tfhe_torch_blind_rotate_multibit(
+        acc.data_ptr(), deg32.data_ptr(), mb_key_ntt.data_ptr(),
+        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(), mono.data_ptr(),
+        dp.kernel_consts.data_ptr(), b, n_groups, grouping, k1,
+        n_poly.bit_length() - 1, levels, nprimes, base_log, int(v9),
+        _stream(acc))
+    _raise_on(err, "blind_rotate_multibit")
+    blind_rotate_multibit.launches += 1
+    return acc
+
+
+blind_rotate_multibit.launches = 0

@@ -1,11 +1,12 @@
 """Batched server-side compute path on int64 torus tensors.
 
-The port of tfhe_tpu/ops/server.py for the classic KS->PBS atomic pattern.
-Each function here is the plain PyTorch version of its tfhe_tpu namesake:
-the same exact integer arithmetic, so outputs are the same u64 words.
-``keyswitch`` and ``blind_rotate`` are also the plain versions of the two
-CUDA kernels (ops/kernels.py): ``ks_pbs_batch`` goes through the kernel
-wrappers, which run these plain versions for CPU tensors.
+The port of tfhe_tpu/ops/server.py for the classic and the multi-bit
+KS->PBS atomic patterns.  Each function here is the plain PyTorch version
+of its tfhe_tpu namesake: the same exact integer arithmetic, so outputs are
+the same u64 words.  ``keyswitch``, ``blind_rotate`` and the two multi-bit
+rotations are also the plain versions of the CUDA kernels
+(ops/kernels.py): ``ks_pbs_batch`` and ``ks_pbs_batch_multibit`` go through
+the kernel wrappers, which run these plain versions for CPU tensors.
 
 Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
 u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
@@ -14,9 +15,12 @@ is int64 ``>>``.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
+from ..core.multibit import monomial_ntt_tables
 from . import kernels, ntt
 from .torus import s64, shr
 
@@ -161,20 +165,34 @@ def _digits_to_residues(digits, dp: ntt.DevicePlan):
                         for p in dp.plan.primes], dim=-2)
 
 
+def _forward_digits(glwe, dp: ntt.DevicePlan, base_log: int, levels: int):
+    """Signed digits of (B, k+1, N) words in the NTT domain: (l, B, k+1, P, N)."""
+    digits = signed_decompose(glwe, base_log, levels)
+    return ntt.ntt_forward(_digits_to_residues(digits, dp), dp)
+
+
+def _product_sum(fwd, key, dp: ntt.DevicePlan):
+    """sum_{lev, r} fwd[lev][:, r] . key[..., lev, r, :] in the NTT domain:
+    fwd (l, B, k+1, P, N) normal form; key (l, k+1, k+1, P, N) or
+    (B, l, k+1, k+1, P, N), Montgomery form.  Returns (B, k+1, P, N)."""
+    key = key.to(torch.int64)
+    if key.dim() == 5:
+        key = key[None]
+    col = None
+    for lev in range(key.shape[1]):
+        for r in range(key.shape[2]):
+            prod = ntt.pointwise_mul_mont(fwd[lev][:, r, None], key[:, lev, r], dp)
+            col = prod if col is None else ntt.add_mod_stacked(col, prod, dp)
+    return col
+
+
 def external_product(glwe, ggsw, dp: ntt.DevicePlan, base_log: int,
                      levels: int):
     """GGSW (x) GLWE, exact: glwe (B, k+1, N) int64; ggsw (l, k+1, k+1, P, N)
     Montgomery NTT domain.  Returns the (B, k+1, N) product to add to the
     accumulator (tfhe_tpu/ops/server.py:342)."""
-    digits = signed_decompose(glwe, base_log, levels)        # (l, B, k+1, N)
-    fwd = ntt.ntt_forward(_digits_to_residues(digits, dp), dp)
-    key = ggsw.to(torch.int64)
-    acc = None
-    for lev in range(levels):
-        for r in range(key.shape[1]):
-            prod = ntt.pointwise_mul_mont(fwd[lev][:, r, None], key[lev][r][None], dp)
-            acc = prod if acc is None else ntt.add_mod_stacked(acc, prod, dp)
-    return ntt.garner_to_u64(ntt.ntt_inverse(acc, dp), dp)
+    col = _product_sum(_forward_digits(glwe, dp, base_log, levels), ggsw, dp)
+    return ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp)
 
 
 def _round_to_hi32(x):
@@ -205,6 +223,96 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
         ct1 = monomial_mul(acc, a_i) - acc
         prod = external_product(ct1, bsk_ntt[i], dp, base_log, levels)
         acc = acc + (_round_to_hi32(prod) if trunc_acc else prod)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Multi-bit blind rotation (plain versions of K3's two modes)
+# ---------------------------------------------------------------------------
+
+
+def multibit_switched_degrees(mask, grouping: int, log_mod: int,
+                              raw: bool = True):
+    """Per-group pattern degrees d_u: (B, n) -> (B, n/g, 2^g) int64 in
+    [0, 2^log_mod) (tfhe_tpu/ops/server.py:388).
+
+    raw=True: mask holds raw torus words and d_u is the modulus switch of
+    the wrapping sum of the u-selected elements (one rounding per pattern).
+    raw=False: mask holds switched values and d_u is their sum mod
+    2^log_mod.  Selection bits are big-endian (the group's first element is
+    u's most significant bit)."""
+    b, n = mask.shape
+    grouped = mask.reshape(b, n // grouping, grouping)
+    sums = [torch.zeros((b, n // grouping), dtype=torch.int64, device=mask.device)]
+    for u in range(1, 1 << grouping):
+        low = u & (-u)
+        sums.append(sums[u ^ low] + grouped[:, :, grouping - low.bit_length()])
+    stacked = torch.stack(sums, dim=-1)
+    if raw:
+        return modulus_switch(stacked, log_mod)
+    return stacked & ((1 << log_mod) - 1)
+
+
+@lru_cache(maxsize=None)
+def monomial_table(dp: ntt.DevicePlan) -> tuple:
+    """On dp's device: the (P, 4N) int32 table with NTT(X^a)[t] =
+    table[:, (2 br(t) + 1) a mod 4N] in Montgomery form
+    (core/multibit.py monomial_ntt_tables; residues < 2^30), and the (N,)
+    int64 odd exponents 2 br(t) + 1."""
+    tables, br = monomial_ntt_tables(dp.n, dp.num_primes)
+    device = dp.psi.device
+    return (torch.from_numpy(tables.astype(np.int32)).to(device),
+            torch.from_numpy(2 * br + 1).to(device))
+
+
+def _monomial_ntt(degree, dp: ntt.DevicePlan):
+    """NTT(X^degree) in Montgomery form: (B,) int64 -> (B, P, N)."""
+    table, odd = monomial_table(dp)
+    e = (odd[None, :] * degree[:, None]) & (4 * dp.n - 1)
+    return table[:, e].permute(1, 0, 2)
+
+
+def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt,
+                          dp: ntt.DevicePlan, base_log: int, levels: int):
+    """Exact multi-bit blind rotation, the key-bundle form
+    (tfhe_tpu/ops/server.py:425): per group j, the effective GGSW
+    E_j0 + sum_{u>0} NTT(X^{d_u}) . E_ju is built pointwise in the NTT
+    domain and one external product advances the accumulator.
+
+    degrees: (B, n/g, 2^g) in [0, 2N); msed_body: (B,); lut: (B, k+1, N);
+    mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N) int32 Montgomery NTT domain."""
+    acc = initial_accumulator(lut, msed_body, False)
+    for j in range(degrees.shape[1]):
+        key = mb_key_ntt[j].to(torch.int64)
+        eff = key[0]
+        for u in range(1, key.shape[0]):
+            w = _monomial_ntt(degrees[:, j, u], dp)[:, None, None, None]
+            eff = ntt.add_mod_stacked(eff, ntt.pointwise_mul_mont(w, key[u][None], dp), dp)
+        col = _product_sum(_forward_digits(acc, dp, base_log, levels), eff, dp)
+        acc = ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp)
+    return acc
+
+
+def blind_rotate_multibit_v9(degrees, msed_body, lut, mb_key_ntt,
+                             dp: ntt.DevicePlan, base_log: int, levels: int):
+    """The v9 function, monomials on the data side, on a ``round_bsk``-rounded
+    key (tfhe_tpu/ops/mxu.py:1133 blind_rotate_mxu_multibit, trunc=True):
+    acc0 = round32(LUT / X^body), and per group j
+        acc <- round32(sum_u EP(E_ju, X^{d_u} . acc))
+    with the exact external product.  The patterns' products are summed in
+    the NTT domain and reconstructed once, which equals summing the
+    reconstructed products mod 2^64: the sum stays below P/2 (about 2^101
+    at GROUP_4 2_2 against 2^119 for the four primes).  Arguments as in
+    ``blind_rotate_multibit``."""
+    acc = initial_accumulator(lut, msed_body, True)
+    for j in range(degrees.shape[1]):
+        key = mb_key_ntt[j]
+        col = None
+        for u in range(key.shape[0]):
+            rot = monomial_mul(acc, degrees[:, j, u, None, None])
+            prod = _product_sum(_forward_digits(rot, dp, base_log, levels), key[u], dp)
+            col = prod if col is None else ntt.add_mod_stacked(col, prod, dp)
+        acc = _round_to_hi32(ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp))
     return acc
 
 
@@ -241,6 +349,27 @@ def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
     acc = kernels.blind_rotate(
         modulus_switch(ks[:, :-1], log_mod), modulus_switch(body, log_mod),
         lut, bsk_ntt, dp, pbs_base_log, pbs_levels, trunc_acc)
+    return sample_extract(acc)
+
+
+def ks_pbs_batch_multibit(ct, lut, ksk, mb_key_ntt, dp: ntt.DevicePlan,
+                          ks_base_log: int, ks_levels: int, pbs_base_log: int,
+                          pbs_levels: int, grouping: int,
+                          centered_ms: bool = False, v9: bool = False):
+    """The multi-bit atomic pattern KS -> MS -> multi-bit blind rotation ->
+    SE (tfhe_tpu/ops/server.py:657 ks_pbs_batch_multibit; with v9 and a
+    rounded key, :977 ks_pbs_batch_mxu_multibit).  The degrees are modulus
+    switches of raw mask sums; keyswitch and blind rotation go through the
+    kernel wrappers.  mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N)."""
+    log_mod = lut.shape[-1].bit_length()
+    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
+    body = ks[:, -1]
+    if centered_ms:
+        body = body + centered_binary_ms_correction(ks, log_mod)
+    acc = kernels.blind_rotate_multibit(
+        multibit_switched_degrees(ks[:, :-1], grouping, log_mod),
+        modulus_switch(body, log_mod), lut, mb_key_ntt, dp, pbs_base_log,
+        pbs_levels, v9)
     return sample_extract(acc)
 
 

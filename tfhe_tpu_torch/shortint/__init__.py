@@ -1,5 +1,6 @@
 """shortint on PyTorch: keygen and encryption on the host, the batched
-KS->PBS on the device (port of tfhe_tpu.shortint, classic KS->PBS sets)."""
+KS->PBS on the device (port of tfhe_tpu.shortint, classic and multi-bit
+KS->PBS sets)."""
 
 from .ciphertext import Ciphertext
 from .client_key import ClientKey
@@ -7,12 +8,19 @@ from .params import (
     DEFAULT_PARAMS,
     PARAM_MESSAGE_2_CARRY_2_KS_PBS,
     TEST_PARAM_MESSAGE_2_CARRY_2,
+    TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2,
+    TPU_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_4_CARRY_4_KS_PBS_TUNIFORM_2M128,
     EncryptionKeyChoice,
     MsNoiseReduction,
+    MultiBitPBSParameters,
     ShortintParams,
 )
 from .server_key import CarryFullError, LookupTable, ServerKey

@@ -1,6 +1,6 @@
-"""shortint parameter sets (the classic KS->PBS sets of
-tfhe_tpu/shortint/params.py; multi-bit, KS32, PBS->KS and PKE sets arrive
-with the slices that run them).
+"""shortint parameter sets (the classic KS->PBS and the multi-bit sets of
+tfhe_tpu/shortint/params.py; KS32, PBS->KS and PKE sets arrive with the
+slices that run them).
 
 Message space = MessageModulus x CarryModulus (+1 padding bit) in one LWE
 (SURVEY.md §2.3).  Numeric values mirror the reference's versioned parameter
@@ -181,6 +181,131 @@ TEST_PARAM_MESSAGE_2_CARRY_2 = ShortintParams(
     max_noise_level=5,
     log2_p_fail=-40.0,
     ms_noise_reduction=MsNoiseReduction.NONE,
+)
+
+
+# ---------------------------------------------------------------------------
+# Multi-bit PBS parameters (shortint/parameters/multi_bit.rs
+# MultiBitPBSParameters; values from v1_4/multi_bit/tuniform/
+# p_fail_2_minus_128/ks_pbs_gpu.rs, the reference's GPU-default family)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MultiBitPBSParameters(ShortintParams):
+    grouping_factor: int = 2
+    deterministic_execution: bool = False
+
+
+V1_4_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    MultiBitPBSParameters(
+        lwe_dimension=918,
+        glwe_dimension=1,
+        polynomial_size=4096,
+        lwe_noise=TUniform(45),
+        glwe_noise=TUniform(3),
+        pbs_base_log=21,
+        pbs_level=1,
+        ks_base_log=3,
+        ks_level=5,
+        message_modulus=4,
+        carry_modulus=4,
+        max_noise_level=5,
+        log2_p_fail=-140.341,
+        grouping_factor=2,
+    )
+
+V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    MultiBitPBSParameters(
+        lwe_dimension=879,
+        glwe_dimension=1,
+        polynomial_size=2048,
+        lwe_noise=TUniform(46),
+        glwe_noise=TUniform(17),
+        pbs_base_log=14,
+        pbs_level=2,
+        ks_base_log=2,
+        ks_level=8,
+        message_modulus=4,
+        carry_modulus=4,
+        max_noise_level=5,
+        log2_p_fail=-128.29,
+        grouping_factor=3,
+    )
+
+V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    MultiBitPBSParameters(
+        lwe_dimension=920,
+        glwe_dimension=1,
+        polynomial_size=2048,
+        lwe_noise=TUniform(45),
+        glwe_noise=TUniform(17),
+        pbs_base_log=22,
+        pbs_level=1,
+        ks_base_log=3,
+        ks_level=5,
+        message_modulus=4,
+        carry_modulus=4,
+        max_noise_level=5,
+        log2_p_fail=-134.345,
+        grouping_factor=4,
+    )
+
+# tfhe_tpu's own multi-bit set (not a reference set): grouping 2 at N = 2048,
+# pbs_base_log 22 so the summed-pattern CRT bound fits three primes at rb 16
+TPU_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    MultiBitPBSParameters(
+        lwe_dimension=918,
+        glwe_dimension=1,
+        polynomial_size=2048,
+        lwe_noise=TUniform(45),
+        glwe_noise=TUniform(17),
+        pbs_base_log=22,
+        pbs_level=1,
+        ks_base_log=3,
+        ks_level=5,
+        message_modulus=4,
+        carry_modulus=4,
+        max_noise_level=5,
+        log2_p_fail=-137.46,
+        grouping_factor=2,
+    )
+
+V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 = \
+    MultiBitPBSParameters(
+        lwe_dimension=760,
+        glwe_dimension=1,
+        polynomial_size=2048,
+        lwe_noise=TUniform(49),
+        glwe_noise=TUniform(17),
+        pbs_base_log=22,
+        pbs_level=1,
+        ks_base_log=3,
+        ks_level=4,
+        message_modulus=2,
+        carry_modulus=2,
+        max_noise_level=3,
+        log2_p_fail=-145.020,
+        grouping_factor=4,
+    )
+
+# fast insecure multi-bit test set (grouping must divide lwe_dimension)
+TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2 = MultiBitPBSParameters(
+    lwe_dimension=16,
+    glwe_dimension=1,
+    polynomial_size=512,
+    lwe_noise=TUniform(3),
+    glwe_noise=TUniform(3),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=4,
+    ks_level=4,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-40.0,
+    ms_noise_reduction=MsNoiseReduction.NONE,
+    grouping_factor=2,
 )
 
 PARAM_MESSAGE_2_CARRY_2_KS_PBS = V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128

@@ -1,18 +1,23 @@
 """shortint server key: batched LUT application + the four-flavor op set.
 
-Port of tfhe_tpu/shortint/server_key.py for the classic KS->PBS atomic
-pattern.  Keys are generated on the host exactly as tfhe_tpu generates them
-(same seeds, same bytes, the same BSK mask flooring) and uploaded to the
-device once, in kernel layout.  ``apply_lookup_table_batch`` runs one
-batched KS -> MS -> blind rotation -> sample extract (ops/server.py
-ks_pbs_batch) through the two CUDA kernels on a CUDA device, or through
-their plain PyTorch versions on the CPU.
+Port of tfhe_tpu/shortint/server_key.py for the classic and the multi-bit
+KS->PBS atomic patterns.  Keys are generated on the host exactly as
+tfhe_tpu generates them (same seeds, same bytes, the same BSK mask
+flooring) and uploaded to the device once, in kernel layout.
+``apply_lookup_table_batch`` runs one batched KS -> MS -> blind rotation ->
+sample extract (ops/server.py ks_pbs_batch, or ks_pbs_batch_multibit for a
+multi-bit set) through the CUDA kernels on a CUDA device, or through their
+plain PyTorch versions on the CPU.
 
 Which blind rotation runs is fixed at construction, as tfhe_tpu's
-``use_mxu`` fixes it by backend: v7 mode (the TPU production kernel's
-function: key centered-rounded to 2^15, accumulator on the 2^32 grid) on a
-CUDA device for the MXU family (N = 2048, k = 1, l = 1) with a floored key;
-the exact rotation otherwise, which is what tfhe_tpu runs on the CPU.
+``use_mxu`` and ``use_mxu_multibit`` fix it by backend.  Classic sets: v7
+mode (the TPU production kernel's function: key centered-rounded to 2^15,
+accumulator on the 2^32 grid) on a CUDA device for the MXU family (N =
+2048, k = 1, l = 1) with a floored key.  Multi-bit sets: v9 mode (the TPU's
+fused multi-bit kernel: monomials on the data side, key rounded to
+``mb_round_bits``, 2^32-grid accumulator) on a CUDA device for the v9
+family with a floored key.  Otherwise the exact rotation runs, which is
+what tfhe_tpu runs on the CPU.
 
 Op flavors follow the reference convention (server_key/add.rs:41-303):
   unchecked_* (no checks) / checked_* (error on overflow risk) /
@@ -28,11 +33,12 @@ import numpy as np
 import torch
 
 from ..core import keygen as kg
+from ..core import multibit as mb
 from ..core import security
 from ..core.entities import LweBootstrapKey
 from ..ops import ntt, torus
 from ..ops import server as srv
-from ..ops.bsk_prep import mask_floor_bsk, round_bsk
+from ..ops.bsk_prep import mask_floor_bsk, mb_round_bits, round_bsk
 from ..utils.csprng import DeterministicSeeder, EncryptionRandomGenerator
 from ..utils.device import resolve_device
 from .ciphertext import (NOMINAL_NOISE, Ciphertext, DeviceLweBatch,
@@ -124,11 +130,45 @@ def uses_v7(device: torch.device, p, bsk_floored: int) -> bool:
             and bsk_floored >= ROUND_BITS)
 
 
+def _v9_family(p) -> bool:
+    """Multi-bit sets the v9 blind rotation covers (tfhe_tpu's
+    ``_mxu_family_mb``, server_key.py:169-180; static, like _v7_family)."""
+    g = getattr(p, "grouping_factor", None)
+    return (g in (2, 3, 4) and p.polynomial_size == 2048
+            and p.glwe_dimension == 1 and p.pbs_level == 1
+            and p.pbs_base_log <= 23
+            and p.lwe_dimension % g == 0 and 128 % (2 * (1 << g)) == 0
+            and p.encryption_key_choice == EncryptionKeyChoice.BIG
+            and not p.ks32)
+
+
+def uses_v9(device: torch.device, p, mb_floored: int) -> bool:
+    """Whether a multi-bit server key runs the v9 blind rotation: on a CUDA
+    device, for the v9 family, with a key whose masks are floored to
+    ``mb_round_bits`` (tfhe_tpu's ``use_mxu_multibit``, server_key.py:380-395,
+    with the device in place of the backend test)."""
+    rb = mb_round_bits(p) if _v9_family(p) else 0
+    return device.type == "cuda" and rb > 0 and mb_floored >= rb
+
+
+def _floor_rounds_securely(p, round_bits: int) -> None:
+    """The estimator guard of mask flooring: the floored key is a GLWE
+    instance over modulus 2^(64-rb) with the same absolute noise.  Raise
+    where flooring would take a secure set below the estimator curve;
+    flooring an insecure test set is harmless."""
+    kn = p.glwe_dimension * p.polynomial_size
+    ok_floored, detail = security.check_lwe_noise_secure(
+        p.glwe_noise, kn, modulus_log2_shrink=round_bits)
+    ok_plain, _ = security.check_lwe_noise_secure(p.glwe_noise, kn)
+    if not (ok_floored or not ok_plain):
+        raise ValueError(
+            f"BSK mask flooring at rb={round_bits} would degrade a "
+            f"secure parameter set below the estimator curve: {detail}")
+
+
 def _check_supported(p) -> None:
     """The arms of tfhe_tpu's apply_lookup_table_batch that later slices
     port (ROADMAP.md queue 1) raise instead of taking another path."""
-    if getattr(p, "grouping_factor", None) is not None:
-        raise NotImplementedError("multi-bit PBS: ROADMAP queue 1 item 10")
     if p.ks32:
         raise NotImplementedError("KS32 atomic pattern: ROADMAP queue 1 item 7")
     if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
@@ -154,35 +194,42 @@ class ServerKey:
         ksk = kg.generate_lwe_keyswitch_key(
             client_key.big_lwe_secret_key, client_key.lwe_secret_key,
             core.ks_decomp, p.lwe_noise, gen)
-        bsk = kg.generate_lwe_bootstrap_key(
-            client_key.lwe_secret_key, client_key.glwe_secret_key,
-            core.pbs_decomp, p.glwe_noise, gen)
+        glwe_sk = client_key.glwe_secret_key
         floored = 0
-        if _v7_family(p):
-            # Keygen-side, phase-preserving mask alignment so the rounded
-            # key only perturbs bodies (ops/bsk_prep.mask_floor_bsk).  Only
-            # where the floored key still meets the estimator curves: the
-            # floored key is a GLWE instance over modulus 2^(64-rb) with the
-            # same absolute noise.  Flooring an insecure test set is harmless.
-            kn = p.glwe_dimension * p.polynomial_size
-            ok_floored, detail = security.check_lwe_noise_secure(
-                p.glwe_noise, kn, modulus_log2_shrink=ROUND_BITS)
-            ok_plain, _ = security.check_lwe_noise_secure(p.glwe_noise, kn)
-            if not (ok_floored or not ok_plain):
-                raise ValueError(
-                    f"BSK mask flooring at rb={ROUND_BITS} would degrade a "
-                    f"secure parameter set below the estimator curve: {detail}")
-            bsk = mask_floor_bsk(bsk, client_key.glwe_secret_key, ROUND_BITS)
-            floored = ROUND_BITS
+        # Keygen-side, phase-preserving mask alignment so that the rounded
+        # key only perturbs bodies (ops/bsk_prep.mask_floor_bsk), where the
+        # floored key still meets the estimator curves.
+        if getattr(p, "grouping_factor", None) is not None:
+            # MultiBit arm: 2^g indicator GGSWs per group of g key bits, from
+            # the same generator after the KSK, floored flattened
+            bsk = mb.generate_multibit_bootstrap_key(
+                client_key.lwe_secret_key, glwe_sk, core.pbs_decomp,
+                p.grouping_factor, p.glwe_noise, gen)
+            rb = mb_round_bits(p) if _v9_family(p) else 0
+            if rb:
+                _floor_rounds_securely(p, rb)
+                flat = LweBootstrapKey(bsk.reshape((-1,) + bsk.shape[2:]),
+                                       core.pbs_decomp)
+                bsk = mask_floor_bsk(flat, glwe_sk, rb).data.reshape(bsk.shape)
+                floored = rb
+        else:
+            bsk = kg.generate_lwe_bootstrap_key(
+                client_key.lwe_secret_key, glwe_sk, core.pbs_decomp,
+                p.glwe_noise, gen)
+            if _v7_family(p):
+                _floor_rounds_securely(p, ROUND_BITS)
+                bsk = mask_floor_bsk(bsk, glwe_sk, ROUND_BITS)
+                floored = ROUND_BITS
         self._init_from_raw(p, ksk.data, bsk, floored, device)
 
     @classmethod
     def from_raw_keys(cls, params: ShortintParams, ksk_data, bsk_data,
                       bsk_floored: int = 0, device="cuda") -> "ServerKey":
         """Build from standard-domain KSK (n_big, l, n_small+1) and BSK
-        (n_small, l, k+1, k+1, N) uint64 arrays.  bsk_floored: the rb the BSK
-        masks are floored to (0 for a key that was not floored, which never
-        takes the v7 rotation)."""
+        uint64 arrays: (n_small, l, k+1, k+1, N) for a classic set,
+        (n_small/g, 2^g, l, k+1, k+1, N) for a multi-bit set.  bsk_floored:
+        the rb the BSK masks are floored to (0 for a key that was not
+        floored, which never takes the v7 or v9 rotation)."""
         device = resolve_device(device)
         _check_supported(params)
         obj = cls.__new__(cls)
@@ -191,16 +238,28 @@ class ServerKey:
 
     def _init_from_raw(self, p: ShortintParams, ksk_data, bsk_data,
                        bsk_floored: int, device: torch.device) -> None:
-        bsk = (bsk_data if isinstance(bsk_data, LweBootstrapKey)
-               else LweBootstrapKey(np.asarray(bsk_data), p.core.pbs_decomp))
         self.params = p
         self.device = device
         self._bsk_floored = bsk_floored
+        self.grouping = getattr(p, "grouping_factor", None)
+        if self.grouping is not None:
+            # multi-bit: v9 mode takes the key rounded flattened
+            bsk = np.asarray(bsk_data)
+            self.trunc_acc = uses_v9(device, p, bsk_floored)
+            key = bsk
+            if self.trunc_acc:
+                flat = LweBootstrapKey(bsk.reshape((-1,) + bsk.shape[2:]),
+                                       p.core.pbs_decomp)
+                key = round_bsk(flat, mb_round_bits(p)).data.reshape(bsk.shape)
+            bsk_ntt, plan = mb.multibit_bsk_to_ntt(key)
+        else:
+            bsk = (bsk_data if isinstance(bsk_data, LweBootstrapKey)
+                   else LweBootstrapKey(np.asarray(bsk_data), p.core.pbs_decomp))
+            self.trunc_acc = uses_v7(device, p, bsk_floored)
+            key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
+            bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
         # coefficient-domain key, kept for building the other mode's key
         self._bsk_coeff = bsk
-        self.trunc_acc = uses_v7(device, p, bsk_floored)
-        key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
-        bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
         self.plan = plan
         self.dp = ntt.device_plan(plan, str(device))
         # uploaded once, in kernel layout: u64 KSK as int64, NTT-domain BSK
@@ -282,11 +341,17 @@ class ServerKey:
             lut_b = uniq_t[0].expand((n_pad,) + tuple(uniq_t.shape[1:]))
         else:
             lut_b = uniq_t[torch.tensor(lut_idx, device=self.device)]
-        out = srv.ks_pbs_batch(
-            batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
-            p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
-            centered_ms=p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN,
-            trunc_acc=self.trunc_acc)
+        centered = p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN
+        if self.grouping is not None:
+            out = srv.ks_pbs_batch_multibit(
+                batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
+                p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
+                self.grouping, centered_ms=centered, v9=self.trunc_acc)
+        else:
+            out = srv.ks_pbs_batch(
+                batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
+                p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
+                centered_ms=centered, trunc_acc=self.trunc_acc)
         self.pbs_count += n_real
         handle = DeviceLweBatch(out)
         w = int(out.shape[-1])

@@ -1,7 +1,7 @@
 """Build native sources into shared libraries at first use.
 
 Libraries land in ``<checkout>/build/tfhe_tpu_torch/`` (listed in
-.gitignore), one file per (sources, command) content hash, so a checkout
+.gitignore), one file per (sources, headers, command) content hash, so a checkout
 builds what it needs the first time it is used and a changed source never
 loads a stale library.  Concurrent builders (pytest-xdist workers) each
 compile to a private temporary name and rename into place atomically.
@@ -20,8 +20,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "tfhe_tpu_torch"
 
 
 def _target(name: str, sources: list, command: list) -> pathlib.Path:
+    """The library path for these sources, the headers beside them
+    (``*.cuh``) and this command."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
+    dirs = sorted({pathlib.Path(src).parent for src in sources})
+    headers = [h for d in dirs for h in sorted(d.glob("*.cuh"))]
+    for src in list(sources) + headers:
         digest.update(pathlib.Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
