@@ -8,33 +8,56 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
 
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
-  2. build the hand-written kernels from tfhe_tpu_torch/csrc/ (nvcc, sm_90a,
-     one compiler per source, started together);
+  2. build the hand-written kernels K1-K4 from tfhe_tpu_torch/csrc/ (nvcc,
+     sm_90a, one compiler per source, started together);
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
      BSK, so the server key runs the v7 blind rotation) and key upload;
   4. serve: three rounds of ServerKey.apply_lookup_table_batch at B = 512
      with LUT (3x+1) % 16, then one chained round on the device-resident
      outputs, profiled after a warm-up run of it; every output is
      decrypted and checked;
-  5. keygen_multibit at
+  5. keygen_compression: CompressionKey at
+     V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 from phase 3's
+     client key (decompression key floored at rb = 15, so decompression
+     runs K2 in v7 mode);
+  6. compress: the chained round's 512 device-resident outputs into 2
+     storage GLWEs, one launch of K4;
+  7. decompress: all 512 slots through one v7 launch of K2 at n = 1024
+     (the function of tfhe_tpu's v8 kernel), every output decrypted, then a
+     subset across the GLWE boundary;
+  8. keygen_multibit at
      V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
      (multi-bit key floored at rb = 18, so the server key runs the v9
      multi-bit blind rotation);
-  6. serve_multibit: the rounds of phase 4 on the multi-bit key, through K1
+  9. serve_multibit: the rounds of phase 4 on the multi-bit key, through K1
      and K3 (K2 never);
-  7. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
-     on both paths' own B = 512 inputs; K2 on the classic path's B = 512
-     inputs in v7 mode and in exact mode (unrounded key), and at B = 4 over
-     the full n = 918 in both modes, for the 2_2 shape (its specialised
-     instance) and for k + 1 = 2, l = 2 on a random key (its generic
-     instance); K3 on the multi-bit path's own B = 512 inputs in v9 mode
-     and in exact mode (unrounded key), at tfhe_tpu's GROUP_2 shape (g = 2,
+ 10. modswitch_compress: switch_modulus_and_compress of 512 ciphertexts (K1
+     each), then decompress_and_apply_lookup_table_batch with (3x+1) % 16,
+     on the classic key (K2 once, exact mode on the unrounded key) and on
+     the multi-bit key (K3 once, exact mode); every output decrypted;
+ 11. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+     on both paths' own B = 512 inputs and at phase 10's B = 1 on both
+     keys, and phase 10's 512 stored values on each key against the plain
+     keyswitch and modulus switch; K2 on the classic path's B = 512 inputs
+     in v7 mode and in exact mode (unrounded key, which must differ from
+     the rounded one), with phase 10's classic outputs against the plain
+     rotation, and at B = 4 over the full n = 918 in both modes and in
+     exact mode on the rounded key (the function of tfhe_tpu's v3/v4
+     kernels), for the 2_2 shape (its specialised instance) and for
+     k + 1 = 2, l = 2 on a random key (its generic instance); K2 in v7 mode
+     at the decompression shape (n = 1024) on all 512 of phase 7's inputs
+     and on its B = 3 subset, with phase 7's outputs against the plain
+     rotation; K3 on the multi-bit path's own B = 512 inputs in v9 mode and
+     in exact mode (unrounded key), with phase 10's multi-bit outputs
+     against the plain rotation, at tfhe_tpu's GROUP_2 shape (g = 2,
      n = 918) in both modes on a random key, and its generic instance at
      the GROUP_3 shape (l = 2) in exact mode, where v9 mode must refuse the
-     shape; times of each kernel in both modes, its plain version and, for
+     shape; K4 on phase 6's 512 inputs and at four smaller shapes on random
+     keys; times of each kernel in each mode, its plain version and, for
      K1, the int8-limb torch._int_mm formulation the TPU uses (a yardstick
      the port never calls);
-  8. the launch counts of phases 4 and 6 and one {"kernels": [...]} line.
+ 12. the launch counts of phases 4, 6, 7, 9 and 10 and one
+     {"kernels": [...]} line.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -73,6 +96,13 @@ EXACT_PRIMES = 4
 V9_PRIMES = 3
 # tfhe_tpu's MXU four-step split N = N1 * N2 (tfhe_tpu/ops/mxu.py:8)
 FOUR_STEP_N1 = 128
+# CRT primes an exact packing keyswitch needs: |X| < 8 2^64 N n l < 2^88 at
+# the production set, below half the product of three 30-bit primes
+K4_PRIMES = 3
+# K4 on random keys and inputs, (B, n, l, k+1, N, LWEs a GLWE, base_log):
+# a partial last GLWE, GLWEs of a few rows, l = 1 to 3, N = 32 to 1024
+K4_SHAPES = ((300, 512, 3, 2, 256, 256, 4), (45, 40, 2, 2, 32, 20, 5),
+             (3, 5, 1, 1, 1024, 1000, 10), (37, 70, 3, 2, 256, 256, 4))
 
 
 def emit(obj) -> None:
@@ -227,6 +257,37 @@ def k3_bound(degrees, lut, levels: int, base_log: int, nprimes: int,
             "bytes_ms": t_bytes * 1e3}
 
 
+def k4_bound(lwes, pksk, out, per_glwe: int, nprimes: int) -> dict:
+    """Least time for the packing keyswitch: every input byte read once and
+    the output written once, against the cheaper of two ways to do its
+    products.  limbs: the direct product, sum_g b_g n l (k+1) N
+    multiply-adds of a digit by 8 byte limbs of a key word on the int8
+    tensor cores (as k1_bound counts K1).  ntt: nprimes-prime CRT-NTTs on
+    the CUDA cores' integer rate (three 32-bit multiplies a Montgomery
+    product): the key's transforms once, and per GLWE the digits'
+    transforms, the pointwise products, the inverse transforms and Garner.
+    nprimes: what the exact product needs (|X| < 8 2^64 N n l)."""
+    b = lwes.shape[0]
+    n_in, levels, k1, n_poly = pksk.shape
+    n_glwe = out.shape[0]
+    filled = sum(min(per_glwe, b - g * per_glwe) for g in range(n_glwe))
+    macs = filled * n_in * levels * k1 * n_poly
+    t_limbs = 2 * 8 * macs / INT8_TC_OPS_PER_S
+    butterflies = (n_poly // 2) * (n_poly.bit_length() - 1)
+    modmuls = (n_in * levels * k1 * nprimes * butterflies
+               + n_glwe * (n_in * levels * nprimes * butterflies
+                           + n_in * levels * k1 * nprimes * n_poly
+                           + k1 * nprimes * butterflies
+                           + k1 * n_poly * nprimes * (nprimes - 1) // 2))
+    t_ntt = 3 * modmuls / INT32_MUL_PER_S
+    t_bytes = 8 * (lwes.numel() + pksk.numel() + out.numel()) / HBM_BYTES_PER_S
+    t_ops = min(t_limbs, t_ntt)
+    return {"ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations",
+            "limbs_int8_ms": t_limbs * 1e3, "ntt_int32_ms": t_ntt * 1e3,
+            "bytes_ms": t_bytes * 1e3}
+
+
 def random_ntt_key(shape, dp, gen):
     """A random NTT-domain key: residues below each prime, int32."""
     import torch
@@ -250,12 +311,35 @@ def kernel_ms_by_name(prof, names) -> dict:
     return out
 
 
+def kernel_wrappers(kernels) -> tuple:
+    return (kernels.keyswitch, kernels.blind_rotate, kernels.blind_rotate_multibit,
+            kernels.packing_keyswitch)
+
+
+def counted(kernels, fn):
+    """Run fn with every kernel's launch count set to 0 just before; return
+    (fn's result, the counts just after, seconds)."""
+    import torch
+
+    wrappers = kernel_wrappers(kernels)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {w.__name__: w.launches for w in wrappers}, seconds
+
+
 def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     """ROUNDS batched rounds at B = BATCH with LUT (3x+1) % 16, then one
     chained round on the device-resident outputs (plus 5, message
     extracted) under the profiler, after one warm-up run of it: ROUNDS + 2
     rounds.  Every kernel's launch count is set to 0 just before and read
-    just after; every output of the ROUNDS + 1 kept rounds is decrypted."""
+    just after; every output of the ROUNDS + 1 kept rounds is decrypted.
+    A round's host seconds end when its call returns, before the wait for
+    the card: they tell a host stall from a slow kernel."""
     import numpy as np
     import torch
 
@@ -266,15 +350,16 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     cts = [[ck.encrypt(int(v)) for v in vals] for vals in inputs]
     lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % 16)
     lut_msg = sk.generate_msg_lookup_table(lambda x: x)
-    wrappers = (kernels.keyswitch, kernels.blind_rotate, kernels.blind_rotate_multibit)
+    wrappers = kernel_wrappers(kernels)
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    round_s, outs = [], []
+    round_s, host_s, outs = [], [], []
     for r in range(ROUNDS):
         t1 = time.perf_counter()
         outs.append(sk.apply_lookup_table_batch(cts[r], lut))
+        host_s.append(time.perf_counter() - t1)
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t1)
     serve_s = time.perf_counter() - t0
@@ -304,11 +389,13 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     for r in range(ROUNDS):
         for ct, v in zip(outs[r], inputs[r]):
             wrong += ck.decrypt_raw(ct) != (3 * int(v) + 1) % 16
-    for i, ct in enumerate(chained):
-        want = ((3 * int(inputs[-1][i]) + 1) % 16 + 5) % msg
+    chained_want = [((3 * int(v) + 1) % 16 + 5) % msg for v in inputs[-1]]
+    for ct, want in zip(chained, chained_want):
         wrong += ck.decrypt(ct) != want
-    return {"cts": cts, "lut": lut, "launches": launches, "line": {
+    return {"cts": cts, "inputs": inputs, "lut": lut, "launches": launches,
+            "chained": chained, "chained_want": chained_want, "line": {
         "batch": BATCH, "rounds": ROUNDS, "round_seconds": round_s,
+        "round_host_seconds": host_s,
         "pbs_per_s": ROUNDS * BATCH / serve_s,
         "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
         "chained_round_seconds_traced": chained_s,
@@ -321,8 +408,9 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
 
 def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
     """K1 on a round's own input batch against its plain version and the
-    int8-limb yardstick; times and bound.  Returns the K1 figures and the
-    plain keyswitch output (the blind rotations' inputs)."""
+    int8-limb yardstick; times and bound.  Returns the K1 figures, the
+    input batch and the plain keyswitch output (the blind rotations'
+    inputs)."""
     import numpy as np
     import torch
 
@@ -334,7 +422,7 @@ def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
     lib = int_mm_keyswitch(*args)
     torch.cuda.synchronize()
     bound_ms, bound_by = k1_bound(ct0, sk.ksk, got)
-    return {"want": want, "fig": {
+    return {"want": want, "ct": ct0, "fig": {
         "max_abs_err": max_abs_err(got, want),
         "int_mm_max_abs_err": max_abs_err(lib, want),
         "ms": cuda_ms(lambda: kernels.keyswitch(*args), 10),
@@ -363,15 +451,16 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script runs only on a CUDA card")
 
-    from tfhe_tpu_torch.core import keygen as kg
-    from tfhe_tpu_torch.core import multibit as mb
-    from tfhe_tpu_torch.ops import kernels, ntt, server, torus
+    from tfhe_tpu_torch.ops import kernels, server, torus
     from tfhe_tpu_torch.shortint import (
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as GROUP_3,
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as MB_PARAMS,
         TPU_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as TPU_GROUP_2,
+        V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as COMP_PARAMS,
         V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as PARAMS,
-        ClientKey, ServerKey)
+        ClientKey, CompressionKey, ServerKey)
+    from tfhe_tpu_torch.shortint.compression import extract_switched
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -415,7 +504,52 @@ def main() -> None:
     if not (launches["keyswitch"] and launches["blind_rotate"]):
         raise RuntimeError(f"the classic path skipped a kernel: {launches}")
 
-    # 5. multi-bit keygen and key upload
+    # 5. compression keygen from the classic client key
+    cp = COMP_PARAMS
+    t0 = time.perf_counter()
+    ckey = CompressionKey(ck, seed=args.seed + 20, device="cuda")
+    torch.cuda.synchronize()
+    dk = ckey.decompression
+    emit({"phase": "keygen_compression",
+          "params": "V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+          "seconds": time.perf_counter() - t0, "br_floored": dk._bsk_floored,
+          "v7_mode": dk.trunc_acc, "pksk_device_bytes": ckey.pksk.numel() * 8,
+          "decompression_key_device_bytes": dk.bsk_ntt.numel() * 4})
+    if dk._bsk_floored != 15 or not dk.trunc_acc:
+        raise RuntimeError("the decompression key was not floored at 15 or not in v7 mode")
+
+    # 6. compress the chained round's device-resident outputs (K4)
+    chained, chained_want = served["chained"], served["chained_want"]
+    packed, comp_launches, compress_s = counted(kernels, lambda: ckey.compress(chained))
+    raw_bytes = BATCH * (p.polynomial_size * p.glwe_dimension + 1) * 8
+    emit({"phase": "compress", "batch": BATCH, "glwes": packed.glwes.shape[0],
+          "seconds": compress_s, "compressed_bytes": packed.glwes.nbytes,
+          "uncompressed_bytes": raw_bytes, "ratio": raw_bytes / packed.glwes.nbytes,
+          "launches": comp_launches})
+    if comp_launches != {"keyswitch": 0, "blind_rotate": 0, "blind_rotate_multibit": 0,
+                         "packing_keyswitch": 1}:
+        raise RuntimeError(f"compress did not run K4 alone, once: {comp_launches}")
+
+    # 7. decompress all 512 (one K2 launch, v7 mode, n = 1024), then a subset
+    # across the GLWE boundary
+    dec_outs, decomp_launches, decompress_s = counted(kernels, lambda: ckey.decompress(packed))
+    wrong = sum(ck.decrypt(ct) != want for ct, want in zip(dec_outs, chained_want))
+    subset = [cp.lwe_per_glwe - 1, cp.lwe_per_glwe, BATCH - 1]
+    sub_outs, sub_launches, subset_s = counted(
+        kernels, lambda: ckey.decompress(packed, indices=subset))
+    wrong += sum(ck.decrypt(sub_outs[i]) != chained_want[j] for i, j in enumerate(subset))
+    emit({"phase": "decompress", "batch": BATCH, "steps": cp.packing_ks_polynomial_size
+          * cp.packing_ks_glwe_dimension, "seconds": decompress_s, "launches": decomp_launches,
+          "subset": subset, "subset_seconds": subset_s, "subset_launches": sub_launches,
+          "outputs_checked": BATCH + len(subset), "wrong": wrong})
+    if wrong:
+        raise RuntimeError(f"{wrong} decompressed outputs decrypted wrong")
+    for got in (decomp_launches, sub_launches):
+        if got != {"keyswitch": 0, "blind_rotate": 1, "blind_rotate_multibit": 0,
+                   "packing_keyswitch": 0}:
+            raise RuntimeError(f"decompress did not run K2 alone, once: {got}")
+
+    # 8. multi-bit keygen and key upload
     mp = MB_PARAMS
     t0 = time.perf_counter()
     mck = ClientKey(mp, seed=args.seed + 10)
@@ -433,7 +567,7 @@ def main() -> None:
     if not msk.trunc_acc:
         raise RuntimeError("the GROUP_4 multi-bit key did not select v9 mode")
 
-    # 6. serve on the multi-bit key
+    # 9. serve on the multi-bit key
     mb_served = serve_rounds(mck, msk, args.seed + 12, kernels)
     emit({"phase": "serve_multibit", **mb_served["line"]})
     if mb_served["line"]["wrong"]:
@@ -443,12 +577,53 @@ def main() -> None:
             or mb_launches["blind_rotate"] or not mb_launches["keyswitch"]):
         raise RuntimeError(f"the multi-bit path did not run K1 and K3 alone: {mb_launches}")
 
-    # 7. kernels against their plain versions
+    # 10. modulus-switched compression on the classic and the multi-bit key:
+    # KS + MS now (K1 once a ciphertext), the rotation later in exact mode
+    # (K2 on the classic key, K3 on the multi-bit key), LUT (3x+1) % 16
+    ms_launches, ms_runs = {}, {}
+    for tag, c_key, s_key, srv_out, rotation in (
+            ("classic", ck, sk, served, "blind_rotate"),
+            ("multibit", mck, msk, mb_served, "blind_rotate_multibit")):
+        cts, vals = srv_out["cts"][0], srv_out["inputs"][0]
+        stored, switch_launches, switch_s = counted(
+            kernels, lambda: [s_key.switch_modulus_and_compress(ct) for ct in cts])
+        s_key.exact_bsk_ntt()      # the unrounded key, uploaded at first use
+        lut = s_key.generate_lookup_table(lambda x: (3 * x + 1) % 16)
+        outs, lut_launches, lut_s = counted(
+            kernels, lambda: s_key.decompress_and_apply_lookup_table_batch(stored, lut))
+        wrong = sum(c_key.decrypt_raw(ct) != (3 * int(v) + 1) % 16 for ct, v in zip(outs, vals))
+        ms_launches[tag] = {"switch": switch_launches, "decompress": lut_launches}
+        ms_runs[tag] = {"stored": stored, "outs": outs}
+        emit({"phase": "modswitch_compress", "key": tag, "batch": BATCH,
+              "switch_seconds": switch_s, "decompress_seconds": lut_s,
+              "stored_bytes": sum(c.packed.nbytes for c in stored),
+              "uncompressed_bytes": BATCH * cts[0].data.nbytes,
+              "launches": ms_launches[tag], "outputs_checked": BATCH, "wrong": wrong})
+        if wrong:
+            raise RuntimeError(f"{wrong} modulus-switched outputs decrypted wrong ({tag})")
+        other = "blind_rotate_multibit" if rotation == "blind_rotate" else "blind_rotate"
+        if (switch_launches["keyswitch"] != BATCH or lut_launches[rotation] != 1
+                or lut_launches[other] or lut_launches["keyswitch"]):
+            raise RuntimeError(f"modulus-switched compression ({tag}) did not run K1 "
+                               f"then {rotation} once: {ms_launches[tag]}")
+
+    # 11. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
     errs["k1"] = k1["fig"]["max_abs_err"] + k1["fig"]["int_mm_max_abs_err"]
     errs["k1_multibit"] = k1_mb["fig"]["max_abs_err"] + k1_mb["fig"]["int_mm_max_abs_err"]
+    # K1 at B = 1, as switch_modulus_and_compress launches it, on each key;
+    # and the 512 values phase 10 stored on each key against the plain
+    # keyswitch and modulus switch of the same ciphertexts
+    for tag, s_key, fig in (("classic", sk, k1), ("multibit", msk, k1_mb)):
+        q = s_key.params
+        one = (fig["ct"][:1], s_key.ksk, q.ks_base_log, q.ks_level)
+        errs[f"k1_{tag}_b1"] = max_abs_err(kernels.keyswitch(*one), server.keyswitch(*one))
+        ks_mask, body, log_mod = switched_inputs(fig["want"], q, server)
+        want = torch.cat([server.modulus_switch(ks_mask, log_mod), body[:, None]], dim=1)
+        got = torus.from_u64(np.stack([c.switched() for c in ms_runs[tag]["stored"]]), dev)
+        errs[f"k1_modswitch_stored_{tag}_b512"] = max_abs_err(got, want)
 
     # K2 (v7 mode) on the classic path's round-0 switched inputs
     ks_mask, body, log_mod = switched_inputs(k1["want"], p, server)
@@ -466,9 +641,15 @@ def main() -> None:
     k2_bound_v7 = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, V7_PRIMES)
     k2_bound_exact = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, EXACT_PRIMES)
 
-    # K2 at B = 4, full n, random inputs, in both modes
-    bsk_exact = torch.from_numpy(
-        kg.bootstrap_key_to_ntt(sk._bsk_coeff)[0].view(np.int32)).to(dev)
+    # K2 in exact mode on the rounded key (the function of tfhe_tpu's v3/v4
+    # kernels), same inputs
+    k2_rounded_exact_ms = cuda_ms(lambda: kernels.blind_rotate(*br_args[:7], False), 3)
+
+    # K2 at B = 4, full n, random inputs, in both modes and in exact mode on
+    # the rounded key
+    bsk_exact = sk.exact_bsk_ntt()
+    if torch.equal(bsk_exact, sk.bsk_ntt):
+        raise RuntimeError("exact_bsk_ntt gave the rounded classic key")
     n_poly = p.polynomial_size
     chk = np.random.default_rng(args.seed + 2)
     m4 = torch.from_numpy(chk.integers(0, 2 * n_poly, (CHECK_BATCH, p.lwe_dimension))).to(dev)
@@ -483,6 +664,11 @@ def main() -> None:
     torch.cuda.synchronize()
     k2_exact_plain_ms = (time.perf_counter() - t0) * 1e3
     errs["k2_exact_b512"] = max_abs_err(k2_exact_got, k2_exact_want)
+    # phase 10's classic outputs came from the same switched values, LUT and
+    # key through K2 in exact mode
+    errs["k2_exact_modswitch_outputs_b512"] = max_abs_err(
+        upload_batch([c.data for c in ms_runs["classic"]["outs"]], dev),
+        server.sample_extract(k2_exact_want))
     del k2_exact_want
     k2_exact_ms = cuda_ms(lambda: kernels.blind_rotate(*k2_exact_args), 3)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
@@ -492,13 +678,61 @@ def main() -> None:
     for mode, key, levels, trunc in (
             ("v7", sk.bsk_ntt, p.pbs_level, True),
             ("exact", bsk_exact, p.pbs_level, False),
+            ("rounded_exact", sk.bsk_ntt, p.pbs_level, False),
             ("generic_v7", bsk_generic, K2_GENERIC_LEVELS, True),
             ("generic_exact", bsk_generic, K2_GENERIC_LEVELS, False)):
         a = (m4, b4, l4, key, sk.dp, p.pbs_base_log, levels, trunc)
         got, want = kernels.blind_rotate(*a), server.blind_rotate(*a)
         torch.cuda.synchronize()
         errs[f"k2_{mode}_b4"] = max_abs_err(got, want)
-    del bsk_generic, bsk_exact
+    del bsk_generic
+
+    # K2 in v7 mode at the decompression shape (n = k_c N_c = 1024) on all
+    # 512 of phase 7's switched inputs, against the plain version (its time
+    # is the 1024 steps' launches more than the batch: about as long at
+    # B = 4)
+    glwes_dev = torch.from_numpy(packed.glwes.astype(np.int64)).to(dev)
+    msed = extract_switched(glwes_dev, list(range(BATCH)), cp.storage_log_modulus)
+    lut_id = torus.from_u64(server.generate_lut(
+        p.polynomial_size, p.glwe_dimension + 1, p.total_modulus, p.delta,
+        lambda x: x), dev).expand(BATCH, -1, -1)
+    dec_args = (msed[:, :-1], msed[:, -1], lut_id, dk.bsk_ntt, dk.dp, cp.br_base_log,
+                cp.br_level, True)
+    got = kernels.blind_rotate(*dec_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = server.blind_rotate(*dec_args)
+    torch.cuda.synchronize()
+    k2_dec_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["k2_decompression_v7_b512"] = max_abs_err(got, want)
+    errs["k2_decompression_outputs_b512"] = max_abs_err(
+        upload_batch([c.data for c in dec_outs], dev), server.sample_extract(want))
+    del got, want
+    # the subset's B = 3 (a part-filled tile) the same way
+    sub_msed = extract_switched(glwes_dev, subset, cp.storage_log_modulus)
+    sub_args = (sub_msed[:, :-1], sub_msed[:, -1], lut_id[:len(subset)]) + dec_args[3:]
+    sub_want = server.blind_rotate(*sub_args)
+    errs["k2_decompression_v7_b3"] = max_abs_err(kernels.blind_rotate(*sub_args), sub_want)
+    errs["k2_decompression_subset_outputs_b3"] = max_abs_err(
+        upload_batch([c.data for c in sub_outs], dev), server.sample_extract(sub_want))
+    k2_dec_ms = cuda_ms(lambda: kernels.blind_rotate(*dec_args), 3)
+    k2_dec_bound = k2_bound(msed[:, :-1], lut_id, cp.br_level, cp.br_base_log, V7_PRIMES)
+
+    # K4 on phase 6's 512 inputs at the production shape
+    comp_in = upload_batch([ct.data for ct in chained], dev)
+    k4_args = (comp_in, ckey.pksk, cp.packing_ks_base_log, cp.packing_ks_level,
+               cp.lwe_per_glwe)
+    k4_got = kernels.packing_keyswitch(*k4_args)
+    errs["k4_b512"] = max_abs_err(k4_got, server.packing_keyswitch(*k4_args))
+    k4_ms = cuda_ms(lambda: kernels.packing_keyswitch(*k4_args), 10)
+    k4_plain_ms = cuda_ms(lambda: server.packing_keyswitch(*k4_args), 3)
+    k4_b = k4_bound(comp_in, ckey.pksk, k4_got, cp.lwe_per_glwe, K4_PRIMES)
+    for b, n_in, lev, k1_c, n_c, per, base_log in K4_SHAPES:
+        a = (torus.from_u64(chk.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64), dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (n_in, lev, k1_c, n_c), dtype=np.uint64),
+                            dev), base_log, lev, per)
+        errs[f"k4_random_b{b}_n{n_in}_l{lev}_k{k1_c}_N{n_c}"] = max_abs_err(
+            kernels.packing_keyswitch(*a), server.packing_keyswitch(*a))
 
     # K3 (v9 mode) on the multi-bit path's round-0 switched inputs
     ks_mask, body, log_mod = switched_inputs(k1_mb["want"], mp, server)
@@ -516,7 +750,9 @@ def main() -> None:
     k3_bound_v9 = k3_bound(degrees, lut_mb, mp.pbs_level, mp.pbs_base_log, V9_PRIMES, True)
 
     # K3 in exact mode on the same B = 512 inputs and the unrounded key
-    mb_exact = torch.from_numpy(mb.multibit_bsk_to_ntt(msk._bsk_coeff)[0].view(np.int32)).to(dev)
+    mb_exact = msk.exact_bsk_ntt()
+    if torch.equal(mb_exact, msk.bsk_ntt):
+        raise RuntimeError("exact_bsk_ntt gave the rounded multi-bit key")
     k3_exact_args = k3_args[:3] + (mb_exact,) + k3_args[4:]
     k3_exact_got = kernels.blind_rotate_multibit(*k3_exact_args, v9=False)
     t0 = time.perf_counter()
@@ -528,6 +764,15 @@ def main() -> None:
     k3_exact_ms = cuda_ms(lambda: kernels.blind_rotate_multibit(*k3_exact_args, v9=False), 3)
     k3_bound_exact = k3_bound(degrees, lut_mb, mp.pbs_level, mp.pbs_base_log,
                               EXACT_PRIMES, False)
+    # phase 10's multi-bit outputs: the stored values' pattern degrees
+    # (raw=False) through the plain exact rotation, same LUT and key
+    st = torus.from_u64(np.stack([c.switched() for c in ms_runs["multibit"]["stored"]]), dev)
+    deg_st = server.multibit_switched_degrees(st[:, :-1], mp.grouping_factor, log_mod,
+                                              raw=False)
+    errs["k3_exact_modswitch_outputs_b512"] = max_abs_err(
+        upload_batch([c.data for c in ms_runs["multibit"]["outs"]], dev),
+        server.sample_extract(server.blind_rotate_multibit(
+            deg_st, st[:, -1], lut_mb, mb_exact, msk.dp, mp.pbs_base_log, mp.pbs_level)))
     del mb_exact
 
     # K3 at other shapes on random keys and inputs: tfhe_tpu's GROUP_2 set
@@ -563,18 +808,21 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 8. launches of the main paths (phases 4 and 6) and the kernel table
+    # 12. launches of the paths (phases 4, 6, 7, 9, 10) and the kernel table
     emit({"phase": "launches", "serve": launches, "serve_multibit": mb_launches,
-          "rounds": ROUNDS + 2})
+          "rounds": ROUNDS + 2, "compress": comp_launches, "decompress": decomp_launches,
+          "decompress_subset": sub_launches, "modswitch_compress": ms_launches})
     print(card, flush=True)
     emit({"kernels": [
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
          "launches": launches["keyswitch"] + mb_launches["keyswitch"],
-         "launches_by_path": {"serve": launches["keyswitch"],
-                              "serve_multibit": mb_launches["keyswitch"]},
-         "max_abs_err": max(errs["k1"], errs["k1_multibit"]),
+         "launches_by_path": {
+             "serve": launches["keyswitch"], "serve_multibit": mb_launches["keyswitch"],
+             "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch"],
+             "modswitch_compress_multibit": ms_launches["multibit"]["switch"]["keyswitch"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k1")),
          "ms": k1["fig"]["ms"], "plain_ms": k1["fig"]["plain_ms"],
          "bound_ms": k1["fig"]["bound_ms"], "bound_by": k1["fig"]["bound_by"],
          "library_ms": k1["fig"]["library_ms"],
@@ -589,9 +837,18 @@ def main() -> None:
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
          "also_replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
+         "also_replaces_rows_4_5_7": ["tfhe_tpu/ops/pallas_mxu.py:428",
+                                      "tfhe_tpu/ops/pallas_mxu.py:809",
+                                      "tfhe_tpu/ops/pallas_ntt.py:456"],
          "launches": launches["blind_rotate"],
-         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")),
-         "ms": k2_ms, "exact_mode_ms": k2_exact_ms, "plain_ms": k2_plain_ms,
+         "launches_by_path": {
+             "serve": launches["blind_rotate"],
+             "modswitch_compress_classic":
+                 ms_launches["classic"]["decompress"]["blind_rotate"]},
+         "max_abs_err": max(v for k, v in errs.items()
+                            if k.startswith("k2") and "decompression" not in k),
+         "ms": k2_ms, "exact_mode_ms": k2_exact_ms,
+         "rounded_key_exact_mode_ms": k2_rounded_exact_ms, "plain_ms": k2_plain_ms,
          "exact_mode_plain_ms": k2_exact_plain_ms,
          "bound_ms": k2_bound_v7["ms"], "bound_by": k2_bound_v7["by"],
          "library_ms": None,
@@ -607,6 +864,10 @@ def main() -> None:
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:2631",
          "also_replaces": "tfhe_tpu/ops/pallas_mxu.py:2178",
          "launches": mb_launches["blind_rotate_multibit"],
+         "launches_by_path": {
+             "serve_multibit": mb_launches["blind_rotate_multibit"],
+             "modswitch_compress_multibit":
+                 ms_launches["multibit"]["decompress"]["blind_rotate_multibit"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k3")),
          "ms": k3_ms, "exact_mode_ms": k3_exact_ms, "plain_ms": k3_plain_ms,
          "exact_mode_plain_ms": k3_exact_plain_ms,
@@ -620,6 +881,32 @@ def main() -> None:
          "exact_mode_bound_by": k3_bound_exact["by"],
          "shape": [BATCH, mp.lwe_dimension // mp.grouping_factor,
                    1 << mp.grouping_factor, mp.glwe_dimension + 1, mp.polynomial_size]},
+        {"name": "blind_rotate_decompression", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+         "replaces": "tfhe_tpu/ops/pallas_mxu.py:1782",
+         "launches": decomp_launches["blind_rotate"],
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_decompression")),
+         "ms": k2_dec_ms, "plain_ms": k2_dec_plain_ms,
+         "bound_ms": k2_dec_bound["ms"], "bound_by": k2_dec_bound["by"],
+         "library_ms": None, "bound_primes": V7_PRIMES,
+         "bound_ntt_int32_ms": k2_dec_bound["ntt_ms"],
+         "bound_four_step_int8_ms": k2_dec_bound["four_step_ms"],
+         "bound_bytes_ms": k2_dec_bound["bytes_ms"],
+         "shape": [BATCH, msed.shape[1] - 1, p.glwe_dimension + 1, p.polynomial_size]},
+        {"name": "packing_keyswitch", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/packing_keyswitch.cu",
+         "replaces": "tfhe_tpu/ops/server.py:537",
+         "launches": comp_launches["packing_keyswitch"],
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k4")),
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_b["ms"], "bound_by": k4_b["by"],
+         "library_ms": None,
+         "library_call": "none: no PyTorch call takes an exact wrapping-u64 "
+                         "negacyclic polynomial product",
+         "bound_primes": K4_PRIMES,
+         "bound_limbs_int8_ms": k4_b["limbs_int8_ms"],
+         "bound_ntt_int32_ms": k4_b["ntt_int32_ms"], "bound_bytes_ms": k4_b["bytes_ms"],
+         "shape": [BATCH, comp_in.shape[1] - 1] + list(ckey.pksk.shape[1:])},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ _FORBIDDEN_DYNAMIC = re.compile(
     r"import_module\(\s*['\"](?:jax|jaxlib|tfhe_tpu(?!_torch))\b")
 
 SCRIPT = r"""
+import dataclasses
 import importlib.abc
 import sys
 
@@ -46,6 +47,7 @@ import tfhe_tpu_torch
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.core import multibit
 from tfhe_tpu_torch.ops import kernels, server, ntt, torus, bsk_prep
+from tfhe_tpu_torch.shortint import compression
 
 p = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
 ck = shortint.ClientKey(p, seed=3)
@@ -56,6 +58,13 @@ mck = shortint.ClientKey(mp, seed=3)
 msk = shortint.ServerKey(mck, seed=4, device="cpu")
 out = msk.apply_lookup_table(mck.encrypt(2), msk.generate_lookup_table(lambda x: x + 1))
 assert mck.decrypt(out) == 3
+# the compression slice: compress a list, decompress it, decrypt (storage
+# GLWEs cut to N_c = 16, so the decompression rotation takes 16 steps)
+small = dataclasses.replace(compression.TEST_COMP_PARAM, packing_ks_polynomial_size=16,
+                            lwe_per_glwe=16)
+ckey = shortint.CompressionKey(ck, seed=5, comp_params=small, device="cpu")
+packed = ckey.compress([ck.encrypt(m) for m in (1, 3)])
+assert [ck.decrypt(c) for c in ckey.decompress(packed)] == [1, 3]
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")

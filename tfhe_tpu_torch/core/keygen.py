@@ -9,7 +9,8 @@ that keys are bit-identical to tfhe-rs given the same seeds:
   - BSK: fork per GGSW, then per level matrix, then per row
     (lwe_bootstrap_key_generation.rs:122-138, ggsw_encryption.rs:132-159,
     280-315); parallel and sequential generation are stream-identical by
-    construction.
+    construction, so every row's randomness is drawn first and the bodies
+    are computed in batches.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 
 from ..ops import ntt
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
-from .encrypt import encrypt_glwe_assign, encrypt_lwe
+from .encrypt import encrypt_lwe
 from .entities import (
     GlweSecretKey,
     LweBootstrapKey,
@@ -26,6 +27,10 @@ from .entities import (
     LweSecretKey,
 )
 from .params import DecompParams
+
+# GLWE rows whose mask-times-secret products run in one numpy batch (bounds
+# the host memory of keygen at N = 2048 to a few hundred MB)
+ROWS_PER_BATCH = 512
 
 
 def generate_binary_lwe_secret_key(dim: int, gen: SecretRandomGenerator) -> LweSecretKey:
@@ -69,6 +74,43 @@ def _ggsw_factor(cleartext: int, level: int, base_log: int) -> int:
     return (neg << (64 - base_log * level)) % (1 << 64)
 
 
+def draw_ggsw_rows(out: np.ndarray, cleartext: int, glwe_sk: GlweSecretKey,
+                   decomp: DecompParams, noise_distribution, lev_gens) -> None:
+    """Fill one GGSW, out (l, k+1, k+1, N), with each row's mask, noise and
+    plaintext, drawn from the per-row forks of its level generators in the
+    reference's order (ggsw_encryption.rs:132-159).  The bodies still lack
+    the mask-times-secret term: add_mask_times_secret adds it for many
+    rows at once, which gives the bytes of encrypting row by row."""
+    k, n_poly = glwe_sk.glwe_dimension, glwe_sk.polynomial_size
+    levels = len(lev_gens)
+    for lev, lev_gen in enumerate(lev_gens):
+        # stored level index lev <-> decomposition level l - lev
+        factor = _ggsw_factor(cleartext, levels - lev, decomp.base_log)
+        rows = out[lev]
+        for r, row_gen in enumerate(lev_gen.fork(k + 1, k * n_poly, n_poly,
+                                                 noise_distribution)):
+            rows[r, :k] = row_gen.mask.uniform_u64(k * n_poly).reshape(k, n_poly)
+            rows[r, k] = noise_distribution.sample(row_gen.noise, n_poly)
+            if r < k:
+                rows[r, k] += glwe_sk.data[r].astype(np.uint64) * np.uint64(factor)
+            else:
+                rows[r, k, 0] += np.uint64((-factor) % (1 << 64))
+
+
+def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey) -> None:
+    """rows (R, k+1, N) GLWEs whose bodies lack the secret term: body +=
+    sum_i mask_i * s_i (negacyclic, wrapping), in place, ROWS_PER_BATCH rows
+    a numpy batch."""
+    k = glwe_sk.glwe_dimension
+    plan = ntt.make_plan(glwe_sk.polynomial_size)
+    with np.errstate(over="ignore"):
+        for s in range(0, rows.shape[0], ROWS_PER_BATCH):
+            part = rows[s:s + ROWS_PER_BATCH]
+            for i in range(k):
+                part[:, k] += ntt.negacyclic_polymul_u64(
+                    part[:, i], glwe_sk.data[i].astype(np.uint64), plan)
+
+
 def generate_lwe_bootstrap_key(
     input_sk: LweSecretKey,
     glwe_sk: GlweSecretKey,
@@ -76,56 +118,24 @@ def generate_lwe_bootstrap_key(
     noise_distribution,
     gen: EncryptionRandomGenerator,
 ) -> LweBootstrapKey:
+    """One GGSW of each input key bit, from one fork per GGSW, then per
+    level, then per row (lwe_bootstrap_key_generation.rs:122-138)."""
     n_in = input_sk.dimension
     k = glwe_sk.glwe_dimension
     n_poly = glwe_sk.polynomial_size
     levels = decomp.level_count
-    glwe_size = k + 1
-    out = np.zeros((n_in, levels, glwe_size, glwe_size, n_poly), dtype=np.uint64)
-    ggsw_gens = _fork_bsk_ggsws(input_sk, glwe_sk, decomp, noise_distribution, gen)
-    for i in range(n_in):
-        out[i] = _generate_bsk_ggsw(int(input_sk.data[i]), glwe_sk, decomp,
-                                    noise_distribution, ggsw_gens[i])
+    k1 = k + 1
+    out = np.zeros((n_in, levels, k1, k1, n_poly), dtype=np.uint64)
+    ggsw_gens = gen.fork(n_in, levels * k1 * k * n_poly, levels * k1 * n_poly,
+                         noise_distribution)
+    with np.errstate(over="ignore"):
+        for i, ggsw_gen in enumerate(ggsw_gens):
+            lev_gens = ggsw_gen.fork(levels, k1 * k * n_poly, k1 * n_poly,
+                                     noise_distribution)
+            draw_ggsw_rows(out[i], int(input_sk.data[i]), glwe_sk, decomp,
+                           noise_distribution, lev_gens)
+    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk)
     return LweBootstrapKey(out, decomp)
-
-
-def _fork_bsk_ggsws(input_sk, glwe_sk, decomp, noise_distribution, gen):
-    """One child generator per GGSW (per input-key bit) — the determinism
-    boundary that makes chunked generation bit-identical to monolithic."""
-    k = glwe_sk.glwe_dimension
-    n_poly = glwe_sk.polynomial_size
-    levels = decomp.level_count
-    glwe_size = k + 1
-    ggsw_mask_elems = levels * glwe_size * k * n_poly
-    ggsw_noise_elems = levels * glwe_size * n_poly
-    return gen.fork(input_sk.dimension, ggsw_mask_elems, ggsw_noise_elems,
-                    noise_distribution)
-
-
-def _generate_bsk_ggsw(cleartext, glwe_sk, decomp, noise_distribution, ggsw_gen):
-    k = glwe_sk.glwe_dimension
-    n_poly = glwe_sk.polynomial_size
-    levels = decomp.level_count
-    glwe_size = k + 1
-    out = np.zeros((levels, glwe_size, glwe_size, n_poly), dtype=np.uint64)
-    lev_gens = ggsw_gen.fork(levels, glwe_size * k * n_poly,
-                             glwe_size * n_poly, noise_distribution)
-    for j in range(levels):
-        level = levels - j  # stored level index j <-> decomposition level l-j
-        factor = _ggsw_factor(cleartext, level, decomp.base_log)
-        row_gens = lev_gens[j].fork(glwe_size, k * n_poly, n_poly,
-                                    noise_distribution)
-        for r in range(glwe_size):
-            body_init = np.zeros(n_poly, dtype=np.uint64)
-            if r < glwe_size - 1:
-                # body = sk_poly_r * factor (wrapping scalar mul)
-                body_init = glwe_sk.data[r].astype(np.uint64) * np.uint64(factor)
-            else:
-                body_init[0] = (-factor) % (1 << 64)
-            ct = encrypt_glwe_assign(glwe_sk, body_init, noise_distribution,
-                                     row_gens[r])
-            out[j, r] = ct.data
-    return out
 
 
 def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int = 4):

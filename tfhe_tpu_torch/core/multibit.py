@@ -19,12 +19,8 @@ import numpy as np
 from ..ops import ntt
 from ..utils.csprng import EncryptionRandomGenerator
 from .entities import GlweSecretKey, LweSecretKey
-from .keygen import _ggsw_factor
+from .keygen import ROWS_PER_BATCH, add_mask_times_secret, draw_ggsw_rows
 from .params import DecompParams
-
-# GLWE rows whose mask-times-secret products run in one numpy batch (bounds
-# the host memory of keygen at N = 2048 to a few hundred MB)
-_ROWS_PER_BATCH = 512
 
 
 def generate_multibit_bootstrap_key(
@@ -59,27 +55,11 @@ def generate_multibit_bootstrap_key(
                 for i in range(g):
                     sel = (u >> (g - 1 - i)) & 1
                     cleartext *= bits_g[i] if sel else 1 - bits_g[i]
-                ggsw_gens = gen.fork(levels, k1 * k * n_poly, k1 * n_poly,
-                                     noise_distribution)
-                for lev in range(levels):
-                    factor = _ggsw_factor(cleartext, levels - lev, decomp.base_log)
-                    row_gens = ggsw_gens[lev].fork(k1, k * n_poly, n_poly,
-                                                   noise_distribution)
-                    rows = out[j, u, lev]
-                    for r, row_gen in enumerate(row_gens):
-                        rows[r, :k] = row_gen.mask.uniform_u64(k * n_poly).reshape(k, n_poly)
-                        rows[r, k] = noise_distribution.sample(row_gen.noise, n_poly)
-                        if r < k:
-                            rows[r, k] += glwe_sk.data[r].astype(np.uint64) * np.uint64(factor)
-                        else:
-                            rows[r, k, 0] += np.uint64((-factor) % (1 << 64))
-        flat = out.reshape(-1, k1, n_poly)
-        plan = ntt.make_plan(n_poly)
-        for s in range(0, flat.shape[0], _ROWS_PER_BATCH):
-            rows = flat[s:s + _ROWS_PER_BATCH]
-            for i in range(k):
-                rows[:, k] += ntt.negacyclic_polymul_u64(
-                    rows[:, i], glwe_sk.data[i].astype(np.uint64), plan)
+                lev_gens = gen.fork(levels, k1 * k * n_poly, k1 * n_poly,
+                                    noise_distribution)
+                draw_ggsw_rows(out[j, u], cleartext, glwe_sk, decomp,
+                               noise_distribution, lev_gens)
+    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk)
     return out
 
 
@@ -89,7 +69,7 @@ def multibit_bsk_to_ntt(bsk: np.ndarray, num_primes: int = 4):
     n_poly = bsk.shape[-1]
     plan = ntt.make_plan(n_poly, num_primes)
     out = np.empty(bsk.shape[:-1] + (num_primes, n_poly), dtype=np.uint32)
-    step = max(1, _ROWS_PER_BATCH * 4 * n_poly // max(1, bsk[0].size))
+    step = max(1, ROWS_PER_BATCH * 4 * n_poly // max(1, bsk[0].size))
     with np.errstate(over="ignore"):
         for s in range(0, bsk.shape[0], step):
             fwd = ntt.forward_all(bsk[s:s + step].astype(np.uint64), plan)

@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels of the KS->PBS paths: build, load, wrappers.
+"""The hand-written CUDA kernels of the port: build, load, wrappers.
 
 K1 ``keyswitch`` (csrc/keyswitch.cu), K2 ``blind_rotate``
-(csrc/blind_rotate.cu) and K3 ``blind_rotate_multibit``
-(csrc/blind_rotate_multibit.cu; K2 and K3 share csrc/ntt_common.cuh) are
+(csrc/blind_rotate.cu), K3 ``blind_rotate_multibit``
+(csrc/blind_rotate_multibit.cu) and K4 ``packing_keyswitch``
+(csrc/packing_keyswitch.cu; K2, K3 and K4 include csrc/ntt_common.cuh) are
 compiled with nvcc for sm_90a into shared libraries with a plain C
 interface at first use (utils/build.py, all compilers started together)
 and called through ctypes on PyTorch's current stream.
@@ -26,7 +27,8 @@ SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
-            "blind_rotate_multibit": "blind_rotate_multibit.cu"}
+            "blind_rotate_multibit": "blind_rotate_multibit.cu",
+            "packing_keyswitch": "packing_keyswitch.cu"}
 
 
 class _Libs:
@@ -48,7 +50,7 @@ def nvcc_command() -> list:
 
 
 def source_paths() -> list:
-    """The kernel sources, relative to the checkout."""
+    """The sources of K1-K4, relative to the checkout."""
     return [str((CSRC / src).relative_to(CSRC.parents[1]))
             for src in _SOURCES.values()]
 
@@ -76,6 +78,9 @@ def load() -> dict:
         fn.restype = i
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
         fn.argtypes = [i] * 4
+        fn.restype = i
+        fn = libs["packing_keyswitch"].tfhe_torch_packing_keyswitch
+        fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
         fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
@@ -223,3 +228,33 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
 
 
 blind_rotate_multibit.launches = 0
+
+
+def packing_keyswitch(lwes, pksk, base_log: int, levels: int, lwe_per_glwe: int):
+    """K4: pack each run of lwe_per_glwe LWEs into one GLWE, all runs in one
+    launch (see ops/server.py packing_keyswitch).
+
+    lwes: (B, n+1) int64; pksk: (n, l, k+1, N) int64 standard domain.
+    Returns (ceil(B / lwe_per_glwe), k+1, N) int64."""
+    if lwes.device.type == "cpu":
+        return server.packing_keyswitch(lwes, pksk, base_log, levels, lwe_per_glwe)
+    _require(lwes.device.type == "cuda", f"no packing-keyswitch kernel for {lwes.device}")
+    lwes, pksk = lwes.contiguous(), pksk.contiguous()
+    _check_cuda((lwes, torch.int64), (pksk, torch.int64))
+    b, w = lwes.shape
+    n_in, lev, k1, n_poly = pksk.shape
+    _require(w == n_in + 1 and lev == levels, "lwes / pksk shapes disagree")
+    _require(n_poly & (n_poly - 1) == 0 and 16 <= n_poly <= 1024,
+             f"the kernel takes a power-of-two N in [16, 1024], not {n_poly}")
+    _require(1 <= lwe_per_glwe <= n_poly, f"{lwe_per_glwe} LWEs do not fit N = {n_poly}")
+    out = torch.zeros((-(-b // lwe_per_glwe), k1, n_poly), dtype=torch.int64,
+                      device=lwes.device)
+    err = load()["packing_keyswitch"].tfhe_torch_packing_keyswitch(
+        out.data_ptr(), lwes.data_ptr(), pksk.data_ptr(), b, n_in, levels, k1,
+        n_poly.bit_length() - 1, lwe_per_glwe, base_log, _stream(lwes))
+    _raise_on(err, "packing_keyswitch")
+    packing_keyswitch.launches += 1
+    return out
+
+
+packing_keyswitch.launches = 0

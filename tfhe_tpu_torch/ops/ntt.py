@@ -317,22 +317,25 @@ def device_plan(plan: NttPlan, device: str) -> DevicePlan:
     )
 
 
+def _add_p_if_negative(d, p):
+    """d + p where d < 0, else d (d in [-p, p)): branch-free, several times
+    faster than torch.where on the CPU."""
+    return d + (p & (d >> 63))
+
+
 def mont_mul(a, b_mont, p, pinv):
     """REDC32 on int64 tensors: a * b mod p for a, b < 2^31; result < p."""
     t = a * b_mont
     m = ((t & _M32) * pinv) & _M32
-    u = (t + m * p) >> 32
-    return torch.where(u >= p, u - p, u)
+    return _add_p_if_negative(((t + m * p) >> 32) - p, p)
 
 
 def add_mod(a, b, p):
-    s = a + b
-    return torch.where(s >= p, s - p, s)
+    return _add_p_if_negative(a + b - p, p)
 
 
 def sub_mod(a, b, p):
-    d = a + p - b
-    return torch.where(d >= p, d - p, d)
+    return _add_p_if_negative(a - b, p)
 
 
 def _bcast(dp: DevicePlan, nb: int):

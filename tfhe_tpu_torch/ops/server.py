@@ -1,12 +1,13 @@
 """Batched server-side compute path on int64 torus tensors.
 
 The port of tfhe_tpu/ops/server.py for the classic and the multi-bit
-KS->PBS atomic patterns.  Each function here is the plain PyTorch version
-of its tfhe_tpu namesake: the same exact integer arithmetic, so outputs are
-the same u64 words.  ``keyswitch``, ``blind_rotate`` and the two multi-bit
-rotations are also the plain versions of the CUDA kernels
-(ops/kernels.py): ``ks_pbs_batch`` and ``ks_pbs_batch_multibit`` go through
-the kernel wrappers, which run these plain versions for CPU tensors.
+KS->PBS atomic patterns and for ciphertext compression.  Each function here
+is the plain PyTorch version of its tfhe_tpu namesake: the same exact
+integer arithmetic, so outputs are the same u64 words.  ``keyswitch``,
+``blind_rotate``, the two multi-bit rotations and ``packing_keyswitch`` are
+also the plain versions of the CUDA kernels (ops/kernels.py): the pipelines
+below go through the kernel wrappers, which run these plain versions for
+CPU tensors.
 
 Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
 u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
@@ -327,8 +328,88 @@ def sample_extract(glwe):
 
 
 # ---------------------------------------------------------------------------
-# The fused KS -> MS -> BR -> SE pipeline
+# Packing keyswitch: LWE list -> GLWEs (plain version of K4)
 # ---------------------------------------------------------------------------
+
+
+def packing_keyswitch(lwes, pksk, base_log: int, levels: int,
+                      lwe_per_glwe: int):
+    """Pack each run of lwe_per_glwe LWEs into one GLWE encrypting
+    sum_j m_j X^j (tfhe_tpu/ops/server.py:537 packing_keyswitch, called once
+    per run by tfhe_tpu/shortint/compression.py:236-244).
+
+    lwes: (B, n+1) int64; pksk: (n, l, k+1, N) int64, the standard-domain
+    GLWE encryptions of each input key element.  Returns (ceil(B /
+    lwe_per_glwe), k+1, N):
+        out = (0, B(X)) - sum_{i, lev} D_{i,lev}(X) * PKSK_{i,lev}(X)
+    mod (X^N + 1, 2^64), where D_{i,lev} holds the signed digit of mask
+    element i of LWE j as its coefficient j and B(X) holds the bodies.
+    tfhe_tpu takes the product exactly over a 4-prime CRT-NTT, whose
+    integer (|X| < 8 * 2^64 * N n l) stays far below P/2, so it equals the
+    product taken directly in wrapping int64, as here: coefficient t of
+    D_j X^j * K(X) is D_j * Kx[t - j + N], with Kx = (-K, K) the negacyclic
+    extension."""
+    n_in, _, k1, n_poly = pksk.shape
+    kx = torch.cat([-pksk, pksk], dim=-1).reshape(n_in * levels, k1 * 2 * n_poly)
+    coeff = torch.arange(n_poly, device=lwes.device)
+    out = []
+    for start in range(0, lwes.shape[0], lwe_per_glwe):
+        chunk = lwes[start:start + lwe_per_glwe]
+        b = chunk.shape[0]
+        digits = signed_decompose(chunk[:, :-1], base_log, levels)   # (l, b, n)
+        w = _matmul_wrapping(digits.permute(1, 2, 0).reshape(b, -1), kx)
+        src = coeff[None, :] - torch.arange(b, device=lwes.device)[:, None] + n_poly
+        glwe = -torch.gather(w.reshape(b, k1, 2 * n_poly), 2,
+                             src[:, None, :].expand(b, k1, n_poly)).sum(dim=0)
+        glwe[-1, :b] += chunk[:, -1]
+        out.append(glwe)
+    return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# The fused KS -> MS -> BR -> SE pipeline and its two halves
+# ---------------------------------------------------------------------------
+
+
+def ks_ms_batch(ct, ksk, log_mod: int, ks_base_log: int, ks_levels: int,
+                centered_ms: bool = False):
+    """First half of the atomic pattern, keyswitch then modulus switch
+    (tfhe_tpu/ops/server.py:712 ks_ms_batch): (B, n_small+1) values in
+    [0, 2^log_mod), what blind rotation takes and what a
+    CompressedModulusSwitchedCiphertext stores.  The keyswitch goes through
+    K1.  tfhe_tpu's KS32 and drift arms come with ROADMAP queue 1 item 7:
+    the ServerKey refuses those sets (server_key._check_supported)."""
+    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
+    body = ks[:, -1]
+    if centered_ms:
+        body = body + centered_binary_ms_correction(ks, log_mod)
+    return torch.cat([modulus_switch(ks[:, :-1], log_mod),
+                      modulus_switch(body, log_mod)[:, None]], dim=1)
+
+
+def pbs_from_switched_batch(msed, lut, bsk_ntt, dp: ntt.DevicePlan,
+                            pbs_base_log: int, pbs_levels: int,
+                            trunc_acc: bool = False):
+    """Second half: blind rotation (through K2) and sample extract of
+    already switched (B, n+1) values (tfhe_tpu/ops/server.py:770
+    pbs_from_switched_batch; with trunc_acc on a rounded key, :1026
+    pbs_from_switched_batch_mxu, whose kernel="v8" is the v7 function)."""
+    acc = kernels.blind_rotate(msed[:, :-1], msed[:, -1], lut, bsk_ntt, dp,
+                               pbs_base_log, pbs_levels, trunc_acc)
+    return sample_extract(acc)
+
+
+def pbs_from_switched_batch_multibit(msed, lut, mb_key_ntt, dp: ntt.DevicePlan,
+                                     pbs_base_log: int, pbs_levels: int,
+                                     grouping: int):
+    """The multi-bit second half (tfhe_tpu/ops/server.py:695): the pattern
+    degrees are sums of the stored switched values (raw=False), and K3 runs
+    in exact mode, as tfhe_tpu runs this path on every backend."""
+    degrees = multibit_switched_degrees(msed[:, :-1], grouping,
+                                        lut.shape[-1].bit_length(), raw=False)
+    acc = kernels.blind_rotate_multibit(degrees, msed[:, -1], lut, mb_key_ntt,
+                                        dp, pbs_base_log, pbs_levels, False)
+    return sample_extract(acc)
 
 
 def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
@@ -341,15 +422,10 @@ def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
     bsk_ntt: (n_small, l_pbs, k+1, k+1, P, N).  Returns (B, n_big+1).
     Keyswitch and blind rotation go through the kernel wrappers.
     """
-    log_mod = lut.shape[-1].bit_length()
-    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
-    body = ks[:, -1]
-    if centered_ms:
-        body = body + centered_binary_ms_correction(ks, log_mod)
-    acc = kernels.blind_rotate(
-        modulus_switch(ks[:, :-1], log_mod), modulus_switch(body, log_mod),
-        lut, bsk_ntt, dp, pbs_base_log, pbs_levels, trunc_acc)
-    return sample_extract(acc)
+    msed = ks_ms_batch(ct, ksk, lut.shape[-1].bit_length(), ks_base_log,
+                       ks_levels, centered_ms)
+    return pbs_from_switched_batch(msed, lut, bsk_ntt, dp, pbs_base_log,
+                                   pbs_levels, trunc_acc)
 
 
 def ks_pbs_batch_multibit(ct, lut, ksk, mb_key_ntt, dp: ntt.DevicePlan,

@@ -1,9 +1,17 @@
 """shortint on PyTorch: keygen and encryption on the host, the batched
-KS->PBS on the device (port of tfhe_tpu.shortint, classic and multi-bit
-KS->PBS sets)."""
+KS->PBS and ciphertext compression on the device (port of tfhe_tpu.shortint,
+classic and multi-bit KS->PBS sets)."""
 
 from .ciphertext import Ciphertext
 from .client_key import ClientKey
+from .compression import (
+    TEST_COMP_PARAM,
+    V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    CompressedCiphertextList,
+    CompressionKey,
+    CompressionParameters,
+    decompress,
+)
 from .params import (
     DEFAULT_PARAMS,
     PARAM_MESSAGE_2_CARRY_2_KS_PBS,
@@ -23,7 +31,8 @@ from .params import (
     MultiBitPBSParameters,
     ShortintParams,
 )
-from .server_key import CarryFullError, LookupTable, ServerKey
+from .server_key import (CarryFullError, CompressedModulusSwitchedCiphertext,
+                         LookupTable, ServerKey)
 
 
 def gen_keys(params=DEFAULT_PARAMS, seed=None, device="cuda"):

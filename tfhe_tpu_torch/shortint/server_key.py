@@ -7,7 +7,10 @@ flooring) and uploaded to the device once, in kernel layout.
 ``apply_lookup_table_batch`` runs one batched KS -> MS -> blind rotation ->
 sample extract (ops/server.py ks_pbs_batch, or ks_pbs_batch_multibit for a
 multi-bit set) through the CUDA kernels on a CUDA device, or through their
-plain PyTorch versions on the CPU.
+plain PyTorch versions on the CPU.  ``switch_modulus_and_compress`` stores
+a ciphertext after the KS + MS half, and
+``decompress_and_apply_lookup_table_batch`` runs the other half, always in
+exact mode (the exact key is uploaded at its first use in v7 or v9 mode).
 
 Which blind rotation runs is fixed at construction, as tfhe_tpu's
 ``use_mxu`` and ``use_mxu_multibit`` fix it by backend.  Classic sets: v7
@@ -105,10 +108,73 @@ def _stack_lazy_batch(datas, width, device):
     return batch
 
 
+def upload_batch(datas, device) -> torch.Tensor:
+    """Ciphertext words (LazyLweData or host arrays) as one (B, width) int64
+    tensor on ``device``: device-resident rows are gathered there, host rows
+    uploaded together."""
+    if any(isinstance(d, LazyLweData) for d in datas):
+        width = (datas[0].width if isinstance(datas[0], LazyLweData)
+                 else np.asarray(datas[0]).shape[-1])
+        return _stack_lazy_batch(datas, width, device)
+    return torus.from_u64(np.stack([np.asarray(d) for d in datas]), device)
+
+
+def pad_pow2(n: int) -> int:
+    """The batch size a call of n ciphertexts runs at: the next power of
+    two, as tfhe_tpu buckets it."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+def lazy_outputs(out: torch.Tensor, degrees, sources) -> list:
+    """The first len(degrees) rows of a device batch (B, width) as
+    Ciphertexts that stay on the device (LazyLweData over one
+    DeviceLweBatch), with the given degrees, nominal noise, and each
+    source's message and carry moduli."""
+    handle = DeviceLweBatch(out)
+    w = int(out.shape[-1])
+    return [Ciphertext(LazyLweData(((1, handle, i),), None, w), d, NOMINAL_NOISE,
+                       s.message_modulus, s.carry_modulus)
+            for i, (d, s) in enumerate(zip(degrees, sources))]
+
+
 @dataclass
 class LookupTable:
     acc: np.ndarray  # (k+1, N) uint64 trivial GLWE accumulator
     degree: int
+
+
+@dataclass
+class CompressedModulusSwitchedCiphertext:
+    """A ciphertext stored after keyswitch and modulus switch, log2(2N)
+    bits a coefficient instead of 64 (tfhe_tpu/shortint/server_key.py:118;
+    shortint/ciphertext/compressed_modulus_switched_ciphertext.rs).
+    Decompression is the remaining blind rotation and extract, with any
+    LUT."""
+
+    packed: np.ndarray  # uint8 bit-packed little-endian stream
+    count: int          # n_small + 1 stored values
+    log_modulus: int    # values are in [0, 2N), 1 + log2(N) bits each
+    degree: int
+    message_modulus: int
+    carry_modulus: int
+
+    def switched(self) -> np.ndarray:
+        """The stored switched values, (count,) uint64 in [0, 2N)."""
+        return _unpack_bits(self.packed, self.log_modulus, self.count)
+
+
+def _pack_bits(vals: np.ndarray, width: int) -> np.ndarray:
+    """PackedIntegers analog: width-bit little-endian packing into bytes."""
+    bits = ((vals[:, None].astype(np.uint64) >> np.arange(width, dtype=np.uint64))
+            & np.uint64(1)).astype(np.uint8).reshape(-1)
+    return np.packbits(bits, bitorder="little")
+
+
+def _unpack_bits(packed: np.ndarray, width: int, count: int) -> np.ndarray:
+    bits = np.unpackbits(packed, bitorder="little")[: width * count]
+    weights = (np.uint64(1) << np.arange(width, dtype=np.uint64))
+    return (bits.reshape(count, width).astype(np.uint64) * weights).sum(
+        axis=1, dtype=np.uint64)
 
 
 def _v7_family(p) -> bool:
@@ -258,8 +324,10 @@ class ServerKey:
             self.trunc_acc = uses_v7(device, p, bsk_floored)
             key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
             bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
-        # coefficient-domain key, kept for building the other mode's key
+        # coefficient-domain key, kept for building the exact key in v7/v9
+        # mode (exact_bsk_ntt)
         self._bsk_coeff = bsk
+        self._bsk_ntt_exact = None
         self.plan = plan
         self.dp = ntt.device_plan(plan, str(device))
         # uploaded once, in kernel layout: u64 KSK as int64, NTT-domain BSK
@@ -316,31 +384,10 @@ class ServerKey:
         if len(luts) != len(cts):
             raise ValueError(f"{len(cts)} ciphertexts but {len(luts)} tables")
         n_real = len(cts)
-        # bucket the batch size to powers of two, as tfhe_tpu does
-        n_pad = 1 << (n_real - 1).bit_length() if n_real > 1 else 1
-        datas = ([c.data for c in cts] + [cts[0].data] * (n_pad - n_real))
-        if any(isinstance(d, LazyLweData) for d in datas):
-            width = (datas[0].width if isinstance(datas[0], LazyLweData)
-                     else np.asarray(datas[0]).shape[-1])
-            batch = _stack_lazy_batch(datas, width, self.device)
-        else:
-            batch = torus.from_u64(np.stack([np.asarray(d) for d in datas]),
-                                   self.device)
-        # upload each DISTINCT table once and gather on the device
-        uniq: dict = {}
-        lut_idx = []
-        for t in luts:
-            key = id(t.acc)
-            if key not in uniq:
-                uniq[key] = (len(uniq), t.acc)
-            lut_idx.append(uniq[key][0])
-        lut_idx += [lut_idx[0]] * (n_pad - n_real)
-        uniq_t = torus.from_u64(np.stack([acc for _, acc in uniq.values()]),
-                                self.device)
-        if len(uniq) == 1:
-            lut_b = uniq_t[0].expand((n_pad,) + tuple(uniq_t.shape[1:]))
-        else:
-            lut_b = uniq_t[torch.tensor(lut_idx, device=self.device)]
+        n_pad = pad_pow2(n_real)
+        batch = upload_batch([c.data for c in cts] + [cts[0].data] * (n_pad - n_real),
+                             self.device)
+        lut_b = self._upload_luts(luts, n_pad)
         centered = p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN
         if self.grouping is not None:
             out = srv.ks_pbs_batch_multibit(
@@ -353,16 +400,91 @@ class ServerKey:
                 p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
                 centered_ms=centered, trunc_acc=self.trunc_acc)
         self.pbs_count += n_real
-        handle = DeviceLweBatch(out)
-        w = int(out.shape[-1])
-        return [
-            c.with_data(LazyLweData(((1, handle, i),), None, w),
-                        degree=luts[i].degree, noise_level=NOMINAL_NOISE)
-            for i, c in enumerate(cts)
-        ]
+        return lazy_outputs(out, [t.degree for t in luts], cts)
+
+    def _upload_luts(self, luts: list, n_pad: int) -> torch.Tensor:
+        """(n_pad, k+1, N) tables on the device, each distinct table uploaded
+        once and gathered there; rows past the list repeat the first."""
+        uniq: dict = {}
+        lut_idx = []
+        for t in luts:
+            key = id(t.acc)
+            if key not in uniq:
+                uniq[key] = (len(uniq), t.acc)
+            lut_idx.append(uniq[key][0])
+        lut_idx += [lut_idx[0]] * (n_pad - len(luts))
+        uniq_t = torus.from_u64(np.stack([acc for _, acc in uniq.values()]),
+                                self.device)
+        if len(uniq) == 1:
+            return uniq_t[0].expand((n_pad,) + tuple(uniq_t.shape[1:]))
+        return uniq_t[torch.tensor(lut_idx, device=self.device)]
 
     def apply_lookup_table(self, ct: Ciphertext, lut: LookupTable) -> Ciphertext:
         return self.apply_lookup_table_batch([ct], lut)[0]
+
+    # ------------------------------------------------------------------
+    # Modulus-switched compression (server_key/modulus_switched_compression.rs)
+    # ------------------------------------------------------------------
+
+    def exact_bsk_ntt(self) -> torch.Tensor:
+        """The unrounded NTT-domain key on the device: ``bsk_ntt`` in exact
+        mode; in v7 or v9 mode built from the coefficient-domain key at first
+        use and kept (decompression runs the exact rotation, as tfhe_tpu's
+        does on every backend, and the rounded key would give other words)."""
+        if not self.trunc_acc:
+            return self.bsk_ntt
+        if self._bsk_ntt_exact is None:
+            if self.grouping is not None:
+                key = mb.multibit_bsk_to_ntt(self._bsk_coeff)[0]
+            else:
+                key = kg.bootstrap_key_to_ntt(self._bsk_coeff)[0]
+            self._bsk_ntt_exact = torch.from_numpy(key.view(np.int32)).to(self.device)
+        return self._bsk_ntt_exact
+
+    def switch_modulus_and_compress(self, ct: Ciphertext) -> CompressedModulusSwitchedCiphertext:
+        """Run the KS + MS half of the atomic pattern now (K1) and store the
+        result in log2(2N) bits a coefficient.  Decompression performs the
+        remaining blind rotation with a caller-chosen LUT."""
+        p = self.params
+        log_mod = p.polynomial_size.bit_length()
+        msed = torus.to_u64(srv.ks_ms_batch(
+            upload_batch([ct.data], self.device), self.ksk, log_mod, p.ks_base_log,
+            p.ks_level, p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN))[0]
+        return CompressedModulusSwitchedCiphertext(
+            _pack_bits(msed, log_mod), len(msed), log_mod, ct.degree,
+            p.message_modulus, p.carry_modulus)
+
+    def decompress_and_apply_lookup_table(
+            self, compressed: CompressedModulusSwitchedCiphertext,
+            lut: LookupTable) -> Ciphertext:
+        return self.decompress_and_apply_lookup_table_batch([compressed], lut)[0]
+
+    def decompress_and_apply_lookup_table_batch(self, compressed_list: list,
+                                                luts) -> list:
+        """Unpack the stored switched values and run one blind rotation and
+        extract for the whole list, padded to a power of two: K2 in exact
+        mode on a classic key, K3 in exact mode on a multi-bit key, on the
+        unrounded key (``exact_bsk_ntt``).  The outputs stay on the device."""
+        p = self.params
+        if isinstance(luts, LookupTable):
+            luts = [luts] * len(compressed_list)
+        n_real = len(compressed_list)
+        n_pad = pad_pow2(n_real)
+        msed = np.stack([c.switched() for c in compressed_list])
+        msed = np.concatenate([msed, np.broadcast_to(msed[:1], (n_pad - n_real,)
+                                                     + msed.shape[1:])])
+        msed = torus.from_u64(msed, self.device)
+        lut_b = self._upload_luts(luts, n_pad)
+        if self.grouping is not None:
+            out = srv.pbs_from_switched_batch_multibit(
+                msed, lut_b, self.exact_bsk_ntt(), self.dp, p.pbs_base_log,
+                p.pbs_level, self.grouping)
+        else:
+            out = srv.pbs_from_switched_batch(
+                msed, lut_b, self.exact_bsk_ntt(), self.dp, p.pbs_base_log,
+                p.pbs_level)
+        self.pbs_count += n_real
+        return lazy_outputs(out, [t.degree for t in luts], compressed_list)
 
     # ------------------------------------------------------------------
     # Linear (leveled) ops — no PBS
