@@ -8,7 +8,7 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
 
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
-  2. build the hand-written kernels K1-K4 from tfhe_tpu_torch/csrc/ (nvcc,
+  2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
      sm_90a, one compiler per source, started together);
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
      BSK, so the server key runs the v7 blind rotation) and key upload;
@@ -35,7 +35,17 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      each), then decompress_and_apply_lookup_table_batch with (3x+1) % 16,
      on the classic key (K2 once, exact mode on the unrounded key) and on
      the multi-bit key (K3 once, exact mode); every output decrypted;
- 11. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 11. keygen_squashing: NoiseSquashingPrivateKey and NoiseSquashingKey at
+     V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 over
+     phase 3's client key (6-prime NTT key built and kept on the card);
+ 12. squash: the chained round's 512 device-resident outputs through
+     squash_ciphertext_noise_batch (K1 once, then K5, the u128 blind
+     rotation, once), every output decrypted under the squashing key, then
+     a second, warm call;
+ 13. stepwise: the exact rotation one CMux step a launch through K2's
+     single-step entry (blind_rotate_stepwise, the path of tfhe_tpu's
+     build_cmux_step kernel) at the 2_2 shape on a random key, B = 512;
+ 14. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      on both paths' own B = 512 inputs and at phase 10's B = 1 on both
      keys, and phase 10's 512 stored values on each key against the plain
      keyswitch and modulus switch; K2 on the classic path's B = 512 inputs
@@ -53,11 +63,16 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      n = 918) in both modes on a random key, and its generic instance at
      the GROUP_3 shape (l = 2) in exact mode, where v9 mode must refuse the
      shape; K4 on phase 6's 512 inputs and at four smaller shapes on random
-     keys; times of each kernel in each mode, its plain version and, for
-     K1, the int8-limb torch._int_mm formulation the TPU uses (a yardstick
-     the port never calls);
- 12. the launch counts of phases 4, 6, 7, 9 and 10 and one
-     {"kernels": [...]} line.
+     keys; K5 on phase 12's own 512 inputs against phase 12's outputs and,
+     for the first K5_PLAIN_BATCH, against the plain u128 rotation, and at
+     the TEST squashing shape (k + 1 = 2, N = 512, its generic instance) on
+     a random key; K2's step entry: phase 13's rotation against the whole
+     K2 rotation and the plain one, and one step at B = 512; times of each
+     kernel in each mode, its plain version and, for K1, the int8-limb
+     torch._int_mm formulation the TPU uses (a yardstick the port never
+     calls);
+ 15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13, the script's
+     total seconds and one {"kernels": [...]} line.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -101,6 +116,16 @@ FOUR_STEP_N1 = 128
 K4_PRIMES = 3
 # K4 on random keys and inputs, (B, n, l, k+1, N, LWEs a GLWE, base_log):
 # a partial last GLWE, GLWEs of a few rows, l = 1 to 3, N = 32 to 1024
+# K5 against its plain version on the first K5_PLAIN_BATCH of the squash
+# phase's 512 inputs (the plain u128 rotation at B = 512 would take minutes),
+# and at the TEST squashing shape (k + 1 = 2, N = 512: the generic instance)
+# on a random key over K5_TEST_STEPS steps
+K5_PLAIN_BATCH = 32
+K5_TEST_STEPS = 64
+# CRT primes the exact u128 product needs: 2^165.2 < P/2 takes six
+K5_PRIMES = 6
+# K2's single-step entry (blind_rotate_stepwise) on a random 2_2-shape key
+STEPWISE_STEPS = 16
 K4_SHAPES = ((300, 512, 3, 2, 256, 256, 4), (45, 40, 2, 2, 32, 20, 5),
              (3, 5, 1, 1, 1024, 1000, 10), (37, 70, 3, 2, 256, 256, 4))
 
@@ -177,9 +202,11 @@ def k1_bound(ct, ksk, out) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k2_bound(mask, lut, levels: int, base_log: int, nprimes: int) -> dict:
+def k2_bound(mask, lut, levels: int, base_log: int, nprimes: int,
+             word_bytes: int = 8) -> dict:
     """Least time for the blind rotation with nprimes CRT primes: the key
-    (NTT domain, u32 residues), mask, body, LUT and output moved once,
+    (NTT domain, u32 residues), mask, body, LUT and output (word_bytes a
+    coefficient: 8 on the u64 torus, 16 on the u128 torus) moved once,
     against the cheaper of two ways to do its products.
 
     ntt: radix-2 NTTs, pointwise products and Garner, each a Montgomery
@@ -207,12 +234,19 @@ def k2_bound(mask, lut, levels: int, base_log: int, nprimes: int) -> dict:
     t_four_step = b * n_steps * 2 * limb_macs / INT8_TC_OPS_PER_S
     key_bytes = 4 * n_steps * levels * k1 * k1 * nprimes * n_poly
     t_bytes = (key_bytes + 4 * mask.numel() + 8 * b
-               + 2 * 8 * lut.numel()) / HBM_BYTES_PER_S
+               + 2 * word_bytes * lut.numel()) / HBM_BYTES_PER_S
     t_ops = min(t_ntt, t_four_step)
     return {"ms": max(t_bytes, t_ops) * 1e3,
             "by": "bytes" if t_bytes >= t_ops else "operations",
             "ntt_ms": t_ntt * 1e3, "four_step_ms": t_four_step * 1e3,
             "bytes_ms": t_bytes * 1e3}
+
+
+def k5_bound(mask, lut_lo, levels: int, base_log: int) -> dict:
+    """Least time for the u128 blind rotation, counted as k2_bound counts
+    K2's: the six primes the exact product needs, l (k+1) digit
+    polynomials a step, u128 LUT and output words."""
+    return k2_bound(mask, lut_lo, levels, base_log, K5_PRIMES, word_bytes=16)
 
 
 def k3_bound(degrees, lut, levels: int, base_log: int, nprimes: int,
@@ -312,13 +346,21 @@ def kernel_ms_by_name(prof, names) -> dict:
 
 
 def kernel_wrappers(kernels) -> tuple:
-    return (kernels.keyswitch, kernels.blind_rotate, kernels.blind_rotate_multibit,
-            kernels.packing_keyswitch)
+    return (kernels.keyswitch, kernels.blind_rotate, kernels.cmux_step,
+            kernels.blind_rotate_multibit, kernels.packing_keyswitch,
+            kernels.blind_rotate128)
+
+
+def only(kernels, **counts) -> dict:
+    """The launch counts of a run that launched the named kernels the given
+    times and no other kernel."""
+    return {w.__name__: counts.get(w.__name__, 0) for w in kernel_wrappers(kernels)}
 
 
 def counted(kernels, fn):
     """Run fn with every kernel's launch count set to 0 just before; return
-    (fn's result, the counts just after, seconds)."""
+    (fn's result, the counts just after, seconds, host seconds: until fn
+    returned, before the wait for the card)."""
     import torch
 
     wrappers = kernel_wrappers(kernels)
@@ -327,9 +369,10 @@ def counted(kernels, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
+    host_seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, {w.__name__: w.launches for w in wrappers}, seconds
+    return out, {w.__name__: w.launches for w in wrappers}, seconds, host_seconds
 
 
 def serve_rounds(ck, sk, seed: int, kernels) -> dict:
@@ -451,17 +494,20 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script runs only on a CUDA card")
 
-    from tfhe_tpu_torch.ops import kernels, server, torus
+    from tfhe_tpu_torch.ops import kernels, ntt, server, server128, torus
     from tfhe_tpu_torch.shortint import (
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as GROUP_3,
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as MB_PARAMS,
         TPU_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as TPU_GROUP_2,
         V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as COMP_PARAMS,
         V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as PARAMS,
-        ClientKey, CompressionKey, ServerKey)
+        V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as SQ_PARAMS,
+        TEST_NOISE_SQUASHING_PARAM as SQ_TEST,
+        ClientKey, CompressionKey, NoiseSquashingKey, NoiseSquashingPrivateKey, ServerKey)
     from tfhe_tpu_torch.shortint.compression import extract_switched
     from tfhe_tpu_torch.shortint.server_key import upload_batch
 
+    started = time.perf_counter()
     dev = torch.device("cuda")
     card = gpu_line()
 
@@ -520,22 +566,21 @@ def main() -> None:
 
     # 6. compress the chained round's device-resident outputs (K4)
     chained, chained_want = served["chained"], served["chained_want"]
-    packed, comp_launches, compress_s = counted(kernels, lambda: ckey.compress(chained))
+    packed, comp_launches, compress_s, _ = counted(kernels, lambda: ckey.compress(chained))
     raw_bytes = BATCH * (p.polynomial_size * p.glwe_dimension + 1) * 8
     emit({"phase": "compress", "batch": BATCH, "glwes": packed.glwes.shape[0],
           "seconds": compress_s, "compressed_bytes": packed.glwes.nbytes,
           "uncompressed_bytes": raw_bytes, "ratio": raw_bytes / packed.glwes.nbytes,
           "launches": comp_launches})
-    if comp_launches != {"keyswitch": 0, "blind_rotate": 0, "blind_rotate_multibit": 0,
-                         "packing_keyswitch": 1}:
+    if comp_launches != only(kernels, packing_keyswitch=1):
         raise RuntimeError(f"compress did not run K4 alone, once: {comp_launches}")
 
     # 7. decompress all 512 (one K2 launch, v7 mode, n = 1024), then a subset
     # across the GLWE boundary
-    dec_outs, decomp_launches, decompress_s = counted(kernels, lambda: ckey.decompress(packed))
+    dec_outs, decomp_launches, decompress_s, _ = counted(kernels, lambda: ckey.decompress(packed))
     wrong = sum(ck.decrypt(ct) != want for ct, want in zip(dec_outs, chained_want))
     subset = [cp.lwe_per_glwe - 1, cp.lwe_per_glwe, BATCH - 1]
-    sub_outs, sub_launches, subset_s = counted(
+    sub_outs, sub_launches, subset_s, _ = counted(
         kernels, lambda: ckey.decompress(packed, indices=subset))
     wrong += sum(ck.decrypt(sub_outs[i]) != chained_want[j] for i, j in enumerate(subset))
     emit({"phase": "decompress", "batch": BATCH, "steps": cp.packing_ks_polynomial_size
@@ -545,8 +590,7 @@ def main() -> None:
     if wrong:
         raise RuntimeError(f"{wrong} decompressed outputs decrypted wrong")
     for got in (decomp_launches, sub_launches):
-        if got != {"keyswitch": 0, "blind_rotate": 1, "blind_rotate_multibit": 0,
-                   "packing_keyswitch": 0}:
+        if got != only(kernels, blind_rotate=1):
             raise RuntimeError(f"decompress did not run K2 alone, once: {got}")
 
     # 8. multi-bit keygen and key upload
@@ -585,11 +629,11 @@ def main() -> None:
             ("classic", ck, sk, served, "blind_rotate"),
             ("multibit", mck, msk, mb_served, "blind_rotate_multibit")):
         cts, vals = srv_out["cts"][0], srv_out["inputs"][0]
-        stored, switch_launches, switch_s = counted(
+        stored, switch_launches, switch_s, _ = counted(
             kernels, lambda: [s_key.switch_modulus_and_compress(ct) for ct in cts])
         s_key.exact_bsk_ntt()      # the unrounded key, uploaded at first use
         lut = s_key.generate_lookup_table(lambda x: (3 * x + 1) % 16)
-        outs, lut_launches, lut_s = counted(
+        outs, lut_launches, lut_s, _ = counted(
             kernels, lambda: s_key.decompress_and_apply_lookup_table_batch(stored, lut))
         wrong = sum(c_key.decrypt_raw(ct) != (3 * int(v) + 1) % 16 for ct, v in zip(outs, vals))
         ms_launches[tag] = {"switch": switch_launches, "decompress": lut_launches}
@@ -607,7 +651,62 @@ def main() -> None:
             raise RuntimeError(f"modulus-switched compression ({tag}) did not run K1 "
                                f"then {rotation} once: {ms_launches[tag]}")
 
-    # 11. kernels against their plain versions
+    # 11. noise-squashing keygen over phase 3's classic client key
+    sqp = SQ_PARAMS
+    t0 = time.perf_counter()
+    sq_priv = NoiseSquashingPrivateKey(sqp, seed=args.seed + 30)
+    nsk = NoiseSquashingKey(ck, sq_priv, seed=args.seed + 31, device="cuda")
+    torch.cuda.synchronize()
+    k1_sq = sqp.glwe_dimension + 1
+    emit({"phase": "keygen_squashing",
+          "params": "V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+          "n": p.lwe_dimension, "N": sqp.polynomial_size, "k": sqp.glwe_dimension,
+          "base_log": sqp.decomp_base_log, "levels": sqp.decomp_level_count,
+          "primes": list(nsk.plan128.primes), "seconds": time.perf_counter() - t0,
+          "ntt_key_device_bytes": nsk.bsk128_ntt.numel() * 4,
+          "standard_key_bytes": p.lwe_dimension * sqp.decomp_level_count * k1_sq * k1_sq
+                                * sqp.polynomial_size * 16})
+
+    # 12. squash the chained round's 512 device-resident outputs (one K1 and
+    # one K5 launch), every output decrypted under the squashing key; then a
+    # second, warm call
+    sq_runs = [counted(kernels, lambda: nsk.squash_ciphertext_noise_batch(chained, sk))
+               for _ in range(2)]
+    squashed, sq_launches = sq_runs[0][0], sq_runs[0][1]
+    wrong = sum(sq_priv.decrypt_squashed_noise_ciphertext(sq) != want
+                for sq, want in zip(squashed, chained_want))
+    wrong += sum(sq.degree != ct.degree for sq, ct in zip(squashed, chained))
+    emit({"phase": "squash", "batch": BATCH, "seconds": sq_runs[0][2],
+          "host_seconds": sq_runs[0][3], "warm_seconds": sq_runs[1][2],
+          "warm_host_seconds": sq_runs[1][3], "launches": sq_launches,
+          "outputs_checked": BATCH, "wrong": wrong})
+    if wrong:
+        raise RuntimeError(f"{wrong} squashed outputs decrypted wrong")
+    for _, got, _, _ in sq_runs:
+        if got != only(kernels, keyswitch=1, blind_rotate128=1):
+            raise RuntimeError(f"squash did not run K1 and K5 once each: {got}")
+
+    # 13. the exact blind rotation one CMux step a launch (K2's single-step
+    # entry, the function of tfhe_tpu's build_cmux_step kernel) at the 2_2
+    # shape on a random key, B = 512
+    st_gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    st_rng = np.random.default_rng(args.seed + 5)
+    n_poly, glwe_size = p.polynomial_size, p.glwe_dimension + 1
+    st_args = (
+        torch.from_numpy(st_rng.integers(0, 2 * n_poly, (BATCH, STEPWISE_STEPS))).to(dev),
+        torch.from_numpy(st_rng.integers(0, 2 * n_poly, (BATCH,))).to(dev),
+        torus.from_u64(st_rng.integers(0, 1 << 64, (BATCH, glwe_size, n_poly),
+                                       dtype=np.uint64), dev),
+        random_ntt_key((STEPWISE_STEPS, p.pbs_level, glwe_size, glwe_size), sk.dp, st_gen),
+        sk.dp, p.pbs_base_log, p.pbs_level)
+    stepwise, st_launches, st_s, _ = counted(kernels, lambda: server.blind_rotate_stepwise(*st_args))
+    emit({"phase": "stepwise", "batch": BATCH, "steps": STEPWISE_STEPS, "seconds": st_s,
+          "launches": st_launches})
+    if st_launches != only(kernels, cmux_step=STEPWISE_STEPS):
+        raise RuntimeError(f"blind_rotate_stepwise did not run K2's step entry once a "
+                           f"step: {st_launches}")
+
+    # 14. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -801,6 +900,60 @@ def main() -> None:
             except ValueError as exc:
                 k3_shapes["group_3_v9_refused"] = str(exc)
         del key
+
+    # K5 on the squash phase's own inputs (the plain keyswitch and modulus
+    # switch of the chained outputs): all 512 against the phase's outputs,
+    # and the first K5_PLAIN_BATCH against the plain u128 rotation
+    sq_in = upload_batch([ct.data for ct in chained], dev)
+    ks = server.keyswitch(sq_in, sk.ksk, p.ks_base_log, p.ks_level)
+    log_mod_sq = sqp.polynomial_size.bit_length()
+    sq_lut = tuple(t.expand((BATCH,) + tuple(t.shape)) for t in nsk._lut)
+    k5_args = (server.modulus_switch(ks[:, :-1], log_mod_sq),
+               server.modulus_switch(ks[:, -1], log_mod_sq)) + sq_lut + (
+        nsk.bsk128_ntt, nsk.dp128, sqp.decomp_base_log, sqp.decomp_level_count)
+    k5_lo, k5_hi = kernels.blind_rotate128(*k5_args)
+    se_lo, se_hi = server128.sample_extract128(k5_lo, k5_hi)
+    errs["k5_squash_outputs_lo_b512"] = max_abs_err(torch.stack([sq.lo for sq in squashed]), se_lo)
+    errs["k5_squash_outputs_hi_b512"] = max_abs_err(torch.stack([sq.hi for sq in squashed]), se_hi)
+    k5_sub = tuple(a[:K5_PLAIN_BATCH] for a in k5_args[:4]) + k5_args[4:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_lo, want_hi = server128.blind_rotate128(*k5_sub)
+    torch.cuda.synchronize()
+    k5_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs[f"k5_lo_b{K5_PLAIN_BATCH}"] = max_abs_err(k5_lo[:K5_PLAIN_BATCH], want_lo)
+    errs[f"k5_hi_b{K5_PLAIN_BATCH}"] = max_abs_err(k5_hi[:K5_PLAIN_BATCH], want_hi)
+    del want_lo, want_hi, se_lo, se_hi
+    k5_ms = cuda_ms(lambda: kernels.blind_rotate128(*k5_args), 3)
+    k5_b = k5_bound(k5_args[0], sq_lut[0], sqp.decomp_level_count, sqp.decomp_base_log)
+    # K5 at the TEST squashing shape (k + 1 = 2, N = 512, the generic
+    # instance) on a random 6-prime key
+    n_t, k1_t = SQ_TEST.polynomial_size, SQ_TEST.glwe_dimension + 1
+    dp_t = ntt.device_plan(ntt.make_plan(n_t, K5_PRIMES), "cuda")
+    t_args = (torch.from_numpy(chk.integers(0, 2 * n_t, (CHECK_BATCH, K5_TEST_STEPS))).to(dev),
+              torch.from_numpy(chk.integers(0, 2 * n_t, (CHECK_BATCH,))).to(dev)) + tuple(
+        torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, k1_t, n_t), dtype=np.uint64), dev)
+        for _ in range(2)) + (
+        random_ntt_key((K5_TEST_STEPS, SQ_TEST.decomp_level_count, k1_t, k1_t), dp_t, gen),
+        dp_t, SQ_TEST.decomp_base_log, SQ_TEST.decomp_level_count)
+    got, want = kernels.blind_rotate128(*t_args), server128.blind_rotate128(*t_args)
+    errs[f"k5_test_shape_b{CHECK_BATCH}"] = max(max_abs_err(g, w) for g, w in zip(got, want))
+
+    # K2's single-step entry: phase 13's stepwise rotation against the whole
+    # K2 rotation and the plain one (exact mode), and one step at B = 512
+    errs["k2_step_vs_whole_k2_b512"] = max_abs_err(stepwise, kernels.blind_rotate(*st_args, False))
+    t0 = time.perf_counter()
+    errs["k2_step_vs_plain_b512"] = max_abs_err(stepwise, server.blind_rotate(*st_args, False))
+    torch.cuda.synchronize()
+    k2_step_plain_rotation_ms = (time.perf_counter() - t0) * 1e3
+    acc0 = server.initial_accumulator(st_args[2], st_args[1], False).contiguous()
+    step_args = (st_args[0][:, 0], st_args[3][0]) + st_args[4:]
+    errs["k2_step_single_b512"] = max_abs_err(kernels.cmux_step(acc0.clone(), *step_args),
+                                              server.cmux_step(acc0, *step_args))
+    k2_step_ms = cuda_ms(lambda: kernels.cmux_step(acc0, *step_args), 10)
+    k2_step_plain_ms = cuda_ms(lambda: server.cmux_step(acc0, *step_args), 3)
+    k2_step_bound = k2_bound(st_args[0][:, :1], st_args[2], p.pbs_level, p.pbs_base_log,
+                             EXACT_PRIMES)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -808,18 +961,22 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 12. launches of the paths (phases 4, 6, 7, 9, 10) and the kernel table
+    # 15. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13) and the
+    # kernel table
     emit({"phase": "launches", "serve": launches, "serve_multibit": mb_launches,
           "rounds": ROUNDS + 2, "compress": comp_launches, "decompress": decomp_launches,
-          "decompress_subset": sub_launches, "modswitch_compress": ms_launches})
+          "decompress_subset": sub_launches, "modswitch_compress": ms_launches,
+          "squash": sq_launches, "stepwise": st_launches})
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
     emit({"kernels": [
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
-         "launches": launches["keyswitch"] + mb_launches["keyswitch"],
+         "launches": launches["keyswitch"] + mb_launches["keyswitch"] + sq_launches["keyswitch"],
          "launches_by_path": {
              "serve": launches["keyswitch"], "serve_multibit": mb_launches["keyswitch"],
+             "squash": sq_launches["keyswitch"],
              "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch"],
              "modswitch_compress_multibit": ms_launches["multibit"]["switch"]["keyswitch"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k1")),
@@ -845,8 +1002,8 @@ def main() -> None:
              "serve": launches["blind_rotate"],
              "modswitch_compress_classic":
                  ms_launches["classic"]["decompress"]["blind_rotate"]},
-         "max_abs_err": max(v for k, v in errs.items()
-                            if k.startswith("k2") and "decompression" not in k),
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")
+                            and "decompression" not in k and "step" not in k),
          "ms": k2_ms, "exact_mode_ms": k2_exact_ms,
          "rounded_key_exact_mode_ms": k2_rounded_exact_ms, "plain_ms": k2_plain_ms,
          "exact_mode_plain_ms": k2_exact_plain_ms,
@@ -907,6 +1064,34 @@ def main() -> None:
          "bound_limbs_int8_ms": k4_b["limbs_int8_ms"],
          "bound_ntt_int32_ms": k4_b["ntt_int32_ms"], "bound_bytes_ms": k4_b["bytes_ms"],
          "shape": [BATCH, comp_in.shape[1] - 1] + list(ckey.pksk.shape[1:])},
+        {"name": "blind_rotate128", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate128.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:1123",
+         "launches": sq_launches["blind_rotate128"],
+         "launches_by_path": {"squash": sq_launches["blind_rotate128"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k5")),
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "plain_batch": K5_PLAIN_BATCH,
+         "bound_ms": k5_b["ms"], "bound_by": k5_b["by"],
+         "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact u128 negacyclic product",
+         "bound_primes": K5_PRIMES, "bound_ntt_int32_ms": k5_b["ntt_ms"],
+         "bound_four_step_int8_ms": k5_b["four_step_ms"], "bound_bytes_ms": k5_b["bytes_ms"],
+         "shape": [BATCH, p.lwe_dimension, sqp.decomp_level_count, k1_sq,
+                   sqp.polynomial_size]},
+        {"name": "cmux_step", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:296",
+         "launches": st_launches["cmux_step"],
+         "launches_by_path": {"stepwise": st_launches["cmux_step"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_step")),
+         "ms": k2_step_ms, "plain_ms": k2_step_plain_ms,
+         "plain_rotation_ms": k2_step_plain_rotation_ms,
+         "bound_ms": k2_step_bound["ms"], "bound_by": k2_step_bound["by"],
+         "library_ms": None, "bound_primes": EXACT_PRIMES,
+         "bound_ntt_int32_ms": k2_step_bound["ntt_ms"],
+         "bound_four_step_int8_ms": k2_step_bound["four_step_ms"],
+         "bound_bytes_ms": k2_step_bound["bytes_ms"],
+         "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

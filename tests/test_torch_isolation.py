@@ -45,9 +45,9 @@ for m in list(sys.modules):
 
 import tfhe_tpu_torch
 from tfhe_tpu_torch import shortint
-from tfhe_tpu_torch.core import multibit
-from tfhe_tpu_torch.ops import kernels, server, ntt, torus, bsk_prep
-from tfhe_tpu_torch.shortint import compression
+from tfhe_tpu_torch.core import multibit, torus128
+from tfhe_tpu_torch.ops import kernels, server, server128, ntt, torus, bsk_prep
+from tfhe_tpu_torch.shortint import compression, noise_squashing
 
 p = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
 ck = shortint.ClientKey(p, seed=3)
@@ -65,6 +65,13 @@ small = dataclasses.replace(compression.TEST_COMP_PARAM, packing_ks_polynomial_s
 ckey = shortint.CompressionKey(ck, seed=5, comp_params=small, device="cpu")
 packed = ckey.compress([ck.encrypt(m) for m in (1, 3)])
 assert [ck.decrypt(c) for c in ckey.decompress(packed)] == [1, 3]
+# the noise-squashing slice: squash two ciphertexts onto the u128 torus
+sk = shortint.ServerKey(ck, seed=6, device="cpu")
+priv = noise_squashing.NoiseSquashingPrivateKey(noise_squashing.TEST_NOISE_SQUASHING_PARAM,
+                                                seed=7)
+nsk = noise_squashing.NoiseSquashingKey(ck, priv, seed=8, device="cpu")
+squashed = nsk.squash_ciphertext_noise_batch([ck.encrypt(m) for m in (2, 1)], sk)
+assert [priv.decrypt_squashed_noise_ciphertext(s) for s in squashed] == [2, 1]
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")

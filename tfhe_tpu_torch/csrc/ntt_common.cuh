@@ -2,7 +2,10 @@
 // (blind_rotate_multibit.cu): Montgomery arithmetic, the signed gadget
 // decomposition, shared-memory NTTs in register passes, and Garner
 // reconstruction to u64.  Twiddles and constants come from the port's
-// ops/ntt.py plan (the packed table of _kernel_consts).
+// ops/ntt.py plan (the packed table of _kernel_consts).  The NTT passes
+// take the prime of each polynomial from their constants object
+// (prime_of, modulus, minv), so K5 (blind_rotate128.cu) runs them one
+// prime of its six at a time.
 //
 // Both kernels run THREADS threads a block and keep their residues in
 // shared-memory rows padded by one word in 32, so that the strided loads of
@@ -32,6 +35,11 @@ struct Consts {
   u64 prods[NP];
   u64 pmod;
   u32 half[NP];
+
+  // polynomial q of a residue block holds prime q % NP
+  __device__ __forceinline__ int prime_of(int poly) const { return poly & (NP - 1); }
+  __device__ __forceinline__ u32 modulus(int pi) const { return p[pi]; }
+  __device__ __forceinline__ u32 minv(int pi) const { return pinv[pi]; }
 };
 
 // One thread fills c from the packed table; the caller synchronises.
@@ -110,11 +118,11 @@ __device__ __forceinline__ void write_digit_residues(u32* out, u64 v, int base_l
 // Forward (Cooley-Tukey, natural -> bit-reversed) stages k0 .. k0+S-1 of
 // every polynomial: a thread owns the 2^S coefficients i = hi|b|lo that
 // differ only in the S bits those stages pair (ops/ntt.py ntt_forward).
-// Polynomial q of res holds prime q % NP.
-template <int S>
+// Polynomial q of res holds prime c.prime_of(q).
+template <int S, class C>
 __device__ __forceinline__ void forward_pass(u32* res, int polys, int log_n, int row,
                                              int k0, const u32* __restrict__ psi,
-                                             const Consts& c) {
+                                             const C& c) {
   const int lo_bits = log_n - k0 - S;
   const int per_poly = 1 << (log_n - S);
   for (int q = threadIdx.x; q < polys * per_poly; q += THREADS) {
@@ -122,9 +130,9 @@ __device__ __forceinline__ void forward_pass(u32* res, int polys, int log_n, int
     const int rest = q & (per_poly - 1);
     const int lo = rest & ((1 << lo_bits) - 1);
     const int hi = rest >> lo_bits;
-    const int pi = poly & (NP - 1);
-    const u32 p = c.p[pi];
-    const u32 pinv = c.pinv[pi];
+    const int pi = c.prime_of(poly);
+    const u32 p = c.modulus(pi);
+    const u32 pinv = c.minv(pi);
     u32* x = res + poly * row;
     const int base = (hi << (S + lo_bits)) | lo;
     u32 v[1 << S];
@@ -154,10 +162,10 @@ __device__ __forceinline__ void forward_pass(u32* res, int polys, int log_n, int
 
 // Inverse (Gentleman-Sande, bit-reversed -> natural) stages k0 .. k0+S-1,
 // t = 2^k doubling (ops/ntt.py ntt_inverse without the N^-1 factor).
-template <int S>
+template <int S, class C>
 __device__ __forceinline__ void inverse_pass(u32* res, int polys, int log_n, int row,
                                              int k0, const u32* __restrict__ psi_inv,
-                                             const Consts& c) {
+                                             const C& c) {
   const int lo_bits = k0;
   const int per_poly = 1 << (log_n - S);
   for (int q = threadIdx.x; q < polys * per_poly; q += THREADS) {
@@ -165,9 +173,9 @@ __device__ __forceinline__ void inverse_pass(u32* res, int polys, int log_n, int
     const int rest = q & (per_poly - 1);
     const int lo = rest & ((1 << lo_bits) - 1);
     const int hi = rest >> lo_bits;
-    const int pi = poly & (NP - 1);
-    const u32 p = c.p[pi];
-    const u32 pinv = c.pinv[pi];
+    const int pi = c.prime_of(poly);
+    const u32 p = c.modulus(pi);
+    const u32 pinv = c.minv(pi);
     u32* x = res + poly * row;
     const int base = (hi << (S + lo_bits)) | lo;
     u32 v[1 << S];
@@ -198,9 +206,9 @@ __device__ __forceinline__ void inverse_pass(u32* res, int polys, int log_n, int
 
 // All log_n stages in passes of PASS, the remainder last; a barrier after
 // each pass.
+template <class C>
 __device__ __forceinline__ void forward_ntt(u32* res, int polys, int log_n, int row,
-                                            const u32* __restrict__ psi,
-                                            const Consts& c) {
+                                            const u32* __restrict__ psi, const C& c) {
   int k0 = 0;
   for (; k0 + PASS <= log_n; k0 += PASS) {
     forward_pass<PASS>(res, polys, log_n, row, k0, psi, c);
@@ -215,9 +223,9 @@ __device__ __forceinline__ void forward_ntt(u32* res, int polys, int log_n, int 
   __syncthreads();
 }
 
+template <class C>
 __device__ __forceinline__ void inverse_ntt(u32* res, int polys, int log_n, int row,
-                                            const u32* __restrict__ psi_inv,
-                                            const Consts& c) {
+                                            const u32* __restrict__ psi_inv, const C& c) {
   int k0 = 0;
   for (; k0 + PASS <= log_n; k0 += PASS) {
     inverse_pass<PASS>(res, polys, log_n, row, k0, psi_inv, c);

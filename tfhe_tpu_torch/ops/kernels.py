@@ -1,16 +1,19 @@
 """The hand-written CUDA kernels of the port: build, load, wrappers.
 
 K1 ``keyswitch`` (csrc/keyswitch.cu), K2 ``blind_rotate``
-(csrc/blind_rotate.cu), K3 ``blind_rotate_multibit``
-(csrc/blind_rotate_multibit.cu) and K4 ``packing_keyswitch``
-(csrc/packing_keyswitch.cu; K2, K3 and K4 include csrc/ntt_common.cuh) are
-compiled with nvcc for sm_90a into shared libraries with a plain C
-interface at first use (utils/build.py, all compilers started together)
-and called through ctypes on PyTorch's current stream.
+(csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry), K3
+``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu), K4
+``packing_keyswitch`` (csrc/packing_keyswitch.cu) and K5
+``blind_rotate128`` (csrc/blind_rotate128.cu; K2-K5 include
+csrc/ntt_common.cuh) are compiled with nvcc for sm_90a into shared
+libraries with a plain C interface at first use (utils/build.py, all
+compilers started together) and called through ctypes on PyTorch's current
+stream.
 
-Each wrapper runs its plain PyTorch version (ops/server.py) when given CPU
-tensors, and launches its kernel on CUDA tensors or raises: there is no
-fallback.  ``<wrapper>.launches`` counts kernel launches, and nothing else.
+Each wrapper runs its plain PyTorch version (ops/server.py,
+ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
+tensors or raises: there is no fallback.  ``<wrapper>.launches`` counts
+kernel launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -20,15 +23,17 @@ import ctypes
 import torch
 
 from ..utils.build import CSRC, build_shared_libraries
-from . import server
-from .ntt import KERNEL_CONSTS_LEN, KERNEL_PRIMES, DevicePlan
+from . import server, server128
+from .ntt import (KERNEL128_CONSTS_LEN, KERNEL128_PRIMES, KERNEL_CONSTS_LEN,
+                  KERNEL_PRIMES, DevicePlan)
 
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
             "blind_rotate_multibit": "blind_rotate_multibit.cu",
-            "packing_keyswitch": "packing_keyswitch.cu"}
+            "packing_keyswitch": "packing_keyswitch.cu",
+            "blind_rotate128": "blind_rotate128.cu"}
 
 
 class _Libs:
@@ -50,7 +55,7 @@ def nvcc_command() -> list:
 
 
 def source_paths() -> list:
-    """The sources of K1-K4, relative to the checkout."""
+    """The sources of K1-K5, relative to the checkout."""
     return [str((CSRC / src).relative_to(CSRC.parents[1]))
             for src in _SOURCES.values()]
 
@@ -81,6 +86,12 @@ def load() -> dict:
         fn.restype = i
         fn = libs["packing_keyswitch"].tfhe_torch_packing_keyswitch
         fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128
+        fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128_smem_bytes
+        fn.argtypes = [i] * 3
         fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
@@ -132,6 +143,34 @@ def keyswitch(ct, ksk, base_log: int, levels: int):
 keyswitch.launches = 0
 
 
+def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
+                         levels: int, trunc_acc: bool) -> None:
+    """K2 on an initialised accumulator (B, k+1, N) int64, in place: one
+    step per column of mask32 (B, n) int32, key (n, l, k+1, k+1, P, N)."""
+    b, n_steps = mask32.shape
+    k1, n_poly = acc.shape[1], acc.shape[2]
+    nprimes = dp.num_primes
+    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, nprimes, n_poly),
+             f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
+    _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "the kernel takes a 4-prime plan and a power-of-two N")
+    _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
+    lib = load()["blind_rotate"]
+    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
+    _require(smem <= SMEM_LIMIT,
+             f"accumulator and residues need {smem} B of shared memory")
+    _check_cuda((acc, torch.int64), (mask32, torch.int32),
+                (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
+                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
+    err = lib.tfhe_torch_blind_rotate(
+        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
+        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
+        dp.kernel_consts.data_ptr(), b, n_steps, k1,
+        n_poly.bit_length() - 1, levels, nprimes, base_log, int(trunc_acc),
+        _stream(acc))
+    _raise_on(err, "blind_rotate")
+
+
 def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
                  base_log: int, levels: int, trunc_acc: bool = False):
     """K2: batched classic blind rotation (see ops/server.py blind_rotate).
@@ -143,36 +182,37 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
                                    base_log, levels, trunc_acc)
     _require(msed_mask.device.type == "cuda",
              f"no blind-rotation kernel for {msed_mask.device}")
-    b, n_steps = msed_mask.shape
-    k1, n_poly = lut.shape[1], lut.shape[2]
-    nprimes = dp.num_primes
-    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, nprimes, n_poly),
-             f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
-    _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
-             "the kernel takes a 4-prime plan and a power-of-two N")
-    _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
-    lib = load()["blind_rotate"]
-    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
-    _require(smem <= SMEM_LIMIT,
-             f"accumulator and residues need {smem} B of shared memory")
     acc = server.initial_accumulator(lut, msed_body, trunc_acc).contiguous()
-    mask32 = msed_mask.to(torch.int32).contiguous()
-    bsk_ntt = bsk_ntt.contiguous()
-    _check_cuda((acc, torch.int64), (mask32, torch.int32),
-                (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
-                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
-    err = lib.tfhe_torch_blind_rotate(
-        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
-        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
-        dp.kernel_consts.data_ptr(), b, n_steps, k1,
-        n_poly.bit_length() - 1, levels, nprimes, base_log, int(trunc_acc),
-        _stream(acc))
-    _raise_on(err, "blind_rotate")
+    _launch_blind_rotate(acc, msed_mask.to(torch.int32).contiguous(),
+                         bsk_ntt.contiguous(), dp, base_log, levels, trunc_acc)
     blind_rotate.launches += 1
     return acc
 
 
 blind_rotate.launches = 0
+
+
+def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int):
+    """K2's single-step entry: one exact CMux step acc + GGSW (x)
+    (acc * X^a - acc) on an initialised accumulator, for the whole batch
+    (see ops/server.py cmux_step; the function of tfhe_tpu's
+    build_cmux_step Pallas kernel).  K2 launched with n_steps = 1, in
+    place on a CUDA accumulator.
+
+    acc: (B, k+1, N) int64; a_col: (B,) in [0, 2N); bsk_slice:
+    (l, k+1, k+1, P, N) int32 Montgomery NTT domain.  Returns the new
+    accumulator."""
+    if acc.device.type == "cpu":
+        return server.cmux_step(acc, a_col, bsk_slice, dp, base_log, levels)
+    _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
+    _require(acc.is_contiguous(), "the accumulator must be contiguous (updated in place)")
+    _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
+                         bsk_slice.contiguous()[None], dp, base_log, levels, False)
+    cmux_step.launches += 1
+    return acc
+
+
+cmux_step.launches = 0
 
 
 def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
@@ -258,3 +298,58 @@ def packing_keyswitch(lwes, pksk, base_log: int, levels: int, lwe_per_glwe: int)
 
 
 packing_keyswitch.launches = 0
+
+
+def blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi, bsk_ntt, dp: DevicePlan,
+                    base_log: int, levels: int):
+    """K5: batched exact u128 blind rotation (see ops/server128.py
+    blind_rotate128).
+
+    msed_mask: (B, n) in [0, 2N); msed_body: (B,); lut pair: (B, k+1, N)
+    int64; bsk_ntt: (n, l, k+1, k+1, 6, N) int32 Montgomery NTT-domain key.
+    Returns the (lo, hi) accumulator.  Takes k+1 <= 3, base_log <= 31,
+    base_log * l < 128, a power-of-two N and the shapes whose accumulator
+    and one prime's digit residues fit one block's shared memory; raises on
+    others (ROADMAP.md queue 3)."""
+    if msed_mask.device.type == "cpu":
+        return server128.blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi,
+                                         bsk_ntt, dp, base_log, levels)
+    _require(msed_mask.device.type == "cuda",
+             f"no u128 blind-rotation kernel for {msed_mask.device}")
+    b, n_steps = msed_mask.shape
+    k1, n_poly = lut_lo.shape[1], lut_lo.shape[2]
+    nprimes = dp.num_primes
+    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, nprimes, n_poly),
+             f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
+    _require(nprimes == KERNEL128_PRIMES and n_poly & (n_poly - 1) == 0,
+             "the u128 kernel takes a 6-prime plan and a power-of-two N")
+    _require(dp.kernel_consts128 is not None
+             and dp.kernel_consts128.numel() == KERNEL128_CONSTS_LEN, "bad plan table")
+    _require(1 <= k1 <= 3 and 1 <= base_log <= 31 and base_log * levels < 128,
+             f"the u128 kernel takes k+1 <= 3, base_log <= 31 and base_log * l < 128, "
+             f"not k+1 = {k1}, base_log = {base_log}, l = {levels} (ROADMAP.md queue 3)")
+    lib = load()["blind_rotate128"]
+    smem = lib.tfhe_torch_blind_rotate128_smem_bytes(k1, n_poly, levels)
+    _require(smem <= SMEM_LIMIT,
+             f"u128 blind rotation with k+1 = {k1}, N = {n_poly}, l = {levels} needs "
+             f"{smem} B of shared memory, above the {SMEM_LIMIT} B a block may use "
+             f"(ROADMAP.md queue 3)")
+    acc_lo, acc_hi = server128.monomial_div128(lut_lo, lut_hi, msed_body[:, None, None])
+    acc = torch.stack([acc_lo, acc_hi], dim=-1).contiguous()   # little-endian u128
+    mask32 = msed_mask.to(torch.int32).contiguous()
+    bsk_ntt = bsk_ntt.contiguous()
+    scratch = torch.empty((b, nprimes, k1, n_poly), dtype=torch.int32, device=acc.device)
+    _check_cuda((acc, torch.int64), (mask32, torch.int32), (bsk_ntt, torch.int32),
+                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
+                (dp.kernel_consts128, torch.int64), (scratch, torch.int32))
+    err = lib.tfhe_torch_blind_rotate128(
+        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts128.data_ptr(), scratch.data_ptr(),
+        b, n_steps, k1, n_poly.bit_length() - 1, levels, nprimes, base_log,
+        _stream(acc))
+    _raise_on(err, "blind_rotate128")
+    blind_rotate128.launches += 1
+    return acc[..., 0], acc[..., 1]
+
+
+blind_rotate128.launches = 0

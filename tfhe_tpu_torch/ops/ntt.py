@@ -1,4 +1,4 @@
-"""Exact negacyclic polynomial multiplication mod 2^64 via CRT-NTT.
+"""Exact negacyclic polynomial multiplication mod 2^64 (and 2^128) via CRT-NTT.
 
 The port of tfhe_tpu/ops/ntt.py, with the same primes, twiddle order,
 Montgomery constants and Garner constants, so every NTT-domain value (the
@@ -11,13 +11,17 @@ bootstrapping key above all) is the same u32 in both packages:
   - Forward: Cooley-Tukey DIT, natural -> bit-reversed, psi twist merged into
     the twiddles; inverse: Gentleman-Sande, bit-reversed -> natural, times
     N^-1.
-  - Garner reconstructs a SIGNED integer |X| < P/2 mod 2^64.
+  - Garner reconstructs a SIGNED integer |X| < P/2 mod 2^64, or mod 2^128
+    as a (lo, hi) pair for the u128 torus of noise squashing (6-prime
+    plans).
 
 Two halves: numpy on the host (key generation and encryption, uint64), and
 torch on int64 tensors (the plain versions the CUDA kernels are held
-against, and the CPU path).  All residues stay below 2^31 and a Montgomery
-product below 2^63, so int64 holds every intermediate without a sign
-problem; only Garner's final sum wraps, which is the mod-2^64 result.
+against, the CPU path, and the u128 key's products on the key's device).
+All residues stay below 2^31 and a Montgomery product below 2^63, so int64
+holds every intermediate without a sign problem; only Garner's final sums
+wrap, which is the result mod 2^64 (or, word by word with the carries taken
+by unsigned compares, mod 2^128).
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .torus import s64
+from .torus import s64, shr, ult
 
 PRIMES = (1073692673, 1073643521, 1073479681, 1073430529,
           1073299457, 1073233921, 1073184769, 1073135617)
 
 _U64 = np.uint64
+_M64 = (1 << 64) - 1
 _MASK32 = _U64(0xFFFFFFFF)
 _R_BITS = _U64(32)
 
@@ -112,8 +117,8 @@ def make_plan(n: int, num_primes: int = 4) -> NttPlan:
 def garner_consts(primes: tuple) -> dict:
     """Garner mixed-radix constants as Python ints (division-free
     reconstruction): Montgomery inverses, partial products mod p_j, partial
-    products mod 2^64, P mod 2^64 and the mixed-radix digits of floor(P/2)
-    for the sign test."""
+    products mod 2^64 and as (lo, hi) pairs mod 2^128, P mod 2^64 and mod
+    2^128, and the mixed-radix digits of floor(P/2) for the sign test."""
     k = len(primes)
     r = 1 << 32
     c = {"inv_mont": {}, "pm_mont": {}}
@@ -124,12 +129,14 @@ def garner_consts(primes: tuple) -> dict:
             prod = prod * primes[i] % pj
             c["pm_mont"][(i, j)] = prod * r % pj
         c["inv_mont"][j] = pow(prod, -1, pj) * r % pj
-    c["prods64"] = []
+    c["prods64"], c["prods128"] = [], []
     acc = 1
     for p in primes:
-        c["prods64"].append(acc & ((1 << 64) - 1))
+        c["prods64"].append(acc & _M64)
+        c["prods128"].append((acc & _M64, (acc >> 64) & _M64))
         acc *= p
-    c["P_mod64"] = acc & ((1 << 64) - 1)
+    c["P_mod64"] = acc & _M64
+    c["P_mod128"] = (acc & _M64, (acc >> 64) & _M64)
     half = acc // 2
     c["half_digits"] = []
     for p in primes:
@@ -211,11 +218,12 @@ def to_mont_all(x_ntt, plan: NttPlan):
     return _mont_mul_np(x_ntt, plan.r2s, plan.ps, plan.pinvs)
 
 
-def _garner_np(residues, plan: NttPlan):
+def _garner_digits_np(residues, plan: NttPlan) -> list:
+    """The mixed-radix digits a_0 .. a_{P-1} of the integer whose residues
+    (..., P, N) these are (each a_j < p_j)."""
     c = garner_consts(plan.primes)
-    k = plan.num_primes
     a = [residues[..., 0, :]]
-    for j in range(1, k):
+    for j in range(1, plan.num_primes):
         pj = _U64(plan.primes[j])
         pinv = plan.pinvs[j, 0]
         v = np.where(a[0] >= pj, a[0] - pj, a[0])
@@ -225,14 +233,25 @@ def _garner_np(residues, plan: NttPlan):
         r = residues[..., j, :]
         d = np.where(r >= v, r - v, r + pj - v)
         a.append(_mont_mul_np(d, _U64(c["inv_mont"][j]), pj, pinv))
+    return a
+
+
+def _is_negative(a: list, primes: tuple):
+    """Whether the mixed-radix digits a stand for an integer above P/2."""
+    h = garner_consts(primes)["half_digits"]
+    is_neg = a[0] > h[0]
+    for i in range(1, len(a)):
+        is_neg = (a[i] > h[i]) | ((a[i] == h[i]) & is_neg)
+    return is_neg
+
+
+def _garner_np(residues, plan: NttPlan):
+    c = garner_consts(plan.primes)
+    a = _garner_digits_np(residues, plan)
     out = a[0]
-    for i in range(1, k):
+    for i in range(1, plan.num_primes):
         out = out + a[i] * _U64(c["prods64"][i])
-    h = c["half_digits"]
-    is_neg = a[0] > _U64(h[0])
-    for i in range(1, k):
-        is_neg = (a[i] > _U64(h[i])) | ((a[i] == _U64(h[i])) & is_neg)
-    return np.where(is_neg, out - _U64(c["P_mod64"]), out)
+    return np.where(_is_negative(a, plan.primes), out - _U64(c["P_mod64"]), out)
 
 
 def negacyclic_polymul_u64(a, b, plan: NttPlan):
@@ -247,6 +266,76 @@ def negacyclic_polymul_u64(a, b, plan: NttPlan):
 
 
 # ---------------------------------------------------------------------------
+# Host u128 (numpy): values as (lo, hi) uint64 pairs, for the noise-squashing
+# key (tfhe_tpu/ops/ntt.py:503-600)
+# ---------------------------------------------------------------------------
+
+
+def add128_np(alo, ahi, blo, bhi):
+    lo = alo + blo
+    return lo, ahi + bhi + (lo < alo).astype(_U64)
+
+
+def sub128_np(alo, ahi, blo, bhi):
+    return alo - blo, ahi - bhi - (alo < blo).astype(_U64)
+
+
+def neg128_np(lo, hi):
+    z = np.zeros_like(lo)
+    return sub128_np(z, z, lo, hi)
+
+
+def mul_u32_by_u128_np(a, c_lo: int, c_hi: int):
+    """a (uint64 values < 2^32) times the constant (c_lo, c_hi), mod 2^128."""
+    t0 = a * _U64(c_lo & 0xFFFFFFFF)
+    t1 = a * _U64(c_lo >> 32)
+    lo = t0 + ((t1 & _MASK32) << _R_BITS)
+    hi = (t1 >> _R_BITS) + a * _U64(c_hi) + (lo < t0).astype(_U64)
+    return lo, hi
+
+
+def to_residues_u128_np(lo, hi, plan: NttPlan):
+    """(lo, hi) pairs (..., N) -> (..., P, N) residues."""
+    outs = []
+    for p in plan.primes:
+        p = _U64(p)
+        two64 = _U64((1 << 64) % int(p))
+        outs.append(((hi % p) * two64 + lo % p) % p)
+    return np.stack(outs, axis=-2)
+
+
+def forward_all_u128(lo, hi, plan: NttPlan):
+    """(..., N) pairs -> (..., P, N) NTT-domain residues (normal form)."""
+    return _forward_np(to_residues_u128_np(lo, hi, plan), plan)
+
+
+def garner_to_u128_np(residues, plan: NttPlan) -> tuple:
+    """(..., P, N) residues of a signed integer |X| < P/2 -> X mod 2^128 as
+    a (lo, hi) pair (tfhe_tpu/ops/ntt.py garner_to_u128)."""
+    c = garner_consts(plan.primes)
+    a = _garner_digits_np(residues, plan)
+    lo, hi = a[0], np.zeros_like(a[0])
+    with np.errstate(over="ignore"):
+        for i in range(1, plan.num_primes):
+            lo, hi = add128_np(lo, hi, *mul_u32_by_u128_np(a[i], *c["prods128"][i]))
+        pm_lo, pm_hi = c["P_mod128"]
+        n_lo, n_hi = sub128_np(lo, hi, _U64(pm_lo), _U64(pm_hi))
+    neg = _is_negative(a, plan.primes)
+    return np.where(neg, n_lo, lo), np.where(neg, n_hi, hi)
+
+
+def negacyclic_polymul_u128(a_lo, a_hi, b_lo, b_hi, plan: NttPlan) -> tuple:
+    """Exact negacyclic product of u128 polynomials mod 2^128, correct when
+    every exact output coefficient has |X| < P/2: six primes for a binary
+    key times a u128 polynomial (2^140)."""
+    with np.errstate(over="ignore"):
+        fa = forward_all_u128(a_lo, a_hi, plan)
+        fb = to_mont_all(forward_all_u128(b_lo, b_hi, plan), plan)
+        prod = _mont_mul_np(fa, fb, plan.ps, plan.pinvs)
+        return garner_to_u128_np(_inverse_np(prod, plan), plan)
+
+
+# ---------------------------------------------------------------------------
 # Device (torch int64): plain versions of the blind-rotation arithmetic
 # ---------------------------------------------------------------------------
 
@@ -256,17 +345,21 @@ _M32 = 0xFFFFFFFF
 @dataclass(frozen=True, eq=False)
 class DevicePlan:
     """An NttPlan's tables on one device: int64 for the torch code, u32
-    twiddles and one packed int64 constant table for the CUDA kernel."""
+    twiddles and one packed int64 constant table for the CUDA kernels: the
+    4-prime u64 table (K2-K4) or the 6-prime u128 table (K5), whichever the
+    plan's prime count takes (the other is None)."""
 
     plan: NttPlan
     ps: torch.Tensor          # (P, 1) int64
     pinvs: torch.Tensor
+    r2s: torch.Tensor
     n_invs: torch.Tensor
     psi: torch.Tensor         # (P, N) int64
     psi_inv: torch.Tensor
     psi32: torch.Tensor       # (P, N) int32 (values < 2^30)
     psi_inv32: torch.Tensor
-    kernel_consts: torch.Tensor  # (KERNEL_CONSTS_LEN,) int64, see below
+    kernel_consts: torch.Tensor | None     # (KERNEL_CONSTS_LEN,) int64
+    kernel_consts128: torch.Tensor | None  # (KERNEL128_CONSTS_LEN,) int64
 
     @property
     def n(self) -> int:
@@ -303,17 +396,51 @@ def _kernel_consts(plan: NttPlan) -> np.ndarray:
     return out
 
 
+# The u128 table read by csrc/blind_rotate128.cu (struct Consts128 there),
+# for 6-prime plans: [0:6] p, [6:12] -p^-1 mod 2^32, [12:18] N^-1
+# (Montgomery), [18:24] Garner inverse for prime j (slot j), [24:60] partial
+# product (i, j) at 24+6i+j, [60:72] partial products mod 2^128 as (lo, hi)
+# at 60+2i, [72:74] P mod 2^128 (lo, hi), [74:80] digits of P/2.
+KERNEL128_PRIMES = 6
+KERNEL128_CONSTS_LEN = 80
+
+
+def _kernel_consts128(plan: NttPlan) -> np.ndarray:
+    assert plan.num_primes == KERNEL128_PRIMES
+    np_ = KERNEL128_PRIMES
+    c = garner_consts(plan.primes)
+    out = np.zeros(KERNEL128_CONSTS_LEN, dtype=np.int64)
+    for i, p in enumerate(plan.primes):
+        out[i] = p
+        out[np_ + i] = int(plan.pinvs[i, 0])
+        out[2 * np_ + i] = int(plan.n_invs[i, 0])
+        out[60 + 2 * i] = s64(c["prods128"][i][0])
+        out[61 + 2 * i] = s64(c["prods128"][i][1])
+        out[74 + i] = c["half_digits"][i]
+    for j, v in c["inv_mont"].items():
+        out[3 * np_ + j] = v
+    for (i, j), v in c["pm_mont"].items():
+        out[24 + np_ * i + j] = v
+    out[72] = s64(c["P_mod128"][0])
+    out[73] = s64(c["P_mod128"][1])
+    return out
+
+
 @lru_cache(maxsize=None)
 def device_plan(plan: NttPlan, device: str) -> DevicePlan:
     """Upload an NttPlan's tables to ``device`` once (cached per device)."""
     t = lambda a, dt=torch.int64: torch.from_numpy(  # noqa: E731
         np.asarray(a).astype(np.int64)).to(device=device, dtype=dt)
     return DevicePlan(
-        plan=plan, ps=t(plan.ps), pinvs=t(plan.pinvs), n_invs=t(plan.n_invs),
+        plan=plan, ps=t(plan.ps), pinvs=t(plan.pinvs), r2s=t(plan.r2s),
+        n_invs=t(plan.n_invs),
         psi=t(plan.psi_br_stack), psi_inv=t(plan.psi_inv_br_stack),
         psi32=t(plan.psi_br_stack, torch.int32),
         psi_inv32=t(plan.psi_inv_br_stack, torch.int32),
-        kernel_consts=t(_kernel_consts(plan)),
+        kernel_consts=(t(_kernel_consts(plan))
+                       if plan.num_primes <= KERNEL_PRIMES else None),
+        kernel_consts128=(t(_kernel_consts128(plan))
+                          if plan.num_primes == KERNEL128_PRIMES else None),
     )
 
 
@@ -389,9 +516,9 @@ def add_mod_stacked(a, b, dp: DevicePlan):
     return add_mod(a, b, dp.ps)
 
 
-def garner_to_u64(residues: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
-    """(..., P, N) residues of a signed integer |X| < P/2 -> X mod 2^64 as
-    (..., N) int64 (tfhe_tpu/ops/ntt.py garner_to_u64)."""
+def _garner_digits(residues: torch.Tensor, dp: DevicePlan) -> list:
+    """The mixed-radix digits a_0 .. a_{P-1} (each a_j < p_j) of the integer
+    whose residues (..., P, N) these are."""
     primes = dp.plan.primes
     c = garner_consts(primes)
     pinvs = [int(v) for v in dp.plan.pinvs[:, 0]]
@@ -405,11 +532,95 @@ def garner_to_u64(residues: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
         r = residues[..., j, :]
         d = torch.where(r >= v, r - v, r + pj - v)
         a.append(mont_mul(d, c["inv_mont"][j], pj, pinvs[j]))
+    return a
+
+
+def garner_to_u64(residues: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., P, N) residues of a signed integer |X| < P/2 -> X mod 2^64 as
+    (..., N) int64 (tfhe_tpu/ops/ntt.py garner_to_u64)."""
+    primes = dp.plan.primes
+    c = garner_consts(primes)
+    a = _garner_digits(residues, dp)
     out = a[0]
     for i in range(1, len(primes)):
         out = out + a[i] * s64(c["prods64"][i])
-    h = c["half_digits"]
-    is_neg = a[0] > h[0]
-    for i in range(1, len(primes)):
-        is_neg = (a[i] > h[i]) | ((a[i] == h[i]) & is_neg)
-    return torch.where(is_neg, out - s64(c["P_mod64"]), out)
+    return torch.where(_is_negative(a, primes), out - s64(c["P_mod64"]), out)
+
+
+# ---------------------------------------------------------------------------
+# Device u128 (torch): values as (lo, hi) int64 pairs holding the u64 words;
+# carries and borrows use the unsigned compare (ops/torus.py ult)
+# ---------------------------------------------------------------------------
+
+
+def add128(alo, ahi, blo, bhi) -> tuple:
+    lo = alo + blo
+    return lo, ahi + bhi + ult(lo, alo).to(torch.int64)
+
+
+def sub128(alo, ahi, blo, bhi) -> tuple:
+    return alo - blo, ahi - bhi - ult(alo, blo).to(torch.int64)
+
+
+def neg128(lo, hi) -> tuple:
+    z = torch.zeros_like(lo)
+    return sub128(z, z, lo, hi)
+
+
+def mul_u32_by_u128(a, c_lo: int, c_hi: int) -> tuple:
+    """a (int64 values in [0, 2^32)) times the constant (c_lo, c_hi) mod
+    2^128 (products wrap in int64, which is u64 arithmetic)."""
+    t0 = a * (c_lo & _M32)
+    t1 = a * (c_lo >> 32)
+    lo = t0 + ((t1 & _M32) << 32)
+    hi = shr(t1, 32) + a * s64(c_hi) + ult(lo, t0).to(torch.int64)
+    return lo, hi
+
+
+def to_residues_u128(lo, hi, dp: DevicePlan) -> torch.Tensor:
+    """(lo, hi) pairs (..., N) -> (..., P, N) residues: the four 32-bit
+    words, each below 2^32, times 2^(32 w) mod p (all below 2^62)."""
+    words = (lo & _M32, shr(lo, 32), hi & _M32, shr(hi, 32))
+    outs = []
+    for p in dp.plan.primes:
+        r = words[0] % p
+        for w in range(1, 4):
+            r = (r + (words[w] % p) * ((1 << (32 * w)) % p)) % p
+        outs.append(r)
+    return torch.stack(outs, dim=-2)
+
+
+def garner_to_u128(residues: torch.Tensor, dp: DevicePlan) -> tuple:
+    """(..., P, N) residues of a signed integer |X| < P/2 -> X mod 2^128 as
+    a (lo, hi) int64 pair (tfhe_tpu/ops/ntt.py garner_to_u128)."""
+    c = garner_consts(dp.plan.primes)
+    a = _garner_digits(residues, dp)
+    lo, hi = a[0], torch.zeros_like(a[0])
+    for i in range(1, dp.num_primes):
+        lo, hi = add128(lo, hi, *mul_u32_by_u128(a[i], *c["prods128"][i]))
+    pm_lo, pm_hi = c["P_mod128"]
+    n_lo, n_hi = sub128(lo, hi, torch.full_like(lo, s64(pm_lo)),
+                        torch.full_like(hi, s64(pm_hi)))
+    neg = _is_negative(a, dp.plan.primes)
+    return torch.where(neg, n_lo, lo), torch.where(neg, n_hi, hi)
+
+
+def forward_u128_mont(lo, hi, dp: DevicePlan) -> torch.Tensor:
+    """(..., N) pairs -> (..., P, N) NTT-domain residues in Montgomery form:
+    the layout of an NTT-domain u128 key (core/torus128.py
+    bootstrap_key128_to_ntt gives the same words on the host)."""
+    fwd = ntt_forward(to_residues_u128(lo, hi, dp), dp)
+    return mont_mul(fwd, dp.r2s, dp.ps, dp.pinvs)
+
+
+def mask_times_binary_key_u128(m_lo, m_hi, key_bits, dp: DevicePlan) -> tuple:
+    """sum_i m_i * s_i mod (X^N + 1, 2^128) for masks (..., k, N) as int64
+    pairs and a binary key (k, N): the products summed in the NTT domain and
+    reconstructed once, which equals summing the reconstructed products,
+    since the exact sum (|X| <= k N 2^128) stays below P/2."""
+    fm = ntt_forward(to_residues_u128(m_lo, m_hi, dp), dp)      # (..., k, P, N)
+    fs = forward_u128_mont(key_bits, torch.zeros_like(key_bits), dp)
+    col = pointwise_mul_mont(fm[..., 0, :, :], fs[0], dp)
+    for i in range(1, key_bits.shape[0]):
+        col = add_mod_stacked(col, pointwise_mul_mont(fm[..., i, :, :], fs[i], dp), dp)
+    return garner_to_u128(ntt_inverse(col, dp), dp)

@@ -4,10 +4,10 @@ The port of tfhe_tpu/ops/server.py for the classic and the multi-bit
 KS->PBS atomic patterns and for ciphertext compression.  Each function here
 is the plain PyTorch version of its tfhe_tpu namesake: the same exact
 integer arithmetic, so outputs are the same u64 words.  ``keyswitch``,
-``blind_rotate``, the two multi-bit rotations and ``packing_keyswitch`` are
-also the plain versions of the CUDA kernels (ops/kernels.py): the pipelines
-below go through the kernel wrappers, which run these plain versions for
-CPU tensors.
+``blind_rotate``, ``cmux_step``, the two multi-bit rotations and
+``packing_keyswitch`` are also the plain versions of the CUDA kernels
+(ops/kernels.py): the pipelines below go through the kernel wrappers, which
+run these plain versions for CPU tensors.
 
 Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
 u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
@@ -220,10 +220,35 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
     """
     acc = initial_accumulator(lut, msed_body, trunc_acc)
     for i in range(msed_mask.shape[1]):
-        a_i = msed_mask[:, i, None, None]
-        ct1 = monomial_mul(acc, a_i) - acc
-        prod = external_product(ct1, bsk_ntt[i], dp, base_log, levels)
+        prod = _cmux_product(acc, msed_mask[:, i], bsk_ntt[i], dp, base_log, levels)
         acc = acc + (_round_to_hi32(prod) if trunc_acc else prod)
+    return acc
+
+
+def _cmux_product(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
+    """GGSW (x) (acc * X^a - acc), a per batch element: (B,)."""
+    ct1 = monomial_mul(acc, a_col[:, None, None]) - acc
+    return external_product(ct1, ggsw, dp, base_log, levels)
+
+
+def cmux_step(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
+    """One exact CMux step of the classic blind rotation on an initialised
+    accumulator (B, k+1, N): acc + GGSW (x) (acc * X^a - acc), a_col (B,)
+    in [0, 2N), ggsw (l, k+1, k+1, P, N).  The plain version of K2's
+    single-step entry (kernels.cmux_step): the function of tfhe_tpu's
+    build_cmux_step Pallas kernel (tfhe_tpu/ops/pallas_ntt.py:296)."""
+    return acc + _cmux_product(acc, a_col, ggsw, dp, base_log, levels)
+
+
+def blind_rotate_stepwise(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
+                          base_log: int, levels: int):
+    """The exact blind rotation one CMux step a launch, through K2's
+    single-step entry (tfhe_tpu/ops/server.py:488 blind_rotate_pallas): the
+    initial monomial division, then ``kernels.cmux_step`` for each mask
+    element.  Arguments and result as ``blind_rotate`` in exact mode."""
+    acc = initial_accumulator(lut, msed_body, False).contiguous()
+    for i in range(msed_mask.shape[1]):
+        acc = kernels.cmux_step(acc, msed_mask[:, i], bsk_ntt[i], dp, base_log, levels)
     return acc
 
 

@@ -1,6 +1,6 @@
 """shortint on PyTorch: keygen and encryption on the host, the batched
-KS->PBS and ciphertext compression on the device (port of tfhe_tpu.shortint,
-classic and multi-bit KS->PBS sets)."""
+KS->PBS, ciphertext compression and noise squashing on the device (port of
+tfhe_tpu.shortint, classic and multi-bit KS->PBS sets)."""
 
 from .ciphertext import Ciphertext
 from .client_key import ClientKey
@@ -11,6 +11,14 @@ from .compression import (
     CompressionKey,
     CompressionParameters,
     decompress,
+)
+from .noise_squashing import (
+    TEST_NOISE_SQUASHING_PARAM,
+    V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    NoiseSquashingKey,
+    NoiseSquashingParams,
+    NoiseSquashingPrivateKey,
+    SquashedNoiseCiphertext,
 )
 from .params import (
     DEFAULT_PARAMS,

@@ -263,11 +263,12 @@ class EncryptionRandomGenerator:
         return obj
 
     def fork(self, n_children: int, mask_elements: int, noise_elements: int,
-             noise_distribution) -> list["EncryptionRandomGenerator"]:
+             noise_distribution, bits: int = 64) -> list["EncryptionRandomGenerator"]:
         """Fork both sub-streams; byte budgets follow the reference fork configs
-        (mask: 8 bytes per u64 element; noise: distribution-dependent
+        (mask: bits / 8 bytes per element of the bits-wide torus, 8 for u64,
+        16 for the u128 noise-squashing key; noise: distribution-dependent
         per-sample budget)."""
-        mask_bytes = mask_elements * 8
+        mask_bytes = mask_elements * (bits // 8)
         noise_bytes = noise_elements * noise_distribution.sample_bytes()
         mask_children = self.mask.fork(n_children, mask_bytes)
         noise_children = self.noise.fork(n_children, noise_bytes)
