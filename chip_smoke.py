@@ -9,9 +9,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
-     sm_90a, one compiler per source, started together);
+     sm_90a, one compiler per source, started together); then K2's and K3's
+     sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
+     spills and shared memory (line "ptxas"), with the rounded-key
+     kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
-     BSK, so the server key runs the v7 blind rotation) and key upload;
+     BSK, so the server key runs the v7 blind rotation, on a three-prime
+     rounded key built on the card) and key upload;
   4. serve: three rounds of ServerKey.apply_lookup_table_batch at B = 512
      with LUT (3x+1) % 16, then one chained round on the device-resident
      outputs, profiled after a warm-up run of it; every output is
@@ -49,26 +53,35 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      on both paths' own B = 512 inputs and at phase 10's B = 1 on both
      keys, and phase 10's 512 stored values on each key against the plain
      keyswitch and modulus switch; K2 on the classic path's B = 512 inputs
-     in v7 mode and in exact mode (unrounded key, which must differ from
+     in v7 mode (the rounded-key route against the plain three-prime
+     rotation) and in exact mode (unrounded key, which must differ from
      the rounded one), with phase 10's classic outputs against the plain
-     rotation, and at B = 4 over the full n = 918 in both modes and in
-     exact mode on the rounded key (the function of tfhe_tpu's v3/v4
-     kernels), for the 2_2 shape (its specialised instance) and for
-     k + 1 = 2, l = 2 on a random key (its generic instance); K2 in v7 mode
-     at the decompression shape (n = 1024) on all 512 of phase 7's inputs
-     and on its B = 3 subset, with phase 7's outputs against the plain
-     rotation; K3 on the multi-bit path's own B = 512 inputs in v9 mode and
-     in exact mode (unrounded key), with phase 10's multi-bit outputs
-     against the plain rotation, at tfhe_tpu's GROUP_2 shape (g = 2,
-     n = 918) in both modes on a random key, and its generic instance at
-     the GROUP_3 shape (l = 2) in exact mode, where v9 mode must refuse the
-     shape; K4 on phase 6's 512 inputs and at four smaller shapes on random
+     rotation, and at B = 4 over the full n = 918 in both modes, in v7 mode
+     also against the four-prime v7 rotation on round_bsk(bsk, 15), and in
+     exact mode on that four-prime rounded key (the function of tfhe_tpu's
+     v3/v4 kernels), and in exact mode for k + 1 = 2, l = 2 on a random
+     key (its generic instance); v7 mode must refuse a four-prime key on
+     the card; the v7 route at the ragged batches B = 1, 3, 5, 513 over
+     64 steps and on a four-prime rounded key (rb = 4, the CRT bound's
+     fallback); K2 in v7
+     mode at the decompression shape (n = 1024) on all 512 of phase 7's
+     inputs and on its B = 3 subset (also against the four-prime v7
+     rotation), with phase 7's outputs against the plain rotation; K3 on
+     the multi-bit path's own B = 512 inputs in v9 mode (the first 4 also
+     against the four-prime v9 rotation on the rounded key; the ragged
+     batches over 8 groups; a four-prime rounded key) and in exact mode
+     (unrounded key), with phase 10's multi-bit outputs against the plain
+     rotation, at tfhe_tpu's GROUP_2 shape (g = 2, n = 918) on random
+     keys in exact mode and in v9 mode (a rounded key, four patterns a
+     group), and its generic instance at the GROUP_3 shape (l = 2) in
+     exact mode, where v9 mode must refuse a rounded and a four-prime key;
+     K4 on phase 6's 512 inputs and at four smaller shapes on random
      keys; K5 on phase 12's own 512 inputs against phase 12's outputs and,
      for the first K5_PLAIN_BATCH, against the plain u128 rotation, and at
      the TEST squashing shape (k + 1 = 2, N = 512, its generic instance) on
      a random key; K2's step entry: phase 13's rotation against the whole
-     K2 rotation and the plain one, and one step at B = 512; times of each
-     kernel in each mode, its plain version and, for K1, the int8-limb
+     K2 rotation and the plain one, one step at B = 512 and at the ragged
+     batches; times of each kernel in each mode, its plain version and, for K1, the int8-limb
      torch._int_mm formulation the TPU uses (a yardstick the port never
      calls);
  15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13, the script's
@@ -100,15 +113,21 @@ BATCH = 512
 ROUNDS = 3
 CHECK_BATCH = 4           # the random-input checks at full n
 K2_GENERIC_LEVELS = 2     # l != 1 takes K2's generic (run-time shape) instance
-# CRT primes the blind rotation needs on this key: tfhe_tpu's v7 kernel runs
-# three on the 2^15-rounded key (tfhe_tpu/ops/mxu.py:253), the exact
-# rotation four.  K2 runs four in both modes; the bound counts what the
-# function needs.
+# CRT primes the blind rotation needs on this key: three on the quotients of
+# the 2^15-rounded key (tfhe_tpu's v7 kernel, tfhe_tpu/ops/mxu.py:253; K2's
+# rounded-key route, ops/bsk_prep.py crt_prime_count), four for the exact
+# rotation.  The bound counts what the function needs.
 V7_PRIMES = 3
 EXACT_PRIMES = 4
 # tfhe_tpu's v9 kernel runs three primes on the rb-rounded multi-bit key
-# (tfhe_tpu/shortint/server_key.py:183-203)
+# (tfhe_tpu/shortint/server_key.py:183-203), as K3's rounded-key route does
 V9_PRIMES = 3
+# batches that the rounded-key kernels' C ciphertexts a block do not divide
+# (or that leave the last block part-filled), and the steps (groups) of the
+# key they run over, against the plain rotations
+RAGGED_BATCHES = (1, 3, 5, 513)
+RAGGED_STEPS = 64
+RAGGED_GROUPS = 8
 # tfhe_tpu's MXU four-step split N = N1 * N2 (tfhe_tpu/ops/mxu.py:8)
 FOUR_STEP_N1 = 128
 # CRT primes an exact packing keyswitch needs: |X| < 8 2^64 N n l < 2^88 at
@@ -331,6 +350,86 @@ def random_ntt_key(shape, dp, gen):
          for q in dp.plan.primes], dim=-2).to(torch.int32)
 
 
+def key_bytes(key) -> int:
+    """Device bytes of an NTT-domain key: an exact int32 tensor or a
+    RoundedKeyNtt."""
+    return key.nbytes if hasattr(key, "round_bits") else key.numel() * 4
+
+
+def four_prime_rounded_key(coeff, round_bits: int, dp):
+    """The exact-layout four-prime NTT key of round_bsk(coeff, rb), built on
+    the card: the key K2 and K3 ran v7 and v9 mode on before the
+    rounded-key routes (the NTT of the rounded u64 words, not of their
+    quotients).  The rounded-key routes must give its words."""
+    import numpy as np
+    import torch
+    from tfhe_tpu_torch.ops import ntt
+
+    data = np.asarray(getattr(coeff, "data", coeff))
+    flat = data.reshape(-1, data.shape[-1])
+    out = torch.empty((flat.shape[0], dp.num_primes, dp.n), dtype=torch.int32,
+                      device=dp.psi.device)
+    half, mask = 1 << (round_bits - 1), (1 << round_bits) - 1
+    step = 1 << 11
+    for s in range(0, flat.shape[0], step):
+        w = torch.from_numpy(np.ascontiguousarray(flat[s:s + step]).view(np.int64)).to(out.device)
+        w = (w + half) & ~mask
+        res = torch.stack([(torch.remainder(w, q) + torch.where(w < 0, (1 << 64) % q, 0)) % q
+                           for q in dp.plan.primes], dim=-2)
+        out[s:s + step] = ntt.mont_mul(ntt.ntt_forward(res, dp), dp.r2s, dp.ps,
+                                       dp.pinvs).to(torch.int32)
+    return out.reshape(data.shape[:-1] + (dp.num_primes, dp.n))
+
+
+def head_of(key, lead: tuple):
+    """The first GGSWs of a RoundedKeyNtt, as a key of that many steps
+    (groups)."""
+    import dataclasses
+    import math
+
+    return dataclasses.replace(key, data=key.data[:math.prod(lead)], lead=lead)
+
+
+def ptxas_report(kernels) -> dict:
+    """Registers, spills and static shared memory of K2's and K3's kernels
+    as ``nvcc -Xptxas -v`` reports them (one compiler per source, started
+    together; the libraries are thrown away), and the rounded-key kernels'
+    dynamic shared memory and ciphertexts a block."""
+    import re
+    import tempfile
+    from tfhe_tpu_torch.utils.build import CSRC
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=CSRC.parents[1] / "build") as tmp:
+        procs = [(name, subprocess.Popen(
+            kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
+                                      str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name in ("blind_rotate", "blind_rotate_multibit")]
+        for name, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v of {name}.cu failed:\n{log}")
+            fn = None
+            for line in log.splitlines():
+                m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+                if m:
+                    fn = m.group(1)
+                    continue
+                if fn is None or "_kernel" not in fn:
+                    continue
+                entry = out.setdefault(fn, {})
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    entry["spill_store_bytes"], entry["spill_load_bytes"] = map(int, m.groups())
+                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+                if m:
+                    entry["registers"], entry["static_smem_bytes"] = map(int, m.groups())
+    for nprimes in (3, 4):
+        out[f"rounded_{nprimes}_primes"] = kernels.rounded_kernel_shape(nprimes)
+    return out
+
+
 def kernel_ms_by_name(prof, names) -> dict:
     """Mean device milliseconds per launch of each named kernel in a
     torch.profiler trace (None where the trace shows no device time)."""
@@ -411,7 +510,8 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     # same round comes first: a trace's first step can miss kernels.  The
     # recorded step's kernel times are read when the profiler hands it over.
     shifted = [sk.unchecked_scalar_add(ct, 5) for ct in outs[-1]]
-    names = ("keyswitch_kernel", "blind_rotate_kernel", "blind_rotate_multibit_kernel")
+    names = ("keyswitch_kernel", "blind_rotate_kernel", "blind_rotate_multibit_kernel",
+             "blind_rotate_rounded_kernel", "blind_rotate_multibit_rounded_kernel")
     per_launch = dict.fromkeys(names)
     trace = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
@@ -443,8 +543,10 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
         "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
         "chained_round_seconds_traced": chained_s,
         "k1_ms_traced_round": per_launch["keyswitch_kernel"],
-        "k2_ms_traced_round": per_launch["blind_rotate_kernel"],
-        "k3_ms_traced_round": per_launch["blind_rotate_multibit_kernel"],
+        "k2_ms_traced_round": (per_launch["blind_rotate_rounded_kernel"]
+                               or per_launch["blind_rotate_kernel"]),
+        "k3_ms_traced_round": (per_launch["blind_rotate_multibit_rounded_kernel"]
+                               or per_launch["blind_rotate_multibit_kernel"]),
         "launches": launches, "outputs_checked": (ROUNDS + 1) * BATCH,
         "wrong": wrong}}
 
@@ -494,7 +596,7 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script runs only on a CUDA card")
 
-    from tfhe_tpu_torch.ops import kernels, ntt, server, server128, torus
+    from tfhe_tpu_torch.ops import bsk_prep, kernels, ntt, server, server128, torus
     from tfhe_tpu_torch.shortint import (
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as GROUP_3,
         V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as MB_PARAMS,
@@ -523,6 +625,9 @@ def main() -> None:
     kernels.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": kernels.source_paths()})
+    t0 = time.perf_counter()
+    emit({"phase": "ptxas", "nvcc_flags": "-Xptxas -v", "kernels": ptxas_report(kernels),
+          "seconds": time.perf_counter() - t0})
 
     # 3. keygen and key upload
     p = PARAMS
@@ -531,15 +636,16 @@ def main() -> None:
     sk = ServerKey(ck, seed=args.seed + 1, device="cuda")
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
-    if not sk.trunc_acc:
-        raise RuntimeError("the production 2_2 key did not select v7 mode")
+    if not sk.trunc_acc or sk.bsk_ntt.num_primes != V7_PRIMES:
+        raise RuntimeError("the production 2_2 key did not select v7 mode on three primes")
     emit({"phase": "keygen", "params": "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
           "n": p.lwe_dimension, "N": p.polynomial_size, "k": p.glwe_dimension,
           "pbs_level": p.pbs_level, "pbs_base_log": p.pbs_base_log,
           "ks_level": p.ks_level, "ks_base_log": p.ks_base_log,
           "bsk_floored": sk._bsk_floored, "v7_mode": sk.trunc_acc,
           "seconds": keygen_s,
-          "device_key_bytes": sk.ksk.numel() * 8 + sk.bsk_ntt.numel() * 4})
+          "bsk_primes": sk.bsk_ntt.num_primes,
+          "device_key_bytes": sk.ksk.numel() * 8 + key_bytes(sk.bsk_ntt)})
 
     # 4. serve on the classic key
     served = serve_rounds(ck, sk, args.seed, kernels)
@@ -560,9 +666,11 @@ def main() -> None:
           "params": "V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
           "seconds": time.perf_counter() - t0, "br_floored": dk._bsk_floored,
           "v7_mode": dk.trunc_acc, "pksk_device_bytes": ckey.pksk.numel() * 8,
-          "decompression_key_device_bytes": dk.bsk_ntt.numel() * 4})
-    if dk._bsk_floored != 15 or not dk.trunc_acc:
-        raise RuntimeError("the decompression key was not floored at 15 or not in v7 mode")
+          "decompression_key_primes": dk.bsk_ntt.num_primes,
+          "decompression_key_device_bytes": key_bytes(dk.bsk_ntt)})
+    if dk._bsk_floored != 15 or not dk.trunc_acc or dk.bsk_ntt.num_primes != V7_PRIMES:
+        raise RuntimeError("the decompression key was not floored at 15 or not in v7 mode "
+                           "on three primes")
 
     # 6. compress the chained round's device-resident outputs (K4)
     chained, chained_want = served["chained"], served["chained_want"]
@@ -607,9 +715,10 @@ def main() -> None:
           "pbs_base_log": mp.pbs_base_log, "ks_level": mp.ks_level,
           "ks_base_log": mp.ks_base_log, "mb_floored": msk._bsk_floored,
           "v9_mode": msk.trunc_acc, "seconds": mb_keygen_s,
-          "device_key_bytes": msk.ksk.numel() * 8 + msk.bsk_ntt.numel() * 4})
-    if not msk.trunc_acc:
-        raise RuntimeError("the GROUP_4 multi-bit key did not select v9 mode")
+          "bsk_primes": msk.bsk_ntt.num_primes,
+          "device_key_bytes": msk.ksk.numel() * 8 + key_bytes(msk.bsk_ntt)})
+    if not msk.trunc_acc or msk.bsk_ntt.num_primes != V9_PRIMES:
+        raise RuntimeError("the GROUP_4 multi-bit key did not select v9 mode on three primes")
 
     # 9. serve on the multi-bit key
     mb_served = serve_rounds(mck, msk, args.seed + 12, kernels)
@@ -740,14 +849,18 @@ def main() -> None:
     k2_bound_v7 = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, V7_PRIMES)
     k2_bound_exact = k2_bound(mask, lut_b, p.pbs_level, p.pbs_base_log, EXACT_PRIMES)
 
-    # K2 in exact mode on the rounded key (the function of tfhe_tpu's v3/v4
-    # kernels), same inputs
-    k2_rounded_exact_ms = cuda_ms(lambda: kernels.blind_rotate(*br_args[:7], False), 3)
+    # the four-prime NTT key of round_bsk(bsk, 15): K2 in exact mode on it is
+    # the function of tfhe_tpu's v3/v4 kernels (same inputs), and the
+    # rounded-key route must give the words of the four-prime v7 rotation on it
+    rounded4 = four_prime_rounded_key(sk._bsk_coeff, sk.bsk_ntt.round_bits, sk.dp)
+    k2_rounded_exact_ms = cuda_ms(
+        lambda: kernels.blind_rotate(*br_args[:3], rounded4, *br_args[4:7], False), 3)
 
-    # K2 at B = 4, full n, random inputs, in both modes and in exact mode on
-    # the rounded key
+    # K2 at B = 4, full n, random inputs, in both modes, in exact mode on
+    # the rounded key, and the rounded-key route against the four-prime v7
+    # rotation on the rounded key
     bsk_exact = sk.exact_bsk_ntt()
-    if torch.equal(bsk_exact, sk.bsk_ntt):
+    if hasattr(bsk_exact, "round_bits") or not hasattr(sk.bsk_ntt, "round_bits"):
         raise RuntimeError("exact_bsk_ntt gave the rounded classic key")
     n_poly = p.polynomial_size
     chk = np.random.default_rng(args.seed + 2)
@@ -777,14 +890,44 @@ def main() -> None:
     for mode, key, levels, trunc in (
             ("v7", sk.bsk_ntt, p.pbs_level, True),
             ("exact", bsk_exact, p.pbs_level, False),
-            ("rounded_exact", sk.bsk_ntt, p.pbs_level, False),
-            ("generic_v7", bsk_generic, K2_GENERIC_LEVELS, True),
+            ("rounded_exact", rounded4, p.pbs_level, False),
             ("generic_exact", bsk_generic, K2_GENERIC_LEVELS, False)):
         a = (m4, b4, l4, key, sk.dp, p.pbs_base_log, levels, trunc)
         got, want = kernels.blind_rotate(*a), server.blind_rotate(*a)
         torch.cuda.synchronize()
         errs[f"k2_{mode}_b4"] = max_abs_err(got, want)
-    del bsk_generic
+        if mode == "v7":
+            errs["k2_v7_vs_four_prime_rounded_b4"] = max_abs_err(got, server.blind_rotate(
+                m4, b4, l4, rounded4, sk.dp, p.pbs_base_log, levels, True))
+    # v7 mode on the card takes only the rounded key: a four-prime one is refused
+    try:
+        kernels.blind_rotate(m4, b4, l4, rounded4, sk.dp, p.pbs_base_log, p.pbs_level, True)
+        raise RuntimeError("K2 ran v7 mode on a four-prime key")
+    except ValueError as exc:
+        k2_v7_four_prime_refused = str(exc)
+    del bsk_generic, rounded4
+    # the rounded-key route over RAGGED_STEPS steps at batches its C
+    # ciphertexts a block do not fill, and on a four-prime rounded key (the
+    # CRT bound's fallback: rb = 4 at this base_log)
+    ragged_key = head_of(sk.bsk_ntt, (RAGGED_STEPS,))
+    for b in RAGGED_BATCHES:
+        a = (torch.from_numpy(chk.integers(0, 2 * n_poly, (b, RAGGED_STEPS))).to(dev),
+             torch.from_numpy(chk.integers(0, 2 * n_poly, (b,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (b, p.glwe_dimension + 1, n_poly),
+                                         dtype=np.uint64), dev),
+             ragged_key, sk.dp, p.pbs_base_log, p.pbs_level, True)
+        errs[f"k2_v7_ragged_b{b}"] = max_abs_err(kernels.blind_rotate(*a), server.blind_rotate(*a))
+    coeff_head = sk._bsk_coeff.data[:RAGGED_STEPS]
+    key4 = bsk_prep.rounded_key_ntt(coeff_head, 4, p.pbs_base_log, dev)
+    if key4.num_primes != 4:
+        raise RuntimeError("the CRT bound did not keep four primes at rb = 4")
+    a = (m4[:3, :RAGGED_STEPS], b4[:3], l4[:3], key4, sk.dp, p.pbs_base_log, p.pbs_level, True)
+    errs["k2_v7_four_prime_fallback_b3"] = max_abs_err(kernels.blind_rotate(*a),
+                                                       server.blind_rotate(*a))
+    errs["k2_v7_four_prime_fallback_vs_rounded_key_b3"] = max_abs_err(
+        kernels.blind_rotate(*a), server.blind_rotate(
+            *a[:3], four_prime_rounded_key(coeff_head, 4, sk.dp), *a[4:]))
+    del ragged_key, key4
 
     # K2 in v7 mode at the decompression shape (n = k_c N_c = 1024) on all
     # 512 of phase 7's switched inputs, against the plain version (its time
@@ -814,6 +957,11 @@ def main() -> None:
     errs["k2_decompression_v7_b3"] = max_abs_err(kernels.blind_rotate(*sub_args), sub_want)
     errs["k2_decompression_subset_outputs_b3"] = max_abs_err(
         upload_batch([c.data for c in sub_outs], dev), server.sample_extract(sub_want))
+    # and the four-prime v7 rotation on the rounded decompression key
+    dec4 = four_prime_rounded_key(dk._bsk_coeff, dk.bsk_ntt.round_bits, dk.dp)
+    errs["k2_decompression_v7_vs_four_prime_rounded_b3"] = max_abs_err(
+        sub_want, server.blind_rotate(*sub_args[:3], dec4, *sub_args[4:]))
+    del dec4
     k2_dec_ms = cuda_ms(lambda: kernels.blind_rotate(*dec_args), 3)
     k2_dec_bound = k2_bound(msed[:, :-1], lut_id, cp.br_level, cp.br_base_log, V7_PRIMES)
 
@@ -847,10 +995,43 @@ def main() -> None:
     del k3_want
     k3_ms = cuda_ms(lambda: kernels.blind_rotate_multibit(*k3_args, v9=True), 3)
     k3_bound_v9 = k3_bound(degrees, lut_mb, mp.pbs_level, mp.pbs_base_log, V9_PRIMES, True)
+    # the first CHECK_BATCH of them against the four-prime v9 rotation on
+    # round_bsk(key, rb), the key K3 ran v9 mode on before the rounded-key route
+    mb4 = four_prime_rounded_key(msk._bsk_coeff, msk.bsk_ntt.round_bits, msk.dp)
+    errs[f"k3_v9_vs_four_prime_rounded_b{CHECK_BATCH}"] = max_abs_err(
+        k3_got[:CHECK_BATCH], server.blind_rotate_multibit_v9(
+            degrees[:CHECK_BATCH], body[:CHECK_BATCH], lut_mb[:CHECK_BATCH], mb4, msk.dp,
+            mp.pbs_base_log, mp.pbs_level))
+    del mb4
+    # the rounded-key route over RAGGED_GROUPS groups at batches its C
+    # ciphertexts a block do not fill, and on a four-prime rounded key
+    # (rb = 4: the CRT bound's fallback)
+    ragged_key = head_of(msk.bsk_ntt, (RAGGED_GROUPS, 1 << mp.grouping_factor))
+    for b in RAGGED_BATCHES:
+        raw = torus.from_u64(chk.integers(0, 1 << 64, (b, RAGGED_GROUPS * mp.grouping_factor),
+                                          dtype=np.uint64), dev)
+        a = (server.multibit_switched_degrees(raw, mp.grouping_factor, log_mod),
+             torch.from_numpy(chk.integers(0, 2 * n_poly, (b,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (b, mp.glwe_dimension + 1, n_poly),
+                                         dtype=np.uint64), dev),
+             ragged_key, msk.dp, mp.pbs_base_log, mp.pbs_level)
+        errs[f"k3_v9_ragged_b{b}"] = max_abs_err(kernels.blind_rotate_multibit(*a, v9=True),
+                                                 server.blind_rotate_multibit_v9(*a))
+    coeff_head = msk._bsk_coeff[:RAGGED_GROUPS]
+    key4 = bsk_prep.rounded_key_ntt(coeff_head, 4, mp.pbs_base_log, dev, mp.grouping_factor)
+    if key4.num_primes != 4:
+        raise RuntimeError("the multi-bit CRT bound did not keep four primes at rb = 4")
+    a = (a[0][:3], a[1][:3], a[2][:3], key4, msk.dp, mp.pbs_base_log, mp.pbs_level)
+    got = kernels.blind_rotate_multibit(*a, v9=True)
+    errs["k3_v9_four_prime_fallback_b3"] = max_abs_err(got, server.blind_rotate_multibit_v9(*a))
+    errs["k3_v9_four_prime_fallback_vs_rounded_key_b3"] = max_abs_err(
+        got, server.blind_rotate_multibit_v9(
+            *a[:3], four_prime_rounded_key(coeff_head, 4, msk.dp), *a[4:]))
+    del ragged_key, key4
 
     # K3 in exact mode on the same B = 512 inputs and the unrounded key
     mb_exact = msk.exact_bsk_ntt()
-    if torch.equal(mb_exact, msk.bsk_ntt):
+    if hasattr(mb_exact, "round_bits") or not hasattr(msk.bsk_ntt, "round_bits"):
         raise RuntimeError("exact_bsk_ntt gave the rounded multi-bit key")
     k3_exact_args = k3_args[:3] + (mb_exact,) + k3_args[4:]
     k3_exact_got = kernels.blind_rotate_multibit(*k3_exact_args, v9=False)
@@ -875,31 +1056,38 @@ def main() -> None:
     del mb_exact
 
     # K3 at other shapes on random keys and inputs: tfhe_tpu's GROUP_2 set
-    # (g = 2, n = 918; the specialised instance) in both modes, and the
-    # GROUP_3 shape (l = 2: the generic instance) in exact mode, the only
-    # mode that set runs on the card; v9 mode must refuse its shape
+    # (g = 2, n = 918) in exact mode (the specialised instance) and in v9
+    # mode on a rounded key (rb = mb_round_bits, its rounded-key kernel at
+    # four patterns a group), and the GROUP_3 shape (l = 2: the generic
+    # instance) in exact mode, the only mode that set runs on the card; v9
+    # mode must refuse a rounded key of its shape and, on the card, a
+    # four-prime key
     k3_shapes = {}
-    for tag, q, base_log, modes in (("tpu_group_2", TPU_GROUP_2, TPU_GROUP_2.pbs_base_log,
-                                     (True, False)),
-                                    ("generic_group_3", GROUP_3, GROUP_3.pbs_base_log,
-                                     (False,))):
+    for tag, q, base_log in (("tpu_group_2", TPU_GROUP_2, TPU_GROUP_2.pbs_base_log),
+                             ("generic_group_3", GROUP_3, GROUP_3.pbs_base_log)):
         g, n_groups = q.grouping_factor, q.lwe_dimension // q.grouping_factor
         key = random_ntt_key((n_groups, 1 << g, q.pbs_level, 2, 2), msk.dp, gen)
         raw = torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, q.lwe_dimension),
                                           dtype=np.uint64), dev)
         deg_q = server.multibit_switched_degrees(raw, g, log_mod)
         a = (deg_q, b4, l4, key, msk.dp, base_log, q.pbs_level)
-        for v9 in modes:
-            plain = server.blind_rotate_multibit_v9 if v9 else server.blind_rotate_multibit
-            got = kernels.blind_rotate_multibit(*a, v9=v9)
-            errs[f"k3_{tag}_{'v9' if v9 else 'exact'}_b4"] = max_abs_err(got, plain(*a))
-        if tag == "generic_group_3":
-            try:
-                kernels.blind_rotate_multibit(*a, v9=True)
-                raise RuntimeError("K3 took a v9 shape beyond its shared memory")
-            except ValueError as exc:
-                k3_shapes["group_3_v9_refused"] = str(exc)
-        del key
+        errs[f"k3_{tag}_exact_b4"] = max_abs_err(kernels.blind_rotate_multibit(*a, v9=False),
+                                                 server.blind_rotate_multibit(*a))
+        rounded_q = bsk_prep.rounded_key_ntt(
+            chk.integers(0, 1 << 64, (n_groups, 1 << g, q.pbs_level, 2, 2, n_poly),
+                         dtype=np.uint64), bsk_prep.mb_round_bits(q), base_log, dev, g)
+        a = (deg_q, b4, l4, rounded_q, msk.dp, base_log, q.pbs_level)
+        if tag == "tpu_group_2":
+            errs[f"k3_{tag}_v9_b4"] = max_abs_err(kernels.blind_rotate_multibit(*a, v9=True),
+                                                  server.blind_rotate_multibit_v9(*a))
+        else:
+            for refused, args_q in (("rounded_key", a), ("four_prime_key", a[:3] + (key,) + a[4:])):
+                try:
+                    kernels.blind_rotate_multibit(*args_q, v9=True)
+                    raise RuntimeError(f"K3 took v9 mode on a {refused} at l = 2")
+                except ValueError as exc:
+                    k3_shapes[f"group_3_v9_{refused}_refused"] = str(exc)
+        del key, rounded_q
 
     # K5 on the squash phase's own inputs (the plain keyswitch and modulus
     # switch of the chained outputs): all 512 against the phase's outputs,
@@ -950,6 +1138,13 @@ def main() -> None:
     step_args = (st_args[0][:, 0], st_args[3][0]) + st_args[4:]
     errs["k2_step_single_b512"] = max_abs_err(kernels.cmux_step(acc0.clone(), *step_args),
                                               server.cmux_step(acc0, *step_args))
+    for b in RAGGED_BATCHES:
+        acc_b = torus.from_u64(chk.integers(0, 1 << 64, (b, glwe_size, n_poly),
+                                            dtype=np.uint64), dev)
+        a_b = torch.from_numpy(chk.integers(0, 2 * n_poly, (b,))).to(dev)
+        errs[f"k2_step_ragged_b{b}"] = max_abs_err(
+            kernels.cmux_step(acc_b.clone(), a_b, *step_args[1:]),
+            server.cmux_step(acc_b, a_b, *step_args[1:]))
     k2_step_ms = cuda_ms(lambda: kernels.cmux_step(acc0, *step_args), 10)
     k2_step_plain_ms = cuda_ms(lambda: server.cmux_step(acc0, *step_args), 3)
     k2_step_bound = k2_bound(st_args[0][:, :1], st_args[2], p.pbs_level, p.pbs_base_log,
@@ -957,7 +1152,8 @@ def main() -> None:
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
-          "k2_generic_levels": K2_GENERIC_LEVELS, **k3_shapes})
+          "k2_generic_levels": K2_GENERIC_LEVELS,
+          "k2_v7_four_prime_key_refused": k2_v7_four_prime_refused, **k3_shapes})
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
@@ -969,7 +1165,7 @@ def main() -> None:
           "squash": sq_launches, "stepwise": st_launches})
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
-    emit({"kernels": [
+    table = [
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
@@ -1092,7 +1288,17 @@ def main() -> None:
          "bound_four_step_int8_ms": k2_step_bound["four_step_ms"],
          "bound_bytes_ms": k2_step_bound["bytes_ms"],
          "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
-    ]})
+    ]
+    # the rounded-key routes: primes and ciphertexts a block
+    for entry, key in ((table[1], sk.bsk_ntt), (table[2], msk.bsk_ntt), (table[3], dk.bsk_ntt)):
+        entry["primes"] = key.num_primes
+        entry.update(kernels.rounded_kernel_shape(key.num_primes))
+    for entry in table:
+        entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        if "exact_mode_ms" in entry:
+            entry["exact_mode_share_of_bound"] = (entry["exact_mode_bound_ms"]
+                                                  / entry["exact_mode_ms"])
+    emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

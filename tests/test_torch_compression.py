@@ -345,7 +345,10 @@ def test_exact_key_in_v7_and_v9_mode_is_the_unrounded_key(server_keys, monkeypat
     exact = forced.exact_bsk_ntt()
     want = rsk.mb_bsk_mont if psk.grouping is not None else rsk.bsk_mont
     assert (exact.numpy().view(np.uint32) == np.asarray(want)).all()
-    assert torch.equal(exact, psk.bsk_ntt) and not torch.equal(exact, forced.bsk_ntt)
+    assert torch.equal(exact, psk.bsk_ntt)
+    # the rounds' key is the rounded kernel-layout key, not the exact one
+    assert isinstance(forced.bsk_ntt, bsk_prep.RoundedKeyNtt)
+    assert forced.bsk_ntt.round_bits == (18 if psk.grouping is not None else 15)
     assert forced.exact_bsk_ntt() is exact                      # built once, kept
 
 

@@ -1,40 +1,63 @@
-// K2: classic blind rotation over the exact 4-prime CRT-NTT, for sm_90a.
+// K2: classic blind rotation, for sm_90a.
 //
 // Replaces: tfhe_tpu/ops/pallas_mxu.py:1289 `build_blind_rotate_v5` in its v7
 // configuration (jfold, trunc_acc: the TPU production kernel; meaning
-// tfhe_tpu/ops/mxu.py:910 blind_rotate_mxu_trunc), and with trunc = 0
+// tfhe_tpu/ops/mxu.py:910 blind_rotate_mxu_trunc) and :1782
+// `build_blind_rotate_v8` (the same function for decompression), in the
+// rounded-key kernel; and, in the exact kernel,
 // tfhe_tpu/ops/pallas_ntt.py:794 `build_blind_rotate_v2` (the exact rotation,
-// meaning tfhe_tpu/ops/server.py:367 blind_rotate).  Plain version:
-// tfhe_tpu_torch/ops/server.py `blind_rotate`.
+// meaning tfhe_tpu/ops/server.py:367 blind_rotate), :456 `build_blind_rotate`,
+// :296 `build_cmux_step` (one step a launch) and, on a four-prime key of
+// round_bsk(bsk), pallas_mxu.py:428/:809 `build_blind_rotate_v3`/`_v4`.
+// Plain version: tfhe_tpu_torch/ops/server.py `blind_rotate`.
 //
 // For every batch element and every mask element a_i (i = 0 .. n-1):
 //   ct1  = acc * X^{a_i} - acc
 //   prod = sum_{lev, r} NTT^-1( NTT(residues(digit_lev(ct1_r))) . GGSW_i[lev][r] )
 //          reconstructed mod 2^64 with Garner
-//   acc += trunc ? round_to_2^32_grid(prod) : prod
-// The v7 key is the centered-rounded key (ops/bsk_prep.round_bsk) applied on
-// the host; on it the exact product equals the TPU's 3-prime rounded-key
-// product, so one kernel computes both TPU functions.
+//   acc += prod                        (exact kernel)
+//   acc += round_to_2^32_grid(prod)    (v7: the rounded-key kernel)
 //
-// What bounds it: per step and batch element, 2 * l(k+1)P size-N NTTs plus
-// the pointwise products and Garner: about 2.5e5 Montgomery products (three
-// 32-bit multiplies each), against a 128 KB key slice that every batch
-// element reads.  Integer multiply issue rate bounds it, not memory.
-// Design: one thread block per batch element, looping over the n steps
-// inside the kernel (the TPU's sequential grid axis becomes this loop;
-// batch elements share no state, so blocks never synchronise).  The
-// accumulator ((k+1) N u64) and the residues (l(k+1) P N u32) stay in shared
-// memory for the whole rotation: about 100 KB at the 2_2 set, so two blocks
-// fit on an SM.  Each NTT runs in passes of up to four radix-2 stages: a
-// thread loads the 16 elements one pass touches into registers, does the
-// four stages there and stores them back, so a transform costs three round
-// trips through shared memory and three barriers instead of eleven.  Rows
-// are padded by one word in 32 so that the strided loads of the passes do
-// not collide in shared-memory banks.  The prime count is a compile-time
-// constant.  The key slice is read from global memory in coalesced rows;
-// all blocks walk the steps in the same order, so it is served mostly from
-// L2.  Twiddles and constants come from the port's ops/ntt.py plan, uploaded
-// once.
+// The rounded-key kernel (v7; blind_rotate_rounded_kernel) runs on
+// ops/bsk_prep.py's RoundedKeyNtt: the NTT of the signed quotients
+// b' = round(b) / 2^15, N^-1 folded in, over three primes where the CRT
+// bound l (k+1) N 2^(base_log-1) 2^(63-rb) (2^83 at 2_2) stays below half
+// their product (2^89), else four.  Garner's word is shifted left by 15, so
+// it gives the words of the four-prime product on round_bsk(bsk, 15).
+//
+// What bounds it on the H100: integer issue.  A step of one ciphertext is
+// 12 NTTs of N = 2048 (2 digit rows and 2 output rows on 3 primes), 12 N
+// key products and 2 N Garner reconstructions, about 1.1e6 32-bit integer
+// instructions; the key (98 KB a step) comes from L2, the accumulator and
+// the residues never leave the SM.  The first design of v7 mode (the exact
+// kernel's: one ciphertext a block, four primes on round_bsk(bsk), nine
+// barriers a step, fully reduced Montgomery butterflies, the accumulator
+// as u64 in shared memory) spent a quarter of a step in the key product
+// and ran at 152.57 ms for B = 512 (NVIDIA H100 80GB HBM3, 700 W).
+// Design here: C = 2 ciphertexts a block of 512 threads (one block an SM:
+// 134,144 B of shared memory) share every key load (one 16-byte load
+// holds a position's l (k+1)^2 words); the accumulator keeps only its
+// high words (it lives on the 2^32 grid); the first forward pass takes the
+// rotation, the decomposition and the residues in registers, the last
+// forward pass the key product, the last inverse pass Garner, the shift
+// and the rounding, so a step is six passes over shared memory with a
+// barrier after each; lazy butterflies with Shoup twiddles
+// (ntt_common.cuh) halve the instructions of a butterfly.  The exact
+// kernel below keeps its design on four primes for the exact modes, which
+// must reproduce the unrounded product.
+//
+// Exact kernel (blind_rotate_kernel): one thread block per batch element,
+// looping over the n steps inside the kernel (the TPU's sequential grid
+// axis becomes this loop; batch elements share no state, so blocks never
+// synchronise).  The accumulator ((k+1) N u64) and the residues
+// (l (k+1) P N u32) stay in shared memory for the whole rotation: about
+// 100 KB at the 2_2 set, so two blocks fit on an SM.  Each NTT runs in
+// passes of up to four radix-2 stages in registers.  Rows are padded by
+// one word in 32 so that the strided loads of the passes do not collide
+// in shared-memory banks.  The key slice is read from global memory in
+// coalesced rows; all blocks walk the steps in the same order, so it is
+// served mostly from L2.  Twiddles and constants come from the port's
+// ops/ntt.py plan, uploaded once.
 
 #include "ntt_common.cuh"
 
@@ -55,7 +78,7 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
                     const u32* __restrict__ bsk, const u32* __restrict__ psi,
                     const u32* __restrict__ psi_inv,
                     const long long* __restrict__ consts_g, int n_steps, int k1_arg,
-                    int log_n, int levels_arg, int base_log, int trunc) {
+                    int log_n, int levels_arg, int base_log) {
   const int k1 = K1T > 0 ? K1T : k1_arg;
   const int levels = LVT > 0 ? LVT : levels_arg;
   extern __shared__ u64 smem[];
@@ -146,11 +169,10 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
     // 4. inverse NTT of the (k+1) P output polynomials (N^-1 folded into 5)
     inverse_ntt(res, out_polys, log_n, row, psi_inv, c);
 
-    // 5. scale by N^-1, Garner to u64, optional 2^32-grid rounding, accumulate
+    // 5. scale by N^-1, Garner to u64, accumulate
     for (int q = tid; q < coeffs; q += THREADS) {
       const int cpoly = q >> log_n;
-      const u64 x = garner_u64(res + cpoly * NP * row + pad(q & (n_poly - 1)), row, c);
-      acc[q] += trunc ? round_hi32(x) : x;
+      acc[q] += garner_u64(res + cpoly * NP * row + pad(q & (n_poly - 1)), row, c);
     }
     __syncthreads();
   }
@@ -169,7 +191,7 @@ namespace {
 template <int K1T, int LVT>
 cudaError_t launch(long long* acc, const int* mask, const u32* bsk, const u32* psi,
                    const u32* psi_inv, const long long* consts, int batch, int n_steps,
-                   int k1, int log_n, int levels, int base_log, int trunc, int smem,
+                   int k1, int log_n, int levels, int base_log, int smem,
                    cudaStream_t stream) {
   auto kernel = blind_rotate_kernel<K1T, LVT>;
   cudaError_t err =
@@ -180,7 +202,7 @@ cudaError_t launch(long long* acc, const int* mask, const u32* bsk, const u32* p
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<batch, THREADS, smem, stream>>>(acc, mask, bsk, psi, psi_inv, consts, n_steps,
-                                           k1, log_n, levels, base_log, trunc);
+                                           k1, log_n, levels, base_log);
   return cudaGetLastError();
 }
 
@@ -190,7 +212,7 @@ extern "C" int tfhe_torch_blind_rotate(void* acc, const void* mask, const void* 
                                        const void* psi, const void* psi_inv,
                                        const void* consts, int batch, int n_steps,
                                        int k1, int log_n, int levels, int nprimes,
-                                       int base_log, int trunc, void* stream) {
+                                       int base_log, void* stream) {
   if (nprimes != NP || k1 < 1 || k1 > MAXK1 || levels < 1 ||
       levels > MAX_LEVELS || base_log < 1 || base_log * levels >= 64 ||
       log_n < 1 || log_n > 16 || batch < 1) {
@@ -200,5 +222,92 @@ extern "C" int tfhe_torch_blind_rotate(void* acc, const void* mask, const void* 
   auto run = (k1 == 2 && levels == 1) ? launch<2, 1> : launch<0, 0>;
   return (int)run((long long*)acc, (const int*)mask, (const u32*)bsk, (const u32*)psi,
                   (const u32*)psi_inv, (const long long*)consts, batch, n_steps, k1,
-                  log_n, levels, base_log, trunc, smem, (cudaStream_t)stream);
+                  log_n, levels, base_log, smem, (cudaStream_t)stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// v7 mode on a rounded kernel-layout key (ops/bsk_prep.py RoundedKeyNtt):
+// NPT = 3 primes (4 where the CRT bound asks for them), C ciphertexts a
+// block sharing every key load, the 2^32-grid accumulator's high words in
+// shared memory, the fused first and last passes and the lazy butterflies
+// of ntt_common.cuh.  Shape: k + 1 = 2, one level, N = 2048.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <int NPT>
+__global__ void __launch_bounds__(RK_THREADS, 1)
+blind_rotate_rounded_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+                            const uint4* __restrict__ key, const uint2* __restrict__ tw_fwd,
+                            const uint2* __restrict__ tw_inv,
+                            const long long* __restrict__ consts_g, int n_steps,
+                            int base_log, int rb) {
+  extern __shared__ u32 rk_smem[];
+  __shared__ Consts c;
+  constexpr int ROWS = RK_C * RK_K1 * NPT;
+  constexpr int ACC = RK_C * RK_K1 * RK_N;
+  u32* res = rk_smem;
+  u32* acc = rk_smem + ROWS * RK_ROW;           // (C, K1, N) high words
+  long long* acc_b = acc_g + (size_t)blockIdx.x * ACC;
+  const int* mask_b = mask_g + (size_t)blockIdx.x * RK_C * n_steps;
+  const int tid = threadIdx.x;
+  if (tid == 0) load_consts(c, consts_g);
+  for (int q = tid; q < ACC; q += RK_THREADS) acc[q] = (u32)((u64)acc_b[q] >> 32);
+  __syncthreads();
+
+  for (int step = 0; step < n_steps; ++step) {
+    fused_first_forward<RK_LOG_N, RK_K1, NPT, RK_C, RK_THREADS, true>(
+        res, acc, mask_b + step, n_steps, base_log, tw_fwd, c);
+    __syncthreads();
+    lazy_pass<4, RK_LOG_N, NPT, RK_THREADS, true>(res, ROWS, 4, tw_fwd, c);
+    __syncthreads();
+    // the last forward pass fused with the key product, in place
+    const uint4* skey = key + (size_t)step * NPT * RK_N;
+    for (int q = tid; q < RK_C * NPT * (RK_N / 8); q += RK_THREADS) {
+      u32 out[8][RK_K1];
+      rk_key_product<NPT>(res, q, skey, tw_fwd, out, false, true, c);
+    }
+    __syncthreads();
+    lazy_pass<4, RK_LOG_N, NPT, RK_THREADS, false>(res, ROWS, 0, tw_inv, c);
+    __syncthreads();
+    lazy_pass<4, RK_LOG_N, NPT, RK_THREADS, false>(res, ROWS, 4, tw_inv, c);
+    __syncthreads();
+    fused_last_inverse<RK_LOG_N, RK_K1, NPT, RK_C, RK_THREADS, true>(res, acc, rb, tw_inv, c);
+    __syncthreads();
+  }
+
+  for (int q = tid; q < ACC; q += RK_THREADS) acc_b[q] = (long long)((u64)acc[q] << 32);
+}
+
+}  // namespace
+
+// The ciphertexts a block of the rounded-key rotations (K2 v7 and K3 v9,
+// ntt_common.cuh RK_C) take: the batch must be a multiple of it
+// (ops/kernels.py pads).
+extern "C" int tfhe_torch_rounded_cts_per_block() { return RK_C; }
+
+// Dynamic shared memory of one block of either rounded-key rotation.
+extern "C" int tfhe_torch_rounded_smem_bytes(int nprimes) {
+  return nprimes == 3 ? rk_smem_bytes<3>() : rk_smem_bytes<4>();
+}
+
+extern "C" int tfhe_torch_blind_rotate_rounded(void* acc, const void* mask, const void* key,
+                                               const void* tw_fwd, const void* tw_inv,
+                                               const void* consts, int batch, int n_steps,
+                                               int k1, int log_n, int levels, int nprimes,
+                                               int base_log, int round_bits, void* stream) {
+  if (k1 != RK_K1 || log_n != RK_LOG_N || levels != 1 || (nprimes != 3 && nprimes != 4) ||
+      base_log < 1 || base_log > 30 || round_bits < 0 || round_bits > 32 || batch < RK_C ||
+      batch % RK_C != 0 || n_steps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto run = [&](auto kernel, int smem) {
+    return (int)rk_launch(kernel, smem, batch, (cudaStream_t)stream, (long long*)acc,
+                          (const int*)mask, (const uint4*)key, (const uint2*)tw_fwd,
+                          (const uint2*)tw_inv, (const long long*)consts, n_steps, base_log,
+                          round_bits);
+  };
+  return nprimes == 3 ? run(blind_rotate_rounded_kernel<3>, rk_smem_bytes<3>())
+                      : run(blind_rotate_rounded_kernel<4>, rk_smem_bytes<4>());
 }

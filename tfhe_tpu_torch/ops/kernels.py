@@ -2,7 +2,9 @@
 
 K1 ``keyswitch`` (csrc/keyswitch.cu), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry), K3
-``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu), K4
+``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
+their rounded-key kernels, C ciphertexts a block, on an
+ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
 ``packing_keyswitch`` (csrc/packing_keyswitch.cu) and K5
 ``blind_rotate128`` (csrc/blind_rotate128.cu; K2-K5 include
 csrc/ntt_common.cuh) are compiled with nvcc for sm_90a into shared
@@ -24,8 +26,9 @@ import torch
 
 from ..utils.build import CSRC, build_shared_libraries
 from . import server, server128
+from .bsk_prep import RoundedKeyNtt
 from .ntt import (KERNEL128_CONSTS_LEN, KERNEL128_PRIMES, KERNEL_CONSTS_LEN,
-                  KERNEL_PRIMES, DevicePlan)
+                  KERNEL_PRIMES, DevicePlan, shoup_twiddles)
 
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,16 +76,28 @@ def load() -> dict:
         fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate
-        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
         fn.argtypes = [i] * 3
         fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_rounded
+        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_rounded
+        fn.argtypes = [vp] * 6 + [i] * 9 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_rounded_cts_per_block
+        fn.argtypes = []
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_rounded_smem_bytes
+        fn.argtypes = [i]
+        fn.restype = i
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit
-        fn.argtypes = [vp] * 7 + [i] * 9 + [vp]
+        fn.argtypes = [vp] * 7 + [i] * 8 + [vp]
         fn.restype = i
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
-        fn.argtypes = [i] * 4
+        fn.argtypes = [i] * 3
         fn.restype = i
         fn = libs["packing_keyswitch"].tfhe_torch_packing_keyswitch
         fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
@@ -119,6 +134,57 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def pad_batch(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """t (B, ...) contiguous with zero rows appended up to a multiple of
+    ``multiple`` rows: the rounded-key kernels take C ciphertexts a block,
+    and a batch that C does not divide runs its last block on zero rows,
+    whose results are dropped."""
+    extra = -t.shape[0] % multiple
+    if not extra:
+        return t.contiguous()
+    return torch.cat([t, t.new_zeros((extra,) + tuple(t.shape[1:]))])
+
+
+def rounded_kernel_shape(nprimes: int) -> dict:
+    """The ciphertexts a block and the dynamic shared memory a block of
+    the rounded-key kernels (K2 v7 and K3 v9 share them:
+    csrc/ntt_common.cuh RK_C, rk_smem_bytes)."""
+    lib = load()["blind_rotate"]
+    return {"ciphertexts_per_block": lib.tfhe_torch_rounded_cts_per_block(),
+            "shared_memory_bytes": lib.tfhe_torch_rounded_smem_bytes(nprimes)}
+
+
+def _launch_rounded(name: str, acc, shifts, key: RoundedKeyNtt, base_log: int,
+                    levels: int, *shape_args):
+    """K2 (v7) or K3 (v9) on a rounded key: the initialised accumulator
+    (B, k+1, N) int64 on the 2^32 grid and the int32 shifts (B, ...),
+    padded to the kernel's C ciphertexts a block.  Returns the new
+    accumulator (B, k+1, N)."""
+    b, k1, n_poly = acc.shape
+    _require(key.ggsw == (levels, k1, k1) and key.data.shape[2] == n_poly,
+             f"key GGSWs {key.ggsw} of N = {key.data.shape[2]} do not fit the batch")
+    _require(k1 == 2 and levels == 1 and n_poly == 2048 and base_log <= 30,
+             f"the rounded-key kernels take k+1 = 2, one level, N = 2048 and "
+             f"base_log <= 30, not k+1 = {k1}, l = {levels}, N = {n_poly}, "
+             f"base_log = {base_log} (ROADMAP.md queue 3)")
+    _require(key.num_primes in (3, 4) and key.dp.kernel_consts is not None,
+             f"a rounded key of {key.num_primes} primes")
+    lib = load()[name]
+    per_block = rounded_kernel_shape(key.num_primes)["ciphertexts_per_block"]
+    acc_p, shifts_p = pad_batch(acc, per_block), pad_batch(shifts, per_block)
+    tw_fwd, tw_inv = shoup_twiddles(key.dp)
+    _check_cuda((acc_p, torch.int64), (shifts_p, torch.int32), (key.data, torch.int32),
+                (tw_fwd, torch.int32), (tw_inv, torch.int32),
+                (key.dp.kernel_consts, torch.int64))
+    err = getattr(lib, f"tfhe_torch_{name}_rounded")(
+        acc_p.data_ptr(), shifts_p.data_ptr(), key.data.data_ptr(), tw_fwd.data_ptr(),
+        tw_inv.data_ptr(), key.dp.kernel_consts.data_ptr(), acc_p.shape[0], *shape_args,
+        k1, n_poly.bit_length() - 1, levels, key.num_primes, base_log, key.round_bits,
+        _stream(acc))
+    _raise_on(err, f"{name} (rounded key)")
+    return acc_p[:b]
+
+
 def keyswitch(ct, ksk, base_log: int, levels: int):
     """K1: batched LWE keyswitch (see ops/server.py keyswitch).
 
@@ -144,9 +210,10 @@ keyswitch.launches = 0
 
 
 def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
-                         levels: int, trunc_acc: bool) -> None:
-    """K2 on an initialised accumulator (B, k+1, N) int64, in place: one
-    step per column of mask32 (B, n) int32, key (n, l, k+1, k+1, P, N)."""
+                         levels: int) -> None:
+    """K2's exact kernel on an initialised accumulator (B, k+1, N) int64, in
+    place: one step per column of mask32 (B, n) int32, key (n, l, k+1, k+1,
+    P, N)."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
@@ -166,8 +233,7 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
         acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
         dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
         dp.kernel_consts.data_ptr(), b, n_steps, k1,
-        n_poly.bit_length() - 1, levels, nprimes, base_log, int(trunc_acc),
-        _stream(acc))
+        n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
     _raise_on(err, "blind_rotate")
 
 
@@ -176,15 +242,30 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
     """K2: batched classic blind rotation (see ops/server.py blind_rotate).
 
     msed_mask: (B, n) in [0, 2N); msed_body: (B,); lut: (B, k+1, N) int64;
-    bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery NTT-domain key."""
+    bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery NTT-domain key (on
+    dp's four primes), or a RoundedKeyNtt, which runs v7 mode only
+    (trunc_acc) on its own plan, in the rounded-key kernel.  On the card
+    v7 mode takes only a RoundedKeyNtt; on the CPU the plain version also
+    takes a four-prime key (the reference the rounded route is held to)."""
+    rounded = isinstance(bsk_ntt, RoundedKeyNtt)
+    _require(trunc_acc or not rounded,
+             "a rounded key runs only v7 mode (trunc_acc): exact mode takes the exact key")
     if msed_mask.device.type == "cpu":
         return server.blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp,
                                    base_log, levels, trunc_acc)
+    _require(rounded or not trunc_acc,
+             "v7 mode on the card takes a rounded key (ops/bsk_prep.py RoundedKeyNtt)")
     _require(msed_mask.device.type == "cuda",
              f"no blind-rotation kernel for {msed_mask.device}")
     acc = server.initial_accumulator(lut, msed_body, trunc_acc).contiguous()
-    _launch_blind_rotate(acc, msed_mask.to(torch.int32).contiguous(),
-                         bsk_ntt.contiguous(), dp, base_log, levels, trunc_acc)
+    mask32 = msed_mask.to(torch.int32).contiguous()
+    if rounded:
+        _require(bsk_ntt.lead == (mask32.shape[1],),
+                 f"key of {bsk_ntt.lead} GGSWs for {mask32.shape[1]} steps")
+        acc = _launch_rounded("blind_rotate", acc, mask32, bsk_ntt, base_log, levels,
+                              mask32.shape[1])
+    else:
+        _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels)
     blind_rotate.launches += 1
     return acc
 
@@ -202,12 +283,14 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
     acc: (B, k+1, N) int64; a_col: (B,) in [0, 2N); bsk_slice:
     (l, k+1, k+1, P, N) int32 Montgomery NTT domain.  Returns the new
     accumulator."""
+    _require(not isinstance(bsk_slice, RoundedKeyNtt),
+             "the single-step entry runs the exact rotation on the exact key")
     if acc.device.type == "cpu":
         return server.cmux_step(acc, a_col, bsk_slice, dp, base_log, levels)
     _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
     _require(acc.is_contiguous(), "the accumulator must be contiguous (updated in place)")
     _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
-                         bsk_slice.contiguous()[None], dp, base_log, levels, False)
+                         bsk_slice.contiguous()[None], dp, base_log, levels)
     cmux_step.launches += 1
     return acc
 
@@ -224,11 +307,19 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
 
     degrees: (B, n/g, 2^g) in [0, 2N); msed_body: (B,); lut: (B, k+1, N)
     int64; mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N) int32 Montgomery NTT
-    domain."""
+    domain (on dp's four primes), or a RoundedKeyNtt, which runs v9 mode
+    only, on its own plan, in the rounded-key kernel.  On the card v9 mode
+    takes only a RoundedKeyNtt; on the CPU the plain version also takes a
+    four-prime key (the reference the rounded route is held to)."""
+    rounded = isinstance(mb_key_ntt, RoundedKeyNtt)
+    _require(v9 or not rounded,
+             "a rounded key runs only v9 mode: exact mode takes the exact key")
     if degrees.device.type == "cpu":
         plain = (server.blind_rotate_multibit_v9 if v9
                  else server.blind_rotate_multibit)
         return plain(degrees, msed_body, lut, mb_key_ntt, dp, base_log, levels)
+    _require(rounded or not v9,
+             "v9 mode on the card takes a rounded key (ops/bsk_prep.py RoundedKeyNtt)")
     _require(degrees.device.type == "cuda",
              f"no multi-bit blind-rotation kernel for {degrees.device}")
     b, n_groups, n_sub = degrees.shape
@@ -237,18 +328,27 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
     grouping = n_sub.bit_length() - 1
     _require(n_sub == 1 << grouping and 1 <= grouping <= 4,
              f"{n_sub} patterns a group: the kernel takes grouping 1 to 4")
+    if rounded:
+        _require(mb_key_ntt.lead == (n_groups, n_sub),
+                 f"key of {mb_key_ntt.lead} GGSWs for {n_groups} groups of {n_sub}")
+        acc = server.initial_accumulator(lut, msed_body, True).contiguous()
+        acc = _launch_rounded("blind_rotate_multibit", acc,
+                              degrees.to(torch.int32).contiguous(), mb_key_ntt,
+                              base_log, levels, n_groups, grouping)
+        blind_rotate_multibit.launches += 1
+        return acc
     _require(mb_key_ntt.shape == (n_groups, n_sub, levels, k1, k1, nprimes, n_poly),
              f"key shape {tuple(mb_key_ntt.shape)} does not fit the batch")
     _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "the kernel takes a 4-prime plan and a power-of-two N")
     _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
     lib = load()["blind_rotate_multibit"]
-    smem = lib.tfhe_torch_blind_rotate_multibit_smem_bytes(k1, n_poly, levels, int(v9))
+    smem = lib.tfhe_torch_blind_rotate_multibit_smem_bytes(k1, n_poly, levels)
     _require(smem <= SMEM_LIMIT,
              f"multi-bit blind rotation with k+1 = {k1}, N = {n_poly}, "
              f"l = {levels} needs {smem} B of shared memory, above the "
              f"{SMEM_LIMIT} B a block may use (ROADMAP.md queue 3)")
-    acc = server.initial_accumulator(lut, msed_body, v9).contiguous()
+    acc = server.initial_accumulator(lut, msed_body, False).contiguous()
     deg32 = degrees.to(torch.int32).contiguous()
     mb_key_ntt = mb_key_ntt.contiguous()
     mono = server.monomial_table(dp)[0]
@@ -260,8 +360,7 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
         acc.data_ptr(), deg32.data_ptr(), mb_key_ntt.data_ptr(),
         dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(), mono.data_ptr(),
         dp.kernel_consts.data_ptr(), b, n_groups, grouping, k1,
-        n_poly.bit_length() - 1, levels, nprimes, base_log, int(v9),
-        _stream(acc))
+        n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
     _raise_on(err, "blind_rotate_multibit")
     blind_rotate_multibit.launches += 1
     return acc

@@ -488,8 +488,10 @@ def ntt_forward(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
     return x
 
 
-def ntt_inverse(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
-    """(..., P, N) NTT domain, bit-reversed -> natural order, times N^-1."""
+def ntt_inverse(x: torch.Tensor, dp: DevicePlan, scale: bool = True) -> torch.Tensor:
+    """(..., P, N) NTT domain, bit-reversed -> natural order, times N^-1
+    (without it where scale is False: a product with a key that holds
+    N^-1, ops/bsk_prep.py RoundedKeyNtt)."""
     n, np_ = dp.n, dp.num_primes
     batch = tuple(x.shape[:-2])
     p, pinv = _bcast(dp, len(batch))
@@ -504,7 +506,24 @@ def ntt_inverse(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
                         ).reshape(batch + (np_, n))
         t *= 2
         m = h
-    return mont_mul(x, dp.n_invs, dp.ps, dp.pinvs)
+    return mont_mul(x, dp.n_invs, dp.ps, dp.pinvs) if scale else x
+
+
+@lru_cache(maxsize=None)
+def shoup_twiddles(dp: DevicePlan) -> tuple:
+    """The forward and inverse twiddles of dp's plan as Shoup pairs for the
+    rounded-key kernels (csrc/ntt_common.cuh shoup_mul): (P, N, 2) int32
+    tensors on dp's device holding (W, floor(W 2^32 / p)), W the twiddle
+    in normal form (the plan keeps Montgomery form, W R mod p)."""
+    out = []
+    for table in (dp.plan.psi_br_stack, dp.plan.psi_inv_br_stack):
+        pairs = np.empty(table.shape + (2,), dtype=np.uint64)
+        for i, p in enumerate(dp.plan.primes):
+            w = table[i] * _U64(pow(1 << 32, -1, p)) % _U64(p)
+            pairs[i, :, 0] = w
+            pairs[i, :, 1] = (w << _R_BITS) // _U64(p)
+        out.append(torch.from_numpy(pairs.astype(np.uint32).view(np.int32)).to(dp.psi.device))
+    return tuple(out)
 
 
 def pointwise_mul_mont(a_normal, b_mont, dp: DevicePlan):

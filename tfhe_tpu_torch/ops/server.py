@@ -23,6 +23,7 @@ import torch
 
 from ..core.multibit import monomial_ntt_tables
 from . import kernels, ntt
+from .bsk_prep import RoundedKeyNtt
 from .torus import s64, shr
 
 _HI32 = s64(0xFFFFFFFF00000000)
@@ -188,12 +189,34 @@ def _product_sum(fwd, key, dp: ntt.DevicePlan):
 
 
 def external_product(glwe, ggsw, dp: ntt.DevicePlan, base_log: int,
-                     levels: int):
+                     levels: int, round_bits: int = 0):
     """GGSW (x) GLWE, exact: glwe (B, k+1, N) int64; ggsw (l, k+1, k+1, P, N)
     Montgomery NTT domain.  Returns the (B, k+1, N) product to add to the
-    accumulator (tfhe_tpu/ops/server.py:342)."""
+    accumulator (tfhe_tpu/ops/server.py:342).  round_bits > 0: ggsw holds
+    N^-1 times the quotients b / 2^rb of a rounded key (RoundedKeyNtt), and
+    the reconstructed word is shifted back left by rb."""
     col = _product_sum(_forward_digits(glwe, dp, base_log, levels), ggsw, dp)
-    return ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp)
+    return _reconstruct(col, dp, round_bits)
+
+
+def _reconstruct(col, dp: ntt.DevicePlan, round_bits: int):
+    """The u64 words of NTT-domain sums (B, k+1, P, N): exact key (N^-1 in
+    the inverse transform) or rounded key (N^-1 in the key, a left shift by
+    round_bits after Garner)."""
+    if not round_bits:
+        return ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp)
+    return ntt.garner_to_u64(ntt.ntt_inverse(col, dp, scale=False), dp) << round_bits
+
+
+def _key_view(key, dp: ntt.DevicePlan, grid: bool):
+    """(NTT-domain key in the exact layout, plan, round_bits) of an exact
+    key tensor (on dp) or a RoundedKeyNtt (its own plan), which takes only
+    the 2^32-grid rotations (grid)."""
+    if not isinstance(key, RoundedKeyNtt):
+        return key, dp, 0
+    if not grid:
+        raise ValueError("a rounded key runs only the 2^32-grid rotations (v7, v9)")
+    return key.canonical(), key.dp, key.round_bits
 
 
 def _round_to_hi32(x):
@@ -216,19 +239,24 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
     trunc_acc=False is the exact rotation (tfhe_tpu/ops/server.py:367).
     trunc_acc=True on a ``round_bsk``-rounded key is the v7 function
     (tfhe_tpu/ops/mxu.py:910 blind_rotate_mxu_trunc): the initial
-    accumulator and each step's product rounded to the 2^32 grid.
+    accumulator and each step's product rounded to the 2^32 grid.  The
+    same function on a RoundedKeyNtt (trunc_acc=True only; dp is then the
+    key's own) is the plain version of K2's rounded-key route: three
+    primes on the quotients where the bound allows, the same words.
     """
+    key, dp, rb = _key_view(bsk_ntt, dp, trunc_acc)
     acc = initial_accumulator(lut, msed_body, trunc_acc)
     for i in range(msed_mask.shape[1]):
-        prod = _cmux_product(acc, msed_mask[:, i], bsk_ntt[i], dp, base_log, levels)
+        prod = _cmux_product(acc, msed_mask[:, i], key[i], dp, base_log, levels, rb)
         acc = acc + (_round_to_hi32(prod) if trunc_acc else prod)
     return acc
 
 
-def _cmux_product(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
+def _cmux_product(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int,
+                  round_bits: int = 0):
     """GGSW (x) (acc * X^a - acc), a per batch element: (B,)."""
     ct1 = monomial_mul(acc, a_col[:, None, None]) - acc
-    return external_product(ct1, ggsw, dp, base_log, levels)
+    return external_product(ct1, ggsw, dp, base_log, levels, round_bits)
 
 
 def cmux_step(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
@@ -237,6 +265,7 @@ def cmux_step(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
     in [0, 2N), ggsw (l, k+1, k+1, P, N).  The plain version of K2's
     single-step entry (kernels.cmux_step): the function of tfhe_tpu's
     build_cmux_step Pallas kernel (tfhe_tpu/ops/pallas_ntt.py:296)."""
+    ggsw = _key_view(ggsw, dp, False)[0]
     return acc + _cmux_product(acc, a_col, ggsw, dp, base_log, levels)
 
 
@@ -245,7 +274,10 @@ def blind_rotate_stepwise(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan
     """The exact blind rotation one CMux step a launch, through K2's
     single-step entry (tfhe_tpu/ops/server.py:488 blind_rotate_pallas): the
     initial monomial division, then ``kernels.cmux_step`` for each mask
-    element.  Arguments and result as ``blind_rotate`` in exact mode."""
+    element.  Arguments and result as ``blind_rotate`` in exact mode; a
+    RoundedKeyNtt is refused (it runs only the 2^32-grid rotations)."""
+    if isinstance(bsk_ntt, RoundedKeyNtt):
+        raise ValueError("the stepwise rotation runs the exact rotation on the exact key")
     acc = initial_accumulator(lut, msed_body, False).contiguous()
     for i in range(msed_mask.shape[1]):
         acc = kernels.cmux_step(acc, msed_mask[:, i], bsk_ntt[i], dp, base_log, levels)
@@ -307,6 +339,7 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt,
 
     degrees: (B, n/g, 2^g) in [0, 2N); msed_body: (B,); lut: (B, k+1, N);
     mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N) int32 Montgomery NTT domain."""
+    mb_key_ntt = _key_view(mb_key_ntt, dp, False)[0]
     acc = initial_accumulator(lut, msed_body, False)
     for j in range(degrees.shape[1]):
         key = mb_key_ntt[j].to(torch.int64)
@@ -328,17 +361,21 @@ def blind_rotate_multibit_v9(degrees, msed_body, lut, mb_key_ntt,
     with the exact external product.  The patterns' products are summed in
     the NTT domain and reconstructed once, which equals summing the
     reconstructed products mod 2^64: the sum stays below P/2 (about 2^101
-    at GROUP_4 2_2 against 2^119 for the four primes).  Arguments as in
-    ``blind_rotate_multibit``."""
+    at GROUP_4 2_2 against 2^119 for the four primes; on a RoundedKeyNtt,
+    the plain version of K3's rounded-key route, about 2^83 against 2^89
+    for three primes on the quotients).  Arguments as in
+    ``blind_rotate_multibit``; mb_key_ntt may be a RoundedKeyNtt (dp is
+    then the key's own)."""
+    keys, dp, rb = _key_view(mb_key_ntt, dp, True)
     acc = initial_accumulator(lut, msed_body, True)
     for j in range(degrees.shape[1]):
-        key = mb_key_ntt[j]
+        key = keys[j]
         col = None
         for u in range(key.shape[0]):
             rot = monomial_mul(acc, degrees[:, j, u, None, None])
             prod = _product_sum(_forward_digits(rot, dp, base_log, levels), key[u], dp)
             col = prod if col is None else ntt.add_mod_stacked(col, prod, dp)
-        acc = _round_to_hi32(ntt.garner_to_u64(ntt.ntt_inverse(col, dp), dp))
+        acc = _round_to_hi32(_reconstruct(col, dp, rb))
     return acc
 
 

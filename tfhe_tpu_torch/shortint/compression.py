@@ -35,7 +35,7 @@ from ..core.entities import GlweSecretKey, LweBootstrapKey, LweSecretKey
 from ..core.params import DecompParams
 from ..ops import kernels, ntt, torus
 from ..ops import server as srv
-from ..ops.bsk_prep import mask_floor_bsk, round_bsk
+from ..ops.bsk_prep import mask_floor_bsk, rounded_key_ntt
 from ..utils.csprng import (DeterministicSeeder, EncryptionRandomGenerator,
                             SecretRandomGenerator, TUniform)
 from ..utils.device import resolve_device
@@ -164,8 +164,9 @@ def decompression_uses_v7(device: torch.device, p, cp: CompressionParameters,
 
 class DecompressionKey:
     """BSK from the storage key (as an LWE key) to the compute GLWE key,
-    on the device in K2's layout: rounded to 2^ROUND_BITS in v7 mode
-    (``trunc_acc``), unrounded otherwise."""
+    on the device in K2's layout: in v7 mode (``trunc_acc``) the rounded
+    key (ops/bsk_prep.py RoundedKeyNtt, rounded to 2^ROUND_BITS, built on
+    the device), otherwise the exact NTT-domain key."""
 
     def __init__(self, bsk: LweBootstrapKey, bsk_floored: int, params,
                  comp_params: CompressionParameters, device: torch.device):
@@ -173,9 +174,12 @@ class DecompressionKey:
         self.br_level = comp_params.br_level
         self.device = device
         self.trunc_acc = decompression_uses_v7(device, params, comp_params, bsk_floored)
-        key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
-        bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
-        self.bsk_ntt = torch.from_numpy(bsk_ntt.view(np.int32)).to(device)
+        if self.trunc_acc:
+            self.bsk_ntt = rounded_key_ntt(bsk.data, ROUND_BITS, self.br_base_log, device)
+            plan = ntt.make_plan(bsk.polynomial_size)
+        else:
+            bsk_ntt, plan = kg.bootstrap_key_to_ntt(bsk)
+            self.bsk_ntt = torch.from_numpy(bsk_ntt.view(np.int32)).to(device)
         self.dp = ntt.device_plan(plan, str(device))
         self._bsk_coeff = bsk
         self._bsk_floored = bsk_floored

@@ -15,7 +15,8 @@ exact mode (the exact key is uploaded at its first use in v7 or v9 mode).
 Which blind rotation runs is fixed at construction, as tfhe_tpu's
 ``use_mxu`` and ``use_mxu_multibit`` fix it by backend.  Classic sets: v7
 mode (the TPU production kernel's function: key centered-rounded to 2^15,
-accumulator on the 2^32 grid) on a CUDA device for the MXU family (N =
+accumulator on the 2^32 grid; the key held as an ops/bsk_prep.py
+RoundedKeyNtt built on the device) on a CUDA device for the MXU family (N =
 2048, k = 1, l = 1) with a floored key.  Multi-bit sets: v9 mode (the TPU's
 fused multi-bit kernel: monomials on the data side, key rounded to
 ``mb_round_bits``, 2^32-grid accumulator) on a CUDA device for the v9
@@ -41,7 +42,7 @@ from ..core import security
 from ..core.entities import LweBootstrapKey
 from ..ops import ntt, torus
 from ..ops import server as srv
-from ..ops.bsk_prep import mask_floor_bsk, mb_round_bits, round_bsk
+from ..ops.bsk_prep import mask_floor_bsk, mb_round_bits, rounded_key_ntt
 from ..utils.csprng import DeterministicSeeder, EncryptionRandomGenerator
 from ..utils.device import resolve_device
 from .ciphertext import (NOMINAL_NOISE, Ciphertext, DeviceLweBatch,
@@ -309,31 +310,29 @@ class ServerKey:
         self._bsk_floored = bsk_floored
         self.grouping = getattr(p, "grouping_factor", None)
         if self.grouping is not None:
-            # multi-bit: v9 mode takes the key rounded flattened
             bsk = np.asarray(bsk_data)
             self.trunc_acc = uses_v9(device, p, bsk_floored)
-            key = bsk
-            if self.trunc_acc:
-                flat = LweBootstrapKey(bsk.reshape((-1,) + bsk.shape[2:]),
-                                       p.core.pbs_decomp)
-                key = round_bsk(flat, mb_round_bits(p)).data.reshape(bsk.shape)
-            bsk_ntt, plan = mb.multibit_bsk_to_ntt(key)
+            round_bits, grouping = mb_round_bits(p), self.grouping
         else:
             bsk = (bsk_data if isinstance(bsk_data, LweBootstrapKey)
                    else LweBootstrapKey(np.asarray(bsk_data), p.core.pbs_decomp))
             self.trunc_acc = uses_v7(device, p, bsk_floored)
-            key = round_bsk(bsk, ROUND_BITS) if self.trunc_acc else bsk
-            bsk_ntt, plan = kg.bootstrap_key_to_ntt(key)
+            round_bits, grouping = ROUND_BITS, 0
         # coefficient-domain key, kept for building the exact key in v7/v9
         # mode (exact_bsk_ntt)
         self._bsk_coeff = bsk
         self._bsk_ntt_exact = None
-        self.plan = plan
-        self.dp = ntt.device_plan(plan, str(device))
-        # uploaded once, in kernel layout: u64 KSK as int64, NTT-domain BSK
+        self.plan = ntt.make_plan(p.polynomial_size)
+        self.dp = ntt.device_plan(self.plan, str(device))
+        # uploaded once, in kernel layout: u64 KSK as int64; the BSK as the
+        # rounded key built on the device (v7, v9) or the exact NTT-domain
         # residues (< 2^30) as int32
         self.ksk = torus.from_u64(np.asarray(ksk_data), device)
-        self.bsk_ntt = torch.from_numpy(bsk_ntt.view(np.int32)).to(device)
+        if self.trunc_acc:
+            self.bsk_ntt = rounded_key_ntt(getattr(bsk, "data", bsk), round_bits,
+                                           p.pbs_base_log, device, grouping)
+        else:
+            self.bsk_ntt = self._exact_key_ntt()
         self.max_degree = p.total_modulus - 1
         self.max_noise_level = p.max_noise_level
         self.pbs_count = 0  # pbs-stats analog (shortint/server_key/mod.rs:69)
@@ -434,12 +433,15 @@ class ServerKey:
         if not self.trunc_acc:
             return self.bsk_ntt
         if self._bsk_ntt_exact is None:
-            if self.grouping is not None:
-                key = mb.multibit_bsk_to_ntt(self._bsk_coeff)[0]
-            else:
-                key = kg.bootstrap_key_to_ntt(self._bsk_coeff)[0]
-            self._bsk_ntt_exact = torch.from_numpy(key.view(np.int32)).to(self.device)
+            self._bsk_ntt_exact = self._exact_key_ntt()
         return self._bsk_ntt_exact
+
+    def _exact_key_ntt(self) -> torch.Tensor:
+        if self.grouping is not None:
+            key = mb.multibit_bsk_to_ntt(self._bsk_coeff)[0]
+        else:
+            key = kg.bootstrap_key_to_ntt(self._bsk_coeff)[0]
+        return torch.from_numpy(key.view(np.int32)).to(self.device)
 
     def switch_modulus_and_compress(self, ct: Ciphertext) -> CompressedModulusSwitchedCiphertext:
         """Run the KS + MS half of the atomic pattern now (K1) and store the
