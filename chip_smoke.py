@@ -9,8 +9,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
-     sm_90a, one compiler per source, started together); then K2's and K3's
-     sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
+     sm_90a, one compiler per source, started together); then K2's, K3's
+     and K5's sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
      spills and shared memory (line "ptxas"), with the rounded-key
      kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
@@ -70,19 +70,21 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      the multi-bit path's own B = 512 inputs in v9 mode (the first 4 also
      against the four-prime v9 rotation on the rounded key; the ragged
      batches over 8 groups; a four-prime rounded key) and in exact mode
-     (unrounded key), with phase 10's multi-bit outputs against the plain
-     rotation, at tfhe_tpu's GROUP_2 shape (g = 2, n = 918) on random
-     keys in exact mode and in v9 mode (a rounded key, four patterns a
-     group), and its generic instance at the GROUP_3 shape (l = 2) in
+     (unrounded key; the ragged batches over 8 groups of it), with phase
+     10's multi-bit outputs against the plain rotation, at tfhe_tpu's
+     GROUP_2 shape (g = 2, n = 918) on random keys in exact mode and in
+     v9 mode (a rounded key, four patterns a group), and its generic instance at the GROUP_3 shape (l = 2) in
      exact mode, where v9 mode must refuse a rounded and a four-prime key;
      K4 on phase 6's 512 inputs and at four smaller shapes on random
      keys; K5 on phase 12's own 512 inputs against phase 12's outputs and,
      for the first K5_PLAIN_BATCH, against the plain u128 rotation, and at
-     the TEST squashing shape (k + 1 = 2, N = 512, its generic instance) on
-     a random key; K2's step entry: phase 13's rotation against the whole
-     K2 rotation and the plain one, one step at B = 512 and at the ragged
-     batches; times of each kernel in each mode, its plain version and, for K1, the int8-limb
-     torch._int_mm formulation the TPU uses (a yardstick the port never
+     the TEST squashing shape (k + 1 = 2, N = 512) and a generic shape
+     (k + 1 = 3, N = 1024, l = 2: the generic kernel) on random keys, and
+     at the ragged batches over the squashing key's first 16 steps; K2's
+     step entry: phase 13's rotation against the whole K2 rotation and
+     the plain one, one step at B = 512 and at the ragged batches; times
+     of each kernel in each mode, its plain version and, for K1, the
+     int8-limb torch._int_mm formulation the TPU uses (a yardstick the port never
      calls);
  15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13, the script's
      total seconds and one {"kernels": [...]} line.
@@ -141,6 +143,11 @@ K4_PRIMES = 3
 # on a random key over K5_TEST_STEPS steps
 K5_PLAIN_BATCH = 32
 K5_TEST_STEPS = 64
+# K5's generic kernel (the shapes off its lazy kernel's instances) at
+# (k + 1, N, l, base_log) on a random key; and the steps of the squashing
+# key's head that the ragged batches run over
+K5_GENERIC_SHAPE = (3, 1024, 2, 20)
+K5_RAGGED_STEPS = 16
 # CRT primes the exact u128 product needs: 2^165.2 < P/2 takes six
 K5_PRIMES = 6
 # K2's single-step entry (blind_rotate_stepwise) on a random 2_2-shape key
@@ -391,7 +398,7 @@ def head_of(key, lead: tuple):
 
 
 def ptxas_report(kernels) -> dict:
-    """Registers, spills and static shared memory of K2's and K3's kernels
+    """Registers, spills and static shared memory of K2's, K3's and K5's kernels
     as ``nvcc -Xptxas -v`` reports them (one compiler per source, started
     together; the libraries are thrown away), and the rounded-key kernels'
     dynamic shared memory and ciphertexts a block."""
@@ -405,7 +412,7 @@ def ptxas_report(kernels) -> dict:
             kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
                                       str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in ("blind_rotate", "blind_rotate_multibit")]
+            for name in ("blind_rotate", "blind_rotate_multibit", "blind_rotate128")]
         for name, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
@@ -1053,6 +1060,18 @@ def main() -> None:
         upload_batch([c.data for c in ms_runs["multibit"]["outs"]], dev),
         server.sample_extract(server.blind_rotate_multibit(
             deg_st, st[:, -1], lut_mb, mb_exact, msk.dp, mp.pbs_base_log, mp.pbs_level)))
+    # the exact kernel over RAGGED_GROUPS groups of the unrounded key at
+    # batches its C ciphertexts a block do not fill
+    for b in RAGGED_BATCHES:
+        raw = torus.from_u64(chk.integers(0, 1 << 64, (b, RAGGED_GROUPS * mp.grouping_factor),
+                                          dtype=np.uint64), dev)
+        a = (server.multibit_switched_degrees(raw, mp.grouping_factor, log_mod),
+             torch.from_numpy(chk.integers(0, 2 * n_poly, (b,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (b, mp.glwe_dimension + 1, n_poly),
+                                         dtype=np.uint64), dev),
+             mb_exact[:RAGGED_GROUPS], msk.dp, mp.pbs_base_log, mp.pbs_level)
+        errs[f"k3_exact_ragged_b{b}"] = max_abs_err(kernels.blind_rotate_multibit(*a, v9=False),
+                                                    server.blind_rotate_multibit(*a))
     del mb_exact
 
     # K3 at other shapes on random keys and inputs: tfhe_tpu's GROUP_2 set
@@ -1126,6 +1145,26 @@ def main() -> None:
         dp_t, SQ_TEST.decomp_base_log, SQ_TEST.decomp_level_count)
     got, want = kernels.blind_rotate128(*t_args), server128.blind_rotate128(*t_args)
     errs[f"k5_test_shape_b{CHECK_BATCH}"] = max(max_abs_err(g, w) for g, w in zip(got, want))
+    k1_g, n_g, l_g, bl_g = K5_GENERIC_SHAPE
+    dp_g = ntt.device_plan(ntt.make_plan(n_g, K5_PRIMES), "cuda")
+    g_args = (torch.from_numpy(chk.integers(0, 2 * n_g, (CHECK_BATCH, K5_TEST_STEPS))).to(dev),
+              torch.from_numpy(chk.integers(0, 2 * n_g, (CHECK_BATCH,))).to(dev)) + tuple(
+        torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, k1_g, n_g), dtype=np.uint64), dev)
+        for _ in range(2)) + (
+        random_ntt_key((K5_TEST_STEPS, l_g, k1_g, k1_g), dp_g, gen), dp_g, bl_g, l_g)
+    got, want = kernels.blind_rotate128(*g_args), server128.blind_rotate128(*g_args)
+    errs[f"k5_generic_shape_b{CHECK_BATCH}"] = max(max_abs_err(g, w) for g, w in zip(got, want))
+    # the squashing key's first K5_RAGGED_STEPS steps at the ragged batches
+    for b in RAGGED_BATCHES:
+        a = (torch.from_numpy(chk.integers(0, 2 * sqp.polynomial_size,
+                                           (b, K5_RAGGED_STEPS))).to(dev),
+             torch.from_numpy(chk.integers(0, 2 * sqp.polynomial_size, (b,))).to(dev)) + tuple(
+            torus.from_u64(chk.integers(0, 1 << 64, (b, k1_sq, sqp.polynomial_size),
+                                        dtype=np.uint64), dev) for _ in range(2)) + (
+            nsk.bsk128_ntt[:K5_RAGGED_STEPS], nsk.dp128, sqp.decomp_base_log,
+            sqp.decomp_level_count)
+        got, want = kernels.blind_rotate128(*a), server128.blind_rotate128(*a)
+        errs[f"k5_ragged_b{b}"] = max(max_abs_err(g, w) for g, w in zip(got, want))
 
     # K2's single-step entry: phase 13's stepwise rotation against the whole
     # K2 rotation and the plain one (exact mode), and one step at B = 512
@@ -1221,17 +1260,38 @@ def main() -> None:
              "serve_multibit": mb_launches["blind_rotate_multibit"],
              "modswitch_compress_multibit":
                  ms_launches["multibit"]["decompress"]["blind_rotate_multibit"]},
-         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k3")),
-         "ms": k3_ms, "exact_mode_ms": k3_exact_ms, "plain_ms": k3_plain_ms,
-         "exact_mode_plain_ms": k3_exact_plain_ms,
+         "max_abs_err": max(v for k, v in errs.items()
+                            if k.startswith("k3") and not k.startswith("k3_exact")),
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_v9["ms"], "bound_by": k3_bound_v9["by"],
          "library_ms": None,
          "bound_primes": V9_PRIMES,
          "bound_ntt_int32_ms": k3_bound_v9["ntt_ms"],
          "bound_four_step_int8_ms": k3_bound_v9["four_step_ms"],
          "bound_bytes_ms": k3_bound_v9["bytes_ms"],
-         "exact_mode_bound_ms": k3_bound_exact["ms"],
-         "exact_mode_bound_by": k3_bound_exact["by"],
+         "shape": [BATCH, mp.lwe_dimension // mp.grouping_factor,
+                   1 << mp.grouping_factor, mp.glwe_dimension + 1, mp.polynomial_size]},
+        {"name": "blind_rotate_multibit_exact", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_multibit.cu",
+         "replaces": "tfhe_tpu/ops/server.py:425",
+         "launches": ms_launches["multibit"]["decompress"]["blind_rotate_multibit"],
+         "launches_by_path": {
+             "modswitch_compress_multibit":
+                 ms_launches["multibit"]["decompress"]["blind_rotate_multibit"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k3_exact")
+                            or k.startswith(("k3_tpu_group_2_exact", "k3_generic_group_3"))),
+         "ms": k3_exact_ms, "plain_ms": k3_exact_plain_ms,
+         "bound_ms": k3_bound_exact["ms"], "bound_by": k3_bound_exact["by"],
+         "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact wrapping-u64 "
+                         "negacyclic product",
+         "bound_primes": EXACT_PRIMES,
+         "bound_ntt_int32_ms": k3_bound_exact["ntt_ms"],
+         "bound_four_step_int8_ms": k3_bound_exact["four_step_ms"],
+         "bound_bytes_ms": k3_bound_exact["bytes_ms"],
+         "ciphertexts_per_block": kernels.exact_multibit_cts_per_block(
+             mp.glwe_dimension + 1, mp.polynomial_size, mp.pbs_level, mp.grouping_factor,
+             mp.pbs_base_log),
          "shape": [BATCH, mp.lwe_dimension // mp.grouping_factor,
                    1 << mp.grouping_factor, mp.glwe_dimension + 1, mp.polynomial_size]},
         {"name": "blind_rotate_decompression", "route": "cuda",
@@ -1290,7 +1350,10 @@ def main() -> None:
          "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
     ]
     # the rounded-key routes: primes and ciphertexts a block
-    for entry, key in ((table[1], sk.bsk_ntt), (table[2], msk.bsk_ntt), (table[3], dk.bsk_ntt)):
+    by_name = {entry["name"]: entry for entry in table}
+    for name, key in (("blind_rotate", sk.bsk_ntt), ("blind_rotate_multibit", msk.bsk_ntt),
+                      ("blind_rotate_decompression", dk.bsk_ntt)):
+        entry = by_name[name]
         entry["primes"] = key.num_primes
         entry.update(kernels.rounded_kernel_shape(key.num_primes))
     for entry in table:

@@ -18,7 +18,8 @@ from tfhe_tpu_torch.utils.device import resolve_device
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
-    for p in (REPO / "tfhe_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in [*(REPO / "tfhe_tpu_torch").rglob("*.py"), *(REPO / "tools").glob("*.py")]
+) + ["chip_smoke.py"]
 
 # an import statement naming jax/jaxlib or the JAX package (not the port)
 _FORBIDDEN = re.compile(

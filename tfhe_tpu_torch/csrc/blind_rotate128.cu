@@ -18,25 +18,30 @@
 //
 // What bounds it: per step and batch element, l(k+1) digit polynomials and
 // (k+1) output polynomials transformed for each of six primes (72 NTTs of
-// N = 2048 at k+1 = l = 3) plus 27 x 6 x N pointwise products and Garner:
-// about 1.2e6 Montgomery products (three 32-bit multiplies each), against a
-// 1.3 MB key slice that every batch element reads.  Integer multiply issue
-// rate bounds it, as it bounds K2.
-// Design: one thread block per batch element looping over the n steps, as
-// K2.  The u128 accumulator (k+1) N x 16 B (96 KB at N = 2048, k+1 = 3)
-// stays in shared memory for the whole rotation; K2's "every prime's
-// residues in shared memory too" does not fit (six primes' digit rows alone
-// are 432 KB), so each step walks the primes one at a time: the digits are
-// decomposed again from the accumulator for each prime (elementwise, cheap
-// next to the transforms), their residues (l (k+1) rows, 74 KB) are
-// transformed, multiplied with the key slice into (k+1) output columns
-// written in place over the first rows, transformed back and stored to a
-// per-block global scratch (6 (k+1) N u32, 144 KB a block, served from L2:
-// each thread later reads back only the words it wrote).  Garner then runs
-// once per coefficient over the six stored residues and adds the u128
-// result to the accumulator.  The NTT passes, Montgomery arithmetic and row
-// padding are ntt_common.cuh's, run with one prime at a time (OnePrime).
-// Shared memory: 174 KB at the production shape, so one block an SM.
+// N = 2048 at k+1 = l = 3) plus 27 x 6 x N pointwise products and Garner,
+// against a 1.33 MB key slice that every batch element reads from L2.
+// The first design (one prime at a time, the digits decomposed again
+// for each prime, fully reduced butterflies, a key product that waited on
+// one 4-byte load after another) spent 41 % of a step in the key product,
+// 27 % in the forward transforms and 15 % in the six decompositions, at
+// 1201.12 ms for B = 512 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+//
+// Design (blind_rotate128_lazy_kernel, the squashing shapes k+1 = 3, l = 3,
+// N = 2048 and k+1 = 2, l = 3, N = 512): one block of 512 threads a
+// ciphertext; the u128 accumulator stays in global memory (L2: 96 KB a
+// block, read rotated once a step with one wrap, coalesced), so shared
+// memory holds the step's signed digits, decomposed once a step (l (k+1)
+// N int32, 73,728 B), and one prime's padded residue rows (76,032 B).  For
+// each prime: the first forward pass forms the digits' residues and runs
+// four lazy stages in registers; the other passes are ntt_common.cuh's
+// lazy Shoup butterflies (residues in [0, 4p), one stage an
+// instantiation); the key product loads 16 bytes (four positions) a
+// (row, column) and sums up to four products in 64 bits before one
+// Montgomery reduction; the last inverse pass writes canonical residues
+// to a per-block global scratch (6 (k+1) N u32), which Garner (N^-1
+// applied there) reads once a step.  Other shapes run the first design
+// (blind_rotate128_kernel): the accumulator and one prime's rows in shared
+// memory, the digits decomposed again for each prime.
 
 #include "ntt_common.cuh"
 
@@ -151,18 +156,13 @@ __device__ __forceinline__ u128 garner_u128(const u32* col, int stride, const Co
   return neg ? x - c.pmod : x;
 }
 
-// K1T, LVT > 0 fix k + 1 and the level count at compile time (the
-// production squashing set), so the pointwise product unrolls; 0 takes them
-// from the arguments.
-template <int K1T, int LVT>
+// The generic instance (the first design): any shape the wrapper accepts.
 __global__ void __launch_bounds__(THREADS, 1)
 blind_rotate128_kernel(u128* __restrict__ acc_g, const int* __restrict__ mask_g,
                        const u32* __restrict__ bsk, const u32* __restrict__ psi,
                        const u32* __restrict__ psi_inv,
                        const long long* __restrict__ consts_g, u32* __restrict__ scratch_g,
-                       int n_steps, int k1_arg, int log_n, int levels_arg, int base_log) {
-  const int k1 = K1T > 0 ? K1T : k1_arg;
-  const int levels = LVT > 0 ? LVT : levels_arg;
+                       int n_steps, int k1, int log_n, int levels, int base_log) {
   extern __shared__ u128 smem128[];
   __shared__ Consts128 c;
   const int n_poly = 1 << log_n;
@@ -264,6 +264,172 @@ blind_rotate128_kernel(u128* __restrict__ acc_g, const int* __restrict__ mask_g,
   for (int q = tid; q < coeffs; q += THREADS) acc_b[q] = acc[q];
 }
 
+// ---------------------------------------------------------------------------
+// The lazy kernel: digits decomposed once a step, the accumulator in global
+// memory, ntt_common.cuh's lazy passes one prime at a time.
+// ---------------------------------------------------------------------------
+
+template <int K1, int LEVELS, int LOG_N>
+struct Lazy128 {
+  static constexpr int N = 1 << LOG_N;
+  static constexpr int ROW = N + N / 32;             // padded residue row
+  static constexpr int ROWS = LEVELS * K1;           // digit rows (lev, r)
+  static constexpr int LO = LOG_N - 4;               // the first pass takes stages 0-3
+  static constexpr int LAST = (LOG_N - 5) % 4 + 1;   // stages of the last forward pass
+  static constexpr int MIDDLE = (LOG_N - 4 - LAST) / 4;
+  static constexpr int INV_LAST = (LOG_N - 1) % 4 + 1;
+  static constexpr int INV_MIDDLE = (LOG_N - INV_LAST) / 4;
+  // the digits (ROWS, N) int32 and one prime's padded rows (ROWS, ROW)
+  static constexpr int SMEM = (ROWS * N + ROWS * ROW) * 4;
+  static_assert(LOG_N >= 9 && LOG_N - LAST >= 5 && LOG_N - INV_LAST >= 5,
+                "the fused passes split pad() over their strides");
+};
+
+template <int K1, int LEVELS, int LOG_N>
+__global__ void __launch_bounds__(THREADS, 1)
+blind_rotate128_lazy_kernel(u128* __restrict__ acc_g, const int* __restrict__ mask_g,
+                            const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
+                            const uint2* __restrict__ tw_inv,
+                            const long long* __restrict__ consts_g,
+                            u32* __restrict__ scratch_g, int n_steps, int base_log) {
+  using S = Lazy128<K1, LEVELS, LOG_N>;
+  constexpr int N = S::N;
+  constexpr int ROW = S::ROW;
+  constexpr int ROWS = S::ROWS;
+  constexpr int LO = S::LO;
+  extern __shared__ u32 lazy_smem[];
+  __shared__ Consts128 c;
+  int* dig = (int*)lazy_smem;                 // (LEVELS, K1, N)
+  u32* rows = lazy_smem + ROWS * N;           // (LEVELS K1, ROW), one prime
+  const int tid = threadIdx.x;
+  u128* acc = acc_g + (size_t)blockIdx.x * K1 * N;
+  const int* mask_b = mask_g + (size_t)blockIdx.x * n_steps;
+  u32* scr = scratch_g + (size_t)blockIdx.x * NP6 * K1 * N;   // (6, K1, N)
+  if (tid == 0) load_consts128(c, consts_g);
+  __syncthreads();
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int a = mask_b[step];                 // in [0, 2N)
+    const int rot = a & (N - 1);
+    const bool odd = ((a >> LOG_N) & 1) != 0;
+
+    // 1. ct1 = acc X^a - acc, read from global memory, decomposed once
+    for (int q = tid; q < K1 * N; q += THREADS) {
+      const int r = q >> LOG_N;
+      const int j = q & (N - 1);
+      const u128* A = acc + r * N;
+      u128 v = j < rot ? (u128)0 - A[j - rot + N] : A[j - rot];
+      if (odd) v = (u128)0 - v;
+      u128 state = decomposer_state128(v - A[j], base_log, LEVELS);
+#pragma unroll
+      for (int lev = 0; lev < LEVELS; ++lev) {
+        dig[(lev * K1 + r) * N + j] = (int)next_digit128(state, base_log);
+      }
+    }
+    __syncthreads();
+
+    const uint4* key = bsk + (size_t)step * ROWS * K1 * NP6 * (N / 4);
+    for (int pi = 0; pi < NP6; ++pi) {
+      const u32 p = c.p[pi];
+      const u32 pinv = c.pinv[pi];
+      Consts one;                               // lazy_pass reads its prime from p[0]
+      one.p[0] = p;
+      const uint2* twf = tw_fwd + (pi << LOG_N);
+      const uint2* twi = tw_inv + (pi << LOG_N);
+
+      // 2. the digits' residues and forward stages 0-3, in registers
+      for (int q = tid; q < ROWS << LO; q += THREADS) {
+        const int row = q >> LO;
+        const int lo = q & ((1 << LO) - 1);
+        const int* d = dig + row * N + lo;
+        u32 v[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b) v[b] = lazy_digit_residue(d[b << LO], p);
+        lazy_forward_stages<4, LOG_N>(v, 0, 0, twf, p);
+        u32* x = rows + row * ROW + pad(lo);
+#pragma unroll
+        for (int b = 0; b < 16; ++b) x[pad(b << LO)] = v[b];
+      }
+      __syncthreads();
+      for (int m = 0; m < S::MIDDLE; ++m) {
+        lazy_pass<4, LOG_N, 1, THREADS, true>(rows, ROWS, 4 + 4 * m, twf, one);
+        __syncthreads();
+      }
+      lazy_pass<S::LAST, LOG_N, 1, THREADS, true>(rows, ROWS, LOG_N - S::LAST, twf, one);
+      __syncthreads();
+
+      // 3. the key product over four positions a task: one 16-byte key load
+      // a (row, column), up to four products summed in 64 bits before each
+      // Montgomery reduction (4 p^2 < p 2^32 for p < 2^30); written over
+      // rows 0 .. K1-1 in [0, 2p)
+      for (int q = tid; q < N / 4; q += THREADS) {
+        const int t0 = q * 4;
+        const int at = pad(t0);                 // pad(t0 + e) = at + e
+        u32 x[ROWS][4];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[r][e] = reduce_to(reduce_to(rows[r * ROW + at + e], 2 * p), p);
+        }
+        u32 out[K1][4];
+#pragma unroll
+        for (int cc = 0; cc < K1; ++cc) {
+          u64 sum[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) out[cc][e] = 0u;
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const uint4 k = __ldg(key + (((r * K1 + cc) * NP6 + pi) * N + t0) / 4);
+            sum[0] += (u64)x[r][0] * k.x;
+            sum[1] += (u64)x[r][1] * k.y;
+            sum[2] += (u64)x[r][2] * k.z;
+            sum[3] += (u64)x[r][3] * k.w;
+            if (r % 4 == 3 || r == ROWS - 1) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                out[cc][e] = reduce_to(out[cc][e] + redc_lazy(sum[e], p, pinv), 2 * p);
+                sum[e] = 0;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int cc = 0; cc < K1; ++cc) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rows[cc * ROW + at + e] = out[cc][e];
+        }
+      }
+      __syncthreads();
+
+      // 4. the inverse transforms of the K1 output rows; the last pass
+      // writes canonical residues to the scratch
+      for (int m = 0; m < S::INV_MIDDLE; ++m) {
+        lazy_pass<4, LOG_N, 1, THREADS, false>(rows, K1, 4 * m, twi, one);
+        __syncthreads();
+      }
+      constexpr int SL = S::INV_LAST;
+      constexpr int K0 = LOG_N - SL;
+      for (int q = tid; q < K1 << K0; q += THREADS) {
+        const int cc = q >> K0;
+        const int lo = q & ((1 << K0) - 1);
+        const u32* x = rows + cc * ROW + pad(lo);
+        u32 y[1 << SL];
+#pragma unroll
+        for (int b = 0; b < (1 << SL); ++b) y[b] = x[pad(b << K0)];
+        lazy_inverse_stages<SL, LOG_N>(y, K0, 0, twi, p);
+        u32* out = scr + (pi * K1 + cc) * N + lo;
+#pragma unroll
+        for (int b = 0; b < (1 << SL); ++b) out[b << K0] = reduce_to(y[b], p);
+      }
+      __syncthreads();
+    }
+
+    // 5. N^-1 and Garner to u128 over the six primes' residues; accumulate
+    for (int q = tid; q < K1 * N; q += THREADS) acc[q] += garner_u128(scr + q, K1 * N, c);
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int tfhe_torch_blind_rotate128_smem_bytes(int k1, int n_poly, int levels) {
@@ -272,29 +438,25 @@ extern "C" int tfhe_torch_blind_rotate128_smem_bytes(int k1, int n_poly, int lev
 
 namespace {
 
-template <int K1T, int LVT>
-cudaError_t launch(u128* acc, const int* mask, const u32* bsk, const u32* psi,
-                   const u32* psi_inv, const long long* consts, u32* scratch, int batch,
-                   int n_steps, int k1, int log_n, int levels, int base_log, int smem,
-                   cudaStream_t stream) {
-  auto kernel = blind_rotate128_kernel<K1T, LVT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kernel<<<batch, THREADS, smem, stream>>>(acc, mask, bsk, psi, psi_inv, consts, scratch,
-                                           n_steps, k1, log_n, levels, base_log);
-  return cudaGetLastError();
+template <int K1, int LEVELS, int LOG_N>
+cudaError_t launch_lazy(void* acc, const void* mask, const void* bsk, const void* tw_fwd,
+                        const void* tw_inv, const void* consts, void* scratch, int batch,
+                        int n_steps, int base_log, cudaStream_t stream) {
+  return launch_blocks(blind_rotate128_lazy_kernel<K1, LEVELS, LOG_N>, batch,
+                       Lazy128<K1, LEVELS, LOG_N>::SMEM, stream, (u128*)acc, (const int*)mask,
+                       (const uint4*)bsk, (const uint2*)tw_fwd, (const uint2*)tw_inv,
+                       (const long long*)consts, (u32*)scratch, n_steps, base_log);
 }
 
 }  // namespace
 
 // acc: (batch, k1, N) u128 (little-endian (lo, hi) u64 pairs), rotated in
-// place; scratch: batch * 6 * k1 * N u32.
+// place; psi, psi_inv: the plan's Montgomery twiddles (the generic kernel);
+// tw_fwd, tw_inv: their Shoup pairs (the lazy kernel); scratch:
+// batch * 6 * k1 * N u32.
 extern "C" int tfhe_torch_blind_rotate128(void* acc, const void* mask, const void* bsk,
                                           const void* psi, const void* psi_inv,
+                                          const void* tw_fwd, const void* tw_inv,
                                           const void* consts, void* scratch, int batch,
                                           int n_steps, int k1, int log_n, int levels,
                                           int nprimes, int base_log, void* stream) {
@@ -303,9 +465,18 @@ extern "C" int tfhe_torch_blind_rotate128(void* acc, const void* mask, const voi
       log_n > 16 || batch < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = tfhe_torch_blind_rotate128_smem_bytes(k1, 1 << log_n, levels);
-  auto run = (k1 == 3 && levels == 3) ? launch<3, 3> : launch<0, 0>;
-  return (int)run((u128*)acc, (const int*)mask, (const u32*)bsk, (const u32*)psi,
-                  (const u32*)psi_inv, (const long long*)consts, (u32*)scratch, batch,
-                  n_steps, k1, log_n, levels, base_log, smem, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (k1 == 3 && levels == 3 && log_n == 11) {
+    return (int)launch_lazy<3, 3, 11>(acc, mask, bsk, tw_fwd, tw_inv, consts, scratch, batch,
+                                      n_steps, base_log, st);
+  }
+  if (k1 == 2 && levels == 3 && log_n == 9) {
+    return (int)launch_lazy<2, 3, 9>(acc, mask, bsk, tw_fwd, tw_inv, consts, scratch, batch,
+                                     n_steps, base_log, st);
+  }
+  return (int)launch_blocks(blind_rotate128_kernel, batch,
+                            tfhe_torch_blind_rotate128_smem_bytes(k1, 1 << log_n, levels), st,
+                            (u128*)acc, (const int*)mask, (const u32*)bsk, (const u32*)psi,
+                            (const u32*)psi_inv, (const long long*)consts, (u32*)scratch,
+                            n_steps, k1, log_n, levels, base_log);
 }

@@ -42,15 +42,27 @@
 // accumulator's high words (134,144 B); each pattern is three passes (the
 // first forward pass fused with the rotation and decomposition, the
 // second, the last fused with the key product), each group ends with
-// three inverse passes, the last fused with Garner.  The exact kernel
-// below keeps its design for the exact (key-bundle) mode.
+// three inverse passes, the last fused with Garner.
 //
-// Exact kernel (blind_rotate_multibit_kernel): one thread block per batch
-// element looping over the groups, all blocks in the same order so that one
-// group's key slice is served from L2 to the blocks in flight.  The
-// accumulator ((k+1) N u64) and the digit residues (l (k+1) P rows) stay in
-// shared memory: 100,352 B at GROUP_4 2_2.  NTTs, decomposition and Garner
-// are ntt_common.cuh's four-prime passes.
+// Exact mode (the key bundle) bounds differently: what held the first exact
+// kernel (one ciphertext a block, 330.83 ms at B = 512 on an NVIDIA H100
+// 80GB HBM3 at 700 W) was the bundle, 90 % of a group: 16 pattern words a
+// (row, column, prime, position), each a 4-byte load consumed at once by a
+// fully reduced Montgomery product, so the block waited on L2 latency.
+// Design of the lazy exact kernel (blind_rotate_multibit_lazy_kernel,
+// k + 1 = 2, one level, N = 2048, g = 2 or 4, four primes): XC = 2
+// ciphertexts a block of 512 threads (217,088 B of shared memory: their
+// residue rows, their u64 accumulators and one prime's monomial table);
+// the first forward pass takes the u64 decomposition and four lazy stages
+// in registers; the bundle's key words come as 8-byte loads (two
+// positions) that feed both ciphertexts, the monomials psi^e from the
+// one-period table in shared memory, and its products are summed in 64
+// bits with one Montgomery reduction every four patterns; the last inverse
+// pass takes N^-1 and Garner into the accumulator (ntt_common.cuh
+// exact_last_inverse).  Other exact shapes (GROUP_3's l = 2, g = 1,
+// k + 1 != 2) run the generic kernel (blind_rotate_multibit_kernel, the
+// first design): one block per batch element, the accumulator and the digit
+// residues in shared memory, ntt_common.cuh's fully reduced passes.
 
 #include "ntt_common.cuh"
 
@@ -67,15 +79,12 @@ constexpr int MAX_SUB = 16;     // 2^g patterns a group, g <= 4
 // res[(cc, pi)] = sum_{lev, r} res[(lev, r, pi)] . eff[lev][r][cc], in place
 // (a position's reads all come before its writes, and no other thread
 // touches it).
-template <int K1T, int LVT>
 __device__ __forceinline__ void bundle_product(u32* res, const u32* __restrict__ key,
                                                const u32* __restrict__ mono,
                                                const int* d_s, int n_sub,
-                                               size_t pattern_words, int k1_arg,
-                                               int levels_arg, int log_n, int row,
+                                               size_t pattern_words, int k1,
+                                               int levels, int log_n, int row,
                                                const Consts& c) {
-  const int k1 = K1T > 0 ? K1T : k1_arg;
-  const int levels = LVT > 0 ? LVT : levels_arg;
   const int n_poly = 1 << log_n;
   const u32 four_n_mask = 4u * n_poly - 1u;
   for (int q = threadIdx.x; q < NP * n_poly; q += THREADS) {
@@ -119,22 +128,14 @@ __device__ __forceinline__ void bundle_product(u32* res, const u32* __restrict__
   }
 }
 
-// K1T, LVT > 0 fix k + 1 and the level count at compile time (the GROUP_4
-// 2_2 main path); 0 takes them from the arguments.  112 registers a thread
-// at most (one block of THREADS an SM either way): left free, ptxas takes
-// 119-122 and the kernel runs about 5 % slower (GROUP_4 2_2, B = 512, on an
-// NVIDIA H100 80GB HBM3 at 700 W).
-template <int K1T, int LVT>
-__global__ void __maxnreg__(112)
+// The generic instance (the first design): every shape the wrapper accepts.
+__global__ void __launch_bounds__(THREADS, 1)
 blind_rotate_multibit_kernel(long long* __restrict__ acc_g, const int* __restrict__ deg_g,
                              const u32* __restrict__ bsk, const u32* __restrict__ psi,
                              const u32* __restrict__ psi_inv,
                              const u32* __restrict__ mono,
                              const long long* __restrict__ consts_g, int n_groups,
-                             int grouping, int k1_arg, int log_n, int levels_arg,
-                             int base_log) {
-  const int k1 = K1T > 0 ? K1T : k1_arg;
-  const int levels = LVT > 0 ? LVT : levels_arg;
+                             int grouping, int k1, int log_n, int levels, int base_log) {
   extern __shared__ u64 smem[];
   __shared__ Consts c;
   __shared__ int d_s[MAX_SUB];
@@ -171,7 +172,7 @@ blind_rotate_multibit_kernel(long long* __restrict__ acc_g, const int* __restric
     __syncthreads();
     forward_ntt(res, in_polys, log_n, row, psi, c);
     // 2. product with the effective GGSW, into slots (0, cc)
-    bundle_product<K1T, LVT>(res, key, mono, d_s, n_sub, pattern_words, k1, levels,
+    bundle_product(res, key, mono, d_s, n_sub, pattern_words, k1, levels,
                              log_n, row, c);
     __syncthreads();
     // 3. inverse NTT, Garner; replaces acc
@@ -186,36 +187,212 @@ blind_rotate_multibit_kernel(long long* __restrict__ acc_g, const int* __restric
   for (int q = tid; q < coeffs; q += THREADS) acc_b[q] = (long long)acc[q];
 }
 
+// ---------------------------------------------------------------------------
+// The lazy exact kernel (blind_rotate_multibit_lazy_kernel): k + 1 = 2, one
+// level, N = 2048, four primes, 2^g = NSUB patterns a group, XC ciphertexts
+// a block sharing every key load.
+// ---------------------------------------------------------------------------
+
+constexpr int XC = 2;                   // ciphertexts a block
+constexpr int X_LOG_N = 11;
+constexpr int X_N = 1 << X_LOG_N;
+constexpr int X_K1 = 2;
+constexpr int X_ROW = X_N + X_N / 32;
+constexpr int X_ROWS = XC * X_K1 * NP;  // residue rows (ct, r, prime), then (ct, cc, prime)
+// the rows, the accumulators (XC, K1, N) u64 and one prime's monomial
+// table psi^e, e < 2N (psi has order 2N): 217,088 B
+constexpr int X_SMEM = X_ROWS * X_ROW * 4 + XC * X_K1 * X_N * 8 + 2 * X_N * 4;
+
+__host__ __device__ constexpr bool lazy_exact_shape(int k1, int log_n, int levels,
+                                                    int grouping, int base_log) {
+  return k1 == X_K1 && log_n == X_LOG_N && levels == 1 && (grouping == 2 || grouping == 4) &&
+         base_log <= 30;
+}
+
+template <int NSUB>
+__global__ void __launch_bounds__(THREADS, 1)
+blind_rotate_multibit_lazy_kernel(long long* __restrict__ acc_g, const int* __restrict__ deg_g,
+                                  const uint2* __restrict__ bsk,
+                                  const uint2* __restrict__ tw_fwd,
+                                  const uint2* __restrict__ tw_inv,
+                                  const u32* __restrict__ mono,
+                                  const long long* __restrict__ consts_g, int n_groups,
+                                  int base_log) {
+  constexpr int N = X_N;
+  constexpr int LO = X_LOG_N - 4;
+  extern __shared__ u64 x_smem[];
+  __shared__ Consts c;
+  __shared__ int d_s[XC][NSUB];
+  u64* acc = x_smem;                              // (XC, K1, N)
+  u32* res = (u32*)(x_smem + XC * X_K1 * N);      // (X_ROWS, X_ROW)
+  u32* mono_s = res + X_ROWS * X_ROW;             // (2N), one prime
+  const int tid = threadIdx.x;
+  long long* acc_b = acc_g + (size_t)blockIdx.x * XC * X_K1 * N;
+  const int* deg_b = deg_g + (size_t)blockIdx.x * XC * n_groups * NSUB;
+  if (tid == 0) load_consts(c, consts_g);
+  for (int q = tid; q < XC * X_K1 * N; q += THREADS) acc[q] = (u64)acc_b[q];
+
+  for (int grp = 0; grp < n_groups; ++grp) {
+    if (tid < XC * NSUB) {
+      d_s[tid / NSUB][tid % NSUB] = deg_b[((tid / NSUB) * n_groups + grp) * NSUB + tid % NSUB];
+    }
+    __syncthreads();
+    // 1. the one-level signed digits of acc and, for each prime, their
+    // residues and forward stages 0-3 in registers: task (ct, r, lo) owns
+    // coefficients b 2^7 | lo
+    for (int q = tid; q < (XC * X_K1) << LO; q += THREADS) {
+      const int row = q >> LO;                    // ct K1 + r
+      const int lo = q & ((1 << LO) - 1);
+      const u64* A = acc + row * N + lo;
+      int dig[16];
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        u64 state = decomposer_state(A[b << LO], base_log, 1);
+        dig[b] = (int)next_digit(state, base_log);
+      }
+      u32* rows = res + row * NP * X_ROW + pad(lo);
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        const u32 p = c.p[pi];
+        u32 v[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b) v[b] = lazy_digit_residue(dig[b], p);
+        lazy_forward_stages<4, X_LOG_N>(v, 0, 0, tw_fwd + (pi << X_LOG_N), p);
+#pragma unroll
+        for (int b = 0; b < 16; ++b) rows[pi * X_ROW + pad(b << LO)] = v[b];
+      }
+    }
+    __syncthreads();
+    lazy_pass<4, X_LOG_N, NP, THREADS, true>(res, X_ROWS, 4, tw_fwd, c);
+    __syncthreads();
+    lazy_pass<3, X_LOG_N, NP, THREADS, true>(res, X_ROWS, 8, tw_fwd, c);
+    __syncthreads();
+
+    // 2. the bundle eff = E_0 + sum_u w_u E_u of each ciphertext, w_u =
+    // NTT(X^{d_u})[t] from the monomial table in shared memory, summed in
+    // 64 bits with one Montgomery reduction for every four patterns; then
+    // the product with the digits' transform, over the rows (ct, cc, prime).
+    // Task: two positions of one prime, both ciphertexts, each key load
+    // (8 bytes) feeding both.
+    const uint2* gkey = bsk + (size_t)grp * NSUB * X_K1 * X_K1 * NP * (N / 2);
+    for (int pi = 0; pi < NP; ++pi) {
+      const u32 p = c.p[pi];
+      const u32 pinv = c.pinv[pi];
+      for (int q = tid; q < 2 * N; q += THREADS) mono_s[q] = __ldg(mono + (size_t)pi * 4 * N + q);
+      __syncthreads();
+      for (int q = tid; q < N / 2; q += THREADS) {
+        const int t0 = 2 * q;
+        const int at = pad(t0);                   // pad(t0 + 1) = at + 1
+        u32 odd[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) odd[e] = 2u * (__brev((u32)(t0 + e)) >> (32 - X_LOG_N)) + 1u;
+        u32 part[XC][4][2];
+        u64 sum[XC][4][2];
+#pragma unroll
+        for (int en = 0; en < 4; ++en) {
+          const uint2 k = __ldg(gkey + (en * NP + pi) * (N / 2) + q);
+#pragma unroll
+          for (int ct = 0; ct < XC; ++ct) {
+            part[ct][en][0] = k.x;
+            part[ct][en][1] = k.y;
+            sum[ct][en][0] = sum[ct][en][1] = 0;
+          }
+        }
+#pragma unroll
+        for (int u = 1; u < NSUB; ++u) {
+          uint2 k[4];
+#pragma unroll
+          for (int en = 0; en < 4; ++en) {
+            k[en] = __ldg(gkey + ((u * 4 + en) * NP + pi) * (N / 2) + q);
+          }
+#pragma unroll
+          for (int ct = 0; ct < XC; ++ct) {
+            const u32 d = (u32)d_s[ct][u];
+            const u32 w0 = mono_s[(odd[0] * d) & (2 * N - 1)];
+            const u32 w1 = mono_s[(odd[1] * d) & (2 * N - 1)];
+#pragma unroll
+            for (int en = 0; en < 4; ++en) {
+              sum[ct][en][0] += (u64)w0 * k[en].x;
+              sum[ct][en][1] += (u64)w1 * k[en].y;
+            }
+          }
+          if (u % 4 == 0 || u == NSUB - 1) {
+#pragma unroll
+            for (int ct = 0; ct < XC; ++ct) {
+#pragma unroll
+              for (int en = 0; en < 4; ++en) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  part[ct][en][e] =
+                      reduce_to(part[ct][en][e] + redc_lazy(sum[ct][en][e], p, pinv), 2 * p);
+                  sum[ct][en][e] = 0;
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int ct = 0; ct < XC; ++ct) {
+          u32 x[X_K1][2];
+#pragma unroll
+          for (int r = 0; r < X_K1; ++r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              x[r][e] = reduce_to(reduce_to(res[((ct * X_K1 + r) * NP + pi) * X_ROW + at + e],
+                                            2 * p), p);
+            }
+          }
+#pragma unroll
+          for (int cc = 0; cc < X_K1; ++cc) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              u64 t = 0;
+#pragma unroll
+              for (int r = 0; r < X_K1; ++r) {
+                t += (u64)x[r][e] * reduce_to(part[ct][r * X_K1 + cc][e], p);
+              }
+              // every x of this ciphertext and position was read above, so
+              // writing row (ct, cc) over row (ct, r = cc) is safe
+              res[((ct * X_K1 + cc) * NP + pi) * X_ROW + at + e] = redc_lazy(t, p, pinv);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // 3. inverse passes; the last fused with N^-1 and Garner into acc
+    lazy_pass<4, X_LOG_N, NP, THREADS, false>(res, X_ROWS, 0, tw_inv, c);
+    __syncthreads();
+    lazy_pass<4, X_LOG_N, NP, THREADS, false>(res, X_ROWS, 4, tw_inv, c);
+    __syncthreads();
+    exact_last_inverse<X_LOG_N, X_K1, NP, XC, THREADS>(res, acc, tw_inv, c);
+    __syncthreads();
+  }
+
+  for (int q = tid; q < XC * X_K1 * N; q += THREADS) acc_b[q] = (long long)acc[q];
+}
+
 }  // namespace
 
 extern "C" int tfhe_torch_blind_rotate_multibit_smem_bytes(int k1, int n_poly, int levels) {
   return k1 * n_poly * 8 + levels * k1 * NP * padded_len(n_poly) * 4;
 }
 
-namespace {
-
-template <int K1T, int LVT>
-cudaError_t launch(long long* acc, const int* deg, const u32* bsk, const u32* psi,
-                   const u32* psi_inv, const u32* mono, const long long* consts,
-                   int batch, int n_groups, int grouping, int k1, int log_n, int levels,
-                   int base_log, int smem, cudaStream_t stream) {
-  auto kernel = blind_rotate_multibit_kernel<K1T, LVT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kernel<<<batch, THREADS, smem, stream>>>(acc, deg, bsk, psi, psi_inv, mono, consts,
-                                           n_groups, grouping, k1, log_n, levels,
-                                           base_log);
-  return cudaGetLastError();
+// The ciphertexts a block of the exact kernel this shape runs: XC on the
+// lazy kernel's shapes (the wrapper pads the batch to a multiple), else 1.
+extern "C" int tfhe_torch_blind_rotate_multibit_cts_per_block(int k1, int log_n, int levels,
+                                                              int grouping, int base_log) {
+  return lazy_exact_shape(k1, log_n, levels, grouping, base_log) ? XC : 1;
 }
 
-}  // namespace
-
+// Exact mode: psi, psi_inv, the plan's Montgomery twiddles (the generic
+// kernel); tw_fwd, tw_inv, their Shoup pairs (the lazy kernel); mono, the
+// (P, 4N) monomial table.  On the lazy kernel's shapes batch must be a
+// multiple of XC.
 extern "C" int tfhe_torch_blind_rotate_multibit(void* acc, const void* deg, const void* bsk,
                                                 const void* psi, const void* psi_inv,
+                                                const void* tw_fwd, const void* tw_inv,
                                                 const void* mono, const void* consts,
                                                 int batch, int n_groups, int grouping,
                                                 int k1, int log_n, int levels, int nprimes,
@@ -226,14 +403,23 @@ extern "C" int tfhe_torch_blind_rotate_multibit(void* acc, const void* deg, cons
       n_groups < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = tfhe_torch_blind_rotate_multibit_smem_bytes(k1, 1 << log_n, levels);
-  auto run = (k1 == 2 && levels == 1) ? launch<2, 1> : launch<0, 0>;
-  return (int)run((long long*)acc, (const int*)deg, (const u32*)bsk, (const u32*)psi,
-                  (const u32*)psi_inv, (const u32*)mono, (const long long*)consts, batch,
-                  n_groups, grouping, k1, log_n, levels, base_log, smem,
-                  (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (lazy_exact_shape(k1, log_n, levels, grouping, base_log)) {
+    if (batch % XC != 0) return (int)cudaErrorInvalidValue;
+    auto kernel = grouping == 4 ? blind_rotate_multibit_lazy_kernel<16>
+                                : blind_rotate_multibit_lazy_kernel<4>;
+    return (int)launch_blocks(kernel, batch / XC, X_SMEM, st, (long long*)acc,
+                              (const int*)deg, (const uint2*)bsk, (const uint2*)tw_fwd,
+                              (const uint2*)tw_inv, (const u32*)mono,
+                              (const long long*)consts, n_groups, base_log);
+  }
+  return (int)launch_blocks(blind_rotate_multibit_kernel, batch,
+                            tfhe_torch_blind_rotate_multibit_smem_bytes(k1, 1 << log_n, levels),
+                            st, (long long*)acc, (const int*)deg, (const u32*)bsk,
+                            (const u32*)psi, (const u32*)psi_inv, (const u32*)mono,
+                            (const long long*)consts, n_groups, grouping, k1, log_n, levels,
+                            base_log);
 }
-
 
 // ---------------------------------------------------------------------------
 // v9 mode on a rounded kernel-layout key (ops/bsk_prep.py RoundedKeyNtt):

@@ -6,11 +6,16 @@
 // Montgomery arithmetic reduced after every add, sub and product, radix-2
 // stages in register passes of up to four over padded shared-memory rows,
 // N^-1 applied in Garner; their prime comes from a constants object
-// (prime_of, modulus, minv), so K5 runs them one prime of its six at a
-// time.  K2's and K3's exact kernels, K4 and K5 use them.
+// (prime_of, modulus, minv), so K5's generic kernel runs them one prime of
+// its six at a time.  K2's exact kernel and step entry, K4 and the generic
+// kernels of K3's exact mode and of K5 use them.
 //
-// The rounded-key core (from reduce_to on), for K2's v7 and K3's v9
-// kernels on a RoundedKeyNtt: what bounds those kernels on the H100 is
+// The lazy core (from reduce_to on), for K2's v7 and K3's v9 kernels on a
+// RoundedKeyNtt and for the lazy exact kernels of K3 and K5 (one prime at
+// a time there: lazy_pass with NPT = 1 on a Consts whose p[0] is that
+// prime; redc_lazy for sums of up to four products, lazy_digit_residue for
+// the first pass's inputs, exact_last_inverse for K3's N^-1 and Garner):
+// what bounds those kernels on the H100 is
 // 32-bit integer issue, so the core cuts instructions and passes.  Lazy
 // (Harvey) butterflies with Shoup twiddle pairs keep residues in [0, 4p)
 // (every prime is below 2^30, so that fits a u32) and spend three
@@ -334,6 +339,19 @@ __device__ __forceinline__ u32 mont_lazy(u32 a, u32 b, u32 p, u32 pinv) {
   return (u32)((t + (u64)m * p) >> 32);
 }
 
+// t R^-1 mod p in [0, 2p) for a 64-bit sum t < p 2^32: up to four products
+// of canonical residues (4 p^2 < p 2^32 for p < 2^30), one reduction.
+__device__ __forceinline__ u32 redc_lazy(u64 t, u32 p, u32 pinv) {
+  const u32 m = (u32)t * pinv;
+  return (u32)((t + (u64)m * p) >> 32);
+}
+
+// The residue in [0, 4p) of a signed digit |d| <= 2^30 (p > 2^29): d + 2p,
+// a valid input of the lazy forward stages.
+__device__ __forceinline__ u32 lazy_digit_residue(int d, u32 p) {
+  return (u32)d + 2 * p;
+}
+
 // Forward butterflies of stages k0 .. k0+S-1 on the 2^S values a thread
 // holds (coefficient base | b << lo_bits), twiddle block offset hi.  One
 // stage D an instantiation, so that every loop bound is a constant and the
@@ -577,6 +595,48 @@ __device__ __forceinline__ void fused_last_inverse(const u32* res, u32* acc, int
   }
 }
 
+// The last inverse pass (stages LOG_N-3 .. LOG_N-1) of an exact product
+// (a key without N^-1) fused with N^-1 and Garner: task (ct, cc, lo) owns
+// coefficients j = lo | b 2^(LOG_N-3), b < 8, of output row cc of
+// ciphertext ct, finishes their transforms for every prime in registers
+// and writes each reconstructed u64 word over the accumulator (C, K1, N)
+// (K3's exact kernel).
+template <int LOG_N, int K1, int NPT, int C, int NT>
+__device__ __forceinline__ void exact_last_inverse(const u32* res, u64* acc,
+                                                   const uint2* __restrict__ tw,
+                                                   const Consts& c) {
+  constexpr int N = 1 << LOG_N;
+  constexpr int ROW = N + N / 32;
+  constexpr int S = 3;
+  constexpr int K0 = LOG_N - S;
+  for (int q = threadIdx.x; q < C * K1 * (1 << K0); q += NT) {
+    const int ct = q / (K1 << K0);
+    const int cc = (q >> K0) % K1;
+    const int lo = q & ((1 << K0) - 1);
+    const u32* rows = res + (ct * K1 + cc) * NPT * ROW + pad(lo);
+    u32 y[NPT][1 << S];
+#pragma unroll
+    for (int pi = 0; pi < NPT; ++pi) {
+      const u32 p = c.p[pi];
+#pragma unroll
+      for (int b = 0; b < (1 << S); ++b) y[pi][b] = rows[pi * ROW + pad(b << K0)];
+      lazy_inverse_stages<S, LOG_N>(y[pi], K0, 0, tw + (pi << LOG_N), p);
+#pragma unroll
+      for (int b = 0; b < (1 << S); ++b) {
+        y[pi][b] = mont_mul(reduce_to(y[pi][b], p), c.ninv[pi], p, c.pinv[pi]);
+      }
+    }
+    u64* A = acc + (ct * K1 + cc) * N;
+#pragma unroll
+    for (int b = 0; b < (1 << S); ++b) {
+      u32 dg[NPT];
+#pragma unroll
+      for (int pi = 0; pi < NPT; ++pi) dg[pi] = y[pi][b];
+      A[lo | (b << K0)] = garner_signed<NPT>(dg, c);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The rounded-key kernels' shape and key product (K2's v7 and K3's v9
 // kernels): k + 1 = 2, one level, N = 2048, RK_C ciphertexts a block of
@@ -649,6 +709,20 @@ __device__ __forceinline__ void rk_key_product(u32* res, int q, const uint4* __r
       row1[at + b] = o1;
     }
   }
+}
+
+// Launch kernel on blocks blocks of THREADS threads with smem bytes of
+// dynamic shared memory, the SM's carveout set to shared memory first.
+template <class K, class... A>
+cudaError_t launch_blocks(K kernel, int blocks, int smem, cudaStream_t stream, A... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // Launch a rounded-key kernel over batch / RK_C blocks (the caller checks

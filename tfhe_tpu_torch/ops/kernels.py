@@ -94,7 +94,10 @@ def load() -> dict:
         fn.argtypes = [i]
         fn.restype = i
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit
-        fn.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        fn.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_cts_per_block
+        fn.argtypes = [i] * 5
         fn.restype = i
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
         fn.argtypes = [i] * 3
@@ -103,7 +106,7 @@ def load() -> dict:
         fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128
-        fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
+        fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128_smem_bytes
         fn.argtypes = [i] * 3
@@ -298,6 +301,16 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
 cmux_step.launches = 0
 
 
+def exact_multibit_cts_per_block(k1: int, n_poly: int, levels: int, grouping: int,
+                                 base_log: int) -> int:
+    """The ciphertexts a block of K3's exact kernel at this shape (its lazy
+    kernel's C at GROUP_4 and GROUP_2 2_2-like shapes, else 1:
+    csrc/blind_rotate_multibit.cu lazy_exact_shape); the wrapper pads the
+    batch to a multiple of it."""
+    return load()["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_cts_per_block(
+        k1, n_poly.bit_length() - 1, levels, grouping, base_log)
+
+
 def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
                           base_log: int, levels: int, v9: bool = False):
     """K3: batched multi-bit blind rotation, in v9 mode (monomials on the
@@ -348,22 +361,25 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
              f"multi-bit blind rotation with k+1 = {k1}, N = {n_poly}, "
              f"l = {levels} needs {smem} B of shared memory, above the "
              f"{SMEM_LIMIT} B a block may use (ROADMAP.md queue 3)")
-    acc = server.initial_accumulator(lut, msed_body, False).contiguous()
-    deg32 = degrees.to(torch.int32).contiguous()
+    log_n = n_poly.bit_length() - 1
+    per_block = exact_multibit_cts_per_block(k1, n_poly, levels, grouping, base_log)
+    acc = pad_batch(server.initial_accumulator(lut, msed_body, False), per_block)
+    deg32 = pad_batch(degrees.to(torch.int32), per_block)
     mb_key_ntt = mb_key_ntt.contiguous()
     mono = server.monomial_table(dp)[0]
+    tw_fwd, tw_inv = shoup_twiddles(dp)
     _check_cuda((acc, torch.int64), (deg32, torch.int32),
                 (mb_key_ntt, torch.int32), (dp.psi32, torch.int32),
-                (dp.psi_inv32, torch.int32), (mono, torch.int32),
-                (dp.kernel_consts, torch.int64))
+                (dp.psi_inv32, torch.int32), (tw_fwd, torch.int32), (tw_inv, torch.int32),
+                (mono, torch.int32), (dp.kernel_consts, torch.int64))
     err = lib.tfhe_torch_blind_rotate_multibit(
         acc.data_ptr(), deg32.data_ptr(), mb_key_ntt.data_ptr(),
-        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(), mono.data_ptr(),
-        dp.kernel_consts.data_ptr(), b, n_groups, grouping, k1,
-        n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
+        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
+        mono.data_ptr(), dp.kernel_consts.data_ptr(), acc.shape[0], n_groups, grouping, k1,
+        log_n, levels, nprimes, base_log, _stream(acc))
     _raise_on(err, "blind_rotate_multibit")
     blind_rotate_multibit.launches += 1
-    return acc
+    return acc[:b]
 
 
 blind_rotate_multibit.launches = 0
@@ -438,14 +454,16 @@ def blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi, bsk_ntt, dp: DevicePla
     mask32 = msed_mask.to(torch.int32).contiguous()
     bsk_ntt = bsk_ntt.contiguous()
     scratch = torch.empty((b, nprimes, k1, n_poly), dtype=torch.int32, device=acc.device)
+    tw_fwd, tw_inv = shoup_twiddles(dp)
     _check_cuda((acc, torch.int64), (mask32, torch.int32), (bsk_ntt, torch.int32),
-                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
-                (dp.kernel_consts128, torch.int64), (scratch, torch.int32))
+                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32), (tw_fwd, torch.int32),
+                (tw_inv, torch.int32), (dp.kernel_consts128, torch.int64),
+                (scratch, torch.int32))
     err = lib.tfhe_torch_blind_rotate128(
         acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(), dp.psi32.data_ptr(),
-        dp.psi_inv32.data_ptr(), dp.kernel_consts128.data_ptr(), scratch.data_ptr(),
-        b, n_steps, k1, n_poly.bit_length() - 1, levels, nprimes, base_log,
-        _stream(acc))
+        dp.psi_inv32.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
+        dp.kernel_consts128.data_ptr(), scratch.data_ptr(), b, n_steps, k1,
+        n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
     _raise_on(err, "blind_rotate128")
     blind_rotate128.launches += 1
     return acc[..., 0], acc[..., 1]

@@ -1,0 +1,303 @@
+#!/usr/bin/env python3
+"""Cycles by phase of K5 (csrc/blind_rotate128.cu) and K3's exact kernel
+(csrc/blind_rotate_multibit.cu) on one CUDA card, at B = 512.
+
+    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [nophase]
+
+From the root of a checkout.  For each kernel it times the real library
+(CUDA events, a head of the production shape's steps or groups on a
+random key, scaled to the full rotation), then builds into
+build/phase_cycles/ a copy of the kernel's source whose __syncthreads()
+has block 0, thread 0 add the clock64() cycles before and after each
+barrier into a table by source line, runs it once and prints the work
+and the wait a step (a group) at each barrier: a phase is the code that
+ends at that barrier.  ``checks`` first holds both kernels against their
+plain versions at their production, TEST and generic shapes; ``step``
+times K2's step entry (kernels.cmux_step) at B = 512.  Writes
+build/phase_cycles/phase.json.
+"""
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from tfhe_tpu_torch.ops import kernels, ntt, torus, server  # noqa: E402
+from tfhe_tpu_torch.utils.build import CSRC  # noqa: E402
+
+HERE = ROOT / "build" / "phase_cycles"
+SLOTS = 20000
+FUNCS = ["tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
+         "tfhe_torch_blind_rotate_multibit", "tfhe_torch_blind_rotate_multibit_smem_bytes",
+         "tfhe_torch_blind_rotate_multibit_cts_per_block"]
+B = 512
+
+
+HARNESS = r"""// Phase-cycle harness: block 0, thread 0 adds clock64() deltas before and
+// after every barrier into arrays indexed by (file tag, line).
+#include <cuda_runtime.h>
+#define PH_SLOTS 20000
+__device__ unsigned long long ph_work[PH_SLOTS];
+__device__ unsigned long long ph_wait[PH_SLOTS];
+__device__ unsigned long long ph_cnt[PH_SLOTS];
+__device__ long long ph_last;
+__host__ __device__ constexpr int ph_tag(const char* f, int i = 0) {
+  return f[i] == 0 ? 0
+         : (f[i] == '.' && f[i + 1] == 'c' && f[i + 2] == 'u' && f[i + 3] == 'h') ? 10000
+                                                                                   : ph_tag(f, i + 1);
+}
+__device__ __forceinline__ void ph_sync(int slot) {
+  const bool me = blockIdx.x == 0 && threadIdx.x == 0;
+  long long t0 = 0;
+  if (me) t0 = clock64();
+  asm volatile("bar.sync 0;" ::: "memory");
+  if (me) {
+    const long long t1 = clock64();
+    if (ph_last != 0) {
+      ph_work[slot] += (unsigned long long)(t0 - ph_last);
+      ph_wait[slot] += (unsigned long long)(t1 - t0);
+      ph_cnt[slot] += 1;
+    }
+    ph_last = t1;
+  }
+}
+#define __syncthreads() ph_sync(__LINE__ + ph_tag(__FILE__))
+"""
+
+WRAPPER = r"""#include "harness.cuh"
+#include "{source}"
+extern "C" int ph_read(unsigned long long* out) {
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(out, ph_work, sizeof(unsigned long long) * PH_SLOTS);
+  cudaMemcpyFromSymbol(out + PH_SLOTS, ph_wait, sizeof(unsigned long long) * PH_SLOTS);
+  cudaMemcpyFromSymbol(out + 2 * PH_SLOTS, ph_cnt, sizeof(unsigned long long) * PH_SLOTS);
+  return (int)cudaGetLastError();
+}
+extern "C" int ph_reset() {
+  static unsigned long long z[PH_SLOTS] = {0};
+  long long zl = 0;
+  cudaMemcpyToSymbol(ph_work, z, sizeof z);
+  cudaMemcpyToSymbol(ph_wait, z, sizeof z);
+  cudaMemcpyToSymbol(ph_cnt, z, sizeof z);
+  cudaMemcpyToSymbol(ph_last, &zl, sizeof zl);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def write_sources():
+    """The harness header and one wrapper a kernel source, in HERE."""
+    HERE.mkdir(parents=True, exist_ok=True)
+    (HERE / "harness.cuh").write_text(HARNESS)
+    for name, source in (("h_k5", "blind_rotate128.cu"), ("h_k3", "blind_rotate_multibit.cu")):
+        (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(CSRC / source)))
+
+
+def build(names):
+    write_sources()
+    cmd = kernels.nvcc_command() + ["-Xptxas", "-v"]
+    procs = [(n, subprocess.Popen(cmd + ["-o", str(HERE / f"lib{n}.so"), str(HERE / f"{n}.cu")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for n in names]
+    libs = {}
+    for n, p in procs:
+        log, _ = p.communicate()
+        print(f"== {n} rc={p.returncode}\n" + "\n".join(
+            l for l in log.splitlines() if "registers" in l or "spill" in l or "error" in l
+            or "Compiling entry" in l)[-3000:], flush=True)
+        if p.returncode:
+            print(log[-5000:])
+            raise SystemExit(1)
+        libs[n] = ctypes.CDLL(str(HERE / f"lib{n}.so"))
+    return libs
+
+
+def swap(name, lib):
+    orig = kernels.load()[name]
+    for f in FUNCS:
+        if hasattr(orig, f) and hasattr(lib, f):
+            getattr(lib, f).argtypes = getattr(orig, f).argtypes
+            getattr(lib, f).restype = getattr(orig, f).restype
+    kernels._Libs.loaded[name] = lib
+    return orig
+
+
+def src_line(slot, src):
+    """The source line of a barrier's slot (10000 and up: ntt_common.cuh)."""
+    return f"{'ntt_common.cuh' if slot >= 10000 else src}:{slot % 10000}"
+
+
+def ms(fn, reps=2):
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def phases(lib, fn, src, units):
+    lib.ph_reset()
+    fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (3 * SLOTS))()
+    lib.ph_read(buf)
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(3, SLOTS)
+    rows = []
+    for slot in np.nonzero(a[2])[0]:
+        rows.append({"at": src_line(int(slot), src), "count": int(a[2, slot]),
+                     "work_per_unit": a[0, slot] / units, "wait_per_unit": a[1, slot] / units})
+    rows.sort(key=lambda r: (r["at"].startswith("ntt"), int(r["at"].split(":")[1])))
+    tot = sum(r["work_per_unit"] + r["wait_per_unit"] for r in rows)
+    wait = sum(r["wait_per_unit"] for r in rows)
+    return {"rows": rows, "total_per_unit": tot, "wait_per_unit": wait}
+
+
+def k5(libs, out, steps=64, check=True):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    n, k1, lev, bl = 2048, 3, 3, 24
+    dp = ntt.device_plan(ntt.make_plan(n, 6), "cuda")
+    key = torch.stack([torch.randint(0, q, (steps, lev, k1, k1, n), generator=gen, device="cuda")
+                       for q in dp.plan.primes], dim=-2).to(torch.int32)
+    mask = torch.from_numpy(rng.integers(0, 2 * n, (B, steps))).cuda()
+    body = torch.from_numpy(rng.integers(0, 2 * n, (B,))).cuda()
+    lo, hi = (torus.from_u64(rng.integers(0, 1 << 64, (B, k1, n), dtype=np.uint64), "cuda")
+              for _ in range(2))
+    args = (mask, body, lo, hi, key, dp, bl, lev)
+    run = lambda: kernels.blind_rotate128(*args)  # noqa: E731
+    t = ms(run)
+    out["k5"] = {"steps": steps, "ms": t, "ms_scaled_918": t * 918 / steps}
+    if check:
+        sub = tuple(x[:2] for x in args[:4]) + args[4:]
+        g = kernels.blind_rotate128(*sub)
+        from tfhe_tpu_torch.ops import server128
+        w = server128.blind_rotate128(*sub)
+        out["k5"]["err"] = max(int((x - y).abs().max()) for x, y in zip(g, w))
+    if "h_k5" in libs:
+        swap("blind_rotate128", libs["h_k5"])
+        out["k5"]["phases"] = phases(libs["h_k5"], run, "blind_rotate128.cu", steps)
+        out["k5"]["ms_instrumented"] = ms(run, 1)
+
+
+def k3x(libs, out, groups=32, check=True):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    n, k1, lev, bl, g = 2048, 2, 1, 22, 4
+    dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+    key = torch.stack([torch.randint(0, q, (groups, 1 << g, lev, k1, k1, n), generator=gen,
+                                     device="cuda") for q in dp.plan.primes],
+                      dim=-2).to(torch.int32)
+    raw = torus.from_u64(rng.integers(0, 1 << 64, (B, groups * g), dtype=np.uint64), "cuda")
+    deg = server.multibit_switched_degrees(raw, g, 12)
+    body = torch.from_numpy(rng.integers(0, 2 * n, (B,))).cuda()
+    lut = torus.from_u64(rng.integers(0, 1 << 64, (B, k1, n), dtype=np.uint64), "cuda")
+    args = (deg, body, lut, key, dp, bl, lev)
+    run = lambda: kernels.blind_rotate_multibit(*args, v9=False)  # noqa: E731
+    t = ms(run)
+    out["k3x"] = {"groups": groups, "ms": t, "ms_scaled_230": t * 230 / groups}
+    if check:
+        sub = tuple(x[:3] for x in args[:3]) + args[3:]
+        out["k3x"]["err"] = int((kernels.blind_rotate_multibit(*sub, v9=False)
+                                 - server.blind_rotate_multibit(*sub)).abs().max())
+    if "h_k3" in libs:
+        swap("blind_rotate_multibit", libs["h_k3"])
+        out["k3x"]["phases"] = phases(libs["h_k3"], run, "blind_rotate_multibit.cu", groups)
+        out["k3x"]["ms_instrumented"] = ms(run, 1)
+
+
+def generic_checks(out):
+    """Shapes off the lazy kernels' main instances, B small, against plain."""
+    from tfhe_tpu_torch.ops import server128
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.default_rng(7)
+    res = {}
+    for tag, k1, n, lev, bl, steps in (("k5_test", 2, 512, 3, 24, 16), ("k5_generic", 3, 1024, 2, 20, 8),
+                                       ("k5_prod", 3, 2048, 3, 24, 8)):
+        dp = ntt.device_plan(ntt.make_plan(n, 6), "cuda")
+        key = torch.stack([torch.randint(0, q, (steps, lev, k1, k1, n), generator=gen, device="cuda")
+                           for q in dp.plan.primes], dim=-2).to(torch.int32)
+        for b in (1, 3):
+            a = (torch.from_numpy(rng.integers(0, 2 * n, (b, steps))).cuda(),
+                 torch.from_numpy(rng.integers(0, 2 * n, (b,))).cuda()) + tuple(
+                torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n), dtype=np.uint64), "cuda")
+                for _ in range(2)) + (key, dp, bl, lev)
+            g, w = kernels.blind_rotate128(*a), server128.blind_rotate128(*a)
+            res[f"{tag}_b{b}"] = max(int((x - y).abs().max()) for x, y in zip(g, w))
+    dp = ntt.device_plan(ntt.make_plan(2048, 4), "cuda")
+    for tag, g_, lev, bl, groups in (("k3x_g4", 4, 1, 22, 4), ("k3x_g2", 2, 1, 23, 6),
+                                     ("k3x_g3_l2", 3, 2, 14, 3), ("k3x_g1", 1, 1, 22, 5)):
+        key = torch.stack([torch.randint(0, q, (groups, 1 << g_, lev, 2, 2, 2048), generator=gen,
+                                         device="cuda") for q in dp.plan.primes], dim=-2).to(torch.int32)
+        for b in (1, 3, 5):
+            raw = torus.from_u64(rng.integers(0, 1 << 64, (b, groups * g_), dtype=np.uint64), "cuda")
+            a = (server.multibit_switched_degrees(raw, g_, 12),
+                 torch.from_numpy(rng.integers(0, 4096, (b,))).cuda(),
+                 torus.from_u64(rng.integers(0, 1 << 64, (b, 2, 2048), dtype=np.uint64), "cuda"),
+                 key, dp, bl, lev)
+            res[f"{tag}_b{b}"] = int((kernels.blind_rotate_multibit(*a, v9=False)
+                                      - server.blind_rotate_multibit(*a)).abs().max())
+    out["generic_checks"] = res
+    print("generic checks", res, flush=True)
+
+
+def step_entry(out, reps=200):
+    """K2's step entry (kernels.cmux_step) at B = 512 on the 2_2 shape and
+    a random key, CUDA events over reps launches, three times."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rng = np.random.default_rng(13)
+    n = 2048
+    dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+    key = torch.stack([torch.randint(0, q, (1, 2, 2, n), generator=gen, device="cuda")
+                       for q in dp.plan.primes], dim=-2).to(torch.int32)
+    acc = torus.from_u64(rng.integers(0, 1 << 64, (B, 2, n), dtype=np.uint64), "cuda")
+    a = torch.from_numpy(rng.integers(0, 2 * n, (B,))).cuda()
+    out["step_entry_ms"] = [ms(lambda: kernels.cmux_step(acc, a, key, dp, 23, 1), reps)
+                            for _ in range(3)]
+    print("step entry ms", out["step_entry_ms"], flush=True)
+
+
+def main():
+    which = sys.argv[1:] or ["k5", "k3x"]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    t0 = time.time()
+    kernels.load()
+    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x")) if w in which and "nophase" not in which]
+    libs = build(want)
+    out = {"card": card, "build_s": time.time() - t0}
+    if "checks" in which:
+        generic_checks(out)
+    if "step" in which:
+        step_entry(out)
+    if "k5" in which:
+        k5(libs, out)
+    if "k3x" in which:
+        k3x(libs, out)
+    out["seconds"] = time.time() - t0
+    HERE.mkdir(parents=True, exist_ok=True)
+    (HERE / "phase.json").write_text(json.dumps(out, indent=1))
+    for k in ("k5", "k3x"):
+        if k in out:
+            d = out[k]
+            print(k, {x: d[x] for x in d if x != "phases"})
+            if "phases" in d:
+                ph = d["phases"]
+                print(f"  total/unit {ph['total_per_unit']:.0f} wait {ph['wait_per_unit']:.0f}")
+                for r in ph["rows"]:
+                    print(f"  {r['at']:28s} n={r['count']:6d} work {r['work_per_unit']:10.0f} "
+                          f"wait {r['wait_per_unit']:8.0f}")
+    print(card)
+
+
+if __name__ == "__main__":
+    main()
