@@ -9,8 +9,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
-     sm_90a, one compiler per source, started together); then K2's, K3's
-     and K5's sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
+     sm_90a, one compiler per source, started together); then K1's, K2's,
+     K3's and K5's sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
      spills and shared memory (line "ptxas"), with the rounded-key
      kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
@@ -19,7 +19,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   4. serve: three rounds of ServerKey.apply_lookup_table_batch at B = 512
      with LUT (3x+1) % 16, then one chained round on the device-resident
      outputs, profiled after a warm-up run of it; every output is
-     decrypted and checked;
+     decrypted and checked; every K1 launch must be its tensor-core
+     kernel's;
   5. keygen_compression: CompressionKey at
      V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 from phase 3's
      client key (decompression key floored at rb = 15, so decompression
@@ -34,10 +35,11 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      (multi-bit key floored at rb = 18, so the server key runs the v9
      multi-bit blind rotation);
   9. serve_multibit: the rounds of phase 4 on the multi-bit key, through K1
-     and K3 (K2 never);
+     (its tensor-core kernel) and K3 (K2 never);
  10. modswitch_compress: switch_modulus_and_compress of 512 ciphertexts (K1
      each), then decompress_and_apply_lookup_table_batch with (3x+1) % 16,
-     on the classic key (K2 once, exact mode on the unrounded key) and on
+     on the classic key (K2 once, exact mode on the unrounded key: its
+     lazy exact kernel) and on
      the multi-bit key (K3 once, exact mode); every output decrypted;
  11. keygen_squashing: NoiseSquashingPrivateKey and NoiseSquashingKey at
      V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 over
@@ -48,10 +50,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      a second, warm call;
  13. stepwise: the exact rotation one CMux step a launch through K2's
      single-step entry (blind_rotate_stepwise, the path of tfhe_tpu's
-     build_cmux_step kernel) at the 2_2 shape on a random key, B = 512;
+     build_cmux_step kernel; K2's lazy exact kernel at n_steps = 1) at the
+     2_2 shape on a random key, B = 512;
  14. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
-     on both paths' own B = 512 inputs and at phase 10's B = 1 on both
-     keys, and phase 10's 512 stored values on each key against the plain
+     (the tensor-core kernel at both keyswitch shapes) on both paths' own
+     B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
+     generic kernel at B = 512 on both keys, and phase 10's 512 stored
+     values on each key against the plain
      keyswitch and modulus switch; K2 on the classic path's B = 512 inputs
      in v7 mode (the rounded-key route against the plain three-prime
      rotation) and in exact mode (unrounded key, which must differ from
@@ -60,7 +65,11 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      also against the four-prime v7 rotation on round_bsk(bsk, 15), and in
      exact mode on that four-prime rounded key (the function of tfhe_tpu's
      v3/v4 kernels), and in exact mode for k + 1 = 2, l = 2 on a random
-     key (its generic instance); v7 mode must refuse a four-prime key on
+     key (its generic instance), the lazy exact kernel at the ragged
+     batches B = 1, 3, 513 over 64 steps of the unrounded key, the generic
+     exact kernel at the production shape on the same B = 512 inputs (the
+     kernel the lazy one replaced), at the TEST shape (N = 512) and at
+     1_1's k + 1 = 5, N = 512 on random keys; v7 mode must refuse a four-prime key on
      the card; the v7 route at the ragged batches B = 1, 3, 5, 513 over
      64 steps and on a four-prime rounded key (rb = 4, the CRT bound's
      fallback); K2 in v7
@@ -83,11 +92,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      at the ragged batches over the squashing key's first 16 steps; K2's
      step entry: phase 13's rotation against the whole K2 rotation and
      the plain one, one step at B = 512 and at the ragged batches; times
-     of each kernel in each mode, its plain version and, for K1, the
-     int8-limb torch._int_mm formulation the TPU uses (a yardstick the port never
-     calls);
- 15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13, the script's
-     total seconds and one {"kernels": [...]} line.
+     of each kernel in each mode, its plain version, the generic kernels
+     of K1 and K2's exact mode that the redesigned ones replaced at their
+     shapes and, for K1, the int8-limb torch._int_mm formulation the TPU
+     uses (a yardstick the port never calls);
+ 15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13 (each wrapper's
+     and, of them, those of K1's tensor-core kernel and K2's lazy exact
+     kernel), the script's total seconds and one {"kernels": [...]} line.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -148,6 +159,10 @@ K5_TEST_STEPS = 64
 # key's head that the ragged batches run over
 K5_GENERIC_SHAPE = (3, 1024, 2, 20)
 K5_RAGGED_STEPS = 16
+# K2's generic exact kernel on random keys at (k + 1, N, l, base_log): the
+# TEST sets' shape and 1_1's
+K2_GENERIC_SHAPES = ((2, 512, 1, 23), (5, 512, 1, 23))
+K2_GENERIC_STEPS = 64
 # CRT primes the exact u128 product needs: 2^165.2 < P/2 takes six
 K5_PRIMES = 6
 # K2's single-step entry (blind_rotate_stepwise) on a random 2_2-shape key
@@ -214,6 +229,40 @@ def int_mm_keyswitch(ct, ksk, base_log: int, levels: int):
     out = -acc
     out[:, -1] += ct[:, -1]
     return out
+
+
+def generic_keyswitch(kernels, ct, ksk, base_log: int, levels: int):
+    """K1's generic kernel (csrc/keyswitch.cu keyswitch_kernel) through its C
+    entry: at the main path's shapes, the kernel the tensor-core kernel
+    replaced."""
+    import torch
+
+    out = torch.empty((ct.shape[0], ksk.shape[2]), dtype=torch.int64, device=ct.device)
+    err = kernels.load()["keyswitch"].tfhe_torch_keyswitch(
+        out.data_ptr(), ct.data_ptr(), ksk.data_ptr(), ct.shape[0], ksk.shape[0], levels,
+        ksk.shape[2], base_log, kernels._stream(ct))
+    if err:
+        raise RuntimeError(f"K1's generic kernel failed: cudaError {err}")
+    return out
+
+
+def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: int,
+                           levels: int):
+    """K2's generic exact kernel (csrc/blind_rotate.cu blind_rotate_kernel)
+    through its C entry, at any shape it takes: at the V1_4 2_2 shape, the
+    kernel the lazy exact kernel replaced."""
+    import torch
+
+    acc = server.initial_accumulator(lut, body, False).contiguous()
+    mask32 = mask.to(torch.int32).contiguous()
+    k1, n_poly = acc.shape[1], acc.shape[2]
+    err = kernels.load()["blind_rotate"].tfhe_torch_blind_rotate(
+        acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), acc.shape[0], mask32.shape[1],
+        k1, n_poly.bit_length() - 1, levels, dp.num_primes, base_log, kernels._stream(acc))
+    if err:
+        raise RuntimeError(f"K2's generic exact kernel failed: cudaError {err}")
+    return acc
 
 
 def k1_bound(ct, ksk, out) -> tuple:
@@ -398,7 +447,7 @@ def head_of(key, lead: tuple):
 
 
 def ptxas_report(kernels) -> dict:
-    """Registers, spills and static shared memory of K2's, K3's and K5's kernels
+    """Registers, spills and static shared memory of K1's, K2's, K3's and K5's kernels
     as ``nvcc -Xptxas -v`` reports them (one compiler per source, started
     together; the libraries are thrown away), and the rounded-key kernels'
     dynamic shared memory and ciphertexts a block."""
@@ -412,7 +461,8 @@ def ptxas_report(kernels) -> dict:
             kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
                                       str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in ("blind_rotate", "blind_rotate_multibit", "blind_rotate128")]
+            for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
+                         "blind_rotate128")]
         for name, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
@@ -429,9 +479,11 @@ def ptxas_report(kernels) -> dict:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 if m:
                     entry["spill_store_bytes"], entry["spill_load_bytes"] = map(int, m.groups())
-                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+                m = re.search(r"Used (\d+) registers", line)
                 if m:
-                    entry["registers"], entry["static_smem_bytes"] = map(int, m.groups())
+                    entry["registers"] = int(m.group(1))
+                    m = re.search(r"(\d+) bytes smem", line)
+                    entry["static_smem_bytes"] = int(m.group(1)) if m else 0
     for nprimes in (3, 4):
         out[f"rounded_{nprimes}_primes"] = kernels.rounded_kernel_shape(nprimes)
     return out
@@ -457,10 +509,29 @@ def kernel_wrappers(kernels) -> tuple:
             kernels.blind_rotate128)
 
 
+def counters(kernels) -> tuple:
+    """(name, wrapper, attribute) of every launch count: each wrapper's
+    launches and, of them, those of K1's tensor-core kernel and of K2's
+    lazy exact kernel (the rotation's and the step entry's)."""
+    return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
+        ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
+        ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
+        ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"))
+
+
+def reset_counts(kernels) -> None:
+    for _, w, attr in counters(kernels):
+        setattr(w, attr, 0)
+
+
+def read_counts(kernels) -> dict:
+    return {name: getattr(w, attr) for name, w, attr in counters(kernels)}
+
+
 def only(kernels, **counts) -> dict:
     """The launch counts of a run that launched the named kernels the given
     times and no other kernel."""
-    return {w.__name__: counts.get(w.__name__, 0) for w in kernel_wrappers(kernels)}
+    return {name: counts.get(name, 0) for name, _, _ in counters(kernels)}
 
 
 def counted(kernels, fn):
@@ -469,16 +540,14 @@ def counted(kernels, fn):
     returned, before the wait for the card)."""
     import torch
 
-    wrappers = kernel_wrappers(kernels)
-    for w in wrappers:
-        w.launches = 0
+    reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     host_seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, {w.__name__: w.launches for w in wrappers}, seconds, host_seconds
+    return out, read_counts(kernels), seconds, host_seconds
 
 
 def serve_rounds(ck, sk, seed: int, kernels) -> dict:
@@ -499,9 +568,7 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     cts = [[ck.encrypt(int(v)) for v in vals] for vals in inputs]
     lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % 16)
     lut_msg = sk.generate_msg_lookup_table(lambda x: x)
-    wrappers = kernel_wrappers(kernels)
-    for w in wrappers:
-        w.launches = 0
+    reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     round_s, host_s, outs = [], [], []
@@ -517,8 +584,9 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
     # same round comes first: a trace's first step can miss kernels.  The
     # recorded step's kernel times are read when the profiler hands it over.
     shifted = [sk.unchecked_scalar_add(ct, 5) for ct in outs[-1]]
-    names = ("keyswitch_kernel", "blind_rotate_kernel", "blind_rotate_multibit_kernel",
-             "blind_rotate_rounded_kernel", "blind_rotate_multibit_rounded_kernel")
+    names = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kernel",
+             "blind_rotate_multibit_kernel", "blind_rotate_rounded_kernel",
+             "blind_rotate_multibit_rounded_kernel")
     per_launch = dict.fromkeys(names)
     trace = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
@@ -534,7 +602,7 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
         torch.cuda.synchronize()
         chained_s = time.perf_counter() - t1
         trace.step()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_counts(kernels)
     wrong = 0
     for r in range(ROUNDS):
         for ct, v in zip(outs[r], inputs[r]):
@@ -549,7 +617,8 @@ def serve_rounds(ck, sk, seed: int, kernels) -> dict:
         "pbs_per_s": ROUNDS * BATCH / serve_s,
         "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
         "chained_round_seconds_traced": chained_s,
-        "k1_ms_traced_round": per_launch["keyswitch_kernel"],
+        "k1_ms_traced_round": (per_launch["keyswitch_imma_kernel"]
+                               or per_launch["keyswitch_kernel"]),
         "k2_ms_traced_round": (per_launch["blind_rotate_rounded_kernel"]
                                or per_launch["blind_rotate_kernel"]),
         "k3_ms_traced_round": (per_launch["blind_rotate_multibit_rounded_kernel"]
@@ -567,9 +636,13 @@ def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
     import torch
 
     p = sk.params
+    if not isinstance(sk.ks_key, kernels.KeyswitchKeyLimbs):
+        raise RuntimeError("the server key holds no byte layout of its keyswitch key "
+                           "for K1's tensor-core kernel")
     ct0 = torus.from_u64(np.stack([np.asarray(c.data) for c in cts]), sk.device)
     args = (ct0, sk.ksk, p.ks_base_log, p.ks_level)
-    got = kernels.keyswitch(*args)
+    kargs = (ct0, sk.ks_key, p.ks_base_log, p.ks_level)
+    got = kernels.keyswitch(*kargs)
     want = server.keyswitch(*args)
     lib = int_mm_keyswitch(*args)
     torch.cuda.synchronize()
@@ -577,7 +650,9 @@ def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
     return {"want": want, "ct": ct0, "fig": {
         "max_abs_err": max_abs_err(got, want),
         "int_mm_max_abs_err": max_abs_err(lib, want),
-        "ms": cuda_ms(lambda: kernels.keyswitch(*args), 10),
+        "generic_kernel_max_abs_err": max_abs_err(generic_keyswitch(kernels, *args), want),
+        "ms": cuda_ms(lambda: kernels.keyswitch(*kargs), 10),
+        "generic_kernel_ms": cuda_ms(lambda: generic_keyswitch(kernels, *args), 10),
         "plain_ms": cuda_ms(lambda: server.keyswitch(*args), 3),
         "library_ms": cuda_ms(lambda: int_mm_keyswitch(*args), 10),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -613,6 +688,7 @@ def main() -> None:
         V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as SQ_PARAMS,
         TEST_NOISE_SQUASHING_PARAM as SQ_TEST,
         ClientKey, CompressionKey, NoiseSquashingKey, NoiseSquashingPrivateKey, ServerKey)
+    from tfhe_tpu_torch.shortint import params as shortint_params
     from tfhe_tpu_torch.shortint.compression import extract_switched
     from tfhe_tpu_torch.shortint.server_key import upload_batch
 
@@ -652,7 +728,8 @@ def main() -> None:
           "bsk_floored": sk._bsk_floored, "v7_mode": sk.trunc_acc,
           "seconds": keygen_s,
           "bsk_primes": sk.bsk_ntt.num_primes,
-          "device_key_bytes": sk.ksk.numel() * 8 + key_bytes(sk.bsk_ntt)})
+          "device_key_bytes": (sk.ksk.numel() * 8 + sk.ks_key.limbs.numel()
+                               + key_bytes(sk.bsk_ntt))})
 
     # 4. serve on the classic key
     served = serve_rounds(ck, sk, args.seed, kernels)
@@ -660,8 +737,10 @@ def main() -> None:
     if served["line"]["wrong"]:
         raise RuntimeError(f"{served['line']['wrong']} outputs decrypted wrong")
     launches = served["launches"]
-    if not (launches["keyswitch"] and launches["blind_rotate"]):
-        raise RuntimeError(f"the classic path skipped a kernel: {launches}")
+    if not (launches["keyswitch"] and launches["blind_rotate"]
+            and launches["keyswitch_imma"] == launches["keyswitch"]):
+        raise RuntimeError(f"the classic path skipped a kernel or ran K1's generic "
+                           f"kernel: {launches}")
 
     # 5. compression keygen from the classic client key
     cp = COMP_PARAMS
@@ -723,7 +802,8 @@ def main() -> None:
           "ks_base_log": mp.ks_base_log, "mb_floored": msk._bsk_floored,
           "v9_mode": msk.trunc_acc, "seconds": mb_keygen_s,
           "bsk_primes": msk.bsk_ntt.num_primes,
-          "device_key_bytes": msk.ksk.numel() * 8 + key_bytes(msk.bsk_ntt)})
+          "device_key_bytes": (msk.ksk.numel() * 8 + msk.ks_key.limbs.numel()
+                               + key_bytes(msk.bsk_ntt))})
     if not msk.trunc_acc or msk.bsk_ntt.num_primes != V9_PRIMES:
         raise RuntimeError("the GROUP_4 multi-bit key did not select v9 mode on three primes")
 
@@ -734,8 +814,10 @@ def main() -> None:
         raise RuntimeError(f"{mb_served['line']['wrong']} outputs decrypted wrong")
     mb_launches = mb_served["launches"]
     if (mb_launches["blind_rotate_multibit"] != ROUNDS + 2
-            or mb_launches["blind_rotate"] or not mb_launches["keyswitch"]):
-        raise RuntimeError(f"the multi-bit path did not run K1 and K3 alone: {mb_launches}")
+            or mb_launches["blind_rotate"] or not mb_launches["keyswitch"]
+            or mb_launches["keyswitch_imma"] != mb_launches["keyswitch"]):
+        raise RuntimeError(f"the multi-bit path did not run K1 (tensor cores) and K3 "
+                           f"alone: {mb_launches}")
 
     # 10. modulus-switched compression on the classic and the multi-bit key:
     # KS + MS now (K1 once a ciphertext), the rotation later in exact mode
@@ -762,7 +844,10 @@ def main() -> None:
         if wrong:
             raise RuntimeError(f"{wrong} modulus-switched outputs decrypted wrong ({tag})")
         other = "blind_rotate_multibit" if rotation == "blind_rotate" else "blind_rotate"
+        lazy = 1 if rotation == "blind_rotate" else 0
         if (switch_launches["keyswitch"] != BATCH or lut_launches[rotation] != 1
+                or switch_launches["keyswitch_imma"] != BATCH
+                or lut_launches["blind_rotate_exact_lazy"] != lazy
                 or lut_launches[other] or lut_launches["keyswitch"]):
             raise RuntimeError(f"modulus-switched compression ({tag}) did not run K1 "
                                f"then {rotation} once: {ms_launches[tag]}")
@@ -799,8 +884,8 @@ def main() -> None:
     if wrong:
         raise RuntimeError(f"{wrong} squashed outputs decrypted wrong")
     for _, got, _, _ in sq_runs:
-        if got != only(kernels, keyswitch=1, blind_rotate128=1):
-            raise RuntimeError(f"squash did not run K1 and K5 once each: {got}")
+        if got != only(kernels, keyswitch=1, keyswitch_imma=1, blind_rotate128=1):
+            raise RuntimeError(f"squash did not run K1 (tensor cores) and K5 once each: {got}")
 
     # 13. the exact blind rotation one CMux step a launch (K2's single-step
     # entry, the function of tfhe_tpu's build_cmux_step kernel) at the 2_2
@@ -818,27 +903,61 @@ def main() -> None:
     stepwise, st_launches, st_s, _ = counted(kernels, lambda: server.blind_rotate_stepwise(*st_args))
     emit({"phase": "stepwise", "batch": BATCH, "steps": STEPWISE_STEPS, "seconds": st_s,
           "launches": st_launches})
-    if st_launches != only(kernels, cmux_step=STEPWISE_STEPS):
-        raise RuntimeError(f"blind_rotate_stepwise did not run K2's step entry once a "
-                           f"step: {st_launches}")
+    if st_launches != only(kernels, cmux_step=STEPWISE_STEPS,
+                           cmux_step_exact_lazy=STEPWISE_STEPS):
+        raise RuntimeError(f"blind_rotate_stepwise did not run K2's step entry (its lazy "
+                           f"exact kernel) once a step: {st_launches}")
 
     # 14. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
-    errs["k1"] = k1["fig"]["max_abs_err"] + k1["fig"]["int_mm_max_abs_err"]
-    errs["k1_multibit"] = k1_mb["fig"]["max_abs_err"] + k1_mb["fig"]["int_mm_max_abs_err"]
+    for tag, fig in (("k1", k1["fig"]), ("k1_multibit", k1_mb["fig"])):
+        errs[tag] = fig["max_abs_err"] + fig["int_mm_max_abs_err"]
+        errs[f"{tag}_generic_kernel_b{BATCH}"] = fig["generic_kernel_max_abs_err"]
+    k1_rng = np.random.default_rng(args.seed + 6)
     # K1 at B = 1, as switch_modulus_and_compress launches it, on each key;
     # and the 512 values phase 10 stored on each key against the plain
     # keyswitch and modulus switch of the same ciphertexts
     for tag, s_key, fig in (("classic", sk, k1), ("multibit", msk, k1_mb)):
         q = s_key.params
-        one = (fig["ct"][:1], s_key.ksk, q.ks_base_log, q.ks_level)
-        errs[f"k1_{tag}_b1"] = max_abs_err(kernels.keyswitch(*one), server.keyswitch(*one))
+        for b, ct in ((1, fig["ct"][:1]),
+                      (BATCH + 1, torus.from_u64(k1_rng.integers(
+                          0, 1 << 64, (BATCH + 1, fig["ct"].shape[1]), dtype=np.uint64), dev))):
+            errs[f"k1_{tag}_b{b}"] = max_abs_err(
+                kernels.keyswitch(ct, s_key.ks_key, q.ks_base_log, q.ks_level),
+                server.keyswitch(ct, s_key.ksk, q.ks_base_log, q.ks_level))
         ks_mask, body, log_mod = switched_inputs(fig["want"], q, server)
         want = torch.cat([server.modulus_switch(ks_mask, log_mod), body[:, None]], dim=1)
         got = torus.from_u64(np.stack([c.switched() for c in ms_runs[tag]["stored"]]), dev)
         errs[f"k1_modswitch_stored_{tag}_b512"] = max_abs_err(got, want)
+
+    # the kernels' choice by shape (csrc/keyswitch.cu imma_shape,
+    # csrc/blind_rotate.cu exact_lazy_shape): K1's tensor-core kernel at the
+    # keyswitch of every set of shortint/params.py, K2's lazy exact kernel at
+    # exactly the classic sets of the V1_4 2_2 shape (k+1 = 2, N = 2048,
+    # l = 1); and K1's wrapper on a shape outside the guard (8-bit digits)
+    # runs the generic kernel, against plain
+    for name, q in vars(shortint_params).items():
+        if not hasattr(q, "ks_base_log"):
+            continue
+        if not kernels.keyswitch_imma_shape(q.big_lwe_dimension, q.ks_level, q.ks_base_log):
+            raise RuntimeError(f"K1's tensor-core kernel refuses the keyswitch of {name}")
+        lazy = (q.glwe_dimension == 1 and q.polynomial_size == 2048 and q.pbs_level == 1)
+        if (not hasattr(q, "grouping_factor")
+                and kernels.exact_lazy_shape(q.glwe_dimension + 1, q.polynomial_size,
+                                             q.pbs_level, q.pbs_base_log) != lazy):
+            raise RuntimeError(f"K2's exact rotation chose the wrong kernel for {name}")
+    off = (torus.from_u64(k1_rng.integers(0, 1 << 64, (CHECK_BATCH, p.big_lwe_dimension + 1),
+                                          dtype=np.uint64), dev),
+           torus.from_u64(k1_rng.integers(0, 1 << 64, (p.big_lwe_dimension, 2,
+                                                       p.lwe_dimension + 1),
+                                          dtype=np.uint64), dev), 8, 2)
+    imma_before = kernels.keyswitch.imma_launches
+    errs[f"k1_generic_wrapper_bl8_l2_b{CHECK_BATCH}"] = max_abs_err(kernels.keyswitch(*off),
+                                                                   server.keyswitch(*off))
+    if kernels.keyswitch.imma_launches != imma_before:
+        raise RuntimeError("K1 took its tensor-core kernel at base_log 8")
 
     # K2 (v7 mode) on the classic path's round-0 switched inputs
     ks_mask, body, log_mod = switched_inputs(k1["want"], p, server)
@@ -890,6 +1009,39 @@ def main() -> None:
         server.sample_extract(k2_exact_want))
     del k2_exact_want
     k2_exact_ms = cuda_ms(lambda: kernels.blind_rotate(*k2_exact_args), 3)
+    # the generic exact kernel on the same inputs: the kernel the lazy one
+    # replaced at this shape
+    generic_args = (kernels, server) + k2_exact_args[:7]
+    errs["k2_exact_generic_kernel_b512"] = max_abs_err(
+        generic_exact_rotation(*generic_args), k2_exact_got)
+    k2_exact_generic_ms = cuda_ms(lambda: generic_exact_rotation(*generic_args), 3)
+    del k2_exact_got
+    # the lazy exact kernel over RAGGED_STEPS steps of the unrounded key at
+    # batches its C ciphertexts a block do not fill
+    for b in RAGGED_BATCHES:
+        a = (torch.from_numpy(chk.integers(0, 2 * n_poly, (b, RAGGED_STEPS))).to(dev),
+             torch.from_numpy(chk.integers(0, 2 * n_poly, (b,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (b, p.glwe_dimension + 1, n_poly),
+                                         dtype=np.uint64), dev),
+             bsk_exact[:RAGGED_STEPS], sk.dp, p.pbs_base_log, p.pbs_level, False)
+        errs[f"k2_exact_ragged_b{b}"] = max_abs_err(kernels.blind_rotate(*a),
+                                                    server.blind_rotate(*a))
+    # the generic exact kernel at the TEST sets' shape and at 1_1's k + 1 = 5
+    # on random keys (the wrapper must not take the lazy kernel there)
+    gen_g = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    for k1_g, n_g, l_g, bl_g in K2_GENERIC_SHAPES:
+        dp_g = ntt.device_plan(ntt.make_plan(n_g, EXACT_PRIMES), "cuda")
+        a = (torch.from_numpy(chk.integers(0, 2 * n_g, (CHECK_BATCH, K2_GENERIC_STEPS))).to(dev),
+             torch.from_numpy(chk.integers(0, 2 * n_g, (CHECK_BATCH,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, k1_g, n_g),
+                                         dtype=np.uint64), dev),
+             random_ntt_key((K2_GENERIC_STEPS, l_g, k1_g, k1_g), dp_g, gen_g), dp_g, bl_g, l_g,
+             False)
+        lazy_before = kernels.blind_rotate.lazy_exact_launches
+        errs[f"k2_generic_exact_k{k1_g}_N{n_g}_b{CHECK_BATCH}"] = max_abs_err(
+            kernels.blind_rotate(*a), server.blind_rotate(*a))
+        if kernels.blind_rotate.lazy_exact_launches != lazy_before:
+            raise RuntimeError(f"K2 took its lazy exact kernel at k+1 = {k1_g}, N = {n_g}")
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
     bsk_generic = random_ntt_key(
         (p.lwe_dimension, K2_GENERIC_LEVELS, p.glwe_dimension + 1, p.glwe_dimension + 1),
@@ -1208,14 +1360,23 @@ def main() -> None:
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
+         "kernel": "keyswitch_imma_kernel (int8 tensor cores; keyswitch_kernel elsewhere)",
          "launches": launches["keyswitch"] + mb_launches["keyswitch"] + sq_launches["keyswitch"],
          "launches_by_path": {
              "serve": launches["keyswitch"], "serve_multibit": mb_launches["keyswitch"],
              "squash": sq_launches["keyswitch"],
              "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch"],
              "modswitch_compress_multibit": ms_launches["multibit"]["switch"]["keyswitch"]},
+         "tensor_core_launches_by_path": {
+             "serve": launches["keyswitch_imma"], "serve_multibit": mb_launches["keyswitch_imma"],
+             "squash": sq_launches["keyswitch_imma"],
+             "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch_imma"],
+             "modswitch_compress_multibit":
+                 ms_launches["multibit"]["switch"]["keyswitch_imma"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k1")),
          "ms": k1["fig"]["ms"], "plain_ms": k1["fig"]["plain_ms"],
+         "generic_kernel_ms": k1["fig"]["generic_kernel_ms"],
+         "multibit_generic_kernel_ms": k1_mb["fig"]["generic_kernel_ms"],
          "bound_ms": k1["fig"]["bound_ms"], "bound_by": k1["fig"]["bound_by"],
          "library_ms": k1["fig"]["library_ms"],
          "library_call": "10 int8-limb torch._int_mm GEMMs (the TPU's formulation)",
@@ -1228,28 +1389,50 @@ def main() -> None:
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
-         "also_replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
-         "also_replaces_rows_4_5_7": ["tfhe_tpu/ops/pallas_mxu.py:428",
-                                      "tfhe_tpu/ops/pallas_mxu.py:809",
-                                      "tfhe_tpu/ops/pallas_ntt.py:456"],
+         "kernel": "blind_rotate_rounded_kernel (v7 mode)",
          "launches": launches["blind_rotate"],
-         "launches_by_path": {
-             "serve": launches["blind_rotate"],
-             "modswitch_compress_classic":
-                 ms_launches["classic"]["decompress"]["blind_rotate"]},
+         "launches_by_path": {"serve": launches["blind_rotate"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")
-                            and "decompression" not in k and "step" not in k),
-         "ms": k2_ms, "exact_mode_ms": k2_exact_ms,
-         "rounded_key_exact_mode_ms": k2_rounded_exact_ms, "plain_ms": k2_plain_ms,
-         "exact_mode_plain_ms": k2_exact_plain_ms,
+                            and "decompression" not in k and "step" not in k
+                            and not k.startswith(("k2_exact", "k2_generic",
+                                                  "k2_rounded_exact"))),
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound_v7["ms"], "bound_by": k2_bound_v7["by"],
          "library_ms": None,
          "bound_primes": V7_PRIMES,
          "bound_ntt_int32_ms": k2_bound_v7["ntt_ms"],
          "bound_four_step_int8_ms": k2_bound_v7["four_step_ms"],
          "bound_bytes_ms": k2_bound_v7["bytes_ms"],
-         "exact_mode_bound_ms": k2_bound_exact["ms"],
-         "exact_mode_bound_by": k2_bound_exact["by"],
+         "shape": [BATCH, p.lwe_dimension, p.glwe_dimension + 1, p.polynomial_size]},
+        {"name": "blind_rotate_exact", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
+         "also_replaces_rows_4_5_7": ["tfhe_tpu/ops/pallas_mxu.py:428",
+                                      "tfhe_tpu/ops/pallas_mxu.py:809",
+                                      "tfhe_tpu/ops/pallas_ntt.py:456"],
+         "kernel": "blind_rotate_exact_lazy_kernel (k+1 = 2, l = 1, N = 2048; "
+                   "blind_rotate_kernel at other shapes)",
+         "launches": (ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"]
+                      + st_launches["cmux_step_exact_lazy"]),
+         "launches_by_path": {
+             "modswitch_compress_classic":
+                 ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"],
+             "stepwise": st_launches["cmux_step_exact_lazy"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith(("k2_exact",
+                                                                         "k2_generic",
+                                                                         "k2_rounded_exact"))),
+         "ms": k2_exact_ms, "plain_ms": k2_exact_plain_ms,
+         "generic_kernel_ms": k2_exact_generic_ms,
+         "rounded_key_ms": k2_rounded_exact_ms,
+         "bound_ms": k2_bound_exact["ms"], "bound_by": k2_bound_exact["by"],
+         "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact wrapping-u64 "
+                         "negacyclic product",
+         "bound_primes": EXACT_PRIMES,
+         "bound_ntt_int32_ms": k2_bound_exact["ntt_ms"],
+         "bound_four_step_int8_ms": k2_bound_exact["four_step_ms"],
+         "bound_bytes_ms": k2_bound_exact["bytes_ms"],
+         "ciphertexts_per_block": kernels.exact_cts_per_block(),
          "shape": [BATCH, p.lwe_dimension, p.glwe_dimension + 1, p.polynomial_size]},
         {"name": "blind_rotate_multibit", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_multibit.cu",
@@ -1337,6 +1520,7 @@ def main() -> None:
         {"name": "cmux_step", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_ntt.py:296",
+         "kernel": "blind_rotate_exact_lazy_kernel, n_steps = 1",
          "launches": st_launches["cmux_step"],
          "launches_by_path": {"stepwise": st_launches["cmux_step"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_step")),
@@ -1358,9 +1542,6 @@ def main() -> None:
         entry.update(kernels.rounded_kernel_shape(key.num_primes))
     for entry in table:
         entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
-        if "exact_mode_ms" in entry:
-            entry["exact_mode_share_of_bound"] = (entry["exact_mode_bound_ms"]
-                                                  / entry["exact_mode_ms"])
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

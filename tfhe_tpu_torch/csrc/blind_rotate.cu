@@ -4,7 +4,7 @@
 // configuration (jfold, trunc_acc: the TPU production kernel; meaning
 // tfhe_tpu/ops/mxu.py:910 blind_rotate_mxu_trunc) and :1782
 // `build_blind_rotate_v8` (the same function for decompression), in the
-// rounded-key kernel; and, in the exact kernel,
+// rounded-key kernel; and, in the exact kernels,
 // tfhe_tpu/ops/pallas_ntt.py:794 `build_blind_rotate_v2` (the exact rotation,
 // meaning tfhe_tpu/ops/server.py:367 blind_rotate), :456 `build_blind_rotate`,
 // :296 `build_cmux_step` (one step a launch) and, on a four-prime key of
@@ -42,11 +42,27 @@
 // forward pass the key product, the last inverse pass Garner, the shift
 // and the rounding, so a step is six passes over shared memory with a
 // barrier after each; lazy butterflies with Shoup twiddles
-// (ntt_common.cuh) halve the instructions of a butterfly.  The exact
-// kernel below keeps its design on four primes for the exact modes, which
-// must reproduce the unrounded product.
+// (ntt_common.cuh) halve the instructions of a butterfly.
 //
-// Exact kernel (blind_rotate_kernel): one thread block per batch element,
+// Exact modes (four primes: they must reproduce the unrounded product).
+// The first design (blind_rotate_kernel, below; 147.62 ms at B = 512 on
+// the 2_2 shape, NVIDIA H100 80GB HBM3, 700 W) spent its steps about
+// evenly in fully reduced forward passes, a key product of 4-byte loads
+// each consumed at once, and fully reduced inverse passes, one ciphertext
+// a block.  The lazy exact kernel (blind_rotate_exact_lazy_kernel, at
+// k + 1 = 2, one level, N = 2048, base_log <= 30: the V1_4 2_2 shape)
+// takes XC = 2 ciphertexts a block of 512 threads, one block an SM: their
+// u64 accumulators and 4-prime residue rows in 200,704 B of shared memory;
+// the exact key in its own (n, l, k+1, k+1, P, N) layout (K3's lazy exact
+// kernel reads the same), read as 16-byte loads that feed both
+// ciphertexts; the first forward pass fused with the u64 rotation, the
+// one-level decomposition (from the high word) and the residues, the last
+// with the key product (two products summed in 64 bits, one reduction),
+// lazy Shoup passes, the last inverse pass fused with N^-1, Garner and the
+// accumulation: six passes a step with a barrier after each.
+//
+// Generic exact kernel (blind_rotate_kernel), every other shape the
+// wrapper takes (the TEST sets, k + 1 = 5, l > 1): one thread block per batch element,
 // looping over the n steps inside the kernel (the TPU's sequential grid
 // axis becomes this loop; batch elements share no state, so blocks never
 // synchronise).  The accumulator ((k+1) N u64) and the residues
@@ -225,6 +241,188 @@ extern "C" int tfhe_torch_blind_rotate(void* acc, const void* mask, const void* 
                   log_n, levels, base_log, smem, (cudaStream_t)stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The lazy exact kernel (blind_rotate_exact_lazy_kernel): the exact rotation
+// at k + 1 = 2, one level, N = 2048, base_log <= 30 on the exact key
+// (n, 1, 2, 2, 4, N) int32 Montgomery, XC ciphertexts a block sharing every
+// key load.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int XC = 2;                   // ciphertexts a block
+constexpr int X_LOG_N = 11;
+constexpr int X_N = 1 << X_LOG_N;
+constexpr int X_K1 = 2;
+constexpr int X_ROW = X_N + X_N / 32;
+constexpr int X_ROWS = XC * X_K1 * NP;  // residue rows (ct, r, prime), then (ct, cc, prime)
+constexpr int X_GROUPS = X_N / 8;       // positions hi 8 .. hi 8 + 7 of the key product
+// the rows and the accumulators (XC, K1, N) u64: 200,704 B
+constexpr int X_SMEM = X_ROWS * X_ROW * 4 + XC * X_K1 * X_N * 8;
+
+// The lazy kernel's shape (tfhe_torch_blind_rotate_exact_lazy_shape).
+__host__ __device__ constexpr bool exact_lazy_shape(int k1, int log_n, int levels,
+                                                    int base_log) {
+  return k1 == X_K1 && log_n == X_LOG_N && levels == 1 && base_log >= 1 && base_log <= 30;
+}
+
+__device__ __forceinline__ u32 lane_of(const uint4& k, int i) {
+  return i == 0 ? k.x : i == 1 ? k.y : i == 2 ? k.z : k.w;
+}
+
+// Stages 0-3 of the forward transforms fused with what feeds them.  Task
+// (ct, r, lo) owns coefficients j = b 2^7 | lo, b < 16, of row r of
+// ciphertext ct: it forms acc X^a - acc in u64 (a = mask[ct n_steps] in
+// [0, 2N)), takes each word's one-level signed digit from its high word
+// (for base_log <= 30 the decomposition reads no bit below 2^32:
+// hi_word_digit), and for each prime the residues d + 2p and four lazy
+// stages in registers, stored once.
+__device__ __forceinline__ void exact_first_forward(u32* res, const u64* acc,
+                                                    const int* __restrict__ mask, int n_steps,
+                                                    int base_log,
+                                                    const uint2* __restrict__ tw,
+                                                    const Consts& c) {
+  constexpr int LO = X_LOG_N - 4;
+  for (int q = threadIdx.x; q < (XC * X_K1) << LO; q += THREADS) {
+    const int row = q >> LO;                    // ct K1 + r
+    const int lo = q & ((1 << LO) - 1);
+    const int a = __ldg(mask + (row / X_K1) * n_steps);
+    const int rot = a & (X_N - 1);
+    const bool odd = (a >> X_LOG_N) & 1;
+    const u64* A = acc + row * X_N;
+    int dig[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int j = (b << LO) | lo;
+      u64 v = j < rot ? 0ull - A[j - rot + X_N] : A[j - rot];
+      if (odd) v = 0ull - v;
+      dig[b] = hi_word_digit((u32)((v - A[j]) >> 32), base_log);
+    }
+    u32* rows = res + row * NP * X_ROW + pad(lo);   // pad splits, as in lazy_pass
+#pragma unroll
+    for (int pi = 0; pi < NP; ++pi) {
+      const u32 p = c.p[pi];
+      u32 v[16];
+#pragma unroll
+      for (int b = 0; b < 16; ++b) v[b] = lazy_digit_residue(dig[b], p);
+      lazy_forward_stages<4, X_LOG_N>(v, 0, 0, tw + (pi << X_LOG_N), p);
+#pragma unroll
+      for (int b = 0; b < 16; ++b) rows[pi * X_ROW + pad(b << LO)] = v[b];
+    }
+  }
+}
+
+// Task q = (prime pi, hi, ct), ct fastest: the last forward pass (stages
+// 8-10) of ciphertext ct's two digit rows at positions hi 8 + b, b < 8, in
+// registers, then the product with the step's GGSW, out[cc] = sum_r x_r
+// k[r][cc] with x_r reduced to [0, 2p) and the two products summed in 64
+// bits before one reduction (2 (2p) p < p 2^32).  Each key entry (r, cc)
+// of the eight positions is two 16-byte loads, all eight issued before the
+// transform; the XC lanes of a position load the same words in one
+// transaction.  out is written over the two rows, as (ct, cc, prime), in
+// [0, 2p).
+__device__ __forceinline__ void exact_key_product(u32* res, int q,
+                                                  const uint4* __restrict__ key,
+                                                  const uint2* __restrict__ tw,
+                                                  const Consts& c) {
+  const int ct = q % XC;
+  const int hi = (q / XC) % X_GROUPS;
+  const int pi = q / (XC * X_GROUPS);
+  const u32 p = c.p[pi];
+  const u32 pinv = c.pinv[pi];
+  uint4 k[X_K1 * X_K1][2];                      // entry r K1 + cc, positions 0-3 and 4-7
+#pragma unroll
+  for (int en = 0; en < X_K1 * X_K1; ++en) {
+    const uint4* kp = key + (en * NP + pi) * (X_N / 4) + 2 * hi;
+    k[en][0] = __ldg(kp);
+    k[en][1] = __ldg(kp + 1);
+  }
+  u32* row0 = res + (ct * X_K1 * NP + pi) * X_ROW;
+  u32* row1 = row0 + NP * X_ROW;
+  u32 v0[8], v1[8];
+  last_forward_pair<X_LOG_N>(row0, row1, hi, tw + (pi << X_LOG_N), p, v0, v1);
+  const int at = pad(hi << 3);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const u32 x0 = reduce_to(v0[b], 2 * p);
+    const u32 x1 = reduce_to(v1[b], 2 * p);
+    row0[at + b] = redc_lazy((u64)x0 * lane_of(k[0][b >> 2], b & 3) +
+                             (u64)x1 * lane_of(k[2][b >> 2], b & 3), p, pinv);
+    row1[at + b] = redc_lazy((u64)x0 * lane_of(k[1][b >> 2], b & 3) +
+                             (u64)x1 * lane_of(k[3][b >> 2], b & 3), p, pinv);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+blind_rotate_exact_lazy_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+                               const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
+                               const uint2* __restrict__ tw_inv,
+                               const long long* __restrict__ consts_g, int n_steps,
+                               int base_log) {
+  constexpr int ACC = XC * X_K1 * X_N;
+  constexpr int STEP = X_K1 * X_K1 * NP * X_N / 4;   // 16-byte words of a step's GGSW
+  extern __shared__ u64 x_smem[];
+  __shared__ Consts c;
+  u64* acc = x_smem;                            // (XC, K1, N)
+  u32* res = (u32*)(x_smem + ACC);              // (X_ROWS, X_ROW)
+  long long* acc_b = acc_g + (size_t)blockIdx.x * ACC;
+  const int* mask_b = mask_g + (size_t)blockIdx.x * XC * n_steps;
+  const int tid = threadIdx.x;
+  if (tid == 0) load_consts(c, consts_g);
+  for (int q = tid; q < ACC; q += THREADS) acc[q] = (u64)acc_b[q];
+  __syncthreads();
+
+  for (int step = 0; step < n_steps; ++step) {
+    exact_first_forward(res, acc, mask_b + step, n_steps, base_log, tw_fwd, c);
+    __syncthreads();
+    lazy_pass<4, X_LOG_N, NP, THREADS, true>(res, X_ROWS, 4, tw_fwd, c);
+    __syncthreads();
+    const uint4* skey = bsk + (size_t)step * STEP;
+    for (int q = tid; q < XC * NP * X_GROUPS; q += THREADS) {
+      exact_key_product(res, q, skey, tw_fwd, c);
+    }
+    __syncthreads();
+    lazy_pass<4, X_LOG_N, NP, THREADS, false>(res, X_ROWS, 0, tw_inv, c);
+    __syncthreads();
+    lazy_pass<4, X_LOG_N, NP, THREADS, false>(res, X_ROWS, 4, tw_inv, c);
+    __syncthreads();
+    exact_last_inverse<X_LOG_N, X_K1, NP, XC, THREADS, true>(res, acc, tw_inv, c);
+    __syncthreads();
+  }
+
+  for (int q = tid; q < ACC; q += THREADS) acc_b[q] = (long long)acc[q];
+}
+
+}  // namespace
+
+// The ciphertexts a block of the lazy exact kernel: the batch must be a
+// multiple of it (ops/kernels.py pads).
+extern "C" int tfhe_torch_blind_rotate_exact_cts_per_block() { return XC; }
+
+// Which kernel K2's exact rotation runs at a shape: 1 for the lazy kernel, 0
+// for the generic one.  The wrapper (ops/kernels.py) chooses by it.
+extern "C" int tfhe_torch_blind_rotate_exact_lazy_shape(int k1, int log_n, int levels,
+                                                       int base_log) {
+  return exact_lazy_shape(k1, log_n, levels, base_log) ? 1 : 0;
+}
+
+// The lazy exact kernel: tw_fwd, tw_inv the plan's Shoup twiddle pairs,
+// bsk the exact key (16-byte aligned); batch a multiple of XC.
+extern "C" int tfhe_torch_blind_rotate_exact_lazy(void* acc, const void* mask, const void* bsk,
+                                                  const void* tw_fwd, const void* tw_inv,
+                                                  const void* consts, int batch, int n_steps,
+                                                  int k1, int log_n, int levels, int nprimes,
+                                                  int base_log, void* stream) {
+  if (!exact_lazy_shape(k1, log_n, levels, base_log) || nprimes != NP || batch < XC ||
+      batch % XC != 0 || n_steps < 1 || ((uintptr_t)bsk & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch_blocks(blind_rotate_exact_lazy_kernel, batch / XC, X_SMEM,
+                            (cudaStream_t)stream, (long long*)acc, (const int*)mask,
+                            (const uint4*)bsk, (const uint2*)tw_fwd, (const uint2*)tw_inv,
+                            (const long long*)consts, n_steps, base_log);
+}
 
 // ---------------------------------------------------------------------------
 // v7 mode on a rounded kernel-layout key (ops/bsk_prep.py RoundedKeyNtt):

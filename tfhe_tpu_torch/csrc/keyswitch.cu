@@ -12,16 +12,34 @@
 // What bounds it: at the 2_2 set and B = 512 the contraction is
 // (512 x 8192) x (8192 x 919) = 3.9e9 multiply-adds of a small signed digit
 // by a u64 key word, against 60 MB of key: far more operations than bytes.
-// On the int32 lanes each 64-bit multiply-add is several instructions, so the
-// kernel is bound by integer issue rate, not by memory.
-// Design: a block owns a TB x TC output tile and walks the K axis in chunks
-// of whole input coefficients.  Each chunk's digits are decomposed once into
-// shared memory (every digit is used TC times) and the key tile is staged in
-// shared memory (every key word is used TB times); each thread keeps 8
-// accumulators of one output column in registers.  Blocks that share a
-// column tile have neighbouring indices, so the key is read from device
-// memory about once and from L2 by the rest.  Tensor-core limb products are
-// work for a later change.
+// Counted as 8 byte limbs of each key word on the int8 tensor cores it is
+// 61.7e9 operations, 0.031 ms on an H100 (the 60 MB of key: 0.018 ms).
+//
+// Tensor-core kernel (keyswitch_imma_kernel), for signed digits that fit s8
+// (base_log <= 7), a decomposition in 32 bits (base_log l <= 30), 2 <= l <= 8
+// and limb sums exact in s32 (n_in l 2^(base_log-1) 255 < 2^31; 1.7e7 at
+// 2_2): each u64 key word is 8 unsigned byte limbs, so
+//   sum_k d_k w_k = sum_j 2^(8j) sum_k d_k limb_j(w_k)   (mod 2^64),
+// an s8 x u8 -> s32 GEMM of (B x K) digits by (K x 8 (n_out+1)) limbs,
+// recombined in the epilogue: bit-identical by construction.  The key is
+// laid out once per key tensor by the wrapper (ops/kernels.py
+// keyswitch_key_limbs) as (chunks, columns, 128) bytes, K-major, a chunk
+// holding the l digits of 128 / l whole input coefficients (zero-padded),
+// so the fragments of mma.sync.m16n8k32.s8.u8 load with ldmatrix.  A block
+// of 512 threads owns 128 batch rows x 256 limb columns (32 output words);
+// per chunk it stages the key tile (32 KB) with cp.async three chunks deep
+// and decomposes its rows' coefficients (their high words, fetched into
+// registers one chunk ahead) into a 16 KB digit tile; both tiles are
+// 128-byte rows with their 16-byte units swizzled by row, so ldmatrix
+// reads without bank conflicts.  16 warps of 32 x 64 each run 16 mma a
+// 32-deep step; the epilogue adds each output word's 8 limb sums, held by
+// the 4 lanes of a quad, with two shuffles.
+//
+// Generic kernel (keyswitch_kernel), every other shape: a block owns a TB x
+// TC output tile and walks the K axis in chunks of whole input
+// coefficients, decomposing each chunk's digits once into shared memory
+// and staging the key tile there; each thread keeps 8 u64 accumulators of
+// one output column in registers, multiply-adds on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,6 +140,214 @@ keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel.
+// ---------------------------------------------------------------------------
+
+typedef unsigned int u32;
+
+constexpr int IM_BM = 128;        // batch rows a block
+constexpr int IM_BN = 256;        // limb columns a block (32 output words)
+constexpr int IM_KC = 128;        // digit positions (bytes) a chunk
+constexpr int IM_THREADS = 512;   // 16 warps: 4 along the rows x 4 along the columns
+constexpr int IM_STAGES = 3;      // key chunks in flight
+constexpr int IM_MAXJ = 16;       // coefficients a thread decomposes a chunk (128 / l <= 64)
+constexpr int IM_SMEM = IM_STAGES * IM_BN * IM_KC + 2 * IM_BM * IM_KC;   // 131,072 B
+
+// The tensor-core kernel's shape: signed digits |d| <= 2^(base_log-1) that
+// fit s8, a decomposition read from the high word alone (base_log l <= 30),
+// 2 <= l <= 8 (128 / l whole coefficients a chunk), every limb sum exact in
+// s32.  ops/kernels.py chooses by it (tfhe_torch_keyswitch_imma_shape).
+__host__ __device__ constexpr bool imma_shape(int n_in, int levels, int base_log) {
+  return base_log >= 1 && base_log <= 7 && levels >= 2 && levels <= 8 &&
+         base_log * levels <= 30 &&
+         (long long)n_in * levels * (1ll << (base_log - 1)) * 255 < (1ll << 31);
+}
+
+// The byte offset of digit position k of row r in a tile of 128-byte rows,
+// its 16-byte unit swizzled by the row's low 3 bits.
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * IM_KC + ((((k >> 4) ^ r) & 7) << 4) + (k & 15);
+}
+
+__device__ __forceinline__ u32 smem_u32(const void* p) {
+  return (u32)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(u32 (&r)[4], u32 addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const u32 (&a)[4], u32 b0, u32 b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The decomposer state of a word whose rounding reads only its high word
+// (base_log l <= 30: bits from 2^(63 - rep) up), in 32 bits: as
+// decomposer_state, its value res - (nb << rep) kept signed.
+__device__ __forceinline__ int hi_decomposer_state(u32 hi, int base_log, int levels) {
+  const int rep = base_log * levels;
+  u32 res = hi >> (31 - rep);
+  const u32 rounding_bit = res & 1u;
+  res = ((res + 1u) >> 1) & ((1u << rep) - 1u);
+  const u32 nb = (((res - 1u) | (rounding_bit << (rep - 1))) & res) >> (rep - 1);
+  return (int)(res - (nb << rep));
+}
+
+// next_digit on the 32-bit state.
+__device__ __forceinline__ int hi_next_digit(int& state, int base_log) {
+  const u32 r = (u32)state & ((1u << base_log) - 1u);
+  state >>= base_log;
+  const u32 carry = (((r - 1u) | (u32)state) & r) >> (base_log - 1);
+  state += (int)carry;
+  return (int)r - (int)(carry << base_log);
+}
+
+__global__ void __launch_bounds__(IM_THREADS, 1)
+keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                      const uint4* __restrict__ key, int batch, int n_in, int levels,
+                      int m_out, int base_log, int n_chunks, int key_cols) {
+  extern __shared__ uint4 im_smem[];
+  unsigned char* key_s = (unsigned char*)im_smem;                    // (STAGES, BN, KC)
+  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (2, BM, KC)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 3;          // rows wm 32 .. +32
+  const int wn = warp >> 2;         // limb columns wn 64 .. +64
+  const int n0 = blockIdx.x * IM_BN;
+  const int m0 = blockIdx.y * IM_BM;
+  const int coefs = IM_KC / levels; // whole coefficients a chunk
+  const size_t ct_stride = (size_t)n_in + 1;
+  const u32* ct_words = (const u32*)ct;
+
+  // key tile of chunk c into stage s: BN rows of 128 bytes, 16-byte units
+  auto load_key = [&](int c, int s) {
+    const uint4* src = key + ((size_t)c * key_cols + n0) * (IM_KC / 16);
+    const u32 dst = smem_u32(key_s + s * IM_BN * IM_KC);
+#pragma unroll
+    for (int i = 0; i < IM_BN * IM_KC / 16 / IM_THREADS; ++i) {
+      const int q = i * IM_THREADS + tid;
+      const int r = q >> 3;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       dst + swz(r, (q & 7) << 4)),
+                   "l"(src + q));
+    }
+  };
+  // thread (row r = tid / 4, slots tid % 4 + 4 j): the high words of chunk
+  // c's coefficients (0 past the batch and past n_in: digits 0)
+  const int dr = tid >> 2;
+  const int row_b = m0 + dr;
+  u32 hw[IM_MAXJ];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < IM_MAXJ; ++j) {
+      const int slot = (tid & 3) + 4 * j;
+      const int i = c * coefs + slot;
+      hw[j] = (slot < coefs && i < n_in && row_b < batch)
+                  ? __ldg(ct_words + 2 * ((size_t)row_b * ct_stride + i) + 1)
+                  : 0u;
+    }
+  };
+  auto decompose = [&](int buf) {
+    unsigned char* d = dig_s + buf * IM_BM * IM_KC;
+#pragma unroll
+    for (int j = 0; j < IM_MAXJ; ++j) {
+      const int slot = (tid & 3) + 4 * j;
+      if (slot < coefs) {
+        int state = hi_decomposer_state(hw[j], base_log, levels);
+        for (int lev = 0; lev < levels; ++lev) {
+          d[swz(dr, slot * levels + lev)] = (unsigned char)(signed char)hi_next_digit(state, base_log);
+        }
+      }
+    }
+  };
+
+  // the digit tiles' padding positions (coefs l .. 127) stay zero
+  for (int q = tid; q < 2 * IM_BM * IM_KC / 16; q += IM_THREADS) {
+    ((uint4*)dig_s)[q] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  load_key(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (n_chunks > 1) load_key(1, 1);
+  asm volatile("cp.async.commit_group;\n" ::);
+  fetch(0);
+  __syncthreads();
+  decompose(0);
+  if (n_chunks > 1) fetch(1);
+
+  int acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+    }
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();    // chunk c's key and digits landed; chunk c - 1 is done
+    if (c + 2 < n_chunks) load_key(c + 2, (c + 2) % IM_STAGES);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const unsigned char* ks = key_s + (c % IM_STAGES) * IM_BN * IM_KC;
+    const unsigned char* ds = dig_s + (c & 1) * IM_BM * IM_KC;
+#pragma unroll
+    for (int kk = 0; kk < IM_KC / 32; ++kk) {
+      u32 a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + (lane & 15);
+        ldmatrix_x4(a[mi], smem_u32(ds + swz(r, (kk * 2 + (lane >> 4)) << 4)));
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        u32 b[4];
+        const int r = wn * 64 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(b, smem_u32(ks + swz(r, (kk * 2 + ((lane >> 3) & 1)) << 4)));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_s8u8(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma_s8u8(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (c + 1 < n_chunks) decompose((c + 1) & 1);
+    if (c + 2 < n_chunks) fetch(c + 2);
+  }
+
+  // each n8 tile is one output word: lane (g, t) holds its limbs 2t, 2t + 1
+  // of rows g and g + 8; a quad's sum is the word's product sum
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int col = (n0 + wn * 64 + ni * 8) >> 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        u64 part = ((u64)(long long)acc[mi][ni][2 * h] << (16 * t)) +
+                   ((u64)(long long)acc[mi][ni][2 * h + 1] << (16 * t + 8));
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
+        if (t == h && b < batch && col < m_out) {
+          const u64 body = col == m_out - 1 ? ct[(size_t)b * ct_stride + n_in] : 0ull;
+          out[(size_t)b * m_out + col] = body - part;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tfhe_torch_keyswitch(void* out, const void* ct, const void* ksk,
@@ -135,5 +361,40 @@ extern "C" int tfhe_torch_keyswitch(void* out, const void* ct, const void* ksk,
   keyswitch_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out,
       base_log);
+  return (int)cudaGetLastError();
+}
+
+// Which kernel K1 runs at a shape: 1 for the tensor-core kernel, 0 for the
+// generic one.  The wrapper (ops/kernels.py keyswitch) chooses by it.
+extern "C" int tfhe_torch_keyswitch_imma_shape(int n_in, int levels, int base_log) {
+  return imma_shape(n_in, levels, base_log) ? 1 : 0;
+}
+
+// The tensor-core kernel's key layout: digit positions a chunk (IM_KC) and
+// limb columns a block (IM_BN), which ops/kernels.py keyswitch_key_limbs
+// builds the key's byte layout with.
+extern "C" int tfhe_torch_keyswitch_imma_chunk() { return IM_KC; }
+extern "C" int tfhe_torch_keyswitch_imma_columns() { return IM_BN; }
+
+// The tensor-core kernel: key the (n_chunks, key_cols, 128) byte layout of
+// ops/kernels.py keyswitch_key_limbs (16-byte aligned), key_cols a multiple
+// of IM_BN covering 8 m_out limb columns, n_chunks = ceil(n_in / (128 / l)).
+extern "C" int tfhe_torch_keyswitch_imma(void* out, const void* ct, const void* key,
+                                         int batch, int n_in, int levels, int m_out,
+                                         int base_log, int n_chunks, int key_cols,
+                                         void* stream) {
+  if (!imma_shape(n_in, levels, base_log) || batch < 1 || m_out < 1 ||
+      key_cols % IM_BN != 0 || key_cols < 8 * m_out ||
+      n_chunks != (n_in + IM_KC / levels - 1) / (IM_KC / levels) ||
+      ((uintptr_t)key & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(keyswitch_imma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, IM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(key_cols / IM_BN, (batch + IM_BM - 1) / IM_BM);
+  keyswitch_imma_kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
+      (u64*)out, (const u64*)ct, (const uint4*)key, batch, n_in, levels, m_out, base_log,
+      n_chunks, key_cols);
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,15 @@
 // stages in register passes of up to four over padded shared-memory rows,
 // N^-1 applied in Garner; their prime comes from a constants object
 // (prime_of, modulus, minv), so K5's generic kernel runs them one prime of
-// its six at a time.  K2's exact kernel and step entry, K4 and the generic
+// its six at a time.  K2's generic exact kernel, K4 and the generic
 // kernels of K3's exact mode and of K5 use them.
 //
 // The lazy core (from reduce_to on), for K2's v7 and K3's v9 kernels on a
-// RoundedKeyNtt and for the lazy exact kernels of K3 and K5 (one prime at
+// RoundedKeyNtt and for the lazy exact kernels of K2, K3 and K5 (one prime at
 // a time there: lazy_pass with NPT = 1 on a Consts whose p[0] is that
 // prime; redc_lazy for sums of up to four products, lazy_digit_residue for
-// the first pass's inputs, exact_last_inverse for K3's N^-1 and Garner):
+// the first pass's inputs, exact_last_inverse for K2's and K3's N^-1 and
+// Garner):
 // what bounds those kernels on the H100 is
 // 32-bit integer issue, so the core cuts instructions and passes.  Lazy
 // (Harvey) butterflies with Shoup twiddle pairs keep residues in [0, 4p)
@@ -599,9 +600,9 @@ __device__ __forceinline__ void fused_last_inverse(const u32* res, u32* acc, int
 // (a key without N^-1) fused with N^-1 and Garner: task (ct, cc, lo) owns
 // coefficients j = lo | b 2^(LOG_N-3), b < 8, of output row cc of
 // ciphertext ct, finishes their transforms for every prime in registers
-// and writes each reconstructed u64 word over the accumulator (C, K1, N)
-// (K3's exact kernel).
-template <int LOG_N, int K1, int NPT, int C, int NT>
+// and adds each reconstructed u64 word to the accumulator (C, K1, N) (ADD:
+// K2's lazy exact kernel) or writes it over it (K3's lazy exact kernel).
+template <int LOG_N, int K1, int NPT, int C, int NT, bool ADD = false>
 __device__ __forceinline__ void exact_last_inverse(const u32* res, u64* acc,
                                                    const uint2* __restrict__ tw,
                                                    const Consts& c) {
@@ -632,7 +633,8 @@ __device__ __forceinline__ void exact_last_inverse(const u32* res, u64* acc,
       u32 dg[NPT];
 #pragma unroll
       for (int pi = 0; pi < NPT; ++pi) dg[pi] = y[pi][b];
-      A[lo | (b << K0)] = garner_signed<NPT>(dg, c);
+      const u64 x = garner_signed<NPT>(dg, c);
+      A[lo | (b << K0)] = ADD ? A[lo | (b << K0)] + x : x;
     }
   }
 }

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels of the port: build, load, wrappers.
 
-K1 ``keyswitch`` (csrc/keyswitch.cu), K2 ``blind_rotate``
-(csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry), K3
+K1 ``keyswitch`` (csrc/keyswitch.cu; its tensor-core kernel where
+``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``), K2 ``blind_rotate``
+(csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
+takes the lazy exact kernel where ``exact_lazy_shape`` holds), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
@@ -14,13 +16,17 @@ stream.
 
 Each wrapper runs its plain PyTorch version (ops/server.py,
 ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
-tensors or raises: there is no fallback.  ``<wrapper>.launches`` counts
-kernel launches, and nothing else.
+tensors or raises: there is no fallback; where a wrapper has two kernels
+it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
+nothing else; ``keyswitch.imma_launches`` and ``blind_rotate`` /
+``cmux_step.lazy_exact_launches`` count those of the redesigned kernels
+among them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -75,11 +81,30 @@ def load() -> dict:
         fn = libs["keyswitch"].tfhe_torch_keyswitch
         fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = i
+        fn = libs["keyswitch"].tfhe_torch_keyswitch_imma
+        fn.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+        fn.restype = i
+        fn = libs["keyswitch"].tfhe_torch_keyswitch_imma_shape
+        fn.argtypes = [i] * 3
+        fn.restype = i
+        for fn in (libs["keyswitch"].tfhe_torch_keyswitch_imma_chunk,
+                   libs["keyswitch"].tfhe_torch_keyswitch_imma_columns):
+            fn.argtypes = []
+            fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate
         fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
         fn.argtypes = [i] * 3
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_exact_lazy
+        fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_exact_cts_per_block
+        fn.argtypes = []
+        fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_exact_lazy_shape
+        fn.argtypes = [i] * 4
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_rounded
         fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
@@ -188,35 +213,124 @@ def _launch_rounded(name: str, acc, shifts, key: RoundedKeyNtt, base_log: int,
     return acc_p[:b]
 
 
+@dataclass(frozen=True, eq=False)
+class KeyswitchKeyLimbs:
+    """A keyswitch key as K1's tensor-core kernel reads it: ``words`` the
+    (n_in, l, n_out+1) int64 key, ``limbs`` its byte layout
+    (keyswitch_key_limbs) on the same card.  Built once by the key's owner
+    (keyswitch_key; ServerKey.ks_key) and passed to every keyswitch."""
+
+    words: torch.Tensor
+    limbs: torch.Tensor
+
+
+def keyswitch_key_limbs(ksk, levels: int, chunk: int, columns: int) -> torch.Tensor:
+    """The byte layout of a keyswitch key for K1's tensor-core kernel:
+    (n_in, l, m) int64 -> (chunks, cols, chunk) uint8 on ksk's device.
+    Chunk c holds the l levels of input coefficients c chunk // l ..
+    (c+1) chunk // l - 1 at byte positions (i - c chunk // l) l + lev (zero
+    past them and past n_in); limb column 8 col + j holds byte j
+    (little-endian) of key word col (zero columns up to a multiple of
+    ``columns``).  Each column's ``chunk`` bytes are contiguous: the K-major
+    operand of the s8 x u8 tensor-core product.  The kernel's widths are
+    csrc/keyswitch.cu IM_KC and IM_BN (keyswitch_key reads them)."""
+    n_in, lev, m_out = ksk.shape
+    _require(lev == levels, "ksk levels disagree")
+    per = chunk // levels
+    chunks = -(-n_in // per)
+    cols = -(-8 * m_out // columns) * columns
+    full = torch.zeros((chunks * per, levels, cols), dtype=torch.uint8, device=ksk.device)
+    full[:n_in, :, :8 * m_out] = ksk.contiguous().view(torch.uint8)
+    out = torch.zeros((chunks, cols, chunk), dtype=torch.uint8, device=ksk.device)
+    out[:, :, :per * levels] = full.reshape(chunks, per * levels, cols).transpose(1, 2)
+    return out
+
+
+def keyswitch_imma_shape(n_in: int, levels: int, base_log: int) -> bool:
+    """Whether K1 runs its tensor-core kernel at this shape, as
+    csrc/keyswitch.cu imma_shape decides it (s8 digits, a decomposition read
+    from the high word, s32-exact limb sums): at the keyswitch of every set
+    of shortint/params.py; other shapes run the generic kernel."""
+    return bool(load()["keyswitch"].tfhe_torch_keyswitch_imma_shape(n_in, levels, base_log))
+
+
+def keyswitch_key(ksk, base_log: int, levels: int):
+    """The keyswitch key as ``keyswitch`` takes it: on a CUDA device at a
+    shape of K1's tensor-core kernel, a KeyswitchKeyLimbs (its byte layout
+    built here, on the card); else ksk itself."""
+    if ksk.device.type != "cuda" or not keyswitch_imma_shape(ksk.shape[0], levels, base_log):
+        return ksk
+    lib = load()["keyswitch"]
+    return KeyswitchKeyLimbs(ksk, keyswitch_key_limbs(ksk, levels,
+                                                      lib.tfhe_torch_keyswitch_imma_chunk(),
+                                                      lib.tfhe_torch_keyswitch_imma_columns()))
+
+
 def keyswitch(ct, ksk, base_log: int, levels: int):
     """K1: batched LWE keyswitch (see ops/server.py keyswitch).
 
-    ct: (B, n_in+1) int64; ksk: (n_in, l, n_out+1) int64."""
+    ct: (B, n_in+1) int64; ksk: the (n_in, l, n_out+1) int64 key or its
+    KeyswitchKeyLimbs.  On the card the kernel is chosen by shape
+    (keyswitch_imma_shape): the tensor-core kernel, which takes only a
+    KeyswitchKeyLimbs, else the generic kernel."""
+    limbs = ksk.limbs if isinstance(ksk, KeyswitchKeyLimbs) else None
+    words = ksk.words if limbs is not None else ksk
     if ct.device.type == "cpu":
-        return server.keyswitch(ct, ksk, base_log, levels)
+        return server.keyswitch(ct, words, base_log, levels)
     _require(ct.device.type == "cuda", f"no keyswitch kernel for {ct.device}")
-    ct, ksk = ct.contiguous(), ksk.contiguous()
-    _check_cuda((ct, torch.int64), (ksk, torch.int64))
+    ct, words = ct.contiguous(), words.contiguous()
+    _check_cuda((ct, torch.int64), (words, torch.int64))
     b, w = ct.shape
-    n_in, lev, m_out = ksk.shape
+    n_in, lev, m_out = words.shape
     _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
     out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
-    err = load()["keyswitch"].tfhe_torch_keyswitch(
-        out.data_ptr(), ct.data_ptr(), ksk.data_ptr(), b, n_in, levels, m_out,
-        base_log, _stream(ct))
-    _raise_on(err, "keyswitch")
+    lib = load()["keyswitch"]
+    if keyswitch_imma_shape(n_in, levels, base_log):
+        _require(limbs is not None, "K1's tensor-core kernel takes the key's byte layout: "
+                 "build it once with kernels.keyswitch_key")
+        _check_cuda((ct, torch.int64), (limbs, torch.uint8))
+        err = lib.tfhe_torch_keyswitch_imma(
+            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), b, n_in, levels, m_out,
+            base_log, limbs.shape[0], limbs.shape[1], _stream(ct))
+        _raise_on(err, "keyswitch (tensor cores)")
+        keyswitch.imma_launches += 1
+    else:
+        err = lib.tfhe_torch_keyswitch(
+            out.data_ptr(), ct.data_ptr(), words.data_ptr(), b, n_in, levels, m_out,
+            base_log, _stream(ct))
+        _raise_on(err, "keyswitch")
     keyswitch.launches += 1
     return out
 
 
 keyswitch.launches = 0
+keyswitch.imma_launches = 0     # of them, K1's tensor-core kernel
+
+
+def exact_lazy_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
+    """Which kernel K2's exact rotation (and its step entry) runs, by shape
+    (csrc/blind_rotate.cu exact_lazy_shape): the lazy kernel at k+1 = 2,
+    l = 1, N = 2048, 1 <= base_log <= 30 (the V1_4 2_2 shape, and every set
+    of that shape); the generic kernel at every other shape the wrapper
+    takes: the TEST sets (N = 512, 1024), 1_1's k+1 = 5, l > 1 (TFHE_LIB's
+    N = 1024, l = 3)."""
+    return bool(load()["blind_rotate"].tfhe_torch_blind_rotate_exact_lazy_shape(
+        k1, n_poly.bit_length() - 1, levels, base_log))
+
+
+def exact_cts_per_block() -> int:
+    """The ciphertexts a block of K2's lazy exact kernel (csrc/blind_rotate.cu
+    XC): the wrapper pads the batch to a multiple of it."""
+    return load()["blind_rotate"].tfhe_torch_blind_rotate_exact_cts_per_block()
 
 
 def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
-                         levels: int) -> None:
-    """K2's exact kernel on an initialised accumulator (B, k+1, N) int64, in
-    place: one step per column of mask32 (B, n) int32, key (n, l, k+1, k+1,
-    P, N)."""
+                         levels: int) -> bool:
+    """K2's exact rotation on an initialised accumulator (B, k+1, N) int64,
+    in place: one step per column of mask32 (B, n) int32, key (n, l, k+1,
+    k+1, P, N).  The kernel is chosen by shape (exact_lazy_shape): the
+    lazy kernel, on the batch padded to its C ciphertexts a block, or the
+    generic kernel.  Returns whether the lazy kernel ran."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
@@ -226,6 +340,22 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
              "the kernel takes a 4-prime plan and a power-of-two N")
     _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
     lib = load()["blind_rotate"]
+    if exact_lazy_shape(k1, n_poly, levels, base_log):
+        per_block = exact_cts_per_block()
+        acc_p, mask_p = pad_batch(acc, per_block), pad_batch(mask32, per_block)
+        tw_fwd, tw_inv = shoup_twiddles(dp)
+        _check_cuda((acc_p, torch.int64), (mask_p, torch.int32), (bsk_ntt, torch.int32),
+                    (tw_fwd, torch.int32), (tw_inv, torch.int32),
+                    (dp.kernel_consts, torch.int64))
+        _require(bsk_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+        err = lib.tfhe_torch_blind_rotate_exact_lazy(
+            acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc_p.shape[0], n_steps, k1,
+            n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
+        _raise_on(err, "blind_rotate (lazy exact)")
+        if acc_p.data_ptr() != acc.data_ptr():
+            acc.copy_(acc_p[:b])
+        return True
     smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
     _require(smem <= SMEM_LIMIT,
              f"accumulator and residues need {smem} B of shared memory")
@@ -238,6 +368,7 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
         dp.kernel_consts.data_ptr(), b, n_steps, k1,
         n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
     _raise_on(err, "blind_rotate")
+    return False
 
 
 def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
@@ -267,13 +398,14 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
                  f"key of {bsk_ntt.lead} GGSWs for {mask32.shape[1]} steps")
         acc = _launch_rounded("blind_rotate", acc, mask32, bsk_ntt, base_log, levels,
                               mask32.shape[1])
-    else:
-        _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels)
+    elif _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels):
+        blind_rotate.lazy_exact_launches += 1
     blind_rotate.launches += 1
     return acc
 
 
 blind_rotate.launches = 0
+blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
 
 
 def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int):
@@ -292,13 +424,15 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
         return server.cmux_step(acc, a_col, bsk_slice, dp, base_log, levels)
     _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
     _require(acc.is_contiguous(), "the accumulator must be contiguous (updated in place)")
-    _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
-                         bsk_slice.contiguous()[None], dp, base_log, levels)
+    if _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
+                            bsk_slice.contiguous()[None], dp, base_log, levels):
+        cmux_step.lazy_exact_launches += 1
     cmux_step.launches += 1
     return acc
 
 
 cmux_step.launches = 0
+cmux_step.lazy_exact_launches = 0       # of them, K2's lazy exact kernel
 
 
 def exact_multibit_cts_per_block(k1: int, n_poly: int, levels: int, grouping: int,

@@ -480,7 +480,8 @@ def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
     """One batched KS->PBS (tfhe_tpu/ops/server.py:609 ks_pbs_batch; with
     trunc_acc and a rounded key, :920 ks_pbs_batch_mxu kernel="v7").
 
-    ct: (B, n_big+1); lut: (B, k+1, N); ksk: (n_big, l_ks, n_small+1);
+    ct: (B, n_big+1); lut: (B, k+1, N); ksk: (n_big, l_ks, n_small+1) or
+    its kernels.KeyswitchKeyLimbs (ServerKey.ks_key);
     bsk_ntt: (n_small, l_pbs, k+1, k+1, P, N).  Returns (B, n_big+1).
     Keyswitch and blind rotation go through the kernel wrappers.
     """

@@ -191,7 +191,8 @@ def ks_pbs128_batch(ct, lut_lo, lut_hi, ksk, bsk128_ntt, dp128: ntt.DevicePlan,
     server128.py:265-266), the 128-bit blind rotation (K5) and sample
     extract (tfhe_tpu/ops/server128.py:249, without its Pallas arguments).
 
-    ct: (B, n_big+1) int64; lut pair: (B, k+1, N); ksk u64 words as int64;
+    ct: (B, n_big+1) int64; lut pair: (B, k+1, N); ksk u64 words as int64
+    (or their kernels.KeyswitchKeyLimbs);
     bsk128_ntt: (n_small, l, k+1, k+1, 6, N) int32.  Returns the (lo, hi)
     pair of shape (B, k N + 1)."""
     log_mod = lut_lo.shape[-1].bit_length()

@@ -188,7 +188,7 @@ class NoiseSquashingKey:
         batch = upload_batch([c.data for c in cts], self.device)
         lut_lo, lut_hi = (t.expand((n,) + tuple(t.shape)) for t in self._lut)
         out_lo, out_hi = server128.ks_pbs128_batch(
-            batch, lut_lo, lut_hi, server_key.ksk, self.bsk128_ntt, self.dp128,
+            batch, lut_lo, lut_hi, server_key.ks_key, self.bsk128_ntt, self.dp128,
             p.ks_base_log, p.ks_level, sp.decomp_base_log, sp.decomp_level_count)
         return [SquashedNoiseCiphertext(out_lo[i], out_hi[i], cts[i].degree,
                                         self.message_modulus, self.carry_modulus)

@@ -40,7 +40,7 @@ from ..core import keygen as kg
 from ..core import multibit as mb
 from ..core import security
 from ..core.entities import LweBootstrapKey
-from ..ops import ntt, torus
+from ..ops import kernels, ntt, torus
 from ..ops import server as srv
 from ..ops.bsk_prep import mask_floor_bsk, mb_round_bits, rounded_key_ntt
 from ..utils.csprng import DeterministicSeeder, EncryptionRandomGenerator
@@ -324,10 +324,12 @@ class ServerKey:
         self._bsk_ntt_exact = None
         self.plan = ntt.make_plan(p.polynomial_size)
         self.dp = ntt.device_plan(self.plan, str(device))
-        # uploaded once, in kernel layout: u64 KSK as int64; the BSK as the
-        # rounded key built on the device (v7, v9) or the exact NTT-domain
-        # residues (< 2^30) as int32
+        # uploaded once, in kernel layout: u64 KSK as int64, and on the card
+        # K1's byte layout of it (ks_key, what every keyswitch takes); the
+        # BSK as the rounded key built on the device (v7, v9) or the exact
+        # NTT-domain residues (< 2^30) as int32
         self.ksk = torus.from_u64(np.asarray(ksk_data), device)
+        self.ks_key = kernels.keyswitch_key(self.ksk, p.ks_base_log, p.ks_level)
         if self.trunc_acc:
             self.bsk_ntt = rounded_key_ntt(getattr(bsk, "data", bsk), round_bits,
                                            p.pbs_base_log, device, grouping)
@@ -390,12 +392,12 @@ class ServerKey:
         centered = p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN
         if self.grouping is not None:
             out = srv.ks_pbs_batch_multibit(
-                batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
+                batch, lut_b, self.ks_key, self.bsk_ntt, self.dp,
                 p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
                 self.grouping, centered_ms=centered, v9=self.trunc_acc)
         else:
             out = srv.ks_pbs_batch(
-                batch, lut_b, self.ksk, self.bsk_ntt, self.dp,
+                batch, lut_b, self.ks_key, self.bsk_ntt, self.dp,
                 p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
                 centered_ms=centered, trunc_acc=self.trunc_acc)
         self.pbs_count += n_real
@@ -450,7 +452,7 @@ class ServerKey:
         p = self.params
         log_mod = p.polynomial_size.bit_length()
         msed = torus.to_u64(srv.ks_ms_batch(
-            upload_batch([ct.data], self.device), self.ksk, log_mod, p.ks_base_log,
+            upload_batch([ct.data], self.device), self.ks_key, log_mod, p.ks_base_log,
             p.ks_level, p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN))[0]
         return CompressedModulusSwitchedCiphertext(
             _pack_bits(msed, log_mod), len(msed), log_mod, ct.degree,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Cycles by phase of K5 (csrc/blind_rotate128.cu) and K3's exact kernel
-(csrc/blind_rotate_multibit.cu) on one CUDA card, at B = 512.
+"""Cycles by phase of K5 (csrc/blind_rotate128.cu), K3's exact kernel
+(csrc/blind_rotate_multibit.cu) and K2's exact kernels
+(csrc/blind_rotate.cu) on one CUDA card, at B = 512.
 
-    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [nophase]
+    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k2x] [nophase]
 
 From the root of a checkout.  For each kernel it times the real library
 (CUDA events, a head of the production shape's steps or groups on a
@@ -13,7 +14,12 @@ barrier into a table by source line, runs it once and prints the work
 and the wait a step (a group) at each barrier: a phase is the code that
 ends at that barrier.  ``checks`` first holds both kernels against their
 plain versions at their production, TEST and generic shapes; ``step``
-times K2's step entry (kernels.cmux_step) at B = 512.  Writes
+times K2's step entry (kernels.cmux_step) at B = 512.  ``k2x`` times
+and tables K2's exact rotation over 64 steps of the V1_4 2_2 shape (times
+also scaled to n = 918) twice, from one library: through
+``kernels.blind_rotate`` (the lazy kernel, which the wrapper chooses for
+that shape), and through the generic C entry ``tfhe_torch_blind_rotate``
+(the generic kernel, the first design at that shape).  Writes
 build/phase_cycles/phase.json.
 """
 import ctypes
@@ -33,7 +39,10 @@ from tfhe_tpu_torch.utils.build import CSRC  # noqa: E402
 
 HERE = ROOT / "build" / "phase_cycles"
 SLOTS = 20000
-FUNCS = ["tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
+FUNCS = ["tfhe_torch_blind_rotate", "tfhe_torch_blind_rotate_smem_bytes",
+         "tfhe_torch_blind_rotate_exact_lazy", "tfhe_torch_blind_rotate_exact_cts_per_block",
+         "tfhe_torch_blind_rotate_exact_lazy_shape",
+         "tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
          "tfhe_torch_blind_rotate_multibit", "tfhe_torch_blind_rotate_multibit_smem_bytes",
          "tfhe_torch_blind_rotate_multibit_cts_per_block"]
 B = 512
@@ -95,7 +104,8 @@ def write_sources():
     """The harness header and one wrapper a kernel source, in HERE."""
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "harness.cuh").write_text(HARNESS)
-    for name, source in (("h_k5", "blind_rotate128.cu"), ("h_k3", "blind_rotate_multibit.cu")):
+    for name, source in (("h_k5", "blind_rotate128.cu"), ("h_k3", "blind_rotate_multibit.cu"),
+                         ("h_k2", "blind_rotate.cu")):
         (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(CSRC / source)))
 
 
@@ -215,6 +225,51 @@ def k3x(libs, out, groups=32, check=True):
         out["k3x"]["ms_instrumented"] = ms(run, 1)
 
 
+def k2x(libs, out, steps=64):
+    """K2's exact rotation at the V1_4 2_2 shape (k+1 = 2, l = 1, N = 2048,
+    base_log 23, four primes) on a random key: the wrapper's kernel (the
+    lazy kernel) and the generic C entry (the generic kernel), times and
+    phase tables."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    n, k1, lev, bl = 2048, 2, 1, 23
+    dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+    key = torch.stack([torch.randint(0, q, (steps, lev, k1, k1, n), generator=gen,
+                                     device="cuda") for q in dp.plan.primes],
+                      dim=-2).to(torch.int32)
+    mask = torch.from_numpy(rng.integers(0, 2 * n, (B, steps))).cuda()
+    body = torch.from_numpy(rng.integers(0, 2 * n, (B,))).cuda()
+    lut = torus.from_u64(rng.integers(0, 1 << 64, (B, k1, n), dtype=np.uint64), "cuda")
+    acc0 = server.initial_accumulator(lut, body, False).contiguous()
+    mask32 = mask.to(torch.int32).contiguous()
+
+    def generic(lib):
+        def run():
+            acc = acc0.clone()
+            err = lib.tfhe_torch_blind_rotate(
+                acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+                dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), B, steps, k1,
+                n.bit_length() - 1, lev, 4, bl, kernels._stream(acc))
+            assert err == 0, f"generic K2 launch failed: cudaError {err}"
+            return acc
+        return run
+
+    run = lambda: kernels.blind_rotate(mask, body, lut, key, dp, bl, lev)  # noqa: E731
+    res = {"steps": steps}
+    t = ms(run)
+    res.update(ms=t, ms_scaled_918=t * 918 / steps)
+    t = ms(generic(kernels.load()["blind_rotate"]))
+    res.update(generic_ms=t, generic_ms_scaled_918=t * 918 / steps)
+    if "h_k2" in libs:
+        lib = libs["h_k2"]
+        swap("blind_rotate", lib)
+        res["phases"] = phases(lib, run, "blind_rotate.cu", steps)
+        res["ms_instrumented"] = ms(run, 1)
+        res["generic_phases"] = phases(lib, generic(lib), "blind_rotate.cu", steps)
+        res["generic_ms_instrumented"] = ms(generic(lib), 1)
+    out["k2x"] = res
+
+
 def generic_checks(out):
     """Shapes off the lazy kernels' main instances, B small, against plain."""
     from tfhe_tpu_torch.ops import server128
@@ -272,7 +327,8 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     t0 = time.time()
     kernels.load()
-    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x")) if w in which and "nophase" not in which]
+    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k2", "k2x"))
+            if w in which and "nophase" not in which]
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
     if "checks" in which:
@@ -283,19 +339,23 @@ def main():
         k5(libs, out)
     if "k3x" in which:
         k3x(libs, out)
+    if "k2x" in which:
+        k2x(libs, out)
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
-    for k in ("k5", "k3x"):
+    for k in ("k5", "k3x", "k2x"):
         if k in out:
             d = out[k]
-            print(k, {x: d[x] for x in d if x != "phases"})
-            if "phases" in d:
-                ph = d["phases"]
-                print(f"  total/unit {ph['total_per_unit']:.0f} wait {ph['wait_per_unit']:.0f}")
-                for r in ph["rows"]:
-                    print(f"  {r['at']:28s} n={r['count']:6d} work {r['work_per_unit']:10.0f} "
-                          f"wait {r['wait_per_unit']:8.0f}")
+            print(k, {x: d[x] for x in d if not x.endswith("phases")})
+            for tag in ("phases", "generic_phases"):
+                if tag in d:
+                    ph = d[tag]
+                    print(f"  {tag}: total/unit {ph['total_per_unit']:.0f} "
+                          f"wait {ph['wait_per_unit']:.0f}")
+                    for r in ph["rows"]:
+                        print(f"  {r['at']:28s} n={r['count']:6d} work "
+                              f"{r['work_per_unit']:10.0f} wait {r['wait_per_unit']:8.0f}")
     print(card)
 
 
