@@ -9,8 +9,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
-     sm_90a, one compiler per source, started together); then K1's, K2's,
-     K3's and K5's sources again under ``nvcc -Xptxas -v`` for each kernel's registers,
+     sm_90a, one compiler per source, started together); then every
+     source again under ``nvcc -Xptxas -v`` for each kernel's registers,
      spills and shared memory (line "ptxas"), with the rounded-key
      kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
@@ -24,9 +24,11 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   5. keygen_compression: CompressionKey at
      V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 from phase 3's
      client key (decompression key floored at rb = 15, so decompression
-     runs K2 in v7 mode);
+     runs K2 in v7 mode; the packing key's byte layout for K4's
+     tensor-core kernel built on the card);
   6. compress: the chained round's 512 device-resident outputs into 2
-     storage GLWEs, one launch of K4;
+     storage GLWEs, one launch of K4's tensor-core kernel, then a second,
+     warm call on the same list, which must give the same words;
   7. decompress: all 512 slots through one v7 launch of K2 at n = 1024
      (the function of tfhe_tpu's v8 kernel), every output decrypted, then a
      subset across the GLWE boundary;
@@ -84,8 +86,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      GROUP_2 shape (g = 2, n = 918) on random keys in exact mode and in
      v9 mode (a rounded key, four patterns a group), and its generic instance at the GROUP_3 shape (l = 2) in
      exact mode, where v9 mode must refuse a rounded and a four-prime key;
-     K4 on phase 6's 512 inputs and at four smaller shapes on random
-     keys; K5 on phase 12's own 512 inputs against phase 12's outputs and,
+     K4 on phase 6's 512 inputs (its tensor-core kernel, the generic
+     kernel it replaced and the int8 torch._int_mm yardstick; a bare int64
+     key must be refused), at B = 4096 on the same key, on an all-ones key
+     with masks of the largest digits at B = 512 and at B = 33792 (3072
+     rows a block summed in s32), and at K4_SHAPES on random keys (each
+     shape on the kernel its shape takes, the tensor-core kernel's shapes
+     on the generic kernel too); K5 on phase 12's own 512 inputs against phase 12's outputs and,
      for the first K5_PLAIN_BATCH, against the plain u128 rotation, and at
      the TEST squashing shape (k + 1 = 2, N = 512) and a generic shape
      (k + 1 = 3, N = 1024, l = 2: the generic kernel) on random keys, and
@@ -93,12 +100,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      step entry: phase 13's rotation against the whole K2 rotation and
      the plain one, one step at B = 512 and at the ragged batches; times
      of each kernel in each mode, its plain version, the generic kernels
-     of K1 and K2's exact mode that the redesigned ones replaced at their
-     shapes and, for K1, the int8-limb torch._int_mm formulation the TPU
-     uses (a yardstick the port never calls);
+     of K1, K2's exact mode and K4 that the redesigned ones replaced at
+     their shapes and, for K1 and K4, an int8-limb torch._int_mm
+     formulation (K1's is the TPU's; yardsticks the port never calls);
  15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13 (each wrapper's
-     and, of them, those of K1's tensor-core kernel and K2's lazy exact
-     kernel), the script's total seconds and one {"kernels": [...]} line.
+     and, of them, those of K1's and K4's tensor-core kernels and K2's
+     lazy exact kernel), the script's total seconds and one
+     {"kernels": [...]} line.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -146,8 +154,6 @@ FOUR_STEP_N1 = 128
 # CRT primes an exact packing keyswitch needs: |X| < 8 2^64 N n l < 2^88 at
 # the production set, below half the product of three 30-bit primes
 K4_PRIMES = 3
-# K4 on random keys and inputs, (B, n, l, k+1, N, LWEs a GLWE, base_log):
-# a partial last GLWE, GLWEs of a few rows, l = 1 to 3, N = 32 to 1024
 # K5 against its plain version on the first K5_PLAIN_BATCH of the squash
 # phase's 512 inputs (the plain u128 rotation at B = 512 would take minutes),
 # and at the TEST squashing shape (k + 1 = 2, N = 512: the generic instance)
@@ -167,8 +173,21 @@ K2_GENERIC_STEPS = 64
 K5_PRIMES = 6
 # K2's single-step entry (blind_rotate_stepwise) on a random 2_2-shape key
 STEPWISE_STEPS = 16
+# K4 on random keys and inputs, (B, n, l, k+1, N, LWEs a GLWE, base_log):
+# the tensor-core kernel's shapes (N = 256, k+1 <= 5, base_log <= 7) with a
+# partial last GLWE, k+1 = 1, 2, 3 and 5, l = 1 to 4, GLWEs of 3 and 200
+# LWEs, base_log 1, 4, 5 and 7; the generic kernel's at N = 32 and 1024
+# and at N = 256 with 8-bit digits
 K4_SHAPES = ((300, 512, 3, 2, 256, 256, 4), (45, 40, 2, 2, 32, 20, 5),
-             (3, 5, 1, 1, 1024, 1000, 10), (37, 70, 3, 2, 256, 256, 4))
+             (3, 5, 1, 1, 1024, 1000, 10), (37, 70, 3, 2, 256, 256, 4),
+             (257, 64, 1, 5, 256, 256, 4), (700, 48, 2, 5, 256, 200, 5),
+             (100, 33, 4, 3, 256, 256, 7), (5, 20, 1, 1, 256, 3, 1),
+             (64, 30, 2, 2, 256, 256, 8))
+# K4 at 16 GLWEs under the compression key (the same key as B = 512); and
+# the extreme case on an all-ones key at a batch whose 132 GLWEs leave
+# two coefficient ranges, 3072 rows, to each block of the tensor-core kernel
+K4_BIG_BATCH = 4096
+K4_GUARD_BATCH = 33792
 
 
 def emit(obj) -> None:
@@ -244,6 +263,102 @@ def generic_keyswitch(kernels, ct, ksk, base_log: int, levels: int):
     if err:
         raise RuntimeError(f"K1's generic kernel failed: cudaError {err}")
     return out
+
+
+def generic_packing_keyswitch(kernels, lwes, pksk, base_log: int, levels: int,
+                              per_glwe: int):
+    """K4's generic kernel (csrc/packing_keyswitch.cu packing_keyswitch_kernel)
+    through its C entry, at any shape it takes: at the V1_4 compression
+    shape, the kernel the tensor-core kernel replaced."""
+    import torch
+
+    b = lwes.shape[0]
+    n_in, _, k1, n_poly = pksk.shape
+    out = torch.zeros((-(-b // per_glwe), k1, n_poly), dtype=torch.int64, device=lwes.device)
+    err = kernels.load()["packing_keyswitch"].tfhe_torch_packing_keyswitch(
+        out.data_ptr(), lwes.data_ptr(), pksk.data_ptr(), b, n_in, levels, k1,
+        n_poly.bit_length() - 1, per_glwe, base_log, kernels._stream(lwes))
+    if err:
+        raise RuntimeError(f"K4's generic kernel failed: cudaError {err}")
+    return out
+
+
+def int_mm_operands(lwes, pksk, base_log: int, levels: int, per_glwe: int):
+    """The packing keyswitch as int8 GEMMs: for each GLWE the s8 Toeplitz
+    matrix of its digits, A[t, (i, lev, m)] = Dx[t - m] (Dx the digit vector
+    extended negacyclically), (N, n l N); the key's 10 seven-bit limbs,
+    B[(i, lev, m), (c, e)], (n l N, 10 (k+1)) padded to 8 columns; and the
+    K chunk whose s32 sums stay exact (chunk 2^(base_log-1) 127 < 2^31)."""
+    import torch
+    from tfhe_tpu_torch.ops import server
+
+    n_in, _, k1, n_poly = pksk.shape
+    digits = server.signed_decompose(lwes[:, :-1], base_log, levels).to(torch.int8)
+    key = torch.stack([(pksk >> (7 * e)) & 127 for e in range(10)], dim=-1)
+    key = key.permute(0, 1, 3, 2, 4).reshape(n_in * levels * n_poly, 10 * k1).to(torch.int8)
+    key = torch.nn.functional.pad(key, (0, -key.shape[1] % 8)).contiguous()
+    coeff = torch.arange(n_poly, device=lwes.device)
+    idx = coeff[:, None] - coeff[None, :] + n_poly
+    mats = []
+    for start in range(0, lwes.shape[0], per_glwe):
+        d = digits[:, start:start + per_glwe]
+        dx = torch.zeros((n_in, levels, n_poly), dtype=torch.int8, device=lwes.device)
+        dx[:, :, :d.shape[1]] = d.permute(2, 0, 1)
+        ext = torch.cat([-dx, dx], dim=-1)          # ext[s] = Dx[s - N]
+        mats.append(ext[:, :, idx].permute(2, 0, 1, 3).reshape(n_poly, -1).contiguous())
+    chunk = ((1 << 31) - 1) // ((1 << (base_log - 1)) * 127) // n_poly * n_poly
+    return mats, key, chunk
+
+
+def int_mm_gemms(mats, key, chunk: int) -> list:
+    """Each GLWE's int8 GEMMs (torch._int_mm) in K chunks, summed in int64:
+    (N, 10 (k+1) padded) limb sums."""
+    import torch
+
+    out = []
+    for a in mats:
+        acc = None
+        for k0 in range(0, a.shape[1], chunk):
+            part = torch._int_mm(a[:, k0:k0 + chunk].contiguous(),
+                                 key[k0:k0 + chunk]).to(torch.int64)
+            acc = part if acc is None else acc + part
+        out.append(acc)
+    return out
+
+
+def int_mm_packing_keyswitch(lwes, pksk, base_log: int, levels: int, per_glwe: int):
+    """The packing keyswitch through int8 torch._int_mm GEMMs of the digits'
+    Toeplitz matrices by seven-bit limbs of the key (int_mm_operands),
+    recombined mod 2^64, negated, bodies added.  A library yardstick for K4."""
+    import torch
+
+    k1 = pksk.shape[2]
+    sums = int_mm_gemms(*int_mm_operands(lwes, pksk, base_log, levels, per_glwe))
+    out = []
+    for g, acc in enumerate(sums):
+        limbs = acc[:, :10 * k1].reshape(-1, k1, 10)
+        words = sum(limbs[..., e] << (7 * e) for e in range(10))
+        glwe = -words.T
+        bodies = lwes[g * per_glwe:(g + 1) * per_glwe, -1]
+        glwe[-1, :bodies.shape[0]] += bodies
+        out.append(glwe)
+    return torch.stack(out)
+
+
+def extreme_mask_word(server, base_log: int, levels: int) -> int:
+    """The mask word (int64) whose signed digits sum to the most negative
+    value the balanced decomposition reaches, its lowest digit at
+    -2^(base_log-1) (-8, -7, -7 at 2^4, 3 levels: two -8 in a row do not
+    occur): the largest limb sums of K4's tensor-core kernel on a real
+    mask."""
+    import torch
+
+    rep = base_log * levels
+    tops = torch.arange(1 << rep, dtype=torch.int64) << (64 - rep)
+    digits = server.signed_decompose(tops, base_log, levels)
+    sums = digits.sum(dim=0)
+    pick = (sums == sums.min()) & (digits[0] == -(1 << (base_log - 1)))
+    return int(tops[pick][0])
 
 
 def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: int,
@@ -447,7 +562,7 @@ def head_of(key, lead: tuple):
 
 
 def ptxas_report(kernels) -> dict:
-    """Registers, spills and static shared memory of K1's, K2's, K3's and K5's kernels
+    """Registers, spills and static shared memory of every kernel of K1-K5
     as ``nvcc -Xptxas -v`` reports them (one compiler per source, started
     together; the libraries are thrown away), and the rounded-key kernels'
     dynamic shared memory and ciphertexts a block."""
@@ -462,7 +577,7 @@ def ptxas_report(kernels) -> dict:
                                       str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
-                         "blind_rotate128")]
+                         "packing_keyswitch", "blind_rotate128")]
         for name, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
@@ -511,10 +626,11 @@ def kernel_wrappers(kernels) -> tuple:
 
 def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
-    launches and, of them, those of K1's tensor-core kernel and of K2's
-    lazy exact kernel (the rotation's and the step entry's)."""
+    launches and, of them, those of K1's and K4's tensor-core kernels and
+    of K2's lazy exact kernel (the rotation's and the step entry's)."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
+        ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"))
 
@@ -686,10 +802,10 @@ def main() -> None:
         V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as COMP_PARAMS,
         V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as PARAMS,
         V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 as SQ_PARAMS,
-        TEST_NOISE_SQUASHING_PARAM as SQ_TEST,
+        TEST_NOISE_SQUASHING_PARAM as SQ_TEST, TEST_PARAM_MESSAGE_2_CARRY_2 as TEST_PARAMS,
         ClientKey, CompressionKey, NoiseSquashingKey, NoiseSquashingPrivateKey, ServerKey)
     from tfhe_tpu_torch.shortint import params as shortint_params
-    from tfhe_tpu_torch.shortint.compression import extract_switched
+    from tfhe_tpu_torch.shortint.compression import TEST_COMP_PARAM, extract_switched
     from tfhe_tpu_torch.shortint.server_key import upload_batch
 
     started = time.perf_counter()
@@ -752,22 +868,36 @@ def main() -> None:
           "params": "V1_4_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
           "seconds": time.perf_counter() - t0, "br_floored": dk._bsk_floored,
           "v7_mode": dk.trunc_acc, "pksk_device_bytes": ckey.pksk.numel() * 8,
+          "pksk_limbs_device_bytes": (ckey.pks_key.limbs.numel()
+                                      if hasattr(ckey.pks_key, "limbs") else 0),
           "decompression_key_primes": dk.bsk_ntt.num_primes,
           "decompression_key_device_bytes": key_bytes(dk.bsk_ntt)})
     if dk._bsk_floored != 15 or not dk.trunc_acc or dk.bsk_ntt.num_primes != V7_PRIMES:
         raise RuntimeError("the decompression key was not floored at 15 or not in v7 mode "
                            "on three primes")
+    if not isinstance(ckey.pks_key, kernels.PackingKeyswitchKeyLimbs):
+        raise RuntimeError("the compression key holds no byte layout of its packing key "
+                           "for K4's tensor-core kernel")
 
-    # 6. compress the chained round's device-resident outputs (K4)
+    # 6. compress the chained round's device-resident outputs (K4's
+    # tensor-core kernel)
     chained, chained_want = served["chained"], served["chained_want"]
-    packed, comp_launches, compress_s, _ = counted(kernels, lambda: ckey.compress(chained))
+    # (cold: the process's first K4 launch; then a warm call on the same list)
+    packed, comp_launches, compress_s, compress_host_s = counted(
+        kernels, lambda: ckey.compress(chained))
+    warm, warm_launches, warm_s, warm_host_s = counted(kernels, lambda: ckey.compress(chained))
     raw_bytes = BATCH * (p.polynomial_size * p.glwe_dimension + 1) * 8
     emit({"phase": "compress", "batch": BATCH, "glwes": packed.glwes.shape[0],
-          "seconds": compress_s, "compressed_bytes": packed.glwes.nbytes,
+          "seconds": compress_s, "host_seconds": compress_host_s, "warm_seconds": warm_s,
+          "warm_host_seconds": warm_host_s, "compressed_bytes": packed.glwes.nbytes,
           "uncompressed_bytes": raw_bytes, "ratio": raw_bytes / packed.glwes.nbytes,
           "launches": comp_launches})
-    if comp_launches != only(kernels, packing_keyswitch=1):
-        raise RuntimeError(f"compress did not run K4 alone, once: {comp_launches}")
+    for got in (comp_launches, warm_launches):
+        if got != only(kernels, packing_keyswitch=1, packing_keyswitch_imma=1):
+            raise RuntimeError(f"compress did not run K4's tensor-core kernel alone, once: "
+                               f"{got}")
+    if not (warm.glwes == packed.glwes).all():
+        raise RuntimeError("a second compress of the same list gave other words")
 
     # 7. decompress all 512 (one K2 launch, v7 mode, n = 1024), then a subset
     # across the GLWE boundary
@@ -1124,21 +1254,96 @@ def main() -> None:
     k2_dec_ms = cuda_ms(lambda: kernels.blind_rotate(*dec_args), 3)
     k2_dec_bound = k2_bound(msed[:, :-1], lut_id, cp.br_level, cp.br_base_log, V7_PRIMES)
 
-    # K4 on phase 6's 512 inputs at the production shape
+    # K4 on phase 6's 512 inputs at the production shape: the tensor-core
+    # kernel on the compression key's byte layout, which the wrapper must
+    # take and a bare int64 key must not replace; the generic kernel it
+    # replaced and the int8 torch._int_mm yardstick on the same inputs
     comp_in = upload_batch([ct.data for ct in chained], dev)
-    k4_args = (comp_in, ckey.pksk, cp.packing_ks_base_log, cp.packing_ks_level,
-               cp.lwe_per_glwe)
+    pk_shape = (cp.packing_ks_base_log, cp.packing_ks_level, cp.lwe_per_glwe)
+    k4_args = (comp_in, ckey.pks_key) + pk_shape
+    plain_args = (comp_in, ckey.pksk) + pk_shape
+    imma_before = kernels.packing_keyswitch.imma_launches
     k4_got = kernels.packing_keyswitch(*k4_args)
-    errs["k4_b512"] = max_abs_err(k4_got, server.packing_keyswitch(*k4_args))
-    k4_ms = cuda_ms(lambda: kernels.packing_keyswitch(*k4_args), 10)
-    k4_plain_ms = cuda_ms(lambda: server.packing_keyswitch(*k4_args), 3)
+    if kernels.packing_keyswitch.imma_launches != imma_before + 1:
+        raise RuntimeError("K4 did not take its tensor-core kernel at the V1_4 compression set")
+    k4_want = server.packing_keyswitch(*plain_args)
+    errs["k4_b512"] = max_abs_err(k4_got, k4_want)
+    errs["k4_generic_kernel_b512"] = max_abs_err(
+        generic_packing_keyswitch(kernels, *plain_args), k4_want)
+    errs["k4_int_mm_yardstick_b512"] = max_abs_err(int_mm_packing_keyswitch(*plain_args),
+                                                   k4_want)
+    try:
+        kernels.packing_keyswitch(*plain_args)
+        k4_bare_key_refused = False
+    except ValueError:
+        k4_bare_key_refused = True
+    if not k4_bare_key_refused:
+        raise RuntimeError("K4's wrapper took a bare int64 key at the tensor-core shape")
+    k4_ms = cuda_ms(lambda: kernels.packing_keyswitch(*k4_args), 20)
+    k4_generic_ms = cuda_ms(lambda: generic_packing_keyswitch(kernels, *plain_args), 10)
+    k4_plain_ms = cuda_ms(lambda: server.packing_keyswitch(*plain_args), 3)
+    k4_library_ms = cuda_ms(lambda: int_mm_packing_keyswitch(*plain_args), 3)
+    mm_ops = int_mm_operands(*plain_args)
+    k4_library_gemm_ms = cuda_ms(lambda: int_mm_gemms(*mm_ops), 3)
+    del mm_ops
     k4_b = k4_bound(comp_in, ckey.pksk, k4_got, cp.lwe_per_glwe, K4_PRIMES)
-    for b, n_in, lev, k1_c, n_c, per, base_log in K4_SHAPES:
-        a = (torus.from_u64(chk.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64), dev),
-             torus.from_u64(chk.integers(0, 1 << 64, (n_in, lev, k1_c, n_c), dtype=np.uint64),
-                            dev), base_log, lev, per)
-        errs[f"k4_random_b{b}_n{n_in}_l{lev}_k{k1_c}_N{n_c}"] = max_abs_err(
-            kernels.packing_keyswitch(*a), server.packing_keyswitch(*a))
+    pk_lib = kernels.load()["packing_keyswitch"]
+    n_c = ckey.pksk.shape[0]
+    k4_inputs = {b: pk_lib.tfhe_torch_packing_keyswitch_imma_inputs(
+        n_c, cp.packing_ks_level, cp.packing_ks_base_log, b, cp.lwe_per_glwe)
+        for b in (BATCH, K4_BIG_BATCH, K4_GUARD_BATCH)}
+    # 16 GLWEs under the same key: the key read against the tensor cores
+    big = torus.from_u64(chk.integers(0, 1 << 64, (K4_BIG_BATCH, n_c + 1), dtype=np.uint64),
+                         dev)
+    big_got = kernels.packing_keyswitch(big, ckey.pks_key, *pk_shape)
+    errs[f"k4_b{K4_BIG_BATCH}"] = max_abs_err(big_got,
+                                              server.packing_keyswitch(big, ckey.pksk, *pk_shape))
+    k4_big = {"ms": cuda_ms(lambda: kernels.packing_keyswitch(big, ckey.pks_key, *pk_shape), 10),
+              "generic_kernel_ms": cuda_ms(
+                  lambda: generic_packing_keyswitch(kernels, big, ckey.pksk, *pk_shape), 3),
+              "bound": k4_bound(big, ckey.pksk, big_got, cp.lwe_per_glwe, K4_PRIMES)}
+    del big, big_got
+    # the extreme limb sums: key words all ones, every mask word the one of
+    # the largest digits (every GLWE then holds the same words); at B = 512
+    # and at K4_GUARD_BATCH, where a block sums 3072 rows in s32
+    word = extreme_mask_word(server, cp.packing_ks_base_log, cp.packing_ks_level)
+    ones = torch.full_like(ckey.pksk, -1)
+    ones_key = kernels.packing_keyswitch_key(ones, cp.packing_ks_base_log, cp.packing_ks_level)
+    ones_want = server.packing_keyswitch(
+        torch.full((cp.lwe_per_glwe, n_c + 1), word, dtype=torch.int64, device=dev), ones,
+        *pk_shape)
+    for b in (BATCH, K4_GUARD_BATCH):
+        lw = torch.full((b, n_c + 1), word, dtype=torch.int64, device=dev)
+        got = kernels.packing_keyswitch(lw, ones_key, *pk_shape)
+        errs[f"k4_extreme_b{b}"] = max_abs_err(got, ones_want.expand_as(got))
+    del ones, ones_key, lw, got
+    # the kernel chosen by shape (csrc/packing_keyswitch.cu pk_imma_shape):
+    # the tensor-core kernel at both compression sets; at K4_SHAPES each
+    # kernel at the shapes it takes, the generic one also at the
+    # tensor-core kernel's
+    for q, cq in ((p, cp), (TEST_PARAMS, TEST_COMP_PARAM)):
+        if not kernels.packing_keyswitch_imma_shape(
+                q.big_lwe_dimension, cq.packing_ks_level, cq.packing_ks_glwe_dimension + 1,
+                cq.packing_ks_polynomial_size, cq.packing_ks_base_log):
+            raise RuntimeError("K4's tensor-core kernel refuses a compression set")
+    for b, n_in, lev, k1_c, n_s, per, base_log in K4_SHAPES:
+        lw = torus.from_u64(chk.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64), dev)
+        words = torus.from_u64(chk.integers(0, 1 << 64, (n_in, lev, k1_c, n_s),
+                                            dtype=np.uint64), dev)
+        imma = kernels.packing_keyswitch_imma_shape(n_in, lev, k1_c, n_s, base_log)
+        key = kernels.packing_keyswitch_key(words, base_log, lev)
+        if imma != isinstance(key, kernels.PackingKeyswitchKeyLimbs):
+            raise RuntimeError("K4's key owner and wrapper disagree on the kernel")
+        before = kernels.packing_keyswitch.imma_launches
+        got = kernels.packing_keyswitch(lw, key, base_log, lev, per)
+        if kernels.packing_keyswitch.imma_launches - before != int(imma):
+            raise RuntimeError(f"K4 chose the wrong kernel at {(n_in, lev, k1_c, n_s, base_log)}")
+        want = server.packing_keyswitch(lw, words, base_log, lev, per)
+        tag = f"b{b}_n{n_in}_l{lev}_k{k1_c}_N{n_s}_per{per}_bl{base_log}"
+        errs[f"k4_{'imma' if imma else 'generic'}_{tag}"] = max_abs_err(got, want)
+        if imma:
+            errs[f"k4_generic_{tag}"] = max_abs_err(
+                generic_packing_keyswitch(kernels, lw, words, base_log, lev, per), want)
 
     # K3 (v9 mode) on the multi-bit path's round-0 switched inputs
     ks_mask, body, log_mod = switched_inputs(k1_mb["want"], mp, server)
@@ -1344,7 +1549,8 @@ def main() -> None:
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
           "k2_generic_levels": K2_GENERIC_LEVELS,
-          "k2_v7_four_prime_key_refused": k2_v7_four_prime_refused, **k3_shapes})
+          "k2_v7_four_prime_key_refused": k2_v7_four_prime_refused,
+          "k4_bare_key_refused": k4_bare_key_refused, **k3_shapes})
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
@@ -1492,16 +1698,30 @@ def main() -> None:
         {"name": "packing_keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/packing_keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:537",
+         "kernel": "packing_keyswitch_imma_kernel (int8 tensor cores; "
+                   "packing_keyswitch_kernel elsewhere)",
          "launches": comp_launches["packing_keyswitch"],
+         "tensor_core_launches": comp_launches["packing_keyswitch_imma"],
+         "generic_launches": (comp_launches["packing_keyswitch"]
+                              - comp_launches["packing_keyswitch_imma"]),
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k4")),
-         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "generic_kernel_ms": k4_generic_ms,
          "bound_ms": k4_b["ms"], "bound_by": k4_b["by"],
-         "library_ms": None,
-         "library_call": "none: no PyTorch call takes an exact wrapping-u64 "
-                         "negacyclic polynomial product",
+         "library_ms": k4_library_ms, "library_gemm_ms": k4_library_gemm_ms,
+         "library_call": "int8 torch._int_mm of each GLWE's digit Toeplitz matrix by "
+                         "10 seven-bit limbs of the key, in s32-exact K chunks, with "
+                         "building the operands (library_gemm_ms: the GEMMs alone)",
          "bound_primes": K4_PRIMES,
          "bound_limbs_int8_ms": k4_b["limbs_int8_ms"],
          "bound_ntt_int32_ms": k4_b["ntt_int32_ms"], "bound_bytes_ms": k4_b["bytes_ms"],
+         "inputs_per_block": k4_inputs,
+         f"b{K4_BIG_BATCH}": {"ms": k4_big["ms"],
+                              "generic_kernel_ms": k4_big["generic_kernel_ms"],
+                              "bound_ms": k4_big["bound"]["ms"],
+                              "bound_by": k4_big["bound"]["by"],
+                              "bound_bytes_ms": k4_big["bound"]["bytes_ms"],
+                              "bound_limbs_int8_ms": k4_big["bound"]["limbs_int8_ms"],
+                              "share_of_bound": k4_big["bound"]["ms"] / k4_big["ms"]},
          "shape": [BATCH, comp_in.shape[1] - 1] + list(ckey.pksk.shape[1:])},
         {"name": "blind_rotate128", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate128.cu",

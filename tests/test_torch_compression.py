@@ -4,7 +4,7 @@ the packing and decompression keys (unfloored at TEST_PARAM_MESSAGE_2_CARRY_2
 with TEST_COMP_PARAM, floored at N = 2048), the plain packing keyswitch,
 compress and decompress, the decompression rotation against the TPU
 kernels' XLA twins, modulus-switched compression on a classic and a
-multi-bit key, and the K4 wrapper on CPU tensors."""
+multi-bit key, and the K4 wrapper and the key's owner on CPU tensors."""
 
 import dataclasses
 import types
@@ -366,6 +366,19 @@ def test_k4_wrapper_takes_the_plain_version_on_cpu_only(keys):
     assert kernels.packing_keyswitch.launches == 0
     with pytest.raises(ValueError, match="no packing-keyswitch kernel"):
         kernels.packing_keyswitch(lwes.to("meta"), pkey.pksk.to("meta"), BASE_LOG, LEVELS, 32)
+
+
+def test_compression_key_on_cpu_keeps_the_words(keys, packed):
+    """On the CPU the CompressionKey's pks_key is its int64 packing key
+    itself (the byte layout of K4's tensor-core kernel is built only on the
+    card, where TEST_COMP_PARAM's shape takes that kernel), and compress,
+    which passes it to K4's wrapper, gave tfhe_tpu's list."""
+    _, _, _, pkey = keys
+    assert pkey.pks_key is pkey.pksk
+    assert pkey.pksk.dtype == torch.int64 and pkey.pksk.device.type == "cpu"
+    assert pkey.pksk.shape == (512, LEVELS, 2, 256)
+    _, want, got, _ = packed[LIST_LEN]
+    assert (got.glwes == want.glwes).all()
 
 
 def test_compression_key_defaults_to_the_card(monkeypatch, keys):

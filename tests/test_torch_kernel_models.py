@@ -394,3 +394,286 @@ def test_keyswitch_key_on_cpu_is_the_words():
     want = server.keyswitch(ct, ksk, base_log, levels)
     assert (kernels.keyswitch(ct, both, base_log, levels) == want).all()
     assert (kernels.keyswitch(ct, ksk, base_log, levels) == want).all()
+
+
+# ---------------------------------------------------------------------------
+# K4: the tensor-core packing keyswitch
+# ---------------------------------------------------------------------------
+
+# csrc/packing_keyswitch.cu PK_N, PK_GLWES (GLWEs a block), PK_RS (bytes of
+# a reversed digit vector); the H100's SMs, which the launcher fills once
+PK_N, PK_GLWES, PK_RS = 256, 2, 2 * 256 + 16
+H100_SMS = 132
+PK_SHAPES = {   # (n_in, l, k+1, N, base_log): TEST_COMP_PARAM's; V1_4's with n_in cut
+    "test_comp": (512, 3, 2, 256, 4),
+    "v1_4_cut": (48, 3, 5, 256, 4),
+}
+
+
+def _pk_rows(base_log):
+    """packing_keyswitch.cu pk_rows: rows (i, lev) whose s32 limb sums stay
+    exact with every digit at -2^(base_log-1) and every key byte 255."""
+    return ((1 << 31) - 1) // (PK_N * (1 << (base_log - 1)) * 255)
+
+
+def _pk_shape(levels, k1, n_poly, base_log):
+    """packing_keyswitch.cu pk_imma_shape."""
+    return (n_poly == PK_N and 1 <= k1 <= 5 and 1 <= levels <= 8 and 1 <= base_log <= 7
+            and base_log * levels <= 30 and levels <= _pk_rows(base_log))
+
+
+def _pk_inputs(n_in, levels, base_log, n_glwe, sms=H100_SMS):
+    """packing_keyswitch.cu pk_inputs_per_block: the input coefficients a
+    block, so that the ranges fill the SMs once and stay within pk_rows."""
+    splits = max(1, sms // -(-n_glwe // PK_GLWES))
+    return min(-(-n_in // splits), _pk_rows(base_log) // levels)
+
+
+def _pk_reversed(digits):
+    """The kernel's reversed, extended digit vectors (..., N) -> (..., PK_RS):
+    R[N - j] = d_j, R[2N - j] = -d_j, so that R[u] = Dx[N - u] with Dx the
+    negacyclic extension; bytes the kernel never writes are 0 here."""
+    n = digits.shape[-1]
+    r = np.zeros(digits.shape[:-1] + (2 * n + 16,), dtype=np.int64)
+    j = np.arange(n)
+    r[..., n - j] = digits
+    r[..., 2 * n - j] = -digits
+    return r
+
+
+def _pk_toeplitz(r):
+    """A[..., t, m] = R[..., N - t + m] = Dx[t - m]: the digit Toeplitz
+    matrix the kernel never writes."""
+    n = (r.shape[-1] - 16) // 2
+    idx = n - np.arange(n)[:, None] + np.arange(n)[None, :]
+    return r[..., idx]
+
+
+def _pk_window(words32, o, kp):
+    """The kernel's fragment register: the 4 bytes of R at o + 8 k', one
+    funnel shift of two aligned little-endian words."""
+    w = (o >> 2) + 2 * kp
+    assert 0 <= w and w + 1 < len(words32)
+    return ((int(words32[w + 1]) << 32 | int(words32[w])) >> (8 * (o & 3))) & M32
+
+
+def _le_word(byte_values):
+    return int.from_bytes(np.asarray(byte_values, dtype=np.int64).astype(np.int8).tobytes(),
+                          "little")
+
+
+def _pk_limb_keyswitch(lwes, pksk, base_log, levels, per_glwe, inputs):
+    """The tensor-core kernel's function on numpy u64 inputs: digits from
+    the high words, reversed and extended per (GLWE, i, lev), the Toeplitz
+    tile of byte windows times the key's u8 limbs (ops/kernels.py
+    packing_keyswitch_key_limbs), s32 sums run over the ``inputs``
+    coefficients of a block (checked, row by row), recombined mod 2^64 and
+    negated, bodies added.  Returns (output (G, k+1, N), the largest |s32|
+    running sum)."""
+    b = lwes.shape[0]
+    n_in, _, k1, n = pksk.shape
+    limbs = kernels.packing_keyswitch_key_limbs(torus.from_u64(pksk, "cpu")).numpy()
+    limbs = limbs.reshape(n_in * levels, 8 * k1, n).transpose(0, 2, 1).astype(np.float64)
+    out = np.zeros((-(-b // per_glwe), k1, n), dtype=np.uint64)
+    peak = 0
+    for g in range(out.shape[0]):
+        chunk = lwes[g * per_glwe:(g + 1) * per_glwe]
+        d = np.zeros((n_in, levels, n), dtype=np.int64)
+        d[:, :, :chunk.shape[0]] = _hi_digits(chunk[:, :-1], base_log, levels).transpose(2, 0, 1)
+        assert (np.abs(d) <= 1 << (base_log - 1)).all()
+        r = _pk_reversed(d).reshape(n_in * levels, -1)
+        for start in range(0, n_in, inputs):
+            run = np.zeros((n, 8 * k1))
+            for row in range(start * levels, min(n_in, start + inputs) * levels):
+                # float64 is exact: every partial sum stays below 2^31
+                run += _pk_toeplitz(r[row]).astype(np.float64) @ limbs[row]
+                peak = max(peak, int(np.abs(run).max()))
+            s = run.astype(np.int64).astype(np.uint64).reshape(n, k1, 8)
+            with np.errstate(over="ignore"):
+                words = sum(s[:, :, j] << np.uint64(8 * j) for j in range(8))
+                out[g] -= words.T
+        with np.errstate(over="ignore"):
+            out[g, -1, :chunk.shape[0]] += chunk[:, -1]
+    assert peak < 1 << 31
+    return out, peak
+
+
+def _ref_packing_keyswitch(lwes, pksk, base_log, levels, per_glwe):
+    """tfhe_tpu's packing keyswitch, one call per GLWE as its
+    CompressionKey makes them, on the key's NTT-domain Montgomery form."""
+    plan = ref_ntt.make_plan(pksk.shape[-1], 4)
+    mont = jnp.asarray(ref_ntt.to_mont_all(ref_ntt.forward_all(pksk, plan, np), plan,
+                                           np).astype(np.uint32))
+    return np.stack([np.asarray(ref_srv.packing_keyswitch(
+        jnp.asarray(lwes[s:s + per_glwe]), mont, plan, base_log, levels))
+        for s in range(0, lwes.shape[0], per_glwe)])
+
+
+@pytest.fixture(scope="module")
+def pk_keys():
+    """A random packing key of each PK_SHAPES shape (u64)."""
+    rng = np.random.default_rng(21)
+    return {name: rng.integers(0, 1 << 64, (n_in, lev, k1, n), dtype=np.uint64)
+            for name, (n_in, lev, k1, n, _) in PK_SHAPES.items()}
+
+
+@pytest.mark.parametrize("shape", sorted(PK_SHAPES))
+@pytest.mark.parametrize("b", [1, 37, 256])
+def test_pk_limb_model_matches_tfhe_tpu(pk_keys, shape, b):
+    """K4's tensor-core arithmetic at TEST_COMP_PARAM's shape and at the
+    V1_4 compression set's with n_in cut to 48 (its real l, k+1, N and
+    base_log), with the s32 runs of the kernel's blocks at B = 512 on an
+    H100: tfhe_tpu's words."""
+    n_in, levels, k1, n, base_log = PK_SHAPES[shape]
+    assert _pk_shape(levels, k1, n, base_log)
+    lwes = np.random.default_rng(b).integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64)
+    inputs = _pk_inputs(n_in, levels, base_log, 2)
+    got, _ = _pk_limb_keyswitch(lwes, pk_keys[shape], base_log, levels, n, inputs)
+    want = _ref_packing_keyswitch(lwes, pk_keys[shape], base_log, levels, n)
+    assert got.shape == (1, k1, n) and (got == want).all()
+
+
+def test_pk_limb_model_on_a_partial_last_glwe(pk_keys):
+    """Three GLWEs of 100 LWEs (the last of 57: a part-filled row tile
+    beside an empty GLWE), every coefficient in one s32 run: tfhe_tpu's
+    words."""
+    n_in, levels, k1, n, base_log = PK_SHAPES["v1_4_cut"]
+    lwes = np.random.default_rng(7).integers(0, 1 << 64, (257, n_in + 1), dtype=np.uint64)
+    got, _ = _pk_limb_keyswitch(lwes, pk_keys["v1_4_cut"], base_log, levels, 100, n_in)
+    want = _ref_packing_keyswitch(lwes, pk_keys["v1_4_cut"], base_log, levels, 100)
+    assert got.shape == (3, k1, n) and (got == want).all()
+
+
+def test_pk_fragments_are_the_toeplitz_tile():
+    """The kernel's operand addressing: for every warp's rows (T), lane
+    (g, q), m16 tile and 32-deep step, the four A registers, funnel shifts
+    of aligned words of R at o + 8 k', are the s8 Toeplitz tile's bytes in
+    mma.m16n8k32's A layout (a0: row g, columns 4q .. 4q+3; a1: row g + 8;
+    a2: columns + 16; a3: both); and the B registers that ldmatrix.x4 gives
+    from the swizzled key stage (16-byte unit u of limb row n at u ^ (n & 7),
+    rows past 8 k1 - 1 clamped to it) are limb rows 8c + g, digit positions
+    4q .. 4q+3 and 16 + 4q .. of output polynomial c, for every k+1 <= 5."""
+    rng = np.random.default_rng(5)
+    r = _pk_reversed(rng.integers(-64, 65, PK_N))
+    words32 = r.astype(np.int8).view(np.uint32)
+    a = _pk_toeplitz(r)
+    for T in range(0, PK_N, 64):
+        for lane in range(32):
+            g, q = lane >> 2, lane & 3
+            o = PK_N - T - g + 4 * q
+            for st in range(PK_N // 32):
+                for i in range(4):
+                    k = 4 * st - 2 * i
+                    regs = (_pk_window(words32, o, k), _pk_window(words32, o, k - 1),
+                            _pk_window(words32, o, k + 2), _pk_window(words32, o, k + 1))
+                    for reg, (dr, dc) in zip(regs, ((0, 0), (8, 0), (0, 16), (8, 16))):
+                        t, m = T + 16 * i + g + dr, 32 * st + 4 * q + dc
+                        assert reg == _le_word(a[t, m:m + 4])
+    for k1 in range(1, 6):
+        limb_rows = rng.integers(0, 256, (8 * k1, PK_N), dtype=np.uint8)
+        stage = np.zeros(8 * k1 * PK_N, dtype=np.uint8)
+        for n_row in range(8 * k1):
+            for u in range(PK_N // 16):
+                off = n_row * PK_N + ((u ^ (n_row & 7)) << 4)
+                stage[off:off + 16] = limb_rows[n_row, 16 * u:16 * u + 16]
+        for st in range(PK_N // 32):
+            for p in range(0, k1, 2):
+                addr = []
+                for lane in range(32):
+                    n_row = min(16 * p + (lane & 7) + ((lane >> 4) << 3), 8 * k1 - 1)
+                    u = 2 * st + ((lane >> 3) & 1)
+                    addr.append(n_row * PK_N + ((u ^ (n_row & 7)) << 4))
+                for lane in range(32):
+                    g, q = lane >> 2, lane & 3
+                    # ldmatrix: matrix x's row g from lane 8x + g, bytes 4q .. 4q+3
+                    r4 = [stage[addr[8 * x + g] + 4 * q:addr[8 * x + g] + 4 * q + 4]
+                          for x in range(4)]
+                    for c, (b0, b1) in ((2 * p, (r4[0], r4[1])), (2 * p + 1, (r4[2], r4[3]))):
+                        if c < k1:
+                            m = 32 * st + 4 * q
+                            assert (b0 == limb_rows[8 * c + g, m:m + 4]).all()
+                            assert (b1 == limb_rows[8 * c + g, m + 16:m + 20]).all()
+
+
+def test_pk_s32_guard_at_the_extreme_digit():
+    """The guard pk_rows: with every digit at -2^(base_log-1) (synthetic:
+    the balanced decomposition never gives it at two levels in a row) and
+    every key byte 0xFF, one row's limb sum peaks at t = N - 1 at exactly
+    N 2^(base_log-1) 255, so pk_rows rows stay below 2^31 and one more
+    does not.  The kernel's blocks at B = 512 and B = 4096 on the V1_4
+    set run far fewer rows; the predicate takes both compression sets and
+    leaves N != 256, k+1 > 5 and 8-bit digits to the generic kernel."""
+    for base_log in range(1, 8):
+        d = np.full(PK_N, -(1 << (base_log - 1)))
+        row = _pk_toeplitz(_pk_reversed(d)) @ np.full(PK_N, 255)
+        top = PK_N * (1 << (base_log - 1)) * 255
+        assert np.abs(row).max() == abs(row[-1]) == top
+        rows = _pk_rows(base_log)
+        assert rows * top < 1 << 31 <= (rows + 1) * top
+    assert _pk_rows(4) == 4112
+    for b in (512, 4096):
+        assert _pk_inputs(2048, 3, 4, -(-b // 256)) * 3 <= _pk_rows(4)
+    for n_in, levels, k1, n, base_log in PK_SHAPES.values():
+        assert _pk_shape(levels, k1, n, base_log)
+    assert _pk_shape(1, 5, 256, 4) and _pk_shape(4, 3, 256, 7)
+    assert not _pk_shape(3, 2, 32, 5)          # N = 32
+    assert not _pk_shape(1, 1, 1024, 10)       # N = 1024, 10-bit digits
+    assert not _pk_shape(3, 6, 256, 4)         # k+1 = 6
+    assert not _pk_shape(2, 2, 256, 8)         # digits beyond s8
+    assert not _pk_shape(5, 2, 256, 7)         # 35 bits of decomposition
+
+
+def test_pk_extreme_decomposed_masks_match_tfhe_tpu(pk_keys):
+    """The largest limb sums a real mask reaches: every mask word the one
+    whose digits sum to the largest magnitude the balanced decomposition
+    gives (-8, -7, -7 at 2^4, 3 levels; +8, 7, 7 the other way), every key
+    word all ones, 256 LWEs,
+    every coefficient in one s32 run and in the kernel's runs: the peak is
+    that sum times N 255 per coefficient, and the words are tfhe_tpu's."""
+    n_in, levels, k1, n, base_log = PK_SHAPES["v1_4_cut"]
+    rep = base_log * levels
+    tops = np.arange(1 << rep, dtype=np.uint64) << np.uint64(64 - rep)
+    digits = _hi_digits(tops, base_log, levels)
+    sums = digits.sum(axis=0)
+    assert sums.min() == -sums.max() == -22
+    word = tops[(sums == -22) & (digits[0] == -8)][0]
+    assert tuple(_hi_digits(word[None], base_log, levels)[:, 0]) == (-8, -7, -7)
+    lwes = np.full((n, n_in + 1), word, dtype=np.uint64)
+    key = np.full((n_in, levels, k1, n), (1 << 64) - 1, dtype=np.uint64)
+    want = _ref_packing_keyswitch(lwes, key, base_log, levels, n)
+    for inputs in (n_in, _pk_inputs(n_in, levels, base_log, 2)):
+        got, peak = _pk_limb_keyswitch(lwes, key, base_log, levels, n, inputs)
+        assert peak == inputs * 22 * n * 255
+        assert (got == want).all()
+
+
+def test_pk_key_limbs_are_the_words_bytes():
+    """packing_keyswitch_key_limbs on the CPU: [i, lev, c, b, m] is byte b of
+    word m, each limb column's N bytes contiguous."""
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 1 << 64, (3, 2, 5, 256), dtype=np.uint64)
+    limbs = kernels.packing_keyswitch_key_limbs(torus.from_u64(words, "cpu"))
+    assert limbs.dtype == torch.uint8 and limbs.shape == (3, 2, 5, 8, 256)
+    assert limbs.is_contiguous()
+    for j in range(8):
+        assert (limbs[:, :, :, j].numpy() == ((words >> np.uint64(8 * j)) & np.uint64(255))).all()
+
+
+def test_packing_keyswitch_key_on_cpu_is_the_words():
+    """On the CPU packing_keyswitch_key returns the int64 key itself (no
+    byte layout is built there), and K4's wrapper given a
+    PackingKeyswitchKeyLimbs on CPU tensors runs the plain packing
+    keyswitch on its words."""
+    rng = np.random.default_rng(12)
+    n_in, levels, k1, n, base_log = PK_SHAPES["v1_4_cut"]
+    pksk = torus.from_u64(rng.integers(0, 1 << 64, (n_in, levels, k1, n), dtype=np.uint64),
+                          "cpu")
+    assert kernels.packing_keyswitch_key(pksk, base_log, levels) is pksk
+    lwes = torus.from_u64(rng.integers(0, 1 << 64, (40, n_in + 1), dtype=np.uint64), "cpu")
+    both = kernels.PackingKeyswitchKeyLimbs(pksk, kernels.packing_keyswitch_key_limbs(pksk))
+    want = server.packing_keyswitch(lwes, pksk, base_log, levels, 32)
+    before = kernels.packing_keyswitch.launches, kernels.packing_keyswitch.imma_launches
+    assert torch.equal(kernels.packing_keyswitch(lwes, both, base_log, levels, 32), want)
+    assert torch.equal(kernels.packing_keyswitch(lwes, pksk, base_log, levels, 32), want)
+    assert (kernels.packing_keyswitch.launches,
+            kernels.packing_keyswitch.imma_launches) == before

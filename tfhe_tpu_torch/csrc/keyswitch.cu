@@ -41,8 +41,15 @@
 // and staging the key tile there; each thread keeps 8 u64 accumulators of
 // one output column in registers, multiply-adds on the CUDA cores.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ntt_common.cuh"
+
+using ntt_common::decomposer_state;
+using ntt_common::hi_decomposer_state;
+using ntt_common::hi_next_digit;
+using ntt_common::ldmatrix_x4;
+using ntt_common::mma_s8u8;
+using ntt_common::next_digit;
+using ntt_common::smem_u32;
 
 namespace {
 
@@ -54,28 +61,6 @@ constexpr int KC = 64;         // K rows per chunk (whole coefficients)
 constexpr int THREADS = 256;   // TC columns x 4 row groups
 constexpr int ROWS_PER_THREAD = TB / (THREADS / TC);
 constexpr int MAX_LEVELS = 16;
-
-// Closest-representable rounding with balanced tie-breaking
-// (ops/server.py init_decomposer_state).
-__device__ __forceinline__ u64 decomposer_state(u64 x, int base_log, int levels) {
-  const int rep = base_log * levels;      // < 64, checked by the launcher
-  u64 res = x >> (64 - rep - 1);
-  const u64 rounding_bit = res & 1ull;
-  res = (res + 1ull) >> 1;
-  res &= (1ull << rep) - 1ull;
-  const u64 nb = (((res - 1ull) | (rounding_bit << (rep - 1))) & res) >> (rep - 1);
-  return res - (nb << rep);
-}
-
-// The next signed digit, lowest level first, advancing the state
-// (ops/server.py signed_decompose; the shift of the state is arithmetic).
-__device__ __forceinline__ long long next_digit(u64& state, int base_log) {
-  const u64 r = state & ((1ull << base_log) - 1ull);
-  state = (u64)((long long)state >> base_log);
-  const u64 carry = (((r - 1ull) | state) & r) >> (base_log - 1);
-  state += carry;
-  return (long long)(r - (carry << base_log));
-}
 
 __global__ void __launch_bounds__(THREADS)
 keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
@@ -168,45 +153,6 @@ __host__ __device__ constexpr bool imma_shape(int n_in, int levels, int base_log
 // its 16-byte unit swizzled by the row's low 3 bits.
 __device__ __forceinline__ int swz(int r, int k) {
   return r * IM_KC + ((((k >> 4) ^ r) & 7) << 4) + (k & 15);
-}
-
-__device__ __forceinline__ u32 smem_u32(const void* p) {
-  return (u32)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(u32 (&r)[4], u32 addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8u8(int (&d)[4], const u32 (&a)[4], u32 b0, u32 b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The decomposer state of a word whose rounding reads only its high word
-// (base_log l <= 30: bits from 2^(63 - rep) up), in 32 bits: as
-// decomposer_state, its value res - (nb << rep) kept signed.
-__device__ __forceinline__ int hi_decomposer_state(u32 hi, int base_log, int levels) {
-  const int rep = base_log * levels;
-  u32 res = hi >> (31 - rep);
-  const u32 rounding_bit = res & 1u;
-  res = ((res + 1u) >> 1) & ((1u << rep) - 1u);
-  const u32 nb = (((res - 1u) | (rounding_bit << (rep - 1))) & res) >> (rep - 1);
-  return (int)(res - (nb << rep));
-}
-
-// next_digit on the 32-bit state.
-__device__ __forceinline__ int hi_next_digit(int& state, int base_log) {
-  const u32 r = (u32)state & ((1u << base_log) - 1u);
-  state >>= base_log;
-  const u32 carry = (((r - 1u) | (u32)state) & r) >> (base_log - 1);
-  state += (int)carry;
-  return (int)r - (int)(carry << base_log);
 }
 
 __global__ void __launch_bounds__(IM_THREADS, 1)

@@ -1,14 +1,16 @@
-// The CRT-NTT pieces shared by K2 (blind_rotate.cu), K3
-// (blind_rotate_multibit.cu), K4 (packing_keyswitch.cu, the decomposer)
-// and K5 (blind_rotate128.cu).
+// The pieces shared by K1 (keyswitch.cu), K2 (blind_rotate.cu), K3
+// (blind_rotate_multibit.cu), K4 (packing_keyswitch.cu) and K5
+// (blind_rotate128.cu): the gadget decomposer (64-bit, and from the high
+// word alone), the int8 tensor-core limb product of K1's and K4's
+// tensor-core kernels (mma_s8u8, ldmatrix_x4, smem_u32) and the CRT-NTT.
 //
-// Two sets.  The exact passes (forward_ntt, inverse_ntt, garner_u64):
-// Montgomery arithmetic reduced after every add, sub and product, radix-2
-// stages in register passes of up to four over padded shared-memory rows,
-// N^-1 applied in Garner; their prime comes from a constants object
-// (prime_of, modulus, minv), so K5's generic kernel runs them one prime of
-// its six at a time.  K2's generic exact kernel, K4 and the generic
-// kernels of K3's exact mode and of K5 use them.
+// Two sets of NTT pieces.  The exact passes (forward_ntt, inverse_ntt,
+// garner_u64): Montgomery arithmetic reduced after every add, sub and
+// product, radix-2 stages in register passes of up to four over padded
+// shared-memory rows, N^-1 applied in Garner; their prime comes from a
+// constants object (prime_of, modulus, minv), so K5's generic kernel runs
+// them one prime of its six at a time.  K2's generic exact kernel and the
+// generic kernels of K3's exact mode and of K5 use them.
 //
 // The lazy core (from reduce_to on), for K2's v7 and K3's v9 kernels on a
 // RoundedKeyNtt and for the lazy exact kernels of K2, K3 and K5 (one prime at
@@ -120,6 +122,48 @@ __device__ __forceinline__ long long next_digit(u64& state, int base_log) {
   const u64 carry = (((r - 1ull) | state) & r) >> (base_log - 1);
   state += carry;
   return (long long)(r - (carry << base_log));
+}
+
+// The decomposer state of a word whose rounding reads only its high word
+// (base_log l <= 30: bits from 2^(63 - rep) up), in 32 bits: as
+// decomposer_state, its value res - (nb << rep) kept signed.
+__device__ __forceinline__ int hi_decomposer_state(u32 hi, int base_log, int levels) {
+  const int rep = base_log * levels;
+  u32 res = hi >> (31 - rep);
+  const u32 rounding_bit = res & 1u;
+  res = ((res + 1u) >> 1) & ((1u << rep) - 1u);
+  const u32 nb = (((res - 1u) | (rounding_bit << (rep - 1))) & res) >> (rep - 1);
+  return (int)(res - (nb << rep));
+}
+
+// next_digit on the 32-bit state.
+__device__ __forceinline__ int hi_next_digit(int& state, int base_log) {
+  const u32 r = (u32)state & ((1u << base_log) - 1u);
+  state >>= base_log;
+  const u32 carry = (((r - 1u) | (u32)state) & r) >> (base_log - 1);
+  state += (int)carry;
+  return (int)r - (int)(carry << base_log);
+}
+
+// The int8 tensor-core limb product (K1's and K4's tensor-core kernels):
+// a u64 key word is 8 unsigned byte limbs, so sum_k d_k w_k = sum_j 2^(8j)
+// sum_k d_k limb_j(w_k) (mod 2^64), an s8 x u8 -> s32 product.
+__device__ __forceinline__ u32 smem_u32(const void* p) {
+  return (u32)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(u32 (&r)[4], u32 addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const u32 (&a)[4], u32 b0, u32 b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Index of coefficient i in a padded shared-memory row (one word in 32).

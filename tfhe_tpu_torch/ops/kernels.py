@@ -7,7 +7,9 @@ takes the lazy exact kernel where ``exact_lazy_shape`` holds), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
-``packing_keyswitch`` (csrc/packing_keyswitch.cu) and K5
+``packing_keyswitch`` (csrc/packing_keyswitch.cu; its tensor-core kernel
+where ``packing_keyswitch_imma_shape`` holds, on a
+``PackingKeyswitchKeyLimbs``) and K5
 ``blind_rotate128`` (csrc/blind_rotate128.cu; K2-K5 include
 csrc/ntt_common.cuh) are compiled with nvcc for sm_90a into shared
 libraries with a plain C interface at first use (utils/build.py, all
@@ -18,7 +20,8 @@ Each wrapper runs its plain PyTorch version (ops/server.py,
 ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
 tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
-nothing else; ``keyswitch.imma_launches`` and ``blind_rotate`` /
+nothing else; ``keyswitch.imma_launches``,
+``packing_keyswitch.imma_launches`` and ``blind_rotate`` /
 ``cmux_step.lazy_exact_launches`` count those of the redesigned kernels
 among them.
 """
@@ -127,9 +130,14 @@ def load() -> dict:
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
         fn.argtypes = [i] * 3
         fn.restype = i
-        fn = libs["packing_keyswitch"].tfhe_torch_packing_keyswitch
-        fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
-        fn.restype = i
+        for fn in (libs["packing_keyswitch"].tfhe_torch_packing_keyswitch,
+                   libs["packing_keyswitch"].tfhe_torch_packing_keyswitch_imma):
+            fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
+            fn.restype = i
+        for fn in (libs["packing_keyswitch"].tfhe_torch_packing_keyswitch_imma_shape,
+                   libs["packing_keyswitch"].tfhe_torch_packing_keyswitch_imma_inputs):
+            fn.argtypes = [i] * 5
+            fn.restype = i
         fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128
         fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
         fn.restype = i
@@ -519,34 +527,100 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
 blind_rotate_multibit.launches = 0
 
 
+@dataclass(frozen=True, eq=False)
+class PackingKeyswitchKeyLimbs:
+    """A packing keyswitch key as K4's tensor-core kernel reads it: ``words``
+    the (n_in, l, k+1, N) int64 key, ``limbs`` its byte layout
+    (packing_keyswitch_key_limbs) on the same card.  Built once by the key's
+    owner (packing_keyswitch_key; CompressionKey.pks_key) and passed to
+    every packing keyswitch."""
+
+    words: torch.Tensor
+    limbs: torch.Tensor
+
+
+def packing_keyswitch_key_limbs(pksk) -> torch.Tensor:
+    """The byte layout of a packing keyswitch key for K4's tensor-core
+    kernel: (n_in, l, k+1, N) int64 -> (n_in, l, k+1, 8, N) uint8 on pksk's
+    device, [i, lev, c, b, m] = byte b (little-endian) of key word m of
+    polynomial c of row (i, lev).  Each limb column's N bytes of a row are
+    contiguous: the K-major operand of the s8 x u8 tensor-core product, a
+    row (i, lev) one contiguous tile of 8 (k+1) N bytes."""
+    n_in, levels, k1, n_poly = pksk.shape
+    return (pksk.contiguous().view(torch.uint8).reshape(n_in, levels, k1, n_poly, 8)
+            .transpose(-1, -2).contiguous())
+
+
+def packing_keyswitch_imma_shape(n_in: int, levels: int, k1: int, n_poly: int,
+                                 base_log: int) -> bool:
+    """Whether K4 runs its tensor-core kernel at this shape, as
+    csrc/packing_keyswitch.cu pk_imma_shape decides it (N = 256, k+1 <= 5,
+    s8 digits read from the high word, s32-exact limb sums): the V1_4
+    compression set's packing keyswitch and TEST_COMP_PARAM's; other
+    shapes run the generic kernel."""
+    return bool(load()["packing_keyswitch"].tfhe_torch_packing_keyswitch_imma_shape(
+        n_in, levels, k1, n_poly.bit_length() - 1, base_log))
+
+
+def packing_keyswitch_key(pksk, base_log: int, levels: int):
+    """The packing keyswitch key as ``packing_keyswitch`` takes it: on a
+    CUDA device at a shape of K4's tensor-core kernel, a
+    PackingKeyswitchKeyLimbs (its byte layout built here, on the card);
+    else pksk itself."""
+    n_in, lev, k1, n_poly = pksk.shape
+    if pksk.device.type != "cuda" or not packing_keyswitch_imma_shape(n_in, lev, k1, n_poly,
+                                                                      base_log):
+        return pksk
+    _require(lev == levels, "pksk levels disagree")
+    return PackingKeyswitchKeyLimbs(pksk, packing_keyswitch_key_limbs(pksk))
+
+
 def packing_keyswitch(lwes, pksk, base_log: int, levels: int, lwe_per_glwe: int):
     """K4: pack each run of lwe_per_glwe LWEs into one GLWE, all runs in one
     launch (see ops/server.py packing_keyswitch).
 
-    lwes: (B, n+1) int64; pksk: (n, l, k+1, N) int64 standard domain.
+    lwes: (B, n+1) int64; pksk: the (n, l, k+1, N) int64 standard-domain
+    key or its PackingKeyswitchKeyLimbs.  On the card the kernel is chosen
+    by shape (packing_keyswitch_imma_shape): the tensor-core kernel, which
+    takes only a PackingKeyswitchKeyLimbs, else the generic kernel.
     Returns (ceil(B / lwe_per_glwe), k+1, N) int64."""
+    limbs = pksk.limbs if isinstance(pksk, PackingKeyswitchKeyLimbs) else None
+    words = pksk.words if limbs is not None else pksk
     if lwes.device.type == "cpu":
-        return server.packing_keyswitch(lwes, pksk, base_log, levels, lwe_per_glwe)
+        return server.packing_keyswitch(lwes, words, base_log, levels, lwe_per_glwe)
     _require(lwes.device.type == "cuda", f"no packing-keyswitch kernel for {lwes.device}")
-    lwes, pksk = lwes.contiguous(), pksk.contiguous()
-    _check_cuda((lwes, torch.int64), (pksk, torch.int64))
+    lwes, words = lwes.contiguous(), words.contiguous()
+    _check_cuda((lwes, torch.int64), (words, torch.int64))
     b, w = lwes.shape
-    n_in, lev, k1, n_poly = pksk.shape
+    n_in, lev, k1, n_poly = words.shape
     _require(w == n_in + 1 and lev == levels, "lwes / pksk shapes disagree")
     _require(n_poly & (n_poly - 1) == 0 and 16 <= n_poly <= 1024,
              f"the kernel takes a power-of-two N in [16, 1024], not {n_poly}")
     _require(1 <= lwe_per_glwe <= n_poly, f"{lwe_per_glwe} LWEs do not fit N = {n_poly}")
     out = torch.zeros((-(-b // lwe_per_glwe), k1, n_poly), dtype=torch.int64,
                       device=lwes.device)
-    err = load()["packing_keyswitch"].tfhe_torch_packing_keyswitch(
-        out.data_ptr(), lwes.data_ptr(), pksk.data_ptr(), b, n_in, levels, k1,
-        n_poly.bit_length() - 1, lwe_per_glwe, base_log, _stream(lwes))
-    _raise_on(err, "packing_keyswitch")
+    lib = load()["packing_keyswitch"]
+    args = (b, n_in, levels, k1, n_poly.bit_length() - 1, lwe_per_glwe, base_log,
+            _stream(lwes))
+    if packing_keyswitch_imma_shape(n_in, levels, k1, n_poly, base_log):
+        _require(limbs is not None, "K4's tensor-core kernel takes the key's byte layout: "
+                 "build it once with kernels.packing_keyswitch_key")
+        _check_cuda((lwes, torch.int64), (limbs, torch.uint8))
+        _require(limbs.shape == (n_in, levels, k1, 8, n_poly), "key limbs / words disagree")
+        err = lib.tfhe_torch_packing_keyswitch_imma(out.data_ptr(), lwes.data_ptr(),
+                                                    limbs.data_ptr(), *args)
+        _raise_on(err, "packing_keyswitch (tensor cores)")
+        packing_keyswitch.imma_launches += 1
+    else:
+        err = lib.tfhe_torch_packing_keyswitch(out.data_ptr(), lwes.data_ptr(),
+                                               words.data_ptr(), *args)
+        _raise_on(err, "packing_keyswitch")
     packing_keyswitch.launches += 1
     return out
 
 
 packing_keyswitch.launches = 0
+packing_keyswitch.imma_launches = 0    # of them, K4's tensor-core kernel
 
 
 def blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi, bsk_ntt, dp: DevicePlan,

@@ -248,8 +248,12 @@ class CompressionKey:
         self.params = p
         self.comp = cp
         self.device = device
-        # uploaded once, in K4's layout: the standard-domain u64 words
+        # uploaded once: the standard-domain u64 words and, on the card at a
+        # shape of K4's tensor-core kernel, their byte layout beside them
+        # (kernels.PackingKeyswitchKeyLimbs; else the words themselves)
         self.pksk = torus.from_u64(pksk, device)
+        self.pks_key = kernels.packing_keyswitch_key(self.pksk, cp.packing_ks_base_log,
+                                                     cp.packing_ks_level)
         self.decompression = DecompressionKey(bsk, bsk_floored, p, cp, device)
 
     def compress(self, cts: list) -> CompressedCiphertextList:
@@ -258,7 +262,7 @@ class CompressionKey:
         lazy outputs) are gathered on the device."""
         cp = self.comp
         batch = upload_batch([c.data for c in cts], self.device)
-        glwes = kernels.packing_keyswitch(batch, self.pksk, cp.packing_ks_base_log,
+        glwes = kernels.packing_keyswitch(batch, self.pks_key, cp.packing_ks_base_log,
                                           cp.packing_ks_level, cp.lwe_per_glwe)
         msed = srv.modulus_switch(glwes, cp.storage_log_modulus)
         first = cts[0]
