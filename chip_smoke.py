@@ -54,7 +54,25 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      single-step entry (blind_rotate_stepwise, the path of tfhe_tpu's
      build_cmux_step kernel; K2's lazy exact kernel at n_steps = 1) at the
      2_2 shape on a random key, B = 512;
- 14. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 14. integer: the integer layer on phase 3's key (no second keygen),
+     FheUint64 (32 blocks) add, sub, mul, eq, gt, bitand, scalar_mul and
+     if_then_else (K1's tensor-core kernel, then K2 v7, every round), each
+     timed after a warm-up op with its rounds, the batch size of each, PBS,
+     launches and host materialisations (add and mul also profiled: their
+     kernels' device seconds); FheUint8 add, mul and a cast; the
+     scheduler's add_many and eq_many on 16 FheUint64 pairs (rounds of up
+     to 512), with PBS/s;
+ 15. integer_multibit: FheUint64 add and mul on phase 8's key (K1, then K3
+     v9; K2 never), reported as phase 14's;
+ 16. integer_storage: phase 14's FheUint64 sum through
+     switch_modulus_and_compress (K1 a block) and decompress (K2's lazy
+     exact kernel once, 32 blocks), then squashed on phase 11's key (K1,
+     then K5 at B = 32) and decrypted with the squashing private key;
+ 17. boolean: keygen at DEFAULT_PARAMETERS, one AND gate, 512 packed gates
+     across the six kinds (gates/s) and one mux, each timed after a
+     warm-up call; K2's lazy exact kernel once a gate call, every K1
+     launch its tensor-core kernel's;
+ 18. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -103,7 +121,15 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      of K1, K2's exact mode and K4 that the redesigned ones replaced at
      their shapes and, for K1 and K4, an int8-limb torch._int_mm
      formulation (K1's is the TPU's; yardsticks the port never calls);
- 15. the launch counts of phases 4, 6, 7, 9, 10, 12 and 13 (each wrapper's
+     phase 14's FheUint64 mul product round (B = 1024): its first 8
+     inputs through K1 and K2 v7 against the plain keyswitch and
+     three-prime v7 rotation, and the round's outputs against the plain
+     path; phase 17's 512 packed gate inputs through K1 and K2's lazy exact
+     kernel against the plain keyswitch and exact rotation, and the gates'
+     outputs against the plain path; K2's generic exact kernel at
+     tfhe_tpu's TFHE_LIB_PARAMETERS shape (k + 1 = 2, N = 1024, l = 3,
+     n = 630) on a random key at B = 4 and B = 3;
+ 19. the launch counts of phases 4, 6, 7, 9, 10, 12-17 (each wrapper's
      and, of them, those of K1's and K4's tensor-core kernels and K2's
      lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line.
@@ -188,6 +214,34 @@ K4_SHAPES = ((300, 512, 3, 2, 256, 256, 4), (45, 40, 2, 2, 32, 20, 5),
 # two coefficient ranges, 3072 rows, to each block of the tensor-core kernel
 K4_BIG_BATCH = 4096
 K4_GUARD_BATCH = 33792
+# the integer phases: FheUint64 and FheUint8 at 2 bits a block; the
+# scheduler's coalesced ops on BATCHED_PAIRS FheUint64 pairs; FheUint64
+# mul's product round (its 32 x 33 / 2 lsb and 32 x 31 / 2 msb block
+# products), of which K2 v7 runs the first MUL_ROUND_CHECK against the plain
+# rotation; tfhe-rs's FheUint64 add and mul latency on one H100 (BASELINE.md)
+U64_BLOCKS = 32
+U8_BLOCKS = 4
+BATCHED_PAIRS = 16
+MUL_PRODUCT_ROUND = 1024
+MUL_ROUND_CHECK = 8
+TFHE_RS_H100_MS = {"add": 9.52, "mul": 31.9}
+# the boolean phase: packed gates across the six kinds; K2's generic exact
+# kernel at tfhe_tpu's TFHE_LIB_PARAMETERS shape (k + 1, N, l, base_log, n)
+# on a random key at two batches
+GATES = 512
+GATE_KINDS = ("and", "or", "xor", "nand", "nor", "xnor")
+GATE_FNS = {"and": lambda x, y: x and y, "or": lambda x, y: x or y,
+            "xor": lambda x, y: x != y, "nand": lambda x, y: not (x and y),
+            "nor": lambda x, y: not (x or y), "xnor": lambda x, y: x == y}
+TFHE_LIB_SHAPE = (2, 1024, 3, 7, 630)
+TFHE_LIB_BATCHES = (4, 3)
+# every kernel of the port, by the name a profiler trace gives it
+KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kernel",
+                "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
+                "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
+                "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
+                "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
+                "packing_keyswitch_imma_kernel")
 
 
 def emit(obj) -> None:
@@ -782,6 +836,403 @@ def switched_inputs(ks, p, server):
     return ks[:, :-1], server.modulus_switch(body, log_mod), log_mod
 
 
+def integer_keys(ti, ck, sk) -> tuple:
+    """A shortint client and server key as integer keys, with no second
+    keygen (as tfhe_tpu/hlapi/keys.py:63-70 wraps a shortint server key)."""
+    ick = ti.ClientKey.__new__(ti.ClientKey)
+    ick.key, ick.params = ck, ck.params
+    isk = ti.ServerKey.__new__(ti.ServerKey)
+    isk.key, isk.params = sk, sk.params
+    isk.msg, isk._luts = sk.params.message_modulus, {}
+    return ick, isk
+
+
+def integer_ops(isk, ick, a, b, x: int, y: int, scalar: int, cond, blocks: int,
+                only=None) -> list:
+    """(name, call, check) of the FheUint ops the integer phases run on a and
+    b (encrypting x and y; cond encrypts True); check counts wrong outputs."""
+    mod = isk.msg ** blocks
+    x, y = x % mod, y % mod
+    dec, dec_bool = ick.decrypt_radix, ick.decrypt_bool
+    ops = [
+        ("add", lambda: isk.add_parallelized(a, b), lambda o: dec(o) != (x + y) % mod),
+        ("sub", lambda: isk.sub_parallelized(a, b), lambda o: dec(o) != (x - y) % mod),
+        ("mul", lambda: isk.mul_parallelized(a, b), lambda o: dec(o) != (x * y) % mod),
+        ("eq", lambda: isk.eq_parallelized(a, b), lambda o: dec_bool(o) != (x == y)),
+        ("gt", lambda: isk.gt_parallelized(a, b), lambda o: dec_bool(o) != (x > y)),
+        ("bitand", lambda: isk.bitand_parallelized(a, b), lambda o: dec(o) != x & y),
+        ("scalar_mul", lambda: isk.scalar_mul_parallelized(a, scalar),
+         lambda o: dec(o) != (x * scalar) % mod),
+        ("if_then_else", lambda: isk.if_then_else_parallelized(cond, a, b),
+         lambda o: dec(o) != x)]
+    return [op for op in ops if only is None or op[0] in only]
+
+
+class RoundLog:
+    """Every round a shortint ServerKey runs, by wrapping its two batch
+    entry points on the instance: each round's batch size, and the inputs,
+    tables and outputs of the first round of ``keep`` ciphertexts."""
+
+    def __init__(self, sk, keep=None):
+        self.sk, self.keep, self.sizes, self.kept = sk, keep, [], None
+        apply_batch = sk.apply_lookup_table_batch
+        decompress_batch = sk.decompress_and_apply_lookup_table_batch
+
+        def apply(cts, luts):
+            out = apply_batch(cts, luts)
+            self.sizes.append(len(cts))
+            if self.kept is None and len(cts) == self.keep:
+                self.kept = (list(cts), luts, out)
+            return out
+
+        def decompress(compressed, luts):
+            self.sizes.append(len(compressed))
+            return decompress_batch(compressed, luts)
+
+        sk.apply_lookup_table_batch = apply
+        sk.decompress_and_apply_lookup_table_batch = decompress
+
+    def close(self) -> None:
+        del self.sk.apply_lookup_table_batch
+        del self.sk.decompress_and_apply_lookup_table_batch
+
+
+def measured_op(kernels, log, fn, check, warm: bool = True) -> tuple:
+    """One integer (or gate) op: a warm-up call first (unless warm is
+    False), then one call timed with the card synchronised before and after.
+    Returns (its output, its line: seconds, rounds and the batch size of
+    each, PBS, the launches it made, host materialisations (batches
+    downloaded from the card), outputs decrypted wrong by check)."""
+    from tfhe_tpu_torch.shortint.ciphertext import DeviceLweBatch
+
+    if warm:
+        fn()
+    if log is not None:
+        log.sizes.clear()
+        pbs0 = log.sk.pbs_count
+    downloads = DeviceLweBatch.downloads
+    out, launches, seconds, host_seconds = counted(kernels, fn)
+    line = {"seconds": seconds, "host_seconds": host_seconds,
+            "host_materialisations": DeviceLweBatch.downloads - downloads,
+            "launches": {k: v for k, v in launches.items() if v}}
+    if log is not None:
+        line.update({"rounds": len(log.sizes), "batch_sizes": list(log.sizes),
+                     "pbs": log.sk.pbs_count - pbs0})
+    line["wrong"] = int(check(out))
+    return out, line
+
+
+def op_kernel_seconds(fn, names) -> dict:
+    """fn under the profiler, a warm-up step then a recorded one (a trace's
+    first step can miss kernels): the recorded step's seconds, and the
+    device seconds of the named kernels summed over its launches (None
+    where the trace shows no device time)."""
+    import torch
+
+    total = []
+
+    def ready(prof):
+        total.append(sum(getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0))
+                         for evt in prof.key_averages()
+                         if any(n in evt.key for n in names)))
+
+    trace = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1), on_trace_ready=ready)
+    with trace:
+        fn()
+        torch.cuda.synchronize()
+        trace.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trace.step()
+    return {"profiled_seconds": seconds,
+            "kernel_seconds": total[0] / 1e6 if total and total[0] else None}
+
+
+def check_launches(tag: str, line: dict, must: dict, never=()) -> None:
+    """Raise unless the op launched each kernel of ``must`` (name: the
+    launches of another counter that it must equal, or None for at least
+    once) and none of ``never``."""
+    got = line["launches"]
+    for name, equal_to in must.items():
+        if not got.get(name) or (equal_to is not None and got.get(name) != got.get(equal_to)):
+            raise RuntimeError(f"{tag} did not run {name} as it must: {got}")
+    for name in never:
+        if got.get(name):
+            raise RuntimeError(f"{tag} ran {name}: {got}")
+
+
+def integer_phase(kernels, ti, ick, isk, seed: int) -> dict:
+    """Phase 14: the integer layer on a classic key (K1, then K2 v7, every
+    round): the FheUint64 ops of integer_ops, each timed after a warm-up op
+    (add and mul also profiled: their kernels' device seconds); FheUint8
+    add, mul and a cast (to signed, then two trivial zero blocks on top);
+    the scheduler's add_many and eq_many on BATCHED_PAIRS FheUint64 pairs
+    (rounds of up to BATCHED_PAIRS x 32 = 512).  The cast takes a FheUint8 to
+    a 12-bit signed integer of the same value (FheUint8 -> FheInt16's
+    zero extension at 2 bits a block).  Every output decrypted
+    against Python integers.  Returns the phase line, its wrong outputs, the
+    add's output, x, y and their modulus, and FheUint64 mul's product round
+    (inputs, tables, outputs)."""
+    import numpy as np
+
+    from tfhe_tpu_torch.integer import scheduler
+
+    rng = np.random.default_rng(seed)
+    mod = isk.msg ** U64_BLOCKS
+    x, y, s_mul = (int(v) % mod for v in rng.integers(0, 1 << 64, 3, dtype=np.uint64))
+    a64, b64 = ick.encrypt_radix(x, U64_BLOCKS), ick.encrypt_radix(y, U64_BLOCKS)
+    cond = ick.encrypt_bool(True)
+    log = RoundLog(isk.key, keep=MUL_PRODUCT_ROUND)
+    lines, outs = {}, {}
+    for name, fn, check in integer_ops(isk, ick, a64, b64, x, y, s_mul, cond, U64_BLOCKS):
+        outs[name], lines[name] = measured_op(kernels, log, fn, check)
+        check_launches(f"FheUint64 {name}", lines[name],
+                       {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None},
+                       never=("blind_rotate_multibit", "blind_rotate_exact_lazy"))
+    for name, fn in (("add", lambda: isk.add_parallelized(a64, b64)),
+                     ("mul", lambda: isk.mul_parallelized(a64, b64))):
+        lines[name].update(op_kernel_seconds(fn, KERNEL_NAMES))
+    x8, y8 = (int(v) for v in rng.integers(0, 256, 2))
+    a8, b8 = ick.encrypt_radix(x8, U8_BLOCKS), ick.encrypt_radix(y8, U8_BLOCKS)
+    u8_lines = {}
+    for name, fn, want in (
+            ("add", lambda: isk.add_parallelized(a8, b8), (x8 + y8) % 256),
+            ("mul", lambda: isk.mul_parallelized(a8, b8), (x8 * y8) % 256),
+            ("cast", lambda: isk.extend_radix_with_trivial_zero_blocks_msb(
+                isk.cast_to_signed(a8, U8_BLOCKS), 2), x8)):
+        dec = ick.decrypt_signed_radix if name == "cast" else ick.decrypt_radix
+        _, u8_lines[name] = measured_op(kernels, log, fn, lambda o, d=dec, w=want: d(o) != w)
+    xs = [int(v) % mod for v in rng.integers(0, 1 << 64, 2 * BATCHED_PAIRS, dtype=np.uint64)]
+    xs[1] = xs[0]                  # one equal pair
+    pairs = [(ick.encrypt_radix(xs[2 * i], U64_BLOCKS),
+              ick.encrypt_radix(xs[2 * i + 1], U64_BLOCKS)) for i in range(BATCHED_PAIRS)]
+    batched = {}
+    for name, fn, check in (
+            ("add_many", lambda: scheduler.add_many_parallelized(isk, pairs),
+             lambda o: sum(ick.decrypt_radix(c) != (xs[2 * i] + xs[2 * i + 1]) % mod
+                           for i, c in enumerate(o))),
+            ("eq_many", lambda: scheduler.eq_many_parallelized(isk, pairs),
+             lambda o: sum(ick.decrypt_bool(c) != (xs[2 * i] == xs[2 * i + 1])
+                           for i, c in enumerate(o)))):
+        _, batched[name] = measured_op(kernels, log, fn, check)
+        batched[name]["pbs_per_s"] = batched[name]["pbs"] / batched[name]["seconds"]
+    log.close()
+    if log.kept is None or len(log.kept[0]) != MUL_PRODUCT_ROUND:
+        raise RuntimeError(f"FheUint64 mul ran no product round of {MUL_PRODUCT_ROUND} products")
+    wrong = sum(op["wrong"] for group in (lines, u8_lines, batched) for op in group.values())
+    line = {"key": "classic V1_4 2_2", "blocks": U64_BLOCKS, "fheuint64": lines,
+            "fheuint8": u8_lines, "batched_pairs": BATCHED_PAIRS,
+            "batched_fheuint64": batched, "tfhe_rs_h100_ms": TFHE_RS_H100_MS,
+            "wrong": wrong}
+    return {"line": line, "wrong": wrong, "add_out": outs["add"], "x": x, "y": y,
+            "modulus": mod, "product_round": log.kept}
+
+
+def integer_multibit_phase(kernels, ick, isk, x: int, y: int) -> dict:
+    """Phase 15: FheUint64 add and mul on a multi-bit key (K1, then K3 v9,
+    every round; K2 never), each timed after a warm-up op and profiled."""
+    a, b = ick.encrypt_radix(x, U64_BLOCKS), ick.encrypt_radix(y, U64_BLOCKS)
+    log = RoundLog(isk.key)
+    lines = {}
+    for name, fn, check in integer_ops(isk, ick, a, b, x, y, 0, None, U64_BLOCKS,
+                                       only=("add", "mul")):
+        _, lines[name] = measured_op(kernels, log, fn, check)
+        check_launches(f"multi-bit FheUint64 {name}", lines[name],
+                       {"keyswitch": None, "keyswitch_imma": "keyswitch",
+                        "blind_rotate_multibit": None}, never=("blind_rotate",))
+        lines[name].update(op_kernel_seconds(fn, KERNEL_NAMES))
+    log.close()
+    return {"key": "multi-bit GROUP_4 2_2", "blocks": U64_BLOCKS, "fheuint64": lines,
+            "tfhe_rs_h100_ms": TFHE_RS_H100_MS,
+            "wrong": sum(op["wrong"] for op in lines.values())}
+
+
+STORAGE_STEPS = ("switch_modulus_and_compress", "decompress", "squash")
+
+
+def integer_storage_phase(kernels, ick, isk, nsk, sq_priv, ct, want: int) -> dict:
+    """Phase 16: a FheUint64 through switch_modulus_and_compress (K1 a
+    block) and decompress (K2's lazy exact kernel once, B = 32), then
+    squashed (K1, then K5 at B = 32) on a squashing key, decrypted with its
+    private key."""
+    from tfhe_tpu_torch.integer import noise_squashing
+
+    log = RoundLog(isk.key)
+    stored, store = measured_op(kernels, log, lambda: isk.switch_modulus_and_compress(ct),
+                                lambda o: 0, warm=False)
+    check_launches("switch_modulus_and_compress", store,
+                   {"keyswitch": None, "keyswitch_imma": "keyswitch"},
+                   never=("blind_rotate", "blind_rotate_multibit"))
+    _, restore = measured_op(kernels, log, lambda: isk.decompress(stored),
+                             lambda o: ick.decrypt_radix(o) != want, warm=False)
+    check_launches("radix decompress", restore,
+                   {"blind_rotate": None, "blind_rotate_exact_lazy": "blind_rotate"},
+                   never=("keyswitch", "blind_rotate_multibit"))
+    log.close()
+    priv = noise_squashing.NoiseSquashingPrivateKey.__new__(
+        noise_squashing.NoiseSquashingPrivateKey)
+    priv.key = sq_priv
+    squasher = noise_squashing.NoiseSquashingKey.__new__(noise_squashing.NoiseSquashingKey)
+    squasher.key = nsk
+    _, squash = measured_op(kernels, None,
+                            lambda: squasher.squash_radix_ciphertext_noise(isk, ct),
+                            lambda o: priv.decrypt_radix(o) != want)
+    check_launches("radix squash", squash,
+                   {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate128": None})
+    p = isk.params
+    return {"blocks": U64_BLOCKS, "switch_modulus_and_compress": store,
+            "stored_bytes": sum(c.packed.nbytes for c in stored.blocks),
+            "uncompressed_bytes": U64_BLOCKS * (p.big_lwe_dimension + 1) * 8,
+            "decompress": restore, "squash": squash,
+            "wrong": restore["wrong"] + squash["wrong"]}
+
+
+def boolean_phase(kernels, tb, seed: int) -> dict:
+    """Phase 17: boolean gates at DEFAULT_PARAMETERS (K1's tensor-core
+    kernel, then K2's lazy exact kernel once a gate call): keygen, one AND
+    gate, GATES packed gates across the six kinds, one mux (two gate
+    calls), each timed after a warm-up call.  Returns the phase line, the
+    keys, the packed gates' inputs and outputs."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    bck = tb.ClientKey(tb.DEFAULT_PARAMETERS, seed=seed)
+    bsk = tb.ServerKey(bck, seed=seed + 1, device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    bits = [bool(v) for v in np.random.default_rng(seed + 2).integers(0, 2, 2 * GATES + 3)]
+    kinds = [GATE_KINDS[i % len(GATE_KINDS)] for i in range(GATES)]
+    lhs = [bck.encrypt(v) for v in bits[:GATES]]
+    rhs = [bck.encrypt(v) for v in bits[GATES:2 * GATES]]
+    c_bit, t_bit, f_bit = bits[2 * GATES:]
+    mux_in = [bck.encrypt(v) for v in (c_bit, t_bit, f_bit)]
+    lines, outs = {}, {}
+    for name, fn, check, calls in (
+            ("and", lambda: bsk.and_(lhs[0], rhs[0]),
+             lambda o: bck.decrypt(o) != (bits[0] and bits[GATES]), 1),
+            ("packed", lambda: bsk.gates_packed(kinds, lhs, rhs),
+             lambda o: sum(bck.decrypt(g) != GATE_FNS[k](bits[i], bits[GATES + i])
+                           for i, (k, g) in enumerate(zip(kinds, o))), 1),
+            ("mux", lambda: bsk.mux(*mux_in),
+             lambda o: bck.decrypt(o) != (t_bit if c_bit else f_bit), 2)):
+        pbs0 = bsk.pbs_count
+        outs[name], lines[name] = measured_op(kernels, None, fn, check)
+        lines[name]["pbs"] = (bsk.pbs_count - pbs0) // 2          # the timed call's
+        lines[name]["gate_calls"] = calls
+        check_launches(f"boolean {name}", lines[name],
+                       {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None,
+                        "blind_rotate_exact_lazy": "blind_rotate"},
+                       never=("blind_rotate_multibit",))
+        if lines[name]["launches"]["blind_rotate_exact_lazy"] != calls:
+            raise RuntimeError(f"boolean {name}: K2's lazy exact kernel did not run once a "
+                               f"gate call: {lines[name]['launches']}")
+    lines["packed"]["gates_per_s"] = GATES / lines["packed"]["seconds"]
+    bp = tb.DEFAULT_PARAMETERS
+    line = {"params": "DEFAULT_PARAMETERS", "n": bp.lwe_dimension, "N": bp.polynomial_size,
+            "pbs_level": bp.pbs_level, "pbs_base_log": bp.pbs_base_log,
+            "ks_level": bp.ks_level, "ks_base_log": bp.ks_base_log,
+            "keygen_seconds": keygen_s, "bsk_primes": bsk.dp.num_primes,
+            "device_key_bytes": (bsk.ksk.numel() * 8 + bsk.ks_key.limbs.numel()
+                                 + key_bytes(bsk.bsk_ntt)),
+            "gates": GATES, "kinds": list(GATE_KINDS), **lines,
+            "wrong": sum(op["wrong"] for op in lines.values())}
+    return {"line": line, "bsk": bsk, "kinds": kinds, "lhs": lhs, "rhs": rhs,
+            "packed_outs": outs["packed"]}
+
+
+def integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk, product_round, boolean_run,
+                             chk, gen, errs: dict) -> dict:
+    """The new paths' kernels against their plain versions (into errs):
+    FheUint64 mul's product round (B = 1024 under the classic key), its
+    first MUL_ROUND_CHECK inputs through K1 and K2 v7 against the plain
+    keyswitch and three-prime v7 rotation, and the round's outputs against
+    the plain path; the boolean phase's GATES packed gate inputs (their
+    linear forms, as gates_packed builds them) through K1 and K2's lazy
+    exact kernel against the plain keyswitch and exact rotation, and the
+    phase's outputs against the plain path; K2's generic exact kernel at
+    tfhe_tpu's TFHE_LIB_PARAMETERS shape on a random key at
+    TFHE_LIB_BATCHES.  Returns K2's time, plain time and bound on the gate
+    batch."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.shortint.params import MsNoiseReduction
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    dev = torch.device("cuda")
+    mul_cts, mul_luts, mul_outs = product_round
+    m_in = upload_batch([c.data for c in mul_cts[:MUL_ROUND_CHECK]], dev)
+    m_ks = kernels.keyswitch(m_in, sk.ks_key, p.ks_base_log, p.ks_level)
+    errs[f"k1_integer_mul_round_b{MUL_ROUND_CHECK}"] = max_abs_err(
+        m_ks, server.keyswitch(m_in, sk.ksk, p.ks_base_log, p.ks_level))
+    log_mod = p.polynomial_size.bit_length()
+    body = m_ks[:, -1]
+    if p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN:
+        body = body + server.centered_binary_ms_correction(m_ks, log_mod)
+    m_args = (server.modulus_switch(m_ks[:, :-1], log_mod), server.modulus_switch(body, log_mod),
+              torus.from_u64(np.stack([t.acc for t in mul_luts[:MUL_ROUND_CHECK]]), dev),
+              sk.bsk_ntt, sk.dp, p.pbs_base_log, p.pbs_level, True)
+    m_want = server.blind_rotate(*m_args)
+    errs[f"k2_v7_integer_mul_round_b{MUL_ROUND_CHECK}"] = max_abs_err(
+        kernels.blind_rotate(*m_args), m_want)
+    errs[f"k2_v7_integer_mul_round_outputs_b{MUL_ROUND_CHECK}"] = max_abs_err(
+        upload_batch([c.data for c in mul_outs[:MUL_ROUND_CHECK]], dev),
+        server.sample_extract(m_want))
+
+    bsk = boolean_run["bsk"]
+    bp = bsk.params
+    gate_in = upload_batch([bsk._binary_lin(k, bsk._materialize(u), bsk._materialize(v))
+                            for k, u, v in zip(boolean_run["kinds"], boolean_run["lhs"],
+                                               boolean_run["rhs"])], dev)
+    ks_plain = server.keyswitch(gate_in, bsk.ksk, bp.ks_base_log, bp.ks_level)
+    errs[f"k1_boolean_b{GATES}"] = max_abs_err(
+        kernels.keyswitch(gate_in, bsk.ks_key, bp.ks_base_log, bp.ks_level), ks_plain)
+    log_mod = bp.polynomial_size.bit_length()
+    g_args = (server.modulus_switch(ks_plain[:, :-1], log_mod),
+              server.modulus_switch(ks_plain[:, -1], log_mod),
+              bsk._sign_lut.expand((GATES,) + tuple(bsk._sign_lut.shape)), bsk.bsk_ntt,
+              bsk.dp, bp.pbs_base_log, bp.pbs_level, False)
+    lazy_before = kernels.blind_rotate.lazy_exact_launches
+    g_got = kernels.blind_rotate(*g_args)
+    if kernels.blind_rotate.lazy_exact_launches != lazy_before + 1:
+        raise RuntimeError("K2 did not take its lazy exact kernel at the boolean shape")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_want = server.blind_rotate(*g_args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs[f"k2_exact_boolean_b{GATES}"] = max_abs_err(g_got, g_want)
+    errs[f"k2_exact_boolean_outputs_b{GATES}"] = max_abs_err(
+        upload_batch([g.data for g in boolean_run["packed_outs"]], dev),
+        server.sample_extract(g_want))
+    del g_got, g_want
+    figures = {"ms": cuda_ms(lambda: kernels.blind_rotate(*g_args), 3), "plain_ms": plain_ms,
+               "bound": k2_bound(g_args[0], g_args[2], bp.pbs_level, bp.pbs_base_log,
+                                 EXACT_PRIMES),
+               "shape": [GATES, bp.lwe_dimension, bp.glwe_dimension + 1, bp.polynomial_size]}
+
+    k1_t, n_t, l_t, bl_t, steps_t = TFHE_LIB_SHAPE
+    dp_t = ntt.device_plan(ntt.make_plan(n_t, EXACT_PRIMES), "cuda")
+    key_t = random_ntt_key((steps_t, l_t, k1_t, k1_t), dp_t, gen)
+    for b in TFHE_LIB_BATCHES:
+        a = (torch.from_numpy(chk.integers(0, 2 * n_t, (b, steps_t))).to(dev),
+             torch.from_numpy(chk.integers(0, 2 * n_t, (b,))).to(dev),
+             torus.from_u64(chk.integers(0, 1 << 64, (b, k1_t, n_t), dtype=np.uint64), dev),
+             key_t, dp_t, bl_t, l_t, False)
+        lazy_before = kernels.blind_rotate.lazy_exact_launches
+        errs[f"k2_generic_exact_tfhe_lib_b{b}"] = max_abs_err(kernels.blind_rotate(*a),
+                                                              server.blind_rotate(*a))
+        if kernels.blind_rotate.lazy_exact_launches != lazy_before:
+            raise RuntimeError("K2 took its lazy exact kernel at the TFHE_LIB shape")
+    return figures
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1038,7 +1489,32 @@ def main() -> None:
         raise RuntimeError(f"blind_rotate_stepwise did not run K2's step entry (its lazy "
                            f"exact kernel) once a step: {st_launches}")
 
-    # 14. kernels against their plain versions
+    # 14-17. the integer layer on the classic and the multi-bit key, radix
+    # storage and squash, the boolean gates
+    from tfhe_tpu_torch import boolean as tb
+    from tfhe_tpu_torch import integer as ti
+
+    ick, isk = integer_keys(ti, ck, sk)
+    integer_run = integer_phase(kernels, ti, ick, isk, args.seed + 40)
+    emit({"phase": "integer", **integer_run["line"]})
+    x, y = integer_run["x"], integer_run["y"]
+    mick, misk = integer_keys(ti, mck, msk)
+    mb_integer_line = integer_multibit_phase(kernels, mick, misk, x, y)
+    emit({"phase": "integer_multibit", **mb_integer_line})
+    storage_line = integer_storage_phase(kernels, ick, isk, nsk, sq_priv,
+                                         integer_run["add_out"],
+                                         (x + y) % integer_run["modulus"])
+    emit({"phase": "integer_storage", **storage_line})
+    boolean_run = boolean_phase(kernels, tb, args.seed + 50)
+    emit({"phase": "boolean", **boolean_run["line"]})
+    for tag, failed in (("integer", integer_run["wrong"]),
+                        ("multi-bit integer", mb_integer_line["wrong"]),
+                        ("stored or squashed FheUint64", storage_line["wrong"]),
+                        ("boolean", boolean_run["line"]["wrong"])):
+        if failed:
+            raise RuntimeError(f"{failed} {tag} outputs decrypted wrong")
+
+    # 18. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -1545,6 +2021,11 @@ def main() -> None:
     k2_step_plain_ms = cuda_ms(lambda: server.cmux_step(acc0, *step_args), 3)
     k2_step_bound = k2_bound(st_args[0][:, :1], st_args[2], p.pbs_level, p.pbs_base_log,
                              EXACT_PRIMES)
+    # phase 14's FheUint64 mul product round, phase 17's packed gates and
+    # K2's generic exact kernel at the TFHE_LIB shape
+    k2_bool = integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk,
+                                       integer_run["product_round"], boolean_run, chk, gen_g,
+                                       errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -1554,12 +2035,34 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 15. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13) and the
-    # kernel table
+    # 19. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-17) and
+    # the kernel table
+    int_lines = integer_run["line"]
+    int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
+                             for op in int_lines[group].values()],
+                 "integer_multibit": list(mb_integer_line["fheuint64"].values()),
+                 "integer_storage": [storage_line[k] for k in STORAGE_STEPS],
+                 "boolean": [boolean_run["line"][k] for k in ("and", "packed", "mux")]}
+
+    def path_launches(counter: str) -> dict:
+        """Launches of one counter on each integer and boolean path."""
+        return {path: sum(op["launches"].get(counter, 0) for op in ops)
+                for path, ops in int_paths.items()}
+
     emit({"phase": "launches", "serve": launches, "serve_multibit": mb_launches,
           "rounds": ROUNDS + 2, "compress": comp_launches, "decompress": decomp_launches,
           "decompress_subset": sub_launches, "modswitch_compress": ms_launches,
-          "squash": sq_launches, "stepwise": st_launches})
+          "squash": sq_launches, "stepwise": st_launches,
+          "integer": {f"{group}_{name}": op["launches"]
+                      for group in ("fheuint64", "fheuint8", "batched_fheuint64")
+                      for name, op in int_lines[group].items()},
+          "integer_multibit": {name: op["launches"]
+                               for name, op in mb_integer_line["fheuint64"].items()},
+          "integer_storage": {k: storage_line[k]["launches"] for k in STORAGE_STEPS},
+          "boolean": {k: boolean_run["line"][k]["launches"] for k in ("and", "packed", "mux")}})
+    ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
+    br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
+    mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
     table = [
@@ -1567,18 +2070,20 @@ def main() -> None:
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
          "kernel": "keyswitch_imma_kernel (int8 tensor cores; keyswitch_kernel elsewhere)",
-         "launches": launches["keyswitch"] + mb_launches["keyswitch"] + sq_launches["keyswitch"],
+         "launches": (launches["keyswitch"] + mb_launches["keyswitch"]
+                      + sq_launches["keyswitch"] + sum(ks_paths.values())),
          "launches_by_path": {
              "serve": launches["keyswitch"], "serve_multibit": mb_launches["keyswitch"],
              "squash": sq_launches["keyswitch"],
              "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch"],
-             "modswitch_compress_multibit": ms_launches["multibit"]["switch"]["keyswitch"]},
+             "modswitch_compress_multibit": ms_launches["multibit"]["switch"]["keyswitch"],
+             **ks_paths},
          "tensor_core_launches_by_path": {
              "serve": launches["keyswitch_imma"], "serve_multibit": mb_launches["keyswitch_imma"],
              "squash": sq_launches["keyswitch_imma"],
              "modswitch_compress_classic": ms_launches["classic"]["switch"]["keyswitch_imma"],
              "modswitch_compress_multibit":
-                 ms_launches["multibit"]["switch"]["keyswitch_imma"]},
+                 ms_launches["multibit"]["switch"]["keyswitch_imma"], **ks_imma_paths},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k1")),
          "ms": k1["fig"]["ms"], "plain_ms": k1["fig"]["plain_ms"],
          "generic_kernel_ms": k1["fig"]["generic_kernel_ms"],
@@ -1596,8 +2101,9 @@ def main() -> None:
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
          "kernel": "blind_rotate_rounded_kernel (v7 mode)",
-         "launches": launches["blind_rotate"],
-         "launches_by_path": {"serve": launches["blind_rotate"]},
+         "launches": launches["blind_rotate"] + br_paths["integer"],
+         "launches_by_path": {"serve": launches["blind_rotate"],
+                              "integer": br_paths["integer"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")
                             and "decompression" not in k and "step" not in k
                             and not k.startswith(("k2_exact", "k2_generic",
@@ -1619,11 +2125,15 @@ def main() -> None:
          "kernel": "blind_rotate_exact_lazy_kernel (k+1 = 2, l = 1, N = 2048; "
                    "blind_rotate_kernel at other shapes)",
          "launches": (ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"]
-                      + st_launches["cmux_step_exact_lazy"]),
+                      + st_launches["cmux_step_exact_lazy"] + lazy_paths["integer_storage"]
+                      + lazy_paths["boolean"]),
          "launches_by_path": {
              "modswitch_compress_classic":
                  ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"],
-             "stepwise": st_launches["cmux_step_exact_lazy"]},
+             "stepwise": st_launches["cmux_step_exact_lazy"],
+             "integer_storage": lazy_paths["integer_storage"], "boolean": lazy_paths["boolean"]},
+         "boolean_ms": k2_bool["ms"], "boolean_plain_ms": k2_bool["plain_ms"],
+         "boolean_bound_ms": k2_bool["bound"]["ms"], "boolean_shape": k2_bool["shape"],
          "max_abs_err": max(v for k, v in errs.items() if k.startswith(("k2_exact",
                                                                          "k2_generic",
                                                                          "k2_rounded_exact"))),
@@ -1644,11 +2154,12 @@ def main() -> None:
          "source": "tfhe_tpu_torch/csrc/blind_rotate_multibit.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:2631",
          "also_replaces": "tfhe_tpu/ops/pallas_mxu.py:2178",
-         "launches": mb_launches["blind_rotate_multibit"],
+         "launches": mb_launches["blind_rotate_multibit"] + mb_paths["integer_multibit"],
          "launches_by_path": {
              "serve_multibit": mb_launches["blind_rotate_multibit"],
              "modswitch_compress_multibit":
-                 ms_launches["multibit"]["decompress"]["blind_rotate_multibit"]},
+                 ms_launches["multibit"]["decompress"]["blind_rotate_multibit"],
+             "integer_multibit": mb_paths["integer_multibit"]},
          "max_abs_err": max(v for k, v in errs.items()
                             if k.startswith("k3") and not k.startswith("k3_exact")),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
@@ -1726,8 +2237,9 @@ def main() -> None:
         {"name": "blind_rotate128", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate128.cu",
          "replaces": "tfhe_tpu/ops/pallas_ntt.py:1123",
-         "launches": sq_launches["blind_rotate128"],
-         "launches_by_path": {"squash": sq_launches["blind_rotate128"]},
+         "launches": sq_launches["blind_rotate128"] + k5_paths["integer_storage"],
+         "launches_by_path": {"squash": sq_launches["blind_rotate128"],
+                              "integer_storage": k5_paths["integer_storage"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k5")),
          "ms": k5_ms, "plain_ms": k5_plain_ms, "plain_batch": K5_PLAIN_BATCH,
          "bound_ms": k5_b["ms"], "bound_by": k5_b["by"],

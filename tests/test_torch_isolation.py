@@ -1,4 +1,5 @@
-"""tfhe_tpu_torch stands alone: it imports with JAX blocked, no source of
+"""tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
+round of each slice, the integer and boolean layers included), no source of
 the port (nor chip_smoke.py) imports jax or tfhe_tpu, and its entry points
 run on CUDA unless asked for the CPU, raising where there is no GPU."""
 
@@ -73,6 +74,13 @@ priv = noise_squashing.NoiseSquashingPrivateKey(noise_squashing.TEST_NOISE_SQUAS
 nsk = noise_squashing.NoiseSquashingKey(ck, priv, seed=8, device="cpu")
 squashed = nsk.squash_ciphertext_noise_batch([ck.encrypt(m) for m in (2, 1)], sk)
 assert [priv.decrypt_squashed_noise_ciphertext(s) for s in squashed] == [2, 1]
+# the integer and boolean slices: one radix add, one gate
+from tfhe_tpu_torch import boolean, integer
+ick, isk = integer.gen_keys(p, seed=9, device="cpu")
+total = isk.add_parallelized(ick.encrypt_radix(9, 2), ick.encrypt_radix(5, 2))
+assert ick.decrypt_radix(total) == 14
+bck, bsk = boolean.gen_keys(boolean.TEST_PARAMETERS, seed=10, device="cpu")
+assert bck.decrypt(bsk.and_(bck.encrypt(True), bck.encrypt(True))) is True
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")
@@ -123,6 +131,21 @@ def test_from_raw_keys_default_device_raises(no_gpu):
 def test_gen_keys_default_device_raises(no_gpu):
     with pytest.raises(RuntimeError, match="cuda"):
         shortint.gen_keys(shortint.TEST_PARAM_MESSAGE_2_CARRY_2, seed=1)
+
+
+@pytest.mark.parametrize("layer", ["integer", "boolean"])
+def test_integer_and_boolean_entry_points_default_to_cuda(no_gpu, layer):
+    """gen_keys and the ServerKeys of the integer and boolean layers run on
+    the card unless asked for the CPU, and raise without one."""
+    from tfhe_tpu_torch import boolean, integer
+
+    mod = integer if layer == "integer" else boolean
+    params = (shortint.TEST_PARAM_MESSAGE_2_CARRY_2 if layer == "integer"
+              else boolean.TEST_PARAMETERS)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.gen_keys(params, seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.ServerKey(mod.ClientKey(params, seed=1), seed=2)
 
 
 def test_cpu_is_taken_only_when_asked(no_gpu, client_key):

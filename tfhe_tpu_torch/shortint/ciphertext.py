@@ -31,6 +31,10 @@ class DeviceLweBatch:
 
     __slots__ = ("arr", "_np")
 
+    # host materialisations: batches downloaded (each once, then cached), in
+    # the style of the kernel wrappers' launch counts
+    downloads = 0
+
     def __init__(self, arr):
         self.arr = arr
         self._np = None
@@ -38,6 +42,7 @@ class DeviceLweBatch:
     def to_np(self) -> np.ndarray:
         if self._np is None:
             self._np = to_u64(self.arr)
+            DeviceLweBatch.downloads += 1
         return self._np
 
 
@@ -159,4 +164,7 @@ class Ciphertext:
         )
 
     def copy(self) -> "Ciphertext":
-        return replace(self, data=np.array(self.data))
+        # a LazyLweData is never changed in place (its ops build new forms),
+        # so a copy shares it and stays on the device
+        data = self.data if isinstance(self.data, LazyLweData) else np.array(self.data)
+        return replace(self, data=data)

@@ -13,9 +13,9 @@ Reference behavior (studied, not copied):
 The sampling layer mirrors tfhe/src/core_crypto/commons/math/random/:
   - uniform u64/u32: from_le_bytes (uniform.rs:17-23)
   - uniform binary: one byte per bit, ``byte & 1`` (uniform_binary.rs:16)
+  - Gaussian pair: Box-Muller with rejection (gaussian.rs:40-69); a single
+    torus sample draws a pair and keeps the first element (gaussian.rs:151).
   - TUniform: ceil((b+2)/8) bytes, randomized rounding (t_uniform.rs:84-112)
-    (the Gaussian sampler of tfhe_tpu comes with the parameter sets that
-    use it)
 
 The keystream comes from the AES-NI CTR core in csrc/aes_ctr.cpp, built with
 g++ at first use (utils/build.py), or from the `cryptography` package where
@@ -25,9 +25,13 @@ code: numpy only.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
+
+# tfhe/src/core_crypto/commons/generators/encryption/mod.rs:23
+PER_SAMPLE_TARGET_FAILURE_PROBABILITY_LOG2 = -128.0
 
 
 class _Backend:
@@ -194,6 +198,39 @@ class ByteStream:
         raw = self.take(count)
         return (raw & 1).astype(np.uint64)
 
+    def gaussian_torus(self, count: int, std: float, mean: float) -> np.ndarray:
+        """`count` single Gaussian u64 torus samples (each draws a Box-Muller
+        pair, keeps the first: gaussian.rs:151-163).
+
+        Sample k consumes exactly the k-th *successful* 16-byte chunk of the
+        stream; failed chunks in between are consumed and discarded (each
+        attempt reads 8+8 bytes; success iff 0 < u^2+v^2 < 1)."""
+        if count == 0:
+            return np.empty(0, dtype=np.uint64)
+        results = np.empty(count, dtype=np.float64)
+        found = 0
+        while found < count:
+            todo = count - found
+            # over-draw: expected success rate pi/4
+            n_try = min(max(16, int(todo / 0.75) + 8), self.remaining() // 16)
+            if n_try <= 0:
+                raise RuntimeError("ByteStream exhausted during gaussian sampling")
+            raw = self.take(n_try * 16)
+            pairs = raw.view("<i8").reshape(n_try, 2)
+            u = pairs[:, 0].astype(np.float64) * 2.0 ** (-63)
+            v = pairs[:, 1].astype(np.float64) * 2.0 ** (-63)
+            s = u * u + v * v
+            idx = np.nonzero((s > 0.0) & (s < 1.0))[0]
+            if len(idx) >= todo:
+                # rewind the bytes after the todo-th success
+                self.pos -= (n_try - 1 - int(idx[todo - 1])) * 16
+                idx = idx[:todo]
+            if len(idx):
+                cst = std * np.sqrt(-2.0 * np.log(s[idx]) / s[idx])
+                results[found:found + len(idx)] = u[idx] * cst + mean
+                found += len(idx)
+        return _from_torus(results)
+
     def tuniform(self, count: int, bound_log2: int) -> np.ndarray:
         """TUniform(bound_log2) torus samples (t_uniform.rs:84-112)."""
         required_bits = bound_log2 + 2
@@ -210,7 +247,37 @@ class ByteStream:
         return cand - np.uint64(1 << bound_log2)  # wrapping in uint64
 
 
+def _from_torus(x: np.ndarray) -> np.ndarray:
+    """FromTorus: frac(x) scaled to the u64 torus, rounded (torus/mod.rs:72-78).
+
+    Rust casts f64 -> i64 with saturating semantics; only the exact boundary
+    value 2^63 can occur (fract == 0.5), so saturate it explicitly."""
+    f = np.round((x - np.round(x)) * 2.0 ** 64)
+    hi = 2.0 ** 63
+    signed = np.where(f >= hi, 0.0, f).astype(np.int64)
+    signed = np.where(f >= hi, np.int64((1 << 63) - 1), signed)
+    return signed.astype(np.uint64)
+
+
 # -- distributions ---------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Gaussian:
+    """Gaussian noise of standard deviation ``std`` (a torus fraction, as
+    tfhe_tpu's boolean TFHE_LIB set passes it)."""
+
+    std: float
+    mean: float = 0.0
+
+    def sample_bytes(self) -> int:
+        # 16 bytes per attempt; budget = attempts needed for 2^-128 failure
+        attempts = math.ceil(PER_SAMPLE_TARGET_FAILURE_PROBABILITY_LOG2
+                             / math.log2(1.0 - math.pi / 4.0))
+        return 16 * attempts
+
+    def sample(self, stream: ByteStream, count: int) -> np.ndarray:
+        return stream.gaussian_torus(count, self.std, self.mean)
 
 
 @dataclass(frozen=True)
