@@ -72,7 +72,26 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      across the six kinds (gates/s) and one mux, each timed after a
      warm-up call; K2's lazy exact kernel once a gate call, every K1
      launch its tensor-core kernel's;
- 18. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 18. hlapi: generate_keys at DEFAULT_PARAMS with noise squashing (V1_4),
+     set_server_key, FheUint64 add, mul, lt, FheBool &, if_then_else and a
+     scalar add (K1's tensor-core kernel, then K2 v7, every round), each
+     timed after a warm-up op beside the integer phase's seconds for the
+     same op, the add's words against the integer layer's, and squash_noise
+     of a FheUint64 (K1, then K5 at B = 32);
+ 19. oprf: the compute key's exact key, FheUint64 OPRF draws (K2's lazy
+     exact kernel once each, no K1) twice from one seed (the same words), a
+     16-bit bounded draw, bitonic_shuffle of 8 FheUint16 values;
+ 20. compressed_key: a CompressedServerKey on phase 18's client key (its
+     stored bytes against the full key's, keygen and decompress seconds; v7
+     mode on the floored key) and one FheUint64 add under it;
+ 21. kv_store: a KVStore of 128 clear u32 keys to FheUint64 values, get of
+     a present and of an absent encrypted key, one update (rounds, the
+     largest round's B, PBS/s); an FheUintArray add of 16 FheUint32 pairs;
+ 22. strings: FheAsciiStrings: eq of a 16-character string and one of 4
+     characters and 4 hidden nul pads, contains and find of a 3-character
+     pattern and to_uppercase of the first, trim of the second, split(".")
+     of a 3-character one, held to Python's str, with rounds and PBS;
+ 23. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -128,8 +147,10 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      kernel against the plain keyswitch and exact rotation, and the gates'
      outputs against the plain path; K2's generic exact kernel at
      tfhe_tpu's TFHE_LIB_PARAMETERS shape (k + 1 = 2, N = 1024, l = 3,
-     n = 630) on a random key at B = 4 and B = 3;
- 19. the launch counts of phases 4, 6, 7, 9, 10, 12-17 (each wrapper's
+     n = 630) on a random key at B = 4 and B = 3; K2's lazy exact kernel on
+     phase 19's OPRF inputs and LUTs (B = 32), and phase 22's first round
+     through K1 and K2 v7;
+ 24. the launch counts of phases 4, 6, 7, 9, 10, 12-22 (each wrapper's
      and, of them, those of K1's and K4's tensor-core kernels and K2's
      lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line.
@@ -235,6 +256,33 @@ GATE_FNS = {"and": lambda x, y: x and y, "or": lambda x, y: x or y,
             "nor": lambda x, y: not (x or y), "xnor": lambda x, y: x == y}
 TFHE_LIB_SHAPE = (2, 1024, 3, 7, 630)
 TFHE_LIB_BATCHES = (4, 3)
+# the high-level API's phases (hlapi keys at DEFAULT_PARAMS, V1_4 2_2): the
+# FheUint64 ops and a scalar; the OPRF's draws and a bitonic shuffle of
+# SHUFFLE_VALUES FheUint16s; a KVStore of KV_ENTRIES clear u32 keys (16
+# blocks) to FheUint64 values, the size of a small encrypted lookup table,
+# and an FheUintArray add of ARRAY_PAIRS FheUint32 pairs; an FheAsciiString
+# of 16 characters (a name, a code) for eq, contains, find and
+# to_uppercase with a 3-character pattern, one with STRING_PADS hidden nul
+# pads for eq and trim, and a short one for split: a string op's rounds
+# grow with its length (tfhe_tpu's order: per-character calls, each its own
+# rounds at B <= 8), and trim (barrel shifts by a hidden count) and split
+# (every field's extraction, O(n^2 log n) selects) at 16 characters would
+# take some 1,700 and 20,000 rounds of about 30 ms each
+HLAPI_SCALAR = 0x1234_5678_9ABC
+SHUFFLE_VALUES = 8
+KV_ENTRIES = 128
+KV_KEY_BLOCKS = 16
+ARRAY_PAIRS = 16
+STRING_TEXT = "Grace.Hopper1906"
+STRING_PADDED = " Ada"
+STRING_PADS = 4
+STRING_SPLIT = "A.B"
+STRING_PATTERN = "per"
+STRING_ROUND_CHECK = 8
+HLAPI_PATHS = ("hlapi", "oprf", "compressed_key", "kv_store", "strings")
+HLAPI_OPRF_STEPS = ("draw", "repeat", "bounded_16_bits", "bitonic_shuffle")
+HLAPI_KV_STEPS = ("get_present", "get_absent", "update", "array_add")
+HLAPI_STRING_OPS = ("eq", "contains", "find", "to_uppercase", "trim", "split")
 # every kernel of the port, by the name a profiler trace gives it
 KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
@@ -274,6 +322,38 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, reps: int) -> tuple:
+    """cuda_ms's figure (the mean milliseconds between two CUDA events
+    around reps launches, after one warm-up) and the host's milliseconds to
+    enqueue one of those launches: where the host's is the larger, the
+    events time the host, not the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def step_entry_probe(kernels, server, st_args) -> dict:
+    """K2's step entry on phase 13's first step at B = 512, timed as the
+    kernel table times it (10 launches) with the host's enqueue time a
+    launch, and at 100 launches."""
+    acc0 = server.initial_accumulator(st_args[2], st_args[1], False).contiguous()
+    step_args = (st_args[0][:, 0], st_args[3][0]) + st_args[4:]
+    ms10, host10 = launch_ms(lambda: kernels.cmux_step(acc0, *step_args), 10)
+    ms100, host100 = launch_ms(lambda: kernels.cmux_step(acc0, *step_args), 100)
+    return {"ms_10": ms10, "host_ms_10": host10, "ms_100": ms100, "host_ms_100": host100}
 
 
 def max_abs_err(got, want) -> int:
@@ -841,10 +921,7 @@ def integer_keys(ti, ck, sk) -> tuple:
     keygen (as tfhe_tpu/hlapi/keys.py:63-70 wraps a shortint server key)."""
     ick = ti.ClientKey.__new__(ti.ClientKey)
     ick.key, ick.params = ck, ck.params
-    isk = ti.ServerKey.__new__(ti.ServerKey)
-    isk.key, isk.params = sk, sk.params
-    isk.msg, isk._luts = sk.params.message_modulus, {}
-    return ick, isk
+    return ick, ti.ServerKey.from_shortint_key(sk)
 
 
 def integer_ops(isk, ick, a, b, x: int, y: int, scalar: int, cond, blocks: int,
@@ -871,7 +948,8 @@ def integer_ops(isk, ick, a, b, x: int, y: int, scalar: int, cond, blocks: int,
 class RoundLog:
     """Every round a shortint ServerKey runs, by wrapping its two batch
     entry points on the instance: each round's batch size, and the inputs,
-    tables and outputs of the first round of ``keep`` ciphertexts."""
+    tables and outputs of the first round of ``keep`` ciphertexts (of the
+    first round, where keep is "first")."""
 
     def __init__(self, sk, keep=None):
         self.sk, self.keep, self.sizes, self.kept = sk, keep, [], None
@@ -881,7 +959,7 @@ class RoundLog:
         def apply(cts, luts):
             out = apply_batch(cts, luts)
             self.sizes.append(len(cts))
-            if self.kept is None and len(cts) == self.keep:
+            if self.kept is None and self.keep in (len(cts), "first"):
                 self.kept = (list(cts), luts, out)
             return out
 
@@ -1146,6 +1224,41 @@ def boolean_phase(kernels, tb, seed: int) -> dict:
             "packed_outs": outs["packed"]}
 
 
+def v7_round_vs_plain(kernels, server, torus, sk, kept, count: int, tag: str,
+                      errs: dict) -> None:
+    """A round a path ran under a classic key in v7 mode (RoundLog.kept:
+    inputs, tables, outputs): its first ``count`` inputs through K1 and K2
+    v7 against the plain keyswitch and three-prime v7 rotation, and the
+    round's outputs against the plain path (into errs, as k1_<tag>_b<count>,
+    k2_v7_<tag>_b<count> and k2_v7_<tag>_outputs_b<count>)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.shortint.params import MsNoiseReduction
+    from tfhe_tpu_torch.shortint.server_key import LookupTable, upload_batch
+
+    dev = torch.device("cuda")
+    p = sk.params
+    cts, luts, outs = kept
+    luts = [luts] * len(cts) if isinstance(luts, LookupTable) else luts
+    count = min(count, len(cts))
+    m_in = upload_batch([c.data for c in cts[:count]], dev)
+    m_ks = kernels.keyswitch(m_in, sk.ks_key, p.ks_base_log, p.ks_level)
+    errs[f"k1_{tag}_b{count}"] = max_abs_err(
+        m_ks, server.keyswitch(m_in, sk.ksk, p.ks_base_log, p.ks_level))
+    log_mod = p.polynomial_size.bit_length()
+    body = m_ks[:, -1]
+    if p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN:
+        body = body + server.centered_binary_ms_correction(m_ks, log_mod)
+    m_args = (server.modulus_switch(m_ks[:, :-1], log_mod), server.modulus_switch(body, log_mod),
+              torus.from_u64(np.stack([t.acc for t in luts[:count]]), dev),
+              sk.bsk_ntt, sk.dp, p.pbs_base_log, p.pbs_level, True)
+    m_want = server.blind_rotate(*m_args)
+    errs[f"k2_v7_{tag}_b{count}"] = max_abs_err(kernels.blind_rotate(*m_args), m_want)
+    errs[f"k2_v7_{tag}_outputs_b{count}"] = max_abs_err(
+        upload_batch([c.data for c in outs[:count]], dev), server.sample_extract(m_want))
+
+
 def integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk, product_round, boolean_run,
                              chk, gen, errs: dict) -> dict:
     """The new paths' kernels against their plain versions (into errs):
@@ -1162,28 +1275,11 @@ def integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk, product_round, 
     import numpy as np
     import torch
 
-    from tfhe_tpu_torch.shortint.params import MsNoiseReduction
     from tfhe_tpu_torch.shortint.server_key import upload_batch
 
     dev = torch.device("cuda")
-    mul_cts, mul_luts, mul_outs = product_round
-    m_in = upload_batch([c.data for c in mul_cts[:MUL_ROUND_CHECK]], dev)
-    m_ks = kernels.keyswitch(m_in, sk.ks_key, p.ks_base_log, p.ks_level)
-    errs[f"k1_integer_mul_round_b{MUL_ROUND_CHECK}"] = max_abs_err(
-        m_ks, server.keyswitch(m_in, sk.ksk, p.ks_base_log, p.ks_level))
-    log_mod = p.polynomial_size.bit_length()
-    body = m_ks[:, -1]
-    if p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN:
-        body = body + server.centered_binary_ms_correction(m_ks, log_mod)
-    m_args = (server.modulus_switch(m_ks[:, :-1], log_mod), server.modulus_switch(body, log_mod),
-              torus.from_u64(np.stack([t.acc for t in mul_luts[:MUL_ROUND_CHECK]]), dev),
-              sk.bsk_ntt, sk.dp, p.pbs_base_log, p.pbs_level, True)
-    m_want = server.blind_rotate(*m_args)
-    errs[f"k2_v7_integer_mul_round_b{MUL_ROUND_CHECK}"] = max_abs_err(
-        kernels.blind_rotate(*m_args), m_want)
-    errs[f"k2_v7_integer_mul_round_outputs_b{MUL_ROUND_CHECK}"] = max_abs_err(
-        upload_batch([c.data for c in mul_outs[:MUL_ROUND_CHECK]], dev),
-        server.sample_extract(m_want))
+    v7_round_vs_plain(kernels, server, torus, sk, product_round, MUL_ROUND_CHECK,
+                      "integer_mul_round", errs)
 
     bsk = boolean_run["bsk"]
     bp = bsk.params
@@ -1231,6 +1327,303 @@ def integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk, product_round, 
         if kernels.blind_rotate.lazy_exact_launches != lazy_before:
             raise RuntimeError("K2 took its lazy exact kernel at the TFHE_LIB shape")
     return figures
+
+
+def radix_words(ct, dev):
+    """The block words of a radix ciphertext (or a BooleanBlock) on the card."""
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    blocks = ct.blocks if hasattr(ct, "blocks") else [ct.block]
+    return upload_batch([b.data for b in blocks], dev)
+
+
+# the launches of an op on a classic key in v7 mode: K1's tensor-core kernel
+# and K2 v7 every round, K3 and K2's exact kernel never
+V7_MUST = {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None}
+V7_NEVER = ("blind_rotate_multibit", "blind_rotate_exact_lazy")
+
+
+def rounds_line(line: dict) -> dict:
+    """An op line with its largest round and PBS/s."""
+    line["largest_batch"] = max(line.get("batch_sizes") or [0])
+    line["pbs_per_s"] = line.get("pbs", 0) / line["seconds"]
+    return line
+
+
+def hlapi_phase(kernels, th, seed: int, integer_lines: dict) -> dict:
+    """Phase 18: the high-level API through its entry points.  generate_keys
+    at DEFAULT_PARAMS with noise squashing (keygen seconds), set_server_key;
+    FheUint64 (32 blocks) add, mul, lt (a FheBool), FheBool &, if_then_else
+    and a scalar add, each timed after a warm-up op and decrypted against
+    Python integers, beside the integer phase's seconds for the same op
+    where it ran one; the add's words against the integer layer's
+    add_parallelized on the same ciphertexts under the same key; squash_noise
+    of a FheUint64 (K1, then K5 at B = 32), decrypted with decrypt_squashed.
+    Returns the phase line, its wrong outputs and the keys."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    ck, sk = th.generate_keys(th.ConfigBuilder().enable_noise_squashing().build(), seed,
+                              device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    th.set_server_key(sk)
+    key = sk.integer_key.key
+    if not key.trunc_acc:
+        raise RuntimeError("the hlapi server key did not select v7 mode")
+    mod = 1 << 64
+    x, y = (int(v) for v in np.random.default_rng(seed).integers(0, mod, 2, dtype=np.uint64))
+    a, b = th.FheUint64.encrypt(x, ck), th.FheUint64.encrypt(y, ck)
+    yes = th.FheBool.encrypt(True, ck)
+    less = a < b
+    log = RoundLog(key)
+    lines, outs = {}, {}
+    for name, fn, want, integer_op in (
+            ("add", lambda: a + b, (x + y) % mod, "add"),
+            ("mul", lambda: a * b, (x * y) % mod, "mul"),
+            ("lt", lambda: a < b, x < y, None),
+            ("bool_and", lambda: less & yes, x < y, None),
+            ("if_then_else", lambda: less.if_then_else(a, b), min(x, y), "if_then_else"),
+            ("scalar_add", lambda: a + HLAPI_SCALAR, (x + HLAPI_SCALAR) % mod, None)):
+        outs[name], lines[name] = measured_op(kernels, log, fn,
+                                              lambda o, w=want: o.decrypt(ck) != w)
+        check_launches(f"hlapi {name}", lines[name], V7_MUST, never=V7_NEVER)
+        if integer_op:
+            lines[name]["integer_phase_seconds"] = integer_lines[integer_op]["seconds"]
+    log.close()
+    dev = torch.device("cuda")
+    add_words_differ = int((radix_words(outs["add"].inner, dev) != radix_words(
+        sk.integer_key.add_parallelized(a.inner, b.inner), dev)).sum())
+    _, squash = measured_op(kernels, None, a.squash_noise,
+                            lambda o: ck.decrypt_squashed(o) != x)
+    check_launches("hlapi squash_noise", squash,
+                   {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate128": None})
+    wrong = sum(op["wrong"] for op in lines.values()) + squash["wrong"]
+    line = {"params": "DEFAULT_PARAMS", "noise_squashing": "V1_4", "keygen_seconds": keygen_s,
+            "blocks": U64_BLOCKS, "fheuint64": lines,
+            "add_words_vs_integer_layer_differing": add_words_differ, "squash_noise": squash,
+            "wrong": wrong}
+    return {"line": line, "wrong": wrong + add_words_differ, "ck": ck, "sk": sk}
+
+
+def oprf_phase(kernels, th, ck, sk, seed: int) -> dict:
+    """Phase 19: the OPRF on the compute key (K2's lazy exact kernel on the
+    exact, unrounded key, once a draw; no K1): the exact key's build,
+    FheUint64.generate_oblivious_pseudo_random twice from one seed (the same
+    words), a 16-bit bounded draw (below 2^16), and bitonic_shuffle of
+    SHUFFLE_VALUES FheUint16 values (a permutation of them)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    key = sk.integer_key.key
+    t0 = time.perf_counter()
+    key.exact_bsk_ntt()
+    torch.cuda.synchronize()
+    exact_key_s = time.perf_counter() - t0
+    oprf_only = {"blind_rotate": 1, "blind_rotate_exact_lazy": 1}
+    block_key = ck.integer_key.key
+
+    def carries_set(o) -> int:
+        """Blocks whose whole plaintext (carries too) exceeds the block's
+        degree: a drawn block holds a message and empty carries."""
+        return sum(block_key.decrypt_raw(b) > b.degree for b in o.inner.blocks)
+
+    draws = []
+    for _ in range(2):
+        draws.append(measured_op(
+            kernels, None, lambda: th.FheUint64.generate_oblivious_pseudo_random(seed),
+            carries_set, warm=False))
+    bounded = measured_op(
+        kernels, None, lambda: th.FheUint64.generate_oblivious_pseudo_random_bounded(seed + 1, 16),
+        lambda o: carries_set(o) + (o.decrypt(ck) >= 1 << 16), warm=False)
+    for tag, (_, line) in (("draw", draws[0]), ("repeat", draws[1]), ("bounded", bounded)):
+        if line["launches"] != oprf_only:
+            raise RuntimeError(f"the OPRF {tag} did not run K2's lazy exact kernel alone, "
+                               f"once: {line['launches']}")
+    repeat_differ = int((radix_words(draws[0][0].inner, dev)
+                         != radix_words(draws[1][0].inner, dev)).sum())
+    vals = [int(v) for v in np.random.default_rng(seed + 2).integers(0, 1 << 16, SHUFFLE_VALUES)]
+    enc = [th.FheUint16.encrypt(v, ck) for v in vals]
+    log = RoundLog(key)
+    shuffled, shuffle = measured_op(
+        kernels, log, lambda: th.bitonic_shuffle(enc, seed=seed + 3),
+        lambda o: sorted(c.decrypt(ck) for c in o) != sorted(vals), warm=False)
+    log.close()
+    check_launches("bitonic_shuffle", shuffle,
+                   {"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None,
+                    "blind_rotate_exact_lazy": None}, never=("blind_rotate_multibit",))
+    wrong = draws[0][1]["wrong"] + draws[1][1]["wrong"] + bounded[1]["wrong"] + shuffle["wrong"]
+    line = {"exact_key_seconds": exact_key_s, "draw": draws[0][1], "repeat": draws[1][1],
+            "repeat_words_differing": repeat_differ, "bounded_16_bits": bounded[1],
+            "shuffle_values": SHUFFLE_VALUES, "bitonic_shuffle": rounds_line(shuffle),
+            "wrong": wrong}
+    return {"line": line, "wrong": wrong + repeat_differ, "seed": seed, "draw": draws[0][0]}
+
+
+def compressed_key_phase(kernels, th, ck, seed: int) -> dict:
+    """Phase 20: a CompressedServerKey on the hlapi client key (seeded KSK
+    and BSK, the BSK floored at 15 as the server key's): its stored bytes
+    against the full key's, keygen and decompress seconds (the decompressed
+    key must run v7 mode), and one FheUint64 add under it, decrypted."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    csk = th.CompressedServerKey(ck, seed)
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsk = csk.decompress(device="cuda")
+    torch.cuda.synchronize()
+    decompress_s = time.perf_counter() - t0
+    key = dsk.integer_key.key
+    if not key.trunc_acc or key._bsk_floored != 15:
+        raise RuntimeError("the decompressed key is not floored at 15 in v7 mode")
+    p = key.params
+    full_bytes = 8 * (p.big_lwe_dimension * p.ks_level * (p.lwe_dimension + 1)
+                      + p.lwe_dimension * p.pbs_level * (p.glwe_dimension + 1) ** 2
+                      * p.polynomial_size)
+    mod = 1 << 64
+    x, y = (int(v) for v in np.random.default_rng(seed).integers(0, mod, 2, dtype=np.uint64))
+    log = RoundLog(key)
+    with th.with_server_key_as_context(dsk):
+        a, b = th.FheUint64.encrypt(x, ck), th.FheUint64.encrypt(y, ck)
+        _, add = measured_op(kernels, log, lambda: a + b,
+                             lambda o: o.decrypt(ck) != (x + y) % mod)
+    log.close()
+    check_launches("add under the decompressed key", add, V7_MUST, never=V7_NEVER)
+    line = {"stored_bytes": csk._compressed.nbytes, "full_key_bytes": full_bytes,
+            "ratio": full_bytes / csk._compressed.nbytes, "keygen_seconds": keygen_s,
+            "decompress_seconds": decompress_s, "bsk_floored": key._bsk_floored,
+            "v7_mode": key.trunc_acc, "fheuint64_add": add, "wrong": add["wrong"]}
+    return {"line": line, "wrong": add["wrong"]}
+
+
+def kv_store_phase(kernels, th, kv_store, ck, sk, seed: int) -> dict:
+    """Phase 21: a KVStore of KV_ENTRIES clear u32 keys to FheUint64 values:
+    get of a present and of an absent encrypted key and one update, each a
+    few coalesced rounds over every entry (the scheduler's eq_many and
+    if_then_else_many, then a carry-save sum); and an FheUintArray add of
+    ARRAY_PAIRS FheUint32 pairs (one scheduler call).  Every result
+    decrypted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ik, isk = ck.integer_key, sk.integer_key
+    mod = 1 << 64
+    keys = [int(k) for k in rng.choice(1 << 32, KV_ENTRIES + 1, replace=False)]
+    keys, absent = keys[:-1], keys[-1]
+    values = [int(v) for v in rng.integers(0, mod, KV_ENTRIES + 1, dtype=np.uint64)]
+    values, new_value = values[:-1], values[-1]
+    t0 = time.perf_counter()
+    store = kv_store.KVStore(isk, U64_BLOCKS)
+    for k, v in zip(keys, values):
+        store.insert_clear_key(k, ik.encrypt_radix(v, U64_BLOCKS))
+    fill_s = time.perf_counter() - t0
+    present = keys[KV_ENTRIES // 3]
+    enc_present = ik.encrypt_radix(present, KV_KEY_BLOCKS)
+    enc_absent = ik.encrypt_radix(absent, KV_KEY_BLOCKS)
+    enc_new = ik.encrypt_radix(new_value, U64_BLOCKS)
+    log = RoundLog(isk.key)
+    lines = {}
+    for name, fn, check in (
+            ("get_present", lambda: store.get(enc_present),
+             lambda o: ik.decrypt_radix(o) != values[KV_ENTRIES // 3]),
+            ("get_absent", lambda: store.get(enc_absent), lambda o: ik.decrypt_radix(o) != 0),
+            ("update", lambda: store.update(enc_present, enc_new),
+             lambda o: ik.decrypt_radix(store.get_with_clear_key(present)) != new_value)):
+        _, lines[name] = measured_op(kernels, log, fn, check, warm=False)
+        check_launches(f"KVStore {name}", rounds_line(lines[name]), V7_MUST, never=V7_NEVER)
+    lines["update"]["others_changed"] = sum(
+        ik.decrypt_radix(store.get_with_clear_key(k)) != v
+        for k, v in zip(keys[:8], values[:8]) if k != present)
+    xs = [int(v) for v in rng.integers(0, 1 << 32, 2 * ARRAY_PAIRS)]
+    arr_a = th.FheUintArray.encrypt(xs[:ARRAY_PAIRS], th.FheUint32, ck)
+    arr_b = th.FheUintArray.encrypt(xs[ARRAY_PAIRS:], th.FheUint32, ck)
+    _, lines["array_add"] = measured_op(
+        kernels, log, lambda: arr_a + arr_b,
+        lambda o: sum(int(v) != (p + q) % (1 << 32) for v, p, q in
+                      zip(o.decrypt(ck), xs[:ARRAY_PAIRS], xs[ARRAY_PAIRS:])), warm=False)
+    check_launches("FheUintArray add", rounds_line(lines["array_add"]), V7_MUST, never=V7_NEVER)
+    log.close()
+    wrong = sum(op["wrong"] for op in lines.values()) + lines["update"]["others_changed"]
+    line = {"entries": KV_ENTRIES, "key_blocks": KV_KEY_BLOCKS, "value_blocks": U64_BLOCKS,
+            "fill_seconds": fill_s, "array_pairs": ARRAY_PAIRS, **lines, "wrong": wrong}
+    return {"line": line, "wrong": wrong}
+
+
+def strings_phase(kernels, th, strings, ck, sk) -> dict:
+    """Phase 22: FheAsciiStrings: eq of STRING_TEXT and STRING_PADDED (with
+    STRING_PADS hidden nul pads), contains and find of a 3-character clear
+    pattern in STRING_TEXT, its to_uppercase, trim of STRING_PADDED and
+    split(".") of STRING_SPLIT, each decrypted and held to Python's str;
+    per-character calls are each their own rounds, as in tfhe_tpu.
+    Returns the phase line, its wrong outputs and the first round's inputs,
+    tables and outputs."""
+    text, padded = STRING_TEXT, STRING_PADDED
+    s1 = th.FheAsciiString.encrypt(text, ck)
+    s2 = th.FheAsciiString.encrypt(padded, ck, padding=STRING_PADS)
+    s3 = th.FheAsciiString.encrypt(STRING_SPLIT, ck)
+    ssk = strings.StringServerKey(sk.integer_key)
+
+    def fields(pieces):
+        return [th.FheAsciiString(f).decrypt(ck) for f, some in pieces
+                if ck.integer_key.decrypt_bool(some)]
+
+    log = RoundLog(sk.integer_key.key, keep="first")
+    lines = {}
+    for name, fn, check in (
+            ("eq", lambda: s1.eq(s2), lambda o: o.decrypt(ck) != (text == padded)),
+            ("contains", lambda: s1.contains(STRING_PATTERN),
+             lambda o: o.decrypt(ck) != (STRING_PATTERN in text)),
+            ("find", lambda: s1.find(STRING_PATTERN),
+             lambda o: (o[0].decrypt(ck), o[1].decrypt(ck)) != (True, text.find(STRING_PATTERN))),
+            ("to_uppercase", s1.to_uppercase, lambda o: o.decrypt(ck) != text.upper()),
+            ("trim", s2.trim, lambda o: o.decrypt(ck) != padded.strip()),
+            ("split", lambda: ssk.split(s3.inner, "."),
+             lambda o: fields(o) != STRING_SPLIT.split("."))):
+        _, lines[name] = measured_op(kernels, log, fn, check, warm=False)
+        check_launches(f"string {name}", rounds_line(lines[name]), V7_MUST, never=V7_NEVER)
+    log.close()
+    wrong = sum(op["wrong"] for op in lines.values())
+    line = {"chars": len(text), "padded_chars": len(padded), "pads": STRING_PADS,
+            "split_chars": len(STRING_SPLIT), "pattern": STRING_PATTERN, **lines,
+            "wrong": wrong}
+    return {"line": line, "wrong": wrong, "first_round": log.kept}
+
+
+def hlapi_paths_vs_plain(kernels, server, torus, sk, oprf_seed: int, oprf_draw,
+                         string_round, errs: dict) -> None:
+    """The hlapi paths' kernels against their plain versions (into errs):
+    K2's lazy exact kernel on the OPRF draw's own switched inputs and LUTs
+    (the exact key, B = 32) against the plain exact rotation; phase 19's
+    drawn FheUint64 against the plain path on those inputs (the plain
+    rotation, sample extraction, each block's post-rotation constant); and
+    one string round (its first STRING_ROUND_CHECK inputs) through K1 and
+    K2 v7."""
+    import numpy as np
+
+    from tfhe_tpu_torch.shortint import oprf
+
+    key = sk.integer_key.key
+    ok = oprf.OprfServerKey.from_compute_key(key)
+    p = key.params
+    msed, luts, posts = ok.switched_inputs(oprf_seed, [(p.message_modulus - 1).bit_length()]
+                                           * U64_BLOCKS)
+    args = (msed[:, :-1], msed[:, -1], luts, ok.bsk_ntt, ok.dp, p.pbs_base_log, p.pbs_level)
+    lazy_before = kernels.blind_rotate.lazy_exact_launches
+    got = kernels.blind_rotate(*args)
+    if kernels.blind_rotate.lazy_exact_launches != lazy_before + 1:
+        raise RuntimeError("K2 did not take its lazy exact kernel on the OPRF's inputs")
+    want = server.blind_rotate(*args)
+    errs[f"k2_exact_oprf_b{msed.shape[0]}"] = max_abs_err(got, want)
+    plain_draw = server.sample_extract(want)[:len(posts)].clone()
+    plain_draw[:, -1] += torus.from_u64(np.array(posts, dtype=np.uint64), plain_draw.device)
+    errs[f"oprf_draw_vs_plain_path_b{len(posts)}"] = max_abs_err(
+        radix_words(oprf_draw.inner, plain_draw.device), plain_draw)
+    v7_round_vs_plain(kernels, server, torus, key, string_round, STRING_ROUND_CHECK,
+                      "string_round", errs)
 
 
 def main() -> None:
@@ -1514,7 +1907,34 @@ def main() -> None:
         if failed:
             raise RuntimeError(f"{failed} {tag} outputs decrypted wrong")
 
-    # 18. kernels against their plain versions
+    # K2's step entry timed before phases 18-22 (and again beside the
+    # kernel table's time, after them)
+    step_probe_before = step_entry_probe(kernels, server, st_args)
+
+    # 18-22. the high-level API through its entry points (its own keygen):
+    # FheUint64 ops, the OPRF, a compressed server key, a KVStore and an
+    # array, encrypted strings
+    import tfhe_tpu_torch as th
+    from tfhe_tpu_torch import strings as tstrings
+    from tfhe_tpu_torch.hlapi import kv_store
+
+    hl_run = hlapi_phase(kernels, th, args.seed + 60, integer_run["line"]["fheuint64"])
+    emit({"phase": "hlapi", **hl_run["line"]})
+    hl_ck, hl_sk = hl_run["ck"], hl_run["sk"]
+    oprf_run = oprf_phase(kernels, th, hl_ck, hl_sk, args.seed + 61)
+    emit({"phase": "oprf", **oprf_run["line"]})
+    ckey_run = compressed_key_phase(kernels, th, hl_ck, args.seed + 62)
+    emit({"phase": "compressed_key", **ckey_run["line"]})
+    kv_run = kv_store_phase(kernels, th, kv_store, hl_ck, hl_sk, args.seed + 63)
+    emit({"phase": "kv_store", **kv_run["line"]})
+    str_run = strings_phase(kernels, th, tstrings, hl_ck, hl_sk)
+    emit({"phase": "strings", **str_run["line"]})
+    for tag, run in (("hlapi", hl_run), ("OPRF", oprf_run), ("compressed-key", ckey_run),
+                     ("KVStore or array", kv_run), ("string", str_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong (decrypted or words)")
+
+    # 23. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -2018,6 +2438,7 @@ def main() -> None:
             kernels.cmux_step(acc_b.clone(), a_b, *step_args[1:]),
             server.cmux_step(acc_b, a_b, *step_args[1:]))
     k2_step_ms = cuda_ms(lambda: kernels.cmux_step(acc0, *step_args), 10)
+    step_probe_after = step_entry_probe(kernels, server, st_args)
     k2_step_plain_ms = cuda_ms(lambda: server.cmux_step(acc0, *step_args), 3)
     k2_step_bound = k2_bound(st_args[0][:, :1], st_args[2], p.pbs_level, p.pbs_base_log,
                              EXACT_PRIMES)
@@ -2026,6 +2447,9 @@ def main() -> None:
     k2_bool = integer_boolean_vs_plain(kernels, server, ntt, torus, p, sk,
                                        integer_run["product_round"], boolean_run, chk, gen_g,
                                        errs)
+    # phase 19's OPRF draw and phase 22's first string round
+    hlapi_paths_vs_plain(kernels, server, torus, hl_sk, oprf_run["seed"], oprf_run["draw"],
+                         str_run["first_round"], errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -2035,14 +2459,20 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 19. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-17) and
+    # 24. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-22) and
     # the kernel table
     int_lines = integer_run["line"]
     int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
                              for op in int_lines[group].values()],
                  "integer_multibit": list(mb_integer_line["fheuint64"].values()),
                  "integer_storage": [storage_line[k] for k in STORAGE_STEPS],
-                 "boolean": [boolean_run["line"][k] for k in ("and", "packed", "mux")]}
+                 "boolean": [boolean_run["line"][k] for k in ("and", "packed", "mux")],
+                 "hlapi": (list(hl_run["line"]["fheuint64"].values())
+                           + [hl_run["line"]["squash_noise"]]),
+                 "oprf": [oprf_run["line"][k] for k in HLAPI_OPRF_STEPS],
+                 "compressed_key": [ckey_run["line"]["fheuint64_add"]],
+                 "kv_store": [kv_run["line"][k] for k in HLAPI_KV_STEPS],
+                 "strings": [str_run["line"][k] for k in HLAPI_STRING_OPS]}
 
     def path_launches(counter: str) -> dict:
         """Launches of one counter on each integer and boolean path."""
@@ -2059,10 +2489,19 @@ def main() -> None:
           "integer_multibit": {name: op["launches"]
                                for name, op in mb_integer_line["fheuint64"].items()},
           "integer_storage": {k: storage_line[k]["launches"] for k in STORAGE_STEPS},
-          "boolean": {k: boolean_run["line"][k]["launches"] for k in ("and", "packed", "mux")}})
+          "boolean": {k: boolean_run["line"][k]["launches"] for k in ("and", "packed", "mux")},
+          "hlapi": {**{k: op["launches"] for k, op in hl_run["line"]["fheuint64"].items()},
+                    "squash_noise": hl_run["line"]["squash_noise"]["launches"]},
+          "oprf": {k: oprf_run["line"][k]["launches"] for k in HLAPI_OPRF_STEPS},
+          "compressed_key": {"fheuint64_add": ckey_run["line"]["fheuint64_add"]["launches"]},
+          "kv_store": {k: kv_run["line"][k]["launches"] for k in HLAPI_KV_STEPS},
+          "strings": {k: str_run["line"][k]["launches"] for k in HLAPI_STRING_OPS}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
+    # K2's launches in v7 mode on the hlapi paths (the OPRF's are exact)
+    hl_v7 = {path: br_paths[path] - lazy_paths[path] for path in HLAPI_PATHS}
+    hl_lazy = {path: lazy_paths[path] for path in HLAPI_PATHS if lazy_paths[path]}
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
     table = [
@@ -2101,9 +2540,9 @@ def main() -> None:
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
          "kernel": "blind_rotate_rounded_kernel (v7 mode)",
-         "launches": launches["blind_rotate"] + br_paths["integer"],
+         "launches": launches["blind_rotate"] + br_paths["integer"] + sum(hl_v7.values()),
          "launches_by_path": {"serve": launches["blind_rotate"],
-                              "integer": br_paths["integer"]},
+                              "integer": br_paths["integer"], **hl_v7},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2")
                             and "decompression" not in k and "step" not in k
                             and not k.startswith(("k2_exact", "k2_generic",
@@ -2126,12 +2565,13 @@ def main() -> None:
                    "blind_rotate_kernel at other shapes)",
          "launches": (ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"]
                       + st_launches["cmux_step_exact_lazy"] + lazy_paths["integer_storage"]
-                      + lazy_paths["boolean"]),
+                      + lazy_paths["boolean"] + sum(hl_lazy.values())),
          "launches_by_path": {
              "modswitch_compress_classic":
                  ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"],
              "stepwise": st_launches["cmux_step_exact_lazy"],
-             "integer_storage": lazy_paths["integer_storage"], "boolean": lazy_paths["boolean"]},
+             "integer_storage": lazy_paths["integer_storage"], "boolean": lazy_paths["boolean"],
+             **hl_lazy},
          "boolean_ms": k2_bool["ms"], "boolean_plain_ms": k2_bool["plain_ms"],
          "boolean_bound_ms": k2_bool["bound"]["ms"], "boolean_shape": k2_bool["shape"],
          "max_abs_err": max(v for k, v in errs.items() if k.startswith(("k2_exact",
@@ -2237,9 +2677,11 @@ def main() -> None:
         {"name": "blind_rotate128", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate128.cu",
          "replaces": "tfhe_tpu/ops/pallas_ntt.py:1123",
-         "launches": sq_launches["blind_rotate128"] + k5_paths["integer_storage"],
+         "launches": (sq_launches["blind_rotate128"] + k5_paths["integer_storage"]
+                      + k5_paths["hlapi"]),
          "launches_by_path": {"squash": sq_launches["blind_rotate128"],
-                              "integer_storage": k5_paths["integer_storage"]},
+                              "integer_storage": k5_paths["integer_storage"],
+                              "hlapi": k5_paths["hlapi"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k5")),
          "ms": k5_ms, "plain_ms": k5_plain_ms, "plain_batch": K5_PLAIN_BATCH,
          "bound_ms": k5_b["ms"], "bound_by": k5_b["by"],
@@ -2258,6 +2700,8 @@ def main() -> None:
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_step")),
          "ms": k2_step_ms, "plain_ms": k2_step_plain_ms,
          "plain_rotation_ms": k2_step_plain_rotation_ms,
+         "probe_before_hlapi_phases": step_probe_before,
+         "probe_after_hlapi_phases": step_probe_after,
          "bound_ms": k2_step_bound["ms"], "bound_by": k2_step_bound["by"],
          "library_ms": None, "bound_primes": EXACT_PRIMES,
          "bound_ntt_int32_ms": k2_step_bound["ntt_ms"],

@@ -1,7 +1,8 @@
 """tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
-round of each slice, the integer and boolean layers included), no source of
-the port (nor chip_smoke.py) imports jax or tfhe_tpu, and its entry points
-run on CUDA unless asked for the CPU, raising where there is no GPU."""
+round of each slice, the integer and boolean layers, the high-level API and
+the strings included), no source of the port (nor chip_smoke.py) imports
+jax or tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
+raising where there is no GPU."""
 
 import pathlib
 import re
@@ -81,6 +82,13 @@ total = isk.add_parallelized(ick.encrypt_radix(9, 2), ick.encrypt_radix(5, 2))
 assert ick.decrypt_radix(total) == 14
 bck, bsk = boolean.gen_keys(boolean.TEST_PARAMETERS, seed=10, device="cpu")
 assert bck.decrypt(bsk.and_(bck.encrypt(True), bck.encrypt(True))) is True
+# the hlapi and string slice: one FheUint8 add, one contains
+cfg = tfhe_tpu_torch.ConfigBuilder().use_custom_parameters(p).build()
+hck, hsk = tfhe_tpu_torch.generate_keys(cfg, seed=11, device="cpu")
+tfhe_tpu_torch.set_server_key(hsk)
+a8 = tfhe_tpu_torch.FheUint8.encrypt(200, hck)
+assert (a8 + tfhe_tpu_torch.FheUint8.encrypt(30, hck)).decrypt(hck) == 230
+assert tfhe_tpu_torch.FheAsciiString.encrypt("ab", hck).contains("b").decrypt(hck) is True
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")

@@ -498,12 +498,19 @@ def _pk_limb_keyswitch(lwes, pksk, base_log, levels, per_glwe, inputs):
     return out, peak
 
 
-def _ref_packing_keyswitch(lwes, pksk, base_log, levels, per_glwe):
-    """tfhe_tpu's packing keyswitch, one call per GLWE as its
-    CompressionKey makes them, on the key's NTT-domain Montgomery form."""
+def _ref_pk_mont(pksk):
+    """(tfhe_tpu's NTT-domain Montgomery form of a packing key, its plan),
+    as its CompressionKey converts the key."""
     plan = ref_ntt.make_plan(pksk.shape[-1], 4)
-    mont = jnp.asarray(ref_ntt.to_mont_all(ref_ntt.forward_all(pksk, plan, np), plan,
-                                           np).astype(np.uint32))
+    return jnp.asarray(ref_ntt.to_mont_all(ref_ntt.forward_all(pksk, plan, np), plan,
+                                           np).astype(np.uint32)), plan
+
+
+def _ref_packing_keyswitch(lwes, ref_key, base_log, levels, per_glwe):
+    """tfhe_tpu's packing keyswitch, one call per GLWE as its
+    CompressionKey makes them, on the key's NTT-domain Montgomery form
+    (ref_key: _ref_pk_mont's pair)."""
+    mont, plan = ref_key
     return np.stack([np.asarray(ref_srv.packing_keyswitch(
         jnp.asarray(lwes[s:s + per_glwe]), mont, plan, base_log, levels))
         for s in range(0, lwes.shape[0], per_glwe)])
@@ -517,9 +524,16 @@ def pk_keys():
             for name, (n_in, lev, k1, n, _) in PK_SHAPES.items()}
 
 
+@pytest.fixture(scope="module")
+def pk_ref_keys(pk_keys):
+    """Each pk_keys key in tfhe_tpu's form, converted once for the tests
+    that share it."""
+    return {name: _ref_pk_mont(key) for name, key in pk_keys.items()}
+
+
 @pytest.mark.parametrize("shape", sorted(PK_SHAPES))
 @pytest.mark.parametrize("b", [1, 37, 256])
-def test_pk_limb_model_matches_tfhe_tpu(pk_keys, shape, b):
+def test_pk_limb_model_matches_tfhe_tpu(pk_keys, pk_ref_keys, shape, b):
     """K4's tensor-core arithmetic at TEST_COMP_PARAM's shape and at the
     V1_4 compression set's with n_in cut to 48 (its real l, k+1, N and
     base_log), with the s32 runs of the kernel's blocks at B = 512 on an
@@ -529,18 +543,18 @@ def test_pk_limb_model_matches_tfhe_tpu(pk_keys, shape, b):
     lwes = np.random.default_rng(b).integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64)
     inputs = _pk_inputs(n_in, levels, base_log, 2)
     got, _ = _pk_limb_keyswitch(lwes, pk_keys[shape], base_log, levels, n, inputs)
-    want = _ref_packing_keyswitch(lwes, pk_keys[shape], base_log, levels, n)
+    want = _ref_packing_keyswitch(lwes, pk_ref_keys[shape], base_log, levels, n)
     assert got.shape == (1, k1, n) and (got == want).all()
 
 
-def test_pk_limb_model_on_a_partial_last_glwe(pk_keys):
+def test_pk_limb_model_on_a_partial_last_glwe(pk_keys, pk_ref_keys):
     """Three GLWEs of 100 LWEs (the last of 57: a part-filled row tile
     beside an empty GLWE), every coefficient in one s32 run: tfhe_tpu's
     words."""
     n_in, levels, k1, n, base_log = PK_SHAPES["v1_4_cut"]
     lwes = np.random.default_rng(7).integers(0, 1 << 64, (257, n_in + 1), dtype=np.uint64)
     got, _ = _pk_limb_keyswitch(lwes, pk_keys["v1_4_cut"], base_log, levels, 100, n_in)
-    want = _ref_packing_keyswitch(lwes, pk_keys["v1_4_cut"], base_log, levels, 100)
+    want = _ref_packing_keyswitch(lwes, pk_ref_keys["v1_4_cut"], base_log, levels, 100)
     assert got.shape == (3, k1, n) and (got == want).all()
 
 
@@ -640,7 +654,7 @@ def test_pk_extreme_decomposed_masks_match_tfhe_tpu(pk_keys):
     assert tuple(_hi_digits(word[None], base_log, levels)[:, 0]) == (-8, -7, -7)
     lwes = np.full((n, n_in + 1), word, dtype=np.uint64)
     key = np.full((n_in, levels, k1, n), (1 << 64) - 1, dtype=np.uint64)
-    want = _ref_packing_keyswitch(lwes, key, base_log, levels, n)
+    want = _ref_packing_keyswitch(lwes, _ref_pk_mont(key), base_log, levels, n)
     for inputs in (n_in, _pk_inputs(n_in, levels, base_log, 2)):
         got, peak = _pk_limb_keyswitch(lwes, key, base_log, levels, n, inputs)
         assert peak == inputs * 22 * n * 255

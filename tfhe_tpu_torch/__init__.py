@@ -5,11 +5,13 @@ imports).  Keys and ciphertexts are made on the host with numpy and are
 byte-identical to tfhe_tpu's from the same seeds; the server-side KS->PBS
 runs on the device through hand-written CUDA kernels (ops/kernels.py)
 and gives the same u64 words as tfhe_tpu; the integer (radix) layer and the
-boolean gate API are host orchestration over it.  Torus words are
-torch.int64 (ops/torus.py).  Entry points run on CUDA unless given
-device="cpu", which runs the kernels' plain PyTorch versions.
+boolean gate API, encrypted strings and the high-level API (re-exported
+here, as tfhe_tpu re-exports its hlapi) are host orchestration over it.
+Torus words are torch.int64 (ops/torus.py).  Entry points run on CUDA
+unless given device="cpu", which runs the kernels' plain PyTorch versions.
 """
 
-from . import boolean, integer, shortint  # noqa: F401
+from . import boolean, hlapi, integer, shortint, strings  # noqa: F401
+from .hlapi import *  # noqa: F401,F403
 
 __version__ = "0.1.0"

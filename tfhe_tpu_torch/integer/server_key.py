@@ -41,6 +41,16 @@ class ServerKey(ExtendedOpsMixin, SignedOpsMixin, CrtOpsMixin):
         # cached LUTs
         self._luts = {}
 
+    @classmethod
+    def from_shortint_key(cls, key: ShortintServerKey) -> "ServerKey":
+        """Wrap a shortint server key (it keeps its device) with no second
+        keygen, as tfhe_tpu/hlapi/keys.py:63-70 wraps a decompressed key."""
+        obj = cls.__new__(cls)
+        obj.key, obj.params = key, key.params
+        obj.msg = key.params.message_modulus
+        obj._luts = {}
+        return obj
+
     # ------------------------------------------------------------------
     # Type preservation (RadixCiphertext vs SignedRadixCiphertext)
     # ------------------------------------------------------------------

@@ -121,14 +121,16 @@ def garner_consts(primes: tuple) -> dict:
     2^128, and the mixed-radix digits of floor(P/2) for the sign test."""
     k = len(primes)
     r = 1 << 32
-    c = {"inv_mont": {}, "pm_mont": {}}
+    c = {"inv_mont": {}, "pm_mont": {}, "inv": {}, "pm": {}}
     for j in range(1, k):
         pj = primes[j]
         prod = 1
         for i in range(j):
             prod = prod * primes[i] % pj
+            c["pm"][(i, j)] = prod
             c["pm_mont"][(i, j)] = prod * r % pj
-        c["inv_mont"][j] = pow(prod, -1, pj) * r % pj
+        c["inv"][j] = pow(prod, -1, pj)
+        c["inv_mont"][j] = c["inv"][j] * r % pj
     c["prods64"], c["prods128"] = [], []
     acc = 1
     for p in primes:
@@ -450,11 +452,15 @@ def _add_p_if_negative(d, p):
     return d + (p & (d >> 63))
 
 
-def mont_mul(a, b_mont, p, pinv):
-    """REDC32 on int64 tensors: a * b mod p for a, b < 2^31; result < p."""
-    t = a * b_mont
+def redc(t, p, pinv):
+    """REDC32 on int64 tensors: t 2^-32 mod p for 0 <= t < 2^62; result < p."""
     m = ((t & _M32) * pinv) & _M32
     return _add_p_if_negative(((t + m * p) >> 32) - p, p)
+
+
+def mont_mul(a, b_mont, p, pinv):
+    """a * b mod p for a, b < 2^31 (b in Montgomery form); result < p."""
+    return redc(a * b_mont, p, pinv)
 
 
 def add_mod(a, b, p):
@@ -465,48 +471,80 @@ def sub_mod(a, b, p):
     return _add_p_if_negative(a - b, p)
 
 
-def _bcast(dp: DevicePlan, nb: int):
-    shape = (1,) * nb + (dp.num_primes, 1, 1)
-    return dp.ps.reshape(shape), dp.pinvs.reshape(shape)
+@lru_cache(maxsize=None)
+def normal_twiddles(dp: DevicePlan) -> tuple:
+    """The forward and inverse twiddles and N^-1 of dp's plan in normal form
+    (the plan keeps Montgomery form, W R mod p), on dp's device: what the
+    plain transforms below multiply by, a product and one remainder a
+    butterfly.  The twiddles come as one (P, m, 1) tensor a stage."""
+    out = []
+    for table in (dp.plan.psi_br_stack, dp.plan.psi_inv_br_stack, dp.plan.n_invs):
+        norm = np.empty(table.shape, dtype=np.int64)
+        for j, p in enumerate(dp.plan.primes):
+            r_inv = pow(1 << 32, -1, p)
+            norm[j] = [int(w) * r_inv % p for w in table[j]]
+        out.append(torch.from_numpy(norm).to(dp.psi.device))
+    stages = [out[k][:, m:2 * m, None].contiguous() for k in (0, 1)
+              for m in (1 << e for e in range(dp.n.bit_length() - 1))]
+    half = len(stages) // 2
+    return stages[:half], stages[half:], out[2]
+
+
+# Lazy reduction in the plain transforms: a value is kept below b p in
+# magnitude and reduced once its bound would let a product by a twiddle
+# (< p < 2^30) pass 2^63; a torch call's overhead outweighs its arithmetic
+# on the CPU, so the fewer remainders the better.  Forward: u +- v grows the
+# bound by one a stage, a product needs |x| < 8 p.  Inverse: u + v doubles
+# it, (u - v) s needs |u - v| < 8 p.
+_FWD_BOUND = 8
+_INV_BOUND = 4
 
 
 def ntt_forward(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
-    """(..., P, N) int64 residues, natural order -> NTT domain, bit-reversed."""
+    """(..., P, N) int64 values below p in magnitude (residues, or signed
+    digits), natural order -> NTT domain, bit-reversed, each residue in
+    [0, p)."""
     n, np_ = dp.n, dp.num_primes
     batch = tuple(x.shape[:-2])
-    p, pinv = _bcast(dp, len(batch))
-    m, t = 1, n
-    while m < n:
+    p = dp.ps[:, :, None]                                    # over (..., P, m, t)
+    m, t, bound = 1, n, 1
+    for s in normal_twiddles(dp)[0]:                         # (P, m, 1)
         t //= 2
+        if bound > _FWD_BOUND:
+            x, bound = torch.remainder(x, dp.ps), 1
         xv = x.reshape(batch + (np_, m, 2, t))
         u = xv[..., 0, :]
-        s = dp.psi[:, m:2 * m].reshape((1,) * len(batch) + (np_, m, 1))
-        v = mont_mul(xv[..., 1, :], s, p, pinv)
-        x = torch.stack([add_mod(u, v, p), sub_mod(u, v, p)], dim=-2
-                        ).reshape(batch + (np_, n))
+        v = torch.remainder(xv[..., 1, :] * s, p)
+        x = torch.stack([u + v, u - v], dim=-2).reshape(batch + (np_, n))
+        bound += 1
         m *= 2
-    return x
+    return torch.remainder(x, dp.ps)
 
 
 def ntt_inverse(x: torch.Tensor, dp: DevicePlan, scale: bool = True) -> torch.Tensor:
-    """(..., P, N) NTT domain, bit-reversed -> natural order, times N^-1
-    (without it where scale is False: a product with a key that holds
-    N^-1, ops/bsk_prep.py RoundedKeyNtt)."""
+    """(..., P, N) NTT domain, bit-reversed, residues in [0, p) -> natural
+    order, times N^-1 (without it where scale is False: a product with a
+    key that holds N^-1, ops/bsk_prep.py RoundedKeyNtt); each residue in
+    [0, p)."""
     n, np_ = dp.n, dp.num_primes
     batch = tuple(x.shape[:-2])
-    p, pinv = _bcast(dp, len(batch))
-    t, m = 1, n
-    while m > 1:
+    p = dp.ps[:, :, None]                                    # over (..., P, h, t)
+    _, psi_inv, n_inv = normal_twiddles(dp)
+    t, m, bound = 1, n, 1
+    for s in reversed(psi_inv):                              # (P, h, 1)
         h = m // 2
         xv = x.reshape(batch + (np_, h, 2, t))
         u, v = xv[..., 0, :], xv[..., 1, :]
-        s = dp.psi_inv[:, h:2 * h].reshape((1,) * len(batch) + (np_, h, 1))
-        x = torch.stack([add_mod(u, v, p),
-                         mont_mul(sub_mod(u, v, p), s, p, pinv)], dim=-2
+        a, bound = u + v, 2 * bound
+        if bound > _INV_BOUND:
+            a, bound = torch.remainder(a, p), 1
+        x = torch.stack([a, torch.remainder((u - v) * s, p)], dim=-2
                         ).reshape(batch + (np_, n))
         t *= 2
         m = h
-    return mont_mul(x, dp.n_invs, dp.ps, dp.pinvs) if scale else x
+    if scale:
+        return torch.remainder(x * n_inv, dp.ps)
+    return torch.remainder(x, dp.ps) if bound > 1 else x
 
 
 @lru_cache(maxsize=None)
@@ -537,20 +575,17 @@ def add_mod_stacked(a, b, dp: DevicePlan):
 
 def _garner_digits(residues: torch.Tensor, dp: DevicePlan) -> list:
     """The mixed-radix digits a_0 .. a_{P-1} (each a_j < p_j) of the integer
-    whose residues (..., P, N) these are."""
+    whose residues (..., P, N) these are: a_j = (r_j - sum_{i<j} a_i
+    prod_{t<i} p_t) (prod_{t<j} p_t)^-1 mod p_j, each product below 2^60
+    (and the sum below 2^63 for up to 8 primes), one remainder a product."""
     primes = dp.plan.primes
     c = garner_consts(primes)
-    pinvs = [int(v) for v in dp.plan.pinvs[:, 0]]
     a = [residues[..., 0, :]]
     for j in range(1, len(primes)):
-        pj = primes[j]
-        v = torch.where(a[0] >= pj, a[0] - pj, a[0])
+        v = residues[..., j, :] - a[0]
         for i in range(1, j):
-            v = v + mont_mul(a[i], c["pm_mont"][(i - 1, j)], pj, pinvs[j])
-            v = torch.where(v >= pj, v - pj, v)
-        r = residues[..., j, :]
-        d = torch.where(r >= v, r - v, r + pj - v)
-        a.append(mont_mul(d, c["inv_mont"][j], pj, pinvs[j]))
+            v = v - a[i] * c["pm"][(i - 1, j)]
+        a.append(torch.remainder(torch.remainder(v, primes[j]) * c["inv"][j], primes[j]))
     return a
 
 

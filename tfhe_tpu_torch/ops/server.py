@@ -160,17 +160,13 @@ def monomial_div(poly, degree):
 # ---------------------------------------------------------------------------
 
 
-def _digits_to_residues(digits, dp: ntt.DevicePlan):
-    """Signed digits (|d| < p) -> (..., P, N) residues: d or p + d."""
-    neg = digits < 0
-    return torch.stack([torch.where(neg, p + digits, digits)
-                        for p in dp.plan.primes], dim=-2)
-
-
 def _forward_digits(glwe, dp: ntt.DevicePlan, base_log: int, levels: int):
-    """Signed digits of (B, k+1, N) words in the NTT domain: (l, B, k+1, P, N)."""
+    """Signed digits (|d| < p) of (B, k+1, N) words in the NTT domain:
+    (l, B, k+1, P, N).  The forward transform takes the signed digits
+    themselves, one copy a prime."""
     digits = signed_decompose(glwe, base_log, levels)
-    return ntt.ntt_forward(_digits_to_residues(digits, dp), dp)
+    return ntt.ntt_forward(digits.unsqueeze(-2).expand(
+        digits.shape[:-1] + (dp.num_primes, digits.shape[-1])), dp)
 
 
 def _product_sum(fwd, key, dp: ntt.DevicePlan):
@@ -180,12 +176,19 @@ def _product_sum(fwd, key, dp: ntt.DevicePlan):
     key = key.to(torch.int64)
     if key.dim() == 5:
         key = key[None]
-    col = None
+    # the key is in Montgomery form, so the sum of products is R times the
+    # result: one Montgomery reduction at the end.  Each product < p^2 <
+    # 2^60, and the reduction takes sums below 2^62: a longer sum is taken
+    # mod p (its scale kept) every four terms
+    col, terms = None, 0
     for lev in range(key.shape[1]):
         for r in range(key.shape[2]):
-            prod = ntt.pointwise_mul_mont(fwd[lev][:, r, None], key[:, lev, r], dp)
-            col = prod if col is None else ntt.add_mod_stacked(col, prod, dp)
-    return col
+            if terms == 4:
+                col, terms = torch.remainder(col, dp.ps), 1
+            prod = fwd[lev][:, r, None] * key[:, lev, r]
+            col = prod if col is None else col + prod
+            terms += 1
+    return ntt.redc(col, dp.ps, dp.pinvs)
 
 
 def external_product(glwe, ggsw, dp: ntt.DevicePlan, base_log: int,
