@@ -11,7 +11,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
      sm_90a, one compiler per source, started together); then every
      source again under ``nvcc -Xptxas -v`` for each kernel's registers,
-     spills and shared memory (line "ptxas"), with the rounded-key
+     spills and shared memory (line "ptxas", printed after phase 3, whose
+     host keygen the compilers run beside), with the rounded-key
      kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
      BSK, so the server key runs the v7 blind rotation, on a three-prime
@@ -91,7 +92,24 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      characters and 4 hidden nul pads, contains and find of a 3-character
      pattern and to_uppercase of the first, trim of the second, split(".")
      of a 3-character one, held to Python's str, with rounds and PBS;
- 23. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 23. compact_pke (config 5): on phase 18's keys, the V1_4 ZKV2 PKE private
+     and public keys and both casting keys (keygen seconds each), a v2 CRS
+     for 32 slots, two proven lists of one FheUint64 each (prove seconds a
+     list), each verified and expanded (one batched extraction), the 64
+     slots cast to the small key in one call (K1's tensor-core kernel at
+     n_in = 2048, l = 4, then K2's lazy exact kernel on the exact key) and
+     the two FheUint64 added through the hlapi (against (x + y) mod 2^64);
+     a plain list of 2048 slots expanded and cast at B = 2048 (slots per
+     second); the first list's slots cast to the big key (K1's generic
+     kernel, base 2^24, l = 1); re-randomization of 32 ciphertexts; every
+     slot decrypted; tfhe-rs's CPU figures for one proven FheUint64 beside
+     the port's;
+ 24. trivium: Trivium and Kreyvium on phase 17's boolean keys from the
+     encrypted post-warm-up state of a clear stream: 16 keystream steps and
+     16 transciphered bits each, held against the clear stream, with
+     seconds and gate calls a step (K1's tensor-core kernel, then K2's
+     lazy exact kernel, once a gate call) and the projected warm-up;
+ 25. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -149,8 +167,12 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      tfhe_tpu's TFHE_LIB_PARAMETERS shape (k + 1 = 2, N = 1024, l = 3,
      n = 630) on a random key at B = 4 and B = 3; K2's lazy exact kernel on
      phase 19's OPRF inputs and LUTs (B = 32), and phase 22's first round
-     through K1 and K2 v7;
- 24. the launch counts of phases 4, 6, 7, 9, 10, 12-22 (each wrapper's
+     through K1 and K2 v7; phase 23's casts: K1 at both cast shapes (its
+     tensor-core kernel at B = 64 and 2048, its generic kernel at B = 32)
+     against the plain keyswitch, K2's lazy exact kernel on the B = 64
+     cast's switched inputs against the plain exact rotation, and the cast
+     outputs against the plain path;
+ 26. the launch counts of phases 4, 6, 7, 9, 10, 12-24 (each wrapper's
      and, of them, those of K1's and K4's tensor-core kernels and K2's
      lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line.
@@ -283,6 +305,21 @@ HLAPI_PATHS = ("hlapi", "oprf", "compressed_key", "kv_store", "strings")
 HLAPI_OPRF_STEPS = ("draw", "repeat", "bounded_16_bits", "bitonic_shuffle")
 HLAPI_KV_STEPS = ("get_present", "get_absent", "update", "array_add")
 HLAPI_STRING_OPS = ("eq", "contains", "find", "to_uppercase", "trim", "split")
+# config 5 (BASELINE.json): compact lists under the V1_4 ZKV2 PKE set (d =
+# 2048, TUniform(17)) cast into the hlapi keys; a v2 CRS for CRS_SLOTS slots
+# (one FheUint64 at 2 bits a block), two proven lists of PKE_SLOTS slots, a
+# plain list of PKE_FULL_SLOTS (N) slots; tfhe-rs's figures for one proven
+# FheUint64 on a CPU (SURVEY.md:617).  The trivium phase: TRIVIUM_STEPS
+# keystream steps, then as many transciphered bits, from the encrypted
+# post-warm-up state of a clear stream (a warm-up is 4 x 288 steps)
+CRS_SLOTS = 32
+PKE_SLOTS = 32
+PKE_FULL_SLOTS = 2048
+PKE_METADATA = b"chip_smoke config 5"
+TFHE_RS_ZK_CPU_MS = {"prove": 146.0, "verify": 31.2, "verify_and_expand": 51.1}
+TRIVIUM_STEPS = 16
+TRIVIUM_WARMUP_STEPS = 4 * 288
+TRIVIUM_STREAMS = (("trivium", "TriviumStream", 80), ("kreyvium", "KreyviumStream", 128))
 # every kernel of the port, by the name a profiler trace gives it
 KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
@@ -292,7 +329,15 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kerne
                 "packing_keyswitch_imma_kernel")
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print obj as one JSON line; a phase line also gets the seconds since
+    the script started (at_seconds: the time between two lines is the
+    phase's)."""
+    if "phase" in obj:
+        obj = {**obj, "at_seconds": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -514,16 +559,20 @@ def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: 
     return acc
 
 
-def k1_bound(ct, ksk, out) -> tuple:
+def k1_bound(ct, ksk, out, base_log: int = 8) -> dict:
     """Least time for the keyswitch: every input byte read once and the
-    output written once, against the multiply-adds done as 8 byte limbs of
-    each key word on the int8 tensor cores."""
+    output written once, against the cheaper way to do its wrapping u64
+    multiply-adds: as ceil(base_log / 8) digit bytes x 8 key bytes of int8
+    limb products on the tensor cores, or as three 32-bit multiplies each on
+    the CUDA cores' integer rate (the int8 way wins at every base_log <= 8)."""
     nbytes = 8 * (ct.numel() + ksk.numel() + out.numel())
     n_in, levels, m_out = ksk.shape
     macs = ct.shape[0] * n_in * levels * m_out
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * 8 * macs / INT8_TC_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    t_ops = min(2 * 8 * -(-base_log // 8) * macs / INT8_TC_OPS_PER_S,
+                3 * macs / INT32_MUL_PER_S)
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3}
 
 
 def k2_bound(mask, lut, levels: int, base_log: int, nprimes: int,
@@ -695,23 +744,33 @@ def head_of(key, lead: tuple):
     return dataclasses.replace(key, data=key.data[:math.prod(lead)], lead=lead)
 
 
-def ptxas_report(kernels) -> dict:
-    """Registers, spills and static shared memory of every kernel of K1-K5
-    as ``nvcc -Xptxas -v`` reports them (one compiler per source, started
-    together; the libraries are thrown away), and the rounded-key kernels'
-    dynamic shared memory and ciphertexts a block."""
-    import re
+def ptxas_start(kernels) -> tuple:
+    """Start ``nvcc -Xptxas -v`` on every source of K1-K5, one compiler per
+    source, all together, into a scratch directory (the libraries are
+    thrown away).  Returns the directory and the (name, process) pairs for
+    ptxas_report."""
     import tempfile
     from tfhe_tpu_torch.utils.build import CSRC
 
+    tmp = tempfile.mkdtemp(dir=CSRC.parents[1] / "build")
+    return tmp, [(name, subprocess.Popen(
+        kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
+                                  str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
+                     "packing_keyswitch", "blind_rotate128")]
+
+
+def ptxas_report(kernels, started: tuple) -> dict:
+    """Registers, spills and static shared memory of every kernel of K1-K5
+    as ptxas_start's compilers report them (each waited for), and the
+    rounded-key kernels' dynamic shared memory and ciphertexts a block."""
+    import re
+    import shutil
+
     out = {}
-    with tempfile.TemporaryDirectory(dir=CSRC.parents[1] / "build") as tmp:
-        procs = [(name, subprocess.Popen(
-            kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
-                                      str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
-                         "packing_keyswitch", "blind_rotate128")]
+    tmp, procs = started
+    try:
         for name, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
@@ -733,6 +792,11 @@ def ptxas_report(kernels) -> dict:
                     entry["registers"] = int(m.group(1))
                     m = re.search(r"(\d+) bytes smem", line)
                     entry["static_smem_bytes"] = int(m.group(1)) if m else 0
+    finally:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     for nprimes in (3, 4):
         out[f"rounded_{nprimes}_primes"] = kernels.rounded_kernel_shape(nprimes)
     return out
@@ -896,7 +960,7 @@ def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
     want = server.keyswitch(*args)
     lib = int_mm_keyswitch(*args)
     torch.cuda.synchronize()
-    bound_ms, bound_by = k1_bound(ct0, sk.ksk, got)
+    bound = k1_bound(ct0, sk.ksk, got, p.ks_base_log)
     return {"want": want, "ct": ct0, "fig": {
         "max_abs_err": max_abs_err(got, want),
         "int_mm_max_abs_err": max_abs_err(lib, want),
@@ -905,7 +969,7 @@ def keyswitch_check(cts, sk, kernels, server, torus) -> dict:
         "generic_kernel_ms": cuda_ms(lambda: generic_keyswitch(kernels, *args), 10),
         "plain_ms": cuda_ms(lambda: server.keyswitch(*args), 3),
         "library_ms": cuda_ms(lambda: int_mm_keyswitch(*args), 10),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound["ms"], "bound_by": bound["by"],
         "shape": [ct0.shape[0], p.big_lwe_dimension, p.ks_level, p.lwe_dimension + 1]}}
 
 
@@ -1220,7 +1284,7 @@ def boolean_phase(kernels, tb, seed: int) -> dict:
                                  + key_bytes(bsk.bsk_ntt)),
             "gates": GATES, "kinds": list(GATE_KINDS), **lines,
             "wrong": sum(op["wrong"] for op in lines.values())}
-    return {"line": line, "bsk": bsk, "kinds": kinds, "lhs": lhs, "rhs": rhs,
+    return {"line": line, "bck": bck, "bsk": bsk, "kinds": kinds, "lhs": lhs, "rhs": rhs,
             "packed_outs": outs["packed"]}
 
 
@@ -1626,6 +1690,305 @@ def hlapi_paths_vs_plain(kernels, server, torus, sk, oprf_seed: int, oprf_draw,
                       "string_round", errs)
 
 
+def compact_pke_phase(kernels, th, ck, sk, seed: int) -> dict:
+    """Phase 23: config 5 on the hlapi keys.  Keygen of the V1_4 ZKV2 PKE
+    private and public keys and both casting keys (the casts' K1 byte
+    layout built on the card), a v2 CRS for CRS_SLOTS slots; two proven
+    lists of one FheUint64 each (its 2-bit blocks) from fixed seeds
+    (prove seconds a list), each verified and expanded (one batched
+    extraction, no kernel), the 64 slots cast to the small key in one call
+    (K1's tensor-core kernel at n_in = 2048, l = 4, then K2's lazy exact
+    kernel on the exact key), and the two FheUint64 added through the
+    hlapi; a plain list of PKE_FULL_SLOTS slots expanded and cast at B =
+    PKE_FULL_SLOTS; the first list's slots cast to the big key (K1's
+    generic kernel, base 2^24, l = 1); re-randomization of 32 ciphertexts
+    with a compute-key compact public key.  Every slot is decrypted.
+    Returns the phase line, its wrong outputs and the casts' inputs."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.hlapi import compact_list as cl
+    from tfhe_tpu_torch.hlapi import proven_compact_list as pcl
+    from tfhe_tpu_torch.integer import RadixCiphertext
+    from tfhe_tpu_torch.shortint import params as sp
+    from tfhe_tpu_torch.shortint import re_randomization as rr
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    pke_p = sp.V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+    blk, key = ck.integer_key.key, sk.integer_key.key
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    priv = timed("private_key", lambda: cl.CompactPrivateKey(pke_p, seed))
+    cpk = timed("public_key", lambda: cl.CompactPublicKey(priv, seed + 1))
+    small = timed("casting_key_small", lambda: cl.CompactPkeCastingKey(
+        priv, ck, sp.V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        server_key=sk, seed=seed + 2))
+    big = timed("casting_key_big", lambda: cl.CompactPkeCastingKey(
+        priv, ck, sp.V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        seed=seed + 3, device="cuda"))
+    if not isinstance(small.ks_key, kernels.KeyswitchKeyLimbs) or isinstance(
+            big.ks_key, kernels.KeyswitchKeyLimbs):
+        raise RuntimeError("the casting keys do not hold K1's layouts of their shapes: the "
+                           "cast to small on its tensor-core kernel, to big on its generic one")
+    crs = timed("crs_v2", lambda: pcl.CompactPkeCrs.new(pke_p, CRS_SLOTS, seed + 4, "v2"))
+    timed("exact_key", key.exact_bsk_ntt)
+    mod = 1 << 64
+    x, y = (int(v) for v in np.random.default_rng(seed + 5).integers(0, mod, 2, dtype=np.uint64))
+
+    def digits(v: int) -> list:
+        return [(v >> (2 * i)) & 3 for i in range(PKE_SLOTS)]
+
+    proofs, slots, launches = [], [], {}
+    for i, (v, s) in enumerate(((x, seed + 6), (y, seed + 7))):
+        lst = timed(f"prove_{i}", lambda v=v, s=s: pcl.build_with_proof(
+            cpk, digits(v), crs, PKE_METADATA, seed=s))
+        if not timed(f"verify_{i}", lambda lst=lst: lst.verify(crs, cpk, PKE_METADATA)):
+            raise RuntimeError(f"proven list {i} did not verify")
+        out, launches[f"expand_{i}"], seconds[f"expand_{i}"], _ = counted(
+            kernels, lambda lst=lst: lst.expand_without_verification(device="cuda"))
+        proofs.append(lst)
+        slots += out
+    want = digits(x) + digits(y)
+    cast, launches["cast_small_b64"], seconds["cast_small_b64"], _ = counted(
+        kernels, lambda: small.cast_batch(slots))
+    cast_only = only(kernels, keyswitch=1, keyswitch_imma=1, blind_rotate=1,
+                     blind_rotate_exact_lazy=1)
+    if launches["cast_small_b64"] != cast_only:
+        raise RuntimeError(f"the cast to small did not run K1's tensor-core kernel and K2's "
+                           f"lazy exact kernel once each: {launches['cast_small_b64']}")
+    if any(any(launches[f"expand_{i}"].values()) for i in range(2)):
+        raise RuntimeError("the expansion launched a kernel")
+    wrong = {"cast_small_b64": sum(blk.decrypt(c) != w for c, w in zip(cast, want))}
+    dev = torch.device("cuda")
+    # the cast's words as it gave them (the integer ops below take its blocks)
+    cast_words = upload_batch([c.data for c in cast], dev)
+    th.set_server_key(sk)
+    a = th.FheUint64(RadixCiphertext(cast[:PKE_SLOTS]))
+    b = th.FheUint64(RadixCiphertext(cast[PKE_SLOTS:]))
+    log = RoundLog(key)
+    _, add = measured_op(kernels, log, lambda: a + b, lambda o: o.decrypt(ck) != (x + y) % mod,
+                         warm=False)
+    log.close()
+    check_launches("add of the cast FheUint64s", add, V7_MUST, never=V7_NEVER)
+    wrong["fheuint64_add"] = add["wrong"]
+    # a plain list of a full polynomial of slots, cast at B = PKE_FULL_SLOTS
+    full = [int(v) for v in np.random.default_rng(seed + 8).integers(0, 4, PKE_FULL_SLOTS)]
+    full_lst = timed("encrypt_full_list", lambda: cpk.encrypt_list(full))
+    full_slots, launches["expand_full"], seconds["expand_full"], _ = counted(
+        kernels, lambda: cl.expanded_slots(full_lst.glwe, range(PKE_FULL_SLOTS), 4, 4,
+                                           torch.device("cuda")))
+    full_cast, launches["cast_small_full"], seconds["cast_small_full"], _ = counted(
+        kernels, lambda: small.cast_batch(full_slots))
+    if launches["cast_small_full"] != cast_only:
+        raise RuntimeError(f"the full cast did not run K1's tensor-core kernel and K2's lazy "
+                           f"exact kernel once each: {launches['cast_small_full']}")
+    wrong["cast_small_full"] = sum(blk.decrypt(c) != w for c, w in zip(full_cast, full))
+    # the first list's slots cast to the big key (K1's generic kernel)
+    to_big, launches["cast_big_b32"], seconds["cast_big_b32"], _ = counted(
+        kernels, lambda: big.cast_batch(slots[:PKE_SLOTS]))
+    if launches["cast_big_b32"] != only(kernels, keyswitch=1):
+        raise RuntimeError(f"the cast to big did not run K1's generic kernel alone, once: "
+                           f"{launches['cast_big_b32']}")
+    wrong["cast_big_b32"] = sum(blk.decrypt(c) != w for c, w in zip(to_big, want))
+    # re-randomization of the cast FheUint64's 32 blocks
+    rkey = timed("rerand_public_key", lambda: rr.ReRandomizationKey(cl.CompactPublicKey(
+        ck, seed + 9)))
+    rer, launches["re_randomize"], seconds["re_randomize"], _ = counted(
+        kernels, lambda: rkey.re_randomize_batch(cast[:PKE_SLOTS], b"chip_smoke", b"ctx",
+                                           device="cuda"))
+    if any(launches["re_randomize"].values()):
+        raise RuntimeError("re-randomization launched a kernel")
+    wrong["re_randomize"] = sum(blk.decrypt(c) != w for c, w in zip(rer, want))
+    rerand_unchanged = int((upload_batch([c.data for c in rer], dev)
+                            == cast_words[:PKE_SLOTS]).all(dim=1).sum())
+    per_list = {k: [seconds[f"{k}_{i}"] for i in range(2)] for k in ("prove", "verify",
+                                                                     "expand")}
+    line = {
+        "pke_params": "V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2",
+        "d": pke_p.polynomial_size, "noise_bound_log2": pke_p.encryption_noise.bound_log2,
+        "crs_slots": CRS_SLOTS, "slots_per_list": PKE_SLOTS, "full_slots": PKE_FULL_SLOTS,
+        "keygen_seconds": {k: seconds[k] for k in ("private_key", "public_key",
+                                                   "casting_key_small", "casting_key_big")},
+        "crs_seconds": seconds["crs_v2"], "exact_key_seconds": seconds["exact_key"],
+        "prove_seconds": per_list["prove"], "verify_seconds": per_list["verify"],
+        "expand_seconds": per_list["expand"],
+        "verify_and_expand_seconds": [v + e for v, e in zip(per_list["verify"],
+                                                            per_list["expand"])],
+        "cast_small_b64_seconds": seconds["cast_small_b64"], "fheuint64_add": add,
+        "encrypt_full_list_seconds": seconds["encrypt_full_list"],
+        "expand_full_seconds": seconds["expand_full"],
+        "cast_small_full_seconds": seconds["cast_small_full"],
+        "full_slots_per_s": PKE_FULL_SLOTS / (seconds["expand_full"]
+                                              + seconds["cast_small_full"]),
+        "cast_big_b32_seconds": seconds["cast_big_b32"],
+        "re_randomize_seconds": seconds["re_randomize"],
+        "re_randomized_unchanged": rerand_unchanged,
+        "launches": launches,
+        "tfhe_rs_cpu_ms_one_fheuint64": TFHE_RS_ZK_CPU_MS,
+        "port_ms_one_fheuint64": {
+            "prove": 1e3 * min(per_list["prove"]), "verify": 1e3 * min(per_list["verify"]),
+            "verify_and_expand": 1e3 * min(v + e for v, e in zip(per_list["verify"],
+                                                                 per_list["expand"])),
+            "verify_expand_and_cast": 1e3 * (min(per_list["verify"]) + min(per_list["expand"])
+                                             + seconds["cast_small_b64"] / 2)},
+        "wrong": wrong}
+    return {"line": line, "wrong": sum(wrong.values()) + rerand_unchanged,
+            "small": small, "big": big, "slots": slots, "cast": cast_words,
+            "full_slots": full_slots, "full_cast": upload_batch([c.data for c in full_cast], dev),
+            "to_big": upload_batch([c.data for c in to_big], dev)}
+
+
+def trivium_phase(kernels, trivium, bck, bsk, seed: int) -> dict:
+    """Phase 24: Trivium and Kreyvium over the boolean gates at
+    DEFAULT_PARAMETERS (phase 17's keys).  Each stream starts from the
+    encrypted post-warm-up state of a clear stream (set through __new__),
+    runs TRIVIUM_STEPS keystream steps, then transcipher_decrypt of as many
+    clear cipher bits; every bit is held against the clear stream.  Gate
+    calls are K1 launches, each followed by one of K2's lazy exact kernel."""
+    import numpy as np
+
+    lines, wrong = {}, 0
+    for name, cls_name, bits in TRIVIUM_STREAMS:
+        cls = getattr(trivium, cls_name)
+        rng = np.random.default_rng(seed + bits)
+        key_bits, iv_bits = ([bool(v) for v in rng.integers(0, 2, bits)] for _ in range(2))
+        t0 = time.perf_counter()
+        clear = cls(key_bits, iv_bits)
+        clear_warmup_s = time.perf_counter() - t0
+        enc = cls.__new__(cls)
+        enc.be = trivium._Backend(bsk)
+        for reg in ("s1", "s2", "s3", "kstar", "ivstar"):
+            if hasattr(clear, reg):
+                setattr(enc, reg, [bck.encrypt(v) for v in getattr(clear, reg)])
+        stream_bits = clear.next_bits(TRIVIUM_STEPS)
+        cipher = [bool(v) for v in rng.integers(0, 2, TRIVIUM_STEPS)]
+        plain = [c != k for c, k in zip(cipher, clear.next_bits(TRIVIUM_STEPS))]
+        step = {}
+        for tag, fn, want in (("keystream", lambda: enc.next_bits(TRIVIUM_STEPS), stream_bits),
+                              ("transcipher", lambda: trivium.transcipher_decrypt(
+                                  enc, cipher, bsk), plain)):
+            _, step[tag] = measured_op(
+                kernels, None, fn,
+                lambda o, want=want: sum(bck.decrypt(c) != w for c, w in zip(o, want)),
+                warm=False)
+            got = step[tag]["launches"]
+            check_launches(f"{name} {tag}", step[tag],
+                           {"keyswitch": None, "keyswitch_imma": "keyswitch",
+                            "blind_rotate": "keyswitch",
+                            "blind_rotate_exact_lazy": "keyswitch"},
+                           never=("blind_rotate_multibit",))
+            step[tag].update({"steps": TRIVIUM_STEPS,
+                              "seconds_per_step": step[tag]["seconds"] / TRIVIUM_STEPS,
+                              "gate_calls": got["keyswitch"],
+                              "gate_calls_per_step": got["keyswitch"] / TRIVIUM_STEPS,
+                              "seconds_per_gate_call": step[tag]["seconds"] / got["keyswitch"]})
+            wrong += step[tag]["wrong"]
+        per_step = step["keystream"]["seconds_per_step"]
+        lines[name] = {**step, "clear_warmup_seconds": clear_warmup_s,
+                       "warmup_steps": TRIVIUM_WARMUP_STEPS,
+                       "warmup_projection_seconds": TRIVIUM_WARMUP_STEPS * per_step}
+    return {"line": {"params": "DEFAULT_PARAMETERS", **lines, "wrong": wrong},
+            "wrong": wrong}
+
+
+def compact_paths_vs_plain(kernels, server, torus, sk, run, errs: dict) -> dict:
+    """Phase 23's casts against their plain versions (into errs): K1 on the
+    64 proven slots (tensor-core kernel, n_in = 2048, l = 4, base 2^4) and on
+    the 32 slots cast to big (generic kernel, l = 1, base 2^24) against the
+    plain keyswitch; K2's lazy exact kernel on the 64 slots' switched
+    inputs against the plain exact rotation; the cast outputs (their words
+    as the casts gave them) against the plain path (plain keyswitch,
+    modulus switch, rotation, extraction).
+    Returns K1's figures at the cast shapes (B = 64, B = PKE_FULL_SLOTS and
+    the cast to big at B = 32) and K2's at B = 64 and B = PKE_FULL_SLOTS."""
+    import torch
+
+    from tfhe_tpu_torch.shortint.params import MsNoiseReduction
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    key = sk.integer_key.key
+    p = key.params
+    dev = torch.device("cuda")
+    small, big = run["small"], run["big"]
+    figs = {}
+    for tag, cast_key, rows, outs in (
+            ("small_b64", small, run["slots"], run["cast"]),
+            (f"small_b{PKE_FULL_SLOTS}", small, run["full_slots"], run["full_cast"]),
+            ("big_b32", big, run["slots"][:PKE_SLOTS], run["to_big"])):
+        kp = cast_key.params
+        ct = upload_batch([c.data for c in rows], dev)
+        kargs = (ct, cast_key.ks_key, kp.ks_base_log, kp.ks_level)
+        pargs = (ct, cast_key.ksk, kp.ks_base_log, kp.ks_level)
+        imma_before = kernels.keyswitch.imma_launches
+        got = kernels.keyswitch(*kargs)
+        imma = kernels.keyswitch.imma_launches != imma_before
+        if imma != (kp.destination_key == "small"):
+            raise RuntimeError(f"K1 at the cast shape {tag} took the wrong kernel")
+        want = server.keyswitch(*pargs)
+        errs[f"k1_cast_{tag}"] = max_abs_err(got, want)
+        fig = {"kernel": "keyswitch_imma_kernel" if imma else "keyswitch_kernel",
+               "shape": [ct.shape[0]] + list(cast_key.ksk.shape),
+               "base_log": kp.ks_base_log,
+               "ms": cuda_ms(lambda: kernels.keyswitch(*kargs), 10),
+               "plain_ms": cuda_ms(lambda: server.keyswitch(*pargs), 3),
+               "library_ms": cuda_ms(lambda: int_mm_keyswitch(*pargs), 10) if imma else None}
+        bound = k1_bound(ct, cast_key.ksk, got, kp.ks_base_log)
+        fig.update({"bound_ms": bound["ms"], "bound_by": bound["by"],
+                    "bound_bytes_ms": bound["bytes_ms"]})
+        fig["share_of_bound"] = fig["bound_ms"] / fig["ms"]
+        if not imma:
+            fig["library_call"] = ("none: torch._int_mm takes int8 operands, and a 24-bit "
+                                   "digit times a 64-bit word in int8 limbs is 24 GEMMs")
+        if kp.destination_key == "big":
+            errs[f"cast_{tag}_vs_plain_path"] = max_abs_err(outs, want)
+            figs[tag] = fig
+            continue
+        # the refresh: K2's lazy exact kernel on the switched keyswitch output
+        log_mod = p.polynomial_size.bit_length()
+        body = want[:, -1]
+        if p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN:
+            body = body + server.centered_binary_ms_correction(want, log_mod)
+        msed_mask = server.modulus_switch(want[:, :-1], log_mod)
+        body = server.modulus_switch(body, log_mod)
+        lut = torus.from_u64(key.generate_lookup_table(lambda v: v).acc, dev)
+        lut = lut.expand((ct.shape[0],) + tuple(lut.shape)).contiguous()
+        exact = key.exact_bsk_ntt()
+        rargs = (msed_mask, body, lut, exact, key.dp, p.pbs_base_log, p.pbs_level)
+        lazy_before = kernels.blind_rotate.lazy_exact_launches
+        acc = kernels.blind_rotate(*rargs)
+        if kernels.blind_rotate.lazy_exact_launches != lazy_before + 1:
+            raise RuntimeError("the cast's refresh did not take K2's lazy exact kernel")
+        plain_acc, plain_ms = None, None
+        if tag == "small_b64":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            plain_acc = server.blind_rotate(*rargs)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        if plain_acc is not None:
+            errs["k2_exact_cast_b64"] = max_abs_err(acc, plain_acc)
+            errs["cast_small_b64_vs_plain_path"] = max_abs_err(
+                outs, server.sample_extract(plain_acc))
+        k2b = k2_bound(msed_mask, lut, p.pbs_level, p.pbs_base_log, EXACT_PRIMES)
+        fig["k2_exact"] = {"ms": cuda_ms(lambda: kernels.blind_rotate(*rargs), 3),
+                           "plain_ms": plain_ms,
+                           "bound_ms": k2b["ms"], "bound_by": k2b["by"],
+                           "shape": [ct.shape[0], p.lwe_dimension, p.glwe_dimension + 1,
+                                     p.polynomial_size]}
+        figs[tag] = fig
+    return figs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1668,16 +2031,20 @@ def main() -> None:
     kernels.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": kernels.source_paths()})
-    t0 = time.perf_counter()
-    emit({"phase": "ptxas", "nvcc_flags": "-Xptxas -v", "kernels": ptxas_report(kernels),
-          "seconds": time.perf_counter() - t0})
+    ptxas = ptxas_start(kernels)
 
     # 3. keygen and key upload
     p = PARAMS
     t0 = time.perf_counter()
-    ck = ClientKey(p, seed=args.seed)
-    sk = ServerKey(ck, seed=args.seed + 1, device="cuda")
-    torch.cuda.synchronize()
+    try:
+        ck = ClientKey(p, seed=args.seed)
+        sk = ServerKey(ck, seed=args.seed + 1, device="cuda")
+        torch.cuda.synchronize()
+    except BaseException:
+        for _, proc in ptxas[1]:
+            proc.kill()
+            proc.wait()
+        raise
     keygen_s = time.perf_counter() - t0
     if not sk.trunc_acc or sk.bsk_ntt.num_primes != V7_PRIMES:
         raise RuntimeError("the production 2_2 key did not select v7 mode on three primes")
@@ -1690,6 +2057,9 @@ def main() -> None:
           "bsk_primes": sk.bsk_ntt.num_primes,
           "device_key_bytes": (sk.ksk.numel() * 8 + sk.ks_key.limbs.numel()
                                + key_bytes(sk.bsk_ntt))})
+    t0 = time.perf_counter()
+    emit({"phase": "ptxas", "nvcc_flags": "-Xptxas -v", "kernels": ptxas_report(kernels, ptxas),
+          "wait_seconds": time.perf_counter() - t0})
 
     # 4. serve on the classic key
     served = serve_rounds(ck, sk, args.seed, kernels)
@@ -1934,7 +2304,20 @@ def main() -> None:
         if run["wrong"]:
             raise RuntimeError(f"{run['wrong']} {tag} outputs wrong (decrypted or words)")
 
-    # 23. kernels against their plain versions
+    # 23-24. config 5: compact public-key encryption with ZK proofs, casts,
+    # re-randomization; Trivium and Kreyvium over the boolean gates
+    from tfhe_tpu_torch.apps import trivium
+
+    pke_run = compact_pke_phase(kernels, th, hl_ck, hl_sk, args.seed + 70)
+    emit({"phase": "compact_pke", **pke_run["line"]})
+    triv_run = trivium_phase(kernels, trivium, boolean_run["bck"], boolean_run["bsk"],
+                             args.seed + 71)
+    emit({"phase": "trivium", **triv_run["line"]})
+    for tag, run in (("compact-list", pke_run), ("Trivium/Kreyvium", triv_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
+
+    # 25. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -1962,10 +2345,18 @@ def main() -> None:
     # csrc/blind_rotate.cu exact_lazy_shape): K1's tensor-core kernel at the
     # keyswitch of every set of shortint/params.py, K2's lazy exact kernel at
     # exactly the classic sets of the V1_4 2_2 shape (k+1 = 2, N = 2048,
-    # l = 1); and K1's wrapper on a shape outside the guard (8-bit digits)
-    # runs the generic kernel, against plain
+    # l = 1), the tensor-core kernel at the cast to small from the PKE set
+    # (2^4 x 4) and the generic kernel at the cast to big (2^24 x 1); and
+    # K1's wrapper on a shape outside the guard (8-bit digits) runs the
+    # generic kernel, against plain
+    pke_d = shortint_params.V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128.polynomial_size
     for name, q in vars(shortint_params).items():
-        if not hasattr(q, "ks_base_log"):
+        if isinstance(q, shortint_params.ShortintKeySwitchingParameters):
+            if kernels.keyswitch_imma_shape(pke_d, q.ks_level, q.ks_base_log) != (
+                    q.destination_key == "small"):
+                raise RuntimeError(f"K1 chose the wrong kernel for the cast {name}")
+            continue
+        if not isinstance(q, shortint_params.ShortintParams):
             continue
         if not kernels.keyswitch_imma_shape(q.big_lwe_dimension, q.ks_level, q.ks_base_log):
             raise RuntimeError(f"K1's tensor-core kernel refuses the keyswitch of {name}")
@@ -2450,6 +2841,8 @@ def main() -> None:
     # phase 19's OPRF draw and phase 22's first string round
     hlapi_paths_vs_plain(kernels, server, torus, hl_sk, oprf_run["seed"], oprf_run["draw"],
                          str_run["first_round"], errs)
+    # phase 23's casts: K1 at both cast shapes, K2's lazy exact kernel at B = 64
+    cast_figs = compact_paths_vs_plain(kernels, server, torus, hl_sk, pke_run, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -2459,7 +2852,7 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 24. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-22) and
+    # 26. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24) and
     # the kernel table
     int_lines = integer_run["line"]
     int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
@@ -2472,7 +2865,11 @@ def main() -> None:
                  "oprf": [oprf_run["line"][k] for k in HLAPI_OPRF_STEPS],
                  "compressed_key": [ckey_run["line"]["fheuint64_add"]],
                  "kv_store": [kv_run["line"][k] for k in HLAPI_KV_STEPS],
-                 "strings": [str_run["line"][k] for k in HLAPI_STRING_OPS]}
+                 "strings": [str_run["line"][k] for k in HLAPI_STRING_OPS],
+                 "compact_pke": ([{"launches": v} for v in pke_run["line"]["launches"].values()]
+                                 + [pke_run["line"]["fheuint64_add"]]),
+                 "trivium": [triv_run["line"][name][tag] for name, _, _ in TRIVIUM_STREAMS
+                             for tag in ("keystream", "transcipher")]}
 
     def path_launches(counter: str) -> dict:
         """Launches of one counter on each integer and boolean path."""
@@ -2495,13 +2892,19 @@ def main() -> None:
           "oprf": {k: oprf_run["line"][k]["launches"] for k in HLAPI_OPRF_STEPS},
           "compressed_key": {"fheuint64_add": ckey_run["line"]["fheuint64_add"]["launches"]},
           "kv_store": {k: kv_run["line"][k]["launches"] for k in HLAPI_KV_STEPS},
-          "strings": {k: str_run["line"][k]["launches"] for k in HLAPI_STRING_OPS}})
+          "strings": {k: str_run["line"][k]["launches"] for k in HLAPI_STRING_OPS},
+          "compact_pke": {**pke_run["line"]["launches"],
+                          "fheuint64_add": pke_run["line"]["fheuint64_add"]["launches"]},
+          "trivium": {f"{name}_{tag}": triv_run["line"][name][tag]["launches"]
+                      for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
-    # K2's launches in v7 mode on the hlapi paths (the OPRF's are exact)
-    hl_v7 = {path: br_paths[path] - lazy_paths[path] for path in HLAPI_PATHS}
-    hl_lazy = {path: lazy_paths[path] for path in HLAPI_PATHS if lazy_paths[path]}
+    # K2's launches in v7 mode on the hlapi paths (the OPRF's and the casts'
+    # are exact)
+    hl_v7 = {path: br_paths[path] - lazy_paths[path] for path in HLAPI_PATHS + ("compact_pke",)}
+    hl_lazy = {path: lazy_paths[path] for path in HLAPI_PATHS + ("compact_pke",)
+               if lazy_paths[path]}
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
     table = [
@@ -2535,7 +2938,14 @@ def main() -> None:
          "multibit_plain_ms": k1_mb["fig"]["plain_ms"],
          "multibit_bound_ms": k1_mb["fig"]["bound_ms"],
          "multibit_bound_by": k1_mb["fig"]["bound_by"],
-         "multibit_library_ms": k1_mb["fig"]["library_ms"]},
+         "multibit_library_ms": k1_mb["fig"]["library_ms"],
+         "cast_shapes": {tag: {k: v for k, v in fig.items() if k != "k2_exact"}
+                         for tag, fig in cast_figs.items()},
+         "cast_launches": {k: pke_run["line"]["launches"][k]["keyswitch"]
+                           for k in ("cast_small_b64", "cast_small_full", "cast_big_b32")},
+         "generic_launches_by_path": {path: ks_paths[path] - ks_imma_paths[path]
+                                      for path in ks_paths if ks_paths[path]
+                                      != ks_imma_paths[path]}},
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
@@ -2565,13 +2975,18 @@ def main() -> None:
                    "blind_rotate_kernel at other shapes)",
          "launches": (ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"]
                       + st_launches["cmux_step_exact_lazy"] + lazy_paths["integer_storage"]
-                      + lazy_paths["boolean"] + sum(hl_lazy.values())),
+                      + lazy_paths["boolean"] + lazy_paths["trivium"]
+                      + sum(hl_lazy.values())),
          "launches_by_path": {
              "modswitch_compress_classic":
                  ms_launches["classic"]["decompress"]["blind_rotate_exact_lazy"],
              "stepwise": st_launches["cmux_step_exact_lazy"],
              "integer_storage": lazy_paths["integer_storage"], "boolean": lazy_paths["boolean"],
-             **hl_lazy},
+             "trivium": lazy_paths["trivium"], **hl_lazy},
+         "cast": {f"b{PKE_SLOTS * 2}": cast_figs["small_b64"]["k2_exact"],
+                  f"b{PKE_FULL_SLOTS}": cast_figs[f"small_b{PKE_FULL_SLOTS}"]["k2_exact"],
+                  "launches": {k: pke_run["line"]["launches"][k]["blind_rotate_exact_lazy"]
+                               for k in ("cast_small_b64", "cast_small_full")}},
          "boolean_ms": k2_bool["ms"], "boolean_plain_ms": k2_bool["plain_ms"],
          "boolean_bound_ms": k2_bool["bound"]["ms"], "boolean_shape": k2_bool["shape"],
          "max_abs_err": max(v for k, v in errs.items() if k.startswith(("k2_exact",

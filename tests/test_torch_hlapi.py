@@ -4,7 +4,7 @@ master seed (XofKeySet: seeded server key, squashing key), the same
 operator calls on both, and every output block must hold the same u64
 words, degree and noise level and decrypt to the clear model.  Also the
 keys of generate_keys, the public key, the entry points' default device
-and the refusals of what comes with ROADMAP queue 1 item 15.
+and the compact public key of a key set.
 
 The keys are the TEST set's.  The operators are dispatch to the integer
 layer (held block for block at the TEST set in test_torch_integer.py), so
@@ -21,13 +21,17 @@ import torch
 import tfhe_tpu as ref_t
 import tfhe_tpu_torch as t
 from tfhe_tpu import shortint as ref_shortint
+from tfhe_tpu.hlapi import compact_list as ref_cl
 from tfhe_tpu.hlapi import kv_store as ref_kv
 from tfhe_tpu.integer import noise_squashing as ref_ins
 from tfhe_tpu.shortint import noise_squashing as ref_ns
+from tfhe_tpu.shortint import params as ref_sp
 from tfhe_tpu_torch import hlapi, shortint
+from tfhe_tpu_torch.hlapi import compact_list as cl
 from tfhe_tpu_torch.hlapi import kv_store
 from tfhe_tpu_torch.ops import torus
 from tfhe_tpu_torch.shortint import noise_squashing as ns
+from tfhe_tpu_torch.shortint import params as sp_mod
 
 MASTER = 0x4A1C0DE
 SEED = 0x4A1
@@ -312,11 +316,32 @@ def test_full_width_surface():
 
 
 def test_compact_public_key_is_refused():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.ConfigBuilder().enable_compact_public_key()
-    cfg = dataclasses.replace(t.Config(), enable_compact_public_key=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.CompressedXofKeySet(cfg, 1).expand(device="cpu")
+    """What stays refused of the compact public key at the hlapi surface, in
+    both packages: expanding a list encrypted under a dedicated PKE set
+    without its casting key (RequiresCasting)."""
+    for mod, sp, kw in ((ref_cl, ref_sp, {}), (cl, sp_mod, {"device": "cpu"})):
+        pke = sp.CompactPublicKeyEncryptionParameters(
+            encryption_lwe_dimension=64, encryption_noise=sp.TUniform(3), message_modulus=4,
+            carry_modulus=4)
+        cpk = mod.CompactPublicKey(mod.CompactPrivateKey(pke, 3), 4)
+        with pytest.raises(ValueError, match="RequiresCasting"):
+            cpk.encrypt_list([1]).expand(**kw)
+
+
+def test_compact_public_key_from_key_set_matches():
+    """enable_compact_public_key sets the flag, and the key set's expansion
+    derives tfhe_tpu's compact public key from the master seed (the cut
+    TEST set)."""
+    ref_cfg = _config(ref_t, ref_shortint, ref_ns, squash=False, cut=True)
+    cfg = t.ConfigBuilder().use_custom_parameters(
+        _config(t, shortint, ns, squash=False, cut=True).shortint_params)
+    cfg = cfg.enable_compact_public_key().build()
+    assert cfg.enable_compact_public_key
+    ref_cfg.enable_compact_public_key = True
+    want = ref_t.CompressedXofKeySet(ref_cfg, MASTER).expand().compact_public_key
+    got = t.CompressedXofKeySet(cfg, MASTER).expand(device="cpu").compact_public_key
+    assert (got.a == want.a).all() and (got.b == want.b).all()
+    assert got.params == cfg.shortint_params and not got._requires_casting
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
 """tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
 round of each slice, the integer and boolean layers, the high-level API and
-the strings included), no source of the port (nor chip_smoke.py) imports
-jax or tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
+the strings, compact lists and Trivium included, and imports the ZK
+modules), no source of the port (nor chip_smoke.py) imports jax or
+tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
 raising where there is no GPU."""
 
 import pathlib
@@ -89,6 +90,14 @@ tfhe_tpu_torch.set_server_key(hsk)
 a8 = tfhe_tpu_torch.FheUint8.encrypt(200, hck)
 assert (a8 + tfhe_tpu_torch.FheUint8.encrypt(30, hck)).decrypt(hck) == 230
 assert tfhe_tpu_torch.FheAsciiString.encrypt("ab", hck).contains("b").decrypt(hck) is True
+# config 5: a compact list under the compute key, expanded; clear Trivium;
+# the ZK modules import (their curve builds at first use)
+from tfhe_tpu_torch.apps import trivium
+from tfhe_tpu_torch.hlapi import compact_list, proven_compact_list
+from tfhe_tpu_torch.zk import curve446, pke, pke_v2
+lst = compact_list.CompactPublicKey(hck, seed=12).encrypt_list([1, 2])
+assert [hck.integer_key.key.decrypt(c) for c in lst.expand(device="cpu")] == [1, 2]
+assert len(trivium.TriviumStream([False] * 80, [True] * 80).next_bits(8)) == 8
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")
@@ -154,6 +163,30 @@ def test_integer_and_boolean_entry_points_default_to_cuda(no_gpu, layer):
         mod.gen_keys(params, seed=1)
     with pytest.raises(RuntimeError, match="cuda"):
         mod.ServerKey(mod.ClientKey(params, seed=1), seed=2)
+
+
+def test_config5_entry_points_default_to_cuda(no_gpu, client_key):
+    """Compact-list expansion, the casting keys, proven-list expansion and
+    re-randomization run on the card unless asked for the CPU, and raise
+    without one."""
+    import numpy as np
+
+    from tfhe_tpu_torch.hlapi import compact_list as cl
+    from tfhe_tpu_torch.hlapi import proven_compact_list as pcl
+    from tfhe_tpu_torch.shortint import key_switching_key, re_randomization
+
+    cpk = cl.CompactPublicKey(client_key, seed=1)
+    lst = cpk.encrypt_list([1])
+    big = shortint.V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    proven = pcl.ProvenCompactCiphertextList(lst.glwe[0], lst.glwe[1, :1], None, 4, 4)
+    for call in (lambda: lst.expand(), proven.expand_without_verification,
+                 lambda: cl.CompactPkeCastingKey.from_raw_parts(
+                     np.zeros((1, 1, 2), np.uint64), client_key.params, big),
+                 lambda: key_switching_key.KeySwitchingKey(client_key, client_key, seed=2),
+                 lambda: re_randomization.ReRandomizationKey(cpk).re_randomize_batch(
+                     [client_key.encrypt(1)], b"s")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_cpu_is_taken_only_when_asked(no_gpu, client_key):

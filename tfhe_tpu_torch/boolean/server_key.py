@@ -24,7 +24,6 @@ from __future__ import annotations
 import secrets
 
 import numpy as np
-import torch
 
 from ..core import keygen as kg
 from ..ops import kernels, ntt, torus
@@ -57,14 +56,13 @@ class ServerKey:
         )
         bsk = kg.generate_lwe_bootstrap_key(
             client_key.lwe_secret_key, client_key.glwe_secret_key,
-            core.pbs_decomp, p.glwe_noise, gen,
+            core.pbs_decomp, p.glwe_noise, gen, device,
         )
-        bsk_mont, plan = kg.bootstrap_key_to_ntt(bsk)
-        self.plan = plan
-        self.dp = ntt.device_plan(plan, str(device))
+        self.plan = ntt.make_plan(p.polynomial_size)
+        self.dp = ntt.device_plan(self.plan, str(device))
         self.ksk = torus.from_u64(ksk.data, device)
         self.ks_key = kernels.keyswitch_key(self.ksk, p.ks_base_log, p.ks_level)
-        self.bsk_ntt = torch.from_numpy(bsk_mont.view(np.int32)).to(device)
+        self.bsk_ntt = ntt.key_ntt(bsk.data, self.dp)
         # constant sign accumulator: all coefficients q/8, zero mask
         acc = np.zeros((p.glwe_dimension + 1, p.polynomial_size), dtype=np.uint64)
         acc[-1, :] = Q8

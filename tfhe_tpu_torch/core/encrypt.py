@@ -3,15 +3,17 @@
 LWE: mask <- uniform from the mask stream; body = <mask, sk> + encoded +
 noise (tfhe/src/core_crypto/algorithms/lwe_encryption.rs:99-113).  The
 keys' GLWE rows (glwe_encryption.rs:99-118, assign form) are encrypted in
-batches by keygen.draw_ggsw_rows and keygen.add_mask_times_secret.
+batches by keygen.draw_ggsw_rows and keygen.add_mask_times_secret;
+``encrypt_glwe_assign`` encrypts one GLWE (a compact public key).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..ops import ntt
 from ..utils.csprng import EncryptionRandomGenerator
-from .entities import LweCiphertext, LweSecretKey
+from .entities import GlweCiphertext, GlweSecretKey, LweCiphertext, LweSecretKey
 
 
 def encrypt_lwe(
@@ -36,3 +38,30 @@ def decrypt_lwe(sk: LweSecretKey, ct: LweCiphertext) -> int:
     skd = sk.data.astype(np.uint64)
     dot = np.sum(ct.mask * skd, dtype=np.uint64)
     return int(ct.body - dot)
+
+
+def encrypt_glwe_assign(sk: GlweSecretKey, body_init: np.ndarray, noise_distribution,
+                        gen: EncryptionRandomGenerator) -> GlweCiphertext:
+    """GLWE-encrypt a pre-filled body polynomial (tfhe_tpu/core/encrypt.py:71):
+    mask uniform, body = body_init + noise + sum_i mask_i (*) sk_i."""
+    k, n_poly = sk.data.shape
+    mask = gen.mask.uniform_u64(k * n_poly).reshape(k, n_poly)
+    body = np.asarray(body_init, dtype=np.uint64).copy()
+    plan = ntt.make_plan(n_poly)
+    with np.errstate(over="ignore"):
+        body = body + noise_distribution.sample(gen.noise, n_poly)
+        for i in range(k):
+            body = body + ntt.negacyclic_polymul_u64(
+                mask[i], sk.data[i].astype(np.uint64), plan)
+    return GlweCiphertext(np.concatenate([mask, body[None, :]], axis=0))
+
+
+def decrypt_glwe(sk: GlweSecretKey, ct: GlweCiphertext) -> np.ndarray:
+    """body - sum_i mask_i (*) sk_i, (N,) uint64."""
+    plan = ntt.make_plan(sk.data.shape[1])
+    acc = np.asarray(ct.body, dtype=np.uint64).copy()
+    with np.errstate(over="ignore"):
+        for i in range(sk.data.shape[0]):
+            acc = acc - ntt.negacyclic_polymul_u64(
+                np.asarray(ct.mask[i], dtype=np.uint64), sk.data[i].astype(np.uint64), plan)
+    return acc

@@ -1,4 +1,6 @@
-"""Host-side key generation: secret keys, KSK, BSK (numpy).
+"""Key generation: secret keys, KSK, BSK; draws on the host (numpy), the
+GLWE bodies' secret products and the NTT-domain key on the key's device
+(the torch half of ops/ntt.py).
 
 Byte-stream consumption replicates the reference's generator fork tree so
 that keys are bit-identical to tfhe-rs given the same seeds:
@@ -16,8 +18,9 @@ that keys are bit-identical to tfhe-rs given the same seeds:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..ops import ntt
+from ..ops import ntt, torus
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from .encrypt import encrypt_lwe
 from .entities import (
@@ -28,8 +31,8 @@ from .entities import (
 )
 from .params import DecompParams
 
-# GLWE rows whose mask-times-secret products run in one numpy batch (bounds
-# the host memory of keygen at N = 2048 to a few hundred MB)
+# GLWE rows whose mask-times-secret products run in one batch (bounds the
+# memory of keygen at N = 2048 to a few hundred MB)
 ROWS_PER_BATCH = 512
 
 
@@ -97,18 +100,20 @@ def draw_ggsw_rows(out: np.ndarray, cleartext: int, glwe_sk: GlweSecretKey,
                 rows[r, k, 0] += np.uint64((-factor) % (1 << 64))
 
 
-def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey) -> None:
+def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey, device="cpu") -> None:
     """rows (R, k+1, N) GLWEs whose bodies lack the secret term: body +=
-    sum_i mask_i * s_i (negacyclic, wrapping), in place, ROWS_PER_BATCH rows
-    a numpy batch."""
+    sum_i mask_i * s_i (negacyclic, wrapping), in place, the products taken
+    with the torch half of the CRT-NTT on ``device``, ROWS_PER_BATCH rows a
+    batch (exact integer arithmetic: the words of the host half)."""
     k = glwe_sk.glwe_dimension
-    plan = ntt.make_plan(glwe_sk.polynomial_size)
+    dp = ntt.device_plan(ntt.make_plan(glwe_sk.polynomial_size), str(device))
+    key = ntt.key_ntt(glwe_sk.data.astype(np.uint64), dp).to(torch.int64)
     with np.errstate(over="ignore"):
         for s in range(0, rows.shape[0], ROWS_PER_BATCH):
             part = rows[s:s + ROWS_PER_BATCH]
-            for i in range(k):
-                part[:, k] += ntt.negacyclic_polymul_u64(
-                    part[:, i], glwe_sk.data[i].astype(np.uint64), plan)
+            masks = torch.from_numpy(np.ascontiguousarray(part[:, :k]).view(np.int64))
+            part[:, k] += torus.to_u64(ntt.mask_times_binary_key(masks.to(dp.ps.device), key,
+                                                                 dp))
 
 
 def generate_lwe_bootstrap_key(
@@ -117,9 +122,11 @@ def generate_lwe_bootstrap_key(
     decomp: DecompParams,
     noise_distribution,
     gen: EncryptionRandomGenerator,
+    device="cpu",
 ) -> LweBootstrapKey:
     """One GGSW of each input key bit, from one fork per GGSW, then per
-    level, then per row (lwe_bootstrap_key_generation.rs:122-138)."""
+    level, then per row (lwe_bootstrap_key_generation.rs:122-138); the
+    bodies' secret products taken on ``device``."""
     n_in = input_sk.dimension
     k = glwe_sk.glwe_dimension
     n_poly = glwe_sk.polynomial_size
@@ -134,7 +141,7 @@ def generate_lwe_bootstrap_key(
                                      noise_distribution)
             draw_ggsw_rows(out[i], int(input_sk.data[i]), glwe_sk, decomp,
                            noise_distribution, lev_gens)
-    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk)
+    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk, device)
     return LweBootstrapKey(out, decomp)
 
 
@@ -146,12 +153,9 @@ def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int = 4):
     prime are forward-transformed; values stored in Montgomery form so the
     external product's pointwise multiply is a single REDC.
 
-    Returns (ntt_data uint32 (n, l, k+1, k+1, num_primes, N), plan).
+    Returns (ntt_data uint32 (n, l, k+1, k+1, num_primes, N), plan), taken
+    on the CPU; the key owners convert on their device (``ntt.key_ntt``).
     """
-    n_poly = bsk.polynomial_size
-    plan = ntt.make_plan(n_poly, num_primes)
-    data = bsk.data.astype(np.uint64)
-    with np.errstate(over="ignore"):
-        fwd = ntt.forward_all(data, plan)          # (..., num_primes, N) normal
-        mont = ntt.to_mont_all(fwd, plan)          # Montgomery form
-    return mont.astype(np.uint32), plan
+    plan = ntt.make_plan(bsk.polynomial_size, num_primes)
+    key = ntt.key_ntt(bsk.data.astype(np.uint64), ntt.device_plan(plan, "cpu"))
+    return key.numpy().view(np.uint32), plan

@@ -19,7 +19,7 @@ import numpy as np
 from ..ops import ntt
 from ..utils.csprng import EncryptionRandomGenerator
 from .entities import GlweSecretKey, LweSecretKey
-from .keygen import ROWS_PER_BATCH, add_mask_times_secret, draw_ggsw_rows
+from .keygen import add_mask_times_secret, draw_ggsw_rows
 from .params import DecompParams
 
 
@@ -30,6 +30,7 @@ def generate_multibit_bootstrap_key(
     grouping_factor: int,
     noise_distribution,
     gen: EncryptionRandomGenerator,
+    device="cpu",
 ) -> np.ndarray:
     """Returns the (n/g, 2^g, l, k+1, k+1, N) uint64 standard-domain key.
 
@@ -59,22 +60,16 @@ def generate_multibit_bootstrap_key(
                                     noise_distribution)
                 draw_ggsw_rows(out[j, u], cleartext, glwe_sk, decomp,
                                noise_distribution, lev_gens)
-    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk)
+    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk, device)
     return out
 
 
 def multibit_bsk_to_ntt(bsk: np.ndarray, num_primes: int = 4):
     """(..., N) uint64 key -> ((..., P, N) uint32 Montgomery NTT domain,
-    plan), converted in slices of the leading axis to bound host memory."""
-    n_poly = bsk.shape[-1]
-    plan = ntt.make_plan(n_poly, num_primes)
-    out = np.empty(bsk.shape[:-1] + (num_primes, n_poly), dtype=np.uint32)
-    step = max(1, ROWS_PER_BATCH * 4 * n_poly // max(1, bsk[0].size))
-    with np.errstate(over="ignore"):
-        for s in range(0, bsk.shape[0], step):
-            fwd = ntt.forward_all(bsk[s:s + step].astype(np.uint64), plan)
-            out[s:s + step] = ntt.to_mont_all(fwd, plan)
-    return out, plan
+    plan), converted in slices (``ntt.key_ntt`` on the CPU)."""
+    plan = ntt.make_plan(bsk.shape[-1], num_primes)
+    key = ntt.key_ntt(np.asarray(bsk, dtype=np.uint64), ntt.device_plan(plan, "cpu"))
+    return key.numpy().view(np.uint32), plan
 
 
 @lru_cache(maxsize=None)

@@ -1,8 +1,8 @@
 """Config / ConfigBuilder (high_level_api/config.rs:14,41).
 
-Port of tfhe_tpu/hlapi/config.py.  The compact public key (with its
-compact lists and ZK proofs) comes with ROADMAP queue 1 item 15: asking
-for it raises."""
+Port of tfhe_tpu/hlapi/config.py.  ``enable_compression`` is a flag that
+nothing reads, as in tfhe_tpu; ``enable_compact_public_key`` makes
+CompressedXofKeySet.expand derive a CompactPublicKey."""
 
 from __future__ import annotations
 
@@ -10,13 +10,11 @@ from dataclasses import dataclass
 
 from ..shortint.params import DEFAULT_PARAMS, ShortintParams
 
-COMPACT_PUBLIC_KEY_PENDING = (
-    "the compact public key, compact lists and ZK proofs: ROADMAP queue 1 item 15")
-
 
 @dataclass
 class Config:
     shortint_params: ShortintParams = DEFAULT_PARAMS
+    enable_compression: bool = False
     enable_noise_squashing: bool = False
     enable_compact_public_key: bool = False
     noise_squashing_params: object = None
@@ -34,6 +32,10 @@ class ConfigBuilder:
         self._config.shortint_params = params
         return self
 
+    def enable_compression(self) -> "ConfigBuilder":
+        self._config.enable_compression = True
+        return self
+
     def enable_noise_squashing(self, params=None) -> "ConfigBuilder":
         from ..shortint.noise_squashing import (
             V1_4_NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
@@ -45,7 +47,8 @@ class ConfigBuilder:
         return self
 
     def enable_compact_public_key(self) -> "ConfigBuilder":
-        raise NotImplementedError(COMPACT_PUBLIC_KEY_PENDING)
+        self._config.enable_compact_public_key = True
+        return self
 
     def build(self) -> Config:
         return self._config

@@ -5,15 +5,14 @@ high_level_api/xof_key_set/mod.rs:104: a client generates every key
 (secret keys, server key material, optional compact public key) from a
 single 128-bit seed expanded through an XOF (SHAKE-256 here,
 domain-separated per key), so a deployment ships one seed-sized secret plus
-seeded public material instead of gigabytes of keys.  The compact public
-key comes with ROADMAP queue 1 item 15.
+seeded public material instead of gigabytes of keys.
 """
 
 from __future__ import annotations
 
 import hashlib
 
-from .config import COMPACT_PUBLIC_KEY_PENDING, Config
+from .config import Config
 from .keys import ClientKey, CompressedServerKey, ServerKey
 
 
@@ -23,7 +22,7 @@ def _derive(master_seed: int, tag: bytes) -> int:
 
 
 class XofKeySet:
-    """Expanded key set: client + server keys."""
+    """Expanded key set: client + server (+ compact public) keys."""
 
     def __init__(self, client_key: ClientKey, server_key: ServerKey,
                  compact_public_key=None):
@@ -40,8 +39,6 @@ class CompressedXofKeySet:
         self.master_seed = master_seed
 
     def expand(self, device="cuda") -> XofKeySet:
-        if self.config.enable_compact_public_key:
-            raise NotImplementedError(COMPACT_PUBLIC_KEY_PENDING)
         ck = ClientKey(self.config, _derive(self.master_seed, b"client"))
         csk = CompressedServerKey(ck, _derive(self.master_seed, b"server"))
         sk = csk.decompress(device=device)
@@ -51,4 +48,9 @@ class CompressedXofKeySet:
             sk.noise_squashing_key = NoiseSquashingKey(
                 ck.integer_key, ck.noise_squashing_private_key,
                 _derive(self.master_seed, b"squash"), device=device)
-        return XofKeySet(ck, sk)
+        cpk = None
+        if self.config.enable_compact_public_key:
+            from .compact_list import CompactPublicKey
+
+            cpk = CompactPublicKey(ck, _derive(self.master_seed, b"cpk"))
+        return XofKeySet(ck, sk, cpk)

@@ -34,12 +34,15 @@ from . import ntt
 MXU_PRIMES_3 = (268369921, 268361729, 268271617)
 
 
-def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int) -> LweBootstrapKey:
+def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int,
+                   device="cpu") -> LweBootstrapKey:
     """Exact, phase-preserving move of each GLWE row's low mask bits into its
     body: r_j = a_j mod 2^rb, a'_j = a_j - r_j, b' = b - sum_j r_j (*) s_j
     (negacyclic, mod 2^64).  b' - <a', s> = b - <a, s>, so no noise is added
     and a later ``round_bsk`` only perturbs the body.  Needs the GLWE secret
-    key, so it runs at key generation."""
+    key, so it runs at key generation; the float64 products are taken on
+    ``device`` (exact there too: every partial sum is an integer below
+    2^53)."""
     data = np.asarray(bsk.data)
     n = data.shape[-1]
     k = data.shape[3] - 1
@@ -55,8 +58,8 @@ def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int) -> LweBootstr
         mat = s[(idx[None, :] - idx[:, None]) % n].astype(np.float64)
         mat = mat * np.where(idx[None, :] < idx[:, None], -1.0, 1.0)
         r = low[..., j, :].reshape(-1, n).astype(np.float64)
-        prod = r @ mat
-        corr += prod.astype(np.int64).astype(np.uint64).reshape(corr.shape)
+        prod = torch.from_numpy(r).to(device) @ torch.from_numpy(mat).to(device)
+        corr += prod.to(torch.int64).cpu().numpy().astype(np.uint64).reshape(corr.shape)
     out[..., k, :] -= corr
     return LweBootstrapKey(out, bsk.decomp)
 

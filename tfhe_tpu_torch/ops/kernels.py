@@ -366,7 +366,9 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
         return True
     smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
     _require(smem <= SMEM_LIMIT,
-             f"accumulator and residues need {smem} B of shared memory")
+             f"accumulator and residues need {smem} B of shared memory, above the "
+             f"{SMEM_LIMIT} B a block may use: N = {n_poly} runs on the card with "
+             f"ROADMAP.md queue 1 item 19")
     _check_cuda((acc, torch.int64), (mask32, torch.int32),
                 (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
                 (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))

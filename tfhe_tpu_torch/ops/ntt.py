@@ -15,9 +15,10 @@ bootstrapping key above all) is the same u32 in both packages:
     as a (lo, hi) pair for the u128 torus of noise squashing (6-prime
     plans).
 
-Two halves: numpy on the host (key generation and encryption, uint64), and
-torch on int64 tensors (the plain versions the CUDA kernels are held
-against, the CPU path, and the u128 key's products on the key's device).
+Two halves: numpy on the host (encryption, uint64), and torch on int64
+tensors (the plain versions the CUDA kernels are held against, the CPU
+path, and key generation's secret products and NTT-domain keys on the
+key's device).
 All residues stay below 2^31 and a Montgomery product below 2^63, so int64
 holds every intermediate without a sign problem; only Garner's final sums
 wrap, which is the result mod 2^64 (or, word by word with the carries taken
@@ -519,6 +520,46 @@ def ntt_forward(x: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
         bound += 1
         m *= 2
     return torch.remainder(x, dp.ps)
+
+
+def residues_u64(w: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., N) int64 tensor holding u64 words -> (..., P, N) residues of
+    the unsigned words (host ``forward_all``'s first step)."""
+    w = w[..., None, :]
+    # 2^64 mod p: what a word read as signed int64 lacks where it is negative
+    wrap = torch.tensor([(1 << 64) % q for q in dp.plan.primes], dtype=torch.int64,
+                        device=w.device)[:, None]
+    return torch.remainder(torch.remainder(w, dp.ps) + wrap * (w < 0), dp.ps)
+
+
+def key_ntt(words: np.ndarray, dp: DevicePlan) -> torch.Tensor:
+    """(..., N) uint64 key words -> (..., P, N) int32 on dp's device: each
+    word's residues, forward NTT, Montgomery form; the words of host
+    ``to_mont_all(forward_all(words))``, converted on the device in slices
+    of about 2^22 coefficients."""
+    n, np_ = dp.n, dp.num_primes
+    flat = np.asarray(words).reshape(-1, n)
+    out = torch.empty((flat.shape[0], np_, n), dtype=torch.int32, device=dp.ps.device)
+    step = max(1, (1 << 22) // (np_ * n))
+    for s in range(0, flat.shape[0], step):
+        w = torch.from_numpy(np.ascontiguousarray(flat[s:s + step]).view(np.int64))
+        res = residues_u64(w.to(dp.ps.device), dp)
+        out[s:s + step] = mont_mul(ntt_forward(res, dp), dp.r2s, dp.ps, dp.pinvs).to(torch.int32)
+    return out.reshape(tuple(np.shape(words)[:-1]) + (np_, n))
+
+
+def mask_times_binary_key(masks: torch.Tensor, key_mont: torch.Tensor,
+                          dp: DevicePlan) -> torch.Tensor:
+    """sum_i m_i * s_i mod (X^N + 1, 2^64) for masks (..., k, N) of u64
+    words as int64 and a key (k, P, N) from ``key_ntt``: the products summed
+    in the NTT domain and reconstructed once, which equals summing the
+    reconstructed products, since the exact sum of a binary key's products
+    (|X| <= k N 2^64) stays below P/2."""
+    fm = ntt_forward(residues_u64(masks, dp), dp)                # (..., k, P, N)
+    col = mont_mul(fm[..., 0, :, :], key_mont[0], dp.ps, dp.pinvs)
+    for i in range(1, key_mont.shape[0]):
+        col = add_mod(col, mont_mul(fm[..., i, :, :], key_mont[i], dp.ps, dp.pinvs), dp.ps)
+    return garner_to_u64(ntt_inverse(col, dp), dp)
 
 
 def ntt_inverse(x: torch.Tensor, dp: DevicePlan, scale: bool = True) -> torch.Tensor:

@@ -68,8 +68,11 @@ def signed_decompose(x, base_log: int, levels: int):
 
 
 def _matmul_wrapping(a, b, max_elems: int = 1 << 25):
-    """(B, K) x (K, M) int64 product mod 2^64, as a chunked multiply-reduce
-    (torch has no int64 matmul on CUDA)."""
+    """(B, K) x (K, M) int64 product mod 2^64: torch's int64 matmul on the
+    CPU (it wraps), a chunked multiply-reduce elsewhere (torch has no int64
+    matmul on CUDA)."""
+    if a.device.type == "cpu":
+        return a @ b
     bsz, kdim = a.shape
     m = b.shape[1]
     chunk = max(1, max_elems // max(1, bsz * m))
@@ -390,6 +393,16 @@ def sample_extract(glwe):
     rolled = torch.roll(-torch.flip(mask, dims=[-1]), 1, dims=-1)
     rolled[:, :, 0] = mask[:, :, 0]
     return torch.cat([rolled.reshape(b, -1), glwe[:, -1, :1]], dim=-1)
+
+
+def extract_slots(glwe, degrees):
+    """Coefficient degrees[j] of one (k+1, N) GLWE as LWE j, (B, k*N + 1):
+    monomial_div by each degree, then sample_extract, in one batched call
+    (tfhe_tpu makes one call of each a slot: compact lists, proven lists,
+    re-randomization; the same words)."""
+    deg = torch.as_tensor(degrees, dtype=torch.int64, device=glwe.device)
+    return sample_extract(monomial_div(glwe.expand((len(deg),) + tuple(glwe.shape)),
+                                       deg[:, None, None]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """shortint on PyTorch: keygen and encryption on the host, the batched
 KS->PBS, ciphertext compression and noise squashing on the device (port of
-tfhe_tpu.shortint, classic and multi-bit KS->PBS sets)."""
+tfhe_tpu.shortint, classic and multi-bit KS->PBS sets), with the dedicated
+compact-public-key (PKE) and casting sets."""
 
 from .ciphertext import Ciphertext
 from .client_key import ClientKey
@@ -34,9 +35,21 @@ from .params import (
     V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128,
     V1_4_PARAM_MESSAGE_4_CARRY_4_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2,
+    V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2,
+    V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV1,
+    V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2,
+    V1_4_PARAM_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2,
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV1,
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2,
+    CompactPublicKeyEncryptionParameters,
     EncryptionKeyChoice,
     MsNoiseReduction,
     MultiBitPBSParameters,
+    ShortintKeySwitchingParameters,
     ShortintParams,
 )
 from .server_key import (CarryFullError, CompressedModulusSwitchedCiphertext,

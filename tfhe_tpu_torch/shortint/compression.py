@@ -117,7 +117,7 @@ class CompressionPrivateKeys:
 
 def generate_packing_keyswitch_key(input_sk: LweSecretKey, glwe_sk: GlweSecretKey,
                                    base_log: int, levels: int, noise_distribution,
-                                   gen: EncryptionRandomGenerator) -> np.ndarray:
+                                   gen: EncryptionRandomGenerator, device="cpu") -> np.ndarray:
     """The (n, l, k+1, N) uint64 packing keyswitch key: row (i, j) encrypts
     the constant polynomial s_i 2^(64 - base_log (l - j)) under glwe_sk.
 
@@ -136,7 +136,7 @@ def generate_packing_keyswitch_key(input_sk: LweSecretKey, glwe_sk: GlweSecretKe
     shifts = np.array([64 - base_log * (levels - j) for j in range(levels)], dtype=np.uint64)
     with np.errstate(over="ignore"):
         key[:, :, k, 0] += input_sk.data.astype(np.uint64)[:, None] << shifts[None, :]
-    kg.add_mask_times_secret(key.reshape(n_in * levels, k + 1, n_poly), glwe_sk)
+    kg.add_mask_times_secret(key.reshape(n_in * levels, k + 1, n_poly), glwe_sk, device)
     return key
 
 
@@ -178,8 +178,8 @@ class DecompressionKey:
             self.bsk_ntt = rounded_key_ntt(bsk.data, ROUND_BITS, self.br_base_log, device)
             plan = ntt.make_plan(bsk.polynomial_size)
         else:
-            bsk_ntt, plan = kg.bootstrap_key_to_ntt(bsk)
-            self.bsk_ntt = torch.from_numpy(bsk_ntt.view(np.int32)).to(device)
+            plan = ntt.make_plan(bsk.polynomial_size)
+            self.bsk_ntt = ntt.key_ntt(bsk.data, ntt.device_plan(plan, str(device)))
         self.dp = ntt.device_plan(plan, str(device))
         self._bsk_coeff = bsk
         self._bsk_floored = bsk_floored
@@ -205,12 +205,12 @@ class CompressionKey:
                                         DeterministicSeeder(seed ^ 0xBE5466CF34E90C6C))
         pksk = generate_packing_keyswitch_key(
             client_key.big_lwe_secret_key, storage_sk, cp.packing_ks_base_log,
-            cp.packing_ks_level, cp.packing_ks_key_noise, gen)
+            cp.packing_ks_level, cp.packing_ks_key_noise, gen, device)
         gen2 = EncryptionRandomGenerator(seed ^ 0x9216D5D98979FB1B,
                                          DeterministicSeeder(seed ^ 0xD1310BA698DFB5AC))
         bsk = kg.generate_lwe_bootstrap_key(
             storage_sk.as_lwe_secret_key(), client_key.glwe_secret_key,
-            DecompParams(cp.br_base_log, cp.br_level), p.glwe_noise, gen2)
+            DecompParams(cp.br_base_log, cp.br_level), p.glwe_noise, gen2, device)
         # mask flooring under tfhe_tpu's rule (compression.py:209-225): the
         # v7 shape, and the estimator guard; where the guard fails tfhe_tpu
         # keeps the unfloored key without raising, and so does the port
@@ -221,7 +221,7 @@ class CompressionKey:
                                                       modulus_log2_shrink=ROUND_BITS)
             ok_p, _ = security.check_lwe_noise_secure(p.glwe_noise, kn)
             if ok_f or not ok_p:
-                bsk = mask_floor_bsk(bsk, client_key.glwe_secret_key, ROUND_BITS)
+                bsk = mask_floor_bsk(bsk, client_key.glwe_secret_key, ROUND_BITS, device)
                 floored = ROUND_BITS
         self._init_from_raw(p, cp, pksk, bsk, floored, device)
 

@@ -7,8 +7,10 @@ to a uniform value in [0, 2^bits_count).  The server learns nothing about
 the output (it only sees the seed).  The XOF is the AES-CTR stream used
 everywhere else, domain-separated, as in tfhe_tpu.
 
-The dedicated-key path draws its inputs already modulus-switched and runs
-only the blind rotation (``ops/server.pbs_from_switched_batch``) in exact
+``generate_oblivious_pseudo_random`` draws on the compute key: one
+pseudorandom big-key LWE through ``ServerKey.apply_lookup_table`` (K1, then
+K2).  The dedicated-key path draws its inputs already modulus-switched and
+runs only the blind rotation (``ops/server.pbs_from_switched_batch``) in exact
 mode: on the card, K2's lazy exact kernel on the exact, unrounded key
 (``ServerKey.exact_bsk_ntt`` for the compute key), as tfhe_tpu runs the
 exact function on every backend.
@@ -22,16 +24,49 @@ import numpy as np
 import torch
 
 from ..core import keygen as kg
-from ..core.entities import LweBootstrapKey
 from ..core.params import DecompParams
 from ..ops import ntt, torus
 from ..ops import server as srv
 from ..utils.csprng import (ByteStream, DeterministicSeeder, EncryptionRandomGenerator,
                             SecretRandomGenerator)
 from ..utils.device import resolve_device
+from .ciphertext import NOMINAL_NOISE, Ciphertext
 from .server_key import ServerKey, lazy_outputs, pad_pow2
 
 OPRF_DOMAIN = 0x4F505246  # "OPRF"
+
+
+def pseudo_random_lwe(params, seed: int, bits: int = 64) -> np.ndarray:
+    """Deterministic pseudorandom LWE (mask + body) from a public seed,
+    (big_lwe_dimension + 1,) uint64."""
+    if bits != 64:
+        raise NotImplementedError("only the native 2^64 torus is ported")
+    return ByteStream(seed ^ (OPRF_DOMAIN << 96)).uniform_u64(params.big_lwe_dimension + 1)
+
+
+def generate_oblivious_pseudo_random(
+    sk: ServerKey, seed: int, random_bits_count: int | None = None
+) -> Ciphertext:
+    """Server-side: an encryption of a uniform pseudorandom value.
+
+    The pseudorandom phase is uniform on the torus; a PBS with the staircase
+    LUT x % 2^bits, whose two halves both enumerate [0, 2^bits), maps it to
+    a uniform integer (the padding bit folds away) while normalizing the
+    noise.  One KS->PBS round on the compute key; the output stays on the
+    device."""
+    p = sk.params
+    if random_bits_count is None:
+        random_bits_count = (p.message_modulus - 1).bit_length()
+    out_modulus = 1 << random_bits_count
+    if out_modulus > p.total_modulus:
+        raise ValueError(f"{random_bits_count} random bits exceed the block's "
+                         f"{p.total_modulus} values")
+    ct = Ciphertext(pseudo_random_lwe(p, seed, p.bits), degree=p.total_modulus - 1,
+                    noise_level=NOMINAL_NOISE, message_modulus=p.message_modulus,
+                    carry_modulus=p.carry_modulus)
+    out = sk.apply_lookup_table(ct, sk.generate_lookup_table(lambda x: x % out_modulus))
+    out.degree = out_modulus - 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -86,13 +121,14 @@ class OprfServerKey:
     @classmethod
     def new(cls, oprf_pk: OprfPrivateKey, target_ck, seed: int | None = None,
             device="cuda") -> "OprfServerKey":
+        device = resolve_device(device)
         p = target_ck.params
         if seed is None:
             seed = secrets.randbits(128)
         gen = EncryptionRandomGenerator(seed, DeterministicSeeder(seed ^ 0x9E3779B9))
         bsk = kg.generate_lwe_bootstrap_key(
             oprf_pk.lwe_sk, target_ck.glwe_secret_key,
-            DecompParams(p.pbs_base_log, p.pbs_level), p.glwe_noise, gen)
+            DecompParams(p.pbs_base_log, p.pbs_level), p.glwe_noise, gen, device)
         return cls.from_raw_key(bsk.data, p, device)
 
     @classmethod
@@ -101,11 +137,8 @@ class OprfServerKey:
         tfhe_tpu's ``OprfServerKey.new`` generates it), uploaded to the
         device once in the exact NTT domain."""
         device = resolve_device(device)
-        key, plan = kg.bootstrap_key_to_ntt(
-            LweBootstrapKey(np.asarray(bsk, dtype=np.uint64),
-                            DecompParams(params.pbs_base_log, params.pbs_level)))
-        return cls(torch.from_numpy(key.view(np.int32)).to(device),
-                   ntt.device_plan(plan, str(device)), params)
+        dp = ntt.device_plan(ntt.make_plan(params.polynomial_size), str(device))
+        return cls(ntt.key_ntt(np.asarray(bsk, dtype=np.uint64), dp), dp, params)
 
     @classmethod
     def from_compute_key(cls, sk: ServerKey) -> "OprfServerKey":

@@ -1,6 +1,6 @@
 """shortint parameter sets (the classic KS->PBS and the multi-bit sets of
-tfhe_tpu/shortint/params.py; KS32, PBS->KS and PKE sets arrive with the
-slices that run them).
+tfhe_tpu/shortint/params.py, and its dedicated compact-public-key (PKE) and
+casting sets; KS32 and PBS->KS sets arrive with the slice that runs them).
 
 Message space = MessageModulus x CarryModulus (+1 padding bit) in one LWE
 (SURVEY.md §2.3).  Numeric values mirror the reference's versioned parameter
@@ -310,3 +310,99 @@ TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2 = MultiBitPBSParameters(
 
 PARAM_MESSAGE_2_CARRY_2_KS_PBS = V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
 DEFAULT_PARAMS = V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+
+
+# ---------------------------------------------------------------------------
+# Dedicated compact-public-key (PKE) parameter sets + casting parameters
+# (v1_4/compact_public_key_only/p_fail_2_minus_128/ks_pbs.rs,
+#  v1_4/key_switching/p_fail_2_minus_128/ks_pbs.rs)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CompactPublicKeyEncryptionParameters:
+    """CompactPublicKeyEncryptionParameters (shortint/parameters/
+    compact_public_key_only.rs): compact lists are encrypted under this
+    DEDICATED instance and cast into the compute set during expansion
+    (expansion_kind = RequiresCasting)."""
+
+    encryption_lwe_dimension: int
+    encryption_noise: object
+    message_modulus: int
+    carry_modulus: int
+    zk_scheme: int = 2            # SupportedCompactPkeZkScheme::V{1,2}
+    bits: int = 64
+    # the compact PK is GLWE-shaped: k=1, N = encryption_lwe_dimension
+    # (derived views so the compact-list machinery can consume this set)
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.encryption_lwe_dimension
+
+    @property
+    def glwe_dimension(self) -> int:
+        return 1
+
+    @property
+    def glwe_noise(self):
+        return self.encryption_noise
+
+    @property
+    def total_modulus(self) -> int:
+        return self.message_modulus * self.carry_modulus
+
+    @property
+    def delta(self) -> int:
+        return (1 << self.bits) // (2 * self.total_modulus)
+
+
+@dataclass(frozen=True)
+class ShortintKeySwitchingParameters:
+    """shortint/parameters/key_switching.rs: casting-key decomposition +
+    which compute key the cast lands on ("small" needs a PBS to reach the
+    big key; "big" is directly usable)."""
+
+    ks_base_log: int
+    ks_level: int
+    destination_key: str = "small"      # "small" | "big"
+
+
+V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 = \
+    CompactPublicKeyEncryptionParameters(
+        encryption_lwe_dimension=2048,
+        encryption_noise=TUniform(17),
+        message_modulus=4,
+        carry_modulus=4,
+        zk_scheme=2,
+    )
+
+V1_4_PARAM_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 = \
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+
+V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV1 = \
+    CompactPublicKeyEncryptionParameters(
+        encryption_lwe_dimension=1024,
+        encryption_noise=TUniform(43),
+        message_modulus=4,
+        carry_modulus=4,
+        zk_scheme=1,
+    )
+
+# the reference's default PKE alias points at the TO_SMALL ZKV2 set
+V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 = \
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV1 = \
+    V1_4_PARAM_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV1
+
+V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 = \
+    ShortintKeySwitchingParameters(ks_base_log=4, ks_level=4,
+                                   destination_key="small")
+V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 = \
+    ShortintKeySwitchingParameters(ks_base_log=24, ks_level=1,
+                                   destination_key="big")
+V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
+    V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2

@@ -55,6 +55,8 @@ from .params import (EncryptionKeyChoice, MsNoiseReduction,
 # MXU stack (server_key.py:160-166), fixed here.
 ROUND_BITS = 15
 
+MANY_LUT_PENDING = "many-LUT (generate/apply_many_lookup_table): ROADMAP queue 1 item 7"
+
 
 class CarryFullError(Exception):
     """checked_* flavor failure (the reference's CheckError): the operation
@@ -271,21 +273,21 @@ class ServerKey:
             # the same generator after the KSK, floored flattened
             bsk = mb.generate_multibit_bootstrap_key(
                 client_key.lwe_secret_key, glwe_sk, core.pbs_decomp,
-                p.grouping_factor, p.glwe_noise, gen)
+                p.grouping_factor, p.glwe_noise, gen, device)
             rb = mb_round_bits(p) if _v9_family(p) else 0
             if rb:
                 _floor_rounds_securely(p, rb)
                 flat = LweBootstrapKey(bsk.reshape((-1,) + bsk.shape[2:]),
                                        core.pbs_decomp)
-                bsk = mask_floor_bsk(flat, glwe_sk, rb).data.reshape(bsk.shape)
+                bsk = mask_floor_bsk(flat, glwe_sk, rb, device).data.reshape(bsk.shape)
                 floored = rb
         else:
             bsk = kg.generate_lwe_bootstrap_key(
                 client_key.lwe_secret_key, glwe_sk, core.pbs_decomp,
-                p.glwe_noise, gen)
+                p.glwe_noise, gen, device)
             if _v7_family(p):
                 _floor_rounds_securely(p, ROUND_BITS)
-                bsk = mask_floor_bsk(bsk, glwe_sk, ROUND_BITS)
+                bsk = mask_floor_bsk(bsk, glwe_sk, ROUND_BITS, device)
                 floored = ROUND_BITS
         self._init_from_raw(p, ksk.data, bsk, floored, device)
 
@@ -423,6 +425,18 @@ class ServerKey:
     def apply_lookup_table(self, ct: Ciphertext, lut: LookupTable) -> Ciphertext:
         return self.apply_lookup_table_batch([ct], lut)[0]
 
+    # Many-LUT (several functions from one blind rotation) comes with the
+    # other shortint atomic patterns: each method refuses until then.
+
+    def generate_many_lookup_table(self, functions):
+        raise NotImplementedError(MANY_LUT_PENDING)
+
+    def apply_many_lookup_table(self, ct: Ciphertext, mlut) -> list:
+        raise NotImplementedError(MANY_LUT_PENDING)
+
+    def apply_many_lookup_table_batch(self, cts: list, mlut) -> list:
+        raise NotImplementedError(MANY_LUT_PENDING)
+
     # ------------------------------------------------------------------
     # Modulus-switched compression (server_key/modulus_switched_compression.rs)
     # ------------------------------------------------------------------
@@ -439,11 +453,7 @@ class ServerKey:
         return self._bsk_ntt_exact
 
     def _exact_key_ntt(self) -> torch.Tensor:
-        if self.grouping is not None:
-            key = mb.multibit_bsk_to_ntt(self._bsk_coeff)[0]
-        else:
-            key = kg.bootstrap_key_to_ntt(self._bsk_coeff)[0]
-        return torch.from_numpy(key.view(np.int32)).to(self.device)
+        return ntt.key_ntt(getattr(self._bsk_coeff, "data", self._bsk_coeff), self.dp)
 
     def switch_modulus_and_compress(self, ct: Ciphertext) -> CompressedModulusSwitchedCiphertext:
         """Run the KS + MS half of the atomic pattern now (K1) and store the
