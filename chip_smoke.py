@@ -11,8 +11,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
   2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
      sm_90a, one compiler per source, started together); then every
      source again under ``nvcc -Xptxas -v`` for each kernel's registers,
-     spills and shared memory (line "ptxas", printed after phase 3, whose
-     host keygen the compilers run beside), with the rounded-key
+     spills and shared memory (line "ptxas", printed after phase 13, the
+     compilers running beside phases 3-13), with the rounded-key
      kernels' dynamic shared memory and ciphertexts a block;
   3. keygen at V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 (floored
      BSK, so the server key runs the v7 blind rotation, on a three-prime
@@ -105,11 +105,35 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      slot decrypted; tfhe-rs's CPU figures for one proven FheUint64 beside
      the port's;
  24. trivium: Trivium and Kreyvium on phase 17's boolean keys from the
-     encrypted post-warm-up state of a clear stream: 16 keystream steps and
-     16 transciphered bits each, held against the clear stream, with
+     encrypted post-warm-up state of a clear stream: 8 keystream steps and
+     8 transciphered bits each, held against the clear stream, with
      seconds and gate calls a step (K1's tensor-core kernel, then K2's
      lazy exact kernel, once a gate call) and the projected warm-up;
- 25. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 25. atomic_patterns: the remaining shortint atomic patterns through the
+     ServerKey at full width, each set with its keygen seconds, three
+     rounds at B = 512 (PBS/s) and one at B = 32 through the same entry
+     point with every kernel wrapper swapped for its plain version (0 words
+     differing): KS32 at V1_4_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128
+     (K1-32's tensor-core kernel on the u32 key's 4-limb byte layout, its
+     bytes against the 64-bit key's, then K2 v7; many-LUT on it, K2's lazy
+     exact kernel), PBS->KS at
+     V1_4_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128 (K2's lazy exact
+     kernel, then K1 at n_in = 2048, l = 6), the KS_PBS sets 2M64, 2M40 and
+     Gaussian 2M128 (K1, K2 v7), TEST KS32 and TEST PBS->KS (both decrypted;
+     the two V1_4 sets above decrypt at random in tfhe_tpu too, ROADMAP.md
+     queue 3: their words are checked), many-LUT with two functions on
+     phase 3's classic key (K1, K2's lazy exact kernel) and phase 8's
+     multi-bit key (K1, K3 exact), and the drift modulus switch on the TEST
+     set (16 zeros; the float32 choice on the card at B = 512 against the
+     host's);
+ 26. wire: at DEFAULT_PARAMS, the client (host, this process) makes its
+     keys and a seeded server key, encrypts two FheUint64s and serializes
+     them (utils/serialization.py, tfhe_tpu's format); the server
+     deserializes the key, decompresses it onto the card (v7 mode), adds,
+     stores the sum modulus-switched on the wire, reads it back (K2's lazy
+     exact kernel once) and serializes the result; the client decrypts it;
+     each step's seconds and payload bytes;
+ 27. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -171,11 +195,15 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      tensor-core kernel at B = 64 and 2048, its generic kernel at B = 32)
      against the plain keyswitch, K2's lazy exact kernel on the B = 64
      cast's switched inputs against the plain exact rotation, and the cast
-     outputs against the plain path;
- 26. the launch counts of phases 4, 6, 7, 9, 10, 12-24 (each wrapper's
+     outputs against the plain path; K1-32 (its tensor-core kernel, its
+     generic kernel and the int8 torch._int_mm yardstick) at both KS32
+     shapes on B = 512 encryptions and at B = 1 and 513, and phase 25's
+     plain comparisons;
+ 28. the launch counts of phases 4, 6, 7, 9, 10, 12-24 (each wrapper's
      and, of them, those of K1's and K4's tensor-core kernels and K2's
      lazy exact kernel), the script's total seconds and one
-     {"kernels": [...]} line.
+     {"kernels": [...]} line (K1-32's entry, keyswitch32, with the
+     launches of phases 25-26 on every kernel's).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -185,6 +213,7 @@ is integer.  Any failure raises and exits non-zero; the last line
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import subprocess
 import sys
@@ -317,11 +346,12 @@ PKE_SLOTS = 32
 PKE_FULL_SLOTS = 2048
 PKE_METADATA = b"chip_smoke config 5"
 TFHE_RS_ZK_CPU_MS = {"prove": 146.0, "verify": 31.2, "verify_and_expand": 51.1}
-TRIVIUM_STEPS = 16
+TRIVIUM_STEPS = 8
 TRIVIUM_WARMUP_STEPS = 4 * 288
 TRIVIUM_STREAMS = (("trivium", "TriviumStream", 80), ("kreyvium", "KreyviumStream", 128))
 # every kernel of the port, by the name a profiler trace gives it
-KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "blind_rotate_kernel",
+KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "keyswitch32_kernel",
+                "keyswitch32_imma_kernel", "blind_rotate_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
                 "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
@@ -444,6 +474,46 @@ def generic_keyswitch(kernels, ct, ksk, base_log: int, levels: int):
     return out
 
 
+def generic_keyswitch32(kernels, ct, ksk, base_log: int, levels: int):
+    """K1-32's generic kernel (csrc/keyswitch.cu keyswitch32_kernel, the u32
+    twin of keyswitch_kernel) through its C entry."""
+    import torch
+
+    out = torch.empty((ct.shape[0], ksk.shape[2]), dtype=torch.int64, device=ct.device)
+    err = kernels.load()["keyswitch"].tfhe_torch_keyswitch32(
+        out.data_ptr(), ct.data_ptr(), ksk.data_ptr(), ct.shape[0], ksk.shape[0], levels,
+        ksk.shape[2], base_log, kernels._stream(ct))
+    if err:
+        raise RuntimeError(f"K1-32's generic kernel failed: cudaError {err}")
+    return out
+
+
+def int_mm_keyswitch32(ct, ksk32, base_log: int, levels: int):
+    """The KS32 keyswitch as int8 GEMMs (torch._int_mm): the signed digits
+    times 4 signed byte limbs of each u32 key word (w = sum_j s_j 2^(8j) mod
+    2^32, s_j in [-128, 127]), recombined mod 2^32.  A library yardstick for
+    K1-32 (the TPU runs a wrapping u32 contraction, tfhe_tpu/ops/server.py:131)."""
+    import torch
+    from tfhe_tpu_torch.ops import server, torus
+
+    b = ct.shape[0]
+    m_out = ksk32.shape[2]
+    digits = server.signed_decompose(ct[:, :-1], base_log, levels)
+    d8 = digits.permute(1, 2, 0).reshape(b, -1).to(torch.int8)
+    x = ksk32.reshape(-1, m_out)
+    pad = (-m_out) % 8
+    acc = torch.zeros((b, m_out), dtype=torch.int64, device=ct.device)
+    for j in range(4):
+        low = x & 255
+        limb = low - 256 * (low >= 128).to(torch.int64)
+        x = (x - limb) >> 8
+        limb8 = torch.nn.functional.pad(limb.to(torch.int8), (0, pad))
+        acc += torch._int_mm(d8, limb8)[:, :m_out].to(torch.int64) << (8 * j)
+    out = -acc
+    out[:, -1] += torus.shr(ct[:, -1], 32)
+    return out & server.M32
+
+
 def generic_packing_keyswitch(kernels, lwes, pksk, base_log: int, levels: int,
                               per_glwe: int):
     """K4's generic kernel (csrc/packing_keyswitch.cu packing_keyswitch_kernel)
@@ -559,18 +629,20 @@ def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: 
     return acc
 
 
-def k1_bound(ct, ksk, out, base_log: int = 8) -> dict:
+def k1_bound(ct, ksk, out, base_log: int = 8, word_bytes: int = 8) -> dict:
     """Least time for the keyswitch: every input byte read once and the
-    output written once, against the cheaper way to do its wrapping u64
-    multiply-adds: as ceil(base_log / 8) digit bytes x 8 key bytes of int8
-    limb products on the tensor cores, or as three 32-bit multiplies each on
-    the CUDA cores' integer rate (the int8 way wins at every base_log <= 8)."""
-    nbytes = 8 * (ct.numel() + ksk.numel() + out.numel())
+    output written once (the key's and the output's words word_bytes wide: 8
+    for K1, 4 for K1-32's u32 words), against the cheaper way to do its
+    wrapping multiply-adds: as ceil(base_log / 8) digit bytes x word_bytes
+    key bytes of int8 limb products on the tensor cores, or on the CUDA
+    cores' 32-bit integer rate, three multiplies for a u64 product and one
+    for a u32 product (the int8 way wins at every base_log <= 8)."""
+    nbytes = 8 * ct.numel() + word_bytes * (ksk.numel() + out.numel())
     n_in, levels, m_out = ksk.shape
     macs = ct.shape[0] * n_in * levels * m_out
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = min(2 * 8 * -(-base_log // 8) * macs / INT8_TC_OPS_PER_S,
-                3 * macs / INT32_MUL_PER_S)
+    t_ops = min(2 * word_bytes * -(-base_log // 8) * macs / INT8_TC_OPS_PER_S,
+                (3 if word_bytes == 8 else 1) * macs / INT32_MUL_PER_S)
     return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes * 1e3}
 
@@ -761,15 +833,27 @@ def ptxas_start(kernels) -> tuple:
                      "packing_keyswitch", "blind_rotate128")]
 
 
+def ptxas_stop(started: tuple) -> None:
+    """Stop ptxas_start's compilers (those still running) and remove their
+    directory; a second call does nothing."""
+    import shutil
+
+    tmp, procs = started
+    for _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(kernels, started: tuple) -> dict:
     """Registers, spills and static shared memory of every kernel of K1-K5
     as ptxas_start's compilers report them (each waited for), and the
     rounded-key kernels' dynamic shared memory and ciphertexts a block."""
     import re
-    import shutil
 
     out = {}
-    tmp, procs = started
+    _, procs = started
     try:
         for name, proc in procs:
             log, _ = proc.communicate()
@@ -793,13 +877,17 @@ def ptxas_report(kernels, started: tuple) -> dict:
                     m = re.search(r"(\d+) bytes smem", line)
                     entry["static_smem_bytes"] = int(m.group(1)) if m else 0
     finally:
-        for _, proc in procs:
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        ptxas_stop(started)
     for nprimes in (3, 4):
         out[f"rounded_{nprimes}_primes"] = kernels.rounded_kernel_shape(nprimes)
     return out
+
+
+def ptxas_of(report: dict, name: str) -> dict:
+    """ptxas's figures for one kernel of ptxas_report, found by its name in
+    the mangled entry name (the length prefix keeps keyswitch_kernel from
+    matching packing_keyswitch_kernel)."""
+    return next((v for k, v in report.items() if k == name or f"{len(name)}{name}" in k), {})
 
 
 def kernel_ms_by_name(prof, names) -> dict:
@@ -817,7 +905,7 @@ def kernel_ms_by_name(prof, names) -> dict:
 
 
 def kernel_wrappers(kernels) -> tuple:
-    return (kernels.keyswitch, kernels.blind_rotate, kernels.cmux_step,
+    return (kernels.keyswitch, kernels.keyswitch32, kernels.blind_rotate, kernels.cmux_step,
             kernels.blind_rotate_multibit, kernels.packing_keyswitch,
             kernels.blind_rotate128)
 
@@ -828,6 +916,7 @@ def counters(kernels) -> tuple:
     of K2's lazy exact kernel (the rotation's and the step entry's)."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
+        ("keyswitch32_imma", kernels.keyswitch32, "imma_launches"),
         ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"))
@@ -1989,6 +2078,411 @@ def compact_paths_vs_plain(kernels, server, torus, sk, run, errs: dict) -> dict:
     return figs
 
 
+# the atomic-pattern phase's sets (tfhe_tpu_torch/shortint/params.py), each
+# with the kernels its round must run; V1_4 KS32 and PBS->KS decrypt at
+# random in tfhe_tpu too (their noise is uniform on the torus: ROADMAP.md
+# queue 3), so only their words are checked, against the plain path
+ATOMIC_SETS = (
+    ("ks32", "V1_4_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128", False),
+    ("pbs_ks", "V1_4_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128", False),
+    ("ks_pbs_2m64", "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M64", True),
+    ("ks_pbs_2m40", "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M40", True),
+    ("ks_pbs_gaussian", "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_GAUSSIAN_2M128", True),
+    ("test_ks32", "TEST_PARAM_MESSAGE_2_CARRY_2_KS32", True),
+    ("test_pbs_ks", "TEST_PARAM_MESSAGE_2_CARRY_2_PBS_KS", True),
+)
+# what each set's round must launch (counter: the launches of another it
+# must equal, or None for at least once) and never
+ATOMIC_MUST = {
+    "ks32": ({"keyswitch32": None, "keyswitch32_imma": "keyswitch32", "blind_rotate": None},
+             ("keyswitch", "blind_rotate_exact_lazy", "blind_rotate_multibit")),
+    "pbs_ks": ({"keyswitch": None, "keyswitch_imma": "keyswitch",
+                "blind_rotate_exact_lazy": "blind_rotate"}, ("keyswitch32",)),
+    "ks_pbs": ({"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None},
+               ("keyswitch32", "blind_rotate_exact_lazy", "blind_rotate_multibit")),
+    "test_ks32": ({"keyswitch32": None, "keyswitch32_imma": "keyswitch32",
+                   "blind_rotate": None}, ("keyswitch", "blind_rotate_exact_lazy")),
+    "test_pbs_ks": ({"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None},
+                    ("keyswitch32", "blind_rotate_exact_lazy")),
+    "many_ks32": ({"keyswitch32": None, "keyswitch32_imma": "keyswitch32",
+                   "blind_rotate_exact_lazy": "blind_rotate"},
+                  ("keyswitch", "blind_rotate_multibit")),
+    "many_classic": ({"keyswitch": None, "keyswitch_imma": "keyswitch",
+                      "blind_rotate_exact_lazy": "blind_rotate"},
+                     ("keyswitch32", "blind_rotate_multibit")),
+    "many_multibit": ({"keyswitch": None, "keyswitch_imma": "keyswitch",
+                       "blind_rotate_multibit": None}, ("keyswitch32", "blind_rotate")),
+    "drift": ({"keyswitch": None, "keyswitch_imma": "keyswitch", "blind_rotate": None},
+              ("keyswitch32", "blind_rotate_exact_lazy")),
+}
+# the plain comparisons' batch (the plain v7 rotation at B = 512 takes
+# seconds), and the drift set's zero-encryptions (tests/test_shortint.py:150)
+PLAIN_BATCH = 32
+DRIFT_ZEROS = 16
+MANY_FNS = (lambda x: x % 4, lambda x: (x + 1) % 4)
+
+
+def plain_kernels(kernels, server):
+    """A context in which every kernel wrapper the atomic patterns reach runs
+    its plain PyTorch version on the card (the same tensors, no launch):
+    the entry points then give the plain path's words."""
+    import contextlib
+
+    def words(k):
+        return k.words if isinstance(k, kernels.KeyswitchKeyLimbs) else k
+
+    def mb(degrees, body, lut, key, dp, base_log, levels, v9=False):
+        fn = server.blind_rotate_multibit_v9 if v9 else server.blind_rotate_multibit
+        return fn(degrees, body, lut, key, dp, base_log, levels)
+
+    swaps = {"keyswitch": lambda ct, k, b, l: server.keyswitch(ct, words(k), b, l),
+             "keyswitch32": lambda ct, k, b, l: server.keyswitch32(ct, words(k), b, l),
+             "blind_rotate": server.blind_rotate, "blind_rotate_multibit": mb}
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {name: getattr(kernels, name) for name in swaps}
+        try:
+            for name, fn in swaps.items():
+                setattr(kernels, name, fn)
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(kernels, name, fn)
+    return ctx()
+
+
+def pattern_rounds(kernels, ck, sk, seed: int, run, want_fn, decrypts: bool,
+                   plain: bool = True) -> dict:
+    """ROUNDS calls of run(sk, cts) at B = BATCH on one batch of
+    encryptions (host encryption at full width is the phase's largest
+    cost; each call is a whole round all the same): seconds, PBS/s, the
+    launches of the calls, each output decrypted against want_fn where the
+    set decrypts; then, where plain, the first PLAIN_BATCH inputs through
+    the same entry point with the kernels and with their plain versions
+    (the words' largest difference, and the plain path's seconds)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import server
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    inputs = np.random.default_rng(seed).integers(0, sk.params.message_modulus, BATCH)
+    cts = [ck.encrypt(int(v)) for v in inputs]
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    round_s, outs = [], []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        outs.append(run(sk, cts))
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+    launches = read_counts(kernels)
+    wrong = 0
+    if decrypts:
+        for out_r in outs:
+            for out, v in zip(out_r, inputs):
+                wrong += want_fn(ck, out, int(v))
+    line = {"batch": BATCH, "rounds": ROUNDS, "round_seconds": round_s,
+            "pbs_per_s": ROUNDS * BATCH / sum(round_s),
+            "pbs_per_s_after_first": (ROUNDS - 1) * BATCH / sum(round_s[1:]),
+            "launches": {k: v for k, v in launches.items() if v},
+            "outputs_checked": ROUNDS * BATCH if decrypts else 0, "wrong": wrong}
+    if not plain:
+        return line
+    few = cts[:PLAIN_BATCH]
+
+    def flat(out):
+        """Every output's words on the card (lazy rows gathered there)."""
+        return upload_batch([c.data for o in out for c in (o if isinstance(o, list) else [o])],
+                            sk.device)
+
+    got = flat(run(sk, few))
+    t0 = time.perf_counter()
+    with plain_kernels(kernels, server):
+        want = flat(run(sk, few))
+    torch.cuda.synchronize()
+    line["plain_seconds"] = time.perf_counter() - t0
+    line[f"vs_plain_b{PLAIN_BATCH}_max_abs_err"] = max_abs_err(got, want)
+    return line
+
+
+def atomic_patterns_phase(kernels, shortint_mod, ck, sk, mck, msk, seed: int) -> dict:
+    """Phase 25: the remaining shortint atomic patterns through
+    ServerKey.apply_lookup_table_batch and apply_many_lookup_table_batch at
+    full width, each set with its keygen seconds, ROUNDS rounds at B = BATCH
+    (many-LUT: two functions a call) and PLAIN_BATCH inputs against the
+    plain path; the KS32 key's bytes against the 64-bit key's; the drift
+    choice on the card against the plain choice on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import server, torus
+    from tfhe_tpu_torch.shortint import params as sp
+
+    def lut_round(s_key, cts):
+        return s_key.apply_lookup_table_batch(
+            cts, s_key.generate_lookup_table(lambda x: (3 * x + 1) % 16))
+
+    def lut_want(c_key, out, v):
+        return c_key.decrypt_raw(out) != (3 * v + 1) % 16
+
+    def many_round(s_key, cts):
+        return s_key.apply_many_lookup_table_batch(
+            cts, s_key.generate_many_lookup_table(list(MANY_FNS)))
+
+    def many_want(c_key, outs, v):
+        return sum(c_key.decrypt(o) != f(v) for o, f in zip(outs, MANY_FNS))
+
+    lines, errs, keys = {}, {}, {}
+    for tag, name, decrypts in ATOMIC_SETS:
+        q = getattr(sp, name)
+        t0 = time.perf_counter()
+        a_ck = shortint_mod.ClientKey(q, seed=seed)
+        a_sk = shortint_mod.ServerKey(a_ck, seed=seed + 1, device="cuda")
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        keys[tag] = (a_ck, a_sk)
+        line = {"params": name, "n": q.lwe_dimension, "N": q.polynomial_size,
+                "ks_base_log": q.ks_base_log, "ks_level": q.ks_level,
+                "keygen_seconds": keygen_s, "v7_mode": a_sk.trunc_acc,
+                **pattern_rounds(kernels, a_ck, a_sk, seed + 2, lut_round, lut_want, decrypts)}
+        must, never = ATOMIC_MUST["ks_pbs" if tag.startswith("ks_pbs") else tag]
+        check_launches(f"the {tag} round", line, must, never)
+        if tag.startswith(("ks32", "ks_pbs")) and not a_sk.trunc_acc:
+            raise RuntimeError(f"{name} did not take v7 mode on the card")
+        if tag == "ks32":
+            line["ksk_device_bytes"] = {
+                "words": a_sk.ksk.numel() * 8, "limbs_4": a_sk.ks_key.limbs.numel(),
+                "v1_4_2_2_limbs_8": sk.ks_key.limbs.numel(),
+                "v1_4_2_2_words": sk.ksk.numel() * 8}
+            # many-LUT on the KS32 key (its plain path is the classic key's
+            # below but for K1-32, held against plain in the round above)
+            line["many_lut"] = pattern_rounds(kernels, a_ck, a_sk, seed + 3, many_round,
+                                              many_want, False, plain=False)
+            check_launches("the KS32 many-LUT call", line["many_lut"],
+                           *ATOMIC_MUST["many_ks32"])
+        lines[tag] = line
+        errs[f"atomic_{tag}_b{PLAIN_BATCH}"] = line[f"vs_plain_b{PLAIN_BATCH}_max_abs_err"]
+    # many-LUT on phase 3's classic key (K2's lazy exact kernel on the exact
+    # key) and on phase 8's multi-bit key (K3 exact)
+    for tag, c_key, s_key in (("many_classic", ck, sk), ("many_multibit", mck, msk)):
+        s_key.exact_bsk_ntt()
+        line = pattern_rounds(kernels, c_key, s_key, seed + 4, many_round, many_want, True)
+        check_launches(tag, line, *ATOMIC_MUST[tag])
+        lines[tag] = line
+        errs[f"atomic_{tag}_b{PLAIN_BATCH}"] = line[f"vs_plain_b{PLAIN_BATCH}_max_abs_err"]
+    # drift on the TEST set (no tfhe_tpu set uses it): the zeros drawn after
+    # the BSK, rounds, and the choice on the card against the host's
+    q = dataclasses.replace(sp.TEST_PARAM_MESSAGE_2_CARRY_2, drift_zeros_count=DRIFT_ZEROS,
+                            ms_noise_reduction=sp.MsNoiseReduction.DRIFT)
+    t0 = time.perf_counter()
+    d_ck = shortint_mod.ClientKey(q, seed=seed + 5)
+    d_sk = shortint_mod.ServerKey(d_ck, seed=seed + 6, device="cuda")
+    torch.cuda.synchronize()
+    line = {"params": "TEST_PARAM_MESSAGE_2_CARRY_2 with DRIFT, 16 zeros",
+            "keygen_seconds": time.perf_counter() - t0,
+            **pattern_rounds(kernels, d_ck, d_sk, seed + 7, lut_round, lut_want, True)}
+    check_launches("the drift round", line, *ATOMIC_MUST["drift"])
+    errs[f"atomic_drift_b{PLAIN_BATCH}"] = line[f"vs_plain_b{PLAIN_BATCH}_max_abs_err"]
+    rows = torus.from_u64(np.stack([np.asarray(d_ck.encrypt(int(v)).data) for v in
+                                    np.random.default_rng(seed).integers(0, 4, BATCH)]),
+                          "cuda")
+    ks = server.keyswitch(rows, d_sk.ksk, q.ks_base_log, q.ks_level)
+    args = (q.polynomial_size.bit_length(), q.drift_r_sigma, q.drift_ms_bound,
+            q.drift_input_variance * (2.0 ** 64) ** 2)
+    t0 = time.perf_counter()
+    on_card = server.drift_ms_improve(ks, d_sk.drift_zeros, *args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    on_host = server.drift_ms_improve(ks.cpu(), d_sk.drift_zeros.cpu(), *args)
+    errs[f"atomic_drift_choice_b{BATCH}"] = max_abs_err(on_card.cpu(), on_host)
+    line["choice"] = {"batch": BATCH, "card_seconds": card_s,
+                      "rows_moved": int((on_card.cpu() != ks.cpu()).any(dim=1).sum()),
+                      "max_abs_err_vs_host": errs[f"atomic_drift_choice_b{BATCH}"]}
+    lines["drift"] = line
+    wrong = sum(v["wrong"] + v.get("many_lut", {}).get("wrong", 0) for v in lines.values())
+    return {"line": {**lines, "wrong": wrong}, "errs": errs, "keys": keys, "wrong": wrong}
+
+
+def wire_phase(kernels, th, seed: int) -> dict:
+    """Phase 26: a client -> server -> client round trip through the wire
+    format (utils/serialization.py, tfhe_tpu's), at DEFAULT_PARAMS with
+    FheUint64: the client (host) makes its keys and a seeded server key,
+    encrypts two FheUint64s and serializes all; the server deserializes the
+    key, decompresses it onto the card (v7 mode), adds, stores the sum
+    modulus-switched on the wire and reads it back (one decompression) and
+    serializes the result; the client deserializes and decrypts it.  Each
+    step's seconds and payload bytes."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer as ti
+    from tfhe_tpu_torch.shortint.compressed_key import CompressedServerKey
+    from tfhe_tpu_torch.shortint.server_key import ROUND_BITS, _v7_family
+    from tfhe_tpu_torch.utils import serialization as ser
+
+    steps, sizes = {}, {}
+
+    def step(name, fn, device=False):
+        if device:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device:
+            torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    mod = 1 << 64
+    x, y = (int(v) for v in np.random.default_rng(seed).integers(0, mod, 2, dtype=np.uint64))
+    # client (host)
+    ck = step("client_keygen", lambda: th.ClientKey(th.ConfigBuilder().build(), seed))
+    p = ck.integer_key.params
+    csk = step("client_seeded_server_key",
+               lambda: CompressedServerKey(ck.integer_key.key, seed + 1))
+    key_bytes = step("client_serialize_key", lambda: [ser.serialize(csk.seeded_ksk),
+                                                        ser.serialize(csk.seeded_bsk)])
+    ct_bytes = step("client_encrypt_serialize", lambda: [
+        ser.serialize(th.FheUint64.encrypt(v, ck).inner) for v in (x, y)])
+    sizes.update(key=[len(b) for b in key_bytes], inputs=[len(b) for b in ct_bytes])
+    # server (card)
+    floor = ROUND_BITS if _v7_family(p) else 0
+
+    def server_key():
+        ksk, bsk = (ser.deserialize(b) for b in key_bytes)
+        return ti.ServerKey.from_shortint_key(CompressedServerKey.from_raw_parts(
+            p, ksk.seed, ksk.bodies, bsk.seed, bsk.bodies, floor).decompress(device="cuda"))
+
+    sk = step("server_key_decompress", server_key, device=True)
+    if not sk.key.trunc_acc or sk.key._bsk_floored != ROUND_BITS:
+        raise RuntimeError("the key read from the wire did not take v7 mode on the card")
+    a, b = step("server_deserialize_inputs", lambda: [ser.deserialize(c) for c in ct_bytes])
+    launches = {}
+    total, launches["add"], steps["server_add"], _ = counted(
+        kernels, lambda: sk.add_parallelized(a, b))
+    stored, launches["switch_modulus_and_compress"], steps["server_store"], _ = counted(
+        kernels, lambda: ser.serialize(sk.switch_modulus_and_compress(total)))
+    out, launches["decompress"], steps["server_read_back"], _ = counted(
+        kernels, lambda: ser.serialize(sk.decompress(ser.deserialize(stored))))
+    sizes.update(stored=len(stored), result=len(out))
+    # client
+    got = step("client_deserialize_decrypt",
+               lambda: ck.integer_key.decrypt_radix(ser.deserialize(out)))
+    wrong = int(got != (x + y) % mod)
+    line = {"params": "DEFAULT_PARAMS", "type": "FheUint64", "seconds": steps,
+            "payload_bytes": sizes, "launches": launches, "bsk_floored": sk.key._bsk_floored,
+            "v7_mode": sk.key.trunc_acc, "wrong": wrong}
+    check_launches("the wire add", {"launches": launches["add"]}, V7_MUST, never=V7_NEVER)
+    if (launches["switch_modulus_and_compress"]["keyswitch"] != len(total.blocks)
+            or launches["decompress"]["blind_rotate_exact_lazy"] != 1):
+        raise RuntimeError(f"the wire's storage did not run K1 a block and K2's lazy "
+                           f"exact kernel once: {launches}")
+    return {"line": line, "wrong": wrong}
+
+
+def ks32_vs_plain(kernels, server, torus, atomic_run, rng, errs: dict) -> dict:
+    """K1-32 at both KS32 shapes (V1_4: n_in = 2048, l = 5; TEST: n_in = 512,
+    l = 3; base 2^4) on B = 512 encryptions under phase 25's keys, its
+    generic kernel and the int8 yardstick there, and at B = 1 and 513 on
+    random words, against the plain keyswitch32 (into errs).  Returns its
+    figures at each shape."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    k132 = {}
+    for tag in ("ks32", "test_ks32"):
+        a_ck, a_sk = atomic_run["keys"][tag]
+        q = a_sk.params
+        if not isinstance(a_sk.ks_key, kernels.KeyswitchKeyLimbs) or a_sk.ks_key.word_bytes != 4:
+            raise RuntimeError(f"the {tag} key holds no 4-limb byte layout for K1-32")
+        ct = torus.from_u64(np.stack([np.asarray(a_ck.encrypt(int(v)).data) for v in
+                                      rng.integers(0, 4, BATCH)]), dev)
+        kargs = (ct, a_sk.ks_key, q.ks_base_log, q.ks_level)
+        pargs = (ct, a_sk.ksk, q.ks_base_log, q.ks_level)
+        imma_before = kernels.keyswitch32.imma_launches
+        got = kernels.keyswitch32(*kargs)
+        if kernels.keyswitch32.imma_launches != imma_before + 1:
+            raise RuntimeError(f"K1-32 at the {tag} shape did not take its tensor-core kernel")
+        want = server.keyswitch32(*pargs)
+        errs[f"ks32_{tag}_b{BATCH}"] = max_abs_err(got, want)
+        errs[f"ks32_{tag}_generic_kernel_b{BATCH}"] = max_abs_err(
+            generic_keyswitch32(kernels, *pargs), want)
+        errs[f"ks32_{tag}_int_mm_b{BATCH}"] = max_abs_err(int_mm_keyswitch32(*pargs), want)
+        for b in (1, BATCH + 1):
+            rct = torus.from_u64(rng.integers(0, 1 << 64, (b, ct.shape[1]),
+                                              dtype=np.uint64), dev)
+            errs[f"ks32_{tag}_b{b}"] = max_abs_err(
+                kernels.keyswitch32(rct, a_sk.ks_key, q.ks_base_log, q.ks_level),
+                server.keyswitch32(rct, a_sk.ksk, q.ks_base_log, q.ks_level))
+        bound = k1_bound(ct, a_sk.ksk, got, q.ks_base_log, word_bytes=4)
+        k132[tag] = {"ms": cuda_ms(lambda: kernels.keyswitch32(*kargs), 10),
+                     "plain_ms": cuda_ms(lambda: server.keyswitch32(*pargs), 3),
+                     "generic_kernel_ms": cuda_ms(lambda: generic_keyswitch32(kernels, *pargs),
+                                                  10),
+                     "library_ms": cuda_ms(lambda: int_mm_keyswitch32(*pargs), 10),
+                     "bound_ms": bound["ms"], "bound_by": bound["by"],
+                     "bound_bytes_ms": bound["bytes_ms"],
+                     "key_limb_bytes": a_sk.ks_key.limbs.numel(),
+                     "shape": [BATCH] + list(a_sk.ksk.shape)}
+    return k132
+
+
+def atomic_table_entries(table: list, atomic_run, wire_run, errs: dict, k132: dict,
+                         ptxas_kernels: dict) -> None:
+    """K1-32's entry of the kernel table, and the launches of phases 25-26
+    added to the entries of K1, K2 (v7 and exact) and K3 exact, by path."""
+    at_lines = atomic_run["line"]
+    at_runs = {tag: at_lines[tag]["launches"] for tag in at_lines if tag != "wrong"}
+    at_runs["ks32_many_lut"] = at_lines["ks32"]["many_lut"]["launches"]
+    wire_l = wire_run["line"]["launches"]
+    at_runs.update({f"wire_{k}": v for k, v in wire_l.items()})
+
+    def by_path(counter: str, tags=None) -> dict:
+        return {f"atomic_{t}" if not t.startswith("wire") else t: c.get(counter, 0)
+                for t, c in at_runs.items()
+                if c.get(counter, 0) and (tags is None or t in tags)}
+
+    ks32_regs = ptxas_of(ptxas_kernels, "keyswitch32_imma_kernel")
+    table.append({
+        "name": "keyswitch32", "route": "cuda",
+        "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
+        "replaces": "tfhe_tpu/ops/server.py:110",
+        "kernel": "keyswitch32_imma_kernel (int8 tensor cores, 4 byte limbs a u32 key word; "
+                  "keyswitch32_kernel elsewhere)",
+        "launches": sum(by_path("keyswitch32").values()),
+        "launches_by_path": by_path("keyswitch32"),
+        "tensor_core_launches_by_path": by_path("keyswitch32_imma"),
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("ks32")),
+        **k132["ks32"],
+        "test_shape": k132["test_ks32"],
+        "library_call": "4 int8 torch._int_mm GEMMs of the digits by signed byte limbs of "
+                        "the u32 key, recombined mod 2^32",
+        "registers": ks32_regs.get("registers"),
+        "spill_store_bytes": ks32_regs.get("spill_store_bytes"),
+        "generic_kernel_registers": ptxas_of(ptxas_kernels, "keyswitch32_kernel").get(
+            "registers")})
+    by_name = {entry["name"]: entry for entry in table}
+    v7_tags = ("ks32", "ks_pbs_2m64", "ks_pbs_2m40", "ks_pbs_gaussian", "wire_add")
+    lazy_tags = ("pbs_ks", "many_classic", "ks32_many_lut", "wire_decompress")
+    for name, counter, tags, key in (
+            ("keyswitch", "keyswitch", None, "launches_by_path"),
+            ("keyswitch", "keyswitch_imma", None, "tensor_core_launches_by_path"),
+            ("blind_rotate", "blind_rotate", v7_tags, "launches_by_path"),
+            ("blind_rotate_exact", "blind_rotate_exact_lazy", lazy_tags, "launches_by_path"),
+            ("blind_rotate_exact", "blind_rotate", ("test_ks32", "test_pbs_ks", "drift"),
+             "generic_launches_by_path"),
+            ("blind_rotate_multibit_exact", "blind_rotate_multibit", ("many_multibit",),
+             "launches_by_path")):
+        extra = by_path(counter, tags)
+        by_name[name].setdefault(key, {}).update(extra)
+        if key == "launches_by_path":
+            by_name[name]["launches"] += sum(extra.values())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2031,20 +2525,17 @@ def main() -> None:
     kernels.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": kernels.source_paths()})
+    # the registers' compile runs beside phases 3-13 (stopped at exit if a
+    # phase fails first)
     ptxas = ptxas_start(kernels)
+    atexit.register(ptxas_stop, ptxas)
 
     # 3. keygen and key upload
     p = PARAMS
     t0 = time.perf_counter()
-    try:
-        ck = ClientKey(p, seed=args.seed)
-        sk = ServerKey(ck, seed=args.seed + 1, device="cuda")
-        torch.cuda.synchronize()
-    except BaseException:
-        for _, proc in ptxas[1]:
-            proc.kill()
-            proc.wait()
-        raise
+    ck = ClientKey(p, seed=args.seed)
+    sk = ServerKey(ck, seed=args.seed + 1, device="cuda")
+    torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     if not sk.trunc_acc or sk.bsk_ntt.num_primes != V7_PRIMES:
         raise RuntimeError("the production 2_2 key did not select v7 mode on three primes")
@@ -2057,9 +2548,6 @@ def main() -> None:
           "bsk_primes": sk.bsk_ntt.num_primes,
           "device_key_bytes": (sk.ksk.numel() * 8 + sk.ks_key.limbs.numel()
                                + key_bytes(sk.bsk_ntt))})
-    t0 = time.perf_counter()
-    emit({"phase": "ptxas", "nvcc_flags": "-Xptxas -v", "kernels": ptxas_report(kernels, ptxas),
-          "wait_seconds": time.perf_counter() - t0})
 
     # 4. serve on the classic key
     served = serve_rounds(ck, sk, args.seed, kernels)
@@ -2251,6 +2739,10 @@ def main() -> None:
                            cmux_step_exact_lazy=STEPWISE_STEPS):
         raise RuntimeError(f"blind_rotate_stepwise did not run K2's step entry (its lazy "
                            f"exact kernel) once a step: {st_launches}")
+    t0 = time.perf_counter()
+    ptxas_kernels = ptxas_report(kernels, ptxas)
+    emit({"phase": "ptxas", "nvcc_flags": "-Xptxas -v", "kernels": ptxas_kernels,
+          "wait_seconds": time.perf_counter() - t0})
 
     # 14-17. the integer layer on the classic and the multi-bit key, radix
     # storage and squash, the boolean gates
@@ -2317,6 +2809,19 @@ def main() -> None:
         if run["wrong"]:
             raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
 
+    # 25-26. the remaining atomic patterns (KS32 through K1-32, PBS->KS, the
+    # three KS_PBS sets, many-LUT on both keys, drift), and a client ->
+    # server -> client round trip through the wire format
+    from tfhe_tpu_torch import shortint as shortint_mod
+
+    atomic_run = atomic_patterns_phase(kernels, shortint_mod, ck, sk, mck, msk, args.seed + 80)
+    emit({"phase": "atomic_patterns", **atomic_run["line"]})
+    wire_run = wire_phase(kernels, th, args.seed + 81)
+    emit({"phase": "wire", **wire_run["line"]})
+    for tag, run in (("atomic-pattern", atomic_run), ("wire", wire_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
+
     # 25. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
@@ -2375,6 +2880,10 @@ def main() -> None:
                                                                    server.keyswitch(*off))
     if kernels.keyswitch.imma_launches != imma_before:
         raise RuntimeError("K1 took its tensor-core kernel at base_log 8")
+
+    # K1-32 at both KS32 shapes, and phase 25's plain comparisons
+    errs.update(atomic_run["errs"])
+    k132 = ks32_vs_plain(kernels, server, torus, atomic_run, k1_rng, errs)
 
     # K2 (v7 mode) on the classic path's round-0 switched inputs
     ks_mask, body, log_mod = switched_inputs(k1["want"], p, server)
@@ -3124,8 +3633,10 @@ def main() -> None:
          "bound_bytes_ms": k2_step_bound["bytes_ms"],
          "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
     ]
-    # the rounded-key routes: primes and ciphertexts a block
+    # K1-32, and the launches of phases 25-26 on the other kernels' entries
+    atomic_table_entries(table, atomic_run, wire_run, errs, k132, ptxas_kernels)
     by_name = {entry["name"]: entry for entry in table}
+    # the rounded-key routes: primes and ciphertexts a block
     for name, key in (("blind_rotate", sk.bsk_ntt), ("blind_rotate_multibit", msk.bsk_ntt),
                       ("blind_rotate_decompression", dk.bsk_ntt)):
         entry = by_name[name]

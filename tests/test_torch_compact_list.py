@@ -3,8 +3,8 @@ re-randomization against tfhe_tpu's on the CPU, word for word (tolerance 0;
 all arithmetic is integer): the same keys from the same seeds, the same
 encryptions from the same draws, and every expanded, cast and re-randomized
 ciphertext with the same u64 words, degree and noise level.  Also the
-queue-3 repairs: the compute-key OPRF draw, the restored config flag and the
-many-LUT refusals.
+queue-3 repairs: the compute-key OPRF draw and the restored config flag;
+many-LUT and the drift cast.
 
 Keys: the TEST set cut to n = 2, N = 64 (as tests/test_torch_strings.py
 cuts it: the same moduli, decomposition and noise) and a dedicated PKE set
@@ -201,11 +201,31 @@ def test_casting_refusals(keys, monkeypatch):
     small = keys.casts["small"][1].params
     with pytest.raises(ValueError, match="small"):
         cl.CompactPkeCastingKey(keys.ppriv, keys.pck, small, seed=1, device="cpu")
-    drift = dataclasses.replace(keys.p, ms_noise_reduction=port_params.MsNoiseReduction.DRIFT)
-    cast = cl.CompactPkeCastingKey.from_raw_parts(
-        torus.to_u64(keys.casts["small"][1].ksk), drift, small, keys.psk, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cast.cast_batch(p.expand(casting_key=keys.casts["big"][1]))
+
+
+
+def test_drift_cast_matches(keys, monkeypatch):
+    """The cast to small under a compute key with drift zeros: the drift
+    choice, the plain modulus switch and the refresh give tfhe_tpu's words
+    (the drift arm of cast_batch, which no longer refuses)."""
+    import copy
+
+    r, p = keys.encrypt_both(monkeypatch, keys.rcpk, keys.cpk, [1, 2, 3], 13)
+    drift = {mod: dataclasses.replace(cut(mod), drift_zeros_count=4,
+                                      ms_noise_reduction=mod.MsNoiseReduction.DRIFT)
+             for mod in (ref_params, port_params)}
+    rsk = ref_shortint.ServerKey(ref_shortint.ClientKey(drift[ref_params], seed=SEED),
+                                 seed=SEED + 9)
+    psk = shortint.ServerKey(shortint.ClientKey(drift[port_params], seed=SEED),
+                             seed=SEED + 9, device="cpu")
+    assert (np.asarray(rsk.drift_zeros) == torus.to_u64(psk.drift_zeros)).all()
+    rcast = copy.copy(keys.casts["small"][0])
+    rcast.dst_params, rcast.server_key = drift[ref_params], rsk
+    pcast = cl.CompactPkeCastingKey.from_raw_parts(
+        torus.to_u64(keys.casts["small"][1].ksk), drift[port_params],
+        keys.casts["small"][1].params, psk, device="cpu")
+    got = pcast.cast_batch(p.expand(casting_key=keys.casts["big"][1]))
+    same(rcast.cast_batch(r.expand(casting_key=keys.casts["big"][0])), got)
 
 
 def test_re_randomize_batch(keys):
@@ -287,8 +307,26 @@ def test_compression_flag_is_restored():
 @pytest.mark.parametrize("call", ["generate_many_lookup_table", "apply_many_lookup_table",
                                   "apply_many_lookup_table_batch"])
 def test_many_lut_is_refused(keys, call):
-    args = {"generate_many_lookup_table": ([lambda x: x],),
-            "apply_many_lookup_table": (None, None),
-            "apply_many_lookup_table_batch": ([], None)}[call]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        getattr(keys.psk, call)(*args)
+    """Many-LUT runs (it refused until the atomic-pattern slice): each entry
+    gives tfhe_tpu's tables and words on the cut set."""
+    fns = [lambda x: x % 4, lambda x: (x * 3) % 4]
+    rm, pm = keys.rsk.generate_many_lookup_table(fns), keys.psk.generate_many_lookup_table(fns)
+    assert (rm.acc == pm.acc).all() and (rm.stride, rm.degrees, rm.input_max_degree) == (
+        pm.stride, pm.degrees, pm.input_max_degree)
+    if call == "generate_many_lookup_table":
+        return
+    vals = [1, 3, 0] if call.endswith("batch") else [2]
+    # the same input words in both packages (the client keys' generators are
+    # shared with the other tests of the module)
+    rc = [keys.rck.encrypt(v) for v in vals]
+    pc = [shortint.Ciphertext(np.asarray(c.data, dtype=np.uint64), c.degree, c.noise_level,
+                              c.message_modulus, c.carry_modulus) for c in rc]
+    if call.endswith("batch"):
+        ro, po = keys.rsk.apply_many_lookup_table_batch(rc, rm), \
+            keys.psk.apply_many_lookup_table_batch(pc, pm)
+    else:
+        ro, po = [keys.rsk.apply_many_lookup_table(rc[0], rm)], \
+            [keys.psk.apply_many_lookup_table(pc[0], pm)]
+    for r, p, v in zip(ro, po, vals):
+        same(r, p)
+        assert [keys.pck.decrypt(c) for c in p] == [f(v) for f in fns]

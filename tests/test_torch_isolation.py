@@ -1,7 +1,8 @@
 """tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
 round of each slice, the integer and boolean layers, the high-level API and
-the strings, compact lists and Trivium included, and imports the ZK
-modules), no source of the port (nor chip_smoke.py) imports jax or
+the strings, compact lists and Trivium, the KS32, PBS->KS, drift and
+many-LUT arms and the wire format included, and imports the ZK modules),
+no source of the port (nor chip_smoke.py) imports jax or
 tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
 raising where there is no GPU."""
 
@@ -98,6 +99,28 @@ from tfhe_tpu_torch.zk import curve446, pke, pke_v2
 lst = compact_list.CompactPublicKey(hck, seed=12).encrypt_list([1, 2])
 assert [hck.integer_key.key.decrypt(c) for c in lst.expand(device="cpu")] == [1, 2]
 assert len(trivium.TriviumStream([False] * 80, [True] * 80).next_bits(8)) == 8
+# the atomic patterns: a KS32 round (K1-32's plain version), a PBS->KS round,
+# many-LUT and a drift round; the wire format, the client facade, the
+# parameter snapshots, noise formulas and security checks
+from tfhe_tpu_torch import client
+from tfhe_tpu_torch.core import noise, security
+from tfhe_tpu_torch.shortint import params_versions
+from tfhe_tpu_torch.utils import cbor, serialization
+for q in (shortint.TEST_PARAM_MESSAGE_2_CARRY_2_KS32,
+          shortint.params.TEST_PARAM_MESSAGE_2_CARRY_2_PBS_KS,
+          dataclasses.replace(p, ms_noise_reduction=shortint.MsNoiseReduction.DRIFT,
+                              drift_zeros_count=4)):
+    qck = shortint.ClientKey(q, seed=13)
+    qsk = shortint.ServerKey(qck, seed=14, device="cpu")
+    out = qsk.apply_lookup_table(qck.encrypt(1), qsk.generate_lookup_table(lambda x: x + 2))
+    assert qck.decrypt(out) == 3
+many = sk.apply_many_lookup_table(ck.encrypt(2), sk.generate_many_lookup_table(
+    [lambda x: x, lambda x: x + 1]))
+assert [ck.decrypt(c) for c in many] == [2, 3]
+assert ck.decrypt(client.deserialize(client.serialize(ck.encrypt(1)))) == 1
+assert params_versions.get("PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128").lwe_dimension == 918
+assert all(ok for _, ok, _ in security.check_shortint_params_secure(shortint.DEFAULT_PARAMS))
+assert noise.variance_to_std_log2(4.0) == 1.0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")

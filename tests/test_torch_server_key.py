@@ -219,35 +219,67 @@ def test_v7_pipeline_matches_the_tpu_kernel_twin():
 
 
 # ---------------------------------------------------------------------------
-# Arms of tfhe_tpu's apply_lookup_table_batch that later slices bring (KS32,
-# the SMALL key and the drift modulus switch, classic or multi-bit)
+# The other arms of tfhe_tpu's apply_lookup_table_batch (KS32, the SMALL key
+# and the drift modulus switch, classic or multi-bit), which the port
+# refused until the atomic-pattern slice; tests/test_torch_atomic_patterns.py
+# holds each against tfhe_tpu at length
 # ---------------------------------------------------------------------------
 
 
 UNSUPPORTED = {
     "ks32": dict(ks32=True),
     "small_key": dict(encryption_key_choice=EncryptionKeyChoice.SMALL),
-    "drift": dict(ms_noise_reduction=MsNoiseReduction.DRIFT),
+    "drift": dict(ms_noise_reduction=MsNoiseReduction.DRIFT, drift_zeros_count=4),
+}
+REF_ARMS = {
+    "ks32": dict(ks32=True),
+    "small_key": dict(encryption_key_choice=ref.params.EncryptionKeyChoice.SMALL),
+    "drift": dict(ms_noise_reduction=RefMs.DRIFT, drift_zeros_count=4),
 }
 
 
 @pytest.mark.parametrize("arm", sorted(UNSUPPORTED))
 def test_later_arms_raise(arm):
+    """Each arm builds (from a client key and from raw keys) and runs a LUT
+    round: the keys' round gives the words of the same round under the key
+    carried in through from_raw_keys (no drift zeros there, as in
+    tfhe_tpu: the drift key's round differs only by its drift choice) and
+    decrypts right."""
     p = dataclasses.replace(shortint.TEST_PARAM_MESSAGE_2_CARRY_2,
                             **UNSUPPORTED[arm])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shortint.ServerKey(shortint.ClientKey(p, seed=1), seed=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shortint.ServerKey.from_raw_keys(p, None, None, device="cpu")
+    ck = shortint.ClientKey(p, seed=1)
+    sk = shortint.ServerKey(ck, seed=2, device="cpu")
+    raw = shortint.ServerKey.from_raw_keys(p, torus.to_u64(sk.ksk), sk._bsk_coeff.data,
+                                           device="cpu")
+    assert (sk.drift_zeros is not None) == (arm == "drift") and raw.drift_zeros is None
+    cts = [ck.encrypt(v) for v in range(4)]
+    lut = sk.generate_lookup_table(lambda x: (x + 2) % 16)
+    outs = [s.apply_lookup_table_batch(cts, lut) for s in (sk, raw)]
+    for o in outs:
+        assert [ck.decrypt_raw(c) for c in o] == [(v + 2) % 16 for v in range(4)]
+    if arm != "drift":
+        assert (_words(outs[0]) == _words(outs[1])).all()
 
 
 def test_multi_bit_raises():
-    """Multi-bit runs (tests/test_torch_multibit.py), but not yet under the
-    KS32 atomic pattern or the drift modulus switch."""
+    """Multi-bit under the KS32 atomic pattern (a u32 keyswitch, degrees from
+    the u32 mask on the u64 torus) and under the drift modulus switch (no
+    zeros drawn in tfhe_tpu's multi-bit arm): tfhe_tpu's KSK and round
+    words."""
     for arm in ("ks32", "drift"):
-        p = dataclasses.replace(shortint.TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2,
-                                **UNSUPPORTED[arm])
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-            shortint.ServerKey(shortint.ClientKey(p, seed=1), seed=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-            shortint.ServerKey.from_raw_keys(p, None, None, device="cpu")
+        rp = dataclasses.replace(ref.TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2,
+                                 **REF_ARMS[arm])
+        pp = dataclasses.replace(shortint.TEST_PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2,
+                                 **UNSUPPORTED[arm])
+        rck, pck = ref.ClientKey(rp, seed=1), shortint.ClientKey(pp, seed=1)
+        rsk = ref.ServerKey(rck, seed=2)
+        psk = shortint.ServerKey(pck, seed=2, device="cpu")
+        assert (np.asarray(rsk.ksk).astype(np.uint64) == torus.to_u64(psk.ksk)).all()
+        assert rsk.drift_zeros is None and psk.drift_zeros is None
+        f = lambda x: (x + 3) % 16                # noqa: E731
+        ro = rsk.apply_lookup_table_batch([rck.encrypt(v) for v in range(3)],
+                                          rsk.generate_lookup_table(f))
+        po = psk.apply_lookup_table_batch([pck.encrypt(v) for v in range(3)],
+                                          psk.generate_lookup_table(f))
+        assert (_words(ro) == _words(po)).all(), arm
+        assert [pck.decrypt_raw(c) for c in po] == [f(v) for v in range(3)]

@@ -21,9 +21,13 @@ def encrypt_lwe(
     encoded: int,
     noise_distribution,
     gen: EncryptionRandomGenerator,
+    bits: int = 64,
 ) -> LweCiphertext:
-    mask = gen.mask.uniform_u64(sk.dimension)
-    noise = int(noise_distribution.sample(gen.noise, 1)[0])
+    """One LWE of the bits-wide torus (64, or 32 for the KS32 keyswitch
+    key's rows: a u32 mask draw, noise masked to 32 bits, the body wrapped
+    mod 2^32), as uint64 words (tfhe_tpu/core/encrypt.py:19)."""
+    mask = gen.mask.uniform_scalar(sk.dimension, bits)
+    noise = int(noise_distribution.sample(gen.noise, 1, bits)[0])
     skd = sk.data.astype(np.uint64)
     with np.errstate(over="ignore"):  # wrapping torus arithmetic is intended
         body = (
@@ -31,6 +35,8 @@ def encrypt_lwe(
             + np.uint64(encoded % (1 << 64))
             + np.uint64(noise % (1 << 64))
         )
+    if bits == 32:
+        body &= np.uint64(0xFFFFFFFF)
     return LweCiphertext(np.concatenate([mask, np.array([body], dtype=np.uint64)]))
 
 

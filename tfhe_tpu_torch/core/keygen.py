@@ -52,20 +52,24 @@ def generate_lwe_keyswitch_key(
     decomp: DecompParams,
     noise_distribution,
     gen: EncryptionRandomGenerator,
+    bits: int = 64,
 ) -> LweKeyswitchKey:
+    """(n_in, l, n_out+1) uint64: level l first, input element i's row j the
+    encryption of s_i 2^(bits - base_log (l - j)).  bits = 32 is the KS32
+    key (tfhe_tpu/core/keygen.py:49-72): u32 words, 4 mask bytes a word."""
     n_in = input_sk.dimension
     n_out = output_sk.dimension
     levels = decomp.level_count
     out = np.zeros((n_in, levels, n_out + 1), dtype=np.uint64)
     for i in range(n_in):
         key_elem = int(input_sk.data[i])
-        # messages: level l first — key_elem << (64 - base_log * level)
+        # messages: level l first — key_elem << (bits - base_log * level)
         children = gen.fork(levels, mask_elements=n_out, noise_elements=1,
-                            noise_distribution=noise_distribution)
+                            noise_distribution=noise_distribution, bits=bits)
         for j, child in enumerate(children):
             level = levels - j
-            encoded = (key_elem << (64 - decomp.base_log * level)) % (1 << 64)
-            ct = encrypt_lwe(output_sk, encoded, noise_distribution, child)
+            encoded = (key_elem << (bits - decomp.base_log * level)) % (1 << bits)
+            ct = encrypt_lwe(output_sk, encoded, noise_distribution, child, bits)
             out[i, j] = ct.data
     return LweKeyswitchKey(out, decomp)
 

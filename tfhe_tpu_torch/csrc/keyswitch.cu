@@ -40,6 +40,27 @@
 // coefficients, decomposing each chunk's digits once into shared memory
 // and staging the key tile there; each thread keeps 8 u64 accumulators of
 // one output column in registers, multiply-adds on the CUDA cores.
+//
+// K1-32, the KS32 atomic pattern's keyswitch (the same kernels at 4 byte
+// limbs a key word).  Replaces: tfhe_tpu/ops/server.py:110 `keyswitch32`,
+// an XLA contraction in wrapping u32 (_matmul_u32, :131); plain version:
+// tfhe_tpu_torch/ops/server.py `keyswitch32`.
+//
+//   out[b] = (0, ..., 0, ct[b, n_in] >> 32) - sum_{i, lev} digit_lev(ct[b, i]) * ksk32[i, lev]
+//
+// mod 2^32, the digits those of the u64 mask as above, the key's u32 words
+// (and the output's) held in int64 in [0, 2^32).  Mod 2^32 only a word's 4
+// low bytes count, so the tensor-core kernel reads half the limb columns
+// (4 a word: a block's 256 limb columns are 64 output words, each n8 tile
+// two of them) and its epilogue adds a word's 4 limb sums, held by a lane
+// pair, with one shuffle, mod 2^32; the limb sums are the same s32-exact
+// sums, so imma_shape is unchanged (2048 x 5 x 8 x 255 < 2^31 at the V1_4
+// KS32 set).  At V1_4 KS32 and B = 512 the contraction is (512 x 10240) x
+// (10240 x 919), 30.8e9 int8 operations at 4 limbs, 0.016 ms; the key's 4
+// limbs are 37.6 MB, 0.011 ms.  The generic kernel's u32 twin accumulates in
+// u32 on the CUDA cores.
+
+#include <type_traits>
 
 #include "ntt_common.cuh"
 
@@ -62,12 +83,18 @@ constexpr int THREADS = 256;   // TC columns x 4 row groups
 constexpr int ROWS_PER_THREAD = TB / (THREADS / TC);
 constexpr int MAX_LEVELS = 16;
 
-__global__ void __launch_bounds__(THREADS)
-keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
-                 const u64* __restrict__ ksk, int batch, int n_in, int levels,
-                 int m_out, int base_log) {
+// The generic kernel's body: WB = 8 is the u64 keyswitch (K1), WB = 4 the
+// KS32 keyswitch mod 2^32 (the body ct >> 32, accumulators and key tile in
+// u32).  Each output word is written as a u64 (in [0, 2^32) for WB = 4).
+template <int WB>
+__device__ __forceinline__ void keyswitch_body(u64* __restrict__ out,
+                                               const u64* __restrict__ ct,
+                                               const u64* __restrict__ ksk, int batch,
+                                               int n_in, int levels, int m_out,
+                                               int base_log) {
+  typedef typename std::conditional<WB == 8, u64, unsigned int>::type word;
   __shared__ int s_digit[TB][KC];
-  __shared__ u64 s_key[KC][TC];
+  __shared__ word s_key[KC][TC];
 
   const int tid = threadIdx.x;
   const int tx = tid % TC;
@@ -77,9 +104,9 @@ keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
   const int coef_per_chunk = KC / levels;
   const size_t ct_stride = (size_t)n_in + 1;
 
-  u64 acc[ROWS_PER_THREAD];
+  word acc[ROWS_PER_THREAD];
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] = 0ull;
+  for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] = 0;
 
   for (int i0 = 0; i0 < n_in; i0 += coef_per_chunk) {
     const int ni = min(coef_per_chunk, n_in - i0);
@@ -100,14 +127,14 @@ keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
       const int cc = q - kk * TC;
       const int col = col0 + cc;
       s_key[kk][cc] = col < m_out
-          ? ksk[((size_t)i0 * levels + kk) * (size_t)m_out + col] : 0ull;
+          ? (word)ksk[((size_t)i0 * levels + kk) * (size_t)m_out + col] : (word)0;
     }
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
-      const u64 kv = s_key[kk][tx];
+      const word kv = s_key[kk][tx];
 #pragma unroll
       for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-        acc[r] += (u64)(long long)s_digit[ty * ROWS_PER_THREAD + r][kk] * kv;
+        acc[r] += (word)(long long)s_digit[ty * ROWS_PER_THREAD + r][kk] * kv;
       }
     }
     __syncthreads();
@@ -119,10 +146,25 @@ keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
   for (int r = 0; r < ROWS_PER_THREAD; ++r) {
     const int b = row0 + ty * ROWS_PER_THREAD + r;
     if (b < batch) {
-      const u64 body = (col == m_out - 1) ? ct[(size_t)b * ct_stride + n_in] : 0ull;
-      out[(size_t)b * m_out + col] = body - acc[r];
+      const word body = (col == m_out - 1)
+          ? (word)(ct[(size_t)b * ct_stride + n_in] >> (64 - 8 * WB)) : (word)0;
+      out[(size_t)b * m_out + col] = (u64)(word)(body - acc[r]);
     }
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                 const u64* __restrict__ ksk, int batch, int n_in, int levels,
+                 int m_out, int base_log) {
+  keyswitch_body<8>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
+}
+
+__global__ void __launch_bounds__(THREADS)
+keyswitch32_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                   const u64* __restrict__ ksk, int batch, int n_in, int levels,
+                   int m_out, int base_log) {
+  keyswitch_body<4>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
 }
 
 // ---------------------------------------------------------------------------
@@ -155,10 +197,15 @@ __device__ __forceinline__ int swz(int r, int k) {
   return r * IM_KC + ((((k >> 4) ^ r) & 7) << 4) + (k & 15);
 }
 
-__global__ void __launch_bounds__(IM_THREADS, 1)
-keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
-                      const uint4* __restrict__ key, int batch, int n_in, int levels,
-                      int m_out, int base_log, int n_chunks, int key_cols) {
+// The tensor-core kernel's body at WB limbs a key word: 8 (K1) or 4 (K1-32,
+// mod 2^32; the body ct >> 32).
+template <int WB>
+__device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
+                                                    const u64* __restrict__ ct,
+                                                    const uint4* __restrict__ key,
+                                                    int batch, int n_in, int levels,
+                                                    int m_out, int base_log, int n_chunks,
+                                                    int key_cols) {
   extern __shared__ uint4 im_smem[];
   unsigned char* key_s = (unsigned char*)im_smem;                    // (STAGES, BN, KC)
   unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (2, BM, KC)
@@ -269,29 +316,109 @@ keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
     if (c + 2 < n_chunks) fetch(c + 2);
   }
 
-  // each n8 tile is one output word: lane (g, t) holds its limbs 2t, 2t + 1
-  // of rows g and g + 8; a quad's sum is the word's product sum
   const int g = lane >> 2;
   const int t = lane & 3;
+  if (WB == 8) {
+    // each n8 tile is one output word: lane (g, t) holds its limbs 2t, 2t + 1
+    // of rows g and g + 8; a quad's sum is the word's product sum
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = (n0 + wn * 64 + ni * 8) >> 3;
+      for (int ni = 0; ni < 8; ++ni) {
+        const int col = (n0 + wn * 64 + ni * 8) >> 3;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        u64 part = ((u64)(long long)acc[mi][ni][2 * h] << (16 * t)) +
-                   ((u64)(long long)acc[mi][ni][2 * h + 1] << (16 * t + 8));
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
-        const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
-        if (t == h && b < batch && col < m_out) {
-          const u64 body = col == m_out - 1 ? ct[(size_t)b * ct_stride + n_in] : 0ull;
-          out[(size_t)b * m_out + col] = body - part;
+        for (int h = 0; h < 2; ++h) {
+          u64 part = ((u64)(long long)acc[mi][ni][2 * h] << (16 * t)) +
+                     ((u64)(long long)acc[mi][ni][2 * h + 1] << (16 * t + 8));
+          part += __shfl_xor_sync(0xffffffffu, part, 1);
+          part += __shfl_xor_sync(0xffffffffu, part, 2);
+          const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
+          if (t == h && b < batch && col < m_out) {
+            const u64 body = col == m_out - 1 ? ct[(size_t)b * ct_stride + n_in] : 0ull;
+            out[(size_t)b * m_out + col] = body - part;
+          }
+        }
+      }
+    }
+  } else {
+    // each n8 tile is two output words: lane (g, t) holds limbs 2t mod 4 and
+    // 2t + 1 mod 4 of word t / 2, rows g and g + 8; a lane pair's sum is the
+    // word's product sum mod 2^32
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int col = ((n0 + wn * 64 + ni * 8) >> 2) + (t >> 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          u32 part = ((u32)acc[mi][ni][2 * h] << (16 * (t & 1))) +
+                     ((u32)acc[mi][ni][2 * h + 1] << (16 * (t & 1) + 8));
+          part += __shfl_xor_sync(0xffffffffu, part, 1);
+          const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
+          if ((t & 1) == h && b < batch && col < m_out) {
+            const u32 body =
+                col == m_out - 1 ? (u32)(ct[(size_t)b * ct_stride + n_in] >> 32) : 0u;
+            out[(size_t)b * m_out + col] = (u64)(u32)(body - part);
+          }
         }
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(IM_THREADS, 1)
+keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                      const uint4* __restrict__ key, int batch, int n_in, int levels,
+                      int m_out, int base_log, int n_chunks, int key_cols) {
+  keyswitch_imma_body<8>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
+                         key_cols);
+}
+
+__global__ void __launch_bounds__(IM_THREADS, 1)
+keyswitch32_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                        const uint4* __restrict__ key, int batch, int n_in, int levels,
+                        int m_out, int base_log, int n_chunks, int key_cols) {
+  keyswitch_imma_body<4>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
+                         key_cols);
+}
+
+template <int WB>
+int launch_generic(void* out, const void* ct, const void* ksk, int batch, int n_in,
+                   int levels, int m_out, int base_log, void* stream) {
+  if (levels < 1 || levels > MAX_LEVELS || levels > KC || base_log < 1 ||
+      base_log * levels >= 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dim3 grid((batch + TB - 1) / TB, (m_out + TC - 1) / TC);
+  if (WB == 8) {
+    keyswitch_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out, base_log);
+  } else {
+    keyswitch32_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out, base_log);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int WB>
+int launch_imma(void* out, const void* ct, const void* key, int batch, int n_in,
+                int levels, int m_out, int base_log, int n_chunks, int key_cols,
+                void* stream) {
+  if (!imma_shape(n_in, levels, base_log) || batch < 1 || m_out < 1 ||
+      key_cols % IM_BN != 0 || key_cols < WB * m_out ||
+      n_chunks != (n_in + IM_KC / levels - 1) / (IM_KC / levels) ||
+      ((uintptr_t)key & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = WB == 8 ? keyswitch_imma_kernel : keyswitch32_imma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         IM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(key_cols / IM_BN, (batch + IM_BM - 1) / IM_BM);
+  kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
+      (u64*)out, (const u64*)ct, (const uint4*)key, batch, n_in, levels, m_out, base_log,
+      n_chunks, key_cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -299,19 +426,19 @@ keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
 extern "C" int tfhe_torch_keyswitch(void* out, const void* ct, const void* ksk,
                                     int batch, int n_in, int levels, int m_out,
                                     int base_log, void* stream) {
-  if (levels < 1 || levels > MAX_LEVELS || levels > KC || base_log < 1 ||
-      base_log * levels >= 64) {
-    return (int)cudaErrorInvalidValue;
-  }
-  dim3 grid((batch + TB - 1) / TB, (m_out + TC - 1) / TC);
-  keyswitch_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out,
-      base_log);
-  return (int)cudaGetLastError();
+  return launch_generic<8>(out, ct, ksk, batch, n_in, levels, m_out, base_log, stream);
 }
 
-// Which kernel K1 runs at a shape: 1 for the tensor-core kernel, 0 for the
-// generic one.  The wrapper (ops/kernels.py keyswitch) chooses by it.
+// K1-32's generic kernel: ksk the (n_in, l, m_out) key of u32 words held in
+// u64, out (batch, m_out) u64 in [0, 2^32).
+extern "C" int tfhe_torch_keyswitch32(void* out, const void* ct, const void* ksk,
+                                      int batch, int n_in, int levels, int m_out,
+                                      int base_log, void* stream) {
+  return launch_generic<4>(out, ct, ksk, batch, n_in, levels, m_out, base_log, stream);
+}
+
+// Which kernel K1 (and K1-32) runs at a shape: 1 for the tensor-core kernel,
+// 0 for the generic one.  The wrapper (ops/kernels.py keyswitch) chooses by it.
 extern "C" int tfhe_torch_keyswitch_imma_shape(int n_in, int levels, int base_log) {
   return imma_shape(n_in, levels, base_log) ? 1 : 0;
 }
@@ -329,18 +456,16 @@ extern "C" int tfhe_torch_keyswitch_imma(void* out, const void* ct, const void* 
                                          int batch, int n_in, int levels, int m_out,
                                          int base_log, int n_chunks, int key_cols,
                                          void* stream) {
-  if (!imma_shape(n_in, levels, base_log) || batch < 1 || m_out < 1 ||
-      key_cols % IM_BN != 0 || key_cols < 8 * m_out ||
-      n_chunks != (n_in + IM_KC / levels - 1) / (IM_KC / levels) ||
-      ((uintptr_t)key & 15) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(keyswitch_imma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, IM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(key_cols / IM_BN, (batch + IM_BM - 1) / IM_BM);
-  keyswitch_imma_kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
-      (u64*)out, (const u64*)ct, (const uint4*)key, batch, n_in, levels, m_out, base_log,
-      n_chunks, key_cols);
-  return (int)cudaGetLastError();
+  return launch_imma<8>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
+                        key_cols, stream);
+}
+
+// K1-32's tensor-core kernel: the same layout at 4 limb columns a word
+// (key_cols covering 4 m_out), out u64 in [0, 2^32).
+extern "C" int tfhe_torch_keyswitch32_imma(void* out, const void* ct, const void* key,
+                                           int batch, int n_in, int levels, int m_out,
+                                           int base_log, int n_chunks, int key_cols,
+                                           void* stream) {
+  return launch_imma<4>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
+                        key_cols, stream);
 }

@@ -39,9 +39,6 @@ from ..shortint.server_key import lazy_outputs, upload_batch
 from ..utils.csprng import DeterministicSeeder, EncryptionRandomGenerator, SecretRandomGenerator
 from ..utils.device import resolve_device
 
-DRIFT_PENDING = "drift modulus-switch noise reduction: ROADMAP queue 1 item 7"
-
-
 def _shortint_key(key):
     """The shortint key under an hlapi or integer key."""
     if hasattr(key, "integer_key"):
@@ -265,16 +262,18 @@ class CompactPkeCastingKey:
         if kp.destination_key == "big":
             return lazy_outputs(kernels.keyswitch(rows, self.ks_key, kp.ks_base_log,
                                                   kp.ks_level), degrees, cts)
-        # dest small: KS, the compute set's modulus switch (centered mean on
-        # the v1_4 sets, as ks_pbs_batch does), then the blind rotation with
-        # the identity LUT and the extraction that land the value on the big
+        # dest small: KS, the compute key's drift choice where it has drift
+        # zeros, the compute set's modulus switch (centered mean on the v1_4
+        # sets), as ks_pbs_batch does, then the blind rotation with the
+        # identity LUT and the extraction that land the value on the big
         # key, exact, on the unrounded key
-        if cp.ms_noise_reduction == MsNoiseReduction.DRIFT:
-            raise NotImplementedError(DRIFT_PENDING)
         sk = self.server_key
         msed = srv.ks_ms_batch(rows, self.ks_key, cp.polynomial_size.bit_length(),
                                kp.ks_base_log, kp.ks_level,
-                               cp.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN)
+                               cp.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN,
+                               drift_zeros=sk.drift_zeros, drift_r_sigma=cp.drift_r_sigma,
+                               drift_bound=cp.drift_ms_bound,
+                               drift_input_variance=cp.drift_input_variance * (2.0 ** 64) ** 2)
         lut = torus.from_u64(sk.generate_lookup_table(lambda x: x).acc, self.device)
         out = srv.pbs_from_switched_batch(
             msed, lut.expand((len(cts),) + tuple(lut.shape)), sk.exact_bsk_ntt(), sk.dp,

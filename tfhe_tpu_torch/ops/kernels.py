@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels of the port: build, load, wrappers.
 
 K1 ``keyswitch`` (csrc/keyswitch.cu; its tensor-core kernel where
-``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``), K2 ``blind_rotate``
+``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``), K1-32
+``keyswitch32`` (the KS32 pattern's u32 keyswitch, the same source: the
+tensor-core kernel on 4 byte limbs a key word, and a u32 twin of the
+generic kernel), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
 takes the lazy exact kernel where ``exact_lazy_shape`` holds), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
@@ -20,7 +23,7 @@ Each wrapper runs its plain PyTorch version (ops/server.py,
 ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
 tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
-nothing else; ``keyswitch.imma_launches``,
+nothing else; ``keyswitch.imma_launches``, ``keyswitch32.imma_launches``,
 ``packing_keyswitch.imma_launches`` and ``blind_rotate`` /
 ``cmux_step.lazy_exact_launches`` count those of the redesigned kernels
 among them.
@@ -81,12 +84,14 @@ def load() -> dict:
              for name, src in _SOURCES.items()])
         libs = {name: ctypes.CDLL(str(p)) for name, p in zip(_SOURCES, paths)}
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn = libs["keyswitch"].tfhe_torch_keyswitch
-        fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
-        fn.restype = i
-        fn = libs["keyswitch"].tfhe_torch_keyswitch_imma
-        fn.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
-        fn.restype = i
+        for fn in (libs["keyswitch"].tfhe_torch_keyswitch,
+                   libs["keyswitch"].tfhe_torch_keyswitch32):
+            fn.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+            fn.restype = i
+        for fn in (libs["keyswitch"].tfhe_torch_keyswitch_imma,
+                   libs["keyswitch"].tfhe_torch_keyswitch32_imma):
+            fn.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+            fn.restype = i
         fn = libs["keyswitch"].tfhe_torch_keyswitch_imma_shape
         fn.argtypes = [i] * 3
         fn.restype = i
@@ -225,53 +230,97 @@ def _launch_rounded(name: str, acc, shifts, key: RoundedKeyNtt, base_log: int,
 class KeyswitchKeyLimbs:
     """A keyswitch key as K1's tensor-core kernel reads it: ``words`` the
     (n_in, l, n_out+1) int64 key, ``limbs`` its byte layout
-    (keyswitch_key_limbs) on the same card.  Built once by the key's owner
-    (keyswitch_key; ServerKey.ks_key) and passed to every keyswitch."""
+    (keyswitch_key_limbs) on the same card, ``word_bytes`` the limbs a key
+    word: 8 for the u64 key (K1), 4 for the KS32 key's u32 words (K1-32).
+    Built once by the key's owner (keyswitch_key; ServerKey.ks_key) and
+    passed to every keyswitch."""
 
     words: torch.Tensor
     limbs: torch.Tensor
+    word_bytes: int = 8
 
 
-def keyswitch_key_limbs(ksk, levels: int, chunk: int, columns: int) -> torch.Tensor:
+def keyswitch_key_limbs(ksk, levels: int, chunk: int, columns: int,
+                        word_bytes: int = 8) -> torch.Tensor:
     """The byte layout of a keyswitch key for K1's tensor-core kernel:
     (n_in, l, m) int64 -> (chunks, cols, chunk) uint8 on ksk's device.
     Chunk c holds the l levels of input coefficients c chunk // l ..
     (c+1) chunk // l - 1 at byte positions (i - c chunk // l) l + lev (zero
-    past them and past n_in); limb column 8 col + j holds byte j
+    past them and past n_in); limb column word_bytes col + j holds byte j
     (little-endian) of key word col (zero columns up to a multiple of
-    ``columns``).  Each column's ``chunk`` bytes are contiguous: the K-major
-    operand of the s8 x u8 tensor-core product.  The kernel's widths are
-    csrc/keyswitch.cu IM_KC and IM_BN (keyswitch_key reads them)."""
+    ``columns``): the 8 bytes of a u64 word, the low 4 of a KS32 key's u32
+    word (held in an int64).  Each column's ``chunk`` bytes are contiguous:
+    the K-major operand of the s8 x u8 tensor-core product.  The kernel's
+    widths are csrc/keyswitch.cu IM_KC and IM_BN (keyswitch_key reads
+    them)."""
     n_in, lev, m_out = ksk.shape
     _require(lev == levels, "ksk levels disagree")
     per = chunk // levels
     chunks = -(-n_in // per)
-    cols = -(-8 * m_out // columns) * columns
+    cols = -(-word_bytes * m_out // columns) * columns
     full = torch.zeros((chunks * per, levels, cols), dtype=torch.uint8, device=ksk.device)
-    full[:n_in, :, :8 * m_out] = ksk.contiguous().view(torch.uint8)
+    full[:n_in, :, :word_bytes * m_out] = ksk.contiguous().view(torch.uint8).reshape(
+        n_in, levels, m_out, 8)[..., :word_bytes].reshape(n_in, levels, -1)
     out = torch.zeros((chunks, cols, chunk), dtype=torch.uint8, device=ksk.device)
     out[:, :, :per * levels] = full.reshape(chunks, per * levels, cols).transpose(1, 2)
     return out
 
 
 def keyswitch_imma_shape(n_in: int, levels: int, base_log: int) -> bool:
-    """Whether K1 runs its tensor-core kernel at this shape, as
+    """Whether K1 (and K1-32) runs its tensor-core kernel at this shape, as
     csrc/keyswitch.cu imma_shape decides it (s8 digits, a decomposition read
     from the high word, s32-exact limb sums): at the keyswitch of every set
     of shortint/params.py; other shapes run the generic kernel."""
     return bool(load()["keyswitch"].tfhe_torch_keyswitch_imma_shape(n_in, levels, base_log))
 
 
-def keyswitch_key(ksk, base_log: int, levels: int):
-    """The keyswitch key as ``keyswitch`` takes it: on a CUDA device at a
+def keyswitch_key(ksk, base_log: int, levels: int, bits: int = 64):
+    """The keyswitch key as ``keyswitch`` (bits = 64) or ``keyswitch32``
+    (bits = 32, a KS32 key of u32 words) takes it: on a CUDA device at a
     shape of K1's tensor-core kernel, a KeyswitchKeyLimbs (its byte layout
-    built here, on the card); else ksk itself."""
+    built here, on the card, 8 or 4 limbs a word); else ksk itself."""
     if ksk.device.type != "cuda" or not keyswitch_imma_shape(ksk.shape[0], levels, base_log):
         return ksk
     lib = load()["keyswitch"]
+    word_bytes = bits // 8
     return KeyswitchKeyLimbs(ksk, keyswitch_key_limbs(ksk, levels,
                                                       lib.tfhe_torch_keyswitch_imma_chunk(),
-                                                      lib.tfhe_torch_keyswitch_imma_columns()))
+                                                      lib.tfhe_torch_keyswitch_imma_columns(),
+                                                      word_bytes), word_bytes)
+
+
+def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
+    """K1 (word_bytes 8) or K1-32 (word_bytes 4) on the card: the
+    tensor-core kernel where keyswitch_imma_shape holds (on the key's byte
+    layout of that width), else the generic kernel.  Returns (out, whether
+    the tensor-core kernel ran)."""
+    limbs = ksk.limbs if isinstance(ksk, KeyswitchKeyLimbs) else None
+    words = ksk.words if limbs is not None else ksk
+    name = "keyswitch" if word_bytes == 8 else "keyswitch32"
+    _require(ct.device.type == "cuda", f"no {name} kernel for {ct.device}")
+    ct, words = ct.contiguous(), words.contiguous()
+    _check_cuda((ct, torch.int64), (words, torch.int64))
+    b, w = ct.shape
+    n_in, lev, m_out = words.shape
+    _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
+    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
+    lib = load()["keyswitch"]
+    imma = keyswitch_imma_shape(n_in, levels, base_log)
+    if imma:
+        _require(limbs is not None and ksk.word_bytes == word_bytes,
+                 f"{name}'s tensor-core kernel takes the key's byte layout at "
+                 f"{word_bytes} limbs a word: build it once with kernels.keyswitch_key")
+        _check_cuda((ct, torch.int64), (limbs, torch.uint8))
+        err = getattr(lib, f"tfhe_torch_{name}_imma")(
+            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), b, n_in, levels, m_out,
+            base_log, limbs.shape[0], limbs.shape[1], _stream(ct))
+        _raise_on(err, f"{name} (tensor cores)")
+    else:
+        err = getattr(lib, f"tfhe_torch_{name}")(
+            out.data_ptr(), ct.data_ptr(), words.data_ptr(), b, n_in, levels, m_out,
+            base_log, _stream(ct))
+        _raise_on(err, name)
+    return out, imma
 
 
 def keyswitch(ct, ksk, base_log: int, levels: int):
@@ -281,38 +330,38 @@ def keyswitch(ct, ksk, base_log: int, levels: int):
     KeyswitchKeyLimbs.  On the card the kernel is chosen by shape
     (keyswitch_imma_shape): the tensor-core kernel, which takes only a
     KeyswitchKeyLimbs, else the generic kernel."""
-    limbs = ksk.limbs if isinstance(ksk, KeyswitchKeyLimbs) else None
-    words = ksk.words if limbs is not None else ksk
     if ct.device.type == "cpu":
+        words = ksk.words if isinstance(ksk, KeyswitchKeyLimbs) else ksk
         return server.keyswitch(ct, words, base_log, levels)
-    _require(ct.device.type == "cuda", f"no keyswitch kernel for {ct.device}")
-    ct, words = ct.contiguous(), words.contiguous()
-    _check_cuda((ct, torch.int64), (words, torch.int64))
-    b, w = ct.shape
-    n_in, lev, m_out = words.shape
-    _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
-    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
-    lib = load()["keyswitch"]
-    if keyswitch_imma_shape(n_in, levels, base_log):
-        _require(limbs is not None, "K1's tensor-core kernel takes the key's byte layout: "
-                 "build it once with kernels.keyswitch_key")
-        _check_cuda((ct, torch.int64), (limbs, torch.uint8))
-        err = lib.tfhe_torch_keyswitch_imma(
-            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), b, n_in, levels, m_out,
-            base_log, limbs.shape[0], limbs.shape[1], _stream(ct))
-        _raise_on(err, "keyswitch (tensor cores)")
-        keyswitch.imma_launches += 1
-    else:
-        err = lib.tfhe_torch_keyswitch(
-            out.data_ptr(), ct.data_ptr(), words.data_ptr(), b, n_in, levels, m_out,
-            base_log, _stream(ct))
-        _raise_on(err, "keyswitch")
+    out, imma = _launch_keyswitch(ct, ksk, base_log, levels, 8)
+    keyswitch.imma_launches += imma
     keyswitch.launches += 1
     return out
 
 
 keyswitch.launches = 0
 keyswitch.imma_launches = 0     # of them, K1's tensor-core kernel
+
+
+def keyswitch32(ct, ksk32, base_log: int, levels: int):
+    """K1-32: the KS32 pattern's keyswitch (see ops/server.py keyswitch32),
+    a u64 LWE to a u32 LWE (int64 in [0, 2^32)).
+
+    ct: (B, n_in+1) int64; ksk32: the (n_in, l, n_out+1) int64 key of u32
+    words or its KeyswitchKeyLimbs at 4 limbs a word.  On the card the
+    tensor-core kernel at keyswitch_imma_shape, else the generic kernel's
+    u32 twin."""
+    if ct.device.type == "cpu":
+        words = ksk32.words if isinstance(ksk32, KeyswitchKeyLimbs) else ksk32
+        return server.keyswitch32(ct, words, base_log, levels)
+    out, imma = _launch_keyswitch(ct, ksk32, base_log, levels, 4)
+    keyswitch32.imma_launches += imma
+    keyswitch32.launches += 1
+    return out
+
+
+keyswitch32.launches = 0
+keyswitch32.imma_launches = 0   # of them, the tensor-core kernel
 
 
 def exact_lazy_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:

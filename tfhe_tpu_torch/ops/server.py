@@ -1,17 +1,20 @@
 """Batched server-side compute path on int64 torus tensors.
 
-The port of tfhe_tpu/ops/server.py for the classic and the multi-bit
-KS->PBS atomic patterns and for ciphertext compression.  Each function here
-is the plain PyTorch version of its tfhe_tpu namesake: the same exact
-integer arithmetic, so outputs are the same u64 words.  ``keyswitch``,
-``blind_rotate``, ``cmux_step``, the two multi-bit rotations and
-``packing_keyswitch`` are also the plain versions of the CUDA kernels
-(ops/kernels.py): the pipelines below go through the kernel wrappers, which
-run these plain versions for CPU tensors.
+The port of tfhe_tpu/ops/server.py for the shortint atomic patterns
+(classic and multi-bit KS->PBS, KS32, PBS->KS, the drift modulus switch,
+many-LUT) and for ciphertext compression.  Each function here is the plain
+PyTorch version of its tfhe_tpu namesake: the same exact integer
+arithmetic, so outputs are the same u64 words.  ``keyswitch``,
+``keyswitch32``, ``blind_rotate``, ``cmux_step``, the two multi-bit
+rotations and ``packing_keyswitch`` are also the plain versions of the
+CUDA kernels (ops/kernels.py): the pipelines below go through the kernel
+wrappers, which run these plain versions for CPU tensors.
 
 Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
 u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
-is int64 ``>>``.
+is int64 ``>>``.  The KS32 pattern's u32 words are int64 in [0, 2^32),
+from the keyswitch through the 32-bit modulus switch: every u32 sum and
+difference is taken mod 2^32 with ``& M32``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from .torus import s64, shr
 
 _HI32 = s64(0xFFFFFFFF00000000)
 _HALF32 = 1 << 31
+M32 = 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------
@@ -97,14 +101,76 @@ def keyswitch(ct, ksk, base_log: int, levels: int):
     return out
 
 
+def keyswitch32(ct, ksk32, base_log: int, levels: int):
+    """The KS32 atomic pattern's keyswitch (tfhe_tpu/ops/server.py:110;
+    shortint/atomic_pattern/ks32.rs): a u64 LWE under the big key to a u32
+    LWE under the small key.
+
+    ct: (B, n_in+1) int64; ksk32: (n_in, l, n_out+1) int64 holding u32 words.
+    The u64 mask is decomposed as ``keyswitch`` decomposes it, the digits
+    are contracted with the key mod 2^32, and the body is b >> 32 (logical):
+    out = (0, ..., 0, b >> 32) - sum digit * ksk32 mod 2^32, (B, n_out+1)
+    int64 in [0, 2^32)."""
+    digits = signed_decompose(ct[:, :-1], base_log, levels)   # (l, B, n_in)
+    b = ct.shape[0]
+    d = digits.permute(1, 2, 0).reshape(b, -1)                 # (B, n_in*l)
+    acc = _matmul_wrapping(d, ksk32.reshape(-1, ksk32.shape[-1]))
+    out = -acc
+    out[:, -1] += shr(ct[:, -1], 32)
+    return out & M32
+
+
 # ---------------------------------------------------------------------------
 # Modulus switch
 # ---------------------------------------------------------------------------
 
 
-def modulus_switch(x, log_modulus: int):
-    """(x + half) >> (64 - log_modulus): values in [0, 2^log_modulus)."""
+def modulus_switch(x, log_modulus: int, bits: int = 64):
+    """(x + half) >> (bits - log_modulus): values in [0, 2^log_modulus).
+    bits = 32 takes u32 words (int64 in [0, 2^32)): the half is added mod
+    2^32 before the shift, as u32 arithmetic wraps."""
+    if bits == 32:
+        return ((x + (1 << (31 - log_modulus))) & M32) >> (32 - log_modulus)
     return shr(x + (1 << (63 - log_modulus)), 64 - log_modulus)
+
+
+def drift_ms_improve(ct, zeros, log_modulus: int, r_sigma: float,
+                     bound: float, input_variance_mod: float):
+    """Drift-technique modulus-switch noise reduction
+    (tfhe_tpu/ops/server.py:226; modulus_switch_noise_reduction.rs:202):
+    among {ct} and {ct + z_i} for the public zero-encryptions z_i, pick per
+    batch element the candidate minimising |E[ms error]| + r_sigma *
+    std(ms error), computed in float32 from the rounding errors.
+
+    ct: (B, n+1) int64; zeros: (Z, n+1).  Returns the chosen (B, n+1).
+    The float32 sums run in one pinned order, column after column, on any
+    device (tfhe_tpu's XLA CPU sums in that order for n <= 32, which every
+    drift set of the tests has): a reduction in another order can round a
+    near tie the other way.  bound is the reference's assertion that some
+    candidate meets it; the argmin takes the first smallest measure."""
+    shift = 64 - log_modulus
+    half = 1 << (shift - 1)
+    cands = torch.cat([torch.zeros_like(zeros[:1]), zeros])
+    c = ct[None, :, :] + cands[:, None, :]                   # (Z+1, B, n+1)
+
+    def round_err(x):
+        return ((shr(x + half, shift) << shift) - x).to(torch.float32)
+
+    mask_err = round_err(c[..., :-1])
+    body_err = round_err(c[..., -1])
+    total = torch.zeros_like(body_err)
+    squares = torch.zeros_like(body_err)
+    for i in range(mask_err.shape[-1]):
+        col = mask_err[..., i]
+        total = total + col
+        squares = squares + col * col
+    f32 = dict(dtype=torch.float32, device=ct.device)
+    expectancy = body_err - total / 2.0
+    variance = squares / 4.0
+    measure = expectancy.abs() + torch.sqrt(
+        variance + torch.tensor(input_variance_mod, **f32)) * torch.tensor(r_sigma, **f32)
+    best = torch.argmin(measure, dim=0)                      # (B,)
+    return torch.gather(c, 0, best[None, :, None].expand(1, -1, c.shape[-1]))[0]
 
 
 def centered_binary_ms_correction(ct, log_modulus: int):
@@ -449,15 +515,35 @@ def packing_keyswitch(lwes, pksk, base_log: int, levels: int,
 # ---------------------------------------------------------------------------
 
 
+def keyswitch_then_drift(ct, ksk, log_mod: int, ks_base_log: int, ks_levels: int,
+                         drift_zeros=None, drift_r_sigma: float = 0.0,
+                         drift_bound: float = 0.0, drift_input_variance: float = 0.0):
+    """The u64 keyswitch (K1) and, with drift_zeros, the drift choice among
+    the keyswitched ciphertext and its sums with the zero-encryptions."""
+    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
+    if drift_zeros is not None:
+        ks = drift_ms_improve(ks, drift_zeros, log_mod, drift_r_sigma, drift_bound,
+                              drift_input_variance)
+    return ks
+
+
 def ks_ms_batch(ct, ksk, log_mod: int, ks_base_log: int, ks_levels: int,
-                centered_ms: bool = False):
+                centered_ms: bool = False, ks32: bool = False, drift_zeros=None,
+                drift_r_sigma: float = 0.0, drift_bound: float = 0.0,
+                drift_input_variance: float = 0.0):
     """First half of the atomic pattern, keyswitch then modulus switch
     (tfhe_tpu/ops/server.py:712 ks_ms_batch): (B, n_small+1) values in
     [0, 2^log_mod), what blind rotation takes and what a
-    CompressedModulusSwitchedCiphertext stores.  The keyswitch goes through
-    K1.  tfhe_tpu's KS32 and drift arms come with ROADMAP queue 1 item 7:
-    the ServerKey refuses those sets (server_key._check_supported)."""
-    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
+    CompressedModulusSwitchedCiphertext stores.  ks32: the u32 keyswitch
+    (K1-32) and the 32-bit modulus switch, with no centered-mean correction
+    and no drift, as tfhe_tpu's KS32 branch; else the u64 keyswitch (K1),
+    the drift choice where drift_zeros are given, and the centered-mean
+    correction where asked."""
+    if ks32:
+        ks = kernels.keyswitch32(ct, ksk, ks_base_log, ks_levels)
+        return modulus_switch(ks, log_mod, 32)
+    ks = keyswitch_then_drift(ct, ksk, log_mod, ks_base_log, ks_levels, drift_zeros,
+                              drift_r_sigma, drift_bound, drift_input_variance)
     body = ks[:, -1]
     if centered_ms:
         body = body + centered_binary_ms_correction(ks, log_mod)
@@ -492,17 +578,21 @@ def pbs_from_switched_batch_multibit(msed, lut, mb_key_ntt, dp: ntt.DevicePlan,
 
 def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
                  ks_levels: int, pbs_base_log: int, pbs_levels: int,
-                 centered_ms: bool = False, trunc_acc: bool = False):
+                 centered_ms: bool = False, trunc_acc: bool = False,
+                 ks32: bool = False, drift_zeros=None, drift_r_sigma: float = 0.0,
+                 drift_bound: float = 0.0, drift_input_variance: float = 0.0):
     """One batched KS->PBS (tfhe_tpu/ops/server.py:609 ks_pbs_batch; with
     trunc_acc and a rounded key, :920 ks_pbs_batch_mxu kernel="v7").
 
     ct: (B, n_big+1); lut: (B, k+1, N); ksk: (n_big, l_ks, n_small+1) or
     its kernels.KeyswitchKeyLimbs (ServerKey.ks_key);
     bsk_ntt: (n_small, l_pbs, k+1, k+1, P, N).  Returns (B, n_big+1).
-    Keyswitch and blind rotation go through the kernel wrappers.
+    Keyswitch and blind rotation go through the kernel wrappers; ks32 and
+    the drift arguments as in ``ks_ms_batch``.
     """
     msed = ks_ms_batch(ct, ksk, lut.shape[-1].bit_length(), ks_base_log,
-                       ks_levels, centered_ms)
+                       ks_levels, centered_ms, ks32, drift_zeros, drift_r_sigma,
+                       drift_bound, drift_input_variance)
     return pbs_from_switched_batch(msed, lut, bsk_ntt, dp, pbs_base_log,
                                    pbs_levels, trunc_acc)
 
@@ -510,22 +600,92 @@ def ks_pbs_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
 def ks_pbs_batch_multibit(ct, lut, ksk, mb_key_ntt, dp: ntt.DevicePlan,
                           ks_base_log: int, ks_levels: int, pbs_base_log: int,
                           pbs_levels: int, grouping: int,
-                          centered_ms: bool = False, v9: bool = False):
+                          centered_ms: bool = False, v9: bool = False,
+                          ks32: bool = False, drift_zeros=None,
+                          drift_r_sigma: float = 0.0, drift_bound: float = 0.0,
+                          drift_input_variance: float = 0.0):
     """The multi-bit atomic pattern KS -> MS -> multi-bit blind rotation ->
     SE (tfhe_tpu/ops/server.py:657 ks_pbs_batch_multibit; with v9 and a
     rounded key, :977 ks_pbs_batch_mxu_multibit).  The degrees are modulus
-    switches of raw mask sums; keyswitch and blind rotation go through the
-    kernel wrappers.  mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N)."""
+    switches of raw mask sums (ks32: of the u32 mask shifted to the u64
+    torus, the body switched at 32 bits); keyswitch and blind rotation go
+    through the kernel wrappers.  mb_key_ntt: (n/g, 2^g, l, k+1, k+1, P, N)."""
     log_mod = lut.shape[-1].bit_length()
-    ks = kernels.keyswitch(ct, ksk, ks_base_log, ks_levels)
-    body = ks[:, -1]
-    if centered_ms:
-        body = body + centered_binary_ms_correction(ks, log_mod)
+    if ks32:
+        ks = kernels.keyswitch32(ct, ksk, ks_base_log, ks_levels)
+        mask, body = ks[:, :-1] << 32, modulus_switch(ks[:, -1], log_mod, 32)
+    else:
+        ks = keyswitch_then_drift(ct, ksk, log_mod, ks_base_log, ks_levels, drift_zeros,
+                                  drift_r_sigma, drift_bound, drift_input_variance)
+        mask, body = ks[:, :-1], ks[:, -1]
+        if centered_ms:
+            body = body + centered_binary_ms_correction(ks, log_mod)
+        body = modulus_switch(body, log_mod)
     acc = kernels.blind_rotate_multibit(
-        multibit_switched_degrees(ks[:, :-1], grouping, log_mod),
-        modulus_switch(body, log_mod), lut, mb_key_ntt, dp, pbs_base_log,
-        pbs_levels, v9)
+        multibit_switched_degrees(mask, grouping, log_mod), body, lut, mb_key_ntt, dp,
+        pbs_base_log, pbs_levels, v9)
     return sample_extract(acc)
+
+
+def pbs_ks_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
+                 ks_levels: int, pbs_base_log: int, pbs_levels: int,
+                 centered_ms: bool = False):
+    """The PBS->KS order (tfhe_tpu/ops/server.py:741 pbs_ks_batch;
+    PBSOrder::BootstrapKeyswitch, the SMALL-key sets): ciphertexts live
+    under the small key, so a LUT is modulus switch -> exact blind rotation
+    (K2) -> extract (onto the big key) -> keyswitch back down (K1).
+    ct: (B, n_small+1); returns (B, n_small+1)."""
+    log_mod = lut.shape[-1].bit_length()
+    body = ct[:, -1]
+    if centered_ms:
+        body = body + centered_binary_ms_correction(ct, log_mod)
+    msed = torch.cat([modulus_switch(ct[:, :-1], log_mod),
+                      modulus_switch(body, log_mod)[:, None]], dim=1)
+    big = pbs_from_switched_batch(msed, lut, bsk_ntt, dp, pbs_base_log, pbs_levels)
+    return kernels.keyswitch(big, ksk, ks_base_log, ks_levels)
+
+
+def extract_many(acc, extract_offsets) -> torch.Tensor:
+    """One sample extraction at each coefficient offset of a rotated
+    accumulator (B, k+1, N): (B, len(offsets), k N + 1)."""
+    b = acc.shape[0]
+    return torch.stack([sample_extract(monomial_div(
+        acc, torch.full((b, 1, 1), off, dtype=torch.int64, device=acc.device)))
+        for off in extract_offsets], dim=1)
+
+
+def ks_pbs_many_batch(ct, lut, ksk, bsk_ntt, dp: ntt.DevicePlan, ks_base_log: int,
+                      ks_levels: int, pbs_base_log: int, pbs_levels: int,
+                      extract_offsets: tuple, centered_ms: bool = False,
+                      ks32: bool = False, drift_zeros=None, drift_r_sigma: float = 0.0,
+                      drift_bound: float = 0.0, drift_input_variance: float = 0.0):
+    """Many-LUT (tfhe_tpu/ops/server.py:791; server_key/mod.rs:922): one
+    KS -> MS (with the KS32, drift and centered-mean options of
+    ``ks_ms_batch``) -> exact blind rotation on the unrounded key, then one
+    sample extraction a function at its coefficient offset.  tfhe_tpu runs
+    the exact rotation here on every backend, v7-family keys included (its
+    TPU path, blind_rotate_pallas_v2): on the card, K2's exact mode.
+    Returns (B, len(extract_offsets), n_big+1)."""
+    msed = ks_ms_batch(ct, ksk, lut.shape[-1].bit_length(), ks_base_log, ks_levels,
+                       centered_ms, ks32, drift_zeros, drift_r_sigma, drift_bound,
+                       drift_input_variance)
+    acc = kernels.blind_rotate(msed[:, :-1], msed[:, -1], lut, bsk_ntt, dp,
+                               pbs_base_log, pbs_levels, False)
+    return extract_many(acc, extract_offsets)
+
+
+def pbs_many_from_switched_multibit(msed, lut, mb_key_ntt, dp: ntt.DevicePlan,
+                                    pbs_base_log: int, pbs_levels: int, grouping: int,
+                                    extract_offsets: tuple):
+    """The multi-bit many-LUT tail (tfhe_tpu/ops/server.py:893): one exact
+    multi-bit rotation (K3 exact mode) of switched values, the degrees sums
+    of them (raw=False), then one extraction a function.
+    Returns (B, len(extract_offsets), n_big+1)."""
+    degrees = multibit_switched_degrees(msed[:, :-1], grouping,
+                                        lut.shape[-1].bit_length(), raw=False)
+    acc = kernels.blind_rotate_multibit(degrees, msed[:, -1], lut, mb_key_ntt, dp,
+                                        pbs_base_log, pbs_levels, False)
+    return extract_many(acc, extract_offsets)
 
 
 # ---------------------------------------------------------------------------

@@ -23,16 +23,24 @@ from ..utils.csprng import ByteStream, DeterministicSeeder
 from .ciphertext import NOMINAL_NOISE, Ciphertext
 from .client_key import ClientKey
 from .params import ShortintParams
-from .server_key import (ROUND_BITS, ServerKey, _check_supported,
-                         _floor_rounds_securely, _v7_family)
+from .server_key import ROUND_BITS, ServerKey, _floor_rounds_securely, _v7_family
+
+
+def _check_seedable(p) -> None:
+    """A seeded server key is drawn at 64 bits: a KS32 set's u32 keyswitch
+    key is not (tfhe_tpu draws its seeded KSK at 64 bits there, a key the
+    u32 keyswitch cannot use), nor is a multi-bit set's key."""
+    if getattr(p, "grouping_factor", None) is not None:
+        raise ValueError("seeded server keys: classic KS->PBS sets only")
+    if p.ks32:
+        raise ValueError("seeded server keys: the KS32 pattern's u32 keyswitch key "
+                         "is not seeded")
 
 
 class CompressedServerKey:
     def __init__(self, client_key: ClientKey, seed: int | None = None):
         p = client_key.params
-        _check_supported(p)
-        if getattr(p, "grouping_factor", None) is not None:
-            raise ValueError("seeded server keys: classic KS->PBS sets only")
+        _check_seedable(p)
         self.params = p
         if seed is None:
             seed = secrets.randbits(128)
@@ -63,7 +71,7 @@ class CompressedServerKey:
         """Carry a seeded key in from its seeds and stored bodies: KSK bodies
         (n_big, l_ks), BSK bodies (n, l_pbs, k+1, N) u64, and the rb its BSK
         masks are floored to."""
-        _check_supported(params)
+        _check_seedable(params)
         core = params.core
         obj = cls.__new__(cls)
         obj.params = params

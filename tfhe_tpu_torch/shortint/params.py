@@ -1,6 +1,6 @@
-"""shortint parameter sets (the classic KS->PBS and the multi-bit sets of
-tfhe_tpu/shortint/params.py, and its dedicated compact-public-key (PKE) and
-casting sets; KS32 and PBS->KS sets arrive with the slice that runs them).
+"""shortint parameter sets: every set of tfhe_tpu/shortint/params.py (the
+classic KS->PBS sets, KS32, PBS->KS, the multi-bit sets, and the dedicated
+compact-public-key (PKE) and casting sets), with the same values.
 
 Message space = MessageModulus x CarryModulus (+1 padding bit) in one LWE
 (SURVEY.md §2.3).  Numeric values mirror the reference's versioned parameter
@@ -11,6 +11,7 @@ ks_pbs.rs:29-47 for the canonical 2_2 set).
 from __future__ import annotations
 
 import enum
+import dataclasses as _dc
 from dataclasses import dataclass
 
 from ..core.params import (
@@ -20,7 +21,7 @@ from ..core.params import (
     GlweParams,
     LweParams,
 )
-from ..utils.csprng import TUniform
+from ..utils.csprng import Gaussian, TUniform
 
 
 class EncryptionKeyChoice(enum.Enum):
@@ -181,6 +182,74 @@ TEST_PARAM_MESSAGE_2_CARRY_2 = ShortintParams(
     max_noise_level=5,
     log2_p_fail=-40.0,
     ms_noise_reduction=MsNoiseReduction.NONE,
+)
+
+# KS32 variant of the test parameters (KeySwitch32 atomic pattern)
+TEST_PARAM_MESSAGE_2_CARRY_2_KS32 = _dc.replace(
+    TEST_PARAM_MESSAGE_2_CARRY_2, ks32=True, ks_base_log=4, ks_level=3)
+
+# v1_4 KS32 2_2 analog: same compute dims, u32 keyswitch with deeper
+# decomposition to keep the (coarser) u32 torus rounding inside budget.  Its
+# KSK noise TUniform(45) drawn at 32 bits and masked to 32 bits is uniform
+# on the u32 torus, as in tfhe_tpu: its ciphertexts decrypt at random
+# (copied for word parity; ROADMAP.md queue 3)
+V1_4_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128 = _dc.replace(
+    V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128, ks32=True,
+    ks_base_log=4, ks_level=5)
+
+
+# ---------------------------------------------------------------------------
+# pfail tiers (v1_4/classic/tuniform/p_fail_2_minus_{64,40}/ks_pbs.rs — the
+# reference versions these via v1_1 aliases; numeric values preserved)
+# ---------------------------------------------------------------------------
+
+V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M64 = ShortintParams(
+    lwe_dimension=879,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_noise=TUniform(46),
+    glwe_noise=TUniform(17),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=3,
+    ks_level=5,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-72.178,
+)
+
+V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M40 = ShortintParams(
+    lwe_dimension=839,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_noise=TUniform(47),
+    glwe_noise=TUniform(17),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=3,
+    ks_level=5,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-57.015,
+)
+
+# Gaussian-noise family (v1_4/classic/gaussian/p_fail_2_minus_128/ks_pbs.rs)
+V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_GAUSSIAN_2M128 = ShortintParams(
+    lwe_dimension=866,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_noise=Gaussian(2.046151696979124e-06),
+    glwe_noise=Gaussian(2.845267479601915e-15),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=3,
+    ks_level=5,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-128.377,
 )
 
 
@@ -406,3 +475,30 @@ V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
     V1_4_PARAM_KEYSWITCH_PKE_TO_SMALL_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
 V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = \
     V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2
+
+
+# PBS->KS ordering family (PBSOrder::BootstrapKeyswitch — ciphertexts under
+# the SMALL key; v1_4/classic/gaussian/p_fail_2_minus_128/pbs_ks.rs:33-55).
+# tfhe_tpu multiplies the stds by 2^64 and its sampler scales by 2^64 again,
+# so this set's noise is uniform on the torus and it decrypts at random: the
+# values are copied for word parity (ROADMAP.md queue 3)
+V1_4_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128 = ShortintParams(
+    lwe_dimension=978,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_noise=Gaussian(2.962875621642539e-07 * 2.0 ** 64),
+    glwe_noise=Gaussian(2.845267479601915e-15 * 2.0 ** 64),
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=3,
+    ks_level=6,
+    message_modulus=4,
+    carry_modulus=4,
+    max_noise_level=5,
+    log2_p_fail=-128.05,
+    encryption_key_choice=EncryptionKeyChoice.SMALL,
+)
+
+TEST_PARAM_MESSAGE_2_CARRY_2_PBS_KS = _dc.replace(
+    TEST_PARAM_MESSAGE_2_CARRY_2,
+    encryption_key_choice=EncryptionKeyChoice.SMALL)

@@ -1,16 +1,19 @@
 """shortint server key: batched LUT application + the four-flavor op set.
 
-Port of tfhe_tpu/shortint/server_key.py for the classic and the multi-bit
-KS->PBS atomic patterns.  Keys are generated on the host exactly as
-tfhe_tpu generates them (same seeds, same bytes, the same BSK mask
-flooring) and uploaded to the device once, in kernel layout.
-``apply_lookup_table_batch`` runs one batched KS -> MS -> blind rotation ->
-sample extract (ops/server.py ks_pbs_batch, or ks_pbs_batch_multibit for a
-multi-bit set) through the CUDA kernels on a CUDA device, or through their
-plain PyTorch versions on the CPU.  ``switch_modulus_and_compress`` stores
-a ciphertext after the KS + MS half, and
+Port of tfhe_tpu/shortint/server_key.py for every atomic pattern it runs:
+classic and multi-bit KS->PBS, KS32 (a u32 keyswitch key, K1-32), PBS->KS
+(the SMALL-key sets) and the drift modulus switch, and many-LUT.  Keys are
+generated on the host exactly as tfhe_tpu generates them (same seeds, same
+bytes, the same BSK mask flooring) and uploaded to the device once, in
+kernel layout.  ``apply_lookup_table_batch`` runs one batched KS -> MS ->
+blind rotation -> sample extract (ops/server.py ks_pbs_batch, or
+ks_pbs_batch_multibit for a multi-bit set, or pbs_ks_batch for a SMALL-key
+set) through the CUDA kernels on a CUDA device, or through their plain
+PyTorch versions on the CPU.  ``switch_modulus_and_compress`` stores a
+ciphertext after the KS + MS half, and
 ``decompress_and_apply_lookup_table_batch`` runs the other half, always in
-exact mode (the exact key is uploaded at its first use in v7 or v9 mode).
+exact mode (the exact key is uploaded at its first use in v7 or v9 mode),
+as does many-LUT (``apply_many_lookup_table_batch``).
 
 Which blind rotation runs is fixed at construction, as tfhe_tpu's
 ``use_mxu`` and ``use_mxu_multibit`` fix it by backend.  Classic sets: v7
@@ -39,6 +42,7 @@ import torch
 from ..core import keygen as kg
 from ..core import multibit as mb
 from ..core import security
+from ..core.encrypt import encrypt_lwe
 from ..core.entities import LweBootstrapKey
 from ..ops import kernels, ntt, torus
 from ..ops import server as srv
@@ -54,8 +58,6 @@ from .params import (EncryptionKeyChoice, MsNoiseReduction,
 # BSK rounding of the v7 blind rotation: tfhe_tpu's default for its 3-prime
 # MXU stack (server_key.py:160-166), fixed here.
 ROUND_BITS = 15
-
-MANY_LUT_PENDING = "many-LUT (generate/apply_many_lookup_table): ROADMAP queue 1 item 7"
 
 
 class CarryFullError(Exception):
@@ -147,6 +149,19 @@ class LookupTable:
 
 
 @dataclass
+class ManyLookupTable:
+    """One accumulator evaluating several functions
+    (tfhe_tpu/shortint/server_key.py:108; server_key/mod.rs
+    ManyLookupTable): function i's outputs are extracted at coefficient
+    i * stride; inputs must have degree <= input_max_degree."""
+
+    acc: np.ndarray
+    stride: int
+    degrees: tuple
+    input_max_degree: int
+
+
+@dataclass
 class CompressedModulusSwitchedCiphertext:
     """A ciphertext stored after keyswitch and modulus switch, log2(2N)
     bits a coefficient instead of 64 (tfhe_tpu/shortint/server_key.py:118;
@@ -235,42 +250,30 @@ def _floor_rounds_securely(p, round_bits: int) -> None:
             f"secure parameter set below the estimator curve: {detail}")
 
 
-def _check_supported(p) -> None:
-    """The arms of tfhe_tpu's apply_lookup_table_batch that later slices
-    port (ROADMAP.md queue 1) raise instead of taking another path."""
-    if p.ks32:
-        raise NotImplementedError("KS32 atomic pattern: ROADMAP queue 1 item 7")
-    if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
-        raise NotImplementedError(
-            "PBS->KS order (SMALL key): ROADMAP queue 1 item 7")
-    if p.ms_noise_reduction == MsNoiseReduction.DRIFT:
-        raise NotImplementedError(
-            "drift modulus-switch noise reduction: ROADMAP queue 1 item 7")
-    if p.bits != 64:
-        raise NotImplementedError("only the native 2^64 torus is ported")
-
-
 class ServerKey:
     def __init__(self, client_key: ClientKey, seed: int | None = None,
                  device="cuda"):
         device = resolve_device(device)
         p = client_key.params
-        _check_supported(p)
         if seed is None:
             seed = secrets.randbits(128)
         gen = EncryptionRandomGenerator(seed, DeterministicSeeder(seed ^ 0xB5297A4D))
         core = p.core
+        # the KS32 pattern's key is drawn at 32 bits (u32 words, 4 mask bytes
+        # a word), which shifts every later draw of the generator
         ksk = kg.generate_lwe_keyswitch_key(
             client_key.big_lwe_secret_key, client_key.lwe_secret_key,
-            core.ks_decomp, p.lwe_noise, gen)
+            core.ks_decomp, p.lwe_noise, gen, 32 if p.ks32 else 64)
         glwe_sk = client_key.glwe_secret_key
         floored = 0
+        drift_zeros = None
         # Keygen-side, phase-preserving mask alignment so that the rounded
         # key only perturbs bodies (ops/bsk_prep.mask_floor_bsk), where the
         # floored key still meets the estimator curves.
         if getattr(p, "grouping_factor", None) is not None:
             # MultiBit arm: 2^g indicator GGSWs per group of g key bits, from
-            # the same generator after the KSK, floored flattened
+            # the same generator after the KSK, floored flattened (no drift
+            # zeros: tfhe_tpu's multi-bit arm draws none)
             bsk = mb.generate_multibit_bootstrap_key(
                 client_key.lwe_secret_key, glwe_sk, core.pbs_decomp,
                 p.grouping_factor, p.glwe_noise, gen, device)
@@ -289,24 +292,32 @@ class ServerKey:
                 _floor_rounds_securely(p, ROUND_BITS)
                 bsk = mask_floor_bsk(bsk, glwe_sk, ROUND_BITS, device)
                 floored = ROUND_BITS
-        self._init_from_raw(p, ksk.data, bsk, floored, device)
+            if p.ms_noise_reduction == MsNoiseReduction.DRIFT:
+                # the drift technique's public zero-encryptions under the small
+                # key, drawn after the BSK (tfhe_tpu/shortint/server_key.py:303)
+                drift_zeros = np.stack([
+                    encrypt_lwe(client_key.lwe_secret_key, 0, p.lwe_noise, gen).data
+                    for _ in range(p.drift_zeros_count)])
+        self._init_from_raw(p, ksk.data, bsk, floored, device, drift_zeros)
 
     @classmethod
     def from_raw_keys(cls, params: ShortintParams, ksk_data, bsk_data,
                       bsk_floored: int = 0, device="cuda") -> "ServerKey":
-        """Build from standard-domain KSK (n_big, l, n_small+1) and BSK
-        uint64 arrays: (n_small, l, k+1, k+1, N) for a classic set,
-        (n_small/g, 2^g, l, k+1, k+1, N) for a multi-bit set.  bsk_floored:
-        the rb the BSK masks are floored to (0 for a key that was not
-        floored, which never takes the v7 or v9 rotation)."""
+        """Build from standard-domain KSK (n_big, l, n_small+1; u32 words for
+        a KS32 set) and BSK uint64 arrays: (n_small, l, k+1, k+1, N) for a
+        classic set, (n_small/g, 2^g, l, k+1, k+1, N) for a multi-bit set.
+        bsk_floored: the rb the BSK masks are floored to (0 for a key that
+        was not floored, which never takes the v7 or v9 rotation).  A key
+        built so has no drift zeros, as in tfhe_tpu: a drift set's rounds
+        then run the plain modulus switch."""
         device = resolve_device(device)
-        _check_supported(params)
         obj = cls.__new__(cls)
         obj._init_from_raw(params, ksk_data, bsk_data, bsk_floored, device)
         return obj
 
     def _init_from_raw(self, p: ShortintParams, ksk_data, bsk_data,
-                       bsk_floored: int, device: torch.device) -> None:
+                       bsk_floored: int, device: torch.device,
+                       drift_zeros=None) -> None:
         self.params = p
         self.device = device
         self._bsk_floored = bsk_floored
@@ -326,12 +337,16 @@ class ServerKey:
         self._bsk_ntt_exact = None
         self.plan = ntt.make_plan(p.polynomial_size)
         self.dp = ntt.device_plan(self.plan, str(device))
-        # uploaded once, in kernel layout: u64 KSK as int64, and on the card
-        # K1's byte layout of it (ks_key, what every keyswitch takes); the
-        # BSK as the rounded key built on the device (v7, v9) or the exact
-        # NTT-domain residues (< 2^30) as int32
+        # uploaded once, in kernel layout: the KSK as int64 (u64 words, or a
+        # KS32 key's u32 words), and on the card K1's (K1-32's) byte layout
+        # of it (ks_key, what every keyswitch takes); the BSK as the rounded
+        # key built on the device (v7, v9) or the exact NTT-domain residues
+        # (< 2^30) as int32; the drift zeros (n_small+1 words each)
         self.ksk = torus.from_u64(np.asarray(ksk_data), device)
-        self.ks_key = kernels.keyswitch_key(self.ksk, p.ks_base_log, p.ks_level)
+        self.ks_key = kernels.keyswitch_key(self.ksk, p.ks_base_log, p.ks_level,
+                                            32 if p.ks32 else 64)
+        self.drift_zeros = (None if drift_zeros is None
+                            else torus.from_u64(np.asarray(drift_zeros), device))
         if self.trunc_acc:
             self.bsk_ntt = rounded_key_ntt(getattr(bsk, "data", bsk), round_bits,
                                            p.pbs_base_log, device, grouping)
@@ -340,6 +355,17 @@ class ServerKey:
         self.max_degree = p.total_modulus - 1
         self.max_noise_level = p.max_noise_level
         self.pbs_count = 0  # pbs-stats analog (shortint/server_key/mod.rs:69)
+
+    def _ks_options(self) -> dict:
+        """The keyswitch half's options of this key's set, as tfhe_tpu passes
+        them to every pipeline: centered-mean modulus switch, the KS32
+        keyswitch, the drift zeros and their parameters (the input variance
+        on the 2^64 scale)."""
+        p = self.params
+        return dict(centered_ms=p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN,
+                    ks32=p.ks32, drift_zeros=self.drift_zeros,
+                    drift_r_sigma=p.drift_r_sigma, drift_bound=p.drift_ms_bound,
+                    drift_input_variance=p.drift_input_variance * (2.0 ** 64) ** 2)
 
     # ------------------------------------------------------------------
     # Lookup tables
@@ -391,17 +417,24 @@ class ServerKey:
         batch = upload_batch([c.data for c in cts] + [cts[0].data] * (n_pad - n_real),
                              self.device)
         lut_b = self._upload_luts(luts, n_pad)
-        centered = p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN
-        if self.grouping is not None:
+        if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
+            # PBS->KS order: small-key ciphertexts bootstrap first (exact
+            # rotation: the SMALL sets are outside the v7 family), then
+            # keyswitch back down
+            out = srv.pbs_ks_batch(
+                batch, lut_b, self.ks_key, self.bsk_ntt, self.dp, p.ks_base_log,
+                p.ks_level, p.pbs_base_log, p.pbs_level,
+                p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN)
+        elif self.grouping is not None:
             out = srv.ks_pbs_batch_multibit(
                 batch, lut_b, self.ks_key, self.bsk_ntt, self.dp,
                 p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
-                self.grouping, centered_ms=centered, v9=self.trunc_acc)
+                self.grouping, v9=self.trunc_acc, **self._ks_options())
         else:
             out = srv.ks_pbs_batch(
                 batch, lut_b, self.ks_key, self.bsk_ntt, self.dp,
                 p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level,
-                centered_ms=centered, trunc_acc=self.trunc_acc)
+                trunc_acc=self.trunc_acc, **self._ks_options())
         self.pbs_count += n_real
         return lazy_outputs(out, [t.degree for t in luts], cts)
 
@@ -425,17 +458,79 @@ class ServerKey:
     def apply_lookup_table(self, ct: Ciphertext, lut: LookupTable) -> Ciphertext:
         return self.apply_lookup_table_batch([ct], lut)[0]
 
-    # Many-LUT (several functions from one blind rotation) comes with the
-    # other shortint atomic patterns: each method refuses until then.
+    # ------------------------------------------------------------------
+    # Many-LUT: several functions evaluated by one blind rotation
+    # ------------------------------------------------------------------
 
-    def generate_many_lookup_table(self, functions):
-        raise NotImplementedError(MANY_LUT_PENDING)
+    def generate_many_lookup_table(self, functions) -> ManyLookupTable:
+        """Pack up to total/2 functions into one accumulator; the input
+        degree budget shrinks to total/len - 1 (engine/mod.rs:170
+        fill_many_lut_accumulator; tfhe_tpu/shortint/server_key.py:734)."""
+        p = self.params
+        total = p.total_modulus
+        n = p.polynomial_size
+        box = n // total
+        fn_c = len(functions)
+        if fn_c > total // 2:
+            raise ValueError(f"at most {total // 2} functions")
+        max_deg = total // fn_c - 1
+        stride = (max_deg + 1) * box
+        acc = np.zeros(n, dtype=np.uint64)
+        degrees = []
+        for i, f in enumerate(functions):
+            deg = 0
+            for v in range(max_deg + 1):
+                out = int(f(v)) % total
+                deg = max(deg, out)
+                acc[i * stride + v * box:i * stride + (v + 1) * box] = (out * p.delta) % _M64
+            degrees.append(deg)
+        half_box = box // 2
+        acc[:half_box] = (-acc[:half_box].astype(np.int64)).astype(np.uint64)
+        acc = np.roll(acc, -half_box)
+        glwe = np.zeros((p.glwe_dimension + 1, n), dtype=np.uint64)
+        glwe[-1] = acc
+        return ManyLookupTable(glwe, stride, tuple(degrees), max_deg)
 
-    def apply_many_lookup_table(self, ct: Ciphertext, mlut) -> list:
-        raise NotImplementedError(MANY_LUT_PENDING)
+    def apply_many_lookup_table(self, ct: Ciphertext, mlut: ManyLookupTable) -> list:
+        return self.apply_many_lookup_table_batch([ct], mlut)[0]
 
-    def apply_many_lookup_table_batch(self, cts: list, mlut) -> list:
-        raise NotImplementedError(MANY_LUT_PENDING)
+    def apply_many_lookup_table_batch(self, cts: list, mlut: ManyLookupTable) -> list:
+        """For each input ciphertext, one output a packed function, all from
+        one batched blind rotation in exact mode on the unrounded key
+        (``exact_bsk_ntt``), as tfhe_tpu runs it on every backend: classic,
+        ops/server.py ks_pbs_many_batch (K1 or K1-32, then K2); multi-bit,
+        ks_ms_batch then pbs_many_from_switched_multibit (K1, then K3).
+        The outputs stay on the device."""
+        p = self.params
+        if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
+            raise ValueError("many-LUT keyswitches first (the KS->PBS order): a "
+                             "SMALL-key set's ciphertexts do not fit its keyswitch, "
+                             "as in tfhe_tpu")
+        for c in cts:
+            if c.degree > mlut.input_max_degree:
+                raise ValueError(f"degree {c.degree} exceeds the many-LUT budget "
+                                 f"{mlut.input_max_degree}")
+        n_real = len(cts)
+        n_pad = pad_pow2(n_real)
+        batch = upload_batch([c.data for c in cts] + [cts[0].data] * (n_pad - n_real),
+                             self.device)
+        acc = torus.from_u64(mlut.acc, self.device)
+        lut_b = acc.expand((n_pad,) + tuple(acc.shape))
+        offsets = tuple(i * mlut.stride for i in range(len(mlut.degrees)))
+        if self.grouping is not None:
+            msed = srv.ks_ms_batch(batch, self.ks_key, p.polynomial_size.bit_length(),
+                                   p.ks_base_log, p.ks_level, **self._ks_options())
+            out = srv.pbs_many_from_switched_multibit(
+                msed, lut_b, self.exact_bsk_ntt(), self.dp, p.pbs_base_log, p.pbs_level,
+                self.grouping, offsets)
+        else:
+            out = srv.ks_pbs_many_batch(
+                batch, lut_b, self.ks_key, self.exact_bsk_ntt(), self.dp, p.ks_base_log,
+                p.ks_level, p.pbs_base_log, p.pbs_level, offsets, **self._ks_options())
+        self.pbs_count += n_real
+        per_fn = [lazy_outputs(out[:, j].contiguous(), [d] * n_real, cts)
+                  for j, d in enumerate(mlut.degrees)]
+        return [[fn_outs[i] for fn_outs in per_fn] for i in range(n_real)]
 
     # ------------------------------------------------------------------
     # Modulus-switched compression (server_key/modulus_switched_compression.rs)
@@ -463,7 +558,7 @@ class ServerKey:
         log_mod = p.polynomial_size.bit_length()
         msed = torus.to_u64(srv.ks_ms_batch(
             upload_batch([ct.data], self.device), self.ks_key, log_mod, p.ks_base_log,
-            p.ks_level, p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN))[0]
+            p.ks_level, **self._ks_options()))[0]
         return CompressedModulusSwitchedCiphertext(
             _pack_bits(msed, log_mod), len(msed), log_mod, ct.degree,
             p.message_modulus, p.carry_modulus)

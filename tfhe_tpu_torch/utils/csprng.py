@@ -189,6 +189,19 @@ class ByteStream:
         raw = self.take(count * 8)
         return raw.view("<u8").copy()
 
+    def uniform_u32(self, count: int) -> np.ndarray:
+        raw = self.take(count * 4)
+        return raw.view("<u4").copy()
+
+    def uniform_scalar(self, count: int, bits: int = 64) -> np.ndarray:
+        """``count`` uniform words of the bits-wide torus as uint64 (a u32
+        draw takes 4 bytes a word)."""
+        if bits == 64:
+            return self.uniform_u64(count)
+        if bits == 32:
+            return self.uniform_u32(count).astype(np.uint64)
+        raise ValueError(bits)
+
     def uniform_u128(self) -> int:
         raw = self.take(16)
         return int.from_bytes(raw.tobytes(), "little")
@@ -198,9 +211,10 @@ class ByteStream:
         raw = self.take(count)
         return (raw & 1).astype(np.uint64)
 
-    def gaussian_torus(self, count: int, std: float, mean: float) -> np.ndarray:
-        """`count` single Gaussian u64 torus samples (each draws a Box-Muller
-        pair, keeps the first: gaussian.rs:151-163).
+    def gaussian_torus(self, count: int, std: float, mean: float,
+                       bits: int = 64) -> np.ndarray:
+        """`count` single Gaussian samples of the bits-wide torus as uint64
+        (each draws a Box-Muller pair, keeps the first: gaussian.rs:151-163).
 
         Sample k consumes exactly the k-th *successful* 16-byte chunk of the
         stream; failed chunks in between are consumed and discarded (each
@@ -229,10 +243,11 @@ class ByteStream:
                 cst = std * np.sqrt(-2.0 * np.log(s[idx]) / s[idx])
                 results[found:found + len(idx)] = u[idx] * cst + mean
                 found += len(idx)
-        return _from_torus(results)
+        return _from_torus(results, bits)
 
-    def tuniform(self, count: int, bound_log2: int) -> np.ndarray:
-        """TUniform(bound_log2) torus samples (t_uniform.rs:84-112)."""
+    def tuniform(self, count: int, bound_log2: int, bits: int = 64) -> np.ndarray:
+        """TUniform(bound_log2) torus samples (t_uniform.rs:84-112), masked to
+        the bits-wide torus."""
         required_bits = bound_log2 + 2
         required_bytes = (required_bits + 7) // 8
         raw = self.take(count * required_bytes).reshape(count, required_bytes)
@@ -244,19 +259,22 @@ class ByteStream:
         bit = cand & np.uint64(1)
         cand = cand >> np.uint64(1)
         cand = cand + bit
-        return cand - np.uint64(1 << bound_log2)  # wrapping in uint64
+        cand = cand - np.uint64(1 << bound_log2)  # wrapping in uint64
+        return cand & np.uint64(0xFFFFFFFF) if bits == 32 else cand
 
 
-def _from_torus(x: np.ndarray) -> np.ndarray:
-    """FromTorus: frac(x) scaled to the u64 torus, rounded (torus/mod.rs:72-78).
+def _from_torus(x: np.ndarray, bits: int = 64) -> np.ndarray:
+    """FromTorus: frac(x) scaled to the bits-wide torus, rounded
+    (torus/mod.rs:72-78), as uint64.
 
-    Rust casts f64 -> i64 with saturating semantics; only the exact boundary
-    value 2^63 can occur (fract == 0.5), so saturate it explicitly."""
-    f = np.round((x - np.round(x)) * 2.0 ** 64)
-    hi = 2.0 ** 63
+    Rust casts f64 -> iN with saturating semantics; only the exact boundary
+    value 2^(bits-1) can occur (fract == 0.5), so saturate it explicitly."""
+    f = np.round((x - np.round(x)) * 2.0 ** bits)
+    hi = 2.0 ** (bits - 1)
     signed = np.where(f >= hi, 0.0, f).astype(np.int64)
-    signed = np.where(f >= hi, np.int64((1 << 63) - 1), signed)
-    return signed.astype(np.uint64)
+    signed = np.where(f >= hi, np.int64((1 << (bits - 1)) - 1), signed)
+    out = signed.astype(np.uint64)
+    return out & np.uint64(0xFFFFFFFF) if bits == 32 else out
 
 
 # -- distributions ---------------------------------------------------------
@@ -276,8 +294,8 @@ class Gaussian:
                              / math.log2(1.0 - math.pi / 4.0))
         return 16 * attempts
 
-    def sample(self, stream: ByteStream, count: int) -> np.ndarray:
-        return stream.gaussian_torus(count, self.std, self.mean)
+    def sample(self, stream: ByteStream, count: int, bits: int = 64) -> np.ndarray:
+        return stream.gaussian_torus(count, self.std, self.mean, bits)
 
 
 @dataclass(frozen=True)
@@ -287,8 +305,8 @@ class TUniform:
     def sample_bytes(self) -> int:
         return (self.bound_log2 + 2 + 7) // 8
 
-    def sample(self, stream: ByteStream, count: int) -> np.ndarray:
-        return stream.tuniform(count, self.bound_log2)
+    def sample(self, stream: ByteStream, count: int, bits: int = 64) -> np.ndarray:
+        return stream.tuniform(count, self.bound_log2, bits)
 
 
 # -- generators mirroring tfhe's generator types ---------------------------
@@ -332,8 +350,8 @@ class EncryptionRandomGenerator:
     def fork(self, n_children: int, mask_elements: int, noise_elements: int,
              noise_distribution, bits: int = 64) -> list["EncryptionRandomGenerator"]:
         """Fork both sub-streams; byte budgets follow the reference fork configs
-        (mask: bits / 8 bytes per element of the bits-wide torus, 8 for u64,
-        16 for the u128 noise-squashing key; noise: distribution-dependent
+        (mask: bits / 8 bytes per element of the bits-wide torus, 4 for the
+        KS32 key's u32, 8 for u64, 16 for the u128 noise-squashing key; noise: distribution-dependent
         per-sample budget)."""
         mask_bytes = mask_elements * (bits // 8)
         noise_bytes = noise_elements * noise_distribution.sample_bytes()
