@@ -8,8 +8,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
 
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
-  2. build the hand-written kernels K1-K5 from tfhe_tpu_torch/csrc/ (nvcc,
-     sm_90a, one compiler per source, started together); then every
+  2. build the hand-written kernels K1-K6 from tfhe_tpu_torch/csrc/ (nvcc,
+     sm_90a, one compiler per source, started together), and start the
+     test vectors' CPU emission in a process of its own (phase 30); then every
      source again under ``nvcc -Xptxas -v`` for each kernel's registers,
      spills and shared memory (line "ptxas", printed after phase 13, the
      compilers running beside phases 3-13), with the rounded-key
@@ -133,7 +134,25 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      stores the sum modulus-switched on the wire, reads it back (K2's lazy
      exact kernel once) and serializes the result; the client decrypts it;
      each step's seconds and payload bytes;
- 27. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 27. squash_compress: V1_4 squashed-noise compression keygen over phase
+     11's squashing key (n = 4096 into k_out = 6, N_out = 1024, 128 slots a
+     GLWE; seconds, the key's bytes on the card), the first 128 of phase
+     12's squashed outputs compressed (K6 once) and decrypted with
+     decrypt_list on the host, phase 14's FheUint64 sum squashed and its 32
+     blocks compressed, all 512 as 4 lists in one K6 launch, cold and warm
+     (the same words), stored bytes against the squashed lists' bytes;
+ 28. wopbs: TEST_PARAM_MESSAGE_2_CARRY_2 with TEST_WOPBS_PARAM (the only
+     WoPBS sets either package has): keygen, extract_bits, apply_wopbs with
+     the identity and a non-monotone LUT over all 16 inputs (K1, K2's
+     generic exact kernel, K1 at the PFPKS shape once a call, K2's step
+     entry for the low bits), a 10-bit vertical packing (K2's CMux entry
+     once, the step entry nine times);
+ 29. aes: at the same sets, the S-box of 4 encrypted bytes and one AES-128
+     round with injected encrypted round keys against the cleartext model;
+ 30. test_vectors: toy_params and valid_params_128 emitted on the card (K1,
+     K2's exact kernels) and compared byte for byte with phase 2's CPU
+     emission;
+ 31. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -198,12 +217,18 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      outputs against the plain path; K1-32 (its tensor-core kernel, its
      generic kernel and the int8 torch._int_mm yardstick) at both KS32
      shapes on B = 512 encryptions and at B = 1 and 513, and phase 25's
-     plain comparisons;
- 28. the launch counts of phases 4, 6, 7, 9, 10, 12-24 (each wrapper's
-     and, of them, those of K1's and K4's tensor-core kernels and K2's
-     lazy exact kernel), the script's total seconds and one
+     plain comparisons; K6 against its plain version (the 8-prime CRT-NTT)
+     on phase 27's key and inputs at 1, 16 and 128 slots and on masks of
+     the extreme digits +-2^60, and at the TEST shape on a random key; K1
+     at the PFPKS shape on phase 28's circuit-bootstrap LWEs; K2's CMux
+     entry against ct0 + external_product at B = 1 and 64;
+ 32. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-30 (each
+     wrapper's and, of them, those of K1's and K4's tensor-core kernels and
+     K2's lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line (K1-32's entry, keyswitch32, with the
-     launches of phases 25-26 on every kernel's).
+     launches of phases 25-26 on every kernel's; K6's, K1's at the PFPKS
+     shape and the CMux entry's, with the launches of phases 28-30 on K1's,
+     K2's exact kernels' and the step entry's).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -350,13 +375,15 @@ TRIVIUM_STEPS = 8
 TRIVIUM_WARMUP_STEPS = 4 * 288
 TRIVIUM_STREAMS = (("trivium", "TriviumStream", 80), ("kreyvium", "KreyviumStream", 128))
 # every kernel of the port, by the name a profiler trace gives it
-KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_imma_kernel", "keyswitch32_kernel",
-                "keyswitch32_imma_kernel", "blind_rotate_kernel",
+KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_kernel",
+                "keyswitch32_kernel",
+                "keyswitch32_imma_kernel", "blind_rotate_kernel", "cmux_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
                 "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
-                "packing_keyswitch_imma_kernel")
+                "packing_keyswitch_imma_kernel", "packing_keyswitch128_partial_kernel",
+                "packing_keyswitch128_reduce_kernel")
 
 
 STARTED = time.perf_counter()
@@ -817,7 +844,7 @@ def head_of(key, lead: tuple):
 
 
 def ptxas_start(kernels) -> tuple:
-    """Start ``nvcc -Xptxas -v`` on every source of K1-K5, one compiler per
+    """Start ``nvcc -Xptxas -v`` on every source of K1-K6, one compiler per
     source, all together, into a scratch directory (the libraries are
     thrown away).  Returns the directory and the (name, process) pairs for
     ptxas_report."""
@@ -830,7 +857,7 @@ def ptxas_start(kernels) -> tuple:
                                   str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
-                     "packing_keyswitch", "blind_rotate128")]
+                     "packing_keyswitch", "blind_rotate128", "packing_keyswitch128")]
 
 
 def ptxas_stop(started: tuple) -> None:
@@ -906,8 +933,8 @@ def kernel_ms_by_name(prof, names) -> dict:
 
 def kernel_wrappers(kernels) -> tuple:
     return (kernels.keyswitch, kernels.keyswitch32, kernels.blind_rotate, kernels.cmux_step,
-            kernels.blind_rotate_multibit, kernels.packing_keyswitch,
-            kernels.blind_rotate128)
+            kernels.cmux, kernels.blind_rotate_multibit, kernels.packing_keyswitch,
+            kernels.blind_rotate128, kernels.packing_keyswitch128)
 
 
 def counters(kernels) -> tuple:
@@ -2483,6 +2510,393 @@ def atomic_table_entries(table: list, atomic_run, wire_run, errs: dict, k132: di
             by_name[name]["launches"] += sum(extra.values())
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: squashed-noise compression (K6), WoPBS (K1 at the PFPKS
+# shape, K2's CMux and step entries), AES over WoPBS, the test vectors
+# ---------------------------------------------------------------------------
+
+SQC_LISTS = 4                 # 512 squashed results as 4 lists of 128
+WOPBS_TREE_BITS = 10          # vertical packing with one level of CMux tree (N = 512)
+AES_SBOX_BYTES = bytes([0x53, 0x00, 0xFF, 0x1B])
+K6_COUNTS = (1, 16, 128)
+# mask words whose base-2^61 digit is +2^60 and -2^60 (the tie rounds down
+# to -2^60 where the rounding bit is set)
+K6_DIGIT_PLUS = 1 << 127
+K6_DIGIT_MINUS = (1 << 127) - (1 << 66)
+TEST_VECTOR_DIRS = ("build/test_vectors/cuda", "build/test_vectors/cpu")
+
+
+def k6_bound(key, counts) -> dict:
+    """Least time for K6 on lists of the given counts: the key, the input
+    LWEs and the output GLWEs moved once (u128 words), against its
+    multiply-adds on the CUDA cores' 32-bit integer rate: a signed 61-bit
+    digit (two 32-bit limbs) times a u128 key word (four) mod 2^128 takes
+    the 7 limb products below 2^128, 5 of them both halves (two multiplies)
+    and 2 the low half only: 12 multiplies.  Counted for the slots these
+    inputs hold (counts), not the N a GLWE could."""
+    n_in, levels, k1, n_poly, _ = key.shape
+    macs = sum(counts) * n_in * levels * k1 * n_poly
+    t_ops = 12 * macs / INT32_MUL_PER_S
+    nbytes = 8 * key.numel() + 16 * (sum(counts) * (n_in + 1) + len(counts) * k1 * n_poly)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3, "multiply_adds": macs}
+
+
+def cmux_bound(ct0, levels: int, base_log: int) -> dict:
+    """Least time for K2's CMux entry: one step of the exact rotation's
+    products as k2_bound counts them (four primes), against the GGSW (NTT
+    domain, u32 residues), ct0, ct1 and the output moved once."""
+    import torch
+
+    b, k1, n_poly = ct0.shape
+    ops = k2_bound(torch.zeros((b, 1), dtype=torch.int32), ct0, levels, base_log,
+                   EXACT_PRIMES)
+    t_ops = min(ops["ntt_ms"], ops["four_step_ms"])
+    t_bytes = ((4 * levels * k1 * k1 * EXACT_PRIMES * n_poly + 3 * 8 * ct0.numel())
+               / HBM_BYTES_PER_S * 1e3)
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ntt_ms": ops["ntt_ms"], "four_step_ms": ops["four_step_ms"]}
+
+
+def squashed_lwes(cts, device):
+    """(1, len(cts), n+1, 2) int64: the squashed ciphertexts' (lo, hi) words
+    in K6's input layout."""
+    import torch
+
+    return torch.stack([torch.stack([c.lo for c in cts]), torch.stack([c.hi for c in cts])],
+                       dim=-1)[None].to(device)
+
+
+def squash_compress_phase(kernels, ns, sq_priv, nsk, sk, squashed, want, u64_add, u64_want: int,
+                          seed: int):
+    """Phase 27: squashed-noise compression at the production sets: V1_4
+    compression keygen over phase 11's squashing key (k_out = 6, N_out =
+    1024, 128 slots a GLWE; the key's standard-domain u128 words on the
+    card); the first 128 of phase 12's squashed outputs compressed (one K6
+    launch) and decrypted with decrypt_list on the host; phase 14's FheUint64
+    sum squashed (K1, K5 at B = 32) and its 32 blocks compressed; all 512
+    squashed outputs as 4 lists in one K6 launch, cold and warm (the same
+    words); stored bytes against the squashed lists' bytes."""
+    import numpy as np
+    import torch
+
+    comp = ns.V1_4_NOISE_SQUASHING_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    t0 = time.perf_counter()
+    cpriv = ns.NoiseSquashingCompressionPrivateKey(comp, seed=seed)
+    ckey = ns.NoiseSquashingCompressionKey(sq_priv, cpriv, seed=seed + 1, device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    per = comp.lwe_per_glwe
+    lists = [squashed[g * per:(g + 1) * per] for g in range(SQC_LISTS)]
+    one, one_launches, one_s, _ = counted(kernels, lambda: ckey.compress(lists[0]))
+    wrong = sum(a != b for a, b in zip(cpriv.decrypt_list(one), want[:per]))
+    blocks = u64_add.blocks
+    sq_blocks = nsk.squash_ciphertext_noise_batch(blocks, sk)
+    block_want = [(u64_want >> (2 * i)) & 3 for i in range(len(blocks))]
+    packed64, u64_launches, u64_s, _ = counted(kernels, lambda: ckey.compress(sq_blocks))
+    wrong += sum(a != b for a, b in zip(cpriv.decrypt_list(packed64), block_want))
+    runs = [counted(kernels, lambda: ckey.compress_batch(lists)) for _ in range(2)]
+    batch = runs[0][0]
+    for g, packed in enumerate(batch):
+        wrong += sum(a != b for a, b in zip(cpriv.decrypt_list(packed), want[g * per:(g + 1) * per]))
+    same = all(np.array_equal(a.glwe_lo, b.glwe_lo) and np.array_equal(a.glwe_hi, b.glwe_hi)
+               for a, b in zip(runs[0][0], runs[1][0]))
+    same &= (np.array_equal(one.glwe_lo, batch[0].glwe_lo)
+             and np.array_equal(one.glwe_hi, batch[0].glwe_hi))
+    for tag, got, n in (("one list", one_launches, 1), ("FheUint64", u64_launches, 1),
+                        ("four lists", runs[0][1], 1), ("four lists, warm", runs[1][1], 1)):
+        if got != only(kernels, packing_keyswitch128=n):
+            raise RuntimeError(f"compress ({tag}) did not run K6 once: {got}")
+    stored = sum(p.glwe_lo.nbytes + p.glwe_hi.nbytes for p in batch)
+    n_big = sq_priv.params.glwe_dimension * sq_priv.params.polynomial_size
+    line = {"params": "V1_4_NOISE_SQUASHING_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+            "n_in": n_big, "k_out": comp.packing_ks_glwe_dimension,
+            "N_out": comp.packing_ks_polynomial_size, "lwe_per_glwe": per,
+            "base_log": comp.packing_ks_base_log, "levels": comp.packing_ks_level,
+            "keygen_seconds": keygen_s, "key_device_bytes": ckey.device_bytes,
+            "one_list": {"slots": per, "seconds": one_s, "launches": one_launches},
+            "fheuint64": {"blocks": len(blocks), "seconds": u64_s, "launches": u64_launches},
+            "four_lists": {"results": SQC_LISTS * per, "cold_seconds": runs[0][2],
+                           "warm_seconds": runs[1][2], "cold_host_seconds": runs[0][3],
+                           "warm_host_seconds": runs[1][3], "launches": runs[0][1],
+                           "warm_launches": runs[1][1], "same_words": same},
+            "stored_bytes": stored,
+            "squashed_bytes": SQC_LISTS * per * (n_big + 1) * 16,
+            "outputs_checked": SQC_LISTS * per + per + len(blocks), "wrong": wrong + (not same)}
+    return {"line": line, "wrong": line["wrong"], "ckey": ckey, "lists": lists,
+            "sq_blocks": sq_blocks}
+
+
+def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
+    """Phase 28: WoPBS at TEST_PARAM_MESSAGE_2_CARRY_2 and TEST_WOPBS_PARAM
+    (the only WoPBS sets either package has) on the card: keygen;
+    extract_bits (one PBS round: K1, K2's generic exact kernel); apply_wopbs
+    with the identity and a non-monotone LUT over all 16 inputs (each: the
+    bits' PBS, the circuit bootstrap's PBS round and one K1 launch at the
+    PFPKS shape, four low-bit rotations on K2's step entry); a
+    WOPBS_TREE_BITS-bit vertical packing (one K2 CMux launch for the tree,
+    nine step-entry launches).  Every output decrypted."""
+    import numpy as np
+    import torch
+
+    p = shortint_mod.TEST_PARAM_MESSAGE_2_CARRY_2
+    t0 = time.perf_counter()
+    ck = shortint_mod.ClientKey(p, seed=seed)
+    sk = shortint_mod.ServerKey(ck, seed=seed + 1, device="cuda")
+    wk = wopbs.WopbsKey(ck, sk, wopbs.TEST_WOPBS_PARAM, seed=seed + 2)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    value = 0b1011
+    bits, bit_launches, bit_s, _ = counted(
+        kernels, lambda: wk.extract_bits(ck.encrypt_without_padding_value(value), 4))
+    wrong = sum((ck.decrypt_raw(b) & 1) != ((value >> (3 - i)) & 1) for i, b in enumerate(bits))
+    luts = {"identity": lambda x: x, "nonmonotone": lambda x: (x * x + 3) % 16}
+    lines = {}
+    for name, f in luts.items():
+        cts = [ck.encrypt_without_padding_value(v) for v in range(16)]
+        outs, launches, secs, _ = counted(kernels, lambda: [wk.apply_wopbs(c, f, 4) for c in cts])
+        bad = sum(ck.decrypt_raw(o) != f(v) for v, o in enumerate(outs))
+        wrong += bad
+        lines[name] = {"inputs": 16, "seconds": secs, "launches": launches,
+                       "pfpks_launches": launches["keyswitch"] - launches["keyswitch_imma"],
+                       "wrong": bad}
+        if launches != only(kernels, keyswitch=48, keyswitch_imma=32, blind_rotate=32,
+                            cmux_step=64):
+            raise RuntimeError(f"apply_wopbs ({name}) did not run K1 (16 at the PFPKS shape), "
+                               f"K2 and K2's step entry as expected: {launches}")
+    rng = np.random.default_rng(seed)
+    v = int(rng.integers(0, 1 << WOPBS_TREE_BITS))
+    f = lambda x: (x ^ (x >> 3)) % 16  # noqa: E731
+    bit_cts = [ck.encrypt_without_padding_value((v >> j) & 1)
+               for j in range(WOPBS_TREE_BITS - 1, -1, -1)]
+    table = [f(x) for x in range(1 << WOPBS_TREE_BITS)]
+    tree_out, tree_launches, tree_s, _ = counted(
+        kernels, lambda: wk.vertical_packing(wk.circuit_bootstrap_bits(bit_cts), table, p.delta))
+    wrong += ck.decrypt_raw(tree_out) != f(v)
+    low = (p.polynomial_size.bit_length() - 1)
+    if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, blind_rotate=1, cmux=1,
+                             cmux_step=low):
+        raise RuntimeError(f"the {WOPBS_TREE_BITS}-bit vertical packing did not run one CMux "
+                           f"launch and {low} step launches: {tree_launches}")
+    # the PFPKS inputs of one circuit bootstrap, for the kernel comparisons
+    outs = sk.apply_lookup_table_batch(
+        [c for _ in range(wk.params.cbs_level) for c in bit_cts],
+        [wk._bit_lut(1 << (64 - wk.params.cbs_log_shift(lev)))
+         for lev in range(wk.params.cbs_level) for _ in bit_cts])
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    lwes = upload_batch([o.data for o in outs], sk.device)
+    ggsw = wk.circuit_bootstrap_bit(bit_cts[0])
+    line = {"params": "TEST_PARAM_MESSAGE_2_CARRY_2 + TEST_WOPBS_PARAM",
+            "keygen_seconds": keygen_s, "pfpks_key_device_bytes": wk.pfpksk.numel() * 8,
+            "pfpks_shape": list(wk.pfpksk.shape),
+            "pfpks_kernel": ("tensor cores" if kernels.keyswitch_imma_shape(
+                wk.pfpksk.shape[0], wk.params.pfks_level, wk.params.pfks_base_log)
+                             else "generic"),
+            "extract_bits": {"seconds": bit_s, "launches": bit_launches},
+            "apply_wopbs": lines,
+            "vertical_packing": {"bits": WOPBS_TREE_BITS, "seconds": tree_s,
+                                 "launches": tree_launches},
+            "outputs_checked": 4 + 32 + 1, "wrong": int(wrong)}
+    return {"line": line, "wrong": int(wrong), "wk": wk, "sk": sk, "ck": ck, "ggsw": ggsw,
+            "pfpks_lwes": torch.cat([lwes, lwes.new_zeros((lwes.shape[0], 1))], dim=1)}
+
+
+def aes_phase(kernels, shortint_mod, integer, wopbs, aes, seed: int) -> dict:
+    """Phase 29: AES over WoPBS at TEST_PARAM_MESSAGE_2_CARRY_2 (tfhe_tpu's
+    only WoPBS set): the S-box of 4 encrypted bytes (one bits' PBS round,
+    one circuit bootstrap, a vertical packing a block, one refresh round),
+    then one AES-128 round on an encrypted state with injected encrypted
+    round keys against the cleartext model (tests/test_aes.py:39-75)."""
+    import torch
+
+    p = shortint_mod.TEST_PARAM_MESSAGE_2_CARRY_2
+    t0 = time.perf_counter()
+    ck = integer.ClientKey(p, seed=seed)
+    sk = integer.ServerKey(ck, seed=seed + 1, device="cuda")
+    wk = wopbs.WopbsKey(ck.key, sk.key, wopbs.TEST_WOPBS_PARAM, seed=seed + 2)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    box = aes.FheAes128.__new__(aes.FheAes128)
+    box.sk, box.wk = sk, wk
+    enc = [ck.encrypt_radix(b, 4) for b in AES_SBOX_BYTES]
+    outs, sbox_launches, sbox_s, _ = counted(kernels, lambda: box._sbox_bytes(enc))
+    wrong = sum(ck.decrypt_radix(o) != aes.SBOX[b] for o, b in zip(outs, AES_SBOX_BYTES))
+    key = bytes(range(16))
+    block = bytes.fromhex("00112233445566778899aabbccddeeff")
+    rks = aes.key_expansion(key)
+    box.round_keys = [[ck.encrypt_radix(b, 4) for b in rk] for rk in rks[:2]]
+    out, round_launches, round_s, _ = counted(kernels, lambda: box.encrypt_block(list(block),
+                                                                                rounds=1))
+    s = [b ^ k for b, k in zip(block, rks[0])]
+    s = [aes.SBOX[b] for b in s]
+    sr = aes._shift_rows_idx()
+    s = [s[sr[i]] for i in range(16)]
+    s = sum((aes._mix_single_column(s[4 * c:4 * c + 4]) for c in range(4)), [])
+    s = [b ^ k for b, k in zip(s, rks[1])]
+    got = bytes(ck.decrypt_radix(b) for b in out)
+    wrong += sum(a != b for a, b in zip(got, s))
+    line = {"params": "TEST_PARAM_MESSAGE_2_CARRY_2 + TEST_WOPBS_PARAM", "keygen_seconds": keygen_s,
+            "sbox": {"bytes": len(AES_SBOX_BYTES), "seconds": sbox_s, "launches": sbox_launches},
+            "aes128_round": {"rounds": 1, "seconds": round_s, "launches": round_launches,
+                             "output_hex": got.hex(), "want_hex": bytes(s).hex()},
+            "outputs_checked": len(AES_SBOX_BYTES) + 16, "wrong": int(wrong)}
+    for tag, launches in (("S-box", sbox_launches), ("AES round", round_launches)):
+        if not (launches["cmux_step"] and launches["keyswitch"] and launches["blind_rotate"]):
+            raise RuntimeError(f"the {tag} skipped K1, K2 or K2's step entry: {launches}")
+    return {"line": line, "wrong": int(wrong)}
+
+
+def test_vectors_start() -> object:
+    """Start the test vectors' emission on the CPU (the plain versions) in a
+    process of its own, two torch threads, beside the card's phases; a
+    failure of a later phase stops it at exit."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tfhe_tpu_torch.apps.test_vectors", TEST_VECTOR_DIRS[1],
+         "--device", "cpu"], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def test_vectors_phase(kernels, test_vectors, cpu_proc) -> dict:
+    """Phase 30: both test-vector sets (toy_params, valid_params_128)
+    emitted on the card (K1, K2's exact rotation: its generic kernel at N =
+    256 and the lazy kernel at N = 2048), then compared byte for byte with
+    the same emission on the CPU (started at phase 2 in a process of its
+    own)."""
+    import pathlib
+
+    _, launches, secs, _ = counted(kernels, lambda: test_vectors.main(TEST_VECTOR_DIRS[0],
+                                                                      "cuda"))
+    t0 = time.perf_counter()
+    _, err = cpu_proc.communicate(timeout=900)
+    wait_s = time.perf_counter() - t0
+    if cpu_proc.returncode:
+        raise RuntimeError(f"the CPU emission of the test vectors failed: {err[-2000:]}")
+    files, differing = 0, []
+    for sub in ("toy_params", "valid_params_128"):
+        a_dir = pathlib.Path(TEST_VECTOR_DIRS[0]) / sub
+        b_dir = pathlib.Path(TEST_VECTOR_DIRS[1]) / sub
+        names = sorted(x.name for x in a_dir.iterdir())
+        if names != sorted(x.name for x in b_dir.iterdir()):
+            differing.append(f"{sub}: file lists")
+        for name in names:
+            files += 1
+            if (a_dir / name).read_bytes() != (b_dir / name).read_bytes():
+                differing.append(f"{sub}/{name}")
+    if launches["keyswitch"] != 2 or launches["blind_rotate"] != 4:
+        raise RuntimeError(f"the test vectors did not run K1 twice and K2 four times: {launches}")
+    return {"line": {"sets": ["toy_params", "valid_params_128"], "seconds": secs,
+                     "launches": launches, "cpu_wait_seconds": wait_s, "files": files,
+                     "differing": differing, "wrong": len(differing)},
+            "wrong": len(differing)}
+
+
+def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
+                     errs: dict) -> dict:
+    """K6 against its plain version (8-prime CRT-NTT) on phase 27's V1_4 key
+    and squashed inputs at count 1, 16 and 128, and on masks of the extreme
+    digits +-2^60, and at the TEST shape on a random key; K1's generic
+    kernel at base 2^37 (the toy test vectors' keyswitch); K1 at the PFPKS
+    shape on phase 28's circuit-bootstrap LWEs against the plain keyswitch;
+    K2's CMux entry against ct0 + external_product on one of phase 28's
+    GGSWs at the tree's B = 1 and at B = 64.  Times, bounds."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randint(-(1 << 62), 1 << 62, shape, generator=gen, device=dev,
+                             dtype=torch.int64) * 2 + torch.randint(
+            0, 2, shape, generator=gen, device=dev, dtype=torch.int64)
+
+    def k6_err(tag, lwes, key, counts, dp8):
+        got = kernels.packing_keyswitch128(lwes, key, counts, 61, 1, dp8)
+        keep = (torch.arange(lwes.shape[1], device=dev)[None, :]
+                < torch.tensor(counts, device=dev)[:, None])
+        lw = lwes * keep[:, :, None, None]
+        lo, hi = server128.packing_keyswitch128(lw[..., 0], lw[..., 1], key[..., 0],
+                                                key[..., 1], dp8, 61, 1)
+        errs[f"k6_{tag}"] = int(((got[..., 0] != lo) | (got[..., 1] != hi)).sum())
+
+    def extremes(n_in):
+        sel = ((torch.arange(n_in + 1, device=dev)[None, :]
+                + torch.arange(16, device=dev)[:, None]) % 3) == 0
+        out = torch.empty((1, 16, n_in + 1, 2), dtype=torch.int64, device=dev)
+        for w, shift in enumerate((0, 64)):
+            plus = int(np.uint64((K6_DIGIT_PLUS >> shift) & (2**64 - 1)).view(np.int64))
+            minus = int(np.uint64((K6_DIGIT_MINUS >> shift) & (2**64 - 1)).view(np.int64))
+            out[0, :, :, w] = torch.where(sel, torch.tensor(minus, device=dev),
+                                          torch.tensor(plus, device=dev))
+        return out
+
+    ckey = sqc_run["ckey"]
+    key, dp8 = ckey.pksk, ckey.dp
+    lwes4 = torch.cat([squashed_lwes(cts, dev) for cts in sqc_run["lists"]])
+    for count in K6_COUNTS:
+        k6_err(f"v1_4_c{count}", lwes4[:1, :count], key, [count], dp8)
+    k6_err("v1_4_extreme_digits", extremes(key.shape[0]), key, [16], dp8)
+    test_key = rnd((512, 1, 3, 256, 2))
+    test_dp = ntt.device_plan(ntt.make_plan(256, 8), "cuda")
+    for count in K6_COUNTS:
+        k6_err(f"test_c{count}", rnd((2, count, 513, 2)), test_key,
+               [count, max(1, count // 2)], test_dp)
+    k6_err("test_extreme_digits", extremes(512), test_key, [16], test_dp)
+    counts4 = [lwes4.shape[1]] * lwes4.shape[0]
+    k6 = {"ms": cuda_ms(lambda: kernels.packing_keyswitch128(lwes4, key, counts4, 61, 1, dp8),
+                        5),
+          "one_list_ms": cuda_ms(lambda: kernels.packing_keyswitch128(
+              lwes4[:1], key, counts4[:1], 61, 1, dp8), 5),
+          "plain_ms": cuda_ms(lambda: server128.packing_keyswitch128(
+              lwes4[..., 0], lwes4[..., 1], key[..., 0], key[..., 1], dp8, 61, 1), 1),
+          "bound": k6_bound(key, counts4), "one_list_bound": k6_bound(key, counts4[:1]),
+          "shape": list(lwes4.shape[:3]) + list(key.shape[2:4])}
+    # K1's generic kernel at the test vectors' toy keyswitch (base 2^37, l =
+    # 1: its 64-bit-digit instance) on random words
+    toy_ct, toy_ksk = rnd((32, 257)), rnd((256, 1, 11))
+    errs["k1_generic_base37"] = max_abs_err(kernels.keyswitch(toy_ct, toy_ksk, 37, 1),
+                                            server.keyswitch(toy_ct, toy_ksk, 37, 1))
+    # K1 at the PFPKS shape
+    wk = wopbs_run["wk"]
+    lw = wopbs_run["pfpks_lwes"]
+    prm = wk.params
+    got = kernels.keyswitch(lw, wk.pfpks_key, prm.pfks_base_log, prm.pfks_level)
+    errs["pfpks_k1"] = max_abs_err(got, server.keyswitch(lw, wk.pfpksk, prm.pfks_base_log,
+                                                         prm.pfks_level))
+    pf = {"ms": cuda_ms(lambda: kernels.keyswitch(lw, wk.pfpks_key, prm.pfks_base_log,
+                                                  prm.pfks_level), 10),
+          "plain_ms": cuda_ms(lambda: server.keyswitch(lw, wk.pfpksk, prm.pfks_base_log,
+                                                       prm.pfks_level), 3),
+          "bound": k1_bound(lw, wk.pfpksk, got, prm.pfks_base_log),
+          "shape": [lw.shape[0], lw.shape[1] - 1, prm.pfks_level, wk.pfpksk.shape[2]]}
+    # K2's CMux entry on a real GGSW
+    ggsw = wopbs_run["ggsw"]
+    dp = wk.dp
+    cm = {}
+    for b in (1, 64):
+        ct0, ct1 = rnd((b, wk.k + 1, wk.n_poly)), rnd((b, wk.k + 1, wk.n_poly))
+        out = kernels.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log, prm.cbs_level)
+        errs[f"cmux_b{b}"] = max_abs_err(out, server.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
+                                                          prm.cbs_level))
+        cm[f"b{b}"] = {
+            "ms": cuda_ms(lambda: kernels.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
+                                               prm.cbs_level), 10),
+            "plain_ms": cuda_ms(lambda: server.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
+                                                    prm.cbs_level), 3),
+            "bound": cmux_bound(ct0, prm.cbs_level, prm.cbs_base_log),
+            "shape": [b, wk.k + 1, wk.n_poly, prm.cbs_level]}
+    return {"k6": k6, "pfpks": pf, "cmux": cm}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2529,6 +2943,9 @@ def main() -> None:
     # phase fails first)
     ptxas = ptxas_start(kernels)
     atexit.register(ptxas_stop, ptxas)
+    # the test vectors' CPU emission runs beside the card's phases (phase 30
+    # compares it with the card's)
+    vectors_cpu = test_vectors_start()
 
     # 3. keygen and key upload
     p = PARAMS
@@ -2822,7 +3239,31 @@ def main() -> None:
         if run["wrong"]:
             raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
 
-    # 25. kernels against their plain versions
+    # 27-30. squashed-noise compression (K6) of phase 12's squashed outputs
+    # and of phase 14's FheUint64; WoPBS, AES over WoPBS and the test
+    # vectors at the sets tfhe_tpu has for them
+    from tfhe_tpu_torch import integer as tint
+    from tfhe_tpu_torch.apps import aes as taes
+    from tfhe_tpu_torch.apps import test_vectors as tvectors
+    from tfhe_tpu_torch.shortint import noise_squashing as tns
+    from tfhe_tpu_torch.shortint import wopbs as twopbs
+
+    sqc_run = squash_compress_phase(kernels, tns, sq_priv, nsk, sk, squashed, chained_want,
+                                    integer_run["add_out"], (x + y) % integer_run["modulus"],
+                                    args.seed + 90)
+    emit({"phase": "squash_compress", **sqc_run["line"]})
+    wopbs_run = wopbs_phase(kernels, shortint_mod, twopbs, args.seed + 91)
+    emit({"phase": "wopbs", **wopbs_run["line"]})
+    aes_run = aes_phase(kernels, shortint_mod, tint, twopbs, taes, args.seed + 92)
+    emit({"phase": "aes", **aes_run["line"]})
+    tv_run = test_vectors_phase(kernels, tvectors, vectors_cpu)
+    emit({"phase": "test_vectors", **tv_run["line"]})
+    for tag, run in (("squashed-compression", sqc_run), ("WoPBS", wopbs_run), ("AES", aes_run),
+                     ("test-vector", tv_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
+
+    # 31. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -3352,6 +3793,8 @@ def main() -> None:
                          str_run["first_round"], errs)
     # phase 23's casts: K1 at both cast shapes, K2's lazy exact kernel at B = 64
     cast_figs = compact_paths_vs_plain(kernels, server, torus, hl_sk, pke_run, errs)
+    # phases 27-28: K6, K1 at the PFPKS shape, K2's CMux entry
+    s13 = slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, args.seed + 93, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -3361,8 +3804,8 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 26. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24) and
-    # the kernel table
+    # 32. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24,
+    # 27-30) and the kernel table
     int_lines = integer_run["line"]
     int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
                              for op in int_lines[group].values()],
@@ -3379,6 +3822,24 @@ def main() -> None:
                                  + [pke_run["line"]["fheuint64_add"]]),
                  "trivium": [triv_run["line"][name][tag] for name, _, _ in TRIVIUM_STREAMS
                              for tag in ("keystream", "transcipher")]}
+
+    # phases 27-30, by path
+    sqc_l, wop_l, aes_l = sqc_run["line"], wopbs_run["line"], aes_run["line"]
+    s13_paths = {
+        "squash_compress": {"one_list": sqc_l["one_list"]["launches"],
+                            "fheuint64": sqc_l["fheuint64"]["launches"],
+                            "four_lists": sqc_l["four_lists"]["launches"]},
+        "wopbs": {"extract_bits": wop_l["extract_bits"]["launches"],
+                  **{f"apply_wopbs_{k}": v["launches"] for k, v in wop_l["apply_wopbs"].items()},
+                  "vertical_packing": wop_l["vertical_packing"]["launches"]},
+        "aes": {"sbox": aes_l["sbox"]["launches"],
+                "aes128_round": aes_l["aes128_round"]["launches"]},
+        "test_vectors": {"both_sets": tv_run["line"]["launches"]}}
+
+    def s13_launches(counter: str, paths=None) -> dict:
+        """Launches of one counter on each path of phases 27-30."""
+        return {path: sum(run.get(counter, 0) for run in runs.values())
+                for path, runs in s13_paths.items() if paths is None or path in paths}
 
     def path_launches(counter: str) -> dict:
         """Launches of one counter on each integer and boolean path."""
@@ -3405,7 +3866,8 @@ def main() -> None:
           "compact_pke": {**pke_run["line"]["launches"],
                           "fheuint64_add": pke_run["line"]["fheuint64_add"]["launches"]},
           "trivium": {f"{name}_{tag}": triv_run["line"][name][tag]["launches"]
-                      for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")}})
+                      for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")},
+          **s13_paths})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
@@ -3633,6 +4095,85 @@ def main() -> None:
          "bound_bytes_ms": k2_step_bound["bytes_ms"],
          "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
     ]
+    # K6, K1 at the PFPKS shape, K2's CMux entry (phases 27-29)
+    pfpks_paths = {path: s13_launches("keyswitch", ("wopbs", "aes"))[path]
+                   - s13_launches("keyswitch_imma", ("wopbs", "aes"))[path]
+                   for path in ("wopbs", "aes")}
+    table += [
+        {"name": "packing_keyswitch128", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/packing_keyswitch128.cu",
+         "replaces": "tfhe_tpu/shortint/noise_squashing.py:299",
+         "kernel": "packing_keyswitch128_partial_kernel, then _reduce_kernel (direct u128)",
+         "launches": sum(s13_launches("packing_keyswitch128").values()),
+         "launches_by_path": {"squash_compress": s13_launches("packing_keyswitch128")[
+             "squash_compress"]},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k6")),
+         "words_differing": {k: v for k, v in errs.items() if k.startswith("k6")},
+         "ms": s13["k6"]["ms"], "plain_ms": s13["k6"]["plain_ms"],
+         "one_list_ms": s13["k6"]["one_list_ms"],
+         "bound_ms": s13["k6"]["bound"]["ms"], "bound_by": s13["k6"]["bound"]["by"],
+         "bound_bytes_ms": s13["k6"]["bound"]["bytes_ms"],
+         "one_list_bound_ms": s13["k6"]["one_list_bound"]["ms"],
+         "multiply_adds": s13["k6"]["bound"]["multiply_adds"],
+         "library_ms": None,
+         "library_call": "none: torch has no u128 or exact negacyclic product",
+         "plain": "tfhe_tpu's formula on the torch half of the 8-prime CRT-NTT",
+         "shape": s13["k6"]["shape"],
+         "registers": ptxas_of(ptxas_kernels, "packing_keyswitch128_partial_kernel").get(
+             "registers")},
+        {"name": "keyswitch_pfpks", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
+         "replaces": "tfhe_tpu/shortint/wopbs.py:108",
+         "kernel": (f"keyswitch_kernel ({wop_l['pfpks_kernel']}: 20-bit digits, "
+                    "(k+1)^2 N output columns, row n negated)"),
+         "launches": sum(pfpks_paths.values()), "launches_by_path": pfpks_paths,
+         "max_abs_err": errs["pfpks_k1"],
+         "ms": s13["pfpks"]["ms"], "plain_ms": s13["pfpks"]["plain_ms"],
+         "bound_ms": s13["pfpks"]["bound"]["ms"], "bound_by": s13["pfpks"]["bound"]["by"],
+         "bound_bytes_ms": s13["pfpks"]["bound"]["bytes_ms"],
+         "library_ms": None,
+         "library_call": "none: torch has no int64 matmul on CUDA",
+         "shape": s13["pfpks"]["shape"],
+         "registers": ptxas_of(ptxas_kernels, "keyswitch_kernel").get("registers")},
+        {"name": "cmux", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+         "replaces": "tfhe_tpu/shortint/wopbs.py:212",
+         "kernel": "cmux_kernel (the generic exact kernel's external product)",
+         "launches": sum(s13_launches("cmux").values()),
+         "launches_by_path": {k: v for k, v in s13_launches("cmux").items() if v},
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("cmux_b")),
+         "ms": s13["cmux"]["b1"]["ms"], "plain_ms": s13["cmux"]["b1"]["plain_ms"],
+         "bound_ms": s13["cmux"]["b1"]["bound"]["ms"],
+         "bound_by": s13["cmux"]["b1"]["bound"]["by"],
+         "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact wrapping-u64 "
+                         "negacyclic product",
+         "b64": {"ms": s13["cmux"]["b64"]["ms"], "plain_ms": s13["cmux"]["b64"]["plain_ms"],
+                 "bound_ms": s13["cmux"]["b64"]["bound"]["ms"],
+                 "bound_by": s13["cmux"]["b64"]["bound"]["by"]},
+         "shape": s13["cmux"]["b1"]["shape"],
+         "registers": ptxas_of(ptxas_kernels, "cmux_kernel").get("registers")}]
+    by_name = {entry["name"]: entry for entry in table}
+    # the launches of phases 28-30 on K1 (its tensor-core kernel: the
+    # integer PBS; the test vectors' keyswitches), K2's exact modes and the
+    # step entry
+    # (the PFPKS launches of wopbs and aes, K1's generic kernel, are the
+    # keyswitch_pfpks row's)
+    ks_imma = s13_launches("keyswitch_imma", ("wopbs", "aes", "test_vectors"))
+    ks_paths13 = {**ks_imma, "test_vectors": s13_launches("keyswitch")["test_vectors"]}
+    by_name["keyswitch"]["launches_by_path"].update(ks_paths13)
+    by_name["keyswitch"]["tensor_core_launches_by_path"].update(ks_imma)
+    by_name["keyswitch"]["generic_launches_by_path"]["test_vectors"] = (
+        ks_paths13["test_vectors"] - ks_imma["test_vectors"])
+    by_name["keyswitch"]["launches"] += sum(ks_paths13.values())
+    lazy_tv = s13_launches("blind_rotate_exact_lazy")["test_vectors"]
+    by_name["blind_rotate_exact"].setdefault("generic_launches_by_path", {}).update(
+        {p_: s13_launches("blind_rotate")[p_] - s13_launches("blind_rotate_exact_lazy")[p_]
+         for p_ in ("wopbs", "aes", "test_vectors")})
+    by_name["blind_rotate_exact"]["launches_by_path"]["test_vectors"] = lazy_tv
+    by_name["blind_rotate_exact"]["launches"] += lazy_tv
+    by_name["cmux_step"]["generic_launches_by_path"] = {
+        p_: v for p_, v in s13_launches("cmux_step").items() if v}
     # K1-32, and the launches of phases 25-26 on the other kernels' entries
     atomic_table_entries(table, atomic_run, wire_run, errs, k132, ptxas_kernels)
     by_name = {entry["name"]: entry for entry in table}

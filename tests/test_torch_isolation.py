@@ -1,7 +1,9 @@
 """tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
 round of each slice, the integer and boolean layers, the high-level API and
 the strings, compact lists and Trivium, the KS32, PBS->KS, drift and
-many-LUT arms and the wire format included, and imports the ZK modules),
+many-LUT arms, the wire format, squashed-noise compression and a PFPKS
+included, and imports the ZK modules, AES, the test vectors and the key
+cache),
 no source of the port (nor chip_smoke.py) imports jax or
 tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
 raising where there is no GPU."""
@@ -121,6 +123,22 @@ assert ck.decrypt(client.deserialize(client.serialize(ck.encrypt(1)))) == 1
 assert params_versions.get("PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128").lwe_dimension == 918
 assert all(ok for _, ok, _ in security.check_shortint_params_secure(shortint.DEFAULT_PARAMS))
 assert noise.variance_to_std_log2(4.0) == 1.0
+# squashed-noise compression (K6's plain version), one PFPKS (K1's plain
+# version at its shape), the AES tables, the key cache and admission
+from tfhe_tpu_torch.apps import aes, test_vectors
+from tfhe_tpu_torch.shortint import wopbs
+from tfhe_tpu_torch.utils import hbm, keycache
+cpriv = noise_squashing.NoiseSquashingCompressionPrivateKey(
+    noise_squashing.TEST_NOISE_SQUASHING_COMP_PARAM, seed=15)
+ckey = noise_squashing.NoiseSquashingCompressionKey(priv, cpriv, seed=16, device="cpu")
+assert cpriv.decrypt_list(ckey.compress(squashed)) == [2, 1]
+cut = dataclasses.replace(p, polynomial_size=64)
+wck = shortint.ClientKey(cut, seed=17)
+wsk = shortint.ServerKey(wck, seed=18, device="cpu")
+wk = wopbs.WopbsKey(wck, wsk, seed=19)
+assert tuple(wk._pfpks(wck.encrypt(1).data, 0).shape) == (2, 64)
+assert aes.aes128_encrypt_block(bytes(16), bytes(16)).hex() == "66e94bd4ef8a2c3b884cfa59ca342b2e"
+assert hbm.admit_chunk(10, 1 << 40, min_items=1) == 1 and keycache.FORMAT >= 1
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")
@@ -208,6 +226,37 @@ def test_config5_entry_points_default_to_cuda(no_gpu, client_key):
                  lambda: key_switching_key.KeySwitchingKey(client_key, client_key, seed=2),
                  lambda: re_randomization.ReRandomizationKey(cpk).re_randomize_batch(
                      [client_key.encrypt(1)], b"s")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_slice13_entry_points_default_to_cuda(no_gpu, client_key, tmp_path, monkeypatch):
+    """Squashed-noise compression keys (keygen, from_raw_keys,
+    from_standard_keys), the key cache's getters and the test-vector
+    emitter run on the card unless asked for the CPU, and raise without
+    one; the WoPBS key and AES take their server key's device."""
+    import numpy as np
+
+    from tfhe_tpu_torch.apps import test_vectors
+    from tfhe_tpu_torch.shortint import noise_squashing as ns
+    from tfhe_tpu_torch.utils import keycache
+
+    monkeypatch.setattr(keycache, "CACHE_DIR", tmp_path)
+    comp = ns.TEST_NOISE_SQUASHING_COMP_PARAM
+    priv = ns.NoiseSquashingPrivateKey(ns.TEST_NOISE_SQUASHING_PARAM, seed=1)
+    cpriv = ns.NoiseSquashingCompressionPrivateKey(comp, seed=2)
+    zeros = np.zeros((1, 1, comp.packing_ks_glwe_dimension + 1,
+                      comp.packing_ks_polynomial_size), np.uint64)
+    for call in (lambda: ns.NoiseSquashingCompressionKey(priv, cpriv, seed=3),
+                 lambda: ns.NoiseSquashingCompressionKey.from_raw_keys(
+                     np.zeros(zeros.shape[:3] + (8, zeros.shape[3]), np.uint32), comp),
+                 lambda: ns.NoiseSquashingCompressionKey.from_standard_keys(zeros, zeros, comp),
+                 lambda: keycache.get_shortint_keys(client_key.params, seed=4),
+                 lambda: keycache.get_squashing_keys(client_key.params,
+                                                     ns.TEST_NOISE_SQUASHING_PARAM, seed=4),
+                 lambda: keycache.get_squash_compression_keys(
+                     ns.TEST_NOISE_SQUASHING_PARAM, comp, priv, seed=4),
+                 lambda: test_vectors.generate(str(tmp_path / "v"), **test_vectors.TOY_PARAMS)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 

@@ -85,6 +85,58 @@ constexpr int POINTWISE_TILE = 4;
 constexpr int MAXK1 = 5;        // k + 1 <= 5
 constexpr int MAX_LEVELS = 8;
 
+// The pointwise multiply-accumulate of one step: residue slot (cc, prime)
+// of res gets sum_{lev, r} res[(lev, r), prime] . key[lev][r][cc] in the
+// NTT domain.  A thread takes POINTWISE_TILE positions at once so that their
+// key loads are in flight together.  K1T > 0 fixes k + 1 at compile time.
+template <int K1T>
+__device__ __forceinline__ void key_product(u32* res, const u32* __restrict__ key, int k1_arg,
+                                            int levels, int log_n, int row, const Consts& c) {
+  const int k1 = K1T > 0 ? K1T : k1_arg;
+  const int n_poly = 1 << log_n;
+  const int tid = threadIdx.x;
+  for (int q0 = tid; q0 < NP * n_poly; q0 += POINTWISE_TILE * THREADS) {
+    u32 out[POINTWISE_TILE][MAXK1];
+#pragma unroll
+    for (int u = 0; u < POINTWISE_TILE; ++u) {
+#pragma unroll
+      for (int cc = 0; cc < MAXK1; ++cc) out[u][cc] = 0u;
+    }
+    for (int r = 0; r < levels * k1; ++r) {
+#pragma unroll
+      for (int u = 0; u < POINTWISE_TILE; ++u) {
+        const int q = q0 + u * THREADS;
+        if (q < NP * n_poly) {
+          const int pi = q >> log_n;
+          const int j = q & (n_poly - 1);
+          const u32 p = c.p[pi];
+          const u32 x = res[(r * NP + pi) * row + pad(j)];
+          const u32* krow = key + ((size_t)r * k1 * NP + pi) * n_poly + j;
+#pragma unroll
+          for (int cc = 0; cc < MAXK1; ++cc) {
+            if (cc < k1) {
+              out[u][cc] = add_mod(
+                  out[u][cc], mont_mul(x, __ldg(krow + cc * NP * n_poly), p, c.pinv[pi]), p);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < POINTWISE_TILE; ++u) {
+      const int q = q0 + u * THREADS;
+      if (q < NP * n_poly) {
+        const int pi = q >> log_n;
+        const int jp = pad(q & (n_poly - 1));
+#pragma unroll
+        for (int cc = 0; cc < MAXK1; ++cc) {
+          if (cc < k1) res[(cc * NP + pi) * row + jp] = out[u][cc];
+        }
+      }
+    }
+  }
+}
+
 // K1T, LVT > 0 fix k + 1 and the level count at compile time (the 2_2 main
 // path), so the pointwise product unrolls and its key loads overlap; 0 takes
 // them from the arguments.
@@ -136,50 +188,8 @@ blind_rotate_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_
     // 2. forward NTT of every (lev, r, prime) polynomial
     forward_ntt(res, in_polys, log_n, row, psi, c);
 
-    // 3. pointwise multiply-accumulate with GGSW_step into slots (0, c); a
-    // thread takes POINTWISE_TILE positions at once so that their key loads
-    // are in flight together
-    const u32* key = bsk + (size_t)step * step_words;
-    for (int q0 = tid; q0 < NP * n_poly; q0 += POINTWISE_TILE * THREADS) {
-      u32 out[POINTWISE_TILE][MAXK1];
-#pragma unroll
-      for (int u = 0; u < POINTWISE_TILE; ++u) {
-#pragma unroll
-        for (int cc = 0; cc < MAXK1; ++cc) out[u][cc] = 0u;
-      }
-      for (int r = 0; r < levels * k1; ++r) {
-#pragma unroll
-        for (int u = 0; u < POINTWISE_TILE; ++u) {
-          const int q = q0 + u * THREADS;
-          if (q < NP * n_poly) {
-            const int pi = q >> log_n;
-            const int j = q & (n_poly - 1);
-            const u32 p = c.p[pi];
-            const u32 x = res[(r * NP + pi) * row + pad(j)];
-            const u32* krow = key + ((size_t)r * k1 * NP + pi) * n_poly + j;
-#pragma unroll
-            for (int cc = 0; cc < MAXK1; ++cc) {
-              if (cc < k1) {
-                out[u][cc] = add_mod(
-                    out[u][cc], mont_mul(x, __ldg(krow + cc * NP * n_poly), p, c.pinv[pi]), p);
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < POINTWISE_TILE; ++u) {
-        const int q = q0 + u * THREADS;
-        if (q < NP * n_poly) {
-          const int pi = q >> log_n;
-          const int jp = pad(q & (n_poly - 1));
-#pragma unroll
-          for (int cc = 0; cc < MAXK1; ++cc) {
-            if (cc < k1) res[(cc * NP + pi) * row + jp] = out[u][cc];
-          }
-        }
-      }
-    }
+    // 3. pointwise multiply-accumulate with GGSW_step into slots (0, c)
+    key_product<K1T>(res, bsk + (size_t)step * step_words, k1, levels, log_n, row, c);
     __syncthreads();
 
     // 4. inverse NTT of the (k+1) P output polynomials (N^-1 folded into 5)
@@ -241,6 +251,83 @@ extern "C" int tfhe_torch_blind_rotate(void* acc, const void* mask, const void* 
                   log_n, levels, base_log, smem, (cudaStream_t)stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The CMux entry (cmux_kernel): out = ct0 + GGSW (x) (ct1 - ct0) for a batch
+// sharing one GGSW, the exact external product of the generic kernel's step
+// with the operand given instead of acc * X^a - acc: the CMux tree of
+// vertical packing (tfhe_tpu/shortint/wopbs.py:212-218 `_cmux`, an XLA
+// external product there; tfhe_tpu has no Pallas kernel for it).  Plain
+// version: tfhe_tpu_torch/ops/server.py `cmux`.  One block a batch element,
+// the generic kernel's shared-memory layout; a block reads its ct0 row
+// whole before it writes out, so out may be ct0.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <int K1T>
+__global__ void __launch_bounds__(THREADS, 2)
+cmux_kernel(long long* __restrict__ out_g, const long long* ct0_g,
+            const long long* __restrict__ ct1_g, const u32* __restrict__ ggsw,
+            const u32* __restrict__ psi, const u32* __restrict__ psi_inv,
+            const long long* __restrict__ consts_g, int k1_arg, int log_n, int levels,
+            int base_log) {
+  const int k1 = K1T > 0 ? K1T : k1_arg;
+  extern __shared__ u64 smem[];
+  __shared__ Consts c;
+  const int n_poly = 1 << log_n;
+  const int row = padded_len(n_poly);
+  const int coeffs = k1 * n_poly;
+  u64* acc = smem;                          // (k1, N): ct0
+  u32* res = (u32*)(smem + coeffs);         // (levels, k1, NP, row)
+  const int tid = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * coeffs;
+
+  if (tid == 0) load_consts(c, consts_g);
+  for (int q = tid; q < coeffs; q += THREADS) acc[q] = (u64)ct0_g[off + q];
+  __syncthreads();
+  const int level_stride = k1 * NP * row;
+  for (int q = tid; q < coeffs; q += THREADS) {
+    write_digit_residues(res + (q >> log_n) * NP * row + pad(q & (n_poly - 1)),
+                         (u64)ct1_g[off + q] - acc[q], base_log, levels, level_stride, row, c);
+  }
+  __syncthreads();
+  forward_ntt(res, levels * k1 * NP, log_n, row, psi, c);
+  key_product<K1T>(res, ggsw, k1, levels, log_n, row, c);
+  __syncthreads();
+  inverse_ntt(res, k1 * NP, log_n, row, psi_inv, c);
+  for (int q = tid; q < coeffs; q += THREADS) {
+    out_g[off + q] = (long long)(acc[q] + garner_u64(res + (q >> log_n) * NP * row
+                                                     + pad(q & (n_poly - 1)), row, c));
+  }
+}
+
+}  // namespace
+
+// ct0, ct1, out (batch, k+1, N) u64; ggsw (l, k+1, k+1, P, N) u32 Montgomery
+// NTT domain; the generic kernel's shapes (smem: tfhe_torch_blind_rotate_smem_bytes).
+extern "C" int tfhe_torch_cmux(void* out, const void* ct0, const void* ct1, const void* ggsw,
+                               const void* psi, const void* psi_inv, const void* consts,
+                               int batch, int k1, int log_n, int levels, int nprimes,
+                               int base_log, void* stream) {
+  if (nprimes != NP || k1 < 1 || k1 > MAXK1 || levels < 1 || levels > MAX_LEVELS ||
+      base_log < 1 || base_log * levels >= 64 || log_n < 1 || log_n > 16 || batch < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = tfhe_torch_blind_rotate_smem_bytes(k1, 1 << log_n, levels);
+  auto kernel = k1 == 2 ? cmux_kernel<2> : cmux_kernel<0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(
+      (long long*)out, (const long long*)ct0, (const long long*)ct1, (const u32*)ggsw,
+      (const u32*)psi, (const u32*)psi_inv, (const long long*)consts, k1, log_n, levels,
+      base_log);
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // The lazy exact kernel (blind_rotate_exact_lazy_kernel): the exact rotation

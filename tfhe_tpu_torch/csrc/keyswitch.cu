@@ -39,7 +39,9 @@
 // TC output tile and walks the K axis in chunks of whole input
 // coefficients, decomposing each chunk's digits once into shared memory
 // and staging the key tile there; each thread keeps 8 u64 accumulators of
-// one output column in registers, multiply-adds on the CUDA cores.
+// one output column in registers, multiply-adds on the CUDA cores.  Digits
+// are 32-bit up to base_log 31; above it (the test vectors' toy set, base
+// 2^37) keyswitch_wide_kernel holds them in 64 bits.
 //
 // K1-32, the KS32 atomic pattern's keyswitch (the same kernels at 4 byte
 // limbs a key word).  Replaces: tfhe_tpu/ops/server.py:110 `keyswitch32`,
@@ -86,14 +88,16 @@ constexpr int MAX_LEVELS = 16;
 // The generic kernel's body: WB = 8 is the u64 keyswitch (K1), WB = 4 the
 // KS32 keyswitch mod 2^32 (the body ct >> 32, accumulators and key tile in
 // u32).  Each output word is written as a u64 (in [0, 2^32) for WB = 4).
-template <int WB>
+// D holds a digit: int up to base_log 31 (|d| <= 2^30), long long above
+// (the test vectors' toy set keyswitches at base 2^37).
+template <int WB, typename D>
 __device__ __forceinline__ void keyswitch_body(u64* __restrict__ out,
                                                const u64* __restrict__ ct,
                                                const u64* __restrict__ ksk, int batch,
                                                int n_in, int levels, int m_out,
                                                int base_log) {
   typedef typename std::conditional<WB == 8, u64, unsigned int>::type word;
-  __shared__ int s_digit[TB][KC];
+  __shared__ D s_digit[TB][KC];
   __shared__ word s_key[KC][TC];
 
   const int tid = threadIdx.x;
@@ -115,12 +119,12 @@ __device__ __forceinline__ void keyswitch_body(u64* __restrict__ out,
       const int rb = q / ni;
       const int ii = q - rb * ni;
       const int b = row0 + rb;
-      int* dst = &s_digit[rb][ii * levels];
+      D* dst = &s_digit[rb][ii * levels];
       // rows past the batch hold the state of 0, whose digits are all 0
       u64 state = b < batch
           ? decomposer_state(ct[(size_t)b * ct_stride + i0 + ii], base_log, levels)
           : 0ull;
-      for (int lev = 0; lev < levels; ++lev) dst[lev] = (int)next_digit(state, base_log);
+      for (int lev = 0; lev < levels; ++lev) dst[lev] = (D)next_digit(state, base_log);
     }
     for (int q = tid; q < kc * TC; q += THREADS) {
       const int kk = q / TC;
@@ -157,14 +161,23 @@ __global__ void __launch_bounds__(THREADS)
 keyswitch_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
                  const u64* __restrict__ ksk, int batch, int n_in, int levels,
                  int m_out, int base_log) {
-  keyswitch_body<8>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
+  keyswitch_body<8, int>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
+}
+
+// K1's generic kernel at base_log > 31: 64-bit digits (48 KB of static
+// shared memory).
+__global__ void __launch_bounds__(THREADS)
+keyswitch_wide_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                      const u64* __restrict__ ksk, int batch, int n_in, int levels,
+                      int m_out, int base_log) {
+  keyswitch_body<8, long long>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
 }
 
 __global__ void __launch_bounds__(THREADS)
 keyswitch32_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
                    const u64* __restrict__ ksk, int batch, int n_in, int levels,
                    int m_out, int base_log) {
-  keyswitch_body<4>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
+  keyswitch_body<4, int>(out, ct, ksk, batch, n_in, levels, m_out, base_log);
 }
 
 // ---------------------------------------------------------------------------
@@ -386,11 +399,14 @@ template <int WB>
 int launch_generic(void* out, const void* ct, const void* ksk, int batch, int n_in,
                    int levels, int m_out, int base_log, void* stream) {
   if (levels < 1 || levels > MAX_LEVELS || levels > KC || base_log < 1 ||
-      base_log * levels >= 64) {
+      base_log * levels >= 64 || (WB == 4 && base_log > 31)) {
     return (int)cudaErrorInvalidValue;
   }
   dim3 grid((batch + TB - 1) / TB, (m_out + TC - 1) / TC);
-  if (WB == 8) {
+  if (WB == 8 && base_log > 31) {
+    keyswitch_wide_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out, base_log);
+  } else if (WB == 8) {
     keyswitch_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (u64*)out, (const u64*)ct, (const u64*)ksk, batch, n_in, levels, m_out, base_log);
   } else {

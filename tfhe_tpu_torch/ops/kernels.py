@@ -12,10 +12,12 @@ their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
 ``packing_keyswitch`` (csrc/packing_keyswitch.cu; its tensor-core kernel
 where ``packing_keyswitch_imma_shape`` holds, on a
-``PackingKeyswitchKeyLimbs``) and K5
+``PackingKeyswitchKeyLimbs``), K5
 ``blind_rotate128`` (csrc/blind_rotate128.cu; K2-K5 include
-csrc/ntt_common.cuh) are compiled with nvcc for sm_90a into shared
-libraries with a plain C interface at first use (utils/build.py, all
+csrc/ntt_common.cuh) and K6 ``packing_keyswitch128``
+(csrc/packing_keyswitch128.cu, the u128 packing keyswitch of squashed-noise
+compression; ``cmux`` is K2's CMux entry, vertical packing's tree) are
+compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
 
@@ -48,7 +50,8 @@ _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
             "blind_rotate_multibit": "blind_rotate_multibit.cu",
             "packing_keyswitch": "packing_keyswitch.cu",
-            "blind_rotate128": "blind_rotate128.cu"}
+            "blind_rotate128": "blind_rotate128.cu",
+            "packing_keyswitch128": "packing_keyswitch128.cu"}
 
 
 class _Libs:
@@ -105,6 +108,9 @@ def load() -> dict:
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
         fn.argtypes = [i] * 3
         fn.restype = i
+        fn = libs["blind_rotate"].tfhe_torch_cmux
+        fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_exact_lazy
         fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
@@ -148,6 +154,12 @@ def load() -> dict:
         fn.restype = i
         fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128_smem_bytes
         fn.argtypes = [i] * 3
+        fn.restype = i
+        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128
+        fn.argtypes = [vp] * 5 + [i] * 8 + [vp]
+        fn.restype = i
+        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_shape
+        fn.argtypes = [i] * 5
         fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
@@ -303,6 +315,8 @@ def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
     b, w = ct.shape
     n_in, lev, m_out = words.shape
     _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
+    _require(word_bytes == 8 or base_log <= 31,
+             f"{name} takes base_log <= 31, not {base_log}")
     out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
     lib = load()["keyswitch"]
     imma = keyswitch_imma_shape(n_in, levels, base_log)
@@ -492,6 +506,46 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
 
 cmux_step.launches = 0
 cmux_step.lazy_exact_launches = 0       # of them, K2's lazy exact kernel
+
+
+def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):
+    """K2's CMux entry: ct0 + GGSW (x) (ct1 - ct0) for a batch sharing one
+    GGSW (see ops/server.py cmux; the CMux tree of vertical packing).
+
+    ct0, ct1: (B, k+1, N) int64; ggsw: (l, k+1, k+1, P, N) int32 Montgomery
+    NTT domain on dp's four primes.  Runs the generic exact kernel's
+    external product, one block a batch element; raises where its shared
+    memory would pass a block's.  Returns the new (B, k+1, N) int64."""
+    _require(not isinstance(ggsw, RoundedKeyNtt), "the CMux entry takes an exact GGSW")
+    if ct0.device.type == "cpu":
+        return server.cmux(ct0, ct1, ggsw, dp, base_log, levels)
+    _require(ct0.device.type == "cuda", f"no CMux kernel for {ct0.device}")
+    ct0, ct1, ggsw = ct0.contiguous(), ct1.contiguous(), ggsw.contiguous()
+    b, k1, n_poly = ct0.shape
+    _require(ct1.shape == ct0.shape, "ct0 / ct1 shapes disagree")
+    _require(ggsw.shape == (levels, k1, k1, dp.num_primes, n_poly),
+             f"GGSW shape {tuple(ggsw.shape)} does not fit the batch")
+    _require(dp.num_primes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "the kernel takes a 4-prime plan and a power-of-two N")
+    lib = load()["blind_rotate"]
+    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
+    _require(smem <= SMEM_LIMIT,
+             f"the CMux entry at k+1 = {k1}, N = {n_poly}, l = {levels} needs {smem} B "
+             f"of shared memory, above the {SMEM_LIMIT} B a block may use")
+    out = torch.empty_like(ct0)
+    _check_cuda((ct0, torch.int64), (ct1, torch.int64), (ggsw, torch.int32),
+                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
+                (dp.kernel_consts, torch.int64))
+    err = lib.tfhe_torch_cmux(out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(),
+                              dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
+                              dp.kernel_consts.data_ptr(), b, k1, n_poly.bit_length() - 1,
+                              levels, dp.num_primes, base_log, _stream(ct0))
+    _raise_on(err, "cmux")
+    cmux.launches += 1
+    return out
+
+
+cmux.launches = 0
 
 
 def exact_multibit_cts_per_block(k1: int, n_poly: int, levels: int, grouping: int,
@@ -729,3 +783,72 @@ def blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi, bsk_ntt, dp: DevicePla
 
 
 blind_rotate128.launches = 0
+
+
+# K6's input coefficients a block (the wrapper's choice: enough blocks to
+# fill the card at one list, partial sums of a few MB)
+K6_MIN_PER_CHUNK = 8
+K6_TARGET_BLOCKS = 1056
+
+
+def packing_keyswitch128_shape(n_in: int, levels: int, k1: int, n_poly: int,
+                               base_log: int) -> bool:
+    """Whether K6 takes this shape (csrc/packing_keyswitch128.cu): N a power
+    of two in [128, 1024], l <= 4, base_log <= 62, base_log l < 128; both
+    squashed-noise compression sets."""
+    return (n_poly & (n_poly - 1) == 0 and bool(
+        load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_shape(
+            n_in, levels, k1, n_poly.bit_length() - 1, base_log)))
+
+
+def k6_chunk(n_in: int, k1: int, lists: int) -> int:
+    """The input coefficients a K6 block sums (its grid is (ceil(n_in /
+    chunk), k+1, lists))."""
+    want = -(-n_in * k1 * lists // K6_TARGET_BLOCKS)
+    return max(K6_MIN_PER_CHUNK, min(n_in, want))
+
+
+def packing_keyswitch128(lwes, key, counts, base_log: int, levels: int,
+                         dp: DevicePlan | None = None):
+    """K6: the u128 packing keyswitch of squashed-noise compression, every
+    list in one launch (see ops/server128.py packing_keyswitch128).
+
+    lwes: (G, C, n+1, 2) int64, list g's u128 LWEs (lo, hi) at slots 0 ..
+    counts[g]-1 (rows past them are ignored); key: (n, l, k+1, N, 2) int64
+    standard-domain u128 key; counts: G ints in [1, C], C <= N.  On the CPU
+    the plain version runs on dp (an 8-prime plan of N).  Returns (G, k+1,
+    N, 2) int64.  Shapes K6 cannot take raise a ValueError."""
+    g, c, w, two = lwes.shape
+    n_in, lev, k1, n_poly, _ = key.shape
+    _require(two == 2 and w == n_in + 1 and lev == levels, "lwes / key shapes disagree")
+    _require(len(counts) == g and all(1 <= int(x) <= c for x in counts),
+             f"counts {list(counts)} do not fit {c} slots")
+    _require(c <= n_poly, f"{c} slots do not fit N = {n_poly}")
+    if lwes.device.type == "cpu":
+        _require(dp is not None and dp.num_primes == 8, "the plain version takes an 8-prime plan")
+        keep = torch.arange(c)[None, :] < torch.as_tensor(list(counts))[:, None]
+        lwes = lwes * keep[:, :, None, None]
+        lo, hi = server128.packing_keyswitch128(lwes[..., 0], lwes[..., 1], key[..., 0],
+                                                key[..., 1], dp, base_log, levels)
+        return torch.stack([lo, hi], dim=-1)
+    _require(lwes.device.type == "cuda", f"no u128 packing-keyswitch kernel for {lwes.device}")
+    _require(packing_keyswitch128_shape(n_in, levels, k1, n_poly, base_log),
+             f"K6 takes N a power of two in [128, 1024], l <= 4 and base_log <= 62, not "
+             f"N = {n_poly}, l = {levels}, base_log = {base_log}")
+    lwes, key = lwes.contiguous(), key.contiguous()
+    per_chunk = k6_chunk(n_in, k1, g)
+    chunks = -(-n_in // per_chunk)
+    counts_t = torch.tensor([int(x) for x in counts], dtype=torch.int32, device=lwes.device)
+    partial = torch.empty((g, chunks, k1, n_poly, 2), dtype=torch.int64, device=lwes.device)
+    out = torch.empty((g, k1, n_poly, 2), dtype=torch.int64, device=lwes.device)
+    _check_cuda((lwes, torch.int64), (key, torch.int64), (counts_t, torch.int32))
+    err = load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128(
+        out.data_ptr(), partial.data_ptr(), lwes.data_ptr(), key.data_ptr(),
+        counts_t.data_ptr(), g, c, n_in, levels, k1, n_poly.bit_length() - 1, base_log,
+        per_chunk, _stream(lwes))
+    _raise_on(err, "packing_keyswitch128")
+    packing_keyswitch128.launches += 1
+    return out
+
+
+packing_keyswitch128.launches = 0

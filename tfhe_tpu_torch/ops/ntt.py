@@ -543,9 +543,16 @@ def key_ntt(words: np.ndarray, dp: DevicePlan) -> torch.Tensor:
     step = max(1, (1 << 22) // (np_ * n))
     for s in range(0, flat.shape[0], step):
         w = torch.from_numpy(np.ascontiguousarray(flat[s:s + step]).view(np.int64))
-        res = residues_u64(w.to(dp.ps.device), dp)
-        out[s:s + step] = mont_mul(ntt_forward(res, dp), dp.r2s, dp.ps, dp.pinvs).to(torch.int32)
+        out[s:s + step] = words_ntt(w.to(dp.ps.device), dp)
     return out.reshape(tuple(np.shape(words)[:-1]) + (np_, n))
+
+
+def words_ntt(w: torch.Tensor, dp: DevicePlan) -> torch.Tensor:
+    """(..., N) int64 tensor of u64 words -> (..., P, N) int32 on its
+    device: residues, forward NTT, Montgomery form (key_ntt's words, for a
+    key built on the device: the GGSWs of circuit bootstrapping)."""
+    return mont_mul(ntt_forward(residues_u64(w, dp), dp), dp.r2s, dp.ps,
+                    dp.pinvs).to(torch.int32)
 
 
 def mask_times_binary_key(masks: torch.Tensor, key_mont: torch.Tensor,

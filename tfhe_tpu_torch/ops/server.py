@@ -5,8 +5,8 @@ The port of tfhe_tpu/ops/server.py for the shortint atomic patterns
 many-LUT) and for ciphertext compression.  Each function here is the plain
 PyTorch version of its tfhe_tpu namesake: the same exact integer
 arithmetic, so outputs are the same u64 words.  ``keyswitch``,
-``keyswitch32``, ``blind_rotate``, ``cmux_step``, the two multi-bit
-rotations and ``packing_keyswitch`` are also the plain versions of the
+``keyswitch32``, ``blind_rotate``, ``cmux_step``, ``cmux``, the two
+multi-bit rotations and ``packing_keyswitch`` are also the plain versions of the
 CUDA kernels (ops/kernels.py): the pipelines below go through the kernel
 wrappers, which run these plain versions for CPU tensors.
 
@@ -339,6 +339,14 @@ def cmux_step(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
     build_cmux_step Pallas kernel (tfhe_tpu/ops/pallas_ntt.py:296)."""
     ggsw = _key_view(ggsw, dp, False)[0]
     return acc + _cmux_product(acc, a_col, ggsw, dp, base_log, levels)
+
+
+def cmux(ct0, ct1, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
+    """ct0 + GGSW (x) (ct1 - ct0) for a batch sharing one GGSW, exact: the
+    CMux of vertical packing (tfhe_tpu/shortint/wopbs.py:212 _cmux).  The
+    plain version of K2's CMux entry (kernels.cmux).  ct0, ct1 (B, k+1, N);
+    ggsw (l, k+1, k+1, P, N) Montgomery NTT domain."""
+    return ct0 + external_product(ct1 - ct0, ggsw, dp, base_log, levels)
 
 
 def blind_rotate_stepwise(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,

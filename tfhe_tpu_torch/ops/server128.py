@@ -3,8 +3,10 @@
 The port of tfhe_tpu/ops/server128.py.  Each function is the plain PyTorch
 version of its tfhe_tpu namesake, with the same exact integer arithmetic,
 so the (lo, hi) words are the same.  ``blind_rotate128`` is also the plain
-version of the CUDA kernel K5 (csrc/blind_rotate128.cu): ``ks_pbs128_batch``
-goes through the kernel wrappers (ops/kernels.py), which run the plain
+version of the CUDA kernel K5 (csrc/blind_rotate128.cu), and
+``packing_keyswitch128`` that of K6 (csrc/packing_keyswitch128.cu):
+``ks_pbs128_batch`` and squashed-noise compression go through the kernel
+wrappers (ops/kernels.py), which run the plain
 versions for CPU tensors.
 
 A u128 tensor travels as a (lo, hi) pair of int64 tensors holding the two
@@ -201,6 +203,48 @@ def ks_pbs128_batch(ct, lut_lo, lut_hi, ksk, bsk128_ntt, dp128: ntt.DevicePlan,
         modulus_switch(ks[:, :-1], log_mod), modulus_switch(ks[:, -1], log_mod),
         lut_lo, lut_hi, bsk128_ntt, dp128, pbs_base_log, pbs_levels)
     return sample_extract128(a_lo, a_hi)
+
+
+# input coefficients whose key rows the plain packing keyswitch transforms
+# at once (bounds its NTT-domain products to about 10^8 int64 words)
+PKS128_KEY_ROWS = 256
+
+
+def packing_keyswitch128(lwe_lo, lwe_hi, key_lo, key_hi, dp: ntt.DevicePlan,
+                         base_log: int, levels: int) -> tuple:
+    """The u128 packing keyswitch of squashed-noise compression
+    (tfhe_tpu/shortint/noise_squashing.py:299-342 compress, its formula on
+    the torch half of the 8-prime CRT-NTT): the plain version of K6
+    (kernels.packing_keyswitch128).
+
+    lwe pair: (G, C, n+1), list g's LWEs at slots 0 .. C-1 (zero rows add
+    nothing); key pair: (n, l, k+1, N) standard domain; dp: an 8-prime plan
+    of N, where the exact sum (|X| < n l N 2^(base_log-1) 2^128) stays below
+    P/2.  Returns the (lo, hi) pair (G, k+1, N):
+        out = (0, B(X)) - sum_{i, lev} D_{i,lev}(X) * K_{i,lev}(X)
+    mod (X^N + 1, 2^128), D_{i,lev} the signed digits of mask element i of
+    LWE j at coefficient j, B(X) the bodies."""
+    g, c, w = lwe_lo.shape
+    n_in, _, k1, n_poly = key_lo.shape
+    a_lo = lwe_lo.new_zeros((g, n_in, n_poly))
+    a_hi = lwe_hi.new_zeros((g, n_in, n_poly))
+    a_lo[:, :, :c] = lwe_lo[:, :, :-1].transpose(1, 2)
+    a_hi[:, :, :c] = lwe_hi[:, :, :-1].transpose(1, 2)
+    digits = signed_decompose128(a_lo, a_hi, base_log, levels)    # l x (G, n, N)
+    col = torch.zeros((g, k1, dp.num_primes, n_poly), dtype=torch.int64, device=lwe_lo.device)
+    for s in range(0, n_in, PKS128_KEY_ROWS):
+        e = s + PKS128_KEY_ROWS
+        kf = ntt.forward_u128_mont(key_lo[s:e], key_hi[s:e], dp)  # (r, l, k+1, P, N)
+        for lev, (d_lo, d_hi) in enumerate(digits):
+            fwd = ntt.ntt_forward(_digit_residues128(d_lo[:, s:e], d_hi[:, s:e], dp), dp)
+            prod = ntt.pointwise_mul_mont(fwd[:, :, None], kf[None, :, lev], dp)
+            col = torch.remainder(col + prod.sum(dim=1), dp.ps)
+    s_lo, s_hi = ntt.garner_to_u128(ntt.ntt_inverse(col, dp), dp)
+    out_lo, out_hi = ntt.neg128(s_lo, s_hi)
+    b_lo, b_hi = ntt.add128(out_lo[:, -1, :c], out_hi[:, -1, :c], lwe_lo[:, :, -1],
+                            lwe_hi[:, :, -1])
+    out_lo[:, -1, :c], out_hi[:, -1, :c] = b_lo, b_hi
+    return out_lo, out_hi
 
 
 def generate_lut128(polynomial_size: int, glwe_size: int, cleartext_space: int,

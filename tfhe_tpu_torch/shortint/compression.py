@@ -36,6 +36,7 @@ from ..core.params import DecompParams
 from ..ops import kernels, ntt, torus
 from ..ops import server as srv
 from ..ops.bsk_prep import mask_floor_bsk, rounded_key_ntt
+from ..utils import hbm
 from ..utils.csprng import (DeterministicSeeder, EncryptionRandomGenerator,
                             SecretRandomGenerator, TUniform)
 from ..utils.device import resolve_device
@@ -310,10 +311,24 @@ def decompress(packed: CompressedCiphertextList, indices=None,
     indices = list(range(packed.count)) if indices is None else list(indices)
     glwes = torch.from_numpy(packed.glwes.astype(np.int64)).to(key.device)
     msed = extract_switched(glwes, indices, packed.storage_log_modulus)
-    lut = srv.generate_lut(p.polynomial_size, p.glwe_dimension + 1,
-                           p.total_modulus, p.delta, lambda x: x)
-    lut_b = torus.from_u64(lut, key.device).expand(len(indices), -1, -1)
-    out = srv.pbs_from_switched_batch(msed, lut_b, key.bsk_ntt, key.dp,
-                                      key.br_base_log, key.br_level, key.trunc_acc)
-    return lazy_outputs(out, [packed.degrees[i] for i in indices],
-                        [packed] * len(indices))
+    lut = torus.from_u64(srv.generate_lut(p.polynomial_size, p.glwe_dimension + 1,
+                                          p.total_modulus, p.delta, lambda x: x), key.device)
+    # device-memory admission (tfhe_tpu/shortint/compression.py:306-319):
+    # a chunk of the batch a K2 launch where the batch outgrows the card
+    chunk = hbm.admit_chunk(len(indices), decompression_bytes_per_item(p, msed.shape[1]),
+                            min_items=1, device=key.device)
+    outs = [srv.pbs_from_switched_batch(msed[s:s + chunk],
+                                        lut.expand(min(chunk, len(indices) - s), -1, -1),
+                                        key.bsk_ntt, key.dp, key.br_base_log, key.br_level,
+                                        key.trunc_acc)
+            for s in range(0, len(indices), chunk)]
+    return lazy_outputs(outs[0] if len(outs) == 1 else torch.cat(outs),
+                        [packed.degrees[i] for i in indices], [packed] * len(indices))
+
+
+def decompression_bytes_per_item(p, width: int) -> int:
+    """The decompression's device working set a ciphertext: its switched
+    LWE (width words), the K2 accumulator and its padded copy, and the
+    extracted output."""
+    k1, n_poly = p.glwe_dimension + 1, p.polynomial_size
+    return (width + 2 * k1 * n_poly + p.glwe_dimension * n_poly + 1) * 8
