@@ -8,7 +8,7 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
 
   1. the card (nvidia-smi name and power limit) and the torch, CUDA and nvcc
      versions;
-  2. build the hand-written kernels K1-K6 from tfhe_tpu_torch/csrc/ (nvcc,
+  2. build the hand-written kernels from tfhe_tpu_torch/csrc/ (nvcc,
      sm_90a, one compiler per source, started together), and start the
      test vectors' CPU emission in a process of its own (phase 30); then every
      source again under ``nvcc -Xptxas -v`` for each kernel's registers,
@@ -152,7 +152,20 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
  30. test_vectors: toy_params and valid_params_128 emitted on the card (K1,
      K2's exact kernels) and compared byte for byte with phase 2's CPU
      emission;
- 31. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 31. serve_3_3: V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128 (n =
+     1077, N = 8192, l = 2) through the entry points: keygen on the card
+     (seconds; the NTT key's 1.13 GB, the keyswitch key's words and byte
+     limbs), three rounds at B = 64, every output decrypted (K1's
+     tensor-core kernel at n_in = 8192, then K2's cluster kernel once a
+     round: a cluster of four blocks a ciphertext, one a CRT prime), and a
+     radix of 4 blocks' add and mul through the integer layer;
+ 32. param_sets: the sets of shortint/params.py that had never had a
+     real-key round on the card (1_1: K2's generic exact kernel; the GPU
+     multi-bit GROUP_2 at N = 4096 and GROUP_3: K3's exact kernel; GROUP_4
+     1_1: K3 v9): keygen, one round at B = 32 decrypted, and its first 4
+     inputs through the same entry point with the kernels and with their
+     plain versions;
+ 33. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -217,18 +230,24 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      outputs against the plain path; K1-32 (its tensor-core kernel, its
      generic kernel and the int8 torch._int_mm yardstick) at both KS32
      shapes on B = 512 encryptions and at B = 1 and 513, and phase 25's
-     plain comparisons; K6 against its plain version (the 8-prime CRT-NTT)
+     plain comparisons, and its contraction whole (one slice a block, the
+     grid before the split); K6 against its plain version (the 8-prime
+     CRT-NTT)
      on phase 27's key and inputs at 1, 16 and 128 slots and on masks of
-     the extreme digits +-2^60, and at the TEST shape on a random key; K1
+     the extreme digits +-2^60, and at the TEST shape on a random key;
+     K2's cluster kernel on phase 31's first 4 switched inputs over the
+     real 3_3 key and on a random key at that shape over 64 steps at B = 1,
+     3 and 4; K1
      at the PFPKS shape on phase 28's circuit-bootstrap LWEs; K2's CMux
      entry against ct0 + external_product at B = 1 and 64;
- 32. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-30 (each
+ 34. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-32 (each
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line (K1-32's entry, keyswitch32, with the
      launches of phases 25-26 on every kernel's; K6's, K1's at the PFPKS
      shape and the CMux entry's, with the launches of phases 28-30 on K1's,
-     K2's exact kernels' and the step entry's).
+     K2's exact kernels' and the step entry's; K2's cluster kernel's, with
+     the launches of phases 31-32 on K1's, K2's and K3's).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -376,14 +395,16 @@ TRIVIUM_WARMUP_STEPS = 4 * 288
 TRIVIUM_STREAMS = (("trivium", "TriviumStream", 80), ("kreyvium", "KreyviumStream", 128))
 # every kernel of the port, by the name a profiler trace gives it
 KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_kernel",
+                "keyswitch_digits_kernel",
                 "keyswitch32_kernel",
                 "keyswitch32_imma_kernel", "blind_rotate_kernel", "cmux_kernel",
+                "blind_rotate_cluster_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
                 "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
-                "packing_keyswitch_imma_kernel", "packing_keyswitch128_partial_kernel",
-                "packing_keyswitch128_reduce_kernel")
+                "packing_keyswitch_imma_kernel",
+                "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel")
 
 
 STARTED = time.perf_counter()
@@ -844,7 +865,7 @@ def head_of(key, lead: tuple):
 
 
 def ptxas_start(kernels) -> tuple:
-    """Start ``nvcc -Xptxas -v`` on every source of K1-K6, one compiler per
+    """Start ``nvcc -Xptxas -v`` on every kernel source, one compiler per
     source, all together, into a scratch directory (the libraries are
     thrown away).  Returns the directory and the (name, process) pairs for
     ptxas_report."""
@@ -856,8 +877,9 @@ def ptxas_start(kernels) -> tuple:
         kernels.nvcc_command() + ["-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
                                   str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in ("keyswitch", "blind_rotate", "blind_rotate_multibit",
-                     "packing_keyswitch", "blind_rotate128", "packing_keyswitch128")]
+        for name in ("keyswitch", "blind_rotate", "blind_rotate_cluster",
+                     "blind_rotate_multibit", "packing_keyswitch", "blind_rotate128",
+                     "packing_keyswitch128")]
 
 
 def ptxas_stop(started: tuple) -> None:
@@ -874,8 +896,8 @@ def ptxas_stop(started: tuple) -> None:
 
 
 def ptxas_report(kernels, started: tuple) -> dict:
-    """Registers, spills and static shared memory of every kernel of K1-K5
-    as ptxas_start's compilers report them (each waited for), and the
+    """Registers, spills and static shared memory of every kernel as
+    ptxas_start's compilers report them (each waited for), and the
     rounded-key kernels' dynamic shared memory and ciphertexts a block."""
     import re
 
@@ -939,13 +961,15 @@ def kernel_wrappers(kernels) -> tuple:
 
 def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
-    launches and, of them, those of K1's and K4's tensor-core kernels and
-    of K2's lazy exact kernel (the rotation's and the step entry's)."""
+    launches and, of them, those of K1's and K4's tensor-core kernels, of
+    K2's lazy exact kernel (the rotation's and the step entry's) and of its
+    cluster kernel."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
         ("keyswitch32_imma", kernels.keyswitch32, "imma_launches"),
         ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
+        ("blind_rotate_cluster", kernels.blind_rotate, "cluster_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"))
 
 
@@ -2410,6 +2434,25 @@ def wire_phase(kernels, th, seed: int) -> dict:
     return {"line": line, "wrong": wrong}
 
 
+def unsplit_keyswitch32(kernels, ct, ksk32, base_log: int, levels: int):
+    """K1-32's tensor-core kernel through its C entry with the contraction
+    whole (one slice a block: the grid before the split)."""
+    import torch
+
+    limbs = ksk32.limbs
+    b, m_out = ct.shape[0], ksk32.words.shape[2]
+    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
+    digits = torch.empty((-(-b // kernels.IM_BM) * kernels.IM_BM, limbs.shape[0],
+                          limbs.shape[2]), dtype=torch.int8, device=ct.device)
+    err = kernels.load()["keyswitch"].tfhe_torch_keyswitch32_imma(
+        out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), digits.data_ptr(), b,
+        ct.shape[1] - 1, levels, m_out, base_log, limbs.shape[0], limbs.shape[1], 1,
+        kernels._stream(ct))
+    if err:
+        raise RuntimeError(f"K1-32's tensor-core kernel failed: cudaError {err}")
+    return out
+
+
 def ks32_vs_plain(kernels, server, torus, atomic_run, rng, errs: dict) -> dict:
     """K1-32 at both KS32 shapes (V1_4: n_in = 2048, l = 5; TEST: n_in = 512,
     l = 3; base 2^4) on B = 512 encryptions under phase 25's keys, its
@@ -2446,7 +2489,15 @@ def ks32_vs_plain(kernels, server, torus, atomic_run, rng, errs: dict) -> dict:
                 kernels.keyswitch32(rct, a_sk.ks_key, q.ks_base_log, q.ks_level),
                 server.keyswitch32(rct, a_sk.ksk, q.ks_base_log, q.ks_level))
         bound = k1_bound(ct, a_sk.ksk, got, q.ks_base_log, word_bytes=4)
+        limbs = a_sk.ks_key.limbs
+        splits = kernels.keyswitch_splits(
+            limbs.shape[1] // kernels.IM_BN * -(-BATCH // kernels.IM_BM), limbs.shape[0],
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        errs[f"ks32_{tag}_unsplit_b{BATCH}"] = max_abs_err(
+            unsplit_keyswitch32(kernels, *kargs), want)
         k132[tag] = {"ms": cuda_ms(lambda: kernels.keyswitch32(*kargs), 10),
+                     "splits": splits,
+                     "unsplit_ms": cuda_ms(lambda: unsplit_keyswitch32(kernels, *kargs), 10),
                      "plain_ms": cuda_ms(lambda: server.keyswitch32(*pargs), 3),
                      "generic_kernel_ms": cuda_ms(lambda: generic_keyswitch32(kernels, *pargs),
                                                   10),
@@ -2526,21 +2577,31 @@ K6_DIGIT_MINUS = (1 << 127) - (1 << 66)
 TEST_VECTOR_DIRS = ("build/test_vectors/cuda", "build/test_vectors/cpu")
 
 
+# K6's limb pairs: a signed digit of up to 63 bits is 8 byte limbs, a u128
+# key word 16, and mod 2^128 only the pairs a + b <= 15 count
+K6_LIMB_PAIRS = sum(16 - a for a in range(8))      # 100
+
+
 def k6_bound(key, counts) -> dict:
     """Least time for K6 on lists of the given counts: the key, the input
-    LWEs and the output GLWEs moved once (u128 words), against its
-    multiply-adds on the CUDA cores' 32-bit integer rate: a signed 61-bit
-    digit (two 32-bit limbs) times a u128 key word (four) mod 2^128 takes
-    the 7 limb products below 2^128, 5 of them both halves (two multiplies)
-    and 2 the low half only: 12 multiplies.  Counted for the slots these
-    inputs hold (counts), not the N a GLWE could."""
+    LWEs and the output GLWEs moved once (u128 words), against the cheaper
+    way to do its multiply-adds of a signed 61-bit digit by a u128 key word
+    mod 2^128: on the CUDA cores' 32-bit integer rate (two 32-bit limbs of
+    the digit times four of the word: the 7 limb products below 2^128, 5
+    of them both halves and 2 the low half only, 12 multiplies), or as
+    K6_LIMB_PAIRS int8 limb products on the tensor cores (as k1_bound counts
+    K1).  Counted for the slots these inputs hold (counts), not the N a GLWE
+    could."""
     n_in, levels, k1, n_poly, _ = key.shape
     macs = sum(counts) * n_in * levels * k1 * n_poly
-    t_ops = 12 * macs / INT32_MUL_PER_S
+    t_int32 = 12 * macs / INT32_MUL_PER_S
+    t_int8 = 2 * K6_LIMB_PAIRS * macs / INT8_TC_OPS_PER_S
+    t_ops = min(t_int32, t_int8)
     nbytes = 8 * key.numel() + 16 * (sum(counts) * (n_in + 1) + len(counts) * k1 * n_poly)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3, "multiply_adds": macs}
+            "bytes_ms": t_bytes * 1e3, "ops_int32_ms": t_int32 * 1e3,
+            "ops_limbs_int8_ms": t_int8 * 1e3, "multiply_adds": macs}
 
 
 def cmux_bound(ct0, levels: int, base_log: int) -> dict:
@@ -2799,9 +2860,10 @@ def test_vectors_phase(kernels, test_vectors, cpu_proc) -> dict:
 
 def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
                      errs: dict) -> dict:
-    """K6 against its plain version (8-prime CRT-NTT) on phase 27's V1_4 key
-    and squashed inputs at count 1, 16 and 128, and on masks of the extreme
-    digits +-2^60, and at the TEST shape on a random key; K1's generic
+    """K6 (on the key's byte layout) against its plain version (8-prime
+    CRT-NTT, on the key's words) on phase 27's V1_4 key and squashed inputs at
+    count 1, 16 and 128, and on masks of the extreme digits +-2^60, and at
+    the TEST shape on a random key; K1's generic
     kernel at base 2^37 (the toy test vectors' keyswitch); K1 at the PFPKS
     shape on phase 28's circuit-bootstrap LWEs against the plain keyswitch;
     K2's CMux entry against ct0 + external_product on one of phase 28's
@@ -2819,13 +2881,17 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
                              dtype=torch.int64) * 2 + torch.randint(
             0, 2, shape, generator=gen, device=dev, dtype=torch.int64)
 
-    def k6_err(tag, lwes, key, counts, dp8):
-        got = kernels.packing_keyswitch128(lwes, key, counts, 61, 1, dp8)
+    def k6_err(tag, lwes, kkey, counts, dp8):
+        key = kernels.packing_keyswitch128_key_words(kkey)
         keep = (torch.arange(lwes.shape[1], device=dev)[None, :]
                 < torch.tensor(counts, device=dev)[:, None])
         lw = lwes * keep[:, :, None, None]
         lo, hi = server128.packing_keyswitch128(lw[..., 0], lw[..., 1], key[..., 0],
                                                 key[..., 1], dp8, 61, 1)
+        before = kernels.packing_keyswitch128.launches
+        got = kernels.packing_keyswitch128(lwes, kkey, counts, 61, 1, dp8)
+        if kernels.packing_keyswitch128.launches != before + 1:
+            raise RuntimeError(f"K6 did not launch ({tag})")
         errs[f"k6_{tag}"] = int(((got[..., 0] != lo) | (got[..., 1] != hi)).sum())
 
     def extremes(n_in):
@@ -2840,25 +2906,33 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
         return out
 
     ckey = sqc_run["ckey"]
-    key, dp8 = ckey.pksk, ckey.dp
+    kkey, dp8 = ckey.pksk, ckey.dp
+    if kkey.dtype != torch.uint8:
+        raise RuntimeError("the compression key holds no byte layout of its key for K6")
+    key = kernels.packing_keyswitch128_key_words(kkey)
     lwes4 = torch.cat([squashed_lwes(cts, dev) for cts in sqc_run["lists"]])
     for count in K6_COUNTS:
-        k6_err(f"v1_4_c{count}", lwes4[:1, :count], key, [count], dp8)
-    k6_err("v1_4_extreme_digits", extremes(key.shape[0]), key, [16], dp8)
-    test_key = rnd((512, 1, 3, 256, 2))
+        k6_err(f"v1_4_c{count}", lwes4[:1, :count], kkey, [count], dp8)
+    k6_err("v1_4_extreme_digits", extremes(key.shape[0]), kkey, [16], dp8)
+    test_kkey = kernels.packing_keyswitch128_key(rnd((512, 1, 3, 256, 2)))
     test_dp = ntt.device_plan(ntt.make_plan(256, 8), "cuda")
     for count in K6_COUNTS:
-        k6_err(f"test_c{count}", rnd((2, count, 513, 2)), test_key,
+        k6_err(f"test_c{count}", rnd((2, count, 513, 2)), test_kkey,
                [count, max(1, count // 2)], test_dp)
-    k6_err("test_extreme_digits", extremes(512), test_key, [16], test_dp)
+    k6_err("test_extreme_digits", extremes(512), test_kkey, [16], test_dp)
     counts4 = [lwes4.shape[1]] * lwes4.shape[0]
-    k6 = {"ms": cuda_ms(lambda: kernels.packing_keyswitch128(lwes4, key, counts4, 61, 1, dp8),
+    k6 = {"ms": cuda_ms(lambda: kernels.packing_keyswitch128(lwes4, kkey, counts4, 61, 1, dp8),
                         5),
           "one_list_ms": cuda_ms(lambda: kernels.packing_keyswitch128(
-              lwes4[:1], key, counts4[:1], 61, 1, dp8), 5),
+              lwes4[:1], kkey, counts4[:1], 61, 1, dp8), 5),
+          "ms_again": cuda_ms(lambda: kernels.packing_keyswitch128(lwes4, kkey, counts4, 61,
+                                                                   1, dp8), 5),
           "plain_ms": cuda_ms(lambda: server128.packing_keyswitch128(
               lwes4[..., 0], lwes4[..., 1], key[..., 0], key[..., 1], dp8, 61, 1), 1),
           "bound": k6_bound(key, counts4), "one_list_bound": k6_bound(key, counts4[:1]),
+          "shared_memory_bytes": kernels.packing_keyswitch128_imma_smem(
+              key.shape[2], key.shape[3], 1, 61, counts4[0]),
+          "key_limbs_device_bytes": kkey.numel(),
           "shape": list(lwes4.shape[:3]) + list(key.shape[2:4])}
     # K1's generic kernel at the test vectors' toy keyswitch (base 2^37, l =
     # 1: its 64-bit-digit instance) on random words
@@ -2895,6 +2969,212 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
             "bound": cmux_bound(ct0, prm.cbs_level, prm.cbs_base_log),
             "shape": [b, wk.k + 1, wk.n_poly, prm.cbs_level]}
     return {"k6": k6, "pfpks": pf, "cmux": cm}
+
+
+# Phases 31-32: 3_3 on the card (K2's cluster kernel at N = 8192) and every
+# shortint set that had never had a real-key round there
+SERVE_3_3_BATCH = 64
+RADIX_3_3_BLOCKS = 4          # a radix of 4 blocks of 3 message bits: 12 bits
+PARAM_SETS_BATCH = 32
+PARAM_SETS = (
+    # (tag, the set's name in shortint/params.py, the rotation's counter)
+    ("1_1", "V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128", "blind_rotate"),
+    ("gpu_group_2", "V1_4_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+     "blind_rotate_multibit"),
+    ("gpu_group_3", "V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+     "blind_rotate_multibit"),
+    ("gpu_group_4_1_1",
+     "V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128",
+     "blind_rotate_multibit"),
+)
+CLUSTER_RANDOM_STEPS = 64     # the random-key check's steps at the 3_3 shape
+
+
+def lut_fn(total: int):
+    """The tables of phases 31-32: x -> (7 x + 3) mod the set's total
+    plaintext space (message x carry)."""
+    return lambda x: (7 * x + 3) % total
+
+
+def serve_3_3_phase(kernels, shortint_mod, ti, seed: int) -> dict:
+    """Phase 31: V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128 (n =
+    1077, N = 8192, l = 2, base 2^15; KS 2^4 x 5 from n_in = 8192) on the
+    card through the entry points: ClientKey, ServerKey(device="cuda")
+    (seconds, the key's bytes on the card), ROUNDS rounds of
+    apply_lookup_table_batch at B = 64 with (7x + 3) % 64 on messages of 3
+    bits, every output decrypted (K1's tensor-core kernel, then K2's cluster
+    kernel once a round: the exact rotation, 3_3 being outside the v7
+    family); a radix of 4 blocks (12 bits) add and mul through the integer
+    layer, decrypted."""
+    import numpy as np
+    import torch
+
+    q = shortint_mod.V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128
+    t0 = time.perf_counter()
+    ck = shortint_mod.ClientKey(q, seed=seed)
+    sk = shortint_mod.ServerKey(ck, seed=seed + 1, device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    if sk.trunc_acc:
+        raise RuntimeError("the 3_3 key took the v7 rotation (it is outside the v7 family)")
+    rng = np.random.default_rng(seed + 2)
+    inputs = rng.integers(0, q.message_modulus, SERVE_3_3_BATCH)
+    cts = [ck.encrypt(int(v)) for v in inputs]
+    f = lut_fn(q.message_modulus * q.carry_modulus)
+    lut = sk.generate_lookup_table(f)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    round_s, outs = [], []
+    for _ in range(ROUNDS):
+        t1 = time.perf_counter()
+        outs.append(sk.apply_lookup_table_batch(cts, lut))
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t1)
+    launches = read_counts(kernels)
+    wrong = sum(ck.decrypt_raw(ct) != f(int(v)) for out in outs for ct, v in zip(out, inputs))
+    line = {"params": "V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128",
+            "n": q.lwe_dimension, "N": q.polynomial_size, "k": q.glwe_dimension,
+            "pbs_level": q.pbs_level, "pbs_base_log": q.pbs_base_log,
+            "ks_level": q.ks_level, "ks_base_log": q.ks_base_log,
+            "keygen_seconds": keygen_s,
+            "device_key_bytes": {"bsk_ntt": sk.bsk_ntt.numel() * 4,
+                                 "ksk_words": sk.ksk.numel() * 8,
+                                 "ksk_limbs": sk.ks_key.limbs.numel()},
+            "batch": SERVE_3_3_BATCH, "rounds": ROUNDS, "round_seconds": round_s,
+            "pbs_per_s": ROUNDS * SERVE_3_3_BATCH / sum(round_s),
+            "launches": {k: v for k, v in launches.items() if v},
+            "outputs_checked": ROUNDS * SERVE_3_3_BATCH, "wrong": int(wrong)}
+    check_launches("a 3_3 round", line,
+                   {"keyswitch": None, "keyswitch_imma": "keyswitch",
+                    "blind_rotate": None, "blind_rotate_cluster": "blind_rotate"},
+                   never=("blind_rotate_exact_lazy", "blind_rotate_multibit", "keyswitch32"))
+    if launches["blind_rotate_cluster"] != ROUNDS:
+        raise RuntimeError(f"the 3_3 rounds did not run K2's cluster kernel once a round: "
+                           f"{launches}")
+    # the integer layer on the same key: a radix of 4 blocks
+    ick, isk = integer_keys(ti, ck, sk)
+    mod = isk.msg ** RADIX_3_3_BLOCKS
+    x, y = (int(v) for v in rng.integers(0, mod, 2))
+    a, b = ick.encrypt_radix(x, RADIX_3_3_BLOCKS), ick.encrypt_radix(y, RADIX_3_3_BLOCKS)
+    log = RoundLog(isk.key)
+    radix = {}
+    for name, fn, want in (("add", lambda: isk.add_parallelized(a, b), (x + y) % mod),
+                           ("mul", lambda: isk.mul_parallelized(a, b), (x * y) % mod)):
+        _, radix[name] = measured_op(kernels, log, fn,
+                                     lambda o, w=want: ick.decrypt_radix(o) != w, warm=False)
+        check_launches(f"the 3_3 radix {name}", radix[name],
+                       {"keyswitch": None, "blind_rotate": None,
+                        "blind_rotate_cluster": "blind_rotate"})
+    log.close()
+    line["radix"] = {"blocks": RADIX_3_3_BLOCKS, "modulus": mod, **radix}
+    line["wrong"] += sum(op["wrong"] for op in radix.values())
+    return {"line": line, "wrong": line["wrong"], "ck": ck, "sk": sk, "cts": cts,
+            "lut": lut}
+
+
+def param_sets_phase(kernels, shortint_mod, seed: int) -> dict:
+    """Phase 32: every set of shortint/params.py that had no real-key round
+    on the card before: 1_1 (k + 1 = 5, N = 512: K2's generic exact
+    kernel), the GPU multi-bit GROUP_2 (N = 4096: K3's exact kernel), GROUP_3
+    (l = 2: K3's exact kernel) and GROUP_4 1_1 (K3 v9): keygen, one round
+    at B = 32 with (7x + 3) % total decrypted, and its first CHECK_BATCH
+    inputs through the same entry point with the kernels and with their
+    plain versions (0 words differing)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import server
+    from tfhe_tpu_torch.shortint import params as sp
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    lines, errs, wrong = {}, {}, 0
+    for i, (tag, name, rotation) in enumerate(PARAM_SETS):
+        q = getattr(sp, name)
+        t0 = time.perf_counter()
+        ck = shortint_mod.ClientKey(q, seed=seed + 10 * i)
+        sk = shortint_mod.ServerKey(ck, seed=seed + 10 * i + 1, device="cuda")
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        inputs = np.random.default_rng(seed + 10 * i + 2).integers(0, q.message_modulus,
+                                                                    PARAM_SETS_BATCH)
+        cts = [ck.encrypt(int(v)) for v in inputs]
+        f = lut_fn(q.message_modulus * q.carry_modulus)
+        lut = sk.generate_lookup_table(f)
+        out, launches, round_s, _ = counted(kernels,
+                                            lambda: sk.apply_lookup_table_batch(cts, lut))
+        bad = int(sum(ck.decrypt_raw(ct) != f(int(v)) for ct, v in zip(out, inputs)))
+        if not launches["keyswitch"] or launches[rotation] != 1:
+            raise RuntimeError(f"{name}'s round did not run K1 and {rotation} once: {launches}")
+        few = cts[:CHECK_BATCH]
+        got = upload_batch([c.data for c in sk.apply_lookup_table_batch(few, lut)], sk.device)
+        with plain_kernels(kernels, server):
+            want = upload_batch([c.data for c in sk.apply_lookup_table_batch(few, lut)],
+                                sk.device)
+        errs[f"param_sets_{tag}_b{CHECK_BATCH}"] = max_abs_err(got, want)
+        lines[tag] = {"params": name, "n": q.lwe_dimension, "N": q.polynomial_size,
+                      "k": q.glwe_dimension, "pbs_level": q.pbs_level,
+                      "grouping": getattr(q, "grouping_factor", None),
+                      "v7_or_v9_mode": sk.trunc_acc, "keygen_seconds": keygen_s,
+                      "batch": PARAM_SETS_BATCH, "round_seconds": round_s,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      f"vs_plain_b{CHECK_BATCH}_max_abs_err":
+                          errs[f"param_sets_{tag}_b{CHECK_BATCH}"],
+                      "outputs_checked": PARAM_SETS_BATCH, "wrong": bad}
+        wrong += bad
+    return {"line": {**lines, "wrong": wrong}, "errs": errs, "wrong": wrong}
+
+
+def cluster_figures(kernels, server, torus, run, seed: int, errs: dict) -> dict:
+    """K2's cluster kernel against the plain exact rotation (tolerance 0):
+    B = CHECK_BATCH of phase 31's switched inputs on the real 3_3 key
+    (all 1077 steps), and a random key at the same shape over
+    CLUSTER_RANDOM_STEPS steps at B = 1, 3 and CHECK_BATCH; its time at
+    phase 31's B = 64 and at B = CHECK_BATCH, the plain rotation's at
+    CHECK_BATCH, the bound (k2_bound, 4 primes) at B = 64."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    sk, p = run["sk"], run["sk"].params
+    dev = sk.device
+    batch = upload_batch([c.data for c in run["cts"]], dev)
+    ks = kernels.keyswitch(batch, sk.ks_key, p.ks_base_log, p.ks_level)
+    mask, body, log_mod = switched_inputs(ks, p, server)
+    msed = server.modulus_switch(mask, log_mod)
+    lut = sk._upload_luts([run["lut"]], batch.shape[0])
+    args = (sk.bsk_ntt, sk.dp, p.pbs_base_log, p.pbs_level)
+    few = (msed[:CHECK_BATCH], body[:CHECK_BATCH], lut[:CHECK_BATCH])
+    before = kernels.blind_rotate.cluster_launches
+    got = kernels.blind_rotate(*few, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = server.blind_rotate(*few, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs[f"k2_cluster_3_3_key_b{CHECK_BATCH}"] = max_abs_err(got, want)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    k1, n_poly = p.glwe_dimension + 1, p.polynomial_size
+    rkey = random_ntt_key((CLUSTER_RANDOM_STEPS, p.pbs_level, k1, k1), sk.dp, gen)
+    for b in (1, 3, CHECK_BATCH):
+        m = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, CLUSTER_RANDOM_STEPS))).to(dev)
+        bd = torch.from_numpy(rng.integers(0, 2 * n_poly, (b,))).to(dev)
+        lt = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        errs[f"k2_cluster_random_key_b{b}"] = max_abs_err(
+            kernels.blind_rotate(m, bd, lt, rkey, sk.dp, p.pbs_base_log, p.pbs_level),
+            server.blind_rotate(m, bd, lt, rkey, sk.dp, p.pbs_base_log, p.pbs_level))
+    if kernels.blind_rotate.cluster_launches - before != 4:
+        raise RuntimeError("the 3_3-shape checks did not run K2's cluster kernel")
+    ms = cuda_ms(lambda: kernels.blind_rotate(msed, body, lut, *args), 2)
+    ms_few = cuda_ms(lambda: kernels.blind_rotate(*few, *args), 2)
+    smem = kernels.exact_smem_bytes(k1, n_poly, p.pbs_level, cluster=True)
+    return {"ms": ms, "b4_ms": ms_few, "plain_b4_ms": plain_s * 1e3,
+            "bound": k2_bound(msed, lut, p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
+            "b4_bound": k2_bound(few[0], few[2], p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
+            "shared_memory_bytes": smem, "generic_kernel_bytes": kernels.exact_smem_bytes(
+                k1, n_poly, p.pbs_level),
+            "shape": [msed.shape[0], p.lwe_dimension, p.pbs_level, k1, n_poly]}
 
 
 def main() -> None:
@@ -3263,7 +3543,17 @@ def main() -> None:
         if run["wrong"]:
             raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
 
-    # 31. kernels against their plain versions
+    # 31-32. 3_3 through the entry points (K2's cluster kernel at N = 8192)
+    # and every set that had never had a real-key round on the card
+    s33_run = serve_3_3_phase(kernels, shortint_mod, tint, args.seed + 100)
+    emit({"phase": "serve_3_3", **s33_run["line"]})
+    ps_run = param_sets_phase(kernels, shortint_mod, args.seed + 110)
+    emit({"phase": "param_sets", **ps_run["line"]})
+    for tag, run in (("3_3", s33_run), ("parameter-set", ps_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
+
+    # 33. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -3795,6 +4085,9 @@ def main() -> None:
     cast_figs = compact_paths_vs_plain(kernels, server, torus, hl_sk, pke_run, errs)
     # phases 27-28: K6, K1 at the PFPKS shape, K2's CMux entry
     s13 = slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, args.seed + 93, errs)
+    # phases 31-32: K2's cluster kernel at the 3_3 shape, the new sets' rounds
+    s14 = cluster_figures(kernels, server, torus, s33_run, args.seed + 101, errs)
+    errs.update(ps_run["errs"])
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -3804,8 +4097,8 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 32. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24,
-    # 27-30) and the kernel table
+    # 34. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24,
+    # 27-32) and the kernel table
     int_lines = integer_run["line"]
     int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
                              for op in int_lines[group].values()],
@@ -3867,7 +4160,9 @@ def main() -> None:
                           "fheuint64_add": pke_run["line"]["fheuint64_add"]["launches"]},
           "trivium": {f"{name}_{tag}": triv_run["line"][name][tag]["launches"]
                       for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")},
-          **s13_paths})
+          **s13_paths, "serve_3_3": s33_run["line"]["launches"],
+          "serve_3_3_radix": {k: s33_run["line"]["radix"][k]["launches"] for k in ("add", "mul")},
+          "param_sets": {t: ps_run["line"][t]["launches"] for t, _, _ in PARAM_SETS}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
@@ -4103,7 +4398,8 @@ def main() -> None:
         {"name": "packing_keyswitch128", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/packing_keyswitch128.cu",
          "replaces": "tfhe_tpu/shortint/noise_squashing.py:299",
-         "kernel": "packing_keyswitch128_partial_kernel, then _reduce_kernel (direct u128)",
+         "kernel": "packing_keyswitch128_imma_kernel (int8 tensor cores: 8 digit byte limbs "
+                   "x 16 key byte limbs, the pairs below 2^128), then _reduce_kernel",
          "launches": sum(s13_launches("packing_keyswitch128").values()),
          "launches_by_path": {"squash_compress": s13_launches("packing_keyswitch128")[
              "squash_compress"]},
@@ -4118,9 +4414,7 @@ def main() -> None:
          "library_ms": None,
          "library_call": "none: torch has no u128 or exact negacyclic product",
          "plain": "tfhe_tpu's formula on the torch half of the 8-prime CRT-NTT",
-         "shape": s13["k6"]["shape"],
-         "registers": ptxas_of(ptxas_kernels, "packing_keyswitch128_partial_kernel").get(
-             "registers")},
+         "shape": s13["k6"]["shape"]},
         {"name": "keyswitch_pfpks", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/shortint/wopbs.py:108",
@@ -4176,7 +4470,69 @@ def main() -> None:
         p_: v for p_, v in s13_launches("cmux_step").items() if v}
     # K1-32, and the launches of phases 25-26 on the other kernels' entries
     atomic_table_entries(table, atomic_run, wire_run, errs, k132, ptxas_kernels)
+    # K2's cluster kernel (phase 31), and the launches of phases 31-32 on
+    # K1, K2's generic exact kernel and K3
+    s33_l, ps_l = s33_run["line"], ps_run["line"]
+    s14_runs = {"serve_3_3": s33_l["launches"],
+                **{f"serve_3_3_radix_{k}": s33_l["radix"][k]["launches"] for k in ("add", "mul")},
+                **{f"param_sets_{t}": ps_l[t]["launches"] for t, _, _ in PARAM_SETS}}
+
+    def s14_by_path(counter: str, paths=None) -> dict:
+        return {path: c.get(counter, 0) for path, c in s14_runs.items()
+                if c.get(counter, 0) and (paths is None or path in paths)}
+
+    # its 3_3 instance (k+1 = 2, l = 2, log N = 13)
+    cl_regs = next((v for k, v in ptxas_kernels.items()
+                    if "blind_rotate_cluster_kernelILi2ELi2ELi13E" in k), {})
+    table.append({
+        "name": "blind_rotate_cluster", "route": "cuda",
+        "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
+        "replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
+        "kernel": "blind_rotate_cluster_kernel (K2's exact rotation, a cluster of 4 blocks a "
+                  "ciphertext, one a CRT prime: 3_3, k+1 = 2, l = 2, N = 8192)",
+        "launches": sum(s14_by_path("blind_rotate_cluster").values()),
+        "launches_by_path": s14_by_path("blind_rotate_cluster"),
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_cluster")),
+        "words_differing": {k: v for k, v in errs.items() if k.startswith("k2_cluster")},
+        "ms": s14["ms"], "b4_ms": s14["b4_ms"], "plain_ms": s14["plain_b4_ms"],
+        "plain_batch": CHECK_BATCH,
+        "bound_ms": s14["bound"]["ms"], "bound_by": s14["bound"]["by"],
+        "b4_bound_ms": s14["b4_bound"]["ms"], "bound_primes": EXACT_PRIMES,
+        "bound_ntt_int32_ms": s14["bound"]["ntt_ms"],
+        "bound_four_step_int8_ms": s14["bound"]["four_step_ms"],
+        "bound_bytes_ms": s14["bound"]["bytes_ms"],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes an exact wrapping-u64 negacyclic "
+                        "product",
+        "shared_memory_bytes": s14["shared_memory_bytes"],
+        "one_block_would_need_bytes": s14["generic_kernel_bytes"],
+        "registers": cl_regs.get("registers"), "spill_store_bytes": cl_regs.get(
+            "spill_store_bytes"),
+        "shape": s14["shape"]})
     by_name = {entry["name"]: entry for entry in table}
+    for name, counter, paths, key in (
+            ("keyswitch", "keyswitch", None, "launches_by_path"),
+            ("keyswitch", "keyswitch_imma", None, "tensor_core_launches_by_path"),
+            ("blind_rotate_exact", "blind_rotate", ("param_sets_1_1",),
+             "generic_launches_by_path"),
+            ("blind_rotate_multibit_exact", "blind_rotate_multibit",
+             ("param_sets_gpu_group_2", "param_sets_gpu_group_3"), "launches_by_path"),
+            ("blind_rotate_multibit", "blind_rotate_multibit", ("param_sets_gpu_group_4_1_1",),
+             "launches_by_path")):
+        extra = s14_by_path(counter, paths)
+        by_name[name].setdefault(key, {}).update(extra)
+        if key == "launches_by_path":
+            by_name[name]["launches"] += sum(extra.values())
+    k6_entry = by_name["packing_keyswitch128"]
+    k6_entry.update({k: s13["k6"][k] for k in (
+        "ms_again", "shared_memory_bytes", "key_limbs_device_bytes")})
+    k6_entry["bound_ops_int32_ms"] = s13["k6"]["bound"]["ops_int32_ms"]
+    k6_entry["bound_ops_limbs_int8_ms"] = s13["k6"]["bound"]["ops_limbs_int8_ms"]
+    # its V1_4 instance (k+1 = 7)
+    k6_regs = next((v for k, v in ptxas_kernels.items()
+                    if "packing_keyswitch128_imma_kernelILi7E" in k), {})
+    k6_entry["registers"] = k6_regs.get("registers")
+    k6_entry["spill_store_bytes"] = k6_regs.get("spill_store_bytes")
     # the rounded-key routes: primes and ciphertexts a block
     for name, key in (("blind_rotate", sk.bsk_ntt), ("blind_rotate_multibit", msk.bsk_ntt),
                       ("blind_rotate_decompression", dk.bsk_ntt)):

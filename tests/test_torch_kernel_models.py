@@ -13,10 +13,18 @@ one-level digit from the high word, residues d + 2p), lazy forward stages,
 the two-product key sum reduced once, lazy inverse stages, N^-1 and Garner
 added into the u64 accumulator, over whole rotations, on a batch padded
 with zero rows to the kernel's two ciphertexts a block, and one step (the
-step entry's n_steps = 1 launch).  The kernels' own shape predicates
-(csrc/keyswitch.cu imma_shape, csrc/blind_rotate.cu exact_lazy_shape) live
-in the CUDA sources; chip_smoke.py holds them against the same sets on the
-card."""
+step entry's n_steps = 1 launch).  K1 and K1-32 with the
+contraction cut into slices of chunks summed in any order
+(ops/kernels.py keyswitch_splits).  K2's cluster kernel
+(csrc/blind_rotate_cluster.cu) at the 3_3 shape: each prime's digits,
+transforms and key product in its own block, the accumulator in quarters,
+Garner on each quarter from the four primes' residues.  K6's tensor-core
+kernel: balanced byte limbs of d and of -d (the negacyclic wrap) times the
+key's byte limbs, the pairs a + b <= 15 summed in s32 at shift 8 (a + b)
+and folded into u128 words on its flush schedule.  The kernels' own shape
+predicates (csrc/keyswitch.cu imma_shape, csrc/blind_rotate.cu
+exact_lazy_shape) live in the CUDA sources; chip_smoke.py holds them
+against the same sets on the card."""
 
 import numpy as np
 import pytest
@@ -155,6 +163,81 @@ def test_limb_sum_range_guard():
     assert peak == n_in * (8 + 7 + 7 + 7) * 255 < n_in * levels * 8 * 255
     want = np.asarray(ref_srv.keyswitch(jnp.asarray(ct), jnp.asarray(ksk), base_log, levels))
     assert (got == want).all()
+
+
+def _split_limb_keyswitch(ct, ksk, base_log, levels, splits, word_bytes, order):
+    """The tensor-core kernel cut into slices of chunks (ops/kernels.py
+    keyswitch_splits; the launcher's per = ceil(chunks / splits)): each
+    slice's s32 limb sums recombined at word_bytes limbs a word (8: mod
+    2^64, K1; 4: mod 2^32, K1-32, the body ct >> 32) and added, slice 0 with
+    the body, into a zeroed output in the given order of slices, as the
+    kernel's atomics do."""
+    b = ct.shape[0]
+    n_in, _, m_out = ksk.shape
+    limbs = kernels.keyswitch_key_limbs(torus.from_u64(ksk, "cpu"), levels, IM_KC, IM_BN,
+                                        word_bytes).numpy()
+    chunks, cols, width = limbs.shape
+    per = width // levels
+    digits = _hi_digits(ct[:, :-1], base_log, levels)
+    tiles = np.zeros((b, chunks * per, levels), dtype=np.int64)
+    tiles[:, :n_in] = digits.transpose(1, 2, 0)
+    tiles = tiles.reshape(b, chunks, per * levels)
+    span = -(-chunks // splits)
+    slices = [range(c0, min(chunks, c0 + span)) for c0 in range(0, chunks, span)]
+    mod = np.uint64((1 << (8 * word_bytes)) - 1) if word_bytes < 8 else None
+    out = np.zeros((b, m_out), dtype=np.uint64)
+    for z in order(len(slices)):
+        sums = np.zeros((b, cols), dtype=np.int64)
+        for c in slices[z]:
+            sums += tiles[:, c] @ limbs[c, :, :per * levels].astype(np.int64).T
+        assert np.abs(sums).max() < 1 << 31
+        words = np.zeros((b, m_out), dtype=np.uint64)
+        for j in range(word_bytes):
+            words += (sums[:, j:word_bytes * m_out:word_bytes].astype(np.uint64)
+                      << np.uint64(8 * j))
+        add = np.zeros((b, m_out), dtype=np.uint64) - words
+        if z == 0:
+            add[:, -1] += ct[:, -1] >> np.uint64(64 - 8 * word_bytes)
+        out += add
+        if mod is not None:
+            out &= mod
+    return out, len(slices)
+
+
+@pytest.mark.parametrize("word_bytes", [4, 8])
+def test_split_keyswitch_matches_tfhe_tpu(word_bytes):
+    """K1-32 (4 limbs a word, mod 2^32) and K1 cut into 5 slices of
+    chunks, summed in any order: tfhe_tpu's keyswitch32 and keyswitch
+    words, as one slice gives them, at the V1_4 KS32 decomposition (2^4 x
+    5) on 60 input coefficients a chunk row (3 chunks)."""
+    rng = np.random.default_rng(61 + word_bytes)
+    base_log, levels, b, n_in, m_out = 4, 5, 3, 62, 21
+    ct = rng.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64)
+    top = (1 << 64) if word_bytes == 8 else (1 << 32)
+    ksk = rng.integers(0, top, (n_in, levels, m_out), dtype=np.uint64)
+    ref_fn = ref_srv.keyswitch if word_bytes == 8 else ref_srv.keyswitch32
+    key = jnp.asarray(ksk if word_bytes == 8 else ksk.astype(np.uint32))
+    want = np.asarray(ref_fn(jnp.asarray(ct), key, base_log, levels)).astype(np.uint64)
+    for splits, order in ((1, range), (2, lambda k: reversed(range(k))),
+                          (5, lambda k: rng.permutation(k))):
+        got, made = _split_limb_keyswitch(ct, ksk, base_log, levels, splits, word_bytes, order)
+        assert made == min(splits, 3)
+        assert (got == want).all()
+
+
+def test_keyswitch_splits_fill_the_card():
+    """The slices the wrapper asks for on 132 SMs: K1-32 at V1_4 KS32, B =
+    512 (15 column blocks x 4 row blocks, 82 chunks) takes 5, so 300
+    blocks cover more than two waves; K1 at the 2_2 keyswitch (29 x 4)
+    stays whole, and at B <= 128 (29 x 1, 64 chunks) takes 8; 3_3's K1 at
+    B = 64 (34 x 1, 328 chunks) takes 8; a short contraction keeps at
+    least K1_MIN_SLICE chunks a slice (TEST KS32: 13 chunks, whole)."""
+    assert kernels.keyswitch_splits(60, 82, 132) == 5
+    assert 60 * 5 >= 2 * 132
+    assert kernels.keyswitch_splits(116, 82, 132) == 1
+    assert kernels.keyswitch_splits(34, 328, 132) == 8
+    assert kernels.keyswitch_splits(4, 13, 132) == 1          # TEST KS32, B = 512
+    assert kernels.keyswitch_splits(29, 64, 132) == 8         # 2_2's K1 at B <= 128
 
 
 # ---------------------------------------------------------------------------
@@ -691,3 +774,247 @@ def test_packing_keyswitch_key_on_cpu_is_the_words():
     assert torch.equal(kernels.packing_keyswitch(lwes, pksk, base_log, levels, 32), want)
     assert (kernels.packing_keyswitch.launches,
             kernels.packing_keyswitch.imma_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# K2's cluster kernel (csrc/blind_rotate_cluster.cu) at the 3_3 shape: a
+# cluster of four blocks, block p holding prime p's residues and a quarter
+# of the u64 accumulator
+# ---------------------------------------------------------------------------
+
+CL_K1, CL_N, CL_LEVELS, CL_BASE_LOG = 2, 8192, 2, 15
+
+
+def _cluster_step(acc, a, ggsw, dp):
+    """One step of the cluster kernel on (B, k+1, N) int64 words: block pi
+    reads the four accumulator quarters (the whole accumulator), forms acc
+    X^a - acc, its signed digits' residues mod its prime, the forward
+    transforms, the product with its prime's slice of the GGSW and the
+    inverse transforms (N^-1 applied with Garner, as the kernel does); then
+    block r reconstructs its quarter from the four blocks' residues at its
+    positions (Garner) and adds it to its quarter."""
+    b, k1, n = acc.shape
+    quarter = k1 * n // 4
+    ct1 = server.monomial_mul(acc, a[:, None, None]) - acc
+    digits = server.signed_decompose(ct1, CL_BASE_LOG, CL_LEVELS)    # (l, B, k+1, N)
+    out = []
+    for pi in range(4):
+        p = int(dp.plan.primes[pi])
+        res = torch.zeros(digits.shape[:-1] + (4, n), dtype=torch.int64)
+        res[..., pi, :] = torch.remainder(digits, p)
+        fwd = ntt.ntt_forward(res, dp)[..., pi, :]                    # (l, B, k+1, N)
+        key = ggsw[..., pi, :].to(torch.int64)                         # (l, k+1, k+1, N)
+        col = torch.zeros((b, k1, n), dtype=torch.int64)
+        for lev in range(CL_LEVELS):
+            for r in range(k1):
+                prod = ntt.redc(fwd[lev][:, r, None] * key[lev, r], dp.ps[pi], dp.pinvs[pi])
+                col = torch.remainder(col + prod, p)
+        inv = torch.zeros((b, k1, 4, n), dtype=torch.int64)
+        inv[..., pi, :] = col
+        out.append(ntt.ntt_inverse(inv, dp, scale=False)[..., pi, :].reshape(b, -1))
+    words = acc.reshape(b, 4, quarter).clone()
+    for r in range(4):
+        at = slice(r * quarter, (r + 1) * quarter)
+        exchanged = torch.stack([out[pi][:, at] for pi in range(4)], dim=1)   # (B, P, quarter)
+        scaled = torch.remainder(exchanged * dp.n_invs[None].reshape(1, 4, 1), dp.ps)
+        scaled = ntt.redc(scaled, dp.ps, dp.pinvs)
+        words[:, r] += ntt.garner_to_u64(scaled, dp)
+    return words.reshape(b, k1, n)
+
+
+def test_cluster_step_matches_tfhe_tpu():
+    """The cluster's per-prime split and Garner exchange at N = 8192, l = 2,
+    base 2^15 (3_3) on a random key: one step is the port's plain cmux_step
+    and tfhe_tpu's one-step exact rotation (body 0, the accumulator as its
+    LUT), word for word."""
+    rng = np.random.default_rng(53)
+    plan = ref_ntt.make_plan(CL_N, 4)
+    dp = ntt.device_plan(ntt.make_plan(CL_N, 4), "cpu")
+    key = np.stack([rng.integers(0, p, (1, CL_LEVELS, CL_K1, CL_K1, CL_N), dtype=np.uint64)
+                    for p in plan.primes], axis=-2).astype(np.uint32)
+    acc = rng.integers(0, 1 << 64, (2, CL_K1, CL_N), dtype=np.uint64)
+    a = np.array([3, CL_N + 4093])
+    got = _cluster_step(torus.from_u64(acc, "cpu"), _i64(a),
+                        torch.from_numpy(key[0].view(np.int32)), dp)
+    plain = server.cmux_step(torus.from_u64(acc, "cpu"), _i64(a),
+                             torch.from_numpy(key[0].view(np.int32)), dp, CL_BASE_LOG,
+                             CL_LEVELS)
+    assert (torus.to_u64(got) == torus.to_u64(plain)).all()
+    want = np.asarray(ref_srv.blind_rotate(jnp.asarray(a[:, None]), jnp.zeros(2, jnp.uint64),
+                                           jnp.asarray(acc), jnp.asarray(key), plan,
+                                           CL_BASE_LOG, CL_LEVELS))
+    assert (torus.to_u64(got) == want).all()
+
+
+# ---------------------------------------------------------------------------
+# K6's tensor-core kernel (csrc/packing_keyswitch128.cu
+# packing_keyswitch128_imma_kernel): eight balanced byte limbs of a signed
+# digit (of d, and of -d on the negacyclic wrap) times sixteen byte limbs of
+# a u128 key word, the limb pairs a + b <= 15 summed in s32 at shift 8 (a+b),
+# folded into u128 words every flush_rows rows
+# ---------------------------------------------------------------------------
+
+TC_TERM = 8 * 128 * 255
+M128 = (1 << 128) - 1
+
+
+def _balanced_bytes(d):
+    """(8, ...) int64 limbs e_a in [-128, 127], d = sum_a e_a 2^(8a)."""
+    v = np.asarray(d, dtype=np.int64).copy()
+    out = []
+    for _ in range(8):
+        e = ((v & 0xFF) ^ 0x80) - 0x80
+        out.append(e)
+        v = (v - e) >> 8
+    assert not v.any()
+    return np.stack(out)
+
+
+def _k6_flush_rows(count):
+    """Rows of s32 limb sums between two flushes: a row adds at most count
+    positions x 8 limb pairs x 128 x 255 to a sum."""
+    return ((1 << 31) - 1) // (count * TC_TERM)
+
+
+def _k6_limb_product(digits, counts, key):
+    """sum_{i, lev} D_{i,lev}(X) K_{i,lev}(X) mod (X^N + 1, 2^128) the
+    tensor-core kernel's way: digits (G, C, n, l) int64, key (n, l, k+1, N)
+    u128 as Python ints.  Returns ((G, k+1, N) Python ints, the largest
+    |s32| sum)."""
+    g_n, _, n_in, levels = digits.shape
+    _, _, k1, n_poly = key.shape
+    limbs = kernels.packing_keyswitch128_key_limbs(torch.from_numpy(
+        np.array([[[[[w & (2**64 - 1), w >> 64] for w in poly] for poly in row]
+                   for row in rows] for rows in key], dtype=np.uint64).view(np.int64)))
+    limbs = limbs.numpy().astype(np.int64)                       # (n, l, k+1, 16, N)
+    t = np.arange(n_poly)[:, None]
+    e = t - np.arange(n_poly)[None, :]                             # t - m
+    words = np.zeros((g_n, k1, n_poly), dtype=object)
+    peak = 0
+    for g in range(g_n):
+        count = counts[g]
+        flush = _k6_flush_rows(count)
+        sums = np.zeros((k1, n_poly, 16), dtype=np.int64)
+        rows = 0
+        for i in range(n_in):
+            for lev in range(levels):
+                d = digits[g, :count, i, lev]
+                pos, neg = _balanced_bytes(d), _balanced_bytes(-d)
+                for a in range(8):
+                    tp = np.zeros((n_poly, n_poly), dtype=np.int64)
+                    inside = (e >= 0) & (e < count)
+                    tp[inside] = pos[a][e[inside]]
+                    wrap = (e < 0) & (e + n_poly < count)
+                    tp[wrap] = neg[a][e[wrap] + n_poly]
+                    for c in range(k1):
+                        prod = tp @ limbs[i, lev, c].T               # (N, 16): [t, b]
+                        sums[c, :, a:] += prod[:, :16 - a]
+                rows += 1
+                if rows == flush or (i, lev) == (n_in - 1, levels - 1):
+                    peak = max(peak, int(np.abs(sums).max()))
+                    assert peak < 1 << 31
+                    for s in range(16):
+                        words[g] += sums[:, :, s].astype(object) * (1 << (8 * s))
+                    sums[:] = 0
+                    rows = 0
+    return np.vectorize(lambda x: x & M128, otypes=[object])(words), peak
+
+
+def _k6_u128_formula(digits, counts, key):
+    """The same sum directly on Python integers, negacyclic wrap by sign."""
+    g_n, _, n_in, levels = digits.shape
+    _, _, k1, n_poly = key.shape
+    out = np.zeros((g_n, k1, n_poly), dtype=object)
+    for g in range(g_n):
+        for i in range(n_in):
+            for lev in range(levels):
+                for j in range(counts[g]):
+                    d = int(digits[g, j, i, lev])
+                    for c in range(k1):
+                        row = key[i, lev, c]
+                        for t in range(n_poly):
+                            m = t - j
+                            out[g, c, t] += d * row[m] if m >= 0 else -d * row[m + n_poly]
+    return np.vectorize(lambda x: x & M128, otypes=[object])(out)
+
+
+def test_k6_flush_rows():
+    """V1_4's 128 slots fold every 64 rows; a full list of N = 1024 slots
+    every 8; the bound holds at the extreme (every sum at its largest)."""
+    assert _k6_flush_rows(128) == 64 and _k6_flush_rows(1024) == 8
+    for count in (1, 16, 128, 256, 1024):
+        assert _k6_flush_rows(count) * count * TC_TERM < 1 << 31
+
+
+def _k6_case(rng, counts, levels, base_log, n_in=3, k1=2, n_poly=256):
+    """Random u128 LWE lists (slots past a list's count zero), their signed
+    digits (G, C, n, l) int64 (ops/server128.py signed_decompose128: |d| <=
+    2^(base_log-1), held in the low word) and a random u128 key."""
+    from tfhe_tpu_torch.ops import server128
+    c_max = max(counts)
+    lo = rng.integers(0, 1 << 64, (len(counts), c_max, n_in + 1), dtype=np.uint64)
+    hi = rng.integers(0, 1 << 64, (len(counts), c_max, n_in + 1), dtype=np.uint64)
+    for g, c in enumerate(counts):
+        lo[g, c:], hi[g, c:] = 0, 0
+    parts = server128.signed_decompose128(torch.from_numpy(lo[..., :-1].view(np.int64)),
+                                          torch.from_numpy(hi[..., :-1].view(np.int64)),
+                                          base_log, levels)
+    digits = torch.stack([d_lo for d_lo, _ in parts], dim=-1).numpy()
+    assert (np.abs(digits) <= 1 << (base_log - 1)).all()
+    k_lo = rng.integers(0, 1 << 64, (n_in, levels, k1, n_poly), dtype=np.uint64)
+    k_hi = rng.integers(0, 1 << 64, (n_in, levels, k1, n_poly), dtype=np.uint64)
+    key = np.vectorize(lambda a, b: int(a) | int(b) << 64, otypes=[object])(k_lo, k_hi)
+    return lo, hi, digits, key, k_lo, k_hi
+
+
+@pytest.mark.parametrize("levels,base_log,counts", [(1, 61, (16, 256)), (2, 30, (5,))])
+def test_k6_limb_model_matches_u128_formula(levels, base_log, counts):
+    """The limb model on N = 256, k+1 = 2, n = 3 (one list filling N, so
+    the wrap takes the limbs of -d): the u128 formula's words; with the
+    bodies and the negation, the plain version's (kernels.packing_keyswitch128
+    on the CPU: tfhe_tpu's 8-prime formula) on the same LWEs."""
+    rng = np.random.default_rng(71 + levels)
+    lo, hi, digits, key, k_lo, k_hi = _k6_case(rng, counts, levels, base_log)
+    got, _ = _k6_limb_product(digits, counts, key)
+    assert (got == _k6_u128_formula(digits, counts, key)).all()
+    lwes = torch.from_numpy(np.stack([lo, hi], axis=-1).view(np.int64))
+    words = torch.from_numpy(np.stack([k_lo, k_hi], axis=-1).view(np.int64))
+    dp8 = ntt.device_plan(ntt.make_plan(256, 8), "cpu")
+    plain = torus.to_u64(kernels.packing_keyswitch128(lwes, words, list(counts), base_log,
+                                                      levels, dp8))
+    for g, count in enumerate(counts):
+        want = (-got[g]) & M128
+        body = lo[g, :count, -1].astype(object) | hi[g, :count, -1].astype(object) << 64
+        want[-1, :count] = (want[-1, :count] + body) & M128
+        have = plain[g, ..., 0].astype(object) | plain[g, ..., 1].astype(object) << 64
+        assert (have == want).all()
+
+
+def test_k6_s32_sums_at_the_extreme_digits():
+    """Every digit -2^60 (limbs 0 .. 0, -16) and every key byte 255, a list
+    of 128 slots over 70 rows: the sums before the fold at 64 rows stay
+    inside s32 and the words are the u128 formula's."""
+    n_in, k1, n_poly, count = 70, 1, 256, 128
+    digits = np.full((1, count, n_in, 1), -(1 << 60), dtype=np.int64)
+    key = np.full((n_in, 1, k1, n_poly), M128, dtype=object)
+    got, peak = _k6_limb_product(digits, (count,), key)
+    assert _k6_flush_rows(count) == 64 and peak < 1 << 31
+    assert peak >= 64 * count * 16 * 255          # the top limb at every position
+    assert (got == _k6_u128_formula(digits, (count,), key)).all()
+
+
+def test_k6_key_byte_layout_round_trips():
+    """The card holds only K6's byte layout of the u128 key: byte b of word
+    m of polynomial c at [i, lev, c, b, m], and the words come back from it
+    (NoiseSquashingCompressionKey.standard_key)."""
+    rng = np.random.default_rng(73)
+    words = torch.from_numpy(rng.integers(0, 1 << 64, (3, 2, 2, 256, 2),
+                                          dtype=np.uint64).view(np.int64))
+    limbs = kernels.packing_keyswitch128_key_limbs(words)
+    assert limbs.shape == (3, 2, 2, 16, 256) and limbs.dtype == torch.uint8
+    u = words.numpy().view(np.uint64)
+    for b in (0, 7, 8, 15):
+        want = (u[..., b // 8] >> np.uint64(8 * (b % 8))) & np.uint64(255)
+        assert (limbs[:, :, :, b].numpy() == want).all()
+    assert torch.equal(kernels.packing_keyswitch128_key_words(limbs), words)
+    assert kernels.packing_keyswitch128_key(words) is words     # the CPU keeps the words

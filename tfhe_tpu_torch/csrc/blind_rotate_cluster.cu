@@ -1,0 +1,303 @@
+// K2's exact rotation at large N: a thread-block cluster a ciphertext, for
+// sm_90a.
+//
+// Replaces: tfhe_tpu/ops/pallas_ntt.py:794 `build_blind_rotate_v2` (the
+// exact rotation, meaning tfhe_tpu/ops/server.py:367 blind_rotate) at the
+// shapes whose accumulator and residues do not fit one block's shared
+// memory (csrc/blind_rotate.cu tfhe_torch_blind_rotate_smem_bytes above
+// 232,448 B): V1_4_PARAM_MESSAGE_3_CARRY_3_KS_PBS_TUNIFORM_2M128, k+1 = 2,
+// l = 2, N = 8192, whose u64 accumulator (131,072 B) and 4-prime residues of
+// l (k+1) = 4 digit polynomials (540,672 B) need 671,744 B.  tfhe_tpu runs
+// that set through the same 4-prime server.blind_rotate.  Plain version:
+// tfhe_tpu_torch/ops/server.py `blind_rotate`.
+//
+// Per step, as K2's generic exact kernel:
+//   ct1  = acc * X^{a_i} - acc
+//   acc += sum_{lev, r} NTT^-1( NTT(residues(digit_lev(ct1_r))) . GGSW_i[lev][r] )
+// reconstructed mod 2^64 with Garner from the four primes' residues.
+//
+// What bounds it on the H100: 32-bit integer issue, as K2 (a step of one
+// ciphertext is 24 NTTs of N = 8192, 32 N key products and 2 N Garner
+// reconstructions); the key is 1.13 GB at 3_3 (1 MB a step), read once a
+// step by every cluster from L2.
+//
+// Design: a cluster of NP = 4 blocks per ciphertext, block rank p holding
+// prime p.  Block p keeps in its shared memory the residues mod p of the
+// l (k+1) digit polynomials (135,168 B at 3_3) and a quarter of the u64
+// accumulator (32,768 B): 167,936 B, one block an SM.  A step:
+//   1. the first forward pass, fused: every block reads the whole rotated
+//      accumulator through distributed shared memory
+//      (cluster.map_shared_rank), forms acc X^a - acc, keeps each word's
+//      decomposer state in registers, and for each level takes the signed
+//      digit's residue d + 2p and transform stages 0-3 in registers before
+//      one store;
+//   2. the remaining forward stages (two passes of four and one of one),
+//      the product with its prime's slice of the step's GGSW (16-byte key
+//      loads, four positions a task, the l (k+1) products summed in 64
+//      bits, one reduction), the inverse transforms of the k+1 output rows
+//      (three passes of four; the last stage fused with N^-1), all as
+//      ntt_common.cuh's lazy Shoup passes on one prime, as K5's lazy
+//      kernel runs them;
+//   3. cluster barrier; each block reconstructs its quarter of the
+//      coefficients with Garner from the four blocks' canonical residues
+//      (read through distributed shared memory) and adds them to its
+//      accumulator quarter; cluster barrier.
+// The accumulator and the residues never leave the cluster's SMs; each
+// block reads only its prime's quarter of the key.  The first design (PR
+// 14's chip runs 1-3: fully reduced Montgomery passes, ntt_common.cuh's
+// generic exact passes on one prime, the key product a position a thread)
+// took 443.5 ms at B = 64; this one 174.0 ms (B = 4: 58.4 ms), NVIDIA H100
+// 80GB HBM3, 700 W.  The fallback, a
+// chain of global-memory (L2-resident) kernels a step, would move the
+// 671,744 B of state through L2 three times a step; the cluster moves only
+// the accumulator's reads (2 u64 a coefficient) and Garner's residues (4
+// u32 a coefficient) between SMs.
+
+#include <cooperative_groups.h>
+
+#include "ntt_common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace ntt_common;
+
+namespace {
+
+// The kernel's shapes: k + 1 = 2, l <= 2 (at l = 3 a block's residues would
+// pass its shared memory), N = 8192 (3_3: l = 2), digits |d| <= 2^29
+// (base_log <= 30) for the lazy residues d + 2p.  The wrapper routes by
+// its own copy of this predicate (ops/kernels.py CLUSTER_SHAPE); the entry
+// point refuses any other shape.
+constexpr int CL_K1 = 2;
+constexpr int CL_LOG_N = 13;
+constexpr int CL_MAX_LEVELS = 2;
+
+__host__ __device__ constexpr bool cluster_shape(int k1, int log_n, int levels, int base_log) {
+  return k1 == CL_K1 && log_n == CL_LOG_N && levels >= 1 && levels <= CL_MAX_LEVELS &&
+         base_log >= 1 && base_log <= 30;
+}
+
+template <int K1, int LEVELS, int LOG_N>
+struct Cluster {
+  static constexpr int N = 1 << LOG_N;
+  static constexpr int ROW = N + N / 32;             // padded residue row
+  static constexpr int ROWS = LEVELS * K1;           // digit rows (lev, r)
+  static constexpr int QUARTER = K1 * N / NP;        // accumulator words a block
+  static constexpr int LO = LOG_N - 4;               // the first pass takes stages 0-3
+  static constexpr int LAST = (LOG_N - 5) % 4 + 1;   // stages of the last forward pass
+  static constexpr int MIDDLE = (LOG_N - 4 - LAST) / 4;
+  static constexpr int INV_LAST = (LOG_N - 1) % 4 + 1;
+  static constexpr int INV_MIDDLE = (LOG_N - INV_LAST) / 4;
+  static constexpr int SMEM = QUARTER * 8 + ROWS * ROW * 4;
+  static_assert(LOG_N - LAST >= 5 && LOG_N - INV_LAST >= 5 && ROWS <= 8,
+                "the fused passes split pad() over their strides");
+};
+
+template <int K1, int LEVELS, int LOG_N>
+__global__ void __cluster_dims__(NP, 1, 1) __launch_bounds__(THREADS, 1)
+blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+                            const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
+                            const uint2* __restrict__ tw_inv,
+                            const long long* __restrict__ consts_g, int n_steps,
+                            int base_log) {
+  using S = Cluster<K1, LEVELS, LOG_N>;
+  constexpr int N = S::N;
+  constexpr int ROW = S::ROW;
+  constexpr int ROWS = S::ROWS;
+  constexpr int QUARTER = S::QUARTER;
+  constexpr int LO = S::LO;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();   // this block's prime
+  extern __shared__ u64 cl_smem[];
+  __shared__ Consts c;                          // the four primes (Garner)
+  __shared__ Consts one;                        // the lazy passes read their prime from p[0]
+  u64* acc = cl_smem;                           // coefficients rank QUARTER ..
+  u32* rows = (u32*)(cl_smem + QUARTER);        // (LEVELS K1, ROW) mod this prime
+  const int tid = threadIdx.x;
+  long long* acc_b = acc_g + (size_t)(blockIdx.x / NP) * K1 * N;
+  const int* mask_b = mask_g + (size_t)(blockIdx.x / NP) * n_steps;
+
+  if (tid == 0) {
+    load_consts(c, consts_g);
+    one = c;
+    one.p[0] = c.p[rank];
+    one.pinv[0] = c.pinv[rank];
+  }
+  for (int q = tid; q < QUARTER; q += THREADS) acc[q] = (u64)acc_b[rank * QUARTER + q];
+  const u64* acc_of[NP];                        // every block's quarter
+  const u32* rows_of[NP];                       // every block's residues
+#pragma unroll
+  for (int r = 0; r < NP; ++r) {
+    acc_of[r] = cluster.map_shared_rank(acc, r);
+    rows_of[r] = cluster.map_shared_rank(rows, r);
+  }
+  cluster.sync();   // constants loaded; every quarter loaded before any is read
+  const u32 p = c.p[rank];
+  const u32 pinv = c.pinv[rank];
+  const uint2* twf = tw_fwd + (rank << LOG_N);
+  const uint2* twi = tw_inv + (rank << LOG_N);
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int a = mask_b[step];                 // in [0, 2N)
+    const int rot = a & (N - 1);
+    const bool odd = ((a >> LOG_N) & 1) != 0;
+
+    // 1. acc X^a - acc from the four quarters, its decomposer states, and
+    // per level the digits' residues d + 2p and forward stages 0-3 in
+    // registers: task (r, lo) owns coefficients j = b 2^LO | lo, b < 16
+    for (int q = tid; q < K1 << LO; q += THREADS) {
+      const int r = q >> LO;
+      const int lo = q & ((1 << LO) - 1);
+      u64 state[16];
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int j = (b << LO) | lo;
+        const int g = r * N + j;
+        const int src = j < rot ? g - rot + N : g - rot;
+        u64 v = acc_of[src / QUARTER][src % QUARTER];
+        if (j < rot) v = 0ull - v;
+        if (odd) v = 0ull - v;
+        state[b] = decomposer_state(v - acc_of[g / QUARTER][g % QUARTER], base_log, LEVELS);
+      }
+#pragma unroll
+      for (int lev = 0; lev < LEVELS; ++lev) {
+        u32 v[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          v[b] = lazy_digit_residue((int)next_digit(state[b], base_log), p);
+        }
+        lazy_forward_stages<4, LOG_N>(v, 0, 0, twf, p);
+        u32* x = rows + (lev * K1 + r) * ROW + pad(lo);
+#pragma unroll
+        for (int b = 0; b < 16; ++b) x[pad(b << LO)] = v[b];
+      }
+    }
+    __syncthreads();
+
+    // 2. the remaining forward stages; the product with the step's GGSW
+    // slice of this prime over four positions a task, written over rows
+    // 0 .. K1-1 in [0, 2p); the inverse transforms, the last stage with
+    // N^-1, canonical residues
+#pragma unroll
+    for (int m = 0; m < S::MIDDLE; ++m) {
+      lazy_pass<4, LOG_N, 1, THREADS, true>(rows, ROWS, 4 + 4 * m, twf, one);
+      __syncthreads();
+    }
+    lazy_pass<S::LAST, LOG_N, 1, THREADS, true>(rows, ROWS, LOG_N - S::LAST, twf, one);
+    __syncthreads();
+    const uint4* key = bsk + (size_t)step * ROWS * K1 * NP * (N / 4);
+    for (int q = tid; q < N / 4; q += THREADS) {
+      const int t0 = q * 4;
+      const int at = pad(t0);                   // pad(t0 + e) = at + e
+      u32 x[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[r][e] = reduce_to(reduce_to(rows[r * ROW + at + e], 2 * p), p);
+      }
+      u32 out[K1][4];
+#pragma unroll
+      for (int cc = 0; cc < K1; ++cc) {
+        u64 sum[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[cc][e] = 0u;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const uint4 k = __ldg(key + (((r * K1 + cc) * NP + rank) * N + t0) / 4);
+          sum[0] += (u64)x[r][0] * k.x;
+          sum[1] += (u64)x[r][1] * k.y;
+          sum[2] += (u64)x[r][2] * k.z;
+          sum[3] += (u64)x[r][3] * k.w;
+          if (r % 4 == 3 || r == ROWS - 1) {   // 4 p^2 < p 2^32: one reduction a four
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              out[cc][e] = reduce_to(out[cc][e] + redc_lazy(sum[e], p, pinv), 2 * p);
+              sum[e] = 0;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < K1; ++cc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rows[cc * ROW + at + e] = out[cc][e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < S::INV_MIDDLE; ++m) {
+      lazy_pass<4, LOG_N, 1, THREADS, false>(rows, K1, 4 * m, twi, one);
+      __syncthreads();
+    }
+    {
+      constexpr int SL = S::INV_LAST;
+      constexpr int K0 = LOG_N - SL;
+      for (int q = tid; q < K1 << K0; q += THREADS) {
+        const int cc = q >> K0;
+        const int lo = q & ((1 << K0) - 1);
+        u32* x = rows + cc * ROW + pad(lo);
+        u32 y[1 << SL];
+#pragma unroll
+        for (int b = 0; b < (1 << SL); ++b) y[b] = x[pad(b << K0)];
+        lazy_inverse_stages<SL, LOG_N>(y, K0, 0, twi, p);
+#pragma unroll
+        for (int b = 0; b < (1 << SL); ++b) {
+          x[pad(b << K0)] = mont_mul(reduce_to(y[b], p), c.ninv[rank], p, pinv);
+        }
+      }
+    }
+    cluster.sync();   // every prime's output residues are final
+
+    // 3. Garner on this block's quarter from the four blocks' residues
+    for (int q = tid; q < QUARTER; q += THREADS) {
+      const int g = rank * QUARTER + q;
+      const int at = (g >> LOG_N) * ROW + pad(g & (N - 1));
+      u32 dg[NP];
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) dg[pi] = rows_of[pi][at];
+      acc[q] += garner_signed<NP>(dg, c);
+    }
+    cluster.sync();   // every quarter updated; every residue read
+  }
+
+  for (int q = tid; q < QUARTER; q += THREADS) acc_b[rank * QUARTER + q] = (long long)acc[q];
+}
+
+template <int LEVELS>
+cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
+                           const uint2* tw_fwd, const uint2* tw_inv, const long long* consts,
+                           int batch, int n_steps, int base_log, cudaStream_t stream) {
+  using S = Cluster<CL_K1, LEVELS, CL_LOG_N>;
+  auto kernel = blind_rotate_cluster_kernel<CL_K1, LEVELS, CL_LOG_N>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<batch * NP, THREADS, S::SMEM, stream>>>(acc, mask, bsk, tw_fwd, tw_inv, consts,
+                                                   n_steps, base_log);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// acc (batch, k+1, N) u64, updated in place; mask (batch, n_steps) int32 in
+// [0, 2N); bsk the exact key (n_steps, l, k+1, k+1, NP, N) u32 Montgomery,
+// 16-byte aligned; tw_fwd, tw_inv the plan's Shoup twiddle pairs (NP, N);
+// one cluster of NP blocks a ciphertext.
+extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, const void* bsk,
+                                               const void* tw_fwd, const void* tw_inv,
+                                               const void* consts, int batch, int n_steps,
+                                               int k1, int log_n, int levels, int nprimes,
+                                               int base_log, void* stream) {
+  if (!cluster_shape(k1, log_n, levels, base_log) || nprimes != NP || batch < 1 ||
+      n_steps < 1 || ((uintptr_t)bsk & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto run = [&](auto launch) {
+    return (int)launch((long long*)acc, (const int*)mask, (const uint4*)bsk,
+                       (const uint2*)tw_fwd, (const uint2*)tw_inv, (const long long*)consts,
+                       batch, n_steps, base_log, (cudaStream_t)stream);
+  };
+  return levels == 1 ? run(cluster_launch<1>) : run(cluster_launch<2>);
+}

@@ -26,14 +26,28 @@
 // keyswitch_key_limbs) as (chunks, columns, 128) bytes, K-major, a chunk
 // holding the l digits of 128 / l whole input coefficients (zero-padded),
 // so the fragments of mma.sync.m16n8k32.s8.u8 load with ldmatrix.  A block
-// of 512 threads owns 128 batch rows x 256 limb columns (32 output words);
-// per chunk it stages the key tile (32 KB) with cp.async three chunks deep
-// and decomposes its rows' coefficients (their high words, fetched into
-// registers one chunk ahead) into a 16 KB digit tile; both tiles are
-// 128-byte rows with their 16-byte units swizzled by row, so ldmatrix
-// reads without bank conflicts.  16 warps of 32 x 64 each run 16 mma a
-// 32-deep step; the epilogue adds each output word's 8 limb sums, held by
-// the 4 lanes of a quad, with two shuffles.
+// of 512 threads owns 128 batch rows x 256 limb columns (32 output words)
+// and a slice of the chunks; per chunk it stages the key tile (32 KB) and
+// its rows' digit tile (16 KB) with cp.async three chunks ahead of the mma
+// (four stages, 196,608 B); both tiles are 128-byte rows with their
+// 16-byte units swizzled by row, so ldmatrix reads without bank conflicts.
+// The digits are decomposed once a keyswitch, from each word's high word,
+// by a kernel of their own (keyswitch_digits_kernel) into a (rows, chunks,
+// 128) byte scratch in the key's chunk order.  Decomposed in every block of
+// a row instead, once for each of its column blocks (15 at V1_4 KS32, 29
+// at 2_2), they took by instruction count about 2 us of a chunk's 4.7 us
+// on the card, where the chunk's 1,024 mma take about 0.6.  16 warps of
+// 32 x 64 each run 16 mma a 32-deep step; the epilogue adds each output
+// word's 8 limb sums, held by the 4 lanes of a quad, with two shuffles.
+// Where the grid of (columns, rows) blocks would fill less than half the
+// SMs, the wrapper (ops/kernels.py keyswitch_splits) cuts the contraction
+// into slices of chunks, a third grid axis, so that the grid covers at
+// least two waves; each slice adds its
+// words into the zeroed output with atomics (mod 2^64 or 2^32: wrapping sums
+// commute, so the words do not depend on the order), the body added once.
+// With the digit kernel and the split, K1 at 2_2 and B = 512 took 0.1329 ms
+// (0.2977 before) and K1-32 at V1_4 KS32 0.1433 ms (0.3825), NVIDIA H100
+// 80GB HBM3, 700 W.
 //
 // Generic kernel (keyswitch_kernel), every other shape: a block owns a TB x
 // TC output tile and walks the K axis in chunks of whole input
@@ -59,7 +73,10 @@
 // sums, so imma_shape is unchanged (2048 x 5 x 8 x 255 < 2^31 at the V1_4
 // KS32 set).  At V1_4 KS32 and B = 512 the contraction is (512 x 10240) x
 // (10240 x 919), 30.8e9 int8 operations at 4 limbs, 0.016 ms; the key's 4
-// limbs are 37.6 MB, 0.011 ms.  The generic kernel's u32 twin accumulates in
+// limbs are 37.6 MB, 0.011 ms.  Its grid is 15 column blocks x 4 row
+// blocks, one wave on 60 of 132 SMs, each block walking all 82 chunks (PR
+// 12's kernel: 0.3825 ms, NVIDIA H100 80GB HBM3, 700 W); split 5 ways it is
+// 300 blocks of 17 chunks.  The generic kernel's u32 twin accumulates in
 // u32 on the CUDA cores.
 
 #include <type_traits>
@@ -190,9 +207,9 @@ constexpr int IM_BM = 128;        // batch rows a block
 constexpr int IM_BN = 256;        // limb columns a block (32 output words)
 constexpr int IM_KC = 128;        // digit positions (bytes) a chunk
 constexpr int IM_THREADS = 512;   // 16 warps: 4 along the rows x 4 along the columns
-constexpr int IM_STAGES = 3;      // key chunks in flight
-constexpr int IM_MAXJ = 16;       // coefficients a thread decomposes a chunk (128 / l <= 64)
-constexpr int IM_SMEM = IM_STAGES * IM_BN * IM_KC + 2 * IM_BM * IM_KC;   // 131,072 B
+constexpr int IM_STAGES = 4;      // key chunks in flight (IM_STAGES - 1 ahead of the mma)
+constexpr int IM_SMEM = IM_STAGES * (IM_BN + IM_BM) * IM_KC;   // 196,608 B
+constexpr int IM_DIGIT_THREADS = 256;
 
 // The tensor-core kernel's shape: signed digits |d| <= 2^(base_log-1) that
 // fit s8, a decomposition read from the high word alone (base_log l <= 30),
@@ -210,18 +227,44 @@ __device__ __forceinline__ int swz(int r, int k) {
   return r * IM_KC + ((((k >> 4) ^ r) & 7) << 4) + (k & 15);
 }
 
+// The digits of the tensor-core kernel, once a keyswitch: dig (rows_pad,
+// n_chunks, IM_KC) s8, row b's chunk c holding at byte slot l + lev the
+// level-lev signed digit of input coefficient c (128 / l) + slot, from its
+// high word (0 past n_in, past the chunk's whole coefficients and for the
+// rows past the batch).  A thread a byte; neighbouring threads write
+// neighbouring bytes and share their coefficient's high word.
+__global__ void __launch_bounds__(IM_DIGIT_THREADS)
+keyswitch_digits_kernel(signed char* __restrict__ dig, const u64* __restrict__ ct, int batch,
+                        int n_in, int levels, int base_log, int n_chunks, int rows_pad) {
+  const size_t q = (size_t)blockIdx.x * IM_DIGIT_THREADS + threadIdx.x;
+  if (q >= (size_t)rows_pad * n_chunks * IM_KC) return;
+  const int k = (int)(q % IM_KC);
+  const int c = (int)((q / IM_KC) % n_chunks);
+  const int b = (int)(q / ((size_t)IM_KC * n_chunks));
+  const int slot = k / levels, lev = k % levels;
+  const int i = c * (IM_KC / levels) + slot;
+  int d = 0;
+  if (b < batch && slot < IM_KC / levels && i < n_in) {
+    const u32 hi = ((const u32*)ct)[2 * ((size_t)b * (n_in + 1) + i) + 1];
+    int state = hi_decomposer_state(hi, base_log, levels);
+    for (int t = 0; t <= lev; ++t) d = hi_next_digit(state, base_log);
+  }
+  dig[q] = (signed char)d;
+}
+
 // The tensor-core kernel's body at WB limbs a key word: 8 (K1) or 4 (K1-32,
 // mod 2^32; the body ct >> 32).
 template <int WB>
 __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
                                                     const u64* __restrict__ ct,
                                                     const uint4* __restrict__ key,
-                                                    int batch, int n_in, int levels,
-                                                    int m_out, int base_log, int n_chunks,
-                                                    int key_cols) {
+                                                    const uint4* __restrict__ dig,
+                                                    int batch, int n_in, int m_out,
+                                                    int n_chunks, int key_cols,
+                                                    int chunks_per_split) {
   extern __shared__ uint4 im_smem[];
   unsigned char* key_s = (unsigned char*)im_smem;                    // (STAGES, BN, KC)
-  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (2, BM, KC)
+  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (STAGES, BM, KC)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -229,12 +272,16 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
   const int wn = warp >> 2;         // limb columns wn 64 .. +64
   const int n0 = blockIdx.x * IM_BN;
   const int m0 = blockIdx.y * IM_BM;
-  const int coefs = IM_KC / levels; // whole coefficients a chunk
+  // this block's slice of the contraction: chunks c0 .. c0 + n_slice - 1
+  // (slice blockIdx.z; the slices' partial words are summed by atomics)
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int n_slice = min(chunks_per_split, n_chunks - c0);
+  const bool split = gridDim.z > 1;
   const size_t ct_stride = (size_t)n_in + 1;
-  const u32* ct_words = (const u32*)ct;
 
-  // key tile of chunk c into stage s: BN rows of 128 bytes, 16-byte units
-  auto load_key = [&](int c, int s) {
+  // chunk c's key tile (BN rows) and digit tile (the block's BM rows) into
+  // stage s: rows of 128 bytes, 16-byte units swizzled by row
+  auto load_chunk = [&](int c, int s) {
     const uint4* src = key + ((size_t)c * key_cols + n0) * (IM_KC / 16);
     const u32 dst = smem_u32(key_s + s * IM_BN * IM_KC);
 #pragma unroll
@@ -245,48 +292,24 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
                        dst + swz(r, (q & 7) << 4)),
                    "l"(src + q));
     }
-  };
-  // thread (row r = tid / 4, slots tid % 4 + 4 j): the high words of chunk
-  // c's coefficients (0 past the batch and past n_in: digits 0)
-  const int dr = tid >> 2;
-  const int row_b = m0 + dr;
-  u32 hw[IM_MAXJ];
-  auto fetch = [&](int c) {
+    const u32 ddst = smem_u32(dig_s + s * IM_BM * IM_KC);
 #pragma unroll
-    for (int j = 0; j < IM_MAXJ; ++j) {
-      const int slot = (tid & 3) + 4 * j;
-      const int i = c * coefs + slot;
-      hw[j] = (slot < coefs && i < n_in && row_b < batch)
-                  ? __ldg(ct_words + 2 * ((size_t)row_b * ct_stride + i) + 1)
-                  : 0u;
-    }
-  };
-  auto decompose = [&](int buf) {
-    unsigned char* d = dig_s + buf * IM_BM * IM_KC;
-#pragma unroll
-    for (int j = 0; j < IM_MAXJ; ++j) {
-      const int slot = (tid & 3) + 4 * j;
-      if (slot < coefs) {
-        int state = hi_decomposer_state(hw[j], base_log, levels);
-        for (int lev = 0; lev < levels; ++lev) {
-          d[swz(dr, slot * levels + lev)] = (unsigned char)(signed char)hi_next_digit(state, base_log);
-        }
-      }
+    for (int i = 0; i < IM_BM * IM_KC / 16 / IM_THREADS; ++i) {
+      const int q = i * IM_THREADS + tid;
+      const int r = q >> 3;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       ddst + swz(r, (q & 7) << 4)),
+                   "l"(dig + ((size_t)(m0 + r) * n_chunks + c) * (IM_KC / 16) + (q & 7)));
     }
   };
 
-  // the digit tiles' padding positions (coefs l .. 127) stay zero
-  for (int q = tid; q < 2 * IM_BM * IM_KC / 16; q += IM_THREADS) {
-    ((uint4*)dig_s)[q] = make_uint4(0u, 0u, 0u, 0u);
+  // local chunk c of the slice is chunk c0 + c; its tiles land in stage
+  // c % IM_STAGES, IM_STAGES - 1 chunks ahead of the mma
+#pragma unroll
+  for (int st = 0; st < IM_STAGES - 1; ++st) {
+    if (st < n_slice) load_chunk(c0 + st, st);
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  load_key(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
-  if (n_chunks > 1) load_key(1, 1);
-  asm volatile("cp.async.commit_group;\n" ::);
-  fetch(0);
-  __syncthreads();
-  decompose(0);
-  if (n_chunks > 1) fetch(1);
 
   int acc[2][8][4];
 #pragma unroll
@@ -298,13 +321,15 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
     }
   }
 
-  for (int c = 0; c < n_chunks; ++c) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();    // chunk c's key and digits landed; chunk c - 1 is done
-    if (c + 2 < n_chunks) load_key(c + 2, (c + 2) % IM_STAGES);
+  for (int c = 0; c < n_slice; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(IM_STAGES - 2));
+    __syncthreads();    // chunk c's tiles landed; chunk c - 1 is done
+    if (c + IM_STAGES - 1 < n_slice) {
+      load_chunk(c0 + c + IM_STAGES - 1, (c + IM_STAGES - 1) % IM_STAGES);
+    }
     asm volatile("cp.async.commit_group;\n" ::);
     const unsigned char* ks = key_s + (c % IM_STAGES) * IM_BN * IM_KC;
-    const unsigned char* ds = dig_s + (c & 1) * IM_BM * IM_KC;
+    const unsigned char* ds = dig_s + (c % IM_STAGES) * IM_BM * IM_KC;
 #pragma unroll
     for (int kk = 0; kk < IM_KC / 32; ++kk) {
       u32 a[2][4];
@@ -325,8 +350,6 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
         }
       }
     }
-    if (c + 1 < n_chunks) decompose((c + 1) & 1);
-    if (c + 2 < n_chunks) fetch(c + 2);
   }
 
   const int g = lane >> 2;
@@ -347,8 +370,14 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
           part += __shfl_xor_sync(0xffffffffu, part, 2);
           const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
           if (t == h && b < batch && col < m_out) {
-            const u64 body = col == m_out - 1 ? ct[(size_t)b * ct_stride + n_in] : 0ull;
-            out[(size_t)b * m_out + col] = body - part;
+            const u64 body = (col == m_out - 1 && blockIdx.z == 0)
+                                 ? ct[(size_t)b * ct_stride + n_in] : 0ull;
+            u64* o = out + (size_t)b * m_out + col;
+            if (split) {
+              atomicAdd((unsigned long long*)o, body - part);
+            } else {
+              *o = body - part;
+            }
           }
         }
       }
@@ -369,9 +398,16 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
           part += __shfl_xor_sync(0xffffffffu, part, 1);
           const int b = m0 + wm * 32 + mi * 16 + g + 8 * h;
           if ((t & 1) == h && b < batch && col < m_out) {
-            const u32 body =
-                col == m_out - 1 ? (u32)(ct[(size_t)b * ct_stride + n_in] >> 32) : 0u;
-            out[(size_t)b * m_out + col] = (u64)(u32)(body - part);
+            const u32 body = (col == m_out - 1 && blockIdx.z == 0)
+                                 ? (u32)(ct[(size_t)b * ct_stride + n_in] >> 32) : 0u;
+            u64* o = out + (size_t)b * m_out + col;
+            if (split) {
+              // the word's low half (little-endian), mod 2^32; its high half
+              // stays the zero the wrapper wrote
+              atomicAdd((u32*)o, body - part);
+            } else {
+              *o = (u64)(u32)(body - part);
+            }
           }
         }
       }
@@ -381,18 +417,19 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
 
 __global__ void __launch_bounds__(IM_THREADS, 1)
 keyswitch_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
-                      const uint4* __restrict__ key, int batch, int n_in, int levels,
-                      int m_out, int base_log, int n_chunks, int key_cols) {
-  keyswitch_imma_body<8>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
-                         key_cols);
+                      const uint4* __restrict__ key, const uint4* __restrict__ dig, int batch,
+                      int n_in, int m_out, int n_chunks, int key_cols, int chunks_per_split) {
+  keyswitch_imma_body<8>(out, ct, key, dig, batch, n_in, m_out, n_chunks, key_cols,
+                         chunks_per_split);
 }
 
 __global__ void __launch_bounds__(IM_THREADS, 1)
 keyswitch32_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
-                        const uint4* __restrict__ key, int batch, int n_in, int levels,
-                        int m_out, int base_log, int n_chunks, int key_cols) {
-  keyswitch_imma_body<4>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
-                         key_cols);
+                        const uint4* __restrict__ key, const uint4* __restrict__ dig,
+                        int batch, int n_in, int m_out, int n_chunks, int key_cols,
+                        int chunks_per_split) {
+  keyswitch_imma_body<4>(out, ct, key, dig, batch, n_in, m_out, n_chunks, key_cols,
+                         chunks_per_split);
 }
 
 template <int WB>
@@ -417,23 +454,35 @@ int launch_generic(void* out, const void* ct, const void* ksk, int batch, int n_
 }
 
 template <int WB>
-int launch_imma(void* out, const void* ct, const void* key, int batch, int n_in,
-                int levels, int m_out, int base_log, int n_chunks, int key_cols,
-                void* stream) {
+int launch_imma(void* out, const void* ct, const void* key, void* digits, int batch,
+                int n_in, int levels, int m_out, int base_log, int n_chunks, int key_cols,
+                int splits, void* stream) {
   if (!imma_shape(n_in, levels, base_log) || batch < 1 || m_out < 1 ||
       key_cols % IM_BN != 0 || key_cols < WB * m_out ||
       n_chunks != (n_in + IM_KC / levels - 1) / (IM_KC / levels) ||
-      ((uintptr_t)key & 15) != 0) {
+      ((uintptr_t)key & 15) != 0 || ((uintptr_t)digits & 15) != 0 || splits < 1 ||
+      splits > n_chunks) {
     return (int)cudaErrorInvalidValue;
   }
+  // the slices of the contraction: per chunks each (the last may be
+  // shorter), none empty
+  const int per = (n_chunks + splits - 1) / splits;
+  splits = (n_chunks + per - 1) / per;
   auto kernel = WB == 8 ? keyswitch_imma_kernel : keyswitch32_imma_kernel;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          IM_SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(key_cols / IM_BN, (batch + IM_BM - 1) / IM_BM);
+  const int rows_pad = (batch + IM_BM - 1) / IM_BM * IM_BM;
+  const size_t bytes = (size_t)rows_pad * n_chunks * IM_KC;
+  keyswitch_digits_kernel<<<(unsigned)((bytes + IM_DIGIT_THREADS - 1) / IM_DIGIT_THREADS),
+                            IM_DIGIT_THREADS, 0, (cudaStream_t)stream>>>(
+      (signed char*)digits, (const u64*)ct, batch, n_in, levels, base_log, n_chunks, rows_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(key_cols / IM_BN, rows_pad / IM_BM, splits);
   kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
-      (u64*)out, (const u64*)ct, (const uint4*)key, batch, n_in, levels, m_out, base_log,
-      n_chunks, key_cols);
+      (u64*)out, (const u64*)ct, (const uint4*)key, (const uint4*)digits, batch, n_in, m_out,
+      n_chunks, key_cols, per);
   return (int)cudaGetLastError();
 }
 
@@ -467,21 +516,25 @@ extern "C" int tfhe_torch_keyswitch_imma_columns() { return IM_BN; }
 
 // The tensor-core kernel: key the (n_chunks, key_cols, 128) byte layout of
 // ops/kernels.py keyswitch_key_limbs (16-byte aligned), key_cols a multiple
-// of IM_BN covering 8 m_out limb columns, n_chunks = ceil(n_in / (128 / l)).
+// of IM_BN covering 8 m_out limb columns, n_chunks = ceil(n_in / (128 / l));
+// the contraction is cut into splits slices of chunks (out zeroed where
+// splits > 1: the slices add their words into it); digits the (ceil(batch /
+// IM_BM) IM_BM, n_chunks, IM_KC) byte scratch of the digit tiles (16-byte
+// aligned), written by the digits kernel first.
 extern "C" int tfhe_torch_keyswitch_imma(void* out, const void* ct, const void* key,
-                                         int batch, int n_in, int levels, int m_out,
-                                         int base_log, int n_chunks, int key_cols,
-                                         void* stream) {
-  return launch_imma<8>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
-                        key_cols, stream);
+                                         void* digits, int batch, int n_in, int levels,
+                                         int m_out, int base_log, int n_chunks, int key_cols,
+                                         int splits, void* stream) {
+  return launch_imma<8>(out, ct, key, digits, batch, n_in, levels, m_out, base_log, n_chunks,
+                        key_cols, splits, stream);
 }
 
 // K1-32's tensor-core kernel: the same layout at 4 limb columns a word
 // (key_cols covering 4 m_out), out u64 in [0, 2^32).
 extern "C" int tfhe_torch_keyswitch32_imma(void* out, const void* ct, const void* key,
-                                           int batch, int n_in, int levels, int m_out,
-                                           int base_log, int n_chunks, int key_cols,
-                                           void* stream) {
-  return launch_imma<4>(out, ct, key, batch, n_in, levels, m_out, base_log, n_chunks,
-                        key_cols, stream);
+                                           void* digits, int batch, int n_in, int levels,
+                                           int m_out, int base_log, int n_chunks,
+                                           int key_cols, int splits, void* stream) {
+  return launch_imma<4>(out, ct, key, digits, batch, n_in, levels, m_out, base_log, n_chunks,
+                        key_cols, splits, stream);
 }

@@ -1,12 +1,15 @@
 """The hand-written CUDA kernels of the port: build, load, wrappers.
 
 K1 ``keyswitch`` (csrc/keyswitch.cu; its tensor-core kernel where
-``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``), K1-32
-``keyswitch32`` (the KS32 pattern's u32 keyswitch, the same source: the
-tensor-core kernel on 4 byte limbs a key word, and a u32 twin of the
-generic kernel), K2 ``blind_rotate``
+``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``, its
+contraction cut into ``keyswitch_splits`` slices where its grid would fill
+less than half the card), K1-32 ``keyswitch32`` (the KS32 pattern's u32
+keyswitch, the same source: the tensor-core kernel on 4 byte limbs a key
+word, and a u32 twin of the generic kernel), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
-takes the lazy exact kernel where ``exact_lazy_shape`` holds), K3
+takes the lazy exact kernel, the generic kernel or, where one block's
+shared memory cannot hold a ciphertext, the cluster kernel of
+csrc/blind_rotate_cluster.cu, by ``exact_rotation_route``), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
@@ -16,7 +19,9 @@ where ``packing_keyswitch_imma_shape`` holds, on a
 ``blind_rotate128`` (csrc/blind_rotate128.cu; K2-K5 include
 csrc/ntt_common.cuh) and K6 ``packing_keyswitch128``
 (csrc/packing_keyswitch128.cu, the u128 packing keyswitch of squashed-noise
-compression; ``cmux`` is K2's CMux entry, vertical packing's tree) are
+compression, on the int8 tensor cores, on the key's byte layout
+``packing_keyswitch128_key``; ``cmux`` is K2's
+CMux entry, vertical packing's tree) are
 compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
@@ -26,9 +31,9 @@ ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
 tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
 nothing else; ``keyswitch.imma_launches``, ``keyswitch32.imma_launches``,
-``packing_keyswitch.imma_launches`` and ``blind_rotate`` /
-``cmux_step.lazy_exact_launches`` count those of the redesigned kernels
-among them.
+``packing_keyswitch.imma_launches``, ``blind_rotate`` /
+``cmux_step.lazy_exact_launches`` and ``blind_rotate.cluster_launches``
+count those of the redesigned and new kernels among them.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
+            "blind_rotate_cluster": "blind_rotate_cluster.cu",
             "blind_rotate_multibit": "blind_rotate_multibit.cu",
             "packing_keyswitch": "packing_keyswitch.cu",
             "blind_rotate128": "blind_rotate128.cu",
@@ -73,7 +79,7 @@ def nvcc_command() -> list:
 
 
 def source_paths() -> list:
-    """The sources of K1-K5, relative to the checkout."""
+    """The kernels' sources, relative to the checkout."""
     return [str((CSRC / src).relative_to(CSRC.parents[1]))
             for src in _SOURCES.values()]
 
@@ -93,7 +99,7 @@ def load() -> dict:
             fn.restype = i
         for fn in (libs["keyswitch"].tfhe_torch_keyswitch_imma,
                    libs["keyswitch"].tfhe_torch_keyswitch32_imma):
-            fn.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+            fn.argtypes = [vp] * 4 + [i] * 8 + [vp]
             fn.restype = i
         fn = libs["keyswitch"].tfhe_torch_keyswitch_imma_shape
         fn.argtypes = [i] * 3
@@ -105,8 +111,8 @@ def load() -> dict:
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate
         fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
-        fn = libs["blind_rotate"].tfhe_torch_blind_rotate_smem_bytes
-        fn.argtypes = [i] * 3
+        fn = libs["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster
+        fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_cmux
         fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
@@ -155,10 +161,10 @@ def load() -> dict:
         fn = libs["blind_rotate128"].tfhe_torch_blind_rotate128_smem_bytes
         fn.argtypes = [i] * 3
         fn.restype = i
-        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128
+        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma
         fn.argtypes = [vp] * 5 + [i] * 8 + [vp]
         fn.restype = i
-        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_shape
+        fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma_smem
         fn.argtypes = [i] * 5
         fn.restype = i
         _Libs.loaded = libs
@@ -301,6 +307,24 @@ def keyswitch_key(ksk, base_log: int, levels: int, bits: int = 64):
                                                       word_bytes), word_bytes)
 
 
+# K1's tensor-core kernel: batch rows and limb columns a block
+# (csrc/keyswitch.cu IM_BM, IM_BN)
+IM_BM, IM_BN = 128, 256
+# the fewest chunks a slice of the split contraction walks
+K1_MIN_SLICE = 8
+
+
+def keyswitch_splits(blocks: int, n_chunks: int, sms: int) -> int:
+    """The slices K1's tensor-core kernel cuts its contraction into: a grid
+    of ``blocks`` (column, row) blocks that fills less than half of the
+    card's ``sms`` is cut so that it covers at least two waves (K1-32 at
+    V1_4 KS32: 60 blocks, 5 slices), each slice at least K1_MIN_SLICE of
+    the n_chunks chunks; else 1 (K1 at the 2_2 keyswitch: 116 blocks)."""
+    if 2 * blocks >= sms:
+        return 1
+    return max(1, min(-(-2 * sms // blocks), n_chunks // K1_MIN_SLICE))
+
+
 def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
     """K1 (word_bytes 8) or K1-32 (word_bytes 4) on the card: the
     tensor-core kernel where keyswitch_imma_shape holds (on the key's byte
@@ -317,7 +341,6 @@ def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
     _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
     _require(word_bytes == 8 or base_log <= 31,
              f"{name} takes base_log <= 31, not {base_log}")
-    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
     lib = load()["keyswitch"]
     imma = keyswitch_imma_shape(n_in, levels, base_log)
     if imma:
@@ -325,11 +348,22 @@ def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
                  f"{name}'s tensor-core kernel takes the key's byte layout at "
                  f"{word_bytes} limbs a word: build it once with kernels.keyswitch_key")
         _check_cuda((ct, torch.int64), (limbs, torch.uint8))
+        n_chunks, key_cols = limbs.shape[0], limbs.shape[1]
+        splits = keyswitch_splits(key_cols // IM_BN * -(-b // IM_BM), n_chunks,
+                                  torch.cuda.get_device_properties(ct.device)
+                                  .multi_processor_count)
+        # the slices of a split contraction add their words into zeros
+        out = (torch.zeros if splits > 1 else torch.empty)(
+            (b, m_out), dtype=torch.int64, device=ct.device)
+        # the digit tiles, decomposed once by the kernel's first launch
+        digits = torch.empty((-(-b // IM_BM) * IM_BM, n_chunks, limbs.shape[2]),
+                             dtype=torch.int8, device=ct.device)
         err = getattr(lib, f"tfhe_torch_{name}_imma")(
-            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), b, n_in, levels, m_out,
-            base_log, limbs.shape[0], limbs.shape[1], _stream(ct))
+            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), digits.data_ptr(), b, n_in,
+            levels, m_out, base_log, n_chunks, key_cols, splits, _stream(ct))
         _raise_on(err, f"{name} (tensor cores)")
     else:
+        out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
         err = getattr(lib, f"tfhe_torch_{name}")(
             out.data_ptr(), ct.data_ptr(), words.data_ptr(), b, n_in, levels, m_out,
             base_log, _stream(ct))
@@ -395,13 +429,58 @@ def exact_cts_per_block() -> int:
     return load()["blind_rotate"].tfhe_torch_blind_rotate_exact_cts_per_block()
 
 
+def exact_smem_bytes(k1: int, n_poly: int, levels: int, cluster: bool = False) -> int:
+    """Dynamic shared memory of one block of K2's generic exact kernel (the
+    (k+1, N) u64 accumulator and the 4-prime residue rows of l (k+1) digit
+    polynomials: csrc/blind_rotate.cu tfhe_torch_blind_rotate_smem_bytes)
+    or, where cluster, of one block of its cluster kernel (a quarter of the
+    accumulator and one prime's rows: csrc/blind_rotate_cluster.cu
+    Cluster::SMEM)."""
+    row = n_poly + n_poly // 32
+    if cluster:
+        return k1 * n_poly // KERNEL_PRIMES * 8 + levels * k1 * row * 4
+    return k1 * n_poly * 8 + levels * k1 * KERNEL_PRIMES * row * 4
+
+
+# The cluster kernel's shapes, the routing's one predicate (the kernel's
+# entry point refuses others: csrc/blind_rotate_cluster.cu cluster_shape):
+# k+1 = 2, l <= 2, N = 8192, base_log <= 30
+CLUSTER_SHAPE = {"k1": 2, "n_poly": 8192, "max_levels": 2, "max_base_log": 30}
+
+
+def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
+                         lazy: bool) -> str:
+    """Which kernel K2's exact rotation (and its step entry) runs at a
+    shape: "lazy" where exact_lazy_shape holds (``lazy``), else "generic"
+    where the generic kernel's block fits shared memory, else "cluster"
+    where the cluster kernel takes the shape (CLUSTER_SHAPE: a cluster of
+    four blocks a ciphertext, one a prime; 3_3).  Raises a ValueError
+    elsewhere: no set of shortint/params.py is there, and above N = 8192 no
+    4-prime NTT plan exists (ops/ntt.py make_plan: the primes' 2-adic
+    orders are 14, 15, 18 and 14)."""
+    if lazy:
+        return "lazy"
+    if exact_smem_bytes(k1, n_poly, levels) <= SMEM_LIMIT:
+        return "generic"
+    cs = CLUSTER_SHAPE
+    _require(k1 == cs["k1"] and n_poly == cs["n_poly"] and 1 <= levels <= cs["max_levels"]
+             and 1 <= base_log <= cs["max_base_log"]
+             and exact_smem_bytes(k1, n_poly, levels, cluster=True) <= SMEM_LIMIT,
+             f"K2's exact rotation at k+1 = {k1}, N = {n_poly}, l = {levels}, base_log = "
+             f"{base_log} needs {exact_smem_bytes(k1, n_poly, levels)} B of shared memory a "
+             f"block, above the {SMEM_LIMIT} B a block may use, and its cluster kernel takes "
+             f"k+1 = 2, N = 8192, l <= 2, base_log <= 30; no 4-prime NTT plan exists above "
+             f"N = 8192")
+    return "cluster"
+
+
 def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
-                         levels: int) -> bool:
+                         levels: int) -> str:
     """K2's exact rotation on an initialised accumulator (B, k+1, N) int64,
     in place: one step per column of mask32 (B, n) int32, key (n, l, k+1,
-    k+1, P, N).  The kernel is chosen by shape (exact_lazy_shape): the
-    lazy kernel, on the batch padded to its C ciphertexts a block, or the
-    generic kernel.  Returns whether the lazy kernel ran."""
+    k+1, P, N).  The kernel is chosen by shape (exact_rotation_route): the
+    lazy kernel, on the batch padded to its C ciphertexts a block; the
+    generic kernel; or the cluster kernel.  Returns the route taken."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
@@ -411,37 +490,37 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
              "the kernel takes a 4-prime plan and a power-of-two N")
     _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
     lib = load()["blind_rotate"]
-    if exact_lazy_shape(k1, n_poly, levels, base_log):
-        per_block = exact_cts_per_block()
-        acc_p, mask_p = pad_batch(acc, per_block), pad_batch(mask32, per_block)
-        tw_fwd, tw_inv = shoup_twiddles(dp)
-        _check_cuda((acc_p, torch.int64), (mask_p, torch.int32), (bsk_ntt, torch.int32),
-                    (tw_fwd, torch.int32), (tw_inv, torch.int32),
-                    (dp.kernel_consts, torch.int64))
-        _require(bsk_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
-        err = lib.tfhe_torch_blind_rotate_exact_lazy(
-            acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
-            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc_p.shape[0], n_steps, k1,
-            n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
-        _raise_on(err, "blind_rotate (lazy exact)")
-        if acc_p.data_ptr() != acc.data_ptr():
-            acc.copy_(acc_p[:b])
-        return True
-    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
-    _require(smem <= SMEM_LIMIT,
-             f"accumulator and residues need {smem} B of shared memory, above the "
-             f"{SMEM_LIMIT} B a block may use: N = {n_poly} runs on the card with "
-             f"ROADMAP.md queue 1 item 19")
-    _check_cuda((acc, torch.int64), (mask32, torch.int32),
-                (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
-                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
-    err = lib.tfhe_torch_blind_rotate(
-        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
-        dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
-        dp.kernel_consts.data_ptr(), b, n_steps, k1,
-        n_poly.bit_length() - 1, levels, nprimes, base_log, _stream(acc))
-    _raise_on(err, "blind_rotate")
-    return False
+    route = exact_rotation_route(k1, n_poly, levels, base_log,
+                                 exact_lazy_shape(k1, n_poly, levels, base_log))
+    log_n = n_poly.bit_length() - 1
+    if route == "generic":
+        _check_cuda((acc, torch.int64), (mask32, torch.int32),
+                    (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
+                    (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
+        err = lib.tfhe_torch_blind_rotate(
+            acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(),
+            dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
+            dp.kernel_consts.data_ptr(), b, n_steps, k1, log_n, levels, nprimes, base_log,
+            _stream(acc))
+        _raise_on(err, "blind_rotate")
+        return route
+    # the lazy and the cluster kernel: Shoup twiddles, the key in 16-byte loads
+    per_block = exact_cts_per_block() if route == "lazy" else 1
+    acc_p, mask_p = pad_batch(acc, per_block), pad_batch(mask32, per_block)
+    tw_fwd, tw_inv = shoup_twiddles(dp)
+    _check_cuda((acc_p, torch.int64), (mask_p, torch.int32), (bsk_ntt, torch.int32),
+                (tw_fwd, torch.int32), (tw_inv, torch.int32),
+                (dp.kernel_consts, torch.int64))
+    _require(bsk_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+    entry = (lib.tfhe_torch_blind_rotate_exact_lazy if route == "lazy"
+             else load()["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster)
+    err = entry(acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
+                tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc_p.shape[0], n_steps, k1,
+                log_n, levels, nprimes, base_log, _stream(acc))
+    _raise_on(err, f"blind_rotate ({route} exact)")
+    if acc_p.data_ptr() != acc.data_ptr():
+        acc.copy_(acc_p[:b])
+    return route
 
 
 def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
@@ -471,14 +550,17 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
                  f"key of {bsk_ntt.lead} GGSWs for {mask32.shape[1]} steps")
         acc = _launch_rounded("blind_rotate", acc, mask32, bsk_ntt, base_log, levels,
                               mask32.shape[1])
-    elif _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels):
-        blind_rotate.lazy_exact_launches += 1
+    else:
+        route = _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels)
+        blind_rotate.lazy_exact_launches += route == "lazy"
+        blind_rotate.cluster_launches += route == "cluster"
     blind_rotate.launches += 1
     return acc
 
 
 blind_rotate.launches = 0
 blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
+blind_rotate.cluster_launches = 0       # and its cluster kernel (N = 8192)
 
 
 def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int):
@@ -497,9 +579,9 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
         return server.cmux_step(acc, a_col, bsk_slice, dp, base_log, levels)
     _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
     _require(acc.is_contiguous(), "the accumulator must be contiguous (updated in place)")
-    if _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
-                            bsk_slice.contiguous()[None], dp, base_log, levels):
-        cmux_step.lazy_exact_launches += 1
+    route = _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
+                                 bsk_slice.contiguous()[None], dp, base_log, levels)
+    cmux_step.lazy_exact_launches += route == "lazy"
     cmux_step.launches += 1
     return acc
 
@@ -528,7 +610,7 @@ def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):
     _require(dp.num_primes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "the kernel takes a 4-prime plan and a power-of-two N")
     lib = load()["blind_rotate"]
-    smem = lib.tfhe_torch_blind_rotate_smem_bytes(k1, n_poly, levels)
+    smem = exact_smem_bytes(k1, n_poly, levels)
     _require(smem <= SMEM_LIMIT,
              f"the CMux entry at k+1 = {k1}, N = {n_poly}, l = {levels} needs {smem} B "
              f"of shared memory, above the {SMEM_LIMIT} B a block may use")
@@ -785,27 +867,55 @@ def blind_rotate128(msed_mask, msed_body, lut_lo, lut_hi, bsk_ntt, dp: DevicePla
 blind_rotate128.launches = 0
 
 
-# K6's input coefficients a block (the wrapper's choice: enough blocks to
-# fill the card at one list, partial sums of a few MB)
-K6_MIN_PER_CHUNK = 8
-K6_TARGET_BLOCKS = 1056
+# K6's output coefficients a block (csrc/packing_keyswitch128.cu TC_ROWS)
+K6_TC_ROWS = 256
 
 
-def packing_keyswitch128_shape(n_in: int, levels: int, k1: int, n_poly: int,
-                               base_log: int) -> bool:
-    """Whether K6 takes this shape (csrc/packing_keyswitch128.cu): N a power
-    of two in [128, 1024], l <= 4, base_log <= 62, base_log l < 128; both
-    squashed-noise compression sets."""
-    return (n_poly & (n_poly - 1) == 0 and bool(
-        load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_shape(
-            n_in, levels, k1, n_poly.bit_length() - 1, base_log)))
+def packing_keyswitch128_key_limbs(key) -> torch.Tensor:
+    """The byte layout of a u128 packing keyswitch key that K6 reads:
+    (n, l, k+1, N, 2) int64 (lo, hi) -> (n, l, k+1, 16, N) uint8 on key's
+    device, [i, lev, c, b, m] = byte b (little-endian) of the u128 key word
+    m of polynomial c of row (i, lev): each limb row's N bytes contiguous,
+    the K-major operand of the s8 x u8 tensor-core product."""
+    n_in, levels, k1, n_poly, _ = key.shape
+    return (key.contiguous().view(torch.uint8).reshape(n_in, levels, k1, n_poly, 16)
+            .transpose(-1, -2).contiguous())
 
 
-def k6_chunk(n_in: int, k1: int, lists: int) -> int:
-    """The input coefficients a K6 block sums (its grid is (ceil(n_in /
-    chunk), k+1, lists))."""
-    want = -(-n_in * k1 * lists // K6_TARGET_BLOCKS)
-    return max(K6_MIN_PER_CHUNK, min(n_in, want))
+def packing_keyswitch128_key_words(limbs) -> torch.Tensor:
+    """The words of a byte layout (packing_keyswitch128_key_limbs' inverse):
+    (n, l, k+1, 16, N) uint8 -> (n, l, k+1, N, 2) int64 on its device."""
+    n_in, levels, k1, _, n_poly = limbs.shape
+    return (limbs.transpose(-1, -2).contiguous().view(torch.int64)
+            .reshape(n_in, levels, k1, n_poly, 2))
+
+
+def packing_keyswitch128_key(key):
+    """The u128 packing keyswitch key as ``packing_keyswitch128`` takes it,
+    from the (n, l, k+1, N, 2) int64 words: on a CUDA device its byte layout
+    (packing_keyswitch128_key_limbs, built here on the card, the only copy
+    the key's owner keeps there); else the words themselves."""
+    return packing_keyswitch128_key_limbs(key) if key.device.type == "cuda" else key
+
+
+def packing_keyswitch128_imma_smem(k1: int, n_poly: int, levels: int, base_log: int,
+                                   max_count: int) -> int:
+    """K6's dynamic shared memory for lists of up to max_count slots, or -1
+    where it does not take the shape (csrc/packing_keyswitch128.cu
+    tc_shape: N in 256, 512, 1024, k+1 <= 8, l <= 4, base_log <= 62); the
+    wrapper refuses the shapes where this is -1 or above a block's shared
+    memory (128,128 B at V1_4's 128 slots)."""
+    return load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma_smem(
+        k1, n_poly.bit_length() - 1, levels, base_log, max_count)
+
+
+def k6_imma_chunk(n_in: int, n_poly: int, lists: int, sms: int) -> int:
+    """The input coefficients a block of K6 sums: its grid (N / K6_TC_ROWS,
+    lists, chunks) fills two waves of ``sms`` (one block an SM) and no more:
+    a third, part-filled wave would take as long as a full one."""
+    tiles = n_poly // K6_TC_ROWS * lists
+    chunks = max(1, min(n_in, 2 * sms // tiles))
+    return -(-n_in // chunks)
 
 
 def packing_keyswitch128(lwes, key, counts, base_log: int, levels: int,
@@ -814,12 +924,21 @@ def packing_keyswitch128(lwes, key, counts, base_log: int, levels: int,
     list in one launch (see ops/server128.py packing_keyswitch128).
 
     lwes: (G, C, n+1, 2) int64, list g's u128 LWEs (lo, hi) at slots 0 ..
-    counts[g]-1 (rows past them are ignored); key: (n, l, k+1, N, 2) int64
-    standard-domain u128 key; counts: G ints in [1, C], C <= N.  On the CPU
-    the plain version runs on dp (an 8-prime plan of N).  Returns (G, k+1,
-    N, 2) int64.  Shapes K6 cannot take raise a ValueError."""
+    counts[g]-1 (rows past them are ignored); key: on the CPU the (n, l,
+    k+1, N, 2) int64 standard-domain u128 key, on the card its byte layout
+    (packing_keyswitch128_key); counts: G ints in [1, C], C <= N.  On the
+    CPU the plain version runs on dp (an 8-prime plan of N).  Returns (G,
+    k+1, N, 2) int64.  Shapes K6 cannot take (packing_keyswitch128_imma_smem)
+    raise a ValueError."""
     g, c, w, two = lwes.shape
-    n_in, lev, k1, n_poly, _ = key.shape
+    cuda = lwes.device.type == "cuda"
+    if cuda:
+        _require(key.dtype == torch.uint8 and key.dim() == 5 and key.shape[3] == 16,
+                 "K6 takes the key's byte layout on the card: build it once with "
+                 "kernels.packing_keyswitch128_key")
+        n_in, lev, k1, _, n_poly = key.shape
+    else:
+        n_in, lev, k1, n_poly, _ = key.shape
     _require(two == 2 and w == n_in + 1 and lev == levels, "lwes / key shapes disagree")
     _require(len(counts) == g and all(1 <= int(x) <= c for x in counts),
              f"counts {list(counts)} do not fit {c} slots")
@@ -831,18 +950,22 @@ def packing_keyswitch128(lwes, key, counts, base_log: int, levels: int,
         lo, hi = server128.packing_keyswitch128(lwes[..., 0], lwes[..., 1], key[..., 0],
                                                 key[..., 1], dp, base_log, levels)
         return torch.stack([lo, hi], dim=-1)
-    _require(lwes.device.type == "cuda", f"no u128 packing-keyswitch kernel for {lwes.device}")
-    _require(packing_keyswitch128_shape(n_in, levels, k1, n_poly, base_log),
-             f"K6 takes N a power of two in [128, 1024], l <= 4 and base_log <= 62, not "
-             f"N = {n_poly}, l = {levels}, base_log = {base_log}")
+    _require(cuda, f"no u128 packing-keyswitch kernel for {lwes.device}")
+    smem = (packing_keyswitch128_imma_smem(k1, n_poly, levels, base_log, max(counts))
+            if n_poly & (n_poly - 1) == 0 else -1)
+    _require(0 <= smem <= SMEM_LIMIT,
+             f"K6 takes N in 256, 512, 1024, k+1 <= 8, l <= 4 and base_log <= 62, with its "
+             f"lists' shared memory within a block's, not N = {n_poly}, k+1 = {k1}, "
+             f"l = {levels}, base_log = {base_log}, {max(counts)} slots")
     lwes, key = lwes.contiguous(), key.contiguous()
-    per_chunk = k6_chunk(n_in, k1, g)
-    chunks = -(-n_in // per_chunk)
     counts_t = torch.tensor([int(x) for x in counts], dtype=torch.int32, device=lwes.device)
-    partial = torch.empty((g, chunks, k1, n_poly, 2), dtype=torch.int64, device=lwes.device)
     out = torch.empty((g, k1, n_poly, 2), dtype=torch.int64, device=lwes.device)
-    _check_cuda((lwes, torch.int64), (key, torch.int64), (counts_t, torch.int32))
-    err = load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128(
+    _check_cuda((lwes, torch.int64), (key, torch.uint8), (counts_t, torch.int32))
+    per_chunk = k6_imma_chunk(n_in, n_poly, g, torch.cuda.get_device_properties(
+        lwes.device).multi_processor_count)
+    chunks = -(-n_in // per_chunk)
+    partial = torch.empty((g, chunks, k1, n_poly, 2), dtype=torch.int64, device=lwes.device)
+    err = load()["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma(
         out.data_ptr(), partial.data_ptr(), lwes.data_ptr(), key.data_ptr(),
         counts_t.data_ptr(), g, c, n_in, levels, k1, n_poly.bit_length() - 1, base_log,
         per_chunk, _stream(lwes))

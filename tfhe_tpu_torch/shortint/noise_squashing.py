@@ -328,8 +328,10 @@ class NoiseSquashingCompressionKey:
     """u128 packing keyswitch key from the squashing GLWE key (as an LWE
     key) to the packing GLWE key, generated with tfhe_tpu's words from the
     same seeds and kept on ``device`` (CUDA unless the caller asks for the
-    CPU) in K6's layout: ``pksk`` (n, l, k+1, N, 2) int64, each u128 word's
-    (lo, hi), standard domain (470 MB at V1_4: ``device_bytes``)."""
+    CPU) as K6 takes it (ops/kernels.py packing_keyswitch128_key): ``pksk``
+    the standard-domain words, (n, l, k+1, N, 2) int64, each u128 word's
+    (lo, hi), on the CPU, and their (n, l, k+1, 16, N) uint8 byte layout on
+    the card (470 MB at V1_4 either way: ``device_bytes``)."""
 
     def __init__(self, squashing_private_key: NoiseSquashingPrivateKey,
                  comp_private_key: NoiseSquashingCompressionPrivateKey,
@@ -390,7 +392,10 @@ class NoiseSquashingCompressionKey:
 
     def standard_key(self) -> tuple:
         """The key's standard-domain (lo, hi) uint64 words on the host."""
-        words = torus.to_u64(self.pksk)
+        words = self.pksk
+        if words.dtype == torch.uint8:
+            words = kernels.packing_keyswitch128_key_words(words)
+        words = torus.to_u64(words)
         return words[..., 0].copy(), words[..., 1].copy()
 
     def _init_key(self, cp: NoiseSquashingCompressionParams, pksk_lo: np.ndarray,
@@ -400,18 +405,21 @@ class NoiseSquashingCompressionKey:
         self.plan = dp.plan
         self.device = dp.psi.device
         words = np.stack([pksk_lo, pksk_hi], axis=-1).view(np.int64)
-        self.pksk = torch.from_numpy(np.ascontiguousarray(words)).to(self.device)
+        self.pksk = kernels.packing_keyswitch128_key(
+            torch.from_numpy(np.ascontiguousarray(words)).to(self.device))
 
     @property
     def device_bytes(self) -> int:
-        return self.pksk.numel() * 8
+        return self.pksk.numel() * self.pksk.element_size()
 
     def bytes_per_list(self, n_in: int) -> int:
         """K6's device working set a list: its input slots, the partial sums
         of its blocks, the output GLWE."""
         cp = self.params
         k1, n_poly = cp.packing_ks_glwe_dimension + 1, cp.packing_ks_polynomial_size
-        chunks = -(-n_in // kernels.k6_chunk(n_in, k1, 1))
+        sms = (torch.cuda.get_device_properties(self.device).multi_processor_count
+               if self.device.type == "cuda" else 1)
+        chunks = -(-n_in // kernels.k6_imma_chunk(n_in, n_poly, 1, sms))
         return (cp.lwe_per_glwe * (n_in + 1) + (chunks + 1) * k1 * n_poly) * 16
 
     def compress(self, cts: list) -> CompressedSquashedNoiseCiphertextList:
