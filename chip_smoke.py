@@ -165,7 +165,18 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      1_1: K3 v9): keygen, one round at B = 32 decrypted, and its first 4
      inputs through the same entry point with the kernels and with their
      plain versions;
- 33. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
+ 33. research_primitives: the GLWE keyswitch, the common mask and the
+     experimental core at the 2_2 widths (n = 918, k = 1, N = 2048), keygens
+     on the card from fixed seeds, every output decrypted: the GLWE
+     keyswitch of 512 GLWEs (K7, base 2^8 x 4), the fast keyswitch of 512
+     GLWEs from a k_in = 2 partial key on a pseudo-GGSW (K7 with the sum
+     added), the shrinking keyswitch 2048 -> 918 (K1), the CM keyswitch and
+     CM packing 2048 -> 918 at C = 3 (K1), the CM bootstrap of 64 CmLwes
+     at C = 3 (K2's generic kernel at k+1 = 4; the CM bootstrap key's 481 MB)
+     and one at C = 1 (K2's lazy kernel), the extended PBS of 64 LWEs at
+     E = 1, 2 and 4 on phase 3's exact key (K8; at E = 1 the words of K2's
+     exact rotation);
+ 34. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
      generic kernel at B = 512 on both keys, and phase 10's 512 stored
@@ -239,15 +250,19 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      real 3_3 key and on a random key at that shape over 64 steps at B = 1,
      3 and 4; K1
      at the PFPKS shape on phase 28's circuit-bootstrap LWEs; K2's CMux
-     entry against ct0 + external_product at B = 1 and 64;
- 34. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-32 (each
+     entry against ct0 + external_product at B = 1 and 64; K7 at both
+     signs on phase 33's inputs and keys, K1 at the shrinking and CM shapes
+     on phase 33's inputs, K8 at E = 1, 2 and 4 and K2 at the CM shape (k+1
+     = 4) at B = 4 over 64 steps of a random key;
+ 35. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-33 (each
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line (K1-32's entry, keyswitch32, with the
      launches of phases 25-26 on every kernel's; K6's, K1's at the PFPKS
      shape and the CMux entry's, with the launches of phases 28-30 on K1's,
      K2's exact kernels' and the step entry's; K2's cluster kernel's, with
-     the launches of phases 31-32 on K1's, K2's and K3's).
+     the launches of phases 31-32 on K1's, K2's and K3's; K7's, K8's, and
+     K2's and K1's at phase 33's shapes).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -404,7 +419,8 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
                 "packing_keyswitch_imma_kernel",
-                "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel")
+                "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel",
+                "glwe_keyswitch_kernel", "blind_rotate_extended_kernel")
 
 
 STARTED = time.perf_counter()
@@ -879,7 +895,7 @@ def ptxas_start(kernels) -> tuple:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name in ("keyswitch", "blind_rotate", "blind_rotate_cluster",
                      "blind_rotate_multibit", "packing_keyswitch", "blind_rotate128",
-                     "packing_keyswitch128")]
+                     "packing_keyswitch128", "glwe_keyswitch", "blind_rotate_extended")]
 
 
 def ptxas_stop(started: tuple) -> None:
@@ -956,7 +972,8 @@ def kernel_ms_by_name(prof, names) -> dict:
 def kernel_wrappers(kernels) -> tuple:
     return (kernels.keyswitch, kernels.keyswitch32, kernels.blind_rotate, kernels.cmux_step,
             kernels.cmux, kernels.blind_rotate_multibit, kernels.packing_keyswitch,
-            kernels.blind_rotate128, kernels.packing_keyswitch128)
+            kernels.blind_rotate128, kernels.packing_keyswitch128, kernels.glwe_keyswitch,
+            kernels.blind_rotate_extended)
 
 
 def counters(kernels) -> tuple:
@@ -3177,6 +3194,502 @@ def cluster_figures(kernels, server, torus, run, seed: int, errs: dict) -> dict:
             "shape": [msed.shape[0], p.lwe_dimension, p.pbs_level, k1, n_poly]}
 
 
+# Phase 33: the GLWE keyswitch (K7), the common mask and the experimental
+# core (K8) at the widths of V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+# the set both packages serve (neither defines a CM or an extended-PBS set)
+RESEARCH_BATCH = 512
+RESEARCH_PBS_BATCH = 64
+CM_SLOTS = 3
+GLWE_KS_DECOMP = (8, 4)       # base 2^8, l = 4
+PARTIAL_FILL = 3072           # the fast keyswitch's k_in = 2 partial key: 3072 of 4096 random
+EXT_FACTORS = (1, 2, 4)
+RESEARCH_STEPS = ("glwe_keyswitch", "fast_keyswitch", "shrinking_keyswitch", "cm_keyswitch",
+                  "cm_packing", "cm_bootstrap", "cm_bootstrap_c1",
+                  *(f"extended_pbs_e{e}" for e in EXT_FACTORS))
+RESEARCH_PLAIN_STEPS = 64     # the rotations' plain comparisons: B = CHECK_BATCH, a random key
+
+
+def k7_bound(glwe, key, out) -> dict:
+    """Least time for the GLWE keyswitch: the GLWEs, the key (4-prime NTT
+    domain, u32 residues) and the output moved once, against its 4-prime
+    CRT-NTT operations on the CUDA cores' integer rate (three 32-bit
+    multiplies a Montgomery product): per GLWE the k_in l digit
+    polynomials' forward transforms, the k_in l (k_out+1) key products, the
+    k_out+1 inverse transforms and Garner."""
+    b, _, n_poly = glwe.shape
+    k_in, levels, kout1, nprimes, _ = key.shape
+    butterflies = (n_poly // 2) * (n_poly.bit_length() - 1)
+    modmuls = (k_in * levels * nprimes * butterflies + k_in * levels * kout1 * nprimes * n_poly
+               + kout1 * nprimes * butterflies + kout1 * n_poly * nprimes * (nprimes - 1) // 2)
+    t_ops = b * 3 * modmuls / INT32_MUL_PER_S
+    t_bytes = (8 * glwe.numel() + 4 * key.numel() + 8 * out.numel()) / HBM_BYTES_PER_S
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ntt_int32_ms": t_ops * 1e3}
+
+
+def k8_bound(mask, acc, levels: int, base_log: int) -> dict:
+    """Least time for the extended rotation of B ciphertexts of E slots: E
+    times k2_bound's operations at the same B (each slot a classic
+    rotation's work), the key read once, the accumulators once."""
+    import torch
+
+    b, e, k1, n_poly = acc.shape
+    slots_mask = torch.zeros((b * e, mask.shape[1]), dtype=torch.int32)
+    return k2_bound(slots_mask, acc.reshape(b * e, k1, n_poly), levels, base_log, EXACT_PRIMES)
+
+
+def encrypt_glwes(kg, sk, plaintexts, noise, gen, dev):
+    """B GLWEs (B, k+1, N) under sk of the (B, N) uint64 plaintexts, as
+    encrypting them one after the other with encrypt_glwe_assign: the mask
+    and noise streams drawn whole, the secret products on the card
+    (keygen.add_mask_times_secret)."""
+    import numpy as np
+
+    b, n_poly = plaintexts.shape
+    k = sk.glwe_dimension
+    rows = np.zeros((b, k + 1, n_poly), dtype=np.uint64)
+    rows[:, :k] = gen.mask.uniform_u64(b * k * n_poly).reshape(b, k, n_poly)
+    with np.errstate(over="ignore"):
+        rows[:, k] = plaintexts + noise.sample(gen.noise, b * n_poly).reshape(b, n_poly)
+    kg.add_mask_times_secret(rows, sk, dev)
+    return rows
+
+
+def decode_glwes(ntt, torus, sk, glwes, delta: int, dp):
+    """The messages round(plaintext / delta) mod 16 of (B, k+1, N) GLWEs
+    under sk, decrypted on the card."""
+    import numpy as np
+    import torch
+
+    key = ntt.key_ntt(sk.data.astype(np.uint64), dp).to(torch.int64)
+    plain = glwes[:, -1] - ntt.mask_times_binary_key(glwes[:, :-1].contiguous(), key, dp)
+    return torus.shr(plain + delta // 2, delta.bit_length() - 1) & 15
+
+
+def decode_lwes(torus, key_bits, lwes, delta: int):
+    """round((body - <mask, s>) / delta) mod 16 of (B, n+1) LWEs on the card
+    (key_bits (n,) or, for C slots of a CmLwe, (n, C))."""
+    import numpy as np
+    import torch
+
+    bits = torch.from_numpy(np.asarray(key_bits).astype(np.int64)).to(lwes.device)
+    n = bits.shape[0]
+    dots = (lwes[:, :n, None] * bits.reshape(n, -1)[None]).sum(dim=1)
+    plain = lwes[:, n:] - dots
+    return torus.shr(plain + delta // 2, delta.bit_length() - 1) & 15
+
+
+def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
+    """Phase 33: at the 2_2 widths (n = 918, k = 1, N = 2048, PBS 2^23 x 1,
+    KS 2^4 x 4, TUniform(45) and TUniform(17)), keygens on the card from
+    fixed seeds, each step through its entry point with every output
+    decrypted: the GLWE keyswitch (K7, (0, body) - sum) of B = 512 GLWEs
+    from a fresh k = 1 key to phase 3's GLWE key, base 2^8 x 4; the fast
+    keyswitch (K7, sum + (0, body)) from a k_in = 2 partial key on a
+    pseudo-GGSW; the shrinking keyswitch (K1) from phase 3's flattened
+    2048-coefficient key to its 918-coefficient prefix; the CM keyswitch
+    (K1 once) and CM packing (K1 a slot), 2048 -> 918 at C = 3; the CM
+    bootstrap (K2's generic kernel at k+1 = 4) of 64 CmLwes with (3x + 1) %
+    16, and one C = 1 call (K2's lazy kernel) on the key's first slot; the
+    extended PBS (K8) of 64 LWEs at E = 1, 2 and 4 on phase 3's exact key
+    with (x^2 + 3) % 16, at E = 1 against K2's exact rotation.  Seconds,
+    kernel CUDA-event ms, launches, keygen seconds, key bytes."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.core import cm, experimental, keygen
+    from tfhe_tpu_torch.core.params import DecompParams
+    from tfhe_tpu_torch.ops import ntt, server
+    from tfhe_tpu_torch.utils import csprng
+
+    p = ck.params
+    dev = torch.device("cuda")
+    n, k, n_poly, delta = p.lwe_dimension, p.glwe_dimension, p.polynomial_size, p.delta
+    sec = csprng.SecretRandomGenerator(seed)
+    gen = csprng.EncryptionRandomGenerator(seed + 1, csprng.DeterministicSeeder(seed + 2))
+    rng = np.random.default_rng(seed + 3)
+    dp = sk.dp
+    lines, run, wrong = {}, {"dp": dp}, 0
+
+    def keygen_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def step(tag, fn, check, must: dict, kernel_ms=None, **extra):
+        nonlocal wrong
+        out, launches, seconds, _ = counted(kernels, fn)
+        if launches != only(kernels, **must):
+            raise RuntimeError(f"the {tag} step did not launch {must} alone: {launches}")
+        bad = int(check(out))
+        wrong += bad
+        lines[tag] = {"seconds": seconds, "launches": {k_: v for k_, v in launches.items() if v},
+                      "wrong": bad, **({"kernel_ms": kernel_ms()} if kernel_ms else {}), **extra}
+        return out
+
+    # 1-2. the GLWE keyswitch and the fast keyswitch (K7, both signs)
+    base_log, levels = GLWE_KS_DECOMP
+    decomp = DecompParams(base_log, levels)
+    sk_in = keygen.generate_binary_glwe_secret_key(k, n_poly, sec)
+    sk_out = ck.glwe_secret_key
+    gksk, gksk_s = keygen_timed(lambda: keygen.generate_glwe_keyswitch_key(
+        sk_in, sk_out, decomp, p.glwe_noise, gen, device=dev))
+    msgs = rng.integers(0, 16, (RESEARCH_BATCH, n_poly)).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        pts = msgs * np.uint64(delta)
+    msgs_t = torch.from_numpy(msgs.astype(np.int64)).to(dev)
+    glwes = torus.from_u64(encrypt_glwes(keygen, sk_in, pts, p.glwe_noise, gen, dev), dev)
+
+    def glwe_wrong(out):
+        return (decode_glwes(ntt, torus, sk_out, out, delta, dp) != msgs_t).any(dim=1).sum()
+
+    ks_out = step("glwe_keyswitch", lambda: server.glwe_keyswitch(glwes, gksk.data, gksk.dp,
+                                                                    base_log, levels),
+                  glwe_wrong, {"glwe_keyswitch": 1},
+                  lambda: cuda_ms(lambda: kernels.glwe_keyswitch(glwes, gksk.data, gksk.dp,
+                                                                 base_log, levels), 5),
+                  batch=RESEARCH_BATCH, k_in=k, k_out=k, keygen_seconds=gksk_s,
+                  key_device_bytes=gksk.data.numel() * 4)
+    sk_partial = experimental.generate_partial_binary_glwe_secret_key(2, n_poly, PARTIAL_FILL, sec)
+    pggsw, pggsw_s = keygen_timed(lambda: experimental.pseudo_ggsw_to_ntt(
+        experimental.encrypt_pseudo_ggsw(sk_out, sk_partial, decomp, p.glwe_noise, gen,
+                                         device=dev), device=dev))
+    glwes2 = torus.from_u64(encrypt_glwes(keygen, sk_partial, pts, p.glwe_noise, gen, dev), dev)
+    fast_out = step("fast_keyswitch", lambda: experimental.glwe_fast_keyswitch(
+        glwes2, pggsw.data, pggsw.dp, base_log, levels), glwe_wrong, {"glwe_keyswitch": 1},
+        lambda: cuda_ms(lambda: kernels.glwe_keyswitch(glwes2, pggsw.data, pggsw.dp, base_log,
+                                                       levels, add_sum=True), 5),
+        batch=RESEARCH_BATCH, k_in=2, k_out=k, partial_fill=PARTIAL_FILL,
+        keygen_seconds=pggsw_s, key_device_bytes=pggsw.data.numel() * 4)
+    run["k7"] = {"glwe": (glwes, gksk, ks_out), "fast": (glwes2, pggsw, fast_out),
+                 "decomp": GLWE_KS_DECOMP}
+
+    # 3. the shrinking keyswitch (K1), 2048 -> its 918-coefficient prefix
+    ks_decomp = DecompParams(p.ks_base_log, p.ks_level)
+    big = ck.big_lwe_secret_key
+    sksk, sksk_s = keygen_timed(lambda: experimental.generate_lwe_shrinking_keyswitch_key(
+        big, n, ks_decomp, p.lwe_noise, gen, device=dev))
+    lwe_msgs = rng.integers(0, 16, RESEARCH_BATCH)
+    lwe_msgs_t = torch.from_numpy(lwe_msgs).to(dev)
+    big_cts = torus.from_u64(cm.encrypt_cm_lwe_batch(
+        [big], (lwe_msgs.astype(np.uint64) * np.uint64(delta))[:, None], p.glwe_noise, gen, dev),
+        dev)
+    shrunk = step("shrinking_keyswitch", lambda: experimental.shrinking_keyswitch(big_cts, sksk),
+                  lambda out: (decode_lwes(torus, big.data[:n], out, delta)[:, 0]
+                               != lwe_msgs_t).sum(),
+                  {"keyswitch": 1, "keyswitch_imma": 1},
+                  lambda: cuda_ms(lambda: kernels.keyswitch(
+                      torch.cat([big_cts[:, n:-1], big_cts[:, -1:]], dim=1), sksk.key,
+                      p.ks_base_log, p.ks_level), 10),
+                  batch=RESEARCH_BATCH, n_in=big.dimension, shared=n, keygen_seconds=sksk_s,
+                  key_shape=list(sksk.ksk.data.shape))
+    run["shrinking"] = (big_cts, sksk, shrunk)
+
+    # 4. the CM keyswitch (K1 once) and the CM packing (K1 a slot), C = 3
+    in_sks = [keygen.generate_binary_lwe_secret_key(big.dimension, sec) for _ in range(CM_SLOTS)]
+    out_sks = [keygen.generate_binary_lwe_secret_key(n, sec) for _ in range(CM_SLOTS)]
+    out_bits = np.stack([s.data for s in out_sks], axis=1)
+    cksk, cksk_s = keygen_timed(lambda: cm.generate_cm_lwe_keyswitch_key(
+        in_sks, out_sks, ks_decomp, p.lwe_noise, gen, device=dev))
+    cm_msgs = rng.integers(0, 16, (RESEARCH_BATCH, CM_SLOTS))
+    cm_msgs_t = torch.from_numpy(cm_msgs).to(dev)
+    cm_pts = cm_msgs.astype(np.uint64) * np.uint64(delta)
+    cm_cts = torus.from_u64(cm.encrypt_cm_lwe_batch(in_sks, cm_pts, p.glwe_noise, gen, dev), dev)
+
+    def cm_wrong(out):
+        return (decode_lwes(torus, out_bits, out, delta) != cm_msgs_t).sum()
+
+    cm_out = step("cm_keyswitch", lambda: cm.cm_keyswitch(cm_cts, cksk), cm_wrong,
+                  {"keyswitch": 1, "keyswitch_imma": 1},
+                  lambda: cuda_ms(lambda: kernels.keyswitch(
+                      torch.cat([cm_cts[:, :-CM_SLOTS], cm_cts[:, :1] * 0], dim=1), cksk.key,
+                      p.ks_base_log, p.ks_level), 10),
+                  batch=RESEARCH_BATCH, slots=CM_SLOTS, n_in=big.dimension, n_out=n,
+                  keygen_seconds=cksk_s, key_device_bytes=cksk.data.size * 8)
+    run["cm_keyswitch"] = (cm_cts, cksk, cm_out)
+    pk, pk_s = keygen_timed(lambda: cm.generate_cm_lwe_packing_key(
+        big, out_sks, ks_decomp, p.lwe_noise, gen, device=dev))
+    std = torus.from_u64(cm.encrypt_cm_lwe_batch(
+        [big], cm_pts.reshape(-1, 1), p.glwe_noise, gen, dev), dev).reshape(
+        RESEARCH_BATCH, CM_SLOTS, -1)
+    step("cm_packing", lambda: cm.pack_lwe_ciphertexts_into_cm(std, pk), cm_wrong,
+         {"keyswitch": CM_SLOTS, "keyswitch_imma": CM_SLOTS}, batch=RESEARCH_BATCH,
+         slots=CM_SLOTS, keygen_seconds=pk_s, key_device_bytes=pk.data.size * 8)
+    del pk, std
+
+    # 5. the CM bootstrap (K2 at k+1 = 4: its generic kernel), then C = 1 on
+    # the key's first slot (k+1 = 2: its lazy kernel)
+    glwe_sks = [keygen.generate_binary_glwe_secret_key(k, n_poly, sec) for _ in range(CM_SLOTS)]
+    flat_bits = np.stack([s.data.reshape(-1) for s in glwe_sks], axis=1)
+    pbs = DecompParams(p.pbs_base_log, p.pbs_level)
+    cm_bsk, bsk_s = keygen_timed(lambda: cm.cm_bootstrap_key_to_ntt(
+        cm.generate_cm_lwe_bootstrap_key(out_sks, glwe_sks, pbs, p.glwe_noise, gen, device=dev),
+        device=dev))
+    f = lambda x: (3 * x + 1) % 16  # noqa: E731
+    lut = torus.from_u64(server.generate_lut(n_poly, k + 1, 16, delta, f)[-1], dev)
+    pbs_msgs = rng.integers(0, 16, (RESEARCH_PBS_BATCH, CM_SLOTS))
+    want = torch.from_numpy(np.vectorize(f)(pbs_msgs)).to(dev)
+    pbs_cts = torus.from_u64(cm.encrypt_cm_lwe_batch(
+        out_sks, pbs_msgs.astype(np.uint64) * np.uint64(delta), p.lwe_noise, gen, dev), dev)
+    route = kernels.exact_rotation_route(k + CM_SLOTS, n_poly, p.pbs_level, p.pbs_base_log, False)
+    # the rotation's inputs as cm_blind_rotate forms them, for its kernel time
+    pbs_msed = server.modulus_switch(pbs_cts, n_poly.bit_length())
+    acc0 = torch.zeros((RESEARCH_PBS_BATCH, k + CM_SLOTS, n_poly), dtype=torch.int64,
+                       device=dev)
+    acc0[:, k:] = server.monomial_div(lut.expand(RESEARCH_PBS_BATCH, CM_SLOTS, n_poly),
+                                      pbs_msed[:, n:, None])
+    step("cm_bootstrap", lambda: cm.cm_bootstrap(pbs_cts, lut, cm_bsk.data, cm_bsk.dp,
+                                                 p.pbs_base_log, p.pbs_level, k),
+         lambda out: (decode_lwes(torus, flat_bits, out, delta) != want).sum(),
+         {"blind_rotate": 1},
+         lambda: cuda_ms(lambda: kernels.rotate_accumulator(
+             acc0, pbs_msed[:, :n], cm_bsk.data, cm_bsk.dp, p.pbs_base_log, p.pbs_level), 2),
+         batch=RESEARCH_PBS_BATCH, slots=CM_SLOTS, route=route, keygen_seconds=bsk_s,
+         key_device_bytes=cm_bsk.data.numel() * 4,
+         shared_memory_bytes=kernels.exact_smem_bytes(k + CM_SLOTS, n_poly, p.pbs_level))
+    if route != "generic":
+        raise RuntimeError(f"the CM rotation at k+1 = {k + CM_SLOTS} took K2's {route} kernel")
+    run["cm_bootstrap"] = {"ms": lines["cm_bootstrap"]["kernel_ms"],
+                           "bound": k2_bound(pbs_msed[:, :n], acc0, p.pbs_level,
+                                             p.pbs_base_log, EXACT_PRIMES),
+                           "shape": [RESEARCH_PBS_BATCH, n, p.pbs_level, k + CM_SLOTS, n_poly]}
+    one = cm_bsk.data[:, :, :k + 1, :k + 1].contiguous()
+    one_cts = torch.cat([pbs_cts[:, :n], pbs_cts[:, n:n + 1]], dim=1)
+    step("cm_bootstrap_c1", lambda: cm.cm_bootstrap(one_cts, lut, one, cm_bsk.dp,
+                                                    p.pbs_base_log, p.pbs_level, k),
+         lambda out: (decode_lwes(torus, flat_bits[:, :1], out, delta) != want[:, :1]).sum(),
+         {"blind_rotate": 1, "blind_rotate_exact_lazy": 1}, batch=RESEARCH_PBS_BATCH, slots=1)
+    del cm_bsk, one, acc0
+
+    # 6. the extended PBS (K8) at E = 1, 2, 4 on phase 3's exact key
+    key = sk.exact_bsk_ntt()
+    g = lambda x: (x * x + 3) % 16  # noqa: E731
+    ext_msgs = rng.integers(0, 16, RESEARCH_PBS_BATCH)
+    ext_want = torch.from_numpy(np.vectorize(g)(ext_msgs)).to(dev)
+    small_cts = torus.from_u64(cm.encrypt_cm_lwe_batch(
+        [ck.lwe_secret_key], (ext_msgs.astype(np.uint64) * np.uint64(delta))[:, None],
+        p.lwe_noise, gen, dev), dev)
+    run["k8"] = {}
+    for e in EXT_FACTORS:
+        lut_e = torus.from_u64(server.generate_lut(n_poly * e, k + 1, 16, delta, g), dev)
+        lut_b = lut_e.expand(RESEARCH_PBS_BATCH, k + 1, n_poly * e)
+        msed = server.modulus_switch(small_cts, (2 * n_poly * e).bit_length() - 1)
+        acc0 = experimental.split_extended_lut(
+            server.monomial_div(lut_b, msed[:, -1, None, None]), e)
+        out = step(f"extended_pbs_e{e}", lambda: experimental.extended_pbs_batch(
+            small_cts, lut_b, key, dp, p.pbs_base_log, p.pbs_level, e),
+            lambda o: (decode_lwes(torus, big.data, o, delta)[:, 0] != ext_want).sum(),
+            {"blind_rotate_extended": 1},
+            lambda: cuda_ms(lambda: kernels.blind_rotate_extended(
+                msed[:, :-1], acc0, key, dp, p.pbs_base_log, p.pbs_level), 3),
+            batch=RESEARCH_PBS_BATCH, ext_factor=e, lut_size=n_poly * e)
+        run["k8"][e] = {"ms": lines[f"extended_pbs_e{e}"]["kernel_ms"],
+                        "bound": k8_bound(msed[:, :-1], acc0, p.pbs_level, p.pbs_base_log)}
+        if e == 1:
+            k2 = server.sample_extract(kernels.blind_rotate(
+                msed[:, :-1], msed[:, -1], lut_b.contiguous(), key, dp, p.pbs_base_log,
+                p.pbs_level))
+            lines["extended_pbs_e1"]["vs_k2_exact_words_differing"] = int((out != k2).sum())
+            wrong += lines["extended_pbs_e1"]["vs_k2_exact_words_differing"]
+    torch.cuda.empty_cache()
+    line = {"params": "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 widths", "n": n,
+            "k": k, "N": n_poly, "glwe_ks_base_log": base_log, "glwe_ks_level": levels,
+            **lines, "wrong": wrong}
+    return {"line": line, "wrong": wrong, "run": run}
+
+
+def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> dict:
+    """K7 at both signs on phase 33's B = 512 inputs and keys against its
+    plain version; K1 at the shrinking and CM keyswitch shapes on phase 33's
+    inputs against the plain keyswitch; K8 at E = 1, 2, 4 and K2 at the CM
+    shape (k+1 = 4, its generic kernel) at B = CHECK_BATCH over
+    RESEARCH_PLAIN_STEPS steps of a random key against their plain
+    versions.  Times and bounds."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    base_log, levels = run["k7"]["decomp"]
+    out = {"k7": {}, "k8": {}}
+    for tag, add_sum in (("glwe", False), ("fast", True)):
+        glwes, key, got = run["k7"][tag]
+        want = server.glwe_keyswitch_sum(glwes, key.data, key.dp, base_log, levels, add_sum)
+        errs[f"k7_{tag}_keyswitch_b{glwes.shape[0]}"] = max_abs_err(got, want)
+        out["k7"][tag] = {
+            "ms": cuda_ms(lambda: kernels.glwe_keyswitch(glwes, key.data, key.dp, base_log,
+                                                         levels, add_sum), 5),
+            "plain_ms": cuda_ms(lambda: server.glwe_keyswitch_sum(glwes, key.data, key.dp,
+                                                                  base_log, levels, add_sum), 2),
+            "bound": k7_bound(glwes, key.data, got),
+            "rows_a_chunk": kernels.glwe_keyswitch_rows(key.data.shape[2], glwes.shape[2]),
+            "shape": list(glwes.shape) + list(key.data.shape[:3])}
+    ks_base_log, ks_level = p.ks_base_log, p.ks_level
+    for tag, ct, key_words, key in (
+            ("shrinking", torch.cat([run["shrinking"][0][:, p.lwe_dimension:-1],
+                                     run["shrinking"][0][:, -1:]], dim=1),
+             torus.from_u64(run["shrinking"][1].ksk.data, dev), run["shrinking"][1].key),
+            ("cm", torch.cat([run["cm_keyswitch"][0][:, :-CM_SLOTS],
+                              run["cm_keyswitch"][0][:, :1] * 0], dim=1),
+             torus.from_u64(run["cm_keyswitch"][1].data, dev), run["cm_keyswitch"][1].key)):
+        got = kernels.keyswitch(ct, key, ks_base_log, ks_level)
+        errs[f"k1_{tag}_keyswitch_b{ct.shape[0]}"] = max_abs_err(
+            got, server.keyswitch(ct, key_words, ks_base_log, ks_level))
+        out[f"k1_{tag}"] = {
+            "ms": cuda_ms(lambda: kernels.keyswitch(ct, key, ks_base_log, ks_level), 10),
+            "plain_ms": cuda_ms(lambda: server.keyswitch(ct, key_words, ks_base_log, ks_level),
+                                3),
+            "bound": k1_bound(ct, key_words, got, ks_base_log),
+            "shape": [ct.shape[0], ct.shape[1] - 1, ks_level, key_words.shape[2]]}
+    # the rotations on a random key at B = CHECK_BATCH over RESEARCH_PLAIN_STEPS steps
+    n_poly, k = p.polynomial_size, p.glwe_dimension
+    dp = run["dp"]
+    b, steps = CHECK_BATCH, RESEARCH_PLAIN_STEPS
+    for e in EXT_FACTORS:
+        rkey = random_ntt_key((steps, p.pbs_level, k + 1, k + 1), dp, gen)
+        mask = torch.from_numpy(rng.integers(0, 2 * n_poly * e, (b, steps))).to(dev)
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (b, e, k + 1, n_poly), dtype=np.uint64),
+                             dev)
+        args = (rkey, dp, p.pbs_base_log, p.pbs_level)
+        errs[f"k8_e{e}_random_key_b{b}"] = max_abs_err(
+            kernels.blind_rotate_extended(mask, acc, *args),
+            server.blind_rotate_extended(mask, acc, *args))
+        out["k8"][e] = {
+            "ms": cuda_ms(lambda: kernels.blind_rotate_extended(mask, acc, *args), 3),
+            "plain_ms": cuda_ms(lambda: server.blind_rotate_extended(mask, acc, *args), 1),
+            "bound": k8_bound(mask, acc, p.pbs_level, p.pbs_base_log)}
+    k1 = k + CM_SLOTS
+    rkey = random_ntt_key((steps, p.pbs_level, k1, k1), dp, gen)
+    mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
+    acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+    args = (rkey, dp, p.pbs_base_log, p.pbs_level)
+    before = kernels.blind_rotate.lazy_exact_launches
+    errs[f"k2_cm_random_key_b{b}"] = max_abs_err(kernels.rotate_accumulator(acc, mask, *args),
+                                                 server.rotate_accumulator(acc, mask, *args))
+    if kernels.blind_rotate.lazy_exact_launches != before:
+        raise RuntimeError("the CM rotation at k+1 = 4 ran K2's lazy kernel")
+    out["k2_cm"] = {"ms": cuda_ms(lambda: kernels.rotate_accumulator(acc, mask, *args), 3),
+                    "plain_ms": cuda_ms(lambda: server.rotate_accumulator(acc, mask, *args), 1),
+                    "bound": k2_bound(mask, acc, p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
+                    "shape": [b, steps, k1, n_poly]}
+    return out
+
+
+
+def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict, p) -> list:
+    """The kernel table's entries of phase 33: K7, K8, K2 at the CM shape,
+    K1 at the CM and shrinking shapes, each with its launches on phase 33's
+    steps, its time, the plain version's and the bound."""
+    rp_l = rp_run["line"]
+
+    def rp_launches(counter: str, steps=RESEARCH_STEPS) -> dict:
+        return {t: rp_l[t]["launches"].get(counter, 0) for t in steps
+                if rp_l[t]["launches"].get(counter, 0)}
+
+    def with_regs(entry: dict, kernel: str) -> dict:
+        regs = ptxas_of(ptxas_kernels, kernel)
+        return {**entry, "registers": regs.get("registers"),
+                "spill_store_bytes": regs.get("spill_store_bytes")}
+
+    no_library = "none: no PyTorch call computes an exact wrapping-u64 negacyclic product"
+    k7g, k7f = s15["k7"]["glwe"], s15["k7"]["fast"]
+    k8_run, e_max = rp_run["run"]["k8"], max(EXT_FACTORS)
+    cm_run = rp_run["run"]["cm_bootstrap"]
+    cm_launches = rp_launches("blind_rotate", ("cm_bootstrap", "cm_bootstrap_c1"))
+    return [
+        with_regs({
+            "name": "glwe_keyswitch", "route": "cuda",
+            "source": "tfhe_tpu_torch/csrc/glwe_keyswitch.cu",
+            "replaces": "tfhe_tpu/ops/server.py:862",
+            "also_replaces": "tfhe_tpu/core/experimental.py:218",
+            "kernel": "glwe_keyswitch_kernel (one block a GLWE, 4-prime CRT-NTT; "
+                      "add_sum for the fast keyswitch)",
+            "launches": sum(rp_launches("glwe_keyswitch").values()),
+            "launches_by_path": rp_launches("glwe_keyswitch"),
+            "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k7")),
+            "ms": k7g["ms"], "plain_ms": k7g["plain_ms"],
+            "bound_ms": k7g["bound"]["ms"], "bound_by": k7g["bound"]["by"],
+            "bound_bytes_ms": k7g["bound"]["bytes_ms"],
+            "bound_ntt_int32_ms": k7g["bound"]["ntt_int32_ms"],
+            "library_ms": None, "library_call": no_library,
+            "rows_a_chunk": k7g["rows_a_chunk"], "shape": k7g["shape"],
+            "fast_keyswitch": {"ms": k7f["ms"], "plain_ms": k7f["plain_ms"],
+                               "bound_ms": k7f["bound"]["ms"], "bound_by": k7f["bound"]["by"],
+                               "rows_a_chunk": k7f["rows_a_chunk"], "shape": k7f["shape"]}},
+            "glwe_keyswitch_kernel"),
+        with_regs({
+            "name": "blind_rotate_extended", "route": "cuda",
+            "source": "tfhe_tpu_torch/csrc/blind_rotate_extended.cu",
+            "replaces": "tfhe_tpu/core/experimental.py:306",
+            "kernel": "blind_rotate_extended_kernel (a cluster of E blocks a ciphertext, "
+                      "one a slot)",
+            "launches": sum(rp_launches("blind_rotate_extended").values()),
+            "launches_by_path": rp_launches("blind_rotate_extended"),
+            "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k8")),
+            "words_differing_from_k2_at_e1": rp_l["extended_pbs_e1"][
+                "vs_k2_exact_words_differing"],
+            "ms": k8_run[e_max]["ms"], "ext_factor": e_max,
+            "plain_ms": s15["k8"][e_max]["plain_ms"], "plain_batch": CHECK_BATCH,
+            "plain_steps": RESEARCH_PLAIN_STEPS,
+            "bound_ms": k8_run[e_max]["bound"]["ms"], "bound_by": k8_run[e_max]["bound"]["by"],
+            "library_ms": None, "library_call": no_library,
+            "by_ext_factor": {e: {"ms": k8_run[e]["ms"], "bound_ms": k8_run[e]["bound"]["ms"],
+                                  "random_key_ms": s15["k8"][e]["ms"],
+                                  "random_key_bound_ms": s15["k8"][e]["bound"]["ms"],
+                                  "random_key_plain_ms": s15["k8"][e]["plain_ms"]}
+                              for e in EXT_FACTORS},
+            "shared_memory_bytes": kernels.exact_smem_bytes(p.glwe_dimension + 1,
+                                                            p.polynomial_size, p.pbs_level),
+            "shape": [RESEARCH_PBS_BATCH, e_max, p.lwe_dimension, p.glwe_dimension + 1,
+                      p.polynomial_size]},
+            "blind_rotate_extended_kernel"),
+        with_regs({
+            "name": "blind_rotate_cm", "route": "cuda",
+            "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+            "replaces": "tfhe_tpu/core/cm.py:299",
+            "kernel": f"blind_rotate_kernel (K2's generic exact kernel at k+1 = "
+                      f"{p.glwe_dimension + CM_SLOTS}; the lazy kernel at C = 1)",
+            "launches": sum(cm_launches.values()), "launches_by_path": cm_launches,
+            "lazy_launches_by_path": rp_launches("blind_rotate_exact_lazy"),
+            "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k2_cm")),
+            "ms": cm_run["ms"], "plain_ms": s15["k2_cm"]["plain_ms"],
+            "plain_batch": CHECK_BATCH, "plain_steps": RESEARCH_PLAIN_STEPS,
+            "random_key_ms": s15["k2_cm"]["ms"],
+            "random_key_bound_ms": s15["k2_cm"]["bound"]["ms"],
+            "bound_ms": cm_run["bound"]["ms"], "bound_by": cm_run["bound"]["by"],
+            "library_ms": None, "library_call": no_library,
+            "shared_memory_bytes": rp_l["cm_bootstrap"]["shared_memory_bytes"],
+            "shape": cm_run["shape"]}, "blind_rotate_kernel"),
+        with_regs({
+            "name": "keyswitch_cm", "route": "cuda",
+            "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
+            "replaces": "tfhe_tpu/core/cm.py:123", "also_replaces": "tfhe_tpu/core/cm.py:402",
+            "kernel": "keyswitch_imma_kernel on (mask, 0), n_out + C key columns",
+            "launches": sum(rp_launches("keyswitch", ("cm_keyswitch", "cm_packing")).values()),
+            "launches_by_path": rp_launches("keyswitch", ("cm_keyswitch", "cm_packing")),
+            "max_abs_err": errs[f"k1_cm_keyswitch_b{RESEARCH_BATCH}"],
+            "ms": s15["k1_cm"]["ms"], "plain_ms": s15["k1_cm"]["plain_ms"],
+            "bound_ms": s15["k1_cm"]["bound"]["ms"], "bound_by": s15["k1_cm"]["bound"]["by"],
+            "library_ms": None, "library_call": "none: torch has no int64 matmul on CUDA",
+            "shape": s15["k1_cm"]["shape"]}, "keyswitch_imma_kernel"),
+        with_regs({
+            "name": "keyswitch_shrinking", "route": "cuda",
+            "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
+            "replaces": "tfhe_tpu/core/experimental.py:126",
+            "kernel": "keyswitch_imma_kernel on the tail (ct[:, n2:-1] | body)",
+            "launches": sum(rp_launches("keyswitch", ("shrinking_keyswitch",)).values()),
+            "launches_by_path": rp_launches("keyswitch", ("shrinking_keyswitch",)),
+            "max_abs_err": errs[f"k1_shrinking_keyswitch_b{RESEARCH_BATCH}"],
+            "ms": s15["k1_shrinking"]["ms"], "plain_ms": s15["k1_shrinking"]["plain_ms"],
+            "bound_ms": s15["k1_shrinking"]["bound"]["ms"],
+            "bound_by": s15["k1_shrinking"]["bound"]["by"],
+            "library_ms": None, "library_call": "none: torch has no int64 matmul on CUDA",
+            "shape": s15["k1_shrinking"]["shape"]}, "keyswitch_imma_kernel")]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -3553,7 +4066,14 @@ def main() -> None:
         if run["wrong"]:
             raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
 
-    # 33. kernels against their plain versions
+    # 33. the GLWE keyswitch (K7), the common mask and the experimental core
+    # (K8) at the 2_2 widths
+    rp_run = research_primitives_phase(kernels, torus, ck, sk, args.seed + 120)
+    emit({"phase": "research_primitives", **rp_run["line"]})
+    if rp_run["wrong"]:
+        raise RuntimeError(f"{rp_run['wrong']} research-primitive outputs wrong")
+
+    # 34. kernels against their plain versions
     errs = {}
     k1 = keyswitch_check(served["cts"][0], sk, kernels, server, torus)
     k1_mb = keyswitch_check(mb_served["cts"][0], msk, kernels, server, torus)
@@ -4088,6 +4608,9 @@ def main() -> None:
     # phases 31-32: K2's cluster kernel at the 3_3 shape, the new sets' rounds
     s14 = cluster_figures(kernels, server, torus, s33_run, args.seed + 101, errs)
     errs.update(ps_run["errs"])
+    # phase 33: K7 at both signs, K1 at the shrinking and CM shapes, K8 at
+    # E = 1, 2, 4 and K2 at the CM shape
+    s15 = research_vs_plain(kernels, server, torus, rp_run["run"], p, args.seed + 121, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -4097,7 +4620,7 @@ def main() -> None:
     if any(errs.values()):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    # 34. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24,
+    # 35. launches of the paths (phases 4, 6, 7, 9, 10, 12, 13, 14-24,
     # 27-32) and the kernel table
     int_lines = integer_run["line"]
     int_paths = {"integer": [op for group in ("fheuint64", "fheuint8", "batched_fheuint64")
@@ -4162,7 +4685,8 @@ def main() -> None:
                       for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")},
           **s13_paths, "serve_3_3": s33_run["line"]["launches"],
           "serve_3_3_radix": {k: s33_run["line"]["radix"][k]["launches"] for k in ("add", "mul")},
-          "param_sets": {t: ps_run["line"][t]["launches"] for t, _, _ in PARAM_SETS}})
+          "param_sets": {t: ps_run["line"][t]["launches"] for t, _, _ in PARAM_SETS},
+          "research_primitives": {t: rp_run["line"][t]["launches"] for t in RESEARCH_STEPS}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
@@ -4509,6 +5033,8 @@ def main() -> None:
         "registers": cl_regs.get("registers"), "spill_store_bytes": cl_regs.get(
             "spill_store_bytes"),
         "shape": s14["shape"]})
+    # K7, K8, and K2 and K1 at phase 33's shapes
+    table += research_table_entries(kernels, rp_run, s15, errs, ptxas_kernels, p)
     by_name = {entry["name"]: entry for entry in table}
     for name, counter, paths, key in (
             ("keyswitch", "keyswitch", None, "launches_by_path"),

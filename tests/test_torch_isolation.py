@@ -1,9 +1,9 @@
 """tfhe_tpu_torch stands alone: it imports with JAX blocked (and runs a
 round of each slice, the integer and boolean layers, the high-level API and
 the strings, compact lists and Trivium, the KS32, PBS->KS, drift and
-many-LUT arms, the wire format, squashed-noise compression and a PFPKS
-included, and imports the ZK modules, AES, the test vectors and the key
-cache),
+many-LUT arms, the wire format, squashed-noise compression, a PFPKS, a
+CmLwe and a GLWE keyswitch included, and imports the ZK modules, AES, the
+test vectors, the key cache and the experimental core),
 no source of the port (nor chip_smoke.py) imports jax or
 tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
 raising where there is no GPU."""
@@ -139,6 +139,24 @@ wk = wopbs.WopbsKey(wck, wsk, seed=19)
 assert tuple(wk._pfpks(wck.encrypt(1).data, 0).shape) == (2, 64)
 assert aes.aes128_encrypt_block(bytes(16), bytes(16)).hex() == "66e94bd4ef8a2c3b884cfa59ca342b2e"
 assert hbm.admit_chunk(10, 1 << 40, min_items=1) == 1 and keycache.FORMAT >= 1
+# the GLWE keyswitch (K7's plain version), the common mask and the
+# experimental core: a CmLwe round trip, a GLWE keyswitch key and a switch
+from tfhe_tpu_torch.core import cm, experimental, keygen
+from tfhe_tpu_torch.core.params import DecompParams
+from tfhe_tpu_torch.ops import polymul_ref
+from tfhe_tpu_torch.utils import csprng
+sec = csprng.SecretRandomGenerator(20)
+gen = csprng.EncryptionRandomGenerator(21, csprng.DeterministicSeeder(22))
+lwe_sks = [keygen.generate_binary_lwe_secret_key(4, sec) for _ in range(2)]
+assert cm.decrypt_cm_lwe(lwe_sks, cm.encrypt_cm_lwe(lwe_sks, [5, 7], csprng.Gaussian(0.0),
+                                                    gen)) == [5, 7]
+g_in = experimental.generate_partial_binary_glwe_secret_key(2, 16, 20, sec)
+g_out = keygen.generate_binary_glwe_secret_key(1, 16, sec)
+gksk = keygen.generate_glwe_keyswitch_key(g_in, g_out, DecompParams(8, 4),
+                                          csprng.Gaussian(0.0), gen, device="cpu")
+out = server.glwe_keyswitch(torus.from_u64([[[0] * 16] * 3], "cpu"), gksk.data, gksk.dp, 8, 4)
+assert tuple(out.shape) == (1, 2, 16) and not out.any()
+assert polymul_ref.negacyclic_polymul_exact([1, 1], [1, 1])[0] == 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")
                for m in sys.modules)
 print("PORT-ISOLATED OK")
@@ -274,3 +292,35 @@ def test_device_plan_lives_on_the_asked_device():
     dp = ntt.device_plan(ntt.make_plan(64, 4), "cpu")
     assert dp.psi.device.type == "cpu" and dp.kernel_consts.numel() == 44
     assert torus.from_u64([1, 2], "cpu").dtype == torch.int64
+
+
+def test_slice15_entry_points_default_to_cuda(no_gpu):
+    """The GLWE keyswitch key, the pseudo-GGSW, the shrinking, CM keyswitch,
+    CM packing and CM bootstrap keys and their NTT forms run on the card
+    unless asked for the CPU, and raise without one."""
+    import numpy as np
+
+    from tfhe_tpu_torch.core import cm, experimental, keygen
+    from tfhe_tpu_torch.core.params import DecompParams
+    from tfhe_tpu_torch.utils import csprng
+
+    sec = csprng.SecretRandomGenerator(1)
+    gen = csprng.EncryptionRandomGenerator(2, csprng.DeterministicSeeder(3))
+    noise, decomp = csprng.TUniform(0), DecompParams(8, 2)
+    lwe = [keygen.generate_binary_lwe_secret_key(4, sec) for _ in range(2)]
+    glwe = [keygen.generate_binary_glwe_secret_key(1, 16, sec) for _ in range(2)]
+    words = np.zeros((1, 1, 2, 16), np.uint64)
+    for call in (lambda: keygen.generate_glwe_keyswitch_key(glwe[0], glwe[1], decomp, noise, gen),
+                 lambda: keygen.NttKey.from_raw_keys(np.zeros((1, 4, 16), np.uint32)),
+                 lambda: experimental.encrypt_pseudo_ggsw(glwe[0], glwe[1], decomp, noise, gen),
+                 lambda: experimental.pseudo_ggsw_to_ntt(
+                     experimental.PseudoGgswCiphertext(words, decomp)),
+                 lambda: experimental.generate_lwe_shrinking_keyswitch_key(lwe[0], 2, decomp,
+                                                                           noise, gen),
+                 lambda: cm.generate_cm_lwe_keyswitch_key(lwe, lwe, decomp, noise, gen),
+                 lambda: cm.generate_cm_lwe_packing_key(lwe[0], lwe, decomp, noise, gen),
+                 lambda: cm.encrypt_cm_ggsw(glwe, [0, 1], decomp, noise, gen),
+                 lambda: cm.generate_cm_lwe_bootstrap_key(lwe, glwe, decomp, noise, gen),
+                 lambda: cm.cm_bootstrap_key_to_ntt(np.zeros((1, 1, 3, 3, 16), np.uint64))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

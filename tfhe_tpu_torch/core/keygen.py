@@ -13,15 +13,22 @@ that keys are bit-identical to tfhe-rs given the same seeds:
     280-315); parallel and sequential generation are stream-identical by
     construction, so every row's randomness is drawn first and the bodies
     are computed in batches.
+  - GLWE KSK: one GLWE a (input polynomial, level), all from one generator
+    without forks (glwe_keyswitch_key_generation.rs): the mask and noise
+    streams are drawn whole, in that order, and the bodies' secret products
+    computed in batches on the key's device.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import ntt, torus
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
+from ..utils.device import resolve_device
 from .encrypt import encrypt_lwe
 from .entities import (
     GlweSecretKey,
@@ -163,3 +170,62 @@ def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int = 4):
     plan = ntt.make_plan(bsk.polynomial_size, num_primes)
     key = ntt.key_ntt(bsk.data.astype(np.uint64), ntt.device_plan(plan, "cpu"))
     return key.numpy().view(np.uint32), plan
+
+
+class NttKey(NamedTuple):
+    """An NTT-domain key on a device: ``data`` (..., P, N) int32 in
+    Montgomery form on the P primes of ``dp``, the plan on the key's device.
+    tfhe_tpu returns such keys as a (uint32 array, plan) pair: the GLWE
+    keyswitch key (keygen.py:75), a pseudo-GGSW (experimental.py:208) and
+    the CM bootstrap key (cm.py:291)."""
+
+    data: torch.Tensor
+    dp: ntt.DevicePlan
+
+    @classmethod
+    def from_raw_keys(cls, mont, device="cuda") -> "NttKey":
+        """tfhe_tpu's (..., P, N) uint32 Montgomery words, on ``device``."""
+        mont = np.ascontiguousarray(mont, dtype=np.uint32)
+        dp = ntt.device_plan(ntt.make_plan(mont.shape[-1], mont.shape[-2]),
+                             str(resolve_device(device)))
+        return cls(torch.from_numpy(mont.view(np.int32)).to(dp.ps.device), dp)
+
+
+def words_to_ntt_key(words: np.ndarray, num_primes: int = 4, device="cuda") -> NttKey:
+    """Standard-domain (..., N) uint64 key words -> their NttKey on
+    ``device``: tfhe_tpu's ``to_mont_all(forward_all(words))``, taken on the
+    device (ntt.key_ntt)."""
+    dp = ntt.device_plan(ntt.make_plan(words.shape[-1], num_primes),
+                         str(resolve_device(device)))
+    return NttKey(ntt.key_ntt(words, dp), dp)
+
+
+def generate_glwe_keyswitch_key(
+    input_sk: GlweSecretKey,
+    output_sk: GlweSecretKey,
+    decomp: DecompParams,
+    noise_distribution,
+    gen: EncryptionRandomGenerator,
+    device="cuda",
+) -> NttKey:
+    """GLWE keyswitch key (tfhe_tpu/core/keygen.py:75;
+    glwe_keyswitch_key_generation.rs): for input polynomial i and level l a
+    GLWE encryption under output_sk of S_in_i(X) q / B^level, from one
+    generator, row after row.  Returns the (k_in, l, k_out+1, P, N) 4-prime
+    Montgomery NTT key on ``device`` (tfhe_tpu's words) with its plan: what
+    ops/server.py glwe_keyswitch takes."""
+    k_in, n_poly = input_sk.data.shape
+    k_out = output_sk.glwe_dimension
+    levels = decomp.level_count
+    rows = np.zeros((k_in, levels, k_out + 1, n_poly), dtype=np.uint64)
+    rows[:, :, :k_out] = gen.mask.uniform_u64(k_in * levels * k_out * n_poly).reshape(
+        k_in, levels, k_out, n_poly)
+    noise = noise_distribution.sample(gen.noise, k_in * levels * n_poly)
+    shifts = np.array([64 - decomp.base_log * (levels - j) for j in range(levels)],
+                      dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        rows[:, :, k_out] = ((input_sk.data.astype(np.uint64)[:, None, :] << shifts[None, :, None])
+                             + noise.reshape(k_in, levels, n_poly))
+    dev = resolve_device(device)
+    add_mask_times_secret(rows.reshape(-1, k_out + 1, n_poly), output_sk, dev)
+    return words_to_ntt_key(rows, 4, dev)

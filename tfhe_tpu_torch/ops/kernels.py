@@ -21,7 +21,12 @@ csrc/ntt_common.cuh) and K6 ``packing_keyswitch128``
 (csrc/packing_keyswitch128.cu, the u128 packing keyswitch of squashed-noise
 compression, on the int8 tensor cores, on the key's byte layout
 ``packing_keyswitch128_key``; ``cmux`` is K2's
-CMux entry, vertical packing's tree) are
+CMux entry, vertical packing's tree, and the common mask's CMux;
+``rotate_accumulator`` its exact rotation of a given accumulator, the
+common-mask rotation's), K7 ``glwe_keyswitch`` (csrc/glwe_keyswitch.cu, the
+GLWE keyswitch and the fast keyswitch) and K8 ``blind_rotate_extended``
+(csrc/blind_rotate_extended.cu, the extended PBS's rotation, a cluster of
+E blocks a ciphertext) are
 compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
@@ -57,7 +62,9 @@ _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
             "blind_rotate_multibit": "blind_rotate_multibit.cu",
             "packing_keyswitch": "packing_keyswitch.cu",
             "blind_rotate128": "blind_rotate128.cu",
-            "packing_keyswitch128": "packing_keyswitch128.cu"}
+            "packing_keyswitch128": "packing_keyswitch128.cu",
+            "glwe_keyswitch": "glwe_keyswitch.cu",
+            "blind_rotate_extended": "blind_rotate_extended.cu"}
 
 
 class _Libs:
@@ -166,6 +173,12 @@ def load() -> dict:
         fn.restype = i
         fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma_smem
         fn.argtypes = [i] * 5
+        fn.restype = i
+        fn = libs["glwe_keyswitch"].tfhe_torch_glwe_keyswitch
+        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fn.restype = i
+        fn = libs["blind_rotate_extended"].tfhe_torch_blind_rotate_extended
+        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
         fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
@@ -442,6 +455,11 @@ def exact_smem_bytes(k1: int, n_poly: int, levels: int, cluster: bool = False) -
     return k1 * n_poly * 8 + levels * k1 * KERNEL_PRIMES * row * 4
 
 
+# K2's generic exact kernel (and its CMux entry, and K8) take k+1 <= 5
+# (csrc/ntt_common.cuh MAXK1)
+GENERIC_MAX_K1 = 5
+
+
 # The cluster kernel's shapes, the routing's one predicate (the kernel's
 # entry point refuses others: csrc/blind_rotate_cluster.cu cluster_shape):
 # k+1 = 2, l <= 2, N = 8192, base_log <= 30
@@ -452,23 +470,25 @@ def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
                          lazy: bool) -> str:
     """Which kernel K2's exact rotation (and its step entry) runs at a
     shape: "lazy" where exact_lazy_shape holds (``lazy``), else "generic"
-    where the generic kernel's block fits shared memory, else "cluster"
-    where the cluster kernel takes the shape (CLUSTER_SHAPE: a cluster of
-    four blocks a ciphertext, one a prime; 3_3).  Raises a ValueError
-    elsewhere: no set of shortint/params.py is there, and above N = 8192 no
-    4-prime NTT plan exists (ops/ntt.py make_plan: the primes' 2-adic
-    orders are 14, 15, 18 and 14)."""
+    where k+1 <= GENERIC_MAX_K1 and the generic kernel's block fits shared
+    memory, else "cluster" where the cluster kernel takes the shape
+    (CLUSTER_SHAPE: a cluster of four blocks a ciphertext, one a prime;
+    3_3).  Raises a ValueError elsewhere: no set of shortint/params.py is
+    there (the common-mask rotation at the 2_2 shape is, for C > 3), and
+    above N = 8192 no 4-prime NTT plan exists (ops/ntt.py make_plan: the
+    primes' 2-adic orders are 14, 15, 18 and 14)."""
     if lazy:
         return "lazy"
-    if exact_smem_bytes(k1, n_poly, levels) <= SMEM_LIMIT:
+    if k1 <= GENERIC_MAX_K1 and exact_smem_bytes(k1, n_poly, levels) <= SMEM_LIMIT:
         return "generic"
     cs = CLUSTER_SHAPE
     _require(k1 == cs["k1"] and n_poly == cs["n_poly"] and 1 <= levels <= cs["max_levels"]
              and 1 <= base_log <= cs["max_base_log"]
              and exact_smem_bytes(k1, n_poly, levels, cluster=True) <= SMEM_LIMIT,
              f"K2's exact rotation at k+1 = {k1}, N = {n_poly}, l = {levels}, base_log = "
-             f"{base_log} needs {exact_smem_bytes(k1, n_poly, levels)} B of shared memory a "
-             f"block, above the {SMEM_LIMIT} B a block may use, and its cluster kernel takes "
+             f"{base_log}: its generic kernel takes k+1 <= {GENERIC_MAX_K1} within the "
+             f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs "
+             f"{exact_smem_bytes(k1, n_poly, levels)} B), and its cluster kernel takes "
              f"k+1 = 2, N = 8192, l <= 2, base_log <= 30; no 4-prime NTT plan exists above "
              f"N = 8192")
     return "cluster"
@@ -544,16 +564,24 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
     _require(msed_mask.device.type == "cuda",
              f"no blind-rotation kernel for {msed_mask.device}")
     acc = server.initial_accumulator(lut, msed_body, trunc_acc).contiguous()
+    if not rounded:
+        return _rotate_exact(acc, msed_mask, bsk_ntt, dp, base_log, levels)
     mask32 = msed_mask.to(torch.int32).contiguous()
-    if rounded:
-        _require(bsk_ntt.lead == (mask32.shape[1],),
-                 f"key of {bsk_ntt.lead} GGSWs for {mask32.shape[1]} steps")
-        acc = _launch_rounded("blind_rotate", acc, mask32, bsk_ntt, base_log, levels,
-                              mask32.shape[1])
-    else:
-        route = _launch_blind_rotate(acc, mask32, bsk_ntt.contiguous(), dp, base_log, levels)
-        blind_rotate.lazy_exact_launches += route == "lazy"
-        blind_rotate.cluster_launches += route == "cluster"
+    _require(bsk_ntt.lead == (mask32.shape[1],),
+             f"key of {bsk_ntt.lead} GGSWs for {mask32.shape[1]} steps")
+    acc = _launch_rounded("blind_rotate", acc, mask32, bsk_ntt, base_log, levels,
+                          mask32.shape[1])
+    blind_rotate.launches += 1
+    return acc
+
+
+def _rotate_exact(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels: int):
+    """K2's exact rotation of the contiguous CUDA accumulator acc, in place,
+    counted as blind_rotate's launches (and its lazy or cluster kernel's)."""
+    route = _launch_blind_rotate(acc, msed_mask.to(torch.int32).contiguous(),
+                                 bsk_ntt.contiguous(), dp, base_log, levels)
+    blind_rotate.lazy_exact_launches += route == "lazy"
+    blind_rotate.cluster_launches += route == "cluster"
     blind_rotate.launches += 1
     return acc
 
@@ -561,6 +589,25 @@ def blind_rotate(msed_mask, msed_body, lut, bsk_ntt, dp: DevicePlan,
 blind_rotate.launches = 0
 blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
 blind_rotate.cluster_launches = 0       # and its cluster kernel (N = 8192)
+
+
+def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels: int):
+    """K2's exact rotation of a given initialised accumulator (see
+    ops/server.py rotate_accumulator): the common-mask blind rotation's
+    entry (core/cm.py cm_blind_rotate), at k+1 = k + C.  The kernel is
+    chosen by shape as ``blind_rotate``'s exact mode chooses it
+    (exact_rotation_route), and its launches count as blind_rotate's.
+
+    acc: (B, k+1, N) int64; msed_mask: (B, n) in [0, 2N); bsk_ntt: (n, l,
+    k+1, k+1, P, N) int32 Montgomery NTT domain.  Returns the final
+    accumulator (a new tensor)."""
+    _require(not isinstance(bsk_ntt, RoundedKeyNtt),
+             "the accumulator entry runs the exact rotation on the exact key")
+    if acc.device.type == "cpu":
+        return server.rotate_accumulator(acc, msed_mask, bsk_ntt, dp, base_log, levels)
+    _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
+    return _rotate_exact(acc.clone(memory_format=torch.contiguous_format), msed_mask, bsk_ntt,
+                         dp, base_log, levels)
 
 
 def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int):
@@ -611,9 +658,10 @@ def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):
              "the kernel takes a 4-prime plan and a power-of-two N")
     lib = load()["blind_rotate"]
     smem = exact_smem_bytes(k1, n_poly, levels)
-    _require(smem <= SMEM_LIMIT,
-             f"the CMux entry at k+1 = {k1}, N = {n_poly}, l = {levels} needs {smem} B "
-             f"of shared memory, above the {SMEM_LIMIT} B a block may use")
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
+             f"the CMux entry takes k+1 <= {GENERIC_MAX_K1} within the {SMEM_LIMIT} B of "
+             f"shared memory a block may use; k+1 = {k1}, N = {n_poly}, l = {levels} "
+             f"needs {smem} B")
     out = torch.empty_like(ct0)
     _check_cuda((ct0, torch.int64), (ct1, torch.int64), (ggsw, torch.int32),
                 (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
@@ -975,3 +1023,121 @@ def packing_keyswitch128(lwes, key, counts, base_log: int, levels: int,
 
 
 packing_keyswitch128.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the GLWE keyswitch (csrc/glwe_keyswitch.cu)
+# ---------------------------------------------------------------------------
+
+# K7 takes k_out + 1 <= 8 output rows (csrc/glwe_keyswitch.cu GK_MAX_OUT)
+K7_MAX_OUT = 8
+
+
+def glwe_keyswitch_rows(kout1: int, n_poly: int) -> int:
+    """The input rows (input polynomial, level) K7 transforms at once: as
+    many 4-prime residue rows as fit a block's shared memory beside the
+    k_out+1 output rows' NTT-domain sums (csrc/glwe_keyswitch.cu: one block
+    a GLWE); 0 where not one fits."""
+    row_bytes = KERNEL_PRIMES * (n_poly + n_poly // 32) * 4
+    return max(0, (SMEM_LIMIT - kout1 * row_bytes) // row_bytes)
+
+
+def glwe_keyswitch(glwe, key, dp: DevicePlan, base_log: int, levels: int,
+                   add_sum: bool = False):
+    """K7: the GLWE keyswitch sum of a batch with a non-square NTT-domain key
+    (see ops/server.py glwe_keyswitch_sum): (0, body) - sum, or with
+    add_sum sum + (0, body) (the fast keyswitch on a pseudo-GGSW).
+
+    glwe: (B, k_in+1, N) int64; key: (k_in, l, k_out+1, P, N) int32
+    Montgomery NTT domain on dp's four primes.  One block a GLWE, the input
+    rows in chunks of glwe_keyswitch_rows.  Takes k_out+1 <= K7_MAX_OUT,
+    base_log l < 64 and a power-of-two N whose rows fit; raises elsewhere.
+    Returns (B, k_out+1, N) int64."""
+    if glwe.device.type == "cpu":
+        return server.glwe_keyswitch_sum(glwe, key, dp, base_log, levels, add_sum)
+    _require(glwe.device.type == "cuda", f"no GLWE-keyswitch kernel for {glwe.device}")
+    glwe, key = glwe.contiguous(), key.contiguous()
+    b, kin1, n_poly = glwe.shape
+    k_in, lev, kout1, nprimes, n_key = key.shape
+    _require(k_in == kin1 - 1 and lev == levels and n_key == n_poly,
+             f"key shape {tuple(key.shape)} does not fit GLWEs {tuple(glwe.shape)}")
+    _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "K7 takes a 4-prime plan and a power-of-two N")
+    _require(1 <= base_log and base_log * levels < 64,
+             f"K7 takes base_log l < 64, not {base_log} x {levels}")
+    chunk = glwe_keyswitch_rows(kout1, n_poly)
+    _require(1 <= kout1 <= K7_MAX_OUT and chunk >= 1,
+             f"K7 takes k_out+1 <= {K7_MAX_OUT} rows whose NTT-domain sums and one input "
+             f"row fit the {SMEM_LIMIT} B of shared memory a block may use, not "
+             f"k_out+1 = {kout1} at N = {n_poly}")
+    out = torch.empty((b, kout1, n_poly), dtype=torch.int64, device=glwe.device)
+    _check_cuda((glwe, torch.int64), (key, torch.int32), (dp.psi32, torch.int32),
+                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
+    err = load()["glwe_keyswitch"].tfhe_torch_glwe_keyswitch(
+        out.data_ptr(), glwe.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, k_in, kout1,
+        n_poly.bit_length() - 1, levels, base_log, int(add_sum), min(chunk, k_in * levels),
+        _stream(glwe))
+    _raise_on(err, "glwe_keyswitch")
+    glwe_keyswitch.launches += 1
+    return out
+
+
+glwe_keyswitch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the extended blind rotation (csrc/blind_rotate_extended.cu)
+# ---------------------------------------------------------------------------
+
+# the extension factors K8 takes: a cluster of E blocks a ciphertext, at
+# most the portable cluster size of 8
+K8_FACTORS = (1, 2, 4, 8)
+
+
+def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: DevicePlan, base_log: int,
+                          levels: int):
+    """K8: the extended blind rotation's n steps in one launch (see
+    ops/server.py blind_rotate_extended), on E interleaved accumulators a
+    ciphertext.
+
+    msed_mask: (B, n) in [0, 2 N E); acc: (B, E, k+1, N) int64, the split
+    initial accumulator; bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery
+    NTT-domain key of size N on dp's four primes.  A cluster of E blocks a
+    ciphertext, one a slot; takes E in K8_FACTORS and the shapes of K2's
+    generic exact kernel (k+1 <= GENERIC_MAX_K1 within a block's shared
+    memory); raises elsewhere.  Returns the final (B, E, k+1, N)."""
+    _require(not isinstance(bsk_ntt, RoundedKeyNtt),
+             "the extended rotation runs on the exact key")
+    if acc.device.type == "cpu":
+        return server.blind_rotate_extended(msed_mask, acc, bsk_ntt, dp, base_log, levels)
+    _require(acc.device.type == "cuda", f"no extended-rotation kernel for {acc.device}")
+    b, e, k1, n_poly = acc.shape
+    n_steps = msed_mask.shape[1]
+    _require(e in K8_FACTORS, f"K8 takes an extension factor in {K8_FACTORS}, not {e}")
+    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, dp.num_primes, n_poly),
+             f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
+    _require(dp.num_primes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
+             "K8 takes a 4-prime plan and a power-of-two N")
+    _require(1 <= base_log and base_log * levels < 64 and levels <= 8,
+             f"K8 takes base_log l < 64 and l <= 8, not {base_log} x {levels}")
+    smem = exact_smem_bytes(k1, n_poly, levels)
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
+             f"K8 at k+1 = {k1}, N = {n_poly}, l = {levels} needs k+1 <= {GENERIC_MAX_K1} "
+             f"and {smem} B of shared memory a block, within {SMEM_LIMIT} B")
+    acc = acc.clone(memory_format=torch.contiguous_format)
+    mask32 = msed_mask.to(torch.int32).contiguous()
+    bsk_ntt = bsk_ntt.contiguous()
+    _check_cuda((acc, torch.int64), (mask32, torch.int32), (bsk_ntt, torch.int32),
+                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
+                (dp.kernel_consts, torch.int64))
+    err = load()["blind_rotate_extended"].tfhe_torch_blind_rotate_extended(
+        acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, n_steps, k1,
+        n_poly.bit_length() - 1, levels, base_log, e.bit_length() - 1, smem, _stream(acc))
+    _raise_on(err, "blind_rotate_extended")
+    blind_rotate_extended.launches += 1
+    return acc
+
+
+blind_rotate_extended.launches = 0

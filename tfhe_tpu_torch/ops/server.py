@@ -5,10 +5,12 @@ The port of tfhe_tpu/ops/server.py for the shortint atomic patterns
 many-LUT) and for ciphertext compression.  Each function here is the plain
 PyTorch version of its tfhe_tpu namesake: the same exact integer
 arithmetic, so outputs are the same u64 words.  ``keyswitch``,
-``keyswitch32``, ``blind_rotate``, ``cmux_step``, ``cmux``, the two
-multi-bit rotations and ``packing_keyswitch`` are also the plain versions of the
-CUDA kernels (ops/kernels.py): the pipelines below go through the kernel
-wrappers, which run these plain versions for CPU tensors.
+``keyswitch32``, ``blind_rotate``, ``cmux_step``, ``cmux``,
+``rotate_accumulator``, the two multi-bit rotations, ``packing_keyswitch``,
+``glwe_keyswitch_sum`` and ``blind_rotate_extended`` are also the plain
+versions of the CUDA kernels (ops/kernels.py): the pipelines below
+(``glwe_keyswitch`` among them) go through the kernel wrappers, which run
+these plain versions for CPU tensors.
 
 Torus words are int64 (ops/torus.py): ``shr`` is the logical shift that
 u64 ``>>`` means; the one arithmetic shift (the decomposer's carry state)
@@ -349,6 +351,42 @@ def cmux(ct0, ct1, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
     return ct0 + external_product(ct1 - ct0, ggsw, dp, base_log, levels)
 
 
+def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: ntt.DevicePlan, base_log: int,
+                       levels: int):
+    """The exact rotation of an initialised accumulator (B, k+1, N): one
+    CMux step a column of msed_mask (B, n) in [0, 2N), key (n, l, k+1, k+1,
+    P, N).  The plain version of K2's accumulator entry
+    (kernels.rotate_accumulator): the common-mask rotation, whose rows
+    start at their own bodies (tfhe_tpu/core/cm.py:321-327)."""
+    for i in range(msed_mask.shape[1]):
+        acc = acc + _cmux_product(acc, msed_mask[:, i], bsk_ntt[i], dp, base_log, levels)
+    return acc
+
+
+def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: ntt.DevicePlan, base_log: int,
+                          levels: int):
+    """The extended blind rotation's steps (tfhe_tpu/core/experimental.py:
+    297-344; eprint 2025/2214) on the E interleaved accumulators of each
+    ciphertext: acc (B, E, k+1, N), E a power of two, msed_mask (B, n) in
+    [0, 2 N E), key (n, l, k+1, k+1, P, N) of size N.  Step i: slot j takes
+    slot (j - a_i) mod E times X^((E + a_i - 1 - j) >> log E), a degree in
+    [0, 2N], then one CMux with GGSW_i advances every slot.  The plain
+    version of K8 (kernels.blind_rotate_extended).  Returns the final
+    (B, E, k+1, N)."""
+    b, e, k1, n_poly = acc.shape
+    log_e = e.bit_length() - 1
+    slots = torch.arange(e, device=acc.device)
+    for i in range(msed_mask.shape[1]):
+        a = msed_mask[:, i, None]                                 # (B, 1)
+        src = torch.remainder(slots[None, :] - a, e)
+        gathered = torch.gather(acc, 1, src[:, :, None, None].expand(b, e, k1, n_poly))
+        rotated = monomial_mul(gathered, ((e + a - 1 - slots[None, :]) >> log_e)[:, :, None, None])
+        prod = external_product((rotated - acc).reshape(b * e, k1, n_poly), bsk_ntt[i], dp,
+                                base_log, levels)
+        acc = acc + prod.reshape(b, e, k1, n_poly)
+    return acc
+
+
 def blind_rotate_stepwise(msed_mask, msed_body, lut, bsk_ntt, dp: ntt.DevicePlan,
                           base_log: int, levels: int):
     """The exact blind rotation one CMux step a launch, through K2's
@@ -477,6 +515,38 @@ def extract_slots(glwe, degrees):
     deg = torch.as_tensor(degrees, dtype=torch.int64, device=glwe.device)
     return sample_extract(monomial_div(glwe.expand((len(deg),) + tuple(glwe.shape)),
                                        deg[:, None, None]))
+
+
+# ---------------------------------------------------------------------------
+# GLWE keyswitch (plain version of K7)
+# ---------------------------------------------------------------------------
+
+
+def glwe_keyswitch_sum(glwe, key, dp: ntt.DevicePlan, base_log: int, levels: int,
+                       add_sum: bool = False):
+    """sum_{i, lev} decomp_lev(mask_i) (*) key[i][lev] for a batch of GLWEs
+    (B, k_in+1, N) and a non-square (k_in, l, k_out+1, P, N) Montgomery
+    NTT-domain key, summed in the NTT domain on the four primes and
+    reconstructed once with Garner; then the body: (0, body) - sum
+    (tfhe_tpu/ops/server.py:862 glwe_keyswitch) or, with add_sum, sum +
+    (0, body) (tfhe_tpu/core/experimental.py:218 glwe_fast_keyswitch, whose
+    pseudo-GGSW encrypts -S_in).  The plain version of K7
+    (kernels.glwe_keyswitch): tfhe_tpu's words at every shape, the CRT's
+    wrap above P/2 included.  Returns (B, k_out+1, N)."""
+    fwd = _forward_digits(glwe[:, :-1], dp, base_log, levels)     # (l, B, k_in, P, N)
+    total = _reconstruct(_product_sum(fwd, key.transpose(0, 1), dp), dp, 0)
+    out = total if add_sum else -total
+    out[:, -1] += glwe[:, -1]
+    return out
+
+
+def glwe_keyswitch(glwe, gksk_ntt, dp: ntt.DevicePlan, base_log: int, levels: int):
+    """GLWE-to-GLWE keyswitch (tfhe_tpu/ops/server.py:862;
+    algorithms/glwe_keyswitch.rs), through K7: glwe (B, k_in+1, N) under
+    S_in, gksk_ntt (k_in, l, k_out+1, P, N) from
+    core/keygen.py generate_glwe_keyswitch_key.  Returns (B, k_out+1, N)
+    under S_out: (0, body) - sum_{i,l} decomp_l(mask_i) (*) gksk[i][l]."""
+    return kernels.glwe_keyswitch(glwe, gksk_ntt, dp, base_log, levels, add_sum=False)
 
 
 # ---------------------------------------------------------------------------
