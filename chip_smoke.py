@@ -172,10 +172,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      GLWEs from a k_in = 2 partial key on a pseudo-GGSW (K7 with the sum
      added), the shrinking keyswitch 2048 -> 918 (K1), the CM keyswitch and
      CM packing 2048 -> 918 at C = 3 (K1), the CM bootstrap of 64 CmLwes
-     at C = 3 (K2's generic kernel at k+1 = 4; the CM bootstrap key's 481 MB)
-     and one at C = 1 (K2's lazy kernel), the extended PBS of 64 LWEs at
-     E = 1, 2 and 4 on phase 3's exact key (K8; at E = 1 the words of K2's
-     exact rotation);
+     at C = 3 (K2's cluster kernel at k+1 = 4; the CM bootstrap key's 481
+     MB), at C = 4 with keys of its own (the cluster kernel at k+1 = 5,
+     which no block of the generic kernel holds) and one at C = 1 (K2's
+     lazy kernel), the extended PBS of 64 LWEs at E = 1, 2 and 4 on phase
+     3's exact key (K8's lazy kernel; at E = 1 the words of K2's exact
+     rotation); each rotation's route, a block's shared memory and the
+     clusters the card holds at once (cudaOccupancyMaxActiveClusters);
  34. each kernel against its plain PyTorch version, bit-exact: K1 keyswitch
      (the tensor-core kernel at both keyswitch shapes) on both paths' own
      B = 512 inputs, at phase 10's B = 1 and at B = 513 on both keys, its
@@ -252,8 +255,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      at the PFPKS shape on phase 28's circuit-bootstrap LWEs; K2's CMux
      entry against ct0 + external_product at B = 1 and 64; K7 at both
      signs on phase 33's inputs and keys, K1 at the shrinking and CM shapes
-     on phase 33's inputs, K8 at E = 1, 2 and 4 and K2 at the CM shape (k+1
-     = 4) at B = 4 over 64 steps of a random key;
+     on phase 33's inputs, K8's lazy kernel at E = 1, 2, 4 and 8 (at
+     each E also at each of its slots a block, SB <= E; every SB that
+     phase 33 ran must be among them), its generic kernel at l = 2 (the
+     shape still routed to it), K2's cluster kernel at the CM shapes k+1 = 3, 4, 5 and 8 and its generic kernel at
+     k+1 = 4, at B = 4 over 64 steps of a random key; K2's generic kernel
+     and its step entry at the TEST shape (N = 512) at each batch phases
+     28-29 launched them with, timed beside their bounds;
  35. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-33 (each
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
@@ -420,7 +428,8 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
                 "packing_keyswitch_imma_kernel",
                 "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel",
-                "glwe_keyswitch_kernel", "blind_rotate_extended_kernel")
+                "glwe_keyswitch_kernel", "blind_rotate_extended_kernel",
+                "blind_rotate_extended_lazy_kernel")
 
 
 STARTED = time.perf_counter()
@@ -679,9 +688,16 @@ def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: 
     """K2's generic exact kernel (csrc/blind_rotate.cu blind_rotate_kernel)
     through its C entry, at any shape it takes: at the V1_4 2_2 shape, the
     kernel the lazy exact kernel replaced."""
+    return generic_exact_rotate(kernels, server.initial_accumulator(lut, body, False), mask,
+                                key, dp, base_log, levels)
+
+
+def generic_exact_rotate(kernels, acc, mask, key, dp, base_log: int, levels: int):
+    """generic_exact_rotation of a given accumulator (a new tensor): at the
+    CM shapes k+1 = 3 and 4, the kernel the cluster kernel replaced."""
     import torch
 
-    acc = server.initial_accumulator(lut, body, False).contiguous()
+    acc = acc.clone(memory_format=torch.contiguous_format)
     mask32 = mask.to(torch.int32).contiguous()
     k1, n_poly = acc.shape[1], acc.shape[2]
     err = kernels.load()["blind_rotate"].tfhe_torch_blind_rotate(
@@ -690,6 +706,27 @@ def generic_exact_rotation(kernels, server, mask, body, lut, key, dp, base_log: 
         k1, n_poly.bit_length() - 1, levels, dp.num_primes, base_log, kernels._stream(acc))
     if err:
         raise RuntimeError(f"K2's generic exact kernel failed: cudaError {err}")
+    return acc
+
+
+def extended_lazy_slots(kernels, acc, mask, key, dp, base_log: int, levels: int, sb: int):
+    """K8's lazy kernel through its C entry at SB slots a block (one of
+    kernels.K8_SLOTS), whichever kernels.extended_slots would pick; returns
+    the final accumulator (a new tensor)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    acc = acc.clone(memory_format=torch.contiguous_format)
+    mask32 = mask.to(torch.int32).contiguous()
+    tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+    b, e, k1, n_poly = acc.shape
+    err = kernels.load()["blind_rotate_extended"].tfhe_torch_blind_rotate_extended_lazy(
+        acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
+        dp.kernel_consts.data_ptr(), b, mask32.shape[1], k1, n_poly.bit_length() - 1, levels,
+        base_log, e.bit_length() - 1, sb, kernels._stream(acc))
+    if err:
+        raise RuntimeError(f"K8's lazy kernel at {sb} slots a block failed: cudaError {err}")
     return acc
 
 
@@ -948,6 +985,15 @@ def ptxas_report(kernels, started: tuple) -> dict:
     return out
 
 
+def cluster_regs(report: dict, k1: int, levels: int, log_n: int) -> dict:
+    """ptxas's registers and spills of K2's cluster kernel's instance at a
+    shape (its template arguments in the mangled name)."""
+    regs = next((v for k, v in report.items()
+                 if f"blind_rotate_cluster_kernelILi{k1}ELi{levels}ELi{log_n}E" in k), {})
+    return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
+        "spill_store_bytes")}
+
+
 def ptxas_of(report: dict, name: str) -> dict:
     """ptxas's figures for one kernel of ptxas_report, found by its name in
     the mangled entry name (the length prefix keeps keyswitch_kernel from
@@ -979,15 +1025,16 @@ def kernel_wrappers(kernels) -> tuple:
 def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
     launches and, of them, those of K1's and K4's tensor-core kernels, of
-    K2's lazy exact kernel (the rotation's and the step entry's) and of its
-    cluster kernel."""
+    K2's lazy exact kernel (the rotation's and the step entry's), of its
+    cluster kernel and of K8's lazy kernel."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
         ("keyswitch32_imma", kernels.keyswitch32, "imma_launches"),
         ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
         ("blind_rotate_cluster", kernels.blind_rotate, "cluster_launches"),
-        ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"))
+        ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"),
+        ("blind_rotate_extended_lazy", kernels.blind_rotate_extended, "lazy_launches"))
 
 
 def reset_counts(kernels) -> None:
@@ -3202,11 +3249,16 @@ RESEARCH_PBS_BATCH = 64
 CM_SLOTS = 3
 GLWE_KS_DECOMP = (8, 4)       # base 2^8, l = 4
 PARTIAL_FILL = 3072           # the fast keyswitch's k_in = 2 partial key: 3072 of 4096 random
+CM_WIDE_SLOTS = 4             # the first C the generic kernel could not hold at 2_2
 EXT_FACTORS = (1, 2, 4)
 RESEARCH_STEPS = ("glwe_keyswitch", "fast_keyswitch", "shrinking_keyswitch", "cm_keyswitch",
-                  "cm_packing", "cm_bootstrap", "cm_bootstrap_c1",
+                  "cm_packing", "cm_bootstrap", "cm_bootstrap_c4", "cm_bootstrap_c1",
                   *(f"extended_pbs_e{e}" for e in EXT_FACTORS))
 RESEARCH_PLAIN_STEPS = 64     # the rotations' plain comparisons: B = CHECK_BATCH, a random key
+EXT_PLAIN_FACTORS = (1, 2, 4, 8)
+CM_PLAIN_K1 = (3, 4, 5, 8)    # the cluster kernel's CM shapes held against the plain rotation
+K8_GENERIC_DECOMP = (15, 2)   # l = 2 at the 2_2 widths: a shape still routed to K8's generic
+                              # kernel
 
 
 def k7_bound(glwe, key, out) -> dict:
@@ -3289,11 +3341,14 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
     pseudo-GGSW; the shrinking keyswitch (K1) from phase 3's flattened
     2048-coefficient key to its 918-coefficient prefix; the CM keyswitch
     (K1 once) and CM packing (K1 a slot), 2048 -> 918 at C = 3; the CM
-    bootstrap (K2's generic kernel at k+1 = 4) of 64 CmLwes with (3x + 1) %
-    16, and one C = 1 call (K2's lazy kernel) on the key's first slot; the
-    extended PBS (K8) of 64 LWEs at E = 1, 2 and 4 on phase 3's exact key
-    with (x^2 + 3) % 16, at E = 1 against K2's exact rotation.  Seconds,
-    kernel CUDA-event ms, launches, keygen seconds, key bytes."""
+    bootstrap (K2's cluster kernel at k+1 = 4) of 64 CmLwes with (3x + 1) %
+    16, the same at C = 4 on keys of its own (the cluster kernel at k+1 =
+    5), and one C = 1 call (K2's lazy kernel) on the C = 3 key's first
+    slot; the extended PBS (K8's lazy kernel) of 64 LWEs at E = 1, 2 and 4
+    on phase 3's exact key with (x^2 + 3) % 16, at E = 1 against K2's exact
+    rotation.  Seconds, kernel CUDA-event ms, launches, routes, keygen
+    seconds, key bytes, a block's shared memory and the clusters the card
+    holds at once."""
     import numpy as np
     import torch
 
@@ -3419,51 +3474,91 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
          slots=CM_SLOTS, keygen_seconds=pk_s, key_device_bytes=pk.data.size * 8)
     del pk, std
 
-    # 5. the CM bootstrap (K2 at k+1 = 4: its generic kernel), then C = 1 on
-    # the key's first slot (k+1 = 2: its lazy kernel)
+    # 5. the CM bootstrap (K2 at k+1 = 4: its cluster kernel), then C = 4 on
+    # keys of its own (k+1 = 5) and C = 1 on the C = 3 key's first slot (k+1
+    # = 2: its lazy kernel)
     glwe_sks = [keygen.generate_binary_glwe_secret_key(k, n_poly, sec) for _ in range(CM_SLOTS)]
-    flat_bits = np.stack([s.data.reshape(-1) for s in glwe_sks], axis=1)
     pbs = DecompParams(p.pbs_base_log, p.pbs_level)
-    cm_bsk, bsk_s = keygen_timed(lambda: cm.cm_bootstrap_key_to_ntt(
-        cm.generate_cm_lwe_bootstrap_key(out_sks, glwe_sks, pbs, p.glwe_noise, gen, device=dev),
-        device=dev))
     f = lambda x: (3 * x + 1) % 16  # noqa: E731
     lut = torus.from_u64(server.generate_lut(n_poly, k + 1, 16, delta, f)[-1], dev)
-    pbs_msgs = rng.integers(0, 16, (RESEARCH_PBS_BATCH, CM_SLOTS))
-    want = torch.from_numpy(np.vectorize(f)(pbs_msgs)).to(dev)
-    pbs_cts = torus.from_u64(cm.encrypt_cm_lwe_batch(
-        out_sks, pbs_msgs.astype(np.uint64) * np.uint64(delta), p.lwe_noise, gen, dev), dev)
-    route = kernels.exact_rotation_route(k + CM_SLOTS, n_poly, p.pbs_level, p.pbs_base_log, False)
-    # the rotation's inputs as cm_blind_rotate forms them, for its kernel time
-    pbs_msed = server.modulus_switch(pbs_cts, n_poly.bit_length())
-    acc0 = torch.zeros((RESEARCH_PBS_BATCH, k + CM_SLOTS, n_poly), dtype=torch.int64,
-                       device=dev)
-    acc0[:, k:] = server.monomial_div(lut.expand(RESEARCH_PBS_BATCH, CM_SLOTS, n_poly),
-                                      pbs_msed[:, n:, None])
-    step("cm_bootstrap", lambda: cm.cm_bootstrap(pbs_cts, lut, cm_bsk.data, cm_bsk.dp,
-                                                 p.pbs_base_log, p.pbs_level, k),
-         lambda out: (decode_lwes(torus, flat_bits, out, delta) != want).sum(),
-         {"blind_rotate": 1},
-         lambda: cuda_ms(lambda: kernels.rotate_accumulator(
-             acc0, pbs_msed[:, :n], cm_bsk.data, cm_bsk.dp, p.pbs_base_log, p.pbs_level), 2),
-         batch=RESEARCH_PBS_BATCH, slots=CM_SLOTS, route=route, keygen_seconds=bsk_s,
-         key_device_bytes=cm_bsk.data.numel() * 4,
-         shared_memory_bytes=kernels.exact_smem_bytes(k + CM_SLOTS, n_poly, p.pbs_level))
-    if route != "generic":
-        raise RuntimeError(f"the CM rotation at k+1 = {k + CM_SLOTS} took K2's {route} kernel")
-    run["cm_bootstrap"] = {"ms": lines["cm_bootstrap"]["kernel_ms"],
-                           "bound": k2_bound(pbs_msed[:, :n], acc0, p.pbs_level,
-                                             p.pbs_base_log, EXACT_PRIMES),
-                           "shape": [RESEARCH_PBS_BATCH, n, p.pbs_level, k + CM_SLOTS, n_poly]}
+
+    def cm_pbs(tag, in_sks, g_sks):
+        """One CM bootstrap of RESEARCH_PBS_BATCH CmLwes at C = len(in_sks)
+        through cm.cm_bootstrap, each slot decrypted; returns its key and
+        inputs and the rotation's inputs as cm_blind_rotate forms them."""
+        c_dim = len(in_sks)
+        flat = np.stack([s_.data.reshape(-1) for s_ in g_sks], axis=1)
+        bsk, bsk_s = keygen_timed(lambda: cm.cm_bootstrap_key_to_ntt(
+            cm.generate_cm_lwe_bootstrap_key(in_sks, g_sks, pbs, p.glwe_noise, gen, device=dev),
+            device=dev))
+        msgs_ = rng.integers(0, 16, (RESEARCH_PBS_BATCH, c_dim))
+        want_ = torch.from_numpy(np.vectorize(f)(msgs_)).to(dev)
+        cts = torus.from_u64(cm.encrypt_cm_lwe_batch(
+            in_sks, msgs_.astype(np.uint64) * np.uint64(delta), p.lwe_noise, gen, dev), dev)
+        k1 = k + c_dim
+        route = kernels.exact_rotation_route(k1, n_poly, p.pbs_level, p.pbs_base_log, False)
+        msed = server.modulus_switch(cts, n_poly.bit_length())
+        acc = torch.zeros((RESEARCH_PBS_BATCH, k1, n_poly), dtype=torch.int64, device=dev)
+        acc[:, k:] = server.monomial_div(lut.expand(RESEARCH_PBS_BATCH, c_dim, n_poly),
+                                         msed[:, n:, None])
+        step(tag, lambda: cm.cm_bootstrap(cts, lut, bsk.data, bsk.dp, p.pbs_base_log,
+                                          p.pbs_level, k),
+             lambda out: (decode_lwes(torus, flat, out, delta) != want_).sum(),
+             {"blind_rotate": 1, "blind_rotate_cluster": 1},
+             lambda: cuda_ms(lambda: kernels.rotate_accumulator(
+                 acc, msed[:, :n], bsk.data, bsk.dp, p.pbs_base_log, p.pbs_level), 2),
+             batch=RESEARCH_PBS_BATCH, slots=c_dim, route=route,
+             slot_outputs_checked=RESEARCH_PBS_BATCH * c_dim, keygen_seconds=bsk_s,
+             key_device_bytes=bsk.data.numel() * 4,
+             **kernels.cluster_figures(k1, n_poly, p.pbs_level),
+             generic_kernel_would_need_bytes=kernels.exact_smem_bytes(k1, n_poly, p.pbs_level))
+        if route != "cluster":
+            raise RuntimeError(f"the CM rotation at k+1 = {k1} took K2's {route} kernel")
+        return {"ms": lines[tag]["kernel_ms"], "key": bsk, "cts": cts, "flat": flat,
+                "want": want_, "acc": acc, "msed": msed[:, :n],
+                "bound": k2_bound(msed[:, :n], acc, p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
+                "shape": [RESEARCH_PBS_BATCH, n, p.pbs_level, k1, n_poly]}
+
+    c3 = cm_pbs("cm_bootstrap", out_sks, glwe_sks)
+    cm_bsk = c3["key"]
+    # the same rotation on K2's generic kernel (its C entry), the kernel the
+    # cluster kernel replaced at k+1 = 4, and both at k+1 = 3 (the C = 3
+    # key's first three rows and columns)
+    args3 = (p.pbs_base_log, p.pbs_level)
+    key3 = cm_bsk.data[:, :, :k + 2, :k + 2].contiguous()
+    acc3 = c3["acc"][:, :k + 2].contiguous()
+    run["cm_bootstrap"] = {
+        **{key_: c3[key_] for key_ in ("ms", "bound", "shape")},
+        "generic_ms": cuda_ms(lambda: generic_exact_rotate(
+            kernels, c3["acc"], c3["msed"], cm_bsk.data, cm_bsk.dp, *args3), 2),
+        "k1_3": {"ms": cuda_ms(lambda: kernels.rotate_accumulator(
+                     acc3, c3["msed"], key3, cm_bsk.dp, *args3), 2),
+                 "generic_ms": cuda_ms(lambda: generic_exact_rotate(
+                     kernels, acc3, c3["msed"], key3, cm_bsk.dp, *args3), 2),
+                 "bound_ms": k2_bound(c3["msed"], acc3, p.pbs_level, p.pbs_base_log,
+                                      EXACT_PRIMES)["ms"]}}
+    lines["cm_bootstrap"]["generic_kernel_ms"] = run["cm_bootstrap"]["generic_ms"]
+    lines["cm_bootstrap"]["k1_3"] = run["cm_bootstrap"]["k1_3"]
+    del key3, acc3
     one = cm_bsk.data[:, :, :k + 1, :k + 1].contiguous()
-    one_cts = torch.cat([pbs_cts[:, :n], pbs_cts[:, n:n + 1]], dim=1)
+    one_cts = torch.cat([c3["cts"][:, :n], c3["cts"][:, n:n + 1]], dim=1)
     step("cm_bootstrap_c1", lambda: cm.cm_bootstrap(one_cts, lut, one, cm_bsk.dp,
                                                     p.pbs_base_log, p.pbs_level, k),
-         lambda out: (decode_lwes(torus, flat_bits[:, :1], out, delta) != want[:, :1]).sum(),
+         lambda out: (decode_lwes(torus, c3["flat"][:, :1], out, delta)
+                      != c3["want"][:, :1]).sum(),
          {"blind_rotate": 1, "blind_rotate_exact_lazy": 1}, batch=RESEARCH_PBS_BATCH, slots=1)
-    del cm_bsk, one, acc0
+    del cm_bsk, one, c3
+    torch.cuda.empty_cache()
+    in4 = out_sks + [keygen.generate_binary_lwe_secret_key(n, sec)
+                     for _ in range(CM_WIDE_SLOTS - CM_SLOTS)]
+    g4 = glwe_sks + [keygen.generate_binary_glwe_secret_key(k, n_poly, sec)
+                     for _ in range(CM_WIDE_SLOTS - CM_SLOTS)]
+    c4 = cm_pbs("cm_bootstrap_c4", in4, g4)
+    run["cm_bootstrap_c4"] = {key_: c4[key_] for key_ in ("ms", "bound", "shape")}
+    del c4
+    torch.cuda.empty_cache()
 
-    # 6. the extended PBS (K8) at E = 1, 2, 4 on phase 3's exact key
+    # 6. the extended PBS (K8's lazy kernel) at E = 1, 2, 4 on phase 3's exact key
     key = sk.exact_bsk_ntt()
     g = lambda x: (x * x + 3) % 16  # noqa: E731
     ext_msgs = rng.integers(0, 16, RESEARCH_PBS_BATCH)
@@ -3478,13 +3573,17 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
         msed = server.modulus_switch(small_cts, (2 * n_poly * e).bit_length() - 1)
         acc0 = experimental.split_extended_lut(
             server.monomial_div(lut_b, msed[:, -1, None, None]), e)
+        figs = kernels.extended_figures(e, RESEARCH_PBS_BATCH, k + 1, n_poly, p.pbs_level,
+                                        p.pbs_base_log)
         out = step(f"extended_pbs_e{e}", lambda: experimental.extended_pbs_batch(
             small_cts, lut_b, key, dp, p.pbs_base_log, p.pbs_level, e),
             lambda o: (decode_lwes(torus, big.data, o, delta)[:, 0] != ext_want).sum(),
-            {"blind_rotate_extended": 1},
+            {"blind_rotate_extended": 1, "blind_rotate_extended_lazy": 1},
             lambda: cuda_ms(lambda: kernels.blind_rotate_extended(
                 msed[:, :-1], acc0, key, dp, p.pbs_base_log, p.pbs_level), 3),
-            batch=RESEARCH_PBS_BATCH, ext_factor=e, lut_size=n_poly * e)
+            batch=RESEARCH_PBS_BATCH, ext_factor=e, lut_size=n_poly * e, **figs)
+        if figs["route"] != "lazy":
+            raise RuntimeError(f"K8 at E = {e} took its {figs['route']} kernel")
         run["k8"][e] = {"ms": lines[f"extended_pbs_e{e}"]["kernel_ms"],
                         "bound": k8_bound(msed[:, :-1], acc0, p.pbs_level, p.pbs_base_log)}
         if e == 1:
@@ -3503,10 +3602,15 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
 def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> dict:
     """K7 at both signs on phase 33's B = 512 inputs and keys against its
     plain version; K1 at the shrinking and CM keyswitch shapes on phase 33's
-    inputs against the plain keyswitch; K8 at E = 1, 2, 4 and K2 at the CM
-    shape (k+1 = 4, its generic kernel) at B = CHECK_BATCH over
+    inputs against the plain keyswitch; K8's lazy kernel at E = 1, 2, 4, 8
+    (also at each of its slots a block, SB <= E, through its C entry; the
+    (E, SB) held go into out["k8_slots_held"]), its
+    generic kernel at l = 2 (K8_GENERIC_DECOMP), K2's cluster kernel at
+    the CM shapes k+1 in CM_PLAIN_K1 and its generic kernel at k+1 = 4 (the
+    kernel the cluster kernel replaced there) at B = CHECK_BATCH over
     RESEARCH_PLAIN_STEPS steps of a random key against their plain
-    versions.  Times and bounds."""
+    versions, each wrapper call checked to have run the kernel it names.
+    Times and bounds."""
     import numpy as np
     import torch
 
@@ -3548,41 +3652,158 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
     n_poly, k = p.polynomial_size, p.glwe_dimension
     dp = run["dp"]
     b, steps = CHECK_BATCH, RESEARCH_PLAIN_STEPS
-    for e in EXT_FACTORS:
+
+    def held(tag, fn, plain, counter=None, must=None):
+        """fn() against plain(), the words differing into errs[tag]; where
+        counter, fn must add one to that launch count."""
+        before = getattr(*counter) if counter else 0
+        errs[tag] = max_abs_err(fn(), plain())
+        if counter and getattr(*counter) - before != must:
+            raise RuntimeError(f"{tag} did not run the kernel it names")
+
+    out["k8_slots_held"] = []
+    for e in EXT_PLAIN_FACTORS:
         rkey = random_ntt_key((steps, p.pbs_level, k + 1, k + 1), dp, gen)
         mask = torch.from_numpy(rng.integers(0, 2 * n_poly * e, (b, steps))).to(dev)
         acc = torus.from_u64(rng.integers(0, 1 << 64, (b, e, k + 1, n_poly), dtype=np.uint64),
                              dev)
         args = (rkey, dp, p.pbs_base_log, p.pbs_level)
-        errs[f"k8_e{e}_random_key_b{b}"] = max_abs_err(
-            kernels.blind_rotate_extended(mask, acc, *args),
-            server.blind_rotate_extended(mask, acc, *args))
+        want = server.blind_rotate_extended(mask, acc, *args)
+        held(f"k8_e{e}_random_key_b{b}", lambda: kernels.blind_rotate_extended(mask, acc, *args),
+             lambda: want, (kernels.blind_rotate_extended, "lazy_launches"), 1)
+        # every slots a block the wrapper may pick at this E (it picks by
+        # the batch), on the same inputs: at SB < E the gather reads other
+        # blocks' slots through distributed shared memory
+        for sb in kernels.K8_SLOTS:
+            if sb <= e:
+                errs[f"k8_sb{sb}_e{e}_random_key_b{b}"] = max_abs_err(
+                    extended_lazy_slots(kernels, acc, mask, *args, sb), want)
+                out["k8_slots_held"].append((e, sb))
         out["k8"][e] = {
             "ms": cuda_ms(lambda: kernels.blind_rotate_extended(mask, acc, *args), 3),
             "plain_ms": cuda_ms(lambda: server.blind_rotate_extended(mask, acc, *args), 1),
             "bound": k8_bound(mask, acc, p.pbs_level, p.pbs_base_log)}
-    k1 = k + CM_SLOTS
-    rkey = random_ntt_key((steps, p.pbs_level, k1, k1), dp, gen)
-    mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
-    acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
-    args = (rkey, dp, p.pbs_base_log, p.pbs_level)
-    before = kernels.blind_rotate.lazy_exact_launches
-    errs[f"k2_cm_random_key_b{b}"] = max_abs_err(kernels.rotate_accumulator(acc, mask, *args),
-                                                 server.rotate_accumulator(acc, mask, *args))
-    if kernels.blind_rotate.lazy_exact_launches != before:
-        raise RuntimeError("the CM rotation at k+1 = 4 ran K2's lazy kernel")
-    out["k2_cm"] = {"ms": cuda_ms(lambda: kernels.rotate_accumulator(acc, mask, *args), 3),
-                    "plain_ms": cuda_ms(lambda: server.rotate_accumulator(acc, mask, *args), 1),
-                    "bound": k2_bound(mask, acc, p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
-                    "shape": [b, steps, k1, n_poly]}
+    # K8's generic kernel at a shape still routed to it (l = 2), E = 2
+    g_base, g_levels = K8_GENERIC_DECOMP
+    if kernels.extended_route(k + 1, n_poly, g_levels, g_base) != "generic":
+        raise RuntimeError("K8 at l = 2 no longer routes to its generic kernel")
+    rkey = random_ntt_key((steps, g_levels, k + 1, k + 1), dp, gen)
+    mask = torch.from_numpy(rng.integers(0, 4 * n_poly, (b, steps))).to(dev)
+    acc = torus.from_u64(rng.integers(0, 1 << 64, (b, 2, k + 1, n_poly), dtype=np.uint64), dev)
+    args = (rkey, dp, g_base, g_levels)
+    held(f"k8_generic_l{g_levels}_e2_random_key_b{b}",
+         lambda: kernels.blind_rotate_extended(mask, acc, *args),
+         lambda: server.blind_rotate_extended(mask, acc, *args),
+         (kernels.blind_rotate_extended, "lazy_launches"), 0)
+    out["k8_generic"] = {"ms": cuda_ms(lambda: kernels.blind_rotate_extended(mask, acc, *args), 3),
+                         "bound": k8_bound(mask, acc, g_levels, g_base),
+                         "shape": [b, 2, steps, g_levels, k + 1, n_poly]}
+    # K2's cluster kernel at the CM shapes; its generic kernel at k+1 = 4
+    out["k2_cm"] = {}
+    for k1 in CM_PLAIN_K1:
+        rkey = random_ntt_key((steps, p.pbs_level, k1, k1), dp, gen)
+        mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        args = (rkey, dp, p.pbs_base_log, p.pbs_level)
+        held(f"k2_cm_cluster_k{k1}_random_key_b{b}",
+             lambda: kernels.rotate_accumulator(acc, mask, *args),
+             lambda: server.rotate_accumulator(acc, mask, *args),
+             (kernels.blind_rotate, "cluster_launches"), 1)
+        out["k2_cm"][k1] = {
+            "ms": cuda_ms(lambda: kernels.rotate_accumulator(acc, mask, *args), 3),
+            "plain_ms": cuda_ms(lambda: server.rotate_accumulator(acc, mask, *args), 1),
+            "bound": k2_bound(mask, acc, p.pbs_level, p.pbs_base_log, EXACT_PRIMES),
+            "shape": [b, steps, k1, n_poly]}
+        if k1 == k + CM_SLOTS:
+            held(f"k2_generic_cm_k{k1}_random_key_b{b}",
+                 lambda: generic_exact_rotate(kernels, acc, mask, *args),
+                 lambda: server.rotate_accumulator(acc, mask, *args))
+            out["k2_cm"][k1]["generic_ms"] = cuda_ms(
+                lambda: generic_exact_rotate(kernels, acc, mask, *args), 3)
     return out
 
 
+def test_shape_figures(kernels, server, torus, shapes: dict, seed: int, errs: dict) -> dict:
+    """K2's generic exact kernel and its step entry at the TEST shapes
+    (N = 512) as phases 28-29 launched them: for each recorded (entry,
+    route, B, steps, k+1, N, l, base_log) on the generic kernel, its
+    launches, CUDA-event ms on a random key and random inputs of that shape
+    (10 launches), the bound, and one check against the plain version;
+    the launch-weighted sums."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = {"rotation": [], "step_entry": []}
+    for (entry, route, b, steps, k1, n_poly, levels, base_log), count in sorted(shapes.items()):
+        if route != "generic":
+            continue
+        dp = ntt.device_plan(ntt.make_plan(n_poly, EXACT_PRIMES), "cuda")
+        key = random_ntt_key((steps, levels, k1, k1), dp, gen)
+        mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        if entry == "cmux_step":
+            fn = lambda: kernels.cmux_step(acc.clone(), mask[:, 0], key[0], dp,  # noqa: E731
+                                           base_log, levels)
+            want = server.cmux_step(acc, mask[:, 0], key[0], dp, base_log, levels)
+        else:
+            fn = lambda: kernels.rotate_accumulator(acc, mask, key, dp,  # noqa: E731
+                                                    base_log, levels)
+            want = server.rotate_accumulator(acc, mask, key, dp, base_log, levels)
+        errs[f"k2_generic_test_shape_{entry}_b{b}"] = max_abs_err(fn(), want)
+        ms, host_ms = launch_ms(fn, 10)
+        bound = k2_bound(mask, acc, levels, base_log, EXACT_PRIMES)
+        out["rotation" if entry == "blind_rotate" else "step_entry"].append(
+            {"batch": b, "steps": steps, "k1": k1, "N": n_poly, "levels": levels,
+             "base_log": base_log, "launches": count, "ms": ms, "host_ms": host_ms,
+             "bound_ms": bound["ms"], "bound_by": bound["by"]})
+    for rows in out.values():
+        out_total = {"launches": sum(r["launches"] for r in rows),
+                     "ms": sum(r["launches"] * r["ms"] for r in rows),
+                     "bound_ms": sum(r["launches"] * r["bound_ms"] for r in rows)}
+        rows.append({"launch_weighted": out_total})
+    return out
+
+
+class RotationShapes:
+    """Records the shape of every exact rotation K2's wrappers launch
+    (kernels._launch_blind_rotate, which blind_rotate's exact mode,
+    rotate_accumulator and cmux_step call, each naming itself as the
+    launch's entry) while in a with block: (entry, route, B, steps, k+1,
+    N, l, base_log) -> launches.  The wrappers' own counts are
+    untouched."""
+
+    def __init__(self, kernels):
+        self.kernels, self.shapes = kernels, {}
+
+    def __enter__(self):
+        launch = self.original = self.kernels._launch_blind_rotate
+
+        def recorded(acc, mask32, bsk_ntt, dp, base_log, levels, entry):
+            route = launch(acc, mask32, bsk_ntt, dp, base_log, levels, entry)
+            shape = (entry, route, acc.shape[0], mask32.shape[1], acc.shape[1], acc.shape[2],
+                     levels, base_log)
+            self.shapes[shape] = self.shapes.get(shape, 0) + 1
+            return route
+
+        self.kernels._launch_blind_rotate = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels._launch_blind_rotate = self.original
+        return False
+
 
 def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict, p) -> list:
-    """The kernel table's entries of phase 33: K7, K8, K2 at the CM shape,
-    K1 at the CM and shrinking shapes, each with its launches on phase 33's
-    steps, its time, the plain version's and the bound."""
+    """The kernel table's entries of phase 33: K7, K8 (its lazy kernel; its
+    generic kernel's figures), K2's cluster kernel at the CM shape (with its
+    generic kernel's time there), K1 at the CM and shrinking shapes, each
+    with its launches on phase 33's steps, its time, the plain version's
+    and the bound."""
     rp_l = rp_run["line"]
 
     def rp_launches(counter: str, steps=RESEARCH_STEPS) -> dict:
@@ -3597,8 +3818,10 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
     no_library = "none: no PyTorch call computes an exact wrapping-u64 negacyclic product"
     k7g, k7f = s15["k7"]["glwe"], s15["k7"]["fast"]
     k8_run, e_max = rp_run["run"]["k8"], max(EXT_FACTORS)
-    cm_run = rp_run["run"]["cm_bootstrap"]
-    cm_launches = rp_launches("blind_rotate", ("cm_bootstrap", "cm_bootstrap_c1"))
+    cm_run, c4_run = rp_run["run"]["cm_bootstrap"], rp_run["run"]["cm_bootstrap_c4"]
+    cm_k1 = p.glwe_dimension + CM_SLOTS
+    cm_launches = rp_launches("blind_rotate", ("cm_bootstrap", "cm_bootstrap_c4",
+                                               "cm_bootstrap_c1"))
     return [
         with_regs({
             "name": "glwe_keyswitch", "route": "cuda",
@@ -3624,10 +3847,10 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "name": "blind_rotate_extended", "route": "cuda",
             "source": "tfhe_tpu_torch/csrc/blind_rotate_extended.cu",
             "replaces": "tfhe_tpu/core/experimental.py:306",
-            "kernel": "blind_rotate_extended_kernel (a cluster of E blocks a ciphertext, "
-                      "one a slot)",
-            "launches": sum(rp_launches("blind_rotate_extended").values()),
-            "launches_by_path": rp_launches("blind_rotate_extended"),
+            "kernel": "blind_rotate_extended_lazy_kernel (K2's six lazy passes; a cluster of "
+                      "E / SB blocks of SB slots a ciphertext)",
+            "launches": sum(rp_launches("blind_rotate_extended_lazy").values()),
+            "launches_by_path": rp_launches("blind_rotate_extended_lazy"),
             "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k8")),
             "words_differing_from_k2_at_e1": rp_l["extended_pbs_e1"][
                 "vs_k2_exact_words_differing"],
@@ -3637,32 +3860,56 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "bound_ms": k8_run[e_max]["bound"]["ms"], "bound_by": k8_run[e_max]["bound"]["by"],
             "library_ms": None, "library_call": no_library,
             "by_ext_factor": {e: {"ms": k8_run[e]["ms"], "bound_ms": k8_run[e]["bound"]["ms"],
-                                  "random_key_ms": s15["k8"][e]["ms"],
-                                  "random_key_bound_ms": s15["k8"][e]["bound"]["ms"],
-                                  "random_key_plain_ms": s15["k8"][e]["plain_ms"]}
+                                  **{k_: rp_l[f"extended_pbs_e{e}"][k_] for k_ in (
+                                      "slots_per_block", "cluster_blocks",
+                                      "shared_memory_bytes",
+                                      "active_clusters")}}
                               for e in EXT_FACTORS},
-            "shared_memory_bytes": kernels.exact_smem_bytes(p.glwe_dimension + 1,
-                                                            p.polynomial_size, p.pbs_level),
+            "random_key_by_ext_factor": {e: {"ms": s15["k8"][e]["ms"],
+                                             "bound_ms": s15["k8"][e]["bound"]["ms"],
+                                             "plain_ms": s15["k8"][e]["plain_ms"]}
+                                         for e in EXT_PLAIN_FACTORS},
+            "generic_kernel": {
+                "kernel": "blind_rotate_extended_kernel (the first design; shapes the lazy "
+                          "kernel does not take)",
+                "ms": s15["k8_generic"]["ms"], "bound_ms": s15["k8_generic"]["bound"]["ms"],
+                "shape": s15["k8_generic"]["shape"],
+                **{k_: v for k_, v in ptxas_of(ptxas_kernels,
+                                               "blind_rotate_extended_kernel").items()
+                   if k_ in ("registers", "spill_store_bytes")}},
             "shape": [RESEARCH_PBS_BATCH, e_max, p.lwe_dimension, p.glwe_dimension + 1,
                       p.polynomial_size]},
-            "blind_rotate_extended_kernel"),
-        with_regs({
+            "blind_rotate_extended_lazy_kernel"),
+        {
             "name": "blind_rotate_cm", "route": "cuda",
-            "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+            "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
             "replaces": "tfhe_tpu/core/cm.py:299",
-            "kernel": f"blind_rotate_kernel (K2's generic exact kernel at k+1 = "
-                      f"{p.glwe_dimension + CM_SLOTS}; the lazy kernel at C = 1)",
+            "kernel": f"blind_rotate_cluster_kernel (K2's cluster kernel at k+1 = "
+                      f"{p.glwe_dimension + CM_SLOTS}, N = {p.polynomial_size}: four blocks a "
+                      f"ciphertext, one a CRT prime; the lazy kernel at C = 1)",
             "launches": sum(cm_launches.values()), "launches_by_path": cm_launches,
+            "cluster_launches_by_path": rp_launches("blind_rotate_cluster"),
             "lazy_launches_by_path": rp_launches("blind_rotate_exact_lazy"),
-            "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k2_cm")),
-            "ms": cm_run["ms"], "plain_ms": s15["k2_cm"]["plain_ms"],
+            "max_abs_err": max(v for k_, v in errs.items() if k_.startswith(
+                ("k2_cm", "k2_generic_cm"))),
+            "ms": cm_run["ms"], "plain_ms": s15["k2_cm"][cm_k1]["plain_ms"],
             "plain_batch": CHECK_BATCH, "plain_steps": RESEARCH_PLAIN_STEPS,
-            "random_key_ms": s15["k2_cm"]["ms"],
-            "random_key_bound_ms": s15["k2_cm"]["bound"]["ms"],
+            "generic_kernel_ms": cm_run["generic_ms"],
+            "k1_3": cm_run["k1_3"],
+            "c4": {"ms": c4_run["ms"], "bound_ms": c4_run["bound"]["ms"],
+                   "shape": c4_run["shape"]},
+            "random_key_by_k1": {k1: {key_: v for key_, v in row.items() if key_ != "bound"}
+                                 | {"bound_ms": row["bound"]["ms"]}
+                                 for k1, row in s15["k2_cm"].items()},
             "bound_ms": cm_run["bound"]["ms"], "bound_by": cm_run["bound"]["by"],
             "library_ms": None, "library_call": no_library,
-            "shared_memory_bytes": rp_l["cm_bootstrap"]["shared_memory_bytes"],
-            "shape": cm_run["shape"]}, "blind_rotate_kernel"),
+            **{k_: rp_l["cm_bootstrap"][k_] for k_ in (
+                "shared_memory_bytes", "blocks_per_sm", "active_clusters",
+                "generic_kernel_would_need_bytes")},
+            **cluster_regs(ptxas_kernels, p.glwe_dimension + CM_SLOTS, 1, 11),
+            "generic_kernel_registers": ptxas_of(ptxas_kernels, "blind_rotate_kernel").get(
+                "registers"),
+            "shape": cm_run["shape"]},
         with_regs({
             "name": "keyswitch_cm", "route": "cuda",
             "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
@@ -4045,10 +4292,12 @@ def main() -> None:
                                     integer_run["add_out"], (x + y) % integer_run["modulus"],
                                     args.seed + 90)
     emit({"phase": "squash_compress", **sqc_run["line"]})
-    wopbs_run = wopbs_phase(kernels, shortint_mod, twopbs, args.seed + 91)
-    emit({"phase": "wopbs", **wopbs_run["line"]})
-    aes_run = aes_phase(kernels, shortint_mod, tint, twopbs, taes, args.seed + 92)
-    emit({"phase": "aes", **aes_run["line"]})
+    # the shapes of K2's exact launches of phases 28-29 (the TEST shapes)
+    with RotationShapes(kernels) as test_shapes:
+        wopbs_run = wopbs_phase(kernels, shortint_mod, twopbs, args.seed + 91)
+        emit({"phase": "wopbs", **wopbs_run["line"]})
+        aes_run = aes_phase(kernels, shortint_mod, tint, twopbs, taes, args.seed + 92)
+        emit({"phase": "aes", **aes_run["line"]})
     tv_run = test_vectors_phase(kernels, tvectors, vectors_cpu)
     emit({"phase": "test_vectors", **tv_run["line"]})
     for tag, run in (("squashed-compression", sqc_run), ("WoPBS", wopbs_run), ("AES", aes_run),
@@ -4611,6 +4860,13 @@ def main() -> None:
     # phase 33: K7 at both signs, K1 at the shrinking and CM shapes, K8 at
     # E = 1, 2, 4 and K2 at the CM shape
     s15 = research_vs_plain(kernels, server, torus, rp_run["run"], p, args.seed + 121, errs)
+    for e in EXT_FACTORS:
+        chosen = (e, rp_run["line"][f"extended_pbs_e{e}"]["slots_per_block"])
+        if chosen not in s15["k8_slots_held"]:
+            raise RuntimeError(f"K8's lazy kernel at (E, slots a block) {chosen}, as phase 33 "
+                               f"ran it, was not held against its plain version")
+    # phases 28-29: K2's generic kernel and its step entry at the TEST shapes
+    s16 = test_shape_figures(kernels, server, torus, test_shapes.shapes, args.seed + 122, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -4992,6 +5248,9 @@ def main() -> None:
     by_name["blind_rotate_exact"]["launches"] += lazy_tv
     by_name["cmux_step"]["generic_launches_by_path"] = {
         p_: v for p_, v in s13_launches("cmux_step").items() if v}
+    # their times at the TEST shapes, launch by launch as phases 28-29 ran them
+    by_name["blind_rotate_exact"]["generic_test_shapes"] = s16["rotation"]
+    by_name["cmux_step"]["generic_test_shapes"] = s16["step_entry"]
     # K1-32, and the launches of phases 25-26 on the other kernels' entries
     atomic_table_entries(table, atomic_run, wire_run, errs, k132, ptxas_kernels)
     # K2's cluster kernel (phase 31), and the launches of phases 31-32 on
@@ -5006,8 +5265,7 @@ def main() -> None:
                 if c.get(counter, 0) and (paths is None or path in paths)}
 
     # its 3_3 instance (k+1 = 2, l = 2, log N = 13)
-    cl_regs = next((v for k, v in ptxas_kernels.items()
-                    if "blind_rotate_cluster_kernelILi2ELi2ELi13E" in k), {})
+    cl_regs = cluster_regs(ptxas_kernels, 2, 2, 13)
     table.append({
         "name": "blind_rotate_cluster", "route": "cuda",
         "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",

@@ -7,8 +7,8 @@ plain version on (mask, 0)), the CM GGSW, its CMux and external product
 accumulator entry's plain version), the CM packing key and packing, the CM
 drift choice; and the routes and refusals of the CM rotation by shape.  At
 tfhe_tpu's toy set (TEST_VECTOR_TOY_PARAMS: n = 10, N = 256, noiseless), C
-= 2 slots; the keys from module-scoped fixtures, built once in each
-package from the same seeds."""
+= 2 slots, and one bootstrap at C = 4; the keys from module-scoped
+fixtures, built once in each package from the same seeds."""
 
 import jax
 import jax.numpy as jnp
@@ -253,19 +253,70 @@ def test_cm_drift_choice(lwe_keys):
     assert chosen != {0}, "the test's inputs must make the drift choose a zero encryption"
 
 
-@pytest.mark.parametrize("c_dim,route", [(1, "lazy"), (2, "generic"), (3, "generic")])
+@pytest.mark.parametrize("c_dim,route", [(1, "lazy"), (2, "cluster"), (3, "cluster"),
+                                         (4, "cluster"), (5, "cluster"), (6, "cluster"),
+                                         (7, "cluster")])
 def test_cm_rotation_routes_at_2_2(c_dim, route):
     """The CM rotation at the 2_2 shape (k = 1, N = 2048, l = 1): K2's lazy
-    kernel at C = 1, its generic kernel at C = 2 and 3 (k + C = 4: 200,704 B
-    of shared memory a block)."""
+    kernel at C = 1, its cluster kernel at C = 2 .. 7 (k + C = 3 .. 8: four
+    blocks a ciphertext of 12,544 (k + C) B each, where one block of the
+    generic kernel would need 200,704 B at k + C = 4 and more than a block
+    may use from k + C = 5)."""
     k1 = 1 + c_dim
     assert kernels.exact_rotation_route(k1, 2048, 1, 23, k1 == 2) == route
     assert kernels.exact_smem_bytes(4, 2048, 1) == 200_704
+    assert kernels.exact_smem_bytes(k1, 2048, 1, cluster=True) == 12_544 * k1
+    if c_dim >= 4:
+        assert kernels.exact_smem_bytes(k1, 2048, 1) > kernels.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("k1,n_poly", [(5, 2048), (6, 256), (9, 256)])
+@pytest.mark.parametrize("k1,n_poly", [(9, 2048), (6, 256), (9, 256)])
 def test_cm_rotation_refuses_above_its_limit(k1, n_poly):
-    """C = 4 at the 2_2 shape needs 250,880 B a block; k + C > 5 passes the
-    generic kernel's MAXK1 at any N: a ValueError naming the limit."""
-    with pytest.raises(ValueError, match="generic kernel takes k\\+1 <= 5"):
+    """k + C = 9 at the 2_2 shape passes the cluster kernel's 8 rows; at
+    small N no cluster shape applies and k + C > 5 passes the generic
+    kernel's MAXK1: a ValueError naming both kernels' limits."""
+    with pytest.raises(ValueError, match="generic kernel takes k\\+1 <= 5.*cluster kernel takes "
+                                         "k\\+1 = 2, N = 8192, l <= 2 and 3 <= k\\+1 <= 8, "
+                                         "N = 2048, l = 1"):
         kernels.exact_rotation_route(k1, n_poly, 1, 23, False)
+
+
+@pytest.fixture(scope="module")
+def wide_bootstrap_keys(lwe_keys, glwe_keys):
+    """A CM bootstrap key at C = 4 (n = 10, k + C = 5, N = 256), the first C
+    whose rotation no block of K2's generic kernel holds at the 2_2 widths:
+    the C = 2 keys (LWE and GLWE) and two more of each in each package, and
+    two CmLwes."""
+    ref_gen, gen = _enc_gens(SEED + 14)
+    ref_sec, sec = _gens(ref_rng, SEED + 4)[0], _gens(csprng, SEED + 4)[0]
+    ref_small = lwe_keys["ref"][0] + [ref_kg.generate_binary_lwe_secret_key(SMALL, ref_sec)
+                                      for _ in range(2)]
+    small = lwe_keys["port"][0] + [kg.generate_binary_lwe_secret_key(SMALL, sec)
+                                   for _ in range(2)]
+    ref_sks = glwe_keys["ref"] + [ref_kg.generate_binary_glwe_secret_key(K, N, ref_sec)
+                                  for _ in range(2)]
+    sks = glwe_keys["port"] + [kg.generate_binary_glwe_secret_key(K, N, sec) for _ in range(2)]
+    ref_bsk = ref_cm.generate_cm_lwe_bootstrap_key(ref_small, ref_sks, TOY.pbs_decomp,
+                                                   TOY.glwe.noise, ref_gen)
+    bsk = cm.generate_cm_lwe_bootstrap_key(small, sks, PBS, NOISE, gen, device="cpu")
+    assert bsk.shape == (SMALL, 1, K + 4, K + 4, N) and (bsk == ref_bsk).all()
+    ref_mont, plan = ref_cm.cm_bootstrap_key_to_ntt(ref_bsk)
+    msgs = [[4, 11, 0, 9], [15, 7, 2, 1]]
+    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_small, _enc(row), TOY.lwe.noise, ref_gen)
+                    for row in msgs])
+    return ref_mont, plan, msgs, cts, [sk.as_lwe_secret_key() for sk in sks]
+
+
+def test_cm_bootstrap_c4(wide_bootstrap_keys):
+    """One CM bootstrap at C = 4 (K2's accumulator entry's plain version at
+    k+1 = 5, the cluster kernel's shape on the card) of two CmLwes with
+    f(x) = (3x + 1) % 16: tfhe_tpu's words, every slot decrypted."""
+    ref_mont, plan, msgs, cts, flat = wide_bootstrap_keys
+    key = kg.NttKey.from_raw_keys(ref_mont, device="cpu")
+    f = lambda x: (3 * x + 1) % 16  # noqa: E731
+    lut = ref_srv.generate_lut(N, K + 1, 16, DELTA, f)[-1]
+    want = np.asarray(REF_CM_BOOTSTRAP(jnp.asarray(cts), lut, jnp.asarray(ref_mont), plan, 24, 1,
+                                       K))
+    got = _np(cm.cm_bootstrap(_t(cts), _t(lut), key.data, key.dp, 24, 1, K))
+    assert got.shape == (len(msgs), K * N + 4) and (got == want).all()
+    assert [_dec(flat, row) for row in got] == [[f(m) for m in row] for row in msgs]

@@ -312,6 +312,53 @@ def test_k8_plain_e1_is_the_classic_rotation(pbs_keys):
     assert got.shape == (len(msgs), 1, 2, N) and torch.equal(got[:, 0], want)
 
 
+@pytest.mark.parametrize("shape,route", [
+    ((2, 2048, 1, 23), "lazy"),       # every 2_2 set
+    ((2, 2048, 1, 30), "lazy"),
+    ((2, 2048, 2, 15), "generic"),    # l = 2
+    ((2, 2048, 1, 31), "generic"),    # a digit past the high word
+    ((2, 512, 1, 23), "generic"),     # the TEST sets' N
+    ((5, 512, 1, 23), "generic"),     # 1_1's k+1
+    ((2, 1024, 3, 7), "generic"),     # TFHE_LIB
+])
+def test_k8_route(shape, route):
+    """K8's pure-Python shape predicate (the lazy kernel exactly at
+    K8_LAZY_SHAPE, which the C entry point mirrors; the generic kernel at
+    the other shapes it takes)."""
+    assert kernels.extended_route(*shape) == route
+    k1, n_poly, levels, base_log = shape
+    s = kernels.K8_LAZY_SHAPE
+    assert (route == "lazy") == (k1 == s["k1"] and n_poly == s["n_poly"]
+                                 and levels == s["levels"] and base_log <= s["max_base_log"])
+
+
+@pytest.mark.parametrize("shape", [(6, 512, 1, 23), (5, 2048, 1, 23), (2, 2048, 8, 8)])
+def test_k8_route_refuses_what_no_kernel_takes(shape):
+    """Above the generic kernel's k+1 <= 5, its block's shared memory, or
+    base_log l < 64: a ValueError naming both kernels' limits."""
+    with pytest.raises(ValueError, match="its lazy kernel takes k\\+1 = 2, N = 2048, l = 1"):
+        kernels.extended_route(*shape)
+
+
+# cudaOccupancyMaxActiveClusters of K8's lazy kernel on an NVIDIA H100 80GB
+# HBM3, by (log E, SB): 132 clusters of one block, 66 of 2, 30 of 4, 15 of 8
+# (tools/rotation_probe.py)
+_H100_K8_CLUSTERS = {(0, 1): 132, (1, 1): 66, (1, 2): 132, (2, 1): 30, (2, 2): 66,
+                     (3, 1): 15, (3, 2): 30}
+
+
+@pytest.mark.parametrize("e,batch,sb", [
+    (1, 64, 1), (2, 64, 1), (4, 64, 2), (8, 64, 1),   # the probe's fastest at B = 64
+    (4, 4, 1), (8, 4, 1),                             # one wave either way: one slot
+    (4, 512, 2), (8, 512, 2),
+])
+def test_k8_slots_by_waves(monkeypatch, e, batch, sb):
+    """extended_slots takes the fewest waves of clusters, a two-slot wave
+    weighted by K8_TWO_SLOT_WAVE_COST, one slot a block on a tie."""
+    monkeypatch.setattr(kernels, "_K8_CLUSTERS", dict(_H100_K8_CLUSTERS))
+    assert kernels.extended_slots(e, batch) == sb
+
+
 def test_split_extended_lut():
     rng = np.random.default_rng(2)
     lut = rng.integers(0, 1 << 64, (3, 2, 4 * 16), dtype=np.uint64)

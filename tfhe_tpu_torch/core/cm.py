@@ -11,10 +11,12 @@ position i encrypts the slots' key bits [s^in_1[i], .., s^in_C[i]]
 Layouts as tfhe_tpu's: a CmLwe batch is (B, n + C) [mask | bodies], a
 CmGlwe batch (B, k + C, N), the CM GGSW level matrices (k + C, k + C)
 squares, so K2 runs them at k+1 = k + C: the CM CMux on its CMux entry
-(kernels.cmux), the CM rotation on its exact rotation of a given
-accumulator (kernels.rotate_accumulator: the generic kernel up to k + C =
-GENERIC_MAX_K1 within a block's shared memory, the lazy kernel at C = 1 on
-the 2_2 shape; C <= 3 at k = 1, N = 2048, l = 1).  The CM keyswitch and
+(kernels.cmux: C <= 3 at k = 1, N = 2048, l = 1), the CM rotation on its
+exact rotation of a given accumulator (kernels.rotate_accumulator: the
+lazy kernel at C = 1 on the 2_2 shape, the cluster kernel at k + C = 3 ..
+8, N = 2048, l = 1, so C <= 7 at the 2_2 widths, the generic kernel at
+other shapes up to k + C = GENERIC_MAX_K1 within a block's shared
+memory).  The CM keyswitch and
 packing run K1 on (mask, 0) with n_out + C key columns.
 
 Server-side functions take int64 torus tensors (ops/torus.py) and run on

@@ -354,10 +354,6 @@ __host__ __device__ constexpr bool exact_lazy_shape(int k1, int log_n, int level
   return k1 == X_K1 && log_n == X_LOG_N && levels == 1 && base_log >= 1 && base_log <= 30;
 }
 
-__device__ __forceinline__ u32 lane_of(const uint4& k, int i) {
-  return i == 0 ? k.x : i == 1 ? k.y : i == 2 ? k.z : k.w;
-}
-
 // Stages 0-3 of the forward transforms fused with what feeds them.  Task
 // (ct, r, lo) owns coefficients j = b 2^7 | lo, b < 16, of row r of
 // ciphertext ct: it forms acc X^a - acc in u64 (a = mask[ct n_steps] in
@@ -400,47 +396,6 @@ __device__ __forceinline__ void exact_first_forward(u32* res, const u64* acc,
   }
 }
 
-// Task q = (prime pi, hi, ct), ct fastest: the last forward pass (stages
-// 8-10) of ciphertext ct's two digit rows at positions hi 8 + b, b < 8, in
-// registers, then the product with the step's GGSW, out[cc] = sum_r x_r
-// k[r][cc] with x_r reduced to [0, 2p) and the two products summed in 64
-// bits before one reduction (2 (2p) p < p 2^32).  Each key entry (r, cc)
-// of the eight positions is two 16-byte loads, all eight issued before the
-// transform; the XC lanes of a position load the same words in one
-// transaction.  out is written over the two rows, as (ct, cc, prime), in
-// [0, 2p).
-__device__ __forceinline__ void exact_key_product(u32* res, int q,
-                                                  const uint4* __restrict__ key,
-                                                  const uint2* __restrict__ tw,
-                                                  const Consts& c) {
-  const int ct = q % XC;
-  const int hi = (q / XC) % X_GROUPS;
-  const int pi = q / (XC * X_GROUPS);
-  const u32 p = c.p[pi];
-  const u32 pinv = c.pinv[pi];
-  uint4 k[X_K1 * X_K1][2];                      // entry r K1 + cc, positions 0-3 and 4-7
-#pragma unroll
-  for (int en = 0; en < X_K1 * X_K1; ++en) {
-    const uint4* kp = key + (en * NP + pi) * (X_N / 4) + 2 * hi;
-    k[en][0] = __ldg(kp);
-    k[en][1] = __ldg(kp + 1);
-  }
-  u32* row0 = res + (ct * X_K1 * NP + pi) * X_ROW;
-  u32* row1 = row0 + NP * X_ROW;
-  u32 v0[8], v1[8];
-  last_forward_pair<X_LOG_N>(row0, row1, hi, tw + (pi << X_LOG_N), p, v0, v1);
-  const int at = pad(hi << 3);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const u32 x0 = reduce_to(v0[b], 2 * p);
-    const u32 x1 = reduce_to(v1[b], 2 * p);
-    row0[at + b] = redc_lazy((u64)x0 * lane_of(k[0][b >> 2], b & 3) +
-                             (u64)x1 * lane_of(k[2][b >> 2], b & 3), p, pinv);
-    row1[at + b] = redc_lazy((u64)x0 * lane_of(k[1][b >> 2], b & 3) +
-                             (u64)x1 * lane_of(k[3][b >> 2], b & 3), p, pinv);
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 blind_rotate_exact_lazy_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
                                const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
@@ -467,7 +422,7 @@ blind_rotate_exact_lazy_kernel(long long* __restrict__ acc_g, const int* __restr
     __syncthreads();
     const uint4* skey = bsk + (size_t)step * STEP;
     for (int q = tid; q < XC * NP * X_GROUPS; q += THREADS) {
-      exact_key_product(res, q, skey, tw_fwd, c);
+      exact_key_product<XC, X_LOG_N>(res, q, skey, tw_fwd, c);
     }
     __syncthreads();
     lazy_pass<4, X_LOG_N, NP, THREADS, false>(res, X_ROWS, 0, tw_inv, c);

@@ -42,6 +42,15 @@
 //      coefficients with Garner from the four blocks' canonical residues
 //      (read through distributed shared memory) and adds them to its
 //      accumulator quarter; cluster barrier.
+// The same kernel serves the common-mask rotation at the 2_2 widths
+// (tfhe_tpu/core/cm.py:299 cm_blind_rotate, K2's exact rotation at k+1 =
+// k + C): l = 1, N = 2048, k+1 from 3 to 8, where one block of K2's
+// generic kernel would hold the whole (k+1, N) accumulator and 4-prime
+// residues (200,704 B at k+1 = 4, one block an SM; 250,880 B at k+1 = 5,
+// more than a block may use).  A cluster block needs 12,544 (k+1) B there
+// (50,176 at k+1 = 4, 100,352 at k+1 = 8), so four blocks a ciphertext
+// fill four times the SMs, and the first pass takes the one-level digit
+// from the high word (hi_word_digit: base_log <= 30 reads no lower bit).
 // The accumulator and the residues never leave the cluster's SMs; each
 // block reads only its prime's quarter of the key.  The first design (PR
 // 14's chip runs 1-3: fully reduced Montgomery passes, ntt_common.cuh's
@@ -62,18 +71,33 @@ using namespace ntt_common;
 
 namespace {
 
-// The kernel's shapes: k + 1 = 2, l <= 2 (at l = 3 a block's residues would
-// pass its shared memory), N = 8192 (3_3: l = 2), digits |d| <= 2^29
-// (base_log <= 30) for the lazy residues d + 2p.  The wrapper routes by
-// its own copy of this predicate (ops/kernels.py CLUSTER_SHAPE); the entry
-// point refuses any other shape.
+// The kernel's shapes, digits |d| <= 2^29 (base_log <= 30) for the lazy
+// residues d + 2p: k + 1 = 2, l <= 2 (at l = 3 a block's residues would
+// pass its shared memory), N = 8192 (3_3: l = 2); and l = 1, N = 2048,
+// 3 <= k + 1 <= 8 (ROWS <= 8: the common-mask rotation at C <= 7).  The
+// wrapper routes by its own copy of this predicate (ops/kernels.py
+// CLUSTER_SHAPES); the entry point refuses any other shape.
 constexpr int CL_K1 = 2;
 constexpr int CL_LOG_N = 13;
 constexpr int CL_MAX_LEVELS = 2;
+constexpr int CM_LOG_N = 11;
+constexpr int CM_MIN_K1 = 3;
+constexpr int CM_MAX_K1 = 8;
 
 __host__ __device__ constexpr bool cluster_shape(int k1, int log_n, int levels, int base_log) {
-  return k1 == CL_K1 && log_n == CL_LOG_N && levels >= 1 && levels <= CL_MAX_LEVELS &&
-         base_log >= 1 && base_log <= 30;
+  return base_log >= 1 && base_log <= 30 &&
+         ((k1 == CL_K1 && log_n == CL_LOG_N && levels >= 1 && levels <= CL_MAX_LEVELS) ||
+          (log_n == CM_LOG_N && levels == 1 && k1 >= CM_MIN_K1 && k1 <= CM_MAX_K1));
+}
+
+// Blocks an SM the kernel is compiled for at a shape (__launch_bounds__: 2
+// holds a thread to 64 registers): two at N = 2048, where two blocks fit an
+// SM's shared memory (faster at every k+1 from 3 to 8 at B = 64: 45.1
+// against 52.7 ms at k+1 = 4, 108.9 against 110.6 at k+1 = 8,
+// tools/rotation_probe.py on an NVIDIA H100 80GB HBM3 at 700 W), one at
+// N = 8192 (ops/kernels.py CLUSTER_BLOCKS_PER_SM).
+__host__ __device__ constexpr int cluster_min_blocks(int log_n) {
+  return log_n == CM_LOG_N ? 2 : 1;
 }
 
 template <int K1, int LEVELS, int LOG_N>
@@ -93,7 +117,8 @@ struct Cluster {
 };
 
 template <int K1, int LEVELS, int LOG_N>
-__global__ void __cluster_dims__(NP, 1, 1) __launch_bounds__(THREADS, 1)
+__global__ void __cluster_dims__(NP, 1, 1)
+__launch_bounds__(THREADS, cluster_min_blocks(LOG_N))
 blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
                             const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
                             const uint2* __restrict__ tw_inv,
@@ -147,7 +172,9 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
     for (int q = tid; q < K1 << LO; q += THREADS) {
       const int r = q >> LO;
       const int lo = q & ((1 << LO) - 1);
+      // one level: the digit itself (from the high word); else the state
       u64 state[16];
+      int dig[16];
 #pragma unroll
       for (int b = 0; b < 16; ++b) {
         const int j = (b << LO) | lo;
@@ -156,14 +183,23 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
         u64 v = acc_of[src / QUARTER][src % QUARTER];
         if (j < rot) v = 0ull - v;
         if (odd) v = 0ull - v;
-        state[b] = decomposer_state(v - acc_of[g / QUARTER][g % QUARTER], base_log, LEVELS);
+        const u64 d = v - acc_of[g / QUARTER][g % QUARTER];
+        if constexpr (LEVELS == 1) {
+          dig[b] = hi_word_digit((u32)(d >> 32), base_log);
+        } else {
+          state[b] = decomposer_state(d, base_log, LEVELS);
+        }
       }
 #pragma unroll
       for (int lev = 0; lev < LEVELS; ++lev) {
         u32 v[16];
 #pragma unroll
         for (int b = 0; b < 16; ++b) {
-          v[b] = lazy_digit_residue((int)next_digit(state[b], base_log), p);
+          if constexpr (LEVELS == 1) {
+            v[b] = lazy_digit_residue(dig[b], p);
+          } else {
+            v[b] = lazy_digit_residue((int)next_digit(state[b], base_log), p);
+          }
         }
         lazy_forward_stages<4, LOG_N>(v, 0, 0, twf, p);
         u32* x = rows + (lev * K1 + r) * ROW + pad(lo);
@@ -262,12 +298,12 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
   for (int q = tid; q < QUARTER; q += THREADS) acc_b[rank * QUARTER + q] = (long long)acc[q];
 }
 
-template <int LEVELS>
+template <int K1, int LEVELS, int LOG_N>
 cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
                            const uint2* tw_fwd, const uint2* tw_inv, const long long* consts,
                            int batch, int n_steps, int base_log, cudaStream_t stream) {
-  using S = Cluster<CL_K1, LEVELS, CL_LOG_N>;
-  auto kernel = blind_rotate_cluster_kernel<CL_K1, LEVELS, CL_LOG_N>;
+  using S = Cluster<K1, LEVELS, LOG_N>;
+  auto kernel = blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (err != cudaSuccess) return err;
@@ -278,6 +314,68 @@ cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
                                                    n_steps, base_log);
   return cudaGetLastError();
 }
+
+// The clusters of NP blocks the card holds at once at a shape
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+template <int K1, int LEVELS, int LOG_N>
+int cluster_occupancy() {
+  using S = Cluster<K1, LEVELS, LOG_N>;
+  auto kernel = blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NP * 64, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = S::SMEM;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+// Calls fn.template run<K1, LEVELS, LOG_N>() on the instance of a shape
+// that cluster_shape takes.
+template <class F>
+int by_shape(int k1, int log_n, int levels, const F& fn) {
+  if (log_n == CL_LOG_N) {
+    return levels == 1 ? fn.template run<CL_K1, 1, CL_LOG_N>()
+                       : fn.template run<CL_K1, 2, CL_LOG_N>();
+  }
+  switch (k1) {
+    case 3: return fn.template run<3, 1, CM_LOG_N>();
+    case 4: return fn.template run<4, 1, CM_LOG_N>();
+    case 5: return fn.template run<5, 1, CM_LOG_N>();
+    case 6: return fn.template run<6, 1, CM_LOG_N>();
+    case 7: return fn.template run<7, 1, CM_LOG_N>();
+    default: return fn.template run<8, 1, CM_LOG_N>();
+  }
+}
+
+struct Launch {
+  long long* acc;
+  const int* mask;
+  const uint4* bsk;
+  const uint2* tw_fwd;
+  const uint2* tw_inv;
+  const long long* consts;
+  int batch, n_steps, base_log;
+  cudaStream_t stream;
+  template <int K1, int LEVELS, int LOG_N>
+  int run() const {
+    return (int)cluster_launch<K1, LEVELS, LOG_N>(acc, mask, bsk, tw_fwd, tw_inv, consts, batch,
+                                                  n_steps, base_log, stream);
+  }
+};
+
+struct Occupancy {
+  template <int K1, int LEVELS, int LOG_N>
+  int run() const { return cluster_occupancy<K1, LEVELS, LOG_N>(); }
+};
+
+struct Smem {
+  template <int K1, int LEVELS, int LOG_N>
+  int run() const { return Cluster<K1, LEVELS, LOG_N>::SMEM; }
+};
 
 }  // namespace
 
@@ -294,10 +392,20 @@ extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, cons
       n_steps < 1 || ((uintptr_t)bsk & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  auto run = [&](auto launch) {
-    return (int)launch((long long*)acc, (const int*)mask, (const uint4*)bsk,
-                       (const uint2*)tw_fwd, (const uint2*)tw_inv, (const long long*)consts,
-                       batch, n_steps, base_log, (cudaStream_t)stream);
-  };
-  return levels == 1 ? run(cluster_launch<1>) : run(cluster_launch<2>);
+  const Launch launch{(long long*)acc, (const int*)mask, (const uint4*)bsk,
+                      (const uint2*)tw_fwd, (const uint2*)tw_inv, (const long long*)consts,
+                      batch, n_steps, base_log, (cudaStream_t)stream};
+  return by_shape(k1, log_n, levels, launch);
+}
+
+// The clusters the card holds at once at a shape the kernel takes, and a
+// block's dynamic shared memory (-1 at other shapes).
+extern "C" int tfhe_torch_blind_rotate_cluster_occupancy(int k1, int log_n, int levels) {
+  if (!cluster_shape(k1, log_n, levels, 1)) return -1;
+  return by_shape(k1, log_n, levels, Occupancy{});
+}
+
+extern "C" int tfhe_torch_blind_rotate_cluster_smem(int k1, int log_n, int levels) {
+  if (!cluster_shape(k1, log_n, levels, 1)) return -1;
+  return by_shape(k1, log_n, levels, Smem{});
 }

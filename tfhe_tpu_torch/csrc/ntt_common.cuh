@@ -645,11 +645,14 @@ __device__ __forceinline__ void fused_last_inverse(const u32* res, u32* acc, int
 // coefficients j = lo | b 2^(LOG_N-3), b < 8, of output row cc of
 // ciphertext ct, finishes their transforms for every prime in registers
 // and adds each reconstructed u64 word to the accumulator (C, K1, N) (ADD:
-// K2's lazy exact kernel) or writes it over it (K3's lazy exact kernel).
+// K2's lazy exact kernel), or to the same word of `from` into acc (ADD
+// with from: K8's lazy kernel's two copies), or writes it over it (K3's
+// lazy exact kernel).
 template <int LOG_N, int K1, int NPT, int C, int NT, bool ADD = false>
 __device__ __forceinline__ void exact_last_inverse(const u32* res, u64* acc,
                                                    const uint2* __restrict__ tw,
-                                                   const Consts& c) {
+                                                   const Consts& c,
+                                                   const u64* from = nullptr) {
   constexpr int N = 1 << LOG_N;
   constexpr int ROW = N + N / 32;
   constexpr int S = 3;
@@ -672,14 +675,68 @@ __device__ __forceinline__ void exact_last_inverse(const u32* res, u64* acc,
       }
     }
     u64* A = acc + (ct * K1 + cc) * N;
+    const u64* F = (from ? from : acc) + (ct * K1 + cc) * N;
 #pragma unroll
     for (int b = 0; b < (1 << S); ++b) {
       u32 dg[NPT];
 #pragma unroll
       for (int pi = 0; pi < NPT; ++pi) dg[pi] = y[pi][b];
       const u64 x = garner_signed<NPT>(dg, c);
-      A[lo | (b << K0)] = ADD ? A[lo | (b << K0)] + x : x;
+      A[lo | (b << K0)] = ADD ? F[lo | (b << K0)] + x : x;
     }
+  }
+}
+
+// The last forward pass fused with the key product of the lazy exact kernels
+// at k + 1 = 2, one level (K2's csrc/blind_rotate.cu and K8's
+// csrc/blind_rotate_extended.cu), C ciphertexts a block: task q = (prime
+// pi, hi, ct), ct fastest, runs the last forward pass (stages LOG_N-3 ..
+// LOG_N-1) of ciphertext ct's two digit rows at positions hi 8 + b, b < 8,
+// in registers, then out[cc] = sum_r x_r k[r][cc] with x_r reduced to [0,
+// 2p) and the two products summed in 64 bits before one reduction (2 (2p)
+// p < p 2^32).  Each key entry (r, cc) of the eight positions is two
+// 16-byte loads, all eight issued before the transform; the C lanes of a
+// position load the same words in one transaction.  out is written over
+// the two rows, as (ct, cc, prime), in [0, 2p).  Rows are (ct, r, prime),
+// padded; key the step's GGSW (1, 2, 2, NP, N) as 16-byte words.
+__device__ __forceinline__ u32 lane_of(const uint4& k, int i) {
+  return i == 0 ? k.x : i == 1 ? k.y : i == 2 ? k.z : k.w;
+}
+
+template <int C, int LOG_N>
+__device__ __forceinline__ void exact_key_product(u32* res, int q,
+                                                  const uint4* __restrict__ key,
+                                                  const uint2* __restrict__ tw,
+                                                  const Consts& c) {
+  constexpr int N = 1 << LOG_N;
+  constexpr int ROW = N + N / 32;
+  constexpr int GROUPS = N / 8;
+  constexpr int K1 = 2;
+  const int ct = q % C;
+  const int hi = (q / C) % GROUPS;
+  const int pi = q / (C * GROUPS);
+  const u32 p = c.p[pi];
+  const u32 pinv = c.pinv[pi];
+  uint4 k[K1 * K1][2];                          // entry r K1 + cc, positions 0-3 and 4-7
+#pragma unroll
+  for (int en = 0; en < K1 * K1; ++en) {
+    const uint4* kp = key + (en * NP + pi) * (N / 4) + 2 * hi;
+    k[en][0] = __ldg(kp);
+    k[en][1] = __ldg(kp + 1);
+  }
+  u32* row0 = res + (ct * K1 * NP + pi) * ROW;
+  u32* row1 = row0 + NP * ROW;
+  u32 v0[8], v1[8];
+  last_forward_pair<LOG_N>(row0, row1, hi, tw + (pi << LOG_N), p, v0, v1);
+  const int at = pad(hi << 3);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const u32 x0 = reduce_to(v0[b], 2 * p);
+    const u32 x1 = reduce_to(v1[b], 2 * p);
+    row0[at + b] = redc_lazy((u64)x0 * lane_of(k[0][b >> 2], b & 3) +
+                             (u64)x1 * lane_of(k[2][b >> 2], b & 3), p, pinv);
+    row1[at + b] = redc_lazy((u64)x0 * lane_of(k[1][b >> 2], b & 3) +
+                             (u64)x1 * lane_of(k[3][b >> 2], b & 3), p, pinv);
   }
 }
 

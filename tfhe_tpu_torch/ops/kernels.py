@@ -7,9 +7,10 @@ less than half the card), K1-32 ``keyswitch32`` (the KS32 pattern's u32
 keyswitch, the same source: the tensor-core kernel on 4 byte limbs a key
 word, and a u32 twin of the generic kernel), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
-takes the lazy exact kernel, the generic kernel or, where one block's
-shared memory cannot hold a ciphertext, the cluster kernel of
-csrc/blind_rotate_cluster.cu, by ``exact_rotation_route``), K3
+takes the lazy exact kernel, the cluster kernel of
+csrc/blind_rotate_cluster.cu (four blocks a ciphertext, one a CRT prime:
+3_3, and the common-mask rotation at N = 2048) or the generic kernel, by
+``exact_rotation_route``), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
@@ -25,8 +26,9 @@ CMux entry, vertical packing's tree, and the common mask's CMux;
 ``rotate_accumulator`` its exact rotation of a given accumulator, the
 common-mask rotation's), K7 ``glwe_keyswitch`` (csrc/glwe_keyswitch.cu, the
 GLWE keyswitch and the fast keyswitch) and K8 ``blind_rotate_extended``
-(csrc/blind_rotate_extended.cu, the extended PBS's rotation, a cluster of
-E blocks a ciphertext) are
+(csrc/blind_rotate_extended.cu, the extended PBS's rotation: its lazy
+kernel at the 2_2 shape, ``extended_route``, else its generic kernel; the
+E slots of a ciphertext in one cluster) are
 compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
@@ -37,8 +39,9 @@ tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
 nothing else; ``keyswitch.imma_launches``, ``keyswitch32.imma_launches``,
 ``packing_keyswitch.imma_launches``, ``blind_rotate`` /
-``cmux_step.lazy_exact_launches`` and ``blind_rotate.cluster_launches``
-count those of the redesigned and new kernels among them.
+``cmux_step.lazy_exact_launches``, ``blind_rotate.cluster_launches`` and
+``blind_rotate_extended.lazy_launches`` count those of the redesigned and
+new kernels among them.
 """
 
 from __future__ import annotations
@@ -180,6 +183,20 @@ def load() -> dict:
         fn = libs["blind_rotate_extended"].tfhe_torch_blind_rotate_extended
         fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
         fn.restype = i
+        fn = libs["blind_rotate_extended"].tfhe_torch_blind_rotate_extended_lazy
+        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        fn.restype = i
+        for name, n_args in (("blind_rotate_extended_lazy_smem", 1),
+                             ("blind_rotate_extended_lazy_clusters", 2),
+                             ("blind_rotate_extended_clusters", 2)):
+            fn = getattr(libs["blind_rotate_extended"], f"tfhe_torch_{name}")
+            fn.argtypes = [i] * n_args
+            fn.restype = i
+        for name, n_args in (("blind_rotate_cluster_occupancy", 3),
+                             ("blind_rotate_cluster_smem", 3)):
+            fn = getattr(libs["blind_rotate_cluster"], f"tfhe_torch_{name}")
+            fn.argtypes = [i] * n_args
+            fn.restype = i
         _Libs.loaded = libs
     return _Libs.loaded
 
@@ -455,52 +472,78 @@ def exact_smem_bytes(k1: int, n_poly: int, levels: int, cluster: bool = False) -
     return k1 * n_poly * 8 + levels * k1 * KERNEL_PRIMES * row * 4
 
 
-# K2's generic exact kernel (and its CMux entry, and K8) take k+1 <= 5
-# (csrc/ntt_common.cuh MAXK1)
+# K2's generic exact kernel (and its CMux entry, and K8's generic kernel)
+# take k+1 <= 5 (csrc/ntt_common.cuh MAXK1)
 GENERIC_MAX_K1 = 5
 
 
 # The cluster kernel's shapes, the routing's one predicate (the kernel's
 # entry point refuses others: csrc/blind_rotate_cluster.cu cluster_shape):
-# k+1 = 2, l <= 2, N = 8192, base_log <= 30
-CLUSTER_SHAPE = {"k1": 2, "n_poly": 8192, "max_levels": 2, "max_base_log": 30}
+# k+1 = 2, l <= 2 at N = 8192 (3_3); 3 <= k+1 <= 8, l = 1 at N = 2048 (the
+# common-mask rotation at the 2_2 widths, C <= 7); base_log <= 30
+CLUSTER_SHAPES = ({"n_poly": 8192, "k1": (2, 2), "max_levels": 2, "max_base_log": 30},
+                  {"n_poly": 2048, "k1": (3, 8), "max_levels": 1, "max_base_log": 30})
+
+
+def cluster_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
+    """Whether K2's cluster kernel takes the shape (CLUSTER_SHAPES)."""
+    return any(n_poly == cs["n_poly"] and cs["k1"][0] <= k1 <= cs["k1"][1]
+               and 1 <= levels <= cs["max_levels"] and 1 <= base_log <= cs["max_base_log"]
+               for cs in CLUSTER_SHAPES)
 
 
 def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
                          lazy: bool) -> str:
     """Which kernel K2's exact rotation (and its step entry) runs at a
-    shape: "lazy" where exact_lazy_shape holds (``lazy``), else "generic"
+    shape: "lazy" where exact_lazy_shape holds (``lazy``), else "cluster"
+    where the cluster kernel takes the shape (CLUSTER_SHAPES: a cluster of
+    four blocks a ciphertext, one a prime; 3_3, and the common-mask
+    rotation at N = 2048, where it is also the faster of the two at k+1 =
+    3 and 4, which the generic kernel's block also fits), else "generic"
     where k+1 <= GENERIC_MAX_K1 and the generic kernel's block fits shared
-    memory, else "cluster" where the cluster kernel takes the shape
-    (CLUSTER_SHAPE: a cluster of four blocks a ciphertext, one a prime;
-    3_3).  Raises a ValueError elsewhere: no set of shortint/params.py is
-    there (the common-mask rotation at the 2_2 shape is, for C > 3), and
+    memory.  Raises a ValueError elsewhere: no set of shortint/params.py is
+    there, nor the common-mask rotation at the 2_2 widths for C <= 7, and
     above N = 8192 no 4-prime NTT plan exists (ops/ntt.py make_plan: the
     primes' 2-adic orders are 14, 15, 18 and 14)."""
     if lazy:
         return "lazy"
-    if k1 <= GENERIC_MAX_K1 and exact_smem_bytes(k1, n_poly, levels) <= SMEM_LIMIT:
-        return "generic"
-    cs = CLUSTER_SHAPE
-    _require(k1 == cs["k1"] and n_poly == cs["n_poly"] and 1 <= levels <= cs["max_levels"]
-             and 1 <= base_log <= cs["max_base_log"]
-             and exact_smem_bytes(k1, n_poly, levels, cluster=True) <= SMEM_LIMIT,
+    if cluster_shape(k1, n_poly, levels, base_log):
+        return "cluster"
+    smem = exact_smem_bytes(k1, n_poly, levels)
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
              f"K2's exact rotation at k+1 = {k1}, N = {n_poly}, l = {levels}, base_log = "
              f"{base_log}: its generic kernel takes k+1 <= {GENERIC_MAX_K1} within the "
-             f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs "
-             f"{exact_smem_bytes(k1, n_poly, levels)} B), and its cluster kernel takes "
-             f"k+1 = 2, N = 8192, l <= 2, base_log <= 30; no 4-prime NTT plan exists above "
-             f"N = 8192")
-    return "cluster"
+             f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs {smem} B), "
+             f"and its cluster kernel takes k+1 = 2, N = 8192, l <= 2 and 3 <= k+1 <= 8, "
+             f"N = 2048, l = 1, base_log <= 30; no 4-prime NTT plan exists above N = 8192")
+    return "generic"
+
+
+# the blocks an SM K2's cluster kernel is compiled for, by N
+# (csrc/blind_rotate_cluster.cu cluster_min_blocks)
+CLUSTER_BLOCKS_PER_SM = {2048: 2, 8192: 1}
+
+
+def cluster_figures(k1: int, n_poly: int, levels: int) -> dict:
+    """A block of K2's cluster kernel at a shape it takes: its dynamic
+    shared memory, the blocks an SM it is compiled for, and the clusters of
+    four the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    lib = load()["blind_rotate_cluster"]
+    log_n = n_poly.bit_length() - 1
+    return {"shared_memory_bytes": lib.tfhe_torch_blind_rotate_cluster_smem(k1, log_n, levels),
+            "blocks_per_sm": CLUSTER_BLOCKS_PER_SM[n_poly],
+            "active_clusters": lib.tfhe_torch_blind_rotate_cluster_occupancy(k1, log_n, levels)}
 
 
 def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
-                         levels: int) -> str:
+                         levels: int, entry: str) -> str:
     """K2's exact rotation on an initialised accumulator (B, k+1, N) int64,
     in place: one step per column of mask32 (B, n) int32, key (n, l, k+1,
-    k+1, P, N).  The kernel is chosen by shape (exact_rotation_route): the
-    lazy kernel, on the batch padded to its C ciphertexts a block; the
-    generic kernel; or the cluster kernel.  Returns the route taken."""
+    k+1, P, N), for the wrapper named entry ("blind_rotate" or
+    "cmux_step"), which a failure names.  The kernel is chosen by shape
+    (exact_rotation_route): the lazy kernel, on the batch padded to its C
+    ciphertexts a block; the generic kernel; or the cluster kernel.
+    Returns the route taken."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
@@ -522,7 +565,7 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
             dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
             dp.kernel_consts.data_ptr(), b, n_steps, k1, log_n, levels, nprimes, base_log,
             _stream(acc))
-        _raise_on(err, "blind_rotate")
+        _raise_on(err, entry)
         return route
     # the lazy and the cluster kernel: Shoup twiddles, the key in 16-byte loads
     per_block = exact_cts_per_block() if route == "lazy" else 1
@@ -537,7 +580,7 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
     err = entry(acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
                 tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc_p.shape[0], n_steps, k1,
                 log_n, levels, nprimes, base_log, _stream(acc))
-    _raise_on(err, f"blind_rotate ({route} exact)")
+    _raise_on(err, f"{entry} ({route} exact)")
     if acc_p.data_ptr() != acc.data_ptr():
         acc.copy_(acc_p[:b])
     return route
@@ -579,7 +622,7 @@ def _rotate_exact(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels
     """K2's exact rotation of the contiguous CUDA accumulator acc, in place,
     counted as blind_rotate's launches (and its lazy or cluster kernel's)."""
     route = _launch_blind_rotate(acc, msed_mask.to(torch.int32).contiguous(),
-                                 bsk_ntt.contiguous(), dp, base_log, levels)
+                                 bsk_ntt.contiguous(), dp, base_log, levels, "blind_rotate")
     blind_rotate.lazy_exact_launches += route == "lazy"
     blind_rotate.cluster_launches += route == "cluster"
     blind_rotate.launches += 1
@@ -588,7 +631,7 @@ def _rotate_exact(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels
 
 blind_rotate.launches = 0
 blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
-blind_rotate.cluster_launches = 0       # and its cluster kernel (N = 8192)
+blind_rotate.cluster_launches = 0       # and its cluster kernel (3_3, the CM rotation)
 
 
 def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels: int):
@@ -596,7 +639,9 @@ def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, l
     ops/server.py rotate_accumulator): the common-mask blind rotation's
     entry (core/cm.py cm_blind_rotate), at k+1 = k + C.  The kernel is
     chosen by shape as ``blind_rotate``'s exact mode chooses it
-    (exact_rotation_route), and its launches count as blind_rotate's.
+    (exact_rotation_route: at the 2_2 widths the lazy kernel at C = 1, the
+    cluster kernel at C = 2 .. 7), and its launches count as
+    blind_rotate's.
 
     acc: (B, k+1, N) int64; msed_mask: (B, n) in [0, 2N); bsk_ntt: (n, l,
     k+1, k+1, P, N) int32 Montgomery NTT domain.  Returns the final
@@ -627,7 +672,8 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
     _require(acc.device.type == "cuda", f"no blind-rotation kernel for {acc.device}")
     _require(acc.is_contiguous(), "the accumulator must be contiguous (updated in place)")
     route = _launch_blind_rotate(acc, a_col.to(torch.int32).reshape(-1, 1).contiguous(),
-                                 bsk_slice.contiguous()[None], dp, base_log, levels)
+                                 bsk_slice.contiguous()[None], dp, base_log, levels,
+                                 "cmux_step")
     cmux_step.lazy_exact_launches += route == "lazy"
     cmux_step.launches += 1
     return acc
@@ -1094,6 +1140,89 @@ glwe_keyswitch.launches = 0
 # most the portable cluster size of 8
 K8_FACTORS = (1, 2, 4, 8)
 
+# K8's lazy kernel's shape, the routing's one predicate (its entry point
+# refuses others: csrc/blind_rotate_extended.cu extended_lazy_shape): K2's
+# lazy exact shape, every 2_2 set
+K8_LAZY_SHAPE = {"k1": 2, "n_poly": 2048, "levels": 1, "max_base_log": 30}
+
+
+def extended_route(k1: int, n_poly: int, levels: int, base_log: int) -> str:
+    """Which kernel K8 runs at a shape: "lazy" at K8_LAZY_SHAPE (the six
+    fused lazy passes of K2's lazy exact kernel, SB slots a block),
+    else "generic" (the first design, one slot of one ciphertext a block)
+    where k+1 <= GENERIC_MAX_K1, base_log l < 64, l <= 8 and its block fits
+    shared memory.  Raises a ValueError elsewhere."""
+    s = K8_LAZY_SHAPE
+    if (k1 == s["k1"] and n_poly == s["n_poly"] and levels == s["levels"]
+            and 1 <= base_log <= s["max_base_log"]):
+        return "lazy"
+    smem = exact_smem_bytes(k1, n_poly, levels)
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT and 1 <= base_log
+             and base_log * levels < 64 and levels <= 8,
+             f"K8 at k+1 = {k1}, N = {n_poly}, l = {levels}, base_log = {base_log}: its lazy "
+             f"kernel takes k+1 = 2, N = 2048, l = 1, base_log <= 30, its generic kernel "
+             f"k+1 <= {GENERIC_MAX_K1}, l <= 8, base_log l < 64 within the {SMEM_LIMIT} B of "
+             f"shared memory a block may use (this shape needs {smem} B)")
+    return "generic"
+
+
+# the slots a block of K8's lazy kernel takes, SB, and the time of one
+# wave of two-slot blocks against one of one-slot blocks
+# (tools/rotation_probe.py: 38.51 against 22.68 ms at E = 2, B = 64, one
+# wave each; NVIDIA H100 80GB HBM3, 700 W)
+K8_SLOTS = (1, 2)
+K8_TWO_SLOT_WAVE_COST = 1.70
+
+
+def _k8_active_clusters(log_e: int, sb: int) -> int:
+    """The clusters of K8's lazy kernel at SB slots a block the card holds
+    at once (cudaOccupancyMaxActiveClusters), asked once."""
+    if (log_e, sb) not in _K8_CLUSTERS:
+        n = load()["blind_rotate_extended"].tfhe_torch_blind_rotate_extended_lazy_clusters(
+            log_e, sb)
+        _require(n > 0, f"K8's lazy kernel fits no cluster of {1 << log_e} slots: {n}")
+        _K8_CLUSTERS[log_e, sb] = n
+    return _K8_CLUSTERS[log_e, sb]
+
+
+_K8_CLUSTERS = {}
+
+
+def extended_slots(e: int, batch: int) -> int:
+    """The slots SB a block of K8's lazy kernel takes at extension factor E
+    and batch B: of K8_SLOTS (SB <= E), the fewest waves of B clusters of
+    E / SB blocks, a two-slot wave weighted by K8_TWO_SLOT_WAVE_COST, one
+    slot on a tie.  Two slots share each key load and halve a cluster; a
+    cluster of 4 blocks fits only 30 times on the H100, one of 2 blocks 66
+    times."""
+    log_e = e.bit_length() - 1
+
+    def cost(sb):
+        waves = -(-batch // _k8_active_clusters(log_e, sb))
+        return waves * (1.0 if sb == 1 else K8_TWO_SLOT_WAVE_COST)
+
+    return min((sb for sb in K8_SLOTS if sb <= e), key=cost)
+
+
+def extended_figures(e: int, batch: int, k1: int, n_poly: int, levels: int,
+                     base_log: int) -> dict:
+    """K8's route at a shape, extension factor E and batch B, its slots a
+    block, a block's dynamic shared memory and the clusters the card holds
+    at once (cudaOccupancyMaxActiveClusters)."""
+    lib = load()["blind_rotate_extended"]
+    route = extended_route(k1, n_poly, levels, base_log)
+    log_e = e.bit_length() - 1
+    if route == "lazy":
+        sb = extended_slots(e, batch)
+        smem = lib.tfhe_torch_blind_rotate_extended_lazy_smem(sb)
+        clusters = _k8_active_clusters(log_e, sb)
+    else:
+        sb, smem = 1, exact_smem_bytes(k1, n_poly, levels)
+        clusters = lib.tfhe_torch_blind_rotate_extended_clusters(log_e, smem)
+    return {"route": route, "slots_per_block": sb,
+            "cluster_blocks": e // sb, "shared_memory_bytes": smem,
+            "active_clusters": clusters}
+
 
 def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: DevicePlan, base_log: int,
                           levels: int):
@@ -1103,10 +1232,11 @@ def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: DevicePlan, base_log: int
 
     msed_mask: (B, n) in [0, 2 N E); acc: (B, E, k+1, N) int64, the split
     initial accumulator; bsk_ntt: (n, l, k+1, k+1, P, N) int32 Montgomery
-    NTT-domain key of size N on dp's four primes.  A cluster of E blocks a
-    ciphertext, one a slot; takes E in K8_FACTORS and the shapes of K2's
-    generic exact kernel (k+1 <= GENERIC_MAX_K1 within a block's shared
-    memory); raises elsewhere.  Returns the final (B, E, k+1, N)."""
+    NTT-domain key of size N on dp's four primes.  A cluster of E blocks, one
+    a slot (the lazy kernel: E / SB blocks of SB slots); takes E in
+    K8_FACTORS.  The kernel is chosen by shape (extended_route): the lazy
+    kernel, its slots a block by extended_slots; else the generic kernel;
+    raises elsewhere.  Returns the final (B, E, k+1, N)."""
     _require(not isinstance(bsk_ntt, RoundedKeyNtt),
              "the extended rotation runs on the exact key")
     if acc.device.type == "cpu":
@@ -1119,25 +1249,38 @@ def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: DevicePlan, base_log: int
              f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
     _require(dp.num_primes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "K8 takes a 4-prime plan and a power-of-two N")
-    _require(1 <= base_log and base_log * levels < 64 and levels <= 8,
-             f"K8 takes base_log l < 64 and l <= 8, not {base_log} x {levels}")
-    smem = exact_smem_bytes(k1, n_poly, levels)
-    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
-             f"K8 at k+1 = {k1}, N = {n_poly}, l = {levels} needs k+1 <= {GENERIC_MAX_K1} "
-             f"and {smem} B of shared memory a block, within {SMEM_LIMIT} B")
-    acc = acc.clone(memory_format=torch.contiguous_format)
+    route = extended_route(k1, n_poly, levels, base_log)
+    lib = load()["blind_rotate_extended"]
     mask32 = msed_mask.to(torch.int32).contiguous()
     bsk_ntt = bsk_ntt.contiguous()
+    log_n, log_e = n_poly.bit_length() - 1, e.bit_length() - 1
+    acc = acc.clone(memory_format=torch.contiguous_format)
+    if route == "lazy":
+        tw_fwd, tw_inv = shoup_twiddles(dp)
+        _check_cuda((acc, torch.int64), (mask32, torch.int32), (bsk_ntt, torch.int32),
+                    (tw_fwd, torch.int32), (tw_inv, torch.int32),
+                    (dp.kernel_consts, torch.int64))
+        _require(bsk_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+        err = lib.tfhe_torch_blind_rotate_extended_lazy(
+            acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), b, n_steps, k1, log_n, levels,
+            base_log, log_e, extended_slots(e, b), _stream(acc))
+        _raise_on(err, "blind_rotate_extended (lazy)")
+        blind_rotate_extended.lazy_launches += 1
+        blind_rotate_extended.launches += 1
+        return acc
+    smem = exact_smem_bytes(k1, n_poly, levels)
     _check_cuda((acc, torch.int64), (mask32, torch.int32), (bsk_ntt, torch.int32),
                 (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
                 (dp.kernel_consts, torch.int64))
-    err = load()["blind_rotate_extended"].tfhe_torch_blind_rotate_extended(
+    err = lib.tfhe_torch_blind_rotate_extended(
         acc.data_ptr(), mask32.data_ptr(), bsk_ntt.data_ptr(), dp.psi32.data_ptr(),
-        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, n_steps, k1,
-        n_poly.bit_length() - 1, levels, base_log, e.bit_length() - 1, smem, _stream(acc))
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, n_steps, k1, log_n, levels,
+        base_log, log_e, smem, _stream(acc))
     _raise_on(err, "blind_rotate_extended")
     blind_rotate_extended.launches += 1
     return acc
 
 
 blind_rotate_extended.launches = 0
+blind_rotate_extended.lazy_launches = 0     # of them, K8's lazy kernel
