@@ -144,11 +144,12 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
  28. wopbs: TEST_PARAM_MESSAGE_2_CARRY_2 with TEST_WOPBS_PARAM (the only
      WoPBS sets either package has): keygen, extract_bits, apply_wopbs with
      the identity and a non-monotone LUT over all 16 inputs (K1, K2's
-     generic exact kernel, K1 at the PFPKS shape once a call, K2's step
-     entry for the low bits), a 10-bit vertical packing (K2's CMux entry
-     once, the step entry nine times);
+     small-N cluster kernel, K1 at the PFPKS shape once a call, K2's CMux
+     chain once a call for the low bits), a 10-bit vertical packing (K2's
+     CMux entry once, the chain once; the step entry never);
  29. aes: at the same sets, the S-box of 4 encrypted bytes and one AES-128
-     round with injected encrypted round keys against the cleartext model;
+     round with injected encrypted round keys against the cleartext model
+     (every packing of a table in one chain launch: 1 and 3);
  30. test_vectors: toy_params and valid_params_128 emitted on the card (K1,
      K2's exact kernels) and compared byte for byte with phase 2's CPU
      emission;
@@ -259,9 +260,13 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      each E also at each of its slots a block, SB <= E; every SB that
      phase 33 ran must be among them), its generic kernel at l = 2 (the
      shape still routed to it), K2's cluster kernel at the CM shapes k+1 = 3, 4, 5 and 8 and its generic kernel at
-     k+1 = 4, at B = 4 over 64 steps of a random key; K2's generic kernel
-     and its step entry at the TEST shape (N = 512) at each batch phases
-     28-29 launched them with, timed beside their bounds;
+     k+1 = 4, at B = 4 over 64 steps of a random key; K2 at the TEST
+     shapes (N = 512) at each shape and batch phases 28-29 launched it
+     with, the route's kernel and the generic kernel's C entry in turns,
+     timed beside their bounds; K2's small-N cluster kernel at the TEST
+     rotation shape (B = 4, 128, 512; and l = 2, 3 at B = 3) and its CMux
+     chain (three GGSW sets, a ragged key_index, B = 1 and 64) against the
+     plain versions and, in turns, the generic kernel's C entry;
  35. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-33 (each
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
@@ -421,7 +426,7 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "keyswitch_digits_kernel",
                 "keyswitch32_kernel",
                 "keyswitch32_imma_kernel", "blind_rotate_kernel", "cmux_kernel",
-                "blind_rotate_cluster_kernel",
+                "blind_rotate_cluster_kernel", "blind_rotate_cluster_small_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
                 "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
@@ -994,6 +999,15 @@ def cluster_regs(report: dict, k1: int, levels: int, log_n: int) -> dict:
         "spill_store_bytes")}
 
 
+def small_regs(report: dict, levels: int) -> dict:
+    """ptxas's registers and spills of K2's small-N cluster kernel at l =
+    levels."""
+    regs = next((v for k, v in report.items()
+                 if f"blind_rotate_cluster_small_kernelILi{levels}E" in k), {})
+    return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
+        "spill_store_bytes")}
+
+
 def ptxas_of(report: dict, name: str) -> dict:
     """ptxas's figures for one kernel of ptxas_report, found by its name in
     the mangled entry name (the length prefix keeps keyswitch_kernel from
@@ -1017,7 +1031,8 @@ def kernel_ms_by_name(prof, names) -> dict:
 
 def kernel_wrappers(kernels) -> tuple:
     return (kernels.keyswitch, kernels.keyswitch32, kernels.blind_rotate, kernels.cmux_step,
-            kernels.cmux, kernels.blind_rotate_multibit, kernels.packing_keyswitch,
+            kernels.cmux_chain, kernels.cmux, kernels.blind_rotate_multibit,
+            kernels.packing_keyswitch,
             kernels.blind_rotate128, kernels.packing_keyswitch128, kernels.glwe_keyswitch,
             kernels.blind_rotate_extended)
 
@@ -2615,8 +2630,8 @@ def atomic_table_entries(table: list, atomic_run, wire_run, errs: dict, k132: di
             ("keyswitch", "keyswitch_imma", None, "tensor_core_launches_by_path"),
             ("blind_rotate", "blind_rotate", v7_tags, "launches_by_path"),
             ("blind_rotate_exact", "blind_rotate_exact_lazy", lazy_tags, "launches_by_path"),
-            ("blind_rotate_exact", "blind_rotate", ("test_ks32", "test_pbs_ks", "drift"),
-             "generic_launches_by_path"),
+            ("blind_rotate_cluster_small", "blind_rotate_cluster",
+             ("test_ks32", "test_pbs_ks", "drift"), "launches_by_path"),
             ("blind_rotate_multibit_exact", "blind_rotate_multibit", ("many_multibit",),
              "launches_by_path")):
         extra = by_path(counter, tags)
@@ -2756,12 +2771,13 @@ def squash_compress_phase(kernels, ns, sq_priv, nsk, sk, squashed, want, u64_add
 def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     """Phase 28: WoPBS at TEST_PARAM_MESSAGE_2_CARRY_2 and TEST_WOPBS_PARAM
     (the only WoPBS sets either package has) on the card: keygen;
-    extract_bits (one PBS round: K1, K2's generic exact kernel); apply_wopbs
-    with the identity and a non-monotone LUT over all 16 inputs (each: the
-    bits' PBS, the circuit bootstrap's PBS round and one K1 launch at the
-    PFPKS shape, four low-bit rotations on K2's step entry); a
-    WOPBS_TREE_BITS-bit vertical packing (one K2 CMux launch for the tree,
-    nine step-entry launches).  Every output decrypted."""
+    extract_bits (one PBS round: K1, K2's cluster kernel at N = 512);
+    apply_wopbs with the identity and a non-monotone LUT over all 16 inputs
+    (each: the bits' PBS, the circuit bootstrap's PBS round and one K1
+    launch at the PFPKS shape, the four low-bit rotations in one launch of
+    K2's CMux chain); a WOPBS_TREE_BITS-bit vertical packing (one K2 CMux
+    launch for the tree, its nine low bits in one chain launch).  Every
+    output decrypted."""
     import numpy as np
     import torch
 
@@ -2787,9 +2803,9 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
                        "pfpks_launches": launches["keyswitch"] - launches["keyswitch_imma"],
                        "wrong": bad}
         if launches != only(kernels, keyswitch=48, keyswitch_imma=32, blind_rotate=32,
-                            cmux_step=64):
+                            blind_rotate_cluster=32, cmux_chain=16):
             raise RuntimeError(f"apply_wopbs ({name}) did not run K1 (16 at the PFPKS shape), "
-                               f"K2 and K2's step entry as expected: {launches}")
+                               f"K2's cluster kernel and its CMux chain as expected: {launches}")
     rng = np.random.default_rng(seed)
     v = int(rng.integers(0, 1 << WOPBS_TREE_BITS))
     f = lambda x: (x ^ (x >> 3)) % 16  # noqa: E731
@@ -2799,11 +2815,10 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     tree_out, tree_launches, tree_s, _ = counted(
         kernels, lambda: wk.vertical_packing(wk.circuit_bootstrap_bits(bit_cts), table, p.delta))
     wrong += ck.decrypt_raw(tree_out) != f(v)
-    low = (p.polynomial_size.bit_length() - 1)
-    if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, blind_rotate=1, cmux=1,
-                             cmux_step=low):
+    if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, blind_rotate=1,
+                             blind_rotate_cluster=1, cmux=1, cmux_chain=1):
         raise RuntimeError(f"the {WOPBS_TREE_BITS}-bit vertical packing did not run one CMux "
-                           f"launch and {low} step launches: {tree_launches}")
+                           f"launch and one CMux-chain launch: {tree_launches}")
     # the PFPKS inputs of one circuit bootstrap, for the kernel comparisons
     outs = sk.apply_lookup_table_batch(
         [c for _ in range(wk.params.cbs_level) for c in bit_cts],
@@ -2825,15 +2840,18 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
                                  "launches": tree_launches},
             "outputs_checked": 4 + 32 + 1, "wrong": int(wrong)}
     return {"line": line, "wrong": int(wrong), "wk": wk, "sk": sk, "ck": ck, "ggsw": ggsw,
+            "tree_bits": bit_cts, "tree_table": table,
             "pfpks_lwes": torch.cat([lwes, lwes.new_zeros((lwes.shape[0], 1))], dim=1)}
 
 
 def aes_phase(kernels, shortint_mod, integer, wopbs, aes, seed: int) -> dict:
     """Phase 29: AES over WoPBS at TEST_PARAM_MESSAGE_2_CARRY_2 (tfhe_tpu's
     only WoPBS set): the S-box of 4 encrypted bytes (one bits' PBS round,
-    one circuit bootstrap, a vertical packing a block, one refresh round),
+    one circuit bootstrap, a vertical packing a byte and block, all of
+    their low bits in one launch of K2's CMux chain, one refresh round),
     then one AES-128 round on an encrypted state with injected encrypted
-    round keys against the cleartext model (tests/test_aes.py:39-75)."""
+    round keys against the cleartext model (tests/test_aes.py:39-75): a
+    chain launch for its S-box, one for x2 and one for x3."""
     import torch
 
     p = shortint_mod.TEST_PARAM_MESSAGE_2_CARRY_2
@@ -2867,9 +2885,12 @@ def aes_phase(kernels, shortint_mod, integer, wopbs, aes, seed: int) -> dict:
             "aes128_round": {"rounds": 1, "seconds": round_s, "launches": round_launches,
                              "output_hex": got.hex(), "want_hex": bytes(s).hex()},
             "outputs_checked": len(AES_SBOX_BYTES) + 16, "wrong": int(wrong)}
-    for tag, launches in (("S-box", sbox_launches), ("AES round", round_launches)):
-        if not (launches["cmux_step"] and launches["keyswitch"] and launches["blind_rotate"]):
-            raise RuntimeError(f"the {tag} skipped K1, K2 or K2's step entry: {launches}")
+    for tag, launches, chains in (("S-box", sbox_launches, 1), ("AES round", round_launches, 3)):
+        if not (launches["keyswitch"] and launches["blind_rotate"]
+                and launches["blind_rotate_cluster"] == launches["blind_rotate"]
+                and launches["cmux_chain"] == chains and not launches["cmux_step"]):
+            raise RuntimeError(f"the {tag} did not run K1, K2's cluster kernel and {chains} "
+                               f"CMux-chain launches without K2's step entry: {launches}")
     return {"line": line, "wrong": int(wrong)}
 
 
@@ -2931,7 +2952,10 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
     kernel at base 2^37 (the toy test vectors' keyswitch); K1 at the PFPKS
     shape on phase 28's circuit-bootstrap LWEs against the plain keyswitch;
     K2's CMux entry against ct0 + external_product on one of phase 28's
-    GGSWs at the tree's B = 1 and at B = 64.  Times, bounds."""
+    GGSWs at the tree's B = 1 and at B = 64; phase 28's 10-bit vertical
+    packing on the step route (one K2 step launch a low bit, the route of
+    GGSW shapes the chain's kernel refuses) against the chain's words.
+    Times, bounds."""
     import numpy as np
     import torch
 
@@ -3032,7 +3056,28 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
                                                     prm.cbs_level), 3),
             "bound": cmux_bound(ct0, prm.cbs_level, prm.cbs_base_log),
             "shape": [b, wk.k + 1, wk.n_poly, prm.cbs_level]}
-    return {"k6": k6, "pfpks": pf, "cmux": cm}
+    # vertical packing's step route (no set of either package takes it)
+    from tfhe_tpu_torch.shortint import wopbs
+
+    tree_ggsws = wk.circuit_bootstrap_bits(wopbs_run["tree_bits"])
+    table, delta = wopbs_run["tree_table"], wk.shortint_params.delta
+    chain_out = wk.vertical_packing(tree_ggsws, table, delta)
+    before = {c: getattr(kernels, c).launches for c in ("cmux_step", "cmux_chain", "cmux")}
+    route = wopbs.low_bits_route
+    wopbs.low_bits_route = lambda *shape: "step"
+    try:
+        step_out = wk.vertical_packing(tree_ggsws, table, delta)
+    finally:
+        wopbs.low_bits_route = route
+    made = {c: getattr(kernels, c).launches - n for c, n in before.items()}
+    n_low = min(len(wopbs_run["tree_bits"]), wk.n_poly.bit_length() - 1)
+    if made != {"cmux_step": n_low, "cmux_chain": 0, "cmux": 1}:
+        raise RuntimeError(f"vertical packing's step route did not run {n_low} step "
+                           f"launches and one CMux launch: {made}")
+    errs["vertical_packing_step_route"] = max_abs_err(
+        torch.from_numpy(np.asarray(step_out.data).view(np.int64)),
+        torch.from_numpy(np.asarray(chain_out.data).view(np.int64)))
+    return {"k6": k6, "pfpks": pf, "cmux": cm, "step_route_launches": made}
 
 
 # Phases 31-32: 3_3 on the card (K2's cluster kernel at N = 8192) and every
@@ -3723,13 +3768,51 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
     return out
 
 
-def test_shape_figures(kernels, server, torus, shapes: dict, seed: int, errs: dict) -> dict:
-    """K2's generic exact kernel and its step entry at the TEST shapes
-    (N = 512) as phases 28-29 launched them: for each recorded (entry,
-    route, B, steps, k+1, N, l, base_log) on the generic kernel, its
-    launches, CUDA-event ms on a random key and random inputs of that shape
-    (10 launches), the bound, and one check against the plain version;
-    the launch-weighted sums."""
+# K2 at the TEST shapes (N = 512): the rotation (l = 1, base 2^23, 16
+# steps: WoPBS's and AES's PBS) at SMALL_ROTATION_BATCHES, the CMux chain of
+# vertical packing (l = 4, base 2^6, 8 steps) on SMALL_CHAIN_SETS GGSW sets
+# at SMALL_CHAIN_BATCHES; every timing over SMALL_REPS launches
+SMALL_ROTATION = (16, 1, 23)  # steps, l, base_log
+SMALL_CHAIN = (8, 4, 6)
+SMALL_ROTATION_BATCHES = (4, 128, 512)
+SMALL_CHAIN_BATCHES = (1, 64)
+SMALL_CHAIN_SETS = 3
+SMALL_REPS = 10
+
+
+def chain_bound(a_cols, acc, sets, index, levels: int, base_log: int) -> dict:
+    """Least time for K2's CMux chain: the steps' products as k2_bound
+    counts them (four primes), against the GGSW sets that index names
+    (each read once; the others are not read), the rotations, the index,
+    and the accumulators in and out moved once."""
+    ops = k2_bound(a_cols, acc, levels, base_log, EXACT_PRIMES)
+    t_ops = min(ops["ntt_ms"], ops["four_step_ms"])
+    t_bytes = ((4 * sets[0].numel() * len(set(index.tolist())) + 4 * a_cols.numel()
+                + 4 * a_cols.shape[0] + 2 * 8 * acc.numel()) / HBM_BYTES_PER_S * 1e3)
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ntt_ms": ops["ntt_ms"], "four_step_ms": ops["four_step_ms"]}
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """launch_ms of each fn, taken in turns (a, b, b, a): name -> [(ms,
+    host ms), (ms, host ms)]."""
+    order = list(fns) + list(reversed(list(fns)))
+    out = {name: [] for name in fns}
+    for name in order:
+        out[name].append(launch_ms(fns[name], reps))
+    return out
+
+
+def small_n_vs_plain(kernels, server, torus, seed: int, errs: dict) -> dict:
+    """K2's small-N cluster kernel (csrc/blind_rotate_cluster.cu
+    blind_rotate_cluster_small_kernel) at the TEST shapes on random keys,
+    in turns against the generic kernel's C entry (the first design, the
+    yardstick), each held against its plain version: the rotation through
+    kernels.rotate_accumulator at B = 4, 128, 512 (server.rotate_accumulator);
+    the CMux chain through kernels.cmux_chain on three GGSW sets and a
+    ragged key_index at B = 1, 64 (server.cmux_chain; the generic kernel
+    runs the same steps on set 0, and the step entry, which vertical
+    packing ran before, one of them at B = 1)."""
     import numpy as np
     import torch
 
@@ -3738,56 +3821,168 @@ def test_shape_figures(kernels, server, torus, shapes: dict, seed: int, errs: di
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
-    out = {"rotation": [], "step_entry": []}
+    n_poly, k1 = 512, 2
+    dp = ntt.device_plan(ntt.make_plan(n_poly, EXACT_PRIMES), "cuda")
+    out = {"rotation": {}, "chain": {}}
+    steps, levels, base_log = SMALL_ROTATION
+    key = random_ntt_key((steps, levels, k1, k1), dp, gen)
+    for b in SMALL_ROTATION_BATCHES:
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
+        before = kernels.blind_rotate.cluster_launches
+        got = kernels.rotate_accumulator(acc, mask, key, dp, base_log, levels)
+        if kernels.blind_rotate.cluster_launches != before + 1:
+            raise RuntimeError("the TEST rotation shape did not route to the cluster kernel")
+        t0 = time.perf_counter()
+        want = server.rotate_accumulator(acc, mask, key, dp, base_log, levels)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs[f"k2_small_rotation_b{b}"] = max_abs_err(got, want)
+        errs[f"k2_generic_test_shape_rotation_b{b}"] = max_abs_err(
+            generic_exact_rotate(kernels, acc, mask, key, dp, base_log, levels), want)
+        t = in_turns({"cluster": lambda: kernels.rotate_accumulator(acc, mask, key, dp, base_log,
+                                                                    levels),
+                      "generic": lambda: generic_exact_rotate(kernels, acc, mask, key, dp,
+                                                              base_log, levels)}, SMALL_REPS)
+        bound = k2_bound(mask, acc, levels, base_log, EXACT_PRIMES)
+        out["rotation"][f"b{b}"] = {
+            "ms": min(x[0] for x in t["cluster"]), "host_ms": min(x[1] for x in t["cluster"]),
+            "generic_ms": min(x[0] for x in t["generic"]),
+            "generic_host_ms": min(x[1] for x in t["generic"]), "turns": t,
+            "plain_ms": plain_ms, "bound_ms": bound["ms"], "bound_by": bound["by"],
+            "shape": [b, steps, k1, n_poly, levels, base_log]}
+    # the kernel's other instances (l = 2, 3), which no set runs: held only
+    for levels, base_log in ((2, 15), (3, 10)):
+        key = random_ntt_key((4, levels, k1, k1), dp, gen)
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (3, k1, n_poly), dtype=np.uint64), dev)
+        mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (3, 4))).to(dev)
+        errs[f"k2_small_rotation_l{levels}_b3"] = max_abs_err(
+            kernels.rotate_accumulator(acc, mask, key, dp, base_log, levels),
+            server.rotate_accumulator(acc, mask, key, dp, base_log, levels))
+    steps, levels, base_log = SMALL_CHAIN
+    sets = random_ntt_key((SMALL_CHAIN_SETS, steps + 1, levels, k1, k1), dp, gen)[:, 1:]
+    for b in SMALL_CHAIN_BATCHES:
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        cols = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
+        index = torch.from_numpy(rng.integers(0, SMALL_CHAIN_SETS, (b,)))
+        index[0] = SMALL_CHAIN_SETS - 1
+        got = kernels.cmux_chain(acc, cols, sets, index, dp, base_log, levels)
+        t0 = time.perf_counter()
+        want = server.cmux_chain(acc, cols, sets, index, dp, base_log, levels)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs[f"cmux_chain_b{b}"] = max_abs_err(got, want)
+        one = sets[0].contiguous()
+        errs[f"k2_generic_test_shape_chain_b{b}"] = max_abs_err(
+            generic_exact_rotate(kernels, acc, cols, one, dp, base_log, levels),
+            server.rotate_accumulator(acc, cols, one, dp, base_log, levels))
+        step_acc = acc[:1].contiguous()
+        errs[f"k2_step_test_shape_b{b}"] = max_abs_err(
+            kernels.cmux_step(step_acc.clone(), cols[:1, 0], one[0], dp, base_log, levels),
+            server.cmux_step(step_acc, cols[:1, 0], one[0], dp, base_log, levels))
+        t = in_turns({"chain": lambda: kernels.cmux_chain(acc, cols, sets, index, dp, base_log,
+                                                          levels),
+                      "generic": lambda: generic_exact_rotate(kernels, acc, cols, one, dp,
+                                                              base_log, levels)}, SMALL_REPS)
+        step_ms, step_host_ms = launch_ms(lambda: kernels.cmux_step(
+            step_acc, cols[:1, 0], one[0], dp, base_log, levels), SMALL_REPS)
+        bound = chain_bound(cols, acc, sets, index, levels, base_log)
+        out["chain"][f"b{b}"] = {
+            "ms": min(x[0] for x in t["chain"]), "host_ms": min(x[1] for x in t["chain"]),
+            "generic_ms": min(x[0] for x in t["generic"]),
+            "generic_host_ms": min(x[1] for x in t["generic"]), "turns": t,
+            "step_entry_b1_ms": step_ms, "step_entry_b1_host_ms": step_host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound["ms"], "bound_by": bound["by"],
+            "bound_bytes_ms": bound["bytes_ms"],
+            "shape": [b, steps, k1, n_poly, levels, base_log], "sets": SMALL_CHAIN_SETS,
+            "sets_read": len(set(index.tolist()))}
+    return out
+
+
+def test_shape_figures(kernels, server, torus, shapes: dict, seed: int, errs: dict) -> dict:
+    """K2 at the TEST shapes (N = 512) as phases 28-29 launched it: for each
+    recorded (entry, route, B, steps, k+1, N, l, base_log), its launches,
+    and on a random key and random inputs of that shape (one GGSW set a
+    chain) the route's kernel and the generic kernel's C entry in turns
+    (SMALL_REPS launches, CUDA-event ms and the host's ms a launch), the
+    bound and one check of each against the plain version; the
+    launch-weighted sums."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = {"rotation": [], "chain": [], "step_entry": []}
     for (entry, route, b, steps, k1, n_poly, levels, base_log), count in sorted(shapes.items()):
-        if route != "generic":
+        if n_poly != 512:
             continue
         dp = ntt.device_plan(ntt.make_plan(n_poly, EXACT_PRIMES), "cuda")
         key = random_ntt_key((steps, levels, k1, k1), dp, gen)
         mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (b, steps))).to(dev)
         acc = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        zero = torch.zeros(b, dtype=torch.int64)
         if entry == "cmux_step":
             fn = lambda: kernels.cmux_step(acc.clone(), mask[:, 0], key[0], dp,  # noqa: E731
                                            base_log, levels)
             want = server.cmux_step(acc, mask[:, 0], key[0], dp, base_log, levels)
+        elif entry == "cmux_chain":
+            fn = lambda: kernels.cmux_chain(acc, mask, key[None], zero, dp,  # noqa: E731
+                                            base_log, levels)
+            want = server.rotate_accumulator(acc, mask, key, dp, base_log, levels)
         else:
             fn = lambda: kernels.rotate_accumulator(acc, mask, key, dp,  # noqa: E731
                                                     base_log, levels)
             want = server.rotate_accumulator(acc, mask, key, dp, base_log, levels)
-        errs[f"k2_generic_test_shape_{entry}_b{b}"] = max_abs_err(fn(), want)
-        ms, host_ms = launch_ms(fn, 10)
+        generic = lambda: generic_exact_rotate(kernels, acc, mask, key, dp,  # noqa: E731
+                                               base_log, levels)
+        tag = f"{entry}_{route}_b{b}_l{levels}"
+        errs[f"k2_test_shape_{tag}"] = max_abs_err(fn(), want)
+        if entry != "cmux_step":
+            errs[f"k2_generic_test_shape_{tag}"] = max_abs_err(generic(), want)
+        t = in_turns({"route": fn, "generic": generic}, SMALL_REPS)
         bound = k2_bound(mask, acc, levels, base_log, EXACT_PRIMES)
-        out["rotation" if entry == "blind_rotate" else "step_entry"].append(
-            {"batch": b, "steps": steps, "k1": k1, "N": n_poly, "levels": levels,
-             "base_log": base_log, "launches": count, "ms": ms, "host_ms": host_ms,
-             "bound_ms": bound["ms"], "bound_by": bound["by"]})
+        rows = out["rotation" if entry == "blind_rotate" else
+                   "chain" if entry == "cmux_chain" else "step_entry"]
+        rows.append({"entry": entry, "route": route, "batch": b, "steps": steps, "k1": k1,
+                     "N": n_poly, "levels": levels, "base_log": base_log, "launches": count,
+                     "ms": min(x[0] for x in t["route"]),
+                     "host_ms": min(x[1] for x in t["route"]),
+                     "generic_ms": min(x[0] for x in t["generic"]),
+                     "generic_host_ms": min(x[1] for x in t["generic"]),
+                     "bound_ms": bound["ms"], "bound_by": bound["by"]})
     for rows in out.values():
-        out_total = {"launches": sum(r["launches"] for r in rows),
-                     "ms": sum(r["launches"] * r["ms"] for r in rows),
-                     "bound_ms": sum(r["launches"] * r["bound_ms"] for r in rows)}
-        rows.append({"launch_weighted": out_total})
+        rows.append({"launch_weighted": {
+            "launches": sum(r["launches"] for r in rows),
+            "ms": sum(r["launches"] * r["ms"] for r in rows),
+            "generic_ms": sum(r["launches"] * r["generic_ms"] for r in rows),
+            "bound_ms": sum(r["launches"] * r["bound_ms"] for r in rows)}})
     return out
 
 
 class RotationShapes:
     """Records the shape of every exact rotation K2's wrappers launch
     (kernels._launch_blind_rotate, which blind_rotate's exact mode,
-    rotate_accumulator and cmux_step call, each naming itself as the
-    launch's entry) while in a with block: (entry, route, B, steps, k+1,
-    N, l, base_log) -> launches.  The wrappers' own counts are
+    rotate_accumulator, cmux_step and cmux_chain call, each naming itself
+    as the launch's entry) while in a with block: (entry, route, B, steps,
+    k+1, N, l, base_log) -> launches.  The wrappers' own counts are
     untouched."""
 
     def __init__(self, kernels):
         self.kernels, self.shapes = kernels, {}
 
+    def _add(self, shape) -> None:
+        self.shapes[shape] = self.shapes.get(shape, 0) + 1
+
     def __enter__(self):
         launch = self.original = self.kernels._launch_blind_rotate
 
-        def recorded(acc, mask32, bsk_ntt, dp, base_log, levels, entry):
-            route = launch(acc, mask32, bsk_ntt, dp, base_log, levels, entry)
-            shape = (entry, route, acc.shape[0], mask32.shape[1], acc.shape[1], acc.shape[2],
-                     levels, base_log)
-            self.shapes[shape] = self.shapes.get(shape, 0) + 1
+        def recorded(acc, mask32, bsk_ntt, dp, base_log, levels, entry, key_index=None):
+            route = launch(acc, mask32, bsk_ntt, dp, base_log, levels, entry, key_index)
+            self._add((entry, route, acc.shape[0], mask32.shape[1], acc.shape[1],
+                       acc.shape[2], levels, base_log))
             return route
 
         self.kernels._launch_blind_rotate = recorded
@@ -4865,8 +5060,10 @@ def main() -> None:
         if chosen not in s15["k8_slots_held"]:
             raise RuntimeError(f"K8's lazy kernel at (E, slots a block) {chosen}, as phase 33 "
                                f"ran it, was not held against its plain version")
-    # phases 28-29: K2's generic kernel and its step entry at the TEST shapes
+    # phases 28-29: K2 at the TEST shapes as they launched it, and its small-N
+    # cluster kernel (the rotation, the CMux chain) against the generic kernel
     s16 = test_shape_figures(kernels, server, torus, test_shapes.shapes, args.seed + 122, errs)
+    s17 = small_n_vs_plain(kernels, server, torus, args.seed + 123, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -5243,14 +5440,72 @@ def main() -> None:
     lazy_tv = s13_launches("blind_rotate_exact_lazy")["test_vectors"]
     by_name["blind_rotate_exact"].setdefault("generic_launches_by_path", {}).update(
         {p_: s13_launches("blind_rotate")[p_] - s13_launches("blind_rotate_exact_lazy")[p_]
-         for p_ in ("wopbs", "aes", "test_vectors")})
+         - s13_launches("blind_rotate_cluster")[p_] for p_ in ("wopbs", "aes", "test_vectors")})
     by_name["blind_rotate_exact"]["launches_by_path"]["test_vectors"] = lazy_tv
     by_name["blind_rotate_exact"]["launches"] += lazy_tv
     by_name["cmux_step"]["generic_launches_by_path"] = {
         p_: v for p_, v in s13_launches("cmux_step").items() if v}
-    # their times at the TEST shapes, launch by launch as phases 28-29 ran them
-    by_name["blind_rotate_exact"]["generic_test_shapes"] = s16["rotation"]
-    by_name["cmux_step"]["generic_test_shapes"] = s16["step_entry"]
+    # their times at the TEST shapes, launch by launch as phases 28-29 ran
+    # them (the route's kernel beside the generic kernel, the first design):
+    # the rotation on the small-N cluster kernel; the step entry's low bits
+    # now K2's CMux chain, with one step-entry launch at B = 1 timed beside
+    by_name["blind_rotate_exact"]["test_shapes"] = s16["rotation"]
+    by_name["cmux_step"]["test_shapes"] = {
+        "chain": s16["chain"], "step_entry": s16["step_entry"],
+        **{f"step_entry_b1_ms_at_chain_b{b}": s17["chain"][f"b{b}"]["step_entry_b1_ms"]
+           for b in SMALL_CHAIN_BATCHES},
+        **{f"step_entry_b1_host_ms_at_chain_b{b}":
+           s17["chain"][f"b{b}"]["step_entry_b1_host_ms"] for b in SMALL_CHAIN_BATCHES}}
+    # K2's small-N cluster kernel (the TEST rotation) and its CMux chain
+    # (phases 28-29 and the other TEST-set paths)
+    small_l1 = small_regs(ptxas_kernels, 1)
+    small_l4 = small_regs(ptxas_kernels, 4)
+    rot4 = s17["rotation"][f"b{SMALL_ROTATION_BATCHES[0]}"]
+    chain1 = s17["chain"][f"b{SMALL_CHAIN_BATCHES[0]}"]
+    small_paths = {p_: v for p_, v in s13_launches("blind_rotate_cluster").items() if v}
+    table += [
+        {"name": "blind_rotate_cluster_small", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
+         "kernel": "blind_rotate_cluster_small_kernel (K2's exact rotation at the TEST "
+                   "shapes, k+1 = 2, N = 512, l <= 4: a cluster of 4 blocks of 128 threads "
+                   "a ciphertext, one a CRT prime)",
+         "launches": sum(small_paths.values()), "launches_by_path": small_paths,
+         "max_abs_err": max(v for k, v in errs.items()
+                            if k.startswith(("k2_small", "k2_test_shape_blind_rotate"))),
+         "ms": rot4["ms"], "host_ms": rot4["host_ms"], "generic_kernel_ms": rot4["generic_ms"],
+         "plain_ms": rot4["plain_ms"], "bound_ms": rot4["bound_ms"],
+         "bound_by": rot4["bound_by"], "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact wrapping-u64 negacyclic "
+                         "product",
+         "by_batch": s17["rotation"], "bound_primes": EXACT_PRIMES,
+         **kernels.cluster_figures(2, 512, SMALL_ROTATION[1]),
+         "registers": small_l1.get("registers"),
+         "spill_store_bytes": small_l1.get("spill_store_bytes"),
+         "shape": rot4["shape"]},
+        {"name": "cmux_chain", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:296",
+         "kernel": "blind_rotate_cluster_small_kernel with a key a ciphertext (every "
+                   "low bit of a call's vertical packings in one launch, a GGSW set a "
+                   "ciphertext)",
+         "launches": sum(s13_launches("cmux_chain").values()),
+         "launches_by_path": {k: v for k, v in s13_launches("cmux_chain").items() if v},
+         "max_abs_err": max(v for k, v in errs.items()
+                            if k.startswith(("cmux_chain", "k2_test_shape_cmux_chain"))),
+         "ms": chain1["ms"], "host_ms": chain1["host_ms"],
+         "generic_kernel_ms": chain1["generic_ms"],
+         "step_entry_b1_ms": chain1["step_entry_b1_ms"],
+         "step_entry_b1_host_ms": chain1["step_entry_b1_host_ms"],
+         "plain_ms": chain1["plain_ms"], "bound_ms": chain1["bound_ms"],
+         "bound_by": chain1["bound_by"], "library_ms": None,
+         "library_call": "none: no PyTorch call computes an exact wrapping-u64 negacyclic "
+                         "product",
+         "by_batch": s17["chain"], "bound_primes": EXACT_PRIMES,
+         **kernels.cluster_figures(2, 512, SMALL_CHAIN[1]),
+         "registers": small_l4.get("registers"),
+         "spill_store_bytes": small_l4.get("spill_store_bytes"),
+         "shape": chain1["shape"]}]
     # K1-32, and the launches of phases 25-26 on the other kernels' entries
     atomic_table_entries(table, atomic_run, wire_run, errs, k132, ptxas_kernels)
     # K2's cluster kernel (phase 31), and the launches of phases 31-32 on

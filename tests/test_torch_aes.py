@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import shortint as ref_shortint
 from tfhe_tpu.apps import aes as ref_aes
@@ -27,6 +28,8 @@ from tfhe_tpu_torch.apps import aes
 from tfhe_tpu_torch.ops import ntt, torus
 from tfhe_tpu_torch.shortint import wopbs
 from tfhe_tpu_torch.utils import csprng
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0xAE5
 

@@ -30,6 +30,8 @@ from tfhe_tpu_torch.ops import kernels, server, torus
 from tfhe_tpu_torch.shortint import params as port_params
 from tfhe_tpu_torch.utils import csprng
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 NEW_SETS = ("TEST_PARAM_MESSAGE_2_CARRY_2_KS32",
             "V1_4_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
             "TEST_PARAM_MESSAGE_2_CARRY_2_PBS_KS",

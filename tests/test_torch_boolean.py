@@ -15,6 +15,8 @@ from tfhe_tpu_torch import boolean
 from tfhe_tpu_torch.ops import torus
 from tfhe_tpu_torch.shortint.ciphertext import DeviceLweBatch, LazyLweData
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 GATES = {
     "and": lambda x, y: x and y,
     "or": lambda x, y: x or y,

@@ -58,7 +58,8 @@ print("TORCH-CLIENT-ONLY OK")
 
 
 def test_client_role_without_gpu_jax_or_tfhe_tpu():
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    # one intra-op thread: the suite runs in parallel processes
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
                          timeout=300, cwd=str(REPO), env=env)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -29,6 +29,8 @@ from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.ops import kernels, torus
 from tfhe_tpu_torch.utils import csprng
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED = 0xC0FFEE
 MSG_BITS = 4
 DELTA = 1 << (64 - MSG_BITS - 1)

@@ -18,6 +18,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import tfhe_tpu as ref_t
 from tfhe_tpu import shortint as ref_shortint
@@ -36,6 +37,8 @@ from tfhe_tpu_torch.shortint import key_switching_key as ksk_mod
 from tfhe_tpu_torch.shortint import oprf
 from tfhe_tpu_torch.shortint import params as port_params
 from tfhe_tpu_torch.shortint import re_randomization as rr
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0xC0A5
 MESSAGES = [3, 0, 2, 1, 15, 7]

@@ -34,6 +34,8 @@ from tfhe_tpu_torch.shortint import compression as comp
 from tfhe_tpu_torch.shortint import server_key as sk_mod
 from tfhe_tpu_torch.utils.csprng import TUniform
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED = 0xC0FF
 BASE_LOG, LEVELS = 4, 3           # TEST_COMP_PARAM's packing keyswitch
 # two storage GLWEs, 256 + 4: tfhe_tpu packs the second at the shape of the

@@ -33,6 +33,8 @@ from tfhe_tpu_torch.ops import torus
 from tfhe_tpu_torch.shortint import noise_squashing as ns
 from tfhe_tpu_torch.shortint import params as sp_mod
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 MASTER = 0x4A1C0DE
 SEED = 0x4A1
 

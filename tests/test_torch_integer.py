@@ -7,6 +7,7 @@ downloads nothing before decrypt."""
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import integer as ref_integer
 from tfhe_tpu import shortint as ref_shortint
@@ -14,6 +15,8 @@ from tfhe_tpu.integer import scheduler as ref_sched
 from tfhe_tpu_torch import integer, shortint
 from tfhe_tpu_torch.integer import scheduler
 from tfhe_tpu_torch.shortint.ciphertext import DeviceLweBatch, LazyLweData
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0x1A7E
 NB = 4                   # 4 blocks x 2 bits = 8-bit integers

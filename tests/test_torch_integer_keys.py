@@ -6,6 +6,7 @@ classic TEST set, K5's function) of a radix op's lazy outputs."""
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import integer as ref_integer
 from tfhe_tpu import shortint as ref_shortint
@@ -15,6 +16,8 @@ from tfhe_tpu_torch import integer, shortint
 from tfhe_tpu_torch.integer import noise_squashing as ins
 from tfhe_tpu_torch.ops import torus
 from tfhe_tpu_torch.shortint import noise_squashing as ns
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 NB = 4
 MOD = 4 ** NB

@@ -8,6 +8,7 @@ no source of the port (nor chip_smoke.py) imports jax or
 tfhe_tpu, and its entry points run on CUDA unless asked for the CPU,
 raising where there is no GPU."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -20,6 +21,8 @@ import tfhe_tpu_torch
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import ntt, torus
 from tfhe_tpu_torch.utils.device import resolve_device
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(
@@ -164,8 +167,10 @@ print("PORT-ISOLATED OK")
 
 
 def test_port_imports_with_jax_blocked():
+    # one intra-op thread: the suite runs in parallel processes
     out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
-                         text=True, timeout=300, cwd=str(REPO))
+                         text=True, timeout=300, cwd=str(REPO),
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr[-2000:]
     assert "PORT-ISOLATED OK" in out.stdout
 

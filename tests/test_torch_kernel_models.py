@@ -18,7 +18,10 @@ contraction cut into slices of chunks summed in any order
 (ops/kernels.py keyswitch_splits).  K2's cluster kernel
 (csrc/blind_rotate_cluster.cu) at the 3_3 shape: each prime's digits,
 transforms and key product in its own block, the accumulator in quarters,
-Garner on each quarter from the four primes' residues.  K6's tensor-core
+Garner on each quarter from the four primes' residues; its small-N kernel
+at the TEST shapes (N = 512: the rotation, l = 1, and vertical packing's
+CMux chain, l = 4, a GGSW set a ciphertext), the kernel's digits and
+ranges against tfhe_tpu and the plain cmux_chain, and its route.  K6's tensor-core
 kernel: balanced byte limbs of d and of -d (the negacyclic wrap) times the
 key's byte limbs, the pairs a + b <= 15 summed in s32 at shift 8 (a + b)
 and folded into u128 words on its flush schedule.  The kernels' own shape
@@ -36,6 +39,8 @@ from tfhe_tpu.ops import ntt as ref_ntt
 from tfhe_tpu.ops import server as ref_srv
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import kernels, ntt, server, torus
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 M32 = (1 << 32) - 1
 PARAM_SETS = [v for k, v in vars(shortint.params).items()
@@ -844,6 +849,142 @@ def test_cluster_step_matches_tfhe_tpu():
                                            jnp.asarray(acc), jnp.asarray(key), plan,
                                            CL_BASE_LOG, CL_LEVELS))
     assert (torus.to_u64(got) == want).all()
+
+
+# ---------------------------------------------------------------------------
+# K2's cluster kernel at N = 512, its small-N kernel
+# (csrc/blind_rotate_cluster.cu blind_rotate_cluster_small_kernel): the TEST
+# rotation (l = 1, base 2^23, the digit from the high word) and the CMux
+# chain of vertical packing (l = 4, base 2^6, the 64-bit decomposer; a key
+# set a ciphertext by key_index)
+# ---------------------------------------------------------------------------
+
+SN_N, SN_K1 = 512, 2
+SN_SHAPES = ((1, 23), (4, 6))
+
+
+class _SmallStep:
+    """One step of the small-N kernel on numpy u64 accumulators (B, 2, N),
+    each ciphertext on its own GGSW (B, l, 2, 2, P, N): per prime, the
+    digits' residues d + 2p, lazy forward stages (a stage is the same
+    butterfly in any pass, so the kernel's 4 + 3 + 2 split and its fused
+    inverse 2 + 4 + 3 are these transforms), canonical inputs to the key
+    product, the l (k+1) products summed in 64 bits and reduced once a four
+    into [0, 2p), lazy inverse stages, N^-1 and Garner into the
+    accumulator, with each range the kernel relies on asserted."""
+
+    def __init__(self, levels, base_log):
+        self.levels, self.base_log = levels, base_log
+        self.plan = ref_ntt.make_plan(SN_N, P)
+        self.dp = ntt.device_plan(ntt.make_plan(SN_N, P), "cpu")
+        self.fwd, self.inv = (t.numpy().view(np.uint32).astype(np.uint64)
+                              for t in ntt.shoup_twiddles(self.dp))
+
+    def digits(self, acc, a):
+        """(l, B, 2, N) signed digits of acc X^a - acc, lowest level first:
+        from the high word at l = 1 (hi_word_digit) and wherever base_log l
+        <= 30 (hi_decomposer_state, hi_next_digit), else the 64-bit
+        decomposer (decomposer_state, next_digit)."""
+        ct1 = _rotate_minus(acc, a)
+        if self.levels == 1:
+            return _hi_word_digit(ct1 >> np.uint64(32), self.base_log)[None]
+        if self.base_log * self.levels <= 30:
+            return _hi_digits(ct1, self.base_log, self.levels)
+        return np.asarray(ref_srv.signed_decompose(jnp.asarray(ct1), self.base_log,
+                                                   self.levels)).astype(np.int64)
+
+    def __call__(self, acc, a, keys):
+        dig = self.digits(acc, a)
+        rows = dig.transpose(1, 0, 2, 3).reshape(acc.shape[0], -1, SN_N)   # (B, (lev, r), N)
+        y = np.empty(acc.shape[:2] + (P, SN_N), dtype=np.uint64)
+        for i, p in enumerate(self.plan.primes):
+            pp, p64 = self.plan.plans[i], np.uint64(p)
+            pinv = np.uint64(pp.p_inv_neg32)
+            res = ((rows + 2 * p) & M32).astype(np.uint64)
+            assert (res < 4 * p).all()
+            x = _reduce_to(_reduce_to(_lazy_forward(res, self.fwd[i, :, 0], self.fwd[i, :, 1],
+                                                    p64), 2 * p64), p64)
+            key = keys[:, :, :, :, i].astype(np.uint64).reshape(
+                acc.shape[0], -1, SN_K1, SN_N)                              # (B, (lev, r), cc, N)
+            prod = np.zeros((acc.shape[0], SN_K1, SN_N), dtype=np.uint64)
+            for cc in range(SN_K1):
+                for r0 in range(0, rows.shape[1], 4):
+                    t = sum(x[:, r] * key[:, r, cc] for r in range(r0, min(r0 + 4, rows.shape[1])))
+                    assert (t < p64 << np.uint64(32)).all()
+                    prod[:, cc] = _reduce_to(prod[:, cc] + _redc_lazy(t, p64, pinv), 2 * p64)
+            assert (prod < 2 * p).all()
+            z = _reduce_to(_lazy_inverse(prod, self.inv[i, :, 0], self.inv[i, :, 1], p64), p64)
+            y[:, :, i] = ref_ntt.mont_mul(z, pp.n_inv_mont, p64, pp.p_inv_neg32, np)
+        return acc + torus.to_u64(ntt.garner_to_u64(_i64(y), self.dp))
+
+
+@pytest.mark.parametrize("levels,base_log", SN_SHAPES)
+def test_small_n_cluster_chain_matches_tfhe_tpu(levels, base_log):
+    """Three ciphertexts over two GGSW sets (key_index 1, 0, 1) at the TEST
+    rotation and chain shapes, four steps on random keys: the model's steps
+    are, ciphertext by ciphertext, tfhe_tpu's exact blind_rotate on the
+    ciphertext's set (body 0, the accumulator as its LUT), and the port's
+    plain cmux_chain, word for word."""
+    rng = np.random.default_rng(59 + levels)
+    model = _SmallStep(levels, base_log)
+    steps, index = 4, np.array([1, 0, 1])
+    sets = np.stack([rng.integers(0, p, (2, steps, levels, SN_K1, SN_K1, SN_N),
+                                  dtype=np.uint64) for p in model.plan.primes],
+                    axis=-2).astype(np.uint32)
+    acc = rng.integers(0, 1 << 64, (3, SN_K1, SN_N), dtype=np.uint64)
+    acc[0, 0, :3] = (0, (1 << 64) - 1, 1 << 63)
+    a = rng.integers(0, 2 * SN_N, (3, steps))
+    got = acc
+    for i in range(steps):
+        got = model(got, a[:, i], sets[index, i])
+    for b in range(3):
+        want = np.asarray(ref_srv.blind_rotate(
+            jnp.asarray(a[b:b + 1]), jnp.zeros(1, jnp.uint64), jnp.asarray(acc[b:b + 1]),
+            jnp.asarray(sets[index[b]]), model.plan, base_log, levels))
+        assert (got[b:b + 1] == want).all(), b
+    plain = kernels.cmux_chain(torus.from_u64(acc, "cpu"), _i64(a),
+                               torch.from_numpy(sets.view(np.int32)), torch.from_numpy(index),
+                               model.dp, base_log, levels)
+    assert (torus.to_u64(plain) == got).all()
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 512, 1, 23), "cluster"),       # the TEST sets' PBS: WoPBS, AES, KS32, PBS->KS
+    ((2, 512, 4, 6), "cluster"),        # vertical packing's CMux chain
+    ((2, 512, 2, 15), "cluster"),
+    ((2, 512, 3, 10), "cluster"),
+    ((2, 512, 1, 30), "cluster"),
+    ((2, 512, 1, 31), "generic"),       # past the lazy residues' base_log 30
+    ((2, 512, 5, 6), "generic"),        # past l = 4
+    ((3, 512, 1, 23), "generic"),
+    ((5, 512, 1, 23), "generic"),       # 1_1
+    ((2, 256, 1, 23), "generic"),       # the toy vectors
+    ((2, 1024, 1, 23), "generic"),
+    ((2, 1024, 3, 7), "generic"),       # TFHE_LIB
+])
+def test_small_n_route(shape, route):
+    """K2's exact rotation takes the small-N cluster kernel exactly at the
+    N = 512 entry of CLUSTER_SHAPES (k+1 = 2, l <= 4, base_log <= 30): the
+    TEST rotation and chain shapes; every other shape the generic kernel
+    takes stays on it.  cmux_chain takes the same shapes (small_shape)."""
+    assert kernels.exact_rotation_route(*shape, False) == route
+    assert kernels.small_shape(*shape) == (route == "cluster")
+    assert kernels.cluster_shape(*shape) == (route == "cluster")
+
+
+def test_small_n_route_takes_the_test_sets_and_the_wopbs_chain():
+    """Every parameter set at k+1 = 2, N = 512 (the TEST sets) routes its
+    exact rotation to the small-N kernel, and TEST_WOPBS_PARAM's CMux chain
+    (l = 4, base 2^6) is a shape cmux_chain takes."""
+    from tfhe_tpu_torch.shortint import wopbs
+
+    test_sets = [p for p in PARAM_SETS if p.glwe_dimension == 1 and p.polynomial_size == 512]
+    assert test_sets
+    for p in test_sets:
+        assert kernels.exact_rotation_route(2, 512, p.pbs_level, p.pbs_base_log,
+                                            False) == "cluster", p
+    w = wopbs.TEST_WOPBS_PARAM
+    assert kernels.small_shape(2, 512, w.cbs_level, w.cbs_base_log)
 
 
 # ---------------------------------------------------------------------------

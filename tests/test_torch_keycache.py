@@ -22,6 +22,8 @@ from tfhe_tpu_torch.shortint import compression
 from tfhe_tpu_torch.shortint import noise_squashing as ns
 from tfhe_tpu_torch.utils import hbm, keycache
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 P = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
 SEED = 0x4B43
 

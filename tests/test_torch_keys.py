@@ -22,6 +22,8 @@ from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.ops import bsk_prep, ntt, torus
 from tfhe_tpu_torch.utils import csprng
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED_CK, SEED_SK = 0x5EED, 0xB00
 
 

@@ -9,11 +9,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import shortint as ref
 from tfhe_tpu.ops import ntt as ref_ntt
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import kernels, ntt
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 CUT_N = 4
 

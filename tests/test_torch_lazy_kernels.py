@@ -24,6 +24,8 @@ from tfhe_tpu.utils.csprng import TUniform as RefTUniform
 from tfhe_tpu_torch.core import multibit as mb
 from tfhe_tpu_torch.ops import kernels, ntt, server, torus
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 M32 = (1 << 32) - 1
 # (N, primes): K5's production and TEST squashing plans, K3's exact plan
 PLANS = ((2048, 6), (512, 6), (2048, 4))

@@ -30,6 +30,8 @@ from tfhe_tpu_torch.ops import bsk_prep, kernels, ntt, server, torus
 from tfhe_tpu_torch.shortint import server_key as port_sk
 from tfhe_tpu_torch.utils.csprng import TUniform
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 MB_SETS = sorted(name for name, v in vars(shortint).items()
                  if isinstance(v, shortint.MultiBitPBSParameters))
 N, BASE_LOG, LEVELS = 512, 22, 1

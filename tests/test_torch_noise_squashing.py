@@ -36,6 +36,8 @@ from tfhe_tpu_torch.shortint import noise_squashing as ns
 from tfhe_tpu_torch.utils.csprng import (DeterministicSeeder, EncryptionRandomGenerator,
                                          TUniform)
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED = 0x5A5A
 N = 512                         # TEST_NOISE_SQUASHING_PARAM's polynomial size
 BASE_LOG, LEVELS = 24, 3        # its decomposition

@@ -30,6 +30,8 @@ from tfhe_tpu_torch.ops import torus
 from tfhe_tpu_torch.shortint import compressed_key as ck_mod
 from tfhe_tpu_torch.shortint import oprf as soprf
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED = 0x0F4F
 NB = 4
 

@@ -21,6 +21,8 @@ from tfhe_tpu_torch.core.entities import LweBootstrapKey
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.ops import bsk_prep, kernels, ntt, server, torus
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 # the toy blind-rotation set of tests/test_mxu.py and tests/test_trunc_acc.py
 N, N_IN, K_GLWE = 512, 4, 1
 BASE_LOG, LEVELS = 23, 1

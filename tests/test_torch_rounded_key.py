@@ -35,6 +35,8 @@ from tfhe_tpu_torch.shortint import server_key as sk_mod
 from tfhe_tpu_torch.shortint.params import MsNoiseReduction
 from tfhe_tpu_torch.utils.csprng import TUniform
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 N, N_IN = 512, 4
 
 

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import integer as ref_integer
 from tfhe_tpu import shortint as ref_shortint
@@ -44,6 +45,8 @@ from tfhe_tpu_torch.shortint import server_key as port_sk
 from tfhe_tpu_torch.shortint.ciphertext import DeviceLweBatch, LazyLweData
 from tfhe_tpu_torch.utils import serialization as ser
 from tfhe_tpu_torch.zk import curve446, pke, pke_v2
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0x5E71
 CORPUS = Path(__file__).parent / "compat_corpus"

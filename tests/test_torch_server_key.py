@@ -25,6 +25,8 @@ from tfhe_tpu_torch.shortint.params import (EncryptionKeyChoice,
                                             MsNoiseReduction)
 from tfhe_tpu_torch.utils.csprng import TUniform
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 MS_MODES = {"none": (RefMs.NONE, MsNoiseReduction.NONE),
             "centered_mean": (RefMs.CENTERED_MEAN, MsNoiseReduction.CENTERED_MEAN)}
 

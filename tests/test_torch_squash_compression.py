@@ -25,6 +25,8 @@ from tfhe_tpu_torch.core import torus128
 from tfhe_tpu_torch.ops import kernels, ntt, server128
 from tfhe_tpu_torch.shortint import noise_squashing as ns
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 SEED = 0xC0DE
 M128 = 1 << 128
 # the squashing set cut to N = 64 (n = 64 input key bits) for the keygen

@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import integer as ref_integer
 from tfhe_tpu import shortint as ref_shortint
@@ -22,6 +23,8 @@ from tfhe_tpu.strings import ciphertext as ref_sc
 from tfhe_tpu.strings import server_key as ref_ssk
 from tfhe_tpu_torch import integer, shortint, strings
 from tfhe_tpu_torch.strings import ciphertext as sc
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0x57C
 

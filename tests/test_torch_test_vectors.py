@@ -6,9 +6,12 @@ the sample extractions, the manifest) byte for byte."""
 import os
 
 import pytest
+import torch
 
 from tfhe_tpu.apps import test_vectors as ref_vectors
 from tfhe_tpu_torch.apps import test_vectors
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 
 @pytest.fixture(scope="module")

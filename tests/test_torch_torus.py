@@ -10,6 +10,8 @@ from hypothesis import strategies as st
 
 from tfhe_tpu_torch.ops import torus
 
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
+
 U64 = st.integers(min_value=0, max_value=(1 << 64) - 1)
 WORDS = st.lists(U64, min_size=1, max_size=16)
 FAST = settings(max_examples=60, deadline=None)

@@ -9,11 +9,14 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import boolean as ref_boolean
 from tfhe_tpu.apps import trivium as ref_trivium
 from tfhe_tpu_torch import apps, boolean
 from tfhe_tpu_torch.apps import trivium
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0x7819
 STREAMS = {"trivium": ("TriviumStream", 80), "kreyvium": ("KreyviumStream", 128)}

@@ -22,10 +22,13 @@ import torch
 
 from tfhe_tpu import shortint as ref
 from tfhe_tpu.ops import ntt as ref_ntt
+from tfhe_tpu.ops import server as ref_srv
 from tfhe_tpu.shortint import wopbs as ref_wopbs
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import kernels, ntt, server, torus
 from tfhe_tpu_torch.shortint import wopbs
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 SEED = 0x30B
 P = shortint.TEST_PARAM_MESSAGE_2_CARRY_2
@@ -193,6 +196,112 @@ def test_large_lut_tree_matches(keys):
     assert cmux_calls == [1]
     np.testing.assert_array_equal(np.asarray(got.data), np.asarray(want.data))
     assert ck.decrypt_raw(got) == f(v)
+
+
+def test_ggsw_sets_view_the_circuit_bootstrap_tensor(ggsws):
+    """circuit_bootstrap_bits returns views of one tensor, one after
+    another: ggsw_sets stacks them again without a copy (the same storage),
+    and a list out of order is stacked as a copy."""
+    port_g = ggsws[1]
+    sets = wopbs.ggsw_sets(port_g)
+    assert sets.shape == (4, 4, 2, 2, 4, 512) and sets.is_contiguous()
+    assert sets.data_ptr() == port_g[0].data_ptr()
+    assert all(torch.equal(sets[i], g) for i, g in enumerate(port_g))
+    swapped = wopbs.ggsw_sets(port_g[::-1])
+    assert swapped.data_ptr() != port_g[0].data_ptr()
+    assert torch.equal(swapped, sets.flip(0))
+
+
+def test_cmux_chain_plain_matches_tfhe_tpu_cmux(keys, ggsws):
+    """K2's CMux chain's plain version on 3 packings over 2 GGSW sets (the
+    circuit-bootstrapped GGSWs of bits 0-1 and 2-3, key_index 1, 0, 1),
+    two steps each at random rotations, equals a loop of tfhe_tpu's _cmux(
+    ggsw, acc, X^a acc) on the same GGSWs, word for word."""
+    _, sk, wk, _, ref_wk = keys
+    ref_g, port_g = ggsws
+    rng = np.random.default_rng(SEED + 7)
+    acc = rng.integers(0, 1 << 64, (3, 2, 512), dtype=np.uint64)
+    a = rng.integers(0, 1024, (3, 2))
+    index = [1, 0, 1]
+    sets = wopbs.ggsw_sets(port_g).view(2, 2, 4, 2, 2, 4, 512)
+    got = kernels.cmux_chain(torus.from_u64(acc, "cpu"), torch.from_numpy(a), sets,
+                             torch.tensor(index), sk.dp, 6, 4)
+    for b, g in enumerate(index):
+        want = jnp.asarray(acc[b:b + 1])
+        for i in range(2):
+            rotated = ref_srv.monomial_mul(want, jnp.full((1, 1, 1), int(a[b, i]), jnp.uint64))
+            want = ref_wk._cmux(ref_g[2 * g + i], want, rotated)
+        np.testing.assert_array_equal(_u(got[b:b + 1]), np.asarray(want))
+
+
+def test_vertical_packing_many_equals_a_loop(keys, ggsws):
+    """_vertical_packing_many on 3 packings over 2 GGSW sets (the four bits
+    and their reverse), each with its own table, equals a loop of
+    vertical_packing, word for word, degree and noise; each decrypts to its
+    table's entry at its bits."""
+    ck, _, wk, _, _ = keys
+    port_g = ggsws[1]
+    sets = torch.stack([wopbs.ggsw_sets(port_g), wopbs.ggsw_sets(port_g[::-1])])
+    tables = [[(x * x + 3) % 16 for x in range(16)], [x ^ 5 for x in range(16)],
+              [(7 * x) % 16 for x in range(16)]]
+    set_of = [0, 1, 0]
+    got = wk._vertical_packing_many(sets, set_of, tables, P.delta)
+    for out, g, table in zip(got, set_of, tables):
+        want = wk.vertical_packing(port_g if g == 0 else port_g[::-1], table, P.delta)
+        np.testing.assert_array_equal(np.asarray(out.data), np.asarray(want.data))
+        assert (out.degree, out.noise_level) == (want.degree, want.noise_level)
+        assert ck.decrypt_raw(out) == table[0b1011 if g == 0 else 0b1101]
+
+
+@pytest.mark.parametrize("shape, route", [
+    ((2, 512, 4, 6), "chain"),      # the TEST sets' GGSWs
+    ((2, 512, 1, 23), "chain"),
+    ((5, 512, 4, 6), "step"),       # k+1 = 5 (1_1's width)
+    ((2, 1024, 3, 7), "step"),      # N = 1024
+    ((2, 256, 4, 6), "step"),       # the toy vectors' N
+    ((2, 512, 5, 6), "step"),       # l > 4
+    ((2, 512, 2, 31), "step"),      # base_log > 30
+], ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_low_bits_route(shape, route):
+    """Vertical packing's low bits run the CMux chain only at the shapes its
+    kernel takes (kernels.small_shape); every other shape keeps K2's step
+    entry, one launch a bit, which the chain's kernel would refuse."""
+    assert wopbs.low_bits_route(*shape) == route
+
+
+def test_vertical_packing_step_route_equals_the_chain(keys, ggsws, monkeypatch):
+    """At a shape the chain's kernel refuses (low_bits_route "step"),
+    _vertical_packing_many runs the low bits through kernels.cmux_step, one
+    call a bit and a GGSW set and no cmux_chain call, and gives the chain
+    route's words on 3 packings over 2 GGSW sets."""
+    ck, _, wk, _, _ = keys
+    port_g = ggsws[1]
+    sets = torch.stack([wopbs.ggsw_sets(port_g), wopbs.ggsw_sets(port_g[::-1])])
+    tables = [[(x * x + 3) % 16 for x in range(16)], [x ^ 5 for x in range(16)],
+              [(7 * x) % 16 for x in range(16)]]
+    set_of = [0, 1, 0]
+    calls = {"cmux_step": 0, "cmux_chain": 0}
+
+    def counted(name):
+        original = getattr(kernels, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return original(*args, **kwargs)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(kernels, name, counted(name))
+    chain = wk._vertical_packing_many(sets, set_of, tables, P.delta)
+    assert calls == {"cmux_step": 0, "cmux_chain": 1}
+    monkeypatch.setattr(wopbs, "low_bits_route", lambda *shape: "step")
+    step = wk._vertical_packing_many(sets, set_of, tables, P.delta)
+    assert calls == {"cmux_step": 2 * 4, "cmux_chain": 1}
+    for a, b in zip(step, chain):
+        np.testing.assert_array_equal(np.asarray(a.data), np.asarray(b.data))
+        assert (a.degree, a.noise_level) == (b.degree, b.noise_level)
+    assert [ck.decrypt_raw(c) for c in step] == [tables[0][0b1011], tables[1][0b1101],
+                                                 tables[2][0b1011]]
 
 
 def test_cmux_plain_is_ct0_plus_the_external_product(keys):

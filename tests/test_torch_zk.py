@@ -17,6 +17,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_tpu import shortint as ref_shortint
 from tfhe_tpu.hlapi import compact_list as ref_cl
@@ -28,6 +29,8 @@ from tfhe_tpu_torch.hlapi import compact_list as cl
 from tfhe_tpu_torch.hlapi import proven_compact_list as pcl
 from tfhe_tpu_torch.zk import curve446 as cv
 from tfhe_tpu_torch.zk import pke, pke_v2
+
+torch.set_num_threads(1)  # the suite runs in parallel processes: one thread each
 
 M64 = 1 << 64
 T, MSBS = 32, 1

@@ -9,8 +9,8 @@ table is derived from first principles (x^254 in GF(2^8)/0x11B + the affine
 map), and every per-byte LUT evaluation batches through the server key's
 device pipeline: one batched PBS round (K1, K2) extracts every bit of every
 byte, one circuit bootstrap (K1, K2, then K1 at the PFPKS shape) follows,
-and each byte's LUTs run the CMux tree (K2's CMux entry) and the low-bit
-rotations (K2's step entry).
+and the low-bit rotations of every byte's LUTs run in one launch of K2's
+CMux chain (an 8-bit table needs no CMux tree at N = 512).
 
 The cleartext AES is checked against the port's native AES-NI core
 (csrc/aes_ctr.cpp, the CSPRNG's).
@@ -19,6 +19,7 @@ The cleartext AES is checked against the port's native AES-NI core
 from __future__ import annotations
 
 from ..integer.ciphertext import RadixCiphertext
+from ..shortint.wopbs import ggsw_sets
 
 # ---------------------------------------------------------------------------
 # Cleartext AES-128 (first-principles; checked against the AES-NI native core)
@@ -176,12 +177,16 @@ class FheAes128:
         p = self.sk.params
         mb = (p.message_modulus - 1).bit_length()
         nb = 8 // mb
-        raw = []
-        for ggsws in ggsws_list:
-            for blk_i in range(nb):
-                vals = [(table[x] >> (mb * blk_i)) & (p.message_modulus - 1)
-                        for x in range(256)]
-                raw.append(self.wk.vertical_packing(ggsws, vals, p.delta))
+        # one vertical packing a byte and output block, all in one call: one
+        # CMux-chain launch for every low bit of every packing, on the
+        # bytes' GGSW sets as the circuit bootstrap left them
+        sets = ggsw_sets([g for ggsws in ggsws_list for g in ggsws]).view(
+            (len(ggsws_list), len(ggsws_list[0])) + tuple(ggsws_list[0][0].shape))
+        tables = [[(table[x] >> (mb * blk_i)) & (p.message_modulus - 1) for x in range(256)]
+                  for blk_i in range(nb)]
+        raw = self.wk._vertical_packing_many(
+            sets, [i for i in range(len(ggsws_list)) for _ in range(nb)],
+            [tables[blk_i] for _ in ggsws_list for blk_i in range(nb)], p.delta)
         # refresh: vertical-packing outputs carry CMux-chain noise (~2^55 at
         # test params) that the *4 bivariate XOR packing would amplify past
         # the decode threshold; one batched univariate PBS restores nominal

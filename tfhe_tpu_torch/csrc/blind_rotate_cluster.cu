@@ -56,12 +56,40 @@
 // 14's chip runs 1-3: fully reduced Montgomery passes, ntt_common.cuh's
 // generic exact passes on one prime, the key product a position a thread)
 // took 443.5 ms at B = 64; this one 174.0 ms (B = 4: 58.4 ms), NVIDIA H100
-// 80GB HBM3, 700 W.  The fallback, a
+// 80GB HBM3, 700 W.
+//
+// The small-N kernel (blind_rotate_cluster_small_kernel, below) takes the
+// TEST shapes, k+1 = 2, N = 512, l <= 4: the PBS of WoPBS and AES (l = 1,
+// base 2^23) and, with a key a ciphertext (key_index), the low-bit CMux
+// chain of vertical packing (l = 4, base 2^6; tfhe_tpu/shortint/wopbs.py
+// vertical_packing, one _cmux a bit; tfhe_tpu/ops/pallas_ntt.py:296
+// `build_cmux_step` is the step it chains).  There the generic kernel's
+// one block of 512 threads a ciphertext walks its steps alone (a step
+// 12.5 us at l = 1, 36.8 us at l = 4 on an NVIDIA H100 80GB HBM3 at 700 W:
+// fully reduced passes, nine barriers, the key slice read from L2 with
+// nothing in flight ahead), and at B = 4 it
+// fills 4 of the 132 SMs.  Here a cluster of four blocks of 128 threads a
+// ciphertext, one a prime, as above, with: the rows of one prime (N = 512:
+// 17 KB at l = 4), so four times the SMs work on a ciphertext; the next
+// step's key slice of its prime (8 KB a level) copied into shared memory
+// by cp.async while the step runs, double-buffered; the last two forward
+// stages and the first two inverse ones fused into the key product (four
+// consecutive positions a task: stages 7-8 pair positions 2 and 1 apart,
+// inverse stages 0-1 the same), so a step is four block barriers and the
+// two cluster barriers around Garner; and each block holds a whole copy
+// of the accumulator: the last inverse pass stores each residue into the
+// block that reconstructs its coefficient, and Garner stores each new word
+// into all four copies, so no block reads another's shared memory (a
+// first design that read the rotated accumulator through distributed
+// shared memory spent 8,400 of a step's 14,540 cycles in that first pass
+// at B = 4, and at B = 128 lost to the generic kernel, 0.211 against
+// 0.203 ms a launch, NVIDIA H100 80GB HBM3, 700 W).  The fallback, a
 // chain of global-memory (L2-resident) kernels a step, would move the
 // 671,744 B of state through L2 three times a step; the cluster moves only
 // the accumulator's reads (2 u64 a coefficient) and Garner's residues (4
 // u32 a coefficient) between SMs.
 
+#include <atomic>
 #include <cooperative_groups.h>
 
 #include "ntt_common.cuh"
@@ -74,20 +102,32 @@ namespace {
 // The kernel's shapes, digits |d| <= 2^29 (base_log <= 30) for the lazy
 // residues d + 2p: k + 1 = 2, l <= 2 (at l = 3 a block's residues would
 // pass its shared memory), N = 8192 (3_3: l = 2); and l = 1, N = 2048,
-// 3 <= k + 1 <= 8 (ROWS <= 8: the common-mask rotation at C <= 7).  The
-// wrapper routes by its own copy of this predicate (ops/kernels.py
-// CLUSTER_SHAPES); the entry point refuses any other shape.
+// 3 <= k + 1 <= 8 (ROWS <= 8: the common-mask rotation at C <= 7); and the
+// small-N kernel's, k + 1 = 2, N = 512, l <= 4, base_log l < 64 (the
+// decomposer's width).  The wrapper routes by its own copy of this
+// predicate (ops/kernels.py CLUSTER_SHAPES); the entry point refuses any
+// other shape.
 constexpr int CL_K1 = 2;
 constexpr int CL_LOG_N = 13;
 constexpr int CL_MAX_LEVELS = 2;
 constexpr int CM_LOG_N = 11;
 constexpr int CM_MIN_K1 = 3;
 constexpr int CM_MAX_K1 = 8;
+constexpr int SN_LOG_N = 9;
+constexpr int SN_MAX_LEVELS = 4;
+
+// The small-N kernel's shapes: the only ones that take a key a ciphertext
+// (tfhe_torch_blind_rotate_cluster with a key_index).
+__host__ __device__ constexpr bool small_shape(int k1, int log_n, int levels, int base_log) {
+  return base_log >= 1 && base_log <= 30 && k1 == CL_K1 && log_n == SN_LOG_N && levels >= 1 &&
+         levels <= SN_MAX_LEVELS && base_log * levels < 64;
+}
 
 __host__ __device__ constexpr bool cluster_shape(int k1, int log_n, int levels, int base_log) {
-  return base_log >= 1 && base_log <= 30 &&
-         ((k1 == CL_K1 && log_n == CL_LOG_N && levels >= 1 && levels <= CL_MAX_LEVELS) ||
-          (log_n == CM_LOG_N && levels == 1 && k1 >= CM_MIN_K1 && k1 <= CM_MAX_K1));
+  return small_shape(k1, log_n, levels, base_log) ||
+         (base_log >= 1 && base_log <= 30 &&
+          ((k1 == CL_K1 && log_n == CL_LOG_N && levels >= 1 && levels <= CL_MAX_LEVELS) ||
+           (log_n == CM_LOG_N && levels == 1 && k1 >= CM_MIN_K1 && k1 <= CM_MAX_K1)));
 }
 
 // Blocks an SM the kernel is compiled for at a shape (__launch_bounds__: 2
@@ -298,6 +338,279 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
   for (int q = tid; q < QUARTER; q += THREADS) acc_b[rank * QUARTER + q] = (long long)acc[q];
 }
 
+// The small-N kernel: K1 = 2, N = 512, LEVELS <= 4, SN_THREADS threads a
+// block, block rank p of a ciphertext's cluster holding prime p.  Shared
+// memory: a whole copy of the u64 accumulator (every block keeps one, so
+// the first pass reads no other block), two buffers of its prime's slice
+// of a step's GGSW ((lev, r, cc) rows of N words, as cp.async copies them:
+// 16 KB at l = 1, 64 KB at l = 4), the residue rows (lev, r) mod p, padded,
+// and the four primes' residues of the block's quarter of the coefficients
+// (its Garner inputs, which the other blocks store into it).
+constexpr int SN_THREADS = 128;
+
+template <int LEVELS>
+struct Small {
+  static constexpr int K1 = CL_K1;
+  static constexpr int LOG_N = SN_LOG_N;
+  static constexpr int N = 1 << LOG_N;
+  static constexpr int ROW = N + N / 32;
+  static constexpr int ROWS = LEVELS * K1;           // digit rows (lev, r)
+  static constexpr int QUARTER = K1 * N / NP;        // coefficients a block reconstructs
+  static constexpr int KEY = ROWS * K1 * N;          // u32 words of a step's prime slice
+  static constexpr int STEP4 = ROWS * K1 * NP * N / 4;   // 16-byte words of a step's GGSW
+  static constexpr int LO = LOG_N - 4;               // the first pass takes stages 0-3
+  static constexpr int SMEM = K1 * N * 8 + 2 * KEY * 4 + ROWS * ROW * 4 + NP * QUARTER * 4;
+  // blocks an SM the kernel is compiled for (__launch_bounds__): four (128
+  // registers a thread) where four fit shared memory, else two
+  static constexpr int MIN_BLOCKS = 4 * SMEM <= 228 * 1024 ? 4 : 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// Step step's slice of this block's prime, from the ciphertext's GGSWs
+// key (STEP4 16-byte words a step), into buffer step & 1; one commit group
+// a call, empty past the last step.
+template <int LEVELS>
+__device__ __forceinline__ void prefetch_key(u32* keys, const uint4* __restrict__ key, int step,
+                                             int n_steps, int rank) {
+  using S = Small<LEVELS>;
+  if (step < n_steps) {
+    const uint4* src = key + (size_t)step * S::STEP4;
+    uint4* dst = (uint4*)(keys + (step & 1) * S::KEY);
+    for (int q = threadIdx.x; q < S::KEY / 4; q += SN_THREADS) {
+      const int e = q / (S::N / 4);             // row (lev, r, cc)
+      const int t = q % (S::N / 4);
+      cp_async16(dst + q, src + (e * NP + rank) * (S::N / 4) + t);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// acc (batch, 2, N) u64 in place; mask (batch, n_steps) in [0, 2N); bsk
+// the GGSWs: ciphertext b's step i is (l, 2, 2, NP, N) u32 at bsk +
+// key_index[b] set_words + i STEP4 16-byte words (key_index null: the
+// one key, (n_steps, l, 2, 2, NP, N)).
+template <int LEVELS>
+__global__ void __cluster_dims__(NP, 1, 1)
+__launch_bounds__(SN_THREADS, Small<LEVELS>::MIN_BLOCKS)
+blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+                                  const uint4* __restrict__ bsk,
+                                  const int* __restrict__ key_index, long long set_words,
+                                  const uint2* __restrict__ tw_fwd,
+                                  const uint2* __restrict__ tw_inv,
+                                  const long long* __restrict__ consts_g, int n_steps,
+                                  int base_log) {
+  using S = Small<LEVELS>;
+  constexpr int K1 = S::K1;
+  constexpr int LOG_N = S::LOG_N;
+  constexpr int N = S::N;
+  constexpr int ROW = S::ROW;
+  constexpr int ROWS = S::ROWS;
+  constexpr int QUARTER = S::QUARTER;
+  constexpr int LO = S::LO;
+  constexpr int NT = SN_THREADS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ uint4 sn_smem[];
+  __shared__ Consts c;
+  __shared__ Consts one;
+  u64* acc = (u64*)sn_smem;                     // (K1, N), the whole accumulator
+  u32* keys = (u32*)(acc + K1 * N);             // two key slices, 16-byte aligned
+  u32* rows = keys + 2 * S::KEY;                // (LEVELS K1, ROW) mod this prime
+  u32* gath = rows + ROWS * ROW;                // (NP, QUARTER): this quarter's residues
+  const int tid = threadIdx.x;
+  const int ct = blockIdx.x / NP;
+  long long* acc_b = acc_g + (size_t)ct * K1 * N;
+  const int* mask_b = mask_g + (size_t)ct * n_steps;
+  const uint4* key_b = bsk + (key_index ? (size_t)key_index[ct] * (size_t)(set_words / 4) : 0);
+
+  if (tid == 0) {
+    load_consts(c, consts_g);
+    one = c;
+    one.p[0] = c.p[rank];
+    one.pinv[0] = c.pinv[rank];
+  }
+  for (int q = tid; q < K1 * N; q += NT) acc[q] = (u64)acc_b[q];
+  prefetch_key<LEVELS>(keys, key_b, 0, n_steps, rank);
+  u64* acc_of[NP];                              // every block's copy
+  u32* gath_of[NP];                             // every block's Garner inputs
+#pragma unroll
+  for (int r = 0; r < NP; ++r) {
+    acc_of[r] = cluster.map_shared_rank(acc, r);
+    gath_of[r] = cluster.map_shared_rank(gath, r);
+  }
+  cluster.sync();   // every block has started before any stores into it
+  const u32 p = c.p[rank];
+  const u32 pinv = c.pinv[rank];
+  const uint2* twf = tw_fwd + (rank << LOG_N);
+  const uint2* twi = tw_inv + (rank << LOG_N);
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int a = mask_b[step];                 // in [0, 2N)
+    const int rot = a & (N - 1);
+    const bool odd = ((a >> LOG_N) & 1) != 0;
+    // the next step's slice into the buffer step - 1 read
+    prefetch_key<LEVELS>(keys, key_b, step + 1, n_steps, rank);
+
+    // 1. task (lev, r, lo): acc X^a - acc at coefficients j = b 2^LO | lo
+    // of row r, level lev's signed digit, its residue d + 2p and forward
+    // stages 0-3 in registers
+    for (int q = tid; q < LEVELS * (K1 << LO); q += NT) {
+      const int lev = q / (K1 << LO);
+      const int r = (q >> LO) % K1;
+      const int lo = q & ((1 << LO) - 1);
+      const u64* A = acc + r * N;
+      u32 v[16];
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int j = (b << LO) | lo;
+        u64 w = j < rot ? 0ull - A[j - rot + N] : A[j - rot];
+        if (odd) w = 0ull - w;
+        const u64 d = w - A[j];
+        int dig;
+        if constexpr (LEVELS == 1) {
+          dig = hi_word_digit((u32)(d >> 32), base_log);
+        } else if (base_log * LEVELS <= 30) {  // the rounding reads the high word only
+          int state = hi_decomposer_state((u32)(d >> 32), base_log, LEVELS);
+          dig = hi_next_digit(state, base_log);
+          for (int l = 0; l < lev; ++l) dig = hi_next_digit(state, base_log);
+        } else {
+          u64 state = decomposer_state(d, base_log, LEVELS);
+          dig = (int)next_digit(state, base_log);
+          for (int l = 0; l < lev; ++l) dig = (int)next_digit(state, base_log);
+        }
+        v[b] = lazy_digit_residue(dig, p);
+      }
+      lazy_forward_stages<4, LOG_N>(v, 0, 0, twf, p);
+      u32* x = rows + (lev * K1 + r) * ROW + pad(lo);
+#pragma unroll
+      for (int b = 0; b < 16; ++b) x[pad(b << LO)] = v[b];
+    }
+    __syncthreads();
+
+    // 2. forward stages 4-6
+    lazy_pass<3, LOG_N, 1, NT, true>(rows, ROWS, 4, twf, one);
+    asm volatile("cp.async.wait_group 1;\n" ::);   // this step's slice has landed
+    __syncthreads();
+
+    // 3. task q, positions 4q .. 4q+3 of every row: forward stages 7-8,
+    // the product with the step's slice (the l (k+1) products summed in
+    // 64 bits, a reduction a four), inverse stages 0-1, written over rows
+    // 0 .. K1-1 in [0, 2p)
+    {
+      const uint4* ks = (const uint4*)(keys + (step & 1) * S::KEY);
+      for (int q = tid; q < N / 4; q += NT) {
+        const int at = pad(q * 4);              // pad(4q + e) = at + e
+        u32 x[ROWS][4];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[r][e] = rows[r * ROW + at + e];
+          lazy_forward_stages<2, LOG_N>(x[r], LOG_N - 2, q, twf, p);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[r][e] = reduce_to(reduce_to(x[r][e], 2 * p), p);
+        }
+#pragma unroll
+        for (int cc = 0; cc < K1; ++cc) {
+          u64 sum[4] = {0, 0, 0, 0};
+          u32 out[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const uint4 k = ks[(r * K1 + cc) * (N / 4) + q];
+            sum[0] += (u64)x[r][0] * k.x;
+            sum[1] += (u64)x[r][1] * k.y;
+            sum[2] += (u64)x[r][2] * k.z;
+            sum[3] += (u64)x[r][3] * k.w;
+            if (r % 4 == 3 || r == ROWS - 1) {  // 4 p^2 < p 2^32: one reduction a four
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                out[e] = reduce_to(out[e] + redc_lazy(sum[e], p, pinv), 2 * p);
+                sum[e] = 0;
+              }
+            }
+          }
+          lazy_inverse_stages<2, LOG_N>(out, 0, q, twi, p);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rows[cc * ROW + at + e] = out[e];
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. inverse stages 2-5; then 6-8 with N^-1, each canonical residue
+    // stored into the Garner inputs of the block that owns its coefficient
+    lazy_pass<4, LOG_N, 1, NT, false>(rows, K1, 2, twi, one);
+    __syncthreads();
+    for (int q = tid; q < K1 << (LOG_N - 3); q += NT) {
+      constexpr int K0 = LOG_N - 3;
+      const int cc = q >> K0;
+      const int lo = q & ((1 << K0) - 1);
+      const u32* x = rows + cc * ROW + pad(lo);
+      u32 y[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) y[b] = x[pad(b << K0)];
+      lazy_inverse_stages<3, LOG_N>(y, K0, 0, twi, p);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int g = cc * N + (lo | (b << K0));
+        gath_of[g / QUARTER][rank * QUARTER + g % QUARTER] =
+            mont_mul(reduce_to(y[b], p), c.ninv[rank], p, pinv);
+      }
+    }
+    cluster.sync();   // every quarter's four residues have landed
+
+    // 5. Garner on this block's quarter, the new words stored into every
+    // block's copy of the accumulator
+    for (int q = tid; q < QUARTER; q += NT) {
+      u32 dg[NP];
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) dg[pi] = gath[pi * QUARTER + q];
+      const int g = rank * QUARTER + q;
+      const u64 w = acc[g] + garner_signed<NP>(dg, c);
+#pragma unroll
+      for (int r = 0; r < NP; ++r) acc_of[r][g] = w;
+    }
+    cluster.sync();   // every copy updated; every Garner input read
+  }
+
+  for (int q = tid; q < QUARTER; q += NT) {
+    acc_b[rank * QUARTER + q] = (long long)acc[rank * QUARTER + q];
+  }
+}
+
+// The devices whose small-N kernel attributes small_launch remembers as
+// set; on a device beyond them it sets them at every launch.
+constexpr int SIZED_DEVICES = 64;
+
+template <int LEVELS>
+cudaError_t small_launch(long long* acc, const int* mask, const uint4* bsk, const int* key_index,
+                         long long set_words, const uint2* tw_fwd, const uint2* tw_inv,
+                         const long long* consts, int batch, int n_steps, int base_log,
+                         cudaStream_t stream) {
+  using S = Small<LEVELS>;
+  auto kernel = blind_rotate_cluster_small_kernel<LEVELS>;
+  // the attributes once a device (they hold for the device's context); a
+  // race sets them twice, which is harmless
+  static std::atomic<bool> sized[SIZED_DEVICES];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= SIZED_DEVICES || !sized[device].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (device < SIZED_DEVICES) sized[device].store(true, std::memory_order_release);
+  }
+  kernel<<<batch * NP, SN_THREADS, S::SMEM, stream>>>(acc, mask, bsk, key_index, set_words,
+                                                      tw_fwd, tw_inv, consts, n_steps,
+                                                      base_log);
+  return cudaGetLastError();
+}
+
 template <int K1, int LEVELS, int LOG_N>
 cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
                            const uint2* tw_fwd, const uint2* tw_inv, const long long* consts,
@@ -315,28 +628,46 @@ cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
   return cudaGetLastError();
 }
 
-// The clusters of NP blocks the card holds at once at a shape
-// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
-template <int K1, int LEVELS, int LOG_N>
-int cluster_occupancy() {
-  using S = Cluster<K1, LEVELS, LOG_N>;
-  auto kernel = blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>;
+// The clusters of NP blocks of threads threads the card holds at once for
+// kernel at smem bytes a block (cudaOccupancyMaxActiveClusters), or minus
+// the CUDA error.
+template <class K>
+int occupancy_of(K kernel, int smem, int threads) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(NP * 64, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
   return err != cudaSuccess ? -(int)err : n;
+}
+
+template <int K1, int LEVELS, int LOG_N>
+int cluster_occupancy() {
+  if constexpr (LOG_N == SN_LOG_N) {
+    return occupancy_of(blind_rotate_cluster_small_kernel<LEVELS>, Small<LEVELS>::SMEM,
+                        SN_THREADS);
+  } else {
+    return occupancy_of(blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>,
+                        Cluster<K1, LEVELS, LOG_N>::SMEM, THREADS);
+  }
 }
 
 // Calls fn.template run<K1, LEVELS, LOG_N>() on the instance of a shape
 // that cluster_shape takes.
 template <class F>
 int by_shape(int k1, int log_n, int levels, const F& fn) {
+  if (log_n == SN_LOG_N) {
+    switch (levels) {
+      case 1: return fn.template run<CL_K1, 1, SN_LOG_N>();
+      case 2: return fn.template run<CL_K1, 2, SN_LOG_N>();
+      case 3: return fn.template run<CL_K1, 3, SN_LOG_N>();
+      default: return fn.template run<CL_K1, 4, SN_LOG_N>();
+    }
+  }
   if (log_n == CL_LOG_N) {
     return levels == 1 ? fn.template run<CL_K1, 1, CL_LOG_N>()
                        : fn.template run<CL_K1, 2, CL_LOG_N>();
@@ -355,6 +686,8 @@ struct Launch {
   long long* acc;
   const int* mask;
   const uint4* bsk;
+  const int* key_index;     // the small-N kernel's key a ciphertext, or null
+  long long set_words;
   const uint2* tw_fwd;
   const uint2* tw_inv;
   const long long* consts;
@@ -362,8 +695,13 @@ struct Launch {
   cudaStream_t stream;
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
-    return (int)cluster_launch<K1, LEVELS, LOG_N>(acc, mask, bsk, tw_fwd, tw_inv, consts, batch,
-                                                  n_steps, base_log, stream);
+    if constexpr (LOG_N == SN_LOG_N) {
+      return (int)small_launch<LEVELS>(acc, mask, bsk, key_index, set_words, tw_fwd, tw_inv,
+                                       consts, batch, n_steps, base_log, stream);
+    } else {
+      return (int)cluster_launch<K1, LEVELS, LOG_N>(acc, mask, bsk, tw_fwd, tw_inv, consts,
+                                                    batch, n_steps, base_log, stream);
+    }
   }
 };
 
@@ -372,9 +710,26 @@ struct Occupancy {
   int run() const { return cluster_occupancy<K1, LEVELS, LOG_N>(); }
 };
 
+struct MinBlocks {
+  template <int K1, int LEVELS, int LOG_N>
+  int run() const {
+    if constexpr (LOG_N == SN_LOG_N) {
+      return Small<LEVELS>::MIN_BLOCKS;
+    } else {
+      return cluster_min_blocks(LOG_N);
+    }
+  }
+};
+
 struct Smem {
   template <int K1, int LEVELS, int LOG_N>
-  int run() const { return Cluster<K1, LEVELS, LOG_N>::SMEM; }
+  int run() const {
+    if constexpr (LOG_N == SN_LOG_N) {
+      return Small<LEVELS>::SMEM;
+    } else {
+      return Cluster<K1, LEVELS, LOG_N>::SMEM;
+    }
+  }
 };
 
 }  // namespace
@@ -382,19 +737,26 @@ struct Smem {
 // acc (batch, k+1, N) u64, updated in place; mask (batch, n_steps) int32 in
 // [0, 2N); bsk the exact key (n_steps, l, k+1, k+1, NP, N) u32 Montgomery,
 // 16-byte aligned; tw_fwd, tw_inv the plan's Shoup twiddle pairs (NP, N);
-// one cluster of NP blocks a ciphertext.
+// one cluster of NP blocks a ciphertext.  key_index null: one key for the
+// whole batch (set_words 0).  key_index (batch,) int32: ciphertext b runs
+// on the key at bsk + key_index[b] set_words words (set_words a multiple of
+// 4), the CMux chain of ops/kernels.py cmux_chain; only at the shapes
+// small_shape takes.
 extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, const void* bsk,
+                                               const void* key_index, long long set_words,
                                                const void* tw_fwd, const void* tw_inv,
                                                const void* consts, int batch, int n_steps,
                                                int k1, int log_n, int levels, int nprimes,
                                                int base_log, void* stream) {
   if (!cluster_shape(k1, log_n, levels, base_log) || nprimes != NP || batch < 1 ||
-      n_steps < 1 || ((uintptr_t)bsk & 15) != 0) {
+      n_steps < 1 || ((uintptr_t)bsk & 15) != 0 || set_words < 0 || set_words % 4 != 0 ||
+      (key_index == nullptr ? set_words != 0 : !small_shape(k1, log_n, levels, base_log))) {
     return (int)cudaErrorInvalidValue;
   }
   const Launch launch{(long long*)acc, (const int*)mask, (const uint4*)bsk,
-                      (const uint2*)tw_fwd, (const uint2*)tw_inv, (const long long*)consts,
-                      batch, n_steps, base_log, (cudaStream_t)stream};
+                      (const int*)key_index, set_words, (const uint2*)tw_fwd,
+                      (const uint2*)tw_inv, (const long long*)consts, batch, n_steps,
+                      base_log, (cudaStream_t)stream};
   return by_shape(k1, log_n, levels, launch);
 }
 
@@ -408,4 +770,11 @@ extern "C" int tfhe_torch_blind_rotate_cluster_occupancy(int k1, int log_n, int 
 extern "C" int tfhe_torch_blind_rotate_cluster_smem(int k1, int log_n, int levels) {
   if (!cluster_shape(k1, log_n, levels, 1)) return -1;
   return by_shape(k1, log_n, levels, Smem{});
+}
+
+// The blocks an SM the kernel's instance at a shape is compiled for
+// (__launch_bounds__), -1 at other shapes.
+extern "C" int tfhe_torch_blind_rotate_cluster_min_blocks(int k1, int log_n, int levels) {
+  if (!cluster_shape(k1, log_n, levels, 1)) return -1;
+  return by_shape(k1, log_n, levels, MinBlocks{});
 }

@@ -9,7 +9,8 @@ word, and a u32 twin of the generic kernel), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
 takes the lazy exact kernel, the cluster kernel of
 csrc/blind_rotate_cluster.cu (four blocks a ciphertext, one a CRT prime:
-3_3, and the common-mask rotation at N = 2048) or the generic kernel, by
+3_3, the common-mask rotation at N = 2048, and its small-N kernel at the
+TEST shapes, N = 512) or the generic kernel, by
 ``exact_rotation_route``), K3
 ``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
@@ -24,8 +25,11 @@ compression, on the int8 tensor cores, on the key's byte layout
 ``packing_keyswitch128_key``; ``cmux`` is K2's
 CMux entry, vertical packing's tree, and the common mask's CMux;
 ``rotate_accumulator`` its exact rotation of a given accumulator, the
-common-mask rotation's), K7 ``glwe_keyswitch`` (csrc/glwe_keyswitch.cu, the
-GLWE keyswitch and the fast keyswitch) and K8 ``blind_rotate_extended``
+common-mask rotation's; ``cmux_chain`` its CMux chain, vertical packing's
+low bits for many packings in one launch, each on its own GGSW set, on
+the cluster kernel's small-N kernel), K7 ``glwe_keyswitch``
+(csrc/glwe_keyswitch.cu, the GLWE keyswitch and the fast keyswitch) and K8
+``blind_rotate_extended``
 (csrc/blind_rotate_extended.cu, the extended PBS's rotation: its lazy
 kernel at the 2_2 shape, ``extended_route``, else its generic kernel; the
 E slots of a ciphertext in one cluster) are
@@ -122,7 +126,7 @@ def load() -> dict:
         fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster
-        fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
+        fn.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 3 + [i] * 7 + [vp]
         fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_cmux
         fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
@@ -193,7 +197,8 @@ def load() -> dict:
             fn.argtypes = [i] * n_args
             fn.restype = i
         for name, n_args in (("blind_rotate_cluster_occupancy", 3),
-                             ("blind_rotate_cluster_smem", 3)):
+                             ("blind_rotate_cluster_smem", 3),
+                             ("blind_rotate_cluster_min_blocks", 3)):
             fn = getattr(libs["blind_rotate_cluster"], f"tfhe_torch_{name}")
             fn.argtypes = [i] * n_args
             fn.restype = i
@@ -463,9 +468,10 @@ def exact_smem_bytes(k1: int, n_poly: int, levels: int, cluster: bool = False) -
     """Dynamic shared memory of one block of K2's generic exact kernel (the
     (k+1, N) u64 accumulator and the 4-prime residue rows of l (k+1) digit
     polynomials: csrc/blind_rotate.cu tfhe_torch_blind_rotate_smem_bytes)
-    or, where cluster, of one block of its cluster kernel (a quarter of the
-    accumulator and one prime's rows: csrc/blind_rotate_cluster.cu
-    Cluster::SMEM)."""
+    or, where cluster, of one block of its cluster kernel at N = 2048 and
+    8192 (a quarter of the accumulator and one prime's rows:
+    csrc/blind_rotate_cluster.cu Cluster::SMEM; the small-N kernel's is
+    cluster_figures')."""
     row = n_poly + n_poly // 32
     if cluster:
         return k1 * n_poly // KERNEL_PRIMES * 8 + levels * k1 * row * 4
@@ -480,16 +486,29 @@ GENERIC_MAX_K1 = 5
 # The cluster kernel's shapes, the routing's one predicate (the kernel's
 # entry point refuses others: csrc/blind_rotate_cluster.cu cluster_shape):
 # k+1 = 2, l <= 2 at N = 8192 (3_3); 3 <= k+1 <= 8, l = 1 at N = 2048 (the
-# common-mask rotation at the 2_2 widths, C <= 7); base_log <= 30
+# common-mask rotation at the 2_2 widths, C <= 7); k+1 = 2, l <= 4 at N =
+# 512 (the TEST shapes: WoPBS's and AES's PBS at l = 1, vertical packing's
+# CMux chain at l = 4; its small-N kernel, which alone takes a key a
+# ciphertext, small_shape); base_log <= 30 and base_log l < 64
 CLUSTER_SHAPES = ({"n_poly": 8192, "k1": (2, 2), "max_levels": 2, "max_base_log": 30},
-                  {"n_poly": 2048, "k1": (3, 8), "max_levels": 1, "max_base_log": 30})
+                  {"n_poly": 2048, "k1": (3, 8), "max_levels": 1, "max_base_log": 30},
+                  {"n_poly": 512, "k1": (2, 2), "max_levels": 4, "max_base_log": 30})
+SMALL_N = 512
 
 
 def cluster_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
     """Whether K2's cluster kernel takes the shape (CLUSTER_SHAPES)."""
-    return any(n_poly == cs["n_poly"] and cs["k1"][0] <= k1 <= cs["k1"][1]
-               and 1 <= levels <= cs["max_levels"] and 1 <= base_log <= cs["max_base_log"]
-               for cs in CLUSTER_SHAPES)
+    return base_log * levels < 64 and any(
+        n_poly == cs["n_poly"] and cs["k1"][0] <= k1 <= cs["k1"][1]
+        and 1 <= levels <= cs["max_levels"] and 1 <= base_log <= cs["max_base_log"]
+        for cs in CLUSTER_SHAPES)
+
+
+def small_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
+    """Whether the cluster kernel's small-N kernel takes the shape (the
+    N = 512 entry of CLUSTER_SHAPES): the only shapes ``cmux_chain`` takes
+    (csrc/blind_rotate_cluster.cu small_shape)."""
+    return n_poly == SMALL_N and cluster_shape(k1, n_poly, levels, base_log)
 
 
 def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
@@ -497,9 +516,10 @@ def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
     """Which kernel K2's exact rotation (and its step entry) runs at a
     shape: "lazy" where exact_lazy_shape holds (``lazy``), else "cluster"
     where the cluster kernel takes the shape (CLUSTER_SHAPES: a cluster of
-    four blocks a ciphertext, one a prime; 3_3, and the common-mask
-    rotation at N = 2048, where it is also the faster of the two at k+1 =
-    3 and 4, which the generic kernel's block also fits), else "generic"
+    four blocks a ciphertext, one a prime; 3_3, the common-mask rotation at
+    N = 2048, where it is also the faster of the two at k+1 = 3 and 4,
+    which the generic kernel's block also fits, and the TEST shapes at N =
+    512, its small-N kernel, faster than the generic one there), else "generic"
     where k+1 <= GENERIC_MAX_K1 and the generic kernel's block fits shared
     memory.  Raises a ValueError elsewhere: no set of shortint/params.py is
     there, nor the common-mask rotation at the 2_2 widths for C <= 7, and
@@ -515,13 +535,9 @@ def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
              f"{base_log}: its generic kernel takes k+1 <= {GENERIC_MAX_K1} within the "
              f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs {smem} B), "
              f"and its cluster kernel takes k+1 = 2, N = 8192, l <= 2 and 3 <= k+1 <= 8, "
-             f"N = 2048, l = 1, base_log <= 30; no 4-prime NTT plan exists above N = 8192")
+             f"N = 2048, l = 1, and k+1 = 2, N = 512, l <= 4, base_log <= 30; no 4-prime "
+             f"NTT plan exists above N = 8192")
     return "generic"
-
-
-# the blocks an SM K2's cluster kernel is compiled for, by N
-# (csrc/blind_rotate_cluster.cu cluster_min_blocks)
-CLUSTER_BLOCKS_PER_SM = {2048: 2, 8192: 1}
 
 
 def cluster_figures(k1: int, n_poly: int, levels: int) -> dict:
@@ -531,23 +547,26 @@ def cluster_figures(k1: int, n_poly: int, levels: int) -> dict:
     lib = load()["blind_rotate_cluster"]
     log_n = n_poly.bit_length() - 1
     return {"shared_memory_bytes": lib.tfhe_torch_blind_rotate_cluster_smem(k1, log_n, levels),
-            "blocks_per_sm": CLUSTER_BLOCKS_PER_SM[n_poly],
+            "blocks_per_sm": lib.tfhe_torch_blind_rotate_cluster_min_blocks(k1, log_n, levels),
             "active_clusters": lib.tfhe_torch_blind_rotate_cluster_occupancy(k1, log_n, levels)}
 
 
 def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
-                         levels: int, entry: str) -> str:
+                         levels: int, entry: str, key_index=None) -> str:
     """K2's exact rotation on an initialised accumulator (B, k+1, N) int64,
     in place: one step per column of mask32 (B, n) int32, key (n, l, k+1,
-    k+1, P, N), for the wrapper named entry ("blind_rotate" or
-    "cmux_step"), which a failure names.  The kernel is chosen by shape
+    k+1, P, N), for the wrapper named entry ("blind_rotate", "cmux_step" or
+    "cmux_chain"), which a failure names.  The kernel is chosen by shape
     (exact_rotation_route): the lazy kernel, on the batch padded to its C
-    ciphertexts a block; the generic kernel; or the cluster kernel.
-    Returns the route taken."""
+    ciphertexts a block; the generic kernel; or the cluster kernel.  With
+    key_index, (B,) int32 on the card, bsk_ntt holds G keys (G, n, l, ...),
+    each contiguous, and ciphertext b runs on key key_index[b]: the cluster
+    kernel's small-N shapes only (small_shape).  Returns the route taken."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
-    _require(bsk_ntt.shape == (n_steps, levels, k1, k1, nprimes, n_poly),
+    key_shape = bsk_ntt.shape if key_index is None else bsk_ntt.shape[1:]
+    _require(key_shape == (n_steps, levels, k1, k1, nprimes, n_poly),
              f"key shape {tuple(bsk_ntt.shape)} does not fit the batch")
     _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "the kernel takes a 4-prime plan and a power-of-two N")
@@ -556,6 +575,11 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
     route = exact_rotation_route(k1, n_poly, levels, base_log,
                                  exact_lazy_shape(k1, n_poly, levels, base_log))
     log_n = n_poly.bit_length() - 1
+    _require(key_index is None or (route == "cluster" and small_shape(k1, n_poly, levels,
+                                                                      base_log)),
+             f"a key a ciphertext runs on the cluster kernel's small-N kernel only (k+1 = 2, "
+             f"N = {SMALL_N}, l <= 4, base_log <= 30, base_log l < 64); k+1 = {k1}, N = "
+             f"{n_poly}, l = {levels}, base_log = {base_log}")
     if route == "generic":
         _check_cuda((acc, torch.int64), (mask32, torch.int32),
                     (bsk_ntt, torch.int32), (dp.psi32, torch.int32),
@@ -571,15 +595,25 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
     per_block = exact_cts_per_block() if route == "lazy" else 1
     acc_p, mask_p = pad_batch(acc, per_block), pad_batch(mask32, per_block)
     tw_fwd, tw_inv = shoup_twiddles(dp)
-    _check_cuda((acc_p, torch.int64), (mask_p, torch.int32), (bsk_ntt, torch.int32),
+    # with key_index, keys 16 bytes apart, each contiguous (a view along G)
+    _check_cuda((acc_p, torch.int64), (mask_p, torch.int32),
+                (bsk_ntt if key_index is None else bsk_ntt[:1], torch.int32),
                 (tw_fwd, torch.int32), (tw_inv, torch.int32),
-                (dp.kernel_consts, torch.int64))
-    _require(bsk_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
-    entry = (lib.tfhe_torch_blind_rotate_exact_lazy if route == "lazy"
-             else load()["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster)
-    err = entry(acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
-                tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc_p.shape[0], n_steps, k1,
-                log_n, levels, nprimes, base_log, _stream(acc))
+                (dp.kernel_consts, torch.int64),
+                *(() if key_index is None else ((key_index, torch.int32),)))
+    _require(bsk_ntt.data_ptr() % 16 == 0 and (key_index is None or bsk_ntt.stride(0) % 4 == 0),
+             "the key must be 16-byte aligned")
+    shape_args = (acc_p.shape[0], n_steps, k1, log_n, levels, nprimes, base_log, _stream(acc))
+    if route == "lazy":
+        err = lib.tfhe_torch_blind_rotate_exact_lazy(
+            acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), *shape_args)
+    else:
+        set_words = bsk_ntt.stride(0) if key_index is not None and bsk_ntt.shape[0] > 1 else 0
+        err = load()["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster(
+            acc_p.data_ptr(), mask_p.data_ptr(), bsk_ntt.data_ptr(),
+            None if key_index is None else key_index.data_ptr(), set_words, tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), *shape_args)
     _raise_on(err, f"{entry} ({route} exact)")
     if acc_p.data_ptr() != acc.data_ptr():
         acc.copy_(acc_p[:b])
@@ -631,7 +665,7 @@ def _rotate_exact(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels
 
 blind_rotate.launches = 0
 blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
-blind_rotate.cluster_launches = 0       # and its cluster kernel (3_3, the CM rotation)
+blind_rotate.cluster_launches = 0       # and its cluster kernel (3_3, CM rotation, TEST sets)
 
 
 def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels: int):
@@ -681,6 +715,50 @@ def cmux_step(acc, a_col, bsk_slice, dp: DevicePlan, base_log: int, levels: int)
 
 cmux_step.launches = 0
 cmux_step.lazy_exact_launches = 0       # of them, K2's lazy exact kernel
+
+
+def cmux_chain(acc, a_cols, ggsws, key_index, dp: DevicePlan, base_log: int, levels: int):
+    """K2's CMux chain: s exact CMux steps for a batch of B accumulators in
+    one launch, each on its own GGSW set (see ops/server.py cmux_chain;
+    vertical packing's low-bit rotations, tfhe_tpu/shortint/wopbs.py
+    vertical_packing, one _cmux a bit there).  Step i: acc_b += GGSW[
+    key_index[b], i] (x) (acc_b X^{a_cols[b, i]} - acc_b).  Runs the
+    cluster kernel's small-N kernel (csrc/blind_rotate_cluster.cu
+    tfhe_torch_blind_rotate_cluster with a key_index), each cluster at its
+    set's offset in ggsws: no key is gathered or copied; raises at any
+    shape it does not take (small_shape: k+1 = 2, N = 512, l <= 4).
+
+    acc: (B, k+1, N) int64; a_cols: (B, s) in [0, 2N); ggsws: (G, s, l,
+    k+1, k+1, P, N) int32 Montgomery NTT domain on dp's four primes, each
+    set contiguous (a view along G, such as ggsws[:, t:] of a contiguous
+    tensor, is taken as it is); key_index: (B,) int tensor in [0, G)
+    (checked where it lies on the CPU).  Returns the final accumulator (a
+    new tensor)."""
+    _require(not isinstance(ggsws, RoundedKeyNtt), "the CMux chain takes exact GGSWs")
+    if acc.device.type == "cpu":
+        return server.cmux_chain(acc, a_cols, ggsws, key_index, dp, base_log, levels)
+    _require(acc.device.type == "cuda", f"no CMux chain kernel for {acc.device}")
+    b, k1, n_poly = acc.shape
+    g, s = ggsws.shape[:2]
+    _require(a_cols.shape == (b, s) and tuple(key_index.shape) == (b,),
+             f"a_cols {tuple(a_cols.shape)} / key_index {tuple(key_index.shape)} do not fit "
+             f"{b} accumulators and {s} steps")
+    _require(ggsws.device == acc.device,
+             f"expected GGSW sets on {acc.device}, got them on {ggsws.device}")
+    if key_index.device.type == "cpu":
+        _require(0 <= int(key_index.min()) and int(key_index.max()) < g,
+                 f"key_index outside the {g} GGSW sets")
+    acc = acc.clone(memory_format=torch.contiguous_format)
+    # a host key_index goes up without the stream synchronisation of a
+    # blocking copy, which would wait for every launch queued before it
+    index = key_index.to(dtype=torch.int32).to(acc.device, non_blocking=True).contiguous()
+    _launch_blind_rotate(acc, a_cols.to(torch.int32).contiguous(), ggsws, dp, base_log, levels,
+                         "cmux_chain", index)
+    cmux_chain.launches += 1
+    return acc
+
+
+cmux_chain.launches = 0
 
 
 def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):

@@ -5,7 +5,7 @@ The port of tfhe_tpu/ops/server.py for the shortint atomic patterns
 many-LUT) and for ciphertext compression.  Each function here is the plain
 PyTorch version of its tfhe_tpu namesake: the same exact integer
 arithmetic, so outputs are the same u64 words.  ``keyswitch``,
-``keyswitch32``, ``blind_rotate``, ``cmux_step``, ``cmux``,
+``keyswitch32``, ``blind_rotate``, ``cmux_step``, ``cmux_chain``, ``cmux``,
 ``rotate_accumulator``, the two multi-bit rotations, ``packing_keyswitch``,
 ``glwe_keyswitch_sum`` and ``blind_rotate_extended`` are also the plain
 versions of the CUDA kernels (ops/kernels.py): the pipelines below
@@ -341,6 +341,21 @@ def cmux_step(acc, a_col, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):
     build_cmux_step Pallas kernel (tfhe_tpu/ops/pallas_ntt.py:296)."""
     ggsw = _key_view(ggsw, dp, False)[0]
     return acc + _cmux_product(acc, a_col, ggsw, dp, base_log, levels)
+
+
+def cmux_chain(acc, a_cols, ggsws, key_index, dp: ntt.DevicePlan, base_log: int,
+               levels: int):
+    """s exact CMux steps for a batch of accumulators, each on its own GGSW
+    set: step i is acc_b + GGSW[key_index[b], i] (x) (acc_b * X^{a_cols[b,
+    i]} - acc_b), a_cols (B, s) in [0, 2N), ggsws (G, s, l, k+1, k+1, P, N),
+    key_index (B,) in [0, G): cmux_step on the gathered GGSWs, one step at
+    a time (vertical packing's low bits, tfhe_tpu/shortint/wopbs.py
+    vertical_packing, one _cmux a bit).  The plain version of K2's CMux
+    chain (kernels.cmux_chain)."""
+    index = torch.as_tensor(key_index, device=ggsws.device).long()
+    for i in range(a_cols.shape[1]):
+        acc = acc + _cmux_product(acc, a_cols[:, i], ggsws[index, i], dp, base_log, levels)
+    return acc
 
 
 def cmux(ct0, ct1, ggsw, dp: ntt.DevicePlan, base_log: int, levels: int):

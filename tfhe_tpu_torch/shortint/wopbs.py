@@ -6,8 +6,9 @@ experimental big-LUT path): message bits are extracted as boolean LWEs,
 circuit-bootstrapped into GGSWs by per-level PBS (the ServerKey's batched
 K1 then K2) followed by private functional packing keyswitches (PFPKS),
 and a 2^kappa-entry LUT is evaluated by a GGSW-driven CMux tree (K2's CMux
-entry, ``kernels.cmux``), low-bit rotations (K2's step entry,
-``kernels.cmux_step``) and sample extraction.
+entry, ``kernels.cmux``), low-bit rotations (K2's CMux chain,
+``kernels.cmux_chain``: every low bit of every packing of a call in one
+launch) and sample extraction.
 
 The PFPKS multiplies each key polynomial by a scalar digit: no negacyclic
 product, so in the coefficient domain it is K1's wrapping contraction
@@ -54,6 +55,29 @@ class WopbsParams:
 # external product contributes ~2^45 against the 2^58 threshold.
 TEST_WOPBS_PARAM = WopbsParams(cbs_base_log=6, cbs_level=4,
                                pfks_base_log=20, pfks_level=2)
+
+
+def ggsw_sets(ggsws: list) -> torch.Tensor:
+    """A list of GGSWs (L_cbs, k+1, k+1, P, N) as one (len, ...) tensor: a
+    view where they lie one after another in one storage, as
+    circuit_bootstrap_bits returns them (no copy), else a stack."""
+    first = ggsws[0]
+    n = first.numel()
+    if all(g.is_contiguous() and g.shape == first.shape and g.dtype == first.dtype
+           and g.untyped_storage().data_ptr() == first.untyped_storage().data_ptr()
+           and g.storage_offset() == first.storage_offset() + i * n
+           for i, g in enumerate(ggsws)):
+        return first.as_strided((len(ggsws),) + tuple(first.shape), (n,) + first.stride(),
+                                first.storage_offset())
+    return torch.stack(ggsws)
+
+
+def low_bits_route(k1: int, n_poly: int, levels: int, base_log: int) -> str:
+    """How vertical packing rotates by its low bits at a GGSW shape:
+    "chain", all of a call's packings in one K2 CMux-chain launch, where
+    the chain's kernel takes the shape (kernels.small_shape: the TEST
+    sets), else "step", one K2 step launch a bit and a GGSW set."""
+    return "chain" if kernels.small_shape(k1, n_poly, levels, base_log) else "step"
 
 
 class WopbsKey:
@@ -156,7 +180,8 @@ class WopbsKey:
         """Batched CBS: the per-level PBS of every bit in one batch (K1,
         K2), the PFPKS of every (level, bit) in one K1 launch, the GGSWs'
         NTT on the device.  Returns one GGSW a bit, (L_cbs, k+1, k+1, P, N)
-        int32 in K2's Montgomery NTT layout."""
+        int32 in K2's Montgomery NTT layout: views, one after another, of
+        one tensor (ggsw_sets stacks them again without a copy)."""
         prm = self.params
         levels, nb = prm.cbs_level, len(ct_bits)
         luts = [self._bit_lut(1 << (64 - prm.cbs_log_shift(lev))) for lev in range(levels)]
@@ -205,35 +230,68 @@ class WopbsKey:
         """Evaluate a 2^kappa-entry LUT; ggsw_bits MSB first
         (fft64/crypto/wop_pbs.rs vertical_packing).  The CMux tree over the
         high bits, one K2 CMux launch a level; the low bits' rotations,
-        acc + EP(ggsw, X^-rot acc - acc), one K2 step launch each.  The
-        output stays on the device."""
+        acc + EP(ggsw, X^-rot acc - acc) a bit, in one K2 CMux-chain launch
+        (low_bits_route).  The output stays on the device."""
+        return self._vertical_packing_many(ggsw_sets(ggsw_bits)[None], [0], [lut_values],
+                                           delta)[0]
+
+    def _vertical_packing_many(self, sets: torch.Tensor, set_of: list, tables: list,
+                               delta: int) -> list:
+        """Many vertical packings at once: packing j evaluates tables[j]
+        (2^kappa entries) on GGSW set set_of[j] of sets (G, kappa, L_cbs,
+        k+1, k+1, P, N), its bits MSB first.  Each packing's CMux tree runs
+        on K2's CMux entry, one launch a level; then the low bits of every
+        packing run in one K2 CMux-chain launch, each packing's chain on its
+        own set (a view of sets: no GGSW is copied), or, at shapes the
+        chain's kernel does not take (low_bits_route), one K2 step launch a
+        bit and a set.  The same steps in the same order as
+        ``vertical_packing`` for each packing, so the same words.  Returns
+        one Ciphertext a packing, on the device."""
         p = self.shortint_params
         prm = self.params
         n = self.n_poly
-        kappa = len(ggsw_bits)
+        kappa = sets.shape[1]
         size = 1 << kappa
-        entries = np.array([(int(lut_values[i]) * delta) % (1 << 64) for i in range(size)],
-                           dtype=np.uint64)
         n_polys = max(1, size // n)
-        polys = np.zeros((n_polys, p.glwe_dimension + 1, n), dtype=np.uint64)
-        for t in range(n_polys):
-            chunk = entries[t * n:(t + 1) * n]
-            polys[t, -1, :len(chunk)] = chunk
-        acc = torus.from_u64(polys, self.server_key.device)
-        # CMux tree over the high bits collapses the polynomial list
-        tree_bits = ggsw_bits[:max(0, kappa - (n.bit_length() - 1))]
-        for bit in tree_bits:  # MSB selects the upper half of the table
-            half = acc.shape[0] // 2
-            acc = self._cmux(bit, acc[:half], acc[half:])
-        acc = acc[:1].contiguous()
-        # blind rotation by the low bits: bit i selects rotation by 2^i slots
-        low_bits = ggsw_bits[len(tree_bits):]
-        n_low = len(low_bits)
-        for i, bit in enumerate(low_bits):  # MSB of the low group first
-            rot = 1 << (n_low - 1 - i)
-            a_col = torch.full((1,), 2 * n - rot, dtype=torch.int64, device=acc.device)
-            acc = kernels.cmux_step(acc, a_col, bit, self.dp, prm.cbs_base_log, prm.cbs_level)
-        return lazy_outputs(srv.sample_extract(acc), [p.message_modulus - 1], [p])[0]
+        polys = np.zeros((len(tables), n_polys, p.glwe_dimension + 1, n), dtype=np.uint64)
+        for j, lut_values in enumerate(tables):
+            entries = np.array([(int(lut_values[i]) * delta) % (1 << 64) for i in range(size)],
+                               dtype=np.uint64)
+            for t in range(n_polys):
+                chunk = entries[t * n:(t + 1) * n]
+                polys[j, t, -1, :len(chunk)] = chunk
+        accs = torus.from_u64(polys, self.server_key.device)
+        # CMux tree over the high bits collapses each polynomial list
+        n_tree = max(0, kappa - (n.bit_length() - 1))
+        firsts = []
+        for acc, g in zip(accs, set_of):
+            for t in range(n_tree):  # MSB selects the upper half of the table
+                half = acc.shape[0] // 2
+                acc = self._cmux(sets[g, t], acc[:half], acc[half:])
+            firsts.append(acc[0])
+        acc = torch.stack(firsts)
+        # blind rotation by the low bits: bit i selects rotation by 2^i slots,
+        # MSB of the low group first
+        n_low = kappa - n_tree
+        shifts = torch.arange(n_low - 1, -1, -1, device=acc.device)
+        a_cols = (2 * n - 2 ** shifts)[None].expand(len(set_of), n_low)
+        if n_low and low_bits_route(self.k + 1, n, prm.cbs_level,
+                                    prm.cbs_base_log) == "chain":
+            acc = kernels.cmux_chain(acc, a_cols, sets[:, n_tree:],
+                                     torch.tensor(set_of, dtype=torch.int64), self.dp,
+                                     prm.cbs_base_log, prm.cbs_level)
+        elif n_low:
+            # one step launch a bit for the packings of each set
+            for g in sorted(set(set_of)):
+                rows = torch.tensor([j for j, h in enumerate(set_of) if h == g],
+                                    device=acc.device)
+                part = acc[rows].contiguous()
+                for i in range(n_low):
+                    part = kernels.cmux_step(part, a_cols[rows, i], sets[g, n_tree + i],
+                                             self.dp, prm.cbs_base_log, prm.cbs_level)
+                acc[rows] = part
+        return lazy_outputs(srv.sample_extract(acc), [p.message_modulus - 1] * len(set_of),
+                            [p] * len(set_of))
 
     # ------------------------------------------------------------------
     # the full WoPBS: arbitrary LUT over the full (msg x carry) space

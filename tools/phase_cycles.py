@@ -19,7 +19,16 @@ and tables K2's exact rotation over 64 steps of the V1_4 2_2 shape (times
 also scaled to n = 918) twice, from one library: through
 ``kernels.blind_rotate`` (the lazy kernel, which the wrapper chooses for
 that shape), and through the generic C entry ``tfhe_torch_blind_rotate``
-(the generic kernel, the first design at that shape).  Writes
+(the generic kernel, the first design at that shape); then at the TEST
+shapes (k+1 = 2, N = 512: the rotation, l = 1, base 2^23, 16 steps, at
+B = 4 and 128; the low-bit chain of vertical packing, l = 4, base 2^6, 8
+steps, at B = 1 and 64) through the generic C entry and, where
+``kernels.cluster_shape`` takes the shape, the cluster C entry
+``tfhe_torch_blind_rotate_cluster``, each held against
+``server.rotate_accumulator`` and tabled from instrumented copies of both
+sources (the small-N kernel's copy with a block barrier on each side of
+each cluster barrier, so that each cluster barrier's wait is a row of its
+own).  Writes
 build/phase_cycles/phase.json.
 """
 import ctypes
@@ -44,7 +53,7 @@ FUNCS = ["tfhe_torch_blind_rotate", "tfhe_torch_blind_rotate_smem_bytes",
          "tfhe_torch_blind_rotate_exact_lazy_shape",
          "tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
          "tfhe_torch_blind_rotate_multibit", "tfhe_torch_blind_rotate_multibit_smem_bytes",
-         "tfhe_torch_blind_rotate_multibit_cts_per_block"]
+         "tfhe_torch_blind_rotate_multibit_cts_per_block", "tfhe_torch_blind_rotate_cluster"]
 B = 512
 
 
@@ -100,18 +109,34 @@ extern "C" int ph_reset() {
 """
 
 
+def marked_cluster_source() -> pathlib.Path:
+    """A copy of csrc/blind_rotate_cluster.cu whose small-N kernel has a
+    block barrier on each side of each cluster barrier, so that the table
+    shows the last inverse pass, each cluster barrier's wait and Garner
+    apart (the extra barriers cost a few hundred cycles a step)."""
+    text = (CSRC / "blind_rotate_cluster.cu").read_text()
+    start = text.index("blind_rotate_cluster_small_kernel(")
+    end = text.index("cudaError_t small_launch(")
+    body = text[start:end].replace("    cluster.sync();   //",
+                                   "    __syncthreads();\n    cluster.sync();\n    __syncthreads();  //")
+    out = HERE / "blind_rotate_cluster_marked.cu"
+    out.write_text(text[:start] + body + text[end:])
+    return out
+
+
 def write_sources():
     """The harness header and one wrapper a kernel source, in HERE."""
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "harness.cuh").write_text(HARNESS)
-    for name, source in (("h_k5", "blind_rotate128.cu"), ("h_k3", "blind_rotate_multibit.cu"),
-                         ("h_k2", "blind_rotate.cu")):
-        (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(CSRC / source)))
+    for name, source in (("h_k5", CSRC / "blind_rotate128.cu"),
+                         ("h_k3", CSRC / "blind_rotate_multibit.cu"),
+                         ("h_k2", CSRC / "blind_rotate.cu"), ("h_kc", marked_cluster_source())):
+        (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(source)))
 
 
 def build(names):
     write_sources()
-    cmd = kernels.nvcc_command() + ["-Xptxas", "-v"]
+    cmd = kernels.nvcc_command() + ["-Xptxas", "-v", "-I", str(CSRC)]
     procs = [(n, subprocess.Popen(cmd + ["-o", str(HERE / f"lib{n}.so"), str(HERE / f"{n}.cu")],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
              for n in names]
@@ -262,12 +287,91 @@ def k2x(libs, out, steps=64):
     res.update(generic_ms=t, generic_ms_scaled_918=t * 918 / steps)
     if "h_k2" in libs:
         lib = libs["h_k2"]
-        swap("blind_rotate", lib)
+        real = swap("blind_rotate", lib)
         res["phases"] = phases(lib, run, "blind_rotate.cu", steps)
         res["ms_instrumented"] = ms(run, 1)
         res["generic_phases"] = phases(lib, generic(lib), "blind_rotate.cu", steps)
         res["generic_ms_instrumented"] = ms(generic(lib), 1)
+        kernels._Libs.loaded["blind_rotate"] = real
     out["k2x"] = res
+    out["k2x_test"] = k2x_test(libs)
+
+
+# K2's exact rotation at the TEST shapes (k+1 = 2, N = 512, four primes):
+# (tag, l, base_log, steps, batches)
+K2_TEST_SHAPES = (("rotation", 1, 23, 16, (4, 128)), ("chain", 4, 6, 8, (1, 64)))
+
+
+def k2x_test(libs, reps=20):
+    """The TEST shapes: for each (shape, B) the generic C entry's and, where
+    the cluster kernel takes the shape, the cluster C entry's time (CUDA
+    events over reps launches, taken in turns: generic, cluster, cluster,
+    generic), words differing from the plain rotation, and both phase
+    tables a step."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rng = np.random.default_rng(17)
+    n, k1 = 512, 2
+    dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+    tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+    res = {}
+    for tag, lev, bl, steps, batches in K2_TEST_SHAPES:
+        key = torch.stack([torch.randint(0, q, (steps, lev, k1, k1, n), generator=gen,
+                                         device="cuda") for q in dp.plan.primes],
+                          dim=-2).to(torch.int32)
+        for b in batches:
+            acc0 = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n), dtype=np.uint64), "cuda")
+            mask32 = torch.from_numpy(rng.integers(0, 2 * n, (b, steps))).cuda().to(torch.int32)
+
+            def entry(lib, cluster):
+                def run():
+                    acc = acc0.clone()
+                    if cluster:
+                        err = lib.tfhe_torch_blind_rotate_cluster(
+                            acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), None, 0,
+                            tw_fwd.data_ptr(), tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), b, steps, k1,
+                            n.bit_length() - 1, lev, 4, bl, kernels._stream(acc))
+                    else:
+                        err = lib.tfhe_torch_blind_rotate(
+                            acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+                            dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, steps, k1,
+                            n.bit_length() - 1, lev, 4, bl, kernels._stream(acc))
+                    assert err == 0, f"K2 launch failed ({tag}, cluster {cluster}): cudaError {err}"
+                    return acc
+                return run
+
+            want = server.rotate_accumulator(acc0, mask32.long(), key, dp, bl, lev)
+            runs = {"generic": (entry(kernels.load()["blind_rotate"], False), "h_k2",
+                                "blind_rotate.cu")}
+            if kernels.cluster_shape(k1, n, lev, bl):
+                runs["cluster"] = (entry(kernels.load()["blind_rotate_cluster"], True), "h_kc",
+                                   "blind_rotate_cluster.cu")
+            row = {"batch": b, "levels": lev, "base_log": bl, "steps": steps}
+            for name, (run, _, _) in runs.items():
+                row[f"{name}_err"] = int((run() - want).abs().max())
+            order = list(runs) + list(reversed(runs))
+            times = {name: [] for name in runs}
+            for name in order:
+                times[name].append(ms(runs[name][0], reps))
+            for name, t in times.items():
+                row[f"{name}_ms"] = t
+                row[f"{name}_us_per_step"] = min(t) * 1e3 / steps
+            for name, (_, hname, src) in runs.items():
+                if hname in libs:
+                    hlib = libs[hname]
+                    real = kernels.load()["blind_rotate_cluster" if name == "cluster"
+                                          else "blind_rotate"]
+                    for f in FUNCS:
+                        if hasattr(real, f) and hasattr(hlib, f):
+                            getattr(hlib, f).argtypes = getattr(real, f).argtypes
+                            getattr(hlib, f).restype = getattr(real, f).restype
+                    fn = entry(hlib, name == "cluster")
+                    row[f"{name}_phases"] = phases(
+                        hlib, fn, "blind_rotate_cluster_marked.cu" if name == "cluster" else src,
+                        steps)
+            res[f"{tag}_b{b}"] = row
+            print("k2x_test", tag, b, {k: v for k, v in row.items() if not k.endswith("phases")},
+                  flush=True)
+    return res
 
 
 def generic_checks(out):
@@ -327,7 +431,7 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     t0 = time.time()
     kernels.load()
-    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k2", "k2x"))
+    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k2", "k2x"), ("h_kc", "k2x"))
             if w in which and "nophase" not in which]
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
@@ -344,6 +448,15 @@ def main():
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
+    for tag, row in out.get("k2x_test", {}).items():
+        for name in ("generic", "cluster"):
+            ph = row.get(f"{name}_phases")
+            if ph:
+                print(f"k2x_test {tag} {name}: total/step {ph['total_per_unit']:.0f} "
+                      f"wait {ph['wait_per_unit']:.0f}")
+                for r in ph["rows"]:
+                    print(f"  {r['at']:30s} n={r['count']:6d} work "
+                          f"{r['work_per_unit']:10.0f} wait {r['wait_per_unit']:8.0f}")
     for k in ("k5", "k3x", "k2x"):
         if k in out:
             d = out[k]

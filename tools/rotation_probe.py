@@ -93,7 +93,8 @@ def build_variants() -> dict:
     for name, path in zip(VARIANTS, paths):
         lib = libs[name] = ctypes.CDLL(str(path))
         if name.startswith("cluster"):
-            lib.tfhe_torch_blind_rotate_cluster.argtypes = [vp] * 6 + [i] * 7 + [vp]
+            lib.tfhe_torch_blind_rotate_cluster.argtypes = ([vp] * 4 + [ctypes.c_longlong]
+                                                            + [vp] * 3 + [i] * 7 + [vp])
             lib.tfhe_torch_blind_rotate_cluster.restype = i
             lib.tfhe_torch_blind_rotate_cluster_occupancy.argtypes = [i] * 3
             lib.tfhe_torch_blind_rotate_cluster_occupancy.restype = i
@@ -134,8 +135,8 @@ def run_cluster(lib, acc, mask, key, dp):
     tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
     mask32 = mask.to(torch.int32).contiguous()
     err = lib.tfhe_torch_blind_rotate_cluster(
-        acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
-        dp.kernel_consts.data_ptr(), acc.shape[0], mask.shape[1], acc.shape[1],
+        acc.data_ptr(), mask32.data_ptr(), key.data_ptr(), None, 0, tw_fwd.data_ptr(),
+        tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), acc.shape[0], mask.shape[1], acc.shape[1],
         N_POLY.bit_length() - 1, LEVELS, 4, BASE_LOG, kernels._stream(acc))
     if err:
         raise RuntimeError(f"cluster kernel: cudaError {err}")
