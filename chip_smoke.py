@@ -161,11 +161,12 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      round: a cluster of four blocks a ciphertext, one a CRT prime), and a
      radix of 4 blocks' add and mul through the integer layer;
  32. param_sets: the sets of shortint/params.py that had never had a
-     real-key round on the card (1_1: K2's generic exact kernel; the GPU
-     multi-bit GROUP_2 at N = 4096 and GROUP_3: K3's exact kernel; GROUP_4
-     1_1: K3 v9): keygen, one round at B = 32 decrypted, and its first 4
-     inputs through the same entry point with the kernels and with their
-     plain versions;
+     real-key round on the card (1_1: K2's small-N cluster
+     kernel at k + 1 = 5; the GPU multi-bit GROUP_2 at N = 4096 and GROUP_3
+     at l = 2: K3's cluster kernel; GROUP_4 1_1: K3 v9): keygen, one round
+     at B = 32 and a warm round on the same inputs, decrypted, and its
+     first 4 inputs through the same entry point with the kernels and with
+     their plain versions (each counted; no generic exact kernel);
  33. research_primitives: the GLWE keyswitch, the common mask and the
      experimental core at the 2_2 widths (n = 918, k = 1, N = 2048), keygens
      on the card from fixed seeds, every output decrypted: the GLWE
@@ -196,8 +197,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      key (its generic instance), the lazy exact kernel at the ragged
      batches B = 1, 3, 513 over 64 steps of the unrounded key, the generic
      exact kernel at the production shape on the same B = 512 inputs (the
-     kernel the lazy one replaced), at the TEST shape (N = 512) and at
-     1_1's k + 1 = 5, N = 512 on random keys; v7 mode must refuse a four-prime key on
+     kernel the lazy one replaced), K2 at the TEST shape (N = 512) and at
+     1_1's k + 1 = 5, N = 512 on random keys (the small-N cluster kernel
+     at both); v7 mode must refuse a four-prime key on
      the card; the v7 route at the ragged batches B = 1, 3, 5, 513 over
      64 steps and on a four-prime rounded key (rb = 4, the CRT bound's
      fallback); K2 in v7
@@ -210,7 +212,7 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      (unrounded key; the ragged batches over 8 groups of it), with phase
      10's multi-bit outputs against the plain rotation, at tfhe_tpu's
      GROUP_2 shape (g = 2, n = 918) on random keys in exact mode and in
-     v9 mode (a rounded key, four patterns a group), and its generic instance at the GROUP_3 shape (l = 2) in
+     v9 mode (a rounded key, four patterns a group), and its cluster kernel at the GROUP_3 shape (l = 2) in
      exact mode, where v9 mode must refuse a rounded and a four-prime key;
      K4 on phase 6's 512 inputs (its tensor-core kernel, the generic
      kernel it replaced and the int8 torch._int_mm yardstick; a bare int64
@@ -264,9 +266,14 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      shapes (N = 512) at each shape and batch phases 28-29 launched it
      with, the route's kernel and the generic kernel's C entry in turns,
      timed beside their bounds; K2's small-N cluster kernel at the TEST
-     rotation shape (B = 4, 128, 512; and l = 2, 3 at B = 3) and its CMux
+     rotation shape (B = 4, 128, 512; and l = 2, 3 at B = 3; k + 1 = 3, 4
+     at B = 3) and its CMux
      chain (three GGSW sets, a ragged key_index, B = 1 and 64) against the
-     plain versions and, in turns, the generic kernel's C entry;
+     plain versions and, in turns, the generic kernel's C entry; phase 32's
+     new routes on their real keys and the rounds' own keyswitched inputs
+     at B = 4 and 32 (K2's small-N kernel at 1_1, K3's cluster kernel at
+     GPU GROUP_2 and GROUP_3) against the plain rotations and, in turns,
+     the generic kernels' C entries;
  35. the launch counts of phases 4, 6, 7, 9, 10, 12-24 and 27-33 (each
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
@@ -274,7 +281,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      launches of phases 25-26 on every kernel's; K6's, K1's at the PFPKS
      shape and the CMux entry's, with the launches of phases 28-30 on K1's,
      K2's exact kernels' and the step entry's; K2's cluster kernel's, with
-     the launches of phases 31-32 on K1's, K2's and K3's; K7's, K8's, and
+     the launches of phases 31-32 on K1's, K2's and K3's, phase 32's
+     rounds, warm rounds and B = 4 checks each a path; K2's small-N kernel
+     at 1_1 and K3's cluster kernel, phase 32's; K7's, K8's, and
      K2's and K1's at phase 33's shapes).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
@@ -429,6 +438,7 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "blind_rotate_cluster_kernel", "blind_rotate_cluster_small_kernel",
                 "blind_rotate_exact_lazy_kernel", "blind_rotate_rounded_kernel",
                 "blind_rotate_multibit_kernel", "blind_rotate_multibit_lazy_kernel",
+                "blind_rotate_multibit_cluster_kernel",
                 "blind_rotate_multibit_rounded_kernel", "blind_rotate128_kernel",
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
                 "packing_keyswitch_imma_kernel",
@@ -936,7 +946,8 @@ def ptxas_start(kernels) -> tuple:
                                   str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name in ("keyswitch", "blind_rotate", "blind_rotate_cluster",
-                     "blind_rotate_multibit", "packing_keyswitch", "blind_rotate128",
+                     "blind_rotate_multibit", "blind_rotate_multibit_cluster",
+                     "packing_keyswitch", "blind_rotate128",
                      "packing_keyswitch128", "glwe_keyswitch", "blind_rotate_extended")]
 
 
@@ -999,11 +1010,21 @@ def cluster_regs(report: dict, k1: int, levels: int, log_n: int) -> dict:
         "spill_store_bytes")}
 
 
-def small_regs(report: dict, levels: int) -> dict:
-    """ptxas's registers and spills of K2's small-N cluster kernel at l =
-    levels."""
+def small_regs(report: dict, levels: int, k1: int = 2) -> dict:
+    """ptxas's registers and spills of K2's small-N cluster kernel at k+1 =
+    k1, l = levels."""
     regs = next((v for k, v in report.items()
-                 if f"blind_rotate_cluster_small_kernelILi{levels}E" in k), {})
+                 if f"blind_rotate_cluster_small_kernelILi{k1}ELi{levels}E" in k), {})
+    return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
+        "spill_store_bytes")}
+
+
+def multibit_cluster_regs(report: dict, n_poly: int, levels: int, grouping: int) -> dict:
+    """ptxas's registers and spills of K3's cluster kernel's instance at a
+    shape (its template arguments log N, l, 2^g in the mangled name)."""
+    name = (f"blind_rotate_multibit_cluster_kernelILi{n_poly.bit_length() - 1}ELi{levels}"
+            f"ELi{1 << grouping}E")
+    regs = next((v for k, v in report.items() if name in k), {})
     return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
         "spill_store_bytes")}
 
@@ -1041,13 +1062,14 @@ def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
     launches and, of them, those of K1's and K4's tensor-core kernels, of
     K2's lazy exact kernel (the rotation's and the step entry's), of its
-    cluster kernel and of K8's lazy kernel."""
+    cluster kernel, of K3's cluster kernel and of K8's lazy kernel."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
         ("keyswitch32_imma", kernels.keyswitch32, "imma_launches"),
         ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
         ("blind_rotate_cluster", kernels.blind_rotate, "cluster_launches"),
+        ("blind_rotate_multibit_cluster", kernels.blind_rotate_multibit, "cluster_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"),
         ("blind_rotate_extended_lazy", kernels.blind_rotate_extended, "lazy_launches"))
 
@@ -3086,16 +3108,23 @@ SERVE_3_3_BATCH = 64
 RADIX_3_3_BLOCKS = 4          # a radix of 4 blocks of 3 message bits: 12 bits
 PARAM_SETS_BATCH = 32
 PARAM_SETS = (
-    # (tag, the set's name in shortint/params.py, the rotation's counter)
-    ("1_1", "V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128", "blind_rotate"),
+    # (tag, the set's name in shortint/params.py, the rotation's counter,
+    # the counter of the kernel its route must launch for every rotation)
+    ("1_1", "V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128", "blind_rotate",
+     "blind_rotate_cluster"),
     ("gpu_group_2", "V1_4_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
-     "blind_rotate_multibit"),
+     "blind_rotate_multibit", "blind_rotate_multibit_cluster"),
     ("gpu_group_3", "V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
-     "blind_rotate_multibit"),
+     "blind_rotate_multibit", "blind_rotate_multibit_cluster"),
     ("gpu_group_4_1_1",
      "V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128",
-     "blind_rotate_multibit"),
+     "blind_rotate_multibit", None),
 )
+# each set's counted runs: the round, a second (warm) round on the same
+# inputs, the CHECK_BATCH check through the same entry point
+PARAM_SETS_RUNS = (("", "launches"), ("_warm", "warm_launches"), ("_b4", "b4_launches"))
+PARAM_SETS_TIMED = (CHECK_BATCH, PARAM_SETS_BATCH)   # the new routes against the generic kernels
+PARAM_SETS_REPS = 3
 CLUSTER_RANDOM_STEPS = 64     # the random-key check's steps at the 3_3 shape
 
 
@@ -3183,12 +3212,16 @@ def serve_3_3_phase(kernels, shortint_mod, ti, seed: int) -> dict:
 
 def param_sets_phase(kernels, shortint_mod, seed: int) -> dict:
     """Phase 32: every set of shortint/params.py that had no real-key round
-    on the card before: 1_1 (k + 1 = 5, N = 512: K2's generic exact
-    kernel), the GPU multi-bit GROUP_2 (N = 4096: K3's exact kernel), GROUP_3
-    (l = 2: K3's exact kernel) and GROUP_4 1_1 (K3 v9): keygen, one round
-    at B = 32 with (7x + 3) % total decrypted, and its first CHECK_BATCH
-    inputs through the same entry point with the kernels and with their
-    plain versions (0 words differing)."""
+    on the card before: 1_1 (k + 1 = 5, N = 512: K2's small-N cluster
+    kernel), the GPU multi-bit GROUP_2 (N = 4096) and GROUP_3 (l = 2, g =
+    3), both on K3's cluster kernel, and GROUP_4 1_1 (K3 v9): keygen, one
+    round at B = 32 with (7x + 3) % total decrypted, a second (warm) round
+    on the same inputs, decrypted, and the first CHECK_BATCH inputs through
+    the same entry point with the kernels and with their plain versions (0
+    words differing); each of the three counted, and each must launch the
+    route's kernel for its one rotation (no generic exact kernel).  The
+    sets with a route of their own keep their key, inputs and LUT for
+    param_sets_vs_plain."""
     import numpy as np
     import torch
 
@@ -3196,8 +3229,8 @@ def param_sets_phase(kernels, shortint_mod, seed: int) -> dict:
     from tfhe_tpu_torch.shortint import params as sp
     from tfhe_tpu_torch.shortint.server_key import upload_batch
 
-    lines, errs, wrong = {}, {}, 0
-    for i, (tag, name, rotation) in enumerate(PARAM_SETS):
+    lines, errs, wrong, keys = {}, {}, 0, {}
+    for i, (tag, name, rotation, route) in enumerate(PARAM_SETS):
         q = getattr(sp, name)
         t0 = time.perf_counter()
         ck = shortint_mod.ClientKey(q, seed=seed + 10 * i)
@@ -3211,11 +3244,23 @@ def param_sets_phase(kernels, shortint_mod, seed: int) -> dict:
         lut = sk.generate_lookup_table(f)
         out, launches, round_s, _ = counted(kernels,
                                             lambda: sk.apply_lookup_table_batch(cts, lut))
-        bad = int(sum(ck.decrypt_raw(ct) != f(int(v)) for ct, v in zip(out, inputs)))
-        if not launches["keyswitch"] or launches[rotation] != 1:
-            raise RuntimeError(f"{name}'s round did not run K1 and {rotation} once: {launches}")
+        warm, warm_launches, warm_s, _ = counted(kernels,
+                                                 lambda: sk.apply_lookup_table_batch(cts, lut))
+        bad = int(sum(ck.decrypt_raw(ct) != f(int(v))
+                      for run in (out, warm) for ct, v in zip(run, inputs)))
         few = cts[:CHECK_BATCH]
-        got = upload_batch([c.data for c in sk.apply_lookup_table_batch(few, lut)], sk.device)
+        got_cts, b4_launches, _, _ = counted(kernels,
+                                             lambda: sk.apply_lookup_table_batch(few, lut))
+        for what, counts in (("round", launches), ("warm round", warm_launches),
+                             (f"B = {CHECK_BATCH} check", b4_launches)):
+            if not counts["keyswitch"] or counts[rotation] != 1:
+                raise RuntimeError(f"{name}'s {what} did not run K1 and {rotation} once: "
+                                   f"{counts}")
+            if route and counts[route] != 1:
+                raise RuntimeError(f"{name}'s {what} did not run {route}: {counts}")
+            if route and counts["blind_rotate_exact_lazy"]:
+                raise RuntimeError(f"{name}'s {what} ran K2's lazy kernel: {counts}")
+        got = upload_batch([c.data for c in got_cts], sk.device)
         with plain_kernels(kernels, server):
             want = upload_batch([c.data for c in sk.apply_lookup_table_batch(few, lut)],
                                 sk.device)
@@ -3225,12 +3270,114 @@ def param_sets_phase(kernels, shortint_mod, seed: int) -> dict:
                       "grouping": getattr(q, "grouping_factor", None),
                       "v7_or_v9_mode": sk.trunc_acc, "keygen_seconds": keygen_s,
                       "batch": PARAM_SETS_BATCH, "round_seconds": round_s,
+                      "warm_round_seconds": warm_s, "route_counter": route,
                       "launches": {k: v for k, v in launches.items() if v},
+                      "warm_launches": {k: v for k, v in warm_launches.items() if v},
+                      "b4_launches": {k: v for k, v in b4_launches.items() if v},
                       f"vs_plain_b{CHECK_BATCH}_max_abs_err":
                           errs[f"param_sets_{tag}_b{CHECK_BATCH}"],
-                      "outputs_checked": PARAM_SETS_BATCH, "wrong": bad}
+                      "outputs_checked": 2 * PARAM_SETS_BATCH, "wrong": bad}
         wrong += bad
-    return {"line": {**lines, "wrong": wrong}, "errs": errs, "wrong": wrong}
+        if route:
+            keys[tag] = (sk, cts, lut)
+    return {"line": {**lines, "wrong": wrong}, "errs": errs, "wrong": wrong, "keys": keys}
+
+
+def generic_multibit_rotation(kernels, server, degrees, body, lut, key, dp, base_log: int,
+                              levels: int):
+    """K3's generic exact kernel (csrc/blind_rotate_multibit.cu
+    blind_rotate_multibit_kernel) through its C entry at a shape its lazy
+    kernel does not take: at the GPU GROUP_2 and GROUP_3 shapes, the kernel
+    the cluster kernel replaced."""
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    acc = server.initial_accumulator(lut, body, False).contiguous()
+    deg32 = degrees.to(torch.int32).contiguous()
+    b, n_groups, n_sub = degrees.shape
+    k1, n_poly = acc.shape[1], acc.shape[2]
+    tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+    mono = server.monomial_table(dp)[0]
+    err = kernels.load()["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit(
+        acc.data_ptr(), deg32.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(), mono.data_ptr(),
+        dp.kernel_consts.data_ptr(), b, n_groups, n_sub.bit_length() - 1, k1,
+        n_poly.bit_length() - 1, levels, dp.num_primes, base_log, kernels._stream(acc))
+    if err:
+        raise RuntimeError(f"K3's generic exact kernel failed: cudaError {err}")
+    return acc
+
+
+def param_sets_vs_plain(kernels, server, run, errs: dict) -> dict:
+    """The routes of phase 32's sets that have one of their own, on the
+    sets' real keys and the round's own keyswitched inputs, at B =
+    CHECK_BATCH and PARAM_SETS_BATCH: K2's small-N cluster kernel at 1_1
+    (k+1 = 5; through kernels.blind_rotate) and K3's cluster kernel at
+    GPU GROUP_2 and GROUP_3 (through kernels.blind_rotate_multibit), each
+    against the plain rotation (0 words differing) and, in turns, against
+    the generic kernel's C entry (the first design, also held); ms and the
+    host's ms a launch, the plain version's ms, the bound (k2_bound /
+    k3_bound, four primes) and the kernel's figures."""
+    import torch
+
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    out = {}
+    for tag, (sk, cts, lut) in run["keys"].items():
+        q, dev = sk.params, sk.device
+        batch = upload_batch([c.data for c in cts], dev)
+        ks = kernels.keyswitch(batch, sk.ks_key, q.ks_base_log, q.ks_level)
+        mask, body, log_mod = switched_inputs(ks, q, server)
+        luts = sk._upload_luts([lut], batch.shape[0])
+        grouping = getattr(q, "grouping_factor", None)
+        k1, n_poly = q.glwe_dimension + 1, q.polynomial_size
+        rows = {}
+        for b in PARAM_SETS_TIMED:
+            if grouping:
+                deg = server.multibit_switched_degrees(mask[:b], grouping, log_mod)
+                args = (deg, body[:b], luts[:b], sk.bsk_ntt, sk.dp, q.pbs_base_log, q.pbs_level)
+                wrapper, plain = kernels.blind_rotate_multibit, server.blind_rotate_multibit
+                generic = generic_multibit_rotation
+                bound = k3_bound(deg, luts[:b], q.pbs_level, q.pbs_base_log, EXACT_PRIMES, False)
+            else:
+                msed = server.modulus_switch(mask[:b], log_mod)
+                args = (msed, body[:b], luts[:b], sk.bsk_ntt, sk.dp, q.pbs_base_log, q.pbs_level)
+                wrapper, plain = kernels.blind_rotate, server.blind_rotate
+                generic = generic_exact_rotation
+                bound = k2_bound(msed, luts[:b], q.pbs_level, q.pbs_base_log, EXACT_PRIMES)
+            before = wrapper.cluster_launches
+            got = wrapper(*args)
+            if wrapper.cluster_launches != before + 1:
+                raise RuntimeError(f"{tag}'s rotation at B = {b} did not take its cluster kernel")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            name = "k3_cluster" if grouping else "k2_small_k5"
+            errs[f"{name}_{tag}_b{b}"] = max_abs_err(got, want)
+            errs[f"{name}_generic_{tag}_b{b}"] = max_abs_err(
+                generic(kernels, server, *args), want)
+            t = in_turns({"route": lambda a=args, w=wrapper: w(*a),
+                          "generic": lambda a=args, g=generic: g(kernels, server, *a)},
+                         PARAM_SETS_REPS)
+            ms = min(x[0] for x in t["route"])
+            rows[f"b{b}"] = {
+                "ms": ms, "host_ms": min(x[1] for x in t["route"]),
+                "generic_ms": min(x[0] for x in t["generic"]),
+                "generic_host_ms": min(x[1] for x in t["generic"]), "turns": t,
+                "plain_ms": plain_ms, "bound_ms": bound["ms"], "bound_by": bound["by"],
+                "bound_bytes_ms": bound["bytes_ms"], "bound_ntt_int32_ms": bound["ntt_ms"],
+                "share_of_bound": bound["ms"] / ms,
+                "shape": [b, (q.lwe_dimension // grouping) if grouping else q.lwe_dimension,
+                          k1, n_poly, q.pbs_level, q.pbs_base_log]
+                         + ([1 << grouping] if grouping else [])}
+        figures = (kernels.multibit_cluster_figures(n_poly, q.pbs_level, grouping) if grouping
+                   else kernels.cluster_figures(k1, n_poly, q.pbs_level))
+        out[tag] = {"params": run["line"][tag]["params"], **figures, **rows}
+        del batch, ks
+    return out
 
 
 def cluster_figures(kernels, server, torus, run, seed: int, errs: dict) -> dict:
@@ -3851,12 +3998,14 @@ def small_n_vs_plain(kernels, server, torus, seed: int, errs: dict) -> dict:
             "generic_host_ms": min(x[1] for x in t["generic"]), "turns": t,
             "plain_ms": plain_ms, "bound_ms": bound["ms"], "bound_by": bound["by"],
             "shape": [b, steps, k1, n_poly, levels, base_log]}
-    # the kernel's other instances (l = 2, 3), which no set runs: held only
-    for levels, base_log in ((2, 15), (3, 10)):
-        key = random_ntt_key((4, levels, k1, k1), dp, gen)
-        acc = torus.from_u64(rng.integers(0, 1 << 64, (3, k1, n_poly), dtype=np.uint64), dev)
+    # the kernel's other instances (l = 2, 3; k+1 = 3, 4 at l = 1), which no
+    # set runs: held only (k+1 = 5, 1_1's, in param_sets_vs_plain)
+    for k1_o, levels, base_log in ((k1, 2, 15), (k1, 3, 10), (3, 1, 23), (4, 1, 23)):
+        key = random_ntt_key((4, levels, k1_o, k1_o), dp, gen)
+        acc = torus.from_u64(rng.integers(0, 1 << 64, (3, k1_o, n_poly), dtype=np.uint64), dev)
         mask = torch.from_numpy(rng.integers(0, 2 * n_poly, (3, 4))).to(dev)
-        errs[f"k2_small_rotation_l{levels}_b3"] = max_abs_err(
+        tag = f"l{levels}" if k1_o == k1 else f"k{k1_o}"
+        errs[f"k2_small_rotation_{tag}_b3"] = max_abs_err(
             kernels.rotate_accumulator(acc, mask, key, dp, base_log, levels),
             server.rotate_accumulator(acc, mask, key, dp, base_log, levels))
     steps, levels, base_log = SMALL_CHAIN
@@ -3991,6 +4140,63 @@ class RotationShapes:
     def __exit__(self, *exc):
         self.kernels._launch_blind_rotate = self.original
         return False
+
+
+def param_sets_table_entries(s18: dict, by_path, errs: dict, ptxas_kernels: dict) -> list:
+    """The {"kernels": [...]} rows of phase 32's new routes, from
+    param_sets_vs_plain's figures (s18) and the phase's launches (by_path:
+    s14_by_path): K2's small-N cluster kernel at 1_1 and K3's cluster kernel
+    at the GPU GROUP_2 and GROUP_3 sets, each at B = PARAM_SETS_BATCH with
+    its B = CHECK_BATCH figures beside."""
+    big, small = f"b{PARAM_SETS_BATCH}", f"b{CHECK_BATCH}"
+    none = "none: no PyTorch call computes an exact wrapping-u64 negacyclic product"
+
+    def row(fig: dict) -> dict:
+        at = fig[big]
+        return {"ms": at["ms"], "host_ms": at["host_ms"], "generic_kernel_ms": at["generic_ms"],
+                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                "bound_by": at["bound_by"], "library_ms": None, "library_call": none,
+                "bound_primes": EXACT_PRIMES, "bound_bytes_ms": at["bound_bytes_ms"],
+                "bound_ntt_int32_ms": at["bound_ntt_int32_ms"],
+                f"{small}_ms": fig[small]["ms"], f"{small}_host_ms": fig[small]["host_ms"],
+                f"{small}_generic_kernel_ms": fig[small]["generic_ms"],
+                f"{small}_plain_ms": fig[small]["plain_ms"],
+                f"{small}_bound_ms": fig[small]["bound_ms"],
+                "shared_memory_bytes": fig["shared_memory_bytes"],
+                "blocks_per_sm": fig["blocks_per_sm"], "active_clusters": fig["active_clusters"],
+                "shape": at["shape"]}
+
+    k2_paths = by_path("blind_rotate_cluster", ("param_sets_1_1",))
+    k3_paths = by_path("blind_rotate_multibit_cluster",
+                       ("param_sets_gpu_group_2", "param_sets_gpu_group_3"))
+    k2_regs = small_regs(ptxas_kernels, 1, 5)
+    k3_regs = {tag: multibit_cluster_regs(ptxas_kernels, n, lev, g)
+               for tag, (n, lev, g) in (("gpu_group_2", (4096, 1, 2)),
+                                        ("gpu_group_3", (2048, 2, 3)))}
+    return [
+        {"name": "blind_rotate_cluster_small_1_1", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
+         "replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
+         "kernel": "blind_rotate_cluster_small_kernel<5, 1> (K2's exact rotation at 1_1, "
+                   "k+1 = 5, N = 512, l = 1: a cluster of 4 blocks of 128 threads a "
+                   "ciphertext, one a CRT prime, one key buffer a block)",
+         "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_small_k5")),
+         **row(s18["1_1"]), "registers": k2_regs.get("registers"),
+         "spill_store_bytes": k2_regs.get("spill_store_bytes")},
+        {"name": "blind_rotate_multibit_cluster", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_multibit_cluster.cu",
+         "replaces": "tfhe_tpu/ops/server.py:425",
+         "kernel": "blind_rotate_multibit_cluster_kernel (K3's exact rotation at the GPU "
+                   "multi-bit GROUP_2 and GROUP_3 sets: a cluster of 4 blocks of 256 threads a "
+                   "ciphertext, one a CRT prime, two blocks an SM; the row's figures are "
+                   "GROUP_2's, GROUP_3's in gpu_group_3)",
+         "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith(("k3_cluster",
+                                                                        "k3_group_3"))),
+         **row(s18["gpu_group_2"]), "registers": k3_regs["gpu_group_2"].get("registers"),
+         "spill_store_bytes": k3_regs["gpu_group_2"].get("spill_store_bytes"),
+         "gpu_group_3": {**row(s18["gpu_group_3"]), **k3_regs["gpu_group_3"]}}]
 
 
 def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict, p) -> list:
@@ -4647,8 +4853,9 @@ def main() -> None:
              bsk_exact[:RAGGED_STEPS], sk.dp, p.pbs_base_log, p.pbs_level, False)
         errs[f"k2_exact_ragged_b{b}"] = max_abs_err(kernels.blind_rotate(*a),
                                                     server.blind_rotate(*a))
-    # the generic exact kernel at the TEST sets' shape and at 1_1's k + 1 = 5
-    # on random keys (the wrapper must not take the lazy kernel there)
+    # K2 at the TEST sets' shape and at 1_1's k + 1 = 5 on random keys (the
+    # small-N cluster kernel at both; the wrapper must not take the lazy
+    # kernel there)
     gen_g = torch.Generator(device=dev).manual_seed(args.seed + 7)
     for k1_g, n_g, l_g, bl_g in K2_GENERIC_SHAPES:
         dp_g = ntt.device_plan(ntt.make_plan(n_g, EXACT_PRIMES), "cuda")
@@ -4659,7 +4866,7 @@ def main() -> None:
              random_ntt_key((K2_GENERIC_STEPS, l_g, k1_g, k1_g), dp_g, gen_g), dp_g, bl_g, l_g,
              False)
         lazy_before = kernels.blind_rotate.lazy_exact_launches
-        errs[f"k2_generic_exact_k{k1_g}_N{n_g}_b{CHECK_BATCH}"] = max_abs_err(
+        errs[f"k2_n512_exact_k{k1_g}_N{n_g}_b{CHECK_BATCH}"] = max_abs_err(
             kernels.blind_rotate(*a), server.blind_rotate(*a))
         if kernels.blind_rotate.lazy_exact_launches != lazy_before:
             raise RuntimeError(f"K2 took its lazy exact kernel at k+1 = {k1_g}, N = {n_g}")
@@ -4925,13 +5132,13 @@ def main() -> None:
     # K3 at other shapes on random keys and inputs: tfhe_tpu's GROUP_2 set
     # (g = 2, n = 918) in exact mode (the specialised instance) and in v9
     # mode on a rounded key (rb = mb_round_bits, its rounded-key kernel at
-    # four patterns a group), and the GROUP_3 shape (l = 2: the generic
-    # instance) in exact mode, the only mode that set runs on the card; v9
+    # four patterns a group), and the GROUP_3 shape (l = 2: the cluster
+    # kernel) in exact mode, the only mode that set runs on the card; v9
     # mode must refuse a rounded key of its shape and, on the card, a
     # four-prime key
     k3_shapes = {}
     for tag, q, base_log in (("tpu_group_2", TPU_GROUP_2, TPU_GROUP_2.pbs_base_log),
-                             ("generic_group_3", GROUP_3, GROUP_3.pbs_base_log)):
+                             ("group_3", GROUP_3, GROUP_3.pbs_base_log)):
         g, n_groups = q.grouping_factor, q.lwe_dimension // q.grouping_factor
         key = random_ntt_key((n_groups, 1 << g, q.pbs_level, 2, 2), msk.dp, gen)
         raw = torus.from_u64(chk.integers(0, 1 << 64, (CHECK_BATCH, q.lwe_dimension),
@@ -4955,6 +5162,17 @@ def main() -> None:
                 except ValueError as exc:
                     k3_shapes[f"group_3_v9_{refused}_refused"] = str(exc)
         del key, rounded_q
+    # K3's exact route: the wrapper's predicate against the cluster
+    # kernel's own (csrc/blind_rotate_multibit_cluster.cu mb_cluster_shape)
+    # at every multi-bit set's shape
+    c_shape = kernels.load()["blind_rotate_multibit_cluster"].tfhe_torch_blind_rotate_multibit_cluster_shape
+    for q in vars(shortint_mod.params).values():
+        if isinstance(q, shortint_mod.params.MultiBitPBSParameters):
+            shape = (q.glwe_dimension + 1, q.polynomial_size, q.pbs_level, q.grouping_factor,
+                     q.pbs_base_log)
+            if kernels.multibit_cluster_shape(*shape) != bool(
+                    c_shape(shape[0], shape[1].bit_length() - 1, *shape[2:])):
+                raise RuntimeError(f"K3's cluster-shape predicates disagree at {shape}")
 
     # K5 on the squash phase's own inputs (the plain keyswitch and modulus
     # switch of the chained outputs): all 512 against the phase's outputs,
@@ -5052,6 +5270,8 @@ def main() -> None:
     # phases 31-32: K2's cluster kernel at the 3_3 shape, the new sets' rounds
     s14 = cluster_figures(kernels, server, torus, s33_run, args.seed + 101, errs)
     errs.update(ps_run["errs"])
+    s18 = param_sets_vs_plain(kernels, server, ps_run, errs)
+    del ps_run["keys"]
     # phase 33: K7 at both signs, K1 at the shrinking and CM shapes, K8 at
     # E = 1, 2, 4 and K2 at the CM shape
     s15 = research_vs_plain(kernels, server, torus, rp_run["run"], p, args.seed + 121, errs)
@@ -5138,7 +5358,8 @@ def main() -> None:
                       for name, _, _ in TRIVIUM_STREAMS for tag in ("keystream", "transcipher")},
           **s13_paths, "serve_3_3": s33_run["line"]["launches"],
           "serve_3_3_radix": {k: s33_run["line"]["radix"][k]["launches"] for k in ("add", "mul")},
-          "param_sets": {t: ps_run["line"][t]["launches"] for t, _, _ in PARAM_SETS},
+          "param_sets": {f"{t}{suffix}": ps_run["line"][t][key] for t, *_ in PARAM_SETS
+                         for suffix, key in PARAM_SETS_RUNS},
           "research_primitives": {t: rp_run["line"][t]["launches"] for t in RESEARCH_STEPS}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
@@ -5277,7 +5498,7 @@ def main() -> None:
              "modswitch_compress_multibit":
                  ms_launches["multibit"]["decompress"]["blind_rotate_multibit"]},
          "max_abs_err": max(v for k, v in errs.items() if k.startswith("k3_exact")
-                            or k.startswith(("k3_tpu_group_2_exact", "k3_generic_group_3"))),
+                            or k.startswith("k3_tpu_group_2_exact")),
          "ms": k3_exact_ms, "plain_ms": k3_exact_plain_ms,
          "bound_ms": k3_bound_exact["ms"], "bound_by": k3_bound_exact["by"],
          "library_ms": None,
@@ -5513,11 +5734,14 @@ def main() -> None:
     s33_l, ps_l = s33_run["line"], ps_run["line"]
     s14_runs = {"serve_3_3": s33_l["launches"],
                 **{f"serve_3_3_radix_{k}": s33_l["radix"][k]["launches"] for k in ("add", "mul")},
-                **{f"param_sets_{t}": ps_l[t]["launches"] for t, _, _ in PARAM_SETS}}
+                **{f"param_sets_{t}{suffix}": ps_l[t][key] for t, *_ in PARAM_SETS
+                   for suffix, key in PARAM_SETS_RUNS}}
 
     def s14_by_path(counter: str, paths=None) -> dict:
+        """Launches of one counter on each path of phases 31-32 whose name
+        starts with one of paths (all where None)."""
         return {path: c.get(counter, 0) for path, c in s14_runs.items()
-                if c.get(counter, 0) and (paths is None or path in paths)}
+                if c.get(counter, 0) and (paths is None or path.startswith(paths))}
 
     # its 3_3 instance (k+1 = 2, l = 2, log N = 13)
     cl_regs = cluster_regs(ptxas_kernels, 2, 2, 13)
@@ -5527,8 +5751,8 @@ def main() -> None:
         "replaces": "tfhe_tpu/ops/pallas_ntt.py:794",
         "kernel": "blind_rotate_cluster_kernel (K2's exact rotation, a cluster of 4 blocks a "
                   "ciphertext, one a CRT prime: 3_3, k+1 = 2, l = 2, N = 8192)",
-        "launches": sum(s14_by_path("blind_rotate_cluster").values()),
-        "launches_by_path": s14_by_path("blind_rotate_cluster"),
+        "launches": sum(s14_by_path("blind_rotate_cluster", ("serve_3_3",)).values()),
+        "launches_by_path": s14_by_path("blind_rotate_cluster", ("serve_3_3",)),
         "max_abs_err": max(v for k, v in errs.items() if k.startswith("k2_cluster")),
         "words_differing": {k: v for k, v in errs.items() if k.startswith("k2_cluster")},
         "ms": s14["ms"], "b4_ms": s14["b4_ms"], "plain_ms": s14["plain_b4_ms"],
@@ -5546,16 +5770,15 @@ def main() -> None:
         "registers": cl_regs.get("registers"), "spill_store_bytes": cl_regs.get(
             "spill_store_bytes"),
         "shape": s14["shape"]})
+    # phase 32's new routes: K2's small-N kernel at 1_1 (k+1 = 5) and K3's
+    # cluster kernel at the GPU GROUP_2 and GROUP_3 sets
+    table += param_sets_table_entries(s18, s14_by_path, errs, ptxas_kernels)
     # K7, K8, and K2 and K1 at phase 33's shapes
     table += research_table_entries(kernels, rp_run, s15, errs, ptxas_kernels, p)
     by_name = {entry["name"]: entry for entry in table}
     for name, counter, paths, key in (
             ("keyswitch", "keyswitch", None, "launches_by_path"),
             ("keyswitch", "keyswitch_imma", None, "tensor_core_launches_by_path"),
-            ("blind_rotate_exact", "blind_rotate", ("param_sets_1_1",),
-             "generic_launches_by_path"),
-            ("blind_rotate_multibit_exact", "blind_rotate_multibit",
-             ("param_sets_gpu_group_2", "param_sets_gpu_group_3"), "launches_by_path"),
             ("blind_rotate_multibit", "blind_rotate_multibit", ("param_sets_gpu_group_4_1_1",),
              "launches_by_path")):
         extra = s14_by_path(counter, paths)

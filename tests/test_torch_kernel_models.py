@@ -20,8 +20,14 @@ contraction cut into slices of chunks summed in any order
 transforms and key product in its own block, the accumulator in quarters,
 Garner on each quarter from the four primes' residues; its small-N kernel
 at the TEST shapes (N = 512: the rotation, l = 1, and vertical packing's
-CMux chain, l = 4, a GGSW set a ciphertext), the kernel's digits and
-ranges against tfhe_tpu and the plain cmux_chain, and its route.  K6's tensor-core
+CMux chain, l = 4, a GGSW set a ciphertext) and 1_1's k+1 = 5, the
+kernel's digits and ranges against tfhe_tpu and the plain cmux_chain, and
+its route.  K3's cluster kernel (csrc/blind_rotate_multibit_cluster.cu) at
+the GPU multi-bit GROUP_2 and GROUP_3 shapes: each prime's bundle, lazy
+transforms and product in its own block, the accumulator kept as its
+words' decomposer states, Garner on each quarter from the four primes'
+residues, against tfhe_tpu's blind_rotate_multibit; the routes of the
+four sets that first ran on the card in phase 32.  K6's tensor-core
 kernel: balanced byte limbs of d and of -d (the negacyclic wrap) times the
 key's byte limbs, the pairs a + b <= 15 summed in s32 at shift 8 (a + b)
 and folded into u128 words on its flush schedule.  The kernels' own shape
@@ -864,8 +870,9 @@ SN_SHAPES = ((1, 23), (4, 6))
 
 
 class _SmallStep:
-    """One step of the small-N kernel on numpy u64 accumulators (B, 2, N),
-    each ciphertext on its own GGSW (B, l, 2, 2, P, N): per prime, the
+    """One step of the small-N kernel on numpy u64 accumulators (B, k+1, N)
+    (k+1 = 2, or 5 at l = 1: 1_1), each ciphertext on its own GGSW (B, l,
+    k+1, k+1, P, N): per prime, the
     digits' residues d + 2p, lazy forward stages (a stage is the same
     butterfly in any pass, so the kernel's 4 + 3 + 2 split and its fused
     inverse 2 + 4 + 3 are these transforms), canonical inputs to the key
@@ -873,15 +880,15 @@ class _SmallStep:
     into [0, 2p), lazy inverse stages, N^-1 and Garner into the
     accumulator, with each range the kernel relies on asserted."""
 
-    def __init__(self, levels, base_log):
-        self.levels, self.base_log = levels, base_log
+    def __init__(self, levels, base_log, k1=SN_K1):
+        self.levels, self.base_log, self.k1 = levels, base_log, k1
         self.plan = ref_ntt.make_plan(SN_N, P)
         self.dp = ntt.device_plan(ntt.make_plan(SN_N, P), "cpu")
         self.fwd, self.inv = (t.numpy().view(np.uint32).astype(np.uint64)
                               for t in ntt.shoup_twiddles(self.dp))
 
     def digits(self, acc, a):
-        """(l, B, 2, N) signed digits of acc X^a - acc, lowest level first:
+        """(l, B, k+1, N) signed digits of acc X^a - acc, lowest level first:
         from the high word at l = 1 (hi_word_digit) and wherever base_log l
         <= 30 (hi_decomposer_state, hi_next_digit), else the 64-bit
         decomposer (decomposer_state, next_digit)."""
@@ -905,9 +912,9 @@ class _SmallStep:
             x = _reduce_to(_reduce_to(_lazy_forward(res, self.fwd[i, :, 0], self.fwd[i, :, 1],
                                                     p64), 2 * p64), p64)
             key = keys[:, :, :, :, i].astype(np.uint64).reshape(
-                acc.shape[0], -1, SN_K1, SN_N)                              # (B, (lev, r), cc, N)
-            prod = np.zeros((acc.shape[0], SN_K1, SN_N), dtype=np.uint64)
-            for cc in range(SN_K1):
+                acc.shape[0], -1, self.k1, SN_N)                            # (B, (lev, r), cc, N)
+            prod = np.zeros((acc.shape[0], self.k1, SN_N), dtype=np.uint64)
+            for cc in range(self.k1):
                 for r0 in range(0, rows.shape[1], 4):
                     t = sum(x[:, r] * key[:, r, cc] for r in range(r0, min(r0 + 4, rows.shape[1])))
                     assert (t < p64 << np.uint64(32)).all()
@@ -948,6 +955,32 @@ def test_small_n_cluster_chain_matches_tfhe_tpu(levels, base_log):
     assert (torus.to_u64(plain) == got).all()
 
 
+def test_small_n_1_1_steps_match_tfhe_tpu():
+    """1_1's shape (k+1 = 5, N = 512, l = 1, base 2^23): three steps of the
+    model on two ciphertexts and a random key are tfhe_tpu's exact
+    blind_rotate (body 0, the accumulator as its LUT) and the port's plain
+    rotation (kernels.rotate_accumulator on the CPU), word for word."""
+    rng = np.random.default_rng(61)
+    k1, steps, base_log = 5, 3, 23
+    model = _SmallStep(1, base_log, k1)
+    key = np.stack([rng.integers(0, p, (steps, 1, k1, k1, SN_N), dtype=np.uint64)
+                    for p in model.plan.primes], axis=-2).astype(np.uint32)
+    acc = rng.integers(0, 1 << 64, (2, k1, SN_N), dtype=np.uint64)
+    acc[0, 0, :3] = (0, (1 << 64) - 1, 1 << 63)
+    a = rng.integers(0, 2 * SN_N, (2, steps))
+    got = acc
+    for i in range(steps):
+        got = model(got, a[:, i], np.broadcast_to(key[i], (2,) + key.shape[1:]))
+    want = np.asarray(ref_srv.blind_rotate(jnp.asarray(a), jnp.zeros(2, jnp.uint64),
+                                           jnp.asarray(acc), jnp.asarray(key), model.plan,
+                                           base_log, 1))
+    assert (got == want).all()
+    plain = kernels.rotate_accumulator(torus.from_u64(acc, "cpu"), _i64(a),
+                                       torch.from_numpy(key.view(np.int32)), model.dp,
+                                       base_log, 1)
+    assert (torus.to_u64(plain) == got).all()
+
+
 @pytest.mark.parametrize("shape,route", [
     ((2, 512, 1, 23), "cluster"),       # the TEST sets' PBS: WoPBS, AES, KS32, PBS->KS
     ((2, 512, 4, 6), "cluster"),        # vertical packing's CMux chain
@@ -956,20 +989,23 @@ def test_small_n_cluster_chain_matches_tfhe_tpu(levels, base_log):
     ((2, 512, 1, 30), "cluster"),
     ((2, 512, 1, 31), "generic"),       # past the lazy residues' base_log 30
     ((2, 512, 5, 6), "generic"),        # past l = 4
-    ((3, 512, 1, 23), "generic"),
-    ((5, 512, 1, 23), "generic"),       # 1_1
+    ((3, 512, 1, 23), "cluster"),
+    ((5, 512, 1, 23), "cluster"),       # 1_1
+    ((5, 512, 2, 15), "generic"),       # past l = 1 at k+1 > 2
     ((2, 256, 1, 23), "generic"),       # the toy vectors
     ((2, 1024, 1, 23), "generic"),
     ((2, 1024, 3, 7), "generic"),       # TFHE_LIB
 ])
 def test_small_n_route(shape, route):
     """K2's exact rotation takes the small-N cluster kernel exactly at the
-    N = 512 entry of CLUSTER_SHAPES (k+1 = 2, l <= 4, base_log <= 30): the
-    TEST rotation and chain shapes; every other shape the generic kernel
-    takes stays on it.  cmux_chain takes the same shapes (small_shape)."""
+    N = 512 entries of CLUSTER_SHAPES (k+1 = 2, l <= 4, and 3 <= k+1 <= 5,
+    l = 1, base_log <= 30): the TEST rotation and chain shapes and 1_1's;
+    every other shape the generic kernel takes stays on it.  cmux_chain
+    takes those at k+1 = 2 (chain_shape)."""
     assert kernels.exact_rotation_route(*shape, False) == route
     assert kernels.small_shape(*shape) == (route == "cluster")
     assert kernels.cluster_shape(*shape) == (route == "cluster")
+    assert kernels.chain_shape(*shape) == (route == "cluster" and shape[0] == 2)
 
 
 def test_small_n_route_takes_the_test_sets_and_the_wopbs_chain():
@@ -985,6 +1021,209 @@ def test_small_n_route_takes_the_test_sets_and_the_wopbs_chain():
                                             False) == "cluster", p
     w = wopbs.TEST_WOPBS_PARAM
     assert kernels.small_shape(2, 512, w.cbs_level, w.cbs_base_log)
+
+
+# ---------------------------------------------------------------------------
+# K3's cluster kernel (csrc/blind_rotate_multibit_cluster.cu) at the GPU
+# multi-bit sets: a cluster of four blocks a ciphertext, block p holding
+# prime p; the accumulator kept as each word's decomposer state
+# ---------------------------------------------------------------------------
+
+MC_SHAPES = {"gpu_group_2": (4096, 1, 2, 21, 2), "gpu_group_3": (2048, 2, 3, 14, 3)}
+
+
+def _hi_state(words, base_log, levels):
+    """ntt_common.cuh hi_decomposer_state of u64 words (base_log l <= 30)."""
+    rep = base_log * levels
+    res = (np.asarray(words, dtype=np.uint64) >> np.uint64(63 - rep)).astype(np.int64)
+    rounding_bit = res & 1
+    res = ((res + 1) >> 1) & ((1 << rep) - 1)
+    nb = (((res - 1) | (rounding_bit << (rep - 1))) & res) >> (rep - 1)
+    return res - (nb << rep)
+
+
+def _state_digits(state, base_log, levels):
+    """The kernel's first pass: level lev's digit is the (lev + 1)-th
+    hi_next_digit of the state (lowest level first); (l, ...)."""
+    state, digits = state.copy(), []
+    for _ in range(levels):
+        r = state & ((1 << base_log) - 1)
+        state = state >> base_log
+        carry = (((r - 1) | state) & r) >> (base_log - 1)
+        state = state + carry
+        digits.append(r - (carry << base_log))
+    return np.stack(digits)
+
+
+class _MultibitClusterGroup:
+    """One group of the cluster kernel on the (B, 2, N) decomposer states:
+    block pi forms the digits' residues d + 2p, the lazy forward transform
+    (a stage is the same butterfly in any pass), canonical inputs; the
+    bundle eff = E_0 + sum_u w_u E_u of each entry with w_u from the
+    port's one-period monomial table, its products summed in 64 bits and
+    reduced once a four into [0, 2p); the product over the l (k+1) rows,
+    reduced once a four; the lazy inverse transform and N^-1.  Then block
+    r's quarter of the flattened (2, N) coefficients is reconstructed
+    from the four blocks' residues there (Garner), giving the words; each
+    range the kernel relies on is asserted."""
+
+    def __init__(self, n_poly, levels, grouping, base_log):
+        self.n, self.levels, self.g, self.base_log = n_poly, levels, grouping, base_log
+        self.plan = ref_ntt.make_plan(n_poly, P)
+        self.dp = ntt.device_plan(ntt.make_plan(n_poly, P), "cpu")
+        self.fwd, self.inv = (t.numpy().view(np.uint32).astype(np.uint64)
+                              for t in ntt.shoup_twiddles(self.dp))
+        table, odd = server.monomial_table(self.dp)
+        self.mono = table.numpy().astype(np.uint64)[:, :2 * n_poly]   # psi has order 2N
+        self.odd = odd.numpy().astype(np.uint64)                      # 2 br(t) + 1
+
+    def __call__(self, states, deg, key):
+        """states (B, 2, N) int64; deg (B, 2^g) in [0, 2N); key (2^g, l, 2,
+        2, P, N) u32.  Returns the group's (B, 2, N) u64 words."""
+        b, n, k1 = states.shape[0], self.n, 2
+        dig = _state_digits(states, self.base_log, self.levels)           # (l, B, 2, N)
+        rows = dig.transpose(1, 0, 2, 3).reshape(b, -1, n)                # (B, (lev, r), N)
+        y = np.empty((b, k1, P, n), dtype=np.uint64)
+        for i, p in enumerate(self.plan.primes):
+            pp, p64 = self.plan.plans[i], np.uint64(p)
+            pinv = np.uint64(pp.p_inv_neg32)
+            res = ((rows + 2 * p) & M32).astype(np.uint64)
+            assert (res < 4 * p).all()
+            x = _reduce_to(_reduce_to(_lazy_forward(res, self.fwd[i, :, 0], self.fwd[i, :, 1],
+                                                    p64), 2 * p64), p64)
+            e = key[:, :, :, :, i].astype(np.uint64).reshape(1 << self.g, -1, k1, n)
+            w = self.mono[i][(self.odd[None, :] * deg[:, :, None].astype(np.uint64))
+                             & np.uint64(2 * n - 1)]                          # (B, 2^g, N)
+            eff = np.broadcast_to(e[0], (b,) + e.shape[1:]).copy()        # (B, (lev, r), cc, N)
+            for u0 in range(1, 1 << self.g, 4):
+                t = sum(w[:, u, None, None] * e[u] for u in range(u0, min(u0 + 4, 1 << self.g)))
+                assert (t < p64 << np.uint64(32)).all()
+                eff = _reduce_to(eff + _redc_lazy(t, p64, pinv), 2 * p64)
+            eff = _reduce_to(eff, p64)
+            prod = np.zeros((b, k1, n), dtype=np.uint64)
+            for cc in range(k1):
+                for r0 in range(0, rows.shape[1], 4):
+                    t = sum(x[:, r] * eff[:, r, cc] for r in range(r0, min(r0 + 4, rows.shape[1])))
+                    assert (t < p64 << np.uint64(32)).all()
+                    prod[:, cc] = _reduce_to(prod[:, cc] + _redc_lazy(t, p64, pinv), 2 * p64)
+            z = _reduce_to(_lazy_inverse(prod, self.inv[i, :, 0], self.inv[i, :, 1], p64), p64)
+            y[:, :, i] = ref_ntt.mont_mul(z, pp.n_inv_mont, p64, pp.p_inv_neg32, np)
+        # block r reconstructs coefficients r Q .. (r + 1) Q - 1 of the
+        # flattened (2, N) from the four primes' residues there
+        quarter = k1 * n // P
+        flat = y.transpose(0, 2, 1, 3).reshape(b, P, k1 * n)
+        words = np.empty((b, k1 * n), dtype=np.uint64)
+        for r in range(P):
+            at = slice(r * quarter, (r + 1) * quarter)
+            words[:, at] = torus.to_u64(ntt.garner_to_u64(_i64(flat[:, :, at]), self.dp))
+        return words.reshape(b, k1, n)
+
+    def rotate(self, acc, degrees, keys):
+        """Whole rotation of (B, 2, N) u64 accumulators over degrees (B, G,
+        2^g), keys (G, 2^g, l, 2, 2, P, N): states from the input words,
+        each group's words to states for the next, the last group's words
+        out."""
+        words = acc
+        for j in range(degrees.shape[1]):
+            states = _hi_state(words, self.base_log, self.levels)
+            words = self(states, degrees[:, j], keys[j])
+        return words
+
+
+@pytest.fixture(scope="module", params=sorted(MC_SHAPES))
+def multibit_cluster_case(request):
+    """A GPU multi-bit shape with n cut to two or three groups: the model,
+    a random key, degrees of random masks, accumulators (extreme words in
+    one row) and tfhe_tpu's blind_rotate_multibit of them (body 0, the
+    accumulator as its LUT)."""
+    n_poly, levels, g, base_log, groups = MC_SHAPES[request.param]
+    rng = np.random.default_rng(67 + n_poly)
+    model = _MultibitClusterGroup(n_poly, levels, g, base_log)
+    key = np.stack([rng.integers(0, p, (groups, 1 << g, levels, 2, 2, n_poly), dtype=np.uint64)
+                    for p in model.plan.primes], axis=-2).astype(np.uint32)
+    raw = torus.from_u64(rng.integers(0, 1 << 64, (2, groups * g), dtype=np.uint64), "cpu")
+    deg = server.multibit_switched_degrees(raw, g, n_poly.bit_length()).numpy()
+    acc = rng.integers(0, 1 << 64, (2, 2, n_poly), dtype=np.uint64)
+    acc[0, 0, :3] = (0, (1 << 64) - 1, 1 << 63)
+    want = np.asarray(ref_srv.blind_rotate_multibit(
+        jnp.asarray(deg.astype(np.uint64)), jnp.zeros(2, jnp.uint64), jnp.asarray(acc),
+        jnp.asarray(key), model.plan, base_log, levels, g))
+    return request.param, model, key, deg, acc, want
+
+
+def test_multibit_cluster_matches_tfhe_tpu(multibit_cluster_case):
+    """The cluster kernel's per-prime bundle, lazy passes and Garner
+    exchange over two (GROUP_2: N = 4096, g = 2) or three (GROUP_3: l = 2,
+    g = 3, base 2^14) groups: tfhe_tpu's blind_rotate_multibit word for
+    word, and the port's plain blind_rotate_multibit (the wrapper on the
+    CPU)."""
+    tag, model, key, deg, acc, want = multibit_cluster_case
+    got = model.rotate(acc, deg, key)
+    assert (got == want).all(), tag
+    plain = kernels.blind_rotate_multibit(
+        _i64(deg), torch.zeros(2, dtype=torch.int64), torus.from_u64(acc, "cpu"),
+        torch.from_numpy(key.view(np.int32)), model.dp, model.base_log, model.levels)
+    assert (torus.to_u64(plain) == got).all(), tag
+
+
+def test_multibit_cluster_states_give_tfhe_tpus_digits(multibit_cluster_case):
+    """The int decomposer state a block keeps for each word gives, level by
+    level, tfhe_tpu's signed decomposition of the word (base_log l <= 30:
+    21 at GROUP_2, 28 at GROUP_3), the extreme words included."""
+    tag, model, _, _, acc, _ = multibit_cluster_case
+    state = _hi_state(acc, model.base_log, model.levels)
+    assert (np.abs(state) < 1 << 31).all()
+    got = _state_digits(state, model.base_log, model.levels)
+    ref = np.asarray(ref_srv.signed_decompose(jnp.asarray(acc), model.base_log, model.levels))
+    assert (got.astype(np.uint64) == ref).all(), tag
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 4096, 1, 2, 21), "cluster"),   # GPU GROUP_2
+    ((2, 2048, 2, 3, 14), "cluster"),   # GPU GROUP_3
+    ((2, 2048, 1, 4, 22), "lazy"),      # GROUP_4 2_2, GROUP_4 1_1
+    ((2, 2048, 1, 2, 23), "lazy"),      # tfhe_tpu's GROUP_2 at the 2_2 widths
+    ((2, 2048, 2, 3, 16), "generic"),   # base_log l = 32 > 30
+    ((2, 2048, 2, 2, 14), "generic"),   # l = 2 at g = 2
+    ((2, 4096, 1, 3, 21), "generic"),
+    ((2, 2048, 1, 1, 22), "generic"),
+    ((2, 512, 1, 2, 23), "generic"),    # the TEST multi-bit sets
+])
+def test_multibit_exact_route(shape, route):
+    """K3's exact rotation: the lazy kernel at MULTIBIT_LAZY_SHAPE, the
+    cluster kernel exactly at MULTIBIT_CLUSTER_SHAPES (k+1 = 2, base_log l
+    <= 30), the generic kernel elsewhere."""
+    assert kernels.multibit_exact_route(*shape) == route
+    assert kernels.multibit_cluster_shape(*shape) == (route == "cluster")
+
+
+def test_multibit_exact_route_refuses_what_no_kernel_takes():
+    """A shape whose generic block passes shared memory and that neither
+    other kernel takes raises, naming the limits."""
+    with pytest.raises(ValueError, match="above the 232448 B a block may use.*cluster kernel "
+                                         "takes k\\+1 = 2"):
+        kernels.multibit_exact_route(2, 4096, 2, 2, 14)
+
+
+def test_param_sets_rotation_routes():
+    """The four sets that first ran on the card in phase 32: 1_1 on K2's
+    small-N cluster kernel, the GPU GROUP_2 and GROUP_3 sets on K3's
+    cluster kernel (neither on a generic kernel), GROUP_4 1_1's exact mode
+    on K3's lazy kernel."""
+    sp = shortint.params
+    p = sp.V1_4_PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128
+    assert kernels.exact_rotation_route(5, 512, 1, 23, False) == "cluster"
+    assert kernels.exact_rotation_route(p.glwe_dimension + 1, p.polynomial_size, p.pbs_level,
+                                        p.pbs_base_log, False) == "cluster"
+    for name, route in (("V1_4_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+                         "cluster"),
+                        ("V1_4_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+                         "cluster"),
+                        ("V1_4_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128",
+                         "lazy")):
+        q = getattr(sp, name)
+        assert kernels.multibit_exact_route(q.glwe_dimension + 1, q.polynomial_size, q.pbs_level,
+                                            q.grouping_factor, q.pbs_base_log) == route, name
 
 
 # ---------------------------------------------------------------------------

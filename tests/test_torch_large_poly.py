@@ -61,18 +61,20 @@ def test_3_3_lut_batch_matches_tfhe_tpu(keys_3_3):
     ((2, 8192, 1, 23, False), "cluster"),
     ((2, 2048, 1, 23, True), "lazy"),       # 2_2
     ((2, 2048, 1, 23, False), "generic"),
-    ((5, 512, 1, 23, False), "generic"),    # 1_1
+    ((5, 512, 1, 23, False), "cluster"),    # 1_1: the small-N kernel
     ((2, 4096, 1, 22, False), "generic"),
     ((2, 1024, 3, 7, False), "generic"),    # TFHE_LIB
 ])
 def test_exact_rotation_route(shape, route):
     """The wrapper's choice of K2's exact kernel: the cluster kernel
     exactly where the generic kernel's block does not fit shared memory
-    and the cluster kernel takes the shape."""
+    and the cluster kernel takes the shape, and at N = 512 where its
+    small-N kernel takes it (1_1)."""
     k1, n_poly, levels, base_log, lazy = shape
     assert kernels.exact_rotation_route(k1, n_poly, levels, base_log, lazy) == route
     fits = kernels.exact_smem_bytes(k1, n_poly, levels) <= kernels.SMEM_LIMIT
-    assert (route == "cluster") == (not fits and not lazy)
+    small = kernels.small_shape(k1, n_poly, levels, base_log)
+    assert (route == "cluster") == (not lazy and (not fits or small))
 
 
 @pytest.mark.parametrize("shape", [(2, 4096, 3, 10), (3, 8192, 1, 15), (2, 8192, 2, 31), (2, 8192, 3, 10)])

@@ -257,6 +257,7 @@ def test_vertical_packing_many_equals_a_loop(keys, ggsws):
     ((2, 512, 4, 6), "chain"),      # the TEST sets' GGSWs
     ((2, 512, 1, 23), "chain"),
     ((5, 512, 4, 6), "step"),       # k+1 = 5 (1_1's width)
+    ((5, 512, 1, 23), "step"),      # 1_1's rotation: the small-N kernel, but no chain
     ((2, 1024, 3, 7), "step"),      # N = 1024
     ((2, 256, 4, 6), "step"),       # the toy vectors' N
     ((2, 512, 5, 6), "step"),       # l > 4
@@ -264,7 +265,7 @@ def test_vertical_packing_many_equals_a_loop(keys, ggsws):
 ], ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_low_bits_route(shape, route):
     """Vertical packing's low bits run the CMux chain only at the shapes its
-    kernel takes (kernels.small_shape); every other shape keeps K2's step
+    kernel takes (kernels.chain_shape); every other shape keeps K2's step
     entry, one launch a bit, which the chain's kernel would refuse."""
     assert wopbs.low_bits_route(*shape) == route
 

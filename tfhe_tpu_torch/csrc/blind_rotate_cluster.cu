@@ -59,7 +59,8 @@
 // 80GB HBM3, 700 W.
 //
 // The small-N kernel (blind_rotate_cluster_small_kernel, below) takes the
-// TEST shapes, k+1 = 2, N = 512, l <= 4: the PBS of WoPBS and AES (l = 1,
+// TEST shapes, k+1 = 2, N = 512, l <= 4, and 1_1's k+1 = 5, l = 1 (k+1 = 3,
+// 4 too): the PBS of WoPBS and AES (l = 1,
 // base 2^23) and, with a key a ciphertext (key_index), the low-bit CMux
 // chain of vertical packing (l = 4, base 2^6; tfhe_tpu/shortint/wopbs.py
 // vertical_packing, one _cmux a bit; tfhe_tpu/ops/pallas_ntt.py:296
@@ -103,10 +104,10 @@ namespace {
 // residues d + 2p: k + 1 = 2, l <= 2 (at l = 3 a block's residues would
 // pass its shared memory), N = 8192 (3_3: l = 2); and l = 1, N = 2048,
 // 3 <= k + 1 <= 8 (ROWS <= 8: the common-mask rotation at C <= 7); and the
-// small-N kernel's, k + 1 = 2, N = 512, l <= 4, base_log l < 64 (the
-// decomposer's width).  The wrapper routes by its own copy of this
-// predicate (ops/kernels.py CLUSTER_SHAPES); the entry point refuses any
-// other shape.
+// small-N kernel's at N = 512, base_log l < 64 (the decomposer's width):
+// k + 1 = 2, l <= 4 (the TEST sets) and 3 <= k + 1 <= 5, l = 1 (1_1: k + 1
+// = 5, base 2^23).  The wrapper routes by its own copy of this predicate
+// (ops/kernels.py CLUSTER_SHAPES); the entry point refuses any other shape.
 constexpr int CL_K1 = 2;
 constexpr int CL_LOG_N = 13;
 constexpr int CL_MAX_LEVELS = 2;
@@ -115,12 +116,19 @@ constexpr int CM_MIN_K1 = 3;
 constexpr int CM_MAX_K1 = 8;
 constexpr int SN_LOG_N = 9;
 constexpr int SN_MAX_LEVELS = 4;
+constexpr int SN_MAX_K1 = 5;
 
-// The small-N kernel's shapes: the only ones that take a key a ciphertext
-// (tfhe_torch_blind_rotate_cluster with a key_index).
 __host__ __device__ constexpr bool small_shape(int k1, int log_n, int levels, int base_log) {
-  return base_log >= 1 && base_log <= 30 && k1 == CL_K1 && log_n == SN_LOG_N && levels >= 1 &&
-         levels <= SN_MAX_LEVELS && base_log * levels < 64;
+  return base_log >= 1 && base_log <= 30 && log_n == SN_LOG_N && levels >= 1 &&
+         base_log * levels < 64 &&
+         ((k1 == CL_K1 && levels <= SN_MAX_LEVELS) || (k1 > CL_K1 && k1 <= SN_MAX_K1 && levels == 1));
+}
+
+// The small-N kernel's shapes at k + 1 = 2, the only ones that take a key a
+// ciphertext (tfhe_torch_blind_rotate_cluster with a key_index: the CMux
+// chain, ops/kernels.py chain_shape).
+__host__ __device__ constexpr bool chain_shape(int k1, int log_n, int levels, int base_log) {
+  return k1 == CL_K1 && small_shape(k1, log_n, levels, base_log);
 }
 
 __host__ __device__ constexpr bool cluster_shape(int k1, int log_n, int levels, int base_log) {
@@ -338,19 +346,23 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
   for (int q = tid; q < QUARTER; q += THREADS) acc_b[rank * QUARTER + q] = (long long)acc[q];
 }
 
-// The small-N kernel: K1 = 2, N = 512, LEVELS <= 4, SN_THREADS threads a
-// block, block rank p of a ciphertext's cluster holding prime p.  Shared
-// memory: a whole copy of the u64 accumulator (every block keeps one, so
-// the first pass reads no other block), two buffers of its prime's slice
-// of a step's GGSW ((lev, r, cc) rows of N words, as cp.async copies them:
-// 16 KB at l = 1, 64 KB at l = 4), the residue rows (lev, r) mod p, padded,
-// and the four primes' residues of the block's quarter of the coefficients
-// (its Garner inputs, which the other blocks store into it).
+// The small-N kernel: N = 512, K1 = 2 and LEVELS <= 4 or K1 <= 5 and
+// LEVELS = 1, SN_THREADS threads a block, block rank p of a ciphertext's
+// cluster holding prime p.  Shared memory: a whole copy of the u64
+// accumulator (every block keeps one, so the first pass reads no other
+// block), its prime's slice of a step's GGSW ((lev, r, cc) rows of N words,
+// as cp.async copies them: 16 KB at k + 1 = 2, l = 1, 64 KB at l = 4, 50 KB
+// at k + 1 = 5) in two buffers where two blocks an SM still fit with them,
+// else in one (k + 1 = 5: 143,680 B a block with two, so one an SM and 30
+// clusters on the card, a second wave at B = 32; 92,480 B with one), the
+// residue rows (lev, r) mod p, padded, and the four primes' residues of the
+// block's quarter of the coefficients (its Garner inputs, which the other
+// blocks store into it).
 constexpr int SN_THREADS = 128;
 
-template <int LEVELS>
+template <int K1_, int LEVELS>
 struct Small {
-  static constexpr int K1 = CL_K1;
+  static constexpr int K1 = K1_;
   static constexpr int LOG_N = SN_LOG_N;
   static constexpr int N = 1 << LOG_N;
   static constexpr int ROW = N + N / 32;
@@ -359,10 +371,13 @@ struct Small {
   static constexpr int KEY = ROWS * K1 * N;          // u32 words of a step's prime slice
   static constexpr int STEP4 = ROWS * K1 * NP * N / 4;   // 16-byte words of a step's GGSW
   static constexpr int LO = LOG_N - 4;               // the first pass takes stages 0-3
-  static constexpr int SMEM = K1 * N * 8 + 2 * KEY * 4 + ROWS * ROW * 4 + NP * QUARTER * 4;
+  static constexpr int BASE = K1 * N * 8 + ROWS * ROW * 4 + NP * QUARTER * 4;
+  static constexpr int BUFS = 2 * (BASE + 2 * KEY * 4 + 1024) <= 228 * 1024 ? 2 : 1;
+  static constexpr int SMEM = BASE + BUFS * KEY * 4;
   // blocks an SM the kernel is compiled for (__launch_bounds__): four (128
   // registers a thread) where four fit shared memory, else two
   static constexpr int MIN_BLOCKS = 4 * SMEM <= 228 * 1024 ? 4 : 2;
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks an SM");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -370,15 +385,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 // Step step's slice of this block's prime, from the ciphertext's GGSWs
-// key (STEP4 16-byte words a step), into buffer step & 1; one commit group
-// a call, empty past the last step.
-template <int LEVELS>
+// key (STEP4 16-byte words a step), into buffer step & 1 (of two) or the
+// one buffer; one commit group a call, empty past the last step.
+template <class S>
 __device__ __forceinline__ void prefetch_key(u32* keys, const uint4* __restrict__ key, int step,
                                              int n_steps, int rank) {
-  using S = Small<LEVELS>;
   if (step < n_steps) {
     const uint4* src = key + (size_t)step * S::STEP4;
-    uint4* dst = (uint4*)(keys + (step & 1) * S::KEY);
+    uint4* dst = (uint4*)(keys + (step & (S::BUFS - 1)) * S::KEY);
     for (int q = threadIdx.x; q < S::KEY / 4; q += SN_THREADS) {
       const int e = q / (S::N / 4);             // row (lev, r, cc)
       const int t = q % (S::N / 4);
@@ -392,9 +406,9 @@ __device__ __forceinline__ void prefetch_key(u32* keys, const uint4* __restrict_
 // the GGSWs: ciphertext b's step i is (l, 2, 2, NP, N) u32 at bsk +
 // key_index[b] set_words + i STEP4 16-byte words (key_index null: the
 // one key, (n_steps, l, 2, 2, NP, N)).
-template <int LEVELS>
+template <int K1_, int LEVELS>
 __global__ void __cluster_dims__(NP, 1, 1)
-__launch_bounds__(SN_THREADS, Small<LEVELS>::MIN_BLOCKS)
+__launch_bounds__(SN_THREADS, Small<K1_, LEVELS>::MIN_BLOCKS)
 blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
                                   const uint4* __restrict__ bsk,
                                   const int* __restrict__ key_index, long long set_words,
@@ -402,7 +416,7 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
                                   const uint2* __restrict__ tw_inv,
                                   const long long* __restrict__ consts_g, int n_steps,
                                   int base_log) {
-  using S = Small<LEVELS>;
+  using S = Small<K1_, LEVELS>;
   constexpr int K1 = S::K1;
   constexpr int LOG_N = S::LOG_N;
   constexpr int N = S::N;
@@ -417,8 +431,8 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
   __shared__ Consts c;
   __shared__ Consts one;
   u64* acc = (u64*)sn_smem;                     // (K1, N), the whole accumulator
-  u32* keys = (u32*)(acc + K1 * N);             // two key slices, 16-byte aligned
-  u32* rows = keys + 2 * S::KEY;                // (LEVELS K1, ROW) mod this prime
+  u32* keys = (u32*)(acc + K1 * N);             // BUFS key slices, 16-byte aligned
+  u32* rows = keys + S::BUFS * S::KEY;          // (LEVELS K1, ROW) mod this prime
   u32* gath = rows + ROWS * ROW;                // (NP, QUARTER): this quarter's residues
   const int tid = threadIdx.x;
   const int ct = blockIdx.x / NP;
@@ -433,7 +447,7 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
     one.pinv[0] = c.pinv[rank];
   }
   for (int q = tid; q < K1 * N; q += NT) acc[q] = (u64)acc_b[q];
-  prefetch_key<LEVELS>(keys, key_b, 0, n_steps, rank);
+  prefetch_key<S>(keys, key_b, 0, n_steps, rank);
   u64* acc_of[NP];                              // every block's copy
   u32* gath_of[NP];                             // every block's Garner inputs
 #pragma unroll
@@ -451,8 +465,8 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
     const int a = mask_b[step];                 // in [0, 2N)
     const int rot = a & (N - 1);
     const bool odd = ((a >> LOG_N) & 1) != 0;
-    // the next step's slice into the buffer step - 1 read
-    prefetch_key<LEVELS>(keys, key_b, step + 1, n_steps, rank);
+    // two buffers: the next step's slice into the one step - 1 read
+    if constexpr (S::BUFS == 2) prefetch_key<S>(keys, key_b, step + 1, n_steps, rank);
 
     // 1. task (lev, r, lo): acc X^a - acc at coefficients j = b 2^LO | lo
     // of row r, level lev's signed digit, its residue d + 2p and forward
@@ -492,7 +506,11 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
 
     // 2. forward stages 4-6
     lazy_pass<3, LOG_N, 1, NT, true>(rows, ROWS, 4, twf, one);
-    asm volatile("cp.async.wait_group 1;\n" ::);   // this step's slice has landed
+    if constexpr (S::BUFS == 2) {
+      asm volatile("cp.async.wait_group 1;\n" ::);   // this step's slice has landed
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
 
     // 3. task q, positions 4q .. 4q+3 of every row: forward stages 7-8,
@@ -500,7 +518,7 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
     // 64 bits, a reduction a four), inverse stages 0-1, written over rows
     // 0 .. K1-1 in [0, 2p)
     {
-      const uint4* ks = (const uint4*)(keys + (step & 1) * S::KEY);
+      const uint4* ks = (const uint4*)(keys + (step & (S::BUFS - 1)) * S::KEY);
       for (int q = tid; q < N / 4; q += NT) {
         const int at = pad(q * 4);              // pad(4q + e) = at + e
         u32 x[ROWS][4];
@@ -538,6 +556,8 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
       }
     }
     __syncthreads();
+    // one buffer: the next step's slice into it, now that every read of it is done
+    if constexpr (S::BUFS == 1) prefetch_key<S>(keys, key_b, step + 1, n_steps, rank);
 
     // 4. inverse stages 2-5; then 6-8 with N^-1, each canonical residue
     // stored into the Garner inputs of the block that owns its coefficient
@@ -584,13 +604,13 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
 // set; on a device beyond them it sets them at every launch.
 constexpr int SIZED_DEVICES = 64;
 
-template <int LEVELS>
+template <int K1, int LEVELS>
 cudaError_t small_launch(long long* acc, const int* mask, const uint4* bsk, const int* key_index,
                          long long set_words, const uint2* tw_fwd, const uint2* tw_inv,
                          const long long* consts, int batch, int n_steps, int base_log,
                          cudaStream_t stream) {
-  using S = Small<LEVELS>;
-  auto kernel = blind_rotate_cluster_small_kernel<LEVELS>;
+  using S = Small<K1, LEVELS>;
+  auto kernel = blind_rotate_cluster_small_kernel<K1, LEVELS>;
   // the attributes once a device (they hold for the device's context); a
   // race sets them twice, which is harmless
   static std::atomic<bool> sized[SIZED_DEVICES];
@@ -648,8 +668,8 @@ int occupancy_of(K kernel, int smem, int threads) {
 template <int K1, int LEVELS, int LOG_N>
 int cluster_occupancy() {
   if constexpr (LOG_N == SN_LOG_N) {
-    return occupancy_of(blind_rotate_cluster_small_kernel<LEVELS>, Small<LEVELS>::SMEM,
-                        SN_THREADS);
+    return occupancy_of(blind_rotate_cluster_small_kernel<K1, LEVELS>,
+                        Small<K1, LEVELS>::SMEM, SN_THREADS);
   } else {
     return occupancy_of(blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>,
                         Cluster<K1, LEVELS, LOG_N>::SMEM, THREADS);
@@ -661,6 +681,12 @@ int cluster_occupancy() {
 template <class F>
 int by_shape(int k1, int log_n, int levels, const F& fn) {
   if (log_n == SN_LOG_N) {
+    switch (k1) {
+      case 3: return fn.template run<3, 1, SN_LOG_N>();
+      case 4: return fn.template run<4, 1, SN_LOG_N>();
+      case 5: return fn.template run<5, 1, SN_LOG_N>();
+      default: break;
+    }
     switch (levels) {
       case 1: return fn.template run<CL_K1, 1, SN_LOG_N>();
       case 2: return fn.template run<CL_K1, 2, SN_LOG_N>();
@@ -696,8 +722,8 @@ struct Launch {
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
     if constexpr (LOG_N == SN_LOG_N) {
-      return (int)small_launch<LEVELS>(acc, mask, bsk, key_index, set_words, tw_fwd, tw_inv,
-                                       consts, batch, n_steps, base_log, stream);
+      return (int)small_launch<K1, LEVELS>(acc, mask, bsk, key_index, set_words, tw_fwd,
+                                           tw_inv, consts, batch, n_steps, base_log, stream);
     } else {
       return (int)cluster_launch<K1, LEVELS, LOG_N>(acc, mask, bsk, tw_fwd, tw_inv, consts,
                                                     batch, n_steps, base_log, stream);
@@ -714,7 +740,7 @@ struct MinBlocks {
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
     if constexpr (LOG_N == SN_LOG_N) {
-      return Small<LEVELS>::MIN_BLOCKS;
+      return Small<K1, LEVELS>::MIN_BLOCKS;
     } else {
       return cluster_min_blocks(LOG_N);
     }
@@ -725,7 +751,7 @@ struct Smem {
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
     if constexpr (LOG_N == SN_LOG_N) {
-      return Small<LEVELS>::SMEM;
+      return Small<K1, LEVELS>::SMEM;
     } else {
       return Cluster<K1, LEVELS, LOG_N>::SMEM;
     }
@@ -741,7 +767,7 @@ struct Smem {
 // whole batch (set_words 0).  key_index (batch,) int32: ciphertext b runs
 // on the key at bsk + key_index[b] set_words words (set_words a multiple of
 // 4), the CMux chain of ops/kernels.py cmux_chain; only at the shapes
-// small_shape takes.
+// chain_shape takes.
 extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, const void* bsk,
                                                const void* key_index, long long set_words,
                                                const void* tw_fwd, const void* tw_inv,
@@ -750,7 +776,7 @@ extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, cons
                                                int base_log, void* stream) {
   if (!cluster_shape(k1, log_n, levels, base_log) || nprimes != NP || batch < 1 ||
       n_steps < 1 || ((uintptr_t)bsk & 15) != 0 || set_words < 0 || set_words % 4 != 0 ||
-      (key_index == nullptr ? set_words != 0 : !small_shape(k1, log_n, levels, base_log))) {
+      (key_index == nullptr ? set_words != 0 : !chain_shape(k1, log_n, levels, base_log))) {
     return (int)cudaErrorInvalidValue;
   }
   const Launch launch{(long long*)acc, (const int*)mask, (const uint4*)bsk,

@@ -12,7 +12,10 @@ csrc/blind_rotate_cluster.cu (four blocks a ciphertext, one a CRT prime:
 3_3, the common-mask rotation at N = 2048, and its small-N kernel at the
 TEST shapes, N = 512) or the generic kernel, by
 ``exact_rotation_route``), K3
-``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; K2 and K3 take
+``blind_rotate_multibit`` (csrc/blind_rotate_multibit.cu; exact mode takes
+its lazy kernel, the cluster kernel of csrc/blind_rotate_multibit_cluster.cu
+at the GPU multi-bit GROUP_2 and GROUP_3 shapes or its generic kernel, by
+``multibit_exact_route``; K2 and K3 take
 their rounded-key kernels, C ciphertexts a block, on an
 ops/bsk_prep.py RoundedKeyNtt in v7 and v9 mode), K4
 ``packing_keyswitch`` (csrc/packing_keyswitch.cu; its tensor-core kernel
@@ -43,7 +46,8 @@ tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
 nothing else; ``keyswitch.imma_launches``, ``keyswitch32.imma_launches``,
 ``packing_keyswitch.imma_launches``, ``blind_rotate`` /
-``cmux_step.lazy_exact_launches``, ``blind_rotate.cluster_launches`` and
+``cmux_step.lazy_exact_launches``, ``blind_rotate.cluster_launches``,
+``blind_rotate_multibit.cluster_launches`` and
 ``blind_rotate_extended.lazy_launches`` count those of the redesigned and
 new kernels among them.
 """
@@ -67,6 +71,7 @@ _NVCC = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
             "blind_rotate_cluster": "blind_rotate_cluster.cu",
             "blind_rotate_multibit": "blind_rotate_multibit.cu",
+            "blind_rotate_multibit_cluster": "blind_rotate_multibit_cluster.cu",
             "packing_keyswitch": "packing_keyswitch.cu",
             "blind_rotate128": "blind_rotate128.cu",
             "packing_keyswitch128": "packing_keyswitch128.cu",
@@ -161,6 +166,15 @@ def load() -> dict:
         fn = libs["blind_rotate_multibit"].tfhe_torch_blind_rotate_multibit_smem_bytes
         fn.argtypes = [i] * 3
         fn.restype = i
+        mc = libs["blind_rotate_multibit_cluster"]
+        mc.tfhe_torch_blind_rotate_multibit_cluster.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        mc.tfhe_torch_blind_rotate_multibit_cluster.restype = i
+        mc.tfhe_torch_blind_rotate_multibit_cluster_shape.argtypes = [i] * 5
+        mc.tfhe_torch_blind_rotate_multibit_cluster_shape.restype = i
+        for fn in (mc.tfhe_torch_blind_rotate_multibit_cluster_smem,
+                   mc.tfhe_torch_blind_rotate_multibit_cluster_occupancy):
+            fn.argtypes = [i] * 3
+            fn.restype = i
         for fn in (libs["packing_keyswitch"].tfhe_torch_packing_keyswitch,
                    libs["packing_keyswitch"].tfhe_torch_packing_keyswitch_imma):
             fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
@@ -486,13 +500,15 @@ GENERIC_MAX_K1 = 5
 # The cluster kernel's shapes, the routing's one predicate (the kernel's
 # entry point refuses others: csrc/blind_rotate_cluster.cu cluster_shape):
 # k+1 = 2, l <= 2 at N = 8192 (3_3); 3 <= k+1 <= 8, l = 1 at N = 2048 (the
-# common-mask rotation at the 2_2 widths, C <= 7); k+1 = 2, l <= 4 at N =
-# 512 (the TEST shapes: WoPBS's and AES's PBS at l = 1, vertical packing's
-# CMux chain at l = 4; its small-N kernel, which alone takes a key a
-# ciphertext, small_shape); base_log <= 30 and base_log l < 64
+# common-mask rotation at the 2_2 widths, C <= 7); at N = 512 its small-N
+# kernel (small_shape): k+1 = 2, l <= 4 (the TEST shapes: WoPBS's and AES's
+# PBS at l = 1, vertical packing's CMux chain at l = 4; the only shapes
+# that take a key a ciphertext, chain_shape) and 3 <= k+1 <= 5, l = 1 (1_1:
+# k+1 = 5, base 2^23); base_log <= 30 and base_log l < 64
 CLUSTER_SHAPES = ({"n_poly": 8192, "k1": (2, 2), "max_levels": 2, "max_base_log": 30},
                   {"n_poly": 2048, "k1": (3, 8), "max_levels": 1, "max_base_log": 30},
-                  {"n_poly": 512, "k1": (2, 2), "max_levels": 4, "max_base_log": 30})
+                  {"n_poly": 512, "k1": (2, 2), "max_levels": 4, "max_base_log": 30},
+                  {"n_poly": 512, "k1": (3, 5), "max_levels": 1, "max_base_log": 30})
 SMALL_N = 512
 
 
@@ -506,9 +522,16 @@ def cluster_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
 
 def small_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
     """Whether the cluster kernel's small-N kernel takes the shape (the
-    N = 512 entry of CLUSTER_SHAPES): the only shapes ``cmux_chain`` takes
-    (csrc/blind_rotate_cluster.cu small_shape)."""
+    N = 512 entries of CLUSTER_SHAPES: csrc/blind_rotate_cluster.cu
+    small_shape)."""
     return n_poly == SMALL_N and cluster_shape(k1, n_poly, levels, base_log)
+
+
+def chain_shape(k1: int, n_poly: int, levels: int, base_log: int) -> bool:
+    """The small-N kernel's shapes at k+1 = 2 (l <= 4): the only shapes that
+    take a key a ciphertext, so the only ones ``cmux_chain`` takes
+    (csrc/blind_rotate_cluster.cu chain_shape)."""
+    return k1 == 2 and small_shape(k1, n_poly, levels, base_log)
 
 
 def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
@@ -518,8 +541,9 @@ def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
     where the cluster kernel takes the shape (CLUSTER_SHAPES: a cluster of
     four blocks a ciphertext, one a prime; 3_3, the common-mask rotation at
     N = 2048, where it is also the faster of the two at k+1 = 3 and 4,
-    which the generic kernel's block also fits, and the TEST shapes at N =
-    512, its small-N kernel, faster than the generic one there), else "generic"
+    which the generic kernel's block also fits, and the TEST shapes and
+    1_1's k+1 = 5 at N = 512, its small-N kernel, faster than the generic
+    one there), else "generic"
     where k+1 <= GENERIC_MAX_K1 and the generic kernel's block fits shared
     memory.  Raises a ValueError elsewhere: no set of shortint/params.py is
     there, nor the common-mask rotation at the 2_2 widths for C <= 7, and
@@ -535,8 +559,8 @@ def exact_rotation_route(k1: int, n_poly: int, levels: int, base_log: int,
              f"{base_log}: its generic kernel takes k+1 <= {GENERIC_MAX_K1} within the "
              f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs {smem} B), "
              f"and its cluster kernel takes k+1 = 2, N = 8192, l <= 2 and 3 <= k+1 <= 8, "
-             f"N = 2048, l = 1, and k+1 = 2, N = 512, l <= 4, base_log <= 30; no 4-prime "
-             f"NTT plan exists above N = 8192")
+             f"N = 2048, l = 1, and k+1 = 2, N = 512, l <= 4 and 3 <= k+1 <= 5, N = 512, "
+             f"l = 1, base_log <= 30; no 4-prime NTT plan exists above N = 8192")
     return "generic"
 
 
@@ -561,7 +585,8 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
     ciphertexts a block; the generic kernel; or the cluster kernel.  With
     key_index, (B,) int32 on the card, bsk_ntt holds G keys (G, n, l, ...),
     each contiguous, and ciphertext b runs on key key_index[b]: the cluster
-    kernel's small-N shapes only (small_shape).  Returns the route taken."""
+    kernel's small-N shapes at k+1 = 2 only (chain_shape).  Returns the
+    route taken."""
     b, n_steps = mask32.shape
     k1, n_poly = acc.shape[1], acc.shape[2]
     nprimes = dp.num_primes
@@ -575,7 +600,7 @@ def _launch_blind_rotate(acc, mask32, bsk_ntt, dp: DevicePlan, base_log: int,
     route = exact_rotation_route(k1, n_poly, levels, base_log,
                                  exact_lazy_shape(k1, n_poly, levels, base_log))
     log_n = n_poly.bit_length() - 1
-    _require(key_index is None or (route == "cluster" and small_shape(k1, n_poly, levels,
+    _require(key_index is None or (route == "cluster" and chain_shape(k1, n_poly, levels,
                                                                       base_log)),
              f"a key a ciphertext runs on the cluster kernel's small-N kernel only (k+1 = 2, "
              f"N = {SMALL_N}, l <= 4, base_log <= 30, base_log l < 64); k+1 = {k1}, N = "
@@ -665,7 +690,7 @@ def _rotate_exact(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels
 
 blind_rotate.launches = 0
 blind_rotate.lazy_exact_launches = 0    # of them, K2's lazy exact kernel
-blind_rotate.cluster_launches = 0       # and its cluster kernel (3_3, CM rotation, TEST sets)
+blind_rotate.cluster_launches = 0       # and its cluster kernel (3_3, CM rotation, N = 512)
 
 
 def rotate_accumulator(acc, msed_mask, bsk_ntt, dp: DevicePlan, base_log: int, levels: int):
@@ -726,7 +751,7 @@ def cmux_chain(acc, a_cols, ggsws, key_index, dp: DevicePlan, base_log: int, lev
     cluster kernel's small-N kernel (csrc/blind_rotate_cluster.cu
     tfhe_torch_blind_rotate_cluster with a key_index), each cluster at its
     set's offset in ggsws: no key is gathered or copied; raises at any
-    shape it does not take (small_shape: k+1 = 2, N = 512, l <= 4).
+    shape it does not take (chain_shape: k+1 = 2, N = 512, l <= 4).
 
     acc: (B, k+1, N) int64; a_cols: (B, s) in [0, 2N); ggsws: (G, s, l,
     k+1, k+1, P, N) int32 Montgomery NTT domain on dp's four primes, each
@@ -812,6 +837,67 @@ def exact_multibit_cts_per_block(k1: int, n_poly: int, levels: int, grouping: in
         k1, n_poly.bit_length() - 1, levels, grouping, base_log)
 
 
+# K3's exact kernels by shape, the routing's one predicate (each entry point
+# refuses what its kernel does not take): the lazy kernel at k+1 = 2, l = 1,
+# N = 2048, g = 2 or 4, base_log <= 30 (csrc/blind_rotate_multibit.cu
+# lazy_exact_shape: GROUP_4 and tfhe_tpu's GROUP_2 at the 2_2 widths); the
+# cluster kernel at k+1 = 2, base_log l <= 30 and these (N, l, g): the GPU
+# multi-bit GROUP_2 and GROUP_3 sets (csrc/blind_rotate_multibit_cluster.cu
+# mb_cluster_shape); the generic kernel elsewhere
+MULTIBIT_LAZY_SHAPE = {"k1": 2, "n_poly": 2048, "levels": 1, "groupings": (2, 4),
+                       "max_base_log": 30}
+MULTIBIT_CLUSTER_SHAPES = ({"n_poly": 4096, "levels": 1, "grouping": 2},
+                           {"n_poly": 2048, "levels": 2, "grouping": 3})
+
+
+def multibit_cluster_shape(k1: int, n_poly: int, levels: int, grouping: int,
+                           base_log: int) -> bool:
+    """Whether K3's cluster kernel takes the shape (MULTIBIT_CLUSTER_SHAPES)."""
+    return k1 == 2 and base_log >= 1 and base_log * levels <= 30 and any(
+        (n_poly, levels, grouping) == (cs["n_poly"], cs["levels"], cs["grouping"])
+        for cs in MULTIBIT_CLUSTER_SHAPES)
+
+
+def multibit_exact_route(k1: int, n_poly: int, levels: int, grouping: int,
+                         base_log: int) -> str:
+    """Which kernel K3's exact rotation runs at a shape: "lazy" at
+    MULTIBIT_LAZY_SHAPE (two ciphertexts a block), else "cluster" where
+    multibit_cluster_shape holds (a cluster of four blocks a ciphertext,
+    one a CRT prime: the GPU multi-bit GROUP_2 at N = 4096 and GROUP_3 at
+    l = 2, g = 3), else "generic" where the generic kernel's block (the (k+1,
+    N) u64 accumulator and the 4-prime residues of l (k+1) digit rows) fits
+    shared memory and k+1 <= GENERIC_MAX_K1.  Raises a ValueError
+    elsewhere."""
+    ls = MULTIBIT_LAZY_SHAPE
+    if (k1 == ls["k1"] and n_poly == ls["n_poly"] and levels == ls["levels"]
+            and grouping in ls["groupings"] and 1 <= base_log <= ls["max_base_log"]):
+        return "lazy"
+    if multibit_cluster_shape(k1, n_poly, levels, grouping, base_log):
+        return "cluster"
+    smem = exact_smem_bytes(k1, n_poly, levels)
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
+             f"multi-bit blind rotation with k+1 = {k1}, N = {n_poly}, "
+             f"l = {levels} needs {smem} B of shared memory, above the "
+             f"{SMEM_LIMIT} B a block may use (ROADMAP.md queue 3), or k+1 > "
+             f"{GENERIC_MAX_K1}; the cluster kernel takes k+1 = 2, base_log l <= 30 at "
+             f"(N, l, g) = (4096, 1, 2) and (2048, 2, 3)")
+    return "generic"
+
+
+def multibit_cluster_figures(n_poly: int, levels: int, grouping: int) -> dict:
+    """A block of K3's cluster kernel at a shape it takes: its dynamic
+    shared memory and the clusters of four the card holds at once
+    (cudaOccupancyMaxActiveClusters); it is compiled for two blocks an
+    SM."""
+    lib = load()["blind_rotate_multibit_cluster"]
+    log_n = n_poly.bit_length() - 1
+    return {"shared_memory_bytes":
+                lib.tfhe_torch_blind_rotate_multibit_cluster_smem(log_n, levels, grouping),
+            "blocks_per_sm": 2,
+            "active_clusters":
+                lib.tfhe_torch_blind_rotate_multibit_cluster_occupancy(log_n, levels, grouping)}
+
+
 def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
                           base_log: int, levels: int, v9: bool = False):
     """K3: batched multi-bit blind rotation, in v9 mode (monomials on the
@@ -824,7 +910,8 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
     domain (on dp's four primes), or a RoundedKeyNtt, which runs v9 mode
     only, on its own plan, in the rounded-key kernel.  On the card v9 mode
     takes only a RoundedKeyNtt; on the CPU the plain version also takes a
-    four-prime key (the reference the rounded route is held to)."""
+    four-prime key (the reference the rounded route is held to).  Exact
+    mode takes the kernel multibit_exact_route names."""
     rounded = isinstance(mb_key_ntt, RoundedKeyNtt)
     _require(v9 or not rounded,
              "a rounded key runs only v9 mode: exact mode takes the exact key")
@@ -856,19 +943,31 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
     _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "the kernel takes a 4-prime plan and a power-of-two N")
     _require(dp.kernel_consts.numel() == KERNEL_CONSTS_LEN, "bad plan table")
-    lib = load()["blind_rotate_multibit"]
-    smem = lib.tfhe_torch_blind_rotate_multibit_smem_bytes(k1, n_poly, levels)
-    _require(smem <= SMEM_LIMIT,
-             f"multi-bit blind rotation with k+1 = {k1}, N = {n_poly}, "
-             f"l = {levels} needs {smem} B of shared memory, above the "
-             f"{SMEM_LIMIT} B a block may use (ROADMAP.md queue 3)")
+    route = multibit_exact_route(k1, n_poly, levels, grouping, base_log)
     log_n = n_poly.bit_length() - 1
+    mono = server.monomial_table(dp)[0]
+    tw_fwd, tw_inv = shoup_twiddles(dp)
+    if route == "cluster":
+        acc = server.initial_accumulator(lut, msed_body, False).contiguous()
+        deg32 = degrees.to(torch.int32).contiguous()
+        mb_key_ntt = mb_key_ntt.contiguous()
+        _check_cuda((acc, torch.int64), (deg32, torch.int32), (mb_key_ntt, torch.int32),
+                    (tw_fwd, torch.int32), (tw_inv, torch.int32), (mono, torch.int32),
+                    (dp.kernel_consts, torch.int64))
+        _require(mb_key_ntt.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+        err = load()["blind_rotate_multibit_cluster"].tfhe_torch_blind_rotate_multibit_cluster(
+            acc.data_ptr(), deg32.data_ptr(), mb_key_ntt.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), mono.data_ptr(), dp.kernel_consts.data_ptr(), b, n_groups,
+            grouping, k1, log_n, levels, nprimes, base_log, _stream(acc))
+        _raise_on(err, "blind_rotate_multibit (cluster exact)")
+        blind_rotate_multibit.cluster_launches += 1
+        blind_rotate_multibit.launches += 1
+        return acc
+    lib = load()["blind_rotate_multibit"]
     per_block = exact_multibit_cts_per_block(k1, n_poly, levels, grouping, base_log)
     acc = pad_batch(server.initial_accumulator(lut, msed_body, False), per_block)
     deg32 = pad_batch(degrees.to(torch.int32), per_block)
     mb_key_ntt = mb_key_ntt.contiguous()
-    mono = server.monomial_table(dp)[0]
-    tw_fwd, tw_inv = shoup_twiddles(dp)
     _check_cuda((acc, torch.int64), (deg32, torch.int32),
                 (mb_key_ntt, torch.int32), (dp.psi32, torch.int32),
                 (dp.psi_inv32, torch.int32), (tw_fwd, torch.int32), (tw_inv, torch.int32),
@@ -884,6 +983,7 @@ def blind_rotate_multibit(degrees, msed_body, lut, mb_key_ntt, dp: DevicePlan,
 
 
 blind_rotate_multibit.launches = 0
+blind_rotate_multibit.cluster_launches = 0   # of them, its cluster kernel (GPU GROUP_2, GROUP_3)
 
 
 @dataclass(frozen=True, eq=False)

@@ -75,9 +75,9 @@ def ggsw_sets(ggsws: list) -> torch.Tensor:
 def low_bits_route(k1: int, n_poly: int, levels: int, base_log: int) -> str:
     """How vertical packing rotates by its low bits at a GGSW shape:
     "chain", all of a call's packings in one K2 CMux-chain launch, where
-    the chain's kernel takes the shape (kernels.small_shape: the TEST
+    the chain's kernel takes the shape (kernels.chain_shape: the TEST
     sets), else "step", one K2 step launch a bit and a GGSW set."""
-    return "chain" if kernels.small_shape(k1, n_poly, levels, base_log) else "step"
+    return "chain" if kernels.chain_shape(k1, n_poly, levels, base_log) else "step"
 
 
 class WopbsKey:

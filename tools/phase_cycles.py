@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Cycles by phase of K5 (csrc/blind_rotate128.cu), K3's exact kernel
-(csrc/blind_rotate_multibit.cu) and K2's exact kernels
-(csrc/blind_rotate.cu) on one CUDA card, at B = 512.
+"""Cycles by phase of K5 (csrc/blind_rotate128.cu), K3's exact kernels
+(csrc/blind_rotate_multibit.cu, csrc/blind_rotate_multibit_cluster.cu) and
+K2's exact kernels (csrc/blind_rotate.cu, csrc/blind_rotate_cluster.cu) on
+one CUDA card.
 
-    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k2x] [nophase]
+    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k3c] [k2x] [nophase]
 
 From the root of a checkout.  For each kernel it times the real library
 (CUDA events, a head of the production shape's steps or groups on a
@@ -28,8 +29,17 @@ steps, at B = 1 and 64) through the generic C entry and, where
 ``server.rotate_accumulator`` and tabled from instrumented copies of both
 sources (the small-N kernel's copy with a block barrier on each side of
 each cluster barrier, so that each cluster barrier's wait is a row of its
-own).  Writes
-build/phase_cycles/phase.json.
+own); at 1_1's shape (k+1 = 5, N = 512, l = 1, base 2^23, 16 steps, B = 4
+and 32) the same two entries.  ``k3c`` does the same for K3's exact
+rotation at the GPU multi-bit shapes (GROUP_2: k+1 = 2, N = 4096, l = 1,
+g = 2, base 2^21, 459 groups; GROUP_3: N = 2048, l = 2, g = 3, base 2^14,
+293 groups; whole rotations on random keys at B = 4 and 32): the generic C
+entry ``tfhe_torch_blind_rotate_multibit`` and the cluster C entry
+``tfhe_torch_blind_rotate_multibit_cluster`` in turns, each held against
+``server.blind_rotate_multibit`` at B = 2, the wrapper's route and host
+milliseconds a launch, ``kernels.multibit_cluster_figures``, and both
+phase tables a group at B = 4 (the cluster kernel's copy marked as the
+small-N kernel's is).  Writes build/phase_cycles/phase.json.
 """
 import ctypes
 import json
@@ -49,6 +59,7 @@ from tfhe_tpu_torch.utils.build import CSRC  # noqa: E402
 HERE = ROOT / "build" / "phase_cycles"
 SLOTS = 20000
 FUNCS = ["tfhe_torch_blind_rotate", "tfhe_torch_blind_rotate_smem_bytes",
+         "tfhe_torch_blind_rotate_multibit_cluster",
          "tfhe_torch_blind_rotate_exact_lazy", "tfhe_torch_blind_rotate_exact_cts_per_block",
          "tfhe_torch_blind_rotate_exact_lazy_shape",
          "tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
@@ -109,17 +120,19 @@ extern "C" int ph_reset() {
 """
 
 
-def marked_cluster_source() -> pathlib.Path:
-    """A copy of csrc/blind_rotate_cluster.cu whose small-N kernel has a
-    block barrier on each side of each cluster barrier, so that the table
-    shows the last inverse pass, each cluster barrier's wait and Garner
-    apart (the extra barriers cost a few hundred cycles a step)."""
-    text = (CSRC / "blind_rotate_cluster.cu").read_text()
-    start = text.index("blind_rotate_cluster_small_kernel(")
-    end = text.index("cudaError_t small_launch(")
+def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_cluster_small_kernel(",
+                          last="cudaError_t small_launch(") -> pathlib.Path:
+    """A copy of csrc/<name>.cu whose kernel (the text from first to last:
+    K2's small-N kernel, or K3's cluster kernel) has a block barrier on
+    each side of each cluster barrier, so that the table shows the last
+    inverse pass, each cluster barrier's wait and Garner apart (the extra
+    barriers cost a few hundred cycles a step)."""
+    text = (CSRC / f"{name}.cu").read_text()
+    start = text.index(first)
+    end = text.index(last)
     body = text[start:end].replace("    cluster.sync();   //",
                                    "    __syncthreads();\n    cluster.sync();\n    __syncthreads();  //")
-    out = HERE / "blind_rotate_cluster_marked.cu"
+    out = HERE / f"{name}_marked.cu"
     out.write_text(text[:start] + body + text[end:])
     return out
 
@@ -130,7 +143,10 @@ def write_sources():
     (HERE / "harness.cuh").write_text(HARNESS)
     for name, source in (("h_k5", CSRC / "blind_rotate128.cu"),
                          ("h_k3", CSRC / "blind_rotate_multibit.cu"),
-                         ("h_k2", CSRC / "blind_rotate.cu"), ("h_kc", marked_cluster_source())):
+                         ("h_k2", CSRC / "blind_rotate.cu"), ("h_kc", marked_cluster_source()),
+                         ("h_k3c", marked_cluster_source(
+                             "blind_rotate_multibit_cluster",
+                             "blind_rotate_multibit_cluster_kernel(", "cudaError_t mc_launch("))):
         (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(source)))
 
 
@@ -245,9 +261,10 @@ def k3x(libs, out, groups=32, check=True):
         out["k3x"]["err"] = int((kernels.blind_rotate_multibit(*sub, v9=False)
                                  - server.blind_rotate_multibit(*sub)).abs().max())
     if "h_k3" in libs:
-        swap("blind_rotate_multibit", libs["h_k3"])
+        real = swap("blind_rotate_multibit", libs["h_k3"])
         out["k3x"]["phases"] = phases(libs["h_k3"], run, "blind_rotate_multibit.cu", groups)
         out["k3x"]["ms_instrumented"] = ms(run, 1)
+        kernels._Libs.loaded["blind_rotate_multibit"] = real
 
 
 def k2x(libs, out, steps=64):
@@ -297,9 +314,10 @@ def k2x(libs, out, steps=64):
     out["k2x_test"] = k2x_test(libs)
 
 
-# K2's exact rotation at the TEST shapes (k+1 = 2, N = 512, four primes):
-# (tag, l, base_log, steps, batches)
-K2_TEST_SHAPES = (("rotation", 1, 23, 16, (4, 128)), ("chain", 4, 6, 8, (1, 64)))
+# K2's exact rotation at N = 512, four primes: (tag, k+1, l, base_log,
+# steps, batches): the TEST shapes and 1_1's
+K2_TEST_SHAPES = (("rotation", 2, 1, 23, 16, (4, 128)), ("chain", 2, 4, 6, 8, (1, 64)),
+                  ("rotation_1_1", 5, 1, 23, 16, (4, 32)))
 
 
 def k2x_test(libs, reps=20):
@@ -310,11 +328,11 @@ def k2x_test(libs, reps=20):
     tables a step."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     rng = np.random.default_rng(17)
-    n, k1 = 512, 2
+    n = 512
     dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
     tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
     res = {}
-    for tag, lev, bl, steps, batches in K2_TEST_SHAPES:
+    for tag, k1, lev, bl, steps, batches in K2_TEST_SHAPES:
         key = torch.stack([torch.randint(0, q, (steps, lev, k1, k1, n), generator=gen,
                                          device="cuda") for q in dp.plan.primes],
                           dim=-2).to(torch.int32)
@@ -345,7 +363,7 @@ def k2x_test(libs, reps=20):
             if kernels.cluster_shape(k1, n, lev, bl):
                 runs["cluster"] = (entry(kernels.load()["blind_rotate_cluster"], True), "h_kc",
                                    "blind_rotate_cluster.cu")
-            row = {"batch": b, "levels": lev, "base_log": bl, "steps": steps}
+            row = {"batch": b, "k1": k1, "levels": lev, "base_log": bl, "steps": steps}
             for name, (run, _, _) in runs.items():
                 row[f"{name}_err"] = int((run() - want).abs().max())
             order = list(runs) + list(reversed(runs))
@@ -372,6 +390,106 @@ def k2x_test(libs, reps=20):
             print("k2x_test", tag, b, {k: v for k, v in row.items() if not k.endswith("phases")},
                   flush=True)
     return res
+
+
+# K3's exact rotation at the GPU multi-bit sets: (tag, N, l, g, base_log,
+# groups)
+K3_GPU_SHAPES = (("gpu_group_2", 4096, 1, 2, 21, 459), ("gpu_group_3", 2048, 2, 3, 14, 293))
+
+
+def k3c(libs, out, reps=3):
+    """K3's exact rotation at K3_GPU_SHAPES on random keys (every group):
+    for B = 4 and 32 the generic and the cluster C entries in turns
+    (generic, cluster, cluster, generic; CUDA events over reps launches),
+    the wrapper's route and its host ms a launch, a check of both entries
+    and the wrapper against the plain rotation at B = 2, the cluster
+    kernel's figures, and both phase tables a group at B = 4."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rng = np.random.default_rng(18)
+    res = {}
+    for tag, n, lev, g, bl, groups in K3_GPU_SHAPES:
+        dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+        tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+        mono = server.monomial_table(dp)[0]
+        key = torch.stack([torch.randint(0, q, (groups, 1 << g, lev, 2, 2, n), generator=gen,
+                                         device="cuda") for q in dp.plan.primes],
+                          dim=-2).to(torch.int32)
+        log_mod = n.bit_length()
+        row = {"N": n, "levels": lev, "grouping": g, "base_log": bl, "groups": groups,
+               "route": kernels.multibit_exact_route(2, n, lev, g, bl),
+               **kernels.multibit_cluster_figures(n, lev, g)}
+        for b in (2, 4, 32):
+            raw = torus.from_u64(rng.integers(0, 1 << 64, (b, groups * g), dtype=np.uint64),
+                                 "cuda")
+            deg = server.multibit_switched_degrees(raw, g, log_mod)
+            body = torch.from_numpy(rng.integers(0, 2 * n, (b,))).cuda()
+            lut = torus.from_u64(rng.integers(0, 1 << 64, (b, 2, n), dtype=np.uint64), "cuda")
+            acc0 = server.initial_accumulator(lut, body, False).contiguous()
+            deg32 = deg.to(torch.int32).contiguous()
+
+            def entry(lib, cluster):
+                def run():
+                    acc = acc0.clone()
+                    if cluster:
+                        err = lib.tfhe_torch_blind_rotate_multibit_cluster(
+                            acc.data_ptr(), deg32.data_ptr(), key.data_ptr(), tw_fwd.data_ptr(),
+                            tw_inv.data_ptr(), mono.data_ptr(), dp.kernel_consts.data_ptr(), b,
+                            groups, g, 2, n.bit_length() - 1, lev, 4, bl, kernels._stream(acc))
+                    else:
+                        err = lib.tfhe_torch_blind_rotate_multibit(
+                            acc.data_ptr(), deg32.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+                            dp.psi_inv32.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
+                            mono.data_ptr(), dp.kernel_consts.data_ptr(), b, groups, g, 2,
+                            n.bit_length() - 1, lev, 4, bl, kernels._stream(acc))
+                    assert err == 0, f"K3 launch failed ({tag}, cluster {cluster}): cudaError {err}"
+                    return acc
+                return run
+
+            runs = {"generic": entry(kernels.load()["blind_rotate_multibit"], False),
+                    "cluster": entry(kernels.load()["blind_rotate_multibit_cluster"], True)}
+            wrapper = lambda: kernels.blind_rotate_multibit(deg, body, lut, key, dp, bl, lev)  # noqa: E731
+            if b == 2:
+                want = server.blind_rotate_multibit(deg, body, lut, key, dp, bl, lev)
+                for name, run in runs.items():
+                    row[f"{name}_err_b2"] = int((run() - want).abs().max())
+                before = kernels.blind_rotate_multibit.cluster_launches
+                row["wrapper_err_b2"] = int((wrapper() - want).abs().max())
+                row["wrapper_cluster_launches"] = (kernels.blind_rotate_multibit.cluster_launches
+                                                   - before)
+                print("k3c", tag, {k: v for k, v in row.items()}, flush=True)
+                continue
+            times = {name: [] for name in runs}
+            for name in ("generic", "cluster", "cluster", "generic"):
+                times[name].append(ms(runs[name], reps))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                wrapper()
+            host_ms = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            row[f"b{b}"] = {"generic_ms": times["generic"], "cluster_ms": times["cluster"],
+                            "wrapper_host_ms": host_ms,
+                            "cluster_us_per_group": min(times["cluster"]) * 1e3 / groups,
+                            "generic_us_per_group": min(times["generic"]) * 1e3 / groups}
+            print("k3c", tag, b, row[f"b{b}"], flush=True)
+            if b == 4:
+                for name, hname, src in (("generic", "h_k3", "blind_rotate_multibit.cu"),
+                                         ("cluster", "h_k3c",
+                                          "blind_rotate_multibit_cluster_marked.cu")):
+                    if hname in libs:
+                        hlib = libs[hname]
+                        real = kernels.load()["blind_rotate_multibit_cluster" if name == "cluster"
+                                              else "blind_rotate_multibit"]
+                        for f in FUNCS:
+                            if hasattr(real, f) and hasattr(hlib, f):
+                                getattr(hlib, f).argtypes = getattr(real, f).argtypes
+                                getattr(hlib, f).restype = getattr(real, f).restype
+                        row[f"{name}_phases"] = phases(hlib, entry(hlib, name == "cluster"), src,
+                                                       groups)
+        res[tag] = row
+        del key
+        torch.cuda.empty_cache()
+    out["k3c"] = res
 
 
 def generic_checks(out):
@@ -431,8 +549,9 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     t0 = time.time()
     kernels.load()
-    want = [n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k2", "k2x"), ("h_kc", "k2x"))
-            if w in which and "nophase" not in which]
+    want = sorted({n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k3", "k3c"),
+                                  ("h_k3c", "k3c"), ("h_k2", "k2x"), ("h_kc", "k2x"))
+                   if w in which and "nophase" not in which})
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
     if "checks" in which:
@@ -443,16 +562,19 @@ def main():
         k5(libs, out)
     if "k3x" in which:
         k3x(libs, out)
+    if "k3c" in which:
+        k3c(libs, out)
     if "k2x" in which:
         k2x(libs, out)
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
-    for tag, row in out.get("k2x_test", {}).items():
+    tables = list(out.get("k2x_test", {}).items()) + list(out.get("k3c", {}).items())
+    for tag, row in tables:
         for name in ("generic", "cluster"):
             ph = row.get(f"{name}_phases")
             if ph:
-                print(f"k2x_test {tag} {name}: total/step {ph['total_per_unit']:.0f} "
+                print(f"{tag} {name}: total/step (group) {ph['total_per_unit']:.0f} "
                       f"wait {ph['wait_per_unit']:.0f}")
                 for r in ph["rows"]:
                     print(f"  {r['at']:30s} n={r['count']:6d} work "
