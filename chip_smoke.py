@@ -101,8 +101,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      n_in = 2048, l = 4, then K2's lazy exact kernel on the exact key) and
      the two FheUint64 added through the hlapi (against (x + y) mod 2^64);
      a plain list of 2048 slots expanded and cast at B = 2048 (slots per
-     second); the first list's slots cast to the big key (K1's generic
-     kernel, base 2^24, l = 1); re-randomization of 32 ciphertexts; every
+     second); the first list's slots cast to the big key (K1's limb-row
+     kernel, base 2^24, l = 1; no generic K1 launch); re-randomization of 32 ciphertexts; every
      slot decrypted; tfhe-rs's CPU figures for one proven FheUint64 beside
      the port's;
  24. trivium: Trivium and Kreyvium on phase 17's boolean keys from the
@@ -144,8 +144,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
  28. wopbs: TEST_PARAM_MESSAGE_2_CARRY_2 with TEST_WOPBS_PARAM (the only
      WoPBS sets either package has): keygen, extract_bits, apply_wopbs with
      the identity and a non-monotone LUT over all 16 inputs (K1, K2's
-     small-N cluster kernel, K1 at the PFPKS shape once a call, K2's CMux
-     chain once a call for the low bits), a 10-bit vertical packing (K2's
+     small-N cluster kernel, K1 at the PFPKS shape once a call on its
+     limb-row kernel, no generic K1 launch, K2's CMux chain once a call
+     for the low bits), a 10-bit vertical packing (K2's
      CMux entry once, the chain once; the step entry never);
  29. aes: at the same sets, the S-box of 4 encrypted bytes and one AES-128
      round with injected encrypted round keys against the cleartext model
@@ -170,9 +171,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
  33. research_primitives: the GLWE keyswitch, the common mask and the
      experimental core at the 2_2 widths (n = 918, k = 1, N = 2048), keygens
      on the card from fixed seeds, every output decrypted: the GLWE
-     keyswitch of 512 GLWEs (K7, base 2^8 x 4), the fast keyswitch of 512
-     GLWEs from a k_in = 2 partial key on a pseudo-GGSW (K7 with the sum
-     added), the shrinking keyswitch 2048 -> 918 (K1), the CM keyswitch and
+     keyswitch of 512 GLWEs (K7's cluster kernel, base 2^8 x 4), the fast
+     keyswitch of 512 GLWEs from a k_in = 2 partial key on a pseudo-GGSW
+     (K7's cluster kernel with the sum added), the shrinking keyswitch 2048 -> 918 (K1), the CM keyswitch and
      CM packing 2048 -> 918 at C = 3 (K1), the CM bootstrap of 64 CmLwes
      at C = 3 (K2's cluster kernel at k+1 = 4; the CM bootstrap key's 481
      MB), at C = 4 with keys of its own (the cluster kernel at k+1 = 5,
@@ -241,8 +242,10 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      n = 630) on a random key at B = 4 and B = 3; K2's lazy exact kernel on
      phase 19's OPRF inputs and LUTs (B = 32), and phase 22's first round
      through K1 and K2 v7; phase 23's casts: K1 at both cast shapes (its
-     tensor-core kernel at B = 64 and 2048, its generic kernel at B = 32)
-     against the plain keyswitch, K2's lazy exact kernel on the B = 64
+     tensor-core kernel at B = 64 and 2048, its limb-row kernel at B = 32,
+     timed in turns with the generic kernel it replaced there, through
+     its C entry alone and against 26 int8 torch._int_mm GEMMs of byte
+     limbs) against the plain keyswitch, K2's lazy exact kernel on the B = 64
      cast's switched inputs against the plain exact rotation, and the cast
      outputs against the plain path; K1-32 (its tensor-core kernel, its
      generic kernel and the int8 torch._int_mm yardstick) at both KS32
@@ -255,10 +258,14 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      K2's cluster kernel on phase 31's first 4 switched inputs over the
      real 3_3 key and on a random key at that shape over 64 steps at B = 1,
      3 and 4; K1
-     at the PFPKS shape on phase 28's circuit-bootstrap LWEs; K2's CMux
-     entry against ct0 + external_product at B = 1 and 64; K7 at both
-     signs on phase 33's inputs and keys, K1 at the shrinking and CM shapes
-     on phase 33's inputs, K8's lazy kernel at E = 1, 2, 4 and 8 (at
+     at the PFPKS shape on phase 28's circuit-bootstrap LWEs (its limb-row
+     kernel at B = 1, 3 and 40, timed as the cast's, the yardstick 21
+     GEMMs); K2's CMux entry against ct0 + external_product at B = 1 and
+     64; K7 at both signs on phase 33's inputs and keys (its cluster kernel
+     at B = 3 and 512, timed in turns with its first kernel, and the int8
+     torch._int_mm GEMMs of the digits by the key's negacyclic Toeplitz),
+     K1 at the shrinking and CM shapes on phase 33's inputs (with the
+     int8-limb torch._int_mm yardstick), K8's lazy kernel at E = 1, 2, 4 and 8 (at
      each E also at each of its slots a block, SB <= E; every SB that
      phase 33 ran must be among them), its generic kernel at l = 2 (the
      shape still routed to it), K2's cluster kernel at the CM shapes k+1 = 3, 4, 5 and 8 and its generic kernel at
@@ -278,8 +285,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      wrapper's and, of them, those of K1's and K4's tensor-core kernels and
      K2's lazy exact kernel), the script's total seconds and one
      {"kernels": [...]} line (K1-32's entry, keyswitch32, with the
-     launches of phases 25-26 on every kernel's; K6's, K1's at the PFPKS
-     shape and the CMux entry's, with the launches of phases 28-30 on K1's,
+     launches of phases 25-26 on every kernel's; K6's, K1's limb-row
+     kernel's (the PFPKS of phases 28-29 and phase 23's cast to big, by
+     path) and the CMux entry's, with the launches of phases 28-30 on K1's,
      K2's exact kernels' and the step entry's; K2's cluster kernel's, with
      the launches of phases 31-32 on K1's, K2's and K3's, phase 32's
      rounds, warm rounds and B = 4 checks each a path; K2's small-N kernel
@@ -432,7 +440,8 @@ TRIVIUM_WARMUP_STEPS = 4 * 288
 TRIVIUM_STREAMS = (("trivium", "TriviumStream", 80), ("kreyvium", "KreyviumStream", 128))
 # every kernel of the port, by the name a profiler trace gives it
 KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_kernel",
-                "keyswitch_digits_kernel",
+                "keyswitch_digits_kernel", "keyswitch_limbs_kernel",
+                "keyswitch_limb_rows_kernel",
                 "keyswitch32_kernel",
                 "keyswitch32_imma_kernel", "blind_rotate_kernel", "cmux_kernel",
                 "blind_rotate_cluster_kernel", "blind_rotate_cluster_small_kernel",
@@ -443,7 +452,8 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "blind_rotate128_lazy_kernel", "packing_keyswitch_kernel",
                 "packing_keyswitch_imma_kernel",
                 "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel",
-                "glwe_keyswitch_kernel", "blind_rotate_extended_kernel",
+                "glwe_keyswitch_kernel", "glwe_keyswitch_cluster_kernel",
+                "blind_rotate_extended_kernel",
                 "blind_rotate_extended_lazy_kernel")
 
 
@@ -506,6 +516,30 @@ def launch_ms(fn, reps: int) -> tuple:
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, host_ms
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """The device's milliseconds a launch of fn: reps calls captured in one
+    CUDA graph, replayed (after a warm replay) replays times between two
+    CUDA events, so the host's enqueue time is out of the figure."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def step_entry_probe(kernels, server, st_args) -> dict:
@@ -600,6 +634,158 @@ def int_mm_keyswitch32(ct, ksk32, base_log: int, levels: int):
     out = -acc
     out[:, -1] += torus.shr(ct[:, -1], 32)
     return out & server.M32
+
+
+def int_mm_limb_product(digits, words, base_log: int):
+    """sum_k digits[:, k] words[k, :] mod 2^64 as int8 GEMMs (torch._int_mm):
+    each signed digit |d| <= 2^(base_log-1) as ceil((base_log + 1) / 8)
+    balanced byte limbs, each int64 word as 8 balanced byte limbs, the
+    limb pairs t + j < 8 multiplied and recombined at 2^(8 (t + j)).  The
+    yardstick's core for contractions whose digits pass s8 (the limb-row
+    kernel's shapes, K7's base 2^8)."""
+    import torch
+    import torch.nn.functional as F
+
+    def limbs(x, count):
+        out = []
+        for _ in range(count):
+            e = ((x + 128) & 255) - 128
+            x = (x - e) >> 8
+            out.append(e.to(torch.int8))
+        return out
+
+    b, k = digits.shape
+    m = words.shape[1]
+    kpad, npad = (-k) % 8, (-m) % 8
+    dl = [F.pad(e, (0, kpad)) for e in limbs(digits, (base_log + 8) // 8)]
+    wl = [F.pad(e, (0, npad, 0, kpad)) for e in limbs(words, 8)]
+    acc = torch.zeros((b, m), dtype=torch.int64, device=digits.device)
+    for t, d8 in enumerate(dl):
+        for j in range(8 - t):
+            acc += torch._int_mm(d8, wl[j])[:, :m].to(torch.int64) << (8 * (t + j))
+    return acc
+
+
+def int_mm_limb_keyswitch(ct, ksk, base_log: int, levels: int):
+    """K1 at the limb-row kernel's shapes as int8 GEMMs (int_mm_limb_product:
+    21 at the PFPKS's base 2^20, 26 at the cast's 2^24).  A library
+    yardstick for the limb-row kernel (the port never calls it)."""
+    from tfhe_tpu_torch.ops import server
+
+    b = ct.shape[0]
+    n_in, lev, m_out = ksk.shape
+    digits = server.signed_decompose(ct[:, :-1], base_log, levels)
+    out = -int_mm_limb_product(digits.permute(1, 2, 0).reshape(b, -1),
+                               ksk.reshape(-1, m_out), base_log)
+    out[:, -1] += ct[:, -1]
+    return out
+
+
+def standard_glwe_key(key, dp):
+    """The u64 words (k_in, l, k_out+1, N) of a Montgomery NTT-domain key
+    (k_in, l, k_out+1, P, N): Montgomery form dropped, the inverse
+    transform and Garner."""
+    import torch
+    from tfhe_tpu_torch.ops import ntt
+
+    normal = ntt.redc(key.to(torch.int64), dp.ps, dp.pinvs)
+    return ntt.garner_to_u64(ntt.ntt_inverse(normal, dp), dp)
+
+
+def int_mm_glwe_keyswitch(glwe, words, base_log: int, levels: int, add_sum: bool):
+    """K7's function as int8 GEMMs: the digits (B, k_in l N) times the
+    key's negacyclic Toeplitz (k_in l N, (k_out+1) N) of its words (the
+    route of row 0b's yardstick, int_mm_limb_product's limbs), wrapping mod
+    2^64, then the sign and the body.  The integer sum stays below P/2 at
+    the research shapes (|d| <= 2^(base_log-1), k_in l N terms: 2^84 and
+    2^85 against P > 2^118), so these are the CRT route's words.  A
+    library yardstick for K7 (the port never calls it)."""
+    import torch
+    from tfhe_tpu_torch.ops import server
+
+    b, kin1, n = glwe.shape
+    k_in, lev, kout1, _ = words.shape
+    digits = server.signed_decompose(glwe[:, :-1], base_log, levels)   # (l, B, k_in, N)
+    rows = digits.permute(1, 2, 0, 3).reshape(b, -1)                    # (B, (i, lev, s))
+    s_idx = torch.arange(n, device=glwe.device)
+    src = s_idx[None, :] - s_idx[:, None] + n                            # [s, t] = t - s + N
+    kx = torch.cat([-words, words], dim=-1).reshape(k_in * lev, kout1, 2 * n)
+    toeplitz = kx[:, :, src].permute(0, 2, 1, 3).reshape(k_in * lev * n, kout1 * n)
+    total = int_mm_limb_product(rows, toeplitz, base_log).reshape(b, kout1, n)
+    out = total if add_sum else -total
+    out[:, -1] += glwe[:, -1]
+    return out
+
+
+def limb_entry(kernels, ct, key, base_log: int, levels: int):
+    """K1's limb-row kernel through its C entry alone, its output and
+    scratch allocated once and its split count asked once (a function to
+    time: the wrapper's host work left out)."""
+    import torch
+
+    b, n_in = ct.shape[0], ct.shape[1] - 1
+    m_out = key.words.shape[2]
+    n_chunks, key_cols = key.limbs.shape[0], key.limbs.shape[1]
+    rows = kernels.limb_rows(b, kernels.keyswitch_limb_count(n_in, levels, base_log))
+    splits = kernels.keyswitch_limb_splits(key_cols // kernels.IM_BN * (rows // kernels.IM_BM),
+                                           n_chunks, kernels.sm_count(ct.device))
+    out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
+    digits = torch.empty((rows, n_chunks, key.limbs.shape[2]), dtype=torch.int8,
+                         device=ct.device)
+    fn = kernels.load()["keyswitch"].tfhe_torch_keyswitch_limbs
+    args = (out.data_ptr(), ct.data_ptr(), key.limbs.data_ptr(), digits.data_ptr(), b, n_in,
+            levels, m_out, base_log, n_chunks, key_cols, splits)
+
+    def run():      # on the current stream (a graph's capture stream too)
+        err = fn(*args, kernels._stream(ct))
+        if err:
+            raise RuntimeError(f"K1's limb-row kernel failed: cudaError {err}")
+        return out
+
+    return run, splits
+
+
+# the times limb_route_figures takes of the limb-row kernel
+LIMB_TIMES = ("ms", "generic_kernel_ms", "graph_in_turns_ms", "wrapper_ms", "entry_ms",
+              "generic_kernel_events_ms", "in_turns_ms", "wrapper_host_ms", "entry_host_ms")
+
+
+def limb_route_figures(kernels, server, ct, words, key, base_log: int, levels: int) -> dict:
+    """K1's limb-row kernel at one of its shapes: the wrapper, its C entry
+    alone and the generic kernel (the first design there) in turns
+    (generic, wrapper, entry, entry, wrapper, generic; CUDA events over 20
+    launches, with the host's enqueue ms a launch), then the C entry and
+    the generic kernel in turns replayed from CUDA graphs (the device's
+    time, the host's out of it: "ms"); the plain version, the int8
+    torch._int_mm yardstick and its words, the bound, the split count."""
+    entry, splits = limb_entry(kernels, ct, key, base_log, levels)
+    want = server.keyswitch(ct, words, base_log, levels)
+    generic = lambda: generic_keyswitch(kernels, ct, words, base_log, levels)  # noqa: E731
+    runs = {"generic": generic,
+            "wrapper": lambda: kernels.keyswitch(ct, key, base_log, levels), "entry": entry}
+    errs = {name: max_abs_err(run(), want) for name, run in runs.items()}
+    times = in_turns(runs, 20)
+    graphs = {name: [] for name in ("generic", "entry")}
+    for name in ("generic", "entry", "entry", "generic"):
+        graphs[name].append(graph_ms(runs[name]))
+    lib = int_mm_limb_keyswitch(ct, words, base_log, levels)
+    bound = k1_bound(ct, words, want, base_log)
+    return {"ms": min(graphs["entry"]), "generic_kernel_ms": min(graphs["generic"]),
+            "graph_in_turns_ms": graphs,
+            "wrapper_ms": min(t for t, _ in times["wrapper"]),
+            "entry_ms": min(t for t, _ in times["entry"]),
+            "generic_kernel_events_ms": min(t for t, _ in times["generic"]),
+            "in_turns_ms": times,
+            "wrapper_host_ms": min(h for _, h in times["wrapper"]),
+            "entry_host_ms": min(h for _, h in times["entry"]),
+            "words_differing": errs, "library_words_differing": max_abs_err(lib, want),
+            "plain_ms": cuda_ms(lambda: server.keyswitch(ct, words, base_log, levels), 3),
+            "library_ms": cuda_ms(lambda: int_mm_limb_keyswitch(ct, words, base_log, levels), 5),
+            "library_call": f"{sum(8 - t for t in range((base_log + 8) // 8))} int8 "
+                            f"torch._int_mm GEMMs of balanced byte limbs",
+            "bound": bound, "splits": splits,
+            "limbs_a_digit": kernels.keyswitch_limb_count(ct.shape[1] - 1, levels, base_log),
+            "shape": [ct.shape[0], ct.shape[1] - 1, levels, words.shape[2]]}
 
 
 def generic_packing_keyswitch(kernels, lwes, pksk, base_log: int, levels: int,
@@ -1061,17 +1247,20 @@ def kernel_wrappers(kernels) -> tuple:
 def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
     launches and, of them, those of K1's and K4's tensor-core kernels, of
-    K2's lazy exact kernel (the rotation's and the step entry's), of its
-    cluster kernel, of K3's cluster kernel and of K8's lazy kernel."""
+    K1's limb-row kernel, of K2's lazy exact kernel (the rotation's and the
+    step entry's), of its cluster kernel, of K3's cluster kernel, of K7's
+    cluster kernel and of K8's lazy kernel."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
+        ("keyswitch_limbs", kernels.keyswitch, "limb_launches"),
         ("keyswitch32_imma", kernels.keyswitch32, "imma_launches"),
         ("packing_keyswitch_imma", kernels.packing_keyswitch, "imma_launches"),
         ("blind_rotate_exact_lazy", kernels.blind_rotate, "lazy_exact_launches"),
         ("blind_rotate_cluster", kernels.blind_rotate, "cluster_launches"),
         ("blind_rotate_multibit_cluster", kernels.blind_rotate_multibit, "cluster_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"),
-        ("blind_rotate_extended_lazy", kernels.blind_rotate_extended, "lazy_launches"))
+        ("blind_rotate_extended_lazy", kernels.blind_rotate_extended, "lazy_launches"),
+        ("glwe_keyswitch_cluster", kernels.glwe_keyswitch, "cluster_launches"))
 
 
 def reset_counts(kernels) -> None:
@@ -1087,6 +1276,12 @@ def only(kernels, **counts) -> dict:
     """The launch counts of a run that launched the named kernels the given
     times and no other kernel."""
     return {name: counts.get(name, 0) for name, _, _ in counters(kernels)}
+
+
+def generic_keyswitches(launches: dict) -> int:
+    """K1 launches of a run's counts on its generic kernel: neither the
+    tensor-core nor the limb-row kernel."""
+    return launches["keyswitch"] - launches["keyswitch_imma"] - launches["keyswitch_limbs"]
 
 
 def counted(kernels, fn):
@@ -1975,10 +2170,10 @@ def compact_pke_phase(kernels, th, ck, sk, seed: int) -> dict:
     big = timed("casting_key_big", lambda: cl.CompactPkeCastingKey(
         priv, ck, sp.V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         seed=seed + 3, device="cuda"))
-    if not isinstance(small.ks_key, kernels.KeyswitchKeyLimbs) or isinstance(
-            big.ks_key, kernels.KeyswitchKeyLimbs):
-        raise RuntimeError("the casting keys do not hold K1's layouts of their shapes: the "
-                           "cast to small on its tensor-core kernel, to big on its generic one")
+    if not (isinstance(small.ks_key, kernels.KeyswitchKeyLimbs)
+            and isinstance(big.ks_key, kernels.KeyswitchKeyLimbs)):
+        raise RuntimeError("the casting keys do not hold K1's byte layouts: the cast to small "
+                           "for its tensor-core kernel, to big for its limb-row kernel")
     crs = timed("crs_v2", lambda: pcl.CompactPkeCrs.new(pke_p, CRS_SLOTS, seed + 4, "v2"))
     timed("exact_key", key.exact_bsk_ntt)
     mod = 1 << 64
@@ -2032,11 +2227,11 @@ def compact_pke_phase(kernels, th, ck, sk, seed: int) -> dict:
         raise RuntimeError(f"the full cast did not run K1's tensor-core kernel and K2's lazy "
                            f"exact kernel once each: {launches['cast_small_full']}")
     wrong["cast_small_full"] = sum(blk.decrypt(c) != w for c, w in zip(full_cast, full))
-    # the first list's slots cast to the big key (K1's generic kernel)
+    # the first list's slots cast to the big key (K1's limb-row kernel)
     to_big, launches["cast_big_b32"], seconds["cast_big_b32"], _ = counted(
         kernels, lambda: big.cast_batch(slots[:PKE_SLOTS]))
-    if launches["cast_big_b32"] != only(kernels, keyswitch=1):
-        raise RuntimeError(f"the cast to big did not run K1's generic kernel alone, once: "
+    if launches["cast_big_b32"] != only(kernels, keyswitch=1, keyswitch_limbs=1):
+        raise RuntimeError(f"the cast to big did not run K1's limb-row kernel alone, once: "
                            f"{launches['cast_big_b32']}")
     wrong["cast_big_b32"] = sum(blk.decrypt(c) != w for c, w in zip(to_big, want))
     # re-randomization of the cast FheUint64's 32 blocks
@@ -2169,13 +2364,15 @@ def compact_paths_vs_plain(kernels, server, torus, sk, run, errs: dict) -> dict:
         kargs = (ct, cast_key.ks_key, kp.ks_base_log, kp.ks_level)
         pargs = (ct, cast_key.ksk, kp.ks_base_log, kp.ks_level)
         imma_before = kernels.keyswitch.imma_launches
+        limb_before = kernels.keyswitch.limb_launches
         got = kernels.keyswitch(*kargs)
         imma = kernels.keyswitch.imma_launches != imma_before
-        if imma != (kp.destination_key == "small"):
+        limb = kernels.keyswitch.limb_launches != limb_before
+        if imma != (kp.destination_key == "small") or limb == imma:
             raise RuntimeError(f"K1 at the cast shape {tag} took the wrong kernel")
         want = server.keyswitch(*pargs)
         errs[f"k1_cast_{tag}"] = max_abs_err(got, want)
-        fig = {"kernel": "keyswitch_imma_kernel" if imma else "keyswitch_kernel",
+        fig = {"kernel": "keyswitch_imma_kernel" if imma else "keyswitch_limbs_kernel",
                "shape": [ct.shape[0]] + list(cast_key.ksk.shape),
                "base_log": kp.ks_base_log,
                "ms": cuda_ms(lambda: kernels.keyswitch(*kargs), 10),
@@ -2186,8 +2383,13 @@ def compact_paths_vs_plain(kernels, server, torus, sk, run, errs: dict) -> dict:
                     "bound_bytes_ms": bound["bytes_ms"]})
         fig["share_of_bound"] = fig["bound_ms"] / fig["ms"]
         if not imma:
-            fig["library_call"] = ("none: torch._int_mm takes int8 operands, and a 24-bit "
-                                   "digit times a 64-bit word in int8 limbs is 24 GEMMs")
+            # the limb-row kernel against the generic kernel it replaced,
+            # in turns, its C entry alone and its int8 yardstick
+            fig.update(limb_route_figures(kernels, server, ct, cast_key.ksk, cast_key.ks_key,
+                                          kp.ks_base_log, kp.ks_level))
+            fig["share_of_bound"] = fig["bound_ms"] / fig["ms"]
+            errs.update({f"k1_cast_{tag}_{name}": v
+                         for name, v in fig["words_differing"].items()})
         if kp.destination_key == "big":
             errs[f"cast_{tag}_vs_plain_path"] = max_abs_err(outs, want)
             figs[tag] = fig
@@ -2822,12 +3024,14 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
         bad = sum(ck.decrypt_raw(o) != f(v) for v, o in enumerate(outs))
         wrong += bad
         lines[name] = {"inputs": 16, "seconds": secs, "launches": launches,
-                       "pfpks_launches": launches["keyswitch"] - launches["keyswitch_imma"],
+                       "pfpks_launches": launches["keyswitch_limbs"],
+                       "generic_keyswitch_launches": generic_keyswitches(launches),
                        "wrong": bad}
-        if launches != only(kernels, keyswitch=48, keyswitch_imma=32, blind_rotate=32,
-                            blind_rotate_cluster=32, cmux_chain=16):
-            raise RuntimeError(f"apply_wopbs ({name}) did not run K1 (16 at the PFPKS shape), "
-                               f"K2's cluster kernel and its CMux chain as expected: {launches}")
+        if launches != only(kernels, keyswitch=48, keyswitch_imma=32, keyswitch_limbs=16,
+                            blind_rotate=32, blind_rotate_cluster=32, cmux_chain=16):
+            raise RuntimeError(f"apply_wopbs ({name}) did not run K1 (16 at the PFPKS shape, "
+                               f"its limb-row kernel), K2's cluster kernel and its CMux chain "
+                               f"as expected: {launches}")
     rng = np.random.default_rng(seed)
     v = int(rng.integers(0, 1 << WOPBS_TREE_BITS))
     f = lambda x: (x ^ (x >> 3)) % 16  # noqa: E731
@@ -2837,8 +3041,8 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     tree_out, tree_launches, tree_s, _ = counted(
         kernels, lambda: wk.vertical_packing(wk.circuit_bootstrap_bits(bit_cts), table, p.delta))
     wrong += ck.decrypt_raw(tree_out) != f(v)
-    if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, blind_rotate=1,
-                             blind_rotate_cluster=1, cmux=1, cmux_chain=1):
+    if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, keyswitch_limbs=1,
+                             blind_rotate=1, blind_rotate_cluster=1, cmux=1, cmux_chain=1):
         raise RuntimeError(f"the {WOPBS_TREE_BITS}-bit vertical packing did not run one CMux "
                            f"launch and one CMux-chain launch: {tree_launches}")
     # the PFPKS inputs of one circuit bootstrap, for the kernel comparisons
@@ -2853,9 +3057,8 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     line = {"params": "TEST_PARAM_MESSAGE_2_CARRY_2 + TEST_WOPBS_PARAM",
             "keygen_seconds": keygen_s, "pfpks_key_device_bytes": wk.pfpksk.numel() * 8,
             "pfpks_shape": list(wk.pfpksk.shape),
-            "pfpks_kernel": ("tensor cores" if kernels.keyswitch_imma_shape(
-                wk.pfpksk.shape[0], wk.params.pfks_level, wk.params.pfks_base_log)
-                             else "generic"),
+            "pfpks_kernel": kernels.keyswitch_route(
+                wk.pfpksk.shape[0], wk.params.pfks_level, wk.params.pfks_base_log),
             "extract_bits": {"seconds": bit_s, "launches": bit_launches},
             "apply_wopbs": lines,
             "vertical_packing": {"bits": WOPBS_TREE_BITS, "seconds": tree_s,
@@ -2909,9 +3112,11 @@ def aes_phase(kernels, shortint_mod, integer, wopbs, aes, seed: int) -> dict:
             "outputs_checked": len(AES_SBOX_BYTES) + 16, "wrong": int(wrong)}
     for tag, launches, chains in (("S-box", sbox_launches, 1), ("AES round", round_launches, 3)):
         if not (launches["keyswitch"] and launches["blind_rotate"]
+                and launches["keyswitch_limbs"] and not generic_keyswitches(launches)
                 and launches["blind_rotate_cluster"] == launches["blind_rotate"]
                 and launches["cmux_chain"] == chains and not launches["cmux_step"]):
-            raise RuntimeError(f"the {tag} did not run K1, K2's cluster kernel and {chains} "
+            raise RuntimeError(f"the {tag} did not run K1 (its PFPKS on the limb-row kernel, "
+                               f"no generic keyswitch), K2's cluster kernel and {chains} "
                                f"CMux-chain launches without K2's step entry: {launches}")
     return {"line": line, "wrong": int(wrong)}
 
@@ -3049,19 +3254,23 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
     toy_ct, toy_ksk = rnd((32, 257)), rnd((256, 1, 11))
     errs["k1_generic_base37"] = max_abs_err(kernels.keyswitch(toy_ct, toy_ksk, 37, 1),
                                             server.keyswitch(toy_ct, toy_ksk, 37, 1))
-    # K1 at the PFPKS shape
+    # K1 at the PFPKS shape: its limb-row kernel on phase 28's circuit
+    # bootstrap LWEs at B = 1, 3 and all 40 (each launch on that kernel)
+    # against the plain keyswitch, then timed in turns with the generic
+    # kernel it replaced there and through its C entry alone
     wk = wopbs_run["wk"]
     lw = wopbs_run["pfpks_lwes"]
     prm = wk.params
-    got = kernels.keyswitch(lw, wk.pfpks_key, prm.pfks_base_log, prm.pfks_level)
-    errs["pfpks_k1"] = max_abs_err(got, server.keyswitch(lw, wk.pfpksk, prm.pfks_base_log,
-                                                         prm.pfks_level))
-    pf = {"ms": cuda_ms(lambda: kernels.keyswitch(lw, wk.pfpks_key, prm.pfks_base_log,
-                                                  prm.pfks_level), 10),
-          "plain_ms": cuda_ms(lambda: server.keyswitch(lw, wk.pfpksk, prm.pfks_base_log,
-                                                       prm.pfks_level), 3),
-          "bound": k1_bound(lw, wk.pfpksk, got, prm.pfks_base_log),
-          "shape": [lw.shape[0], lw.shape[1] - 1, prm.pfks_level, wk.pfpksk.shape[2]]}
+    pf_args = (prm.pfks_base_log, prm.pfks_level)
+    for b in (1, 3, lw.shape[0]):
+        before = kernels.keyswitch.limb_launches
+        got = kernels.keyswitch(lw[:b].contiguous(), wk.pfpks_key, *pf_args)
+        if kernels.keyswitch.limb_launches != before + 1:
+            raise RuntimeError(f"K1 at the PFPKS shape, B = {b}, did not run its limb-row "
+                               f"kernel")
+        errs[f"pfpks_k1_b{b}"] = max_abs_err(got, server.keyswitch(lw[:b], wk.pfpksk, *pf_args))
+    pf = limb_route_figures(kernels, server, lw, wk.pfpksk, wk.pfpks_key, *pf_args)
+    errs.update({f"pfpks_k1_{name}": v for name, v in pf["words_differing"].items()})
     # K2's CMux entry on a real GGSW
     ggsw = wopbs_run["ggsw"]
     dp = wk.dp
@@ -3471,6 +3680,26 @@ def k7_bound(glwe, key, out) -> dict:
             "bytes_ms": t_bytes * 1e3, "ntt_int32_ms": t_ops * 1e3}
 
 
+def first_glwe_keyswitch(kernels, glwe, key, dp, base_log: int, levels: int, add_sum: bool):
+    """K7's first kernel (csrc/glwe_keyswitch.cu glwe_keyswitch_kernel, one
+    block a GLWE) through its C entry: at the research shapes, the kernel
+    the cluster kernel replaced."""
+    import torch
+
+    b, kin1, n_poly = glwe.shape
+    kout1 = key.shape[2]
+    out = torch.empty((b, kout1, n_poly), dtype=torch.int64, device=glwe.device)
+    err = kernels.load()["glwe_keyswitch"].tfhe_torch_glwe_keyswitch(
+        out.data_ptr(), glwe.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, kin1 - 1, kout1,
+        n_poly.bit_length() - 1, levels, base_log, int(add_sum),
+        min(kernels.glwe_keyswitch_rows(kout1, n_poly), (kin1 - 1) * levels),
+        kernels._stream(glwe))
+    if err:
+        raise RuntimeError(f"K7's first kernel failed: cudaError {err}")
+    return out
+
+
 def k8_bound(mask, acc, levels: int, base_log: int) -> dict:
     """Least time for the extended rotation of B ciphertexts of E slots: E
     times k2_bound's operations at the same B (each slot a classic
@@ -3594,7 +3823,7 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
 
     ks_out = step("glwe_keyswitch", lambda: server.glwe_keyswitch(glwes, gksk.data, gksk.dp,
                                                                     base_log, levels),
-                  glwe_wrong, {"glwe_keyswitch": 1},
+                  glwe_wrong, {"glwe_keyswitch": 1, "glwe_keyswitch_cluster": 1},
                   lambda: cuda_ms(lambda: kernels.glwe_keyswitch(glwes, gksk.data, gksk.dp,
                                                                  base_log, levels), 5),
                   batch=RESEARCH_BATCH, k_in=k, k_out=k, keygen_seconds=gksk_s,
@@ -3605,7 +3834,8 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
                                          device=dev), device=dev))
     glwes2 = torus.from_u64(encrypt_glwes(keygen, sk_partial, pts, p.glwe_noise, gen, dev), dev)
     fast_out = step("fast_keyswitch", lambda: experimental.glwe_fast_keyswitch(
-        glwes2, pggsw.data, pggsw.dp, base_log, levels), glwe_wrong, {"glwe_keyswitch": 1},
+        glwes2, pggsw.data, pggsw.dp, base_log, levels), glwe_wrong,
+        {"glwe_keyswitch": 1, "glwe_keyswitch_cluster": 1},
         lambda: cuda_ms(lambda: kernels.glwe_keyswitch(glwes2, pggsw.data, pggsw.dp, base_log,
                                                        levels, add_sum=True), 5),
         batch=RESEARCH_BATCH, k_in=2, k_out=k, partial_fill=PARTIAL_FILL,
@@ -3813,16 +4043,46 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
     out = {"k7": {}, "k8": {}}
     for tag, add_sum in (("glwe", False), ("fast", True)):
         glwes, key, got = run["k7"][tag]
-        want = server.glwe_keyswitch_sum(glwes, key.data, key.dp, base_log, levels, add_sum)
+        kd, kdp = key.data, key.dp
+        want = server.glwe_keyswitch_sum(glwes, kd, kdp, base_log, levels, add_sum)
         errs[f"k7_{tag}_keyswitch_b{glwes.shape[0]}"] = max_abs_err(got, want)
+        # the cluster kernel at B = 3 through the wrapper, and the first
+        # kernel (the first design) at B = 3 and 512, against the plain sum
+        before = kernels.glwe_keyswitch.cluster_launches
+        small = glwes[:3].contiguous()
+        errs[f"k7_{tag}_keyswitch_b3"] = max_abs_err(
+            kernels.glwe_keyswitch(small, kd, kdp, base_log, levels, add_sum),
+            server.glwe_keyswitch_sum(small, kd, kdp, base_log, levels, add_sum))
+        if kernels.glwe_keyswitch.cluster_launches != before + 1:
+            raise RuntimeError(f"K7 ({tag}) at B = 3 did not run its cluster kernel")
+        errs[f"k7_{tag}_first_kernel_b3"] = max_abs_err(
+            first_glwe_keyswitch(kernels, small, kd, kdp, base_log, levels, add_sum),
+            server.glwe_keyswitch_sum(small, kd, kdp, base_log, levels, add_sum))
+        first = lambda: first_glwe_keyswitch(kernels, glwes, kd, kdp, base_log,  # noqa: E731
+                                             levels, add_sum)
+        errs[f"k7_{tag}_first_kernel_b{glwes.shape[0]}"] = max_abs_err(first(), want)
+        times = in_turns({"first": first,
+                          "cluster": lambda: kernels.glwe_keyswitch(glwes, kd, kdp, base_log,
+                                                                    levels, add_sum)}, 5)
+        words = standard_glwe_key(kd, kdp)
+        lib = int_mm_glwe_keyswitch(glwes, words, base_log, levels, add_sum)
         out["k7"][tag] = {
-            "ms": cuda_ms(lambda: kernels.glwe_keyswitch(glwes, key.data, key.dp, base_log,
-                                                         levels, add_sum), 5),
-            "plain_ms": cuda_ms(lambda: server.glwe_keyswitch_sum(glwes, key.data, key.dp,
-                                                                  base_log, levels, add_sum), 2),
-            "bound": k7_bound(glwes, key.data, got),
-            "rows_a_chunk": kernels.glwe_keyswitch_rows(key.data.shape[2], glwes.shape[2]),
-            "shape": list(glwes.shape) + list(key.data.shape[:3])}
+            "ms": min(t for t, _ in times["cluster"]),
+            "first_kernel_ms": min(t for t, _ in times["first"]), "in_turns_ms": times,
+            "plain_ms": cuda_ms(lambda: server.glwe_keyswitch_sum(glwes, kd, kdp, base_log,
+                                                                  levels, add_sum), 2),
+            "library_ms": cuda_ms(lambda: int_mm_glwe_keyswitch(glwes, words, base_log,
+                                                                levels, add_sum), 2),
+            "library_words_differing": max_abs_err(lib, want),
+            "library_call": (f"{sum(8 - t for t in range((base_log + 8) // 8))} int8 "
+                             f"torch._int_mm GEMMs of the digits by the key's negacyclic "
+                             f"Toeplitz (balanced byte limbs)"),
+            "bound": k7_bound(glwes, kd, got),
+            **kernels.glwe_keyswitch_figures(kd.shape[0], kd.shape[2], glwes.shape[2], levels,
+                                             base_log),
+            "first_rows_a_chunk": kernels.glwe_keyswitch_rows(kd.shape[2], glwes.shape[2]),
+            "shape": list(glwes.shape) + list(kd.shape[:3])}
+        del words, lib
     ks_base_log, ks_level = p.ks_base_log, p.ks_level
     for tag, ct, key_words, key in (
             ("shrinking", torch.cat([run["shrinking"][0][:, p.lwe_dimension:-1],
@@ -3838,6 +4098,10 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
             "ms": cuda_ms(lambda: kernels.keyswitch(ct, key, ks_base_log, ks_level), 10),
             "plain_ms": cuda_ms(lambda: server.keyswitch(ct, key_words, ks_base_log, ks_level),
                                 3),
+            "library_ms": cuda_ms(lambda: int_mm_keyswitch(ct, key_words, ks_base_log,
+                                                           ks_level), 5),
+            "library_words_differing": max_abs_err(
+                int_mm_keyswitch(ct, key_words, ks_base_log, ks_level), got),
             "bound": k1_bound(ct, key_words, got, ks_base_log),
             "shape": [ct.shape[0], ct.shape[1] - 1, ks_level, key_words.shape[2]]}
     # the rotations on a random key at B = CHECK_BATCH over RESEARCH_PLAIN_STEPS steps
@@ -4229,21 +4493,31 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "source": "tfhe_tpu_torch/csrc/glwe_keyswitch.cu",
             "replaces": "tfhe_tpu/ops/server.py:862",
             "also_replaces": "tfhe_tpu/core/experimental.py:218",
-            "kernel": "glwe_keyswitch_kernel (one block a GLWE, 4-prime CRT-NTT; "
-                      "add_sum for the fast keyswitch)",
-            "launches": sum(rp_launches("glwe_keyswitch").values()),
-            "launches_by_path": rp_launches("glwe_keyswitch"),
+            "kernel": "glwe_keyswitch_cluster_kernel (a cluster of four blocks a GLWE, one a "
+                      "CRT prime, lazy Shoup passes, Garner through distributed shared "
+                      "memory; add_sum for the fast keyswitch)",
+            "launches": sum(rp_launches("glwe_keyswitch_cluster").values()),
+            "launches_by_path": rp_launches("glwe_keyswitch_cluster"),
+            "first_kernel_launches_by_path": {
+                t: n - rp_launches("glwe_keyswitch_cluster").get(t, 0)
+                for t, n in rp_launches("glwe_keyswitch").items()},
             "max_abs_err": max(v for k_, v in errs.items() if k_.startswith("k7")),
-            "ms": k7g["ms"], "plain_ms": k7g["plain_ms"],
+            "words_differing": {k_: v for k_, v in errs.items() if k_.startswith("k7")},
+            "ms": k7g["ms"], "first_kernel_ms": k7g["first_kernel_ms"],
+            "in_turns_ms": k7g["in_turns_ms"], "plain_ms": k7g["plain_ms"],
             "bound_ms": k7g["bound"]["ms"], "bound_by": k7g["bound"]["by"],
             "bound_bytes_ms": k7g["bound"]["bytes_ms"],
             "bound_ntt_int32_ms": k7g["bound"]["ntt_int32_ms"],
-            "library_ms": None, "library_call": no_library,
-            "rows_a_chunk": k7g["rows_a_chunk"], "shape": k7g["shape"],
-            "fast_keyswitch": {"ms": k7f["ms"], "plain_ms": k7f["plain_ms"],
-                               "bound_ms": k7f["bound"]["ms"], "bound_by": k7f["bound"]["by"],
-                               "rows_a_chunk": k7f["rows_a_chunk"], "shape": k7f["shape"]}},
-            "glwe_keyswitch_kernel"),
+            "library_ms": k7g["library_ms"], "library_call": k7g["library_call"],
+            "library_words_differing": k7g["library_words_differing"],
+            "shared_memory_bytes": k7g["shared_memory_bytes"],
+            "active_clusters": k7g["active_clusters"], "shape": k7g["shape"],
+            "first_kernel": ptxas_of(ptxas_kernels, "glwe_keyswitch_kernel"),
+            "fast_keyswitch": {key_: k7f[key_] for key_ in (
+                "ms", "first_kernel_ms", "in_turns_ms", "plain_ms", "library_ms",
+                "library_words_differing", "shared_memory_bytes", "active_clusters", "shape")}
+            | {"bound_ms": k7f["bound"]["ms"], "bound_by": k7f["bound"]["by"]}},
+            "glwe_keyswitch_cluster_kernel"),
         with_regs({
             "name": "blind_rotate_extended", "route": "cuda",
             "source": "tfhe_tpu_torch/csrc/blind_rotate_extended.cu",
@@ -4321,7 +4595,9 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "max_abs_err": errs[f"k1_cm_keyswitch_b{RESEARCH_BATCH}"],
             "ms": s15["k1_cm"]["ms"], "plain_ms": s15["k1_cm"]["plain_ms"],
             "bound_ms": s15["k1_cm"]["bound"]["ms"], "bound_by": s15["k1_cm"]["bound"]["by"],
-            "library_ms": None, "library_call": "none: torch has no int64 matmul on CUDA",
+            "library_ms": s15["k1_cm"]["library_ms"],
+            "library_call": "10 int8-limb torch._int_mm GEMMs (the TPU's formulation)",
+            "library_words_differing": s15["k1_cm"]["library_words_differing"],
             "shape": s15["k1_cm"]["shape"]}, "keyswitch_imma_kernel"),
         with_regs({
             "name": "keyswitch_shrinking", "route": "cuda",
@@ -4334,7 +4610,9 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "ms": s15["k1_shrinking"]["ms"], "plain_ms": s15["k1_shrinking"]["plain_ms"],
             "bound_ms": s15["k1_shrinking"]["bound"]["ms"],
             "bound_by": s15["k1_shrinking"]["bound"]["by"],
-            "library_ms": None, "library_call": "none: torch has no int64 matmul on CUDA",
+            "library_ms": s15["k1_shrinking"]["library_ms"],
+            "library_call": "10 int8-limb torch._int_mm GEMMs (the TPU's formulation)",
+            "library_words_differing": s15["k1_shrinking"]["library_words_differing"],
             "shape": s15["k1_shrinking"]["shape"]}, "keyswitch_imma_kernel")]
 
 
@@ -4752,14 +5030,14 @@ def main() -> None:
     # keyswitch of every set of shortint/params.py, K2's lazy exact kernel at
     # exactly the classic sets of the V1_4 2_2 shape (k+1 = 2, N = 2048,
     # l = 1), the tensor-core kernel at the cast to small from the PKE set
-    # (2^4 x 4) and the generic kernel at the cast to big (2^24 x 1); and
-    # K1's wrapper on a shape outside the guard (8-bit digits) runs the
-    # generic kernel, against plain
+    # (2^4 x 4) and the limb-row kernel at the cast to big (2^24 x 1); and
+    # K1's wrapper on a shape outside the tensor-core guard (8-bit digits,
+    # two byte limbs a digit) runs the limb-row kernel, against plain
     pke_d = shortint_params.V1_4_PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128.polynomial_size
     for name, q in vars(shortint_params).items():
         if isinstance(q, shortint_params.ShortintKeySwitchingParameters):
-            if kernels.keyswitch_imma_shape(pke_d, q.ks_level, q.ks_base_log) != (
-                    q.destination_key == "small"):
+            if kernels.keyswitch_route(pke_d, q.ks_level, q.ks_base_log) != (
+                    "imma" if q.destination_key == "small" else "limbs"):
                 raise RuntimeError(f"K1 chose the wrong kernel for the cast {name}")
             continue
         if not isinstance(q, shortint_params.ShortintParams):
@@ -4776,11 +5054,12 @@ def main() -> None:
            torus.from_u64(k1_rng.integers(0, 1 << 64, (p.big_lwe_dimension, 2,
                                                        p.lwe_dimension + 1),
                                           dtype=np.uint64), dev), 8, 2)
-    imma_before = kernels.keyswitch.imma_launches
-    errs[f"k1_generic_wrapper_bl8_l2_b{CHECK_BATCH}"] = max_abs_err(kernels.keyswitch(*off),
-                                                                   server.keyswitch(*off))
-    if kernels.keyswitch.imma_launches != imma_before:
-        raise RuntimeError("K1 took its tensor-core kernel at base_log 8")
+    limb_before = kernels.keyswitch.limb_launches
+    off_key = kernels.keyswitch_key(off[1], 8, 2)
+    errs[f"k1_limb_rows_wrapper_bl8_l2_b{CHECK_BATCH}"] = max_abs_err(
+        kernels.keyswitch(off[0], off_key, 8, 2), server.keyswitch(*off))
+    if kernels.keyswitch.limb_launches != limb_before + 1:
+        raise RuntimeError("K1 did not take its limb-row kernel at base_log 8")
 
     # K1-32 at both KS32 shapes, and phase 25's plain comparisons
     errs.update(atomic_run["errs"])
@@ -5362,6 +5641,7 @@ def main() -> None:
                          for suffix, key in PARAM_SETS_RUNS},
           "research_primitives": {t: rp_run["line"][t]["launches"] for t in RESEARCH_STEPS}})
     ks_paths, ks_imma_paths = path_launches("keyswitch"), path_launches("keyswitch_imma")
+    ks_limb_paths = path_launches("keyswitch_limbs")
     br_paths, lazy_paths = path_launches("blind_rotate"), path_launches("blind_rotate_exact_lazy")
     mb_paths, k5_paths = path_launches("blind_rotate_multibit"), path_launches("blind_rotate128")
     # K2's launches in v7 mode on the hlapi paths (the OPRF's and the casts'
@@ -5375,7 +5655,8 @@ def main() -> None:
         {"name": "keyswitch", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/ops/server.py:84",
-         "kernel": "keyswitch_imma_kernel (int8 tensor cores; keyswitch_kernel elsewhere)",
+         "kernel": "keyswitch_imma_kernel (int8 tensor cores; keyswitch_limbs_kernel at the "
+                   "wide-digit shapes, keyswitch_kernel elsewhere)",
          "launches": (launches["keyswitch"] + mb_launches["keyswitch"]
                       + sq_launches["keyswitch"] + sum(ks_paths.values())),
          "launches_by_path": {
@@ -5407,9 +5688,11 @@ def main() -> None:
                          for tag, fig in cast_figs.items()},
          "cast_launches": {k: pke_run["line"]["launches"][k]["keyswitch"]
                            for k in ("cast_small_b64", "cast_small_full", "cast_big_b32")},
-         "generic_launches_by_path": {path: ks_paths[path] - ks_imma_paths[path]
-                                      for path in ks_paths if ks_paths[path]
-                                      != ks_imma_paths[path]}},
+         "limb_row_launches_by_path": {path: n for path, n in ks_limb_paths.items() if n},
+         "generic_launches_by_path": {
+             path: ks_paths[path] - ks_imma_paths[path] - ks_limb_paths[path]
+             for path in ks_paths
+             if ks_paths[path] != ks_imma_paths[path] + ks_limb_paths[path]}},
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_mxu.py:1289",
@@ -5588,10 +5871,22 @@ def main() -> None:
          "bound_bytes_ms": k2_step_bound["bytes_ms"],
          "shape": [BATCH, 1, p.glwe_dimension + 1, p.polynomial_size]},
     ]
-    # K6, K1 at the PFPKS shape, K2's CMux entry (phases 27-29)
-    pfpks_paths = {path: s13_launches("keyswitch", ("wopbs", "aes"))[path]
-                   - s13_launches("keyswitch_imma", ("wopbs", "aes"))[path]
-                   for path in ("wopbs", "aes")}
+    # K6, K1 at the PFPKS shape, K2's CMux entry (phases 27-29); K1's
+    # limb-row kernel runs the PFPKS (wopbs, aes) and the cast to big
+    # (compact_pke)
+    limb_paths = {**s13_launches("keyswitch_limbs", ("wopbs", "aes")),
+                  "compact_pke": pke_run["line"]["launches"]["cast_big_b32"]["keyswitch_limbs"]}
+    generic_limb_paths = {
+        path: generic_keyswitches(runs)
+        for path, runs in (("wopbs", {c: s13_launches(c, ("wopbs",))["wopbs"] for c in (
+                               "keyswitch", "keyswitch_imma", "keyswitch_limbs")}),
+                           ("aes", {c: s13_launches(c, ("aes",))["aes"] for c in (
+                               "keyswitch", "keyswitch_imma", "keyswitch_limbs")}),
+                           ("compact_pke", pke_run["line"]["launches"]["cast_big_b32"]))}
+    if any(generic_limb_paths.values()):
+        raise RuntimeError(f"a generic K1 launch on wopbs, aes or the cast to big: "
+                           f"{generic_limb_paths}")
+    cast_big = cast_figs["big_b32"]
     table += [
         {"name": "packing_keyswitch128", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/packing_keyswitch128.cu",
@@ -5616,17 +5911,31 @@ def main() -> None:
         {"name": "keyswitch_pfpks", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "tfhe_tpu/shortint/wopbs.py:108",
-         "kernel": (f"keyswitch_kernel ({wop_l['pfpks_kernel']}: 20-bit digits, "
-                    "(k+1)^2 N output columns, row n negated)"),
-         "launches": sum(pfpks_paths.values()), "launches_by_path": pfpks_paths,
-         "max_abs_err": errs["pfpks_k1"],
-         "ms": s13["pfpks"]["ms"], "plain_ms": s13["pfpks"]["plain_ms"],
+         "also_replaces": "tfhe_tpu/ops/server.py:84 (the compact list's cast to big)",
+         "kernel": (f"keyswitch_limbs_kernel after keyswitch_limb_rows_kernel "
+                    f"({wop_l['pfpks_kernel']}: 20-bit digits as "
+                    f"{s13['pfpks']['limbs_a_digit']} balanced byte limbs on rows, int8 tensor "
+                    f"cores, (k+1)^2 N output columns, row n negated)"),
+         "launches": sum(limb_paths.values()), "launches_by_path": limb_paths,
+         "generic_launches_by_path": generic_limb_paths,
+         "max_abs_err": max(v for k, v in errs.items()
+                            if k.startswith(("pfpks_k1", "k1_cast_big"))),
+         "words_differing": {k: v for k, v in errs.items()
+                             if k.startswith(("pfpks_k1", "k1_cast_big"))},
+         **{k: s13["pfpks"][k] for k in LIMB_TIMES},
+         "splits": s13["pfpks"]["splits"],
+         "plain_ms": s13["pfpks"]["plain_ms"],
          "bound_ms": s13["pfpks"]["bound"]["ms"], "bound_by": s13["pfpks"]["bound"]["by"],
          "bound_bytes_ms": s13["pfpks"]["bound"]["bytes_ms"],
-         "library_ms": None,
-         "library_call": "none: torch has no int64 matmul on CUDA",
+         "library_ms": s13["pfpks"]["library_ms"], "library_call": s13["pfpks"]["library_call"],
+         "library_words_differing": s13["pfpks"]["library_words_differing"],
          "shape": s13["pfpks"]["shape"],
-         "registers": ptxas_of(ptxas_kernels, "keyswitch_kernel").get("registers")},
+         "cast_big": {k: cast_big[k] for k in LIMB_TIMES + (
+             "splits", "plain_ms", "library_ms", "library_call", "library_words_differing",
+             "bound_ms", "bound_by", "share_of_bound", "limbs_a_digit", "shape")},
+         **ptxas_of(ptxas_kernels, "keyswitch_limbs_kernel"),
+         "limb_rows_kernel": ptxas_of(ptxas_kernels, "keyswitch_limb_rows_kernel"),
+         "generic_kernel": ptxas_of(ptxas_kernels, "keyswitch_kernel")},
         {"name": "cmux", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/shortint/wopbs.py:212",
@@ -5656,7 +5965,8 @@ def main() -> None:
     by_name["keyswitch"]["launches_by_path"].update(ks_paths13)
     by_name["keyswitch"]["tensor_core_launches_by_path"].update(ks_imma)
     by_name["keyswitch"]["generic_launches_by_path"]["test_vectors"] = (
-        ks_paths13["test_vectors"] - ks_imma["test_vectors"])
+        ks_paths13["test_vectors"] - ks_imma["test_vectors"]
+        - s13_launches("keyswitch_limbs")["test_vectors"])
     by_name["keyswitch"]["launches"] += sum(ks_paths13.values())
     lazy_tv = s13_launches("blind_rotate_exact_lazy")["test_vectors"]
     by_name["blind_rotate_exact"].setdefault("generic_launches_by_path", {}).update(

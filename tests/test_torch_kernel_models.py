@@ -30,19 +30,32 @@ residues, against tfhe_tpu's blind_rotate_multibit; the routes of the
 four sets that first ran on the card in phase 32.  K6's tensor-core
 kernel: balanced byte limbs of d and of -d (the negacyclic wrap) times the
 key's byte limbs, the pairs a + b <= 15 summed in s32 at shift 8 (a + b)
-and folded into u128 words on its flush schedule.  The kernels' own shape
+and folded into u128 words on its flush schedule.  K1's limb-row kernel
+(csrc/keyswitch.cu keyswitch_limbs_kernel): 64-bit digits cut into T
+balanced byte limbs on rows (b, t), s32 sums by slice, the fold at 2^(8 (t
++ j)), against tfhe_tpu's _pfpks at the TEST WoPBS shape and its
+keyswitch at the cast's base 2^24; the s32 guard; the routes of every
+keyswitch shape chip_smoke.py meets.  K7's cluster kernel
+(csrc/glwe_keyswitch.cu): each prime's lazy transforms and product in its
+own block, Garner on quarters, against tfhe_tpu's glwe_keyswitch and
+glwe_fast_keyswitch.  The kernels' own shape
 predicates (csrc/keyswitch.cu imma_shape, csrc/blind_rotate.cu
 exact_lazy_shape) live in the CUDA sources; chip_smoke.py holds them
 against the same sets on the card."""
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from tfhe_tpu.core import experimental as ref_exp
 from tfhe_tpu.ops import ntt as ref_ntt
 from tfhe_tpu.ops import server as ref_srv
+from tfhe_tpu.shortint import wopbs as ref_wopbs
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import kernels, ntt, server, torus
 
@@ -53,9 +66,9 @@ PARAM_SETS = [v for k, v in vars(shortint.params).items()
               if isinstance(v, (shortint.params.ShortintParams,
                                 shortint.params.MultiBitPBSParameters))]
 KS_PAIRS = sorted({(p.ks_base_log, p.ks_level) for p in PARAM_SETS})
-# K1's tensor-core kernel's digit positions a chunk and limb columns a
-# block (csrc/keyswitch.cu IM_KC, IM_BN)
-IM_KC, IM_BN = 128, 256
+# K1's tensor-core kernel's digit positions a chunk, limb columns and
+# batch rows a block (csrc/keyswitch.cu IM_KC, IM_BN, IM_BM)
+IM_KC, IM_BN, IM_BM = 128, 256, 128
 
 
 def _i64(a) -> torch.Tensor:
@@ -1398,3 +1411,334 @@ def test_k6_key_byte_layout_round_trips():
         assert (limbs[:, :, :, b].numpy() == want).all()
     assert torch.equal(kernels.packing_keyswitch128_key_words(limbs), words)
     assert kernels.packing_keyswitch128_key(words) is words     # the CPU keeps the words
+
+
+# ---------------------------------------------------------------------------
+# K1's limb-row kernel (csrc/keyswitch.cu keyswitch_limbs_kernel): digits
+# wider than s8 (the WoPBS PFPKS, base 2^20 x 2; the cast to the big key,
+# base 2^24 x 1) decomposed from the whole u64 word, each cut into T
+# balanced byte limbs put on rows (b, t) of the s8 operand, the key's byte
+# layout read once, s32 sums by slice of chunks, each row's word sum times
+# 2^(8t) and a ciphertext's T rows added into its output word
+# ---------------------------------------------------------------------------
+
+
+def _full_digits(words, base_log, levels):
+    """keyswitch.cu decomposer_state / next_digit on whole u64 words: the
+    signed digits (levels, ...) lowest level first, in 64-bit arithmetic
+    (base_log l may pass 30)."""
+    rep = base_log * levels
+    one = np.uint64(1)
+    res = np.asarray(words, dtype=np.uint64) >> np.uint64(64 - rep - 1)
+    rounding_bit = res & one
+    with np.errstate(over="ignore"):
+        res = ((res + one) >> one) & np.uint64((1 << rep) - 1)
+        nb = (((res - one) | (rounding_bit << np.uint64(rep - 1))) & res) >> np.uint64(rep - 1)
+        state = (res - (nb << np.uint64(rep))).view(np.int64)
+    digits = []
+    for _ in range(levels):
+        r = state & ((1 << base_log) - 1)
+        state = state >> base_log
+        carry = (((r - 1) | state) & r) >> (base_log - 1)
+        state = state + carry
+        digits.append(r - (carry << base_log))
+    return np.stack(digits)
+
+
+def _balanced_limbs(d, limbs):
+    """The T balanced byte limbs of signed digits: d = sum_t 2^(8t) e_t,
+    e_t in [-128, 127] (keyswitch_limb_rows_kernel)."""
+    out, x = [], np.asarray(d, dtype=np.int64)
+    for _ in range(limbs):
+        e = ((x + 128) & 255) - 128
+        x = (x - e) >> 8
+        out.append(e)
+    assert (x == 0).all()
+    return np.stack(out)
+
+
+def _k1_route(n_in, levels, base_log):
+    """csrc/keyswitch.cu's routing, as the test's copy: "imma" where
+    imma_shape holds, ("limbs", T) where limb_shape holds, else
+    "generic"."""
+    if _limb_guard(n_in, levels, base_log):
+        return "imma"
+    if (1 <= base_log <= 31 and 1 <= levels <= 8 and base_log * levels < 64
+            and n_in * levels * 128 * 255 < 1 << 31):
+        return ("limbs", (base_log + 8) // 8)
+    return "generic"
+
+
+def _limb_row_keyswitch(ct, ksk, base_log, levels, splits=1, order=range):
+    """The limb-row kernel's function on numpy u64 inputs: the limb rows
+    of a (row blocks 128, chunks, 128) s8 scratch (row (b, t) = block b //
+    (128 // T), row (b mod (128 // T)) T + t), the key's byte layout from
+    kernels.keyswitch_key_limbs, s32 sums over each slice of chunks
+    (checked), each row's word sum_j 2^(8j) S times 2^(8t), a ciphertext's
+    rows added, the slices added into zeros in the given order, slice 0
+    with the body.  Returns (output, the largest |s32| sum, slices)."""
+    b = ct.shape[0]
+    n_in, _, m_out = ksk.shape
+    t_limbs = (base_log + 8) // 8
+    per = IM_BM // t_limbs
+    key = kernels.keyswitch_key_limbs(torus.from_u64(ksk, "cpu"), levels, IM_KC,
+                                      IM_BN).numpy()
+    chunks, cols, width = key.shape
+    coef = width // levels
+    limbs = _balanced_limbs(_full_digits(ct[:, :-1], base_log, levels), t_limbs)  # (T, l, B, n)
+    rows = np.array([(i // per) * IM_BM + (i % per) * t_limbs + t
+                     for i in range(b) for t in range(t_limbs)])
+    tiles = np.zeros((b * t_limbs, chunks * coef, levels), dtype=np.int64)
+    tiles[:, :n_in] = limbs.transpose(2, 0, 3, 1).reshape(b * t_limbs, n_in, levels)
+    tiles = tiles.reshape(b * t_limbs, chunks, coef * levels)
+    assert (tiles.astype(np.int8) == tiles).all() and rows.max() < -(-b // per) * IM_BM
+    span = -(-chunks // splits)
+    slices = [range(c0, min(chunks, c0 + span)) for c0 in range(0, chunks, span)]
+    out = np.zeros((b, m_out), dtype=np.uint64)
+    peak = 0
+    for z in order(len(slices)):
+        sums = np.zeros((b * t_limbs, cols), dtype=np.int64)
+        for c in slices[z]:
+            sums += tiles[:, c] @ key[c, :, :coef * levels].astype(np.int64).T
+            peak = max(peak, int(np.abs(sums).max()))
+        assert peak < 1 << 31
+        with np.errstate(over="ignore"):
+            part = np.zeros((b * t_limbs, m_out), dtype=np.uint64)
+            for j in range(8):
+                part += sums[:, j:8 * m_out:8].astype(np.uint64) << np.uint64(8 * j)
+            shifted = part << np.uint64(8) * (rows % t_limbs).astype(np.uint64)[:, None]
+            word = shifted.reshape(b, t_limbs, m_out).sum(axis=1, dtype=np.uint64)
+            add = np.zeros((b, m_out), dtype=np.uint64) - word
+            if z == 0:
+                add[:, -1] += ct[:, -1]
+            out += add
+    return out, peak, len(slices)
+
+
+@pytest.fixture(scope="module")
+def pfpks_case():
+    """A random PFPKS key at the TEST WoPBS shape (k+1 = 2, N = 512, n+1 =
+    513 rows, base 2^20 x 2) in both packages' forms: the port's words
+    (n+1, l, (k+1)^2 N) with row n negated (WopbsKey._init_key) and
+    tfhe_tpu's k+1 Montgomery NTT-domain rows, with its _pfpks compiled."""
+    rng = np.random.default_rng(191)
+    prm = ref_wopbs.TEST_WOPBS_PARAM
+    k1, n_poly, n1 = 2, 512, 513
+    rows = rng.integers(0, 1 << 64, (k1, n1, prm.pfks_level, k1, n_poly), dtype=np.uint64)
+    words = np.ascontiguousarray(rows.transpose(1, 2, 0, 3, 4)).reshape(n1, prm.pfks_level, -1)
+    with np.errstate(over="ignore"):
+        words[-1] = np.uint64(0) - words[-1]
+    plan = ntt.make_plan(n_poly, 4)
+    with np.errstate(over="ignore"):
+        ref_keys = tuple(jnp.asarray(ntt.to_mont_all(ntt.forward_all(rows[r], plan), plan)
+                                     .astype(np.uint32)) for r in range(k1))
+    ref_wk = ref_wopbs.WopbsKey.__new__(ref_wopbs.WopbsKey)
+    ref_wk.params, ref_wk.plan = prm, ref_ntt.make_plan(n_poly, 4)
+
+    def pfpks(keys_, lwe, r):
+        obj = copy.copy(ref_wk)
+        obj.pfpksk = list(keys_)
+        return ref_wopbs.WopbsKey._pfpks(obj, lwe, r)
+
+    compiled = jax.jit(pfpks, static_argnums=2)
+    lwes = rng.integers(0, 1 << 64, (3, n1), dtype=np.uint64)
+    lwes[0, :3] = (1 << 63, (1 << 63) + (1 << 43), (1 << 64) - (1 << 43))
+    return words, lambda lwe, r: np.asarray(compiled(ref_keys, jnp.asarray(lwe), r)), lwes, prm
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_limb_row_pfpks_matches_tfhe_tpu(pfpks_case, b):
+    """K1's limb-row model on (LWE, 0) against tfhe_tpu's _pfpks at the
+    TEST WoPBS shape: every output row r of every LWE, word for word (one
+    row block of 42 ciphertexts, T = 3, 9 chunks, cut into 4 slices summed
+    in reverse)."""
+    words, ref_pfpks, lwes, prm = pfpks_case
+    ext = np.concatenate([lwes[:b], np.zeros((b, 1), dtype=np.uint64)], axis=1)
+    got, peak, made = _limb_row_keyswitch(ext, words, prm.pfks_base_log, prm.pfks_level,
+                                          splits=4, order=lambda k: reversed(range(k)))
+    assert made == 3 and peak < 1 << 31
+    got = got.reshape(b, 2, 2, 512)
+    for i in range(b):
+        for r in range(2):
+            assert (got[i, r] == ref_pfpks(lwes[i], r)).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_limb_row_cast_matches_tfhe_tpu(splits):
+    """The cast to the big key's decomposition (base 2^24, one level: T =
+    4, 32 ciphertexts a row block) at n_in cut to 300 (3 chunks), B = 37
+    (two row blocks), 70 output words, the slices summed in a random
+    order: tfhe_tpu's keyswitch words; its 64-bit digits are tfhe_tpu's
+    signed decomposition."""
+    rng = np.random.default_rng(240 + splits)
+    base_log, levels, b, n_in, m_out = 24, 1, 37, 300, 70
+    ct = rng.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64)
+    ct[0, :3] = (1 << 63, (1 << 64) - (1 << 39), 1 << 39)
+    ksk = rng.integers(0, 1 << 64, (n_in, levels, m_out), dtype=np.uint64)
+    want = np.asarray(ref_srv.keyswitch(jnp.asarray(ct), jnp.asarray(ksk), base_log, levels))
+    got, _, made = _limb_row_keyswitch(ct, ksk, base_log, levels, splits,
+                                       lambda k: rng.permutation(k))
+    assert made == min(splits, 3)
+    assert (got == want).all()
+    ref_digits = np.asarray(ref_srv.signed_decompose(jnp.asarray(ct[:, :-1]), base_log, levels))
+    assert (_full_digits(ct[:, :-1], base_log, levels).astype(np.uint64) == ref_digits).all()
+
+
+def test_limb_row_s32_guard_at_the_extreme_digit():
+    """At every base_log of the limb route (1 .. 31) the extreme digits
+    +-2^(base_log-1) fit T = ceil((base_log+1) / 8) balanced s8 limbs;
+    the digit +2^23 of the word 2^63 at base 2^24 is (0, 0, -128, 1); with
+    every input word 2^63 and every key byte 255 the model's largest sum
+    is exactly n_in 128 255 (the limb -128's row), under the route's bound
+    n_in l 128 255 < 2^31 at the cast's n_in = 2048, and the words are
+    tfhe_tpu's."""
+    for base_log in range(1, 32):
+        t_limbs = (base_log + 8) // 8
+        ext = np.array([1 << (base_log - 1), -(1 << (base_log - 1))])
+        limbs = _balanced_limbs(ext, t_limbs)
+        assert limbs.shape[0] == t_limbs and (np.abs(limbs) <= 128).all()
+        assert ((limbs[-1] >= -128) & (limbs[-1] <= 127)).all()
+    base_log, levels, n_in = 24, 1, 2048
+    assert (_full_digits(np.array([1 << 63], dtype=np.uint64), base_log, levels)
+            == 1 << 23).all()
+    assert (_balanced_limbs(np.array([1 << 23]), 4)[:, 0] == (0, 0, -128, 1)).all()
+    assert _k1_route(n_in, levels, base_log) == ("limbs", 4)
+    assert n_in * levels * 128 * 255 < 1 << 31
+    n_small = 140
+    ct = np.full((2, n_small + 1), 1 << 63, dtype=np.uint64)
+    ksk = np.full((n_small, levels, 3), (1 << 64) - 1, dtype=np.uint64)
+    got, peak, _ = _limb_row_keyswitch(ct, ksk, base_log, levels)
+    assert peak == n_small * 128 * 255
+    want = np.asarray(ref_srv.keyswitch(jnp.asarray(ct), jnp.asarray(ksk), base_log, levels))
+    assert (got == want).all()
+    assert not _k1_route(65794, 1, 24) == ("limbs", 4)      # past the s32 guard
+
+
+# (n_in, l, base_log) of every keyswitch kernels.keyswitch meets in
+# chip_smoke.py's phases, by where it comes from, and its route
+K1_PHASE_SHAPES = {
+    "wopbs PFPKS (TEST_WOPBS_PARAM, (k N + 1) rows)": ((513, 2, 20), ("limbs", 3)),
+    "cast to big (V1_4 PKE to big, ZKV2)": ((2048, 1, 24), ("limbs", 4)),
+    "cast to small (V1_4 PKE to small)": ((2048, 4, 4), "imma"),
+    "test vectors toy_params": ((256, 1, 37), "generic"),
+    "test vectors valid_params_128": ((2048, 5, 3), "imma"),
+    "shrinking keyswitch tail (2_2)": ((1130, 4, 4), "imma"),
+    "CM keyswitch (2_2, C = 3)": ((2048, 4, 4), "imma"),
+}
+
+
+def test_k1_routes_at_the_phase_shapes():
+    """The route of K1 at every keyswitch shape of chip_smoke.py's phases:
+    every set of shortint/params.py (its own n_in, imma), the PFPKS and the
+    cast to big on the limb-row kernel (T = 3 and 4, one row block at B =
+    40 and 32), the test vectors' base 2^37 on the generic kernel; the
+    wrapper's rows and splits there (kernels.limb_rows,
+    keyswitch_limb_splits on 132 SMs: 64 column blocks x 9 chunks and 65 x
+    16 -> 2 slices, one wave; two row blocks -> whole)."""
+    for p in PARAM_SETS:
+        assert _k1_route(p.big_lwe_dimension, p.ks_level, p.ks_base_log) == "imma", p
+    for what, (shape, route) in K1_PHASE_SHAPES.items():
+        assert _k1_route(*shape) == route, what
+    from tfhe_tpu_torch.shortint.params import (
+        V1_4_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128_ZKV2 as to_big)
+    assert (to_big.ks_level, to_big.ks_base_log) == (1, 24)
+    from tfhe_tpu_torch.shortint import wopbs as port_wopbs
+    prm = port_wopbs.TEST_WOPBS_PARAM
+    assert (prm.pfks_level, prm.pfks_base_log) == (2, 20)
+    assert kernels.limb_rows(40, 3) == IM_BM and kernels.limb_rows(32, 4) == IM_BM
+    assert kernels.limb_rows(43, 3) == 2 * IM_BM and kernels.limb_rows(1, 4) == IM_BM
+    assert kernels.keyswitch_limb_splits(64, 9, 132) == 2
+    assert kernels.keyswitch_limb_splits(65, 16, 132) == 2
+    assert kernels.keyswitch_limb_splits(128, 9, 132) == 1
+    assert kernels.keyswitch_limb_splits(8, 3, 132) == 1       # a slice keeps 2 chunks
+    assert kernels.keyswitch_limb_splits(8, 40, 132) == 16
+
+
+# ---------------------------------------------------------------------------
+# K7's cluster kernel (csrc/glwe_keyswitch.cu glwe_keyswitch_cluster_kernel):
+# block p of a GLWE's cluster holds prime p; each mask word decomposed once,
+# residues d + 2p through lazy forward stages, the key product reduced once
+# in four, lazy inverse stages, N^-1; then Garner on each quarter of the
+# words from the four primes' residues
+# ---------------------------------------------------------------------------
+
+
+K7_N = 256                      # tfhe_tpu's TEST_VECTOR_TOY_PARAMS polynomial size
+REF_FAST_KS = jax.jit(ref_exp.glwe_fast_keyswitch, static_argnums=(2, 3, 4))
+
+
+def _k7_cluster(glwe, key, dp, base_log, levels, add_sum):
+    """The cluster kernel's function on numpy inputs: glwe (B, k_in+1, N)
+    u64, key (k_in, l, k_out+1, P, N) u32 Montgomery NTT domain."""
+    b, kin1, n = glwe.shape
+    k_in, _, kout1, nprimes, _ = key.shape
+    plan = ref_ntt.make_plan(n, nprimes)
+    fwd, inv = (t.numpy().view(np.uint32).astype(np.uint64) for t in ntt.shoup_twiddles(dp))
+    digits = _full_digits(glwe[:, :-1], base_log, levels)                 # (l, B, k_in, N)
+    rows = digits.transpose(1, 2, 0, 3).reshape(b, k_in * levels, n)      # row i l + lev
+    nrows = k_in * levels
+    per_prime = []
+    for pi, p in enumerate(plan.primes):
+        pp, p64 = plan.plans[pi], np.uint64(p)
+        pinv = np.uint64(pp.p_inv_neg32)
+        res = (rows + 2 * int(p)).astype(np.uint64)                       # lazy_digit_residue
+        assert (res < 4 * p64).all()
+        x = _reduce_to(_reduce_to(_lazy_forward(res, fwd[pi, :, 0], fwd[pi, :, 1], p64),
+                                  2 * p64), p64)
+        k = key[:, :, :, pi].astype(np.uint64).reshape(nrows, kout1, n)
+        o = np.zeros((b, kout1, n), dtype=np.uint64)
+        for cc in range(kout1):
+            acc = np.zeros((b, n), dtype=np.uint64)
+            for r in range(nrows):
+                acc += x[:, r] * k[r, cc]
+                if r % 4 == 3 or r == nrows - 1:
+                    assert (acc < p64 << np.uint64(32)).all()
+                    o[:, cc] = _reduce_to(o[:, cc] + _redc_lazy(acc, p64, pinv), 2 * p64)
+                    acc[:] = 0
+        z = _reduce_to(_lazy_inverse(o, inv[pi, :, 0], inv[pi, :, 1], p64), p64)
+        y = ref_ntt.mont_mul(z, pp.n_inv_mont, p64, pp.p_inv_neg32, np)
+        per_prime.append(np.asarray(y).reshape(b, kout1 * n))
+    quarter = kout1 * n // 4
+    out = np.empty((b, kout1 * n), dtype=np.uint64)
+    for rank in range(4):
+        at = slice(rank * quarter, (rank + 1) * quarter)
+        exchanged = np.stack([per_prime[pi][:, at] for pi in range(4)], axis=1)
+        word = torus.to_u64(ntt.garner_to_u64(_i64(exchanged), dp))
+        with np.errstate(over="ignore"):
+            out[:, at] = word if add_sum else np.uint64(0) - word
+    out = out.reshape(b, kout1, n)
+    with np.errstate(over="ignore"):
+        out[:, -1] += glwe[:, -1]
+    return out
+
+
+@pytest.fixture(scope="module")
+def k7_case():
+    rng = np.random.default_rng(77)
+    plan = ref_ntt.make_plan(K7_N, 4)
+    dp = ntt.device_plan(ntt.make_plan(K7_N, 4), "cpu")
+    return rng, plan, dp
+
+
+@pytest.mark.parametrize("tag,k_in,add_sum", [("glwe_keyswitch", 1, False),
+                                              ("fast_keyswitch", 2, True)])
+def test_k7_cluster_model_matches_tfhe_tpu(k7_case, tag, k_in, add_sum):
+    """The cluster kernel's per-prime split and Garner on quarters at the
+    toy set's N = 256, base 2^8 x 4 (K7's research decomposition), random
+    Montgomery keys of k_in l = 4 and 8 rows, k_out+1 = 2, B = 3:
+    tfhe_tpu's glwe_keyswitch and glwe_fast_keyswitch words, and the plain
+    version's (kernels.glwe_keyswitch on the CPU)."""
+    rng, plan, dp = k7_case
+    base_log, levels, kout1, b = 8, 4, 2, 3
+    key = np.stack([rng.integers(0, p, (k_in, levels, kout1, K7_N), dtype=np.uint64)
+                    for p in plan.primes], axis=-2).astype(np.uint32)
+    glwe = rng.integers(0, 1 << 64, (b, k_in + 1, K7_N), dtype=np.uint64)
+    glwe[0, 0, :3] = (1 << 63, (1 << 63) - (1 << 31), (1 << 64) - (1 << 32))
+    got = _k7_cluster(glwe, key, dp, base_log, levels, add_sum)
+    ref_fn = REF_FAST_KS if add_sum else ref_srv.glwe_keyswitch
+    want = np.asarray(ref_fn(jnp.asarray(glwe), jnp.asarray(key), plan, base_log, levels))
+    assert (got == want).all()
+    plain = kernels.glwe_keyswitch(torus.from_u64(glwe, "cpu"),
+                                   torch.from_numpy(key.view(np.int32)), dp, base_log, levels,
+                                   add_sum)
+    assert (torus.to_u64(plain) == got).all()

@@ -49,9 +49,28 @@
 // (0.2977 before) and K1-32 at V1_4 KS32 0.1433 ms (0.3825), NVIDIA H100
 // 80GB HBM3, 700 W.
 //
-// Generic kernel (keyswitch_kernel), every other shape: a block owns a TB x
-// TC output tile and walks the K axis in chunks of whole input
-// coefficients, decomposing each chunk's digits once into shared memory
+// Limb-row kernel (keyswitch_limbs_kernel), for the u64 keyswitches the
+// tensor-core kernel refuses whose digits fit four balanced bytes
+// (limb_shape: base_log <= 31, l <= 8, limb sums exact in s32): the WoPBS
+// PFPKS (base 2^20 x 2, n_in = 513, 2048 columns, B = 40) and the compact
+// list's cast to the big key (base 2^24 x 1, n_in = 2048, B = 32).  There
+// the generic kernel ran 64 and 33 blocks on the CUDA cores' u64
+// multiply-adds (68 % and 51 % of its cycles), 0.153 and 0.385 ms.  Each
+// signed digit, decomposed from the whole word once (base_log l passes 30
+// at the PFPKS), is cut into T = ceil((base_log + 1) / 8) balanced s8
+// limbs, d = sum_t 2^(8t) e_t, and limb t of ciphertext b becomes row (b,
+// t) of the digit operand (128 / T ciphertexts a row block: B = 40 and 32
+// are one row block each), so the key's byte layout is read once and the
+// same mma.sync main loop as the tensor-core kernel's gives every
+// S[(b, t), (w, j)] in s32; the epilogue stages those sums in shared
+// memory and folds sum_t sum_j 2^(8 (t + j)) S into each word.  The
+// contraction is split as the tensor-core kernel's (at least 2 chunks a
+// slice); the digits kernel (keyswitch_limb_rows_kernel) zeroes the output
+// first.
+//
+// Generic kernel (keyswitch_kernel), every other shape (the test vectors'
+// base 2^37; K1-32's u32 twin): a block owns a TB x TC output tile and
+// walks the K axis in chunks of whole input coefficients, decomposing each chunk's digits once into shared memory
 // and staging the key tile there; each thread keeps 8 u64 accumulators of
 // one output column in registers, multiply-adds on the CUDA cores.  Digits
 // are 32-bit up to base_log 31; above it (the test vectors' toy set, base
@@ -221,6 +240,22 @@ __host__ __device__ constexpr bool imma_shape(int n_in, int levels, int base_log
          (long long)n_in * levels * (1ll << (base_log - 1)) * 255 < (1ll << 31);
 }
 
+// The limb-row kernel's shape (keyswitch_limbs_kernel): every u64
+// keyswitch the tensor-core kernel refuses whose signed digits
+// |d| <= 2^(base_log-1) fit T = limb_count(base_log) <= 4 balanced s8 limbs
+// (base_log <= 31), 1 <= l <= 8 (128 / l whole coefficients a chunk), and
+// whose limb sums stay exact in s32 with every limb at -128 and every key
+// byte 255 (n_in l 128 255 < 2^31: 3.4e7 at the PFPKS, 6.7e7 at the cast).
+// ops/kernels.py chooses by it (tfhe_torch_keyswitch_limb_shape), after
+// imma_shape.
+__host__ __device__ constexpr int limb_count(int base_log) { return (base_log + 8) / 8; }
+
+__host__ __device__ constexpr bool limb_shape(int n_in, int levels, int base_log) {
+  return !imma_shape(n_in, levels, base_log) && base_log >= 1 && base_log <= 31 &&
+         levels >= 1 && levels <= 8 && base_log * levels < 64 && n_in >= 1 &&
+         (long long)n_in * levels * 128 * 255 < (1ll << 31);
+}
+
 // The byte offset of digit position k of row r in a tile of 128-byte rows,
 // its 16-byte unit swizzled by the row's low 3 bits.
 __device__ __forceinline__ int swz(int r, int k) {
@@ -252,19 +287,56 @@ keyswitch_digits_kernel(signed char* __restrict__ dig, const u64* __restrict__ c
   dig[q] = (signed char)d;
 }
 
-// The tensor-core kernel's body at WB limbs a key word: 8 (K1) or 4 (K1-32,
-// mod 2^32; the body ct >> 32).
-template <int WB>
-__device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
-                                                    const u64* __restrict__ ct,
-                                                    const uint4* __restrict__ key,
-                                                    const uint4* __restrict__ dig,
-                                                    int batch, int n_in, int m_out,
-                                                    int n_chunks, int key_cols,
-                                                    int chunks_per_split) {
-  extern __shared__ uint4 im_smem[];
-  unsigned char* key_s = (unsigned char*)im_smem;                    // (STAGES, BN, KC)
-  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (STAGES, BM, KC)
+// The limb rows of the limb-row kernel, once a keyswitch: dig (row_blocks
+// IM_BM, n_chunks, IM_KC) s8.  Row r = cb T + t of row block rb (cb <
+// IM_BM / T) holds at chunk c, byte slot l + lev, limb t of the balanced
+// byte limbs d = sum_t 2^(8t) e_t, e_t in [-128, 127], of the level-lev
+// signed digit of input coefficient c (128 / l) + slot of ciphertext
+// rb (IM_BM / T) + cb, decomposed from the whole u64 word (base_log l may
+// pass 30: 40 at the PFPKS); 0 past n_in, past the chunk's whole
+// coefficients, past the batch and in the IM_BM mod T rows a block leaves.
+// Threads below zero_words first zero that many words of out, which a
+// split contraction adds its slices into.
+__global__ void __launch_bounds__(IM_DIGIT_THREADS)
+keyswitch_limb_rows_kernel(signed char* __restrict__ dig, u64* __restrict__ out,
+                           size_t zero_words, const u64* __restrict__ ct, int batch, int n_in,
+                           int levels, int base_log, int n_chunks, int limbs, size_t bytes) {
+  const size_t q = (size_t)blockIdx.x * IM_DIGIT_THREADS + threadIdx.x;
+  if (q < zero_words) out[q] = 0ull;
+  if (q >= bytes) return;
+  const int k = (int)(q % IM_KC);
+  const int c = (int)((q / IM_KC) % n_chunks);
+  const int row = (int)(q / ((size_t)IM_KC * n_chunks));
+  const int per = IM_BM / limbs;
+  const int cb = (row % IM_BM) / limbs;
+  const int t = (row % IM_BM) - cb * limbs;
+  const int b = (row / IM_BM) * per + cb;
+  const int slot = k / levels, lev = k % levels;
+  const int i = c * (IM_KC / levels) + slot;
+  int e = 0;
+  if (cb < per && b < batch && slot < IM_KC / levels && i < n_in) {
+    u64 state = decomposer_state(ct[(size_t)b * (n_in + 1) + i], base_log, levels);
+    long long d = 0;
+    for (int s = 0; s <= lev; ++s) d = next_digit(state, base_log);
+    int x = (int)d;                     // |d| <= 2^30
+    for (int s = 0; s <= t; ++s) {
+      e = ((x + 128) & 255) - 128;
+      x = (x - e) >> 8;
+    }
+  }
+  dig[q] = (signed char)e;
+}
+
+// The tensor-core kernels' main loop: block (blockIdx.x, blockIdx.y) of
+// IM_BM rows of the byte scratch dig and IM_BN limb columns of the key walks
+// chunks c0 .. c0 + n_slice - 1 and leaves warp (wm, wn)'s s32 sums in acc:
+// acc[mi][ni] the m16n8 tile of rows wm 32 + mi 16 .. and limb columns
+// wn 64 + ni 8 ...  Its tiles use all IM_SMEM bytes of im_smem.
+__device__ __forceinline__ void imma_main_loop(int (&acc)[2][8][4], unsigned char* key_s,
+                                               unsigned char* dig_s,
+                                               const uint4* __restrict__ key,
+                                               const uint4* __restrict__ dig, int n_chunks,
+                                               int key_cols, int c0, int n_slice) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -272,12 +344,6 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
   const int wn = warp >> 2;         // limb columns wn 64 .. +64
   const int n0 = blockIdx.x * IM_BN;
   const int m0 = blockIdx.y * IM_BM;
-  // this block's slice of the contraction: chunks c0 .. c0 + n_slice - 1
-  // (slice blockIdx.z; the slices' partial words are summed by atomics)
-  const int c0 = blockIdx.z * chunks_per_split;
-  const int n_slice = min(chunks_per_split, n_chunks - c0);
-  const bool split = gridDim.z > 1;
-  const size_t ct_stride = (size_t)n_in + 1;
 
   // chunk c's key tile (BN rows) and digit tile (the block's BM rows) into
   // stage s: rows of 128 bytes, 16-byte units swizzled by row
@@ -311,7 +377,6 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
     asm volatile("cp.async.commit_group;\n" ::);
   }
 
-  int acc[2][8][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -351,6 +416,36 @@ __device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
       }
     }
   }
+}
+
+// The tensor-core kernel's body at WB limbs a key word: 8 (K1) or 4 (K1-32,
+// mod 2^32; the body ct >> 32).
+template <int WB>
+__device__ __forceinline__ void keyswitch_imma_body(u64* __restrict__ out,
+                                                    const u64* __restrict__ ct,
+                                                    const uint4* __restrict__ key,
+                                                    const uint4* __restrict__ dig,
+                                                    int batch, int n_in, int m_out,
+                                                    int n_chunks, int key_cols,
+                                                    int chunks_per_split) {
+  extern __shared__ uint4 im_smem[];
+  unsigned char* key_s = (unsigned char*)im_smem;                    // (STAGES, BN, KC)
+  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;          // (STAGES, BM, KC)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const int n0 = blockIdx.x * IM_BN;
+  const int m0 = blockIdx.y * IM_BM;
+  // this block's slice of the contraction: chunks c0 .. c0 + n_slice - 1
+  // (slice blockIdx.z; the slices' partial words are summed by atomics)
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int n_slice = min(chunks_per_split, n_chunks - c0);
+  const bool split = gridDim.z > 1;
+  const size_t ct_stride = (size_t)n_in + 1;
+
+  int acc[2][8][4];
+  imma_main_loop(acc, key_s, dig_s, key, dig, n_chunks, key_cols, c0, n_slice);
 
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -432,6 +527,83 @@ keyswitch32_imma_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
                          chunks_per_split);
 }
 
+// K1's limb-row kernel: the tensor-core kernel's main loop on the limb
+// rows of keyswitch_limb_rows_kernel (row (cb, t) of a block the limbs t of
+// ciphertext cb's digits), then every s32 sum staged in shared memory over
+// the finished tiles, and each output word folded from its ciphertext's T
+// rows by one thread (with atomics where the contraction is split).  The
+// fold by quad shuffles of the tensor-core kernel's epilogue, each row's
+// word stored and then T of them added, took 14,000 cycles of a block's
+// 35,600 at the PFPKS (tools/phase_cycles.py k1g; NVIDIA H100 80GB HBM3,
+// 700 W).
+constexpr int LR_ROW = IM_BN + 8;   // ints a staged row: 135,168 B of the tiles' 196,608
+__global__ void __launch_bounds__(IM_THREADS, 1)
+keyswitch_limbs_kernel(u64* __restrict__ out, const u64* __restrict__ ct,
+                       const uint4* __restrict__ key, const uint4* __restrict__ dig, int batch,
+                       int n_in, int m_out, int n_chunks, int key_cols, int chunks_per_split,
+                       int limbs) {
+  extern __shared__ uint4 im_smem[];
+  unsigned char* key_s = (unsigned char*)im_smem;
+  unsigned char* dig_s = key_s + IM_STAGES * IM_BN * IM_KC;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int n_slice = min(chunks_per_split, n_chunks - c0);
+
+  int acc[2][8][4];
+  imma_main_loop(acc, key_s, dig_s, key, dig, n_chunks, key_cols, c0, n_slice);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();    // every warp is done with the tiles
+
+  // every s32 limb sum of the block into shared memory, rows padded to
+  // LR_ROW ints (a quad's 8-byte stores cover the 32 banks once a half warp)
+  int* sums = (int*)im_smem;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      int* at = sums + (wm * 32 + mi * 16 + g) * LR_ROW + wn * 64 + ni * 8 + 2 * t;
+      *(int2*)at = make_int2(acc[mi][ni][0], acc[mi][ni][1]);
+      *(int2*)(at + 8 * LR_ROW) = make_int2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+  __syncthreads();
+  // output word w of ciphertext cb: sum_t sum_j 2^(8 (t + j)) S[cb T + t][8 w + j]
+  // mod 2^64 (the pairs t + j >= 8 vanish)
+  const int per = IM_BM / limbs;
+  const bool split = gridDim.z > 1;
+  for (int q = tid; q < per * (IM_BN / 8); q += IM_THREADS) {
+    const int cb = q / (IM_BN / 8);
+    const int w = q - cb * (IM_BN / 8);
+    const int b = blockIdx.y * per + cb;
+    const int col = blockIdx.x * (IM_BN / 8) + w;
+    if (b >= batch || col >= m_out) continue;
+    u64 sum = 0ull;
+    for (int tt = 0; tt < limbs; ++tt) {
+      const int4* row = (const int4*)(sums + (cb * limbs + tt) * LR_ROW + 8 * w);
+      const int4 lo = row[0], hi = row[1];
+      const int s[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (tt + j < 8) sum += (u64)(long long)s[j] << (8 * (tt + j));
+      }
+    }
+    const u64 body = (col == m_out - 1 && blockIdx.z == 0)
+                         ? ct[(size_t)b * ((size_t)n_in + 1) + n_in] : 0ull;
+    u64* o = out + (size_t)b * m_out + col;
+    if (split) {
+      atomicAdd((unsigned long long*)o, body - sum);
+    } else {
+      *o = body - sum;
+    }
+  }
+}
+
 template <int WB>
 int launch_generic(void* out, const void* ct, const void* ksk, int batch, int n_in,
                    int levels, int m_out, int base_log, void* stream) {
@@ -469,8 +641,8 @@ int launch_imma(void* out, const void* ct, const void* key, void* digits, int ba
   const int per = (n_chunks + splits - 1) / splits;
   splits = (n_chunks + per - 1) / per;
   auto kernel = WB == 8 ? keyswitch_imma_kernel : keyswitch32_imma_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         IM_SMEM);
+  static std::atomic<unsigned> smem_set{0};   // one a WB instance
+  cudaError_t err = ntt_common::set_smem_once(kernel, IM_SMEM, false, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int rows_pad = (batch + IM_BM - 1) / IM_BM * IM_BM;
   const size_t bytes = (size_t)rows_pad * n_chunks * IM_KC;
@@ -483,6 +655,39 @@ int launch_imma(void* out, const void* ct, const void* key, void* digits, int ba
   kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
       (u64*)out, (const u64*)ct, (const uint4*)key, (const uint4*)digits, batch, n_in, m_out,
       n_chunks, key_cols, per);
+  return (int)cudaGetLastError();
+}
+
+int launch_limbs(void* out, const void* ct, const void* key, void* digits, int batch,
+                 int n_in, int levels, int m_out, int base_log, int n_chunks, int key_cols,
+                 int splits, void* stream) {
+  if (!limb_shape(n_in, levels, base_log) || batch < 1 || m_out < 1 ||
+      key_cols % IM_BN != 0 || key_cols < 8 * m_out ||
+      n_chunks != (n_in + IM_KC / levels - 1) / (IM_KC / levels) ||
+      ((uintptr_t)key & 15) != 0 || ((uintptr_t)digits & 15) != 0 || splits < 1 ||
+      splits > n_chunks) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int per = (n_chunks + splits - 1) / splits;
+  splits = (n_chunks + per - 1) / per;
+  static std::atomic<unsigned> smem_set{0};
+  cudaError_t err = ntt_common::set_smem_once(keyswitch_limbs_kernel, IM_SMEM, false, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int limbs = limb_count(base_log);
+  const int row_blocks = (batch + IM_BM / limbs - 1) / (IM_BM / limbs);
+  const size_t bytes = (size_t)row_blocks * IM_BM * n_chunks * IM_KC;
+  const size_t zero_words = splits > 1 ? (size_t)batch * m_out : 0;
+  const size_t threads = bytes > zero_words ? bytes : zero_words;
+  keyswitch_limb_rows_kernel<<<(unsigned)((threads + IM_DIGIT_THREADS - 1) / IM_DIGIT_THREADS),
+                               IM_DIGIT_THREADS, 0, (cudaStream_t)stream>>>(
+      (signed char*)digits, (u64*)out, zero_words, (const u64*)ct, batch, n_in, levels,
+      base_log, n_chunks, limbs, bytes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(key_cols / IM_BN, row_blocks, splits);
+  keyswitch_limbs_kernel<<<grid, IM_THREADS, IM_SMEM, (cudaStream_t)stream>>>(
+      (u64*)out, (const u64*)ct, (const uint4*)key, (const uint4*)digits, batch, n_in, m_out,
+      n_chunks, key_cols, per, limbs);
   return (int)cudaGetLastError();
 }
 
@@ -537,4 +742,24 @@ extern "C" int tfhe_torch_keyswitch32_imma(void* out, const void* ct, const void
                                            int key_cols, int splits, void* stream) {
   return launch_imma<4>(out, ct, key, digits, batch, n_in, levels, m_out, base_log, n_chunks,
                         key_cols, splits, stream);
+}
+
+// Whether K1 runs its limb-row kernel at a shape: its limbs a digit T
+// (limb_shape), else 0.  ops/kernels.py asks it where
+// tfhe_torch_keyswitch_imma_shape says 0.
+extern "C" int tfhe_torch_keyswitch_limb_shape(int n_in, int levels, int base_log) {
+  return limb_shape(n_in, levels, base_log) ? limb_count(base_log) : 0;
+}
+
+// K1's limb-row kernel: key the tensor-core kernel's (n_chunks, key_cols,
+// 128) byte layout (16-byte aligned, key_cols covering 8 m_out), digits the
+// (ceil(batch / (IM_BM / T)) IM_BM, n_chunks, IM_KC) byte scratch of the
+// limb rows (16-byte aligned), written by the limb-row digits kernel, which
+// also zeroes out where splits > 1.
+extern "C" int tfhe_torch_keyswitch_limbs(void* out, const void* ct, const void* key,
+                                          void* digits, int batch, int n_in, int levels,
+                                          int m_out, int base_log, int n_chunks, int key_cols,
+                                          int splits, void* stream) {
+  return launch_limbs(out, ct, key, digits, batch, n_in, levels, m_out, base_log, n_chunks,
+                      key_cols, splits, stream);
 }

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace ntt_common {
 
 typedef unsigned long long u64;
@@ -812,6 +814,26 @@ __device__ __forceinline__ void rk_key_product(u32* res, int q, const uint4* __r
       row1[at + b] = o1;
     }
   }
+}
+
+// The largest dynamic shared memory of kernel set to bytes (and, where
+// carveout, the SM's carveout to shared memory first) once a device, done
+// holding one bit a device: cudaFuncSetAttribute costs the host several
+// microseconds a call, which a launch of a few microseconds would pay.
+template <class K>
+cudaError_t set_smem_once(K kernel, int bytes, bool carveout, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && carveout) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 // Launch kernel on blocks blocks of THREADS threads with smem bytes of

@@ -1,9 +1,13 @@
 """The hand-written CUDA kernels of the port: build, load, wrappers.
 
-K1 ``keyswitch`` (csrc/keyswitch.cu; its tensor-core kernel where
-``keyswitch_imma_shape`` holds, on a ``KeyswitchKeyLimbs``, its
-contraction cut into ``keyswitch_splits`` slices where its grid would fill
-less than half the card), K1-32 ``keyswitch32`` (the KS32 pattern's u32
+K1 ``keyswitch`` (csrc/keyswitch.cu; by ``keyswitch_route``: its
+tensor-core kernel where ``keyswitch_imma_shape`` holds, its limb-row
+kernel at the wide-digit shapes (the WoPBS PFPKS, the cast to the big
+key: each digit's balanced byte limbs on rows of the same int8 product),
+both on a ``KeyswitchKeyLimbs`` and with the contraction cut into slices
+(``keyswitch_splits``: two waves where the tensor-core kernel's grid would
+fill less than half the card; ``keyswitch_limb_splits``: one full wave),
+else its generic kernel), K1-32 ``keyswitch32`` (the KS32 pattern's u32
 keyswitch, the same source: the tensor-core kernel on 4 byte limbs a key
 word, and a u32 twin of the generic kernel), K2 ``blind_rotate``
 (csrc/blind_rotate.cu; ``cmux_step`` is its single-step entry; exact mode
@@ -31,7 +35,9 @@ CMux entry, vertical packing's tree, and the common mask's CMux;
 common-mask rotation's; ``cmux_chain`` its CMux chain, vertical packing's
 low bits for many packings in one launch, each on its own GGSW set, on
 the cluster kernel's small-N kernel), K7 ``glwe_keyswitch``
-(csrc/glwe_keyswitch.cu, the GLWE keyswitch and the fast keyswitch) and K8
+(csrc/glwe_keyswitch.cu, the GLWE keyswitch and the fast keyswitch: its
+cluster kernel, four blocks a GLWE, one a CRT prime, where
+``glwe_keyswitch_route`` says so, else its first kernel) and K8
 ``blind_rotate_extended``
 (csrc/blind_rotate_extended.cu, the extended PBS's rotation: its lazy
 kernel at the 2_2 shape, ``extended_route``, else its generic kernel; the
@@ -44,7 +50,8 @@ Each wrapper runs its plain PyTorch version (ops/server.py,
 ops/server128.py) when given CPU tensors, and launches its kernel on CUDA
 tensors or raises: there is no fallback; where a wrapper has two kernels
 it chooses by shape.  ``<wrapper>.launches`` counts kernel launches, and
-nothing else; ``keyswitch.imma_launches``, ``keyswitch32.imma_launches``,
+nothing else; ``keyswitch.imma_launches``, ``keyswitch.limb_launches``,
+``keyswitch32.imma_launches``, ``glwe_keyswitch.cluster_launches``,
 ``packing_keyswitch.imma_launches``, ``blind_rotate`` /
 ``cmux_step.lazy_exact_launches``, ``blind_rotate.cluster_launches``,
 ``blind_rotate_multibit.cluster_launches`` and
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -120,8 +128,12 @@ def load() -> dict:
                    libs["keyswitch"].tfhe_torch_keyswitch32_imma):
             fn.argtypes = [vp] * 4 + [i] * 8 + [vp]
             fn.restype = i
-        fn = libs["keyswitch"].tfhe_torch_keyswitch_imma_shape
-        fn.argtypes = [i] * 3
+        for fn in (libs["keyswitch"].tfhe_torch_keyswitch_imma_shape,
+                   libs["keyswitch"].tfhe_torch_keyswitch_limb_shape):
+            fn.argtypes = [i] * 3
+            fn.restype = i
+        fn = libs["keyswitch"].tfhe_torch_keyswitch_limbs
+        fn.argtypes = [vp] * 4 + [i] * 8 + [vp]
         fn.restype = i
         for fn in (libs["keyswitch"].tfhe_torch_keyswitch_imma_chunk,
                    libs["keyswitch"].tfhe_torch_keyswitch_imma_columns):
@@ -195,9 +207,17 @@ def load() -> dict:
         fn = libs["packing_keyswitch128"].tfhe_torch_packing_keyswitch128_imma_smem
         fn.argtypes = [i] * 5
         fn.restype = i
-        fn = libs["glwe_keyswitch"].tfhe_torch_glwe_keyswitch
-        fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
-        fn.restype = i
+        gk = libs["glwe_keyswitch"]
+        gk.tfhe_torch_glwe_keyswitch.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        gk.tfhe_torch_glwe_keyswitch.restype = i
+        gk.tfhe_torch_glwe_keyswitch_cluster.argtypes = [vp] * 6 + [i] * 7 + [vp]
+        gk.tfhe_torch_glwe_keyswitch_cluster.restype = i
+        gk.tfhe_torch_glwe_keyswitch_cluster_shape.argtypes = [i] * 5
+        gk.tfhe_torch_glwe_keyswitch_cluster_shape.restype = i
+        for fn in (gk.tfhe_torch_glwe_keyswitch_cluster_smem,
+                   gk.tfhe_torch_glwe_keyswitch_cluster_occupancy):
+            fn.argtypes = [i] * 3
+            fn.restype = i
         fn = libs["blind_rotate_extended"].tfhe_torch_blind_rotate_extended
         fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
         fn.restype = i
@@ -337,16 +357,45 @@ def keyswitch_imma_shape(n_in: int, levels: int, base_log: int) -> bool:
     """Whether K1 (and K1-32) runs its tensor-core kernel at this shape, as
     csrc/keyswitch.cu imma_shape decides it (s8 digits, a decomposition read
     from the high word, s32-exact limb sums): at the keyswitch of every set
-    of shortint/params.py; other shapes run the generic kernel."""
-    return bool(load()["keyswitch"].tfhe_torch_keyswitch_imma_shape(n_in, levels, base_log))
+    of shortint/params.py."""
+    return keyswitch_route(n_in, levels, base_log) == "imma"
+
+
+def keyswitch_limb_count(n_in: int, levels: int, base_log: int) -> int:
+    """The balanced byte limbs T a digit of K1's limb-row kernel at this
+    shape, as csrc/keyswitch.cu limb_shape decides it (digits wider than s8
+    or shapes the tensor-core kernel refuses, base_log <= 31, l <= 8,
+    s32-exact limb sums: the WoPBS PFPKS, T = 3, and the cast to the big
+    key, T = 4); 0 where the kernel does not take the shape."""
+    return load()["keyswitch"].tfhe_torch_keyswitch_limb_shape(n_in, levels, base_log)
+
+
+def keyswitch_route(n_in: int, levels: int, base_log: int) -> str:
+    """K1's kernel at a shape, from csrc/keyswitch.cu's predicates (asked
+    once a shape): "imma" (the tensor-core kernel), "limbs" (the limb-row
+    kernel) or "generic" (the test vectors' base 2^37)."""
+    shape = (n_in, levels, base_log)
+    if shape not in _K1_ROUTES:
+        lib = load()["keyswitch"]
+        _K1_ROUTES[shape] = ("imma" if lib.tfhe_torch_keyswitch_imma_shape(*shape)
+                             else "limbs" if lib.tfhe_torch_keyswitch_limb_shape(*shape)
+                             else "generic")
+    return _K1_ROUTES[shape]
+
+
+_K1_ROUTES = {}
 
 
 def keyswitch_key(ksk, base_log: int, levels: int, bits: int = 64):
     """The keyswitch key as ``keyswitch`` (bits = 64) or ``keyswitch32``
     (bits = 32, a KS32 key of u32 words) takes it: on a CUDA device at a
-    shape of K1's tensor-core kernel, a KeyswitchKeyLimbs (its byte layout
-    built here, on the card, 8 or 4 limbs a word); else ksk itself."""
-    if ksk.device.type != "cuda" or not keyswitch_imma_shape(ksk.shape[0], levels, base_log):
+    shape of K1's tensor-core kernel (or, for bits = 64, of its limb-row
+    kernel), a KeyswitchKeyLimbs (its byte layout built here, on the card,
+    8 or 4 limbs a word); else ksk itself."""
+    if ksk.device.type != "cuda":
+        return ksk
+    route = keyswitch_route(ksk.shape[0], levels, base_log)
+    if route != "imma" and (route != "limbs" or bits != 64):
         return ksk
     lib = load()["keyswitch"]
     word_bytes = bits // 8
@@ -359,13 +408,16 @@ def keyswitch_key(ksk, base_log: int, levels: int, bits: int = 64):
 # K1's tensor-core kernel: batch rows and limb columns a block
 # (csrc/keyswitch.cu IM_BM, IM_BN)
 IM_BM, IM_BN = 128, 256
-# the fewest chunks a slice of the split contraction walks
+# the fewest chunks a slice of the split contraction walks: the tensor-core
+# kernel's, and the limb-row kernel's (its contractions are 9 chunks at the
+# PFPKS and 16 at the cast)
 K1_MIN_SLICE = 8
+K1_LIMB_MIN_SLICE = 2
 
 
 def keyswitch_splits(blocks: int, n_chunks: int, sms: int) -> int:
-    """The slices K1's tensor-core kernel cuts its contraction into: a grid
-    of ``blocks`` (column, row) blocks that fills less than half of the
+    """The slices K1's tensor-core kernel cuts its contraction into: a
+    grid of ``blocks`` (column, row) blocks that fills less than half of the
     card's ``sms`` is cut so that it covers at least two waves (K1-32 at
     V1_4 KS32: 60 blocks, 5 slices), each slice at least K1_MIN_SLICE of
     the n_chunks chunks; else 1 (K1 at the 2_2 keyswitch: 116 blocks)."""
@@ -374,50 +426,96 @@ def keyswitch_splits(blocks: int, n_chunks: int, sms: int) -> int:
     return max(1, min(-(-2 * sms // blocks), n_chunks // K1_MIN_SLICE))
 
 
+def keyswitch_limb_splits(blocks: int, n_chunks: int, sms: int) -> int:
+    """The slices K1's limb-row kernel cuts its contraction into: as many
+    as keep its grid of blocks x slices within one wave of the card's sms
+    (one block an SM), each at least K1_LIMB_MIN_SLICE chunks: 2 at the
+    PFPKS (64 column blocks, 9 chunks) and at the cast to big (65, 16).
+    Timed in turns from CUDA graphs on the H100 (tools/phase_cycles.py k1g;
+    NVIDIA H100 80GB HBM3, 700 W): at the PFPKS 0.0144-0.0147 ms at 2
+    slices, 0.0183-0.0185 at 3-4 (two waves), 0.0201-0.0204 whole; at the
+    cast 0.0199 at 2, 0.0236 at 5, 0.0316 whole."""
+    return max(1, min(sms // blocks, n_chunks // K1_LIMB_MIN_SLICE))
+
+
+def limb_rows(batch: int, limbs: int) -> int:
+    """The rows of the limb-row kernel's byte scratch: IM_BM // T
+    ciphertexts of T limb rows a row block (csrc/keyswitch.cu
+    keyswitch_limb_rows_kernel)."""
+    return -(-batch // (IM_BM // limbs)) * IM_BM
+
+
+def sm_count(device) -> int:
+    """The card's multiprocessors (asked once a device)."""
+    index = torch.device(device).index or 0
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+_SMS = {}
+
+
+@lru_cache(maxsize=None)
+def _tile_plan(route: str, b: int, n_in: int, levels: int, base_log: int, n_chunks: int,
+               key_cols: int, device_index: int) -> tuple:
+    """(rows of the digit scratch, slices) of K1's tensor-core ("imma") or
+    limb-row ("limbs") kernel at a batch and key layout, asked once."""
+    sms = sm_count(torch.device("cuda", device_index))
+    if route == "imma":
+        rows = -(-b // IM_BM) * IM_BM
+        return rows, keyswitch_splits(key_cols // IM_BN * (rows // IM_BM), n_chunks, sms)
+    rows = limb_rows(b, keyswitch_limb_count(n_in, levels, base_log))
+    return rows, keyswitch_limb_splits(key_cols // IM_BN * (rows // IM_BM), n_chunks, sms)
+
+
 def _launch_keyswitch(ct, ksk, base_log: int, levels: int, word_bytes: int):
     """K1 (word_bytes 8) or K1-32 (word_bytes 4) on the card: the
-    tensor-core kernel where keyswitch_imma_shape holds (on the key's byte
-    layout of that width), else the generic kernel.  Returns (out, whether
-    the tensor-core kernel ran)."""
+    tensor-core kernel where keyswitch_route says "imma", for K1 the
+    limb-row kernel where it says "limbs" (both on the key's byte layout of
+    that width), else the generic kernel.  Returns (out, route)."""
     limbs = ksk.limbs if isinstance(ksk, KeyswitchKeyLimbs) else None
     words = ksk.words if limbs is not None else ksk
     name = "keyswitch" if word_bytes == 8 else "keyswitch32"
     _require(ct.device.type == "cuda", f"no {name} kernel for {ct.device}")
     ct, words = ct.contiguous(), words.contiguous()
-    _check_cuda((ct, torch.int64), (words, torch.int64))
     b, w = ct.shape
     n_in, lev, m_out = words.shape
     _require(w == n_in + 1 and lev == levels, "ct / ksk shapes disagree")
     _require(word_bytes == 8 or base_log <= 31,
              f"{name} takes base_log <= 31, not {base_log}")
     lib = load()["keyswitch"]
-    imma = keyswitch_imma_shape(n_in, levels, base_log)
-    if imma:
-        _require(limbs is not None and ksk.word_bytes == word_bytes,
-                 f"{name}'s tensor-core kernel takes the key's byte layout at "
-                 f"{word_bytes} limbs a word: build it once with kernels.keyswitch_key")
-        _check_cuda((ct, torch.int64), (limbs, torch.uint8))
-        n_chunks, key_cols = limbs.shape[0], limbs.shape[1]
-        splits = keyswitch_splits(key_cols // IM_BN * -(-b // IM_BM), n_chunks,
-                                  torch.cuda.get_device_properties(ct.device)
-                                  .multi_processor_count)
-        # the slices of a split contraction add their words into zeros
-        out = (torch.zeros if splits > 1 else torch.empty)(
-            (b, m_out), dtype=torch.int64, device=ct.device)
-        # the digit tiles, decomposed once by the kernel's first launch
-        digits = torch.empty((-(-b // IM_BM) * IM_BM, n_chunks, limbs.shape[2]),
-                             dtype=torch.int8, device=ct.device)
-        err = getattr(lib, f"tfhe_torch_{name}_imma")(
-            out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), digits.data_ptr(), b, n_in,
-            levels, m_out, base_log, n_chunks, key_cols, splits, _stream(ct))
-        _raise_on(err, f"{name} (tensor cores)")
-    else:
+    route = keyswitch_route(n_in, levels, base_log)
+    if route == "limbs" and word_bytes == 4:
+        route = "generic"
+    if route == "generic":
+        _check_cuda((ct, torch.int64), (words, torch.int64))
         out = torch.empty((b, m_out), dtype=torch.int64, device=ct.device)
         err = getattr(lib, f"tfhe_torch_{name}")(
             out.data_ptr(), ct.data_ptr(), words.data_ptr(), b, n_in, levels, m_out,
             base_log, _stream(ct))
         _raise_on(err, name)
-    return out, imma
+        return out, route
+    _require(limbs is not None and ksk.word_bytes == word_bytes,
+             f"{name}'s {'tensor-core' if route == 'imma' else 'limb-row'} kernel takes the "
+             f"key's byte layout at {word_bytes} limbs a word: build it once with "
+             f"kernels.keyswitch_key")
+    _check_cuda((ct, torch.int64), (words, torch.int64), (limbs, torch.uint8))
+    n_chunks, key_cols = limbs.shape[0], limbs.shape[1]
+    rows, splits = _tile_plan(route, b, n_in, levels, base_log, n_chunks, key_cols,
+                              ct.device.index or 0)
+    # the slices of a split contraction add their words into zeros (the
+    # limb-row kernel's digits kernel writes them)
+    out = (torch.zeros if splits > 1 and route == "imma" else torch.empty)(
+        (b, m_out), dtype=torch.int64, device=ct.device)
+    # the digit (limb) tiles, decomposed once by the launch's first kernel
+    digits = torch.empty((rows, n_chunks, limbs.shape[2]), dtype=torch.int8, device=ct.device)
+    entry = f"tfhe_torch_{name}_imma" if route == "imma" else "tfhe_torch_keyswitch_limbs"
+    err = getattr(lib, entry)(
+        out.data_ptr(), ct.data_ptr(), limbs.data_ptr(), digits.data_ptr(), b, n_in,
+        levels, m_out, base_log, n_chunks, key_cols, splits, _stream(ct))
+    _raise_on(err, f"{name} ({'tensor cores' if route == 'imma' else 'limb rows'})")
+    return out, route
 
 
 def keyswitch(ct, ksk, base_log: int, levels: int):
@@ -425,19 +523,21 @@ def keyswitch(ct, ksk, base_log: int, levels: int):
 
     ct: (B, n_in+1) int64; ksk: the (n_in, l, n_out+1) int64 key or its
     KeyswitchKeyLimbs.  On the card the kernel is chosen by shape
-    (keyswitch_imma_shape): the tensor-core kernel, which takes only a
-    KeyswitchKeyLimbs, else the generic kernel."""
+    (keyswitch_route): the tensor-core kernel or the limb-row kernel, which
+    take only a KeyswitchKeyLimbs, else the generic kernel."""
     if ct.device.type == "cpu":
         words = ksk.words if isinstance(ksk, KeyswitchKeyLimbs) else ksk
         return server.keyswitch(ct, words, base_log, levels)
-    out, imma = _launch_keyswitch(ct, ksk, base_log, levels, 8)
-    keyswitch.imma_launches += imma
+    out, route = _launch_keyswitch(ct, ksk, base_log, levels, 8)
+    keyswitch.imma_launches += route == "imma"
+    keyswitch.limb_launches += route == "limbs"
     keyswitch.launches += 1
     return out
 
 
 keyswitch.launches = 0
 keyswitch.imma_launches = 0     # of them, K1's tensor-core kernel
+keyswitch.limb_launches = 0     # and its limb-row kernel
 
 
 def keyswitch32(ct, ksk32, base_log: int, levels: int):
@@ -451,8 +551,8 @@ def keyswitch32(ct, ksk32, base_log: int, levels: int):
     if ct.device.type == "cpu":
         words = ksk32.words if isinstance(ksk32, KeyswitchKeyLimbs) else ksk32
         return server.keyswitch32(ct, words, base_log, levels)
-    out, imma = _launch_keyswitch(ct, ksk32, base_log, levels, 4)
-    keyswitch32.imma_launches += imma
+    out, route = _launch_keyswitch(ct, ksk32, base_log, levels, 4)
+    keyswitch32.imma_launches += route == "imma"
     keyswitch32.launches += 1
     return out
 
@@ -1258,12 +1358,57 @@ K7_MAX_OUT = 8
 
 
 def glwe_keyswitch_rows(kout1: int, n_poly: int) -> int:
-    """The input rows (input polynomial, level) K7 transforms at once: as
-    many 4-prime residue rows as fit a block's shared memory beside the
-    k_out+1 output rows' NTT-domain sums (csrc/glwe_keyswitch.cu: one block
-    a GLWE); 0 where not one fits."""
+    """The input rows (input polynomial, level) K7's first kernel
+    transforms at once: as many 4-prime residue rows as fit a block's
+    shared memory beside the k_out+1 output rows' NTT-domain sums
+    (csrc/glwe_keyswitch.cu glwe_keyswitch_kernel: one block a GLWE); 0
+    where not one fits."""
     row_bytes = KERNEL_PRIMES * (n_poly + n_poly // 32) * 4
     return max(0, (SMEM_LIMIT - kout1 * row_bytes) // row_bytes)
+
+
+def glwe_keyswitch_route(k_in: int, kout1: int, n_poly: int, levels: int,
+                         base_log: int) -> str:
+    """K7's kernel at a shape: "cluster" where csrc/glwe_keyswitch.cu
+    gk_cluster_shape takes it (N = 2048, k_in l <= 8, k_out+1 <= 8, base_log
+    <= 30: both research shapes), else "first" (one block a GLWE) where
+    k_out+1 <= K7_MAX_OUT, base_log l < 64 and one input row fits beside the
+    sums; raises elsewhere."""
+    shape = (k_in, kout1, n_poly.bit_length() - 1, levels, base_log)
+    if shape not in _K7_ROUTES:
+        cluster = (n_poly & (n_poly - 1) == 0 and load()["glwe_keyswitch"]
+                   .tfhe_torch_glwe_keyswitch_cluster_shape(*shape))
+        _K7_ROUTES[shape] = "cluster" if cluster else "first"
+    if _K7_ROUTES[shape] == "first":
+        _require(1 <= base_log and base_log * levels < 64,
+                 f"K7 takes base_log l < 64, not {base_log} x {levels}")
+        _require(1 <= kout1 <= K7_MAX_OUT and glwe_keyswitch_rows(kout1, n_poly) >= 1,
+                 f"K7 takes k_out+1 <= {K7_MAX_OUT} rows whose NTT-domain sums and one "
+                 f"input row fit the {SMEM_LIMIT} B of shared memory a block may use, not "
+                 f"k_out+1 = {kout1} at N = {n_poly}")
+    return _K7_ROUTES[shape]
+
+
+_K7_ROUTES = {}
+
+
+def glwe_keyswitch_figures(k_in: int, kout1: int, n_poly: int, levels: int,
+                           base_log: int) -> dict:
+    """K7's route at a shape, a block's dynamic shared memory and, for the
+    cluster kernel, the clusters of four blocks the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    route = glwe_keyswitch_route(k_in, kout1, n_poly, levels, base_log)
+    if route == "first":
+        chunk = min(glwe_keyswitch_rows(kout1, n_poly), k_in * levels)
+        return {"route": route, "rows_a_chunk": chunk,
+                "shared_memory_bytes": (kout1 + chunk) * KERNEL_PRIMES
+                * (n_poly + n_poly // 32) * 4}
+    lib = load()["glwe_keyswitch"]
+    return {"route": route,
+            "shared_memory_bytes": lib.tfhe_torch_glwe_keyswitch_cluster_smem(k_in, kout1,
+                                                                              levels),
+            "active_clusters": lib.tfhe_torch_glwe_keyswitch_cluster_occupancy(k_in, kout1,
+                                                                               levels)}
 
 
 def glwe_keyswitch(glwe, key, dp: DevicePlan, base_log: int, levels: int,
@@ -1273,10 +1418,11 @@ def glwe_keyswitch(glwe, key, dp: DevicePlan, base_log: int, levels: int,
     add_sum sum + (0, body) (the fast keyswitch on a pseudo-GGSW).
 
     glwe: (B, k_in+1, N) int64; key: (k_in, l, k_out+1, P, N) int32
-    Montgomery NTT domain on dp's four primes.  One block a GLWE, the input
-    rows in chunks of glwe_keyswitch_rows.  Takes k_out+1 <= K7_MAX_OUT,
-    base_log l < 64 and a power-of-two N whose rows fit; raises elsewhere.
-    Returns (B, k_out+1, N) int64."""
+    Montgomery NTT domain on dp's four primes.  The kernel is chosen by
+    shape (glwe_keyswitch_route): the cluster kernel, four blocks a GLWE,
+    one a CRT prime, else the first kernel, one block a GLWE, the input
+    rows in chunks of glwe_keyswitch_rows; raises elsewhere.  Returns (B,
+    k_out+1, N) int64."""
     if glwe.device.type == "cpu":
         return server.glwe_keyswitch_sum(glwe, key, dp, base_log, levels, add_sum)
     _require(glwe.device.type == "cuda", f"no GLWE-keyswitch kernel for {glwe.device}")
@@ -1287,27 +1433,35 @@ def glwe_keyswitch(glwe, key, dp: DevicePlan, base_log: int, levels: int,
              f"key shape {tuple(key.shape)} does not fit GLWEs {tuple(glwe.shape)}")
     _require(nprimes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "K7 takes a 4-prime plan and a power-of-two N")
-    _require(1 <= base_log and base_log * levels < 64,
-             f"K7 takes base_log l < 64, not {base_log} x {levels}")
-    chunk = glwe_keyswitch_rows(kout1, n_poly)
-    _require(1 <= kout1 <= K7_MAX_OUT and chunk >= 1,
-             f"K7 takes k_out+1 <= {K7_MAX_OUT} rows whose NTT-domain sums and one input "
-             f"row fit the {SMEM_LIMIT} B of shared memory a block may use, not "
-             f"k_out+1 = {kout1} at N = {n_poly}")
+    route = glwe_keyswitch_route(k_in, kout1, n_poly, levels, base_log)
     out = torch.empty((b, kout1, n_poly), dtype=torch.int64, device=glwe.device)
-    _check_cuda((glwe, torch.int64), (key, torch.int32), (dp.psi32, torch.int32),
-                (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
-    err = load()["glwe_keyswitch"].tfhe_torch_glwe_keyswitch(
-        out.data_ptr(), glwe.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
-        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, k_in, kout1,
-        n_poly.bit_length() - 1, levels, base_log, int(add_sum), min(chunk, k_in * levels),
-        _stream(glwe))
-    _raise_on(err, "glwe_keyswitch")
+    lib = load()["glwe_keyswitch"]
+    if route == "cluster":
+        tw_fwd, tw_inv = shoup_twiddles(dp)
+        _check_cuda((glwe, torch.int64), (key, torch.int32), (tw_fwd, torch.int32),
+                    (tw_inv, torch.int32), (dp.kernel_consts, torch.int64))
+        _require(key.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+        err = lib.tfhe_torch_glwe_keyswitch_cluster(
+            out.data_ptr(), glwe.data_ptr(), key.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), b, k_in, kout1,
+            n_poly.bit_length() - 1, levels, base_log, int(add_sum), _stream(glwe))
+        _raise_on(err, "glwe_keyswitch (cluster)")
+        glwe_keyswitch.cluster_launches += 1
+    else:
+        _check_cuda((glwe, torch.int64), (key, torch.int32), (dp.psi32, torch.int32),
+                    (dp.psi_inv32, torch.int32), (dp.kernel_consts, torch.int64))
+        err = lib.tfhe_torch_glwe_keyswitch(
+            out.data_ptr(), glwe.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+            dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, k_in, kout1,
+            n_poly.bit_length() - 1, levels, base_log, int(add_sum),
+            min(glwe_keyswitch_rows(kout1, n_poly), k_in * levels), _stream(glwe))
+        _raise_on(err, "glwe_keyswitch")
     glwe_keyswitch.launches += 1
     return out
 
 
 glwe_keyswitch.launches = 0
+glwe_keyswitch.cluster_launches = 0    # of them, K7's cluster kernel
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ small-N kernel's is).  Writes build/phase_cycles/phase.json.
 """
 import ctypes
 import json
+import re
 import pathlib
 import subprocess
 import sys
@@ -82,7 +83,7 @@ __host__ __device__ constexpr int ph_tag(const char* f, int i = 0) {
                                                                                    : ph_tag(f, i + 1);
 }
 __device__ __forceinline__ void ph_sync(int slot) {
-  const bool me = blockIdx.x == 0 && threadIdx.x == 0;
+  const bool me = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0;
   long long t0 = 0;
   if (me) t0 = clock64();
   asm volatile("bar.sync 0;" ::: "memory");
@@ -128,30 +129,54 @@ def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_clust
     inverse pass, each cluster barrier's wait and Garner apart (the extra
     barriers cost a few hundred cycles a step)."""
     text = (CSRC / f"{name}.cu").read_text()
+    if first not in text:
+        return CSRC / f"{name}.cu"
     start = text.index(first)
     end = text.index(last)
-    body = text[start:end].replace("    cluster.sync();   //",
-                                   "    __syncthreads();\n    cluster.sync();\n    __syncthreads();  //")
+    body = re.sub(r"\n( *)cluster\.sync\(\);   //",
+                  r"\n\1__syncthreads();\n\1cluster.sync();\n\1__syncthreads();  //",
+                  text[start:end])
     out = HERE / f"{name}_marked.cu"
     out.write_text(text[:start] + body + text[end:])
     return out
 
 
-def write_sources():
-    """The harness header and one wrapper a kernel source, in HERE."""
+def variant_source(name, old, new) -> pathlib.Path:
+    """A copy of csrc/<name>.cu with one line changed (a design variant
+    timed beside the shipped kernel; the shipped source has no switch)."""
+    text = (CSRC / f"{name}.cu").read_text()
+    assert old in text, old
+    out = HERE / f"{name}_variant.cu"
+    out.write_text(text.replace(old, new))
+    return out
+
+
+def write_sources(names):
+    """The harness header and one wrapper a kernel source named in names,
+    in HERE."""
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "harness.cuh").write_text(HARNESS)
-    for name, source in (("h_k5", CSRC / "blind_rotate128.cu"),
-                         ("h_k3", CSRC / "blind_rotate_multibit.cu"),
-                         ("h_k2", CSRC / "blind_rotate.cu"), ("h_kc", marked_cluster_source()),
-                         ("h_k3c", marked_cluster_source(
-                             "blind_rotate_multibit_cluster",
-                             "blind_rotate_multibit_cluster_kernel(", "cudaError_t mc_launch("))):
-        (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", str(source)))
+    sources = {"h_k5": lambda: CSRC / "blind_rotate128.cu",
+               "h_k3": lambda: CSRC / "blind_rotate_multibit.cu",
+               "h_k2": lambda: CSRC / "blind_rotate.cu", "h_kc": marked_cluster_source,
+               "h_k3c": lambda: marked_cluster_source(
+                   "blind_rotate_multibit_cluster", "blind_rotate_multibit_cluster_kernel(",
+                   "cudaError_t mc_launch("),
+               "h_k1": lambda: CSRC / "keyswitch.cu",
+               "v_k7m3": lambda: variant_source("glwe_keyswitch",
+                                                "constexpr int GC_MIN_BLOCKS = 4;",
+                                                "constexpr int GC_MIN_BLOCKS = 3;"),
+               "h_k7": lambda: marked_cluster_source(
+                   "glwe_keyswitch", "glwe_keyswitch_cluster_kernel(",
+                   "cudaError_t gk_cluster_launch(")}
+    for name in names:
+        src = str(sources[name]())
+        (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", src) if name.startswith("h_")
+                                         else f'#include "{src}"\n')
 
 
 def build(names):
-    write_sources()
+    write_sources(names)
     cmd = kernels.nvcc_command() + ["-Xptxas", "-v", "-I", str(CSRC)]
     procs = [(n, subprocess.Popen(cmd + ["-o", str(HERE / f"lib{n}.so"), str(HERE / f"{n}.cu")],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -194,6 +219,26 @@ def ms(fn, reps=2):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """The device's ms a launch of fn: reps calls captured in one CUDA
+    graph, replayed replays times between CUDA events (no host time)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(replays):
+        graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / (replays * reps)
 
 
 def phases(lib, fn, src, units):
@@ -492,6 +537,206 @@ def k3c(libs, out, reps=3):
     out["k3c"] = res
 
 
+# K1 at the wide-digit, small-batch shapes: (tag, B, n_in, l, base_log,
+# m_out): the WoPBS PFPKS (TEST_WOPBS_PARAM: n_in = k N + 1 = 513 with the
+# appended zero, 2048 = (k+1)^2 N columns) and the compact list's cast to
+# the big key (V1_4 PKE 2048 -> big 2048, base 2^24, one level)
+K1_WIDE_SHAPES = (("pfpks", 40, 513, 2, 20, 2048), ("cast_big", 32, 2048, 1, 24, 2049))
+
+
+def k1_entries(lib, ct, ksk, limbs, bl, lev):
+    """K1's C entries on one input: the generic kernel and, where the
+    library has it and takes the shape, the limb-row kernel at each split
+    count (splits -> run)."""
+    b, m_out = ct.shape[0], ksk.shape[2]
+    n_in = ksk.shape[0]
+
+    def generic():
+        out = torch.empty((b, m_out), dtype=torch.int64, device="cuda")
+        err = lib.tfhe_torch_keyswitch(out.data_ptr(), ct.data_ptr(), ksk.data_ptr(), b, n_in,
+                                       lev, m_out, bl, kernels._stream(ct))
+        assert err == 0, f"K1's generic kernel failed: cudaError {err}"
+        return out
+
+    runs = {"generic": generic}
+    if limbs is None or not hasattr(lib, "tfhe_torch_keyswitch_limbs"):
+        return runs
+    lib.tfhe_torch_keyswitch_limbs.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    n_chunks, key_cols = limbs.shape[0], limbs.shape[1]
+    rows = kernels.limb_rows(b, kernels.keyswitch_limb_count(n_in, lev, bl))
+
+    def limb(splits):
+        def run():
+            out = torch.empty((b, m_out), dtype=torch.int64, device="cuda")
+            digits = torch.empty((rows, n_chunks, limbs.shape[2]), dtype=torch.int8,
+                                 device="cuda")
+            err = lib.tfhe_torch_keyswitch_limbs(out.data_ptr(), ct.data_ptr(), limbs.data_ptr(),
+                                                 digits.data_ptr(), b, n_in, lev, m_out, bl,
+                                                 n_chunks, key_cols, splits, kernels._stream(ct))
+            assert err == 0, f"K1's limb-row kernel failed: cudaError {err}"
+            return out
+        return run
+
+    for splits in sorted({1, 2, 3, 5, 9, kernels.keyswitch_limb_splits(
+            key_cols // kernels.IM_BN * rows // kernels.IM_BM, n_chunks,
+            kernels.sm_count(ct.device))}):
+        if splits <= n_chunks:
+            runs[f"limbs_s{splits}"] = limb(splits)
+    return runs
+
+
+def k1g(libs, out, reps=20):
+    """K1 at K1_WIDE_SHAPES on random words: each C entry (k1_entries) held
+    against server.keyswitch and timed in turns (CUDA events over reps
+    launches), the wrapper's time and host ms a launch, and the phase table
+    of each kernel's block (0, 0, 0) a chunk, from an instrumented copy of
+    csrc/keyswitch.cu."""
+    rng = np.random.default_rng(19)
+    res = {}
+    for tag, b, n_in, lev, bl, m_out in K1_WIDE_SHAPES:
+        ct = torus.from_u64(rng.integers(0, 1 << 64, (b, n_in + 1), dtype=np.uint64), "cuda")
+        ksk = torus.from_u64(rng.integers(0, 1 << 64, (n_in, lev, m_out), dtype=np.uint64),
+                             "cuda")
+        key = kernels.keyswitch_key(ksk, bl, lev)
+        limbs = key.limbs if isinstance(key, kernels.KeyswitchKeyLimbs) else None
+        want = server.keyswitch(ct, ksk, bl, lev)
+        runs = k1_entries(kernels.load()["keyswitch"], ct, ksk, limbs, bl, lev)
+        wrapper = lambda: kernels.keyswitch(ct, key, bl, lev)  # noqa: E731
+        runs["wrapper"] = wrapper
+        row = {"batch": b, "n_in": n_in, "levels": lev, "base_log": bl, "m_out": m_out}
+        if hasattr(kernels, "keyswitch_route"):
+            row["route"] = kernels.keyswitch_route(n_in, lev, bl)
+        for name, run in runs.items():
+            row[f"{name}_err"] = int((run() - want).abs().max())
+        order = list(runs) + list(reversed(runs))
+        times = {name: [] for name in runs}
+        for name in order:
+            times[name].append(ms(runs[name], reps))
+        row["ms"] = times
+        row["graph_ms"] = {name: [] for name in runs if name != "wrapper"}
+        for name in list(row["graph_ms"]) + list(reversed(list(row["graph_ms"]))):
+            row["graph_ms"][name].append(graph_ms(runs[name]))
+        row["host_ms"] = {}
+        for name, run in runs.items():      # the host's time to enqueue a launch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            row["host_ms"][name] = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+        if "h_k1" in libs:
+            hlib = libs["h_k1"]
+            for f in ("tfhe_torch_keyswitch",):
+                getattr(hlib, f).argtypes = getattr(kernels.load()["keyswitch"], f).argtypes
+                getattr(hlib, f).restype = ctypes.c_int
+            hruns = k1_entries(hlib, ct, ksk, limbs, bl, lev)
+            chunks = {"generic": -(-n_in // (64 // lev))}
+            for name in hruns:
+                if name.startswith("limbs_s"):     # block (0, 0, 0) walks one slice
+                    chunks[name] = -(-limbs.shape[0] // int(name[len("limbs_s"):]))
+                row[f"{name}_phases"] = phases(hlib, hruns[name], "keyswitch.cu",
+                                               chunks.get(name, 1))
+        res[tag] = row
+        print("k1g", tag, {k: v for k, v in row.items() if not k.endswith("phases")}, flush=True)
+    out["k1g"] = res
+
+
+# K7 at the research phase's shapes (2_2 widths, base 2^8, l = 4): (tag,
+# k_in, k_out + 1): the GLWE keyswitch and the fast keyswitch
+K7_SHAPES = (("glwe_keyswitch", 1, 2, False), ("fast_keyswitch", 2, 2, True))
+
+
+def k7_entries(lib, glwe, key, dp, bl, lev, add_sum):
+    """K7's C entries on one input: today's kernel and, where the library
+    has it, the cluster kernel (name -> run)."""
+    b, kin1, n = glwe.shape
+    kout1 = key.shape[2]
+    tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+
+    def first():
+        out = torch.empty((b, kout1, n), dtype=torch.int64, device="cuda")
+        chunk = min(kernels.glwe_keyswitch_rows(kout1, n), (kin1 - 1) * lev)
+        err = lib.tfhe_torch_glwe_keyswitch(
+            out.data_ptr(), glwe.data_ptr(), key.data_ptr(), dp.psi32.data_ptr(),
+            dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, kin1 - 1, kout1,
+            n.bit_length() - 1, lev, bl, int(add_sum), chunk, kernels._stream(glwe))
+        assert err == 0, f"K7's first kernel failed: cudaError {err}"
+        return out
+
+    runs = {"first": first}
+    if hasattr(lib, "tfhe_torch_glwe_keyswitch_cluster"):
+        lib.tfhe_torch_glwe_keyswitch_cluster.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+        def cluster():
+            out = torch.empty((b, kout1, n), dtype=torch.int64, device="cuda")
+            err = lib.tfhe_torch_glwe_keyswitch_cluster(
+                out.data_ptr(), glwe.data_ptr(), key.data_ptr(), tw_fwd.data_ptr(),
+                tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), b, kin1 - 1, kout1,
+                n.bit_length() - 1, lev, bl, int(add_sum), kernels._stream(glwe))
+            assert err == 0, f"K7's cluster kernel failed: cudaError {err}"
+            return out
+
+        runs["cluster"] = cluster
+    return runs
+
+
+def k7(libs, out, reps=10):
+    """K7 at K7_SHAPES, B = 512, on random words and a random key: each C
+    entry (k7_entries) held against server.glwe_keyswitch_sum at B = 3 and
+    timed in turns at B = 512 (CUDA events over reps launches), the
+    wrapper's time, and each kernel's phase table a GLWE (block 0 takes
+    one) from an instrumented copy of its source."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.default_rng(7)
+    n, bl, lev = 2048, 8, 4
+    dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+    res = {}
+    for tag, k_in, kout1, add_sum in K7_SHAPES:
+        key = torch.stack([torch.randint(0, q, (k_in, lev, kout1, n), generator=gen,
+                                         device="cuda") for q in dp.plan.primes],
+                          dim=-2).to(torch.int32).contiguous()
+        glwe = torus.from_u64(rng.integers(0, 1 << 64, (B, k_in + 1, n), dtype=np.uint64),
+                              "cuda")
+        row = {"batch": B, "k_in": k_in, "kout1": kout1, "N": n, "base_log": bl, "levels": lev}
+        if hasattr(kernels, "glwe_keyswitch_route"):
+            row["route"] = kernels.glwe_keyswitch_route(k_in, kout1, n, lev, bl)
+            row.update(kernels.glwe_keyswitch_figures(k_in, kout1, n, lev, bl))
+        small = glwe[:3].contiguous()
+        want = server.glwe_keyswitch_sum(small, key, dp, bl, lev, add_sum)
+        for name, run in k7_entries(kernels.load()["glwe_keyswitch"], small, key, dp, bl, lev,
+                                    add_sum).items():
+            row[f"{name}_err_b3"] = int((run() - want).abs().max())
+        runs = k7_entries(kernels.load()["glwe_keyswitch"], glwe, key, dp, bl, lev, add_sum)
+        runs["wrapper"] = lambda: kernels.glwe_keyswitch(glwe, key, dp, bl, lev, add_sum)
+        if "v_k7m3" in libs:     # the cluster kernel at three blocks an SM
+            vlib = libs["v_k7m3"]
+            f = "tfhe_torch_glwe_keyswitch"
+            getattr(vlib, f).argtypes = getattr(kernels.load()["glwe_keyswitch"], f).argtypes
+            variant = k7_entries(vlib, glwe, key, dp, bl, lev, add_sum).get("cluster")
+            if variant is not None:
+                runs["cluster_min3"] = variant
+                row["cluster_min3_err_b512"] = int((variant() - runs["first"]()).abs().max())
+        order = list(runs) + list(reversed(runs))
+        times = {name: [] for name in runs}
+        for name in order:
+            times[name].append(ms(runs[name], reps))
+        row["ms"] = times
+        if "h_k7" in libs:
+            hlib = libs["h_k7"]
+            f = "tfhe_torch_glwe_keyswitch"
+            getattr(hlib, f).argtypes = getattr(kernels.load()["glwe_keyswitch"], f).argtypes
+            getattr(hlib, f).restype = ctypes.c_int
+            for name, run in k7_entries(hlib, glwe, key, dp, bl, lev, add_sum).items():
+                row[f"{name}_phases"] = phases(hlib, run, "glwe_keyswitch_marked.cu"
+                                               if name == "cluster" else "glwe_keyswitch.cu", 1)
+        res[tag] = row
+        print("k7", tag, {k: v for k, v in row.items() if not k.endswith("phases")}, flush=True)
+        del key
+    out["k7"] = res
+
+
 def generic_checks(out):
     """Shapes off the lazy kernels' main instances, B small, against plain."""
     from tfhe_tpu_torch.ops import server128
@@ -550,7 +795,8 @@ def main():
     t0 = time.time()
     kernels.load()
     want = sorted({n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k3", "k3c"),
-                                  ("h_k3c", "k3c"), ("h_k2", "k2x"), ("h_kc", "k2x"))
+                                  ("h_k3c", "k3c"), ("h_k2", "k2x"), ("h_kc", "k2x"),
+                                  ("h_k1", "k1g"), ("h_k7", "k7"), ("v_k7m3", "k7"))
                    if w in which and "nophase" not in which})
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
@@ -566,12 +812,17 @@ def main():
         k3c(libs, out)
     if "k2x" in which:
         k2x(libs, out)
+    if "k1g" in which:
+        k1g(libs, out)
+    if "k7" in which:
+        k7(libs, out)
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
-    tables = list(out.get("k2x_test", {}).items()) + list(out.get("k3c", {}).items())
+    tables = (list(out.get("k2x_test", {}).items()) + list(out.get("k3c", {}).items())
+              + list(out.get("k1g", {}).items()) + list(out.get("k7", {}).items()))
     for tag, row in tables:
-        for name in ("generic", "cluster"):
+        for name in [k[:-len("_phases")] for k in row if k.endswith("_phases")]:
             ph = row.get(f"{name}_phases")
             if ph:
                 print(f"{tag} {name}: total/step (group) {ph['total_per_unit']:.0f} "
