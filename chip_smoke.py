@@ -147,7 +147,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      small-N cluster kernel, K1 at the PFPKS shape once a call on its
      limb-row kernel, no generic K1 launch, K2's CMux chain once a call
      for the low bits), a 10-bit vertical packing (K2's
-     CMux entry once, the chain once; the step entry never);
+     CMux entry once, on the small-N cluster kernel's CMux mode; the chain
+     once; the step entry never);
  29. aes: at the same sets, the S-box of 4 encrypted bytes and one AES-128
      round with injected encrypted round keys against the cleartext model
      (every packing of a table in one chain launch: 1 and 3);
@@ -178,7 +179,10 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      at C = 3 (K2's cluster kernel at k+1 = 4; the CM bootstrap key's 481
      MB), at C = 4 with keys of its own (the cluster kernel at k+1 = 5,
      which no block of the generic kernel holds) and one at C = 1 (K2's
-     lazy kernel), the extended PBS of 64 LWEs at E = 1, 2 and 4 on phase
+     lazy kernel), the CM CMux of 64 CM GLWE pairs at C = 3, 4 and 7 and
+     the CM external product at C = 3 (K2's CMux entry on the N = 2048
+     cluster kernel's CMux mode, which the card refused at C >= 4 before;
+     every slot decrypted, every word against server.cmux), the extended PBS of 64 LWEs at E = 1, 2 and 4 on phase
      3's exact key (K8's lazy kernel; at E = 1 the words of K2's exact
      rotation); each rotation's route, a block's shared memory and the
      clusters the card holds at once (cudaOccupancyMaxActiveClusters);
@@ -260,8 +264,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      3 and 4; K1
      at the PFPKS shape on phase 28's circuit-bootstrap LWEs (its limb-row
      kernel at B = 1, 3 and 40, timed as the cast's, the yardstick 21
-     GEMMs); K2's CMux entry against ct0 + external_product at B = 1 and
-     64; K7 at both signs on phase 33's inputs and keys (its cluster kernel
+     GEMMs); K2's CMux entry (its small route) against server.cmux at B =
+     1 and 64, in turns with its generic kernel; K7 at both signs on phase 33's inputs and keys (its cluster kernel
      at B = 3 and 512, timed in turns with its first kernel, and the int8
      torch._int_mm GEMMs of the digits by the key's negacyclic Toeplitz),
      K1 at the shrinking and CM shapes on phase 33's inputs (with the
@@ -269,7 +273,9 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      each E also at each of its slots a block, SB <= E; every SB that
      phase 33 ran must be among them), its generic kernel at l = 2 (the
      shape still routed to it), K2's cluster kernel at the CM shapes k+1 = 3, 4, 5 and 8 and its generic kernel at
-     k+1 = 4, at B = 4 over 64 steps of a random key; K2 at the TEST
+     k+1 = 4, at B = 4 over 64 steps of a random key, and its CMux entry
+     there (the cluster route; the generic kernel at k+1 <= 4) on a random
+     GGSW, with phase 33's CM CMux outputs; K2 at the TEST
      shapes (N = 512) at each shape and batch phases 28-29 launched it
      with, the route's kernel and the generic kernel's C entry in turns,
      timed beside their bounds; K2's small-N cluster kernel at the TEST
@@ -746,6 +752,11 @@ def limb_entry(kernels, ct, key, base_log: int, levels: int):
 
 
 # the times limb_route_figures takes of the limb-row kernel
+# K2's CMux entry's figures in the kernel line (cmux_route_figures; its
+# route goes in as "cmux_route": the line's "route" is the kernel's language)
+CMUX_FIGURES = ("ms", "graph_ms_in_turns", "generic_ms", "generic_graph_ms_in_turns",
+                "wrapper_ms", "wrapper_host_ms", "plain_ms", "share_of_bound",
+                "shared_memory_bytes", "active_clusters", "shape")
 LIMB_TIMES = ("ms", "generic_kernel_ms", "graph_in_turns_ms", "wrapper_ms", "entry_ms",
               "generic_kernel_events_ms", "in_turns_ms", "wrapper_host_ms", "entry_host_ms")
 
@@ -1187,20 +1198,23 @@ def ptxas_report(kernels, started: tuple) -> dict:
     return out
 
 
-def cluster_regs(report: dict, k1: int, levels: int, log_n: int) -> dict:
+def cluster_regs(report: dict, k1: int, levels: int, log_n: int, cmux: bool = False) -> dict:
     """ptxas's registers and spills of K2's cluster kernel's instance at a
-    shape (its template arguments in the mangled name)."""
+    shape (its template arguments in the mangled name), the rotation's or
+    (cmux) the CMux mode's."""
     regs = next((v for k, v in report.items()
-                 if f"blind_rotate_cluster_kernelILi{k1}ELi{levels}ELi{log_n}E" in k), {})
+                 if f"blind_rotate_cluster_kernelILi{k1}ELi{levels}ELi{log_n}ELb{int(cmux)}E"
+                 in k), {})
     return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
         "spill_store_bytes")}
 
 
-def small_regs(report: dict, levels: int, k1: int = 2) -> dict:
+def small_regs(report: dict, levels: int, k1: int = 2, cmux: bool = False) -> dict:
     """ptxas's registers and spills of K2's small-N cluster kernel at k+1 =
-    k1, l = levels."""
+    k1, l = levels, the rotation's instance or (cmux) the CMux mode's."""
     regs = next((v for k, v in report.items()
-                 if f"blind_rotate_cluster_small_kernelILi{k1}ELi{levels}E" in k), {})
+                 if f"blind_rotate_cluster_small_kernelILi{k1}ELi{levels}ELb{int(cmux)}E" in k),
+                {})
     return {"registers": regs.get("registers"), "spill_store_bytes": regs.get(
         "spill_store_bytes")}
 
@@ -1248,8 +1262,9 @@ def counters(kernels) -> tuple:
     """(name, wrapper, attribute) of every launch count: each wrapper's
     launches and, of them, those of K1's and K4's tensor-core kernels, of
     K1's limb-row kernel, of K2's lazy exact kernel (the rotation's and the
-    step entry's), of its cluster kernel, of K3's cluster kernel, of K7's
-    cluster kernel and of K8's lazy kernel."""
+    step entry's), of its cluster kernel, of its CMux entry's small and
+    cluster routes, of K3's cluster kernel, of K7's cluster kernel and of
+    K8's lazy kernel."""
     return tuple((w.__name__, w, "launches") for w in kernel_wrappers(kernels)) + (
         ("keyswitch_imma", kernels.keyswitch, "imma_launches"),
         ("keyswitch_limbs", kernels.keyswitch, "limb_launches"),
@@ -1259,6 +1274,8 @@ def counters(kernels) -> tuple:
         ("blind_rotate_cluster", kernels.blind_rotate, "cluster_launches"),
         ("blind_rotate_multibit_cluster", kernels.blind_rotate_multibit, "cluster_launches"),
         ("cmux_step_exact_lazy", kernels.cmux_step, "lazy_exact_launches"),
+        ("cmux_small", kernels.cmux, "small_launches"),
+        ("cmux_cluster", kernels.cmux, "cluster_launches"),
         ("blind_rotate_extended_lazy", kernels.blind_rotate_extended, "lazy_launches"),
         ("glwe_keyswitch_cluster", kernels.glwe_keyswitch, "cluster_launches"))
 
@@ -2992,6 +3009,63 @@ def squash_compress_phase(kernels, ns, sq_priv, nsk, sk, squashed, want, u64_add
             "sq_blocks": sq_blocks}
 
 
+def generic_cmux(kernels, ct0, ct1, ggsw, dp, base_log: int, levels: int):
+    """K2's CMux entry's first design, the generic exact kernel's external
+    product (csrc/blind_rotate.cu cmux_kernel), through its C entry at any
+    shape it takes: out = ct0 + GGSW (x) (ct1 - ct0), a new tensor."""
+    import torch
+
+    out = torch.empty_like(ct0)
+    b, k1, n_poly = ct0.shape
+    err = kernels.load()["blind_rotate"].tfhe_torch_cmux(
+        out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(), dp.psi32.data_ptr(),
+        dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), b, k1, n_poly.bit_length() - 1,
+        levels, dp.num_primes, base_log, kernels._stream(ct0))
+    if err:
+        raise RuntimeError(f"K2's generic CMux kernel failed: cudaError {err}")
+    return out
+
+
+def cmux_route_figures(kernels, server, ct0, ct1, ggsw, dp, base_log: int, levels: int,
+                       errs: dict, tag: str) -> dict:
+    """K2's CMux entry (kernels.cmux) on one input: one launch checked to
+    run on its route's kernel, its words (errs[tag]) and the generic
+    kernel's through its C entry (errs[tag + "_generic"]) against
+    server.cmux; the device's ms a launch from CUDA graphs, the new route's
+    and the generic kernel's in turns (new, generic, generic, new); the
+    wrapper's ms over 10 event-timed launches and the host's ms to enqueue
+    one; the plain version's ms, cmux_bound and the share of it; the
+    route's block figures."""
+    b, k1, n_poly = ct0.shape
+    args = (dp, base_log, levels)
+    route = kernels.cmux_route(k1, n_poly, levels, base_log)
+    want = server.cmux(ct0, ct1, ggsw, *args)
+    counts = ("launches", "small_launches", "cluster_launches")
+    before = [getattr(kernels.cmux, c) for c in counts]
+    got = kernels.cmux(ct0, ct1, ggsw, *args)
+    made = [getattr(kernels.cmux, c) - n for c, n in zip(counts, before)]
+    if made != [1, route == "small", route == "cluster"]:
+        raise RuntimeError(f"K2's CMux entry ({tag}) did not make one {route} launch: {made}")
+    errs[tag] = max_abs_err(got, want)
+    errs[f"{tag}_generic"] = max_abs_err(generic_cmux(kernels, ct0, ct1, ggsw, *args), want)
+    runs = {"new": lambda: kernels.cmux(ct0, ct1, ggsw, *args),
+            "generic": lambda: generic_cmux(kernels, ct0, ct1, ggsw, *args)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        times[name].append(graph_ms(runs[name]))
+    wrapper_ms, host_ms = launch_ms(runs["new"], 10)
+    bound = cmux_bound(ct0, levels, base_log)
+    fig = {"route": route, "ms": min(times["new"]), "graph_ms_in_turns": times["new"],
+           "generic_ms": min(times["generic"]), "generic_graph_ms_in_turns": times["generic"],
+           "wrapper_ms": wrapper_ms, "wrapper_host_ms": host_ms,
+           "plain_ms": cuda_ms(lambda: server.cmux(ct0, ct1, ggsw, *args), 3),
+           "bound": bound, "share_of_bound": bound["ms"] / min(times["new"]),
+           "shape": [b, k1, n_poly, levels, base_log]}
+    if route != "generic":
+        fig.update(kernels.cmux_figures(k1, n_poly, levels))
+    return fig
+
+
 def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     """Phase 28: WoPBS at TEST_PARAM_MESSAGE_2_CARRY_2 and TEST_WOPBS_PARAM
     (the only WoPBS sets either package has) on the card: keygen;
@@ -3000,8 +3074,9 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
     (each: the bits' PBS, the circuit bootstrap's PBS round and one K1
     launch at the PFPKS shape, the four low-bit rotations in one launch of
     K2's CMux chain); a WOPBS_TREE_BITS-bit vertical packing (one K2 CMux
-    launch for the tree, its nine low bits in one chain launch).  Every
-    output decrypted."""
+    launch for the tree, on its small route, the small-N cluster kernel's
+    CMux mode; its nine low bits in one chain launch).  Every output
+    decrypted."""
     import numpy as np
     import torch
 
@@ -3042,9 +3117,11 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
         kernels, lambda: wk.vertical_packing(wk.circuit_bootstrap_bits(bit_cts), table, p.delta))
     wrong += ck.decrypt_raw(tree_out) != f(v)
     if tree_launches != only(kernels, keyswitch=2, keyswitch_imma=1, keyswitch_limbs=1,
-                             blind_rotate=1, blind_rotate_cluster=1, cmux=1, cmux_chain=1):
+                             blind_rotate=1, blind_rotate_cluster=1, cmux=1, cmux_small=1,
+                             cmux_chain=1):
         raise RuntimeError(f"the {WOPBS_TREE_BITS}-bit vertical packing did not run one CMux "
-                           f"launch and one CMux-chain launch: {tree_launches}")
+                           f"launch (on the small-N cluster kernel) and one CMux-chain "
+                           f"launch: {tree_launches}")
     # the PFPKS inputs of one circuit bootstrap, for the kernel comparisons
     outs = sk.apply_lookup_table_batch(
         [c for _ in range(wk.params.cbs_level) for c in bit_cts],
@@ -3062,7 +3139,10 @@ def wopbs_phase(kernels, shortint_mod, wopbs, seed: int) -> dict:
             "extract_bits": {"seconds": bit_s, "launches": bit_launches},
             "apply_wopbs": lines,
             "vertical_packing": {"bits": WOPBS_TREE_BITS, "seconds": tree_s,
-                                 "launches": tree_launches},
+                                 "launches": tree_launches,
+                                 "cmux_route": kernels.cmux_route(
+                                     wk.k + 1, wk.n_poly, wk.params.cbs_level,
+                                     wk.params.cbs_base_log)},
             "outputs_checked": 4 + 32 + 1, "wrong": int(wrong)}
     return {"line": line, "wrong": int(wrong), "wk": wk, "sk": sk, "ck": ck, "ggsw": ggsw,
             "tree_bits": bit_cts, "tree_table": table,
@@ -3178,8 +3258,9 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
     the TEST shape on a random key; K1's generic
     kernel at base 2^37 (the toy test vectors' keyswitch); K1 at the PFPKS
     shape on phase 28's circuit-bootstrap LWEs against the plain keyswitch;
-    K2's CMux entry against ct0 + external_product on one of phase 28's
-    GGSWs at the tree's B = 1 and at B = 64; phase 28's 10-bit vertical
+    K2's CMux entry (its small route) against server.cmux on one of phase
+    28's GGSWs at the tree's B = 1 and at B = 64, in turns with the
+    generic kernel it replaced there (cmux_route_figures); phase 28's 10-bit vertical
     packing on the step route (one K2 step launch a low bit, the route of
     GGSW shapes the chain's kernel refuses) against the chain's words.
     Times, bounds."""
@@ -3271,22 +3352,17 @@ def slice13_vs_plain(kernels, server, server128, sqc_run, wopbs_run, seed: int,
         errs[f"pfpks_k1_b{b}"] = max_abs_err(got, server.keyswitch(lw[:b], wk.pfpksk, *pf_args))
     pf = limb_route_figures(kernels, server, lw, wk.pfpksk, wk.pfpks_key, *pf_args)
     errs.update({f"pfpks_k1_{name}": v for name, v in pf["words_differing"].items()})
-    # K2's CMux entry on a real GGSW
+    # K2's CMux entry on a real GGSW: its small route (the small-N cluster
+    # kernel's CMux mode) and, in turns, the generic kernel it replaced there
     ggsw = wopbs_run["ggsw"]
-    dp = wk.dp
     cm = {}
     for b in (1, 64):
         ct0, ct1 = rnd((b, wk.k + 1, wk.n_poly)), rnd((b, wk.k + 1, wk.n_poly))
-        out = kernels.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log, prm.cbs_level)
-        errs[f"cmux_b{b}"] = max_abs_err(out, server.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
-                                                          prm.cbs_level))
-        cm[f"b{b}"] = {
-            "ms": cuda_ms(lambda: kernels.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
-                                               prm.cbs_level), 10),
-            "plain_ms": cuda_ms(lambda: server.cmux(ct0, ct1, ggsw, dp, prm.cbs_base_log,
-                                                    prm.cbs_level), 3),
-            "bound": cmux_bound(ct0, prm.cbs_level, prm.cbs_base_log),
-            "shape": [b, wk.k + 1, wk.n_poly, prm.cbs_level]}
+        cm[f"b{b}"] = cmux_route_figures(kernels, server, ct0, ct1, ggsw, wk.dp,
+                                         prm.cbs_base_log, prm.cbs_level, errs, f"cmux_b{b}")
+        if cm[f"b{b}"]["route"] != "small":
+            raise RuntimeError(f"K2's CMux entry at the tree's shape took its "
+                               f"{cm[f'b{b}']['route']} route")
     # vertical packing's step route (no set of either package takes it)
     from tfhe_tpu_torch.shortint import wopbs
 
@@ -3651,9 +3727,11 @@ CM_SLOTS = 3
 GLWE_KS_DECOMP = (8, 4)       # base 2^8, l = 4
 PARTIAL_FILL = 3072           # the fast keyswitch's k_in = 2 partial key: 3072 of 4096 random
 CM_WIDE_SLOTS = 4             # the first C the generic kernel could not hold at 2_2
+CM_CMUX_SLOTS = (3, 4, 7)     # the CM CMux: C = 3, the first C the card refused before, C = 7
 EXT_FACTORS = (1, 2, 4)
 RESEARCH_STEPS = ("glwe_keyswitch", "fast_keyswitch", "shrinking_keyswitch", "cm_keyswitch",
                   "cm_packing", "cm_bootstrap", "cm_bootstrap_c4", "cm_bootstrap_c1",
+                  *(f"cm_cmux_c{c}" for c in CM_CMUX_SLOTS), "cm_external_product_c3",
                   *(f"extended_pbs_e{e}" for e in EXT_FACTORS))
 RESEARCH_PLAIN_STEPS = 64     # the rotations' plain comparisons: B = CHECK_BATCH, a random key
 EXT_PLAIN_FACTORS = (1, 2, 4, 8)
@@ -3728,6 +3806,27 @@ def encrypt_glwes(kg, sk, plaintexts, noise, gen, dev):
     return rows
 
 
+def encrypt_cm_glwes(kg, sks, plaintexts, noise, gen, dev):
+    """B CM GLWEs (B, k + C, N) under the C GLWE keys sks of the (B, C, N)
+    uint64 plaintexts (core/cm.py encrypt_cm_glwe's layout: a shared
+    k-polynomial mask, a body a key): the mask and noise streams drawn
+    whole, the secret products on the card (keygen.add_mask_times_secret,
+    one key a slot)."""
+    import numpy as np
+
+    b, c, n_poly = plaintexts.shape
+    k = sks[0].glwe_dimension
+    rows = np.zeros((b, k + c, n_poly), dtype=np.uint64)
+    rows[:, :k] = gen.mask.uniform_u64(b * k * n_poly).reshape(b, k, n_poly)
+    with np.errstate(over="ignore"):
+        rows[:, k:] = plaintexts + noise.sample(gen.noise, b * c * n_poly).reshape(b, c, n_poly)
+    for j, sk in enumerate(sks):
+        part = np.ascontiguousarray(np.concatenate([rows[:, :k], rows[:, k + j, None]], axis=1))
+        kg.add_mask_times_secret(part, sk, dev)
+        rows[:, k + j] = part[:, k]
+    return rows
+
+
 def decode_glwes(ntt, torus, sk, glwes, delta: int, dp):
     """The messages round(plaintext / delta) mod 16 of (B, k+1, N) GLWEs
     under sk, decrypted on the card."""
@@ -3765,7 +3864,11 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
     bootstrap (K2's cluster kernel at k+1 = 4) of 64 CmLwes with (3x + 1) %
     16, the same at C = 4 on keys of its own (the cluster kernel at k+1 =
     5), and one C = 1 call (K2's lazy kernel) on the C = 3 key's first
-    slot; the extended PBS (K8's lazy kernel) of 64 LWEs at E = 1, 2 and 4
+    slot; the CM CMux of 64 pairs at C = 3, 4 and 7 and the CM external
+    product at C = 3 (K2's CMux entry, its cluster route: the N = 2048
+    cluster kernel's CMux mode) on a CM GGSW of fixed per-slot bits, every
+    slot decrypted, every output against server.cmux, the generic kernel
+    in turns at C = 3; the extended PBS (K8's lazy kernel) of 64 LWEs at E = 1, 2 and 4
     on phase 3's exact key with (x^2 + 3) % 16, at E = 1 against K2's exact
     rotation.  Seconds, kernel CUDA-event ms, launches, routes, keygen
     seconds, key bytes, a block's shared memory and the clusters the card
@@ -3980,7 +4083,92 @@ def research_primitives_phase(kernels, torus, ck, sk, seed: int) -> dict:
     del c4
     torch.cuda.empty_cache()
 
-    # 6. the extended PBS (K8's lazy kernel) at E = 1, 2, 4 on phase 3's exact key
+    # 6. the CM CMux (K2's CMux entry at k+1 = k + C: its cluster route) at
+    # C = 3, 4, 7, and the CM external product at C = 3, of B =
+    # RESEARCH_PBS_BATCH pairs encrypted from known bodies, on a CM GGSW of
+    # fixed per-slot bits; every slot decrypted (cm.decrypt_cm_glwe)
+    g7 = g4 + [keygen.generate_binary_glwe_secret_key(k, n_poly, sec)
+               for _ in range(max(CM_CMUX_SLOTS) - len(g4))]
+    shift = delta.bit_length() - 1
+    run["cm_cmux"] = {}
+
+    def cm_cmux_step(tag, c_dim, fn, ct0, ct1, bits, want, ggsw):
+        """One CM CMux step through fn (cm.cm_cmux or cm_external_product),
+        every slot of every output decrypted against want (B, C, N), and its
+        words against server.cmux; the kernel timed from CUDA graphs of
+        kernels.cmux on (ct0, ct1)."""
+        nonlocal wrong
+        sks_c = g7[:c_dim]
+        k1 = k + c_dim
+        args = (ggsw.data, ggsw.dp, p.pbs_base_log, p.pbs_level)
+
+        def slots_wrong(out):
+            words = torus.to_u64(out)
+            with np.errstate(over="ignore"):
+                dec = np.stack([(cm.decrypt_cm_glwe(sks_c, w) + np.uint64(delta // 2))
+                                >> np.uint64(shift) for w in words]) & np.uint64(15)
+            return int((dec != want).any(axis=2).sum())
+
+        out = step(tag, fn, slots_wrong, {"cmux": 1, "cmux_cluster": 1},
+                   lambda: graph_ms(lambda: kernels.cmux(ct0, ct1, *args)),
+                   batch=RESEARCH_PBS_BATCH, slots=c_dim, bits=bits,
+                   route=kernels.cmux_route(k1, n_poly, p.pbs_level, p.pbs_base_log),
+                   slot_outputs_checked=RESEARCH_PBS_BATCH * c_dim,
+                   **kernels.cmux_figures(k1, n_poly, p.pbs_level),
+                   generic_kernel_would_need_bytes=kernels.exact_smem_bytes(k1, n_poly,
+                                                                           p.pbs_level))
+        if lines[tag]["route"] != "cluster":
+            raise RuntimeError(f"the CM CMux at k+1 = {k1} took K2's {lines[tag]['route']} "
+                               f"CMux route")
+        plain = server.cmux(ct0, ct1, *args)
+        lines[tag]["vs_plain_words_differing"] = int((out != plain).sum())
+        lines[tag]["plain_ms"] = cuda_ms(lambda: server.cmux(ct0, ct1, *args), 1)
+        wrong += lines[tag]["vs_plain_words_differing"]
+        bound = cmux_bound(ct0, p.pbs_level, p.pbs_base_log)
+        lines[tag]["bound_ms"] = bound["ms"]
+        lines[tag]["share_of_bound"] = bound["ms"] / lines[tag]["kernel_ms"]
+        return {"ms": lines[tag]["kernel_ms"], "bound": bound, "launches": 1,
+                "smem": lines[tag]["shared_memory_bytes"],
+                "vs_plain_words_differing": lines[tag]["vs_plain_words_differing"],
+                "plain_ms": lines[tag]["plain_ms"],
+                "shape": [RESEARCH_PBS_BATCH, k1, n_poly, p.pbs_level, p.pbs_base_log]}
+
+    for c_dim in CM_CMUX_SLOTS:
+        bits = [int(b_) for b_ in rng.integers(0, 2, c_dim)]
+        bits[0], bits[-1] = 0, 1           # both selections in every step
+        ggsw, ggsw_s = keygen_timed(lambda: cm.cm_ggsw_to_ntt(cm.encrypt_cm_ggsw(
+            g7[:c_dim], bits, pbs, p.glwe_noise, gen, device=dev), device=dev))
+        m0, m1 = rng.integers(0, 16, (2, RESEARCH_PBS_BATCH, c_dim, n_poly)).astype(np.uint64)
+        ct0, ct1 = (torus.from_u64(encrypt_cm_glwes(keygen, g7[:c_dim], m * np.uint64(delta),
+                                                    p.glwe_noise, gen, dev), dev)
+                    for m in (m0, m1))
+        sel = np.asarray(bits, dtype=bool)[None, :, None]
+        args = (ggsw.data, ggsw.dp, p.pbs_base_log, p.pbs_level)
+        fig = cm_cmux_step(f"cm_cmux_c{c_dim}", c_dim, lambda: cm.cm_cmux(ct0, ct1, *args),
+                           ct0, ct1, bits, np.where(sel, m1, m0), ggsw)
+        lines[f"cm_cmux_c{c_dim}"]["keygen_seconds"] = ggsw_s
+        if c_dim == CM_SLOTS:
+            # the generic kernel (its C entry), which held C <= 3 at these
+            # widths, in turns with the cluster route
+            times = {"cluster": [], "generic": []}
+            runs = {"cluster": lambda: kernels.cmux(ct0, ct1, *args),
+                    "generic": lambda: generic_cmux(kernels, ct0, ct1, *args)}
+            for name in ("cluster", "generic", "generic", "cluster"):
+                times[name].append(graph_ms(runs[name]))
+            fig["in_turns"] = times
+            fig["generic_ms"] = min(times["generic"])
+            lines[f"cm_cmux_c{c_dim}"]["generic_kernel_ms"] = fig["generic_ms"]
+            lines[f"cm_cmux_c{c_dim}"]["in_turns_ms"] = times
+            zeros = torch.zeros_like(ct1)
+            fig["external_product"] = cm_cmux_step(
+                "cm_external_product_c3", c_dim,
+                lambda: cm.cm_external_product(ct1, *args), zeros, ct1, bits,
+                np.where(sel, m1, 0), ggsw)
+        run["cm_cmux"][c_dim] = fig
+        del ggsw, ct0, ct1
+    torch.cuda.empty_cache()
+
+    # 7. the extended PBS (K8's lazy kernel) at E = 1, 2, 4 on phase 3's exact key
     key = sk.exact_bsk_ntt()
     g = lambda x: (x * x + 3) % 16  # noqa: E731
     ext_msgs = rng.integers(0, 16, RESEARCH_PBS_BATCH)
@@ -4031,8 +4219,10 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
     the CM shapes k+1 in CM_PLAIN_K1 and its generic kernel at k+1 = 4 (the
     kernel the cluster kernel replaced there) at B = CHECK_BATCH over
     RESEARCH_PLAIN_STEPS steps of a random key against their plain
-    versions, each wrapper call checked to have run the kernel it names.
-    Times and bounds."""
+    versions, each wrapper call checked to have run the kernel it names;
+    K2's CMux entry there (its cluster route; its generic kernel where its
+    block fits, k+1 <= 4) on a random GGSW and operands, and phase 33's CM CMux and external
+    product words against server.cmux.  Times and bounds."""
     import numpy as np
     import torch
 
@@ -4176,6 +4366,23 @@ def research_vs_plain(kernels, server, torus, run, p, seed: int, errs: dict) -> 
                  lambda: server.rotate_accumulator(acc, mask, *args))
             out["k2_cm"][k1]["generic_ms"] = cuda_ms(
                 lambda: generic_exact_rotate(kernels, acc, mask, *args), 3)
+        # K2's CMux entry there (its cluster route) on a random GGSW and
+        # random operands; its generic kernel at k+1 = 4
+        ggsw = random_ntt_key((p.pbs_level, k1, k1), dp, gen)
+        ct1 = torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n_poly), dtype=np.uint64), dev)
+        cargs = (ggsw, dp, p.pbs_base_log, p.pbs_level)
+        held(f"cmux_cluster_k{k1}_random_b{b}", lambda: kernels.cmux(acc, ct1, *cargs),
+             lambda: server.cmux(acc, ct1, *cargs), (kernels.cmux, "cluster_launches"), 1)
+        if (k1 <= kernels.GENERIC_MAX_K1
+                and kernels.exact_smem_bytes(k1, n_poly, p.pbs_level) <= kernels.SMEM_LIMIT):
+            held(f"cmux_generic_k{k1}_random_b{b}", lambda: generic_cmux(kernels, acc, ct1, *cargs),
+                 lambda: server.cmux(acc, ct1, *cargs))
+    # phase 33's CM CMux and external product outputs against server.cmux
+    for c_dim, fig in run["cm_cmux"].items():
+        errs[f"cm_cmux_c{c_dim}_b{RESEARCH_PBS_BATCH}"] = fig["vs_plain_words_differing"]
+        if "external_product" in fig:
+            errs[f"cm_external_product_c{c_dim}_b{RESEARCH_PBS_BATCH}"] = (
+                fig["external_product"]["vs_plain_words_differing"])
     return out
 
 
@@ -5649,6 +5856,16 @@ def main() -> None:
     hl_v7 = {path: br_paths[path] - lazy_paths[path] for path in HLAPI_PATHS + ("compact_pke",)}
     hl_lazy = {path: lazy_paths[path] for path in HLAPI_PATHS + ("compact_pke",)
                if lazy_paths[path]}
+    # K2's CMux entry by path (phases 28-30, 33) and by route
+    rp_cmux = rp_run["run"]["cm_cmux"]
+    rp_cmux_runs = {t: rp_run["line"][t]["launches"] for t in RESEARCH_STEPS
+                    if t.startswith("cm_cmux") or t.startswith("cm_external_product")}
+    cmux_paths = {**s13_launches("cmux"), "research_primitives": sum(
+        r.get("cmux", 0) for r in rp_cmux_runs.values())}
+    cmux_routes = {route: sum(s13_launches(f"cmux_{route}").values()) + sum(
+        r.get(f"cmux_{route}", 0) for r in rp_cmux_runs.values())
+        for route in ("small", "cluster")}
+    cmux_routes["generic"] = sum(cmux_paths.values()) - sum(cmux_routes.values())
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(card, flush=True)
     table = [
@@ -5937,23 +6154,40 @@ def main() -> None:
          "limb_rows_kernel": ptxas_of(ptxas_kernels, "keyswitch_limb_rows_kernel"),
          "generic_kernel": ptxas_of(ptxas_kernels, "keyswitch_kernel")},
         {"name": "cmux", "route": "cuda",
-         "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate_cluster.cu",
          "replaces": "tfhe_tpu/shortint/wopbs.py:212",
-         "kernel": "cmux_kernel (the generic exact kernel's external product)",
-         "launches": sum(s13_launches("cmux").values()),
-         "launches_by_path": {k: v for k, v in s13_launches("cmux").items() if v},
-         "max_abs_err": max(v for k, v in errs.items() if k.startswith("cmux_b")),
-         "ms": s13["cmux"]["b1"]["ms"], "plain_ms": s13["cmux"]["b1"]["plain_ms"],
+         "kernel": "blind_rotate_cluster_small_kernel (route small: N = 512) and "
+                   "blind_rotate_cluster_kernel (route cluster: N = 2048, 3 <= k+1 <= 8) in "
+                   "their one-step CMux mode; cmux_kernel of csrc/blind_rotate.cu elsewhere "
+                   "(route generic)",
+         "launches": sum(cmux_paths.values()),
+         "launches_by_path": {k: v for k, v in cmux_paths.items() if v},
+         "launches_by_route": cmux_routes, "cmux_route": s13["cmux"]["b1"]["route"],
+         "max_abs_err": max(v for k, v in errs.items() if k.startswith(("cmux_b", "cm_cmux"))),
+         **{k: s13["cmux"]["b1"][k] for k in CMUX_FIGURES},
          "bound_ms": s13["cmux"]["b1"]["bound"]["ms"],
          "bound_by": s13["cmux"]["b1"]["bound"]["by"],
          "library_ms": None,
          "library_call": "none: no PyTorch call computes an exact wrapping-u64 "
                          "negacyclic product",
-         "b64": {"ms": s13["cmux"]["b64"]["ms"], "plain_ms": s13["cmux"]["b64"]["plain_ms"],
+         "b64": {**{k: s13["cmux"]["b64"][k] for k in CMUX_FIGURES},
+                 "cmux_route": s13["cmux"]["b64"]["route"],
                  "bound_ms": s13["cmux"]["b64"]["bound"]["ms"],
                  "bound_by": s13["cmux"]["b64"]["bound"]["by"]},
-         "shape": s13["cmux"]["b1"]["shape"],
-         "registers": ptxas_of(ptxas_kernels, "cmux_kernel").get("registers")}]
+         "cm": {f"c{c}": {**{k: v for k, v in rp_cmux[c].items()
+                             if k not in ("bound", "external_product")},
+                          "bound_ms": rp_cmux[c]["bound"]["ms"],
+                          "bound_by": rp_cmux[c]["bound"]["by"],
+                          "share_of_bound": rp_cmux[c]["bound"]["ms"] / rp_cmux[c]["ms"]}
+                for c in CM_CMUX_SLOTS},
+         "cm_external_product_c3": {
+             "ms": rp_cmux[CM_SLOTS]["external_product"]["ms"],
+             "plain_ms": rp_cmux[CM_SLOTS]["external_product"]["plain_ms"],
+             "bound_ms": rp_cmux[CM_SLOTS]["external_product"]["bound"]["ms"]},
+         "registers": {"small": small_regs(ptxas_kernels, 4, 2, cmux=True),
+                       **{f"cluster_k1_{k1}": cluster_regs(ptxas_kernels, k1, 1, 11, cmux=True)
+                          for k1 in (4, 5, 8)},
+                       "generic": ptxas_of(ptxas_kernels, "cmux_kernel")}}]
     by_name = {entry["name"]: entry for entry in table}
     # the launches of phases 28-30 on K1 (its tensor-core kernel: the
     # integer PBS; the test vectors' keyswitches), K2's exact modes and the

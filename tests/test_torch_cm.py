@@ -7,7 +7,7 @@ plain version on (mask, 0)), the CM GGSW, its CMux and external product
 accumulator entry's plain version), the CM packing key and packing, the CM
 drift choice; and the routes and refusals of the CM rotation by shape.  At
 tfhe_tpu's toy set (TEST_VECTOR_TOY_PARAMS: n = 10, N = 256, noiseless), C
-= 2 slots, and one bootstrap at C = 4; the keys from module-scoped
+= 2 slots (the CMux also at C = 5), and one bootstrap at C = 4; the keys from module-scoped
 fixtures, built once in each package from the same seeds."""
 
 import jax
@@ -134,36 +134,58 @@ def glwe_keys():
     return out
 
 
-def test_cm_glwe_and_cmux(glwe_keys):
-    """CM GLWE encryption and decryption, the CM GGSW of cleartexts [0, 1]
-    and its NTT form, and one CMux (and external product) of two CM GLWEs:
-    tfhe_tpu's words; slot 0 keeps ct0, slot 1 takes ct1."""
-    sks, ref_sks = glwe_keys["port"], glwe_keys["ref"]
+@pytest.fixture(scope="module")
+def wide_glwe_keys(glwe_keys):
+    """The C = 2 GLWE keys and three more in each package: C = 5."""
+    out = {}
+    for tag, pkg, keygen in (("ref", ref_rng, ref_kg), ("port", csprng, kg)):
+        sec, _ = _gens(pkg, SEED + 5)
+        out[tag] = glwe_keys[tag] + [keygen.generate_binary_glwe_secret_key(K, N, sec)
+                                     for _ in range(3)]
+    return out
+
+
+# the GGSW's per-slot cleartext bits at each C
+CMUX_BITS = {2: [0, 1], 5: [0, 1, 1, 0, 1]}
+
+
+@pytest.mark.parametrize("c_dim", sorted(CMUX_BITS))
+def test_cm_glwe_and_cmux(glwe_keys, wide_glwe_keys, c_dim):
+    """CM GLWE encryption and decryption, the CM GGSW of per-slot cleartext
+    bits and its NTT form, and one CMux (and external product) of two CM
+    GLWEs at C = 2 and 5 (k + C = 6: a width whose CMux the card refused
+    at the 2_2 widths before its cluster route): tfhe_tpu's words; a slot
+    whose bit is 0 keeps ct0, one whose bit is 1 takes ct1, every slot
+    decrypted."""
+    keys = glwe_keys if c_dim == 2 else wide_glwe_keys
+    sks, ref_sks = keys["port"][:c_dim], keys["ref"][:c_dim]
+    bits = CMUX_BITS[c_dim]
     ref_gen, gen = _enc_gens(SEED + 12)
     rng = np.random.default_rng(5)
-    body = rng.integers(0, 16, size=(C, N)).astype(np.uint64) * np.uint64(DELTA)
+    body = rng.integers(0, 16, size=(c_dim, N)).astype(np.uint64) * np.uint64(DELTA)
     ref_ct = ref_cm.encrypt_cm_glwe(ref_sks, body, TOY.glwe.noise, ref_gen)
-    ct = cm.encrypt_cm_glwe(sks, body, NOISE, gen)
-    assert ct.shape == (K + C, N) and (ct == ref_ct).all()
+    ct = cm.encrypt_cm_glwe(sks, body, NOISE, gen, device="cpu")
+    assert ct.shape == (K + c_dim, N) and (ct == ref_ct).all()
     assert (cm.decrypt_cm_glwe(sks, ct) == body).all()
     decomp = DecompParams(24, 1)
-    ref_ggsw = ref_cm.encrypt_cm_ggsw(ref_sks, [0, 1], RefDecomp(24, 1), TOY.glwe.noise, ref_gen)
-    ggsw = cm.encrypt_cm_ggsw(sks, [0, 1], decomp, NOISE, gen, device="cpu")
-    assert ggsw.shape == (1, K + C, K + C, N) and (ggsw == ref_ggsw).all()
+    ref_ggsw = ref_cm.encrypt_cm_ggsw(ref_sks, bits, RefDecomp(24, 1), TOY.glwe.noise, ref_gen)
+    ggsw = cm.encrypt_cm_ggsw(sks, bits, decomp, NOISE, gen, device="cpu")
+    assert ggsw.shape == (1, K + c_dim, K + c_dim, N) and (ggsw == ref_ggsw).all()
     ref_mont, plan = ref_cm.cm_ggsw_to_ntt(ref_ggsw)
     key = cm.cm_ggsw_to_ntt(ggsw, device="cpu")
     assert (key.data.numpy().view(np.uint32) == ref_mont).all()
-    p0 = np.full((C, N), 3 * DELTA, dtype=np.uint64)
-    p1 = np.full((C, N), 12 * DELTA, dtype=np.uint64)
-    ct0 = cm.encrypt_cm_glwe(sks, p0, NOISE, gen)
-    ct1 = cm.encrypt_cm_glwe(sks, p1, NOISE, gen)
+    p0 = np.full((c_dim, N), 3 * DELTA, dtype=np.uint64)
+    p1 = np.full((c_dim, N), 12 * DELTA, dtype=np.uint64)
+    ct0 = cm.encrypt_cm_glwe(sks, p0, NOISE, gen, device="cpu")
+    ct1 = cm.encrypt_cm_glwe(sks, p1, NOISE, gen, device="cpu")
     want = np.asarray(REF_CM_CMUX(jnp.asarray(ct0)[None], jnp.asarray(ct1)[None],
                                   jnp.asarray(ref_mont), plan, 24, 1))
     got = _np(cm.cm_cmux(_t(ct0)[None], _t(ct1)[None], key.data, key.dp, 24, 1))
     assert (got == want).all()
     with np.errstate(over="ignore"):
         dec = (cm.decrypt_cm_glwe(sks, got[0]) + np.uint64(DELTA // 2)) >> np.uint64(59)
-    assert (dec[0] % 16 == 3).all() and (dec[1] % 16 == 12).all()
+    for slot, bit in enumerate(bits):
+        assert (dec[slot] % 16 == (12 if bit else 3)).all(), slot
     want_ep = np.asarray(REF_CM_EXTERNAL_PRODUCT(jnp.asarray(ct1)[None], jnp.asarray(ref_mont),
                                                  plan, 24, 1))
     assert (_np(cm.cm_external_product(_t(ct1)[None], key.data, key.dp, 24, 1)) == want_ep).all()

@@ -329,3 +329,91 @@ def test_slice15_entry_points_default_to_cuda(no_gpu):
                  lambda: cm.cm_bootstrap_key_to_ntt(np.zeros((1, 1, 3, 3, 16), np.uint64))):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+# the public keygen functions that defaulted to the CPU until they were
+# made to default to the card (module under tfhe_tpu_torch, name)
+REPAIRED_DEFAULTS = (("core.keygen", "add_mask_times_secret"),
+                     ("core.keygen", "generate_lwe_bootstrap_key"),
+                     ("core.multibit", "generate_multibit_bootstrap_key"),
+                     ("shortint.compression", "generate_packing_keyswitch_key"),
+                     ("ops.bsk_prep", "mask_floor_bsk"),
+                     ("core.cm", "encrypt_cm_lwe_batch"),
+                     ("core.cm", "encrypt_cm_glwe"))
+
+
+def _device_defaults():
+    """(qualified name, default) of every public function, class __init__
+    and public method of every tfhe_tpu_torch module whose ``device``
+    parameter defaults to a string or a torch.device."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    found = {}
+    for info in pkgutil.walk_packages(tfhe_tpu_torch.__path__, "tfhe_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                fns = [(f"{mod.__name__}.{name}", obj)]
+            elif inspect.isclass(obj):
+                fns = [(f"{mod.__name__}.{name}.{attr}", inspect.unwrap(fn))
+                       for attr, fn in vars(obj).items()
+                       if attr == "__init__" or not attr.startswith("_")]
+                fns = [(q, getattr(fn, "__func__", fn)) for q, fn in fns]
+                fns = [(q, fn) for q, fn in fns if inspect.isfunction(fn)]
+            else:
+                continue
+            for qual, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None and isinstance(param.default, (str, torch.device)):
+                    found[qual] = param.default
+    return found
+
+
+def test_no_public_device_default_is_the_cpu():
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: no public function, class __init__ or public method of the port
+    defaults ``device`` to the CPU.  The seven keygen functions that once
+    did are named, so that a regression names its culprit."""
+    defaults = _device_defaults()
+    for mod, name in REPAIRED_DEFAULTS:
+        qual = f"tfhe_tpu_torch.{mod}.{name}"
+        assert qual in defaults, f"{qual} lost its device parameter"
+        assert torch.device(defaults[qual]).type == "cuda", f"{qual} defaults to {defaults[qual]}"
+    on_cpu = sorted(q for q, d in defaults.items() if torch.device(d).type == "cpu")
+    assert not on_cpu, f"device defaults to the CPU in {on_cpu}"
+    assert len(defaults) > 2 * len(REPAIRED_DEFAULTS)
+
+
+def test_repaired_keygen_defaults_raise_without_a_gpu(no_gpu):
+    """The seven repaired functions, called without a device where there is
+    no card, raise before any arithmetic instead of running on the host."""
+    import numpy as np
+
+    from tfhe_tpu_torch.core import cm, keygen, multibit
+    from tfhe_tpu_torch.core.entities import LweBootstrapKey
+    from tfhe_tpu_torch.core.params import DecompParams
+    from tfhe_tpu_torch.ops import bsk_prep
+    from tfhe_tpu_torch.shortint import compression
+    from tfhe_tpu_torch.utils import csprng
+
+    sec = csprng.SecretRandomGenerator(1)
+    gen = csprng.EncryptionRandomGenerator(2, csprng.DeterministicSeeder(3))
+    noise, decomp = csprng.TUniform(0), DecompParams(8, 2)
+    lwe = [keygen.generate_binary_lwe_secret_key(4, sec) for _ in range(2)]
+    glwe = [keygen.generate_binary_glwe_secret_key(1, 16, sec) for _ in range(2)]
+    for call in (lambda: keygen.add_mask_times_secret(np.zeros((1, 2, 16), np.uint64), glwe[0]),
+                 lambda: keygen.generate_lwe_bootstrap_key(lwe[0], glwe[0], decomp, noise, gen),
+                 lambda: multibit.generate_multibit_bootstrap_key(lwe[0], glwe[0], decomp, 2,
+                                                                  noise, gen),
+                 lambda: compression.generate_packing_keyswitch_key(lwe[0], glwe[0], 8, 2,
+                                                                    noise, gen),
+                 lambda: bsk_prep.mask_floor_bsk(
+                     LweBootstrapKey(np.zeros((1, 1, 2, 2, 16), np.uint64), decomp), glwe[0], 4),
+                 lambda: cm.encrypt_cm_lwe_batch(lwe, np.zeros((1, 2), np.uint64), noise, gen),
+                 lambda: cm.encrypt_cm_glwe(glwe, np.zeros((2, 16), np.uint64), noise, gen)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

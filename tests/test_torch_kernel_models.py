@@ -22,7 +22,12 @@ Garner on each quarter from the four primes' residues; its small-N kernel
 at the TEST shapes (N = 512: the rotation, l = 1, and vertical packing's
 CMux chain, l = 4, a GGSW set a ciphertext) and 1_1's k+1 = 5, the
 kernel's digits and ranges against tfhe_tpu and the plain cmux_chain, and
-its route.  K3's cluster kernel (csrc/blind_rotate_multibit_cluster.cu) at
+its route; the one-step CMux mode of both cluster kernels (K2's CMux entry:
+d = ct1 - ct0 as the accumulator copy, each prime's digits, lazy
+transforms and product in its own block, Garner on quarters added to
+ct0's) at WoPBS's tree shape and at C = 3 and 7 on the 2_2 widths,
+against tfhe_tpu's WopbsKey._cmux and cm_cmux, and the entry's routes.
+K3's cluster kernel (csrc/blind_rotate_multibit_cluster.cu) at
 the GPU multi-bit GROUP_2 and GROUP_3 shapes: each prime's bundle, lazy
 transforms and product in its own block, the accumulator kept as its
 words' decomposer states, Garner on each quarter from the four primes'
@@ -44,6 +49,7 @@ exact_lazy_shape) live in the CUDA sources; chip_smoke.py holds them
 against the same sets on the card."""
 
 import copy
+import types
 
 import numpy as np
 import pytest
@@ -52,6 +58,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tfhe_tpu.core import cm as ref_cm
 from tfhe_tpu.core import experimental as ref_exp
 from tfhe_tpu.ops import ntt as ref_ntt
 from tfhe_tpu.ops import server as ref_srv
@@ -1034,6 +1041,159 @@ def test_small_n_route_takes_the_test_sets_and_the_wopbs_chain():
                                             False) == "cluster", p
     w = wopbs.TEST_WOPBS_PARAM
     assert kernels.small_shape(2, 512, w.cbs_level, w.cbs_base_log)
+
+
+# ---------------------------------------------------------------------------
+# K2's CMux entry on the cluster kernels (csrc/blind_rotate_cluster.cu, their
+# one-step CMux mode; ops/kernels.py cmux_route): out = ct0 + GGSW (x) (ct1 -
+# ct0), the small-N kernel at WoPBS's tree (k+1 = 2, N = 512, l = 4, base
+# 2^6) and the N = 2048 kernel at the common-mask CMux's widths (l = 1, base
+# 2^23, k+1 = k + C)
+# ---------------------------------------------------------------------------
+
+CMUX_SHAPES = {"wopbs_tree": (2, 512, 4, 6), "cm_c3": (4, 2048, 1, 23),
+               "cm_c7": (8, 2048, 1, 23)}
+REF_CM_CMUX = jax.jit(ref_cm.cm_cmux, static_argnums=(3, 4, 5))
+
+
+def _ref_wopbs_cmux(plan, base_log, levels):
+    """tfhe_tpu's WopbsKey._cmux at the given plan and CBS decomposition,
+    compiled whole (its eager external product compiles each operation on
+    its own)."""
+    stub = types.SimpleNamespace(plan=plan, params=types.SimpleNamespace(
+        cbs_base_log=base_log, cbs_level=levels))
+    return jax.jit(lambda ggsw, ct0, ct1: ref_wopbs.WopbsKey._cmux(stub, ggsw, ct0, ct1))
+
+
+class _CmuxStep:
+    """One launch of the cluster kernels' CMux mode on numpy u64 (B, k+1, N)
+    operands and a GGSW (l, k+1, k+1, P, N) of Montgomery residues: d = ct1
+    - ct0 (the accumulator copy the kernel loads), then block p of a
+    ciphertext's cluster: the digits' residues d + 2p mod its prime (from
+    the high word: hi_word_digit at l = 1, hi_decomposer_state where
+    base_log l <= 30), lazy forward stages, canonical inputs to the key
+    product, the l (k+1) products summed in 64 bits and reduced once a
+    four into [0, 2p), lazy inverse stages and N^-1; then block r's Garner
+    on quarter r of the (k+1) N coefficients from the four blocks'
+    residues there, added to ct0's quarter r, with each range the kernels
+    rely on asserted."""
+
+    def __init__(self, n_poly, levels, base_log):
+        self.n, self.levels, self.base_log = n_poly, levels, base_log
+        self.plan = ref_ntt.make_plan(n_poly, P)
+        self.dp = ntt.device_plan(ntt.make_plan(n_poly, P), "cpu")
+        self.fwd, self.inv = (t.numpy().view(np.uint32).astype(np.uint64)
+                              for t in ntt.shoup_twiddles(self.dp))
+
+    def digits(self, d):
+        if self.levels == 1:
+            return _hi_word_digit(d >> np.uint64(32), self.base_log)[None]
+        assert self.base_log * self.levels <= 30
+        return _hi_digits(d, self.base_log, self.levels)
+
+    def block(self, i, rows, ggsw):
+        """Prime i's block: (B, k+1, N) canonical residues of the product
+        times N^-1 (the Garner inputs it stores into their owners)."""
+        b, k1 = rows.shape[0], ggsw.shape[1]
+        pp, p = self.plan.plans[i], int(self.plan.primes[i])
+        p64, pinv = np.uint64(p), np.uint64(pp.p_inv_neg32)
+        res = ((rows + 2 * p) & M32).astype(np.uint64)
+        assert (res < 4 * p).all()
+        x = _reduce_to(_reduce_to(_lazy_forward(res, self.fwd[i, :, 0], self.fwd[i, :, 1], p64),
+                                  2 * p64), p64)
+        key = ggsw[..., i, :].astype(np.uint64).reshape(-1, k1, self.n)   # ((lev, r), cc, N)
+        prod = np.zeros((b, k1, self.n), dtype=np.uint64)
+        for cc in range(k1):
+            for r0 in range(0, rows.shape[1], 4):
+                t = sum(x[:, r] * key[r, cc] for r in range(r0, min(r0 + 4, rows.shape[1])))
+                assert (t < p64 << np.uint64(32)).all()
+                prod[:, cc] = _reduce_to(prod[:, cc] + _redc_lazy(t, p64, pinv), 2 * p64)
+        assert (prod < 2 * p).all()
+        z = _reduce_to(_lazy_inverse(prod, self.inv[i, :, 0], self.inv[i, :, 1], p64), p64)
+        return ref_ntt.mont_mul(z, pp.n_inv_mont, p64, pp.p_inv_neg32, np)
+
+    def __call__(self, ct0, ct1, ggsw):
+        b, k1, n = ct0.shape
+        d = ct1 - ct0
+        rows = self.digits(d).transpose(1, 0, 2, 3).reshape(b, -1, n)     # (B, (lev, r), N)
+        y = np.stack([self.block(i, rows, ggsw).reshape(b, -1) for i in range(P)], axis=1)
+        quarter = k1 * n // 4
+        out = ct0.reshape(b, -1).copy()
+        for r in range(4):
+            at = slice(r * quarter, (r + 1) * quarter)
+            out[:, at] += torus.to_u64(ntt.garner_to_u64(_i64(y[:, :, at]), self.dp))
+        return out.reshape(ct0.shape)
+
+
+@pytest.mark.parametrize("tag", sorted(CMUX_SHAPES))
+def test_cmux_mode_matches_tfhe_tpu(tag):
+    """The CMux mode's model at WoPBS's tree shape and at C = 3 and 7 on the
+    2_2 widths, B = 2 on a random GGSW: tfhe_tpu's WopbsKey._cmux (the tree)
+    or cm_cmux (the common mask), and the port's plain kernels.cmux, word
+    for word."""
+    k1, n, levels, base_log = CMUX_SHAPES[tag]
+    rng = np.random.default_rng(67 + k1)
+    model = _CmuxStep(n, levels, base_log)
+    ggsw = np.stack([rng.integers(0, p, (levels, k1, k1, n), dtype=np.uint64)
+                     for p in model.plan.primes], axis=-2).astype(np.uint32)
+    ct0, ct1 = (rng.integers(0, 1 << 64, (2, k1, n), dtype=np.uint64) for _ in range(2))
+    ct1[0, 0, :3] = ct0[0, 0, :3] + np.array([0, (1 << 64) - 1, 1 << 63], dtype=np.uint64)
+    got = model(ct0, ct1, ggsw)
+    if tag == "wopbs_tree":
+        want = _ref_wopbs_cmux(model.plan, base_log, levels)(jnp.asarray(ggsw), jnp.asarray(ct0),
+                                                              jnp.asarray(ct1))
+    else:
+        want = REF_CM_CMUX(jnp.asarray(ct0), jnp.asarray(ct1), jnp.asarray(ggsw), model.plan,
+                           base_log, levels)
+    assert (got == np.asarray(want)).all()
+    plain = kernels.cmux(torus.from_u64(ct0, "cpu"), torus.from_u64(ct1, "cpu"),
+                         torch.from_numpy(ggsw.view(np.int32)), model.dp, base_log, levels)
+    assert (torus.to_u64(plain) == got).all()
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 512, 4, 6), "small"),          # WoPBS's tree (TEST_WOPBS_PARAM's CBS)
+    ((2, 512, 1, 23), "small"),
+    ((5, 512, 1, 23), "small"),         # 1_1's widths
+    ((2, 512, 5, 6), "generic"),        # past l = 4
+    ((2, 2048, 1, 23), "generic"),      # C = 1 at the 2_2 widths
+    ((2, 1024, 1, 23), "generic"),      # N = 1024
+    ((2, 1024, 3, 7), "generic"),
+    ((3, 2048, 1, 23), "cluster"),      # the common mask at C = 2 .. 7
+    ((4, 2048, 1, 23), "cluster"),
+    ((5, 2048, 1, 23), "cluster"),
+    ((6, 2048, 1, 23), "cluster"),
+    ((7, 2048, 1, 23), "cluster"),
+    ((8, 2048, 1, 23), "cluster"),
+    ((2, 2048, 2, 15), "generic"),      # past l = 1 at N = 2048 (its block fits)
+])
+def test_cmux_route(shape, route):
+    """K2's CMux entry takes the small-N kernel's CMux mode at the small-N
+    shapes, the N = 2048 cluster kernel's at 3 <= k+1 <= 8, l = 1 (CLUSTER_
+    SHAPES below N = 8192), and its generic kernel at every other shape it
+    fits: every shape chip_smoke.py gives it."""
+    assert kernels.cmux_route(*shape) == route
+    assert (route == "small") == kernels.small_shape(*shape)
+
+
+@pytest.mark.parametrize("shape", [(9, 2048, 1, 23), (4, 2048, 2, 15), (2, 8192, 2, 15),
+                                   (6, 1024, 1, 23)])
+def test_cmux_route_refuses_what_no_kernel_takes(shape):
+    """k+1 = 9 at N = 2048 passes the cluster kernel's 8 rows and the
+    generic kernel's 5; 3_3's shape has no CMux mode and passes a block;
+    k+1 = 6 at N = 1024 takes no kernel: a ValueError naming the limits."""
+    with pytest.raises(ValueError, match="CMux entry at k\\+1 = .*generic kernel takes k\\+1 <= 5"
+                                         ".*cluster kernels take 3 <= k\\+1 <= 8, N = 2048"):
+        kernels.cmux_route(*shape)
+
+
+def test_cmux_route_takes_the_wopbs_tree():
+    """TEST_WOPBS_PARAM's CMux tree at the TEST sets' widths is the small
+    route's shape."""
+    from tfhe_tpu_torch.shortint import wopbs
+
+    w = wopbs.TEST_WOPBS_PARAM
+    assert kernels.cmux_route(2, 512, w.cbs_level, w.cbs_base_log) == "small"
 
 
 # ---------------------------------------------------------------------------

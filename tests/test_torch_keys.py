@@ -133,7 +133,7 @@ def test_mask_floor_bsk_matches():
     glwe.data = sk
     want = ref_mxu.mask_floor_bsk(RefBsk(data, RefDecomp(23, 1), 64), glwe, 15)
     got = bsk_prep.mask_floor_bsk(
-        LweBootstrapKey(data, DecompParams(23, 1)), glwe, 15)
+        LweBootstrapKey(data, DecompParams(23, 1)), glwe, 15, device="cpu")
     assert (got.data == want.data).all()
     assert (got.data[..., 0, :] & np.uint64((1 << 15) - 1) == 0).all()
 

@@ -10,8 +10,10 @@ position i encrypts the slots' key bits [s^in_1[i], .., s^in_C[i]]
 
 Layouts as tfhe_tpu's: a CmLwe batch is (B, n + C) [mask | bodies], a
 CmGlwe batch (B, k + C, N), the CM GGSW level matrices (k + C, k + C)
-squares, so K2 runs them at k+1 = k + C: the CM CMux on its CMux entry
-(kernels.cmux: C <= 3 at k = 1, N = 2048, l = 1), the CM rotation on its
+squares, so K2 runs them at k+1 = k + C: the CM CMux and external product
+on its CMux entry (kernels.cmux: at k = 1, N = 2048, l = 1 its "cluster"
+route, the cluster kernel's one-step CMux mode, at C = 2 .. 7; its
+generic kernel at C = 1), the CM rotation on its
 exact rotation of a given accumulator (kernels.rotate_accumulator: the
 lazy kernel at C = 1 on the 2_2 shape, the cluster kernel at k + C = 3 ..
 8, N = 2048, l = 1, so C <= 7 at the 2_2 widths, the generic kernel at
@@ -86,7 +88,7 @@ def cm_lwe_scalar_mul(a, scalar: int):
 
 
 def encrypt_cm_lwe_batch(sks: list, encoded: np.ndarray, noise_distribution,
-                         gen: EncryptionRandomGenerator, device="cpu") -> np.ndarray:
+                         gen: EncryptionRandomGenerator, device="cuda") -> np.ndarray:
     """R CmLwes, row r encrypting encoded[r] (R, C): the words of
     encrypt_cm_lwe called row after row on gen (n mask words, then C noise
     samples a row: the mask and noise streams drawn whole, in order), the
@@ -201,7 +203,7 @@ def _draw_cm_glwe(row: np.ndarray, body_inits: np.ndarray, noise_distribution,
 
 
 def encrypt_cm_glwe(sks: list, body_inits: np.ndarray, noise_distribution,
-                    gen: EncryptionRandomGenerator, device="cpu") -> np.ndarray:
+                    gen: EncryptionRandomGenerator, device="cuda") -> np.ndarray:
     """A shared k-polynomial mask, one body polynomial a GLWE key; body_inits
     (C, N) the bodies' plaintext content.  Returns (k + C, N) uint64."""
     k, n_poly = sks[0].data.shape
@@ -272,13 +274,15 @@ def cm_ggsw_to_ntt(ggsw: np.ndarray, num_primes: int = 4, device="cuda") -> NttK
 
 def cm_external_product(cm_glwe, ggsw_ntt, dp, base_log: int, levels: int):
     """cm_ggsw_external_product.rs:45: the standard external product at
-    glwe_size k + C, batched (B, k + C, N); K2's CMux entry on (0, glwe)."""
+    glwe_size k + C, batched (B, k + C, N); K2's CMux entry on (0, glwe),
+    by kernels.cmux_route."""
     return kernels.cmux(torch.zeros_like(cm_glwe), cm_glwe, ggsw_ntt, dp, base_log, levels)
 
 
 def cm_cmux(ct0, ct1, ggsw_ntt, dp, base_log: int, levels: int):
     """ct0 + GGSW (x) (ct1 - ct0), each slot selected by its cleartext bit
-    (cm_ggsw_external_product.rs:184): K2's CMux entry at k+1 = k + C."""
+    (cm_ggsw_external_product.rs:184): K2's CMux entry at k+1 = k + C, by
+    kernels.cmux_route."""
     return kernels.cmux(ct0, ct1, ggsw_ntt, dp, base_log, levels)
 
 

@@ -111,13 +111,13 @@ def draw_ggsw_rows(out: np.ndarray, cleartext: int, glwe_sk: GlweSecretKey,
                 rows[r, k, 0] += np.uint64((-factor) % (1 << 64))
 
 
-def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey, device="cpu") -> None:
+def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey, device="cuda") -> None:
     """rows (R, k+1, N) GLWEs whose bodies lack the secret term: body +=
     sum_i mask_i * s_i (negacyclic, wrapping), in place, the products taken
     with the torch half of the CRT-NTT on ``device``, ROWS_PER_BATCH rows a
     batch (exact integer arithmetic: the words of the host half)."""
     k = glwe_sk.glwe_dimension
-    dp = ntt.device_plan(ntt.make_plan(glwe_sk.polynomial_size), str(device))
+    dp = ntt.device_plan(ntt.make_plan(glwe_sk.polynomial_size), str(resolve_device(device)))
     key = ntt.key_ntt(glwe_sk.data.astype(np.uint64), dp).to(torch.int64)
     with np.errstate(over="ignore"):
         for s in range(0, rows.shape[0], ROWS_PER_BATCH):
@@ -133,7 +133,7 @@ def generate_lwe_bootstrap_key(
     decomp: DecompParams,
     noise_distribution,
     gen: EncryptionRandomGenerator,
-    device="cpu",
+    device="cuda",
 ) -> LweBootstrapKey:
     """One GGSW of each input key bit, from one fork per GGSW, then per
     level, then per row (lwe_bootstrap_key_generation.rs:122-138); the
@@ -143,6 +143,7 @@ def generate_lwe_bootstrap_key(
     n_poly = glwe_sk.polynomial_size
     levels = decomp.level_count
     k1 = k + 1
+    device = resolve_device(device)
     out = np.zeros((n_in, levels, k1, k1, n_poly), dtype=np.uint64)
     ggsw_gens = gen.fork(n_in, levels * k1 * k * n_poly, levels * k1 * n_poly,
                          noise_distribution)

@@ -18,6 +18,7 @@ import numpy as np
 
 from ..ops import ntt
 from ..utils.csprng import EncryptionRandomGenerator
+from ..utils.device import resolve_device
 from .entities import GlweSecretKey, LweSecretKey
 from .keygen import add_mask_times_secret, draw_ggsw_rows
 from .params import DecompParams
@@ -30,7 +31,7 @@ def generate_multibit_bootstrap_key(
     grouping_factor: int,
     noise_distribution,
     gen: EncryptionRandomGenerator,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Returns the (n/g, 2^g, l, k+1, k+1, N) uint64 standard-domain key.
 
@@ -43,6 +44,7 @@ def generate_multibit_bootstrap_key(
     n_in = input_sk.dimension
     if n_in % g:
         raise ValueError("lwe_dimension must be divisible by grouping_factor")
+    device = resolve_device(device)
     k = glwe_sk.glwe_dimension
     n_poly = glwe_sk.polynomial_size
     levels = decomp.level_count

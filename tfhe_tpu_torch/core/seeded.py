@@ -168,6 +168,6 @@ def seed_generate_lwe_bootstrap_key(input_sk, glwe_sk, decomp: DecompParams,
                     rows[i, j, r, k] += glwe_sk.data[r].astype(np.uint64) * np.uint64(factor)
                 rows[i, j, k, k, 0] += np.uint64((-factor) % (1 << 64))
     flat = rows.reshape(-1, glwe_size, n_poly)
-    kg.add_mask_times_secret(flat, glwe_sk)
+    kg.add_mask_times_secret(flat, glwe_sk, "cpu")
     return SeededLweBootstrapKey(seed, np.ascontiguousarray(rows[..., k, :]), k, n_poly,
                                  decomp)

@@ -260,7 +260,13 @@ extern "C" int tfhe_torch_blind_rotate(void* acc, const void* mask, const void* 
 // external product there; tfhe_tpu has no Pallas kernel for it).  Plain
 // version: tfhe_tpu_torch/ops/server.py `cmux`.  One block a batch element,
 // the generic kernel's shared-memory layout; a block reads its ct0 row
-// whole before it writes out, so out may be ct0.
+// whole before it writes out, so out may be ct0.  The first design: since
+// the cluster kernels' one-step CMux mode (csrc/blind_rotate_cluster.cu
+// tfhe_torch_cmux_cluster) took WoPBS's tree (N = 512: 0.0129 against this
+// kernel's 0.0310 ms at B = 1, 0.0198 against 0.0315 at B = 64) and the
+// common-mask CMux (N = 2048: 0.0484 against 0.1312 ms at C = 3, B = 64;
+// NVIDIA H100 80GB HBM3, 700 W), ops/kernels.py cmux_route sends it only
+// the shapes neither takes.
 // ---------------------------------------------------------------------------
 
 namespace {

@@ -89,6 +89,19 @@
 // 671,744 B of state through L2 three times a step; the cluster moves only
 // the accumulator's reads (2 u64 a coefficient) and Garner's residues (4
 // u32 a coefficient) between SMs.
+//
+// Both kernels also run K2's CMux entry (tfhe_torch_cmux_cluster; ops/
+// kernels.py cmux, its "small" and "cluster" routes): out = ct0 + GGSW (x)
+// (ct1 - ct0) for a batch sharing one GGSW, the CMux tree of vertical
+// packing (tfhe_tpu/shortint/wopbs.py:212 `_cmux`, N = 512, l = 4) and the
+// common-mask CMux and external product (tfhe_tpu/core/cm.py:249, N =
+// 2048, l = 1, k+1 = k + C up to 8), in a one-step mode (template argument
+// CMUX): the operands come in place of acc X^a - acc and ct0 in place of
+// the accumulator, the GGSW is one step of the exact key's layout, and the
+// result goes to out.  The first design of that entry (csrc/blind_rotate.cu
+// cmux_kernel, one block of 512 threads a ciphertext, fully reduced passes,
+// 4-byte key loads) filled 1 of the 132 SMs at B = 1 and could not hold
+// k+1 >= 5 at N = 2048 in a block.
 
 #include <atomic>
 #include <cooperative_groups.h>
@@ -131,6 +144,15 @@ __host__ __device__ constexpr bool chain_shape(int k1, int log_n, int levels, in
   return k1 == CL_K1 && small_shape(k1, log_n, levels, base_log);
 }
 
+// The CMux mode's shapes (tfhe_torch_cmux_cluster; ops/kernels.py
+// cmux_route): the small-N kernel's, and the cluster kernel's at N = 2048
+// (the common-mask CMux at C <= 7).
+__host__ __device__ constexpr bool cmux_shape(int k1, int log_n, int levels, int base_log) {
+  return small_shape(k1, log_n, levels, base_log) ||
+         (base_log >= 1 && base_log <= 30 && log_n == CM_LOG_N && levels == 1 &&
+          k1 >= CM_MIN_K1 && k1 <= CM_MAX_K1);
+}
+
 __host__ __device__ constexpr bool cluster_shape(int k1, int log_n, int levels, int base_log) {
   return small_shape(k1, log_n, levels, base_log) ||
          (base_log >= 1 && base_log <= 30 &&
@@ -164,10 +186,19 @@ struct Cluster {
                 "the fused passes split pad() over their strides");
 };
 
-template <int K1, int LEVELS, int LOG_N>
+// CMUX: the one-step, operand-given mode (tfhe_torch_cmux_cluster): the
+// first pass reads ct0 and ct1 from global memory and takes d = ct1 - ct0
+// in place of acc X^a - acc, ct0 (in_g) is the accumulator Garner adds
+// into, and the result goes to out_g; mask_g is not read and n_steps is 1.
+// Without it, in_g = out_g, the accumulators rotated in place.  Every read
+// of in_g and ct1_g comes before the cluster barrier that precedes the
+// first write of out_g, and a cluster reads and writes only its own
+// ciphertext, so out may be ct0.
+template <int K1, int LEVELS, int LOG_N, bool CMUX>
 __global__ void __cluster_dims__(NP, 1, 1)
 __launch_bounds__(THREADS, cluster_min_blocks(LOG_N))
-blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+blind_rotate_cluster_kernel(long long* out_g, const long long* in_g,
+                            const long long* __restrict__ ct1_g, const int* __restrict__ mask_g,
                             const uint4* __restrict__ bsk, const uint2* __restrict__ tw_fwd,
                             const uint2* __restrict__ tw_inv,
                             const long long* __restrict__ consts_g, int n_steps,
@@ -186,8 +217,10 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
   u64* acc = cl_smem;                           // coefficients rank QUARTER ..
   u32* rows = (u32*)(cl_smem + QUARTER);        // (LEVELS K1, ROW) mod this prime
   const int tid = threadIdx.x;
-  long long* acc_b = acc_g + (size_t)(blockIdx.x / NP) * K1 * N;
-  const int* mask_b = mask_g + (size_t)(blockIdx.x / NP) * n_steps;
+  const size_t ct = blockIdx.x / NP;
+  const long long* in_b = in_g + ct * K1 * N;
+  const long long* ct1_b = CMUX ? ct1_g + ct * K1 * N : nullptr;
+  const int* mask_b = CMUX ? nullptr : mask_g + ct * n_steps;
 
   if (tid == 0) {
     load_consts(c, consts_g);
@@ -195,7 +228,7 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
     one.p[0] = c.p[rank];
     one.pinv[0] = c.pinv[rank];
   }
-  for (int q = tid; q < QUARTER; q += THREADS) acc[q] = (u64)acc_b[rank * QUARTER + q];
+  for (int q = tid; q < QUARTER; q += THREADS) acc[q] = (u64)in_b[rank * QUARTER + q];
   const u64* acc_of[NP];                        // every block's quarter
   const u32* rows_of[NP];                       // every block's residues
 #pragma unroll
@@ -210,13 +243,14 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
   const uint2* twi = tw_inv + (rank << LOG_N);
 
   for (int step = 0; step < n_steps; ++step) {
-    const int a = mask_b[step];                 // in [0, 2N)
+    const int a = CMUX ? 0 : mask_b[step];      // in [0, 2N)
     const int rot = a & (N - 1);
     const bool odd = ((a >> LOG_N) & 1) != 0;
 
-    // 1. acc X^a - acc from the four quarters, its decomposer states, and
-    // per level the digits' residues d + 2p and forward stages 0-3 in
-    // registers: task (r, lo) owns coefficients j = b 2^LO | lo, b < 16
+    // 1. acc X^a - acc from the four quarters (CMUX: ct1 - ct0 from global
+    // memory), its decomposer states, and per level the digits' residues
+    // d + 2p and forward stages 0-3 in registers: task (r, lo) owns
+    // coefficients j = b 2^LO | lo, b < 16
     for (int q = tid; q < K1 << LO; q += THREADS) {
       const int r = q >> LO;
       const int lo = q & ((1 << LO) - 1);
@@ -227,11 +261,16 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
       for (int b = 0; b < 16; ++b) {
         const int j = (b << LO) | lo;
         const int g = r * N + j;
-        const int src = j < rot ? g - rot + N : g - rot;
-        u64 v = acc_of[src / QUARTER][src % QUARTER];
-        if (j < rot) v = 0ull - v;
-        if (odd) v = 0ull - v;
-        const u64 d = v - acc_of[g / QUARTER][g % QUARTER];
+        u64 d;
+        if constexpr (CMUX) {
+          d = (u64)ct1_b[g] - (u64)in_b[g];
+        } else {
+          const int src = j < rot ? g - rot + N : g - rot;
+          u64 v = acc_of[src / QUARTER][src % QUARTER];
+          if (j < rot) v = 0ull - v;
+          if (odd) v = 0ull - v;
+          d = v - acc_of[g / QUARTER][g % QUARTER];
+        }
         if constexpr (LEVELS == 1) {
           dig[b] = hi_word_digit((u32)(d >> 32), base_log);
         } else {
@@ -343,7 +382,8 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
     cluster.sync();   // every quarter updated; every residue read
   }
 
-  for (int q = tid; q < QUARTER; q += THREADS) acc_b[rank * QUARTER + q] = (long long)acc[q];
+  long long* out_b = out_g + ct * K1 * N;
+  for (int q = tid; q < QUARTER; q += THREADS) out_b[rank * QUARTER + q] = (long long)acc[q];
 }
 
 // The small-N kernel: N = 512, K1 = 2 and LEVELS <= 4 or K1 <= 5 and
@@ -360,7 +400,7 @@ blind_rotate_cluster_kernel(long long* __restrict__ acc_g, const int* __restrict
 // blocks store into it).
 constexpr int SN_THREADS = 128;
 
-template <int K1_, int LEVELS>
+template <int K1_, int LEVELS, bool CMUX = false>
 struct Small {
   static constexpr int K1 = K1_;
   static constexpr int LOG_N = SN_LOG_N;
@@ -371,8 +411,10 @@ struct Small {
   static constexpr int KEY = ROWS * K1 * N;          // u32 words of a step's prime slice
   static constexpr int STEP4 = ROWS * K1 * NP * N / 4;   // 16-byte words of a step's GGSW
   static constexpr int LO = LOG_N - 4;               // the first pass takes stages 0-3
-  static constexpr int BASE = K1 * N * 8 + ROWS * ROW * 4 + NP * QUARTER * 4;
-  static constexpr int BUFS = 2 * (BASE + 2 * KEY * 4 + 1024) <= 228 * 1024 ? 2 : 1;
+  // the CMux mode (one step) keeps ct0's quarter of the coefficients too
+  // and needs one key buffer
+  static constexpr int BASE = K1 * N * 8 + ROWS * ROW * 4 + NP * QUARTER * 4 + (CMUX ? QUARTER * 8 : 0);
+  static constexpr int BUFS = !CMUX && 2 * (BASE + 2 * KEY * 4 + 1024) <= 228 * 1024 ? 2 : 1;
   static constexpr int SMEM = BASE + BUFS * KEY * 4;
   // blocks an SM the kernel is compiled for (__launch_bounds__): four (128
   // registers a thread) where four fit shared memory, else two
@@ -402,21 +444,31 @@ __device__ __forceinline__ void prefetch_key(u32* keys, const uint4* __restrict_
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// acc (batch, 2, N) u64 in place; mask (batch, n_steps) in [0, 2N); bsk
-// the GGSWs: ciphertext b's step i is (l, 2, 2, NP, N) u32 at bsk +
-// key_index[b] set_words + i STEP4 16-byte words (key_index null: the
-// one key, (n_steps, l, 2, 2, NP, N)).
-template <int K1_, int LEVELS>
+// acc (batch, k+1, N) u64, in_g = out_g, in place; mask (batch, n_steps)
+// in [0, 2N); bsk the GGSWs: ciphertext b's step i is (l, k+1, k+1, NP, N)
+// u32 at bsk + key_index[b] set_words + i STEP4 16-byte words (key_index
+// null: the one key, (n_steps, l, k+1, k+1, NP, N)).  CMUX: the one-step,
+// operand-given mode, as the cluster kernel's (in_g ct0, ct1_g, out_g; the
+// GGSW at bsk; mask_g and key_index not read): the accumulator copy is
+// loaded as d = ct1 - ct0, which the first pass reads as it reads acc X^a
+// - acc, ct0's quarter beside it; Garner writes out_g, and no block reads
+// another's shared memory after the cluster barrier before Garner, so the
+// last barrier goes.  One key buffer: 64,000 B at the tree's l = 4, three
+// blocks an SM (92 clusters at once) where the rotation's two buffers
+// (94,720 B) hold two (62 clusters, two waves at B = 64).
+template <int K1_, int LEVELS, bool CMUX>
 __global__ void __cluster_dims__(NP, 1, 1)
-__launch_bounds__(SN_THREADS, Small<K1_, LEVELS>::MIN_BLOCKS)
-blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __restrict__ mask_g,
+__launch_bounds__(SN_THREADS, Small<K1_, LEVELS, CMUX>::MIN_BLOCKS)
+blind_rotate_cluster_small_kernel(long long* out_g, const long long* in_g,
+                                  const long long* __restrict__ ct1_g,
+                                  const int* __restrict__ mask_g,
                                   const uint4* __restrict__ bsk,
                                   const int* __restrict__ key_index, long long set_words,
                                   const uint2* __restrict__ tw_fwd,
                                   const uint2* __restrict__ tw_inv,
                                   const long long* __restrict__ consts_g, int n_steps,
                                   int base_log) {
-  using S = Small<K1_, LEVELS>;
+  using S = Small<K1_, LEVELS, CMUX>;
   constexpr int K1 = S::K1;
   constexpr int LOG_N = S::LOG_N;
   constexpr int N = S::N;
@@ -434,10 +486,12 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
   u32* keys = (u32*)(acc + K1 * N);             // BUFS key slices, 16-byte aligned
   u32* rows = keys + S::BUFS * S::KEY;          // (LEVELS K1, ROW) mod this prime
   u32* gath = rows + ROWS * ROW;                // (NP, QUARTER): this quarter's residues
+  u64* base = (u64*)(gath + NP * QUARTER);      // CMUX: ct0 at this quarter
   const int tid = threadIdx.x;
-  const int ct = blockIdx.x / NP;
-  long long* acc_b = acc_g + (size_t)ct * K1 * N;
-  const int* mask_b = mask_g + (size_t)ct * n_steps;
+  const size_t ct = blockIdx.x / NP;
+  const long long* in_b = in_g + ct * K1 * N;
+  long long* out_b = out_g + ct * K1 * N;
+  const int* mask_b = CMUX ? nullptr : mask_g + ct * n_steps;
   const uint4* key_b = bsk + (key_index ? (size_t)key_index[ct] * (size_t)(set_words / 4) : 0);
 
   if (tid == 0) {
@@ -446,7 +500,18 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
     one.p[0] = c.p[rank];
     one.pinv[0] = c.pinv[rank];
   }
-  for (int q = tid; q < K1 * N; q += NT) acc[q] = (u64)acc_b[q];
+  if constexpr (CMUX) {
+    const long long* ct1_b = ct1_g + ct * K1 * N;
+#pragma unroll 4
+    for (int q = tid; q < K1 * N; q += NT) {
+      const u64 c0 = (u64)in_b[q];
+      acc[q] = (u64)ct1_b[q] - c0;
+      const int own = q - rank * QUARTER;
+      if ((unsigned)own < (unsigned)QUARTER) base[own] = c0;
+    }
+  } else {
+    for (int q = tid; q < K1 * N; q += NT) acc[q] = (u64)in_b[q];
+  }
   prefetch_key<S>(keys, key_b, 0, n_steps, rank);
   u64* acc_of[NP];                              // every block's copy
   u32* gath_of[NP];                             // every block's Garner inputs
@@ -462,15 +527,15 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
   const uint2* twi = tw_inv + (rank << LOG_N);
 
   for (int step = 0; step < n_steps; ++step) {
-    const int a = mask_b[step];                 // in [0, 2N)
+    const int a = CMUX ? 0 : mask_b[step];      // in [0, 2N)
     const int rot = a & (N - 1);
     const bool odd = ((a >> LOG_N) & 1) != 0;
     // two buffers: the next step's slice into the one step - 1 read
     if constexpr (S::BUFS == 2) prefetch_key<S>(keys, key_b, step + 1, n_steps, rank);
 
-    // 1. task (lev, r, lo): acc X^a - acc at coefficients j = b 2^LO | lo
-    // of row r, level lev's signed digit, its residue d + 2p and forward
-    // stages 0-3 in registers
+    // 1. task (lev, r, lo): acc X^a - acc (CMUX: ct1 - ct0) at
+    // coefficients j = b 2^LO | lo of row r, level lev's signed digit, its
+    // residue d + 2p and forward stages 0-3 in registers
     for (int q = tid; q < LEVELS * (K1 << LO); q += NT) {
       const int lev = q / (K1 << LO);
       const int r = (q >> LO) % K1;
@@ -480,9 +545,14 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
 #pragma unroll
       for (int b = 0; b < 16; ++b) {
         const int j = (b << LO) | lo;
-        u64 w = j < rot ? 0ull - A[j - rot + N] : A[j - rot];
-        if (odd) w = 0ull - w;
-        const u64 d = w - A[j];
+        u64 d;
+        if constexpr (CMUX) {
+          d = A[j];
+        } else {
+          u64 w = j < rot ? 0ull - A[j - rot + N] : A[j - rot];
+          if (odd) w = 0ull - w;
+          d = w - A[j];
+        }
         int dig;
         if constexpr (LEVELS == 1) {
           dig = hi_word_digit((u32)(d >> 32), base_log);
@@ -582,69 +652,65 @@ blind_rotate_cluster_small_kernel(long long* __restrict__ acc_g, const int* __re
     cluster.sync();   // every quarter's four residues have landed
 
     // 5. Garner on this block's quarter, the new words stored into every
-    // block's copy of the accumulator
+    // block's copy of the accumulator (CMUX: ct0 + the product, to out)
     for (int q = tid; q < QUARTER; q += NT) {
       u32 dg[NP];
 #pragma unroll
       for (int pi = 0; pi < NP; ++pi) dg[pi] = gath[pi * QUARTER + q];
       const int g = rank * QUARTER + q;
-      const u64 w = acc[g] + garner_signed<NP>(dg, c);
+      if constexpr (CMUX) {
+        out_b[g] = (long long)(base[q] + garner_signed<NP>(dg, c));
+      } else {
+        const u64 w = acc[g] + garner_signed<NP>(dg, c);
 #pragma unroll
-      for (int r = 0; r < NP; ++r) acc_of[r][g] = w;
+        for (int r = 0; r < NP; ++r) acc_of[r][g] = w;
+      }
     }
-    cluster.sync();   // every copy updated; every Garner input read
+    if constexpr (!CMUX) cluster.sync();   // every copy updated; every Garner input read
   }
 
-  for (int q = tid; q < QUARTER; q += NT) {
-    acc_b[rank * QUARTER + q] = (long long)acc[rank * QUARTER + q];
+  if constexpr (!CMUX) {
+    for (int q = tid; q < QUARTER; q += NT) {
+      out_b[rank * QUARTER + q] = (long long)acc[rank * QUARTER + q];
+    }
   }
 }
 
-// The devices whose small-N kernel attributes small_launch remembers as
-// set; on a device beyond them it sets them at every launch.
-constexpr int SIZED_DEVICES = 64;
+// The operands of a launch: the accumulators (in = out, in place) or, in
+// the CMux mode, ct0 (in), ct1 and out.
+struct Operands {
+  long long* out;
+  const long long* in;
+  const long long* ct1;
+};
 
-template <int K1, int LEVELS>
-cudaError_t small_launch(long long* acc, const int* mask, const uint4* bsk, const int* key_index,
+template <int K1, int LEVELS, bool CMUX>
+cudaError_t small_launch(Operands ops, const int* mask, const uint4* bsk, const int* key_index,
                          long long set_words, const uint2* tw_fwd, const uint2* tw_inv,
                          const long long* consts, int batch, int n_steps, int base_log,
                          cudaStream_t stream) {
-  using S = Small<K1, LEVELS>;
-  auto kernel = blind_rotate_cluster_small_kernel<K1, LEVELS>;
-  // the attributes once a device (they hold for the device's context); a
-  // race sets them twice, which is harmless
-  static std::atomic<bool> sized[SIZED_DEVICES];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  using S = Small<K1, LEVELS, CMUX>;
+  auto kernel = blind_rotate_cluster_small_kernel<K1, LEVELS, CMUX>;
+  static std::atomic<unsigned> sized{0};
+  cudaError_t err = set_smem_once(kernel, S::SMEM, true, sized);
   if (err != cudaSuccess) return err;
-  if (device >= SIZED_DEVICES || !sized[device].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    if (device < SIZED_DEVICES) sized[device].store(true, std::memory_order_release);
-  }
-  kernel<<<batch * NP, SN_THREADS, S::SMEM, stream>>>(acc, mask, bsk, key_index, set_words,
-                                                      tw_fwd, tw_inv, consts, n_steps,
-                                                      base_log);
+  kernel<<<batch * NP, SN_THREADS, S::SMEM, stream>>>(ops.out, ops.in, ops.ct1, mask, bsk,
+                                                      key_index, set_words, tw_fwd, tw_inv,
+                                                      consts, n_steps, base_log);
   return cudaGetLastError();
 }
 
-template <int K1, int LEVELS, int LOG_N>
-cudaError_t cluster_launch(long long* acc, const int* mask, const uint4* bsk,
-                           const uint2* tw_fwd, const uint2* tw_inv, const long long* consts,
-                           int batch, int n_steps, int base_log, cudaStream_t stream) {
+template <int K1, int LEVELS, int LOG_N, bool CMUX>
+cudaError_t cluster_launch(Operands ops, const int* mask, const uint4* bsk, const uint2* tw_fwd,
+                           const uint2* tw_inv, const long long* consts, int batch,
+                           int n_steps, int base_log, cudaStream_t stream) {
   using S = Cluster<K1, LEVELS, LOG_N>;
-  auto kernel = blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  auto kernel = blind_rotate_cluster_kernel<K1, LEVELS, LOG_N, CMUX>;
+  static std::atomic<unsigned> sized{0};
+  cudaError_t err = set_smem_once(kernel, S::SMEM, true, sized);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kernel<<<batch * NP, THREADS, S::SMEM, stream>>>(acc, mask, bsk, tw_fwd, tw_inv, consts,
-                                                   n_steps, base_log);
+  kernel<<<batch * NP, THREADS, S::SMEM, stream>>>(ops.out, ops.in, ops.ct1, mask, bsk, tw_fwd,
+                                                   tw_inv, consts, n_steps, base_log);
   return cudaGetLastError();
 }
 
@@ -665,13 +731,13 @@ int occupancy_of(K kernel, int smem, int threads) {
   return err != cudaSuccess ? -(int)err : n;
 }
 
-template <int K1, int LEVELS, int LOG_N>
+template <int K1, int LEVELS, int LOG_N, bool CMUX>
 int cluster_occupancy() {
   if constexpr (LOG_N == SN_LOG_N) {
-    return occupancy_of(blind_rotate_cluster_small_kernel<K1, LEVELS>,
-                        Small<K1, LEVELS>::SMEM, SN_THREADS);
+    return occupancy_of(blind_rotate_cluster_small_kernel<K1, LEVELS, CMUX>,
+                        Small<K1, LEVELS, CMUX>::SMEM, SN_THREADS);
   } else {
-    return occupancy_of(blind_rotate_cluster_kernel<K1, LEVELS, LOG_N>,
+    return occupancy_of(blind_rotate_cluster_kernel<K1, LEVELS, LOG_N, CMUX>,
                         Cluster<K1, LEVELS, LOG_N>::SMEM, THREADS);
   }
 }
@@ -709,7 +775,7 @@ int by_shape(int k1, int log_n, int levels, const F& fn) {
 }
 
 struct Launch {
-  long long* acc;
+  Operands ops;
   const int* mask;
   const uint4* bsk;
   const int* key_index;     // the small-N kernel's key a ciphertext, or null
@@ -722,18 +788,54 @@ struct Launch {
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
     if constexpr (LOG_N == SN_LOG_N) {
-      return (int)small_launch<K1, LEVELS>(acc, mask, bsk, key_index, set_words, tw_fwd,
-                                           tw_inv, consts, batch, n_steps, base_log, stream);
+      return (int)small_launch<K1, LEVELS, false>(ops, mask, bsk, key_index, set_words, tw_fwd,
+                                                  tw_inv, consts, batch, n_steps, base_log,
+                                                  stream);
     } else {
-      return (int)cluster_launch<K1, LEVELS, LOG_N>(acc, mask, bsk, tw_fwd, tw_inv, consts,
-                                                    batch, n_steps, base_log, stream);
+      return (int)cluster_launch<K1, LEVELS, LOG_N, false>(ops, mask, bsk, tw_fwd, tw_inv,
+                                                           consts, batch, n_steps, base_log,
+                                                           stream);
     }
   }
 };
 
-struct Occupancy {
+// The CMux mode's launch: one step, the GGSW at bsk, no mask.  Its shapes
+// (cmux_shape) have no N = 8192 instance.
+struct CmuxLaunch {
+  Operands ops;
+  const uint4* ggsw;
+  const uint2* tw_fwd;
+  const uint2* tw_inv;
+  const long long* consts;
+  int batch, base_log;
+  cudaStream_t stream;
   template <int K1, int LEVELS, int LOG_N>
-  int run() const { return cluster_occupancy<K1, LEVELS, LOG_N>(); }
+  int run() const {
+    if constexpr (LOG_N == SN_LOG_N) {
+      return (int)small_launch<K1, LEVELS, true>(ops, nullptr, ggsw, nullptr, 0, tw_fwd, tw_inv,
+                                                 consts, batch, 1, base_log, stream);
+    } else if constexpr (LOG_N == CM_LOG_N) {
+      return (int)cluster_launch<K1, LEVELS, LOG_N, true>(ops, nullptr, ggsw, tw_fwd, tw_inv,
+                                                          consts, batch, 1, base_log, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+// The figures below of the rotation's instance or (cmux) of the CMux
+// mode's, which has none at N = 8192.
+struct Occupancy {
+  bool cmux;
+  template <int K1, int LEVELS, int LOG_N>
+  int run() const {
+    if constexpr (LOG_N == CL_LOG_N) {
+      return cmux ? -1 : cluster_occupancy<K1, LEVELS, LOG_N, false>();
+    } else {
+      return cmux ? cluster_occupancy<K1, LEVELS, LOG_N, true>()
+                  : cluster_occupancy<K1, LEVELS, LOG_N, false>();
+    }
+  }
 };
 
 struct MinBlocks {
@@ -748,10 +850,11 @@ struct MinBlocks {
 };
 
 struct Smem {
+  bool cmux;
   template <int K1, int LEVELS, int LOG_N>
   int run() const {
     if constexpr (LOG_N == SN_LOG_N) {
-      return Small<K1, LEVELS>::SMEM;
+      return cmux ? Small<K1, LEVELS, true>::SMEM : Small<K1, LEVELS>::SMEM;
     } else {
       return Cluster<K1, LEVELS, LOG_N>::SMEM;
     }
@@ -779,7 +882,8 @@ extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, cons
       (key_index == nullptr ? set_words != 0 : !chain_shape(k1, log_n, levels, base_log))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Launch launch{(long long*)acc, (const int*)mask, (const uint4*)bsk,
+  const Launch launch{{(long long*)acc, (const long long*)acc, nullptr}, (const int*)mask,
+                      (const uint4*)bsk,
                       (const int*)key_index, set_words, (const uint2*)tw_fwd,
                       (const uint2*)tw_inv, (const long long*)consts, batch, n_steps,
                       base_log, (cudaStream_t)stream};
@@ -790,12 +894,12 @@ extern "C" int tfhe_torch_blind_rotate_cluster(void* acc, const void* mask, cons
 // block's dynamic shared memory (-1 at other shapes).
 extern "C" int tfhe_torch_blind_rotate_cluster_occupancy(int k1, int log_n, int levels) {
   if (!cluster_shape(k1, log_n, levels, 1)) return -1;
-  return by_shape(k1, log_n, levels, Occupancy{});
+  return by_shape(k1, log_n, levels, Occupancy{false});
 }
 
 extern "C" int tfhe_torch_blind_rotate_cluster_smem(int k1, int log_n, int levels) {
   if (!cluster_shape(k1, log_n, levels, 1)) return -1;
-  return by_shape(k1, log_n, levels, Smem{});
+  return by_shape(k1, log_n, levels, Smem{false});
 }
 
 // The blocks an SM the kernel's instance at a shape is compiled for
@@ -803,4 +907,37 @@ extern "C" int tfhe_torch_blind_rotate_cluster_smem(int k1, int log_n, int level
 extern "C" int tfhe_torch_blind_rotate_cluster_min_blocks(int k1, int log_n, int levels) {
   if (!cluster_shape(k1, log_n, levels, 1)) return -1;
   return by_shape(k1, log_n, levels, MinBlocks{});
+}
+
+// K2's CMux entry on the cluster kernels (ops/kernels.py cmux, its "small"
+// and "cluster" routes): out = ct0 + GGSW (x) (ct1 - ct0) for a batch
+// sharing one GGSW, one step of the kernels above in their CMux mode.
+// ct0, ct1, out (batch, k+1, N) u64, out may be ct0; ggsw (l, k+1, k+1, NP,
+// N) u32 Montgomery NTT domain, 16-byte aligned (the exact key's layout of
+// one step); at the shapes cmux_shape takes: every small-N shape, and
+// 3 <= k+1 <= 8, l = 1 at N = 2048.
+extern "C" int tfhe_torch_cmux_cluster(void* out, const void* ct0, const void* ct1,
+                                       const void* ggsw, const void* tw_fwd, const void* tw_inv,
+                                       const void* consts, int batch, int k1, int log_n,
+                                       int levels, int nprimes, int base_log, void* stream) {
+  if (!cmux_shape(k1, log_n, levels, base_log) || nprimes != NP || batch < 1 ||
+      ((uintptr_t)ggsw & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CmuxLaunch launch{{(long long*)out, (const long long*)ct0, (const long long*)ct1},
+                          (const uint4*)ggsw, (const uint2*)tw_fwd, (const uint2*)tw_inv,
+                          (const long long*)consts, batch, base_log, (cudaStream_t)stream};
+  return by_shape(k1, log_n, levels, launch);
+}
+
+// The CMux mode's instance at a shape cmux_shape takes: the clusters the
+// card holds at once, and a block's dynamic shared memory (-1 elsewhere).
+extern "C" int tfhe_torch_cmux_cluster_occupancy(int k1, int log_n, int levels) {
+  if (!cmux_shape(k1, log_n, levels, 1)) return -1;
+  return by_shape(k1, log_n, levels, Occupancy{true});
+}
+
+extern "C" int tfhe_torch_cmux_cluster_smem(int k1, int log_n, int levels) {
+  if (!cmux_shape(k1, log_n, levels, 1)) return -1;
+  return by_shape(k1, log_n, levels, Smem{true});
 }

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.entities import LweBootstrapKey
+from ..utils.device import resolve_device
 from . import ntt
 
 # the first three of tfhe_tpu's 28-bit MXU primes (tfhe_tpu/ops/mxu.py:44):
@@ -35,7 +36,7 @@ MXU_PRIMES_3 = (268369921, 268361729, 268271617)
 
 
 def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int,
-                   device="cpu") -> LweBootstrapKey:
+                   device="cuda") -> LweBootstrapKey:
     """Exact, phase-preserving move of each GLWE row's low mask bits into its
     body: r_j = a_j mod 2^rb, a'_j = a_j - r_j, b' = b - sum_j r_j (*) s_j
     (negacyclic, mod 2^64).  b' - <a', s> = b - <a, s>, so no noise is added
@@ -43,6 +44,7 @@ def mask_floor_bsk(bsk: LweBootstrapKey, glwe_sk, round_bits: int,
     key, so it runs at key generation; the float64 products are taken on
     ``device`` (exact there too: every partial sum is an integer below
     2^53)."""
+    device = resolve_device(device)
     data = np.asarray(bsk.data)
     n = data.shape[-1]
     k = data.shape[3] - 1

@@ -30,7 +30,9 @@ csrc/ntt_common.cuh) and K6 ``packing_keyswitch128``
 (csrc/packing_keyswitch128.cu, the u128 packing keyswitch of squashed-noise
 compression, on the int8 tensor cores, on the key's byte layout
 ``packing_keyswitch128_key``; ``cmux`` is K2's
-CMux entry, vertical packing's tree, and the common mask's CMux;
+CMux entry, vertical packing's tree, and the common mask's CMux (by
+``cmux_route``: the cluster kernels' one-step CMux mode at N = 512 and at
+N = 2048, 3 <= k+1 <= 8, else the generic kernel's external product);
 ``rotate_accumulator`` its exact rotation of a given accumulator, the
 common-mask rotation's; ``cmux_chain`` its CMux chain, vertical packing's
 low bits for many packings in one launch, each on its own GGSW set, on
@@ -54,6 +56,7 @@ nothing else; ``keyswitch.imma_launches``, ``keyswitch.limb_launches``,
 ``keyswitch32.imma_launches``, ``glwe_keyswitch.cluster_launches``,
 ``packing_keyswitch.imma_launches``, ``blind_rotate`` /
 ``cmux_step.lazy_exact_launches``, ``blind_rotate.cluster_launches``,
+``cmux.small_launches``, ``cmux.cluster_launches``,
 ``blind_rotate_multibit.cluster_launches`` and
 ``blind_rotate_extended.lazy_launches`` count those of the redesigned and
 new kernels among them.
@@ -145,9 +148,10 @@ def load() -> dict:
         fn = libs["blind_rotate_cluster"].tfhe_torch_blind_rotate_cluster
         fn.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 3 + [i] * 7 + [vp]
         fn.restype = i
-        fn = libs["blind_rotate"].tfhe_torch_cmux
-        fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
-        fn.restype = i
+        for fn in (libs["blind_rotate"].tfhe_torch_cmux,
+                   libs["blind_rotate_cluster"].tfhe_torch_cmux_cluster):
+            fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
+            fn.restype = i
         fn = libs["blind_rotate"].tfhe_torch_blind_rotate_exact_lazy
         fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
         fn.restype = i
@@ -232,7 +236,8 @@ def load() -> dict:
             fn.restype = i
         for name, n_args in (("blind_rotate_cluster_occupancy", 3),
                              ("blind_rotate_cluster_smem", 3),
-                             ("blind_rotate_cluster_min_blocks", 3)):
+                             ("blind_rotate_cluster_min_blocks", 3),
+                             ("cmux_cluster_occupancy", 3), ("cmux_cluster_smem", 3)):
             fn = getattr(libs["blind_rotate_cluster"], f"tfhe_torch_{name}")
             fn.argtypes = [i] * n_args
             fn.restype = i
@@ -592,8 +597,8 @@ def exact_smem_bytes(k1: int, n_poly: int, levels: int, cluster: bool = False) -
     return k1 * n_poly * 8 + levels * k1 * KERNEL_PRIMES * row * 4
 
 
-# K2's generic exact kernel (and its CMux entry, and K8's generic kernel)
-# take k+1 <= 5 (csrc/ntt_common.cuh MAXK1)
+# K2's generic exact kernel (and its CMux entry's generic kernel, and K8's
+# generic kernel) take k+1 <= 5 (csrc/ntt_common.cuh MAXK1)
 GENERIC_MAX_K1 = 5
 
 
@@ -886,14 +891,52 @@ def cmux_chain(acc, a_cols, ggsws, key_index, dp: DevicePlan, base_log: int, lev
 cmux_chain.launches = 0
 
 
+@lru_cache(maxsize=None)
+def cmux_route(k1: int, n_poly: int, levels: int, base_log: int) -> str:
+    """Which kernel K2's CMux entry runs at a shape: "small", the cluster
+    kernel's small-N kernel in its one-step CMux mode, at its shapes
+    (small_shape: N = 512, k+1 = 2, l <= 4, WoPBS's tree; 3 <= k+1 <= 5,
+    l = 1); "cluster", the N = 2048 cluster kernel in that mode, at its
+    shapes there (3 <= k+1 <= 8, l = 1: the common-mask CMux and external
+    product at C <= 7 on the 2_2 widths); both are CLUSTER_SHAPES' entries
+    below N = 8192 (csrc/blind_rotate_cluster.cu cmux_shape).  Else
+    "generic", the generic exact kernel's external product (cmux_kernel),
+    where k+1 <= GENERIC_MAX_K1 and its block fits shared memory; a
+    ValueError elsewhere."""
+    if cluster_shape(k1, n_poly, levels, base_log) and n_poly < 8192:
+        return "small" if n_poly == SMALL_N else "cluster"
+    smem = exact_smem_bytes(k1, n_poly, levels)
+    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
+             f"K2's CMux entry at k+1 = {k1}, N = {n_poly}, l = {levels}, base_log = "
+             f"{base_log}: its generic kernel takes k+1 <= {GENERIC_MAX_K1} within the "
+             f"{SMEM_LIMIT} B of shared memory a block may use (this shape needs {smem} B), "
+             f"and its cluster kernels take 3 <= k+1 <= 8, N = 2048, l = 1 and k+1 = 2, "
+             f"N = {SMALL_N}, l <= 4 and 3 <= k+1 <= 5, N = {SMALL_N}, l = 1, base_log <= 30")
+    return "generic"
+
+
+def cmux_figures(k1: int, n_poly: int, levels: int) -> dict:
+    """A block of the cluster kernels' CMux mode at a shape its routes take:
+    its dynamic shared memory and the clusters of four the card holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    lib = load()["blind_rotate_cluster"]
+    log_n = n_poly.bit_length() - 1
+    return {"shared_memory_bytes": lib.tfhe_torch_cmux_cluster_smem(k1, log_n, levels),
+            "active_clusters": lib.tfhe_torch_cmux_cluster_occupancy(k1, log_n, levels)}
+
+
 def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):
     """K2's CMux entry: ct0 + GGSW (x) (ct1 - ct0) for a batch sharing one
-    GGSW (see ops/server.py cmux; the CMux tree of vertical packing).
+    GGSW (see ops/server.py cmux; the CMux tree of vertical packing, the
+    common mask's CMux and external product).
 
     ct0, ct1: (B, k+1, N) int64; ggsw: (l, k+1, k+1, P, N) int32 Montgomery
-    NTT domain on dp's four primes.  Runs the generic exact kernel's
-    external product, one block a batch element; raises where its shared
-    memory would pass a block's.  Returns the new (B, k+1, N) int64."""
+    NTT domain on dp's four primes.  The kernel is chosen by shape
+    (cmux_route): one step of the cluster kernels in their CMux mode, four
+    blocks a ciphertext, one a prime ("small", "cluster"), else the generic
+    exact kernel's external product, one block a ciphertext; a ValueError
+    where none takes the shape.  One launch, nothing else on the card.
+    Returns the new (B, k+1, N) int64."""
     _require(not isinstance(ggsw, RoundedKeyNtt), "the CMux entry takes an exact GGSW")
     if ct0.device.type == "cpu":
         return server.cmux(ct0, ct1, ggsw, dp, base_log, levels)
@@ -905,26 +948,37 @@ def cmux(ct0, ct1, ggsw, dp: DevicePlan, base_log: int, levels: int):
              f"GGSW shape {tuple(ggsw.shape)} does not fit the batch")
     _require(dp.num_primes == KERNEL_PRIMES and n_poly & (n_poly - 1) == 0,
              "the kernel takes a 4-prime plan and a power-of-two N")
-    lib = load()["blind_rotate"]
-    smem = exact_smem_bytes(k1, n_poly, levels)
-    _require(k1 <= GENERIC_MAX_K1 and smem <= SMEM_LIMIT,
-             f"the CMux entry takes k+1 <= {GENERIC_MAX_K1} within the {SMEM_LIMIT} B of "
-             f"shared memory a block may use; k+1 = {k1}, N = {n_poly}, l = {levels} "
-             f"needs {smem} B")
+    route = cmux_route(k1, n_poly, levels, base_log)
     out = torch.empty_like(ct0)
-    _check_cuda((ct0, torch.int64), (ct1, torch.int64), (ggsw, torch.int32),
-                (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
-                (dp.kernel_consts, torch.int64))
-    err = lib.tfhe_torch_cmux(out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(),
-                              dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(),
-                              dp.kernel_consts.data_ptr(), b, k1, n_poly.bit_length() - 1,
-                              levels, dp.num_primes, base_log, _stream(ct0))
-    _raise_on(err, "cmux")
+    shape_args = (b, k1, n_poly.bit_length() - 1, levels, dp.num_primes, base_log, _stream(ct0))
+    if route == "generic":
+        _check_cuda((ct0, torch.int64), (ct1, torch.int64), (ggsw, torch.int32),
+                    (dp.psi32, torch.int32), (dp.psi_inv32, torch.int32),
+                    (dp.kernel_consts, torch.int64))
+        err = load()["blind_rotate"].tfhe_torch_cmux(
+            out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(), dp.psi32.data_ptr(),
+            dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(), *shape_args)
+    else:
+        # the plan's tables (its twiddles, its constants) are the port's own,
+        # made on the plan's device: only where they lie is checked
+        tw_fwd, tw_inv = shoup_twiddles(dp)
+        _check_cuda((ct0, torch.int64), (ct1, torch.int64), (ggsw, torch.int32))
+        _require(dp.kernel_consts.device == ct0.device,
+                 f"the plan lies on {dp.kernel_consts.device}, the operands on {ct0.device}")
+        _require(ggsw.data_ptr() % 16 == 0, "the GGSW must be 16-byte aligned")
+        err = load()["blind_rotate_cluster"].tfhe_torch_cmux_cluster(
+            out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(), tw_fwd.data_ptr(),
+            tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), *shape_args)
+    _raise_on(err, f"cmux ({route})")
+    cmux.small_launches += route == "small"
+    cmux.cluster_launches += route == "cluster"
     cmux.launches += 1
     return out
 
 
 cmux.launches = 0
+cmux.small_launches = 0         # of them, the small-N cluster kernel's CMux mode
+cmux.cluster_launches = 0       # and the N = 2048 cluster kernel's
 
 
 def exact_multibit_cts_per_block(k1: int, n_poly: int, levels: int, grouping: int,

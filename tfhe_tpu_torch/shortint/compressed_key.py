@@ -59,7 +59,7 @@ class CompressedServerKey:
         if _v7_family(p):
             _floor_rounds_securely(p, ROUND_BITS)
             full = LweBootstrapKey(self.seeded_bsk.decompress(), core.pbs_decomp)
-            floored = mask_floor_bsk(full, client_key.glwe_secret_key, ROUND_BITS)
+            floored = mask_floor_bsk(full, client_key.glwe_secret_key, ROUND_BITS, "cpu")
             self.seeded_bsk = dataclasses.replace(
                 self.seeded_bsk, mask_floor_rb=ROUND_BITS,
                 bodies=np.ascontiguousarray(floored.data[..., p.glwe_dimension, :]))

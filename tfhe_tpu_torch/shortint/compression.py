@@ -118,7 +118,7 @@ class CompressionPrivateKeys:
 
 def generate_packing_keyswitch_key(input_sk: LweSecretKey, glwe_sk: GlweSecretKey,
                                    base_log: int, levels: int, noise_distribution,
-                                   gen: EncryptionRandomGenerator, device="cpu") -> np.ndarray:
+                                   gen: EncryptionRandomGenerator, device="cuda") -> np.ndarray:
     """The (n, l, k+1, N) uint64 packing keyswitch key: row (i, j) encrypts
     the constant polynomial s_i 2^(64 - base_log (l - j)) under glwe_sk.
 
@@ -127,6 +127,7 @@ def generate_packing_keyswitch_key(input_sk: LweSecretKey, glwe_sk: GlweSecretKe
     Drawing every row's mask and every row's noise in that order takes the
     same bytes, and the bodies (plaintext + noise + sum_i mask_i * s_i,
     wrapping) are then computed in batches."""
+    device = resolve_device(device)
     n_in = input_sk.dimension
     k, n_poly = glwe_sk.glwe_dimension, glwe_sk.polynomial_size
     key = np.zeros((n_in, levels, k + 1, n_poly), dtype=np.uint64)

@@ -4,7 +4,7 @@
 K2's exact kernels (csrc/blind_rotate.cu, csrc/blind_rotate_cluster.cu) on
 one CUDA card.
 
-    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k3c] [k2x] [nophase]
+    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k3c] [k2x] [cmux] [nophase]
 
 From the root of a checkout.  For each kernel it times the real library
 (CUDA events, a head of the production shape's steps or groups on a
@@ -39,7 +39,16 @@ entry ``tfhe_torch_blind_rotate_multibit`` and the cluster C entry
 ``server.blind_rotate_multibit`` at B = 2, the wrapper's route and host
 milliseconds a launch, ``kernels.multibit_cluster_figures``, and both
 phase tables a group at B = 4 (the cluster kernel's copy marked as the
-small-N kernel's is).  Writes build/phase_cycles/phase.json.
+small-N kernel's is).  ``cmux`` does the same for K2's CMux entry
+(kernels.cmux, out = ct0 + GGSW (x) (ct1 - ct0)) at CMUX_SHAPES on random
+GGSWs and operands: WoPBS's tree (k+1 = 2, N = 512, l = 4, base 2^6) at
+B = 1 and 64 and the common-mask CMux at C = 3 (k+1 = 4, N = 2048, l = 1,
+base 2^23) at B = 64: the generic C entry ``tfhe_torch_cmux`` (the first
+design, cmux_kernel) and, where the library has it and ``kernels.cmux_route``
+says so, the cluster C entry ``tfhe_torch_cmux_cluster``, each held
+against ``server.cmux``, timed in turns (CUDA events and CUDA graphs), the
+wrapper's route, time and host ms a call, and each kernel's phase table
+(one step).  Writes build/phase_cycles/phase.json.
 """
 import ctypes
 import json
@@ -65,7 +74,8 @@ FUNCS = ["tfhe_torch_blind_rotate", "tfhe_torch_blind_rotate_smem_bytes",
          "tfhe_torch_blind_rotate_exact_lazy_shape",
          "tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
          "tfhe_torch_blind_rotate_multibit", "tfhe_torch_blind_rotate_multibit_smem_bytes",
-         "tfhe_torch_blind_rotate_multibit_cts_per_block", "tfhe_torch_blind_rotate_cluster"]
+         "tfhe_torch_blind_rotate_multibit_cts_per_block", "tfhe_torch_blind_rotate_cluster",
+         "tfhe_torch_cmux", "tfhe_torch_cmux_cluster"]
 B = 512
 
 
@@ -121,10 +131,10 @@ extern "C" int ph_reset() {
 """
 
 
-def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_cluster_small_kernel(",
-                          last="cudaError_t small_launch(") -> pathlib.Path:
-    """A copy of csrc/<name>.cu whose kernel (the text from first to last:
-    K2's small-N kernel, or K3's cluster kernel) has a block barrier on
+def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_cluster_kernel(",
+                          last="struct Operands {") -> pathlib.Path:
+    """A copy of csrc/<name>.cu whose kernels (the text from first to last:
+    K2's cluster and small-N kernels, or K3's cluster kernel) have a block barrier on
     each side of each cluster barrier, so that the table shows the last
     inverse pass, each cluster barrier's wait and Garner apart (the extra
     barriers cost a few hundred cycles a step)."""
@@ -435,6 +445,100 @@ def k2x_test(libs, reps=20):
             print("k2x_test", tag, b, {k: v for k, v in row.items() if not k.endswith("phases")},
                   flush=True)
     return res
+
+
+# K2's CMux entry: (tag, k+1, N, l, base_log, batches): WoPBS's tree at the
+# TEST sets and the common-mask CMux at C = 3 on the 2_2 widths
+CMUX_SHAPES = (("test", 2, 512, 4, 6, (1, 64)), ("cm_c3", 4, 2048, 1, 23, (64,)))
+
+
+def cmux_entries(generic_lib, cluster_lib, ct0, ct1, ggsw, dp, bl, lev):
+    """K2's CMux C entries on one input (name -> run): the generic kernel's
+    and, where cluster_lib has it and the route is a cluster one, the
+    cluster kernels' CMux mode."""
+    b, k1, n = ct0.shape
+    tw_fwd, tw_inv = ntt.shoup_twiddles(dp)
+    shape = (b, k1, n.bit_length() - 1, lev, 4, bl)
+
+    def entry(cluster):
+        def run():
+            out = torch.empty_like(ct0)
+            if cluster:
+                err = cluster_lib.tfhe_torch_cmux_cluster(
+                    out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(),
+                    tw_fwd.data_ptr(), tw_inv.data_ptr(), dp.kernel_consts.data_ptr(), *shape,
+                    kernels._stream(ct0))
+            else:
+                err = generic_lib.tfhe_torch_cmux(
+                    out.data_ptr(), ct0.data_ptr(), ct1.data_ptr(), ggsw.data_ptr(),
+                    dp.psi32.data_ptr(), dp.psi_inv32.data_ptr(), dp.kernel_consts.data_ptr(),
+                    *shape, kernels._stream(ct0))
+            assert err == 0, f"K2's CMux entry failed (cluster {cluster}): cudaError {err}"
+            return out
+        return run
+
+    runs = {"generic": entry(False)}
+    if (cluster_lib is not None and hasattr(cluster_lib, "tfhe_torch_cmux_cluster")
+            and hasattr(kernels, "cmux_route") and kernels.cmux_route(k1, n, lev, bl) != "generic"):
+        runs["cluster"] = entry(True)
+    return runs
+
+
+def cmux(libs, out, reps=20):
+    """K2's CMux entry at CMUX_SHAPES (see the module's docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rng = np.random.default_rng(20)
+    res = {}
+    real = kernels.load()
+    for tag, k1, n, lev, bl, batches in CMUX_SHAPES:
+        dp = ntt.device_plan(ntt.make_plan(n, 4), "cuda")
+        ggsw = torch.stack([torch.randint(0, q, (lev, k1, k1, n), generator=gen, device="cuda")
+                            for q in dp.plan.primes], dim=-2).to(torch.int32)
+        for b in batches:
+            ct0, ct1 = (torus.from_u64(rng.integers(0, 1 << 64, (b, k1, n), dtype=np.uint64),
+                                       "cuda") for _ in range(2))
+            want = server.cmux(ct0, ct1, ggsw, dp, bl, lev)
+            runs = cmux_entries(real["blind_rotate"], real["blind_rotate_cluster"], ct0, ct1,
+                                ggsw, dp, bl, lev)
+            runs["wrapper"] = lambda: kernels.cmux(ct0, ct1, ggsw, dp, bl, lev)  # noqa: B023
+            row = {"batch": b, "k1": k1, "N": n, "levels": lev, "base_log": bl}
+            if hasattr(kernels, "cmux_route"):
+                row["route"] = kernels.cmux_route(k1, n, lev, bl)
+                if row["route"] != "generic" and hasattr(kernels, "cmux_figures"):
+                    row.update(kernels.cmux_figures(k1, n, lev))
+            for name, run in runs.items():
+                row[f"{name}_err"] = int((run() - want).abs().max())
+            order = list(runs) + list(reversed(runs))
+            row["ms"] = {name: [] for name in runs}
+            for name in order:
+                row["ms"][name].append(ms(runs[name], reps))
+            row["graph_ms"] = {name: [] for name in runs}
+            for name in order:
+                row["graph_ms"][name].append(graph_ms(runs[name]))
+            row["host_ms"] = {}
+            for name, run in runs.items():      # the host's time to enqueue a call
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    run()
+                row["host_ms"][name] = (time.perf_counter() - t0) * 1e3 / reps
+                torch.cuda.synchronize()
+            hruns = cmux_entries(libs.get("h_k2"), libs.get("h_kc"), ct0, ct1, ggsw, dp, bl, lev)
+            for name, hname, src in (("generic", "h_k2", "blind_rotate.cu"),
+                                     ("cluster", "h_kc", "blind_rotate_cluster_marked.cu")):
+                if hname in libs and name in hruns:
+                    hlib = libs[hname]
+                    lib = real["blind_rotate_cluster" if name == "cluster" else "blind_rotate"]
+                    for f in FUNCS:
+                        if hasattr(lib, f) and hasattr(hlib, f):
+                            getattr(hlib, f).argtypes = getattr(lib, f).argtypes
+                            getattr(hlib, f).restype = getattr(lib, f).restype
+                    row[f"{name}_phases"] = phases(hlib, hruns[name], src, 1)
+            res[f"{tag}_b{b}"] = row
+            print("cmux", tag, b, {k: v for k, v in row.items() if not k.endswith("phases")},
+                  flush=True)
+        del ggsw
+    out["cmux"] = res
 
 
 # K3's exact rotation at the GPU multi-bit sets: (tag, N, l, g, base_log,
@@ -796,7 +900,8 @@ def main():
     kernels.load()
     want = sorted({n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k3", "k3c"),
                                   ("h_k3c", "k3c"), ("h_k2", "k2x"), ("h_kc", "k2x"),
-                                  ("h_k1", "k1g"), ("h_k7", "k7"), ("v_k7m3", "k7"))
+                                  ("h_k1", "k1g"), ("h_k7", "k7"), ("v_k7m3", "k7"),
+                                  ("h_k2", "cmux"), ("h_kc", "cmux"))
                    if w in which and "nophase" not in which})
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
@@ -816,11 +921,14 @@ def main():
         k1g(libs, out)
     if "k7" in which:
         k7(libs, out)
+    if "cmux" in which:
+        cmux(libs, out)
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
     tables = (list(out.get("k2x_test", {}).items()) + list(out.get("k3c", {}).items())
-              + list(out.get("k1g", {}).items()) + list(out.get("k7", {}).items()))
+              + list(out.get("k1g", {}).items()) + list(out.get("k7", {}).items())
+              + list(out.get("cmux", {}).items()))
     for tag, row in tables:
         for name in [k[:-len("_phases")] for k in row if k.endswith("_phases")]:
             ph = row.get(f"{name}_phases")
