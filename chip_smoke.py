@@ -298,7 +298,38 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      the launches of phases 31-32 on K1's, K2's and K3's, phase 32's
      rounds, warm rounds and B = 4 checks each a path; K2's small-N kernel
      at 1_1 and K3's cluster kernel, phase 32's; K7's, K8's, and
-     K2's and K1's at phase 33's shapes).
+     K2's and K1's at phase 33's shapes; K9's, with the launches of phase
+     37 by path).
+
+Phases 36-38 run after phase 33, before phase 34:
+
+ 36. core_functions: at the 2_2 set, three chunks of 8 GGSWs of a
+     bootstrap key (keygen.generate_lwe_bootstrap_key_chunk, the secret
+     products on the card) against the same GGSWs of the whole key from a
+     generator seeded alike; pseudo_random_lwe at 32 and 64 bits against
+     the u32 and u64 draws of its stream;
+ 37. multi_device: on phase 3's key at the 2_2 widths, the batch mesh
+     (parallel/mesh.py sharded_ks_pbs on the exact key, sharded_ks_pbs_mxu
+     on the rounded key, K1 then K2 on each slot's shard) at B = 512 on a
+     mesh of every visible card and on 4 slots of cuda:0, each twice from
+     host-resident copies of the keys (one upload a distinct device on the
+     first call, none on the second), against the unsharded ks_pbs_batch
+     and decrypted, with seconds, PBS/s and the key bytes each device
+     holds; the poly-sharded PBS (parallel/poly_shard.py
+     sharded_ks_pbs_poly: K1, then K9's three entries a CMux step on each
+     slot) at B = 1 and 4 over D = 1, 2 and 4 slots of cuda:0, against K1
+     and K2's exact rotation, with seconds a PBS, K9's launches and the
+     host's share; a FheUint8 add through the latency route (every round
+     one PBS split over 4 slots), decrypted, with its rounds and seconds.
+     One card measures no scaling across cards;
+ 38. c_api: c_api_torch/ built with gcc on the card's host (Python.h from
+     sysconfig's include directory, libpython linked; build/c_api_torch/)
+     and its test program run at config kind 1 (DEFAULT_PARAMS) on cuda,
+     with its seconds a call.
+
+Phase 34 also holds K9's three entries (csrc/poly_shard.cu) against their
+plain versions (ops/four_step.py) at (D, B) = (4, 4), (2, 4) and (4, 1),
+N = 2048, on phase 3's key slices, each timed.
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -460,7 +491,8 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "packing_keyswitch128_imma_kernel", "packing_keyswitch128_reduce_kernel",
                 "glwe_keyswitch_kernel", "glwe_keyswitch_cluster_kernel",
                 "blind_rotate_extended_kernel",
-                "blind_rotate_extended_lazy_kernel")
+                "blind_rotate_extended_lazy_kernel", "ps_forward_kernel", "ps_cross_kernel",
+                "ps_inverse_kernel")
 
 
 STARTED = time.perf_counter()
@@ -1145,7 +1177,8 @@ def ptxas_start(kernels) -> tuple:
         for name in ("keyswitch", "blind_rotate", "blind_rotate_cluster",
                      "blind_rotate_multibit", "blind_rotate_multibit_cluster",
                      "packing_keyswitch", "blind_rotate128",
-                     "packing_keyswitch128", "glwe_keyswitch", "blind_rotate_extended")]
+                     "packing_keyswitch128", "glwe_keyswitch", "blind_rotate_extended",
+                     "poly_shard")]
 
 
 def ptxas_stop(started: tuple) -> None:
@@ -1255,7 +1288,8 @@ def kernel_wrappers(kernels) -> tuple:
             kernels.cmux_chain, kernels.cmux, kernels.blind_rotate_multibit,
             kernels.packing_keyswitch,
             kernels.blind_rotate128, kernels.packing_keyswitch128, kernels.glwe_keyswitch,
-            kernels.blind_rotate_extended)
+            kernels.blind_rotate_extended, kernels.poly_shard_forward, kernels.poly_shard_cross,
+            kernels.poly_shard_inverse)
 
 
 def counters(kernels) -> tuple:
@@ -4823,6 +4857,361 @@ def research_table_entries(kernels, rp_run, s15, errs: dict, ptxas_kernels: dict
             "shape": s15["k1_shrinking"]["shape"]}, "keyswitch_imma_kernel")]
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-38: the core functions, multi-device (the batch mesh, the
+# poly-sharded PBS on K9, the latency route) and the C API over the port
+# ---------------------------------------------------------------------------
+
+CORE_CHUNK = 8                # GGSWs a chunk, at the start, the middle and the end of the key
+MESH_SLOTS = 4                # slots of cuda:0 in the repeated-device meshes
+POLY_SLOTS = (1, 2, 4)        # D of the poly-sharded PBS
+POLY_BATCHES = (1, CHECK_BATCH)
+LATENCY_SLOTS = 4
+# (D, B) at N = 2048, k+1 = 2: every shape the poly-sharded PBS runs
+K9_SHAPES = tuple((d, b) for d in POLY_SLOTS for b in POLY_BATCHES)
+K9_MAIN = (4, CHECK_BATCH)    # the kernels line's figures
+K9_REPS = 20
+
+
+def core_functions_phase(kernels, p, seed: int) -> dict:
+    """At the 2_2 set on the card: BSK chunks (keygen.generate_lwe_bootstrap
+    _key_chunk, the secret products on the card) against the same GGSWs of
+    the whole key from a generator seeded alike; pseudo_random_lwe at 32
+    bits against the u32 draw of its stream (and at 64 against the u64
+    draw)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.core import keygen as kg
+    from tfhe_tpu_torch.shortint import oprf
+    from tfhe_tpu_torch.utils.csprng import (ByteStream, DeterministicSeeder,
+                                             EncryptionRandomGenerator, SecretRandomGenerator)
+
+    sec = SecretRandomGenerator(seed)
+    lwe = kg.generate_binary_lwe_secret_key(p.lwe_dimension, sec)
+    glwe = kg.generate_binary_glwe_secret_key(p.glwe_dimension, p.polynomial_size, sec)
+
+    def gen():
+        return EncryptionRandomGenerator(seed + 1, DeterministicSeeder(seed + 2))
+
+    t0 = time.perf_counter()
+    whole = kg.generate_lwe_bootstrap_key(lwe, glwe, p.core.pbs_decomp, p.glwe_noise, gen())
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    chunks, wrong = {}, 0
+    n = p.lwe_dimension
+    for start, count in ((0, CORE_CHUNK), (n // 2, CORE_CHUNK), (n - CORE_CHUNK, CORE_CHUNK)):
+        t0 = time.perf_counter()
+        chunk = kg.generate_lwe_bootstrap_key_chunk(lwe, glwe, p.core.pbs_decomp, p.glwe_noise,
+                                                    gen(), start, count)
+        torch.cuda.synchronize()
+        differing = int((chunk != whole.data[start:start + count]).sum())
+        wrong += differing
+        chunks[f"{start}_{count}"] = {"seconds": time.perf_counter() - t0,
+                                      "words_differing": differing}
+    stream = lambda: ByteStream(seed ^ (oprf.OPRF_DOMAIN << 96))  # noqa: E731
+    n1 = p.big_lwe_dimension + 1
+    prf = {}
+    for bits, want in ((32, stream().uniform_u32(n1).astype(np.uint64)),
+                       (64, stream().uniform_u64(n1))):
+        got = oprf.pseudo_random_lwe(p, seed, bits)
+        differing = int((got != want).sum()) + int(got.shape != (n1,))
+        wrong += differing
+        prf[f"bits_{bits}"] = {"words_differing": differing, "max_word": int(got.max())}
+    if prf["bits_32"]["max_word"] >= 1 << 32:
+        wrong += 1
+    return {"wrong": wrong, "line": {
+        "params": "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+        "whole_bsk_seconds": whole_s, "ggsws": p.lwe_dimension, "chunks": chunks,
+        "pseudo_random_lwe": prf, "wrong": wrong}}
+
+
+def decrypt_rows(ck, rows, torus) -> list:
+    """The messages of (B, n+1) int64 word rows under a shortint client key."""
+    from tfhe_tpu_torch.shortint import Ciphertext
+
+    p = ck.params
+    return [ck.decrypt_raw(Ciphertext(row, degree=p.total_modulus - 1, noise_level=1,
+                                      message_modulus=p.message_modulus,
+                                      carry_modulus=p.carry_modulus))
+            for row in torus.to_u64(rows)]
+
+
+def placed_key_bytes(mesh, keys) -> dict:
+    """Bytes of the given keys (tensors, KeyswitchKeyLimbs, RoundedKeyNtt)
+    that each distinct device of the mesh holds: the key itself where it
+    lies there, else its copy there."""
+    from tfhe_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for dev in mesh.distinct_devices():
+        total = 0
+        for key in keys:
+            placed = pmesh.place(key, dev)
+            for t in ((placed.words, placed.limbs) if hasattr(placed, "limbs")
+                      else (placed.data,) if hasattr(placed, "round_bits") else (placed,)):
+                total += t.numel() * t.element_size()
+        out[str(dev)] = total
+    return out
+
+
+def multi_device_phase(kernels, torus, ck, sk, served, ick, isk, seed: int) -> dict:
+    """Phase 37 at the 2_2 widths on phase 3's key: the batch mesh
+    (sharded_ks_pbs on the exact key, sharded_ks_pbs_mxu on the rounded
+    key) at B = 512 on a mesh of every visible card and on MESH_SLOTS slots
+    of cuda:0, against the unsharded ks_pbs_batch and decrypted, with the
+    keys' uploads counted (a host-resident copy of the keys: one upload a
+    distinct device, none on the second call); the poly-sharded PBS at B =
+    1 and 4 over D = 1, 2 and 4 slots against K2's exact rotation, with K9's
+    launches; the latency route's FheUint8 add over LATENCY_SLOTS slots."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import server
+    from tfhe_tpu_torch.parallel import mesh as pmesh
+    from tfhe_tpu_torch.parallel import poly_shard as pps
+    from tfhe_tpu_torch.shortint.params import MsNoiseReduction
+    from tfhe_tpu_torch.shortint.server_key import upload_batch
+
+    p = sk.params
+    dev = torch.device("cuda", 0)
+    cts, vals = served["cts"][0], served["inputs"][0]
+    ct = upload_batch([c.data for c in cts], dev)
+    lut = torus.from_u64(served["lut"].acc, dev).expand(BATCH, -1, -1).contiguous()
+    want_msgs = [(3 * int(v) + 1) % 16 for v in vals]
+    args = (p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level)
+    centered = p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN
+    exact = sk.exact_bsk_ntt()
+    unsharded = {
+        "exact": server.ks_pbs_batch(ct, lut, sk.ks_key, exact, sk.dp, *args,
+                                     centered_ms=centered),
+        "mxu": server.ks_pbs_batch(ct, lut, sk.ks_key, sk.bsk_ntt, sk.bsk_ntt.dp, *args,
+                                   centered_ms=centered, trunc_acc=True)}
+    dps = {"exact": sk.dp, "mxu": sk.bsk_ntt.dp}
+    meshes = {"cards": pmesh.make_mesh(),
+              f"cuda0_x{MESH_SLOTS}": pmesh.make_mesh([dev] * MESH_SLOTS)}
+    # a mesh of unindexed "cuda" slots is the current card: a key already
+    # there is used as it is, not copied
+    named = pmesh.make_mesh(["cuda"] * 2)
+    before = pmesh.replicate.uploads
+    same = pmesh.replicate(named, sk.ks_key)
+    unindexed = {"distinct_devices": [str(d) for d in named.distinct_devices()],
+                 "key_uploads": pmesh.replicate.uploads - before}
+    wrong = int(unindexed["key_uploads"] != 0 or named.distinct_devices() != [dev]
+                or any(x is not sk.ks_key for x in same))
+    batch_line = {}
+    for m_tag, mesh in meshes.items():
+        for mode, entry in (("exact", pmesh.sharded_ks_pbs), ("mxu", pmesh.sharded_ks_pbs_mxu)):
+            # the keys as a host holds them: fresh copies off the card, placed
+            # once a distinct device at the first call
+            host_ks = dataclasses.replace(sk.ks_key, words=sk.ks_key.words.cpu(),
+                                          limbs=sk.ks_key.limbs.cpu())
+            key = (exact.cpu() if mode == "exact"
+                   else dataclasses.replace(sk.bsk_ntt, data=sk.bsk_ntt.data.cpu()))
+            runs = []
+            for _ in range(2):
+                before = pmesh.replicate.uploads
+                out, launches, secs, host_secs = counted(kernels, lambda: entry(
+                    mesh, ct, lut, host_ks, key, dps[mode], *args, centered_ms=centered))
+                runs.append({"seconds": secs, "host_seconds": host_secs,
+                             "pbs_per_s": BATCH / secs, "launches": launches,
+                             "key_uploads": pmesh.replicate.uploads - before})
+            differing = int((out != unsharded[mode]).sum())
+            wrong_dec = sum(g != w for g, w in zip(decrypt_rows(ck, out, torus), want_msgs))
+            wrong += differing + wrong_dec + runs[1]["key_uploads"]
+            wrong += runs[0]["key_uploads"] != 2 * len(mesh.distinct_devices())
+            batch_line[f"{m_tag}_{mode}"] = {
+                "slots": mesh.size, "distinct_devices": len(mesh.distinct_devices()),
+                "first_call": runs[0], "second_call": runs[1],
+                "words_differing_from_unsharded": differing, "wrong": wrong_dec,
+                "key_bytes_by_device": placed_key_bytes(mesh, (host_ks, key))}
+    # the poly-sharded PBS: K1, then K9 a step on each slot, against K1 and
+    # K2's exact rotation
+    poly_line, poly_runs = {}, {}
+    for d in POLY_SLOTS:
+        mesh = pmesh.make_mesh([dev] * d, "poly")
+        t0 = time.perf_counter()
+        evals = pps.prepare_bsk_poly_sharded(mesh, torus.from_u64(sk._bsk_coeff.data, dev))
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        for b in POLY_BATCHES:
+            args_b = (ct[:b], lut[:b])
+            want = server.ks_pbs_batch(*args_b, sk.ks_key, exact, sk.dp, *args,
+                                       centered_ms=centered)
+            out, launches, secs, host_secs = counted(kernels, lambda: pps.sharded_ks_pbs_poly(
+                mesh, *args_b, sk.ks_key, evals, *args, centered_ms=centered))
+            differing = int((out != want).sum())
+            wrong_dec = sum(g != w for g, w in zip(decrypt_rows(ck, out, torus), want_msgs[:b]))
+            k9 = sum(launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
+            wrong += differing + wrong_dec + (k9 != 3 * d * p.lwe_dimension)
+            wrong += launches["keyswitch"] != 1 or launches["blind_rotate"] != 0
+            poly_runs[(d, b)] = launches
+            poly_line[f"d{d}_b{b}"] = {
+                "slots": d, "batch": b, "seconds_a_pbs": secs / b, "seconds": secs,
+                "host_share": host_secs / secs, "k9_launches": k9,
+                "k9_launches_a_pbs": k9 / b, "launches": launches,
+                "prepare_key_seconds": prep_s, "sharded_key_bytes": evals.nbytes,
+                "words_differing_from_k2_exact": differing, "wrong": wrong_dec}
+    # the latency route: a FheUint8 add with every round one PBS split over
+    # LATENCY_SLOTS slots
+    rounds = {"n": 0}
+    route = pps.sharded_ks_pbs_poly
+
+    def counted_route(*a, **k):
+        rounds["n"] += 1
+        return route(*a, **k)
+
+    rng = np.random.default_rng(seed)
+    x, y = (int(v) for v in rng.integers(0, 256, 2))
+    a, b = ick.encrypt_radix(x, 4), ick.encrypt_radix(y, 4)
+    pps.set_latency_mesh(pmesh.make_mesh([dev] * LATENCY_SLOTS, "poly"))
+    pps.sharded_ks_pbs_poly = counted_route
+    try:
+        isk.key._ensure_poly_shard(pps.latency_mesh()[0])
+        out, lat_launches, lat_s, lat_host_s = counted(kernels, lambda: isk.add_parallelized(a, b))
+        got = ick.decrypt_radix(out)
+    finally:
+        pps.sharded_ks_pbs_poly = route
+        pps.set_latency_mesh(None)
+    wrong += got != (x + y) % 256 or rounds["n"] == 0
+    latency_line = {"slots": LATENCY_SLOTS, "x": x, "y": y, "decrypted": got,
+                    "rounds": rounds["n"], "seconds": lat_s, "host_seconds": lat_host_s,
+                    "launches": lat_launches, "wrong": int(got != (x + y) % 256)}
+    return {"wrong": wrong, "poly_runs": poly_runs, "line": {
+        "params": "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128", "batch": BATCH,
+        "visible_cards": torch.cuda.device_count(), "batch_mesh": batch_line,
+        "unindexed_cuda_mesh": unindexed,
+        "serve_pbs_per_s": served["line"]["pbs_per_s"],
+        "poly": poly_line, "latency_fheuint8_add": latency_line, "wrong": wrong,
+        "note": "one card: the slots of a mesh on cuda:0 run in turn; no scaling across "
+                "cards is measured"}}
+
+
+def c_api_phase(kernels) -> dict:
+    """Phase 38: the C API over the port built on the card's host (gcc,
+    c_api_torch/build.py; Python.h from sysconfig's include directory,
+    libpython linked) and its test program run at config kind 1
+    (DEFAULT_PARAMS, the 2_2 set: K1 and K2 v7) on cuda: its seconds a call."""
+    import importlib.util
+    import os
+    import sysconfig
+
+    from tfhe_tpu_torch.utils.build import CSRC
+
+    repo = CSRC.parents[1]
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        raise RuntimeError(f"no Python.h under {include}")
+    spec = importlib.util.spec_from_file_location("c_api_torch_build",
+                                                  repo / "c_api_torch" / "build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    t0 = time.perf_counter()
+    lib, program = build.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = build.run(program, 1, "cuda")
+    run_s = time.perf_counter() - t0
+    seconds = {}
+    for line in result.stdout.splitlines():
+        if line.startswith("seconds "):
+            _, name, value = line.split()
+            seconds[name] = float(value)
+    ok = "c_api: ALL OK" in result.stdout
+    return {"wrong": int(not ok), "line": {
+        "config_kind": 1, "params": "DEFAULT_PARAMS", "device": "cuda",
+        "python_include": include, "build_seconds": build_s, "run_seconds": run_s,
+        "seconds_a_call": seconds, "all_ok": ok,
+        "stdout_tail": result.stdout.splitlines()[-3:]}}
+
+
+def k9_bound(d: int, b: int, k1: int, n_poly: int, levels: int) -> dict:
+    """Least time for one CMux step's three K9 entries on all d slots: each
+    input read once and each output written once (u64 words at 8 bytes;
+    residues and the key slices' residues, below 2^30, at 4), against their Montgomery products on
+    the CUDA cores' 32-bit integer rate, three multiplies a product: the
+    twists, twiddles and size-C butterflies of entries a and c, the size-D
+    sums, the key product and the size-D inverse of entry b, Garner."""
+    np_, c = EXACT_PRIMES, n_poly // d
+    log_c = c.bit_length() - 1
+    rows = b * k1
+    modmuls = d * np_ * (rows * levels * (2 * c + (c // 2) * log_c)        # entry a
+                         + rows * (2 * c + (c // 2) * log_c))             # entry c
+    modmuls += np_ * n_poly * (levels * rows * d + levels * k1 * rows + rows * d)  # entry b
+    modmuls += d * rows * c * np_ * (np_ - 1) // 2                          # Garner
+    words = (rows * n_poly                                  # entry a in
+             + rows * n_poly)                               # entry c out
+    residues = (2 * levels * rows * np_ * n_poly            # entry a out, entry b in
+                + levels * k1 * k1 * np_ * n_poly           # the key slices
+                + 2 * rows * np_ * n_poly)                  # entry b out, entry c in
+    t_bytes = (8 * words + 4 * residues) / HBM_BYTES_PER_S
+    t_ops = 3 * modmuls / INT32_MUL_PER_S
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+
+
+def k9_vs_plain(kernels, torus, sk, seed: int, errs: dict) -> dict:
+    """K9's three entries against their plain versions (ops/four_step.py) on
+    the card at every shape the poly path runs (K9_SHAPES: N = 2048, k+1 =
+    2, l = 1, the key slices of phase 3's key).  Each entry is timed from
+    CUDA graphs (the device's time: "ms"), in event windows of K9_REPS
+    launches through its wrapper (the host's enqueue time is in those) and
+    beside its plain version; one step of the three entries on every slot
+    beside k9_bound."""
+    import torch
+
+    from tfhe_tpu_torch.ops import four_step
+    from tfhe_tpu_torch.parallel import mesh as pmesh
+    from tfhe_tpu_torch.parallel import poly_shard as pps
+
+    p = sk.params
+    dev = torch.device("cuda", 0)
+    n_poly, k1, levels = p.polynomial_size, p.glwe_dimension + 1, p.pbs_level
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    figs = {}
+    for d, b in K9_SHAPES:
+        t = four_step.device_tables(n_poly, d, str(dev))
+        c, rows = n_poly // d, b * k1
+        mesh = pmesh.make_mesh([dev] * d, "poly")
+        evals = pps.prepare_bsk_poly_sharded(mesh, torus.from_u64(sk._bsk_coeff.data[:2], dev))
+        x = torch.randint(-(1 << 62), 1 << 62, (rows, c), generator=gen, device=dev)
+        ya = torch.remainder(torch.randint(0, 1 << 62, (d, levels, rows, EXACT_PRIMES, c // d),
+                                           generator=gen, device=dev),
+                             t.dp.ps.view(1, 1, 1, -1, 1)).to(torch.int32)
+        yb = torch.remainder(torch.randint(0, 1 << 62, (d, rows, EXACT_PRIMES, c // d),
+                                           generator=gen, device=dev),
+                             t.dp.ps.view(1, 1, -1, 1)).to(torch.int32)
+        key = evals.parts[d - 1][1]
+        entries = {
+            "forward": (lambda: kernels.poly_shard_forward(x, t, d - 1, levels, p.pbs_base_log),
+                        lambda: four_step.forward_plain(x, t, d - 1, levels, p.pbs_base_log)),
+            "forward_words": (lambda: kernels.poly_shard_forward(x, t, d - 1),
+                              lambda: four_step.forward_plain(x, t, d - 1)),
+            "cross": (lambda: kernels.poly_shard_cross(ya, t, key, batch=b, k1=k1),
+                      lambda: four_step.cross_plain(ya, t, key, batch=b, k1=k1)),
+            "cross_forward_only": (lambda: kernels.poly_shard_cross(ya, t),
+                                   lambda: four_step.cross_plain(ya, t)),
+            "inverse": (lambda: kernels.poly_shard_inverse(yb, t, d - 1),
+                        lambda: four_step.inverse_plain(yb, t, d - 1))}
+        tag = f"d{d}_b{b}"
+        fig = {"slots": d, "batch": b, "C": c}
+        for name, (kernel, plain) in entries.items():
+            errs[f"k9_{name}_{tag}"] = fig[f"{name}_words_differing"] = max_abs_err(
+                kernel(), plain())
+            fig[f"{name}_ms"] = graph_ms(kernel)
+            fig[f"{name}_events_ms"], fig[f"{name}_host_ms"] = launch_ms(kernel, K9_REPS)
+            fig[f"{name}_plain_ms"] = cuda_ms(plain, 3)
+        # one step: entries a, b and c on every slot (the exchanges not counted)
+        for suffix in ("ms", "events_ms", "host_ms", "plain_ms"):
+            fig[f"step_{suffix}"] = d * sum(fig[f"{e}_{suffix}"]
+                                            for e in ("forward", "cross", "inverse"))
+        fig["bound"] = k9_bound(d, b, k1, n_poly, levels)
+        figs[tag] = fig
+    return figs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -5207,6 +5596,18 @@ def main() -> None:
     emit({"phase": "research_primitives", **rp_run["line"]})
     if rp_run["wrong"]:
         raise RuntimeError(f"{rp_run['wrong']} research-primitive outputs wrong")
+
+    # 36-38. the core functions, multi-device (the batch mesh, the
+    # poly-sharded PBS on K9, the latency route) and the C API over the port
+    cf_run = core_functions_phase(kernels, p, args.seed + 130)
+    emit({"phase": "core_functions", **cf_run["line"]})
+    md_run = multi_device_phase(kernels, torus, ck, sk, served, ick, isk, args.seed + 131)
+    emit({"phase": "multi_device", **md_run["line"]})
+    capi_run = c_api_phase(kernels)
+    emit({"phase": "c_api", **capi_run["line"]})
+    for tag, run in (("core-function", cf_run), ("multi-device", md_run), ("C API", capi_run)):
+        if run["wrong"]:
+            raise RuntimeError(f"{run['wrong']} {tag} outputs wrong")
 
     # 34. kernels against their plain versions
     errs = {}
@@ -5770,6 +6171,8 @@ def main() -> None:
     # cluster kernel (the rotation, the CMux chain) against the generic kernel
     s16 = test_shape_figures(kernels, server, torus, test_shapes.shapes, args.seed + 122, errs)
     s17 = small_n_vs_plain(kernels, server, torus, args.seed + 123, errs)
+    # phase 37: K9's three entries at the poly path's shapes
+    s21 = k9_vs_plain(kernels, torus, sk, args.seed + 132, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -6319,6 +6722,40 @@ def main() -> None:
     table += param_sets_table_entries(s18, s14_by_path, errs, ptxas_kernels)
     # K7, K8, and K2 and K1 at phase 33's shapes
     table += research_table_entries(kernels, rp_run, s15, errs, ptxas_kernels, p)
+    # K9, phase 37's poly-sharded PBS and latency route
+    k9_by_path = {f"multi_device_poly_{k}": sum(v[f"poly_shard_{e}"]
+                                                for e in ("forward", "cross", "inverse"))
+                  for k, v in ((f"d{d}_b{b}", runs) for (d, b), runs
+                               in md_run["poly_runs"].items())}
+    lat = md_run["line"]["latency_fheuint8_add"]["launches"]
+    k9_by_path["multi_device_latency_fheuint8_add"] = sum(
+        lat[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
+    k9_main = s21[f"d{K9_MAIN[0]}_b{K9_MAIN[1]}"]
+    table.append({
+        "name": "poly_shard", "route": "cuda", "source": "tfhe_tpu_torch/csrc/poly_shard.cu",
+        "replaces": "tfhe_tpu/parallel/poly_shard.py:118",
+        "also_replaces": ["tfhe_tpu/parallel/poly_shard.py:107",
+                          "tfhe_tpu/parallel/poly_shard.py:137"],
+        "replaces_kind": "XLA mod-p matmul stages of a shard_map program, not a pallas_call",
+        "kernel": "ps_forward_kernel, ps_cross_kernel, ps_inverse_kernel (K9: the slot-local "
+                  "stages of the four-step split, three launches a CMux step a slot)",
+        "launches": sum(k9_by_path.values()), "launches_by_path": k9_by_path,
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("k9")),
+        "words_differing": {k: v for k, v in errs.items() if k.startswith("k9")},
+        "ms": k9_main["step_ms"], "plain_ms": k9_main["step_plain_ms"],
+        "ms_is": "one CMux step: entries a, b and c on every slot, D = 4, B = 4, from "
+                 "CUDA graphs (the exchanges between them not counted)",
+        "events_ms": k9_main["step_events_ms"], "host_ms": k9_main["step_host_ms"],
+        "bound_ms": k9_main["bound"]["ms"], "bound_by": k9_main["bound"]["by"],
+        "bound_bytes_ms": k9_main["bound"]["bytes_ms"],
+        "bound_ops_int32_ms": k9_main["bound"]["ops_ms"],
+        "library_ms": None, "library_call": "none (no int64 matmul on CUDA)",
+        "by_shape": s21,
+        "registers": {k: ptxas_of(ptxas_kernels, k).get("registers")
+                      for k in ("ps_forward_kernel", "ps_cross_kernel", "ps_inverse_kernel")},
+        "spill_store_bytes": {k: ptxas_of(ptxas_kernels, k).get("spill_store_bytes")
+                              for k in ("ps_forward_kernel", "ps_cross_kernel",
+                                        "ps_inverse_kernel")}})
     by_name = {entry["name"]: entry for entry in table}
     for name, counter, paths, key in (
             ("keyswitch", "keyswitch", None, "launches_by_path"),

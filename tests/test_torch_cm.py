@@ -6,7 +6,7 @@ plain version on (mask, 0)), the CM GGSW, its CMux and external product
 (K2's CMux entry's plain version), the CM bootstrap key and bootstrap (K2's
 accumulator entry's plain version), the CM packing key and packing, the CM
 drift choice; and the routes and refusals of the CM rotation by shape.  At
-tfhe_tpu's toy set (TEST_VECTOR_TOY_PARAMS: n = 10, N = 256, noiseless), C
+the toy set (TEST_VECTOR_TOY_PARAMS: n = 10, N = 256, noiseless), C
 = 2 slots (the CMux also at C = 5), and one bootstrap at C = 4; the keys from module-scoped
 fixtures, built once in each package from the same seeds."""
 
@@ -19,12 +19,13 @@ import torch
 from tfhe_tpu.core import cm as ref_cm
 from tfhe_tpu.core import encrypt as ref_enc
 from tfhe_tpu.core import keygen as ref_kg
-from tfhe_tpu.core.params import TEST_VECTOR_TOY_PARAMS as TOY
+from tfhe_tpu.core.params import TEST_VECTOR_TOY_PARAMS as REF_TOY
 from tfhe_tpu.core.params import DecompParams as RefDecomp
 from tfhe_tpu.ops import server as ref_srv
 from tfhe_tpu.utils import csprng as ref_rng
 from tfhe_tpu_torch.core import cm
 from tfhe_tpu_torch.core import keygen as kg
+from tfhe_tpu_torch.core.params import TEST_VECTOR_TOY_PARAMS as TOY
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.ops import kernels, torus
 from tfhe_tpu_torch.utils import csprng
@@ -90,13 +91,14 @@ def test_cm_lwe_words_and_linear_algebra(lwe_keys):
     ref_small, _ = lwe_keys["ref"]
     ref_gen, gen = _enc_gens(SEED + 10)
     for msgs in ([4, 3], [1, 5]):
-        ref_ct = ref_cm.encrypt_cm_lwe(ref_small, _enc(msgs), TOY.lwe.noise, ref_gen)
+        ref_ct = ref_cm.encrypt_cm_lwe(ref_small, _enc(msgs), REF_TOY.lwe.noise, ref_gen)
         ct = cm.encrypt_cm_lwe(small, _enc(msgs), NOISE, gen)
         assert ct.shape == (SMALL + C,) and (ct == ref_ct).all()
         assert cm.decrypt_cm_lwe(small, ct) == ref_cm.decrypt_cm_lwe(ref_small, ref_ct)
         assert _dec(small, ct) == msgs
     first = cm.encrypt_cm_lwe(small, _enc([4, 3]), NOISE, gen)
-    assert (first == ref_cm.encrypt_cm_lwe(ref_small, _enc([4, 3]), TOY.lwe.noise, ref_gen)).all()
+    assert (first == ref_cm.encrypt_cm_lwe(ref_small, _enc([4, 3]), REF_TOY.lwe.noise,
+                                           ref_gen)).all()
     with np.errstate(over="ignore"):
         assert (cm.cm_lwe_add(first, ct) == ref_cm.cm_lwe_add(first, ct)).all()
         assert (cm.cm_lwe_scalar_mul(ct, 3) == ref_cm.cm_lwe_scalar_mul(ct, 3)).all()
@@ -110,13 +112,13 @@ def test_cm_keyswitch(lwe_keys):
     small, big = lwe_keys["port"]
     ref_small, ref_big = lwe_keys["ref"]
     ref_gen, gen = _enc_gens(SEED + 11)
-    ref_key = ref_cm.generate_cm_lwe_keyswitch_key(ref_big, ref_small, TOY.ks_decomp,
-                                                   TOY.lwe.noise, ref_gen)
+    ref_key = ref_cm.generate_cm_lwe_keyswitch_key(ref_big, ref_small, REF_TOY.ks_decomp,
+                                                   REF_TOY.lwe.noise, ref_gen)
     key = cm.generate_cm_lwe_keyswitch_key(big, small, KS, NOISE, gen, device="cpu")
     assert key.data.shape == (K * N, 1, SMALL + C) and (key.data == ref_key.data).all()
     assert key.input_lwe_dimension == K * N
     msgs = [[7, 2], [0, 15], [9, 9]]
-    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_big, _enc(row), TOY.lwe.noise, ref_gen)
+    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_big, _enc(row), REF_TOY.lwe.noise, ref_gen)
                     for row in msgs])
     want = np.asarray(ref_cm.cm_keyswitch(jnp.asarray(cts), ref_key))
     for k in (key, cm.CmLweKeyswitchKey.from_raw_keys(ref_key.data, KS, device="cpu")):
@@ -163,12 +165,12 @@ def test_cm_glwe_and_cmux(glwe_keys, wide_glwe_keys, c_dim):
     ref_gen, gen = _enc_gens(SEED + 12)
     rng = np.random.default_rng(5)
     body = rng.integers(0, 16, size=(c_dim, N)).astype(np.uint64) * np.uint64(DELTA)
-    ref_ct = ref_cm.encrypt_cm_glwe(ref_sks, body, TOY.glwe.noise, ref_gen)
+    ref_ct = ref_cm.encrypt_cm_glwe(ref_sks, body, REF_TOY.glwe.noise, ref_gen)
     ct = cm.encrypt_cm_glwe(sks, body, NOISE, gen, device="cpu")
     assert ct.shape == (K + c_dim, N) and (ct == ref_ct).all()
     assert (cm.decrypt_cm_glwe(sks, ct) == body).all()
     decomp = DecompParams(24, 1)
-    ref_ggsw = ref_cm.encrypt_cm_ggsw(ref_sks, bits, RefDecomp(24, 1), TOY.glwe.noise, ref_gen)
+    ref_ggsw = ref_cm.encrypt_cm_ggsw(ref_sks, bits, RefDecomp(24, 1), REF_TOY.glwe.noise, ref_gen)
     ggsw = cm.encrypt_cm_ggsw(sks, bits, decomp, NOISE, gen, device="cpu")
     assert ggsw.shape == (1, K + c_dim, K + c_dim, N) and (ggsw == ref_ggsw).all()
     ref_mont, plan = ref_cm.cm_ggsw_to_ntt(ref_ggsw)
@@ -198,12 +200,12 @@ def bootstrap_keys(lwe_keys, glwe_keys):
     small, ref_small = lwe_keys["port"][0], lwe_keys["ref"][0]
     sks, ref_sks = glwe_keys["port"], glwe_keys["ref"]
     ref_gen, gen = _enc_gens(SEED + 13)
-    ref_bsk = ref_cm.generate_cm_lwe_bootstrap_key(ref_small, ref_sks, TOY.pbs_decomp,
-                                                   TOY.glwe.noise, ref_gen)
+    ref_bsk = ref_cm.generate_cm_lwe_bootstrap_key(ref_small, ref_sks, REF_TOY.pbs_decomp,
+                                                   REF_TOY.glwe.noise, ref_gen)
     bsk = cm.generate_cm_lwe_bootstrap_key(small, sks, PBS, NOISE, gen, device="cpu")
     ref_mont, plan = ref_cm.cm_bootstrap_key_to_ntt(ref_bsk)
     msgs = [[4, 11], [0, 7], [15, 1]]
-    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_small, _enc(row), TOY.lwe.noise, ref_gen)
+    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_small, _enc(row), REF_TOY.lwe.noise, ref_gen)
                     for row in msgs])
     return ref_bsk, bsk, ref_mont, plan, msgs, cts, [sk.as_lwe_secret_key() for sk in sks]
 
@@ -242,12 +244,13 @@ def test_cm_packing(lwe_keys):
     ref_out = [ref_kg.generate_binary_lwe_secret_key(SMALL, ref_sec) for _ in range(C)]
     in_sk = kg.generate_binary_lwe_secret_key(SMALL, sec)
     out_sks = [kg.generate_binary_lwe_secret_key(SMALL, sec) for _ in range(C)]
-    ref_pk = ref_cm.generate_cm_lwe_packing_key(ref_in, ref_out, TOY.ks_decomp, TOY.lwe.noise,
+    ref_pk = ref_cm.generate_cm_lwe_packing_key(ref_in, ref_out, REF_TOY.ks_decomp,
+                                                REF_TOY.lwe.noise,
                                                 ref_gen)
     pk = cm.generate_cm_lwe_packing_key(in_sk, out_sks, KS, NOISE, gen, device="cpu")
     assert pk.data.shape == (C, SMALL, 1, SMALL + C) and (pk.data == ref_pk.data).all()
     msgs = [[6, 13], [2, 2]]
-    cts = np.stack([np.stack([ref_enc.encrypt_lwe(ref_in, v, TOY.lwe.noise, ref_gen).data
+    cts = np.stack([np.stack([ref_enc.encrypt_lwe(ref_in, v, REF_TOY.lwe.noise, ref_gen).data
                               for v in _enc(row)]) for row in msgs])
     want = np.asarray(ref_cm.pack_lwe_ciphertexts_into_cm(jnp.asarray(cts), ref_pk))
     for key in (pk, cm.CmLwePackingKey.from_raw_keys(ref_pk.data, KS, device="cpu")):
@@ -320,13 +323,13 @@ def wide_bootstrap_keys(lwe_keys, glwe_keys):
     ref_sks = glwe_keys["ref"] + [ref_kg.generate_binary_glwe_secret_key(K, N, ref_sec)
                                   for _ in range(2)]
     sks = glwe_keys["port"] + [kg.generate_binary_glwe_secret_key(K, N, sec) for _ in range(2)]
-    ref_bsk = ref_cm.generate_cm_lwe_bootstrap_key(ref_small, ref_sks, TOY.pbs_decomp,
-                                                   TOY.glwe.noise, ref_gen)
+    ref_bsk = ref_cm.generate_cm_lwe_bootstrap_key(ref_small, ref_sks, REF_TOY.pbs_decomp,
+                                                   REF_TOY.glwe.noise, ref_gen)
     bsk = cm.generate_cm_lwe_bootstrap_key(small, sks, PBS, NOISE, gen, device="cpu")
     assert bsk.shape == (SMALL, 1, K + 4, K + 4, N) and (bsk == ref_bsk).all()
     ref_mont, plan = ref_cm.cm_bootstrap_key_to_ntt(ref_bsk)
     msgs = [[4, 11, 0, 9], [15, 7, 2, 1]]
-    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_small, _enc(row), TOY.lwe.noise, ref_gen)
+    cts = np.stack([ref_cm.encrypt_cm_lwe(ref_small, _enc(row), REF_TOY.lwe.noise, ref_gen)
                     for row in msgs])
     return ref_mont, plan, msgs, cts, [sk.as_lwe_secret_key() for sk in sks]
 

@@ -6,7 +6,7 @@ ops/server.py glwe_keyswitch (the key of tests/test_core_pbs.py:79: N =
 version), the pseudo-GGSW and the fast keyswitch (K7's plain version, both
 signs also held against the schoolbook oracle ops/polymul_ref.py), partial
 extraction and the extended PBS at E = 1 and 4 (K8's plain version, at E = 1
-also against the port's classic rotation), at tfhe_tpu's toy set
+also against the port's classic rotation), at the toy set
 (TEST_VECTOR_TOY_PARAMS: n = 10, N = 256, noiseless).  Keys come from
 module-scoped fixtures built once in each package from the same seeds;
 tfhe_tpu's results are computed once each."""
@@ -21,13 +21,14 @@ from tfhe_tpu.core import encrypt as ref_enc
 from tfhe_tpu.core import experimental as ref_exp
 from tfhe_tpu.core import keygen as ref_kg
 from tfhe_tpu.core.entities import LweCiphertext as RefLweCt
-from tfhe_tpu.core.params import TEST_VECTOR_TOY_PARAMS as TOY
+from tfhe_tpu.core.params import TEST_VECTOR_TOY_PARAMS as REF_TOY
 from tfhe_tpu.core.params import DecompParams as RefDecomp
 from tfhe_tpu.ops import server as ref_srv
 from tfhe_tpu.utils import csprng as ref_rng
 from tfhe_tpu_torch.core import experimental as exp
 from tfhe_tpu_torch.core import keygen as kg
 from tfhe_tpu_torch.core.entities import LweBootstrapKey
+from tfhe_tpu_torch.core.params import TEST_VECTOR_TOY_PARAMS as TOY
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.ops import kernels, ntt, polymul_ref, server, torus
 from tfhe_tpu_torch.utils import csprng
@@ -188,7 +189,7 @@ def test_shrinking_keyswitch():
     ref_large = ref_kg.generate_binary_lwe_secret_key(40, ref_sec)
     large = kg.generate_binary_lwe_secret_key(40, sec)
     ref_sksk = ref_exp.generate_lwe_shrinking_keyswitch_key(ref_large, 16, RefDecomp(37, 1),
-                                                            TOY.lwe.noise, ref_gen)
+                                                            REF_TOY.lwe.noise, ref_gen)
     sksk = exp.generate_lwe_shrinking_keyswitch_key(large, 16, DecompParams(37, 1), NOISE, gen,
                                                     device="cpu")
     assert (sksk.ksk.data == ref_sksk.ksk.data).all()
@@ -196,7 +197,7 @@ def test_shrinking_keyswitch():
     raw = exp.LweShrinkingKeyswitchKey.from_raw_keys(ref_sksk.ksk.data, DecompParams(37, 1), 16,
                                                      device="cpu")
     msgs = [0, 3, 7, 12, 15]
-    cts = np.stack([ref_enc.encrypt_lwe(ref_large, ref_enc.encode(m, MSG_BITS), TOY.lwe.noise,
+    cts = np.stack([ref_enc.encrypt_lwe(ref_large, ref_enc.encode(m, MSG_BITS), REF_TOY.lwe.noise,
                                         ref_gen).data for m in msgs])
     want = np.asarray(ref_exp.shrinking_keyswitch(jnp.asarray(cts), ref_sksk))
     for key in (sksk, raw):
@@ -217,7 +218,7 @@ def test_pseudo_ggsw_and_fast_keyswitch(k_in, decomp):
     ref_out = ref_kg.generate_binary_glwe_secret_key(1, N, ref_sec)
     sk_in = kg.generate_binary_glwe_secret_key(k_in, N, sec)
     sk_out = kg.generate_binary_glwe_secret_key(1, N, sec)
-    ref_pg = ref_exp.encrypt_pseudo_ggsw(ref_out, ref_in, RefDecomp(*decomp), TOY.glwe.noise,
+    ref_pg = ref_exp.encrypt_pseudo_ggsw(ref_out, ref_in, RefDecomp(*decomp), REF_TOY.glwe.noise,
                                          ref_gen)
     pg = exp.encrypt_pseudo_ggsw(sk_out, sk_in, DecompParams(*decomp), NOISE, gen, device="cpu")
     assert pg.data.shape == (k_in, decomp[1], 2, N) and (pg.data == ref_pg.data).all()
@@ -230,7 +231,7 @@ def test_pseudo_ggsw_and_fast_keyswitch(k_in, decomp):
     msgs = np.arange(N) % 16
     with np.errstate(over="ignore"):
         ct = ref_enc.encrypt_glwe_assign(ref_in, msgs.astype(np.uint64) << np.uint64(59),
-                                         TOY.glwe.noise, ref_gen).data
+                                         REF_TOY.glwe.noise, ref_gen).data
     want = np.asarray(REF_FAST_KS(jnp.asarray(ct)[None], jnp.asarray(ref_mont), plan,
                                   *decomp))[0]
     got = _np(exp.glwe_fast_keyswitch(_t(ct)[None], key.data, key.dp, *decomp))[0]
@@ -246,7 +247,7 @@ def test_partial_extract_and_convert():
     msgs = np.arange(N) % 16
     with np.errstate(over="ignore"):
         ct = ref_enc.encrypt_glwe_assign(ref_sk, msgs.astype(np.uint64) << np.uint64(59),
-                                         TOY.glwe.noise, ref_gen).data
+                                         REF_TOY.glwe.noise, ref_gen).data
     rng = np.random.default_rng(3)
     batch = np.stack([ct, rng.integers(0, 1 << 64, ct.shape, dtype=np.uint64)])
     for nth in (0, 5):
@@ -272,13 +273,14 @@ def pbs_keys():
     ref_sec, ref_gen = _gens(ref_rng)
     glwe_sk = ref_kg.generate_binary_glwe_secret_key(1, N, ref_sec)
     small_sk = ref_kg.generate_binary_lwe_secret_key(TOY.lwe_dimension, ref_sec)
-    bsk = ref_kg.generate_lwe_bootstrap_key(small_sk, glwe_sk, TOY.pbs_decomp, TOY.glwe.noise,
+    bsk = ref_kg.generate_lwe_bootstrap_key(small_sk, glwe_sk, REF_TOY.pbs_decomp,
+                                            REF_TOY.glwe.noise,
                                             ref_gen)
     ref_mont, plan = ref_kg.bootstrap_key_to_ntt(bsk)
     mont, port_plan = kg.bootstrap_key_to_ntt(LweBootstrapKey(bsk.data, DecompParams(24, 1)))
     assert (mont == ref_mont).all()
     msgs = [0, 1, 5, 8, 11, 15]
-    cts = np.stack([ref_enc.encrypt_lwe(small_sk, ref_enc.encode(m, MSG_BITS), TOY.lwe.noise,
+    cts = np.stack([ref_enc.encrypt_lwe(small_sk, ref_enc.encode(m, MSG_BITS), REF_TOY.lwe.noise,
                                         ref_gen).data for m in msgs])
     return (glwe_sk.as_lwe_secret_key(), jnp.asarray(ref_mont), plan,
             torch.from_numpy(mont.view(np.int32)), ntt.device_plan(port_plan, "cpu"), msgs, cts)

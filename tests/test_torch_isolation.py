@@ -27,8 +27,10 @@ torch.set_num_threads(1)  # the suite runs in parallel processes: one thread eac
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
-    for p in [*(REPO / "tfhe_tpu_torch").rglob("*.py"), *(REPO / "tools").glob("*.py")]
+    for p in [*(REPO / "tfhe_tpu_torch").rglob("*.py"), *(REPO / "tools").glob("*.py"),
+              *(REPO / "c_api_torch").glob("*.py")]
 ) + ["chip_smoke.py"]
+C_API_SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "c_api_torch").glob("*.c"))
 
 # an import statement naming jax/jaxlib or the JAX package (not the port)
 _FORBIDDEN = re.compile(
@@ -180,6 +182,17 @@ def test_source_imports_neither_jax_nor_tfhe_tpu(path):
     text = (REPO / path).read_text()
     assert not _FORBIDDEN.findall(text), path
     assert not _FORBIDDEN_DYNAMIC.findall(text), path
+
+
+@pytest.mark.parametrize("path", C_API_SOURCES)
+def test_c_api_imports_only_the_port(path):
+    """The C API over the port embeds an interpreter that imports the port's
+    modules and nothing of tfhe_tpu."""
+    text = (REPO / path).read_text()
+    modules = re.findall(r'PyImport_ImportModule\(\s*"([\w.]+)"', text)
+    assert all(m.split(".")[0] == "tfhe_tpu_torch" for m in modules), modules
+    if path.endswith("tfhe_c.c"):
+        assert {"tfhe_tpu_torch", "tfhe_tpu_torch.utils.serialization"} <= set(modules)
 
 
 def test_version_and_package_doc():

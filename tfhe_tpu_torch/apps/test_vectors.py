@@ -26,6 +26,8 @@ import os
 
 import numpy as np
 
+from ..core.params import TEST_VECTOR_TOY_PARAMS, TEST_VECTOR_VALID_PARAMS, BootstrapParams
+
 RAND_SEED = 0x74666865
 MSG_A, MSG_B = 4, 3
 MSG_BITS = 4
@@ -129,13 +131,18 @@ def generate(path: str, lwe_dimension: int, glwe_dimension: int,
         }, fh, indent=1)
 
 
-TOY_PARAMS = dict(lwe_dimension=10, glwe_dimension=1, polynomial_size=256,
-                  lwe_stddev=0.0, glwe_stddev=0.0,
-                  pbs_base_log=24, pbs_level=1, ks_base_log=37, ks_level=1)
-VALID_PARAMS_128 = dict(lwe_dimension=833, glwe_dimension=1, polynomial_size=2048,
-                        lwe_stddev=3.6158408373309336e-06,
-                        glwe_stddev=2.845267479601915e-15,
-                        pbs_base_log=23, pbs_level=1, ks_base_log=3, ks_level=5)
+def _generate_args(params: BootstrapParams) -> dict:
+    """generate()'s keyword arguments of a core parameter set."""
+    return dict(lwe_dimension=params.lwe_dimension, glwe_dimension=params.glwe_dimension,
+                polynomial_size=params.polynomial_size, lwe_stddev=params.lwe.noise.std,
+                glwe_stddev=params.glwe.noise.std,
+                pbs_base_log=params.pbs_decomp.base_log,
+                pbs_level=params.pbs_decomp.level_count,
+                ks_base_log=params.ks_decomp.base_log, ks_level=params.ks_decomp.level_count)
+
+
+TOY_PARAMS = _generate_args(TEST_VECTOR_TOY_PARAMS)
+VALID_PARAMS_128 = _generate_args(TEST_VECTOR_VALID_PARAMS)
 
 
 def main(out_dir: str = "test_vectors_out", device="cuda"):

@@ -46,6 +46,22 @@ def decrypt_lwe(sk: LweSecretKey, ct: LweCiphertext) -> int:
     return int(ct.body - dot)
 
 
+def decode(plaintext: int, msg_bits: int, bits: int = 64) -> int:
+    """Round to the top msg_bits + 1 bits and return the message
+    (tfhe_tpu/core/encrypt.py:54; SignedDecomposer(msg_bits + 1, 1)
+    .decode_plaintext): round to nearest at bit bits - msg_bits - 1; the
+    padding bit folds away mod 2^msg_bits."""
+    shift = bits - msg_bits - 1
+    rounded = ((plaintext >> (shift - 1)) + 1) >> 1
+    return rounded % (1 << msg_bits)
+
+
+def encode(msg: int, msg_bits: int, bits: int = 64) -> int:
+    """Delta scaling with one padding bit: msg 2^(bits - msg_bits - 1) mod
+    2^bits (tfhe_tpu/core/encrypt.py:66)."""
+    return (msg << (bits - msg_bits - 1)) % (1 << bits)
+
+
 def encrypt_glwe_assign(sk: GlweSecretKey, body_init: np.ndarray, noise_distribution,
                         gen: EncryptionRandomGenerator) -> GlweCiphertext:
     """GLWE-encrypt a pre-filled body polynomial (tfhe_tpu/core/encrypt.py:71):

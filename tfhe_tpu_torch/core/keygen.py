@@ -127,6 +127,33 @@ def add_mask_times_secret(rows: np.ndarray, glwe_sk: GlweSecretKey, device="cuda
                                                                  dp))
 
 
+def _bsk_ggsws(input_sk: LweSecretKey, glwe_sk: GlweSecretKey, decomp: DecompParams,
+               noise_distribution, gen: EncryptionRandomGenerator, start: int, count: int,
+               device) -> np.ndarray:
+    """GGSWs [start, start + count) of the BSK, (count, l, k+1, k+1, N): one
+    fork of ``gen`` per GGSW of the whole key, then per level, then per row
+    (lwe_bootstrap_key_generation.rs:122-138), so any slice has the words
+    of the same slice of the whole key; the bodies' secret products taken
+    on ``device``."""
+    if not (0 <= start and start + count <= input_sk.dimension):
+        raise ValueError(f"GGSWs [{start}, {start + count}) of {input_sk.dimension}")
+    k = glwe_sk.glwe_dimension
+    n_poly = glwe_sk.polynomial_size
+    levels = decomp.level_count
+    k1 = k + 1
+    out = np.zeros((count, levels, k1, k1, n_poly), dtype=np.uint64)
+    ggsw_gens = gen.fork(input_sk.dimension, levels * k1 * k * n_poly, levels * k1 * n_poly,
+                         noise_distribution)
+    with np.errstate(over="ignore"):
+        for i in range(count):
+            lev_gens = ggsw_gens[start + i].fork(levels, k1 * k * n_poly, k1 * n_poly,
+                                                 noise_distribution)
+            draw_ggsw_rows(out[i], int(input_sk.data[start + i]), glwe_sk, decomp,
+                           noise_distribution, lev_gens)
+    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk, resolve_device(device))
+    return out
+
+
 def generate_lwe_bootstrap_key(
     input_sk: LweSecretKey,
     glwe_sk: GlweSecretKey,
@@ -138,23 +165,27 @@ def generate_lwe_bootstrap_key(
     """One GGSW of each input key bit, from one fork per GGSW, then per
     level, then per row (lwe_bootstrap_key_generation.rs:122-138); the
     bodies' secret products taken on ``device``."""
-    n_in = input_sk.dimension
-    k = glwe_sk.glwe_dimension
-    n_poly = glwe_sk.polynomial_size
-    levels = decomp.level_count
-    k1 = k + 1
-    device = resolve_device(device)
-    out = np.zeros((n_in, levels, k1, k1, n_poly), dtype=np.uint64)
-    ggsw_gens = gen.fork(n_in, levels * k1 * k * n_poly, levels * k1 * n_poly,
-                         noise_distribution)
-    with np.errstate(over="ignore"):
-        for i, ggsw_gen in enumerate(ggsw_gens):
-            lev_gens = ggsw_gen.fork(levels, k1 * k * n_poly, k1 * n_poly,
-                                     noise_distribution)
-            draw_ggsw_rows(out[i], int(input_sk.data[i]), glwe_sk, decomp,
-                           noise_distribution, lev_gens)
-    add_mask_times_secret(out.reshape(-1, k1, n_poly), glwe_sk, device)
-    return LweBootstrapKey(out, decomp)
+    return LweBootstrapKey(_bsk_ggsws(input_sk, glwe_sk, decomp, noise_distribution, gen,
+                                      0, input_sk.dimension, device), decomp)
+
+
+def generate_lwe_bootstrap_key_chunk(
+    input_sk: LweSecretKey,
+    glwe_sk: GlweSecretKey,
+    decomp: DecompParams,
+    noise_distribution,
+    gen: EncryptionRandomGenerator,
+    chunk_start: int,
+    chunk_count: int,
+    device="cuda",
+) -> np.ndarray:
+    """GGSWs [chunk_start, chunk_start + chunk_count) of the BSK as a
+    (count, l, k+1, k+1, N) uint64 array (tfhe_tpu/core/keygen.py:187;
+    entities/lwe_bootstrap_key_chunk.rs): the words of the same slice of
+    ``generate_lwe_bootstrap_key`` from a generator seeded alike, so a key
+    can be generated piecewise from one seed."""
+    return _bsk_ggsws(input_sk, glwe_sk, decomp, noise_distribution, gen, chunk_start,
+                      chunk_count, device)
 
 
 def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int = 4):

@@ -9,11 +9,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..utils.csprng import TUniform
+from ..utils.csprng import Gaussian, TUniform
 
-# the noise distributions the port's parameter sets use (Gaussian sets come
-# with the slices that port them)
-NoiseDistribution = TUniform
+# the noise distributions of the parameter sets
+NoiseDistribution = TUniform | Gaussian
 
 
 @dataclass(frozen=True)
@@ -93,3 +92,20 @@ class BootstrapParams:
     @property
     def bits(self) -> int:
         return self.glwe.modulus.bits
+
+
+# The test-vector sets of apps/test-vectors/src/main.rs:17-43
+# (tfhe_tpu/core/params.py:99-111): a realistic set and a noiseless toy set.
+TEST_VECTOR_VALID_PARAMS = BootstrapParams(
+    lwe=LweParams(833, Gaussian(3.6158408373309336e-06)),
+    glwe=GlweParams(1, 2048, Gaussian(2.845267479601915e-15)),
+    pbs_decomp=DecompParams(23, 1),
+    ks_decomp=DecompParams(3, 5),
+)
+
+TEST_VECTOR_TOY_PARAMS = BootstrapParams(
+    lwe=LweParams(10, Gaussian(0.0)),
+    glwe=GlweParams(1, 256, Gaussian(0.0)),
+    pbs_decomp=DecompParams(24, 1),
+    ks_decomp=DecompParams(37, 1),
+)

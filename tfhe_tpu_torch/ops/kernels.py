@@ -43,7 +43,10 @@ cluster kernel, four blocks a GLWE, one a CRT prime, where
 ``blind_rotate_extended``
 (csrc/blind_rotate_extended.cu, the extended PBS's rotation: its lazy
 kernel at the 2_2 shape, ``extended_route``, else its generic kernel; the
-E slots of a ciphertext in one cluster) are
+E slots of a ciphertext in one cluster) and K9 ``poly_shard_forward``,
+``poly_shard_cross`` and ``poly_shard_inverse`` (csrc/poly_shard.cu, the
+slot-local stages of the four-step split of parallel/poly_shard.py; plain
+versions in ops/four_step.py) are
 compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
@@ -71,7 +74,7 @@ from functools import lru_cache
 import torch
 
 from ..utils.build import CSRC, build_shared_libraries
-from . import server, server128
+from . import four_step, server, server128
 from .bsk_prep import RoundedKeyNtt
 from .ntt import (KERNEL128_CONSTS_LEN, KERNEL128_PRIMES, KERNEL_CONSTS_LEN,
                   KERNEL_PRIMES, DevicePlan, shoup_twiddles)
@@ -87,7 +90,8 @@ _SOURCES = {"keyswitch": "keyswitch.cu", "blind_rotate": "blind_rotate.cu",
             "blind_rotate128": "blind_rotate128.cu",
             "packing_keyswitch128": "packing_keyswitch128.cu",
             "glwe_keyswitch": "glwe_keyswitch.cu",
-            "blind_rotate_extended": "blind_rotate_extended.cu"}
+            "blind_rotate_extended": "blind_rotate_extended.cu",
+            "poly_shard": "poly_shard.cu"}
 
 
 class _Libs:
@@ -233,6 +237,14 @@ def load() -> dict:
                              ("blind_rotate_extended_clusters", 2)):
             fn = getattr(libs["blind_rotate_extended"], f"tfhe_torch_{name}")
             fn.argtypes = [i] * n_args
+            fn.restype = i
+        ps = libs["poly_shard"]
+        ps.tfhe_torch_poly_shard_forward.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        ps.tfhe_torch_poly_shard_cross.argtypes = ([vp] * 7 + [i] * 5 + [ctypes.c_longlong, i]
+                                                   + [vp])
+        ps.tfhe_torch_poly_shard_inverse.argtypes = [vp] * 6 + [i] * 3 + [vp]
+        for fn in (ps.tfhe_torch_poly_shard_forward, ps.tfhe_torch_poly_shard_cross,
+                   ps.tfhe_torch_poly_shard_inverse):
             fn.restype = i
         for name, n_args in (("blind_rotate_cluster_occupancy", 3),
                              ("blind_rotate_cluster_smem", 3),
@@ -1670,3 +1682,104 @@ def blind_rotate_extended(msed_mask, acc, bsk_ntt, dp: DevicePlan, base_log: int
 
 blind_rotate_extended.launches = 0
 blind_rotate_extended.lazy_launches = 0     # of them, K8's lazy kernel
+
+
+# ---------------------------------------------------------------------------
+# K9: the slot-local stages of the four-step split (csrc/poly_shard.cu)
+# ---------------------------------------------------------------------------
+
+
+def _k9_tables(t: four_step.PolyShardTables, dev: torch.device) -> None:
+    _require(t.consts is not None, "K9 runs the 4-prime plan only")
+    _require(t.pw_f.device == dev, f"tables on {t.pw_f.device}, tensors on {dev}")
+
+
+def poly_shard_forward(x, t: four_step.PolyShardTables, slot: int, levels: int = 0,
+                       base_log: int = 0) -> torch.Tensor:
+    """K9 entry (a) on slot ``slot``: x (M, C) int64 u64 words -> (L, M,
+    P, C) int32 residues after the digits (levels > 0) or the words' residues,
+    the twist, the cyclic size-C transform and the twiddle
+    (four_step.forward_plain, which runs for CPU tensors)."""
+    if x.device.type == "cpu":
+        return four_step.forward_plain(x, t, slot, levels, base_log)
+    _require(x.device.type == "cuda", f"no K9 kernel for {x.device}")
+    _check_cuda((x, torch.int64))
+    _k9_tables(t, x.device)
+    rows, c = x.shape
+    _require(c == t.c, f"{c} coefficients a slot, the tables split N = {t.n} into {t.c}")
+    out = torch.empty((max(levels, 1), rows, KERNEL_PRIMES, c), dtype=torch.int32,
+                      device=x.device)
+    err = load()["poly_shard"].tfhe_torch_poly_shard_forward(
+        x.data_ptr(), out.data_ptr(), t.consts.data_ptr(), t.tw_f[slot].data_ptr(),
+        t.twd_f[slot].data_ptr(), t.pw_f.data_ptr(), rows, c.bit_length() - 1, levels,
+        base_log, _stream(x))
+    _raise_on(err, "poly_shard_forward")
+    poly_shard_forward.launches += 1
+    return out
+
+
+poly_shard_forward.launches = 0
+
+
+def poly_shard_cross(ya, t: four_step.PolyShardTables, key=None, batch: int = 0, k1: int = 1,
+                     key_per_row: bool = False) -> torch.Tensor:
+    """K9 entry (b) on a slot after the exchange: ya (D, L, M, P, C/D)
+    int32 residues -> without a key the slot's evaluation slice (L, M, P,
+    C), Montgomery form; with a key (L, k+1, k+1, P, C) int32 (or one (P,
+    C) slice a row, key_per_row) the product summed over the levels and input rows, after
+    the size-D inverse: (D, batch, k+1, P, C/D) (four_step.cross_plain,
+    which runs for CPU tensors)."""
+    if ya.device.type == "cpu":
+        return four_step.cross_plain(ya, t, key, batch, k1, key_per_row)
+    _require(ya.device.type == "cuda", f"no K9 kernel for {ya.device}")
+    _check_cuda((ya, torch.int32), *(() if key is None else ((key, torch.int32),)))
+    _k9_tables(t, ya.device)
+    d, levels, m, np_, cd = ya.shape
+    _require(d == t.d and cd * d == t.c and np_ == KERNEL_PRIMES, "ya does not fit the tables")
+    if key is None:
+        out = torch.empty((levels, m, np_, t.c), dtype=torch.int32, device=ya.device)
+        batch, k1, stride, key_ptr = m, 1, 0, None
+    else:
+        _require(m == batch * k1, "rows are not batch (k+1)")
+        if key_per_row:
+            _require(levels == 1 and k1 == 1 and key.shape == (m, np_, t.c), "row keys")
+            stride = np_ * t.c
+        else:
+            _require(tuple(key.shape) == (levels, k1, k1, np_, t.c), "key slice shape")
+            stride = 0
+        out = torch.empty((d, batch, k1, np_, cd), dtype=torch.int32, device=ya.device)
+        key_ptr = key.data_ptr()
+    err = load()["poly_shard"].tfhe_torch_poly_shard_cross(
+        ya.data_ptr(), key_ptr, out.data_ptr(), t.consts.data_ptr(), t.pwd_f.data_ptr(),
+        t.pwd_i.data_ptr(), t.r2.data_ptr(), d, cd, levels, batch, k1, stride,
+        int(key is None), _stream(ya))
+    _raise_on(err, "poly_shard_cross")
+    poly_shard_cross.launches += 1
+    return out
+
+
+poly_shard_cross.launches = 0
+
+
+def poly_shard_inverse(yb, t: four_step.PolyShardTables, slot: int) -> torch.Tensor:
+    """K9 entry (c) on slot ``slot`` after the exchange back: yb (D, M, P,
+    C/D) int32 residues -> (M, C) int64 u64 words: the inverse twiddle, the inverse
+    cyclic size-C transform, the inverse twist and Garner
+    (four_step.inverse_plain, which runs for CPU tensors)."""
+    if yb.device.type == "cpu":
+        return four_step.inverse_plain(yb, t, slot)
+    _require(yb.device.type == "cuda", f"no K9 kernel for {yb.device}")
+    _check_cuda((yb, torch.int32))
+    _k9_tables(t, yb.device)
+    d, m, np_, cd = yb.shape
+    _require(d == t.d and cd * d == t.c and np_ == KERNEL_PRIMES, "yb does not fit the tables")
+    out = torch.empty((m, t.c), dtype=torch.int64, device=yb.device)
+    err = load()["poly_shard"].tfhe_torch_poly_shard_inverse(
+        yb.data_ptr(), out.data_ptr(), t.consts.data_ptr(), t.twd_i[slot].data_ptr(),
+        t.tw_ci[slot].data_ptr(), t.pw_i.data_ptr(), m, d, t.c.bit_length() - 1, _stream(yb))
+    _raise_on(err, "poly_shard_inverse")
+    poly_shard_inverse.launches += 1
+    return out
+
+
+poly_shard_inverse.launches = 0

@@ -38,10 +38,10 @@ OPRF_DOMAIN = 0x4F505246  # "OPRF"
 
 def pseudo_random_lwe(params, seed: int, bits: int = 64) -> np.ndarray:
     """Deterministic pseudorandom LWE (mask + body) from a public seed,
-    (big_lwe_dimension + 1,) uint64."""
-    if bits != 64:
-        raise NotImplementedError("only the native 2^64 torus is ported")
-    return ByteStream(seed ^ (OPRF_DOMAIN << 96)).uniform_u64(params.big_lwe_dimension + 1)
+    (big_lwe_dimension + 1,) uint64 words of the bits-wide torus (64 or
+    32: ``ByteStream.uniform_scalar``)."""
+    return ByteStream(seed ^ (OPRF_DOMAIN << 96)).uniform_scalar(
+        params.big_lwe_dimension + 1, bits)
 
 
 def generate_oblivious_pseudo_random(

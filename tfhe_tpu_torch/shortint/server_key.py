@@ -15,6 +15,12 @@ ciphertext after the KS + MS half, and
 exact mode (the exact key is uploaded at its first use in v7 or v9 mode),
 as does many-LUT (``apply_many_lookup_table_batch``).
 
+With a latency mesh set (parallel/poly_shard.py ``set_latency_mesh``), a
+batch of at most its threshold on a classic BIG-key set (no KS32, no
+drift zeros) runs ``sharded_ks_pbs_poly`` instead: one PBS split over
+the mesh's slots, in exact mode on the key's evaluation slices
+(``_ensure_poly_shard``), as tfhe_tpu routes it.
+
 Which blind rotation runs is fixed at construction, as tfhe_tpu's
 ``use_mxu`` and ``use_mxu_multibit`` fix it by backend.  Classic sets: v7
 mode (the TPU production kernel's function: key centered-rounded to 2^15,
@@ -417,7 +423,20 @@ class ServerKey:
         batch = upload_batch([c.data for c in cts] + [cts[0].data] * (n_pad - n_real),
                              self.device)
         lut_b = self._upload_luts(luts, n_pad)
-        if p.encryption_key_choice == EncryptionKeyChoice.SMALL:
+        from ..parallel import poly_shard as ps
+
+        lmesh = ps.latency_mesh()
+        if (lmesh is not None and n_real <= ps.latency_threshold() and self.grouping is None
+                and p.encryption_key_choice == EncryptionKeyChoice.BIG and not p.ks32
+                and self.drift_zeros is None):
+            # the latency route (tfhe_tpu/shortint/server_key.py:561-578): one
+            # PBS split over every slot of the mesh, in exact mode
+            mesh, axis = lmesh
+            out = ps.sharded_ks_pbs_poly(
+                mesh, batch, lut_b.contiguous(), self.ks_key, self._ensure_poly_shard(mesh, axis),
+                p.ks_base_log, p.ks_level, p.pbs_base_log, p.pbs_level, p.bits,
+                p.ms_noise_reduction == MsNoiseReduction.CENTERED_MEAN, axis_name=axis)
+        elif p.encryption_key_choice == EncryptionKeyChoice.SMALL:
             # PBS->KS order: small-key ciphertexts bootstrap first (exact
             # rotation: the SMALL sets are outside the v7 family), then
             # keyswitch back down
@@ -535,6 +554,21 @@ class ServerKey:
     # ------------------------------------------------------------------
     # Modulus-switched compression (server_key/modulus_switched_compression.rs)
     # ------------------------------------------------------------------
+
+    def _ensure_poly_shard(self, mesh, axis_name: str = "poly"):
+        """The key's evaluation slices for the latency route
+        (parallel/poly_shard.prepare_bsk_poly_sharded, from the
+        coefficient-domain key), built at first use and kept for each mesh
+        and axis (tfhe_tpu/shortint/server_key.py:428-441)."""
+        key = (id(mesh), axis_name)
+        cache = self.__dict__.setdefault("_poly_shard_cache", {})
+        if key not in cache or cache[key][0] is not mesh:
+            from ..parallel import poly_shard as ps
+
+            cache[key] = (mesh, ps.prepare_bsk_poly_sharded(
+                mesh, torus.from_u64(getattr(self._bsk_coeff, "data", self._bsk_coeff),
+                                     self.device), axis_name=axis_name))
+        return cache[key][1]
 
     def exact_bsk_ntt(self) -> torch.Tensor:
         """The unrounded NTT-domain key on the device: ``bsk_ntt`` in exact

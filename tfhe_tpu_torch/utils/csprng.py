@@ -30,6 +30,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+# bytes of keystream one AES block gives (tfhe-csprng's BYTES_PER_AES_CALL)
+BYTES_PER_AES_CALL = 16
+
 # tfhe/src/core_crypto/commons/generators/encryption/mod.rs:23
 PER_SAMPLE_TARGET_FAILURE_PROBABILITY_LOG2 = -128.0
 
@@ -297,6 +300,10 @@ class Gaussian:
     def sample(self, stream: ByteStream, count: int, bits: int = 64) -> np.ndarray:
         return stream.gaussian_torus(count, self.std, self.mean, bits)
 
+    def variance(self, bits: int) -> float:
+        """The variance on the 2^bits integer scale."""
+        return (self.std * (2.0 ** bits)) ** 2
+
 
 @dataclass(frozen=True)
 class TUniform:
@@ -307,6 +314,11 @@ class TUniform:
 
     def sample(self, stream: ByteStream, count: int, bits: int = 64) -> np.ndarray:
         return stream.tuniform(count, self.bound_log2, bits)
+
+    def variance(self, bits: int) -> float:
+        """The variance of the law on [-2^b, 2^b] with half weight at the
+        ends: (2^(2b+1) + 1) / 6, whatever the torus width."""
+        return (2.0 ** (2 * self.bound_log2 + 1) + 1.0) / 6.0
 
 
 # -- generators mirroring tfhe's generator types ---------------------------
