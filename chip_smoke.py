@@ -298,8 +298,8 @@ From the root of a checkout, on a machine with one CUDA card and nvcc
      the launches of phases 31-32 on K1's, K2's and K3's, phase 32's
      rounds, warm rounds and B = 4 checks each a path; K2's small-N kernel
      at 1_1 and K3's cluster kernel, phase 32's; K7's, K8's, and
-     K2's and K1's at phase 33's shapes; K9's, with the launches of phase
-     37 by path).
+     K2's and K1's at phase 33's shapes; K9's step entries and its fused
+     entry, each with the launches of phase 37 by path).
 
 Phases 36-38 run after phase 33, before phase 34:
 
@@ -316,20 +316,29 @@ Phases 36-38 run after phase 33, before phase 34:
      first call, none on the second), against the unsharded ks_pbs_batch
      and decrypted, with seconds, PBS/s and the key bytes each device
      holds; the poly-sharded PBS (parallel/poly_shard.py
-     sharded_ks_pbs_poly: K1, then K9's three entries a CMux step on each
-     slot) at B = 1 and 4 over D = 1, 2 and 4 slots of cuda:0, against K1
-     and K2's exact rotation, with seconds a PBS, K9's launches and the
-     host's share; a FheUint8 add through the latency route (every round
-     one PBS split over 4 slots), decrypted, with its rounds and seconds.
+     sharded_ks_pbs_poly: K1, then K9's fused entry, the whole rotation in
+     one launch, since every slot is cuda:0) at B = 1 and 4 over D = 1, 2
+     and 4 slots of cuda:0, against K1 and K2's exact rotation (timed
+     beside it), with seconds a PBS, K9's launches (one fused launch and no
+     step-entry launch a call) and the host's share; the key's preparation
+     (K9's entries a and b) and a sharded product (K9's three step
+     entries), each counted; a FheUint8 add through the latency route
+     (every round one PBS split over 4 slots), decrypted, with its rounds
+     and seconds.
      One card measures no scaling across cards;
  38. c_api: c_api_torch/ built with gcc on the card's host (Python.h from
      sysconfig's include directory, libpython linked; build/c_api_torch/)
      and its test program run at config kind 1 (DEFAULT_PARAMS) on cuda,
      with its seconds a call.
 
-Phase 34 also holds K9's three entries (csrc/poly_shard.cu) against their
-plain versions (ops/four_step.py) at (D, B) = (4, 4), (2, 4) and (4, 1),
-N = 2048, on phase 3's key slices, each timed.
+Phase 34 also holds K9's three step entries (csrc/poly_shard.cu) against
+their plain versions (ops/four_step.py) at D = 1, 2, 4 and B = 1, 4, N =
+2048, on phase 3's key slices, each timed; and K9's fused entry against
+its plain version (the step loop on the plain stages) at D = 1, 2, 4, 8
+and B = 1, 4 on a random key cut to 64 steps (every slot in shared
+memory), and at k+1 = 7, l = 3 over 4 steps at D = 1, 2, 4 (the state in
+a global scratch, the tables and the key in global memory, the key
+alone there).
 
 Every torus comparison is exact (tolerance 0): all arithmetic on the path
 is integer.  Any failure raises and exits non-zero; the last line
@@ -492,7 +501,7 @@ KERNEL_NAMES = ("keyswitch_kernel", "keyswitch_wide_kernel", "keyswitch_imma_ker
                 "glwe_keyswitch_kernel", "glwe_keyswitch_cluster_kernel",
                 "blind_rotate_extended_kernel",
                 "blind_rotate_extended_lazy_kernel", "ps_forward_kernel", "ps_cross_kernel",
-                "ps_inverse_kernel")
+                "ps_inverse_kernel", "ps_rotate_kernel")
 
 
 STARTED = time.perf_counter()
@@ -1289,7 +1298,7 @@ def kernel_wrappers(kernels) -> tuple:
             kernels.packing_keyswitch,
             kernels.blind_rotate128, kernels.packing_keyswitch128, kernels.glwe_keyswitch,
             kernels.blind_rotate_extended, kernels.poly_shard_forward, kernels.poly_shard_cross,
-            kernels.poly_shard_inverse)
+            kernels.poly_shard_inverse, kernels.poly_shard_rotate)
 
 
 def counters(kernels) -> tuple:
@@ -4869,7 +4878,9 @@ POLY_BATCHES = (1, CHECK_BATCH)
 LATENCY_SLOTS = 4
 # (D, B) at N = 2048, k+1 = 2: every shape the poly-sharded PBS runs
 K9_SHAPES = tuple((d, b) for d in POLY_SLOTS for b in POLY_BATCHES)
-K9_MAIN = (4, CHECK_BATCH)    # the kernels line's figures
+K9_MAIN = (4, CHECK_BATCH)    # the kernels line's figures: the step entries'
+K9_ROTATE_MAIN = (4, 1)       # and the fused entry's (the latency route's B = 1)
+K9_STEPS_ROUTE = (4, 1)       # (D, B) of the step loop forced on the one-card mesh
 K9_REPS = 20
 
 
@@ -5027,33 +5038,103 @@ def multi_device_phase(kernels, torus, ck, sk, served, ick, isk, seed: int) -> d
                 "first_call": runs[0], "second_call": runs[1],
                 "words_differing_from_unsharded": differing, "wrong": wrong_dec,
                 "key_bytes_by_device": placed_key_bytes(mesh, (host_ks, key))}
-    # the poly-sharded PBS: K1, then K9 a step on each slot, against K1 and
-    # K2's exact rotation
-    poly_line, poly_runs = {}, {}
+    # the poly-sharded PBS: K1, then K9's fused entry (every slot cuda:0),
+    # against K1 and K2's exact rotation, each timed on its second call
+    poly_line, poly_runs, prep_runs, k2_exact = {}, {}, {}, {}
+    steps_runs, steps_line = {}, {}
+    for b in POLY_BATCHES:
+        args_b = (ct[:b], lut[:b])
+        runs = [counted(kernels, lambda: server.ks_pbs_batch(
+            *args_b, sk.ks_key, exact, sk.dp, *args, centered_ms=centered)) for _ in range(2)]
+        k2_exact[b] = {"seconds": runs[1][2], "first_seconds": runs[0][2],
+                       "host_share": runs[1][3] / runs[1][2], "launches": runs[1][1],
+                       "out": runs[1][0]}
     for d in POLY_SLOTS:
         mesh = pmesh.make_mesh([dev] * d, "poly")
-        t0 = time.perf_counter()
-        evals = pps.prepare_bsk_poly_sharded(mesh, torus.from_u64(sk._bsk_coeff.data, dev))
-        torch.cuda.synchronize()
-        prep_s = time.perf_counter() - t0
+        evals, prep_launches, prep_s, _ = counted(kernels, lambda: pps.prepare_bsk_poly_sharded(
+            mesh, torus.from_u64(sk._bsk_coeff.data, dev)))
+        one_tensor = evals.whole is not None and all(
+            part.data_ptr() == evals.whole[s].data_ptr() for s, part in enumerate(evals.parts))
+        wrong += (prep_launches["poly_shard_forward"] != d or prep_launches["poly_shard_cross"] != d
+                  or not one_tensor)
+        prep_runs[d] = prep_launches
+        t = pps.device_tables(p.polynomial_size, d, str(dev))
         for b in POLY_BATCHES:
             args_b = (ct[:b], lut[:b])
-            want = server.ks_pbs_batch(*args_b, sk.ks_key, exact, sk.dp, *args,
-                                       centered_ms=centered)
-            out, launches, secs, host_secs = counted(kernels, lambda: pps.sharded_ks_pbs_poly(
-                mesh, *args_b, sk.ks_key, evals, *args, centered_ms=centered))
+            runs = [counted(kernels, lambda: pps.sharded_ks_pbs_poly(
+                mesh, *args_b, sk.ks_key, evals, *args, centered_ms=centered)) for _ in range(2)]
+            out, launches, _, _ = runs[0]
+            _, _, secs, host_secs = runs[1]
+            want = k2_exact[b]["out"]
             differing = int((out != want).sum())
             wrong_dec = sum(g != w for g, w in zip(decrypt_rows(ck, out, torus), want_msgs[:b]))
-            k9 = sum(launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
-            wrong += differing + wrong_dec + (k9 != 3 * d * p.lwe_dimension)
+            steps = sum(launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
+            fused = launches["poly_shard_rotate"]
+            # one card: one fused launch a call and no step-entry launch
+            wrong += differing + wrong_dec + (fused != 1) + (steps != 0)
             wrong += launches["keyswitch"] != 1 or launches["blind_rotate"] != 0
+            # the fused kernel alone on this call's switched inputs
+            msed = server.ks_ms_batch(ct[:b], sk.ks_key, p.polynomial_size.bit_length(),
+                                      p.ks_base_log, p.ks_level, centered)
+            rotate_ms = cuda_ms(lambda: kernels.poly_shard_rotate(
+                msed[:, :-1], msed[:, -1], lut[:b], evals.whole, t, p.pbs_base_log,
+                p.pbs_level), 3)
             poly_runs[(d, b)] = launches
             poly_line[f"d{d}_b{b}"] = {
                 "slots": d, "batch": b, "seconds_a_pbs": secs / b, "seconds": secs,
-                "host_share": host_secs / secs, "k9_launches": k9,
-                "k9_launches_a_pbs": k9 / b, "launches": launches,
-                "prepare_key_seconds": prep_s, "sharded_key_bytes": evals.nbytes,
+                "first_call_seconds": runs[0][2], "host_share": host_secs / secs,
+                "fused_launches": fused, "step_entry_launches": steps,
+                "k9_launches_a_pbs": (fused + steps) / b, "launches": launches,
+                "rotate_ms": rotate_ms, "rotate_us_a_step": rotate_ms * 1e3 / p.lwe_dimension,
+                "plan": kernels.poly_rotate_plan(0, d, p.glwe_dimension + 1, p.pbs_level,
+                                                 p.polynomial_size),
+                "k2_exact_seconds": k2_exact[b]["seconds"],
+                "k2_exact_host_share": k2_exact[b]["host_share"],
+                "prepare_key_seconds": prep_s, "prepare_key_launches": {
+                    e: prep_launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse")},
+                "sharded_key_bytes": evals.nbytes, "key_one_tensor": one_tensor,
                 "words_differing_from_k2_exact": differing, "wrong": wrong_dec}
+        if d == K9_STEPS_ROUTE[0]:
+            # the route of slots on distinct cards ("steps": the step loop on
+            # K9's three step entries, each once a CMux step a slot), forced
+            # on this one-card mesh at one batch
+            b = K9_STEPS_ROUTE[1]
+            chosen = kernels.poly_rotation_route
+            kernels.poly_rotation_route = lambda *a: "steps"
+            try:
+                out, launches, secs, host_secs = counted(kernels, lambda: pps.sharded_ks_pbs_poly(
+                    mesh, ct[:b], lut[:b], sk.ks_key, evals, *args, centered_ms=centered))
+            finally:
+                kernels.poly_rotation_route = chosen
+            differing = int((out != k2_exact[b]["out"]).sum())
+            wrong_dec = sum(g != w for g, w in zip(decrypt_rows(ck, out, torus), want_msgs[:b]))
+            by_entry = {e: launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse")}
+            wrong += differing + wrong_dec + (launches["poly_shard_rotate"] != 0)
+            wrong += any(v != d * p.lwe_dimension for v in by_entry.values())
+            wrong += launches["keyswitch"] != 1 or launches["blind_rotate"] != 0
+            steps_runs = by_entry
+            steps_line = {
+                "slots": d, "batch": b, "seconds_a_pbs": secs / b, "host_share": host_secs / secs,
+                "step_entry_launches": by_entry, "fused_launches": launches["poly_shard_rotate"],
+                "words_differing_from_k2_exact": differing, "wrong": wrong_dec}
+    wrong += not steps_line
+    # K9's three step entries on the sharded product (one card: the step
+    # entries' path besides the key's preparation)
+    pm_mesh = pmesh.make_mesh([dev] * MESH_SLOTS, "poly")
+    rng_pm = np.random.default_rng(seed + 1)
+    pa, pb = (rng_pm.integers(0, 1 << 64, (2, p.polynomial_size), dtype=np.uint64)
+              for _ in range(2))
+    prod, pm_launches, pm_s, _ = counted(kernels, lambda: pps.sharded_negacyclic_polymul(
+        pm_mesh, torus.from_u64(pa, dev), torus.from_u64(pb, dev)))
+    from tfhe_tpu_torch.ops import ntt as pntt
+
+    pm_differing = int((torus.to_u64(prod) != pntt.negacyclic_polymul_u64(
+        pa, pb, pntt.make_plan(p.polynomial_size, 4))).sum())
+    wrong += pm_differing + (pm_launches["poly_shard_forward"] != 2 * MESH_SLOTS
+                             or pm_launches["poly_shard_cross"] != 2 * MESH_SLOTS
+                             or pm_launches["poly_shard_inverse"] != MESH_SLOTS)
+    polymul_line = {"slots": MESH_SLOTS, "rows": 2, "seconds": pm_s, "launches": pm_launches,
+                    "words_differing_from_plain_ntt": pm_differing}
     # the latency route: a FheUint8 add with every round one PBS split over
     # LATENCY_SLOTS slots
     rounds = {"n": 0}
@@ -5076,15 +5157,21 @@ def multi_device_phase(kernels, torus, ck, sk, served, ick, isk, seed: int) -> d
         pps.sharded_ks_pbs_poly = route
         pps.set_latency_mesh(None)
     wrong += got != (x + y) % 256 or rounds["n"] == 0
+    wrong += lat_launches["poly_shard_rotate"] != rounds["n"] or sum(
+        lat_launches[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
     latency_line = {"slots": LATENCY_SLOTS, "x": x, "y": y, "decrypted": got,
                     "rounds": rounds["n"], "seconds": lat_s, "host_seconds": lat_host_s,
                     "launches": lat_launches, "wrong": int(got != (x + y) % 256)}
-    return {"wrong": wrong, "poly_runs": poly_runs, "line": {
+    return {"wrong": wrong, "poly_runs": poly_runs, "prep_runs": prep_runs,
+            "polymul_launches": pm_launches, "steps_route_launches": steps_runs, "line": {
         "params": "V1_4_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128", "batch": BATCH,
         "visible_cards": torch.cuda.device_count(), "batch_mesh": batch_line,
         "unindexed_cuda_mesh": unindexed,
         "serve_pbs_per_s": served["line"]["pbs_per_s"],
-        "poly": poly_line, "latency_fheuint8_add": latency_line, "wrong": wrong,
+        "poly": poly_line, "poly_steps_route": steps_line,
+        "k2_exact": {f"b{b}": {k: v for k, v in fig.items() if k != "out"}
+                     for b, fig in k2_exact.items()},
+        "sharded_polymul": polymul_line, "latency_fheuint8_add": latency_line, "wrong": wrong,
         "note": "one card: the slots of a mesh on cuda:0 run in turn; no scaling across "
                 "cards is measured"}}
 
@@ -5127,29 +5214,68 @@ def c_api_phase(kernels) -> dict:
         "stdout_tail": result.stdout.splitlines()[-3:]}}
 
 
-def k9_bound(d: int, b: int, k1: int, n_poly: int, levels: int) -> dict:
-    """Least time for one CMux step's three K9 entries on all d slots: each
-    input read once and each output written once (u64 words at 8 bytes;
-    residues and the key slices' residues, below 2^30, at 4), against their Montgomery products on
-    the CUDA cores' 32-bit integer rate, three multiplies a product: the
-    twists, twiddles and size-C butterflies of entries a and c, the size-D
-    sums, the key product and the size-D inverse of entry b, Garner."""
+# 32-bit multiplies a Montgomery product x y R^-1 mod p (ntt_common.cuh
+# mont_mul): the low and high words of t = x y, the low word of m = t p'
+# and the high word of m p; the low word of m p needs none (it is -t mod
+# 2^32, and the carry out of t + m p is t != 0)
+MONT_MUL_MULTIPLIES = 4
+
+
+def k9_step_modmuls(d: int, b: int, k1: int, n_poly: int, levels: int) -> int:
+    """Montgomery products of one CMux step of the four-step split on all d
+    slots, the least a step needs: the twists, twiddles and size-C
+    butterflies of the forward and inverse stages ((C / 2) log2 C products
+    a transform), the size-D transforms as fast ones ((D / 2) log2 D a D
+    points, none at D = 1), the key product, Garner."""
     np_, c = EXACT_PRIMES, n_poly // d
-    log_c = c.bit_length() - 1
+    log_c, log_d = c.bit_length() - 1, d.bit_length() - 1
     rows = b * k1
     modmuls = d * np_ * (rows * levels * (2 * c + (c // 2) * log_c)        # entry a
                          + rows * (2 * c + (c // 2) * log_c))             # entry c
-    modmuls += np_ * n_poly * (levels * rows * d + levels * k1 * rows + rows * d)  # entry b
+    modmuls += np_ * n_poly * (levels * rows * log_d // 2                   # entry b: size D
+                               + levels * k1 * rows                         # key product
+                               + rows * log_d // 2)                         # size-D inverse
     modmuls += d * rows * c * np_ * (np_ - 1) // 2                          # Garner
+    return modmuls
+
+
+def k9_bound(d: int, b: int, k1: int, n_poly: int, levels: int) -> dict:
+    """Least time for one CMux step's three K9 step entries on all d slots:
+    each input read once and each output written once (u64 words at 8
+    bytes; residues and the key slices' residues, below 2^30, at 4),
+    against their Montgomery products (k9_step_modmuls) on the CUDA cores'
+    32-bit integer rate, MONT_MUL_MULTIPLIES multiplies a product."""
+    np_ = EXACT_PRIMES
+    rows = b * k1
     words = (rows * n_poly                                  # entry a in
              + rows * n_poly)                               # entry c out
     residues = (2 * levels * rows * np_ * n_poly            # entry a out, entry b in
                 + levels * k1 * k1 * np_ * n_poly           # the key slices
                 + 2 * rows * np_ * n_poly)                  # entry b out, entry c in
     t_bytes = (8 * words + 4 * residues) / HBM_BYTES_PER_S
-    t_ops = 3 * modmuls / INT32_MUL_PER_S
+    t_ops = MONT_MUL_MULTIPLIES * k9_step_modmuls(d, b, k1, n_poly, levels) / INT32_MUL_PER_S
     return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+
+
+def k9_rotate_bound(d: int, b: int, k1: int, n_poly: int, levels: int, n_steps: int) -> dict:
+    """Least time for K9's fused entry, a whole rotation: its inputs read
+    once (the key's slices at 4 bytes a residue, the LUT's words, the int32
+    mask and body, the u32 tables) and its words written once, against
+    n_steps steps' Montgomery products (k9_step_modmuls) at
+    MONT_MUL_MULTIPLIES 32-bit multiplies each; beside it n_steps times k9_bound's step (the step
+    entries' bound, whose exchanges pass through device memory)."""
+    np_ = EXACT_PRIMES
+    nbytes = (4 * n_steps * levels * k1 * k1 * np_ * n_poly        # key slices
+              + 8 * b * k1 * n_poly * 2                            # LUT in, words out
+              + 4 * b * (n_steps + 1)                              # mask, body
+              + 4 * np_ * 6 * n_poly + 4 * np_ * 2 * d)            # tables
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (MONT_MUL_MULTIPLIES * n_steps * k9_step_modmuls(d, b, k1, n_poly, levels)
+             / INT32_MUL_PER_S)
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "steps_bound_ms": n_steps * k9_bound(d, b, k1, n_poly, levels)["ms"]}
 
 
 def k9_vs_plain(kernels, torus, sk, seed: int, errs: dict) -> dict:
@@ -5209,6 +5335,72 @@ def k9_vs_plain(kernels, torus, sk, seed: int, errs: dict) -> dict:
                                             for e in ("forward", "cross", "inverse"))
         fig["bound"] = k9_bound(d, b, k1, n_poly, levels)
         figs[tag] = fig
+    return figs
+
+
+# K9's fused entry against its plain version: (D, B) at the 2_2 widths on a
+# random key of K9_ROTATE_STEPS steps (tier 0), and the wide shape (k+1 =
+# 7, l = 3, base 2^8) at D = 1, 2, 4 over 4 steps (tiers 3, 2, 1)
+POLY_ROTATE_SLOTS = (1, 2, 4, 8)
+K9_ROTATE_STEPS = 64
+K9_WIDE = (7, 3, 8, 4)        # k+1, l, base_log, steps
+# the plans the kernel must choose at those shapes (D, k+1, l, N): at the
+# 2_2 widths every state in shared memory, one cluster of at most 16 blocks
+# a ciphertext (two primes a block at D = 8); at K9_WIDE the key, then the
+# tables, then the words and rows leave shared memory as D falls
+K9_PLAN_KEYS = ("primes_per_block", "cluster", "tier", "shared_memory_bytes")
+K9_PLANS = {(1, 2, 1, 2048): (1, 4, 0, 180224), (2, 2, 1, 2048): (1, 8, 0, 90112),
+            (4, 2, 1, 2048): (1, 16, 0, 45056), (8, 2, 1, 2048): (2, 16, 0, 40960),
+            (4, 7, 3, 2048): (1, 16, 1, 126976), (2, 7, 3, 2048): (1, 8, 2, 229376),
+            (1, 7, 3, 2048): (1, 4, 3, 0)}
+
+
+def k9_rotate_vs_plain(kernels, sk, seed: int, errs: dict) -> dict:
+    """K9's fused entry (kernels.poly_shard_rotate) against its plain
+    version (ops/four_step.py rotate_steps on the plain stages) on the card:
+    at N = 2048, k+1 = 2, l = 1 (phase 3's base) on random keys cut to
+    K9_ROTATE_STEPS steps at D in POLY_ROTATE_SLOTS and B = 1, 4; at K9_WIDE
+    over its steps at D = 1, 2, 4, B = 1, where the plan puts the state in
+    global memory step by step.  Each is timed (CUDA events) beside its
+    plain version."""
+    import torch
+
+    from tfhe_tpu_torch.ops import four_step
+
+    p = sk.params
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_poly = p.polynomial_size
+    shapes = ([(d, b, p.glwe_dimension + 1, p.pbs_level, p.pbs_base_log, K9_ROTATE_STEPS)
+               for d in POLY_ROTATE_SLOTS for b in POLY_BATCHES]
+              + [(d, 1) + K9_WIDE for d in (1, 2, 4)])
+    figs = {}
+    for d, b, k1, levels, base_log, steps in shapes:
+        t = four_step.device_tables(n_poly, d, str(dev))
+        key = torch.remainder(
+            torch.randint(0, 1 << 62, (d, steps, levels, k1, k1, EXACT_PRIMES, t.c),
+                          generator=gen, device=dev), t.dp.ps.view(-1, 1)).to(torch.int32)
+        lut = torch.randint(-(1 << 62), 1 << 62, (b, k1, n_poly), generator=gen, device=dev)
+        mask = torch.randint(0, 2 * n_poly, (b, steps), generator=gen, device=dev)
+        body = torch.randint(0, 2 * n_poly, (b,), generator=gen, device=dev)
+
+        def kernel():
+            return kernels.poly_shard_rotate(mask, body, lut, key, t, base_log, levels)
+
+        def plain():
+            return four_step.rotate_steps(mask, body, lut, list(key.unbind(0)), [t] * d,
+                                          base_log, levels)
+
+        tag = f"d{d}_b{b}_k1_{k1}_l{levels}"
+        plan = kernels.poly_rotate_plan(0, d, k1, levels, n_poly)
+        want_plan = K9_PLANS.get((d, k1, levels, n_poly))
+        if want_plan is not None and tuple(plan[k] for k in K9_PLAN_KEYS) != want_plan:
+            raise RuntimeError(f"K9's fused plan at {tag}: {plan}, expected "
+                               f"{dict(zip(K9_PLAN_KEYS, want_plan))}")
+        errs[f"k9_rotate_{tag}"] = err = max_abs_err(kernel(), plain())
+        figs[tag] = {"slots": d, "batch": b, "k1": k1, "levels": levels, "steps": steps,
+                     "plan": plan, "words_differing": err, "ms": cuda_ms(kernel, 5),
+                     "plain_ms": cuda_ms(plain, 1), "active_clusters": plan["active_clusters"]}
     return figs
 
 
@@ -6173,6 +6365,7 @@ def main() -> None:
     s17 = small_n_vs_plain(kernels, server, torus, args.seed + 123, errs)
     # phase 37: K9's three entries at the poly path's shapes
     s21 = k9_vs_plain(kernels, torus, sk, args.seed + 132, errs)
+    s22 = k9_rotate_vs_plain(kernels, sk, args.seed + 133, errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           **{f"{name}_max_abs_err": err for name, err in errs.items()},
@@ -6722,14 +6915,16 @@ def main() -> None:
     table += param_sets_table_entries(s18, s14_by_path, errs, ptxas_kernels)
     # K7, K8, and K2 and K1 at phase 33's shapes
     table += research_table_entries(kernels, rp_run, s15, errs, ptxas_kernels, p)
-    # K9, phase 37's poly-sharded PBS and latency route
-    k9_by_path = {f"multi_device_poly_{k}": sum(v[f"poly_shard_{e}"]
-                                                for e in ("forward", "cross", "inverse"))
-                  for k, v in ((f"d{d}_b{b}", runs) for (d, b), runs
-                               in md_run["poly_runs"].items())}
-    lat = md_run["line"]["latency_fheuint8_add"]["launches"]
-    k9_by_path["multi_device_latency_fheuint8_add"] = sum(
-        lat[f"poly_shard_{e}"] for e in ("forward", "cross", "inverse"))
+    # K9, phase 37's poly-sharded PBS and latency route: the step entries on
+    # the key's preparation and the sharded product, the fused entry on
+    # every poly-sharded rotation of one card
+    step_entries = ("forward", "cross", "inverse")
+    k9_by_path = {f"multi_device_prepare_key_d{d}": sum(v[f"poly_shard_{e}"] for e in step_entries)
+                  for d, v in md_run["prep_runs"].items()}
+    k9_by_path["multi_device_sharded_polymul"] = sum(
+        md_run["polymul_launches"][f"poly_shard_{e}"] for e in step_entries)
+    k9_by_path["multi_device_poly_steps_route_d{}_b{}".format(*K9_STEPS_ROUTE)] = sum(
+        md_run["steps_route_launches"].values())
     k9_main = s21[f"d{K9_MAIN[0]}_b{K9_MAIN[1]}"]
     table.append({
         "name": "poly_shard", "route": "cuda", "source": "tfhe_tpu_torch/csrc/poly_shard.cu",
@@ -6737,11 +6932,15 @@ def main() -> None:
         "also_replaces": ["tfhe_tpu/parallel/poly_shard.py:107",
                           "tfhe_tpu/parallel/poly_shard.py:137"],
         "replaces_kind": "XLA mod-p matmul stages of a shard_map program, not a pallas_call",
-        "kernel": "ps_forward_kernel, ps_cross_kernel, ps_inverse_kernel (K9: the slot-local "
-                  "stages of the four-step split, three launches a CMux step a slot)",
+        "kernel": "ps_forward_kernel, ps_cross_kernel, ps_inverse_kernel (K9's step entries: "
+                  "the slot-local stages of the four-step split, three launches a CMux step a "
+                  "slot on a mesh of distinct cards, forced once on the one-card mesh; the key's "
+                  "preparation, the sharded product)",
         "launches": sum(k9_by_path.values()), "launches_by_path": k9_by_path,
-        "max_abs_err": max(v for k, v in errs.items() if k.startswith("k9")),
-        "words_differing": {k: v for k, v in errs.items() if k.startswith("k9")},
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k.startswith("k9") and not k.startswith("k9_rotate")),
+        "words_differing": {k: v for k, v in errs.items()
+                            if k.startswith("k9") and not k.startswith("k9_rotate")},
         "ms": k9_main["step_ms"], "plain_ms": k9_main["step_plain_ms"],
         "ms_is": "one CMux step: entries a, b and c on every slot, D = 4, B = 4, from "
                  "CUDA graphs (the exchanges between them not counted)",
@@ -6756,6 +6955,46 @@ def main() -> None:
         "spill_store_bytes": {k: ptxas_of(ptxas_kernels, k).get("spill_store_bytes")
                               for k in ("ps_forward_kernel", "ps_cross_kernel",
                                         "ps_inverse_kernel")}})
+    rot_by_path = {f"multi_device_poly_d{d}_b{b}": runs["poly_shard_rotate"]
+                   for (d, b), runs in md_run["poly_runs"].items()}
+    rot_by_path["multi_device_latency_fheuint8_add"] = (
+        md_run["line"]["latency_fheuint8_add"]["launches"]["poly_shard_rotate"])
+    rot_d, rot_b = K9_ROTATE_MAIN
+    rot_main = md_run["line"]["poly"][f"d{rot_d}_b{rot_b}"]
+    rot_bound = k9_rotate_bound(rot_d, rot_b, p.glwe_dimension + 1, p.polynomial_size,
+                                p.pbs_level, p.lwe_dimension)
+    rot_plain = s22[f"d{rot_d}_b{rot_b}_k1_{p.glwe_dimension + 1}_l{p.pbs_level}"]
+    rot_regs = ptxas_of(ptxas_kernels, "ps_rotate_kernel")
+    table.append({
+        "name": "poly_shard_rotate", "route": "cuda", "source": "tfhe_tpu_torch/csrc/poly_shard.cu",
+        "replaces": "tfhe_tpu/parallel/poly_shard.py:285",
+        "also_replaces": ["tfhe_tpu/parallel/poly_shard.py:108",
+                          "tfhe_tpu/parallel/poly_shard.py:118",
+                          "tfhe_tpu/parallel/poly_shard.py:137"],
+        "replaces_kind": "sharded_blind_rotate_poly's scan over XLA mod-p matmul stages of a "
+                         "shard_map program, not a pallas_call",
+        "kernel": "ps_rotate_kernel (K9's fused entry: all n CMux steps in one launch, one "
+                  "thread-block cluster a ciphertext, one block a (slot, prime), the exchanges "
+                  "through distributed shared memory)",
+        "launches": sum(rot_by_path.values()), "launches_by_path": rot_by_path,
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("k9_rotate")),
+        "words_differing": {k: v for k, v in errs.items() if k.startswith("k9_rotate")},
+        "ms": rot_main["rotate_ms"], "us_a_step": rot_main["rotate_us_a_step"],
+        "ms_is": f"one rotation of phase 3's key (n = {p.lwe_dimension}) at D = {rot_d}, "
+                 f"B = {rot_b} on the call's switched inputs, CUDA events over 3 launches",
+        "plain_ms": rot_plain["plain_ms"] * p.lwe_dimension / K9_ROTATE_STEPS,
+        "plain_ms_is": f"the plain step loop on the card over {K9_ROTATE_STEPS} steps of a random "
+                       f"key, scaled to n = {p.lwe_dimension}",
+        "bound_ms": rot_bound["ms"], "bound_by": rot_bound["by"],
+        "bound_bytes_ms": rot_bound["bytes_ms"], "bound_ops_int32_ms": rot_bound["ops_ms"],
+        "bound_steps_ms": rot_bound["steps_bound_ms"],
+        "library_ms": None, "library_call": "none (no int64 matmul on CUDA)",
+        "poly_pbs_seconds": {k: v["seconds_a_pbs"] for k, v in md_run["line"]["poly"].items()},
+        "k2_exact_seconds": {k: v["seconds"] for k, v in md_run["line"]["k2_exact"].items()},
+        "by_shape": s22, "plan": rot_main["plan"],
+        "active_clusters": rot_plain["active_clusters"],
+        "registers": rot_regs.get("registers"),
+        "spill_store_bytes": rot_regs.get("spill_store_bytes")})
     by_name = {entry["name"]: entry for entry in table}
     for name, counter, paths, key in (
             ("keyswitch", "keyswitch", None, "launches_by_path"),

@@ -7,8 +7,11 @@ virtual CPU mesh (tests/conftest.py).
   against tfhe_tpu's on its 8-device mesh;
   the key's evaluation slices in tfhe_tpu's layout at N = 64, D = 2, 4, 8;
 - the poly-sharded blind rotation at tests/test_poly_shard.py's shapes
-  (n_in = 4, N = 512) at D = 2, 4 and 8 against tfhe_tpu's ops/server.py
-  blind_rotate;
+  (n_in = 4, N = 512) at D = 1, 2, 4 and 8 against tfhe_tpu's ops/server.py
+  blind_rotate, on both routes; a numpy model of K9's fused kernel (its
+  blocks' index arithmetic, phase by phase) against the same words and,
+  at l = 2, k+1 = 3, against the plain step loop; the route and plan of
+  the fused entry;
 - the batch mesh's three entries on 3 and 4 slots (an uneven batch)
   against the unsharded pipeline at the TEST set cut to n = 2, N = 64, and
   sharded_ks_pbs against tfhe_tpu's on 4 devices;
@@ -16,6 +19,7 @@ virtual CPU mesh (tests/conftest.py).
   mesh set, the pod scaffolding, and K9's plain entries against a model of
   the four steps in Python integers."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -100,6 +104,11 @@ def test_prepare_bsk_layout(d):
     key = ps.prepare_bsk_poly_sharded(cpu_mesh(d), bsk)
     assert len(key.parts) == d and key.parts[0].shape == (3, 1, 2, 2, 4, 64 // d)
     assert (key.gather().numpy() == want.astype(np.int64)).all()
+    # the slots share the CPU: one tensor, the parts views of it
+    assert key.whole.shape == (d, 3, 1, 2, 2, 4, 64 // d)
+    storage = key.whole.untyped_storage().data_ptr()
+    assert all(p.untyped_storage().data_ptr() == storage for p in key.parts)
+    assert key.nbytes == key.whole.numel() * 4 == bsk.size * 4 * 4   # 4 primes, int32
 
 
 N_ROT = 512
@@ -129,7 +138,7 @@ def rotation():
                 lev=lev)
 
 
-@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_sharded_blind_rotate(rotation, d):
     r = rotation
     key = ps.prepare_bsk_poly_sharded(cpu_mesh(d), r["bsk"])
@@ -138,6 +147,277 @@ def test_sharded_blind_rotate(rotation, d):
         torch.from_numpy(r["body"].astype(np.int64)), torus.from_u64(r["lut"], "cpu"), key,
         r["bl"], r["lev"])
     assert (words(got) == r["want"]).all()
+
+
+def test_sharded_blind_rotate_steps_route(rotation, monkeypatch):
+    """The route of slots on distinct devices (K9's step entries, on the CPU
+    their plain versions), forced on a CPU mesh."""
+    r = rotation
+    calls = []
+
+    def steps(*a):
+        calls.append(a)
+        return "steps"
+
+    monkeypatch.setattr(kernels, "poly_rotation_route", steps)
+    key = ps.prepare_bsk_poly_sharded(cpu_mesh(4), r["bsk"])
+    got = ps.sharded_blind_rotate_poly(
+        cpu_mesh(4), torch.from_numpy(r["mask"].astype(np.int64)),
+        torch.from_numpy(r["body"].astype(np.int64)), torus.from_u64(r["lut"], "cpu"), key,
+        r["bl"], r["lev"])
+    assert len(calls) == 1 and (words(got) == r["want"]).all()
+
+
+# ---------------------------------------------------------------------------
+# K9's fused entry: its route, its plan and a model of its kernel
+# ---------------------------------------------------------------------------
+
+
+def test_poly_rotation_route():
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    for d in (1, 2, 4, 8):
+        assert kernels.poly_rotation_route([cuda0] * d, d, 2, 1, 2048) == "fused"
+    assert kernels.poly_rotation_route(["cuda:0", "cuda:1"], 2, 2, 1, 2048) == "steps"
+    assert kernels.poly_rotation_route([cuda0, cuda1] * 2, 4, 9, 9, 2048) == "steps"
+    assert kernels.poly_rotation_route(["cpu"] * 4, 4, 2, 1, 512) == "fused"
+    for args, limit in (((16, 2, 1, 2048), "D in 1, 2, 4, 8"), ((4, 9, 1, 2048), "k+1 <= 8"),
+                        ((4, 2, 9, 2048), "l <= 8"), ((8, 2, 1, 32), "D^2 must divide N"),
+                        ((4, 2, 1, 1 << 16), "C = N / D from 8 to 8192"),
+                        ((2, 2, 1, 8), "C = N / D from 8 to 8192")):
+        with pytest.raises(ValueError, match=limit.replace("^", r"\^").replace("+", r"\+")):
+            kernels.poly_rotation_route([cuda0] * args[0], *args)
+
+
+def test_poly_rotate_plan(monkeypatch):
+    """kernels.poly_rotate_plan reads the fused kernel's own plan
+    (csrc/poly_shard.cu rotate_plan, through its C query) once a device and
+    shape, and refuses a shape of which the card holds no cluster (the
+    plan's figures are checked on the card by chip_smoke.py)."""
+    asked = []
+
+    class Lib:
+        clusters = 9
+
+        def tfhe_torch_poly_shard_rotate_plan(self, d, k1, levels, log_c, out):
+            asked.append((d, k1, levels, log_c))
+            for i, v in enumerate((1, 4, 4 * d, 0, 180224 // d, 4096, self.clusters)):
+                out[i] = v
+            return 0
+
+    lib = Lib()
+    monkeypatch.setattr(kernels, "load", lambda: {"poly_shard": lib})
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    kernels.poly_rotate_plan.cache_clear()
+    try:
+        plan = kernels.poly_rotate_plan(0, 2, 2, 1, 2048)
+        assert plan == {"primes_per_block": 1, "blocks_per_slot": 4, "cluster": 8, "tier": 0,
+                        "shared_memory_bytes": 90112, "block_bytes": 4096,
+                        "active_clusters": 9, "threads": 512}
+        assert kernels.poly_rotate_plan(0, 2, 2, 1, 2048) == plan and asked == [(2, 2, 1, 10)]
+        lib.clusters = 0
+        with pytest.raises(RuntimeError, match="holds 0 clusters .* D = 4, k\\+1 = 7, l = 3"):
+            kernels.poly_rotate_plan(0, 4, 7, 3, 2048)
+    finally:
+        kernels.poly_rotate_plan.cache_clear()
+
+
+def _bit_reverse(log_c: int) -> np.ndarray:
+    i = np.arange(1 << log_c)
+    out = np.zeros_like(i)
+    for b in range(log_c):
+        out |= ((i >> b) & 1) << (log_c - 1 - b)
+    return out
+
+
+def fused_model(mask, body, lut, key, t, base_log: int, levels: int) -> np.ndarray:
+    """csrc/poly_shard.cu ps_rotate_kernel's arithmetic in numpy: each
+    block's (slot a, prime group q) state and index formulas, each phase
+    run on every block of the cluster before the next (the barriers), the
+    Montgomery products as x y R^-1 mod p.  mask (B, n), body (B,), lut
+    (B, k+1, N) u64, key (D, n, l, k+1, k+1, P, C); returns the words."""
+    d, c_len, n_poly = t.d, t.c, t.n
+    b_n, k1, _ = lut.shape
+    primes = np.array(t.dp.plan.primes, dtype=np.int64)
+    # the kernel's placement (rotate_plan): one prime a block, two where D P
+    # blocks pass the 16 a cluster holds (D = 8)
+    ppb = max(1, d * len(primes) // 16)
+    bps, csize = len(primes) // ppb, d * len(primes) // ppb
+    rows, cd, cq, log_c = levels * k1, c_len // d, c_len // bps, c_len.bit_length() - 1
+    rinv = np.array([pow(1 << 32, -1, int(p)) for p in primes], dtype=np.int64)
+    tab = t.packed.numpy().astype(np.int64)                       # (D, P, 6, C)
+    cross = t.packed_cross.numpy().astype(np.int64)               # (P, 2, D)
+    key = np.asarray(key, dtype=np.int64)
+    rev = _bit_reverse(log_c)
+
+    def mm(x, y, pi):
+        p = primes[pi]
+        return x * y % p * rinv[pi] % p
+
+    slot_of = lambda rank: (rank // bps, rank % bps, rank % bps * ppb)  # noqa: E731
+    out = np.empty_like(lut)
+    for ct in range(b_n):
+        words = np.empty((csize, k1, c_len), dtype=np.uint64)
+        bd = int(body[ct]) % (2 * n_poly)
+        for rank in range(csize):
+            a = slot_of(rank)[0]
+            s = a + d * np.arange(c_len) + bd % n_poly
+            neg = (bd >= n_poly) ^ (s >= n_poly)
+            v = lut[ct][:, np.where(s >= n_poly, s - n_poly, s)]
+            words[rank] = np.where(neg, np.uint64(0) - v, v)
+        fr = np.zeros((csize, ppb * rows * c_len), dtype=np.int64)
+        xr = np.zeros_like(fr)
+        for step in range(mask.shape[1]):
+            m = int(mask[ct, step]) % (2 * n_poly)
+            rot, odd = m % n_poly, m >= n_poly
+            e = np.arange(k1 * c_len)
+            r, c = e // c_len, e % c_len
+            for rank in range(csize):                    # 1. rotation, digits, twist
+                a, q, p0 = slot_of(rank)
+                s = a + d * c - rot
+                neg = odd ^ (s < 0)
+                s = np.where(s < 0, s + n_poly, s)
+                v = words[(s % d) * bps + q, r, s // d]
+                diff = np.where(neg, np.uint64(0) - v, v) - words[rank, r, c]
+                digits = srv.signed_decompose(torch.from_numpy(diff.view(np.int64)), base_log,
+                                              levels).numpy()
+                for lev in range(levels):
+                    for lp in range(ppb):
+                        res = digits[lev] % primes[p0 + lp]
+                        fr[rank, (lp * rows + lev * k1 + r) * c_len + rev[c]] = mm(
+                            res, tab[a, p0 + lp, 0, c], p0 + lp)
+            for rank in range(csize):                    # 2. size-C butterflies
+                a, q, p0 = slot_of(rank)
+                f = fr[rank].reshape(ppb, rows, c_len)
+                for s in range(1, log_c + 1):
+                    half, stride = 1 << (s - 1), c_len >> s
+                    u = np.arange(c_len // 2)
+                    j = u & (half - 1)
+                    b0 = ((u >> (s - 1)) << s) + j
+                    for lp in range(ppb):
+                        x = f[lp][:, b0]
+                        y = mm(f[lp][:, b0 + half], tab[a, p0 + lp, 2, j * stride], p0 + lp)
+                        f[lp][:, b0] = (x + y) % primes[p0 + lp]
+                        f[lp][:, b0 + half] = (x - y) % primes[p0 + lp]
+            for rank in range(csize):                    # 3. twiddle, first exchange
+                a, q, p0 = slot_of(rank)
+                e3 = np.arange(ppb * rows * c_len)
+                row, k2 = e3 // c_len, e3 % c_len
+                lp = row // rows
+                v = mm(fr[rank], tab[a, p0 + lp, 1, k2], p0 + lp)
+                xr[(k2 // cd) * bps + q, row * c_len + (k2 % cd) * d + a] = v
+            for rank in range(csize):                    # 4. size-D transform
+                a, q, p0 = slot_of(rank)
+                x = xr[rank].reshape(ppb, rows, cd, d).copy()
+                for lp in range(ppb):
+                    for kk in range(d):
+                        acc = sum(mm(x[lp][..., i], cross[p0 + lp, 0, (i * kk) % d], p0 + lp)
+                                  for i in range(d))
+                        xr[rank].reshape(ppb, rows, cd, d)[lp][..., kk] = acc % primes[p0 + lp]
+            for rank in range(csize):                    # 5. key product
+                a, q, p0 = slot_of(rank)
+                x = xr[rank].reshape(ppb, rows, c_len)
+                for lp in range(ppb):
+                    kk = key[a, step][..., p0 + lp, :].reshape(rows, k1, c_len)
+                    prod = [sum(mm(x[lp][row], kk[row, ro], p0 + lp) for row in range(rows))
+                            % primes[p0 + lp] for ro in range(k1)]
+                    x[lp][:k1] = prod
+            for rank in range(csize):                    # 6. size-D inverse, second exchange
+                a, q, p0 = slot_of(rank)
+                x = xr[rank].reshape(ppb, rows, cd, d)
+                for lp in range(ppb):
+                    for t_ in range(d):
+                        acc = sum(mm(x[lp][:k1, :, i], cross[p0 + lp, 1, (i * t_) % d], p0 + lp)
+                                  for i in range(d)) % primes[p0 + lp]
+                        y = fr[t_ * bps + q][:ppb * k1 * c_len].reshape(ppb, k1, c_len)
+                        y[lp][:, a * cd:(a + 1) * cd] = acc
+            for rank in range(csize):                    # 7. inverse butterflies
+                a, q, p0 = slot_of(rank)
+                f = fr[rank][:ppb * k1 * c_len].reshape(ppb, k1, c_len)
+                for s in range(log_c, 0, -1):
+                    half, stride = 1 << (s - 1), c_len >> s
+                    u = np.arange(c_len // 2)
+                    j = u & (half - 1)
+                    b0 = ((u >> (s - 1)) << s) + j
+                    for lp in range(ppb):
+                        x, y = f[lp][:, b0], f[lp][:, b0 + half]
+                        if s == log_c:
+                            x = mm(x, tab[a, p0 + lp, 3, b0], p0 + lp)
+                            y = mm(y, tab[a, p0 + lp, 3, b0 + half], p0 + lp)
+                        f[lp][:, b0] = (x + y) % primes[p0 + lp]
+                        f[lp][:, b0 + half] = mm((x - y) % primes[p0 + lp],
+                                                 tab[a, p0 + lp, 5, j * stride], p0 + lp)
+            for rank in range(csize):                    # 8. inverse twist, to Garner
+                a, q, p0 = slot_of(rank)
+                e8 = np.arange(ppb * k1 * c_len)
+                row, c8 = e8 // c_len, e8 % c_len
+                lp, ro = row // k1, row % k1
+                v = mm(fr[rank][row * c_len + rev[c8]], tab[a, p0 + lp, 4, c8], p0 + lp)
+                xr[a * bps + c8 // cq, (ro * cq + c8 % cq) * 4 + p0 + lp] = v
+            new = words.copy()
+            for rank in range(csize):                    # 9. Garner into every copy
+                a, q, p0 = slot_of(rank)
+                g = xr[rank][:k1 * cq * 4].reshape(k1 * cq, 4).T.copy()
+                add = ntt.garner_to_u64(torch.from_numpy(g), t.dp).numpy().view(np.uint64)
+                w = words[rank][:, q * cq:(q + 1) * cq] + add.reshape(k1, cq)
+                for t_ in range(bps):
+                    new[a * bps + t_][:, q * cq:(q + 1) * cq] = w
+            words = new
+        for rank in range(csize):
+            a, q, _ = slot_of(rank)
+            out[ct][:, a + d * (q * cq + np.arange(cq))] = words[rank][:, q * cq:(q + 1) * cq]
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_fused_kernel_model(rotation, d):
+    r = rotation
+    key = ps.prepare_bsk_poly_sharded(cpu_mesh(d), r["bsk"])
+    got = fused_model(r["mask"], r["body"], r["lut"], key.whole.numpy(),
+                      four_step.device_tables(N_ROT, d, "cpu"), r["bl"], r["lev"])
+    assert (got == r["want"]).all()
+
+
+def test_fused_kernel_model_levels():
+    """l = 2, k+1 = 3 at N = 64 (D = 4; and D = 8, two primes a block): the
+    model against the fused entry's plain version, the step loop."""
+    rng = np.random.default_rng(21)
+    n_poly, k1, levels, base_log, n_steps = 64, 3, 2, 9, 3
+    bsk = rng.integers(0, 1 << 64, (n_steps, levels, k1, k1, n_poly), dtype=np.uint64)
+    mask = rng.integers(0, 2 * n_poly, (2, n_steps))
+    body = rng.integers(0, 2 * n_poly, (2,))
+    lut = rng.integers(0, 1 << 64, (2, k1, n_poly), dtype=np.uint64)
+    for d in (4, 8):
+        key = ps.prepare_bsk_poly_sharded(cpu_mesh(d), bsk)
+        t = four_step.device_tables(n_poly, d, "cpu")
+        want = kernels.poly_shard_rotate(torch.from_numpy(mask), torch.from_numpy(body),
+                                         torus.from_u64(lut, "cpu"), key.whole, t, base_log,
+                                         levels)
+        got = fused_model(mask, body, lut, key.whole.numpy(), t, base_log, levels)
+        assert (got == words(want)).all()
+
+
+def test_k9_phase_copy_marks_every_cluster_barrier(tmp_path, monkeypatch):
+    """tools/phase_cycles.py k9 tables the fused kernel from a copy of
+    csrc/poly_shard.cu with a block barrier on each side of each of its
+    cluster barriers (so each barrier's wait is a row of its own); the copy
+    changes nothing else."""
+    import importlib.util
+    import re
+
+    from tfhe_tpu_torch.utils.build import CSRC
+
+    spec = importlib.util.spec_from_file_location(
+        "phase_cycles", CSRC.parents[1] / "tools" / "phase_cycles.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(tool, "HERE", tmp_path)
+    src = (CSRC / "poly_shard.cu").read_text()
+    got = tool.marked_cluster_source("poly_shard", "ps_rotate_kernel(const RotateArgs g)",
+                                     "// The fused kernel's attributes",
+                                     r"cluster_barrier\(global\);").read_text()
+    marked = r"\n( *)__syncthreads\(\);\n\1(cluster_barrier\(global\);)\n\1__syncthreads\(\);"
+    assert len(re.findall(marked, got)) == src.count("cluster_barrier(global);") == 5
+    assert re.sub(marked, r"\n\1\2", got) == src
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,10 @@ class PolyShardTables:
     butterflies take the scale), ``pwd_f``/``pwd_i`` (P, D) om^(C j) and
     om^-(C j) D^-1, ``r2`` (P,) R^2 mod p, and ``consts`` the kernels'
     packed constant table (ops/ntt.py _kernel_consts) with R in place of
-    N^-1, so that its Garner takes the residues as they are."""
+    N^-1, so that its Garner takes the residues as they are.  K9's fused
+    entry reads ``packed`` (D, P, 6, C) int32: each slot's tw_f, twd_f,
+    pw_f, twd_i, tw_ci, pw_i, and ``packed_cross`` (P, 2, D) int32:
+    pwd_f, pwd_i."""
 
     n: int
     d: int
@@ -122,6 +125,8 @@ class PolyShardTables:
     pwd_i: torch.Tensor
     r2: torch.Tensor
     consts: torch.Tensor
+    packed: torch.Tensor
+    packed_cross: torch.Tensor
 
     @property
     def c(self) -> int:
@@ -145,17 +150,23 @@ def device_tables(n: int, n_dev: int, device: str, num_primes: int = 4) -> PolyS
     if consts is not None:
         consts[8:8 + plan.num_primes] = [_R % p for p in plan.primes]
     to = lambda x: x.to(device)  # noqa: E731
+    pw_f = t["vc_f"][:, 1 % c, :].contiguous()
+    pw_i_t = torch.tensor(pw_i, dtype=torch.int64)
+    tw_ci_t = torch.from_numpy(np.ascontiguousarray(np.stack(tw_ci, axis=1)))
+    pwd_f = t["vd_f"][:, 1 % n_dev, :].contiguous()
+    pwd_i = t["vd_i"][:, 1 % n_dev, :].contiguous()
+    slots = (n_dev,) + tuple(pw_f.shape)
+    packed = torch.stack([t["tw_f"], t["twd_f"], pw_f.expand(slots), t["twd_i"], tw_ci_t,
+                          pw_i_t.expand(slots)], dim=2)
     return PolyShardTables(
         n=n, d=n_dev, dp=ntt.device_plan(plan, device),
         **{k: to(t[k]) for k in ("tw_f", "tw_i", "twd_f", "twd_i", "vc_f", "vc_i", "vd_f",
                                  "vd_i")},
-        pw_f=to(t["vc_f"][:, 1 % c, :].contiguous()),
-        pw_i=to(torch.tensor(pw_i, dtype=torch.int64)),
-        tw_ci=to(torch.from_numpy(np.ascontiguousarray(np.stack(tw_ci, axis=1)))),
-        pwd_f=to(t["vd_f"][:, 1 % n_dev, :].contiguous()),
-        pwd_i=to(t["vd_i"][:, 1 % n_dev, :].contiguous()),
+        pw_f=to(pw_f), pw_i=to(pw_i_t), tw_ci=to(tw_ci_t), pwd_f=to(pwd_f), pwd_i=to(pwd_i),
         r2=to(torch.from_numpy(plan.r2s[:, 0].astype(np.int64))),
-        consts=None if consts is None else to(torch.from_numpy(consts)))
+        consts=None if consts is None else to(torch.from_numpy(consts)),
+        packed=to(packed.to(torch.int32).contiguous()),
+        packed_cross=to(torch.stack([pwd_f, pwd_i], dim=1).to(torch.int32).contiguous()))
 
 
 # ---------------------------------------------------------------------------
@@ -254,3 +265,76 @@ def inverse_plain(yb: torch.Tensor, t: PolyShardTables, slot: int) -> torch.Tens
     y = ntt.mont_mul(y, t.twd_i[slot], p, pinv)
     z = ntt.mont_mul(_dense(y, t.vc_i, p, pinv), t.tw_i[slot], p, pinv)
     return ntt.garner_to_u64(z, dp)
+
+
+# ---------------------------------------------------------------------------
+# The rotation as a loop of steps over the slots
+# ---------------------------------------------------------------------------
+
+
+def all_to_all(parts: list, devs: list) -> list:
+    """parts[a]: (D, ...) on slot a, block b for slot b -> on slot b the
+    (D, ...) stack of every slot a's block b."""
+    return [torch.stack([p[b].to(dev) for p in parts]) for b, dev in enumerate(devs)]
+
+
+def all_gather(slices: list, devices: list) -> dict:
+    """The (D, ...) stack of every slot's slice on each of ``devices``."""
+    return {dev: torch.stack([s.to(dev) for s in slices]) for dev in devices}
+
+
+def forward_split(rows_by_slot: list, tabs: list, levels: int = 0, base_log: int = 0,
+                  forward=forward_plain) -> list:
+    """Entry (a) on each slot and the exchange: slot b's (D, L, M, P, C/D)."""
+    d = len(tabs)
+    parts = []
+    for a, (x, t) in enumerate(zip(rows_by_slot, tabs)):
+        f = forward(x, t, a, levels, base_log)                          # (L, M, P, C)
+        parts.append(f.reshape(f.shape[:-1] + (d, t.c // d)).movedim(-2, 0))
+    return all_to_all(parts, [t.pw_f.device for t in tabs])
+
+
+def inverse_split(outs: list, tabs: list, inverse=inverse_plain) -> list:
+    """The exchange back and entry (c) on each slot: slot a's (M, C) words."""
+    devs = [t.pw_f.device for t in tabs]
+    back = all_to_all([o.reshape((o.shape[0], -1) + tuple(o.shape[-2:])) for o in outs], devs)
+    return [inverse(y, t, a) for a, (y, t) in enumerate(zip(back, tabs))]
+
+
+def interleave(stack: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """(D, rows, C) slices -> (..., N) with slot a's c-th value at a + D c."""
+    return stack.permute(1, 2, 0).reshape(shape)
+
+
+def rotate_steps(msed_mask, msed_body, lut, parts: list, tabs: list, base_log: int,
+                 levels: int, forward=forward_plain, cross=cross_plain,
+                 inverse=inverse_plain) -> torch.Tensor:
+    """The blind rotation one CMux step at a time over the D slots of
+    ``tabs`` (slot a's tables on its device; ``parts[a]`` its key slices
+    (n, l, k+1, k+1, P, C)): the plain version of K9's fused entry, and,
+    with K9's three step entries as the stages, the route of a mesh whose
+    slots lie on distinct devices.  The accumulator is kept on each
+    distinct device; each step rotates it, takes each slot's coefficients,
+    runs the forward split with the digits, the cross stage with the slot's
+    key slice and the inverse split, and adds the gathered slices:
+    (B, k+1, N) on the first slot's device, the words of ops/server.py
+    ``blind_rotate``."""
+    d = len(tabs)
+    devs = [t.pw_f.device for t in tabs]
+    b, k1, n_poly = lut.shape
+    homes = list(dict.fromkeys(devs))          # one accumulator a distinct device
+    acc0 = server.monomial_div(lut, msed_body[:, None, None])
+    acc = {dev: acc0.to(dev) for dev in homes}
+    mask = {dev: msed_mask.to(dev) for dev in homes}
+    for i in range(msed_mask.shape[1]):
+        ct1 = {dev: server.monomial_mul(acc[dev], mask[dev][:, i, None, None]) - acc[dev]
+               for dev in homes}
+        rows = [ct1[dev][..., a::d].reshape(b * k1, -1).contiguous()
+                for a, dev in enumerate(devs)]
+        ya = forward_split(rows, tabs, levels, base_log, forward)
+        outs = [cross(y, t, parts[s][i], batch=b, k1=k1)
+                for s, (y, t) in enumerate(zip(ya, tabs))]
+        full = all_gather(inverse_split(outs, tabs, inverse), homes)
+        for dev in homes:
+            acc[dev] = acc[dev] + interleave(full[dev], (b, k1, n_poly))
+    return acc[devs[0]]

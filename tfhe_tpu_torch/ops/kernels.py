@@ -46,7 +46,9 @@ kernel at the 2_2 shape, ``extended_route``, else its generic kernel; the
 E slots of a ciphertext in one cluster) and K9 ``poly_shard_forward``,
 ``poly_shard_cross`` and ``poly_shard_inverse`` (csrc/poly_shard.cu, the
 slot-local stages of the four-step split of parallel/poly_shard.py; plain
-versions in ops/four_step.py) are
+versions in ops/four_step.py) and its fused entry ``poly_shard_rotate``
+(the whole poly-sharded rotation in one launch, one thread-block cluster a
+ciphertext, where every slot is the same card: ``poly_rotation_route``) are
 compiled with nvcc for sm_90a into shared libraries with a plain C interface at first use (utils/build.py, all
 compilers started together) and called through ctypes on PyTorch's current
 stream.
@@ -243,8 +245,11 @@ def load() -> dict:
         ps.tfhe_torch_poly_shard_cross.argtypes = ([vp] * 7 + [i] * 5 + [ctypes.c_longlong, i]
                                                    + [vp])
         ps.tfhe_torch_poly_shard_inverse.argtypes = [vp] * 6 + [i] * 3 + [vp]
+        ps.tfhe_torch_poly_shard_rotate.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        ps.tfhe_torch_poly_shard_rotate_plan.argtypes = [i] * 4 + [vp]
         for fn in (ps.tfhe_torch_poly_shard_forward, ps.tfhe_torch_poly_shard_cross,
-                   ps.tfhe_torch_poly_shard_inverse):
+                   ps.tfhe_torch_poly_shard_inverse, ps.tfhe_torch_poly_shard_rotate,
+                   ps.tfhe_torch_poly_shard_rotate_plan):
             fn.restype = i
         for name, n_args in (("blind_rotate_cluster_occupancy", 3),
                              ("blind_rotate_cluster_smem", 3),
@@ -1783,3 +1788,117 @@ def poly_shard_inverse(yb, t: four_step.PolyShardTables, slot: int) -> torch.Ten
 
 
 poly_shard_inverse.launches = 0
+
+
+# The fused entry's limits (csrc/poly_shard.cu rotate_shape): D slots of a
+# power of two up to 8 with D^2 dividing N, k+1 and l up to 8, C = N / D
+# from 8 to 8192, base_log up to 30.
+K9_MAX_SLOTS = 8
+K9_MAX_K1 = 8
+K9_MAX_LEVELS = 8
+K9_MAX_LOG_C = 13
+
+
+def poly_rotation_route(devices, d: int, k1: int, levels: int, n_poly: int) -> str:
+    """How parallel/poly_shard.py sharded_blind_rotate_poly runs a mesh's
+    slots (pure Python, no card needed): "fused" where every slot is the
+    same CUDA device and the shape is one K9's fused entry takes (or every
+    slot the CPU, where that entry's plain version runs), "steps" where the
+    slots lie on distinct devices (K9's three step entries a CMux step a
+    slot, the exchanges between devices); a ValueError naming the limit
+    for a one-card shape the fused entry does not take."""
+    devs = [torch.device(x) for x in devices]
+    _require(len(devs) == d, f"{len(devs)} devices for {d} slots")
+    if len(set(devs)) > 1:
+        return "steps"
+    if devs[0].type == "cpu":
+        return "fused"
+    _require(devs[0].type == "cuda", f"no K9 kernel for {devs[0]}")
+    _require(d in (1, 2, 4, K9_MAX_SLOTS),
+             f"the fused K9 entry takes D in 1, 2, 4, {K9_MAX_SLOTS} slots, not {d}")
+    _require(n_poly % (d * d) == 0 and n_poly & (n_poly - 1) == 0,
+             f"N = {n_poly} does not split over D = {d} slots (D^2 must divide N)")
+    log_c = (n_poly // d).bit_length() - 1
+    _require(3 <= log_c <= K9_MAX_LOG_C,
+             f"the fused K9 entry takes C = N / D from 8 to {1 << K9_MAX_LOG_C}, "
+             f"not {n_poly // d}")
+    _require(1 <= k1 <= K9_MAX_K1, f"the fused K9 entry takes k+1 <= {K9_MAX_K1}, not {k1}")
+    _require(1 <= levels <= K9_MAX_LEVELS,
+             f"the fused K9 entry takes l <= {K9_MAX_LEVELS}, not {levels}")
+    return "fused"
+
+
+@lru_cache(maxsize=None)
+def poly_rotate_plan(device_index: int, d: int, k1: int, levels: int, n_poly: int) -> dict:
+    """How K9's fused kernel runs a shape on card ``device_index``, from the
+    kernel's own plan (csrc/poly_shard.cu rotate_plan, asked once a device
+    and shape): primes a block (1, or 2 at D = 8), blocks a slot and a
+    cluster (one cluster a ciphertext), where the state lives (tier 0 words,
+    rows, tables and the double-buffered key slice in shared memory; 1 the
+    key slice read from global memory; 2 the tables too; 3 the words and
+    rows in a global scratch of ``block_bytes`` a block), its shared memory
+    a block and the clusters the card holds at once; raises where that is
+    0 or an error."""
+    plan = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(device_index):
+        err = load()["poly_shard"].tfhe_torch_poly_shard_rotate_plan(
+            d, k1, levels, (n_poly // d).bit_length() - 1, plan)
+    _raise_on(err, "poly_shard_rotate_plan")
+    keys = ("primes_per_block", "blocks_per_slot", "cluster", "tier", "shared_memory_bytes",
+            "block_bytes", "active_clusters")
+    out = dict(zip(keys, plan), threads=512)
+    if out["active_clusters"] <= 0:
+        raise RuntimeError(
+            f"the card holds 0 clusters of K9's fused kernel at D = {d}, k+1 = {k1}, "
+            f"l = {levels}, N = {n_poly}: {out['cluster']} blocks of {out['threads']} "
+            f"threads and {out['shared_memory_bytes']} B of shared memory a block")
+    return out
+
+
+def poly_shard_rotate(msed_mask, msed_body, lut, key, t: four_step.PolyShardTables,
+                      base_log: int, levels: int) -> torch.Tensor:
+    """K9's fused entry: the blind rotation of lut (B, k+1, N) int64 by
+    msed_body (B,) and msed_mask (B, n) in [0, 2N) on the key's evaluation
+    slices key (D, n, l, k+1, k+1, P, C) int32 (PolyShardedKey.whole) with
+    the split's tables t of D slots: all n CMux steps in one launch, one
+    cluster a ciphertext (``poly_rotate_plan``), the words of ops/server.py
+    ``blind_rotate``.  On CPU tensors its plain version, the step loop
+    (four_step.rotate_steps) on the plain stages, runs."""
+    if lut.device.type == "cpu":
+        return four_step.rotate_steps(msed_mask, msed_body, lut, list(key.unbind(0)),
+                                      [t] * t.d, base_log, levels)
+    _require(lut.device.type == "cuda", f"no K9 kernel for {lut.device}")
+    b, k1, n_poly = lut.shape
+    d, n_steps = t.d, msed_mask.shape[1]
+    _require(poly_rotation_route([lut.device] * d, d, k1, levels, n_poly) == "fused",
+             "the fused entry runs one device")
+    _require(1 <= base_log <= 30 and base_log * levels < 64,
+             f"the fused K9 entry takes base_log <= 30, not {base_log}")
+    _require(n_poly == t.n and msed_mask.shape[0] == b and msed_body.shape == (b,),
+             "mask, body and LUT do not fit the tables")
+    _require(key is not None and tuple(key.shape) == (d, n_steps, levels, k1, k1, KERNEL_PRIMES,
+                                                      t.c),
+             f"key slices {None if key is None else tuple(key.shape)} do not fit the batch")
+    _k9_tables(t, lut.device)
+    plan = poly_rotate_plan(lut.device.index, d, k1, levels, n_poly)
+    lut = lut.contiguous()
+    mask32 = msed_mask.to(torch.int32).contiguous()
+    body32 = msed_body.to(torch.int32).contiguous()
+    _check_cuda((lut, torch.int64), (mask32, torch.int32), (body32, torch.int32),
+                (key, torch.int32), (t.packed, torch.int32), (t.packed_cross, torch.int32),
+                (t.consts, torch.int64))
+    _require(key.data_ptr() % 16 == 0, "the key must be 16-byte aligned")
+    scratch = (torch.empty(b * plan["cluster"] * plan["block_bytes"], dtype=torch.uint8,
+                           device=lut.device) if plan["tier"] == 3 else None)
+    out = torch.empty_like(lut)
+    err = load()["poly_shard"].tfhe_torch_poly_shard_rotate(
+        out.data_ptr(), lut.data_ptr(), body32.data_ptr(), mask32.data_ptr(), key.data_ptr(),
+        t.packed.data_ptr(), t.packed_cross.data_ptr(), t.consts.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, n_steps, k1, levels, base_log, d,
+        t.c.bit_length() - 1, _stream(lut))
+    _raise_on(err, "poly_shard_rotate")
+    poly_shard_rotate.launches += 1
+    return out
+
+
+poly_shard_rotate.launches = 0

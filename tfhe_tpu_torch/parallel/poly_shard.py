@@ -3,31 +3,36 @@ the slots of a mesh (tfhe_tpu/parallel/poly_shard.py; SURVEY §2.13 P5).
 
 The four-step split (ops/four_step.py): slot a holds coefficients a::D;
 each transform is a slot-local stage, an exchange of blocks between the
-slots, and another slot-local stage.  The slot-local stages are K9's three
-entries (csrc/poly_shard.cu, through ops/kernels.py; on CPU tensors their
-plain versions); the exchanges are copies between the slots' tensors,
-``all_to_all`` and ``all_gather`` below, on the current stream of each
-slot's device.  One process drives every slot, and slots may share a
-device: one card runs D slots in turn.
+slots, and another slot-local stage.  One process drives every slot, and
+slots may share a device.
 
-``sharded_blind_rotate_poly`` keeps the accumulator replicated (one copy
-on each distinct device) and the bootstrap key's evaluation slices
-sharded (1/D a slot).  Each CMux step: rotate and take each slot's
-coefficients (torch), entry (a) with the gadget digits, all_to_all, entry
-(b) with the slot's key slice, all_to_all back, entry (c) with Garner,
-all_gather of the slices, added to the accumulator: 3 D K9 launches a
-step, and the words of ops/server.py ``blind_rotate``.
+``sharded_blind_rotate_poly`` follows ``kernels.poly_rotation_route``:
+- "fused", every slot the same card: K9's fused entry
+  (``kernels.poly_shard_rotate``, csrc/poly_shard.cu), the whole rotation
+  in one launch, one thread-block cluster a ciphertext whose blocks hold
+  the slots, the exchanges through distributed shared memory; on the CPU
+  its plain version, the step loop below on the plain stages;
+- "steps", slots on distinct devices: the step loop
+  (ops/four_step.py ``rotate_steps``) on K9's three step entries, the
+  accumulator kept on each distinct device, the exchanges copies between
+  the slots' tensors (``all_to_all``, ``all_gather``) on the current
+  stream of each slot's device: 3 D launches a step.
+Both give the words of ops/server.py ``blind_rotate``.  The key's
+evaluation slices are sharded (1/D a slot); where every slot shares one
+device they are one tensor, the slots' parts views of it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
-from ..ops import kernels, torus
+from ..ops import four_step, kernels, torus
 from ..ops import server as srv
-from ..ops.four_step import device_tables, make_poly_shard_tables  # noqa: F401 (public)
+from ..ops.four_step import (all_gather, all_to_all, device_tables,  # noqa: F401 (public)
+                             interleave, make_poly_shard_tables, rotate_steps)
 from .mesh import Mesh, place
 
 
@@ -35,43 +40,14 @@ def _tables(n: int, devs: list, n_primes: int) -> list:
     return [device_tables(n, len(devs), str(dev), n_primes) for dev in devs]
 
 
-def all_to_all(parts: list, devs: list) -> list:
-    """parts[a]: (D, ...) on slot a, block b for slot b -> on slot b the
-    (D, ...) stack of every slot a's block b."""
-    return [torch.stack([p[b].to(dev) for p in parts]) for b, dev in enumerate(devs)]
-
-
-def all_gather(slices: list, devices: list) -> dict:
-    """The (D, ...) stack of every slot's slice on each of ``devices``."""
-    return {dev: torch.stack([s.to(dev) for s in slices]) for dev in devices}
-
-
-def _forward_split(rows_by_slot: list, tabs: list, levels: int = 0, base_log: int = 0) -> list:
-    """Entry (a) on each slot and the exchange: slot b's (D, L, M, P, C/D)."""
-    d = len(tabs)
-    parts = []
-    for a, (x, t) in enumerate(zip(rows_by_slot, tabs)):
-        f = kernels.poly_shard_forward(x, t, a, levels, base_log)     # (L, M, P, C)
-        parts.append(f.reshape(f.shape[:-1] + (d, t.c // d)).movedim(-2, 0))
-    return all_to_all(parts, [t.pw_f.device for t in tabs])
-
-
-def _inverse_split(outs: list, tabs: list) -> list:
-    """The exchange back and entry (c) on each slot: slot a's (M, C) words."""
-    devs = [t.pw_f.device for t in tabs]
-    back = all_to_all([o.reshape((o.shape[0], -1) + tuple(o.shape[-2:])) for o in outs], devs)
-    return [kernels.poly_shard_inverse(y, t, a) for a, (y, t) in enumerate(zip(back, tabs))]
+_forward_split = partial(four_step.forward_split, forward=kernels.poly_shard_forward)
+_inverse_split = partial(four_step.inverse_split, inverse=kernels.poly_shard_inverse)
 
 
 def _strided(x: torch.Tensor, d: int, devs: list) -> list:
     """x (..., N) -> slot a's (rows, N/D) coefficients a::D on its device."""
     n = x.shape[-1]
     return [x[..., a::d].reshape(-1, n // d).contiguous().to(dev) for a, dev in enumerate(devs)]
-
-
-def _interleave(stack: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """(D, rows, C) slices -> (..., N) with slot a's c-th value at a + D c."""
-    return stack.permute(1, 2, 0).reshape(shape)
 
 
 def sharded_negacyclic_polymul(mesh: Mesh, a: torch.Tensor, b: torch.Tensor,
@@ -93,15 +69,18 @@ def sharded_negacyclic_polymul(mesh: Mesh, a: torch.Tensor, b: torch.Tensor,
                                              key_per_row=True))
     slices = _inverse_split(outs, tabs)
     full = all_gather(slices, [a.device])[a.device]
-    return _interleave(full, a.shape)
+    return interleave(full, a.shape)
 
 
 @dataclass(frozen=True, eq=False)
 class PolyShardedKey:
     """A bootstrap key's evaluation slices: ``parts[b]`` (n, l, k+1, k+1,
-    P, C) int32 Montgomery form on slot b's device."""
+    P, C) int32 Montgomery form on slot b's device; ``whole`` (D, n, l,
+    k+1, k+1, P, C), the one tensor the parts are views of, where every
+    slot shares a device (K9's fused entry reads it), else None."""
 
     parts: list
+    whole: torch.Tensor | None = None
 
     def gather(self) -> torch.Tensor:
         """tfhe_tpu's layout (n, l, k+1, k+1, P, D, C) on the CPU."""
@@ -117,17 +96,24 @@ def prepare_bsk_poly_sharded(mesh: Mesh, bsk_u64, n_primes: int = 4,
     """(n, l, k+1, k+1, N) u64 GGSW rows (a uint64 array or int64 words)
     -> their evaluation slices, one part a slot (tfhe_tpu
     poly_shard.py:239): produced by the same forward split the rotation
-    runs, so no layout bookkeeping can drift."""
+    runs, so no layout bookkeeping can drift.  Where the slots share one
+    device the parts are written into one (D, ...) tensor."""
     words = bsk_u64 if isinstance(bsk_u64, torch.Tensor) else torus.from_u64(bsk_u64, "cpu")
     devs = mesh.axis_devices(axis_name)
     d = len(devs)
     lead = tuple(words.shape[:-1])
     tabs = _tables(words.shape[-1], devs, n_primes)
+    one = len(set(devs)) == 1
+    whole = (torch.empty((d,) + lead + (n_primes, words.shape[-1] // d), dtype=torch.int32,
+                         device=devs[0]) if one else None)
     parts = []
-    for t, ya in zip(tabs, _forward_split(_strided(words, d, devs), tabs)):
-        ev = kernels.poly_shard_cross(ya, t)[0]                          # (rows, P, C)
-        parts.append(ev.reshape(lead + tuple(ev.shape[-2:])))
-    return PolyShardedKey(parts)
+    for s, (t, ya) in enumerate(zip(tabs, _forward_split(_strided(words, d, devs), tabs))):
+        ev = kernels.poly_shard_cross(ya, t)[0].reshape(lead + (n_primes, t.c))
+        if one:
+            whole[s].copy_(ev)
+            ev = whole[s]
+        parts.append(ev)
+    return PolyShardedKey(parts, whole)
 
 
 def sharded_blind_rotate_poly(mesh: Mesh, msed_mask, msed_body, lut,
@@ -136,31 +122,28 @@ def sharded_blind_rotate_poly(mesh: Mesh, msed_mask, msed_body, lut,
                               axis_name: str = "poly") -> torch.Tensor:
     """Batched blind rotation with the key's polynomial axis split over the
     mesh (tfhe_tpu poly_shard.py:285), the words of ops/server.py
-    ``blind_rotate``.  msed_mask (B, n) in [0, 2N), msed_body (B,), lut
-    (B, k+1, N) int64; bsk_evals from ``prepare_bsk_poly_sharded``.
-    Returns the accumulator (B, k+1, N) on lut's device."""
+    ``blind_rotate``, by ``kernels.poly_rotation_route``: K9's fused entry
+    where every slot is the same device, else the step loop on K9's step
+    entries.  msed_mask (B, n) in [0, 2N), msed_body (B,), lut (B, k+1, N)
+    int64; bsk_evals from ``prepare_bsk_poly_sharded``.  Returns the
+    accumulator (B, k+1, N) on lut's device."""
     if bits != 64:
         raise ValueError("the poly-sharded rotation runs the 2^64 torus")
     devs = mesh.axis_devices(axis_name)
     d = len(devs)
     b, k1, n_poly = lut.shape
-    tabs = _tables(n_poly, devs, n_primes)
-    homes = list(dict.fromkeys(devs))          # one accumulator a distinct device
-    acc0 = srv.monomial_div(lut, msed_body[:, None, None])
-    acc = {dev: acc0.to(dev) for dev in homes}
-    mask = {dev: msed_mask.to(dev) for dev in homes}
-    for i in range(msed_mask.shape[1]):
-        ct1 = {dev: srv.monomial_mul(acc[dev], mask[dev][:, i, None, None]) - acc[dev]
-               for dev in homes}
-        rows = [ct1[dev][..., a::d].reshape(b * k1, -1).contiguous()
-                for a, dev in enumerate(devs)]
-        ya = _forward_split(rows, tabs, levels, base_log)
-        outs = [kernels.poly_shard_cross(y, t, bsk_evals.parts[s][i], batch=b, k1=k1)
-                for s, (y, t) in enumerate(zip(ya, tabs))]
-        full = all_gather(_inverse_split(outs, tabs), homes)
-        for dev in homes:
-            acc[dev] = acc[dev] + _interleave(full[dev], (b, k1, n_poly))
-    return acc[devs[0]].to(lut.device)
+    route = kernels.poly_rotation_route(devs, d, k1, levels, n_poly)
+    if route == "fused":
+        dev = devs[0]
+        t = device_tables(n_poly, d, str(dev), n_primes)
+        acc = kernels.poly_shard_rotate(msed_mask.to(dev), msed_body.to(dev), lut.to(dev),
+                                        bsk_evals.whole, t, base_log, levels)
+    else:
+        acc = rotate_steps(msed_mask, msed_body, lut, bsk_evals.parts,
+                           _tables(n_poly, devs, n_primes), base_log, levels,
+                           kernels.poly_shard_forward, kernels.poly_shard_cross,
+                           kernels.poly_shard_inverse)
+    return acc.to(lut.device)
 
 
 def sharded_ks_pbs_poly(mesh: Mesh, ct, lut, ksk, bsk_evals: PolyShardedKey,

@@ -4,7 +4,7 @@
 K2's exact kernels (csrc/blind_rotate.cu, csrc/blind_rotate_cluster.cu) on
 one CUDA card.
 
-    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k3c] [k2x] [cmux] [nophase]
+    python3 tools/phase_cycles.py [checks] [step] [k5] [k3x] [k3c] [k2x] [cmux] [k9] [nophase]
 
 From the root of a checkout.  For each kernel it times the real library
 (CUDA events, a head of the production shape's steps or groups on a
@@ -48,7 +48,15 @@ design, cmux_kernel) and, where the library has it and ``kernels.cmux_route``
 says so, the cluster C entry ``tfhe_torch_cmux_cluster``, each held
 against ``server.cmux``, timed in turns (CUDA events and CUDA graphs), the
 wrapper's route, time and host ms a call, and each kernel's phase table
-(one step).  Writes build/phase_cycles/phase.json.
+(one step).  ``k9`` does the same for K9's fused entry
+(kernels.poly_shard_rotate, csrc/poly_shard.cu ps_rotate_kernel: the
+whole poly-sharded rotation in one launch) at the 2_2 widths (k+1 = 2,
+N = 2048, l = 1, base 2^23) on random keys of 918 steps at K9_SHAPES (D,
+B): its plan, its first 16 steps held against the plain step loop
+(four_step.rotate_steps), the whole rotation's time (CUDA events over 3
+launches) and its phase table a step from a copy of the source whose
+fused kernel has a block barrier on each side of each cluster barrier
+(block 0 is slot 0's first prime).  Writes build/phase_cycles/phase.json.
 """
 import ctypes
 import json
@@ -75,7 +83,8 @@ FUNCS = ["tfhe_torch_blind_rotate", "tfhe_torch_blind_rotate_smem_bytes",
          "tfhe_torch_blind_rotate128", "tfhe_torch_blind_rotate128_smem_bytes",
          "tfhe_torch_blind_rotate_multibit", "tfhe_torch_blind_rotate_multibit_smem_bytes",
          "tfhe_torch_blind_rotate_multibit_cts_per_block", "tfhe_torch_blind_rotate_cluster",
-         "tfhe_torch_cmux", "tfhe_torch_cmux_cluster"]
+         "tfhe_torch_cmux", "tfhe_torch_cmux_cluster", "tfhe_torch_poly_shard_rotate",
+         "tfhe_torch_poly_shard_rotate_plan"]
 B = 512
 
 
@@ -132,7 +141,8 @@ extern "C" int ph_reset() {
 
 
 def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_cluster_kernel(",
-                          last="struct Operands {") -> pathlib.Path:
+                          last="struct Operands {",
+                          barrier=r"cluster\.sync\(\);(?=   //)") -> pathlib.Path:
     """A copy of csrc/<name>.cu whose kernels (the text from first to last:
     K2's cluster and small-N kernels, or K3's cluster kernel) have a block barrier on
     each side of each cluster barrier, so that the table shows the last
@@ -143,8 +153,7 @@ def marked_cluster_source(name="blind_rotate_cluster", first="blind_rotate_clust
         return CSRC / f"{name}.cu"
     start = text.index(first)
     end = text.index(last)
-    body = re.sub(r"\n( *)cluster\.sync\(\);   //",
-                  r"\n\1__syncthreads();\n\1cluster.sync();\n\1__syncthreads();  //",
+    body = re.sub(r"\n( *)(" + barrier + ")", r"\n\1__syncthreads();\n\1\2\n\1__syncthreads();",
                   text[start:end])
     out = HERE / f"{name}_marked.cu"
     out.write_text(text[:start] + body + text[end:])
@@ -178,7 +187,10 @@ def write_sources(names):
                                                 "constexpr int GC_MIN_BLOCKS = 3;"),
                "h_k7": lambda: marked_cluster_source(
                    "glwe_keyswitch", "glwe_keyswitch_cluster_kernel(",
-                   "cudaError_t gk_cluster_launch(")}
+                   "cudaError_t gk_cluster_launch("),
+               "h_k9": lambda: marked_cluster_source(
+                   "poly_shard", "ps_rotate_kernel(const RotateArgs g)",
+                   "// The fused kernel's attributes", r"cluster_barrier\(global\);")}
     for name in names:
         src = str(sources[name]())
         (HERE / f"{name}.cu").write_text(WRAPPER.replace("{source}", src) if name.startswith("h_")
@@ -841,6 +853,49 @@ def k7(libs, out, reps=10):
     out["k7"] = res
 
 
+K9_SHAPES = ((1, 1), (4, 1), (8, 1), (4, 4))   # (D, B)
+
+
+def k9(libs, out, steps=918, head=16):
+    """K9's fused entry at K9_SHAPES (see the module's docstring)."""
+    from tfhe_tpu_torch.ops import four_step
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n, k1, lev, bl = 2048, 2, 1, 23
+    res = {}
+    for d, b in K9_SHAPES:
+        t = four_step.device_tables(n, d, "cuda:0")
+        key = torch.remainder(torch.randint(0, 1 << 62, (d, steps, lev, k1, k1, 4, t.c),
+                                            generator=gen, device="cuda"),
+                              t.dp.ps.view(-1, 1)).to(torch.int32)
+        lut = torch.randint(-(1 << 62), 1 << 62, (b, k1, n), generator=gen, device="cuda")
+        mask = torch.randint(0, 2 * n, (b, steps), generator=gen, device="cuda")
+        body = torch.randint(0, 2 * n, (b,), generator=gen, device="cuda")
+        run = lambda: kernels.poly_shard_rotate(mask, body, lut, key, t, bl, lev)  # noqa: E731
+        h_mask, h_key = mask[:, :head].contiguous(), key[:, :head].contiguous()
+        got = kernels.poly_shard_rotate(h_mask, body, lut, h_key, t, bl, lev)
+        want = four_step.rotate_steps(h_mask, body, lut, list(h_key.unbind(0)), [t] * d, bl, lev)
+        row = {"slots": d, "batch": b, "steps": steps,
+               "plan": kernels.poly_rotate_plan(0, d, k1, lev, n),
+               f"words_differing_first_{head}_steps": int((got != want).sum())}
+        row["ms"] = ms(run, 3)
+        row["us_a_step"] = row["ms"] * 1e3 / steps
+        if "h_k9" in libs:
+            ref = run()
+            real = swap("poly_shard", libs["h_k9"])
+            try:
+                row["fused_phases"] = phases(libs["h_k9"], run, "poly_shard_marked.cu", steps)
+                row["ms_instrumented"] = ms(run, 1)
+                row["words_differing_instrumented"] = int((run() != ref).sum())
+            finally:
+                kernels._Libs.loaded["poly_shard"] = real
+        res[f"d{d}_b{b}"] = row
+        print("k9", f"d{d}_b{b}", {k: v for k, v in row.items() if not k.endswith("phases")},
+              flush=True)
+        del key
+    out["k9"] = res
+
+
 def generic_checks(out):
     """Shapes off the lazy kernels' main instances, B small, against plain."""
     from tfhe_tpu_torch.ops import server128
@@ -901,7 +956,7 @@ def main():
     want = sorted({n for n, w in (("h_k5", "k5"), ("h_k3", "k3x"), ("h_k3", "k3c"),
                                   ("h_k3c", "k3c"), ("h_k2", "k2x"), ("h_kc", "k2x"),
                                   ("h_k1", "k1g"), ("h_k7", "k7"), ("v_k7m3", "k7"),
-                                  ("h_k2", "cmux"), ("h_kc", "cmux"))
+                                  ("h_k2", "cmux"), ("h_kc", "cmux"), ("h_k9", "k9"))
                    if w in which and "nophase" not in which})
     libs = build(want)
     out = {"card": card, "build_s": time.time() - t0}
@@ -923,12 +978,14 @@ def main():
         k7(libs, out)
     if "cmux" in which:
         cmux(libs, out)
+    if "k9" in which:
+        k9(libs, out)
     out["seconds"] = time.time() - t0
     HERE.mkdir(parents=True, exist_ok=True)
     (HERE / "phase.json").write_text(json.dumps(out, indent=1))
     tables = (list(out.get("k2x_test", {}).items()) + list(out.get("k3c", {}).items())
               + list(out.get("k1g", {}).items()) + list(out.get("k7", {}).items())
-              + list(out.get("cmux", {}).items()))
+              + list(out.get("cmux", {}).items()) + list(out.get("k9", {}).items()))
     for tag, row in tables:
         for name in [k[:-len("_phases")] for k in row if k.endswith("_phases")]:
             ph = row.get(f"{name}_phases")
